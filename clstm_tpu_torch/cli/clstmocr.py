@@ -1,0 +1,115 @@
+"""clstmocr — OCR inference CLI (port of clstm_tpu/cli/clstmocr.py).
+
+Reference: clstmocr.cc (≈L1-150, unverified). Usage:
+  load=model.clstm python -m clstm_tpu_torch.cli.clstmocr IMG.png [IMG2.png ...]
+Env params:
+  load=model.clstm  (required) model file
+  output=text       "text" prints to stdout; "sidecar" writes IMG.txt files
+  charseg=0         also print per-character x positions (CharPrediction,
+                    in ORIGINAL image columns)
+  dewarp=center     normalizer kind; target_height is the model's input size
+  device=cuda       torch device; if CUDA is asked for and absent, this
+                    raises rather than running on the CPU
+  device_preprocess=0  host scipy normalization (the only path ported so
+                    far; 1 raises NotImplementedError)
+All given images are bucketed by width and run as batches, not one by one.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+
+from clstm_tpu_torch.data.dataset import T_BUCKETS, bucket_for
+from clstm_tpu_torch.io.png import read_png
+from clstm_tpu_torch.models.hl import CLSTMOCR
+from clstm_tpu_torch.ops.ctc import decode_frames
+from clstm_tpu_torch.utils.config import getienv, getsenv
+
+
+def predict_pages(ocr: CLSTMOCR, images, device_preprocess: int = 0) -> dict:
+    """The CLI's bucketed batched page-inference core: -> {image index:
+    (frame classes, peak positions, frame vals, width scale)}."""
+    if device_preprocess:
+        raise NotImplementedError(
+            "device_preprocess=1 (on-device line normalization, "
+            "clstm_tpu/ops/preprocess.py) is not ported yet; use "
+            "device_preprocess=0")
+    results: dict = {}
+    prepared = []
+    scales = []
+    for img in images:
+        prepared.append(ocr.prepare(img))
+        scales.append(ocr._scale)
+    by_bucket: dict = {}
+    for i, x in enumerate(prepared):
+        tb = bucket_for(x.shape[0], T_BUCKETS)
+        by_bucket.setdefault(tb, []).append(i)
+    for tb, idxs in by_bucket.items():
+        H = prepared[idxs[0]].shape[1]
+        xb = np.zeros((len(idxs), tb, H), np.float32)
+        lengths = np.zeros(len(idxs), np.int32)
+        for r, i in enumerate(idxs):
+            x = prepared[i]
+            T = min(x.shape[0], tb)
+            xb[r, :T] = x[:T]
+            lengths[r] = T
+        ids, vals = ocr.predict_batch(xb, lengths)
+        for r, i in enumerate(idxs):
+            L = lengths[r]
+            cls, pos = decode_frames(ids[r][:L], vals[r][:L],
+                                     return_positions=True)
+            results[i] = (cls, pos, vals[r], scales[i])
+    return results
+
+
+def write_outputs(ocr: CLSTMOCR, argv, images, results: dict,
+                  output: str = "text", charseg: int = 0) -> None:
+    """Decode + emit results (stdout or .txt sidecars; reference output
+    stage of clstmocr.cc)."""
+    for i, f in enumerate(argv):
+        cls, pos, vals, scale = results[i]
+        text = ocr.codec.decode(cls)
+        if output == "sidecar":
+            out = f
+            for ext in (".png", ".jpg", ".jpeg"):
+                if out.endswith(ext):
+                    out = out[: -len(ext)]
+                    break
+            with open(out + ".txt", "w", encoding="utf-8") as fh:
+                fh.write(text + "\n")
+        else:
+            print(f"{f}\t{text}")
+        if charseg:
+            w = images[i].shape[1]
+            for j, (c, t) in enumerate(zip(cls, pos)):
+                ch = chr(ocr.codec.codec[c])
+                col = int(np.clip(round((t - ocr.pad) / scale), 0, w - 1))
+                print(f"# {j} {col} {ch!r} {vals[t]:.3f}")
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    load = getsenv("load", "")
+    if not load or not argv:
+        print(__doc__)
+        return 1
+    output = getsenv("output", "text")
+    charseg = getienv("charseg", 0)
+    dewarp = getsenv("dewarp", "center")
+    device_preprocess = getienv("device_preprocess", 0)
+
+    ocr = CLSTMOCR(dewarp=dewarp, device=getsenv("device", "cuda"))
+    ocr.load(load)
+    # target_height is the net's input dim (persisted in proto attrs).
+    ocr.target_height = ocr.spec.iget("ninput", ocr.target_height)
+
+    images = [read_png(f) for f in argv]
+    results = predict_pages(ocr, images, device_preprocess)
+    write_outputs(ocr, argv, images, results, output, charseg)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

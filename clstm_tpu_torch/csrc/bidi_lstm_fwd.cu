@@ -1,0 +1,180 @@
+// Bidirectional LSTM inference forward, f32, for sm_90a.
+//
+// Replaces the TPU kernel clstm_tpu/ops/pallas_lstm.py::_fwd_kernel with
+// emit_state=False, proj_in=False (reached through
+// bidi_lstm_pallas(..., with_state=False) on the serving path). Same
+// contract as clstm_tpu_torch/ops/lstm.py::bidi_lstm_apply:
+//
+//   x [B,T,D] f32, lengths [B] int32 (or NULL: all T), fused weights per
+//   direction Wx [D,4H], Wh [H,4H], b [4H], gate order (gi, gf, go, ci)
+//   -> y [B,T,2H] f32, forward half then reverse half.
+//   z = [x_t | 1]·[Wx; b] + h·Wh; gi, gf, go sigmoid; ci tanh;
+//   c' = gf·c + gi·ci; h' = tanh(c')·go.
+//   The reverse direction starts from zero state at t = len-1 and walks
+//   down to t = 0 (flip within length). y is exactly 0.0 on every frame
+//   t >= len, in both halves, and on rows with len == 0. Lengths are
+//   clamped to [0, T].
+//
+// What bounds it: a serial chain of T steps per direction, each a
+// [rows,D+1+H] x [D+1+H,4H] product followed by the gate math. At the
+// serving shape (D=48, H=100) that is ~0.5 MFLOP per row tile per step:
+// latency, not bytes or FLOPs, is the limit.
+//
+// Design (simple first; bf16 operands, mma/wgmma on the recurrent product
+// and shared-memory staging of Wh are left for later work):
+//   grid = (ceil(B / ROWS) row tiles, 2 directions); one block walks its
+//   tile's time chain in a loop. h, c, x_t and z for the tile live in
+//   shared memory. Phase 1: one thread per gate column j < 4H computes
+//   z[r, j] for the tile's ROWS rows, reading Wx and Wh column-wise from
+//   global memory (coalesced across j; 2·(D+1+H)·4H·4 B ≈ 477 KB for both
+//   directions, resident in L2) — each weight read is reused ROWS times.
+//   The input projection is computed here, inside the kernel, as
+//   _fill_xz_split does on the TPU. Phase 2: one thread per (row, unit)
+//   applies the gates, updates c and h, writes y, and loads the next
+//   step's x_t. Two barriers per step.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int ROWS = 4;
+
+__device__ __forceinline__ float sigmoid_f32(float v) {
+  return 1.0f / (1.0f + expf(-v));
+}
+
+// Load x_t for every row of the tile at chain step s into xs [ROWS, D]
+// (zeros for rows whose chain has ended).
+__device__ __forceinline__ void load_x(float* xs, const float* __restrict__ x,
+                                       const int* lens, int b0, int s, int T,
+                                       int D, int dir) {
+  for (int i = threadIdx.x; i < ROWS * D; i += blockDim.x) {
+    const int r = i / D;
+    const int d = i - r * D;
+    const int L = lens[r];
+    float v = 0.0f;
+    if (s < L) {
+      const int t = dir == 0 ? s : L - 1 - s;
+      v = x[((size_t)(b0 + r) * T + t) * D + d];
+    }
+    xs[i] = v;
+  }
+}
+
+__global__ void bidi_lstm_fwd_kernel(const float* __restrict__ x,
+                                     const int32_t* __restrict__ lengths,
+                                     const float* __restrict__ wx,
+                                     const float* __restrict__ wh,
+                                     const float* __restrict__ bias,
+                                     float* __restrict__ y, int B, int T,
+                                     int D, int H) {
+  extern __shared__ float smem[];
+  __shared__ int lens[ROWS];
+  const int G = 4 * H;
+  float* xs = smem;            // [ROWS, D]
+  float* hs = xs + ROWS * D;   // [ROWS, H]
+  float* cs = hs + ROWS * H;   // [ROWS, H]
+  float* zs = cs + ROWS * H;   // [ROWS, 4H]
+
+  const int dir = blockIdx.y;
+  const int b0 = blockIdx.x * ROWS;
+  wx += (size_t)dir * D * G;
+  wh += (size_t)dir * H * G;
+  bias += (size_t)dir * G;
+
+  if (threadIdx.x < ROWS) {
+    const int b = b0 + threadIdx.x;
+    int L = 0;
+    if (b < B) L = lengths ? lengths[b] : T;
+    lens[threadIdx.x] = min(max(L, 0), T);
+  }
+  for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x) {
+    hs[i] = 0.0f;
+    cs[i] = 0.0f;
+  }
+  __syncthreads();
+  int lmax = 0;
+  for (int r = 0; r < ROWS; ++r) lmax = max(lmax, lens[r]);
+
+  // Frames t >= len are padding in both halves: exact zeros.
+  for (int r = 0; r < ROWS && b0 + r < B; ++r) {
+    const int L = lens[r];
+    for (int i = threadIdx.x; i < (T - L) * H; i += blockDim.x) {
+      const int t = L + i / H;
+      const int k = i - (t - L) * H;
+      y[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + k] = 0.0f;
+    }
+  }
+
+  load_x(xs, x, lens, b0, 0, T, D, dir);
+  __syncthreads();
+  for (int s = 0; s < lmax; ++s) {
+    // Phase 1: gate pre-activations z [ROWS, 4H].
+    for (int j = threadIdx.x; j < G; j += blockDim.x) {
+      float acc[ROWS];
+      const float bj = bias[j];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) acc[r] = bj;
+      for (int d = 0; d < D; ++d) {
+        const float w = wx[(size_t)d * G + j];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(xs[r * D + d], w, acc[r]);
+      }
+      for (int k = 0; k < H; ++k) {
+        const float w = wh[(size_t)k * G + j];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) zs[r * G + j] = acc[r];
+    }
+    __syncthreads();
+    // Phase 2: cell update and output; then stage the next step's input.
+    for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x) {
+      const int r = i / H;
+      const int k = i - r * H;
+      const int L = lens[r];
+      if (s < L) {
+        const float* z = zs + r * G;
+        const float gi = sigmoid_f32(z[k]);
+        const float gf = sigmoid_f32(z[H + k]);
+        const float go = sigmoid_f32(z[2 * H + k]);
+        const float ci = tanhf(z[3 * H + k]);
+        const float c = gf * cs[i] + gi * ci;
+        const float h = tanhf(c) * go;
+        cs[i] = c;
+        hs[i] = h;
+        const int t = dir == 0 ? s : L - 1 - s;
+        y[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + k] = h;
+      }
+    }
+    if (s + 1 < lmax) load_x(xs, x, lens, b0, s + 1, T, D, dir);
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+// Launches on `stream`; returns cudaGetLastError() (0 on success). All
+// pointers are device pointers; `lengths` may be NULL. wx, wh, b hold the
+// forward direction's weights followed by the reverse direction's:
+// wx [2,D,4H], wh [2,H,4H], b [2,4H]. B, T, D, H >= 1.
+extern "C" int clstm_bidi_lstm_fwd(const float* x, const int32_t* lengths,
+                                   const float* wx, const float* wh,
+                                   const float* b, float* y, int B, int T,
+                                   int D, int H, void* stream) {
+  const size_t smem = (size_t)ROWS * (D + 6 * H) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bidi_lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int threads = ((4 * H + 31) / 32) * 32;
+  if (threads > 1024) threads = 1024;
+  const dim3 grid((B + ROWS - 1) / ROWS, 2);
+  bidi_lstm_fwd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      x, lengths, wx, wh, b, y, B, T, D, H);
+  return (int)cudaGetLastError();
+}

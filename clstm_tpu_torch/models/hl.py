@@ -1,0 +1,136 @@
+"""High-level OCR API: the prediction half of CLSTMOCR (port of
+clstm_tpu/models/hl.py).
+
+Reference: clstmhl.h (≈L1-350, unverified). ``CLSTMOCR`` owns the line
+normalizer and the image->sequence transpose; ``predict_utf8`` and
+``predict`` are the reference's single-line methods and ``predict_batch``
+the batched entry point they route through. Training methods are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from clstm_tpu_torch.data.dataset import T_BUCKETS, bucket_for, prepare_line
+from clstm_tpu_torch.io.normalize import make_normalizer
+from clstm_tpu_torch.io.proto import load_net, save_net
+from clstm_tpu_torch.models.codec import Codec
+from clstm_tpu_torch.models.spec import Layer, NetSpec, apply_net
+from clstm_tpu_torch.ops.ctc import decode_frames, greedy_frames
+from clstm_tpu_torch.utils.config import torch_device
+
+_clamp_warned = False
+
+
+def _warn_inference_clamp(T: int, tb: int) -> None:
+    """One-time warning when an inference input exceeds the largest T bucket
+    and gets clamped (silent truncation would quietly shorten
+    transcriptions)."""
+    global _clamp_warned
+    if T > tb and not _clamp_warned:
+        _clamp_warned = True
+        warnings.warn(
+            f"inference input of {T} frames exceeds the largest bucket "
+            f"({tb}); output is truncated to the first {tb} frames",
+            stacklevel=3)
+
+
+@dataclasses.dataclass
+class CharPrediction:
+    """Aligned per-character prediction (reference CharPrediction {i,x,c,p})."""
+
+    i: int      # character index in the output string
+    x: int      # x position (frame index mapped back to image columns)
+    c: str      # predicted character
+    p: float    # probability at the peak frame
+
+
+class CLSTMOCR:
+    """Line-image OCR (reference CLSTMOCR, clstmhl.h ≈L60-250).
+
+    Inputs are float [h, w] grayscale images in [0, 1] (ink black on white);
+    the time axis is the image width. The net and every batch live on
+    ``device``; asking for CUDA where there is none raises.
+    """
+
+    def __init__(self, target_height: int = 48, dewarp: str = "center",
+                 pad: int = 16, *, device):
+        self.device = torch_device(device)
+        self.target_height = target_height
+        self.dewarp = dewarp
+        self.pad = pad
+        self._scale = 1.0
+        self.spec: Optional[NetSpec] = None
+        self.net: Optional[Layer] = None
+        self.codec: Optional[Codec] = None
+        self.icodec: Optional[Codec] = None
+
+    # -- checkpointing (reference save/load; .clstm proto format) --
+    def save(self, fname: str) -> None:
+        """Write the .clstm file (weights and codecs)."""
+        save_net(fname, self.net, codec=self.codec, icodec=self.icodec)
+
+    def load(self, fname: str) -> None:
+        """Load a .clstm file onto this model's device."""
+        self.spec, self.net, codec, icodec = load_net(fname, self.device)
+        if codec is not None:
+            self.codec = codec
+        if icodec is not None:
+            self.icodec = icodec
+
+    # -- preprocessing --
+    def prepare(self, image: np.ndarray) -> np.ndarray:
+        norm = make_normalizer(self.dewarp, self.target_height)
+        x = prepare_line(image, norm, self.pad)
+        # Width scale of the last prepared line (normalized cols per source
+        # col), for mapping frame positions back to image x coordinates.
+        self._scale = float(getattr(norm, "scale", 1.0)) or 1.0
+        return x
+
+    # -- inference --
+    def predict_batch(self, x: np.ndarray, lengths: np.ndarray):
+        """Right-padded [B, T, H] lines and their lengths -> per-frame
+        (ids [B, T], vals [B, T]) numpy arrays: the no-grad forward on the
+        model's device, then the per-frame argmax."""
+        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
+        lt = torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(self.device)
+        probs = apply_net(self.net, xt, lt, inference=True)
+        ids, vals = greedy_frames(probs)
+        return ids.cpu().numpy(), vals.cpu().numpy()
+
+    def _predict_one(self, x: np.ndarray):
+        tb = bucket_for(x.shape[0], T_BUCKETS)
+        _warn_inference_clamp(x.shape[0], tb)
+        x = x[:tb]  # clamp over-bucket lines
+        xb = np.zeros((1, tb, x.shape[1]), np.float32)
+        xb[0, : x.shape[0]] = x
+        ids, vals = self.predict_batch(xb, np.array([x.shape[0]], np.int32))
+        return ids[0][: x.shape[0]], vals[0][: x.shape[0]]
+
+    def predict_utf8(self, image: np.ndarray) -> str:
+        x = self.prepare(image)
+        ids, vals = self._predict_one(x)
+        return self.codec.decode(decode_frames(ids, vals))
+
+    def predict(self, image: np.ndarray) -> List[CharPrediction]:
+        """Aligned per-character predictions (reference aligned/charseg).
+
+        ``x`` is reported in ORIGINAL image columns: the peak frame index is
+        un-padded, then divided by the normalizer's width scale."""
+        x = self.prepare(image)
+        w = image.shape[1]
+        ids, vals = self._predict_one(x)
+        cls, pos = decode_frames(ids, vals, return_positions=True)
+        out = []
+        for i, (c, t) in enumerate(zip(cls, pos)):
+            col = (int(t) - self.pad) / self._scale
+            out.append(CharPrediction(
+                i=i, x=int(np.clip(round(col), 0, max(w - 1, 0))),
+                c=chr(self.codec.codec[c]), p=float(vals[t])))
+        return out

@@ -1,0 +1,288 @@
+"""NetSpec: static network topology, the layer registry, and one
+``nn.Module`` per layer kind (port of clstm_tpu/models/spec.py).
+
+Reference mapping (≈L unverified, SURVEY.md §0): ``INetwork`` {kind, attr
+Assoc, sub networks} -> frozen ``NetSpec`` tree plus the module tree built
+from it; the global layer registry + ``make_layer(kind)`` -> ``REGISTRY`` /
+``make_layer`` keyed by the same kind strings, so .clstm files reconstruct.
+
+The spec stays plain Python data, so the proto round trip is structural
+identity. Each module keeps its spec and its own weights under the JAX
+package's names (NPLSTM: Wx [D,4H], Wh [H,4H], b [4H]; affine: W [ni,no],
+b [no]); sub networks live in ``module.sub``. Batches are right-padded
+[B, T, D] float32 with int32 ``lengths[B]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional, Sequence
+
+import torch
+from torch import nn
+
+from clstm_tpu_torch.ops.bidi_lstm_kernel import bidi_lstm_infer
+from clstm_tpu_torch.ops.lstm import lstm_apply
+from clstm_tpu_torch.ops.nonlin import nonlin_apply
+from clstm_tpu_torch.ops.seq import flip_within_length
+
+
+@dataclasses.dataclass(frozen=True)
+class NetSpec:
+    """Static description of one network node (reference INetwork sans
+    state). ``attr`` is the reference's string->string Assoc, stored as a
+    sorted tuple of pairs so the spec is hashable."""
+
+    kind: str
+    attr: tuple = ()
+    sub: tuple = ()
+
+    @staticmethod
+    def make(kind: str, attr: Optional[Mapping] = None,
+             sub: Sequence["NetSpec"] = ()) -> "NetSpec":
+        items = tuple(sorted((str(k), str(v)) for k, v in (attr or {}).items()))
+        return NetSpec(kind=kind, attr=items, sub=tuple(sub))
+
+    def get(self, key: str, default=None):
+        for k, v in self.attr:
+            if k == key:
+                return v
+        return default
+
+    def iget(self, key: str, default: Optional[int] = None) -> int:
+        v = self.get(key)
+        if v is None:
+            if default is None:
+                raise KeyError(f"{self.kind}: missing int attr {key!r}")
+            return default
+        return int(v)
+
+    def dget(self, key: str, default: Optional[float] = None) -> float:
+        v = self.get(key)
+        if v is None:
+            if default is None:
+                raise KeyError(f"{self.kind}: missing float attr {key!r}")
+            return default
+        return float(v)
+
+
+REGISTRY: dict = {}   # kind -> Layer subclass, constructed as module(spec)
+_ALIASES: dict = {}
+
+
+def register_layer(kind: str, module: type, aliases: Sequence[str] = ()):
+    REGISTRY[kind] = module
+    for a in aliases:
+        _ALIASES[a] = kind
+
+
+def resolve_kind(kind: str) -> str:
+    if kind in REGISTRY:
+        return kind
+    if kind in _ALIASES:
+        return _ALIASES[kind]
+    raise ValueError(f"unknown layer kind: {kind!r}")
+
+
+def make_layer(kind: str, attr: Optional[Mapping] = None,
+               sub: Sequence[NetSpec] = ()) -> NetSpec:
+    """Reference ``make_layer(kind)`` — construct a spec node by kind string."""
+    return NetSpec.make(resolve_kind(kind), attr, sub)
+
+
+def layer(kind: str, ninput: int, noutput: int, args: Optional[Mapping] = None,
+          sub: Sequence[NetSpec] = ()) -> NetSpec:
+    """Reference ``layer(...)`` combinator helper: build a node and record
+    ninput/noutput attrs."""
+    attr = dict(args or {})
+    attr.setdefault("ninput", ninput)
+    attr.setdefault("noutput", noutput)
+    return make_layer(kind, attr, sub)
+
+
+# ---------------------------------------------------------------------------
+# Build / init / apply
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ApplyCtx:
+    """Flags threaded through the forward pass."""
+
+    logits: bool = False   # make the final SoftmaxLayer emit logits
+
+
+def build_net(spec: NetSpec) -> "Layer":
+    """Module tree mirroring the spec tree, weights zero, on the CPU."""
+    return REGISTRY[resolve_kind(spec.kind)](spec)
+
+
+def init_net(spec: NetSpec, generator: torch.Generator,
+             device="cpu") -> "Layer":
+    """Build the module tree and draw its weights from ``generator`` (a CPU
+    generator), preorder: each node's own weights, then its subs."""
+    net = build_net(spec)
+    for m in net.modules():
+        if isinstance(m, Layer):
+            m.reset_parameters(generator)
+    return net.to(device)
+
+
+def apply_net(net: "Layer", x: torch.Tensor,
+              lengths: Optional[torch.Tensor] = None, *,
+              logits: bool = False, inference: bool = False) -> torch.Tensor:
+    """Forward pass: [B, T, D] right-padded batch -> [B, T, O].
+
+    ``logits=True`` makes the outermost SoftmaxLayer return pre-softmax
+    logits (the reference's backward_softmax treats the injected delta as
+    the pre-activation delta). ``inference=True`` runs the pass without
+    autograd — the no-grad forward that prediction runs, which is what lets
+    the bidi pair take the CUDA inference kernel.
+    """
+    ctx = ApplyCtx(logits=logits)
+    if inference:
+        with torch.no_grad():
+            return net(x, lengths, ctx)
+    return net(x, lengths, ctx)
+
+
+# ---------------------------------------------------------------------------
+# Layer kinds
+# ---------------------------------------------------------------------------
+
+_INIT_SCALE = 0.01  # reference uniform init scale (rinit "unif", unverified)
+
+
+class Layer(nn.Module):
+    """One node of the layer tree: its spec, its own weights, its subs."""
+
+    def __init__(self, spec: NetSpec):
+        super().__init__()
+        self.spec = spec
+        self.sub = nn.ModuleList([build_net(s) for s in spec.sub])
+
+    def weights(self) -> dict:
+        """This node's own weights by name (not the subs')."""
+        return dict(self.named_parameters(recurse=False))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Uniform in [-initial, initial] (reference rinit "unif")."""
+        s = self.spec.dget("initial", _INIT_SCALE)
+        with torch.no_grad():
+            for p in self.weights().values():
+                p.uniform_(-s, s, generator=generator)
+
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        raise NotImplementedError
+
+
+_NONLIN = {"LinearLayer": "LIN", "SigmoidLayer": "SIG", "TanhLayer": "TANH",
+           "ReluLayer": "RELU"}
+
+
+class Affine(Layer):
+    """Full layer: nonlin(x·W + b) (reference forward_full1)."""
+
+    def __init__(self, spec: NetSpec):
+        super().__init__(spec)
+        ni, no = spec.iget("ninput"), spec.iget("noutput")
+        self.W = nn.Parameter(torch.zeros(ni, no))
+        self.b = nn.Parameter(torch.zeros(no))
+
+    def affine(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x.float(), self.W) + self.b
+
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        nl = _NONLIN[resolve_kind(self.spec.kind)]
+        return nonlin_apply(nl, self.affine(x)).to(x.dtype)
+
+
+class Softmax(Affine):
+    """DTYPE CONTRACT: SoftmaxLayer always returns f32 posteriors/logits,
+    regardless of input dtype; other layer kinds preserve x.dtype."""
+
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        z = self.affine(x)
+        if ctx.logits:
+            return z
+        return torch.softmax(z, dim=-1)
+
+
+class NPLSTM(Layer):
+    def __init__(self, spec: NetSpec):
+        super().__init__(spec)
+        ni, nh = spec.iget("ninput"), spec.iget("nhidden")
+        self.Wx = nn.Parameter(torch.zeros(ni, 4 * nh))
+        self.Wh = nn.Parameter(torch.zeros(nh, 4 * nh))
+        self.b = nn.Parameter(torch.zeros(4 * nh))
+
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        return lstm_apply(self.weights(), x, lengths)
+
+
+class Stacked(Layer):
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        n = len(self.sub)
+        for i, s in enumerate(self.sub):
+            x = s(x, lengths, dataclasses.replace(
+                ctx, logits=ctx.logits and i == n - 1))
+        return x
+
+
+def _is_bidi_pair(spec: NetSpec) -> bool:
+    """Detect the reference bidi idiom Parallel(NPLSTM, Reversed(NPLSTM)) so
+    it can dispatch to the fused bidirectional kernel. The spec tree (and so
+    the .clstm layout) is unchanged — this is purely an execution-plan
+    choice."""
+    if len(spec.sub) != 2:
+        return False
+    a, b = spec.sub
+    return (resolve_kind(a.kind) == "NPLSTM"
+            and resolve_kind(b.kind) == "Reversed"
+            and len(b.sub) == 1
+            and resolve_kind(b.sub[0].kind) == "NPLSTM"
+            and a.iget("nhidden") == b.sub[0].iget("nhidden"))
+
+
+class Parallel(Layer):
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        if _is_bidi_pair(self.spec):
+            pf = self.sub[0].weights()
+            pr = self.sub[1].sub[0].weights()
+            if x.is_cuda and torch.is_grad_enabled() and (
+                    x.requires_grad or any(
+                        w.requires_grad
+                        for w in (*pf.values(), *pr.values()))):
+                raise NotImplementedError(
+                    "bidi LSTM with gradients on CUDA: the training forward "
+                    "and backward kernels (K1, K2) are not ported yet "
+                    "(ROADMAP.md Queue 1 item 2). Run the no-grad forward "
+                    "(apply_net(..., inference=True)) or train on CPU tensors.")
+            return bidi_lstm_infer(pf, pr, x, lengths)
+        sub_ctx = dataclasses.replace(ctx, logits=False)
+        return torch.cat([s(x, lengths, sub_ctx) for s in self.sub], dim=-1)
+
+
+class Reversed(Layer):
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        sub_ctx = dataclasses.replace(ctx, logits=False)
+        y = self.sub[0](flip_within_length(x, lengths), lengths, sub_ctx)
+        return flip_within_length(y, lengths)
+
+
+class Botched(Layer):
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        # Reference ``Botched`` guards partially-implemented nets by aborting
+        # in forward/backward.
+        raise NotImplementedError(
+            "Botched layer: forward is intentionally unimplemented")
+
+
+for _kind, _al in (("LinearLayer", "linear"), ("SigmoidLayer", "sigmoid"),
+                   ("TanhLayer", "tanh"), ("ReluLayer", "relu")):
+    register_layer(_kind, Affine, (_al,))
+register_layer("SoftmaxLayer", Softmax, ("softmax",))
+register_layer("NPLSTM", NPLSTM, ("lstm", "LSTM"))
+register_layer("Stacked", Stacked, ("stacked",))
+register_layer("Parallel", Parallel, ("parallel",))
+register_layer("Reversed", Reversed, ("reversed",))
+register_layer("Botched", Botched)
