@@ -1,9 +1,15 @@
-// Bidirectional LSTM inference forward, f32, for sm_90a.
+// Bidirectional LSTM forward, f32, for sm_90a, in two modes of one kernel
+// (template flag EMIT):
 //
-// Replaces the TPU kernel clstm_tpu/ops/pallas_lstm.py::_fwd_kernel with
-// emit_state=False, proj_in=False (reached through
-// bidi_lstm_pallas(..., with_state=False) on the serving path). Same
-// contract as clstm_tpu_torch/ops/lstm.py::bidi_lstm_apply:
+//   K3 (EMIT=false, clstm_bidi_lstm_fwd): replaces the TPU kernel
+//   clstm_tpu/ops/pallas_lstm.py::_fwd_kernel with emit_state=False,
+//   proj_in=False (bidi_lstm_pallas(..., with_state=False), serving).
+//   K1 (EMIT=true, clstm_bidi_lstm_fwd_state): replaces the same kernel with
+//   emit_state=True (the forward of bidi_lstm_pallas's custom VJP,
+//   training). It also writes what the backward kernel K2 reads.
+//
+// Same contract as clstm_tpu_torch/ops/lstm.py::bidi_lstm_apply (K3) and
+// bidi_lstm_fwd_state_plain (K1):
 //
 //   x [B,T,D] f32, lengths [B] int32 (or NULL: all T), fused weights per
 //   direction Wx [D,4H], Wh [H,4H], b [4H], gate order (gi, gf, go, ci)
@@ -14,6 +20,13 @@
 //   down to t = 0 (flip within length). y is exactly 0.0 on every frame
 //   t >= len, in both halves, and on rows with len == 0. Lengths are
 //   clamped to [0, T].
+//   K1 also writes, in ORIGINAL time order per direction, gates [B,T,2,4H]
+//   (the activated gi, gf, go, ci of each step) and cell [B,T,2,H] (c after
+//   the step), both exactly 0 on frames t >= len. K2 takes h_prev and c_prev
+//   from y and cell at the frame before in chain order. Storing the
+//   activated gates (0.84 GB at B=256, T=1024, H=100) spares K2 a second
+//   serial [x|1|h]·W product per step: on this card the chain is bound by
+//   serial per-thread work, not by bytes (80 GB of memory, ~3.35 TB/s).
 //
 // What bounds it: a serial chain of T steps per direction, each a
 // [rows,D+1+H] x [D+1+H,4H] product followed by the gate math. At the
@@ -62,12 +75,15 @@ __device__ __forceinline__ void load_x(float* xs, const float* __restrict__ x,
   }
 }
 
+template <bool EMIT>
 __global__ void bidi_lstm_fwd_kernel(const float* __restrict__ x,
                                      const int32_t* __restrict__ lengths,
                                      const float* __restrict__ wx,
                                      const float* __restrict__ wh,
                                      const float* __restrict__ bias,
-                                     float* __restrict__ y, int B, int T,
+                                     float* __restrict__ y,
+                                     float* __restrict__ gates,
+                                     float* __restrict__ cell, int B, int T,
                                      int D, int H) {
   extern __shared__ float smem[];
   __shared__ int lens[ROWS];
@@ -104,6 +120,11 @@ __global__ void bidi_lstm_fwd_kernel(const float* __restrict__ x,
       const int t = L + i / H;
       const int k = i - (t - L) * H;
       y[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + k] = 0.0f;
+      if (EMIT) {
+        const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
+        cell[f * H + k] = 0.0f;
+        for (int g = 0; g < 4; ++g) gates[f * G + g * H + k] = 0.0f;
+      }
     }
   }
 
@@ -147,11 +168,38 @@ __global__ void bidi_lstm_fwd_kernel(const float* __restrict__ x,
         hs[i] = h;
         const int t = dir == 0 ? s : L - 1 - s;
         y[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + k] = h;
+        if (EMIT) {
+          const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
+          gates[f * G + k] = gi;
+          gates[f * G + H + k] = gf;
+          gates[f * G + 2 * H + k] = go;
+          gates[f * G + 3 * H + k] = ci;
+          cell[f * H + k] = c;
+        }
       }
     }
     if (s + 1 < lmax) load_x(xs, x, lens, b0, s + 1, T, D, dir);
     __syncthreads();
   }
+}
+
+template <bool EMIT>
+int launch(const float* x, const int32_t* lengths, const float* wx,
+           const float* wh, const float* b, float* y, float* gates,
+           float* cell, int B, int T, int D, int H, void* stream) {
+  const size_t smem = (size_t)ROWS * (D + 6 * H) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bidi_lstm_fwd_kernel<EMIT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int threads = ((4 * H + 31) / 32) * 32;
+  if (threads > 1024) threads = 1024;
+  const dim3 grid((B + ROWS - 1) / ROWS, 2);
+  bidi_lstm_fwd_kernel<EMIT><<<grid, threads, smem, (cudaStream_t)stream>>>(
+      x, lengths, wx, wh, b, y, gates, cell, B, T, D, H);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -164,17 +212,18 @@ extern "C" int clstm_bidi_lstm_fwd(const float* x, const int32_t* lengths,
                                    const float* wx, const float* wh,
                                    const float* b, float* y, int B, int T,
                                    int D, int H, void* stream) {
-  const size_t smem = (size_t)ROWS * (D + 6 * H) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bidi_lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int threads = ((4 * H + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const dim3 grid((B + ROWS - 1) / ROWS, 2);
-  bidi_lstm_fwd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x, lengths, wx, wh, b, y, B, T, D, H);
-  return (int)cudaGetLastError();
+  return launch<false>(x, lengths, wx, wh, b, y, nullptr, nullptr, B, T, D,
+                       H, stream);
+}
+
+// K1: as clstm_bidi_lstm_fwd, and also writes gates [B,T,2,4H] and
+// cell [B,T,2,H].
+extern "C" int clstm_bidi_lstm_fwd_state(const float* x,
+                                         const int32_t* lengths,
+                                         const float* wx, const float* wh,
+                                         const float* b, float* y,
+                                         float* gates, float* cell, int B,
+                                         int T, int D, int H, void* stream) {
+  return launch<true>(x, lengths, wx, wh, b, y, gates, cell, B, T, D, H,
+                      stream);
 }

@@ -1,5 +1,5 @@
-"""Line preparation and width buckets (port of the inference half of
-clstm_tpu/data/dataset.py).
+"""Line preparation, width buckets and target-length buckets (port of part
+of clstm_tpu/data/dataset.py).
 
 Line preparation matches the ocropy/reference recipe (clstmhl.h ≈L120):
 invert (ink high), measure+normalize, rescale to [0,1], transpose to
@@ -20,6 +20,9 @@ from clstm_tpu_torch.io.normalize import INormalizer
 # Geometric width buckets (frames, after padding); lines wider than the
 # last bucket are truncated to it.
 T_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096)
+# Target-state buckets (S = 2N+1 CTC states, padded up): S up to 512 covers
+# transcripts up to 255 characters.
+S_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512)
 
 
 def prepare_line(img: np.ndarray, normalizer: INormalizer,

@@ -1,28 +1,34 @@
-"""High-level OCR API: the prediction half of CLSTMOCR (port of
-clstm_tpu/models/hl.py).
+"""High-level OCR API: CLSTMOCR (port of clstm_tpu/models/hl.py).
 
 Reference: clstmhl.h (≈L1-350, unverified). ``CLSTMOCR`` owns the line
-normalizer and the image->sequence transpose; ``predict_utf8`` and
-``predict`` are the reference's single-line methods and ``predict_batch``
-the batched entry point they route through. Training methods are not ported
-yet.
+normalizer and the image->sequence transpose; ``train_utf8``,
+``predict_utf8`` and ``predict`` are the reference's single-line methods and
+``train_batch`` / ``predict_batch`` the batched entry points they route
+through. ``save``/``load`` write and read the .clstm file and, beside it,
+the ``.state.npz`` TrainState sidecar (io/checkpoint.py). CLSTMText, the
+device-cache training entry points and the mesh are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from clstm_tpu_torch.data.dataset import T_BUCKETS, bucket_for, prepare_line
+from clstm_tpu_torch.data.dataset import (
+    S_BUCKETS, T_BUCKETS, bucket_for, prepare_line)
+from clstm_tpu_torch.io.checkpoint import load_state, save_state
 from clstm_tpu_torch.io.normalize import make_normalizer
 from clstm_tpu_torch.io.proto import load_net, save_net
 from clstm_tpu_torch.models.codec import Codec
+from clstm_tpu_torch.models.prefab import make_net_init
 from clstm_tpu_torch.models.spec import Layer, NetSpec, apply_net
-from clstm_tpu_torch.ops.ctc import decode_frames, greedy_frames
+from clstm_tpu_torch.ops.ctc import decode_frames, greedy_frames, mktargets_ids
+from clstm_tpu_torch.train import TrainState, make_train_step, unpack_report
 from clstm_tpu_torch.utils.config import torch_device
 
 _clamp_warned = False
@@ -55,8 +61,8 @@ class CLSTMOCR:
     """Line-image OCR (reference CLSTMOCR, clstmhl.h ≈L60-250).
 
     Inputs are float [h, w] grayscale images in [0, 1] (ink black on white);
-    the time axis is the image width. The net and every batch live on
-    ``device``; asking for CUDA where there is none raises.
+    the time axis is the image width. The net, its training state and every
+    batch live on ``device``; asking for CUDA where there is none raises.
     """
 
     def __init__(self, target_height: int = 48, dewarp: str = "center",
@@ -67,22 +73,103 @@ class CLSTMOCR:
         self.pad = pad
         self._scale = 1.0
         self.spec: Optional[NetSpec] = None
-        self.net: Optional[Layer] = None
+        self.state: Optional[TrainState] = None
         self.codec: Optional[Codec] = None
         self.icodec: Optional[Codec] = None
+        self.lr = 1e-4
+        self.momentum = 0.9
+        self.normalization = "none"
+        self.gradient_clip = 0.0   # >0 enables global-norm clipping
+        self._step = None
+
+    @property
+    def net(self) -> Optional[Layer]:
+        """The module tree (the parameters of ``state``)."""
+        return None if self.state is None else self.state.net
+
+    # -- reference API --
+    def setLearningRate(self, lr: float, momentum: float = 0.9) -> None:
+        self.lr = float(lr)
+        self.momentum = float(momentum)
+
+    def createBidi(self, codec: Codec, nhidden: int, kind: str = "bidi",
+                   seed: int = 0, **extra) -> None:
+        """Build the standard bidi LSTM net: ninput=target_height,
+        noutput=codec.size() (reference createBidi -> make_net("bidi")),
+        weights drawn from a torch.Generator seeded with ``seed``."""
+        self.codec = codec
+        args = {"ninput": self.target_height, "nhidden": nhidden,
+                "noutput": codec.size(), **extra}
+        self.spec, net = make_net_init(
+            kind, args, torch.Generator().manual_seed(seed), self.device)
+        self.state = TrainState.create(net)
+        self._step = None
 
     # -- checkpointing (reference save/load; .clstm proto format) --
-    def save(self, fname: str) -> None:
-        """Write the .clstm file (weights and codecs)."""
+    def save(self, fname: str, sidecar: bool = True) -> None:
+        """Write the .clstm file (weights and codecs); with sidecar=True
+        also ``fname + '.state.npz'``, the full TrainState (velocity and
+        step), so a resumed run continues the same trajectory."""
         save_net(fname, self.net, codec=self.codec, icodec=self.icodec)
+        if sidecar:
+            save_state(fname + ".state.npz", self.state)
 
     def load(self, fname: str) -> None:
-        """Load a .clstm file onto this model's device."""
-        self.spec, self.net, codec, icodec = load_net(fname, self.device)
+        """Load a .clstm file onto this model's device; if a matching
+        ``.state.npz`` sidecar exists, also restore velocity and step."""
+        self.spec, net, codec, icodec = load_net(fname, self.device)
+        self.state = TrainState.create(net)
+        sidecar = fname + ".state.npz"
+        if os.path.exists(sidecar):
+            try:
+                self.state = load_state(sidecar, self.state)
+            except (ValueError, KeyError) as e:
+                warnings.warn(f"ignoring stale state sidecar {sidecar}: {e}")
         if codec is not None:
             self.codec = codec
         if icodec is not None:
             self.icodec = icodec
+        self._step = None
+
+    # -- training --
+    _BATCH_KEYS = ("x", "lengths", "targets", "target_lengths", "y")
+
+    def train_batch(self, batch: dict) -> dict:
+        """One CTC training step on a prepared batch dict of numpy arrays
+        (or tensors) {x, lengths, targets, target_lengths}. Returns metrics
+        {loss, frame_ids, frame_vals, report_ids, report_vals, report}."""
+        if self._step is None:
+            self._step = make_train_step(
+                self.spec, self.lr, self.momentum, loss_kind="ctc",
+                normalization=self.normalization,
+                gradient_clip=self.gradient_clip)
+        tb = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
+              if k in self._BATCH_KEYS}
+        self.state, metrics = self._step(self.state, tb, self.lr,
+                                         self.momentum)
+        return metrics
+
+    def _one_line_batch(self, x: np.ndarray, classes: Sequence[int]) -> dict:
+        tb = bucket_for(x.shape[0], T_BUCKETS)
+        x = x[:tb]  # over-bucket lines clamp at the largest bucket
+        ids = mktargets_ids(classes)
+        sb = bucket_for(len(ids), S_BUCKETS)
+        xb = np.zeros((1, tb, x.shape[1]), np.float32)
+        xb[0, : x.shape[0]] = x
+        tg = np.zeros((1, sb), np.int32)
+        tg[0, : len(ids)] = ids[:sb]
+        return {"x": xb,
+                "lengths": np.array([x.shape[0]], np.int32),
+                "targets": tg,
+                "target_lengths": np.array([min(len(ids), sb)], np.int32)}
+
+    def train_utf8(self, image: np.ndarray, gt: str) -> str:
+        """Train on one line; returns the (pre-update) prediction string."""
+        x = self.prepare(image)
+        batch = self._one_line_batch(x, self.codec.encode(gt))
+        metrics = self.train_batch(batch)
+        _, ids, vals = unpack_report(metrics["report"], x.shape[0])
+        return self.codec.decode(decode_frames(ids, vals))
 
     # -- preprocessing --
     def prepare(self, image: np.ndarray) -> np.ndarray:

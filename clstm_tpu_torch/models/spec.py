@@ -21,7 +21,8 @@ from typing import Mapping, Optional, Sequence
 import torch
 from torch import nn
 
-from clstm_tpu_torch.ops.bidi_lstm_kernel import bidi_lstm_infer
+from clstm_tpu_torch.ops.bidi_lstm_kernel import (
+    bidi_lstm_infer, bidi_lstm_train)
 from clstm_tpu_torch.ops.lstm import lstm_apply
 from clstm_tpu_torch.ops.nonlin import nonlin_apply
 from clstm_tpu_torch.ops.seq import flip_within_length
@@ -135,8 +136,9 @@ def apply_net(net: "Layer", x: torch.Tensor,
     ``logits=True`` makes the outermost SoftmaxLayer return pre-softmax
     logits (the reference's backward_softmax treats the injected delta as
     the pre-activation delta). ``inference=True`` runs the pass without
-    autograd — the no-grad forward that prediction runs, which is what lets
-    the bidi pair take the CUDA inference kernel.
+    autograd — the no-grad forward that prediction runs, where the bidi pair
+    takes the inference kernel (K3); with gradients it takes the training
+    kernels (K1 forward, K2 backward).
     """
     ctx = ApplyCtx(logits=logits)
     if inference:
@@ -248,15 +250,11 @@ class Parallel(Layer):
         if _is_bidi_pair(self.spec):
             pf = self.sub[0].weights()
             pr = self.sub[1].sub[0].weights()
-            if x.is_cuda and torch.is_grad_enabled() and (
+            if torch.is_grad_enabled() and (
                     x.requires_grad or any(
                         w.requires_grad
                         for w in (*pf.values(), *pr.values()))):
-                raise NotImplementedError(
-                    "bidi LSTM with gradients on CUDA: the training forward "
-                    "and backward kernels (K1, K2) are not ported yet "
-                    "(ROADMAP.md Queue 1 item 2). Run the no-grad forward "
-                    "(apply_net(..., inference=True)) or train on CPU tensors.")
+                return bidi_lstm_train(pf, pr, x, lengths)
             return bidi_lstm_infer(pf, pr, x, lengths)
         sub_ctx = dataclasses.replace(ctx, logits=False)
         return torch.cat([s(x, lengths, sub_ctx) for s in self.sub], dim=-1)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels: ``csrc/*.cu`` -> one shared
 library with a plain C interface, compiled by ``nvcc`` for sm_90a and loaded
-with ctypes.
+with ctypes. Each source is compiled by its own ``nvcc``, all started
+together, and the objects are then linked.
 
 The library is built at first use into ``clstm_tpu_torch/_build/`` (listed
 in .gitignore), under a name that carries the hash of the sources and the
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib = None
 
@@ -56,25 +57,43 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless a library for them already exists.
-    The output is written under a temporary name and renamed into place, so
-    a concurrent or interrupted build never leaves a partial library."""
+    The output is written in a temporary directory and renamed into place,
+    so a concurrent or interrupted build never leaves a partial library."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for obj, src in zip(objs, _sources())]
+        procs = []
+        try:
+            for cmd in cmds:
+                procs.append(subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            for cmd, proc in zip(cmds, procs):
+                output, _ = proc.communicate()
+                _check_run(cmd, proc.returncode, output)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        out = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", out, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        _check_run(cmd, res.returncode, res.stdout + res.stderr)
+        os.replace(out, so)
     return so
+
+
+def _check_run(cmd: list, returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{output}")
 
 
 def load_library() -> ctypes.CDLL:

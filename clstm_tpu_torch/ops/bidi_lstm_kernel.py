@@ -1,13 +1,20 @@
-"""Bidirectional LSTM inference forward: wrapper of the CUDA kernel
-``csrc/bidi_lstm_fwd.cu``.
+"""Bidirectional LSTM kernels: wrappers of ``csrc/bidi_lstm_fwd.cu`` and
+``csrc/bidi_lstm_bwd.cu``, and the autograd entry point of training.
 
-It replaces the TPU kernel ``clstm_tpu/ops/pallas_lstm.py::_fwd_kernel``
-with ``emit_state=False`` — what ``bidi_lstm_pallas(..., with_state=False)``
-runs on the serving path. Same semantics as ``ops/lstm.py::bidi_lstm_apply``,
-its plain version.
+  bidi_lstm_infer       K3, replaces clstm_tpu/ops/pallas_lstm.py::
+                        _fwd_kernel with emit_state=False (serving);
+  bidi_lstm_fwd_state   K1, the same TPU kernel with emit_state=True: the
+                        forward that also writes what the backward reads;
+  bidi_lstm_bwd_chain   K2's backward chain, replaces pallas_lstm.py::
+                        _bwd_kernel (L391-430);
+  bidi_lstm_bwd_reduce  K2's contractions dW, dWh and dx (the TPU kernel's
+                        own body, L440-463), written by hand as well;
+  bidi_lstm_train       a torch.autograd.Function: K1 forward, K2 backward
+                        (the custom VJP of bidi_lstm_pallas).
 
-On CPU tensors the wrapper runs the plain version. On CUDA tensors it
-launches the kernel or raises; it never falls back.
+Their plain versions are in ops/lstm.py (bidi_lstm_apply and the ``_plain``
+functions). On CPU tensors each wrapper runs its plain version; on CUDA
+tensors it launches its kernel or raises, and never falls back.
 """
 
 from __future__ import annotations
@@ -17,30 +24,77 @@ from typing import Optional
 
 import torch
 
-from clstm_tpu_torch.ops.lstm import bidi_lstm_apply
+from clstm_tpu_torch.ops.lstm import (
+    bidi_lstm_apply, bidi_lstm_bwd_chain_plain, bidi_lstm_bwd_reduce_plain,
+    bidi_lstm_fwd_state_plain)
 
-_fn = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types (pointers, ints, stream); all return int.
+_SIGNATURES = {
+    "clstm_bidi_lstm_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    "clstm_bidi_lstm_fwd_state": [_P] * 8 + [_I] * 4 + [_P],
+    "clstm_bidi_lstm_bwd_chain": [_P] * 6 + [_I] * 3 + [_P],
+    "clstm_bidi_lstm_bwd_nsplit": [_I] * 2,
+    "clstm_bidi_lstm_bwd_reduce": [_P] * 7 + [_I] * 4 + [_P],
+}
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
         from clstm_tpu_torch.ops._build import load_library
 
-        fn = load_library().clstm_bidi_lstm_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+        fn = getattr(load_library(), name)
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
+
+
+def _launch(name: str, device, *args) -> None:
+    """Call a C entry point on the current stream of ``device``; raise on
+    the CUDA error it returns."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _check_tensor(name: str, t: torch.Tensor, shape, device) -> None:
+    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous float32 {tuple(shape)} "
+                         f"tensor on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_lengths(lengths: Optional[torch.Tensor], B: int, device) -> None:
+    if lengths is not None and (
+            lengths.shape != (B,) or lengths.dtype != torch.int32
+            or lengths.device != device or not lengths.is_contiguous()):
+        raise ValueError(f"lengths must be a contiguous int32 [{B}] tensor "
+                         f"on {device}, got {lengths.dtype} "
+                         f"{tuple(lengths.shape)} on {lengths.device}")
+
+
+def _check_device(device) -> None:
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
 
 
 def _check(params_f: dict, params_r: dict, x: torch.Tensor,
            lengths: Optional[torch.Tensor]) -> None:
-    """Raise on anything the kernel does not take."""
+    """Raise on anything the forward kernels do not take."""
     if x.dim() != 3 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous [B, T, D] float32 tensor, "
                          f"got {x.dtype} {tuple(x.shape)}")
+    _check_device(x.device)
     B, T, D = x.shape
     H = params_f["Wh"].shape[0]
     want = {"Wx": (D, 4 * H), "Wh": (H, 4 * H), "b": (4 * H,)}
@@ -52,48 +106,171 @@ def _check(params_f: dict, params_r: dict, x: torch.Tensor,
                 raise ValueError(
                     f"{name} must be float32 {shape} on {x.device}, got "
                     f"{w.dtype} {tuple(w.shape)} on {w.device}")
-    if lengths is not None and (
-            lengths.shape != (B,) or lengths.dtype != torch.int32
-            or lengths.device != x.device or not lengths.is_contiguous()):
-        raise ValueError(f"lengths must be a contiguous int32 [{B}] tensor "
-                         f"on {x.device}, got {lengths.dtype} "
-                         f"{tuple(lengths.shape)} on {lengths.device}")
+    _check_lengths(lengths, B, x.device)
+
+
+def _stack(params_f: dict, params_r: dict, name: str) -> torch.Tensor:
+    return torch.stack([params_f[name], params_r[name]]).detach().contiguous()
 
 
 def bidi_lstm_infer(params_f: dict, params_r: dict, x: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x [B, T, D] f32, lengths [B] int32 or None (all T) -> y [B, T, 2H]
-    f32: forward half then reverse half, exactly 0.0 where t >= len.
+    """K3. x [B, T, D] f32, lengths [B] int32 or None (all T) -> y
+    [B, T, 2H] f32: forward half then reverse half, exactly 0.0 where
+    t >= len.
 
     ``params_*`` hold the fused weights {"Wx" [D,4H], "Wh" [H,4H],
-    "b" [4H]}. No gradient flows through the CUDA launch: the training
-    kernels (forward with state, backward) are not ported yet.
+    "b" [4H]}. No gradient flows through the CUDA launch: training runs
+    ``bidi_lstm_train``.
     """
     _check(params_f, params_r, x, lengths)
     if x.device.type == "cpu":
         return bidi_lstm_apply(params_f, params_r, x, lengths)
-    if x.device.type != "cuda":
-        raise ValueError(f"bidi_lstm_infer: unsupported device {x.device}")
     B, T, D = x.shape
     H = params_f["Wh"].shape[0]
     y = torch.empty((B, T, 2 * H), dtype=torch.float32, device=x.device)
     if B == 0 or T == 0:
         return y
-    wx = torch.stack([params_f["Wx"], params_r["Wx"]]).detach().contiguous()
-    wh = torch.stack([params_f["Wh"], params_r["Wh"]]).detach().contiguous()
-    b = torch.stack([params_f["b"], params_r["b"]]).detach().contiguous()
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), 0 if lengths is None else lengths.data_ptr(),
-                 wx.data_ptr(), wh.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 B, T, D, H, stream)
-    if err != 0:
-        raise RuntimeError(f"bidi_lstm_fwd kernel launch failed: CUDA error "
-                           f"{err}")
+    wx, wh, b = (_stack(params_f, params_r, n) for n in ("Wx", "Wh", "b"))
+    _launch("clstm_bidi_lstm_fwd", x.device, x.data_ptr(), _ptr(lengths),
+            wx.data_ptr(), wh.data_ptr(), b.data_ptr(), y.data_ptr(),
+            B, T, D, H)
     bidi_lstm_infer.launches += 1
     return y
 
 
+def bidi_lstm_fwd_state(params_f: dict, params_r: dict, x: torch.Tensor,
+                        lengths: Optional[torch.Tensor] = None):
+    """K1. As ``bidi_lstm_infer``, and also returns what K2 reads:
+    (y [B, T, 2H], gates [B, T, 2, 4H], cell [B, T, 2, H]), f32, original
+    time order per direction, exactly 0 on padded frames (see
+    ops/lstm.py::bidi_lstm_fwd_state_plain)."""
+    _check(params_f, params_r, x, lengths)
+    if x.device.type == "cpu":
+        return bidi_lstm_fwd_state_plain(params_f, params_r, x, lengths)
+    B, T, D = x.shape
+    H = params_f["Wh"].shape[0]
+    y = torch.empty((B, T, 2 * H), dtype=torch.float32, device=x.device)
+    gates = torch.empty((B, T, 2, 4 * H), dtype=torch.float32,
+                        device=x.device)
+    cell = torch.empty((B, T, 2, H), dtype=torch.float32, device=x.device)
+    if B == 0 or T == 0:
+        return y, gates, cell
+    wx, wh, b = (_stack(params_f, params_r, n) for n in ("Wx", "Wh", "b"))
+    _launch("clstm_bidi_lstm_fwd_state", x.device, x.data_ptr(),
+            _ptr(lengths), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
+            y.data_ptr(), gates.data_ptr(), cell.data_ptr(), B, T, D, H)
+    bidi_lstm_fwd_state.launches += 1
+    return y, gates, cell
+
+
+def bidi_lstm_bwd_chain(gates: torch.Tensor, cell: torch.Tensor,
+                        gy: torch.Tensor, Wh2: torch.Tensor,
+                        lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2's chain. gates [B, T, 2, 4H], cell [B, T, 2, H] (K1's), gy
+    [B, T, 2H] the cotangent of y, Wh2 [2, H, 4H] -> dz [B, T, 2, 4H],
+    exactly 0 on padded frames (see ops/lstm.py::bidi_lstm_bwd_chain_plain).
+    """
+    if gates.dim() != 4:
+        raise ValueError(f"gates must be [B, T, 2, 4H], got "
+                         f"{tuple(gates.shape)}")
+    B, T, _, G = gates.shape
+    H = G // 4
+    dev = gates.device
+    _check_device(dev)
+    _check_tensor("gates", gates, (B, T, 2, 4 * H), dev)
+    _check_tensor("cell", cell, (B, T, 2, H), dev)
+    _check_tensor("gy", gy, (B, T, 2 * H), dev)
+    _check_tensor("Wh2", Wh2, (2, H, 4 * H), dev)
+    _check_lengths(lengths, B, dev)
+    if dev.type == "cpu":
+        return bidi_lstm_bwd_chain_plain(gates, cell, gy, Wh2, lengths)
+    dz = torch.empty_like(gates)
+    if B == 0 or T == 0:
+        return dz
+    whT = Wh2.detach().transpose(1, 2).contiguous()
+    _launch("clstm_bidi_lstm_bwd_chain", dev, _ptr(lengths), gates.data_ptr(),
+            cell.data_ptr(), gy.data_ptr(), whT.data_ptr(), dz.data_ptr(),
+            B, T, H)
+    bidi_lstm_bwd_chain.launches += 1
+    return dz
+
+
+def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
+                         Wx2: torch.Tensor, need_dx: bool = True):
+    """K2's contractions. x [B, T, D], y [B, T, 2H] (K1's), dz
+    [B, T, 2, 4H], Wx2 [2, D, 4H] -> (dW [2, D+1+H, 4H], dx [B, T, D] or
+    None): per direction the rows of dW are dWx, the bias row, dWh (see
+    ops/lstm.py::bidi_lstm_bwd_reduce_plain). The sum over frames is
+    deterministic: a fixed split and a fixed-order second pass."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
+    B, T, D = x.shape
+    H = y.shape[-1] // 2
+    dev = x.device
+    _check_device(dev)
+    _check_tensor("x", x, (B, T, D), dev)
+    _check_tensor("y", y, (B, T, 2 * H), dev)
+    _check_tensor("dz", dz, (B, T, 2, 4 * H), dev)
+    _check_tensor("Wx2", Wx2, (2, D, 4 * H), dev)
+    if dev.type == "cpu":
+        return bidi_lstm_bwd_reduce_plain(x, y, dz, Wx2, need_dx)
+    M, G = D + 1 + H, 4 * H
+    dW = torch.empty((2, M, G), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x) if need_dx else None
+    if B == 0 or T == 0:
+        return dW.zero_(), None if dx is None else dx.zero_()
+    nsplit = _kernel("clstm_bidi_lstm_bwd_nsplit")(B, T)
+    part = torch.empty((nsplit, 2, M, G), dtype=torch.float32, device=dev)
+    _launch("clstm_bidi_lstm_bwd_reduce", dev, x.data_ptr(), y.data_ptr(),
+            dz.data_ptr(), Wx2.detach().data_ptr(), part.data_ptr(),
+            dW.data_ptr(), _ptr(dx), B, T, D, H)
+    bidi_lstm_bwd_reduce.launches += 1
+    return dW, dx
+
+
+class _BidiLSTMTrain(torch.autograd.Function):
+    """K1 forward, K2 backward (the custom VJP of bidi_lstm_pallas). The six
+    weight tensors come in separately, so autograd hands each gradient to
+    its own module parameter; they are stacked inside only."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, wxf, whf, bf, wxr, whr, br):
+        pf = {"Wx": wxf, "Wh": whf, "b": bf}
+        pr = {"Wx": wxr, "Wh": whr, "b": br}
+        y, gates, cell = bidi_lstm_fwd_state(pf, pr, x, lengths)
+        ctx.save_for_backward(x, lengths, y, gates, cell, wxf, whf, wxr, whr)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, lengths, y, gates, cell, wxf, whf, wxr, whr = ctx.saved_tensors
+        D = x.shape[-1]
+        # need_dx of the TPU kernel: x is training data unless it requires
+        # a gradient, and then dx is not computed at all.
+        need_dx = ctx.needs_input_grad[0]
+        dz = bidi_lstm_bwd_chain(gates, cell, gy.contiguous(),
+                                 torch.stack([whf, whr]), lengths)
+        dW, dx = bidi_lstm_bwd_reduce(x, y, dz, torch.stack([wxf, wxr]),
+                                      need_dx)
+        grads = [(dW[g, :D], dW[g, D + 1:], dW[g, D]) for g in (0, 1)]
+        return (dx, None, *grads[0], *grads[1])
+
+
+def bidi_lstm_train(params_f: dict, params_r: dict, x: torch.Tensor,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable bidirectional LSTM, same value as ``bidi_lstm_infer``:
+    K1 in the forward, K2 in the backward on a card, their plain versions
+    on CPU tensors. Gradients flow to the six weight tensors and, when it
+    requires one, to x."""
+    _check(params_f, params_r, x, lengths)
+    return _BidiLSTMTrain.apply(
+        x, lengths, params_f["Wx"], params_f["Wh"], params_f["b"],
+        params_r["Wx"], params_r["Wh"], params_r["b"])
+
+
 # Kernel launches since the last reset (CPU calls do not count).
 bidi_lstm_infer.launches = 0
+bidi_lstm_fwd_state.launches = 0
+bidi_lstm_bwd_chain.launches = 0
+bidi_lstm_bwd_reduce.launches = 0

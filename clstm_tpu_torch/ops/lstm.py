@@ -10,10 +10,16 @@ Per step: z = x_t·Wx + b + h·Wh; gi, gf, go sigmoid; ci tanh;
 c' = gf·c + gi·ci; h' = tanh(c')·go. Padded steps (t >= len) emit zeros
 and carry (h, c) through unchanged.
 
-Both functions are Python loops over T and run on any device. They are the
-plain versions the tests and chip_smoke.py hold the kernels against; on a
-card the serving path runs ``bidi_lstm_apply``'s kernel instead
-(ops/bidi_lstm_kernel.py).
+Every function here is plain PyTorch (Python loops over T) and runs on any
+device. They are the plain versions the tests and chip_smoke.py hold the
+kernels against; on a card the kernels of ops/bidi_lstm_kernel.py run
+instead:
+  bidi_lstm_apply       K3, the inference forward;
+  bidi_lstm_fwd_state_plain   K1, the training forward with the state
+                              the backward reads;
+  bidi_lstm_bwd_chain_plain   K2's backward chain (dz per frame);
+  bidi_lstm_bwd_reduce_plain  K2's contractions (dWx with the bias row,
+                              dWh, dx).
 """
 
 from __future__ import annotations
@@ -21,8 +27,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from clstm_tpu_torch.ops.seq import flip_within_length
+
 
 def _valid(lengths: Optional[torch.Tensor], B: int, T: int,
            device) -> torch.Tensor:
@@ -99,3 +107,129 @@ def bidi_lstm_apply(params_f: dict, params_r: dict, x: torch.Tensor,
     hs = torch.stack(outs, dim=2)                                # [2, B, T, H]
     yr = flip_within_length(hs[1], lengths)
     return torch.cat([hs[0], yr], dim=-1).to(x.dtype)
+
+
+def _to_dirs(a: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B, T, 2, ...] in original time order -> [2, B, T, ...] in chain
+    order (the reverse direction flipped within length)."""
+    return torch.stack([a[:, :, 0], flip_within_length(a[:, :, 1], lengths)])
+
+
+def _from_dirs(a: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """Inverse of ``_to_dirs``."""
+    return torch.stack([a[0], flip_within_length(a[1], lengths)], dim=2)
+
+
+def bidi_lstm_fwd_state_plain(params_f: dict, params_r: dict, x: torch.Tensor,
+                        lengths: Optional[torch.Tensor] = None):
+    """K1's plain version: ``bidi_lstm_apply`` plus the state the backward
+    pass reads, all f32 in ORIGINAL time order per direction:
+
+      y     [B, T, 2H]     the layer output (as bidi_lstm_apply);
+      gates [B, T, 2, 4H]  the activated gates (gi, gf, go, ci) of each step;
+      cell  [B, T, 2, H]   c after each step.
+
+    Every stream is exactly 0 on padded frames (t >= len). The pre-step
+    state is not stored: h_prev and c_prev of a frame are y and cell of the
+    frame before it in chain order (t-1 forward, t+1 reverse), 0 at a
+    chain's first step.
+    """
+    B, T, _ = x.shape
+    H = params_f["Wh"].shape[0]
+    if lengths is not None:
+        lengths = lengths.to(x.device).clamp(0, T)
+    xr = flip_within_length(x, lengths)
+    Wx2 = torch.stack([params_f["Wx"], params_r["Wx"]])
+    b2 = torch.stack([params_f["b"], params_r["b"]])
+    Wh2 = torch.stack([params_f["Wh"], params_r["Wh"]])
+    x2 = torch.stack([x, xr]).float()
+    xz = torch.einsum("gbtd,gdo->gbto", x2, Wx2) + b2[:, None, None, :]
+    valid = _valid(lengths, B, T, x.device)
+    h = x.new_zeros((2, B, H), dtype=torch.float32)
+    c = torch.zeros_like(h)
+    hs, gs, cs = [], [], []
+    for t in range(T):
+        z = xz[:, :, t] + torch.bmm(h, Wh2)
+        g = torch.cat([torch.sigmoid(z[..., :3 * H]),
+                       torch.tanh(z[..., 3 * H:])], dim=-1)
+        c_new = g[..., H:2 * H] * c + g[..., :H] * g[..., 3 * H:]
+        h_new = torch.tanh(c_new) * g[..., 2 * H:3 * H]
+        v = valid[t]
+        c = torch.where(v, c_new, c)
+        h = torch.where(v, h_new, h)
+        hs.append(torch.where(v, h_new, torch.zeros_like(h_new)))
+        gs.append(torch.where(v, g, torch.zeros_like(g)))
+        cs.append(torch.where(v, c_new, torch.zeros_like(c_new)))
+    y = _from_dirs(torch.stack(hs, dim=2), lengths).reshape(B, T, 2 * H)
+    gates = _from_dirs(torch.stack(gs, dim=2), lengths)
+    cell = _from_dirs(torch.stack(cs, dim=2), lengths)
+    return y, gates, cell
+
+
+def bidi_lstm_bwd_chain_plain(gates: torch.Tensor, cell: torch.Tensor,
+                        gy: torch.Tensor, Wh2: torch.Tensor,
+                        lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2's backward chain, plain: an explicit loop backward in time, not
+    autograd (pallas_lstm.py::_bwd_kernel, L391-430).
+
+    gates, cell: K1's streams; gy [B, T, 2H] the cotangent of y; Wh2
+    [2, H, 4H] the recurrent weights of both directions. Per chain step,
+    walking each row's valid steps backward:
+      dh = gy + Dh;  dc = Dc + dh·go·(1 - tanh²c)
+      dz = [dc·ci·gi(1-gi), dc·c_prev·gf(1-gf), dh·tanh(c)·go(1-go),
+            dc·gi(1-ci²)]
+      Dh = dz·Whᵀ;  Dc = dc·gf
+    Returns dz [B, T, 2, 4H] in original time order, exactly 0 on padded
+    frames, so padded frames add nothing to any gradient.
+    """
+    B, T, _, G = gates.shape
+    H = G // 4
+    if lengths is not None:
+        lengths = lengths.to(gates.device).clamp(0, T)
+    g_c = _to_dirs(gates, lengths)                              # [2,B,T,4H]
+    c_c = _to_dirs(cell, lengths)                               # [2,B,T,H]
+    gy_c = _to_dirs(gy.reshape(B, T, 2, H), lengths)            # [2,B,T,H]
+    valid = _valid(lengths, B, T, gates.device)
+    WhT = Wh2.transpose(1, 2)
+    Dh = gates.new_zeros((2, B, H))
+    Dc = torch.zeros_like(Dh)
+    dzs = [None] * T
+    for s in range(T - 1, -1, -1):
+        m = valid[s].to(gates.dtype)
+        gi, gf, go, ci = g_c[:, :, s].split(H, dim=-1)
+        c = c_c[:, :, s]
+        cp = c_c[:, :, s - 1] if s > 0 else torch.zeros_like(c)
+        tc = torch.tanh(c)
+        dh = (gy_c[:, :, s] + Dh) * m
+        dc = Dc * m + dh * go * (1.0 - tc * tc)
+        dz = torch.cat([dc * ci * gi * (1.0 - gi),
+                        dc * cp * gf * (1.0 - gf),
+                        dh * tc * go * (1.0 - go),
+                        dc * gi * (1.0 - ci * ci)], dim=-1)
+        Dh = torch.bmm(dz, WhT)
+        Dc = dc * gf
+        dzs[s] = dz
+    return _from_dirs(torch.stack(dzs, dim=2), lengths)
+
+
+def bidi_lstm_bwd_reduce_plain(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
+                         Wx2: torch.Tensor, need_dx: bool = True):
+    """K2's contractions, plain (pallas_lstm.py::_bwd_kernel, L440-463).
+
+    x [B, T, D]; y [B, T, 2H] (K1's output, the source of h_prev); dz
+    [B, T, 2, 4H] from the chain; Wx2 [2, D, 4H]. Per direction:
+      dW [D+1+H, 4H] = Σ_frames [x | 1 | h_prev]ᵀ · dz
+    (rows: dWx, then the bias row db, then dWh), and, with ``need_dx``,
+      dx [B, T, D] = Σ_dir dz · Wxᵀ.
+    Returns (dW [2, D+1+H, 4H], dx or None).
+    """
+    B, T, D = x.shape
+    H = y.shape[-1] // 2
+    h_prev = torch.stack([F.pad(y[:, :-1, :H], (0, 0, 1, 0)),
+                          F.pad(y[:, 1:, H:], (0, 0, 0, 1))])   # [2,B,T,H]
+    xcat = torch.cat([x.float(), x.new_ones((B, T, 1), dtype=torch.float32)],
+                     dim=-1)
+    a = torch.cat([xcat.expand(2, B, T, D + 1), h_prev], dim=-1)
+    dW = torch.einsum("gbti,btgj->gij", a, dz)
+    dx = torch.einsum("btgj,gdj->btd", dz, Wx2) if need_dx else None
+    return dW, dx

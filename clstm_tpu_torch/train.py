@@ -1,0 +1,226 @@
+"""Training: the CTC-alignment loss and the reference's SGD semantics (port
+of clstm_tpu/train.py).
+
+Reference training step (clstmocrtrain.cc ≈L100 / clstmhl.h train_utf8,
+all ≈L unverified):
+  forward -> ctc_align_targets -> inject ``outputs.d = aligned - outputs.v``
+  -> backward -> sgd_update.
+
+Two semantics are replicated exactly, as in the JAX package:
+
+1. **Delta convention.** The reference injects the delta at the post-
+   softmax outputs, but backward_softmax applies it as the pre-activation
+   (logit) delta. The equivalent here is the cross-entropy surrogate
+   ``loss = -sum(aligned.detach() * log_softmax(logits))`` whose logit
+   gradient is ``probs - aligned``.
+2. **Momentum.** Heavy ball: velocity_k = grad_k + mu*velocity_{k-1},
+   params -= lr * velocity_k.
+
+Learning-rate normalization modes {none, len, batch} scale each line's
+contribution.
+
+Unlike the JAX package, nothing is jitted and nothing is donated: a step
+runs eagerly and updates the module's parameters and the velocity IN PLACE
+(the returned state is the state passed in, its step counter advanced).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from clstm_tpu_torch.models.spec import Layer, NetSpec, apply_net
+from clstm_tpu_torch.ops.ctc import ctc_align_targets_batched, greedy_frames
+from clstm_tpu_torch.ops.seq import length_mask
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The module tree (the parameters), one velocity tensor per parameter
+    (keyed by its name in ``net.named_parameters()``) and the step count."""
+
+    net: Layer
+    velocity: dict
+    step: int = 0
+
+    @classmethod
+    def create(cls, net: Layer) -> "TrainState":
+        return cls(net=net,
+                   velocity={n: torch.zeros_like(p)
+                             for n, p in net.named_parameters()},
+                   step=0)
+
+
+@torch.no_grad()
+def sgd_update(net: Layer, velocity: dict, grads: dict, lr: float,
+               momentum: float) -> None:
+    """One reference-semantics SGD step, in place:
+    velocity_k = grad_k + momentum * velocity_{k-1};  p -= lr * velocity_k.
+    """
+    for name, p in net.named_parameters():
+        v = velocity[name]
+        v.copy_(grads[name] + momentum * v)
+        p.sub_(lr * v)
+
+
+def _reduce_lines(per_line: torch.Tensor, lengths: torch.Tensor, B: int,
+                  normalization: str) -> torch.Tensor:
+    if normalization == "len":
+        return torch.sum(per_line / torch.clamp(lengths.float(), min=1.0))
+    if normalization == "batch":
+        return torch.sum(per_line) / B
+    if normalization == "none":
+        return torch.sum(per_line)
+    raise ValueError(f"unknown normalization: {normalization!r}")
+
+
+def _check_compute_dtype(compute_dtype) -> None:
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "compute_dtype (bf16 matmul operands) is not ported; the port "
+            "trains in strict f32 (ROADMAP.md Queue 1 item 2, left open)")
+
+
+def ctc_alignment_loss(net: Layer, batch: dict, *, normalization: str = "none",
+                       compute_dtype=None):
+    """The reference training objective as a scalar surrogate loss.
+
+    batch: {"x": [B,T,D], "lengths": [B] int32, "targets": [B,S]
+    blank-interleaved class ids, "target_lengths": [B] int32}, tensors on
+    the net's device. Returns (loss, (probs, aligned)).
+    """
+    _check_compute_dtype(compute_dtype)
+    x, lengths = batch["x"], batch["lengths"]
+    logits = apply_net(net, x, lengths, logits=True).float()
+    probs = torch.softmax(logits, dim=-1)
+    with torch.no_grad():
+        aligned = ctc_align_targets_batched(
+            probs.detach(), batch["targets"], lengths=lengths,
+            target_lengths=batch["target_lengths"])
+    mask = length_mask(lengths, x.shape[1])
+    ll = F.log_softmax(logits, dim=-1)
+    per_line = torch.sum(-torch.sum(aligned * ll, dim=-1) * mask, dim=-1)
+    loss = _reduce_lines(per_line, lengths, x.shape[0], normalization)
+    return loss, (probs.detach(), aligned)
+
+
+def frame_target_loss(net: Layer, batch: dict, *, normalization: str = "none",
+                      compute_dtype=None):
+    """Direct per-frame supervision (the reference test-lstm.cc setup).
+
+    batch: {"x": [B,T,D], "lengths": [B], "y": [B,T,C] one-hot frame
+    targets}.
+    """
+    _check_compute_dtype(compute_dtype)
+    x, lengths = batch["x"], batch["lengths"]
+    logits = apply_net(net, x, lengths, logits=True).float()
+    probs = torch.softmax(logits, dim=-1)
+    mask = length_mask(lengths, x.shape[1])
+    ll = F.log_softmax(logits, dim=-1)
+    per_line = torch.sum(-torch.sum(batch["y"] * ll, dim=-1) * mask, dim=-1)
+    loss = _reduce_lines(per_line, lengths, x.shape[0], normalization)
+    return loss, (probs.detach(), batch["y"])
+
+
+_LOSSES = {"ctc": ctc_alignment_loss, "frames": frame_target_loss}
+
+
+def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
+    """Scale the gradients so their global L2 norm is <= max_norm (an
+    opt-in stability addition; the reference has no clipping)."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in grads.values()))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return {k: g * scale for k, g in grads.items()}
+
+
+def unpack_report(report, L: Optional[int] = None):
+    """Unpack a step's packed ``report`` = [loss, ids[0][:T], vals[0][:T]]
+    (f32) -> (loss, ids[:L] int64, vals[:L]) with one device-to-host copy."""
+    rep = (report.detach().cpu().numpy() if torch.is_tensor(report)
+           else np.asarray(report))
+    T = (rep.shape[0] - 1) // 2
+    ids = rep[1:1 + T].astype(np.int64)
+    vals = rep[1 + T:]
+    if L is not None:
+        ids, vals = ids[:L], vals[:L]
+    return float(rep[0]), ids, vals
+
+
+def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
+                    loss_kind: str = "ctc", normalization: str = "none",
+                    compute_dtype=None, gradient_clip: float = 0.0,
+                    augment: float = 0.0, augment_seed: int = 0):
+    """Build the training step.
+
+    Returns step(state, batch, lr_arg=None, momentum_arg=None) ->
+    (state, metrics): lr and momentum are read at each call (reference
+    setLearningRate). metrics carries the scalar loss, the per-frame argmax
+    ids/probs [B, T], row 0's ids/probs, and ``report``, those three packed
+    into one f32 vector. gradient_clip > 0 enables global-norm clipping.
+    ``spec`` names the topology the step is built for; the state's net must
+    have it. compute_dtype (bf16) and augment > 0 are not ported and raise.
+    """
+    _check_compute_dtype(compute_dtype)
+    if augment > 0:
+        raise NotImplementedError(
+            "augment > 0 (on-device augmentation) is not ported yet "
+            "(ROADMAP.md Queue 1 item 4)")
+    loss_fn = _LOSSES[loss_kind]
+
+    def step(state: TrainState, batch: dict, lr_arg=None, momentum_arg=None):
+        if state.net.spec != spec:
+            raise ValueError("the state's net was not built from this spec")
+        net = state.net
+        net.zero_grad(set_to_none=True)
+        loss, (probs, _) = loss_fn(net, batch, normalization=normalization)
+        loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        if gradient_clip > 0:
+            grads = clip_by_global_norm(grads, gradient_clip)
+        sgd_update(net, state.velocity, grads,
+                   lr if lr_arg is None else float(lr_arg),
+                   momentum if momentum_arg is None else float(momentum_arg))
+        state.step += 1
+        ids, vals = greedy_frames(probs)
+        loss = loss.detach()
+        packed = torch.cat([loss.reshape(1), ids[0].float(), vals[0].float()])
+        metrics = {"loss": loss, "frame_ids": ids, "frame_vals": vals,
+                   "report_ids": ids[0], "report_vals": vals[0],
+                   "report": packed}
+        return state, metrics
+
+    return step
+
+
+def make_predict_step(spec: NetSpec, *, compute_dtype=None, mesh=None):
+    """Inference: predict(net, x, lengths) -> per-frame (ids, vals), the
+    no-grad forward then the per-frame argmax. ``mesh`` (data-parallel
+    inference) is not ported and raises."""
+    _check_compute_dtype(compute_dtype)
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh inference is not ported yet (ROADMAP.md Queue 1 item 7)")
+
+    def predict(net: Layer, x: torch.Tensor, lengths: Optional[torch.Tensor]):
+        probs = apply_net(net, x, lengths, inference=True)
+        return greedy_frames(probs.float())
+
+    return predict
+
+
+def make_forward(spec: NetSpec, *, compute_dtype=None):
+    """Plain forward (posteriors), for tests and external use."""
+    _check_compute_dtype(compute_dtype)
+
+    def forward(net: Layer, x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None):
+        return apply_net(net, x, lengths)
+
+    return forward

@@ -86,8 +86,8 @@ def test_torch_softmax_returns_f32_and_sums_to_one():
 
 
 def test_torch_bidi_cpu_gradient_flows():
-    """On CPU tensors the bidi pair runs the plain loop, which autograd
-    differentiates; grads match JAX's."""
+    """On CPU tensors the bidi pair runs bidi_lstm_train with the plain
+    versions of K1 and K2; grads match JAX's."""
     spec, params = numpy_params("bidi")
     net = params_from_numpy(tprefab.make_net("bidi", ARGS), params)
     x, lengths = batch()
