@@ -5,7 +5,9 @@
 
 Drives the port's serving path — the path `clstmocr` runs — and its training
 path — CLSTMOCR.train_batch, a CTC training step — at the full width of the
-flagship `bidi` model (48 inputs, nhidden 100, 96 classes):
+flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
+`bidi2` model of BASELINE config 4 (48 inputs, nhidden 200 in both layers,
+400 classes), whose second layer takes the hoisted-projection kernel K4:
 
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from clstm_tpu_torch/csrc with nvcc;
@@ -24,10 +26,11 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes):
      y, gates and cell; every stream exactly 0 on padded frames;
   7. K2 (backward chain and reduction) against their plain versions on the
      same inputs with a seeded cotangent, with and without dx;
-  8. K5 and K6 (CTC alignment DP) against their plain versions at B=256,
-     T=1024, S=81, at S=512 and at an odd S, mixed lengths and target
+  8. K5, K6 and K6b (CTC alignment DP) against their plain versions at
+     B=256, T=1024, S=81, at S=512 and at an odd S, mixed lengths and target
      lengths with rows of length 0; the aligned targets of the kernel path
-     against the plain scan recipe computed in float64;
+     and of the unfused recipe (second direction by K6b) against the plain
+     scan recipe computed in float64;
   9. training path: CLSTMOCR(device="cuda").createBidi, 5 train_batch steps
      on the bench batch (B=256, T=1024, 900 true frames, 40 characters,
      lr 1e-4, momentum 0.9) against the same 5 steps composed from the plain
@@ -37,7 +40,22 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes):
      the card (bidi, nhidden 16, 4 classes, B=8, T=24, 120 steps);
  11. timing: ms per train_batch step (kernels and plain), each kernel
      against its plain version, and a torch.profiler breakdown of a kernel
-     step (written to chiprun_out/profile_train_step.txt).
+     step (written to chiprun_out/profile_train_step.txt);
+ 12. K4 (the LSTM recurrence on a hoisted input projection), both modes,
+     against its plain versions at bidi2's second layer (B=256, T=1024,
+     D=400, H=200; lengths all 900 and mixed 0..1024) and odd shapes; the
+     hoisted product against float64; K2 at that shape, with dx;
+ 13. timing at that shape: K4 (product and recurrence, and each alone)
+     against K3 and K1, which compute the projection inside the recurrence,
+     in turns;
+ 14. bidi2 serving: a seeded config-4 net (createBidi(kind="bidi2")) saved
+     as .clstm and run through predict_pages; every width bucket must launch
+     K3 (layer 1) and K4 (layer 2), frame ids as in 5;
+ 15. bidi2 training: 5 train_batch steps at the config-4 bench profile
+     (bench.py:538-600: B=256, T=1024, 900 frames, S=81, 400 classes)
+     against the plain steps, each step launching K1, K4, K2 on both layers,
+     K5 and K6; ms per step and a torch.profiler breakdown
+     (chiprun_out/profile_train_step_bidi2.txt).
 
 Any failure raises, so the script exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -61,15 +79,15 @@ from clstm_tpu_torch.io.proto import save_net
 from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.hl import CLSTMOCR
 from clstm_tpu_torch.models.prefab import make_net_init
-from clstm_tpu_torch.models.spec import Parallel
+from clstm_tpu_torch.models.spec import apply_net
 from clstm_tpu_torch.ops import _build
 from clstm_tpu_torch.ops import ctc as ctc_ops
 from clstm_tpu_torch.ops import lstm as lstm_ops
 from clstm_tpu_torch.ops.bidi_lstm_kernel import (
     bidi_lstm_bwd_chain, bidi_lstm_bwd_reduce, bidi_lstm_fwd_state,
-    bidi_lstm_infer)
+    bidi_lstm_fwd_state_xz, bidi_lstm_infer, bidi_lstm_infer_xz)
 from clstm_tpu_torch.ops.ctc import decode_frames, greedy_frames, mktargets_ids
-from clstm_tpu_torch.ops.ctc_kernel import ctc_both, ctc_forward
+from clstm_tpu_torch.ops.ctc_kernel import ctc_backward, ctc_both, ctc_forward
 from clstm_tpu_torch.ops.lstm import bidi_lstm_apply
 from clstm_tpu_torch.ops.seq import length_mask
 from clstm_tpu_torch.train import TrainState, make_train_step, sgd_update
@@ -130,6 +148,17 @@ LOSS_RTOL = 1e-3
 PARAM_RTOL = 1e-3
 NCHARS = 40             # bench.py:548-575: S = 2*40+1 = 81
 ODD_SHAPES = ((5, 37, 3, 7), (3, 20, 49, 300), (9, 64, 48, 100))
+# BASELINE config 4 (bench.py:26-27: bench_net=bidi2, nhidden 200, 400
+# classes). Its second layer has D = 2·200 = 400 inputs, so D+1 > 256 and
+# it takes the hoisted projection and K4 (hoists_projection).
+H2, C2 = 200, 400
+D2 = 2 * H2
+ODD_K4 = ((3, 17, 130, 7), (5, 33, 401, 200))
+# The hoisted product x·Wx + b in f32 against the same product in float64,
+# max|Δ| over max|xz|: an f32 sum of 400 products rounds at ~1e-6 of the
+# largest term, while TF32 (10-bit mantissa) would be ~1e-3 off. 1e-5
+# tells the two apart (ROADMAP Queue 3, "CTC matmul precision").
+XZ_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -149,10 +178,10 @@ def uniform(rng, shape, lo, hi, dev):
         rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
 
 
-def lstm_params(rng, d, h, dev):
-    return {"Wx": uniform(rng, (d, 4 * h), -0.3, 0.3, dev),
-            "Wh": uniform(rng, (h, 4 * h), -0.3, 0.3, dev),
-            "b": uniform(rng, (4 * h,), -0.3, 0.3, dev)}
+def lstm_params(rng, d, h, dev, scale=0.3):
+    return {"Wx": uniform(rng, (d, 4 * h), -scale, scale, dev),
+            "Wh": uniform(rng, (h, 4 * h), -scale, scale, dev),
+            "b": uniform(rng, (4 * h,), -scale, scale, dev)}
 
 
 def compare(pf, pr, x, lengths):
@@ -299,6 +328,41 @@ def compare_k2(pf, pr, x, lengths, state, gy):
     return chain_rel, chain_abs, red, red_abs
 
 
+def compare_k4(pf, pr, x, lengths):
+    """K4 in both modes vs its plain versions on the same hoisted product
+    -> (max |Δ| over y of both modes, gates and cell; the product's max|Δ|
+    against float64 over max|xz|; the plain state streams). Raises if a
+    padded frame of any kernel stream is not exactly 0, or past TOL (K3's
+    reason: the same recurrence and arithmetic, with z's first term read
+    instead of summed) or XZ_RTOL."""
+    with torch.no_grad():
+        xz = lstm_ops.hoisted_projection(pf, pr, x)
+        got = (bidi_lstm_infer_xz(pf, pr, xz, lengths),
+               *bidi_lstm_fwd_state_xz(pf, pr, xz, lengths))
+        want = lstm_ops.bidi_lstm_fwd_state_xz_plain(pf, pr, xz, lengths)
+        want = (want[0], *want)
+        Bx, Tx, Dx = x.shape
+        w64 = torch.cat([pf["Wx"], pr["Wx"]], 1).double()
+        b64 = torch.cat([pf["b"], pr["b"]]).double()
+        xz64 = torch.addmm(b64, x.reshape(Bx * Tx, Dx).double(), w64)
+        xz_rel = rel_err(xz.reshape(Bx * Tx, -1).double(), xz64)
+        del xz, xz64
+    torch.cuda.synchronize()
+    pad = padded(lengths, Bx, Tx, x.device)
+    err = 0.0
+    for name, k, p in zip(("y", "y (state mode)", "gates", "cell"), got, want):
+        if not bool((k[pad] == 0.0).all()):
+            raise AssertionError(f"K4 {name} is not exactly 0 on padded frames")
+        require_finite(f"K4 {name}", k)
+        err = max(err, float((k - p).abs().max()))
+    if not err <= TOL:
+        raise AssertionError(f"K4 vs plain max|d| {err:.3e} > {TOL:.0e}")
+    if not xz_rel <= XZ_RTOL:
+        raise AssertionError(f"hoisted product vs float64 {xz_rel:.3e} > "
+                             f"{XZ_RTOL:.0e}: reduced matmul precision?")
+    return err, xz_rel, want[1:]
+
+
 def lattice(rng, B, T, S, dev):
     """lmatch [B, T, S] (log of floored probabilities, NEG beyond each
     row's target length), mixed lengths and target lengths with rows of
@@ -314,18 +378,23 @@ def lattice(rng, B, T, S, dev):
 
 
 def compare_ctc(lm, lengths, tlens):
-    """K5 and K6 vs plain -> (K5 rel, K5 abs, K6 rel, K6 abs) over valid
-    cells (t < len, s < tlen; lse over s < tlen of rows with len > 0). K6
-    reads the plain lr, so each kernel is held on its own."""
+    """K5, K6 and K6b vs plain -> (K5 rel, K5 abs, K6 rel, K6 abs, K6b rel,
+    K6b abs) over valid cells (t < len, s < tlen; lse over s < tlen of rows
+    with len > 0). K6 reads the plain lr, so each kernel is held on its
+    own; K6b against the flip recipe, which fills the other cells
+    differently."""
     B, T, S = lm.shape
     dev = lm.device
     lr_k = ctc_forward(lm, lengths)
     lr_p = ctc_ops.ctc_forward_plain(lm, lengths)
     both_k, lse_k = ctc_both(lm, lr_p, lengths, tlens)
     both_p, lse_p = ctc_ops.ctc_both_plain(lm, lr_p, lengths, tlens)
+    rl_k = ctc_backward(lm, lengths, tlens)
+    rl_p = ctc_ops.ctc_backward_plain(lm, lengths, tlens)
     torch.cuda.synchronize()
     require_finite("K5", lr_k)
     require_finite("K6", both_k, lse_k)
+    require_finite("K6b", rl_k)
     L, TL = lengths.long(), tlens.long()
     sv = torch.arange(S, device=dev)[None, :] < TL[:, None]            # [B,S]
     m = (~padded(lengths, B, T, dev))[:, :, None] & sv[:, None, :]
@@ -339,20 +408,21 @@ def compare_ctc(lm, lengths, tlens):
     r5, a5 = errs(lr_k, lr_p, m)
     rb, ab = errs(both_k, both_p, m)
     rl, al = errs(lse_k, lse_p, ms)
+    r6b, a6b = errs(rl_k, rl_p, m)
     if not bool((both_k[padded(lengths, B, T, dev)] == ctc_ops.NEG).all()):
         raise AssertionError("K6 both is not NEG on padded frames")
     r6, a6 = max(rb, rl), max(ab, al)
-    if not (r5 <= DP_RTOL and r6 <= DP_RTOL):
-        raise AssertionError(f"K5/K6 vs plain rel {r5:.3e}/{r6:.3e} > "
-                             f"{DP_RTOL:.0e}")
-    return r5, a5, r6, a6
+    if not (r5 <= DP_RTOL and r6 <= DP_RTOL and r6b <= DP_RTOL):
+        raise AssertionError(f"K5/K6/K6b vs plain rel {r5:.3e}/{r6:.3e}/"
+                             f"{r6b:.3e} > {DP_RTOL:.0e}")
+    return r5, a5, r6, a6, r6b, a6b
 
 
-def bench_batch(rng, dev):
+def bench_batch(rng, dev, nclasses=C):
     """The bench batch of bench.py:548-575: x uniform [0, 1), 900 true
     frames of 1024, 40 characters per line (S = 81), on the card."""
     S = 2 * NCHARS + 1
-    tids = np.stack([mktargets_ids(rng.randint(1, C, size=NCHARS))
+    tids = np.stack([mktargets_ids(rng.randint(1, nclasses, size=NCHARS))
                      for _ in range(B)]).astype(np.int32)
     x = rng.rand(B, T, D).astype(np.float32)
     batch = {"x": x, "lengths": np.full(B, TRUE_T, np.int32),
@@ -360,22 +430,32 @@ def bench_batch(rng, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
+def plain_forward(net, x, lengths):
+    """The net's bidi layers composed from plain versions -> (the softmax
+    layer, its input): each bidi pair by bidi_lstm_apply, which is K3's
+    plain version and, through its hoisted product, K4's."""
+    *layers, soft = net.sub
+    for par in layers:
+        x = bidi_lstm_apply(par.sub[0].weights(), par.sub[1].sub[0].weights(),
+                            x, lengths)
+    return soft, x
+
+
 def plain_train_step(net, velocity, batch, lr, momentum) -> float:
     """The training step of make_train_step(loss_kind="ctc",
     normalization="none") composed from the plain versions: autograd
-    through the plain LSTM loop (K1 and K2's reference), the alignment by
-    the scan recipe (K5 and K6's), the same loss and SGD update."""
-    par, soft = net.sub
+    through the plain LSTM loops (K1, K4 and K2's reference), the alignment
+    by the scan recipe with the flip recipe (K5, K6's), the same loss and
+    SGD update."""
     x, lengths = batch["x"], batch["lengths"]
     net.zero_grad(set_to_none=True)
-    y = bidi_lstm_apply(par.sub[0].weights(), par.sub[1].sub[0].weights(),
-                        x, lengths)
+    soft, y = plain_forward(net, x, lengths)
     logits = soft.affine(y)
     with torch.no_grad():
         aligned = ctc_ops.ctc_align_targets_batched(
             torch.softmax(logits, dim=-1), batch["targets"],
             lengths=lengths, target_lengths=batch["target_lengths"],
-            fused=False)
+            fused=False, use_kernel=False)
     mask = length_mask(lengths, x.shape[1])
     loss = torch.sum(-torch.sum(aligned * F.log_softmax(logits, dim=-1), -1)
                      * mask)
@@ -420,10 +500,175 @@ def device_us(event) -> float:
     return getattr(event, DEVICE_KEY)
 
 
+def kernel_name(key: str) -> str:
+    """A profiler row's kernel name without its namespace and arguments,
+    keeping template arguments (K1 and K4 are instances of one kernel)."""
+    key = key.replace("void ", "", 1).replace("(anonymous namespace)::", "")
+    return key.split("(")[0][:56]
+
+
+COUNTED = (bidi_lstm_infer, bidi_lstm_fwd_state, bidi_lstm_infer_xz,
+           bidi_lstm_fwd_state_xz, bidi_lstm_bwd_chain, bidi_lstm_bwd_reduce,
+           ctc_forward, ctc_both, ctc_backward)
+
+
 def reset_counts() -> None:
-    for f in (bidi_lstm_infer, bidi_lstm_fwd_state, bidi_lstm_bwd_chain,
-              bidi_lstm_bwd_reduce, ctc_forward, ctc_both):
+    for f in COUNTED:
         f.launches = 0
+
+
+def counts() -> dict:
+    return {f.__name__: f.launches for f in COUNTED}
+
+
+def serve(model: str, images, dev, nclasses: int, tmp: str):
+    """clstmocr's path on the card: load ``model``, run predict_pages and
+    write_outputs over ``images`` with the launch counts reset just before
+    and read just after. Returns (launches, per-bucket batches, seconds end
+    to end, share of valid frames whose ids agree with the plain path)."""
+    ocr = CLSTMOCR(device="cuda")
+    ocr.load(model)
+    ocr.target_height = ocr.spec.iget("ninput", ocr.target_height)
+    batches = []
+    predict_batch = ocr.predict_batch
+
+    def recording(xb, lb):
+        ids, vals = predict_batch(xb, lb)
+        batches.append((xb, lb, ids, vals))
+        return ids, vals
+
+    ocr.predict_batch = recording
+    names = [os.path.join(tmp, f"line{i:03d}.png") for i in range(len(images))]
+    reset_counts()
+    t0 = time.perf_counter()
+    results = predict_pages(ocr, images, device_preprocess=0)
+    write_outputs(ocr, names, images, results, output="sidecar")
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    launches = counts()
+    texts = [open(n[:-4] + ".txt", encoding="utf-8").read() for n in names]
+    if len(batches) < 2:
+        raise AssertionError("synthetic lines fell into fewer than 2 buckets")
+    if sorted(results) != list(range(len(images))) or len(texts) != len(images):
+        raise AssertionError("clstmocr did not answer every line")
+    agree = total = 0
+    for xb, lb, ids, vals in batches:
+        if not (np.isfinite(vals).all() and ids.min() >= 0
+                and ids.max() < nclasses):
+            raise AssertionError("main path produced invalid frames")
+        xt = torch.from_numpy(xb).to(dev)
+        lt = torch.from_numpy(lb).to(dev)
+        with torch.no_grad():
+            soft, y = plain_forward(ocr.net, xt, lt)
+            pids, _ = greedy_frames(soft(y, lt))
+        pids = pids.cpu().numpy()
+        for r, L in enumerate(lb):
+            agree += int((pids[r, :L] == ids[r, :L]).sum())
+            total += int(L)
+    share = agree / total
+    if share < ID_AGREE_MIN:
+        raise AssertionError(f"frame-id agreement {share:.6f} < {ID_AGREE_MIN}")
+    return launches, batches, e2e_s, share, total
+
+
+def train_against_plain(tocr, plain, batch, lr, momentum, tag) -> dict:
+    """5 train_batch steps of ``tocr`` with the launch counts reset just
+    before and read just after, and the same 5 steps composed from the plain
+    versions on ``plain`` (a TrainState holding the same start). Logs both
+    under ``tag`` and raises unless they agree within the limits above;
+    returns the launch counts of the 5 kernel steps."""
+    p0 = [p.detach().clone() for p in tocr.net.parameters()]
+
+    def params(net):
+        return [p.detach().clone() for p in net.parameters()]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    k_losses = [float(tocr.train_batch(batch)["loss"])]
+    k_p1 = params(tocr.net)
+    k_losses += [float(tocr.train_batch(batch)["loss"]) for _ in range(4)]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = counts()
+    p_losses = [plain_train_step(plain.net, plain.velocity, batch, lr,
+                                 momentum)]
+    p_p1 = params(plain.net)
+    p_losses += [plain_train_step(plain.net, plain.velocity, batch, lr,
+                                  momentum) for _ in range(4)]
+
+    def param_gap(a, b):
+        """(max |a - b|, max |a - start|) over all parameters."""
+        return (max(float((u - v).abs().max()) for u, v in zip(a, b)),
+                max(float((u - w).abs().max()) for u, w in zip(a, p0)))
+
+    dp1, moved1 = param_gap(k_p1, p_p1)
+    dp, moved = param_gap(params(tocr.net), params(plain.net))
+    rels = [abs(k - p) / abs(p) for k, p in zip(k_losses, p_losses)]
+    log(f"[{tag}] 5 train_batch steps in {train_s:.3f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; loss kernels "
+        f"{[round(v, 3) for v in k_losses]} plain "
+        f"{[round(v, 3) for v in p_losses]}, rel per step "
+        f"{', '.join(f'{r:.2e}' for r in rels)}")
+    log(f"[{tag}] step 1: loss rel {rels[0]:.3e} (tol {STEP1_LOSS_RTOL:.0e}),"
+        f" params max|d| {dp1:.3e}, moved {moved1:.3e} (tol "
+        f"{STEP1_PARAM_RTOL:.0e} of moved); 5 steps: loss rel {max(rels):.3e}"
+        f" (tol {LOSS_RTOL:.0e}), params max|d| {dp:.3e}, moved {moved:.3e} "
+        f"(tol {PARAM_RTOL:.0e} of moved)")
+    if not all(np.isfinite(k_losses)):
+        raise AssertionError("training loss is not finite")
+    if not (rels[0] <= STEP1_LOSS_RTOL and max(rels) <= LOSS_RTOL):
+        raise AssertionError("training loss disagrees with the plain path")
+    if not (moved1 > 0 and dp1 <= STEP1_PARAM_RTOL * moved1
+            and dp <= PARAM_RTOL * moved):
+        raise AssertionError("parameters disagree with the plain path")
+    return launches
+
+
+def profile_steps(tocr, batch, card, fname, tag):
+    """torch.profiler over 2 train_batch steps, after a warm-up step under
+    the profiler (the second profiler run in one process lost its first
+    kernel without it): the table goes to chiprun_out/``fname``; logs wall,
+    device busy share and the top device rows per step."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    traced = []
+    with torch.profiler.profile(
+            activities=acts,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=2),
+            on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        for i in range(3):
+            if i == 1:
+                t0 = time.perf_counter()
+            tocr.train_batch(batch)
+            # The window opens and closes on an idle card: the host runs
+            # ahead, and the warm-up step's kernels would fall inside it.
+            if i != 1:
+                torch.cuda.synchronize()
+            if i == 2:
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    avg = traced[0]
+    # Kernel rows only: an autograd Function's row also carries, as its own
+    # device time, the kernels it launched through ctypes, and the step
+    # annotations come back as CUDA rows spanning the whole step.
+    kernels_rows = [e for e in avg
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep")]
+    dev_ms = sum(device_us(e) for e in kernels_rows) / 1e3
+    os.makedirs("chiprun_out", exist_ok=True)
+    B_, T_ = batch["x"].shape[:2]
+    with open(os.path.join("chiprun_out", fname), "w",
+              encoding="utf-8") as f:
+        f.write(f"{card}\n2 train_batch steps, B={B_} T={T_} "
+                f"S={batch['targets'].shape[1]}; wall {wall_ms:.3f} ms, "
+                f"device busy {dev_ms:.3f} ms\n")
+        f.write(avg.table(sort_by=DEVICE_KEY, row_limit=25))
+    top = sorted(kernels_rows, key=lambda e: -device_us(e))[:8]
+    log(f"[{tag}] {card} | 2 train_batch steps: wall {wall_ms:.3f} ms, "
+        f"device busy {dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}%); top "
+        "per step: " + "; ".join(f"{kernel_name(e.key)} "
+                                 f"{device_us(e) / 2e3:.3f} ms"
+                                 for e in top))
 
 
 def main() -> int:
@@ -485,58 +730,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         model = os.path.join(tmp, "bidi.clstm")
         save_net(model, net, codec)
-        ocr = CLSTMOCR(device="cuda")
-        ocr.load(model)
-        ocr.target_height = ocr.spec.iget("ninput", ocr.target_height)
-        batches = []
-        predict_batch = ocr.predict_batch
-
-        def recording(xb, lb):
-            ids, vals = predict_batch(xb, lb)
-            batches.append((xb, lb, ids, vals))
-            return ids, vals
-
-        ocr.predict_batch = recording
-        names = [os.path.join(tmp, f"line{i:03d}.png") for i in range(N_LINES)]
-        reset_counts()
-        t0 = time.perf_counter()
-        results = predict_pages(ocr, images, device_preprocess=0)
-        write_outputs(ocr, names, images, results, output="sidecar")
-        torch.cuda.synchronize()
-        e2e_s = time.perf_counter() - t0
-        launches = bidi_lstm_infer.launches
-        texts = [open(n[:-4] + ".txt", encoding="utf-8").read() for n in names]
-    if launches < 1 or launches != len(batches):
-        raise AssertionError(f"main path launched the kernel {launches} times "
-                             f"for {len(batches)} batches")
-    if len(batches) < 2:
-        raise AssertionError("synthetic lines fell into fewer than 2 buckets")
-    if sorted(results) != list(range(N_LINES)) or len(texts) != N_LINES:
-        raise AssertionError("clstmocr did not answer every line")
-    agree = total = 0
-    for xb, lb, ids, vals in batches:
-        if not (np.isfinite(vals).all() and ids.min() >= 0 and ids.max() < C):
-            raise AssertionError("main path produced invalid frames")
-        xt = torch.from_numpy(xb).to(dev)
-        lt = torch.from_numpy(lb).to(dev)
-        with torch.no_grad():
-            par, soft = ocr.net.sub
-            y = bidi_lstm_apply(par.sub[0].weights(),
-                                par.sub[1].sub[0].weights(), xt, lt)
-            pids, _ = greedy_frames(soft(y, lt))
-        pids = pids.cpu().numpy()
-        for r, L in enumerate(lb):
-            agree += int((pids[r, :L] == ids[r, :L]).sum())
-            total += int(L)
-    share = agree / total
+        served, batches, e2e_s, share, total = serve(model, images, dev, C,
+                                                     tmp)
+    launches = served["bidi_lstm_infer"]
+    if launches < 1 or launches != len(batches) or served[
+            "bidi_lstm_infer_xz"]:
+        raise AssertionError(f"main path launched K3 {launches} times for "
+                             f"{len(batches)} batches: {served}")
     log(f"[main] {N_LINES} lines in {len(batches)} width buckets "
         f"({', '.join(str(b[0].shape[1]) for b in batches)} frames), "
         f"{launches} kernel launches, {e2e_s:.3f} s end to end "
         f"({N_LINES / e2e_s:.1f} lines/s incl. host normalization); "
         f"frame ids agree with plain on {share:.6f} of {total} valid frames "
         f"(min {ID_AGREE_MIN})")
-    if share < ID_AGREE_MIN:
-        raise AssertionError(f"frame-id agreement {share:.6f} < {ID_AGREE_MIN}")
 
     # 6. K1 against plain: bench profile (both length sets), odd shapes.
     k1_err, k1_state = 0.0, {}
@@ -568,14 +774,17 @@ def main() -> int:
             "frames")
     del k1_state
 
-    # 8. K5 and K6 against plain; aligned targets against float64 plain.
-    k56 = [0.0, 0.0, 0.0, 0.0]
+    # 8. K5, K6 and K6b against plain; aligned targets against float64
+    # plain.
+    k56 = [0.0] * 6
     for (cb, ct, cs) in ((B, T, 2 * NCHARS + 1), (64, T, 512), (37, 300, 13)):
-        r5, a5, r6, a6 = compare_ctc(*lattice(rng, cb, ct, cs, dev))
-        k56 = [max(u, v) for u, v in zip(k56, (r5, a5, r6, a6))]
-        log(f"[K5/K6] B={cb} T={ct} S={cs} mixed lengths incl. 0: K5 lr rel "
-            f"{r5:.3e} (abs {a5:.3e}), K6 both/lse rel {r6:.3e} (abs "
-            f"{a6:.3e}) (tol {DP_RTOL:.0e})")
+        errs56 = compare_ctc(*lattice(rng, cb, ct, cs, dev))
+        k56 = [max(u, v) for u, v in zip(k56, errs56)]
+        r5, a5, r6, a6, r6b, a6b = errs56
+        log(f"[K5/K6/K6b] B={cb} T={ct} S={cs} mixed lengths incl. 0: K5 lr "
+            f"rel {r5:.3e} (abs {a5:.3e}), K6 both/lse rel {r6:.3e} (abs "
+            f"{a6:.3e}), K6b rl rel {r6b:.3e} (abs {a6b:.3e}) (tol "
+            f"{DP_RTOL:.0e}, valid cells)")
     S81 = 2 * NCHARS + 1
     probs = torch.softmax(torch.from_numpy(
         3 * rng.normal(size=(B, T, C)).astype(np.float32)).to(dev), dim=-1)
@@ -586,85 +795,56 @@ def main() -> int:
     alens = lens["mixed"]
     kw = dict(lengths=alens, target_lengths=tlens)
     valid = ~padded(alens, B, T, dev)
-    aligned64 = ctc_ops.ctc_align_targets_batched(probs.double(), tids,
-                                                  fused=False, **kw)
+    aligned64 = ctc_ops.ctc_align_targets_batched(
+        probs.double(), tids, fused=False, use_kernel=False, **kw)
 
     def off64(a):
         return float((a.double() - aligned64).abs()[valid].max())
 
     align_err = off64(ctc_ops.ctc_align_targets_batched(probs, tids, **kw))
-    plain32_err = off64(ctc_ops.ctc_align_targets_batched(probs, tids,
-                                                          fused=False, **kw))
+    plain32_err = off64(ctc_ops.ctc_align_targets_batched(
+        probs, tids, fused=False, use_kernel=False, **kw))
+    # The unfused recipe on the card, whose second direction is K6b.
+    reset_counts()
+    unfused = ctc_ops.ctc_align_targets_batched(probs, tids, fused=False, **kw)
+    torch.cuda.synchronize()
+    k6b_launches = counts()["ctc_backward"]
+    unfused_err = off64(unfused)
     align_tol = max(ALIGN_FACTOR * plain32_err, ALIGN_FLOOR)
     log(f"[align] B={B} T={T} C={C} S={S81}: max|d aligned| vs float64 plain:"
-        f" kernel path {align_err:.3e}, f32 plain recipe {plain32_err:.3e} "
-        f"(tol {align_tol:.3e}, alarm {ALIGN_ALARM:.0e})")
-    if not align_err <= ALIGN_ALARM:
-        raise AssertionError(f"aligned targets off by {align_err:.3e}: above "
-                             f"the {ALIGN_ALARM:.0e} precision alarm")
-    if not align_err <= align_tol:
-        raise AssertionError(f"aligned targets off by {align_err:.3e} > "
-                             f"{align_tol:.3e}")
-    del probs, aligned64
+        f" kernel path {align_err:.3e}, unfused recipe with K6b "
+        f"{unfused_err:.3e} ({k6b_launches} K6b launch), f32 plain recipe "
+        f"{plain32_err:.3e} (tol {align_tol:.3e}, alarm {ALIGN_ALARM:.0e})")
+    if k6b_launches != 1:
+        raise AssertionError(f"the unfused recipe launched K6b "
+                             f"{k6b_launches} times")
+    for name, e in (("kernel path", align_err), ("K6b recipe", unfused_err)):
+        if not e <= ALIGN_ALARM:
+            raise AssertionError(f"{name}: aligned targets off by {e:.3e}: "
+                                 f"above the {ALIGN_ALARM:.0e} precision "
+                                 f"alarm")
+        if not e <= align_tol:
+            raise AssertionError(f"{name}: aligned targets off by {e:.3e} > "
+                                 f"{align_tol:.3e}")
+    del probs, aligned64, unfused
 
     # 9. Training path at full width: 5 train_batch steps, kernels and plain.
     batch = bench_batch(np.random.RandomState(0), dev)
     tocr = CLSTMOCR(device="cuda")
     tocr.createBidi(codec, nhidden=H)
     tocr.setLearningRate(1e-4, 0.9)
-    p0 = {n: p.detach().clone() for n, p in tocr.net.named_parameters()}
     plain = TrainState.create(make_net_init(
         "bidi", {"ninput": D, "nhidden": H, "noutput": C}, device=dev)[1])
     with torch.no_grad():
-        for n, p in plain.net.named_parameters():
-            p.copy_(p0[n])
-    def params(net):
-        return [p.detach().clone() for p in net.parameters()]
-
-    reset_counts()
-    t0 = time.perf_counter()
-    k_losses = [float(tocr.train_batch(batch)["loss"])]
-    k_p1 = params(tocr.net)
-    k_losses += [float(tocr.train_batch(batch)["loss"]) for _ in range(4)]
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    train_launches = {f.__name__: f.launches for f in (
-        bidi_lstm_fwd_state, bidi_lstm_bwd_chain, bidi_lstm_bwd_reduce,
-        ctc_forward, ctc_both)}
-    if min(train_launches.values()) < 1:
+        for p, q in zip(plain.net.parameters(), tocr.net.parameters()):
+            p.copy_(q)
+    train_launches = train_against_plain(tocr, plain, batch, 1e-4, 0.9,
+                                         f"train B={B} T={T} S={S81}")
+    if min(train_launches[f.__name__] for f in (
+            bidi_lstm_fwd_state, bidi_lstm_bwd_chain, bidi_lstm_bwd_reduce,
+            ctc_forward, ctc_both)) < 1:
         raise AssertionError(f"training path skipped a kernel: "
                              f"{train_launches}")
-    p_losses = [plain_train_step(plain.net, plain.velocity, batch, 1e-4, 0.9)]
-    p_p1 = params(plain.net)
-    p_losses += [plain_train_step(plain.net, plain.velocity, batch, 1e-4, 0.9)
-                 for _ in range(4)]
-    p_start = [p0[n] for n, _ in tocr.net.named_parameters()]
-
-    def param_gap(a, b, start):
-        """(max |a - b|, max |a - start|) over all parameters."""
-        return (max(float((u - v).abs().max()) for u, v in zip(a, b)),
-                max(float((u - w).abs().max()) for u, w in zip(a, start)))
-
-    dp1, moved1 = param_gap(k_p1, p_p1, p_start)
-    dp, moved = param_gap(params(tocr.net), params(plain.net), p_start)
-    rels = [abs(k - p) / abs(p) for k, p in zip(k_losses, p_losses)]
-    log(f"[train] B={B} T={T} S={S81} 5 train_batch steps in {train_s:.3f} s; "
-        f"launches {train_launches}; loss kernels "
-        f"{[round(v, 3) for v in k_losses]} plain "
-        f"{[round(v, 3) for v in p_losses]}, rel per step "
-        f"{', '.join(f'{r:.2e}' for r in rels)}")
-    log(f"[train] step 1: loss rel {rels[0]:.3e} (tol {STEP1_LOSS_RTOL:.0e}),"
-        f" params max|d| {dp1:.3e}, moved {moved1:.3e} (tol "
-        f"{STEP1_PARAM_RTOL:.0e} of moved); 5 steps: loss rel {max(rels):.3e}"
-        f" (tol {LOSS_RTOL:.0e}), params max|d| {dp:.3e}, moved {moved:.3e} "
-        f"(tol {PARAM_RTOL:.0e} of moved)")
-    if not all(np.isfinite(k_losses)):
-        raise AssertionError("training loss is not finite")
-    if not (rels[0] <= STEP1_LOSS_RTOL and max(rels) <= LOSS_RTOL):
-        raise AssertionError("training loss disagrees with the plain path")
-    if not (moved1 > 0 and dp1 <= STEP1_PARAM_RTOL * moved1
-            and dp <= PARAM_RTOL * moved):
-        raise AssertionError("parameters disagree with the plain path")
     del plain
     urng = np.random.RandomState(3)
     chars = [chr(c) for c in range(65, 91)]
@@ -761,6 +941,8 @@ def main() -> int:
                    lambda: ctc_ops.ctc_forward_plain(lm, Lb)),
             "K6": (lambda: ctc_both(lm, lr, Lb, TLb),
                    lambda: ctc_ops.ctc_both_plain(lm, lr, Lb, TLb)),
+            "K6b": (lambda: ctc_backward(lm, Lb, TLb),
+                    lambda: ctc_ops.ctc_backward_plain(lm, Lb, TLb)),
         }
         for name, (kf, pfn) in pairs.items():
             ms[name] = (time_ms(kf, 10), time_ms(pfn, 2))
@@ -771,33 +953,160 @@ def main() -> int:
             f"plain {pm:.3f} ms")
     log(f"[timing] {card} | K2 reduction with dx: kernel {dx_ms:.3f} ms")
     del ys, gs, cs, dz, lm, lr
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            tocr.train_batch(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    avg = prof.key_averages()
-    # Device rows only: an autograd Function's row also carries, as its own
-    # device time, the kernels it launched through ctypes.
-    kernels_rows = [e for e in avg
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(device_us(e) for e in kernels_rows) / 1e3
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_train_step.txt"), "w",
-              encoding="utf-8") as f:
-        f.write(f"{card}\n2 train_batch steps, B={B} T={T} S={S81}; wall "
-                f"{wall_ms:.3f} ms, device busy {dev_ms:.3f} ms\n")
-        f.write(avg.table(sort_by=DEVICE_KEY, row_limit=25))
-    top = sorted(kernels_rows, key=lambda e: -device_us(e))[:8]
-    log(f"[profile] {card} | 2 train_batch steps: wall {wall_ms:.3f} ms, "
-        f"device busy {dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}%); top "
-        "per step: " + "; ".join(f"{e.key[:48]} {device_us(e) / 2e3:.3f} ms"
-                                 for e in top))
+    profile_steps(tocr, batch, card, "profile_train_step.txt", "profile")
+    del tocr, back, batch
 
-    # 12. Report.
+    # 12. K4 against plain at bidi2's second layer (weights ±0.1, so that
+    # z = x·Wx + b + h·Wh over 600 terms stays off the gates' saturation),
+    # then odd shapes; K2 there on K4's plain state, with and without dx.
+    rng2 = np.random.RandomState(2)
+    pf2 = lstm_params(rng2, D2, H2, dev, 0.1)
+    pr2 = lstm_params(rng2, D2, H2, dev, 0.1)
+    x2 = uniform(rng2, (B, T, D2), -1.0, 1.0, dev)
+    k4_cases = [(f"B={B} T={T} D={D2} H={H2} lengths={k}", pf2, pr2, x2, v)
+                for k, v in lens.items()]
+    for (b, t, d, h) in ODD_K4:
+        spf, spr = lstm_params(rng2, d, h, dev), lstm_params(rng2, d, h, dev)
+        sx = uniform(rng2, (b, t, d), -1.0, 1.0, dev)
+        sl = torch.from_numpy(rng2.randint(0, t + 1, b).astype(np.int32)).to(dev)
+        k4_cases.append((f"B={b} T={t} D={d} H={h} mixed lengths", spf, spr,
+                         sx, sl))
+    k4_err, xz_rel = 0.0, 0.0
+    k2h = {"chain_rel": 0.0, "red_rel": 0.0}
+    for name, cpf, cpr, cx, cl in k4_cases:
+        e, xr, state = compare_k4(cpf, cpr, cx, cl)
+        k4_err, xz_rel = max(k4_err, e), max(xz_rel, xr)
+        log(f"[K4] {name}: max|d| over y (both modes), gates, cell {e:.3e} "
+            f"(tol {TOL:.0e}), every stream exactly 0 on padded frames; "
+            f"hoisted product vs float64 {xr:.3e} of max|xz| (tol "
+            f"{XZ_RTOL:.0e})")
+        gy = uniform(rng2, (cx.shape[0], cx.shape[1], 2 * cpf["Wh"].shape[0]),
+                     -1.0, 1.0, dev)
+        cr, _, red, _ = compare_k2(cpf, cpr, cx, cl, state, gy)
+        k2h["chain_rel"] = max(k2h["chain_rel"], cr)
+        k2h["red_rel"] = max(k2h["red_rel"], *red.values())
+        log(f"[K2 hoisted] {name}: chain dz rel {cr:.3e}; reduction rel "
+            + ", ".join(f"{n} {v:.3e}" for n, v in red.items())
+            + f" (tol {K2_RTOL:.0e} of max|plain|)")
+        del state
+
+    # 13. Timing at that shape: the hoisted product and K4 against K3 and
+    # K1, which compute the projection inside the recurrence, in turns.
+    L900 = lens["all900"]
+    with torch.no_grad():
+        xz2 = lstm_ops.hoisted_projection(pf2, pr2, x2)
+        turns = [(hoist, time_ms(lambda: bidi_lstm_infer(
+            pf2, pr2, x2, L900, hoist=hoist), 10))
+            for hoist in (False, True, True, False)]
+        proj_ms = time_ms(lambda: lstm_ops.hoisted_projection(pf2, pr2, x2),
+                          10)
+        k4_ms = time_ms(lambda: bidi_lstm_infer_xz(pf2, pr2, xz2, L900), 10)
+        k4_plain = time_ms(
+            lambda: lstm_ops.bidi_lstm_apply_xz(pf2, pr2, xz2, L900), 2)
+        k1_2_ms = time_ms(lambda: bidi_lstm_fwd_state(pf2, pr2, x2, L900), 5)
+        k4s_ms = time_ms(lambda: bidi_lstm_fwd_state_xz(pf2, pr2, xz2, L900),
+                         5)
+        k4s_plain = time_ms(lambda: lstm_ops.bidi_lstm_fwd_state_xz_plain(
+            pf2, pr2, xz2, L900), 2)
+        ys2, gs2, cs2 = bidi_lstm_fwd_state_xz(pf2, pr2, xz2, L900)
+        gy2 = uniform(rng2, (B, T, 2 * H2), -1.0, 1.0, dev)
+        Wh22, Wx22 = stack2(pf2, pr2, "Wh"), stack2(pf2, pr2, "Wx")
+        dz2 = bidi_lstm_bwd_chain(gs2, cs2, gy2, Wh22, L900)
+        k2h_ms = {
+            "K2 chain": (
+                time_ms(lambda: bidi_lstm_bwd_chain(gs2, cs2, gy2, Wh22, L900),
+                        5),
+                time_ms(lambda: lstm_ops.bidi_lstm_bwd_chain_plain(
+                    gs2, cs2, gy2, Wh22, L900), 2)),
+            "K2 reduction with dx": (
+                time_ms(lambda: bidi_lstm_bwd_reduce(x2, ys2, dz2, Wx22, True),
+                        5),
+                time_ms(lambda: lstm_ops.bidi_lstm_bwd_reduce_plain(
+                    x2, ys2, dz2, Wx22, True), 2)),
+        }
+    k3_2 = [m for h, m in turns if not h]
+    k4_2 = [m for h, m in turns if h]
+    shape2 = f"B={B} T={T} D={D2} H={H2} len={TRUE_T}"
+    log(f"[timing] {card} | inference at {shape2}, in turns (in-kernel, "
+        f"hoisted, hoisted, in-kernel): " + ", ".join(
+            f"{'hoisted product + K4' if h else 'K3'} {m:.3f} ms"
+            for h, m in turns))
+    log(f"[timing] {card} | {shape2}: hoisted product {proj_ms:.3f} ms "
+        f"({2 * B * T * D2 * 8 * H2 / proj_ms / 1e9:.1f} TFLOP/s), K4 "
+        f"recurrence {k4_ms:.3f} ms (plain {k4_plain:.3f}); state mode: K4 "
+        f"{k4s_ms:.3f} ms (plain {k4s_plain:.3f}), K1 with the projection "
+        f"inside {k1_2_ms:.3f} ms")
+    for name, (km, pm) in k2h_ms.items():
+        log(f"[timing] {card} | {name} at {shape2}: kernel {km:.3f} ms, "
+            f"plain {pm:.3f} ms")
+    del xz2, ys2, gs2, cs2, gy2, dz2, x2
+
+    # 14. bidi2 serving: the config-4 net saved as .clstm, clstmocr's path.
+    codec2 = Codec([0] + [0x4E00 + i for i in range(C2 - 1)])
+    maker = CLSTMOCR(device="cuda")
+    maker.createBidi(codec2, H2, kind="bidi2", initial=0.3)
+    with tempfile.TemporaryDirectory() as tmp:
+        model2 = os.path.join(tmp, "bidi2.clstm")
+        maker.save(model2, sidecar=False)
+        served2, batches2, e2e2_s, share2, total2 = serve(model2, images, dev,
+                                                          C2, tmp)
+    del maker
+    nb2 = len(batches2)
+    if not served2["bidi_lstm_infer"] == served2["bidi_lstm_infer_xz"] == nb2:
+        raise AssertionError(f"bidi2 serving: {nb2} buckets, launches "
+                             f"{served2}: each bucket must launch K3 on layer "
+                             f"1 and K4 on layer 2")
+    log(f"[bidi2 main] {N_LINES} lines in {nb2} width buckets "
+        f"({', '.join(str(b[0].shape[1]) for b in batches2)} frames), K3 "
+        f"launches {served2['bidi_lstm_infer']}, K4 launches "
+        f"{served2['bidi_lstm_infer_xz']}, {e2e2_s:.3f} s end to end "
+        f"({N_LINES / e2e2_s:.1f} lines/s incl. host normalization); frame "
+        f"ids agree with plain on {share2:.6f} of {total2} valid frames (min "
+        f"{ID_AGREE_MIN})")
+
+    # 15. bidi2 training at the config-4 bench profile (bench.py:538-600).
+    batch2 = bench_batch(np.random.RandomState(0), dev, C2)
+    tocr2 = CLSTMOCR(device="cuda")
+    tocr2.createBidi(codec2, nhidden=H2, kind="bidi2")
+    tocr2.setLearningRate(1e-4, 0.9)
+    plain2 = TrainState.create(make_net_init(
+        "bidi2", {"ninput": D, "nhidden": H2, "noutput": C2}, device=dev)[1])
+    with torch.no_grad():
+        for p, q in zip(plain2.net.parameters(), tocr2.net.parameters()):
+            p.copy_(q)
+    train2 = train_against_plain(tocr2, plain2, batch2, 1e-4, 0.9,
+                                 f"train bidi2 B={B} T={T} S={S81} C={C2}")
+    want2 = {"bidi_lstm_fwd_state": 5, "bidi_lstm_fwd_state_xz": 5,
+             "bidi_lstm_bwd_chain": 10, "bidi_lstm_bwd_reduce": 10,
+             "ctc_forward": 5, "ctc_both": 5}
+    if {k: v for k, v in train2.items() if v} != want2:
+        raise AssertionError(f"bidi2 training launches {train2}, want "
+                             f"{want2}: K1 and K4 once a step, K2 on both "
+                             f"layers, K5 and K6")
+    del plain2
+    k_step2 = host_ms(lambda: tocr2.train_batch(batch2), 5)
+    vel2 = TrainState.create(tocr2.net).velocity
+    p_step2 = host_ms(lambda: plain_train_step(tocr2.net, vel2, batch2, 0.0,
+                                               0.0), 1)
+    log(f"[timing] {card} | bidi2 train_batch B={B} T={T} S={S81} C={C2}: "
+        f"kernels {k_step2:.3f} ms/step ({B / k_step2 * 1e3:.1f} lines/s), "
+        f"plain {p_step2:.3f} ms/step ({B / p_step2 * 1e3:.1f} lines/s)")
+    layer1 = tocr2.net.sub[0]
+    with torch.no_grad():
+        k1_l1 = time_ms(lambda: bidi_lstm_fwd_state(
+            layer1.sub[0].weights(), layer1.sub[1].sub[0].weights(),
+            batch2["x"], batch2["lengths"]), 5)
+    log(f"[timing] {card} | K1 at bidi2's layer 1 B={B} T={T} D={D} H={H2} "
+        f"len={TRUE_T}: {k1_l1:.3f} ms")
+    fwd2_ms = time_ms(lambda: apply_net(tocr2.net, batch2["x"],
+                                        batch2["lengths"], inference=True), 5)
+    log(f"[timing] {card} | bidi2 batched forward (K3, hoisted product, K4, "
+        f"softmax) B={B} T={T} len={TRUE_T}: {fwd2_ms:.3f} ms/batch "
+        f"({B / fwd2_ms * 1e3:.1f} lines/s)")
+    profile_steps(tocr2, batch2, card, "profile_train_step_bidi2.txt",
+                  "profile bidi2")
+
+    # 16. Report.
     entries = [
         ("bidi_lstm_fwd (K3)", "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu",
          "clstm_tpu/ops/pallas_lstm.py:197", launches, max(errs.values()),
@@ -819,13 +1128,33 @@ def main() -> int:
         ("ctc_both (K6)", "clstm_tpu_torch/csrc/ctc_dp.cu",
          "clstm_tpu/ops/pallas_ctc.py:88", train_launches["ctc_both"],
          k56[3], k56[2], ms["K6"]),
+        ("bidi_lstm_fwd_xz (K4)", "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu",
+         "clstm_tpu/ops/pallas_lstm.py:197", served2["bidi_lstm_infer_xz"],
+         k4_err, None, (k4_ms, k4_plain)),
+        ("bidi_lstm_fwd_xz_state (K4)",
+         "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu",
+         "clstm_tpu/ops/pallas_lstm.py:197", train2["bidi_lstm_fwd_state_xz"],
+         k4_err, None, (k4s_ms, k4s_plain)),
+        ("ctc_backward (K6b)", "clstm_tpu_torch/csrc/ctc_dp.cu",
+         "clstm_tpu/ops/pallas_ctc.py:88", k6b_launches, k56[5], k56[4],
+         ms["K6b"]),
     ]
+    # K4's rows also carry the product it runs on and the kernel with the
+    # projection inside (K3, K1) at the same shape.
+    extra = {"bidi_lstm_fwd_xz (K4)": {
+                 "hoisted_product_ms": proj_ms,
+                 "in_kernel_projection_ms": sum(k3_2) / len(k3_2),
+                 "hoisted_total_ms": sum(k4_2) / len(k4_2)},
+             "bidi_lstm_fwd_xz_state (K4)": {
+                 "hoisted_product_ms": proj_ms,
+                 "in_kernel_projection_ms": k1_2_ms}}
     kernels = []
     for name, src, rep, n, err, rel, (km, pm) in entries:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": n, "max_abs_err": err, "ms": km, "plain_ms": pm}
         if rel is not None:
             e["max_rel_err"] = rel
+        e.update(extra.get(name, {}))
         kernels.append(e)
     print(card)
     print(json.dumps({"kernels": kernels}))

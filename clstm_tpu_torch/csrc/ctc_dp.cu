@@ -2,8 +2,11 @@
 //
 // K5 clstm_ctc_forward replaces clstm_tpu/ops/pallas_ctc.py::_kernel
 // (ctc_forward_pallas); K6 clstm_ctc_both replaces pallas_ctc.py::_bwd_kernel
-// with fuse_both=True (ctc_both_pallas). Contracts, as the plain versions
-// clstm_tpu_torch/ops/ctc.py::ctc_forward_plain and ctc_both_plain:
+// with fuse_both=True (ctc_both_pallas); K6b clstm_ctc_backward replaces the
+// same kernel with fuse_both=False (ctc_backward_pallas), and is a mode of
+// K6's kernel. Contracts, as the plain versions
+// clstm_tpu_torch/ops/ctc.py::ctc_forward_plain, ctc_both_plain and
+// ctc_backward_plain:
 //
 //   K5: lmatch [B,T,S], lengths [B] -> lr [B,T,S]
 //       v0[s] = skip*s; per frame t < len: w[s] = v[s-1], w[0] = skip*t;
@@ -17,6 +20,11 @@
 //       w + lm_t); both[t] = lr[t] + u. Frames t >= len: both = NEG.
 //       lse[s] = logsumexp over all T frames of both[., s], by a running
 //       max / scaled-sum pair (exact, no overflow).
+//   K6b: lmatch [B,T,S], lengths, target_lengths [B] -> rl [B,T,S]: K6's
+//       recurrence alone, rl[t] = u after frame t. Frames t >= len carry u
+//       through (rl = the initial u there, as the TPU kernel writes). On
+//       valid cells (t < len, s < tlen) rl equals the flip recipe of
+//       ctc_backward_plain; elsewhere the two differ freely.
 //
 // What bounds them: a serial chain of T dependent steps per row, each a
 // handful of flops per state (S <= 512 in practice, 81 at the bench shape)
@@ -81,36 +89,46 @@ __global__ void ctc_forward_kernel(const float* __restrict__ lmatch,
       out[(size_t)t * S + s] = v[s];
 }
 
+// BOTH: K6 (both = lr + u and lse); !BOTH: K6b (rl = u into `out`; lr and
+// lse unused).
+template <bool BOTH>
 __global__ void ctc_both_kernel(const float* __restrict__ lmatch,
                                 const float* __restrict__ lr,
                                 const int32_t* __restrict__ lengths,
                                 const int32_t* __restrict__ target_lengths,
-                                float* __restrict__ both,
+                                float* __restrict__ out,
                                 float* __restrict__ lse, int T, int S,
                                 float skip) {
   extern __shared__ float smem[];
   float* u = smem;            // [S] current state
   float* un = smem + S;       // [S] next state
-  float* mx = smem + 2 * S;   // [S] running max of both over t
-  float* ac = smem + 3 * S;   // [S] running sum of exp(both - max)
+  float* mx = smem + 2 * S;   // [S] running max of both over t (BOTH)
+  float* ac = smem + 3 * S;   // [S] running sum of exp(both - max) (BOTH)
   const int b = blockIdx.x;
   const int L = clamp_len(lengths, b, T);
   const int TL = target_lengths[b];
   const size_t row = (size_t)b * T * S;
 
-  // Frames t >= len: both = NEG; they enter the running pair like any
-  // other frame (per state, no shift, so no barrier).
+  // Frames t >= len: both = NEG, and they enter the running pair like any
+  // other frame (per state, no shift, so no barrier); rl = the initial u.
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    u[s] = s < TL ? skip * (float)(TL - 1 - s) : NEG;
+    const float u0 = s < TL ? skip * (float)(TL - 1 - s) : NEG;
+    u[s] = u0;
     float m = NEG, a = 0.0f;
     for (int t = T - 1; t >= L; --t) {
-      both[row + (size_t)t * S + s] = NEG;
-      const float m2 = fmaxf(m, NEG);
-      a = a * expf(m - m2) + expf(NEG - m2);
-      m = m2;
+      if (BOTH) {
+        out[row + (size_t)t * S + s] = NEG;
+        const float m2 = fmaxf(m, NEG);
+        a = a * expf(m - m2) + expf(NEG - m2);
+        m = m2;
+      } else {
+        out[row + (size_t)t * S + s] = u0;
+      }
     }
-    mx[s] = m;
-    ac[s] = a;
+    if (BOTH) {
+      mx[s] = m;
+      ac[s] = a;
+    }
   }
   __syncthreads();
   for (int t = L - 1; t >= 0; --t) {
@@ -121,20 +139,25 @@ __global__ void ctc_both_kernel(const float* __restrict__ lmatch,
       const float w = s == TL - 1 ? wb : (s + 1 < S ? u[s + 1] : NEG);
       const float nu = logaddexp_f32(u[s] + l, w + l);
       un[s] = nu;
-      const float bo = lr[i] + nu;
-      both[i] = bo;
-      const float m = mx[s];
-      const float m2 = fmaxf(m, bo);
-      ac[s] = ac[s] * expf(m - m2) + expf(bo - m2);
-      mx[s] = m2;
+      if (BOTH) {
+        const float bo = lr[i] + nu;
+        out[i] = bo;
+        const float m = mx[s];
+        const float m2 = fmaxf(m, bo);
+        ac[s] = ac[s] * expf(m - m2) + expf(bo - m2);
+        mx[s] = m2;
+      } else {
+        out[i] = nu;
+      }
     }
     __syncthreads();
     float* tmp = u;
     u = un;
     un = tmp;
   }
-  for (int s = threadIdx.x; s < S; s += blockDim.x)
-    lse[(size_t)b * S + s] = mx[s] + logf(fmaxf(ac[s], 1e-30f));
+  if (BOTH)
+    for (int s = threadIdx.x; s < S; s += blockDim.x)
+      lse[(size_t)b * S + s] = mx[s] + logf(fmaxf(ac[s], 1e-30f));
 }
 
 int block_threads(int S) {
@@ -169,9 +192,23 @@ extern "C" int clstm_ctc_both(const float* lmatch, const float* lr,
                               float* lse, int B, int T, int S, float skip,
                               void* stream) {
   const size_t smem = 4 * (size_t)S * sizeof(float);
-  const cudaError_t e = set_smem((const void*)ctc_both_kernel, smem);
+  const cudaError_t e = set_smem((const void*)ctc_both_kernel<true>, smem);
   if (e != cudaSuccess) return (int)e;
-  ctc_both_kernel<<<B, block_threads(S), smem, (cudaStream_t)stream>>>(
+  ctc_both_kernel<true><<<B, block_threads(S), smem, (cudaStream_t)stream>>>(
       lmatch, lr, lengths, target_lengths, both, lse, T, S, skip);
+  return (int)cudaGetLastError();
+}
+
+// K6b: rl [B,T,S] from lmatch [B,T,S], lengths and target_lengths [B].
+extern "C" int clstm_ctc_backward(const float* lmatch, const int32_t* lengths,
+                                  const int32_t* target_lengths, float* rl,
+                                  int B, int T, int S, float skip,
+                                  void* stream) {
+  const size_t smem = 2 * (size_t)S * sizeof(float);
+  const cudaError_t e = set_smem((const void*)ctc_both_kernel<false>, smem);
+  if (e != cudaSuccess) return (int)e;
+  ctc_both_kernel<false><<<B, block_threads(S), smem,
+                           (cudaStream_t)stream>>>(
+      lmatch, nullptr, lengths, target_lengths, rl, nullptr, T, S, skip);
   return (int)cudaGetLastError();
 }

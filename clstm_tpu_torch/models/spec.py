@@ -138,7 +138,10 @@ def apply_net(net: "Layer", x: torch.Tensor,
     the pre-activation delta). ``inference=True`` runs the pass without
     autograd — the no-grad forward that prediction runs, where the bidi pair
     takes the inference kernel (K3); with gradients it takes the training
-    kernels (K1 forward, K2 backward).
+    kernels (K1 forward, K2 backward). A bidi pair whose input is wider
+    than its lane-padded hidden size (``hoists_projection``: the second
+    layer of ``bidi2``) takes the hoisted projection and K4 in place of K3
+    and K1.
     """
     ctx = ApplyCtx(logits=logits)
     if inference:

@@ -2,15 +2,22 @@
 ``csrc/bidi_lstm_bwd.cu``, and the autograd entry point of training.
 
   bidi_lstm_infer       K3, replaces clstm_tpu/ops/pallas_lstm.py::
-                        _fwd_kernel with emit_state=False (serving);
+                        _fwd_kernel with emit_state=False (serving); it
+                        sends a layer where ``hoists_projection`` holds to
+                        K4 instead;
   bidi_lstm_fwd_state   K1, the same TPU kernel with emit_state=True: the
                         forward that also writes what the backward reads;
+  bidi_lstm_infer_xz, bidi_lstm_fwd_state_xz
+                        K4, the same TPU kernel with proj_in=True, in both
+                        modes: the recurrence on the hoisted projection
+                        (ops/lstm.py::hoisted_projection);
   bidi_lstm_bwd_chain   K2's backward chain, replaces pallas_lstm.py::
                         _bwd_kernel (L391-430);
   bidi_lstm_bwd_reduce  K2's contractions dW, dWh and dx (the TPU kernel's
                         own body, L440-463), written by hand as well;
-  bidi_lstm_train       a torch.autograd.Function: K1 forward, K2 backward
-                        (the custom VJP of bidi_lstm_pallas).
+  bidi_lstm_train       a torch.autograd.Function: K1 (or the hoisted
+                        projection and K4) forward, K2 backward (the custom
+                        VJP of bidi_lstm_pallas).
 
 Their plain versions are in ops/lstm.py (bidi_lstm_apply and the ``_plain``
 functions). On CPU tensors each wrapper runs its plain version; on CUDA
@@ -25,14 +32,17 @@ from typing import Optional
 import torch
 
 from clstm_tpu_torch.ops.lstm import (
-    bidi_lstm_apply, bidi_lstm_bwd_chain_plain, bidi_lstm_bwd_reduce_plain,
-    bidi_lstm_fwd_state_plain)
+    bidi_lstm_apply, bidi_lstm_apply_xz, bidi_lstm_bwd_chain_plain,
+    bidi_lstm_bwd_reduce_plain, bidi_lstm_fwd_state_plain,
+    bidi_lstm_fwd_state_xz_plain, hoisted_projection)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers, ints, stream); all return int.
 _SIGNATURES = {
     "clstm_bidi_lstm_fwd": [_P] * 6 + [_I] * 4 + [_P],
     "clstm_bidi_lstm_fwd_state": [_P] * 8 + [_I] * 4 + [_P],
+    "clstm_bidi_lstm_fwd_xz": [_P] * 4 + [_I] * 3 + [_P],
+    "clstm_bidi_lstm_fwd_xz_state": [_P] * 6 + [_I] * 3 + [_P],
     "clstm_bidi_lstm_bwd_chain": [_P] * 6 + [_I] * 3 + [_P],
     "clstm_bidi_lstm_bwd_nsplit": [_I] * 2,
     "clstm_bidi_lstm_bwd_reduce": [_P] * 7 + [_I] * 4 + [_P],
@@ -109,21 +119,67 @@ def _check(params_f: dict, params_r: dict, x: torch.Tensor,
     _check_lengths(lengths, B, x.device)
 
 
+def _check_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
+              lengths: Optional[torch.Tensor]) -> None:
+    """Raise on anything K4 does not take."""
+    if (xz.dim() != 4 or xz.shape[2] != 2 or xz.dtype != torch.float32
+            or not xz.is_contiguous()):
+        raise ValueError(f"xz must be a contiguous [B, T, 2, 4H] float32 "
+                         f"tensor, got {xz.dtype} {tuple(xz.shape)}")
+    _check_device(xz.device)
+    H = params_f["Wh"].shape[0]
+    if xz.shape[3] != 4 * H:
+        raise ValueError(f"xz has {xz.shape[3]} gate columns, Wh has {H} "
+                         f"units")
+    for p in (params_f, params_r):
+        w = p["Wh"]
+        if (tuple(w.shape) != (H, 4 * H) or w.dtype != torch.float32
+                or w.device != xz.device):
+            raise ValueError(f"Wh must be float32 {(H, 4 * H)} on "
+                             f"{xz.device}, got {w.dtype} {tuple(w.shape)} "
+                             f"on {w.device}")
+    _check_lengths(lengths, xz.shape[0], xz.device)
+
+
 def _stack(params_f: dict, params_r: dict, name: str) -> torch.Tensor:
     return torch.stack([params_f[name], params_r[name]]).detach().contiguous()
 
 
+def hoists_projection(D: int, H: int) -> bool:
+    """Whether a bidi layer of input width D and H units runs on a hoisted
+    input projection (K4) instead of computing it inside the recurrence
+    (K3, K1): D + 1 > ceil(H / 128)·128.
+
+    This is the JAX package's rule (clstm_tpu/ops/pallas_lstm.py:836,
+    ``dc > hp``), where 128 is the TPU's lane padding of H. The port keeps
+    it so that the same layers take K4 in both packages (the second layer
+    of ``bidi2``); whether the rule also picks the faster kernel on the card
+    is measured in PERF.md §6.
+    """
+    return D + 1 > -(-H // 128) * 128
+
+
 def bidi_lstm_infer(params_f: dict, params_r: dict, x: torch.Tensor,
-                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K3. x [B, T, D] f32, lengths [B] int32 or None (all T) -> y
-    [B, T, 2H] f32: forward half then reverse half, exactly 0.0 where
-    t >= len.
+                    lengths: Optional[torch.Tensor] = None,
+                    hoist: Optional[bool] = None) -> torch.Tensor:
+    """Inference forward of a bidi layer. x [B, T, D] f32, lengths [B]
+    int32 or None (all T) -> y [B, T, 2H] f32: forward half then reverse
+    half, exactly 0.0 where t >= len.
 
     ``params_*`` hold the fused weights {"Wx" [D,4H], "Wh" [H,4H],
-    "b" [4H]}. No gradient flows through the CUDA launch: training runs
-    ``bidi_lstm_train``.
+    "b" [4H]}. With ``hoist`` None the layer takes K4 on
+    ``hoisted_projection`` where ``hoists_projection(D, H)`` holds and K3
+    elsewhere; True or False picks one (for measurements). ``launches``
+    counts K3's launches, ``bidi_lstm_infer_xz.launches`` K4's. No gradient
+    flows through a CUDA launch: training runs ``bidi_lstm_train``.
     """
     _check(params_f, params_r, x, lengths)
+    if hoist is None:
+        hoist = hoists_projection(x.shape[-1], params_f["Wh"].shape[0])
+    if hoist:
+        return bidi_lstm_infer_xz(params_f, params_r,
+                                  hoisted_projection(params_f, params_r, x),
+                                  lengths)
     if x.device.type == "cpu":
         return bidi_lstm_apply(params_f, params_r, x, lengths)
     B, T, D = x.shape
@@ -161,6 +217,50 @@ def bidi_lstm_fwd_state(params_f: dict, params_r: dict, x: torch.Tensor,
             _ptr(lengths), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
             y.data_ptr(), gates.data_ptr(), cell.data_ptr(), B, T, D, H)
     bidi_lstm_fwd_state.launches += 1
+    return y, gates, cell
+
+
+def bidi_lstm_infer_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
+                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4, inference. xz [B, T, 2, 4H] f32 (ops/lstm.py::hoisted_projection,
+    original time order) -> y [B, T, 2H] f32, as ``bidi_lstm_infer``. Only
+    ``Wh`` of the params is read (see ops/lstm.py::bidi_lstm_apply_xz)."""
+    _check_xz(params_f, params_r, xz, lengths)
+    if xz.device.type == "cpu":
+        return bidi_lstm_apply_xz(params_f, params_r, xz, lengths)
+    B, T, _, G = xz.shape
+    H = G // 4
+    y = torch.empty((B, T, 2 * H), dtype=torch.float32, device=xz.device)
+    if B == 0 or T == 0:
+        return y
+    wh = _stack(params_f, params_r, "Wh")
+    _launch("clstm_bidi_lstm_fwd_xz", xz.device, xz.data_ptr(),
+            _ptr(lengths), wh.data_ptr(), y.data_ptr(), B, T, H)
+    bidi_lstm_infer_xz.launches += 1
+    return y
+
+
+def bidi_lstm_fwd_state_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
+                           lengths: Optional[torch.Tensor] = None):
+    """K4, state mode: as ``bidi_lstm_infer_xz``, and also returns gates
+    [B, T, 2, 4H] and cell [B, T, 2, H] with K1's layout and zeros, which
+    K2 reads unchanged (see ops/lstm.py::bidi_lstm_fwd_state_xz_plain)."""
+    _check_xz(params_f, params_r, xz, lengths)
+    if xz.device.type == "cpu":
+        return bidi_lstm_fwd_state_xz_plain(params_f, params_r, xz, lengths)
+    B, T, _, G = xz.shape
+    H = G // 4
+    dev = xz.device
+    y = torch.empty((B, T, 2 * H), dtype=torch.float32, device=dev)
+    gates = torch.empty((B, T, 2, G), dtype=torch.float32, device=dev)
+    cell = torch.empty((B, T, 2, H), dtype=torch.float32, device=dev)
+    if B == 0 or T == 0:
+        return y, gates, cell
+    wh = _stack(params_f, params_r, "Wh")
+    _launch("clstm_bidi_lstm_fwd_xz_state", dev, xz.data_ptr(), _ptr(lengths),
+            wh.data_ptr(), y.data_ptr(), gates.data_ptr(), cell.data_ptr(),
+            B, T, H)
+    bidi_lstm_fwd_state_xz.launches += 1
     return y, gates, cell
 
 
@@ -232,13 +332,26 @@ def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
 class _BidiLSTMTrain(torch.autograd.Function):
     """K1 forward, K2 backward (the custom VJP of bidi_lstm_pallas). The six
     weight tensors come in separately, so autograd hands each gradient to
-    its own module parameter; they are stacked inside only."""
+    its own module parameter; they are stacked inside only.
+
+    Where ``hoists_projection(D, H)`` holds, the forward computes the
+    hoisted projection here, inside the Function, and runs K4 on it; xz is
+    freed before the backward. The backward is K2 as for any layer: K4
+    stores K1's gates and cell, so K2 never reads z, and the gradients of
+    Wx, b and x come from K2's own reduction, as they come from the TPU
+    kernel's body under its custom VJP, not from autograd through the
+    product."""
 
     @staticmethod
     def forward(ctx, x, lengths, wxf, whf, bf, wxr, whr, br):
         pf = {"Wx": wxf, "Wh": whf, "b": bf}
         pr = {"Wx": wxr, "Wh": whr, "b": br}
-        y, gates, cell = bidi_lstm_fwd_state(pf, pr, x, lengths)
+        if hoists_projection(x.shape[-1], whf.shape[0]):
+            xz = hoisted_projection(pf, pr, x)
+            y, gates, cell = bidi_lstm_fwd_state_xz(pf, pr, xz, lengths)
+            del xz
+        else:
+            y, gates, cell = bidi_lstm_fwd_state(pf, pr, x, lengths)
         ctx.save_for_backward(x, lengths, y, gates, cell, wxf, whf, wxr, whr)
         return y
 
@@ -260,7 +373,8 @@ class _BidiLSTMTrain(torch.autograd.Function):
 def bidi_lstm_train(params_f: dict, params_r: dict, x: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Differentiable bidirectional LSTM, same value as ``bidi_lstm_infer``:
-    K1 in the forward, K2 in the backward on a card, their plain versions
+    K1 (or, where ``hoists_projection`` holds, the hoisted projection and
+    K4) in the forward, K2 in the backward on a card, their plain versions
     on CPU tensors. Gradients flow to the six weight tensors and, when it
     requires one, to x."""
     _check(params_f, params_r, x, lengths)
@@ -272,5 +386,7 @@ def bidi_lstm_train(params_f: dict, params_r: dict, x: torch.Tensor,
 # Kernel launches since the last reset (CPU calls do not count).
 bidi_lstm_infer.launches = 0
 bidi_lstm_fwd_state.launches = 0
+bidi_lstm_infer_xz.launches = 0
+bidi_lstm_fwd_state_xz.launches = 0
 bidi_lstm_bwd_chain.launches = 0
 bidi_lstm_bwd_reduce.launches = 0

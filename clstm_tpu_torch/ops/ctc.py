@@ -15,8 +15,9 @@ package's TPU branch: the forward DP (K5) and the fused second direction
 (K6, ``both`` and its logsumexp over time) through the wrappers of
 ops/ctc_kernel.py — CUDA kernels on a card, their plain versions on CPU
 tensors. ``fused=False`` runs the scan recipe instead (``_forward_scan``
-plus the flip recipe ``_backward_dp``), the reference the tests and
-chip_smoke.py hold the fused path against. lmatch is a gather, exact in
+plus ``_backward_dp``: the flip recipe, or K6b for f32 CUDA tensors unless
+``use_kernel=False``), the reference the tests and chip_smoke.py hold the
+fused path against. lmatch is a gather, exact in
 f32; the aligned targets are an f32 product with the one-hot targets, with
 TF32 off (utils/config.py).
 """
@@ -137,15 +138,35 @@ def ctc_both_plain(lmatch: torch.Tensor, lr: torch.Tensor,
 
 def _backward_dp(lmatch: torch.Tensor, tvalid: torch.Tensor,
                  lengths: torch.Tensor, target_lengths: torch.Tensor,
-                 skip: float) -> torch.Tensor:
-    """The second DP direction by the flip recipe: flip time and states
-    within their lengths, run the forward DP, flip back."""
+                 skip: float,
+                 use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """The second DP direction. ``use_kernel`` mirrors the JAX package's
+    ``use_pallas``: with None, K6b (ops/ctc_kernel.py::ctc_backward) runs
+    exactly for float32 CUDA tensors; otherwise, and in float64, the flip
+    recipe runs: flip time and states within their lengths, run the
+    forward DP, flip back. The two agree on valid cells (t < len,
+    s < tlen) only."""
+    if use_kernel is None:
+        use_kernel = lmatch.is_cuda and lmatch.dtype == torch.float32
+    if use_kernel:
+        from clstm_tpu_torch.ops.ctc_kernel import ctc_backward
+        return ctc_backward(lmatch.contiguous(), lengths, target_lengths, skip)
     lm_rev = flip_within_length(lmatch, lengths)
     lm_rev = flip_within_length(lm_rev.transpose(1, 2), target_lengths)
     rl = _forward_scan(lm_rev.transpose(1, 2), tvalid, skip)
     rl = flip_within_length(rl, lengths)
     return flip_within_length(rl.transpose(1, 2),
                               target_lengths).transpose(1, 2)
+
+
+def ctc_backward_plain(lmatch: torch.Tensor, lengths: torch.Tensor,
+                       target_lengths: torch.Tensor,
+                       skip: float = SKIP) -> torch.Tensor:
+    """K6b's plain version: the flip recipe of ``_backward_dp``."""
+    T = lmatch.shape[1]
+    tvalid = torch.arange(T, device=lmatch.device)[None, :] < lengths[:, None]
+    return _backward_dp(lmatch, tvalid, lengths, target_lengths, skip,
+                        use_kernel=False)
 
 
 def ctc_align_targets_batched(
@@ -157,6 +178,7 @@ def ctc_align_targets_batched(
     skip: float = SKIP,
     lo: float = LO,
     fused: bool = True,
+    use_kernel: Optional[bool] = None,
 ) -> torch.Tensor:
     """Batched CTC alignment: per-frame aligned posterior targets.
 
@@ -174,7 +196,9 @@ def ctc_align_targets_batched(
       aligned = max(lo, epath @ onehot(targets)); normalized over classes
     ``fused=True`` computes ``both`` and its logsumexp with K5 and K6
     (ops/ctc_kernel.py); ``fused=False`` runs the scan recipe, in float64
-    when ``probs`` is float64.
+    when ``probs`` is float64, with its second direction dispatched by
+    ``use_kernel`` (``_backward_dp``: K6b for f32 CUDA tensors unless
+    False).
     """
     B, T, C = probs.shape
     S = target_ids.shape[1]
@@ -208,7 +232,8 @@ def ctc_align_targets_batched(
                             torch.zeros((), dtype=dt, device=dev))
     else:
         lr = _forward_scan(lmatch, tvalid, skip)
-        rl = _backward_dp(lmatch, tvalid, lengths, target_lengths, skip)
+        rl = _backward_dp(lmatch, tvalid, lengths, target_lengths, skip,
+                          use_kernel)
         neg = torch.tensor(NEG, dtype=dt, device=dev)
         both = torch.where(tvalid[:, :, None], lr + rl, neg)
         both = torch.where(svalid[:, None, :], both, neg)

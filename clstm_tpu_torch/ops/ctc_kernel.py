@@ -4,10 +4,13 @@
                (ctc_forward_pallas): the forward DP, lr [B, T, S];
   ctc_both     K6, replaces pallas_ctc.py::_bwd_kernel with fuse_both=True
                (ctc_both_pallas): the second DP direction without flips,
-               both = lr + rl [B, T, S] and lse [B, S].
+               both = lr + rl [B, T, S] and lse [B, S];
+  ctc_backward K6b, replaces the same kernel with fuse_both=False
+               (ctc_backward_pallas): the second DP direction alone, rl
+               [B, T, S].
 
-Their plain versions are ops/ctc.py::ctc_forward_plain and
-ctc_both_plain. On CPU tensors each wrapper runs its plain version; on CUDA
+Their plain versions are ops/ctc.py::ctc_forward_plain, ctc_both_plain and
+ctc_backward_plain (the flip recipe). On CPU tensors each wrapper runs its plain version; on CUDA
 tensors it launches the kernel or raises, and never falls back. Any B, T,
 S >= 1 is taken (no padding of S to 128 or of B to 8).
 """
@@ -18,7 +21,8 @@ import ctypes
 
 import torch
 
-from clstm_tpu_torch.ops.ctc import SKIP, ctc_both_plain, ctc_forward_plain
+from clstm_tpu_torch.ops.ctc import (
+    SKIP, ctc_backward_plain, ctc_both_plain, ctc_forward_plain)
 
 _fns: dict = {}
 
@@ -112,6 +116,30 @@ def ctc_both(lmatch: torch.Tensor, lr: torch.Tensor, lengths: torch.Tensor,
     return both, lse
 
 
+def ctc_backward(lmatch: torch.Tensor, lengths: torch.Tensor,
+                 target_lengths: torch.Tensor,
+                 skip: float = SKIP) -> torch.Tensor:
+    """lmatch [B, T, S] f32; lengths, target_lengths [B] int32 -> rl
+    [B, T, S] f32, the second DP direction. Equal to the flip recipe on
+    valid cells (t < len, s < tlen); frames t >= len hold the initial
+    state."""
+    _check(lmatch, lengths)
+    B, T, S = lmatch.shape
+    _check_ints("target_lengths", target_lengths, B, lmatch.device)
+    if lmatch.device.type == "cpu":
+        return ctc_backward_plain(lmatch, lengths, target_lengths, skip)
+    rl = torch.empty_like(lmatch)
+    if lmatch.numel() == 0:
+        return rl
+    _launch("clstm_ctc_backward",
+            (lmatch.data_ptr(), lengths.data_ptr(), target_lengths.data_ptr(),
+             rl.data_ptr()),
+            (B, T, S), skip, lmatch.device)
+    ctc_backward.launches += 1
+    return rl
+
+
 # Kernel launches since the last reset (CPU calls do not count).
 ctc_forward.launches = 0
 ctc_both.launches = 0
+ctc_backward.launches = 0

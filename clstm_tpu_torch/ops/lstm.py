@@ -14,9 +14,13 @@ Every function here is plain PyTorch (Python loops over T) and runs on any
 device. They are the plain versions the tests and chip_smoke.py hold the
 kernels against; on a card the kernels of ops/bidi_lstm_kernel.py run
 instead:
+  hoisted_projection    the input projection of both directions as
+                        one product (not a kernel: XLA's on the TPU);
   bidi_lstm_apply       K3, the inference forward;
   bidi_lstm_fwd_state_plain   K1, the training forward with the state
                               the backward reads;
+  bidi_lstm_apply_xz, bidi_lstm_fwd_state_xz_plain
+                        K4, the same two on a hoisted projection;
   bidi_lstm_bwd_chain_plain   K2's backward chain (dz per frame);
   bidi_lstm_bwd_reduce_plain  K2's contractions (dWx with the bias row,
                               dWh, dx).
@@ -72,10 +76,86 @@ def lstm_apply(params: dict, x: torch.Tensor,
     return torch.stack(outs, dim=1).to(x.dtype)
 
 
+def hoisted_projection(params_f: dict, params_r: dict,
+                       x: torch.Tensor) -> torch.Tensor:
+    """The input projection of both directions as one f32 product, taken
+    out of the recurrence: xz [B, T, 2, 4H] = x·[Wx_f | Wx_r] + [b_f | b_r],
+    in ORIGINAL time order for both directions.
+
+    Counterpart of clstm_tpu/ops/pallas_lstm.py::_proj_stream, which XLA
+    computes outside the Pallas kernel; here it is ``torch.addmm`` on
+    [B·T, D] x [D, 2·4H]. Strict f32: TF32 is off
+    (utils/config.py::torch_device).
+    """
+    B, T, D = x.shape
+    G = params_f["Wh"].shape[1]
+    w = torch.cat([params_f["Wx"], params_r["Wx"]], dim=1)       # [D, 8H]
+    b = torch.cat([params_f["b"], params_r["b"]])                 # [8H]
+    return torch.addmm(b, x.reshape(B * T, D).float(), w).reshape(B, T, 2, G)
+
+
+def _chain_plain(params_f: dict, params_r: dict, xz: torch.Tensor,
+                 lengths: Optional[torch.Tensor], with_state: bool):
+    """The recurrence of both directions in one loop over T on a hoisted
+    projection xz [B, T, 2, 4H] in original time order; the reverse chain
+    reads frame len-1-s at step s. Returns y [B, T, 2H] and, with
+    ``with_state``, gates [B, T, 2, 4H] and cell [B, T, 2, H] (else None),
+    in original time order and exactly 0 on padded frames. Lengths are
+    clamped to [0, T]; padded steps carry (h, c) through unchanged."""
+    B, T, _, G = xz.shape
+    H = G // 4
+    if lengths is not None:
+        lengths = lengths.to(xz.device).clamp(0, T)
+    xz = _to_dirs(xz, lengths)                                   # [2,B,T,4H]
+    Wh2 = torch.stack([params_f["Wh"], params_r["Wh"]])          # [2,H,4H]
+    valid = _valid(lengths, B, T, xz.device)
+    h = xz.new_zeros((2, B, H))
+    c = torch.zeros_like(h)
+    hs, gs, cs = [], [], []
+    for t in range(T):
+        z = xz[:, :, t] + torch.bmm(h, Wh2)
+        g = torch.cat([torch.sigmoid(z[..., :3 * H]),
+                       torch.tanh(z[..., 3 * H:])], dim=-1)
+        c_new = g[..., H:2 * H] * c + g[..., :H] * g[..., 3 * H:]
+        h_new = torch.tanh(c_new) * g[..., 2 * H:3 * H]
+        v = valid[t]
+        c = torch.where(v, c_new, c)
+        h = torch.where(v, h_new, h)
+        hs.append(torch.where(v, h_new, torch.zeros_like(h_new)))
+        if with_state:
+            gs.append(torch.where(v, g, torch.zeros_like(g)))
+            cs.append(torch.where(v, c_new, torch.zeros_like(c_new)))
+    y = _from_dirs(torch.stack(hs, dim=2), lengths).reshape(B, T, 2 * H)
+    if not with_state:
+        return y, None, None
+    return (y, _from_dirs(torch.stack(gs, dim=2), lengths),
+            _from_dirs(torch.stack(cs, dim=2), lengths))
+
+
+def bidi_lstm_apply_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
+                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4's plain version, inference: the bidirectional recurrence on a
+    hoisted projection xz [B, T, 2, 4H] (``hoisted_projection``; original
+    time order) -> y [B, T, 2H], forward features then backward features,
+    exactly 0 on padded frames. The reverse direction reads frame len-1-s
+    at chain step s. Only ``Wh`` of the params is read."""
+    return _chain_plain(params_f, params_r, xz, lengths, False)[0]
+
+
+def bidi_lstm_fwd_state_xz_plain(params_f: dict, params_r: dict,
+                                 xz: torch.Tensor,
+                                 lengths: Optional[torch.Tensor] = None):
+    """K4's plain version, state mode: ``bidi_lstm_apply_xz`` plus the
+    state the backward pass reads, with the layout and zeros of
+    ``bidi_lstm_fwd_state_plain`` (y [B, T, 2H], gates [B, T, 2, 4H], cell
+    [B, T, 2, H])."""
+    return _chain_plain(params_f, params_r, xz, lengths, True)
+
+
 def bidi_lstm_apply(params_f: dict, params_r: dict, x: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Bidirectional LSTM, both directions stacked on a leading group axis
-    in one loop over T.
+    """Bidirectional LSTM, K3's plain version: the hoisted projection, then
+    both directions stacked on a leading group axis in one loop over T.
 
     Same semantics as
       concat([lstm_apply(params_f, x), flip(lstm_apply(params_r, flip(x)))])
@@ -84,29 +164,8 @@ def bidi_lstm_apply(params_f: dict, params_r: dict, x: torch.Tensor,
     then backward features. ``lengths`` are clamped to [0, T], as the
     kernel does.
     """
-    B, T, _ = x.shape
-    H = params_f["Wh"].shape[0]
-    if lengths is not None:
-        lengths = lengths.to(x.device).clamp(0, T)
-    xr = flip_within_length(x, lengths)
-    Wx2 = torch.stack([params_f["Wx"], params_r["Wx"]])          # [2, D, 4H]
-    b2 = torch.stack([params_f["b"], params_r["b"]])             # [2, 4H]
-    Wh2 = torch.stack([params_f["Wh"], params_r["Wh"]])          # [2, H, 4H]
-    x2 = torch.stack([x, xr]).float()                            # [2, B, T, D]
-    xz = torch.einsum("gbtd,gdo->gbto", x2, Wx2) + b2[:, None, None, :]
-    valid = _valid(lengths, B, T, x.device)
-    h = x.new_zeros((2, B, H), dtype=torch.float32)
-    c = torch.zeros_like(h)
-    outs = []
-    for t in range(T):
-        h_new, c_new = _cell(xz[:, :, t] + torch.bmm(h, Wh2), c, H)
-        v = valid[t]
-        c = torch.where(v, c_new, c)
-        h = torch.where(v, h_new, h)
-        outs.append(torch.where(v, h_new, torch.zeros_like(h_new)))
-    hs = torch.stack(outs, dim=2)                                # [2, B, T, H]
-    yr = flip_within_length(hs[1], lengths)
-    return torch.cat([hs[0], yr], dim=-1).to(x.dtype)
+    xz = hoisted_projection(params_f, params_r, x)
+    return bidi_lstm_apply_xz(params_f, params_r, xz, lengths).to(x.dtype)
 
 
 def _to_dirs(a: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
@@ -134,36 +193,8 @@ def bidi_lstm_fwd_state_plain(params_f: dict, params_r: dict, x: torch.Tensor,
     frame before it in chain order (t-1 forward, t+1 reverse), 0 at a
     chain's first step.
     """
-    B, T, _ = x.shape
-    H = params_f["Wh"].shape[0]
-    if lengths is not None:
-        lengths = lengths.to(x.device).clamp(0, T)
-    xr = flip_within_length(x, lengths)
-    Wx2 = torch.stack([params_f["Wx"], params_r["Wx"]])
-    b2 = torch.stack([params_f["b"], params_r["b"]])
-    Wh2 = torch.stack([params_f["Wh"], params_r["Wh"]])
-    x2 = torch.stack([x, xr]).float()
-    xz = torch.einsum("gbtd,gdo->gbto", x2, Wx2) + b2[:, None, None, :]
-    valid = _valid(lengths, B, T, x.device)
-    h = x.new_zeros((2, B, H), dtype=torch.float32)
-    c = torch.zeros_like(h)
-    hs, gs, cs = [], [], []
-    for t in range(T):
-        z = xz[:, :, t] + torch.bmm(h, Wh2)
-        g = torch.cat([torch.sigmoid(z[..., :3 * H]),
-                       torch.tanh(z[..., 3 * H:])], dim=-1)
-        c_new = g[..., H:2 * H] * c + g[..., :H] * g[..., 3 * H:]
-        h_new = torch.tanh(c_new) * g[..., 2 * H:3 * H]
-        v = valid[t]
-        c = torch.where(v, c_new, c)
-        h = torch.where(v, h_new, h)
-        hs.append(torch.where(v, h_new, torch.zeros_like(h_new)))
-        gs.append(torch.where(v, g, torch.zeros_like(g)))
-        cs.append(torch.where(v, c_new, torch.zeros_like(c_new)))
-    y = _from_dirs(torch.stack(hs, dim=2), lengths).reshape(B, T, 2 * H)
-    gates = _from_dirs(torch.stack(gs, dim=2), lengths)
-    cell = _from_dirs(torch.stack(cs, dim=2), lengths)
-    return y, gates, cell
+    return bidi_lstm_fwd_state_xz_plain(
+        params_f, params_r, hoisted_projection(params_f, params_r, x), lengths)
 
 
 def bidi_lstm_bwd_chain_plain(gates: torch.Tensor, cell: torch.Tensor,
