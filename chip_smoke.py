@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (clstm_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k2-against SRC]
 
 Drives the port's serving path — the path `clstmocr` runs — and its training
 path — CLSTMOCR.train_batch, a CTC training step — at the full width of the
@@ -15,7 +15,8 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
      its plain PyTorch loop on the card at B=256, T=1024, D=48, H=100
      (weights uniform ±0.3 from a numpy seed), for two length sets, plus a
      few odd shapes; padded frames must be exactly 0;
-  4. timing: kernel and plain ms per batch at that shape;
+  4. timing: kernel and plain ms per batch at that shape, and cuDNN's
+     bidirectional nn.LSTM on the same batch in turns with the kernel;
   5. main path: a seeded bidi net is saved as .clstm, loaded through
      CLSTMOCR.load, and 64 synthetic line images go through
      cli.clstmocr.predict_pages and write_outputs; the kernel's launch count
@@ -25,7 +26,9 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
      profile (lengths all 900 and mixed 0..1024) and the odd shapes of 3:
      y, gates and cell; every stream exactly 0 on padded frames;
   7. K2 (backward chain and reduction) against their plain versions on the
-     same inputs with a seeded cotangent, with and without dx;
+     same inputs with a seeded cotangent, with and without dx; the
+     reduction's dW and dx against float64 (catches one-pass TF32); two
+     calls of each bitwise equal; the chain alone at H=700 and H=2048;
   8. K5, K6 and K6b (CTC alignment DP) against their plain versions at
      B=256, T=1024, S=81, at S=512 and at an odd S, mixed lengths and target
      lengths with rows of length 0; the aligned targets of the kernel path
@@ -39,30 +42,43 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
  10. learning check: the toy CTC transduction of tests/test_learning.py on
      the card (bidi, nhidden 16, 4 classes, B=8, T=24, 120 steps);
  11. timing: ms per train_batch step (kernels and plain), each kernel
-     against its plain version, and a torch.profiler breakdown of a kernel
-     step (written to chiprun_out/profile_train_step.txt);
+     against its plain version and, in turns, K1 against cuDNN's forward
+     with grad enabled and K2's reduction against the plain version's
+     einsum; cuDNN's backward against K2; a torch.profiler breakdown of a
+     kernel step (written to chiprun_out/profile_train_step.txt);
  12. K4 (the LSTM recurrence on a hoisted input projection), both modes,
      against its plain versions at bidi2's second layer (B=256, T=1024,
      D=400, H=200; lengths all 900 and mixed 0..1024) and odd shapes; the
      hoisted product against float64; K2 at that shape, with dx;
  13. timing at that shape: K4 (product and recurrence, and each alone)
      against K3 and K1, which compute the projection inside the recurrence,
-     in turns;
+     in turns; K2 there, its reduction in turns with the two einsums, and
+     cuDNN's nn.LSTM at D=400 in turns with product + K4;
  14. bidi2 serving: a seeded config-4 net (createBidi(kind="bidi2")) saved
      as .clstm and run through predict_pages; every width bucket must launch
      K3 (layer 1) and K4 (layer 2), frame ids as in 5;
  15. bidi2 training: 5 train_batch steps at the config-4 bench profile
      (bench.py:538-600: B=256, T=1024, 900 frames, S=81, 400 classes)
      against the plain steps, each step launching K1, K4, K2 on both layers,
-     K5 and K6; ms per step and a torch.profiler breakdown
+     K5 and K6; ms per step, K2's reduction at layer 1 (D=48, H=200) in
+     turns with the einsum, and a torch.profiler breakdown
      (chiprun_out/profile_train_step_bidi2.txt).
 
+With --k2-against SRC, every timed K2 shape also times the K2 built from
+SRC in turns with the current one (against, current, current, against).
+
 Any failure raises, so the script exits non-zero. The last line is
-{"ok": true, "device": {...}}; the line before it lists the kernels.
+{"ok": true, "device": {...}}; the line before it lists the kernels, each
+with bound_ms (the least time the card could take: the larger of its
+matrix flop at 3xTF32's 165 TFLOP/s and its bytes at 3.35 TB/s, bound_by
+naming which) and library_ms (a library call computing the same function,
+timed in turns with the kernel, or null); the line before that the card's
+name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -109,13 +125,21 @@ TOL = 1e-4
 ID_AGREE_MIN = 0.999
 N_LINES = 64
 # K2 against plain, relative to max|plain| of each tensor. dz comes out of a
-# 1024-step backward recurrence whose Dh the kernel sums in four per-gate
-# partials (the plain loop in one cuBLAS product); dW, dWh, db and dx are
-# sums over ~230k frames, taken by the kernel in 64 fixed frame ranges plus
-# a second pass and by einsum in cuBLAS order. f32 rounding of such sums
-# stays near 1e-6 of the largest term; 1e-4 leaves two orders of margin and
-# still catches a wrong gate, shift or mask (1e-2 or more).
+# 1024-step backward recurrence whose Dh the kernel sums by column ranges
+# (the plain loop in one cuBLAS product); dW, dWh, db and dx are sums over
+# ~230k frames, taken by the kernel in 3xTF32 on the tensor cores over
+# fixed frame ranges plus a second pass, and by einsum in cuBLAS order. f32
+# rounding of such sums stays near 1e-6 of the largest term; 1e-4 leaves
+# two orders of margin and still catches a wrong gate, shift or mask (1e-2
+# or more).
 K2_RTOL = 1e-4
+# K2's reduction against a float64 einsum on the same inputs, max|Δ| over
+# max|f64| for dW and for dx: no further than F64_FACTOR times the plain
+# f32 einsum's own distance, or F64_FLOOR where both are a few ulp (small
+# shapes). One TF32 pass (a 10-bit mantissa) lands ~1e-4 away and fails
+# this; 3xTF32 is f32-accurate (tests/test_torch_tf32_split.py).
+F64_FACTOR = 2.0
+F64_FLOOR = 2e-6
 # K5/K6 against plain, |Δ| / max(1, |plain|) over valid (t < len,
 # s < tlen) cells. Both run the same f32 recurrence; they differ only in
 # the last ulp of log1p(exp(.)), and the lattice values reach ~-1e4.
@@ -147,7 +171,16 @@ STEP1_PARAM_RTOL = 1e-4
 LOSS_RTOL = 1e-3
 PARAM_RTOL = 1e-3
 NCHARS = 40             # bench.py:548-575: S = 2*40+1 = 81
-ODD_SHAPES = ((5, 37, 3, 7), (3, 20, 49, 300), (9, 64, 48, 100))
+# (B, T, D, H). K2's tiles are 32 frames (dW), 128 frames (dx) and 128x128
+# outputs: these cross their edges, with rows shorter than a frame tile
+# (so a tile spans rows and the h_prev shift meets a row boundary inside
+# it), B·T not a multiple of a tile, D and H not multiples of 4, and D=1,
+# H=1. H=300 takes the chain's 4-row plan with WhT in L2.
+ODD_SHAPES = ((5, 37, 3, 7), (3, 20, 49, 300), (9, 64, 48, 100),
+              (2, 9, 1, 1))
+# K2's chain alone at widths whose plans hold one row per block (on the
+# plain forward's state; K1 is not driven there).
+CHAIN_WIDE = ((4, 40, 5, 700), (2, 12, 3, 2048))
 # BASELINE config 4 (bench.py:26-27: bench_net=bidi2, nhidden 200, 400
 # classes). Its second layer has D = 2·200 = 400 inputs, so D+1 > 256 and
 # it takes the hoisted projection and K4 (hoists_projection).
@@ -159,6 +192,13 @@ ODD_K4 = ((3, 17, 130, 7), (5, 33, 401, 200))
 # largest term, while TF32 (10-bit mantissa) would be ~1e-3 off. 1e-5
 # tells the two apart (ROADMAP Queue 3, "CTC matmul precision").
 XZ_RTOL = 1e-5
+# Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W) for bound_ms: HBM
+# at 3.35 TB/s, and f32-accurate products at a third of the 495 TFLOP/s of
+# TF32 (3xTF32). bound_ms is the larger of a kernel's matrix flop over
+# this run's valid frames at that rate and its bytes (each input read
+# once, each output written once) at the HBM rate.
+HBM_BPS = 3.35e12
+F32_MMA_FLOPS = 495e12 / 3
 
 
 def log(msg: str) -> None:
@@ -286,10 +326,27 @@ def compare_k1(pf, pr, x, lengths):
     return err, want
 
 
+def reduce64(x, y, dz, Wx2):
+    """K2's reduction in float64 on the same inputs (the plain version's
+    einsums, operands cast up) -> (dW [2, D+1+H, 4H], dx [B, T, D])."""
+    B, T, D = x.shape
+    H = y.shape[-1] // 2
+    x, y, dz = x.double(), y.double(), dz.double()
+    h_prev = torch.stack([F.pad(y[:, :-1, :H], (0, 0, 1, 0)),
+                          F.pad(y[:, 1:, H:], (0, 0, 0, 1))])
+    a = torch.cat([torch.cat([x, x.new_ones((B, T, 1))], -1).expand(
+        2, B, T, D + 1), h_prev], -1)
+    return (torch.einsum("gbti,btgj->gij", a, dz),
+            torch.einsum("btgj,gdj->btd", dz, Wx2.double()))
+
+
 def compare_k2(pf, pr, x, lengths, state, gy):
-    """K2 vs plain on K1's plain streams: the chain on the same inputs, the
-    reduction on the plain chain's dz, with and without dx. Returns
-    (chain rel, chain abs, {tensor: rel}, reduction abs)."""
+    """K2 vs plain on the given forward streams: the chain on the same
+    inputs, the reduction on the plain chain's dz, with and without dx;
+    each kernel called twice must give bitwise equal results, and the
+    reduction's dW and dx must be as close to float64 as F64_FACTOR/
+    F64_FLOOR allow. Returns (chain rel, chain abs, {tensor: rel},
+    reduction abs, {dW, dx: (kernel, plain) distance from float64})."""
     y, gates, cell = state
     Wh2, Wx2 = stack2(pf, pr, "Wh"), stack2(pf, pr, "Wx")
     D = x.shape[-1]
@@ -297,6 +354,9 @@ def compare_k2(pf, pr, x, lengths, state, gy):
         dz_k = bidi_lstm_bwd_chain(gates, cell, gy, Wh2, lengths)
         dz_p = lstm_ops.bidi_lstm_bwd_chain_plain(gates, cell, gy, Wh2,
                                                   lengths)
+        if not torch.equal(dz_k, bidi_lstm_bwd_chain(gates, cell, gy, Wh2,
+                                                     lengths)):
+            raise AssertionError("K2 chain: two calls differ")
         torch.cuda.synchronize()
         pad = padded(lengths, x.shape[0], x.shape[1], x.device)
         if not bool((dz_k[pad] == 0.0).all()):
@@ -304,17 +364,29 @@ def compare_k2(pf, pr, x, lengths, state, gy):
         require_finite("K2 chain", dz_k)
         chain_rel = rel_err(dz_k, dz_p)
         chain_abs = float((dz_k - dz_p).abs().max())
-        red, red_abs = {}, 0.0
+        del dz_k
+        red, red_abs, f64 = {}, 0.0, {}
         for need_dx in (True, False):
             dW_k, dx_k = bidi_lstm_bwd_reduce(x, y, dz_p, Wx2, need_dx)
             dW_p, dx_p = lstm_ops.bidi_lstm_bwd_reduce_plain(x, y, dz_p, Wx2,
                                                              need_dx)
+            again = bidi_lstm_bwd_reduce(x, y, dz_p, Wx2, need_dx)
+            if not (torch.equal(dW_k, again[0]) and (
+                    dx_k is None or torch.equal(dx_k, again[1]))):
+                raise AssertionError("K2 reduction: two calls differ")
+            del again
             torch.cuda.synchronize()
             parts = {"dWx": (dW_k[:, :D], dW_p[:, :D]),
                      "db": (dW_k[:, D], dW_p[:, D]),
                      "dWh": (dW_k[:, D + 1:], dW_p[:, D + 1:])}
             if need_dx:
                 parts["dx"] = (dx_k, dx_p)
+                dW64, dx64 = reduce64(x, y, dz_p, Wx2)
+                for name, k, p, r in (("dW", dW_k, dW_p, dW64),
+                                      ("dx", dx_k, dx_p, dx64)):
+                    f64[name] = (rel_err(k.double(), r),
+                                 rel_err(p.double(), r))
+                del dW64, dx64
             elif dx_k is not None:
                 raise AssertionError("K2 reduction computed dx unasked")
             for name, (k, p) in parts.items():
@@ -325,7 +397,208 @@ def compare_k2(pf, pr, x, lengths, state, gy):
     if not worst <= K2_RTOL:
         raise AssertionError(f"K2 vs plain rel {worst:.3e} > {K2_RTOL:.0e} "
                              f"(chain {chain_rel:.3e}, {red})")
-    return chain_rel, chain_abs, red, red_abs
+    for name, (k, p) in f64.items():
+        if not k <= max(F64_FACTOR * p, F64_FLOOR):
+            raise AssertionError(
+                f"K2 {name} {k:.3e} from float64, plain f32 {p:.3e}: more "
+                f"than {F64_FACTOR}x (floor {F64_FLOOR:.0e}): one-pass TF32?")
+    return chain_rel, chain_abs, red, red_abs, f64
+
+
+def f64_note(f64: dict) -> str:
+    return "; vs float64 " + ", ".join(
+        f"{n} kernel {k:.3e} plain {p:.3e}" for n, (k, p) in f64.items())
+
+
+def bound(flop: float, nbytes: float):
+    """(bound_ms, bound_by) for ``flop`` matrix flop and ``nbytes`` moved."""
+    f_ms, b_ms = flop / F32_MMA_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    return (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
+
+
+def lstm_bound(kind: str, B, T, D, H, V, dx=False):
+    """bound() of a bidi LSTM kernel at [B, T] with V valid frames: K3/K1
+    (kind "fwd"/"fwd_state": z = [x|1]·W_in + h·Wh), K4 ("xz"/"xz_state":
+    h·Wh on xz), K2's chain ("chain": Dh = dz·Whᵀ) or reduction
+    ("reduce": dW, and dx when asked). f32 = 4 bytes."""
+    G, BT = 4 * H, B * T
+    state = 4 * BT * (2 * G + 2 * H)            # gates and cell written
+    if kind in ("fwd", "fwd_state"):
+        flop = 2 * V * 2 * (D + 1 + H) * G
+        nbytes = 4 * (BT * D + 2 * (D + 1 + H) * G + BT * 2 * H + B)
+    elif kind in ("xz", "xz_state"):
+        flop = 2 * V * 2 * H * G
+        nbytes = 4 * (BT * 2 * G + 2 * H * G + BT * 2 * H + B)
+    elif kind == "chain":
+        return bound(2 * V * 2 * G * H,
+                     state + 4 * (BT * 2 * H + 2 * H * G + BT * 2 * G + B))
+    else:
+        flop = 2 * V * 2 * (D + 1 + H) * G + (V * 2 * 2 * G * D if dx else 0)
+        nbytes = 4 * (BT * D + BT * 2 * H + BT * 2 * G + 2 * (D + 1 + H) * G
+                      + (2 * D * G + BT * D if dx else 0))
+    return bound(flop, nbytes + (state if kind.endswith("state") else 0))
+
+
+def in_turns(fa, fb, reps: int):
+    """ms per call of fa and fb, timed in turns a, b, b, a ->
+    ([a, a], [b, b])."""
+    a1, b1, b2, a2 = (time_ms(f, reps) for f in (fa, fb, fb, fa))
+    return [a1, a2], [b1, b2]
+
+
+def mean(v) -> float:
+    return sum(v) / len(v)
+
+
+def cudnn_lstm(pf: dict, pr: dict, dev) -> torch.nn.LSTM:
+    """torch.nn.LSTM (cuDNN; TF32 off by torch_device) holding a bidi
+    layer's weights: the library yardstick timed beside K3, K1 and K4, and
+    never called by the port. The port's gate order is (i, f, o, g),
+    PyTorch's (i, f, g, o); the port's one bias goes to bias_ih and
+    bias_hh is 0."""
+    D, G = pf["Wx"].shape
+    H = G // 4
+    perm = torch.cat([torch.arange(2 * H), torch.arange(3 * H, 4 * H),
+                      torch.arange(2 * H, 3 * H)]).to(dev)
+    lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for sfx, p in (("l0", pf), ("l0_reverse", pr)):
+            getattr(lstm, f"weight_ih_{sfx}").copy_(p["Wx"][:, perm].t())
+            getattr(lstm, f"weight_hh_{sfx}").copy_(p["Wh"][:, perm].t())
+            getattr(lstm, f"bias_ih_{sfx}").copy_(p["b"][perm])
+            getattr(lstm, f"bias_hh_{sfx}").zero_()
+    return lstm
+
+
+def packed(x, lengths):
+    return torch.nn.utils.rnn.pack_padded_sequence(
+        x, lengths.cpu(), batch_first=True, enforce_sorted=False)
+
+
+def check_cudnn(lstm, px, y_ref, name: str) -> None:
+    """The yardstick computes the layer: its output against ``y_ref``."""
+    with torch.no_grad():
+        y = torch.nn.utils.rnn.pad_packed_sequence(
+            lstm(px)[0], batch_first=True, total_length=y_ref.shape[1])[0]
+    err = float((y - y_ref).abs().max())
+    if not err <= TOL:
+        raise AssertionError(f"cuDNN yardstick of {name} is {err:.3e} off "
+                             f"the kernel: weights mapped wrongly")
+
+
+def cudnn_step(lstm, px, dx: bool):
+    """The cuDNN yardstick's forward with grad enabled, and its forward
+    followed by the backward to the weights (and the input with ``dx``), as
+    two callables: the backward's time is their difference."""
+    inp = px.data.detach().requires_grad_(dx)
+    pin = torch.nn.utils.rnn.PackedSequence(inp, px.batch_sizes,
+                                            px.sorted_indices,
+                                            px.unsorted_indices)
+    wrt = list(lstm.parameters()) + ([inp] if dx else [])
+
+    def fwd():
+        with torch.enable_grad():
+            return lstm(pin)[0].data
+
+    def fwd_bwd():
+        out = fwd()
+        return torch.autograd.grad(out, wrt, torch.ones_like(out))
+    return fwd, fwd_bwd
+
+
+def einsum_reduce(x, y, dz, Wx2, need_dx: bool):
+    """The plain version's einsums alone, on operands built beforehand: the
+    library yardstick of K2's reduction -> a callable."""
+    B, T, D = x.shape
+    H = y.shape[-1] // 2
+    h_prev = torch.stack([F.pad(y[:, :-1, :H], (0, 0, 1, 0)),
+                          F.pad(y[:, 1:, H:], (0, 0, 0, 1))])
+    a = torch.cat([torch.cat([x, x.new_ones((B, T, 1))], -1).expand(
+        2, B, T, D + 1), h_prev], -1).contiguous()
+
+    def run():
+        dW = torch.einsum("gbti,btgj->gij", a, dz)
+        return dW, torch.einsum("btgj,gdj->btd", dz, Wx2) if need_dx else None
+    return run
+
+
+def load_k2_against(src: str):
+    """``--k2-against SRC``: K2 built from another source with the same nvcc
+    flags, to time in turns with the current K2 -> (chain, reduce) with the
+    wrappers' signatures. SRC may have the current C interface (WhT padded
+    to clstm_bidi_lstm_bwd_hp, a scratch size from
+    clstm_bidi_lstm_bwd_scratch) or the earlier one (WhT unpadded
+    [2, 4H, H], dW partials sized by clstm_bidi_lstm_bwd_nsplit(B, T)). No
+    launch is counted."""
+    import ctypes
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "k2_against.so")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        so, src], check=True, capture_output=True, timeout=600)
+        lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    current = hasattr(lib, "clstm_bidi_lstm_bwd_scratch")
+    lib.clstm_bidi_lstm_bwd_chain.argtypes = [P] * 6 + [I] * 3 + [P]
+    lib.clstm_bidi_lstm_bwd_reduce.argtypes = [P] * 7 + [I] * 4 + [P]
+    if current:
+        lib.clstm_bidi_lstm_bwd_hp.argtypes = [I]
+        lib.clstm_bidi_lstm_bwd_scratch.argtypes = [I] * 4
+        lib.clstm_bidi_lstm_bwd_scratch.restype = ctypes.c_longlong
+    else:
+        lib.clstm_bidi_lstm_bwd_nsplit.argtypes = [I] * 2
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"K2 from {src}: CUDA error {err}")
+
+    def chain(gates, cell, gy, Wh2, lengths):
+        B, T, _, G = gates.shape
+        H = G // 4
+        dz = torch.empty_like(gates)
+        hp = lib.clstm_bidi_lstm_bwd_hp(H) if current else H
+        whT = torch.zeros((2, G, hp), dtype=torch.float32, device=gates.device)
+        whT[:, :, :H] = Wh2.transpose(1, 2)
+        check(lib.clstm_bidi_lstm_bwd_chain(
+            0 if lengths is None else lengths.data_ptr(), gates.data_ptr(),
+            cell.data_ptr(), gy.data_ptr(), whT.data_ptr(), dz.data_ptr(), B,
+            T, H, torch.cuda.current_stream().cuda_stream))
+        return dz
+
+    def reduce(x, y, dz, Wx2, need_dx):
+        B, T, D = x.shape
+        H = y.shape[-1] // 2
+        M, G = D + 1 + H, 4 * H
+        n = (lib.clstm_bidi_lstm_bwd_scratch(B, T, D, H) if current
+             else lib.clstm_bidi_lstm_bwd_nsplit(B, T) * 2 * M * G)
+        scratch = torch.empty(n, dtype=torch.float32, device=x.device)
+        dW = torch.empty((2, M, G), dtype=torch.float32, device=x.device)
+        dx = torch.empty_like(x) if need_dx else None
+        check(lib.clstm_bidi_lstm_bwd_reduce(
+            x.data_ptr(), y.data_ptr(), dz.data_ptr(), Wx2.data_ptr(),
+            scratch.data_ptr(), dW.data_ptr(), 0 if dx is None else
+            dx.data_ptr(), B, T, D, H,
+            torch.cuda.current_stream().cuda_stream))
+        return dW, dx
+    return chain, reduce
+
+
+def against_turns(label: str, old, new, reps: int, card: str) -> dict:
+    """Time the K2 of --k2-against (old) and the current one (new) in turns
+    old, new, new, old; both must agree within K2_RTOL. Logs and returns
+    {"against_ms": [..], "ms": [..]}."""
+    a, b = old(), new()
+    torch.cuda.synchronize()
+    for u, v in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        if u is not None and not rel_err(v, u) <= K2_RTOL:
+            raise AssertionError(f"{label}: --k2-against and current K2 "
+                                 f"disagree ({rel_err(v, u):.3e})")
+    del a, b
+    o, n = in_turns(old, new, reps)
+    log(f"[k2-against] {card} | {label} in turns (against, current, "
+        f"current, against): {o[0]:.3f}, {n[0]:.3f}, {n[1]:.3f}, "
+        f"{o[1]:.3f} ms")
+    return {"against_ms": o, "ms": n}
 
 
 def compare_k4(pf, pr, x, lengths):
@@ -671,7 +944,13 @@ def profile_steps(tocr, batch, card, fname, tag):
                                  for e in top))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--k2-against", metavar="SRC",
+                    help="also build this K2 source (bidi_lstm_bwd.cu of this "
+                    "or the earlier C interface) and time it in turns with "
+                    "the current K2 at every timed K2 shape")
+    args = ap.parse_args(argv)
     # 1. Device.
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -687,6 +966,8 @@ def main() -> int:
     so = _build.build()
     _build.load_library()
     log(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s")
+    k2_against = (load_k2_against(args.k2_against) if args.k2_against
+                  else None)
 
     # 3. Kernel against plain at the bench profile, then odd shapes.
     rng = np.random.RandomState(0)
@@ -712,14 +993,23 @@ def main() -> int:
         log(f"[kernel] B={b} T={t} D={d} H={h}: max|dy| {e1:.3e} mixed "
             f"lengths, {e2:.3e} no lengths")
 
-    # 4. Timing at the bench profile.
+    # 4. Timing at the bench profile: K3 against its plain loop and, in
+    # turns, against cuDNN's bidirectional LSTM on the same batch.
     L900 = lens["all900"]
+    V900 = int(L900.sum())
+    lstm = cudnn_lstm(pf, pr, dev)
+    px = packed(x, L900)
     with torch.no_grad():
-        k_ms = time_ms(lambda: bidi_lstm_infer(pf, pr, x, L900), 20)
+        check_cudnn(lstm, px, bidi_lstm_infer(pf, pr, x, L900), "K3")
+        k3_t, k3_lib = in_turns(lambda: bidi_lstm_infer(pf, pr, x, L900),
+                                lambda: lstm(px), 10)
+        k_ms, k3_lib_ms = mean(k3_t), mean(k3_lib)
         p_ms = time_ms(lambda: bidi_lstm_apply(pf, pr, x, L900), 3)
     log(f"[timing] {card} | bidi LSTM fwd B={B} T={T} D={D} H={H} "
         f"len={TRUE_T}: kernel {k_ms:.3f} ms/batch ({B / k_ms * 1e3:.0f} "
-        f"lines/s), plain {p_ms:.3f} ms/batch ({B / p_ms * 1e3:.0f} lines/s)")
+        f"lines/s), plain {p_ms:.3f} ms/batch ({B / p_ms * 1e3:.0f} "
+        f"lines/s); in turns K3 {k3_t[0]:.3f}, cuDNN nn.LSTM {k3_lib[0]:.3f},"
+        f" {k3_lib[1]:.3f}, K3 {k3_t[1]:.3f} ms")
 
     # 5. Main path: .clstm save/load, clstmocr's predict_pages and outputs.
     gen = torch.Generator().manual_seed(0)
@@ -757,21 +1047,35 @@ def main() -> int:
         log(f"[K1] {name}: max|d| over y, gates, cell {e:.3e} (tol {TOL:.0e}),"
             f" every stream exactly 0 on padded frames")
 
-    # 7. K2 against plain on the same inputs, seeded cotangent in ±1.
+    # 7. K2 against plain on the same inputs, seeded cotangent in ±1; then
+    # the chain's widest plans on the plain forward's state.
     k2 = {"chain_rel": 0.0, "chain_abs": 0.0, "red_rel": 0.0, "red_abs": 0.0}
+    for (b, t, d, h) in CHAIN_WIDE:
+        wpf, wpr = lstm_params(rng, d, h, dev, 0.1), lstm_params(rng, d, h,
+                                                                 dev, 0.1)
+        wx = uniform(rng, (b, t, d), -1.0, 1.0, dev)
+        wl = torch.from_numpy(rng.randint(0, t + 1, b).astype(np.int32)).to(dev)
+        with torch.no_grad():
+            k1_state[f"B={b} T={t} D={d} H={h} mixed lengths"] = \
+                lstm_ops.bidi_lstm_fwd_state_plain(wpf, wpr, wx, wl)
+        cases.append((f"B={b} T={t} D={d} H={h} mixed lengths", wpf, wpr, wx,
+                      wl))
     for name, cpf, cpr, cx, cl in cases:
         cB, cT = cx.shape[:2]
         cH = cpf["Wh"].shape[0]
         gy = uniform(rng, (cB, cT, 2 * cH), -1.0, 1.0, dev)
-        cr, ca, red, ra = compare_k2(cpf, cpr, cx, cl, k1_state[name], gy)
+        cr, ca, red, ra, f64 = compare_k2(cpf, cpr, cx, cl, k1_state[name],
+                                          gy)
         k2["chain_rel"] = max(k2["chain_rel"], cr)
         k2["chain_abs"] = max(k2["chain_abs"], ca)
         k2["red_rel"] = max(k2["red_rel"], *red.values())
         k2["red_abs"] = max(k2["red_abs"], ra)
         log(f"[K2] {name}: chain dz rel {cr:.3e}; reduction rel "
             + ", ".join(f"{n} {v:.3e}" for n, v in red.items())
-            + f" (tol {K2_RTOL:.0e} of max|plain|), dz exactly 0 on padded "
-            "frames")
+            + f" (tol {K2_RTOL:.0e} of max|plain|){f64_note(f64)} (at most "
+            f"{F64_FACTOR:g}x plain or {F64_FLOOR:.0e}); dz exactly 0 on "
+            "padded frames; two calls bitwise equal")
+    cases = cases[:len(cases) - len(CHAIN_WIDE)]
     del k1_state
 
     # 8. K5, K6 and K6b against plain; aligned targets against float64
@@ -948,10 +1252,42 @@ def main() -> int:
             ms[name] = (time_ms(kf, 10), time_ms(pfn, 2))
         dx_ms = time_ms(lambda: bidi_lstm_bwd_reduce(bx, ys, dz, Wx2, True),
                         10)
+        # Library yardsticks in turns with the kernels: cuDNN's forward with
+        # grad enabled against K1, the plain version's einsum on prebuilt
+        # operands against K2's reduction, cuDNN's backward against K2.
+        lstm = cudnn_lstm(tpf, tpr, dev)
+        pbx = packed(bx, Lb)
+        check_cudnn(lstm, pbx, ys, "K1")
+        cu_fwd, cu_fwd_bwd = cudnn_step(lstm, pbx, False)
+        k1_t, k1_lib = in_turns(pairs["K1"][0], cu_fwd, 10)
+        red_t, red_lib = in_turns(pairs["K2 reduction"][0],
+                                  einsum_reduce(bx, ys, dz, Wx2, False), 10)
+        cu_bwd_ms = time_ms(cu_fwd_bwd, 10) - mean(k1_lib)
+        lib = {"K1": mean(k1_lib), "K2 reduction": mean(red_lib)}
+        ms["K1"] = (mean(k1_t), ms["K1"][1])
+        ms["K2 reduction"] = (mean(red_t), ms["K2 reduction"][1])
+        against = {}
+        if k2_against:
+            against["chain H=100"] = against_turns(
+                f"K2 chain B={B} T={T} H={H}",
+                lambda: k2_against[0](gs, cs, gy, Wh2, Lb),
+                pairs["K2 chain"][0], 10, card)
+            against["reduction bidi"] = against_turns(
+                f"K2 reduction B={B} T={T} D={D} H={H} (no dx)",
+                lambda: k2_against[1](bx, ys, dz, Wx2, False),
+                pairs["K2 reduction"][0], 10, card)
+        del lstm, pbx, cu_fwd, cu_fwd_bwd
     for name, (km, pm) in ms.items():
         log(f"[timing] {card} | {name} at the bench shape: kernel {km:.3f} ms, "
-            f"plain {pm:.3f} ms")
+            f"plain {pm:.3f} ms" + (f", library {lib[name]:.3f} ms"
+                                    if name in lib else ""))
     log(f"[timing] {card} | K2 reduction with dx: kernel {dx_ms:.3f} ms")
+    log(f"[timing] {card} | in turns: K1 {k1_t[0]:.3f}, cuDNN fwd (grad) "
+        f"{k1_lib[0]:.3f}, {k1_lib[1]:.3f}, K1 {k1_t[1]:.3f} ms; K2 "
+        f"reduction {red_t[0]:.3f}, einsum {red_lib[0]:.3f}, "
+        f"{red_lib[1]:.3f}, K2 reduction {red_t[1]:.3f} ms; cuDNN backward "
+        f"{cu_bwd_ms:.3f} ms against K2 chain + reduction "
+        f"{ms['K2 chain'][0] + ms['K2 reduction'][0]:.3f} ms")
     del ys, gs, cs, dz, lm, lr
     profile_steps(tocr, batch, card, "profile_train_step.txt", "profile")
     del tocr, back, batch
@@ -973,6 +1309,7 @@ def main() -> int:
                          sx, sl))
     k4_err, xz_rel = 0.0, 0.0
     k2h = {"chain_rel": 0.0, "red_rel": 0.0}
+    k2h_f64 = {}
     for name, cpf, cpr, cx, cl in k4_cases:
         e, xr, state = compare_k4(cpf, cpr, cx, cl)
         k4_err, xz_rel = max(k4_err, e), max(xz_rel, xr)
@@ -982,12 +1319,16 @@ def main() -> int:
             f"{XZ_RTOL:.0e})")
         gy = uniform(rng2, (cx.shape[0], cx.shape[1], 2 * cpf["Wh"].shape[0]),
                      -1.0, 1.0, dev)
-        cr, _, red, _ = compare_k2(cpf, cpr, cx, cl, state, gy)
+        cr, _, red, _, f64 = compare_k2(cpf, cpr, cx, cl, state, gy)
         k2h["chain_rel"] = max(k2h["chain_rel"], cr)
         k2h["red_rel"] = max(k2h["red_rel"], *red.values())
+        if cx is x2:
+            k2h_f64 = {n: max(k2h_f64.get(n, (0.0, 0.0)), v)
+                       for n, v in f64.items()}
         log(f"[K2 hoisted] {name}: chain dz rel {cr:.3e}; reduction rel "
             + ", ".join(f"{n} {v:.3e}" for n, v in red.items())
-            + f" (tol {K2_RTOL:.0e} of max|plain|)")
+            + f" (tol {K2_RTOL:.0e} of max|plain|){f64_note(f64)}; two "
+            "calls bitwise equal")
         del state
 
     # 13. Timing at that shape: the hoisted product and K4 against K3 and
@@ -1024,6 +1365,37 @@ def main() -> int:
                 time_ms(lambda: lstm_ops.bidi_lstm_bwd_reduce_plain(
                     x2, ys2, dz2, Wx22, True), 2)),
         }
+        # Library yardsticks in turns: the plain version's two einsums on
+        # prebuilt operands against the reduction with dx; cuDNN's LSTM at
+        # D=400 (inference, and forward with grad) against the hoisted
+        # product + K4 in each mode; cuDNN's backward against K2.
+        red2_t, red2_lib = in_turns(
+            lambda: bidi_lstm_bwd_reduce(x2, ys2, dz2, Wx22, True),
+            einsum_reduce(x2, ys2, dz2, Wx22, True), 5)
+        k2h_ms["K2 reduction with dx"] = (mean(red2_t),
+                                          k2h_ms["K2 reduction with dx"][1])
+        lstm2 = cudnn_lstm(pf2, pr2, dev)
+        px2 = packed(x2, L900)
+        check_cudnn(lstm2, px2, ys2, "K4")
+        k4_t, k4_lib = in_turns(lambda: bidi_lstm_infer(
+            pf2, pr2, x2, L900, hoist=True), lambda: lstm2(px2), 5)
+        cu2_fwd, cu2_fwd_bwd = cudnn_step(lstm2, px2, True)
+        k4s_t, k4s_lib = in_turns(lambda: bidi_lstm_fwd_state_xz(
+            pf2, pr2, lstm_ops.hoisted_projection(pf2, pr2, x2), L900),
+            cu2_fwd, 5)
+        cu2_bwd_ms = time_ms(cu2_fwd_bwd, 5) - mean(k4s_lib)
+        if k2_against:
+            against["chain H=200"] = against_turns(
+                f"K2 chain B={B} T={T} H={H2}",
+                lambda: k2_against[0](gs2, cs2, gy2, Wh22, L900),
+                lambda: bidi_lstm_bwd_chain(gs2, cs2, gy2, Wh22, L900), 5,
+                card)
+            against["reduction bidi2 layer 2"] = against_turns(
+                f"K2 reduction with dx B={B} T={T} D={D2} H={H2}",
+                lambda: k2_against[1](x2, ys2, dz2, Wx22, True),
+                lambda: bidi_lstm_bwd_reduce(x2, ys2, dz2, Wx22, True), 5,
+                card)
+        del lstm2, px2, cu2_fwd, cu2_fwd_bwd
     k3_2 = [m for h, m in turns if not h]
     k4_2 = [m for h, m in turns if h]
     shape2 = f"B={B} T={T} D={D2} H={H2} len={TRUE_T}"
@@ -1039,6 +1411,17 @@ def main() -> int:
     for name, (km, pm) in k2h_ms.items():
         log(f"[timing] {card} | {name} at {shape2}: kernel {km:.3f} ms, "
             f"plain {pm:.3f} ms")
+    log(f"[timing] {card} | {shape2}, in turns: K2 reduction with dx "
+        f"{red2_t[0]:.3f}, einsums {red2_lib[0]:.3f}, {red2_lib[1]:.3f}, K2 "
+        f"reduction {red2_t[1]:.3f} ms; product + K4 {k4_t[0]:.3f}, cuDNN "
+        f"nn.LSTM {k4_lib[0]:.3f}, {k4_lib[1]:.3f}, product + K4 "
+        f"{k4_t[1]:.3f} ms; product + K4 state {k4s_t[0]:.3f}, cuDNN fwd "
+        f"(grad) {k4s_lib[0]:.3f}, {k4s_lib[1]:.3f}, product + K4 state "
+        f"{k4s_t[1]:.3f} ms; cuDNN backward with dx {cu2_bwd_ms:.3f} ms "
+        f"against K2 chain + reduction "
+        f"{k2h_ms['K2 chain'][0] + k2h_ms['K2 reduction with dx'][0]:.3f} ms")
+    if k2h_f64:
+        log(f"[K2 hoisted] {shape2}{f64_note(k2h_f64)}")
     del xz2, ys2, gs2, cs2, gy2, dz2, x2
 
     # 14. bidi2 serving: the config-4 net saved as .clstm, clstmocr's path.
@@ -1098,6 +1481,33 @@ def main() -> int:
             batch2["x"], batch2["lengths"]), 5)
     log(f"[timing] {card} | K1 at bidi2's layer 1 B={B} T={T} D={D} H={H2} "
         f"len={TRUE_T}: {k1_l1:.3f} ms")
+    # K2's reduction at layer 1 (D=48, H=200, no dx) on K1's state and the
+    # chain's dz for a seeded cotangent, in turns with the einsum.
+    with torch.no_grad():
+        l1f, l1r = layer1.sub[0].weights(), layer1.sub[1].sub[0].weights()
+        x1, L1 = batch2["x"], batch2["lengths"]
+        y1, g1, c1 = bidi_lstm_fwd_state(l1f, l1r, x1, L1)
+        Wx21 = stack2(l1f, l1r, "Wx").detach()
+        dz1 = bidi_lstm_bwd_chain(g1, c1, uniform(rng2, (B, T, 2 * H2), -1.0,
+                                                  1.0, dev),
+                                  stack2(l1f, l1r, "Wh").detach(), L1)
+        del g1, c1
+        red1_t, red1_lib = in_turns(
+            lambda: bidi_lstm_bwd_reduce(x1, y1, dz1, Wx21, False),
+            einsum_reduce(x1, y1, dz1, Wx21, False), 5)
+        red1_plain = time_ms(lambda: lstm_ops.bidi_lstm_bwd_reduce_plain(
+            x1, y1, dz1, Wx21, False), 2)
+        if k2_against:
+            against["reduction bidi2 layer 1"] = against_turns(
+                f"K2 reduction B={B} T={T} D={D} H={H2} (no dx)",
+                lambda: k2_against[1](x1, y1, dz1, Wx21, False),
+                lambda: bidi_lstm_bwd_reduce(x1, y1, dz1, Wx21, False), 5,
+                card)
+        del y1, dz1
+    log(f"[timing] {card} | K2 reduction at bidi2's layer 1 B={B} T={T} "
+        f"D={D} H={H2} len={TRUE_T}, in turns: kernel {red1_t[0]:.3f}, "
+        f"einsum {red1_lib[0]:.3f}, {red1_lib[1]:.3f}, kernel "
+        f"{red1_t[1]:.3f} ms; plain {red1_plain:.3f} ms")
     fwd2_ms = time_ms(lambda: apply_net(tocr2.net, batch2["x"],
                                         batch2["lengths"], inference=True), 5)
     log(f"[timing] {card} | bidi2 batched forward (K3, hoisted product, K4, "
@@ -1106,52 +1516,98 @@ def main() -> int:
     profile_steps(tocr2, batch2, card, "profile_train_step_bidi2.txt",
                   "profile bidi2")
 
-    # 16. Report.
+    # 16. Report. bound_ms from this run's shapes and valid frames (lengths
+    # 900 at both bench shapes); library_ms a library call timed in turns
+    # with the kernel above, or None where no one call computes the same
+    # function.
+    S81_bytes = 4 * B * T * S81
     entries = [
         ("bidi_lstm_fwd (K3)", "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu",
          "clstm_tpu/ops/pallas_lstm.py:197", launches, max(errs.values()),
-         None, (k_ms, p_ms)),
+         None, (k_ms, p_ms), lstm_bound("fwd", B, T, D, H, V900), k3_lib_ms),
         ("bidi_lstm_fwd_state (K1)", "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu",
          "clstm_tpu/ops/pallas_lstm.py:197",
-         train_launches["bidi_lstm_fwd_state"], k1_err, None, ms["K1"]),
+         train_launches["bidi_lstm_fwd_state"], k1_err, None, ms["K1"],
+         lstm_bound("fwd_state", B, T, D, H, V900), lib["K1"]),
         ("bidi_lstm_bwd_chain (K2)", "clstm_tpu_torch/csrc/bidi_lstm_bwd.cu",
          "clstm_tpu/ops/pallas_lstm.py:299",
          train_launches["bidi_lstm_bwd_chain"], k2["chain_abs"],
-         k2["chain_rel"], ms["K2 chain"]),
+         k2["chain_rel"], ms["K2 chain"],
+         lstm_bound("chain", B, T, D, H, V900), None),
         ("bidi_lstm_bwd_reduce (K2)", "clstm_tpu_torch/csrc/bidi_lstm_bwd.cu",
          "clstm_tpu/ops/pallas_lstm.py:299",
          train_launches["bidi_lstm_bwd_reduce"], k2["red_abs"],
-         k2["red_rel"], ms["K2 reduction"]),
+         k2["red_rel"], ms["K2 reduction"],
+         lstm_bound("reduce", B, T, D, H, V900), lib["K2 reduction"]),
         ("ctc_forward (K5)", "clstm_tpu_torch/csrc/ctc_dp.cu",
          "clstm_tpu/ops/pallas_ctc.py:41", train_launches["ctc_forward"],
-         k56[1], k56[0], ms["K5"]),
+         k56[1], k56[0], ms["K5"], bound(0, 2 * S81_bytes + 4 * B), None),
         ("ctc_both (K6)", "clstm_tpu_torch/csrc/ctc_dp.cu",
          "clstm_tpu/ops/pallas_ctc.py:88", train_launches["ctc_both"],
-         k56[3], k56[2], ms["K6"]),
+         k56[3], k56[2], ms["K6"],
+         bound(0, 3 * S81_bytes + 4 * B * S81 + 8 * B), None),
         ("bidi_lstm_fwd_xz (K4)", "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu",
          "clstm_tpu/ops/pallas_lstm.py:197", served2["bidi_lstm_infer_xz"],
-         k4_err, None, (k4_ms, k4_plain)),
+         k4_err, None, (k4_ms, k4_plain),
+         lstm_bound("xz", B, T, D2, H2, V900), mean(k4_lib)),
         ("bidi_lstm_fwd_xz_state (K4)",
          "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu",
          "clstm_tpu/ops/pallas_lstm.py:197", train2["bidi_lstm_fwd_state_xz"],
-         k4_err, None, (k4s_ms, k4s_plain)),
+         k4_err, None, (k4s_ms, k4s_plain),
+         lstm_bound("xz_state", B, T, D2, H2, V900), mean(k4s_lib)),
         ("ctc_backward (K6b)", "clstm_tpu_torch/csrc/ctc_dp.cu",
          "clstm_tpu/ops/pallas_ctc.py:88", k6b_launches, k56[5], k56[4],
-         ms["K6b"]),
+         ms["K6b"], bound(0, 2 * S81_bytes + 8 * B), None),
     ]
-    # K4's rows also carry the product it runs on and the kernel with the
-    # projection inside (K3, K1) at the same shape.
-    extra = {"bidi_lstm_fwd_xz (K4)": {
+    # K4's rows also carry the product it runs on, the kernel with the
+    # projection inside (K3, K1) at the same shape, and the hoisted total
+    # that cuDNN's whole layer (library_ms) is set against; K1's and K2's
+    # rows the other shapes the bidi2 step runs them at, K2's cuDNN's
+    # backward against K2 whole and, with --k2-against, the in-turn times of
+    # the other K2.
+    extra = {"bidi_lstm_fwd_state (K1)": {
+                 "bidi2_layer1": dict(zip(
+                     ("ms", "bound_ms", "bound_by"),
+                     (k1_l1, *lstm_bound("fwd_state", B, T, D, H2, V900))))},
+             "bidi_lstm_fwd_xz (K4)": {
                  "hoisted_product_ms": proj_ms,
-                 "in_kernel_projection_ms": sum(k3_2) / len(k3_2),
-                 "hoisted_total_ms": sum(k4_2) / len(k4_2)},
+                 "in_kernel_projection_ms": mean(k3_2),
+                 "hoisted_total_ms": mean(k4_t)},
              "bidi_lstm_fwd_xz_state (K4)": {
                  "hoisted_product_ms": proj_ms,
-                 "in_kernel_projection_ms": k1_2_ms}}
+                 "in_kernel_projection_ms": k1_2_ms,
+                 "hoisted_total_ms": mean(k4s_t)},
+             "bidi_lstm_bwd_chain (K2)": {
+                 "k2_ms": ms["K2 chain"][0] + ms["K2 reduction"][0],
+                 "cudnn_backward_ms": cu_bwd_ms,
+                 "bidi2_layer2": dict(zip(
+                     ("ms", "plain_ms", "bound_ms", "bound_by"),
+                     (*k2h_ms["K2 chain"],
+                      *lstm_bound("chain", B, T, D2, H2, V900)))),
+                 "bidi2_layer2_k2_ms": k2h_ms["K2 chain"][0]
+                 + k2h_ms["K2 reduction with dx"][0],
+                 "bidi2_layer2_cudnn_backward_ms": cu2_bwd_ms},
+             "bidi_lstm_bwd_reduce (K2)": {
+                 "with_dx_ms": dx_ms,
+                 "bidi2_layer1": dict(zip(
+                     ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                     (mean(red1_t), red1_plain, mean(red1_lib),
+                      *lstm_bound("reduce", B, T, D, H2, V900)))),
+                 "bidi2_layer2_dx": dict(zip(
+                     ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                      "f64_rel"),
+                     (*k2h_ms["K2 reduction with dx"], mean(red2_lib),
+                      *lstm_bound("reduce", B, T, D2, H2, V900, dx=True),
+                      k2h_f64)))}}
+    for key, turns_ in against.items():
+        row = ("bidi_lstm_bwd_chain (K2)" if key.startswith("chain")
+               else "bidi_lstm_bwd_reduce (K2)")
+        extra[row].setdefault("k2_against", {})[key] = turns_
     kernels = []
-    for name, src, rep, n, err, rel, (km, pm) in entries:
+    for name, src, rep, n, err, rel, (km, pm), (bms, bby), lms in entries:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": n, "max_abs_err": err, "ms": km, "plain_ms": pm}
+             "launches": n, "max_abs_err": err, "ms": km, "plain_ms": pm,
+             "bound_ms": bms, "bound_by": bby, "library_ms": lms}
         if rel is not None:
             e["max_rel_err"] = rel
         e.update(extra.get(name, {}))

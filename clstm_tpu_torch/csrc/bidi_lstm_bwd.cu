@@ -1,15 +1,17 @@
 // Bidirectional LSTM backward (K2), f32, for sm_90a.
 //
 // Replaces the TPU kernel clstm_tpu/ops/pallas_lstm.py::_bwd_kernel
-// (proj_in=False; reached through bidi_lstm_pallas's custom VJP, _vjp_bwd).
-// The TPU kernel runs the backward chain and then, in its own body, the
+// (reached through bidi_lstm_pallas's custom VJP, _vjp_bwd; with proj_in
+// as well, since the port stores the gates and never recomputes z). The
+// TPU kernel runs the backward chain and then, in its own body, the
 // contractions dW += [x|1]ᵀ·dz, dWh += h_prevᵀ·dz and dx = dz·Wxᵀ. Here
-// that is three kernels, with the same contracts as
+// that is a chain kernel and a reduction, with the same contracts as
 // clstm_tpu_torch/ops/lstm.py::bidi_lstm_bwd_chain_plain and
 // bidi_lstm_bwd_reduce_plain:
 //
 //   chain (clstm_bidi_lstm_bwd_chain): K1's gates [B,T,2,4H] and cell
-//     [B,T,2,H], the cotangent gy [B,T,2H] and WhT [2,4H,H] (Wh transposed)
+//     [B,T,2,H], the cotangent gy [B,T,2H] and WhT [2,4H,Hp] (Wh
+//     transposed, rows zero-padded to Hp = H rounded up to a multiple of 4)
 //     -> dz [B,T,2,4H]. Each row's valid chain steps are walked backward:
 //       dh = gy + Dh;  dc = Dc + dh·go·(1 - tanh²c)
 //       dz = [dc·ci·gi(1-gi), dc·c_prev·gf(1-gf), dh·tanh(c)·go(1-go),
@@ -21,230 +23,344 @@
 //     so padded frames add nothing to any gradient.
 //   reduction (clstm_bidi_lstm_bwd_reduce): per direction
 //     dW [D+1+H, 4H] = Σ over all B·T frames of [x | 1 | h_prev]ᵀ·dz
-//     (rows: dWx, the bias row, dWh; h_prev read from y at the frame
-//     before in chain order), and, when dx is asked for,
-//     dx [B,T,D] = Σ_dir dz·Wxᵀ.
+//     (rows: dWx, the bias row, dWh; h_prev is y at the frame before in
+//     chain order, 0 at t = 0 forward and t = T-1 reverse), and, when dx is
+//     asked for, dx [B,T,D] = Σ_dir dz·Wxᵀ (pallas_lstm.py L433-464).
 //
-// What bounds them. The chain is a serial recurrence of T steps per row
-// tile: per step a [ROWS,4H] x [4H,H] product (Dh) after the elementwise
-// gate algebra, with two block barriers. Like K3, latency of per-thread
-// serial work bounds it, not bytes or flops. The reduction is ~6e10 flop
-// (dW) + ~2e10 flop (dx) at B=256, T=1024, D=48, H=100: a parallel f32
-// product, bound by the FMA rate of the non-tensor pipes.
+// What bounds them, and the design.
 //
-// Design (simple first):
-//   chain: grid = (ceil(B/ROWS) row tiles, 2 directions); dz of the step,
-//     the Dc carry and the four per-gate partial sums of Dh live in shared
-//     memory. Phase A: a thread per (row, unit) forms dh, dc, dz and Dc.
-//     Phase B: a thread per (gate, unit k) sums dz[gate block]·WhT[gate
-//     block, k] for the tile's rows, reading WhT coalesced across k from
-//     L2; phase A of the next step adds the four partials into Dh.
-//   reduction: a 64x64 output tile per block, 16-frame (or 16-column)
-//     slices staged in shared memory, 4x4 outputs per thread. The dW sum
-//     over B·T is split into a fixed number of frame ranges, each written
-//     to its own partial buffer, and a second pass adds the partials in a
-//     fixed order: deterministic, no float atomics. dx sums over the 2·4H
-//     dz columns of a frame inside one block: deterministic as well.
+// Reduction: 8.4e11 flop at bidi2's second layer (B=256, T=1024, D=400,
+// H=200, dW and dx), a parallel product. On the f32 pipes (67 TFLOP/s)
+// that is >= 12.5 ms; the tensor cores take TF32 at 495 TFLOP/s, but one
+// TF32 pass keeps 11 bits of each operand and lands ~1e-4 from the f32
+// product, which the training trajectory (PERF.md §6) does not tolerate.
+// So each operand is split v = hi + lo, both TF32 (hi = v rounded to
+// nearest, lo = the rest, rounded), and the product is taken as
+// lo·hi + hi·lo + hi·hi ("3xTF32"): within ~2^-21 of the f32 product per
+// term, at a third of the TF32 rate (165 TFLOP/s). The tensor cores do not
+// round to nearest when they accumulate, so each stage of frames (or dz
+// columns) accumulates from 0 and is then added to the f32 sum with an
+// ordinary add.
+//   - dW: mma.sync m16n8k8 tiles, 64x128 outputs per block (rows of
+//     [x | h_prev | 1], gate columns), 32x32 per warp, two blocks per SM;
+//     slices staged frame-major, as they lie, by cp.async in a ring. The
+//     frame axis is the product's K and the slow axis of both operands,
+//     while TF32 wgmma takes shared-memory operands only K-major; a wgmma
+//     version that transposes dz on the way in was right but slower, so
+//     dW stays on mma.sync. The sum over B·T frames is split into a fixed
+//     number of frame ranges sized to fill the card, each written to its
+//     own partial buffer, and a second pass adds them in a fixed order:
+//     deterministic, no float atomics. The A operand is staged as
+//     [x | h_prev | 1] (the bias column last), so that with D and H
+//     multiples of 4 every 16-byte chunk comes from one source and frame.
+//   - dx = dz·Wcat: both operands lie K-major, so dx runs on wgmma, A (dz)
+//     from registers, B from hi and lo copies of wx split once per call;
+//     the 2·4H columns of a frame are summed inside one block:
+//     deterministic as well.
+//
+// Chain: a serial recurrence of T steps per row tile; per step a
+// [ROWS,4H] x [4H,H] product (Dh) after the elementwise gate algebra, two
+// block barriers. Its bound is latency, the shared-memory pipe and, where
+// WhT does not fit in shared memory, L2 bandwidth: not device-memory bytes
+// or flops. grid = (ceil(B/4) row tiles, 2 directions), one block walking
+// its tile's chain (128 blocks at B=256, one per SM):
+//   - step s-1's gates, cell, c_prev and gy are copied into a shared-memory
+//     slot by cp.async while step s runs (two slots), so their latency is
+//     off the serial path;
+//   - phase A: a thread per (row, unit) forms dh, dc, dz and Dc, with Dh
+//     the sum of phase B's partials in a fixed order;
+//   - phase B: a register tile per thread: 4 consecutive units k for all
+//     rows over a fixed range of the 4H dz columns j (the column range is
+//     split across threads, and phase A adds the partials). dz is read as
+//     float4 (4 j per shared load) and WhT as float4 (4 units per load), so
+//     a shared or L2 load feeds 4·ROWS FMAs, not one;
+//   - WhT sits in shared memory when it fits with the rest (H <= ~100),
+//     else it is read from L2 (640 KB per direction and step at H=200,
+//     which L2's bandwidth bounds); 8-row tiles, which halve those reads,
+//     were slower: their FMA work per SM doubles on half the SMs.
+//   The recurrent product stays on the FMA pipes: a 4-row tile would fill a
+//   quarter of an m16 MMA. dz is summed in another order than the plain
+//   loop's (by column range, not by gate block): within ~1e-7 of it, and
+//   bitwise the same from call to call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int ROWS = 4;
-constexpr int TILE = 64;  // output tile edge of the reduction kernels
-constexpr int KS = 16;    // reduction slice staged per step
-constexpr int LD = TILE + 4;  // padded row of a staged slice (fewer bank
-                              // conflicts on transposed stores)
-constexpr int RED_THREADS = 256;
+// ---------------------------------------------------------------------------
+// cp.async and the 3xTF32 tensor-core product
+// ---------------------------------------------------------------------------
 
-__global__ void bwd_chain_kernel(const int32_t* __restrict__ lengths,
-                                 const float* __restrict__ gates,
-                                 const float* __restrict__ cell,
-                                 const float* __restrict__ gy,
-                                 const float* __restrict__ whT,
-                                 float* __restrict__ dz, int B, int T,
-                                 int H) {
-  extern __shared__ float smem[];
-  __shared__ int lens[ROWS];
-  const int G = 4 * H;
-  float* zs = smem;                 // [ROWS, 4H]  dz of the current step
-  float* part = zs + ROWS * G;      // [4, ROWS, H] partial Dh per gate
-  float* dcs = part + 4 * ROWS * H; // [ROWS, H]   Dc carry
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-  const int dir = blockIdx.y;
-  const int b0 = blockIdx.x * ROWS;
-  whT += (size_t)dir * G * H;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-  if (threadIdx.x < ROWS) {
-    const int b = b0 + threadIdx.x;
-    int L = 0;
-    if (b < B) L = lengths ? lengths[b] : T;
-    lens[threadIdx.x] = min(max(L, 0), T);
-  }
-  for (int i = threadIdx.x; i < ROWS * G; i += blockDim.x) {
-    zs[i] = 0.0f;
-    part[i] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x) dcs[i] = 0.0f;
-  __syncthreads();
-  int lmax = 0;
-  for (int r = 0; r < ROWS; ++r) lmax = max(lmax, lens[r]);
+// 16 bytes global -> shared; zero-filled when !valid (src is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
 
-  // Padded frames: dz exactly 0.
-  for (int r = 0; r < ROWS && b0 + r < B; ++r) {
-    const int L = lens[r];
-    for (int i = threadIdx.x; i < (T - L) * G; i += blockDim.x) {
-      const int t = L + i / G;
-      const int j = i - (t - L) * G;
-      dz[(((size_t)(b0 + r) * T + t) * 2 + dir) * G + j] = 0.0f;
-    }
-  }
+// 4 bytes global -> shared; zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
 
-  for (int s = lmax - 1; s >= 0; --s) {
-    // Phase A: dh, dc, dz and the Dc carry for every active (row, unit).
-    for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x) {
-      const int r = i / H;
-      const int k = i - r * H;
-      const int L = lens[r];
-      if (s < L) {
-        const int b = b0 + r;
-        const int t = dir == 0 ? s : L - 1 - s;
-        const size_t f = ((size_t)b * T + t) * 2 + dir;
-        const float* g = gates + f * G;
-        const float gi = g[k], gf = g[H + k], go = g[2 * H + k],
-                    ci = g[3 * H + k];
-        const float c = cell[f * H + k];
-        float cp = 0.0f;
-        if (s > 0) {
-          const int tp = dir == 0 ? t - 1 : t + 1;
-          cp = cell[(((size_t)b * T + tp) * 2 + dir) * H + k];
-        }
-        float Dh = 0.0f;
-        if (s < L - 1)
-          Dh = part[(0 * ROWS + r) * H + k] + part[(1 * ROWS + r) * H + k] +
-               part[(2 * ROWS + r) * H + k] + part[(3 * ROWS + r) * H + k];
-        const float dh = gy[((size_t)b * T + t) * 2 * H + dir * H + k] + Dh;
-        const float tc = tanhf(c);
-        const float dc = dcs[i] + dh * go * (1.0f - tc * tc);
-        const float d0 = dc * ci * gi * (1.0f - gi);
-        const float d1 = dc * cp * gf * (1.0f - gf);
-        const float d2 = dh * tc * go * (1.0f - go);
-        const float d3 = dc * gi * (1.0f - ci * ci);
-        float* z = zs + r * G;
-        z[k] = d0;
-        z[H + k] = d1;
-        z[2 * H + k] = d2;
-        z[3 * H + k] = d3;
-        float* out = dz + f * G;
-        out[k] = d0;
-        out[H + k] = d1;
-        out[2 * H + k] = d2;
-        out[3 * H + k] = d3;
-        dcs[i] = dc * gf;
-      }
-    }
-    __syncthreads();
-    // Phase B: partial Dh[r, k] over one gate block of dz.
-    for (int i = threadIdx.x; i < G; i += blockDim.x) {
-      const int gb = i / H;
-      const int k = i - gb * H;
-      float acc[ROWS];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// v rounded to TF32 (10-bit mantissa, to nearest, ties away from zero: the
+// rounding of cvt.rna.tf32.f32), as f32 bits. Two integer operations on the
+// bits, which issue at the full rate where the conversion does not.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo, both TF32: lo is v - hi (exact in f32) rounded to TF32.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// c += a·b, one m16n8k8 TF32 tile, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp's share of a staged BK-deep slice, in 3xTF32: acc[mi][ni] +=
+// A[16mi.., k]·B[k, 8ni..] for k < BK. a_at(m, k) and b_at(k, n) read the
+// staged tiles at the warp's offsets. Fragment layout of m16n8k8 (g = lane
+// / 4, t = lane % 4): a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
+// b = B[t][g], B[t+4][g]; c = C[g][2t], C[g][2t+1], C[g+8][2t],
+// C[g+8][2t+1]. The three passes run outermost, so the MI·NI tiles give
+// each accumulator's dependent MMAs room between them.
+template <int MI, int NI, int BK, class FA, class FB>
+__device__ __forceinline__ void mma_slice_3xtf32(float (&acc)[MI][NI][4],
+                                                 FA a_at, FB b_at) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
-      const float* w = whT + (size_t)gb * H * H + k;
-      const float* z = zs + gb * H;
-      for (int j = 0; j < H; ++j) {
-        const float wj = w[(size_t)j * H];
+  for (int k0 = 0; k0 < BK; k0 += 8) {
+    uint32_t ah[MI][4], al[MI][4], bh[NI][2], bl[NI][2];
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(z[r * G + j], wj, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) part[(gb * ROWS + r) * H + k] = acc[r];
+    for (int mi = 0; mi < MI; ++mi) {
+      split_tf32(a_at(16 * mi + g, k0 + t), ah[mi][0], al[mi][0]);
+      split_tf32(a_at(16 * mi + g + 8, k0 + t), ah[mi][1], al[mi][1]);
+      split_tf32(a_at(16 * mi + g, k0 + t + 4), ah[mi][2], al[mi][2]);
+      split_tf32(a_at(16 * mi + g + 8, k0 + t + 4), ah[mi][3], al[mi][3]);
     }
-    __syncthreads();
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      split_tf32(b_at(k0 + t, 8 * ni + g), bh[ni][0], bl[ni][0]);
+      split_tf32(b_at(k0 + t + 4, 8 * ni + g), bh[ni][1], bl[ni][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
   }
 }
 
-// One 64x64 tile of C += Aᵀ·Bm over a KS-deep slice staged in shared memory:
-// As[kk][m], Bs[kk][n]; thread (ty, tx) owns rows ty*4.., columns tx*4.. .
-__device__ __forceinline__ void tile_fma(const float (*As)[LD],
-                                         const float (*Bs)[LD],
-                                         float acc[4][4], int ty, int tx) {
+// Run a staged product over k tiles 0..KT-1 with a STAGES-deep cp.async
+// ring: load(stage, kt) issues tile kt's copies into ring slot `stage`,
+// compute(stage) runs on a slot whose copies have landed. Each slot is
+// overwritten only after the barrier that follows its last reader.
+template <int STAGES, class FL, class FC>
+__device__ __forceinline__ void pipeline(int KT, FL load, FC compute) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    float a[4], b[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      a[q] = As[kk][ty * 4 + q];
-      b[q] = Bs[kk][tx * 4 + q];
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = kt + STAGES - 1;
+    if (next < KT) load(next % STAGES, next);
+    cp_async_commit();
+    compute(kt % STAGES);
+  }
+  cp_async_wait<0>();
 }
 
-// dW partials: block (j tile, i tile, dir * nsplit + split) sums its frame
-// range [split*chunk, (split+1)*chunk) of [x | 1 | h_prev]ᵀ·dz into
-// part[split][dir][i][j], i < M = D+1+H, j < 4H.
-__global__ void bwd_dw_partial_kernel(const float* __restrict__ x,
-                                      const float* __restrict__ y,
-                                      const float* __restrict__ dz,
-                                      float* __restrict__ part, int B, int T,
-                                      int D, int H, int nsplit, int chunk) {
-  __shared__ float As[KS][LD];
-  __shared__ float Bs[KS][LD];
+// ---------------------------------------------------------------------------
+// Reduction: dW partials, their fixed-order sum, dx
+// ---------------------------------------------------------------------------
+
+constexpr int RED_THREADS = 256;  // 8 warps
+constexpr int STAGES = 3;
+constexpr int BK = 32;            // frames (dW) or dz columns (dx) per slice
+
+// dW: 64x128 output tile (rows of [x | h_prev | 1], gate columns), warps
+// 2 (rows) x 4 (columns), 32x32 per warp: ~120 registers, so two blocks
+// share an SM. Slices are staged frame-major, as they lie in memory:
+// As[frame][row], Bs[frame][column]; rows of 72 and 136 floats put a
+// fragment's 32 reads in 32 banks.
+constexpr int DW_MI = 2;  // 16-row fragments per warp
+constexpr int DW_BM = 2 * 16 * DW_MI, DW_BN = 128;
+constexpr int DW_LDA = DW_BM + 8, DW_LDB = DW_BN + 8;
+constexpr int DW_STAGE = BK * (DW_LDA + DW_LDB);  // floats per ring slot
+constexpr size_t DW_SMEM = (size_t)STAGES * DW_STAGE * sizeof(float);
+
+// Block (output tile, dir * nsplit + split) sums its frame range
+// [split*chunk, (split+1)*chunk) of [x | h_prev | 1]ᵀ·dz into
+// part[split][dir][i][j], i < D+1+H (dW's row order), j < 4H. VEC: D and H
+// are multiples of 4, so A is staged in 16-byte chunks.
+template <bool VEC>
+__global__ void __launch_bounds__(RED_THREADS, 2)
+    bwd_dw_partial_kernel(const float* __restrict__ x,
+                          const float* __restrict__ y,
+                          const float* __restrict__ dz,
+                          float* __restrict__ part, int B, int T, int D,
+                          int H, int nsplit, int chunk) {
+  extern __shared__ __align__(16) float smem[];
   const int G = 4 * H, M = D + 1 + H;
-  const int dir = blockIdx.z / nsplit;
-  const int sp = blockIdx.z - dir * nsplit;
-  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
-  const long long N = (long long)B * T;
-  const long long n_begin = (long long)sp * chunk;
-  const long long n_end = min(N, n_begin + chunk);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (long long n0 = n_begin; n0 < n_end; n0 += KS) {
-    for (int e = threadIdx.x; e < KS * TILE; e += RED_THREADS) {
-      const int kk = e / TILE, c = e - kk * TILE;
-      const long long n = n0 + kk;
-      const int i = i0 + c, j = j0 + c;
-      float a = 0.0f, bv = 0.0f;
-      if (n < n_end) {
-        if (i < D) {
-          a = x[n * D + i];
-        } else if (i == D) {
-          a = 1.0f;
-        } else if (i < M) {
-          const int k = i - D - 1;
-          const int t = (int)(n % T);
-          if (dir == 0) {
-            if (t > 0) a = y[(n - 1) * 2 * H + k];
-          } else {
-            if (t + 1 < T) a = y[(n + 1) * 2 * H + H + k];
+  const int ntile_j = (G + DW_BN - 1) / DW_BN;
+  const int i0 = (blockIdx.x / ntile_j) * DW_BM;  // row of [x | h_prev | 1]
+  const int j0 = (blockIdx.x % ntile_j) * DW_BN;
+  const int dir = blockIdx.y / nsplit;
+  const int sp = blockIdx.y - dir * nsplit;
+  const int N = B * T;
+  const int n_begin = sp * chunk;
+  const int n_end = min(N, n_begin + chunk);
+  const int KT = n_end > n_begin ? (n_end - n_begin + BK - 1) / BK : 0;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = (warp >> 2) * 16 * DW_MI, wn = (warp & 3) * 32;
+
+  // Column i of [x | h_prev | 1] at frame n, as a pointer (nullptr: 0,
+  // ones: the bias column).
+  auto load = [&](int stage, int kt) {
+    float* As = smem + stage * DW_STAGE;
+    float* Bs = As + BK * DW_LDA;
+    const int n0 = n_begin + kt * BK;
+    if (VEC) {
+      for (int c = tid; c < BK * DW_BM / 4; c += RED_THREADS) {
+        const int kk = c / (DW_BM / 4), i = i0 + (c % (DW_BM / 4)) * 4;
+        const int n = n0 + kk;
+        float* dst = As + kk * DW_LDA + (i - i0);
+        const float* src = x;
+        bool ok = false;
+        if (n < n_end) {
+          if (i < D) {
+            src = x + (size_t)n * D + i;
+            ok = true;
+          } else if (i < D + H) {
+            const int k = i - D, t = n % T;
+            if (dir == 0 && t > 0) {
+              src = y + (size_t)(n - 1) * 2 * H + k;
+              ok = true;
+            } else if (dir == 1 && t + 1 < T) {
+              src = y + (size_t)(n + 1) * 2 * H + H + k;
+              ok = true;
+            }
+          } else if (i == D + H) {
+            dst[0] = 1.0f;
+            dst[1] = dst[2] = dst[3] = 0.0f;
+            continue;
           }
         }
-        if (j < G) bv = dz[(n * 2 + dir) * G + j];
+        cp_async16(dst, src, ok);
       }
-      As[kk][c] = a;
-      Bs[kk][c] = bv;
+    } else {
+      for (int e = tid; e < BK * DW_BM; e += RED_THREADS) {
+        const int kk = e / DW_BM, i = i0 + e % DW_BM;
+        const int n = n0 + kk;
+        float* dst = As + kk * DW_LDA + (i - i0);
+        const float* src = x;
+        bool ok = false;
+        if (n < n_end) {
+          if (i < D) {
+            src = x + (size_t)n * D + i;
+            ok = true;
+          } else if (i < D + H) {
+            const int k = i - D, t = n % T;
+            if (dir == 0 && t > 0) {
+              src = y + (size_t)(n - 1) * 2 * H + k;
+              ok = true;
+            } else if (dir == 1 && t + 1 < T) {
+              src = y + (size_t)(n + 1) * 2 * H + H + k;
+              ok = true;
+            }
+          } else if (i == D + H) {
+            *dst = 1.0f;
+            continue;
+          }
+        }
+        cp_async4(dst, src, ok);
+      }
     }
-    __syncthreads();
-    tile_fma(As, Bs, acc, ty, tx);
-    __syncthreads();
-  }
+    for (int c = tid; c < BK * DW_BN / 4; c += RED_THREADS) {
+      const int kk = c / (DW_BN / 4), j = j0 + (c % (DW_BN / 4)) * 4;
+      const int n = n0 + kk;
+      const bool ok = n < n_end && j < G;
+      cp_async16(Bs + kk * DW_LDB + (j - j0),
+                 ok ? dz + ((size_t)n * 2 + dir) * G + j : dz, ok);
+    }
+  };
+
+  float acc[DW_MI][4][4] = {};
+  auto compute = [&](int stage) {
+    const float* As = smem + stage * DW_STAGE;
+    const float* Bs = As + BK * DW_LDA;
+    float tmp[DW_MI][4][4] = {};
+    mma_slice_3xtf32<DW_MI, 4, BK>(
+        tmp, [&](int m, int k) { return As[k * DW_LDA + wm + m]; },
+        [&](int k, int n) { return Bs[k * DW_LDB + wn + n]; });
+#pragma unroll
+    for (int mi = 0; mi < DW_MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += tmp[mi][ni][q];
+  };
+  pipeline<STAGES>(KT, load, compute);
+
+  // Staged row i -> dW row: x rows stay, h_prev rows move down one, the
+  // ones column is the bias row D.
   float* out = part + ((size_t)sp * 2 + dir) * M * G;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int i = i0 + ty * 4 + p;
-    if (i >= M) continue;
+  for (int mi = 0; mi < DW_MI; ++mi)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = j0 + tx * 4 + q;
-      if (j < G) out[(size_t)i * G + j] = acc[p][q];
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + wm + 16 * mi + g + 8 * h;
+      if (i >= M) continue;
+      const int row = i < D ? i : (i < D + H ? i + 1 : D);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int j = j0 + wn + 8 * ni + 2 * t4 + q;
+          if (j < G) out[(size_t)row * G + j] = acc[mi][ni][2 * h + q];
+        }
     }
-  }
 }
 
 // dW = Σ over splits, in split order.
@@ -258,111 +374,550 @@ __global__ void bwd_dw_sum_kernel(const float* __restrict__ part,
   dw[e] = acc;
 }
 
-// dx [N, D] = dz [N, 2·4H] · Wcat [2·4H, D], Wcat[dir·4H + j][d] =
-// wx[dir][d][j]. Block (frame tile, d tile).
-__global__ void bwd_dx_kernel(const float* __restrict__ dz,
-                              const float* __restrict__ wx,
-                              float* __restrict__ dx, long long N, int D,
-                              int H) {
-  __shared__ float As[KS][LD];
-  __shared__ float Bs[KS][LD];
+// dx [N, D] = dz [N, 2·4H] · Wcat [2·4H, D] on wgmma (sm_90a), where
+// Wcat[q][d] = wx[q / 4H][d][q % 4H]. Both operands already lie K-major (q
+// contiguous), as TF32 wgmma requires of an operand in shared memory:
+//   - A (dz, 64 frames per warpgroup) is staged by cp.async, read into
+//     registers in the m16n8k8 fragment layout of each warp's 16 rows, and
+//     split into hi and lo there;
+//   - B (Wcat, 80 columns d) is split once per call into hi and lo copies
+//     of wx (bwd_split_kernel), staged by cp.async in the no-swizzle
+//     K-major layout: 8-row x 16-byte core matrices, the two K halves of a
+//     k8 step 128 B apart (LBO), 8-row groups DXW_BK/4 · 128 B apart (SBO).
+// Each k8 step issues lo·hi, hi·lo, hi·hi as three m64n80k8 wgmmas into a
+// per-stage sum, added to the f32 total after the stage (as for dW).
+constexpr int DXW_WG = 4;               // warpgroups per block
+constexpr int DXW_BM = 64 * DXW_WG;     // frames per block
+constexpr int DXW_BN = 80;              // d columns per block (wgmma N)
+constexpr int DXW_BK = 16;              // q per stage
+constexpr int DXW_STAGES = 4;
+constexpr int DXW_LDA = DXW_BK + 4;     // padded A row (conflict-free LDS)
+constexpr int DXW_A = DXW_BM * DXW_LDA;  // floats of A per stage
+constexpr int DXW_B = DXW_BN * DXW_BK;   // floats of B hi (or lo) per stage
+constexpr int DXW_STAGE = DXW_A + 2 * DXW_B;
+constexpr size_t DXW_SMEM = (size_t)DXW_STAGES * DXW_STAGE * sizeof(float);
+constexpr int DXW_SBO = DXW_BK / 4 * 128;  // bytes between 8-row groups
+
+// wgmma matrix descriptor of a no-swizzle K-major tile at shared address
+// `addr`: start >> 4, LBO (bits 16-29) and SBO (bits 32-45) in 16 B units.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(DXW_SBO >> 4) << 32);
+}
+
+// d (+)= a·B for one m64n80k8 TF32 step: a in registers (this warp's 16
+// rows, m16n8k8 layout), B by descriptor; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n80k8(float (&d)[40],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// Keeps the compiler from moving accesses of v across an asynchronous
+// wgmma that reads or writes it.
+__device__ __forceinline__ void pin(float& v) {
+  asm volatile("" : "+f"(v)::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t& v) {
+  asm volatile("" : "+r"(v)::"memory");
+}
+
+// wx [2, D, 4H] -> its TF32 hi and lo parts (wx = hi + lo), for dx's B.
+__global__ void bwd_split_kernel(const float* __restrict__ wx,
+                                 float* __restrict__ hi,
+                                 float* __restrict__ lo, int total) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  uint32_t h, l;
+  split_tf32(wx[e], h, l);
+  hi[e] = __uint_as_float(h);
+  lo[e] = __uint_as_float(l);
+}
+
+// Block b takes d tile b % ntd of frame tile b / ntd: the d tiles of one
+// frame tile run side by side and share its dz in L2.
+__global__ void __launch_bounds__(128 * DXW_WG, 1)
+    bwd_dx_kernel(const float* __restrict__ dz, const float* __restrict__ whi,
+                  const float* __restrict__ wlo, float* __restrict__ dx,
+                  int N, int D, int H) {
+  extern __shared__ __align__(128) float smem[];
   const int G = 4 * H, K = 2 * G;
-  const long long n0 = (long long)blockIdx.x * TILE;
-  const int d0 = blockIdx.y * TILE;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int q0 = 0; q0 < K; q0 += KS) {
-    for (int e = threadIdx.x; e < KS * TILE; e += RED_THREADS) {
-      // A: kk fastest, so a warp reads consecutive dz columns of a frame.
-      const int m = e / KS, kk = e - m * KS;
-      const long long n = n0 + m;
-      const int q = q0 + kk;
-      As[kk][m] = (n < N && q < K) ? dz[n * K + q] : 0.0f;
-      const int kb = e / TILE, c = e - kb * TILE;
-      const int qb = q0 + kb, d = d0 + c;
-      float w = 0.0f;
-      if (qb < K && d < D) {
-        const int dir = qb / G, j = qb - dir * G;
-        w = wx[((size_t)dir * D + d) * G + j];
-      }
-      Bs[kb][c] = w;
+  const int ntd = (D + DXW_BN - 1) / DXW_BN;
+  const int d0 = (blockIdx.x % ntd) * DXW_BN;
+  const int n0 = (blockIdx.x / ntd) * DXW_BM;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int row0 = (tid >> 5) * 16;  // this warp's first row of the tile
+
+  auto load = [&](int stage, int kt) {
+    float* As = smem + stage * DXW_STAGE;
+    float* Bh = As + DXW_A;
+    float* Bl = Bh + DXW_B;
+    const int q0 = kt * DXW_BK;
+    for (int c = tid; c < DXW_BM * DXW_BK / 4; c += nt) {
+      const int m = c / (DXW_BK / 4), q = q0 + (c % (DXW_BK / 4)) * 4;
+      const int n = n0 + m;
+      const bool ok = n < N && q < K;
+      cp_async16(As + m * DXW_LDA + (q - q0),
+                 ok ? dz + (size_t)n * K + q : dz, ok);
     }
-    __syncthreads();
-    tile_fma(As, Bs, acc, ty, tx);
-    __syncthreads();
-  }
+    for (int c = tid; c < DXW_BN * DXW_BK / 4; c += nt) {
+      const int dd = c / (DXW_BK / 4), qc = c % (DXW_BK / 4);
+      const int d = d0 + dd, q = q0 + 4 * qc;
+      const bool ok = d < D && q < K;
+      const int dir = q < G ? 0 : 1;
+      const size_t src = ((size_t)dir * D + d) * G + (q - dir * G);
+      const int dst = (dd / 8) * (DXW_SBO / 4) + qc * 32 + (dd % 8) * 4;
+      cp_async16(Bh + dst, ok ? whi + src : whi, ok);
+      cp_async16(Bl + dst, ok ? wlo + src : wlo, ok);
+    }
+  };
+
+  float acc[40] = {}, tmp[40] = {};
+  const int KT = (K + DXW_BK - 1) / DXW_BK;
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const long long n = n0 + ty * 4 + p;
+  for (int s = 0; s < DXW_STAGES - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<DXW_STAGES - 2>();
+    // cp.async wrote through the generic proxy; wgmma reads through the
+    // async proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const int next = kt + DXW_STAGES - 1;
+    if (next < KT) load(next % DXW_STAGES, next);
+    cp_async_commit();
+
+    const float* As = smem + (kt % DXW_STAGES) * DXW_STAGE;
+    const uint32_t bh = smem_addr(As + DXW_A), bl = bh + DXW_B * 4;
+    uint32_t ah[DXW_BK / 8][4], al[DXW_BK / 8][4];
+#pragma unroll
+    for (int ks = 0; ks < DXW_BK / 8; ++ks) {
+      const float* a = As + (row0 + g) * DXW_LDA + 8 * ks + t4;
+      split_tf32(a[0], ah[ks][0], al[ks][0]);
+      split_tf32(a[8 * DXW_LDA], ah[ks][1], al[ks][1]);
+      split_tf32(a[4], ah[ks][2], al[ks][2]);
+      split_tf32(a[8 * DXW_LDA + 4], ah[ks][3], al[ks][3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 40; ++i) pin(tmp[i]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < DXW_BK / 8; ++ks) {
+      // A k8 step spans two core matrices along K: 256 bytes.
+      const uint64_t dh = wgmma_desc(bh + 256 * ks);
+      const uint64_t dl = wgmma_desc(bl + 256 * ks);
+      wgmma_m64n80k8(tmp, al[ks], dh, ks > 0);
+      wgmma_m64n80k8(tmp, ah[ks], dl, 1);
+      wgmma_m64n80k8(tmp, ah[ks], dh, 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 40; ++i) pin(tmp[i]);
+#pragma unroll
+    for (int ks = 0; ks < DXW_BK / 8; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pin(ah[ks][i]);
+        pin(al[ks][i]);
+      }
+#pragma unroll
+    for (int i = 0; i < 40; ++i) acc[i] += tmp[i];
+  }
+  cp_async_wait<0>();
+
+  // acc[4i + 2h + c] = (row row0 + g + 8h, column 8i + 2t4 + c).
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + row0 + g + 8 * h;
     if (n >= N) continue;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int d = d0 + tx * 4 + q;
-      if (d < D) dx[n * D + d] = acc[p][q];
+    for (int i = 0; i < DXW_BN / 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = d0 + 8 * i + 2 * t4 + c;
+        if (d < D) dx[(size_t)n * D + d] = acc[4 * i + 2 * h + c];
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Chain
+// ---------------------------------------------------------------------------
+
+struct ChainPlan {
+  int rows;   // rows per block
+  bool wsmem; // WhT in shared memory
+  int hp;     // H rounded up to a multiple of 4
+  int parts;  // column ranges of phase B
+  int jp;     // dz columns per range (a multiple of 4)
+  int threads;
+  size_t smem;
+};
+
+// Bytes of shared memory a block may use on sm_90, less the static lens.
+constexpr int SMEM_MAX = 232448 - 64;
+constexpr int CHAIN_THREADS = 512;
+
+// Floats of one step's slot per row: gates 4H, cell, c_prev, gy (Hp each).
+__host__ __device__ inline int slot_row(int G, int hp) { return G + 3 * hp; }
+
+// Phase B runs Hp/4 unit groups times `parts` column ranges on at most
+// CHAIN_THREADS threads (so H <= 2048).
+ChainPlan chain_plan(int H, bool wsmem, int rows) {
+  ChainPlan p;
+  const int G = 4 * H;
+  p.rows = rows;
+  p.wsmem = wsmem;
+  p.hp = (H + 3) / 4 * 4;
+  const int kg = p.hp / 4;
+  int parts = CHAIN_THREADS / kg;
+  parts = parts < 1 ? 1 : (parts > G / 4 ? G / 4 : parts);
+  p.jp = (G / 4 + parts - 1) / parts * 4;
+  p.parts = (G + p.jp - 1) / p.jp;
+  const int threads = (kg * p.parts + 31) / 32 * 32;
+  p.threads = threads < 64 ? 64 : threads;
+  const size_t floats = (wsmem ? (size_t)G * p.hp : 0) +
+                        2 * (size_t)rows * slot_row(G, p.hp) +  // slots
+                        (size_t)rows * G +                      // zs
+                        (size_t)p.parts * rows * p.hp +         // part
+                        (size_t)rows * H;                       // dcs
+  p.smem = floats * sizeof(float);
+  return p;
+}
+
+// Rows per block and where WhT lives, the first plan that fits: 4 rows
+// (128 blocks at B=256, one per SM) with WhT in shared memory, then in L2;
+// 1 row for larger H (> ~650). rows = 0: nothing fits.
+ChainPlan choose_chain(int H) {
+  const int plans[3][2] = {{4, 1}, {4, 0}, {1, 0}};
+  for (const auto& pl : plans) {
+    const ChainPlan p = chain_plan(H, pl[1] != 0, pl[0]);
+    if (p.smem <= SMEM_MAX && p.threads <= CHAIN_THREADS) return p;
+  }
+  ChainPlan none = {};
+  return none;
+}
+
+template <int ROWS, bool VEC, bool WSMEM>
+__global__ void __launch_bounds__(CHAIN_THREADS)
+    bwd_chain_kernel(const int32_t* __restrict__ lengths,
+                     const float* __restrict__ gates,
+                     const float* __restrict__ cell,
+                     const float* __restrict__ gy,
+                     const float* __restrict__ whT, float* __restrict__ dz,
+                     int B, int T, int H, int parts, int jp) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int lens[ROWS];
+  const int G = 4 * H, hp = (H + 3) / 4 * 4, kg = hp / 4;
+  const int SL = slot_row(G, hp);
+  const int dir = blockIdx.y;
+  const int b0 = blockIdx.x * ROWS;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  whT += (size_t)dir * G * hp;
+  float* whs = smem;                                  // [G, hp] (WSMEM)
+  float* slots = whs + (WSMEM ? G * hp : 0);          // [2][ROWS, SL]
+  float* zs = slots + 2 * ROWS * SL;                  // [ROWS, G]
+  float* part = zs + ROWS * G;                        // [parts][ROWS, hp]
+  float* dcs = part + parts * ROWS * hp;              // [ROWS, H]
+
+  if (tid < ROWS) {
+    const int b = b0 + tid;
+    int L = 0;
+    if (b < B) L = lengths ? lengths[b] : T;
+    lens[tid] = min(max(L, 0), T);
+  }
+  if (WSMEM) {
+    for (int c = tid; c < G * hp / 4; c += nt)
+      cp_async16(whs + 4 * c, whT + 4 * c, true);
+    cp_async_commit();
+  }
+  for (int i = tid; i < ROWS * G; i += nt) zs[i] = 0.0f;
+  for (int i = tid; i < ROWS * H; i += nt) dcs[i] = 0.0f;
+  __syncthreads();
+  int lmax = 0;
+  for (int r = 0; r < ROWS; ++r) lmax = max(lmax, lens[r]);
+
+  // Padded frames: dz exactly 0.
+  for (int r = 0; r < ROWS && b0 + r < B; ++r) {
+    const int L = lens[r];
+    float* row = dz + ((size_t)(b0 + r) * T * 2 + dir) * G;
+    for (int i = tid; i < (T - L) * G; i += nt) {
+      const int t = L + i / G;
+      row[(size_t)t * 2 * G + (i - (t - L) * G)] = 0.0f;
     }
   }
+
+  // Copy chain step s's inputs of every active row into slot s % 2: the
+  // gates, cell, c_prev (cell one frame back in chain order, 0 at s = 0)
+  // and gy of its frame.
+  auto prefetch = [&](int s) {
+    float* slot = slots + (s & 1) * ROWS * SL;
+    for (int r = 0; r < ROWS; ++r) {
+      const int L = lens[r];
+      if (s >= L) continue;
+      const int b = b0 + r, t = dir == 0 ? s : L - 1 - s;
+      const size_t f = ((size_t)b * T + t) * 2 + dir;
+      const size_t fp = s > 0 ? f + (dir == 0 ? -2 : 2) : f;
+      float* d = slot + r * SL;
+      for (int c = tid; c < G / 4; c += nt)
+        cp_async16(d + 4 * c, gates + f * G + 4 * c, true);
+      const float* srcs[3] = {cell + f * H, cell + fp * H,
+                              gy + ((size_t)b * T + t) * 2 * H + dir * H};
+      if (VEC) {
+        for (int c = tid; c < 3 * (H / 4); c += nt) {
+          const int seg = c / (H / 4), k = 4 * (c - seg * (H / 4));
+          cp_async16(d + G + seg * hp + k, srcs[seg] + k, seg != 1 || s > 0);
+        }
+      } else {
+        for (int c = tid; c < 3 * H; c += nt) {
+          const int seg = c / H, k = c - seg * H;
+          cp_async4(d + G + seg * hp + k, srcs[seg] + k, seg != 1 || s > 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (lmax > 0) prefetch(lmax - 1);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int pk = tid % kg, pp = tid / kg;  // phase B: units 4pk.., range pp
+  const int jb = pp * jp, je = min(G, jb + jp);
+  for (int s = lmax - 1; s >= 0; --s) {
+    if (s > 0) prefetch(s - 1);
+    // Phase A: dh, dc, dz and the Dc carry for every active (row, unit).
+    const float* slot = slots + (s & 1) * ROWS * SL;
+    for (int i = tid; i < ROWS * H; i += nt) {
+      const int r = i / H;
+      const int k = i - r * H;
+      const int L = lens[r];
+      if (s < L) {
+        const float* in = slot + r * SL;
+        const float gi = in[k], gf = in[H + k], go = in[2 * H + k],
+                    ci = in[3 * H + k];
+        const float c = in[G + k], cp = in[G + hp + k];
+        float Dh = 0.0f;
+        if (s < L - 1)
+          for (int q = 0; q < parts; ++q) Dh += part[(q * ROWS + r) * hp + k];
+        const float dh = in[G + 2 * hp + k] + Dh;
+        const float tc = tanhf(c);
+        const float dc = dcs[i] + dh * go * (1.0f - tc * tc);
+        const float d0 = dc * ci * gi * (1.0f - gi);
+        const float d1 = dc * cp * gf * (1.0f - gf);
+        const float d2 = dh * tc * go * (1.0f - go);
+        const float d3 = dc * gi * (1.0f - ci * ci);
+        float* z = zs + r * G;
+        z[k] = d0;
+        z[H + k] = d1;
+        z[2 * H + k] = d2;
+        z[3 * H + k] = d3;
+        const int t = dir == 0 ? s : L - 1 - s;
+        float* out = dz + (((size_t)(b0 + r) * T + t) * 2 + dir) * G;
+        out[k] = d0;
+        out[H + k] = d1;
+        out[2 * H + k] = d2;
+        out[3 * H + k] = d3;
+        dcs[i] = dc * gf;
+      }
+    }
+    __syncthreads();
+    // Phase B: partial Dh[r, 4pk..4pk+3] over dz columns [jb, je).
+    if (pp < parts) {
+      float acc[ROWS][4];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+      const float* w = (WSMEM ? whs : whT) + 4 * pk;
+#pragma unroll 2
+      for (int j = jb; j < je; j += 4) {
+        float4 z[ROWS];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+          z[r] = *reinterpret_cast<const float4*>(zs + r * G + j);
+        float4 wv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          wv[q] = *reinterpret_cast<const float4*>(w + (size_t)(j + q) * hp);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float zq[4] = {z[r].x, z[r].y, z[r].z, z[r].w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc[r][0] = fmaf(zq[q], wv[q].x, acc[r][0]);
+            acc[r][1] = fmaf(zq[q], wv[q].y, acc[r][1]);
+            acc[r][2] = fmaf(zq[q], wv[q].z, acc[r][2]);
+            acc[r][3] = fmaf(zq[q], wv[q].w, acc[r][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        *reinterpret_cast<float4*>(part + (pp * ROWS + r) * hp + 4 * pk) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+}
+
+template <int ROWS, bool VEC, bool WSMEM>
+cudaError_t launch_chain(const ChainPlan& p, const int32_t* lengths,
+                         const float* gates, const float* cell,
+                         const float* gy, const float* whT, float* dz, int B,
+                         int T, int H, cudaStream_t st) {
+  auto kern = bwd_chain_kernel<ROWS, VEC, WSMEM>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((B + ROWS - 1) / ROWS, 2);
+  kern<<<grid, p.threads, p.smem, st>>>(lengths, gates, cell, gy, whT, dz, B,
+                                        T, H, p.parts, p.jp);
+  return cudaGetLastError();
+}
+
+// Frame ranges of the dW sum: enough blocks for ~8 per SM on 132 SMs, at
+// least 2,048 frames per range, at most 64 ranges.
+constexpr int FILL_BLOCKS = 8 * 132;
+
+int dw_tiles(int D, int H) {
+  return ((D + 1 + H + DW_BM - 1) / DW_BM) * ((4 * H + DW_BN - 1) / DW_BN);
+}
+
+template <bool VEC>
+cudaError_t launch_dw(const float* x, const float* y, const float* dz,
+                      float* part, int B, int T, int D, int H, int nsplit,
+                      int chunk, cudaStream_t st) {
+  auto kern = bwd_dw_partial_kernel<VEC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DW_SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(dw_tiles(D, H), 2 * nsplit);
+  kern<<<grid, RED_THREADS, DW_SMEM, st>>>(x, y, dz, part, B, T, D, H, nsplit,
+                                           chunk);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dx(const float* dz, const float* wx, float* whi,
+                      float* wlo, float* dx, int N, int D, int H,
+                      cudaStream_t st) {
+  const int total = 2 * D * 4 * H;
+  bwd_split_kernel<<<(total + 255) / 256, 256, 0, st>>>(wx, whi, wlo, total);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(bwd_dx_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)DXW_SMEM);
+  if (e != cudaSuccess) return e;
+  const unsigned blocks = (unsigned)((D + DXW_BN - 1) / DXW_BN) *
+                          (unsigned)((N + DXW_BM - 1) / DXW_BM);
+  bwd_dx_kernel<<<blocks, 128 * DXW_WG, DXW_SMEM, st>>>(dz, whi, wlo, dx, N,
+                                                        D, H);
+  return cudaGetLastError();
+}
+
+// Frame ranges the dW sum is split into.
+int dw_nsplit(int B, int T, int D, int H) {
+  const int N = B * T;
+  const int tiles = 2 * dw_tiles(D, H);
+  int n = (FILL_BLOCKS + tiles - 1) / tiles;
+  const int most = N / 2048;
+  if (n > most) n = most;
+  if (n > 64) n = 64;
+  return n < 1 ? 1 : n;
 }
 
 }  // namespace
 
-// Each entry launches on `stream` and returns cudaGetLastError() (0 on
-// success). All pointers are device pointers; `lengths` may be NULL (all
-// T). B, T, D, H >= 1.
+// Each entry launches on `stream` and returns a cudaError_t (0 on success).
+// All pointers are device pointers; `lengths` may be NULL (all T). gates,
+// whT, dz and wx must be 16-byte aligned (cudaErrorMisalignedAddress
+// otherwise); the others take a slower staging path when they are not.
+// B, T, D >= 1, 1 <= H <= 2048 and B·T < 2^31.
+
+// Hp, the padded row length of the WhT the chain takes.
+extern "C" int clstm_bidi_lstm_bwd_hp(int H) { return (H + 3) / 4 * 4; }
 
 // dz [B,T,2,4H] from gates [B,T,2,4H], cell [B,T,2,H], gy [B,T,2H] and
-// whT [2,4H,H].
+// whT [2,4H,Hp] (rows zero-padded from H to Hp = clstm_bidi_lstm_bwd_hp).
 extern "C" int clstm_bidi_lstm_bwd_chain(const int32_t* lengths,
                                          const float* gates,
                                          const float* cell, const float* gy,
                                          const float* whT, float* dz, int B,
                                          int T, int H, void* stream) {
-  const size_t smem = (size_t)ROWS * 9 * H * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int threads = ((4 * H + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const dim3 grid((B + ROWS - 1) / ROWS, 2);
-  bwd_chain_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      lengths, gates, cell, gy, whT, dz, B, T, H);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const ChainPlan p = choose_chain(H);
+  if (p.rows == 0) return (int)cudaErrorInvalidValue;
+  if (!aligned16(gates) || !aligned16(whT))
+    return (int)cudaErrorMisalignedAddress;
+  const bool vec = H % 4 == 0 && aligned16(cell) && aligned16(gy);
+#define CLSTM_CHAIN(R, W)                                                \
+  (vec ? launch_chain<R, true, W>(p, lengths, gates, cell, gy, whT, dz, \
+                                  B, T, H, st)                          \
+       : launch_chain<R, false, W>(p, lengths, gates, cell, gy, whT,    \
+                                   dz, B, T, H, st))
+  const cudaError_t e = p.wsmem       ? CLSTM_CHAIN(4, true)
+                        : p.rows == 4 ? CLSTM_CHAIN(4, false)
+                                      : CLSTM_CHAIN(1, false);
+#undef CLSTM_CHAIN
+  return (int)e;
 }
 
-// Number of frame ranges the dW sum is split into, and the partial buffer
-// the caller allocates: nsplit * 2 * (D+1+H) * 4H floats.
-extern "C" int clstm_bidi_lstm_bwd_nsplit(int B, int T) {
-  const long long N = (long long)B * T;
-  long long n = (N + 4095) / 4096;
-  return (int)(n < 1 ? 1 : (n > 64 ? 64 : n));
+// Floats of scratch the reduction takes: the dW partials, nsplit · 2 ·
+// (D+1+H) · 4H, then the hi and lo parts of wx for dx, 2 · 2 · D · 4H.
+extern "C" long long clstm_bidi_lstm_bwd_scratch(int B, int T, int D, int H) {
+  return (long long)dw_nsplit(B, T, D, H) * 2 * (D + 1 + H) * 4 * H +
+         4LL * D * 4 * H;
 }
 
 // dw [2, D+1+H, 4H] (and dx [B,T,D] unless dx is NULL) from x [B,T,D],
-// y [B,T,2H], dz [B,T,2,4H], wx [2,D,4H]; part is scratch of
-// clstm_bidi_lstm_bwd_nsplit(B, T) * 2 * (D+1+H) * 4H floats.
+// y [B,T,2H], dz [B,T,2,4H], wx [2,D,4H]; scratch holds
+// clstm_bidi_lstm_bwd_scratch(B, T, D, H) floats (16-byte aligned).
 extern "C" int clstm_bidi_lstm_bwd_reduce(const float* x, const float* y,
                                           const float* dz, const float* wx,
-                                          float* part, float* dw, float* dx,
+                                          float* scratch, float* dw, float* dx,
                                           int B, int T, int D, int H,
                                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int G = 4 * H, M = D + 1 + H;
-  const long long N = (long long)B * T;
-  const int nsplit = clstm_bidi_lstm_bwd_nsplit(B, T);
-  const int chunk = (int)((N + nsplit - 1) / nsplit);
-  const dim3 grid((G + TILE - 1) / TILE, (M + TILE - 1) / TILE, 2 * nsplit);
-  bwd_dw_partial_kernel<<<grid, RED_THREADS, 0, st>>>(x, y, dz, part, B, T, D,
-                                                      H, nsplit, chunk);
-  cudaError_t e = cudaGetLastError();
+  const int N = B * T;
+  const int nsplit = dw_nsplit(B, T, D, H);
+  const int chunk = (N + nsplit - 1) / nsplit;
+  if (!aligned16(dz) || !aligned16(wx) || !aligned16(scratch))
+    return (int)cudaErrorMisalignedAddress;
+  cudaError_t e =
+      (D % 4 == 0 && H % 4 == 0 && aligned16(x) && aligned16(y))
+          ? launch_dw<true>(x, y, dz, scratch, B, T, D, H, nsplit, chunk, st)
+          : launch_dw<false>(x, y, dz, scratch, B, T, D, H, nsplit, chunk,
+                             st);
   if (e != cudaSuccess) return (int)e;
   const int total = 2 * M * G;
-  bwd_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(part, dw, nsplit,
+  bwd_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(scratch, dw, nsplit,
                                                          total);
   e = cudaGetLastError();
   if (e != cudaSuccess || dx == nullptr) return (int)e;
-  const dim3 gx((unsigned)((N + TILE - 1) / TILE), (D + TILE - 1) / TILE);
-  bwd_dx_kernel<<<gx, RED_THREADS, 0, st>>>(dz, wx, dx, N, D, H);
-  return (int)cudaGetLastError();
+  float* whi = scratch + (size_t)nsplit * total;
+  return (int)launch_dx(dz, wx, whi, whi + (size_t)2 * D * G, dx, N, D, H,
+                        st);
 }

@@ -14,7 +14,8 @@
   bidi_lstm_bwd_chain   K2's backward chain, replaces pallas_lstm.py::
                         _bwd_kernel (L391-430);
   bidi_lstm_bwd_reduce  K2's contractions dW, dWh and dx (the TPU kernel's
-                        own body, L440-463), written by hand as well;
+                        own body, L440-463), written by hand as well, on
+                        the tensor cores in 3xTF32 (f32-accurate);
   bidi_lstm_train       a torch.autograd.Function: K1 (or the hoisted
                         projection and K4) forward, K2 backward (the custom
                         VJP of bidi_lstm_pallas).
@@ -43,10 +44,13 @@ _SIGNATURES = {
     "clstm_bidi_lstm_fwd_state": [_P] * 8 + [_I] * 4 + [_P],
     "clstm_bidi_lstm_fwd_xz": [_P] * 4 + [_I] * 3 + [_P],
     "clstm_bidi_lstm_fwd_xz_state": [_P] * 6 + [_I] * 3 + [_P],
+    "clstm_bidi_lstm_bwd_hp": [_I],
     "clstm_bidi_lstm_bwd_chain": [_P] * 6 + [_I] * 3 + [_P],
-    "clstm_bidi_lstm_bwd_nsplit": [_I] * 2,
+    "clstm_bidi_lstm_bwd_scratch": [_I] * 4,
     "clstm_bidi_lstm_bwd_reduce": [_P] * 7 + [_I] * 4 + [_P],
 }
+# Entry points that return a 64-bit count instead of a CUDA error.
+_LONG = {"clstm_bidi_lstm_bwd_scratch"}
 _fns: dict = {}
 
 
@@ -57,7 +61,7 @@ def _kernel(name: str):
 
         fn = getattr(load_library(), name)
         fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        fn.restype = ctypes.c_longlong if name in _LONG else ctypes.c_int
         _fns[name] = fn
     return fn
 
@@ -74,6 +78,12 @@ def _launch(name: str, device, *args) -> None:
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it if its data does not start on 16 bytes (the
+    backward kernels stage it in 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_tensor(name: str, t: torch.Tensor, shape, device) -> None:
@@ -288,7 +298,11 @@ def bidi_lstm_bwd_chain(gates: torch.Tensor, cell: torch.Tensor,
     dz = torch.empty_like(gates)
     if B == 0 or T == 0:
         return dz
-    whT = Wh2.detach().transpose(1, 2).contiguous()
+    # WhT [2, 4H, Hp]: Wh transposed, each row zero-padded to Hp units.
+    hp = _kernel("clstm_bidi_lstm_bwd_hp")(H)
+    whT = torch.zeros((2, 4 * H, hp), dtype=torch.float32, device=dev)
+    whT[:, :, :H] = Wh2.detach().transpose(1, 2)
+    gates = _aligned(gates)
     _launch("clstm_bidi_lstm_bwd_chain", dev, _ptr(lengths), gates.data_ptr(),
             cell.data_ptr(), gy.data_ptr(), whT.data_ptr(), dz.data_ptr(),
             B, T, H)
@@ -320,11 +334,12 @@ def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
     dx = torch.empty_like(x) if need_dx else None
     if B == 0 or T == 0:
         return dW.zero_(), None if dx is None else dx.zero_()
-    nsplit = _kernel("clstm_bidi_lstm_bwd_nsplit")(B, T)
-    part = torch.empty((nsplit, 2, M, G), dtype=torch.float32, device=dev)
+    scratch = torch.empty(_kernel("clstm_bidi_lstm_bwd_scratch")(B, T, D, H),
+                          dtype=torch.float32, device=dev)
+    dz, wx = _aligned(dz), _aligned(Wx2.detach())
     _launch("clstm_bidi_lstm_bwd_reduce", dev, x.data_ptr(), y.data_ptr(),
-            dz.data_ptr(), Wx2.detach().data_ptr(), part.data_ptr(),
-            dW.data_ptr(), _ptr(dx), B, T, D, H)
+            dz.data_ptr(), wx.data_ptr(), scratch.data_ptr(), dW.data_ptr(),
+            _ptr(dx), B, T, D, H)
     bidi_lstm_bwd_reduce.launches += 1
     return dW, dx
 

@@ -80,11 +80,23 @@ def _torch_grads(fn, pf, pr, x, lengths, gy, need_dx):
             tx.grad.numpy() if need_dx else None, y.detach().numpy())
 
 
-@pytest.mark.parametrize("need_dx", [True, False])
-def test_torch_bidi_grads_match_pallas_vjp_and_autograd(need_dx):
+# (D, H) of the gradient test. Besides the small net's shape they cross the
+# edges of the card kernel's tiles (D+1+H and 4H against 128-wide output
+# tiles, D and H not multiples of 4, D = H = 1), and (130, 7) takes the
+# hoisted projection (D+1 > 128) in both packages: the plain K2 these pin
+# to jax.grad is what chip_smoke.py holds the kernel against on the card.
+GRAD_SHAPES = [(5, 7), (1, 1), (17, 33), (130, 7)]
+
+
+# The small net's shape keeps its original test ids ("True", "False").
+@pytest.mark.parametrize("need_dx,D,H", [
+    pytest.param(need_dx, D, H, id=str(need_dx) if (D, H) == (5, 7)
+                 else f"{need_dx}-{D}-{H}")
+    for D, H in GRAD_SHAPES for need_dx in (True, False)])
+def test_torch_bidi_grads_match_pallas_vjp_and_autograd(need_dx, D, H):
     """Plain K1/K2 behind the autograd Function against jax.grad of the TPU
     kernel (interpret mode, strict f32) and torch autograd of the loop."""
-    pf, pr, x, lengths, gy = _bidi_setup()
+    pf, pr, x, lengths, gy = _bidi_setup(D=D, H=H)
     gf, gr, dx, y = _torch_grads(bidi_lstm_train, pf, pr, x, lengths, gy,
                                  need_dx)
 
