@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (clstm_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--k2-against SRC]
+    python3 chip_smoke.py [--k2-against SRC] [--fwd-against SRC]
 
 Drives the port's serving path — the path `clstmocr` runs — and its training
 path — CLSTMOCR.train_batch, a CTC training step — at the full width of the
@@ -11,10 +11,15 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
 
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from clstm_tpu_torch/csrc with nvcc;
+     prints the forward kernel's plan (cluster size, rows per cluster,
+     where the weights live, clusters the card holds) at each timed forward
+     shape;
   3. kernel against plain: the bidirectional LSTM inference kernel against
      its plain PyTorch loop on the card at B=256, T=1024, D=48, H=100
      (weights uniform ±0.3 from a numpy seed), for two length sets, plus a
-     few odd shapes; padded frames must be exactly 0;
+     few odd shapes; padded frames must be exactly 0 and two calls bitwise
+     equal; then K3, K1 and K4 in both modes at shapes across the plan's
+     edges (FWD_ODD), with mixed, all-zero and no lengths;
   4. timing: kernel and plain ms per batch at that shape, and cuDNN's
      bidirectional nn.LSTM on the same batch in turns with the kernel;
   5. main path: a seeded bidi net is saved as .clstm, loaded through
@@ -65,7 +70,10 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
      (chiprun_out/profile_train_step_bidi2.txt).
 
 With --k2-against SRC, every timed K2 shape also times the K2 built from
-SRC in turns with the current one (against, current, current, against).
+SRC in turns with the current one (against, current, current, against);
+with --fwd-against SRC, the same for the forward kernel at K3 and K1
+(bidi), K1 (bidi2 layer 1), K4 in both modes (bidi2 layer 2), and K3 with
+the projection inside at D=400 and D=255 (H=200, the L2 plan).
 
 Any failure raises, so the script exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels, each
@@ -97,6 +105,7 @@ from clstm_tpu_torch.models.hl import CLSTMOCR
 from clstm_tpu_torch.models.prefab import make_net_init
 from clstm_tpu_torch.models.spec import apply_net
 from clstm_tpu_torch.ops import _build
+from clstm_tpu_torch.ops import bidi_lstm_kernel as bk
 from clstm_tpu_torch.ops import ctc as ctc_ops
 from clstm_tpu_torch.ops import lstm as lstm_ops
 from clstm_tpu_torch.ops.bidi_lstm_kernel import (
@@ -187,6 +196,17 @@ CHAIN_WIDE = ((4, 40, 5, 700), (2, 12, 3, 2048))
 H2, C2 = 200, 400
 D2 = 2 * H2
 ODD_K4 = ((3, 17, 130, 7), (5, 33, 401, 200))
+# The forward kernel (K3, K1, K4 in both modes) at shapes across its plan's
+# edges (ops/bidi_lstm_kernel.py::fwd_plan), each with mixed lengths (rows
+# of length 0 and T), all lengths 0 and no lengths: H not a multiple of the
+# cluster size (7, 201), B below the rows per cluster (1, 3) and not a
+# multiple of them (17), T = 1, and H = 700 and 2048 on the L2 plan.
+# Weights uniform ±min(0.3, 3/sqrt(H)): at H = 700 and 2048, ±0.3 makes the
+# recurrence expand (f32 rounding then grows ~10x over 40 steps in the plain
+# loop as in the kernel, both ~3x their distance from float64).
+FWD_ODD = ((1, 33, 5, 7), (3, 20, 49, 201), (17, 40, 48, 200),
+           (5, 1, 48, 100), (3, 17, 130, 7), (4, 40, 5, 700),
+           (2, 12, 3, 2048))
 # The hoisted product x·Wx + b in f32 against the same product in float64,
 # max|Δ| over max|xz|: an f32 sum of 400 products rounds at ~1e-6 of the
 # largest term, while TF32 (10-bit mantissa) would be ~1e-3 off. 1e-5
@@ -230,6 +250,8 @@ def compare(pf, pr, x, lengths):
     with torch.no_grad():
         yk = bidi_lstm_infer(pf, pr, x, lengths)
         yp = bidi_lstm_apply(pf, pr, x, lengths)
+        if not torch.equal(yk, bidi_lstm_infer(pf, pr, x, lengths)):
+            raise AssertionError("kernel: two calls differ")
     torch.cuda.synchronize()
     Bx, Tx, _ = x.shape
     L = (torch.full((Bx,), Tx, device=x.device) if lengths is None
@@ -313,6 +335,9 @@ def compare_k1(pf, pr, x, lengths):
     with torch.no_grad():
         got = bidi_lstm_fwd_state(pf, pr, x, lengths)
         want = lstm_ops.bidi_lstm_fwd_state_plain(pf, pr, x, lengths)
+        if not all(map(torch.equal, got,
+                       bidi_lstm_fwd_state(pf, pr, x, lengths))):
+            raise AssertionError("K1: two calls differ")
     torch.cuda.synchronize()
     pad = padded(lengths, x.shape[0], x.shape[1], x.device)
     err = 0.0
@@ -582,23 +607,204 @@ def load_k2_against(src: str):
     return chain, reduce
 
 
+def load_fwd_against(src: str) -> dict:
+    """``--fwd-against SRC``: the forward kernel built from another source
+    with the same nvcc flags, to time in turns with the current one ->
+    {"K3", "K1", "K4", "K4 state": a callable with the signature of
+    bidi_lstm_infer, bidi_lstm_fwd_state, bidi_lstm_infer_xz,
+    bidi_lstm_fwd_state_xz}. SRC may have the current C interface (weights
+    interleaved by unit, a plan from fwd_plan with that library's own
+    occupancy query) or the earlier one (wx [2,D,4H], wh [2,H,4H] and
+    b [2,4H] as they are, no plan). No launch is counted."""
+    import ctypes
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "fwd_against.so")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        so, src], check=True, capture_output=True, timeout=600)
+        lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    current = hasattr(lib, "clstm_bidi_lstm_fwd_clusters")
+    n_ints = 8 if current else 4
+    sigs = {"clstm_bidi_lstm_fwd": [P] * (5 if current else 6),
+            "clstm_bidi_lstm_fwd_state": [P] * (7 if current else 8),
+            "clstm_bidi_lstm_fwd_xz": [P] * 4,
+            "clstm_bidi_lstm_fwd_xz_state": [P] * 6}
+    for name, ptrs in sigs.items():
+        ints = n_ints - (1 if name.startswith("clstm_bidi_lstm_fwd_xz") else 0)
+        getattr(lib, name).argtypes = ptrs + [I] * ints + [P]
+    if current:
+        lib.clstm_bidi_lstm_fwd_clusters.argtypes = [I] * 8
+
+    def lookup(name):
+        return getattr(lib, name)
+
+    def call(name, *args):
+        err = getattr(lib, name)(*args,
+                                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} from {src}: CUDA error {err}")
+
+    def plan_args(B, D, H, hoist, state):
+        p = bk.fwd_plan(B, D, H, hoist, state,
+                        bk.card_clusters(lookup, D, H, hoist, state))
+        return (p.C, p.rows, p.units, p.resident)
+
+    def weights(pf, pr, with_x):
+        if current:
+            return bk.fwd_weights(pf, pr, with_x)
+        return (stack2(pf, pr, "Wx").contiguous() if with_x else None,
+                stack2(pf, pr, "Wh").contiguous())
+
+    def run_x(state):
+        def run(pf, pr, x, lengths):
+            B, T, D = x.shape
+            H = pf["Wh"].shape[0]
+            y = torch.empty((B, T, 2 * H), device=x.device)
+            out = [y]
+            if state:
+                out += [torch.empty((B, T, 2, 4 * H), device=x.device),
+                        torch.empty((B, T, 2, H), device=x.device)]
+            wx, wh = weights(pf, pr, True)
+            ptrs = [wx.data_ptr(), wh.data_ptr()]
+            if not current:
+                b = stack2(pf, pr, "b").contiguous()
+                ptrs.append(b.data_ptr())
+            ints = [B, T, D, H] + (list(plan_args(B, D, H, False, state))
+                                   if current else [])
+            name = "clstm_bidi_lstm_fwd_state" if state else \
+                "clstm_bidi_lstm_fwd"
+            call(name, x.data_ptr(), 0 if lengths is None else
+                 lengths.data_ptr(), *ptrs, *[o.data_ptr() for o in out],
+                 *ints)
+            return tuple(out) if state else y
+        return run
+
+    def run_xz(state):
+        def run(pf, pr, xz, lengths):
+            B, T, _, G = xz.shape
+            H = G // 4
+            y = torch.empty((B, T, 2 * H), device=xz.device)
+            out = [y]
+            if state:
+                out += [torch.empty((B, T, 2, G), device=xz.device),
+                        torch.empty((B, T, 2, H), device=xz.device)]
+            _, wh = weights(pf, pr, False)
+            ints = [B, T, H] + (list(plan_args(B, 0, H, True, state))
+                                if current else [])
+            call("clstm_bidi_lstm_fwd_xz_state" if state else
+                 "clstm_bidi_lstm_fwd_xz", xz.data_ptr(),
+                 0 if lengths is None else lengths.data_ptr(), wh.data_ptr(),
+                 *[o.data_ptr() for o in out], *ints)
+            return tuple(out) if state else y
+        return run
+    return {"K3": run_x(False), "K1": run_x(True), "K4": run_xz(False),
+            "K4 state": run_xz(True)}
+
+
 def against_turns(label: str, old, new, reps: int, card: str) -> dict:
-    """Time the K2 of --k2-against (old) and the current one (new) in turns
-    old, new, new, old; both must agree within K2_RTOL. Logs and returns
-    {"against_ms": [..], "ms": [..]}."""
+    """Time the kernel of --k2-against or --fwd-against (old) and the
+    current one (new) in turns old, new, new, old; both must agree within
+    K2_RTOL of max|old|. Logs and returns {"against_ms": [..], "ms": [..]}.
+    """
     a, b = old(), new()
     torch.cuda.synchronize()
     for u, v in zip(a if isinstance(a, tuple) else (a,),
                     b if isinstance(b, tuple) else (b,)):
         if u is not None and not rel_err(v, u) <= K2_RTOL:
-            raise AssertionError(f"{label}: --k2-against and current K2 "
-                                 f"disagree ({rel_err(v, u):.3e})")
+            raise AssertionError(f"{label}: the --*-against kernel and the "
+                                 f"current one disagree "
+                                 f"({rel_err(v, u):.3e})")
     del a, b
     o, n = in_turns(old, new, reps)
-    log(f"[k2-against] {card} | {label} in turns (against, current, "
+    log(f"[against] {card} | {label} in turns (against, current, "
         f"current, against): {o[0]:.3f}, {n[0]:.3f}, {n[1]:.3f}, "
         f"{o[1]:.3f} ms")
     return {"against_ms": o, "ms": n}
+
+
+def compare_fwd(pf, pr, x, lengths) -> float:
+    """K3, K1 and K4 in both modes (on the hoisted product) against their
+    plain versions on the same inputs -> max |Δ| over every stream. Raises
+    if a padded frame of any kernel stream is not exactly 0, an output is
+    not finite, the error exceeds TOL or two calls differ."""
+    with torch.no_grad():
+        y3 = bidi_lstm_infer(pf, pr, x, lengths, hoist=False)
+        if not torch.equal(y3, bidi_lstm_infer(pf, pr, x, lengths,
+                                               hoist=False)):
+            raise AssertionError("K3: two calls differ")
+        want = lstm_ops.bidi_lstm_fwd_state_plain(pf, pr, x, lengths)
+    pad = padded(lengths, x.shape[0], x.shape[1], x.device)
+    if not bool((y3[pad] == 0.0).all()):
+        raise AssertionError("K3 y is not exactly 0 on padded frames")
+    require_finite("K3", y3)
+    err = float((y3 - want[0]).abs().max())
+    del y3
+    e1, _ = compare_k1(pf, pr, x, lengths)
+    e4, _, _ = compare_k4(pf, pr, x, lengths)
+    err = max(err, e1, e4)
+    if not err <= TOL:
+        raise AssertionError(f"forward kernel vs plain max|d| {err:.3e} > "
+                             f"{TOL:.0e}")
+    return err
+
+
+def fwd_plan_of(dev, B, D, H, hoist, state) -> dict:
+    """The forward kernel's plan on this card (ops/bidi_lstm_kernel.py::
+    device_plan) as a dict; raises unless the kernel's own count of its
+    shared memory agrees with the plan's."""
+    p = bk.device_plan(dev, B, 0 if hoist else D, H, hoist, state)
+    smem = bk._kernel("clstm_bidi_lstm_fwd_smem")(
+        0 if hoist else D, H, int(hoist), p.C, p.rows, p.units, p.resident)
+    if smem != p.smem:
+        raise AssertionError(f"plan {p}: the kernel counts {smem} bytes of "
+                             f"shared memory")
+    return p._asdict()
+
+
+def fwd_with_plan(state: bool, pf, pr, x, lengths, plan):
+    """K3 (or K1 with ``state``) launched with the given plan (C, rows,
+    units, resident) in place of the one fwd_plan picks, to time the plan's
+    choice; not counted."""
+    B, T, D = x.shape
+    H = pf["Wh"].shape[0]
+    out = [torch.empty((B, T, 2 * H), device=x.device)]
+    if state:
+        out += [torch.empty((B, T, 2, 4 * H), device=x.device),
+                torch.empty((B, T, 2, H), device=x.device)]
+    wx, wh = bk.fwd_weights(pf, pr, True)
+    bk._launch("clstm_bidi_lstm_fwd_state" if state else
+               "clstm_bidi_lstm_fwd", x.device, x.data_ptr(),
+               0 if lengths is None else lengths.data_ptr(), wx.data_ptr(),
+               wh.data_ptr(), *(o.data_ptr() for o in out), B, T, D, H,
+               *plan)
+    return out
+
+
+def plan_turns(label: str, state: bool, pf, pr, x, lengths, alt,
+               reps: int, card: str) -> dict:
+    """K3 (K1 with ``state``) with fwd_plan's plan and with ``alt`` (C,
+    rows, units, resident), timed in turns chosen, alt, alt, chosen; both
+    must give the same bits (the sums do not depend on the plan). Logs and
+    returns both."""
+    p = bk.device_plan(x.device, x.shape[0], x.shape[2], pf["Wh"].shape[0],
+                       False, state)
+    chosen = (p.C, p.rows, p.units, p.resident)
+    name = "K1" if state else "K3"
+    with torch.no_grad():
+        a = fwd_with_plan(state, pf, pr, x, lengths, chosen)
+        b = fwd_with_plan(state, pf, pr, x, lengths, alt)
+        if not all(map(torch.equal, a, b)):
+            raise AssertionError(f"{label}: {name} plans {chosen} and {alt} "
+                                 f"differ")
+        del a, b
+        c, o = in_turns(
+            lambda: fwd_with_plan(state, pf, pr, x, lengths, chosen),
+            lambda: fwd_with_plan(state, pf, pr, x, lengths, alt), reps)
+    log(f"[plan] {card} | {label}: {name} with the plan (C, rows, units, "
+        f"resident) {chosen} {c[0]:.3f}, {alt} {o[0]:.3f}, {o[1]:.3f}, "
+        f"{chosen} {c[1]:.3f} ms in turns; bitwise equal")
+    return {"plan": list(chosen), "ms": c, "other_plan": list(alt),
+            "other_ms": o}
 
 
 def compare_k4(pf, pr, x, lengths):
@@ -613,6 +819,11 @@ def compare_k4(pf, pr, x, lengths):
         got = (bidi_lstm_infer_xz(pf, pr, xz, lengths),
                *bidi_lstm_fwd_state_xz(pf, pr, xz, lengths))
         want = lstm_ops.bidi_lstm_fwd_state_xz_plain(pf, pr, xz, lengths)
+        again = (bidi_lstm_infer_xz(pf, pr, xz, lengths),
+                 *bidi_lstm_fwd_state_xz(pf, pr, xz, lengths))
+        if not all(map(torch.equal, got, again)):
+            raise AssertionError("K4: two calls differ")
+        del again
         want = (want[0], *want)
         Bx, Tx, Dx = x.shape
         w64 = torch.cat([pf["Wx"], pr["Wx"]], 1).double()
@@ -950,6 +1161,12 @@ def main(argv=None) -> int:
                     help="also build this K2 source (bidi_lstm_bwd.cu of this "
                     "or the earlier C interface) and time it in turns with "
                     "the current K2 at every timed K2 shape")
+    ap.add_argument("--fwd-against", metavar="SRC",
+                    help="also build this forward kernel source "
+                    "(bidi_lstm_fwd.cu of this or the earlier C interface) "
+                    "and time it in turns with the current one at the five "
+                    "timed forward shapes (K3 and K1 at bidi, K1 at bidi2's "
+                    "first layer, K4 in both modes at its second)")
     args = ap.parse_args(argv)
     # 1. Device.
     if not torch.cuda.is_available():
@@ -968,6 +1185,26 @@ def main(argv=None) -> int:
     log(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s")
     k2_against = (load_k2_against(args.k2_against) if args.k2_against
                   else None)
+    fwd_against = (load_fwd_against(args.fwd_against) if args.fwd_against
+                   else None)
+    against, fwd_vs = {}, {}
+    # The forward kernel's plan at each timed shape: cluster size C, rows
+    # per cluster, units per CTA, which weights are resident in shared
+    # memory (1 all, 2 Wh's, 0 none: read from L2), and how many clusters
+    # the card holds at once (one wave when 2 x groups <= clusters).
+    plans = {name: fwd_plan_of(dev, B, d, h, hoist, state)
+             for name, d, h, hoist, state in (
+                 ("K3 bidi", D, H, False, False),
+                 ("K1 bidi", D, H, False, True),
+                 ("K3 bidi2 layer 1", D, H2, False, False),
+                 ("K1 bidi2 layer 1", D, H2, False, True),
+                 ("K4 bidi2 layer 2", D2, H2, True, False),
+                 ("K4 state bidi2 layer 2", D2, H2, True, True))}
+    for name, p in plans.items():
+        log(f"[plan] {name} B={B}: " + ", ".join(
+            f"{k} {v}" for k, v in p.items()) + ("; one wave" if 2 *
+                                                 p["groups"] <= p["clusters"]
+                                                 else "; more than one wave"))
 
     # 3. Kernel against plain at the bench profile, then odd shapes.
     rng = np.random.RandomState(0)
@@ -992,6 +1229,29 @@ def main(argv=None) -> int:
         e2 = compare(spf, spr, sx, None)
         log(f"[kernel] B={b} T={t} D={d} H={h}: max|dy| {e1:.3e} mixed "
             f"lengths, {e2:.3e} no lengths")
+    # K3, K1 and K4 (both modes) at shapes across the plan's edges.
+    for (b, t, d, h) in FWD_ODD:
+        sc = min(0.3, 3.0 / h ** 0.5)
+        spf, spr = lstm_params(rng, d, h, dev, sc), lstm_params(rng, d, h,
+                                                                dev, sc)
+        sx = uniform(rng, (b, t, d), -1.0, 1.0, dev)
+        ml = rng.randint(0, t + 1, b).astype(np.int32)
+        ml[0], ml[-1] = 0, t
+        errs_ = {name: compare_fwd(spf, spr, sx, ls) for name, ls in (
+            ("mixed", torch.from_numpy(ml).to(dev)),
+            ("all 0", torch.zeros(b, dtype=torch.int32, device=dev)),
+            ("none", None))}
+        plan_ = {m: fwd_plan_of(dev, b, d, h, hoist, st) for m, hoist, st in
+                 (("K3", False, False), ("K1", False, True),
+                  ("K4", True, False), ("K4 state", True, True))}
+        log(f"[forward] B={b} T={t} D={d} H={h} (weights ±{sc:.3g}): K3, K1, "
+            f"K4 both modes max|d| " + ", ".join(
+                f"{n} {e:.3e}" for n, e in errs_.items())
+            + f" lengths (tol {TOL:.0e}); padded frames exactly 0; two calls "
+            "bitwise equal; plans " + "; ".join(
+                f"{m} C={q['C']} rows={q['rows']} "
+                f"{('L2', 'resident', 'Wh resident')[q['resident']]}"
+                for m, q in plan_.items()))
 
     # 4. Timing at the bench profile: K3 against its plain loop and, in
     # turns, against cuDNN's bidirectional LSTM on the same batch.
@@ -1005,6 +1265,11 @@ def main(argv=None) -> int:
                                 lambda: lstm(px), 10)
         k_ms, k3_lib_ms = mean(k3_t), mean(k3_lib)
         p_ms = time_ms(lambda: bidi_lstm_apply(pf, pr, x, L900), 3)
+        if fwd_against:
+            fwd_vs["K3 bidi"] = against_turns(
+                f"K3 B={B} T={T} D={D} H={H}",
+                lambda: fwd_against["K3"](pf, pr, x, L900),
+                lambda: bidi_lstm_infer(pf, pr, x, L900), 10, card)
     log(f"[timing] {card} | bidi LSTM fwd B={B} T={T} D={D} H={H} "
         f"len={TRUE_T}: kernel {k_ms:.3f} ms/batch ({B / k_ms * 1e3:.0f} "
         f"lines/s), plain {p_ms:.3f} ms/batch ({B / p_ms * 1e3:.0f} "
@@ -1266,7 +1531,16 @@ def main(argv=None) -> int:
         lib = {"K1": mean(k1_lib), "K2 reduction": mean(red_lib)}
         ms["K1"] = (mean(k1_t), ms["K1"][1])
         ms["K2 reduction"] = (mean(red_t), ms["K2 reduction"][1])
-        against = {}
+        if fwd_against:
+            fwd_vs["K1 bidi"] = against_turns(
+                f"K1 B={B} T={T} D={D} H={H}",
+                lambda: fwd_against["K1"](tpf, tpr, bx, Lb), pairs["K1"][0],
+                10, card)
+        # The plan's choice at bidi: the whole slice resident at C=2 against
+        # Wh's alone at C=1, [Wx; b] read from L2.
+        plan_vs = {f"{k} bidi": plan_turns(
+            f"B={B} T={T} D={D} H={H}", k == "K1", tpf, tpr, bx, Lb,
+            (1, 4, H, 2), 10, card) for k in ("K3", "K1")}
         if k2_against:
             against["chain H=100"] = against_turns(
                 f"K2 chain B={B} T={T} H={H}",
@@ -1384,6 +1658,38 @@ def main(argv=None) -> int:
             pf2, pr2, lstm_ops.hoisted_projection(pf2, pr2, x2), L900),
             cu2_fwd, 5)
         cu2_bwd_ms = time_ms(cu2_fwd_bwd, 5) - mean(k4s_lib)
+        if fwd_against:
+            fwd_vs["K4 bidi2 layer 2"] = against_turns(
+                f"K4 B={B} T={T} H={H2}",
+                lambda: fwd_against["K4"](pf2, pr2, xz2, L900),
+                lambda: bidi_lstm_infer_xz(pf2, pr2, xz2, L900), 5, card)
+            fwd_vs["K4 state bidi2 layer 2"] = against_turns(
+                f"K4 state B={B} T={T} H={H2}",
+                lambda: fwd_against["K4 state"](pf2, pr2, xz2, L900),
+                lambda: bidi_lstm_fwd_state_xz(pf2, pr2, xz2, L900), 5, card)
+            # K3 with the projection inside, on the L2 plan: at this layer
+            # (D=400, the routing comparison above) and at the widest input
+            # that does not hoist at H=200 (D=255).
+            fwd_vs["K3 in-kernel projection D=400"] = against_turns(
+                f"K3 B={B} T={T} D={D2} H={H2}",
+                lambda: fwd_against["K3"](pf2, pr2, x2, L900),
+                lambda: bidi_lstm_infer(pf2, pr2, x2, L900, hoist=False), 3,
+                card)
+        rngw = np.random.RandomState(5)
+        pw, qw = (lstm_params(rngw, 255, H2, dev, 0.1),
+                  lstm_params(rngw, 255, H2, dev, 0.1))
+        xw = uniform(rngw, (B, T, 255), -1.0, 1.0, dev)
+        if fwd_against:
+            fwd_vs["K3 in-kernel projection D=255"] = against_turns(
+                f"K3 B={B} T={T} D=255 H={H2}",
+                lambda: fwd_against["K3"](pw, qw, xw, L900),
+                lambda: bidi_lstm_infer(pw, qw, xw, L900), 3, card)
+        # The L2 plan's choice at the widest input that does not hoist:
+        # C=4 with 20 rows against C=8 with 40.
+        plan_vs["K3 D=255 H=200"] = plan_turns(
+            f"B={B} T={T} D=255 H={H2}", False, pw, qw, xw, L900,
+            (8, 40, H2 // 8, 0), 3, card)
+        del pw, qw, xw
         if k2_against:
             against["chain H=200"] = against_turns(
                 f"K2 chain B={B} T={T} H={H2}",
@@ -1486,6 +1792,16 @@ def main(argv=None) -> int:
     with torch.no_grad():
         l1f, l1r = layer1.sub[0].weights(), layer1.sub[1].sub[0].weights()
         x1, L1 = batch2["x"], batch2["lengths"]
+        if fwd_against:
+            fwd_vs["K1 bidi2 layer 1"] = against_turns(
+                f"K1 B={B} T={T} D={D} H={H2}",
+                lambda: fwd_against["K1"](l1f, l1r, x1, L1),
+                lambda: bidi_lstm_fwd_state(l1f, l1r, x1, L1), 5, card)
+        # The plan's choice at bidi2's first layer: Wh's slice alone
+        # resident at C=4 against the whole slice at C=8 (40 rows).
+        plan_vs["K1 bidi2 layer 1"] = plan_turns(
+            f"B={B} T={T} D={D} H={H2}", True, l1f, l1r, x1, L1,
+            (8, 40, H2 // 8, 1), 5, card)
         y1, g1, c1 = bidi_lstm_fwd_state(l1f, l1r, x1, L1)
         Wx21 = stack2(l1f, l1r, "Wx").detach()
         dz1 = bidi_lstm_bwd_chain(g1, c1, uniform(rng2, (B, T, 2 * H2), -1.0,
@@ -1565,15 +1881,23 @@ def main(argv=None) -> int:
     # rows the other shapes the bidi2 step runs them at, K2's cuDNN's
     # backward against K2 whole and, with --k2-against, the in-turn times of
     # the other K2.
-    extra = {"bidi_lstm_fwd_state (K1)": {
+    extra = {"bidi_lstm_fwd (K3)": {
+                 "plan": plans["K3 bidi"],
+                 "bidi2_layer1_plan": plans["K3 bidi2 layer 1"]},
+             "bidi_lstm_fwd_state (K1)": {
+                 "plan": plans["K1 bidi"],
+                 "plan_choice": plan_vs,
                  "bidi2_layer1": dict(zip(
-                     ("ms", "bound_ms", "bound_by"),
-                     (k1_l1, *lstm_bound("fwd_state", B, T, D, H2, V900))))},
+                     ("ms", "bound_ms", "bound_by", "plan"),
+                     (k1_l1, *lstm_bound("fwd_state", B, T, D, H2, V900),
+                      plans["K1 bidi2 layer 1"])))},
              "bidi_lstm_fwd_xz (K4)": {
+                 "plan": plans["K4 bidi2 layer 2"],
                  "hoisted_product_ms": proj_ms,
                  "in_kernel_projection_ms": mean(k3_2),
                  "hoisted_total_ms": mean(k4_t)},
              "bidi_lstm_fwd_xz_state (K4)": {
+                 "plan": plans["K4 state bidi2 layer 2"],
                  "hoisted_product_ms": proj_ms,
                  "in_kernel_projection_ms": k1_2_ms,
                  "hoisted_total_ms": mean(k4s_t)},
@@ -1599,6 +1923,17 @@ def main(argv=None) -> int:
                      (*k2h_ms["K2 reduction with dx"], mean(red2_lib),
                       *lstm_bound("reduce", B, T, D2, H2, V900, dx=True),
                       k2h_f64)))}}
+    plans["K3 D=400 in-kernel"] = fwd_plan_of(dev, B, D2, H2, False, False)
+    plans["K3 D=255"] = fwd_plan_of(dev, B, 255, H2, False, False)
+    extra["bidi_lstm_fwd (K3)"].update(
+        {"in_kernel_D400_plan": plans["K3 D=400 in-kernel"],
+         "D255_plan": plans["K3 D=255"]})
+    for key, turns_ in fwd_vs.items():
+        row = ("bidi_lstm_fwd (K3)" if key.startswith("K3") else
+               "bidi_lstm_fwd_state (K1)" if key.startswith("K1") else
+               "bidi_lstm_fwd_xz_state (K4)" if key.startswith("K4 state")
+               else "bidi_lstm_fwd_xz (K4)")
+        extra[row].setdefault("fwd_against", {})[key] = turns_
     for key, turns_ in against.items():
         row = ("bidi_lstm_bwd_chain (K2)" if key.startswith("chain")
                else "bidi_lstm_bwd_reduce (K2)")

@@ -1,5 +1,5 @@
 // Bidirectional LSTM forward, f32, for sm_90a, in four modes of one kernel
-// (template flags EMIT and HOIST):
+// (template flags EMIT and HOIST; WRES follows the plan, below):
 //
 //   K3 (EMIT=false, HOIST=false, clstm_bidi_lstm_fwd): replaces the TPU
 //   kernel clstm_tpu/ops/pallas_lstm.py::_fwd_kernel with emit_state=False,
@@ -19,8 +19,8 @@
 // bidi_lstm_fwd_state_plain (K1), bidi_lstm_apply_xz and
 // bidi_lstm_fwd_state_xz_plain (K4):
 //
-//   x [B,T,D] f32, lengths [B] int32 (or NULL: all T), fused weights per
-//   direction Wx [D,4H], Wh [H,4H], b [4H], gate order (gi, gf, go, ci)
+//   x [B,T,D] f32, lengths [B] int32 (or NULL: all T), per direction the
+//   fused weights Wx [D,4H], Wh [H,4H], b [4H], gate order (gi, gf, go, ci)
 //   -> y [B,T,2H] f32, forward half then reverse half.
 //   z = [x_t | 1]·[Wx; b] + h·Wh; gi, gf, go sigmoid; ci tanh;
 //   c' = gf·c + gi·ci; h' = tanh(c')·go.
@@ -34,248 +34,551 @@
 //   direction, gates [B,T,2,4H] (the activated gi, gf, go, ci of each step)
 //   and cell [B,T,2,H] (c after the step), both exactly 0 on frames
 //   t >= len. K2 takes h_prev and c_prev from y and cell at the frame before
-//   in chain order. Storing the activated gates (0.84 GB at B=256, T=1024,
-//   H=100) spares K2 a second serial [x|1|h]·W product per step: on this
-//   card the chain is bound by serial per-thread work, not by bytes (80 GB
-//   of memory, ~3.35 TB/s).
+//   in chain order. Storing the gates spares K2 a second serial [x|1|h]·W
+//   product per step.
 //
-// What bounds it: a serial chain of T steps per direction, each a
-// [rows,D+1+H] x [D+1+H,4H] product followed by the gate math. At the
-// serving shape (D=48, H=100) that is ~0.5 MFLOP per row tile per step:
-// latency, not bytes or FLOPs, is the limit. A thread's serial work per step
-// is ROWS·(D+1+H) multiply-adds; at the bidi2 net's second layer (D=400,
-// H=200) that is 2,404, of which K4 keeps the ROWS·H = 800 of h·Wh and
-// replaces the rest by ROWS coalesced loads of xz (1.68 GB per pass at
-// B=256, T=1024, H=200, read once).
+// The weights come interleaved by unit: wh [2][H][H][4] (row k, unit u,
+// gate g: Wh[k, g·H + u]) and, without HOIST, wx [2][D+1][H][4] (the rows
+// of Wx, then b), so that one float4 holds a unit's four gate columns.
 //
-// Design (simple first; bf16 operands, mma/wgmma on the recurrent product
-// and shared-memory staging of Wh are left for later work):
-//   grid = (ceil(B / ROWS) row tiles, 2 directions); one block walks its
-//   tile's time chain in a loop. h, c, x_t and z for the tile live in
-//   shared memory. Phase 1: one thread per gate column j < 4H computes
-//   z[r, j] for the tile's ROWS rows, reading Wx and Wh column-wise from
-//   global memory (coalesced across j; 2·(D+1+H)·4H·4 B ≈ 477 KB for both
-//   directions, resident in L2) — each weight read is reused ROWS times.
-//   Without HOIST the input projection is computed here, inside the
-//   kernel, as _fill_xz_split does on the TPU; with HOIST the thread starts
-//   its sums from xz[b, t, dir, j] instead (no x_t staging; in state mode
-//   loaded one step ahead into registers, see below). Phase 2: one
-//   thread per (row, unit) applies the gates, updates c and h, writes y,
-//   and loads the next step's x_t. Two barriers per step.
+// What bounds it. A serial chain of T steps per direction; each step is a
+// [rows, D+1+H] x [D+1+H, 4H] product, then the gate math. The earlier
+// design (one block of 4 rows per SM, a thread per gate column) read the
+// weights from L2 at every step, each load feeding 4 FMAs: ~6 TB/s of L2
+// reads at H=200 and a step of 15-17 us, where its FMAs take ~3-4 us per
+// SM. Now the weights stay in shared memory and the step is bound by the
+// issue of its FMAs and shared loads on a few warps per SM, and by the
+// cluster barrier that hands h on (PERF.md §6).
+//
+// Design: weights resident in shared memory across a thread-block cluster.
+//   - One direction's chain for a group of R rows runs on a cluster of C
+//     CTAs, one per SM. CTA c owns U consecutive units with all four of
+//     their gate columns, so its gate math, c and stores stay local. It
+//     loads its slice of Wh [H, 4U] (and [Wx; b] [D+1, 4U]) into shared
+//     memory once, before the chain: each weight read there then feeds R
+//     rows. The FMA work per SM and step is R·(D+1+H)·4U, the same as 4
+//     rows of all 4H columns when R = 4C.
+//   - Register tiles: a tile is one unit's 4 gates for 4 rows; h is read
+//     as a float4 across rows and the weights as a float4 across gates, so
+//     two shared loads feed 16 FMAs. Two threads share a tile, the two
+//     halves of a warp: each sums half of the k (and d) range, the halves
+//     meet by one shuffle, and each then does the gate math and stores of
+//     two of the rows. That doubles the warps per SM, which the step's
+//     latency needs (one tile per thread left most schedulers one warp,
+//     stalled on every shared load). Sums run in a fixed order: two calls
+//     give bitwise equal results.
+//   - h of every row must reach every CTA at every step: each thread writes
+//     its new h into the h buffer of every CTA of the cluster through
+//     distributed shared memory (mapa + st.shared::cluster). The buffer is
+//     double-buffered by step parity, so one cluster barrier per step
+//     suffices. It is split (barrier.cluster.arrive.release / wait.acquire)
+//     and the rest of the step runs between the two: the y, gates and cell
+//     stores (after the arrive, so that its release does not wait for
+//     them; where they sit decides what they cost), then the next step's
+//     input work: x_{s+1}·[Wx; b] for the tile (K1, K3; x staged into a
+//     three-slot ring by cp.async two steps ahead) or the loads of the next
+//     step's xz into registers (K4), added after the h·Wh product so that
+//     their latency hides behind it.
+//   - The plan (C, R, U, which weights are resident: WRES) is chosen on
+//     the host (ops/bidi_lstm_kernel.py::fwd_plan): the smallest C in {1,
+//     2, 4, 8} whose slice fits (WRES 1), or, where [Wx; b] is at most a
+//     quarter of Wh, whose Wh slice fits with [Wx; b] read from L2 (WRES
+//     2: bidi2's first layer); R so that the clusters fill the card in one
+//     wave (clstm_bidi_lstm_fwd_clusters asks
+//     cudaOccupancyMaxActiveClusters). Where no C holds the slice (H of
+//     several hundred with a wide input, H = 700, 2048), the same kernel
+//     reads it from L2 (WRES 0): R rows still share each weight load.
+//   Tried and not kept (slower in turns on the card): handing h on by
+//   st.async with an mbarrier per slot instead of the cluster barrier;
+//   loading the operands of the next k pair by hand ahead of the FMAs;
+//   sigmoid and tanh through e^-|v| with every divisor in (1, 2]; tiles
+//   ordered row group first (lanes share weight loads, but the stores and
+//   xz loads scatter); tiles of 8 rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int ROWS = 4;
+constexpr int RT = 4;             // rows of a register tile
+constexpr int RH = RT / 2;        // rows of each half of a tile
+constexpr int FWD_THREADS = 512;  // most threads a CTA may have
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a CTA may use
 
+// 1 / (1 + e^-v), with e^-v held below 2^116: where v < -80 the divisor
+// would otherwise overflow or leave the range of the division's fast path,
+// and the slow path costs every thread of the warp (saturated gates of a
+// trained net). Below -80 the result, < 2e-35, is that of -80.
 __device__ __forceinline__ float sigmoid_f32(float v) {
-  return 1.0f / (1.0f + expf(-v));
+  return 1.0f / (1.0f + expf(fminf(-v, 80.0f)));
 }
 
-// Load x_t for every row of the tile at chain step s into xs [ROWS, D]
-// (zeros for rows whose chain has ended).
-__device__ __forceinline__ void load_x(float* xs, const float* __restrict__ x,
-                                       const int* lens, int b0, int s, int T,
-                                       int D, int dir) {
-  for (int i = threadIdx.x; i < ROWS * D; i += blockDim.x) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int L = lens[r];
-    float v = 0.0f;
-    if (s < L) {
-      const int t = dir == 0 ? s : L - 1 - s;
-      v = x[((size_t)(b0 + r) * T + t) * D + d];
-    }
-    xs[i] = v;
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// xz of column j at chain step s for every row of the tile (zeros for rows
-// whose chain has ended, and for j >= G).
-__device__ __forceinline__ void load_xz_col(float (&v)[ROWS],
-                                            const float* __restrict__ xz,
-                                            const int* lens, int b0, int s,
-                                            int T, int G, int dir, int j) {
+// 16 bytes global -> shared.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+// 4 bytes global -> shared; zero-filled when !valid (src is not read).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// v into CTA `rank`'s copy of `local` (2 floats, 8-byte aligned).
+__device__ __forceinline__ void st_cluster2(const float* local, uint32_t rank,
+                                            float2 v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(local)), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(remote),
+               "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc[i][g] += a[i] · w[g] for the 4 rows i and 4 gates g.
+__device__ __forceinline__ void fma16(float (&acc)[RT][4], float4 a,
+                                      float4 w) {
+  const float av[RT] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int L = lens[r];
-    v[r] = 0.0f;
-    if (j < G && s < L) {
-      const int t = dir == 0 ? s : L - 1 - s;
-      v[r] = xz[(((size_t)(b0 + r) * T + t) * 2 + dir) * G + j];
-    }
+  for (int i = 0; i < RT; ++i) {
+    acc[i][0] = fmaf(av[i], w.x, acc[i][0]);
+    acc[i][1] = fmaf(av[i], w.y, acc[i][1]);
+    acc[i][2] = fmaf(av[i], w.z, acc[i][2]);
+    acc[i][3] = fmaf(av[i], w.w, acc[i][3]);
   }
 }
 
-// x is xz [B,T,2,4H] when HOIST (wx and bias unused), else x [B,T,D].
-template <bool EMIT, bool HOIST>
-__global__ void bidi_lstm_fwd_kernel(const float* __restrict__ x,
-                                     const int32_t* __restrict__ lengths,
-                                     const float* __restrict__ wx,
-                                     const float* __restrict__ wh,
-                                     const float* __restrict__ bias,
-                                     float* __restrict__ y,
-                                     float* __restrict__ gates,
-                                     float* __restrict__ cell, int B, int T,
-                                     int D, int H) {
-  extern __shared__ float smem[];
-  __shared__ int lens[ROWS];
-  const int G = 4 * H;
-  float* xs = smem;            // [ROWS, D] (empty when HOIST)
-  float* hs = xs + (HOIST ? 0 : ROWS * D);   // [ROWS, H]
-  float* cs = hs + ROWS * H;   // [ROWS, H]
-  float* zs = cs + ROWS * H;   // [ROWS, 4H]
-
-  const int dir = blockIdx.y;
-  const int b0 = blockIdx.x * ROWS;
-  if (!HOIST) {
-    wx += (size_t)dir * D * G;
-    bias += (size_t)dir * G;
+// acc += Σ_{j<n} a_j ⊗ w_j for j ascending, a_j = the float4 at a + j·as
+// (4 rows), w_j at w + j·ws (4 gates). Unrolled deeper for [Wx; b] read
+// from L2, so that more of its loads are in flight.
+template <bool W_L2>
+__device__ __forceinline__ void dot_rows(float (&acc)[RT][4],
+                                         const float* a, size_t as,
+                                         const float* w, size_t ws, int n) {
+  if constexpr (W_L2) {
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) fma16(acc, ld4(a + j * as), ld4(w + j * ws));
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) fma16(acc, ld4(a + j * as), ld4(w + j * ws));
   }
-  wh += (size_t)dir * H * G;
+}
 
-  if (threadIdx.x < ROWS) {
-    const int b = b0 + threadIdx.x;
+// acc[i][g] += acc of lane ^ 16 (the tile's other half of the sum). Both
+// halves get the same bits: a + b == b + a in IEEE arithmetic.
+__device__ __forceinline__ void sum_halves(float (&acc)[RT][4]) {
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      acc[i][g] += __shfl_xor_sync(0xffffffffu, acc[i][g], 16);
+}
+
+// Floats of dynamic shared memory: the resident weights [H (+ D+1 where
+// wres is 1)][U][4], h [2][H][R], the x ring [3][D][R] (without HOIST) and
+// the R lengths. ops/bidi_lstm_kernel.py::fwd_smem computes the same.
+size_t smem_floats(int D, int H, int R, int U, bool hoist, int wres) {
+  return (wres == 0 ? 0
+                    : (size_t)(H + (hoist || wres == 2 ? 0 : D + 1)) * 4 * U) +
+         2 * (size_t)H * R + (hoist ? 0 : 3 * (size_t)R * D) + R;
+}
+
+// Two threads per tile (a unit's 4 gates for 4 rows), in the two halves of
+// a warp.
+int fwd_threads(int R, int U) {
+  const int tiles = U * (R / RT);
+  return (tiles + 15) / 16 * 32;
+}
+
+// x is xz [B,T,2,4H] when HOIST (wx unused), else x [B,T,D].
+template <bool EMIT, bool HOIST, int WRES>
+__global__ void __launch_bounds__(FWD_THREADS)
+    bidi_lstm_fwd_kernel(const float* __restrict__ x,
+                         const int32_t* __restrict__ lengths,
+                         const float* __restrict__ wx,
+                         const float* __restrict__ wh,
+                         float* __restrict__ y, float* __restrict__ gates,
+                         float* __restrict__ cell, int B, int T, int D, int H,
+                         int R, int U) {
+  extern __shared__ __align__(16) float smem[];
+  const int C = (int)cluster_size();
+  const int crank = (int)cluster_rank();
+  const int dir = blockIdx.y;
+  const int b0 = (blockIdx.x / C) * R;
+  const int k0 = crank * U;
+  const int nu = max(0, min(U, H - k0));  // units this CTA owns
+  const int G = 4 * H;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int KX = HOIST ? 0 : D + 1;
+  float* whs = smem;                                         // [H][U][4]
+  // Resident: WRES 1 the whole slice, 2 Wh's only ([Wx; b] from L2).
+  constexpr bool WHS = WRES != 0, WXS = WRES == 1 && !HOIST;
+  float* wxs = whs + (WHS ? (size_t)H * 4 * U : 0);          // [D+1][U][4]
+  float* hbuf = wxs + (WXS ? (size_t)KX * 4 * U : 0);        // [2][H][R]
+  float* xs = hbuf + 2 * (size_t)H * R;                      // [3][D][R]
+  int* lens = reinterpret_cast<int*>(xs + (HOIST ? 0 : 3 * (size_t)R * D));
+  wh += (size_t)dir * H * G;
+  if (!HOIST) wx += (size_t)dir * KX * G;
+
+  // The thread's tile: unit k0 + ul, rows rb .. rb+3 of the group. Two
+  // threads share it, the two halves of a warp (lanes l and l ^ 16): half
+  // hf sums k in [j0, j1) and d in [d0, d1), the halves' sums meet by one
+  // shuffle, and each half then takes two of the rows, r0 and r0 + 1, for
+  // the gate math, the state and the stores.
+  const int lane = tid & 31, hf = lane >> 4;
+  const int tile = (tid >> 5) * 16 + (lane & 15);
+  const int ul = tile % U, rb = (tile / U) * RT;
+  const bool comp = tile < U * (R / RT) && ul < nu;
+  const int k = k0 + ul;
+  const int hh = (H + 1) / 2, j0 = hf ? hh : 0, j1 = hf ? H : hh;
+  const int dh = (D + 1) / 2, d0 = hf ? dh : 0, d1 = hf ? D : dh;
+  const int r0 = rb + RH * hf;
+
+  for (int r = tid; r < R; r += nt) {
+    const int b = b0 + r;
     int L = 0;
     if (b < B) L = lengths ? lengths[b] : T;
-    lens[threadIdx.x] = min(max(L, 0), T);
-  }
-  for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x) {
-    hs[i] = 0.0f;
-    cs[i] = 0.0f;
+    lens[r] = min(max(L, 0), T);
   }
   __syncthreads();
   int lmax = 0;
-  for (int r = 0; r < ROWS; ++r) lmax = max(lmax, lens[r]);
+  for (int r = 0; r < R; ++r) lmax = max(lmax, lens[r]);
+  int L[RH];
+#pragma unroll
+  for (int i = 0; i < RH; ++i) L[i] = comp ? lens[r0 + i] : 0;
 
-  // Frames t >= len are padding in both halves: exact zeros.
-  for (int r = 0; r < ROWS && b0 + r < B; ++r) {
-    const int L = lens[r];
-    for (int i = threadIdx.x; i < (T - L) * H; i += blockDim.x) {
-      const int t = L + i / H;
-      const int k = i - (t - L) * H;
-      y[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + k] = 0.0f;
+  // The CTA's weight slice: row j of it is 4·nu contiguous floats.
+  if (WHS) {
+    for (int i = tid; i < H * nu; i += nt) {
+      const int j = i / nu, u = i - j * nu;
+      cp_async16(whs + ((size_t)j * U + u) * 4,
+                 wh + ((size_t)j * H + k0 + u) * 4);
+    }
+    if (WXS)
+      for (int i = tid; i < KX * nu; i += nt) {
+        const int j = i / nu, u = i - j * nu;
+        cp_async16(wxs + ((size_t)j * U + u) * 4,
+                   wx + ((size_t)j * H + k0 + u) * 4);
+      }
+  }
+  // x of chain step s for the R rows into ring slot s % 3, as [D][R].
+  auto stage_x = [&](int s) {
+    float* dst = xs + (size_t)(s % 3) * D * R;
+    for (int i = tid; i < R * D; i += nt) {
+      const int r = i / D, d = i - r * D;
+      const int Lr = lens[r];
+      const bool valid = s < Lr;
+      const int t = dir == 0 ? s : Lr - 1 - s;
+      cp_async4(dst + (size_t)d * R + r,
+                valid ? x + ((size_t)(b0 + r) * T + t) * D + d : x, valid);
+    }
+  };
+  if (!HOIST) {
+    if (lmax > 0) stage_x(0);
+    if (lmax > 1) stage_x(1);
+  }
+  cp_async_commit();
+  for (int i = tid; i < H * R; i += nt) hbuf[i] = 0.0f;  // h_0, slot 0
+
+  // Frames t >= len are padding in both halves: exact zeros (this CTA's
+  // units).
+  for (int r = 0; r < R && b0 + r < B; ++r) {
+    const int Lr = lens[r];
+    for (int i = tid; i < (T - Lr) * nu; i += nt) {
+      const int t = Lr + i / nu;
+      const int kk = k0 + i % nu;
+      y[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + kk] = 0.0f;
       if (EMIT) {
         const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
-        cell[f * H + k] = 0.0f;
-        for (int g = 0; g < 4; ++g) gates[f * G + g * H + k] = 0.0f;
+        cell[f * H + kk] = 0.0f;
+        for (int g = 0; g < 4; ++g) gates[f * G + g * H + kk] = 0.0f;
       }
     }
   }
+  cp_async_wait_all();
+  // Every CTA of the cluster has started and initialised its buffers
+  // before any h crosses to it.
+  cluster_arrive();
+  cluster_wait();
 
-  // K4's state mode: xz of the thread's first column, loaded one step
-  // ahead at the start of phase 2, before that phase's five stores a
-  // thread; loaded at the head of the chain, behind them, it waited for
-  // them (20.5 against 14.0 ms at B=256, T=1024, H=200 on the card). K4's
-  // inference mode loads it at the head of the chain, which measured
-  // faster there (13.9 against 15.1 ms): PERF.md §6.
-  [[maybe_unused]] float nxt[ROWS];
-  if constexpr (HOIST && EMIT)
-    load_xz_col(nxt, x, lens, b0, 0, T, G, dir, threadIdx.x);
-  if constexpr (!HOIST) load_x(xs, x, lens, b0, 0, T, D, dir);
-  __syncthreads();
-  for (int s = 0; s < lmax; ++s) {
-    // Phase 1: gate pre-activations z [ROWS, 4H].
-    for (int j = threadIdx.x; j < G; j += blockDim.x) {
-      float acc[ROWS];
-      if constexpr (HOIST) {
-        if (EMIT && j == (int)threadIdx.x) {
+  const size_t whstride = WHS ? 4 * (size_t)U : 4 * (size_t)H;
+  const size_t wxstride = WXS ? 4 * (size_t)U : 4 * (size_t)H;
+  const float* whk = WHS ? whs + 4 * ul : wh + 4 * (size_t)k;
+  const float* wxk =
+      HOIST ? nullptr : (WXS ? wxs + 4 * ul : wx + 4 * (size_t)k);
+
+  float acc[RT][4], c[RH], h[RH], gt[RH][4];
+  [[maybe_unused]] float nxt[RH][4];
 #pragma unroll
-          for (int r = 0; r < ROWS; ++r) acc[r] = nxt[r];
-        } else {
-          load_xz_col(acc, x, lens, b0, s, T, G, dir, j);
-        }
-      } else {
-        const float bj = bias[j];
+  for (int i = 0; i < RT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] = bj;
-        for (int d = 0; d < D; ++d) {
-          const float w = wx[(size_t)d * G + j];
+  for (int i = 0; i < RH; ++i) c[i] = h[i] = 0.0f;
+
+  // acc = the half's share of [x_s | 1]·[Wx; b] for the tile (K1, K3):
+  // the bias in half 0, d in [d0, d1).
+  auto x_part = [&](int s) {
+    const float* xr = xs + (size_t)(s % 3) * D * R + rb;
+    const float4 bv = hf ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                         : ld4(wxk + (size_t)D * wxstride);
 #pragma unroll
-          for (int r = 0; r < ROWS; ++r)
-            acc[r] = fmaf(xs[r * D + d], w, acc[r]);
-        }
-      }
-      for (int k = 0; k < H; ++k) {
-        const float w = wh[(size_t)k * G + j];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) zs[r * G + j] = acc[r];
+    for (int i = 0; i < RT; ++i) {
+      acc[i][0] = bv.x;
+      acc[i][1] = bv.y;
+      acc[i][2] = bv.z;
+      acc[i][3] = bv.w;
     }
-    __syncthreads();
-    // Phase 2: cell update and output; then stage the next step's input.
-    if constexpr (HOIST && EMIT) {
-      if (s + 1 < lmax)
-        load_xz_col(nxt, x, lens, b0, s + 1, T, G, dir, threadIdx.x);
-    }
-    for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x) {
-      const int r = i / H;
-      const int k = i - r * H;
-      const int L = lens[r];
-      if (s < L) {
-        const float* z = zs + r * G;
-        const float gi = sigmoid_f32(z[k]);
-        const float gf = sigmoid_f32(z[H + k]);
-        const float go = sigmoid_f32(z[2 * H + k]);
-        const float ci = tanhf(z[3 * H + k]);
-        const float c = gf * cs[i] + gi * ci;
-        const float h = tanhf(c) * go;
-        cs[i] = c;
-        hs[i] = h;
-        const int t = dir == 0 ? s : L - 1 - s;
-        y[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + k] = h;
-        if (EMIT) {
-          const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
-          gates[f * G + k] = gi;
-          gates[f * G + H + k] = gf;
-          gates[f * G + 2 * H + k] = go;
-          gates[f * G + 3 * H + k] = ci;
-          cell[f * H + k] = c;
-        }
+    dot_rows<!WXS>(acc, xr + (size_t)d0 * R, R,
+                   wxk + (size_t)d0 * wxstride, wxstride, d1 - d0);
+  };
+  // xz of chain step s for the thread's unit and rows (K4).
+  auto load_xz = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < RH; ++i) {
+      nxt[i][0] = nxt[i][1] = nxt[i][2] = nxt[i][3] = 0.0f;
+      if (s < L[i]) {
+        const int t = dir == 0 ? s : L[i] - 1 - s;
+        const float* src =
+            x + (((size_t)(b0 + r0 + i) * T + t) * 2 + dir) * G + k;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) nxt[i][g] = __ldg(src + (size_t)g * H);
       }
     }
-    if (!HOIST && s + 1 < lmax) load_x(xs, x, lens, b0, s + 1, T, D, dir);
-    __syncthreads();
+  };
+
+  if (comp && lmax > 0) {
+    if constexpr (HOIST)
+      load_xz(0);
+    else
+      x_part(0);
   }
+  for (int s = 0; s < lmax; ++s) {
+    if (s > 0) cluster_wait();  // h_s and x_{s+1} are in place
+    if (!HOIST && s + 2 < lmax) stage_x(s + 2);
+    cp_async_commit();
+    if (comp) {
+      if constexpr (HOIST) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+          acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+      }
+      const float* hs = hbuf + (size_t)(s & 1) * H * R + rb;
+      dot_rows<false>(acc, hs + (size_t)j0 * R, R,
+                      whk + (size_t)j0 * whstride, whstride, j1 - j0);
+    }
+    sum_halves(acc);  // warp-uniform: every lane takes part
+    if (comp) {
+      // The gate math of the half's rows without branches, so that their
+      // transcendentals interleave; a row whose chain has ended keeps its
+      // state.
+#pragma unroll
+      for (int i = 0; i < RH; ++i) {
+        float z[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          z[g] = hf ? acc[RH + i][g] : acc[i][g];
+          if constexpr (HOIST) z[g] += nxt[i][g];
+        }
+        gt[i][0] = sigmoid_f32(z[0]);
+        gt[i][1] = sigmoid_f32(z[1]);
+        gt[i][2] = sigmoid_f32(z[2]);
+        gt[i][3] = tanhf(z[3]);
+        const float cn = gt[i][1] * c[i] + gt[i][0] * gt[i][3];
+        const float hn = tanhf(cn) * gt[i][2];
+        const bool on = s < L[i];
+        c[i] = on ? cn : c[i];
+        h[i] = on ? hn : h[i];
+      }
+      if (s + 1 < lmax) {
+        const float* dst = hbuf + (size_t)((s + 1) & 1) * H * R +
+                           (size_t)k * R + r0;
+        for (int q = 0; q < C; ++q)
+          st_cluster2(dst, (uint32_t)q, make_float2(h[0], h[1]));
+      }
+    }
+    if (s + 1 < lmax) {
+      cp_async_wait_all();
+      cluster_arrive();
+    }
+    // While the other CTAs reach the barrier: the outputs (stored after
+    // the arrive, whose release would otherwise wait for them), then the
+    // next step's input work.
+    if (comp) {
+#pragma unroll
+      for (int i = 0; i < RH; ++i) {
+        if (s < L[i]) {
+          const int b = b0 + r0 + i;
+          const int t = dir == 0 ? s : L[i] - 1 - s;
+          y[((size_t)b * T + t) * 2 * H + dir * H + k] = h[i];
+          if (EMIT) {
+            const size_t f = ((size_t)b * T + t) * 2 + dir;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) gates[f * G + g * H + k] = gt[i][g];
+            cell[f * H + k] = c[i];
+          }
+        }
+      }
+      if (s + 1 < lmax) {
+        if constexpr (HOIST)
+          load_xz(s + 1);
+        else
+          x_part(s + 1);
+      }
+    }
+  }
+  // No CTA leaves while another may still address its shared memory.
+  cluster_arrive();
+  cluster_wait();
+}
+
+struct Plan {
+  int C, R, U;
+  int wres;
+  int threads;
+  size_t smem;
+};
+
+// The plan the caller passed, checked: C in {1, 2, 4, 8} with every CTA
+// owning at least one unit and all of them together every unit, R a
+// positive multiple of 4, wres 0 (weights from L2),
+// 1 (resident) or 2 (Wh resident, [Wx; b] from L2), the threads and shared
+// memory within a CTA's.
+bool make_plan(Plan& p, int D, int H, bool hoist, int C, int R, int U,
+               int wres) {
+  if (!(C == 1 || C == 2 || C == 4 || C == 8) || R < RT || R % RT != 0 ||
+      U < 1 || (long long)C * U < H ||
+      (long long)(C - 1) * U >= H || wres < 0 || wres > 2)
+    return false;
+  p.C = C;
+  p.R = R;
+  p.U = U;
+  p.wres = wres;
+  p.threads = fwd_threads(R, U);
+  p.smem = smem_floats(D, H, R, U, hoist, wres) * sizeof(float);
+  return p.threads <= FWD_THREADS && p.smem <= (size_t)SMEM_MAX;
+}
+
+// A launch configuration of the plan: grid (C · row groups, 2 directions),
+// clusters of C CTAs along x.
+struct Config {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  Config(const Plan& p, unsigned gridx, cudaStream_t st) : cfg() {
+    cfg.gridDim = dim3(gridx, 2, 1);
+    cfg.blockDim = dim3((unsigned)p.threads, 1, 1);
+    cfg.dynamicSmemBytes = p.smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)p.C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+using Kernel = void (*)(const float*, const int32_t*, const float*,
+                        const float*, float*, float*, float*, int, int, int,
+                        int, int, int);
+
+// The kernel instance of the plan, with its shared-memory limit set.
+template <bool EMIT, bool HOIST>
+cudaError_t kernel_of(const Plan& p, Kernel* kern) {
+  static const Kernel table[3] = {bidi_lstm_fwd_kernel<EMIT, HOIST, 0>,
+                                  bidi_lstm_fwd_kernel<EMIT, HOIST, 1>,
+                                  bidi_lstm_fwd_kernel<EMIT, HOIST, 2>};
+  *kern = table[p.wres];
+  return cudaFuncSetAttribute(*kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)p.smem);
 }
 
 template <bool EMIT, bool HOIST>
 int launch(const float* x, const int32_t* lengths, const float* wx,
-           const float* wh, const float* b, float* y, float* gates,
-           float* cell, int B, int T, int D, int H, void* stream) {
-  const size_t smem =
-      (size_t)ROWS * ((HOIST ? 0 : D) + 6 * H) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bidi_lstm_fwd_kernel<EMIT, HOIST>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int threads = ((4 * H + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const dim3 grid((B + ROWS - 1) / ROWS, 2);
-  bidi_lstm_fwd_kernel<EMIT, HOIST>
-      <<<grid, threads, smem, (cudaStream_t)stream>>>(
-          x, lengths, wx, wh, b, y, gates, cell, B, T, D, H);
+           const float* wh, float* y, float* gates, float* cell, int B, int T,
+           int D, int H, int C, int R, int U, int wres, void* stream) {
+  Plan p;
+  if (B < 1 || T < 1 || H < 1 || (!HOIST && D < 1) ||
+      !make_plan(p, D, H, HOIST, C, R, U, wres))
+    return (int)cudaErrorInvalidValue;
+  Kernel kern;
+  cudaError_t e = kernel_of<EMIT, HOIST>(p, &kern);
+  if (e != cudaSuccess) return (int)e;
+  Config c(p, (unsigned)(p.C * ((B + p.R - 1) / p.R)), (cudaStream_t)stream);
+  e = cudaLaunchKernelEx(&c.cfg, kern, x, lengths, wx, wh, y, gates, cell, B,
+                         T, D, H, p.R, p.U);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <bool EMIT, bool HOIST>
+int active_clusters(const Plan& p) {
+  Kernel kern;
+  cudaError_t e = kernel_of<EMIT, HOIST>(p, &kern);
+  if (e != cudaSuccess) return -(int)e;
+  Config c(p, (unsigned)p.C, nullptr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kern, &c.cfg);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success). All
-// pointers are device pointers; `lengths` may be NULL. wx, wh, b hold the
-// forward direction's weights followed by the reverse direction's:
-// wx [2,D,4H], wh [2,H,4H], b [2,4H]. B, T, D, H >= 1.
+// Each launching entry runs on `stream` and returns cudaGetLastError() (0
+// on success). All pointers are device pointers, the weights 16-byte
+// aligned; `lengths` may be NULL. The plan (C CTAs per cluster, R rows per
+// cluster, U units per CTA, wres: 1 the weights resident in shared memory,
+// 2 only Wh, 0 none) comes from ops/bidi_lstm_kernel.py::fwd_plan; a
+// plan the kernel cannot take returns cudaErrorInvalidValue. wx [2,D+1,H,4]
+// holds Wx's rows then b, wh [2,H,H,4] Wh, both interleaved by unit (see
+// the note above), the forward direction's first. B, T, D, H >= 1.
 extern "C" int clstm_bidi_lstm_fwd(const float* x, const int32_t* lengths,
-                                   const float* wx, const float* wh,
-                                   const float* b, float* y, int B, int T,
-                                   int D, int H, void* stream) {
-  return launch<false, false>(x, lengths, wx, wh, b, y, nullptr, nullptr, B,
-                              T, D, H, stream);
+                                   const float* wx, const float* wh, float* y,
+                                   int B, int T, int D, int H, int C, int R,
+                                   int U, int wres, void* stream) {
+  return launch<false, false>(x, lengths, wx, wh, y, nullptr, nullptr, B, T,
+                              D, H, C, R, U, wres, stream);
 }
 
 // K1: as clstm_bidi_lstm_fwd, and also writes gates [B,T,2,4H] and
@@ -283,20 +586,22 @@ extern "C" int clstm_bidi_lstm_fwd(const float* x, const int32_t* lengths,
 extern "C" int clstm_bidi_lstm_fwd_state(const float* x,
                                          const int32_t* lengths,
                                          const float* wx, const float* wh,
-                                         const float* b, float* y,
-                                         float* gates, float* cell, int B,
-                                         int T, int D, int H, void* stream) {
-  return launch<true, false>(x, lengths, wx, wh, b, y, gates, cell, B, T, D,
-                             H, stream);
+                                         float* y, float* gates, float* cell,
+                                         int B, int T, int D, int H, int C,
+                                         int R, int U, int wres,
+                                         void* stream) {
+  return launch<true, false>(x, lengths, wx, wh, y, gates, cell, B, T, D, H,
+                             C, R, U, wres, stream);
 }
 
 // K4, inference: y [B,T,2H] from the hoisted projection xz [B,T,2,4H] and
-// wh [2,H,4H]. B, T, H >= 1.
+// wh [2,H,H,4].
 extern "C" int clstm_bidi_lstm_fwd_xz(const float* xz, const int32_t* lengths,
                                       const float* wh, float* y, int B, int T,
-                                      int H, void* stream) {
-  return launch<false, true>(xz, lengths, nullptr, wh, nullptr, y, nullptr,
-                             nullptr, B, T, 0, H, stream);
+                                      int H, int C, int R, int U, int wres,
+                                      void* stream) {
+  return launch<false, true>(xz, lengths, nullptr, wh, y, nullptr, nullptr, B,
+                             T, 0, H, C, R, U, wres, stream);
 }
 
 // K4, state mode: as clstm_bidi_lstm_fwd_xz, and also writes gates
@@ -305,7 +610,32 @@ extern "C" int clstm_bidi_lstm_fwd_xz_state(const float* xz,
                                             const int32_t* lengths,
                                             const float* wh, float* y,
                                             float* gates, float* cell, int B,
-                                            int T, int H, void* stream) {
-  return launch<true, true>(xz, lengths, nullptr, wh, nullptr, y, gates,
-                            cell, B, T, 0, H, stream);
+                                            int T, int H, int C, int R, int U,
+                                            int wres, void* stream) {
+  return launch<true, true>(xz, lengths, nullptr, wh, y, gates, cell, B, T, 0,
+                            H, C, R, U, wres, stream);
+}
+
+// Bytes of dynamic shared memory a CTA of the plan takes (0: the plan is
+// not one the kernel takes).
+extern "C" long long clstm_bidi_lstm_fwd_smem(int D, int H, int hoist, int C,
+                                              int R, int U, int wres) {
+  Plan p;
+  return make_plan(p, D, H, hoist != 0, C, R, U, wres) ? (long long)p.smem
+                                                         : 0;
+}
+
+// Clusters of the plan that can be resident on the current device at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+extern "C" int clstm_bidi_lstm_fwd_clusters(int D, int H, int hoist, int emit,
+                                            int C, int R, int U,
+                                            int wres) {
+  Plan p;
+  if (!make_plan(p, D, H, hoist != 0, C, R, U, wres))
+    return -(int)cudaErrorInvalidValue;
+  if (hoist)
+    return emit ? active_clusters<true, true>(p)
+                : active_clusters<false, true>(p);
+  return emit ? active_clusters<true, false>(p)
+              : active_clusters<false, false>(p);
 }

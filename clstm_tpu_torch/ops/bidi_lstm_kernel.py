@@ -11,6 +11,8 @@
                         K4, the same TPU kernel with proj_in=True, in both
                         modes: the recurrence on the hoisted projection
                         (ops/lstm.py::hoisted_projection);
+  fwd_plan              how those four split a layer over thread-block
+                        clusters (device_plan: on this card);
   bidi_lstm_bwd_chain   K2's backward chain, replaces pallas_lstm.py::
                         _bwd_kernel (L391-430);
   bidi_lstm_bwd_reduce  K2's contractions dW, dWh and dx (the TPU kernel's
@@ -28,7 +30,7 @@ tensors it launches its kernel or raises, and never falls back.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,17 +42,19 @@ from clstm_tpu_torch.ops.lstm import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers, ints, stream); all return int.
 _SIGNATURES = {
-    "clstm_bidi_lstm_fwd": [_P] * 6 + [_I] * 4 + [_P],
-    "clstm_bidi_lstm_fwd_state": [_P] * 8 + [_I] * 4 + [_P],
-    "clstm_bidi_lstm_fwd_xz": [_P] * 4 + [_I] * 3 + [_P],
-    "clstm_bidi_lstm_fwd_xz_state": [_P] * 6 + [_I] * 3 + [_P],
+    "clstm_bidi_lstm_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    "clstm_bidi_lstm_fwd_state": [_P] * 7 + [_I] * 8 + [_P],
+    "clstm_bidi_lstm_fwd_xz": [_P] * 4 + [_I] * 7 + [_P],
+    "clstm_bidi_lstm_fwd_xz_state": [_P] * 6 + [_I] * 7 + [_P],
+    "clstm_bidi_lstm_fwd_smem": [_I] * 7,
+    "clstm_bidi_lstm_fwd_clusters": [_I] * 8,
     "clstm_bidi_lstm_bwd_hp": [_I],
     "clstm_bidi_lstm_bwd_chain": [_P] * 6 + [_I] * 3 + [_P],
     "clstm_bidi_lstm_bwd_scratch": [_I] * 4,
     "clstm_bidi_lstm_bwd_reduce": [_P] * 7 + [_I] * 4 + [_P],
 }
 # Entry points that return a 64-bit count instead of a CUDA error.
-_LONG = {"clstm_bidi_lstm_bwd_scratch"}
+_LONG = {"clstm_bidi_lstm_bwd_scratch", "clstm_bidi_lstm_fwd_smem"}
 _fns: dict = {}
 
 
@@ -169,6 +173,208 @@ def hoists_projection(D: int, H: int) -> bool:
     return D + 1 > -(-H // 128) * 128
 
 
+# The forward kernel's limits (csrc/bidi_lstm_fwd.cu): rows of a register
+# tile (a cluster's rows are a multiple of them), threads and dynamic
+# shared memory per CTA, cluster sizes (the portable ones), and the most
+# rows one cluster takes.
+FWD_RT = 4
+FWD_THREADS = 512
+SMEM_MAX = 232_448
+CLUSTER_SIZES = (1, 2, 4, 8)
+FWD_ROWS_MAX = 64
+# Rows of a cluster past which the L2 plan prefers fewer CTAs per cluster
+# to more rows.
+FWD_L2_ROWS = 16
+# Clusters of C CTAs, one CTA per SM, that an H100 SXM holds at once
+# (cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3: the GPCs,
+# not the 132 SMs, set them). fwd_plan's default where no card is asked.
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+
+
+class FwdPlan(NamedTuple):
+    """How the forward kernel splits a bidi layer: each direction's chain
+    for a group of ``rows`` rows runs on a cluster of ``C`` CTAs; CTA c owns
+    units [c·units, min(H, (c+1)·units)) with their four gate columns, in
+    register tiles of one unit and 4 rows. ``resident`` 1: each CTA
+    holds its weight slice in shared memory for the whole chain; 2: only
+    its slice of Wh, and reads that of [Wx; b] from L2 at every step; 0:
+    it reads both from L2. ``groups`` row groups per direction;
+    ``clusters``: how many clusters of this plan the card holds at once
+    (one wave when 2·groups <= clusters)."""
+    C: int
+    rows: int
+    units: int
+    resident: int
+    threads: int
+    smem: int
+    groups: int
+    clusters: int
+
+
+def fwd_smem(D: int, H: int, rows: int, units: int, hoist: bool,
+             resident: int) -> int:
+    """Bytes of shared memory a CTA takes: the resident weights [H (+ D+1
+    where ``resident`` is 1), units, 4], h [2, H, rows], the x ring [3, D,
+    rows] (without the hoisted projection) and the row lengths
+    (csrc/bidi_lstm_fwd.cu::smem_floats)."""
+    w = ((H + (0 if hoist or resident == 2 else D + 1)) * 4 * units
+         if resident else 0)
+    return 4 * (w + 2 * H * rows + (0 if hoist else 3 * rows * D) + rows)
+
+
+def fwd_threads(rows: int, units: int) -> int:
+    """Threads of a CTA: two per tile (a unit's 4 gates for 4 rows), 16
+    tiles to a warp."""
+    return -(-units * (rows // FWD_RT) // 16) * 32
+
+
+def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
+             clusters=None) -> FwdPlan:
+    """The forward kernel's plan for a layer of input width D (unused with
+    ``hoist``: K4) and H units at batch B; ``state``: K1 or K4's state
+    mode (the kernel instance whose occupancy ``clusters`` gives).
+
+    The smallest C in CLUSTER_SIZES whose weight slice (Wh, and [Wx; b]
+    without ``hoist``; else, where 4·(D+1) <= H, Wh's alone) fits in a CTA's
+    shared memory with the rest at rows per cluster that let the clusters
+    of both directions run in one wave (a multiple of 4, at most
+    FWD_ROWS_MAX). Where no C does, the L2 plan: the weights read from L2,
+    rows cut to what fits, at the C (that gives every CTA a unit) whose
+    clusters run in one wave, with rows up to FWD_L2_ROWS, and then the
+    smallest.
+    ``clusters(C, resident, rows, units)`` gives how many clusters of a
+    plan the card holds at once: on a card the kernel's occupancy query
+    (``device_plan``), by default H100_CLUSTERS. Raises ValueError for a
+    shape no plan takes (H above ~4096, or an input too wide for the x
+    ring)."""
+    if min(B, H) < 1 or (not hoist and D < 1):
+        raise ValueError(f"no forward plan for B={B} D={D} H={H}")
+    if clusters is None:
+        def clusters(C, resident, rows, units):
+            return H100_CLUSTERS[C]
+
+    def rows_for(active: int) -> int:
+        groups = max(1, active // 2)
+        rows = -(-(-(-B // groups)) // FWD_RT) * FWD_RT
+        return min(rows, FWD_ROWS_MAX)
+
+    def fits(resident, rows, units) -> bool:
+        return (fwd_threads(rows, units) <= FWD_THREADS and
+                fwd_smem(D, H, rows, units, hoist, resident) <= SMEM_MAX)
+
+    def made(C, resident, rows, units) -> FwdPlan:
+        return FwdPlan(C, rows, units, resident, fwd_threads(rows, units),
+                       fwd_smem(D, H, rows, units, hoist, resident),
+                       -(-B // rows), int(clusters(C, resident, rows, units)))
+
+    # Wh's slice alone resident, [Wx; b] read from L2 at every step, only
+    # where [Wx; b] is at most a quarter of Wh: on the card it beat the
+    # whole slice at the next cluster size at bidi2's first layer (D+1 =
+    # 49, H = 200), and lost to the whole slice at bidi's (H = 100), where
+    # those reads are twice the share (chip_smoke.py times both choices in
+    # turns; PERF.md §6).
+    wh_alone = not hoist and 4 * (D + 1) <= H
+    for C in CLUSTER_SIZES:
+        units = -(-H // C)
+        if (C - 1) * units >= H:
+            continue
+        for resident in (1, 2) if wh_alone else (1,):
+            rows = rows_for(H100_CLUSTERS[C])
+            if not fits(resident, rows, units):
+                continue
+            # Rows from the card's own count at that plan: one wave, or the
+            # next plan.
+            p = made(C, resident, rows, units)
+            if rows_for(p.clusters) != rows:
+                rows = rows_for(p.clusters)
+                if not fits(resident, rows, units):
+                    continue
+                p = made(C, resident, rows, units)
+            return p
+    # The L2 plan, per C the most rows that fit; of those, one wave first,
+    # then rows up to FWD_L2_ROWS (each weight read from L2 feeds that many
+    # rows), then the smaller C (fewer CTAs to hand h to: on the card C=4
+    # with 20 rows beat C=8 with 40 at bidi2's widths, PERF.md §6).
+    best, key = None, None
+    for C in CLUSTER_SIZES:
+        units = -(-H // C)
+        if (C - 1) * units >= H:
+            continue
+        rows = rows_for(H100_CLUSTERS[C])
+        while rows >= FWD_RT and not fits(0, rows, units):
+            rows -= FWD_RT
+        if rows < FWD_RT:
+            continue
+        p = made(C, 0, rows, units)
+        k = (2 * p.groups <= p.clusters, min(rows, FWD_L2_ROWS), -C)
+        if key is None or k > key:
+            best, key = p, k
+    if best:
+        return best
+    raise ValueError(f"no forward plan for B={B} D={D} H={H}: the h buffer "
+                     f"or the x ring exceeds a CTA's shared memory")
+
+
+def interleave_gates(w: torch.Tensor) -> torch.Tensor:
+    """[..., 4H] in gate blocks (gi, gf, go, ci) -> [..., H, 4]: a unit's
+    four gate columns side by side, the layout the forward kernel reads."""
+    *lead, G = w.shape
+    return w.reshape(*lead, 4, G // 4).transpose(-1, -2).contiguous()
+
+
+def fwd_weights(params_f: dict, params_r: dict, with_x: bool):
+    """The forward kernel's weights, both directions: (wx [2, D+1, H, 4],
+    the rows of Wx then b, or None; wh [2, H, H, 4])."""
+    wh = interleave_gates(_stack(params_f, params_r, "Wh"))
+    if not with_x:
+        return None, wh
+    wx = torch.cat([_stack(params_f, params_r, "Wx"),
+                    _stack(params_f, params_r, "b")[:, None]], 1)
+    return interleave_gates(wx), wh
+
+
+_active: dict = {}
+_plans: dict = {}
+
+
+def card_clusters(lookup, D: int, H: int, hoist: bool, state: bool):
+    """``clusters`` for fwd_plan on the current card: the kernel's
+    occupancy query (``clstm_bidi_lstm_fwd_clusters`` of the library that
+    ``lookup`` looks entry points up in), cached."""
+    def query(C, resident, rows, units):
+        key = (lookup, torch.cuda.current_device(), D, H, hoist, state,
+               C, resident, rows, units)
+        n = _active.get(key)
+        if n is None:
+            n = lookup("clstm_bidi_lstm_fwd_clusters")(
+                D, H, int(hoist), int(state), C, rows, units, resident)
+            if n < 1:
+                raise RuntimeError(f"the card holds no cluster of {C} CTAs "
+                                   f"of {rows} rows and {units} units (the "
+                                   f"occupancy query returned {n})")
+            _active[key] = n
+        return n
+    return query
+
+
+def device_plan(device, B: int, D: int, H: int, hoist: bool,
+                state: bool) -> FwdPlan:
+    """fwd_plan on ``device``'s card (its cluster occupancy), cached per
+    device and shape."""
+    key = (device, B, D, H, hoist, state)
+    p = _plans.get(key)
+    if p is None:
+        with torch.cuda.device(device):
+            p = fwd_plan(B, D, H, hoist, state,
+                         card_clusters(_kernel, D, H, hoist, state))
+        _plans[key] = p
+    return p
+
+
+def _plan_args(p: FwdPlan) -> tuple:
+    return p.C, p.rows, p.units, p.resident
+
+
 def bidi_lstm_infer(params_f: dict, params_r: dict, x: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
                     hoist: Optional[bool] = None) -> torch.Tensor:
@@ -197,10 +403,11 @@ def bidi_lstm_infer(params_f: dict, params_r: dict, x: torch.Tensor,
     y = torch.empty((B, T, 2 * H), dtype=torch.float32, device=x.device)
     if B == 0 or T == 0:
         return y
-    wx, wh, b = (_stack(params_f, params_r, n) for n in ("Wx", "Wh", "b"))
+    wx, wh = fwd_weights(params_f, params_r, True)
+    plan = device_plan(x.device, B, D, H, False, False)
     _launch("clstm_bidi_lstm_fwd", x.device, x.data_ptr(), _ptr(lengths),
-            wx.data_ptr(), wh.data_ptr(), b.data_ptr(), y.data_ptr(),
-            B, T, D, H)
+            wx.data_ptr(), wh.data_ptr(), y.data_ptr(), B, T, D, H,
+            *_plan_args(plan))
     bidi_lstm_infer.launches += 1
     return y
 
@@ -222,10 +429,11 @@ def bidi_lstm_fwd_state(params_f: dict, params_r: dict, x: torch.Tensor,
     cell = torch.empty((B, T, 2, H), dtype=torch.float32, device=x.device)
     if B == 0 or T == 0:
         return y, gates, cell
-    wx, wh, b = (_stack(params_f, params_r, n) for n in ("Wx", "Wh", "b"))
+    wx, wh = fwd_weights(params_f, params_r, True)
+    plan = device_plan(x.device, B, D, H, False, True)
     _launch("clstm_bidi_lstm_fwd_state", x.device, x.data_ptr(),
-            _ptr(lengths), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
-            y.data_ptr(), gates.data_ptr(), cell.data_ptr(), B, T, D, H)
+            _ptr(lengths), wx.data_ptr(), wh.data_ptr(), y.data_ptr(),
+            gates.data_ptr(), cell.data_ptr(), B, T, D, H, *_plan_args(plan))
     bidi_lstm_fwd_state.launches += 1
     return y, gates, cell
 
@@ -243,9 +451,11 @@ def bidi_lstm_infer_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
     y = torch.empty((B, T, 2 * H), dtype=torch.float32, device=xz.device)
     if B == 0 or T == 0:
         return y
-    wh = _stack(params_f, params_r, "Wh")
+    wh = fwd_weights(params_f, params_r, False)[1]
+    plan = device_plan(xz.device, B, 0, H, True, False)
     _launch("clstm_bidi_lstm_fwd_xz", xz.device, xz.data_ptr(),
-            _ptr(lengths), wh.data_ptr(), y.data_ptr(), B, T, H)
+            _ptr(lengths), wh.data_ptr(), y.data_ptr(), B, T, H,
+            *_plan_args(plan))
     bidi_lstm_infer_xz.launches += 1
     return y
 
@@ -266,10 +476,11 @@ def bidi_lstm_fwd_state_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
     cell = torch.empty((B, T, 2, H), dtype=torch.float32, device=dev)
     if B == 0 or T == 0:
         return y, gates, cell
-    wh = _stack(params_f, params_r, "Wh")
+    wh = fwd_weights(params_f, params_r, False)[1]
+    plan = device_plan(dev, B, 0, H, True, True)
     _launch("clstm_bidi_lstm_fwd_xz_state", dev, xz.data_ptr(), _ptr(lengths),
             wh.data_ptr(), y.data_ptr(), gates.data_ptr(), cell.data_ptr(),
-            B, T, H)
+            B, T, H, *_plan_args(plan))
     bidi_lstm_fwd_state_xz.launches += 1
     return y, gates, cell
 
