@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (clstm_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--k2-against SRC] [--fwd-against SRC]
+                          [--ctc-against SRC]
 
 Drives the port's serving path — the path `clstmocr` runs — and its training
 path — CLSTMOCR.train_batch, a CTC training step — at the full width of the
@@ -35,10 +36,16 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
      reduction's dW and dx against float64 (catches one-pass TF32); two
      calls of each bitwise equal; the chain alone at H=700 and H=2048;
   8. K5, K6 and K6b (CTC alignment DP) against their plain versions at
-     B=256, T=1024, S=81, at S=512 and at an odd S, mixed lengths and target
-     lengths with rows of length 0; the aligned targets of the kernel path
-     and of the unfused recipe (second direction by K6b) against the plain
-     scan recipe computed in float64;
+     B=256, T=1024, S=81, at S=512, at an odd S and at every branch of
+     their plan (ops/ctc_kernel.py::ctc_dp_plan: each S of S_BUCKETS, S=1,
+     1025, and the wide branch at 2049, 4097 and 14,528, K6's widest),
+     mixed lengths and target
+     lengths with rows of length 0; two calls bitwise equal, K5 and K6b
+     carrying their state over padded frames and K6's both NEG there; the
+     aligned targets of the kernel path and of the unfused recipe (second
+     direction by K6b) against the plain scan recipe computed in float64,
+     at T=1024 and on long lines (B=64, T=2048 and 4096, where the f32
+     recipe itself may pass the alarm: logged, ROADMAP Queue 3);
   9. training path: CLSTMOCR(device="cuda").createBidi, 5 train_batch steps
      on the bench batch (B=256, T=1024, 900 true frames, 40 characters,
      lr 1e-4, momentum 0.9) against the same 5 steps composed from the plain
@@ -73,20 +80,27 @@ With --k2-against SRC, every timed K2 shape also times the K2 built from
 SRC in turns with the current one (against, current, current, against);
 with --fwd-against SRC, the same for the forward kernel at K3 and K1
 (bidi), K1 (bidi2 layer 1), K4 in both modes (bidi2 layer 2), and K3 with
-the projection inside at D=400 and D=255 (H=200, the L2 plan).
+the projection inside at D=400 and D=255 (H=200, the L2 plan); with
+--ctc-against SRC, the same for K5, K6 and K6b at the bench shape, and
+the bidi and bidi2 train_batch steps with that build's K5 and K6 in turns
+with the current ones.
 
 Any failure raises, so the script exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels, each
 with bound_ms (the least time the card could take: the larger of its
 matrix flop at 3xTF32's 165 TFLOP/s and its bytes at 3.35 TB/s, bound_by
 naming which) and library_ms (a library call computing the same function,
-timed in turns with the kernel, or null); the line before that the card's
-name and power limit.
+timed in turns with the kernel, or null; K5, K6 and K6b also carry
+per_frame_us, their time over the longest row's frames, and K6
+ctc_loss_ms, F.ctc_loss forward and backward at the same B, T and S: a
+yardstick of scale only, since it computes the CTC loss and not clstm's
+lattice); the line before that the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -112,6 +126,8 @@ from clstm_tpu_torch.ops.bidi_lstm_kernel import (
     bidi_lstm_bwd_chain, bidi_lstm_bwd_reduce, bidi_lstm_fwd_state,
     bidi_lstm_fwd_state_xz, bidi_lstm_infer, bidi_lstm_infer_xz)
 from clstm_tpu_torch.ops.ctc import decode_frames, greedy_frames, mktargets_ids
+from clstm_tpu_torch.data.dataset import S_BUCKETS
+from clstm_tpu_torch.ops import ctc_kernel as ck
 from clstm_tpu_torch.ops.ctc_kernel import ctc_backward, ctc_both, ctc_forward
 from clstm_tpu_torch.ops.lstm import bidi_lstm_apply
 from clstm_tpu_torch.ops.seq import length_mask
@@ -153,6 +169,15 @@ F64_FLOOR = 2e-6
 # s < tlen) cells. Both run the same f32 recurrence; they differ only in
 # the last ulp of log1p(exp(.)), and the lattice values reach ~-1e4.
 DP_RTOL = 1e-5
+# K5/K6/K6b at every branch of ctc_dp_plan (B, T, S): one warp a row (S <=
+# 32), several at one state a lane (S <= 256), two states a lane (S =
+# 1025), the wide branch (S = 2049, 4097 and 14,528, the widest K6 takes),
+# and each S of S_BUCKETS at a small B; T below the frames in flight (T =
+# 3).
+CTC_PLAN_SHAPES = tuple((7, 60, s) for s in (1,) + S_BUCKETS + (1025,)) + (
+    (3, 24, 2049), (2, 16, 4097), (2, 6, 14528), (5, 3, 81))
+# Long lines: aligned targets at B=64 and these T (T_BUCKETS runs to 4096).
+LONG_T = (2048, 4096)
 # Aligned targets (probabilities in [1e-5, 1]) of the kernel path against
 # the plain scan recipe in float64. In f32 the lattice itself is only as
 # exact as its magnitude allows: |both| and lse reach ~5e3 at T=1024, one
@@ -555,7 +580,6 @@ def load_k2_against(src: str):
     clstm_bidi_lstm_bwd_scratch) or the earlier one (WhT unpadded
     [2, 4H, H], dW partials sized by clstm_bidi_lstm_bwd_nsplit(B, T)). No
     launch is counted."""
-    import ctypes
     with tempfile.TemporaryDirectory() as tmp:
         so = os.path.join(tmp, "k2_against.so")
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
@@ -616,7 +640,6 @@ def load_fwd_against(src: str) -> dict:
     interleaved by unit, a plan from fwd_plan with that library's own
     occupancy query) or the earlier one (wx [2,D,4H], wh [2,H,4H] and
     b [2,4H] as they are, no plan). No launch is counted."""
-    import ctypes
     with tempfile.TemporaryDirectory() as tmp:
         so = os.path.join(tmp, "fwd_against.so")
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
@@ -701,19 +724,118 @@ def load_fwd_against(src: str) -> dict:
             "K4 state": run_xz(True)}
 
 
-def against_turns(label: str, old, new, reps: int, card: str) -> dict:
-    """Time the kernel of --k2-against or --fwd-against (old) and the
-    current one (new) in turns old, new, new, old; both must agree within
-    K2_RTOL of max|old|. Logs and returns {"against_ms": [..], "ms": [..]}.
-    """
+def load_ctc_against(src: str) -> dict:
+    """``--ctc-against SRC``: the CTC DP kernels built from another source
+    with the same nvcc flags, to time in turns with the current ones ->
+    {"K5", "K6", "K6b": a callable with the signature of ctc_forward,
+    ctc_both, ctc_backward}. SRC may have the current C interface (the plan
+    of ctc_dp_plan after the shapes; it has clstm_ctc_smem) or the earlier
+    one (no plan). No launch is counted."""
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "ctc_against.so")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        so, src], check=True, capture_output=True, timeout=600)
+        lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    current = hasattr(lib, "clstm_ctc_smem")
+    for name, ptrs in (("clstm_ctc_forward", 3), ("clstm_ctc_both", 6),
+                       ("clstm_ctc_backward", 4)):
+        getattr(lib, name).argtypes = ([P] * ptrs + [I] * (6 if current else 3)
+                                       + [ctypes.c_float, P])
+
+    def call(name, ptrs, shape, skip):
+        plan = (ck.ctc_dp_plan(shape[0], shape[2])[:3] if current else ())
+        err = getattr(lib, name)(*ptrs, *shape, *plan, skip,
+                                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} from {src}: CUDA error {err}")
+
+    def k5(lm, lengths, skip=ctc_ops.SKIP):
+        lr = torch.empty_like(lm)
+        call("clstm_ctc_forward", (lm.data_ptr(), lengths.data_ptr(),
+                                   lr.data_ptr()), lm.shape, skip)
+        return lr
+
+    def k6(lm, lr, lengths, tlens, skip=ctc_ops.SKIP):
+        both = torch.empty_like(lm)
+        lse = torch.empty((lm.shape[0], lm.shape[2]), device=lm.device)
+        call("clstm_ctc_both", (lm.data_ptr(), lr.data_ptr(),
+                                lengths.data_ptr(), tlens.data_ptr(),
+                                both.data_ptr(), lse.data_ptr()), lm.shape,
+             skip)
+        return both, lse
+
+    def k6b(lm, lengths, tlens, skip=ctc_ops.SKIP):
+        rl = torch.empty_like(lm)
+        call("clstm_ctc_backward", (lm.data_ptr(), lengths.data_ptr(),
+                                    tlens.data_ptr(), rl.data_ptr()),
+             lm.shape, skip)
+        return rl
+    return {"K5": k5, "K6": k6, "K6b": k6b}
+
+
+def dp_err(k: torch.Tensor, p: torch.Tensor) -> float:
+    """max |k - p| / max(1, |p|) over every cell (NEG cells equal in both
+    give 0)."""
+    return float(((k - p).abs() / p.abs().clamp(min=1.0)).max())
+
+
+def step_turns(tocr, batch, ctc_against, reps: int, label: str,
+               card: str) -> dict:
+    """train_batch with the alignment's K5 and K6 taken from the
+    --ctc-against build and with the current ones, timed in turns (against,
+    current, current, against) on the host clock. Logs and returns
+    {"against_ms": [..], "ms": [..]}."""
+    def against():
+        saved = ck.ctc_forward, ck.ctc_both
+        ck.ctc_forward, ck.ctc_both = ctc_against["K5"], ctc_against["K6"]
+        try:
+            tocr.train_batch(batch)
+        finally:
+            ck.ctc_forward, ck.ctc_both = saved
+
+    def current():
+        tocr.train_batch(batch)
+    o1, n1, n2, o2 = (host_ms(f, reps) for f in (against, current, current,
+                                                 against))
+    log(f"[against] {card} | {label} train_batch in turns (against's K5 and "
+        f"K6, current, current, against's): {o1:.3f}, {n1:.3f}, {n2:.3f}, "
+        f"{o2:.3f} ms/step")
+    return {"against_ms": [o1, o2], "ms": [n1, n2]}
+
+
+def ctc_loss_step(rng, dev):
+    """F.ctc_loss forward and backward on seeded log-probabilities
+    [T, B, C], NCHARS targets a row and TRUE_T frames: the B, T and S of K6
+    at the bench shape -> a callable. A yardstick of scale only: it computes
+    the CTC loss, not clstm's lattice, and the port never calls it."""
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.normal(size=(T, B, C)).astype(np.float32)).to(dev), -1)
+    lp.requires_grad_(True)
+    tg = torch.from_numpy(rng.randint(1, C, size=(B, NCHARS))).to(dev)
+    il = torch.full((B,), TRUE_T, dtype=torch.long, device=dev)
+    tl = torch.full((B,), NCHARS, dtype=torch.long, device=dev)
+
+    def run():
+        with torch.enable_grad():
+            return torch.autograd.grad(
+                F.ctc_loss(lp, tg, il, tl, reduction="sum"), lp)
+    return run
+
+
+def against_turns(label: str, old, new, reps: int, card: str,
+                  err=rel_err, tol: float = K2_RTOL) -> dict:
+    """Time the kernel of --k2-against, --fwd-against or --ctc-against
+    (old) and the current one (new) in turns old, new, new, old; both must
+    agree, err(new, old) <= tol on every output (by default within K2_RTOL
+    of max|old|). Logs and returns {"against_ms": [..], "ms": [..]}."""
     a, b = old(), new()
     torch.cuda.synchronize()
     for u, v in zip(a if isinstance(a, tuple) else (a,),
                     b if isinstance(b, tuple) else (b,)):
-        if u is not None and not rel_err(v, u) <= K2_RTOL:
+        if u is not None and not err(v, u) <= tol:
             raise AssertionError(f"{label}: the --*-against kernel and the "
-                                 f"current one disagree "
-                                 f"({rel_err(v, u):.3e})")
+                                 f"current one disagree ({err(v, u):.3e})")
     del a, b
     o, n = in_turns(old, new, reps)
     log(f"[against] {card} | {label} in turns (against, current, "
@@ -866,7 +988,10 @@ def compare_ctc(lm, lengths, tlens):
     K6b abs) over valid cells (t < len, s < tlen; lse over s < tlen of rows
     with len > 0). K6 reads the plain lr, so each kernel is held on its
     own; K6b against the flip recipe, which fills the other cells
-    differently."""
+    differently. Raises unless each kernel gives equal bits on a second
+    call, K5 carries its last state over frames t >= len (the initial one
+    on rows of length 0), K6b its initial state, and K6's both is NEG
+    there."""
     B, T, S = lm.shape
     dev = lm.device
     lr_k = ctc_forward(lm, lengths)
@@ -875,17 +1000,27 @@ def compare_ctc(lm, lengths, tlens):
     both_p, lse_p = ctc_ops.ctc_both_plain(lm, lr_p, lengths, tlens)
     rl_k = ctc_backward(lm, lengths, tlens)
     rl_p = ctc_ops.ctc_backward_plain(lm, lengths, tlens)
+    again = (ctc_forward(lm, lengths), *ctc_both(lm, lr_p, lengths, tlens),
+             ctc_backward(lm, lengths, tlens))
     torch.cuda.synchronize()
     require_finite("K5", lr_k)
     require_finite("K6", both_k, lse_k)
     require_finite("K6b", rl_k)
+    if not all(torch.equal(u, v) for u, v in
+               zip((lr_k, both_k, lse_k, rl_k), again)):
+        raise AssertionError(f"K5/K6/K6b at B={B} T={T} S={S}: two calls "
+                             f"differ")
     L, TL = lengths.long(), tlens.long()
-    sv = torch.arange(S, device=dev)[None, :] < TL[:, None]            # [B,S]
-    m = (~padded(lengths, B, T, dev))[:, :, None] & sv[:, None, :]
+    col = torch.arange(S, device=dev)[None, :]
+    sv = col < TL[:, None]                                          # [B,S]
+    pad = padded(lengths, B, T, dev)
+    m = (~pad)[:, :, None] & sv[:, None, :]
     ms = sv & (L[:, None] > 0)
 
     def errs(k, p, mask):
         d = (k - p).abs()[mask]
+        if d.numel() == 0:
+            return 0.0, 0.0
         return (float((d / p.abs()[mask].clamp(min=1.0)).max()),
                 float(d.max()))
 
@@ -893,13 +1028,148 @@ def compare_ctc(lm, lengths, tlens):
     rb, ab = errs(both_k, both_p, m)
     rl, al = errs(lse_k, lse_p, ms)
     r6b, a6b = errs(rl_k, rl_p, m)
-    if not bool((both_k[padded(lengths, B, T, dev)] == ctc_ops.NEG).all()):
+    if not bool((both_k[pad] == ctc_ops.NEG).all()):
         raise AssertionError("K6 both is not NEG on padded frames")
+    last = lr_k[torch.arange(B, device=dev), (L - 1).clamp(min=0)]
+    v0 = ctc_ops.SKIP * col.float().expand(B, S)
+    carried = torch.where((L > 0)[:, None], last, v0)[:, None, :].expand(
+        B, T, S)[pad]
+    u0 = torch.where(sv, ctc_ops.SKIP * (TL[:, None] - 1 - col).float(),
+                     torch.full_like(v0, ctc_ops.NEG))
+    if not (torch.equal(lr_k[pad], carried) and torch.equal(
+            rl_k[pad], u0[:, None, :].expand(B, T, S)[pad])):
+        raise AssertionError("K5/K6b do not carry their state over padded "
+                             "frames")
     r6, a6 = max(rb, rl), max(ab, al)
     if not (r5 <= DP_RTOL and r6 <= DP_RTOL and r6b <= DP_RTOL):
         raise AssertionError(f"K5/K6/K6b vs plain rel {r5:.3e}/{r6:.3e}/"
                              f"{r6b:.3e} > {DP_RTOL:.0e}")
     return r5, a5, r6, a6, r6b, a6b
+
+
+def ctc_plan_of(B: int, S: int) -> dict:
+    """ctc_dp_plan(B, S), checked against the library: its shared memory,
+    K6's and K5's, must be what clstm_ctc_smem computes for it (0 there: no
+    kernel)."""
+    fn = _build.load_library().clstm_ctc_smem
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    for both in (True, False):
+        p = ck.ctc_dp_plan(B, S, both)
+        got = fn(S, p.warps, p.states, p.prefetch, 2 if both else 1)
+        if got != p.smem:
+            raise AssertionError(f"CTC plan {p} at B={B} S={S}: the library "
+                                 f"counts {got} bytes of shared memory")
+    return ck.ctc_dp_plan(B, S)._asdict()
+
+
+def ctc_with_plan(kind: str, plan, lm, lr, lengths, tlens):
+    """K5, K6 or K6b launched with ``plan`` (W, K, P) in place of the one
+    ctc_dp_plan picks, to time the plan's choice; not counted."""
+    B_, T_, S_ = lm.shape
+    out = torch.empty_like(lm)
+    if kind == "K5":
+        name, res = "clstm_ctc_forward", out
+        ptrs = (lm.data_ptr(), lengths.data_ptr(), out.data_ptr())
+    elif kind == "K6":
+        lse = torch.empty((B_, S_), device=lm.device)
+        name, res = "clstm_ctc_both", (out, lse)
+        ptrs = (lm.data_ptr(), lr.data_ptr(), lengths.data_ptr(),
+                tlens.data_ptr(), out.data_ptr(), lse.data_ptr())
+    else:
+        name, res = "clstm_ctc_backward", out
+        ptrs = (lm.data_ptr(), lengths.data_ptr(), tlens.data_ptr(),
+                out.data_ptr())
+    ck._launch(name, ptrs, (B_, T_, S_, *plan), ctc_ops.SKIP, lm.device)
+    return res
+
+
+def ctc_plan_turns(label: str, lm, lr, lengths, tlens, alts, reps: int,
+                   card: str) -> dict:
+    """K5, K6 and K6b with ctc_dp_plan's plan and with each plan of
+    ``alts`` (W, K, P), timed in turns chosen, alt, alt, chosen; both must
+    give the same bits (each state's arithmetic does not depend on the
+    plan). Logs and returns {"plan": .., "other_plans": {alt: {kind: {"ms",
+    "other_ms"}}}}."""
+    B_, _, S_ = lm.shape
+    chosen = tuple(ck.ctc_dp_plan(B_, S_)[:3])
+    out = {"plan": list(chosen), "other_plans": {}}
+    for alt in alts:
+        got = out["other_plans"][str(list(alt))] = {}
+        for kind in ("K5", "K6", "K6b"):
+            def run(plan, kind=kind):
+                return ctc_with_plan(kind, plan, lm, lr, lengths, tlens)
+            a, b = run(chosen), run(alt)
+            if not all(map(torch.equal, a if kind == "K6" else (a,),
+                           b if kind == "K6" else (b,))):
+                raise AssertionError(f"{label}: {kind} plans {chosen} and "
+                                     f"{alt} differ")
+            del a, b
+            c, o = in_turns(lambda: run(chosen), lambda: run(alt), reps)
+            got[kind] = {"ms": c, "other_ms": o}
+            log(f"[plan] {card} | {label}: {kind} with the plan (W, K, P) "
+                f"{chosen} {c[0]:.4f}, {alt} {o[0]:.4f}, {o[1]:.4f}, "
+                f"{chosen} {c[1]:.4f} ms in turns; bitwise equal")
+    return out
+
+
+def align_check(rng, B_, T_, lengths, dev, alarm: bool = True) -> dict:
+    """Aligned targets of the kernel path, of the unfused recipe (second
+    direction by K6b) and of the f32 plain recipe against the plain scan
+    recipe in float64, on seeded posteriors over C classes and up to
+    NCHARS characters (S = 2·NCHARS+1), with ``lengths`` [B_]. Raises above
+    ALIGN_FACTOR x the f32 plain recipe's distance, and (with ``alarm``)
+    above the alarm; returns the distances and K6b's launches. On long
+    lines the f32 recipe itself passes the alarm (ROADMAP Queue 3): there
+    the kernels are held to the f32 recipe and the alarm is logged."""
+    S_ = 2 * NCHARS + 1
+    probs = torch.softmax(torch.from_numpy(
+        3 * rng.normal(size=(B_, T_, C)).astype(np.float32)).to(dev), dim=-1)
+    tids = torch.from_numpy(np.stack(
+        [mktargets_ids(rng.randint(1, C, size=rng.randint(0, NCHARS + 1)),
+                       S_) for _ in range(B_)]).astype(np.int32)).to(dev)
+    tlens = (tids != 0).sum(1).mul(2).add(1).clamp(max=S_).to(torch.int32)
+    kw = dict(lengths=lengths, target_lengths=tlens)
+    valid = ~padded(lengths, B_, T_, dev)
+    aligned64 = ctc_ops.ctc_align_targets_batched(
+        probs.double(), tids, fused=False, use_kernel=False, **kw)
+
+    def off64(a):
+        return float((a.double() - aligned64).abs()[valid].max())
+
+    out = {"kernel": off64(ctc_ops.ctc_align_targets_batched(probs, tids,
+                                                             **kw)),
+           "plain32": off64(ctc_ops.ctc_align_targets_batched(
+               probs, tids, fused=False, use_kernel=False, **kw))}
+    reset_counts()
+    unfused = ctc_ops.ctc_align_targets_batched(probs, tids, fused=False, **kw)
+    torch.cuda.synchronize()
+    out["k6b_launches"] = counts()["ctc_backward"]
+    out["unfused"] = off64(unfused)
+    out["tol"] = max(ALIGN_FACTOR * out["plain32"], ALIGN_FLOOR)
+    log(f"[align] B={B_} T={T_} C={C} S={S_}: max|d aligned| vs float64 "
+        f"plain: kernel path {out['kernel']:.3e}, unfused recipe with K6b "
+        f"{out['unfused']:.3e} ({out['k6b_launches']} K6b launch), f32 plain "
+        f"recipe {out['plain32']:.3e} (tol {out['tol']:.3e}, alarm "
+        f"{ALIGN_ALARM:.0e})")
+    if out["k6b_launches"] != 1:
+        raise AssertionError(f"the unfused recipe launched K6b "
+                             f"{out['k6b_launches']} times")
+    out["above_alarm"] = not max(out["kernel"], out["unfused"]) <= ALIGN_ALARM
+    if out["above_alarm"] and not alarm:
+        log(f"[align] T={T_}: above the {ALIGN_ALARM:.0e} alarm, as the f32 "
+            f"plain recipe ({out['plain32']:.3e}): the f32 lattice's fault on "
+            f"long lines (ROADMAP Queue 3), not the kernels'")
+    for name in ("kernel", "unfused"):
+        e = out[name]
+        if alarm and not e <= ALIGN_ALARM:
+            raise AssertionError(f"{name} path at T={T_}: aligned targets "
+                                 f"off by {e:.3e}: above the "
+                                 f"{ALIGN_ALARM:.0e} precision alarm")
+        if not e <= out["tol"]:
+            raise AssertionError(f"{name} path at T={T_}: aligned targets "
+                                 f"off by {e:.3e} > {out['tol']:.3e}")
+    return out
 
 
 def bench_batch(rng, dev, nclasses=C):
@@ -974,6 +1244,21 @@ def host_ms(fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def enqueue_ms(fn, reps: int) -> float:
+    """Mean host ms of a call on an idle card, not waiting for the card:
+    what the host takes to enqueue the call's work (the card idles when
+    that is longer than the work), after one warm-up call."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total * 1e3 / reps
 
 
 DEVICE_KEY = "self_device_time_total"
@@ -1167,6 +1452,10 @@ def main(argv=None) -> int:
                     "and time it in turns with the current one at the five "
                     "timed forward shapes (K3 and K1 at bidi, K1 at bidi2's "
                     "first layer, K4 in both modes at its second)")
+    ap.add_argument("--ctc-against", metavar="SRC",
+                    help="also build this CTC DP source (ctc_dp.cu of this or "
+                    "the earlier C interface) and time its K5, K6 and K6b in "
+                    "turns with the current ones at the bench shape")
     args = ap.parse_args(argv)
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1187,7 +1476,9 @@ def main(argv=None) -> int:
                   else None)
     fwd_against = (load_fwd_against(args.fwd_against) if args.fwd_against
                    else None)
-    against, fwd_vs = {}, {}
+    ctc_against = (load_ctc_against(args.ctc_against) if args.ctc_against
+                   else None)
+    against, fwd_vs, ctc_vs = {}, {}, {}
     # The forward kernel's plan at each timed shape: cluster size C, rows
     # per cluster, units per CTA, which weights are resident in shared
     # memory (1 all, 2 Wh's, 0 none: read from L2), and how many clusters
@@ -1343,59 +1634,31 @@ def main(argv=None) -> int:
     cases = cases[:len(cases) - len(CHAIN_WIDE)]
     del k1_state
 
-    # 8. K5, K6 and K6b against plain; aligned targets against float64
-    # plain.
+    # 8. K5, K6 and K6b against plain at the bench shape, odd shapes and
+    # every branch of their plan; aligned targets against float64 plain.
     k56 = [0.0] * 6
-    for (cb, ct, cs) in ((B, T, 2 * NCHARS + 1), (64, T, 512), (37, 300, 13)):
+    ctc_plans = {}
+    for (cb, ct, cs) in ((B, T, 2 * NCHARS + 1), (64, T, 512),
+                         (37, 300, 13)) + CTC_PLAN_SHAPES:
+        plan_ = ctc_plan_of(cb, cs)
+        ctc_plans[f"B={cb} S={cs}"] = plan_
         errs56 = compare_ctc(*lattice(rng, cb, ct, cs, dev))
         k56 = [max(u, v) for u, v in zip(k56, errs56)]
         r5, a5, r6, a6, r6b, a6b = errs56
-        log(f"[K5/K6/K6b] B={cb} T={ct} S={cs} mixed lengths incl. 0: K5 lr "
-            f"rel {r5:.3e} (abs {a5:.3e}), K6 both/lse rel {r6:.3e} (abs "
-            f"{a6:.3e}), K6b rl rel {r6b:.3e} (abs {a6b:.3e}) (tol "
-            f"{DP_RTOL:.0e}, valid cells)")
+        log(f"[K5/K6/K6b] B={cb} T={ct} S={cs} mixed lengths incl. 0, plan "
+            f"{plan_['warps']} warps x {plan_['states']} states (0: wide "
+            f"branch), {plan_['prefetch']} frames in flight: K5 lr rel {r5:.3e} (abs {a5:.3e}), K6 both/lse rel "
+            f"{r6:.3e} (abs {a6:.3e}), K6b rl rel {r6b:.3e} (abs {a6b:.3e}) "
+            f"(tol {DP_RTOL:.0e}, valid cells); two calls bitwise equal; "
+            f"padded frames carried (K5, K6b), NEG (K6)")
     S81 = 2 * NCHARS + 1
-    probs = torch.softmax(torch.from_numpy(
-        3 * rng.normal(size=(B, T, C)).astype(np.float32)).to(dev), dim=-1)
-    tids = torch.from_numpy(np.stack(
-        [mktargets_ids(rng.randint(1, C, size=rng.randint(0, NCHARS + 1)), S81)
-         for _ in range(B)]).astype(np.int32)).to(dev)
-    tlens = (tids != 0).sum(1).mul(2).add(1).clamp(max=S81).to(torch.int32)
-    alens = lens["mixed"]
-    kw = dict(lengths=alens, target_lengths=tlens)
-    valid = ~padded(alens, B, T, dev)
-    aligned64 = ctc_ops.ctc_align_targets_batched(
-        probs.double(), tids, fused=False, use_kernel=False, **kw)
-
-    def off64(a):
-        return float((a.double() - aligned64).abs()[valid].max())
-
-    align_err = off64(ctc_ops.ctc_align_targets_batched(probs, tids, **kw))
-    plain32_err = off64(ctc_ops.ctc_align_targets_batched(
-        probs, tids, fused=False, use_kernel=False, **kw))
-    # The unfused recipe on the card, whose second direction is K6b.
-    reset_counts()
-    unfused = ctc_ops.ctc_align_targets_batched(probs, tids, fused=False, **kw)
-    torch.cuda.synchronize()
-    k6b_launches = counts()["ctc_backward"]
-    unfused_err = off64(unfused)
-    align_tol = max(ALIGN_FACTOR * plain32_err, ALIGN_FLOOR)
-    log(f"[align] B={B} T={T} C={C} S={S81}: max|d aligned| vs float64 plain:"
-        f" kernel path {align_err:.3e}, unfused recipe with K6b "
-        f"{unfused_err:.3e} ({k6b_launches} K6b launch), f32 plain recipe "
-        f"{plain32_err:.3e} (tol {align_tol:.3e}, alarm {ALIGN_ALARM:.0e})")
-    if k6b_launches != 1:
-        raise AssertionError(f"the unfused recipe launched K6b "
-                             f"{k6b_launches} times")
-    for name, e in (("kernel path", align_err), ("K6b recipe", unfused_err)):
-        if not e <= ALIGN_ALARM:
-            raise AssertionError(f"{name}: aligned targets off by {e:.3e}: "
-                                 f"above the {ALIGN_ALARM:.0e} precision "
-                                 f"alarm")
-        if not e <= align_tol:
-            raise AssertionError(f"{name}: aligned targets off by {e:.3e} > "
-                                 f"{align_tol:.3e}")
-    del probs, aligned64, unfused
+    aligns = {T: align_check(rng, B, T, lens["mixed"], dev)}
+    k6b_launches = aligns[T]["k6b_launches"]
+    for lt in LONG_T:
+        ll = rng.randint(lt // 2, lt + 1, 64).astype(np.int32)
+        ll[0] = lt
+        aligns[lt] = align_check(rng, 64, lt, torch.from_numpy(ll).to(dev),
+                                 dev, alarm=False)
 
     # 9. Training path at full width: 5 train_batch steps, kernels and plain.
     batch = bench_batch(np.random.RandomState(0), dev)
@@ -1481,6 +1744,13 @@ def main(argv=None) -> int:
     log(f"[timing] {card} | train_batch B={B} T={T} S={S81}: kernels "
         f"{k_step:.3f} ms/step ({B / k_step * 1e3:.1f} lines/s), plain "
         f"{p_step:.3f} ms/step ({B / p_step * 1e3:.1f} lines/s)")
+    log(f"[timing] {card} | train_batch B={B} T={T} S={S81}: the host "
+        f"enqueues a step in "
+        f"{enqueue_ms(lambda: tocr.train_batch(batch), 3):.3f} ms")
+    steps_vs = {}
+    if ctc_against:
+        steps_vs["bidi"] = step_turns(tocr, batch, ctc_against, 5,
+                                      f"bidi B={B} T={T} S={S81}", card)
     par = tocr.net.sub[0]
     tpf, tpr = par.sub[0].weights(), par.sub[1].sub[0].weights()
     bx = batch["x"]
@@ -1515,6 +1785,29 @@ def main(argv=None) -> int:
         }
         for name, (kf, pfn) in pairs.items():
             ms[name] = (time_ms(kf, 10), time_ms(pfn, 2))
+        if ctc_against:
+            for name, a_ in (("K5", (lm, Lb)), ("K6", (lm, lr, Lb, TLb)),
+                             ("K6b", (lm, Lb, TLb))):
+                ctc_vs[name] = against_turns(
+                    f"{name} B={B} T={T} S={S81}",
+                    lambda n=name, a_=a_: ctc_against[n](*a_),
+                    pairs[name][0], 10, card, dp_err, DP_RTOL)
+        ctc_loss_ms = time_ms(ctc_loss_step(rng, dev), 10)
+        # The CTC plan's choices, each in turns with the next-best plans:
+        # three warps of one state a lane against two of two and one of
+        # three at S=81, and eight warps of two against sixteen of one at
+        # S=512.
+        g512 = torch.Generator(device=dev).manual_seed(5)
+        lm512 = torch.log(torch.rand((B, T, 512), device=dev,
+                                     generator=g512) + 1e-3)
+        tl512 = torch.full((B,), 512, dtype=torch.int32, device=dev)
+        ctc_plan_vs = {
+            "S=81": ctc_plan_turns(f"B={B} T={T} S={S81}", lm, lr, Lb, TLb,
+                                   ((2, 2, 8), (1, 3, 8)), 10, card),
+            "S=512": ctc_plan_turns(f"B={B} T={T} S=512", lm512,
+                                    ctc_forward(lm512, Lb), Lb, tl512,
+                                    ((16, 1, 16),), 10, card)}
+        del lm512
         dx_ms = time_ms(lambda: bidi_lstm_bwd_reduce(bx, ys, dz, Wx2, True),
                         10)
         # Library yardsticks in turns with the kernels: cuDNN's forward with
@@ -1556,6 +1849,11 @@ def main(argv=None) -> int:
             f"plain {pm:.3f} ms" + (f", library {lib[name]:.3f} ms"
                                     if name in lib else ""))
     log(f"[timing] {card} | K2 reduction with dx: kernel {dx_ms:.3f} ms")
+    log(f"[timing] {card} | K5, K6, K6b per frame of the {TRUE_T}-frame "
+        f"rows: " + ", ".join(f"{n} {ms[n][0] * 1e3 / TRUE_T:.4f} us"
+                              for n in ("K5", "K6", "K6b"))
+        + f"; F.ctc_loss forward + backward at B={B} T={T} S={S81} "
+        f"{ctc_loss_ms:.3f} ms")
     log(f"[timing] {card} | in turns: K1 {k1_t[0]:.3f}, cuDNN fwd (grad) "
         f"{k1_lib[0]:.3f}, {k1_lib[1]:.3f}, K1 {k1_t[1]:.3f} ms; K2 "
         f"reduction {red_t[0]:.3f}, einsum {red_lib[0]:.3f}, "
@@ -1780,6 +2078,12 @@ def main(argv=None) -> int:
     log(f"[timing] {card} | bidi2 train_batch B={B} T={T} S={S81} C={C2}: "
         f"kernels {k_step2:.3f} ms/step ({B / k_step2 * 1e3:.1f} lines/s), "
         f"plain {p_step2:.3f} ms/step ({B / p_step2 * 1e3:.1f} lines/s)")
+    log(f"[timing] {card} | bidi2 train_batch: the host enqueues a step in "
+        f"{enqueue_ms(lambda: tocr2.train_batch(batch2), 3):.3f} ms")
+    if ctc_against:
+        steps_vs["bidi2"] = step_turns(tocr2, batch2, ctc_against, 3,
+                                       f"bidi2 B={B} T={T} S={S81} C={C2}",
+                                       card)
     layer1 = tocr2.net.sub[0]
     with torch.no_grad():
         k1_l1 = time_ms(lambda: bidi_lstm_fwd_state(
@@ -1938,6 +2242,23 @@ def main(argv=None) -> int:
         row = ("bidi_lstm_bwd_chain (K2)" if key.startswith("chain")
                else "bidi_lstm_bwd_reduce (K2)")
         extra[row].setdefault("k2_against", {})[key] = turns_
+    # The CTC rows: time per frame of the 900-frame rows, the plan, the
+    # in-turn times of --ctc-against; K6's row the F.ctc_loss yardstick and
+    # the aligned targets' distances from float64 at each T.
+    for name, key in (("ctc_forward (K5)", "K5"), ("ctc_both (K6)", "K6"),
+                      ("ctc_backward (K6b)", "K6b")):
+        row = extra.setdefault(name, {})
+        row["per_frame_us"] = ms[key][0] * 1e3 / TRUE_T
+        row["plan"] = ctc_plans[f"B={B} S={S81}"]
+        if key in ctc_vs:
+            row["ctc_against"] = ctc_vs[key]
+    extra["ctc_both (K6)"]["ctc_loss_ms"] = ctc_loss_ms
+    extra["ctc_forward (K5)"]["plan_choice"] = ctc_plan_vs
+    if steps_vs:
+        extra["ctc_both (K6)"]["train_step_ctc_against"] = steps_vs
+    extra["ctc_both (K6)"]["aligned_vs_float64"] = {
+        str(t_): {k: v for k, v in a.items() if k != "k6b_launches"}
+        for t_, a in aligns.items()}
     kernels = []
     for name, src, rep, n, err, rel, (km, pm), (bms, bby), lms in entries:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
