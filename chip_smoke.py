@@ -25,9 +25,17 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
      bidirectional nn.LSTM on the same batch in turns with the kernel;
   5. main path: a seeded bidi net is saved as .clstm, loaded through
      CLSTMOCR.load, and 64 synthetic line images go through
-     cli.clstmocr.predict_pages and write_outputs; the kernel's launch count
-     must rise, and the per-frame ids must agree with the plain path run on
-     the same prepared batches;
+     cli.clstmocr.predict_pages and write_outputs, with the normalization on
+     the host (device_preprocess=0) and then on the card (1, the default):
+     each width bucket must launch K3 once, the per-frame ids must agree
+     with the plain path run on the same prepared batches, and the card's
+     per-line lengths must match the same prepare run on the CPU (all but
+     one line in 64, by +-1); lines/s both ways (median and range of 7
+     warm passes) and the device prepare's ms a bucket inside those passes
+     (its span on the card, the host's time in it, and the card's busy
+     time in one such call alone); predict_batch_images(sync=False) must
+     return behind a long
+     device sleep, that is without waiting for the card;
   6. K1 (LSTM forward with state) against its plain version at the bench
      profile (lengths all 900 and mixed 0..1024) and the odd shapes of 3:
      y, gates and cell; every stream exactly 0 on padded frames;
@@ -67,14 +75,33 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
      in turns; K2 there, its reduction in turns with the two einsums, and
      cuDNN's nn.LSTM at D=400 in turns with product + K4;
  14. bidi2 serving: a seeded config-4 net (createBidi(kind="bidi2")) saved
-     as .clstm and run through predict_pages; every width bucket must launch
-     K3 (layer 1) and K4 (layer 2), frame ids as in 5;
+     as .clstm and run through predict_pages both ways; every width bucket
+     must launch K3 (layer 1) and K4 (layer 2), frame ids and lengths as
+     in 5;
  15. bidi2 training: 5 train_batch steps at the config-4 bench profile
      (bench.py:538-600: B=256, T=1024, 900 frames, S=81, 400 classes)
      against the plain steps, each step launching K1, K4, K2 on both layers,
      K5 and K6; ms per step, K2's reduction at layer 1 (D=48, H=200) in
      turns with the einsum, and a torch.profiler breakdown
      (chiprun_out/profile_train_step_bidi2.txt).
+ 16. the u8 pixel table (ops/preprocess.py U8_TABLE) on the card, bit for
+     bit against numpy's k/255, and how many of the 256 values the card's
+     ``x / 255.0`` gets wrong (a multiply by the reciprocal); the uint8 and
+     float32 uploads must prepare to the same bits;
+ 17. clstmocrtrain: 1,024 synthetic training and 128 test lines (written as
+     PNGs and read through the CLI's main when pillow is installed; else the
+     CLI's loop over a cache built from the raw arrays, and a note that PNG
+     decoding was not exercised), at full bidi width, device_preprocess=1,
+     batch_size 32, automatic steps_per_dispatch, ntrain 4096, test_every
+     and save_every 2048: K1, K2, K5 and K6 must be launched and a TESTERR
+     line printed; the saved model must reload and predict the same ids;
+     one batch of a block (B=32, its group's T bucket and merged S) through
+     5 train_batch steps from the saved model against the same 5 steps
+     composed from the plain versions, within the limits of 9; a
+     k=4 block must equal 4 single steps bitwise, and the next must be
+     enqueued behind a long device sleep without waiting for it; lines/s
+     end to end and the card's idle share in the loop (torch.profiler,
+     kernel activity).
 
 With --k2-against SRC, every timed K2 shape also times the K2 built from
 SRC in turns with the current one (against, current, current, against);
@@ -100,7 +127,9 @@ lattice); the line before that the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import io
 import json
 import os
 import subprocess
@@ -112,7 +141,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from clstm_tpu_torch.cli import clstmocrtrain
 from clstm_tpu_torch.cli.clstmocr import predict_pages, write_outputs
+from clstm_tpu_torch.data.dataset import T_BUCKETS_FINE
+from clstm_tpu_torch.data.device_cache import DeviceDataset
+from clstm_tpu_torch.io.png import write_png
 from clstm_tpu_torch.io.proto import save_net
 from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.hl import CLSTMOCR
@@ -129,10 +162,12 @@ from clstm_tpu_torch.ops.ctc import decode_frames, greedy_frames, mktargets_ids
 from clstm_tpu_torch.data.dataset import S_BUCKETS
 from clstm_tpu_torch.ops import ctc_kernel as ck
 from clstm_tpu_torch.ops.ctc_kernel import ctc_backward, ctc_both, ctc_forward
+from clstm_tpu_torch.ops import preprocess
 from clstm_tpu_torch.ops.lstm import bidi_lstm_apply
 from clstm_tpu_torch.ops.seq import length_mask
-from clstm_tpu_torch.train import TrainState, make_train_step, sgd_update
-from clstm_tpu_torch.utils.config import torch_device
+from clstm_tpu_torch.train import (
+    TrainState, gather_batch, make_train_step, sgd_update)
+from clstm_tpu_torch.utils.config import to_device, torch_device
 
 B, T, D, H, C = 256, 1024, 48, 100, 96   # bench profile (bench.py:611-651)
 TRUE_T = 900
@@ -149,6 +184,25 @@ TOL = 1e-4
 # differ only where the top two logits lie within ~1e-5 of each other.
 ID_AGREE_MIN = 0.999
 N_LINES = 64
+# clstmocr with device_preprocess=1: the card's per-line lengths against the
+# same prepare run on the CPU. f32 sums in another order may move a
+# knife-edge center column or ink spread by one pixel (the JAX package's
+# own parity envelope, tests/test_preprocess.py), so at most one line in
+# LEN_MISMATCH_LINES may differ, by one frame.
+LEN_MISMATCH_LINES = 64
+# Cycles of torch.cuda._sleep (~0.5 s at the H100's clock) that
+# predict_batch_images(sync=False) must return behind: it returns in well
+# under half the sleep only if it waited for nothing on the card.
+NOSYNC_CYCLES = 10 ** 9
+# clstmocr (phases 5 and 14): warm passes over the N_LINES lines, timed
+# after the counted one; lines/s is their median, with their range.
+E2E_PASSES = 7
+# clstmocrtrain (phase 17): corpus sizes and the CLI's settings.
+OCR_TRAIN, OCR_TEST = 1024, 128
+OCR_ENV = {"device": "cuda", "device_preprocess": "1", "batch_size": "32",
+           "steps_per_dispatch": "0", "ntrain": "4096", "test_every": "2048",
+           "save_every": "2048", "report_every": "1024", "nhidden": str(H),
+           "target_height": str(D), "randseed": "0", "mesh": "1"}
 # K2 against plain, relative to max|plain| of each tensor. dz comes out of a
 # 1024-step backward recurrence whose Dh the kernel sums by column ranges
 # (the plain loop in one cuBLAS product); dW, dWh, db and dx are sums over
@@ -329,6 +383,11 @@ def synth_line(rng) -> np.ndarray:
         col += cw + rng.randint(2, 7)
     img += rng.normal(0, 0.02, img.shape).astype(np.float32)
     return np.clip(img, 0.0, 1.0)
+
+
+def quantized(img: np.ndarray) -> np.ndarray:
+    """``img`` rounded to k/255 values, as a PNG decode gives."""
+    return (np.rint(img * 255.0) / np.float32(255.0)).astype(np.float32)
 
 
 def stack2(pf: dict, pr: dict, name: str) -> torch.Tensor:
@@ -1290,43 +1349,118 @@ def counts() -> dict:
     return {f.__name__: f.launches for f in COUNTED}
 
 
-def serve(model: str, images, dev, nclasses: int, tmp: str):
+def serve(model: str, images, dev, nclasses: int, tmp: str,
+          device_preprocess: int) -> dict:
     """clstmocr's path on the card: load ``model``, run predict_pages and
-    write_outputs over ``images`` with the launch counts reset just before
-    and read just after. Returns (launches, per-bucket batches, seconds end
-    to end, share of valid frames whose ids agree with the plain path)."""
-    ocr = CLSTMOCR(device="cuda")
+    write_outputs over ``images`` once cold, then again with the launch
+    counts reset just before and read just after, then E2E_PASSES times
+    more, timed. Records each width bucket's prepared batch (the host's, or
+    the card's prepare output) and its frame ids, and holds the ids against
+    the plain path on the same batches; with the normalization on the card,
+    also holds each line's length against the same prepare on the CPU and
+    times the card's prepare per bucket inside the timed passes. Returns
+    {launches, buckets (T per bucket), e2e_s (median of the timed passes),
+    e2e_range (their min and max), cold_s, share (of valid frames whose ids
+    agree), frames, and with device_preprocess prep_ms, prep_host_ms,
+    prep_busy_ms (per prepare call), prep_share, len_mismatch, nosync_ms
+    (host ms of predict_batch_images(sync=False) behind a device sleep) and
+    sleep_ms}."""
+    ocr = CLSTMOCR(device=dev)
     ocr.load(model)
     ocr.target_height = ocr.spec.iget("ninput", ocr.target_height)
-    batches = []
-    predict_batch = ocr.predict_batch
-
-    def recording(xb, lb):
-        ids, vals = predict_batch(xb, lb)
-        batches.append((xb, lb, ids, vals))
-        return ids, vals
-
-    ocr.predict_batch = recording
     names = [os.path.join(tmp, f"line{i:03d}.png") for i in range(len(images))]
-    reset_counts()
-    t0 = time.perf_counter()
-    results = predict_pages(ocr, images, device_preprocess=0)
-    write_outputs(ocr, names, images, results, output="sidecar")
-    torch.cuda.synchronize()
-    e2e_s = time.perf_counter() - t0
-    launches = counts()
+
+    def run():
+        t0 = time.perf_counter()
+        results = predict_pages(ocr, images,
+                                device_preprocess=device_preprocess)
+        write_outputs(ocr, names, images, results, output="sidecar")
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - t0
+
+    # A first run in a fresh model pays for one-time work (kernels loaded
+    # at their first launch, pinned buffers, plans): timed apart as cold.
+    cold_s = run()[1]
+    batches = []      # (x, lengths, ids) per bucket, on the host
+    preps = []        # (prepare inputs, options, outputs) per prepare call
+    prepare = preprocess.prepare_batch_device
+    if device_preprocess:
+        def recording_prepare(imgs, hs, ws, **kw):
+            out = prepare(imgs, hs, ws, **kw)
+            preps.append(((imgs, hs, ws), kw, out))
+            return out
+
+        predict_images = ocr.predict_batch_images
+
+        def recording_images(imgs, sync=True):
+            n0 = len(preps)
+            out = predict_images(imgs, sync=sync)
+            mine = [p[2] for p in preps[n0:]]   # this bucket's chunks
+            batches.append((torch.cat([x for x, _ in mine]),
+                            torch.cat([ln for _, ln in mine]), out[0]))
+            return out
+
+        preprocess.prepare_batch_device = recording_prepare
+        ocr.predict_batch_images = recording_images
+    else:
+        predict_batch = ocr.predict_batch
+
+        def recording(xb, lb):
+            ids, vals = predict_batch(xb, lb)
+            batches.append((xb, lb, ids))
+            return ids, vals
+
+        ocr.predict_batch = recording
+    try:
+        reset_counts()
+        results = run()[0]
+        launches = counts()
+    finally:
+        preprocess.prepare_batch_device = prepare
+        vars(ocr).pop("predict_batch_images", None)
+        vars(ocr).pop("predict_batch", None)
     texts = [open(n[:-4] + ".txt", encoding="utf-8").read() for n in names]
     if len(batches) < 2:
         raise AssertionError("synthetic lines fell into fewer than 2 buckets")
     if sorted(results) != list(range(len(images))) or len(texts) != len(images):
         raise AssertionError("clstmocr did not answer every line")
+    # The timed runs: E2E_PASSES warm passes, each prepare call bracketed
+    # by CUDA events (its span on the card's timeline within the run) and
+    # by the host's clock (the time the host spent enqueueing it).
+    passes = []
+    for _ in range(E2E_PASSES):
+        spans = []
+
+        def timed_prepare(imgs, hs, ws, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            out = prepare(imgs, hs, ws, **kw)
+            ev[1].record()
+            spans.append((ev, time.perf_counter() - t0))
+            return out
+
+        if device_preprocess:
+            preprocess.prepare_batch_device = timed_prepare
+        try:
+            wall = run()[1]
+        finally:
+            preprocess.prepare_batch_device = prepare
+        passes.append({"wall_s": wall,
+                       "prep_ms": [a.elapsed_time(b) for (a, b), _ in spans],
+                       "prep_host_ms": [1e3 * h for _, h in spans]})
+    walls = sorted(p["wall_s"] for p in passes)
+    out = {"launches": launches, "e2e_s": float(np.median(walls)),
+           "e2e_range": (walls[0], walls[-1]), "cold_s": cold_s,
+           "buckets": [int(b[0].shape[1]) for b in batches]}
     agree = total = 0
-    for xb, lb, ids, vals in batches:
-        if not (np.isfinite(vals).all() and ids.min() >= 0
-                and ids.max() < nclasses):
+    for xb, lb, ids in batches:
+        xt = torch.as_tensor(xb).to(dev)
+        lt = torch.as_tensor(lb).to(dev)
+        lb = lt.cpu().numpy()
+        ids = torch.as_tensor(ids).cpu().numpy()
+        if not (ids.min() >= 0 and ids.max() < nclasses):
             raise AssertionError("main path produced invalid frames")
-        xt = torch.from_numpy(xb).to(dev)
-        lt = torch.from_numpy(lb).to(dev)
         with torch.no_grad():
             soft, y = plain_forward(ocr.net, xt, lt)
             pids, _ = greedy_frames(soft(y, lt))
@@ -1334,10 +1468,94 @@ def serve(model: str, images, dev, nclasses: int, tmp: str):
         for r, L in enumerate(lb):
             agree += int((pids[r, :L] == ids[r, :L]).sum())
             total += int(L)
-    share = agree / total
-    if share < ID_AGREE_MIN:
-        raise AssertionError(f"frame-id agreement {share:.6f} < {ID_AGREE_MIN}")
-    return launches, batches, e2e_s, share, total
+    if not all(np.isfinite(results[i][2]).all() for i in results):
+        raise AssertionError("main path produced invalid frames")
+    out["share"], out["frames"] = agree / total, total
+    if out["share"] < ID_AGREE_MIN:
+        raise AssertionError(f"frame-id agreement {out['share']:.6f} < "
+                             f"{ID_AGREE_MIN}")
+    if device_preprocess:
+        mismatch = 0
+        for inputs, kw, (_, lengths) in preps:
+            _, cpu_len = prepare(*(t.cpu() for t in inputs), **kw)
+            d = (lengths.cpu() - cpu_len).abs()
+            if int(d.max()) > 1:
+                raise AssertionError(f"card and CPU prepare disagree on a "
+                                     f"length by {int(d.max())} frames")
+            mismatch += int((d > 0).sum())
+        if mismatch > max(1, len(images) // LEN_MISMATCH_LINES):
+            raise AssertionError(f"{mismatch} of {len(images)} lengths differ "
+                                 "between the card's prepare and the CPU's")
+        # Per prepare call (a bucket here): the median over the timed passes
+        # of its span on the card and of the host's time in it; the share
+        # of each pass's wall time the spans take, median over passes; and
+        # the card's busy time in one such call alone (profiler, kernel
+        # activity): busy well under the span means the card waited for
+        # the host between the prepare's kernels.
+        out["prep_ms"] = list(np.median([p["prep_ms"] for p in passes], 0))
+        out["prep_host_ms"] = list(np.median(
+            [p["prep_host_ms"] for p in passes], 0))
+        out["prep_share"] = float(np.median(
+            [sum(p["prep_ms"]) / 1e3 / p["wall_s"] for p in passes]))
+        with torch.no_grad():
+            out["prep_busy_ms"] = []
+            for inputs, kw, _ in preps:
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    prepare(*inputs, **kw)
+                    torch.cuda.synchronize()
+                out["prep_busy_ms"].append(sum(
+                    device_us(e) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3)
+            torch.cuda.synchronize()
+            sleep = torch.cuda.Event(enable_timing=True)
+            woke = torch.cuda.Event(enable_timing=True)
+            sleep.record()
+            torch.cuda._sleep(NOSYNC_CYCLES)
+            woke.record()
+            t0 = time.perf_counter()
+            ocr.predict_batch_images(images[:8], sync=False)
+            out["nosync_ms"] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            out["sleep_ms"] = sleep.elapsed_time(woke)
+        if not out["nosync_ms"] < 0.5 * out["sleep_ms"]:
+            raise AssertionError(
+                f"predict_batch_images(sync=False) took {out['nosync_ms']:.1f}"
+                f" ms behind a {out['sleep_ms']:.1f} ms device sleep: it "
+                "waited for the card")
+        out["len_mismatch"] = mismatch
+    return out
+
+
+def serve_line(tag: str, r: dict, dp: int) -> str:
+    """One log line for a serve() run."""
+    lo, hi = r["e2e_range"]
+    line = (f"[{tag}] device_preprocess={dp}: {N_LINES} lines in "
+            f"{len(r['buckets'])} width buckets ({', '.join(map(str, r['buckets']))}"
+            f" frames), launches { {k: v for k, v in r['launches'].items() if v} }"
+            f", {E2E_PASSES} warm passes: median {r['e2e_s']:.4f} s end to end "
+            f"({N_LINES / r['e2e_s']:.1f} lines/s; range {lo:.4f}-{hi:.4f} s, "
+            f"{N_LINES / hi:.1f}-{N_LINES / lo:.1f} lines/s); cold, the "
+            f"model's first run, {r['cold_s']:.3f} s, "
+            f"{N_LINES / r['cold_s']:.1f} lines/s; frame ids agree with plain on {r['share']:.6f} of "
+            f"{r['frames']} valid frames (min {ID_AGREE_MIN})")
+    if dp:
+        def ms(v):
+            return ", ".join(f"{m:.3f}" for m in v)
+
+        line += (f"; device prepare a bucket, medians of the timed passes: "
+                 f"span on the card {ms(r['prep_ms'])} ms (all buckets "
+                 f"{100 * r['prep_share']:.1f}% of a pass's wall time), host "
+                 f"time in it {ms(r['prep_host_ms'])} ms; card busy in one "
+                 f"such call alone {ms(r['prep_busy_ms'])} ms"
+                 f"; lengths vs the CPU's prepare: "
+                 f"{r['len_mismatch']} of {N_LINES} differ by 1 (max "
+                 f"{max(1, N_LINES // LEN_MISMATCH_LINES)}); "
+                 f"predict_batch_images(sync=False) returned in "
+                 f"{r['nosync_ms']:.2f} ms behind a {r['sleep_ms']:.1f} ms "
+                 "device sleep")
+    return line
 
 
 def train_against_plain(tocr, plain, batch, lr, momentum, tag) -> dict:
@@ -1438,6 +1656,240 @@ def profile_steps(tocr, batch, card, fname, tag):
         "per step: " + "; ".join(f"{kernel_name(e.key)} "
                                  f"{device_us(e) / 2e3:.3f} ms"
                                  for e in top))
+
+
+def check_u8(dev, rng) -> int:
+    """Phase 16: the u8 pixel table on the card against numpy's k/255, bit
+    for bit, and the uint8 and float32 uploads of the same 8-bit lines
+    prepared to the same bits. Returns how many of the 256 values the
+    card's ``x / 255.0`` gets wrong."""
+    ref = preprocess.U8_TABLE.view(np.int32)
+    if not np.array_equal(
+            preprocess.u8_table(dev).cpu().numpy().view(np.int32), ref):
+        raise AssertionError("the u8 table on the card is not numpy's k/255")
+    div = torch.arange(256, dtype=torch.float32, device=dev) / 255.0
+    wrong = int((div.cpu().numpy().view(np.int32) != ref).sum())
+    imgs = [quantized(synth_line(rng)) for _ in range(16)]
+    buf, hs, ws = preprocess.pack_raw_images(imgs)
+    if buf.dtype != np.uint8:
+        raise AssertionError("8-bit lines did not pack as uint8")
+    f32 = buf.astype(np.float32) / np.float32(255.0)
+    hw = (to_device(hs, dev), to_device(ws, dev))
+    xu, lu = preprocess.prepare_batch_device(to_device(buf, dev), *hw)
+    xf, lf = preprocess.prepare_batch_device(to_device(f32, dev), *hw)
+    if not (torch.equal(xu, xf) and torch.equal(lu, lf)):
+        raise AssertionError("uint8 and float32 uploads prepare differently")
+    log(f"[u8] the table is numpy's k/255 bit for bit on the card; the "
+        f"card's x / 255.0 differs from it in {wrong} of 256 values; 16 "
+        "lines prepare to the same bits from the uint8 and float32 uploads")
+    return wrong
+
+
+def write_corpus(path: str, images, texts) -> str:
+    """Lines as PNGs with .gt.txt transcripts and a manifest (the training
+    set layout of clstmocrtrain) -> the manifest's path."""
+    os.makedirs(path)
+    names = []
+    for i, (img, text) in enumerate(zip(images, texts)):
+        base = os.path.join(path, f"line_{i:05d}")
+        write_png(base + ".png", img)
+        with open(base + ".gt.txt", "w", encoding="utf-8") as f:
+            f.write(text + "\n")
+        names.append(base + ".png")
+    with open(os.path.join(path, "manifest.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return os.path.join(path, "manifest.txt")
+
+
+def ocrtrain(dev, tmp: str) -> dict:
+    """Phase 17: clstmocrtrain on a synthetic corpus (see the module
+    docstring), launch counts reset just before the run and read just
+    after. Returns {launches, lines_per_s, loop_s, run_s, trials, pil,
+    busy_share (of the loop), block_enqueue_ms}."""
+    rng = np.random.RandomState(7)
+    letters = [chr(c) for c in range(97, 123)]
+
+    def corpus(n):
+        return ([quantized(synth_line(rng)) for _ in range(n)],
+                ["".join(rng.choice(letters, rng.randint(5, 31)))
+                 for _ in range(n)])
+
+    train_set, test_set = corpus(OCR_TRAIN), corpus(OCR_TEST)
+    save_name = os.path.join(tmp, "ocrtrain")
+    env = dict(OCR_ENV, save_name=save_name, log_jsonl=save_name + ".jsonl")
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    seen = {}
+    loop = clstmocrtrain.train
+
+    def timed_loop(ocr, codec, **kw):
+        """The CLI's loop, timed, under kernel-activity tracing (the card's
+        busy time; the host's own work is not traced)."""
+        seen.update(kw, ocr=ocr, codec=codec)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            seen["trials"] = loop(ocr, codec, **kw)
+            torch.cuda.synchronize()
+            seen["loop_s"] = time.perf_counter() - t0
+        seen["busy_s"] = sum(
+            device_us(e) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        return seen["trials"]
+
+    printed = io.StringIO()
+    saved_env = {k: os.environ.get(k) for k in env}
+    clstmocrtrain.train = timed_loop
+    os.environ.update(env)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            if have_pil:
+                clstmocrtrain.main([
+                    write_corpus(os.path.join(tmp, name), *data)
+                    for name, data in (("train", train_set),
+                                       ("test", test_set))])
+            else:
+                ocr = CLSTMOCR(device=dev)
+                codec = Codec.build(train_set[1])
+                ocr.createBidi(codec, H, seed=0)
+                caches = [DeviceDataset.from_images(
+                    imgs, texts, codec, device=dev, t_buckets=T_BUCKETS_FINE,
+                    merge_sb=True) for imgs, texts in (train_set, test_set)]
+                timed_loop(ocr, codec, save_name=save_name,
+                           ntrain=int(env["ntrain"]),
+                           batch_size=int(env["batch_size"]),
+                           report_every=int(env["report_every"]),
+                           save_every=int(env["save_every"]),
+                           test_every=int(env["test_every"]),
+                           log_jsonl=env["log_jsonl"], dcache=caches[0],
+                           test_cache=caches[1])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        clstmocrtrain.train = loop
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    text = printed.getvalue()
+    for ln in text.splitlines():
+        log(f"[ocrtrain] | {ln}")
+    if not have_pil:
+        log("[ocrtrain] pillow is not installed: the corpus was built from "
+            "raw arrays (DeviceDataset.from_images) and the CLI's loop "
+            "driven directly; PNG decoding was not exercised")
+    testerr = [float(ln.split()[2]) for ln in text.splitlines()
+               if ln.startswith("TESTERR ")]
+    if not testerr or not all(np.isfinite(e) and e >= 0 for e in testerr):
+        raise AssertionError(f"clstmocrtrain printed no valid TESTERR line: "
+                             f"{testerr}")
+    want = ("bidi_lstm_fwd_state", "bidi_lstm_bwd_chain",
+            "bidi_lstm_bwd_reduce", "ctc_forward", "ctc_both")
+    if min(launches[k] for k in want) < 1:
+        raise AssertionError(f"clstmocrtrain skipped a kernel: {launches}")
+    ocr, codec = seen["ocr"], seen["codec"]
+    dcache, test_cache = seen["dcache"], seen["test_cache"]
+    last = save_name + "-last.clstm"
+
+    def reload():
+        m = CLSTMOCR(device=dev)
+        m.load(last)
+        return m
+
+    batch = next(test_cache.epoch(int(env["batch_size"])))
+    ids, _ = ocr.predict_batch(batch["x"], batch["lengths"])
+    if not np.array_equal(ids, reload().predict_batch(batch["x"],
+                                                      batch["lengths"])[0]):
+        raise AssertionError("the saved model predicts other ids")
+    # A k=4 block against 4 single steps over the same plan, from the
+    # same saved state: the same kernels in the same order, bitwise.
+    a, b = reload(), reload()
+    blocks = (bl for bl in dcache.epoch_blocks(
+        int(env["batch_size"]), 4, rng=np.random.RandomState(1), epochs=64)
+        if bl["k"] == 4)
+    block = next(blocks)
+    j0 = block["j"]
+    ma = a.train_batch_block(block)
+    reps = [b.train_batch_refs({"group": block["group"],
+                                "idx_all": block["idx_all"], "j": j0 + s,
+                                "set_j": lambda j: None})["report"]
+            for s in range(4)]
+    same = torch.equal(ma["report_all"], torch.stack(reps)) and all(
+        torch.equal(p, q) and torch.equal(a.state.velocity[n],
+                                          b.state.velocity[n])
+        for (n, p), q in zip(a.net.named_parameters(), b.net.parameters()))
+    if not same:
+        raise AssertionError("a k=4 block differs from 4 single steps")
+    # The path's kernels at its own shapes (B=32, a T_BUCKETS_FINE bucket,
+    # S merged over the group) against their plain versions: the block's
+    # first batch, 5 kernel steps against 5 plain steps, both from the
+    # saved model, within the limits of phase 9.
+    g = block["group"]
+    kocr = reload()
+    plain_launches = train_against_plain(
+        kocr, reload().state, gather_batch(g, block["idx_all"][j0]), kocr.lr,
+        kocr.momentum, f"ocrtrain B={env['batch_size']} T={g['tb']} "
+        f"S={g['sb']}")
+    if min(plain_launches[k] for k in want) < 1:
+        raise AssertionError(f"the steps against plain skipped a kernel: "
+                             f"{plain_launches}")
+    del kocr
+    # The next block behind a device sleep: its steps must be enqueued
+    # without waiting for the card (a copy from pageable memory inside a
+    # step waits for every kernel queued before it).
+    torch.cuda.synchronize()
+    sleep = torch.cuda.Event(enable_timing=True)
+    woke = torch.cuda.Event(enable_timing=True)
+    sleep.record()
+    torch.cuda._sleep(NOSYNC_CYCLES)
+    woke.record()
+    t0 = time.perf_counter()
+    a.train_batch_block(next(blocks))
+    nosync_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = sleep.elapsed_time(woke)
+    if not nosync_ms < 0.5 * sleep_ms:
+        raise AssertionError(f"a k=4 block took {nosync_ms:.1f} ms behind a "
+                             f"{sleep_ms:.1f} ms device sleep: a step waited "
+                             "for the card")
+    # What such a copy costs: a device scalar made from a Python number
+    # (as the CTC alignment once did every step) behind the sleep.
+    torch.cuda._sleep(NOSYNC_CYCLES)
+    t0 = time.perf_counter()
+    torch.tensor(-1e30, device=dev)
+    scalar_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    busy = seen["busy_s"] / seen["loop_s"]
+    out = {"launches": {k: v for k, v in launches.items() if v},
+           "trials": seen["trials"], "loop_s": seen["loop_s"],
+           "run_s": run_s, "lines_per_s": seen["trials"] / seen["loop_s"],
+           "pil": have_pil, "busy_share": busy if seen["busy_s"] else None,
+           "block_enqueue_ms": nosync_ms, "pageable_scalar_ms": scalar_ms}
+    log(f"[ocrtrain] {OCR_TRAIN} training and {OCR_TEST} test lines, bidi "
+        f"48/{H}/{codec.size()}, B={env['batch_size']}, K="
+        f"{clstmocrtrain.auto_steps_per_dispatch(int(env['batch_size']), int(env['save_every']), int(env['test_every']), True)}: "
+        f"{seen['trials']} trials in {seen['loop_s']:.3f} s of loop "
+        f"({out['lines_per_s']:.1f} lines/s end to end, tests and saves "
+        f"included), {run_s:.3f} s with the corpus build "
+        f"({'PNG decode and ' if have_pil else ''}prepare on the card); card "
+        + (f"busy {1e3 * seen['busy_s']:.3f} ms of the loop "
+           f"({100 * busy:.1f}%), idle {100 * (1 - busy):.1f}% (the host's "
+           "share)" if seen["busy_s"] else
+           "busy time not measured (no device rows)")
+        + f"; launches {out['launches']}; TESTERR {testerr}; the saved model "
+        "reloads and predicts the same ids; 5 steps on a batch of the path "
+        "agree with the plain steps (above); a k=4 block equals 4 single "
+        f"steps bitwise, and another returned in {nosync_ms:.2f} ms behind a "
+        f"{sleep_ms:.1f} ms device sleep; torch.tensor(-1e30, device=cuda) "
+        f"took {scalar_ms:.2f} ms behind the same sleep")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1572,23 +2024,22 @@ def main(argv=None) -> int:
     spec, net = make_net_init("bidi", {"ninput": D, "nhidden": H,
                                        "noutput": C, "initial": 0.3}, gen)
     codec = Codec([0] + list(range(33, 33 + C - 1)))
-    images = [synth_line(rng) for _ in range(N_LINES)]
+    # k/255 pixels, as PNG decoding gives: the card's prepare takes the
+    # uint8 upload.
+    images = [quantized(synth_line(rng)) for _ in range(N_LINES)]
     with tempfile.TemporaryDirectory() as tmp:
         model = os.path.join(tmp, "bidi.clstm")
         save_net(model, net, codec)
-        served, batches, e2e_s, share, total = serve(model, images, dev, C,
-                                                     tmp)
-    launches = served["bidi_lstm_infer"]
-    if launches < 1 or launches != len(batches) or served[
-            "bidi_lstm_infer_xz"]:
-        raise AssertionError(f"main path launched K3 {launches} times for "
-                             f"{len(batches)} batches: {served}")
-    log(f"[main] {N_LINES} lines in {len(batches)} width buckets "
-        f"({', '.join(str(b[0].shape[1]) for b in batches)} frames), "
-        f"{launches} kernel launches, {e2e_s:.3f} s end to end "
-        f"({N_LINES / e2e_s:.1f} lines/s incl. host normalization); "
-        f"frame ids agree with plain on {share:.6f} of {total} valid frames "
-        f"(min {ID_AGREE_MIN})")
+        served = {dp: serve(model, images, dev, C, tmp, dp) for dp in (0, 1)}
+    for dp, r in served.items():
+        n = r["launches"]
+        if n["bidi_lstm_infer"] != len(r["buckets"]) or n[
+                "bidi_lstm_infer_xz"]:
+            raise AssertionError(f"main path (device_preprocess={dp}) "
+                                 f"launched {n} for {len(r['buckets'])} "
+                                 "buckets: K3 once a bucket")
+        log(serve_line("main", r, dp))
+    launches = served[1]["launches"]["bidi_lstm_infer"]
 
     # 6. K1 against plain: bench profile (both length sets), odd shapes.
     k1_err, k1_state = 0.0, {}
@@ -2035,21 +2486,17 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         model2 = os.path.join(tmp, "bidi2.clstm")
         maker.save(model2, sidecar=False)
-        served2, batches2, e2e2_s, share2, total2 = serve(model2, images, dev,
-                                                          C2, tmp)
+        served2 = {dp: serve(model2, images, dev, C2, tmp, dp)
+                   for dp in (0, 1)}
     del maker
-    nb2 = len(batches2)
-    if not served2["bidi_lstm_infer"] == served2["bidi_lstm_infer_xz"] == nb2:
-        raise AssertionError(f"bidi2 serving: {nb2} buckets, launches "
-                             f"{served2}: each bucket must launch K3 on layer "
-                             f"1 and K4 on layer 2")
-    log(f"[bidi2 main] {N_LINES} lines in {nb2} width buckets "
-        f"({', '.join(str(b[0].shape[1]) for b in batches2)} frames), K3 "
-        f"launches {served2['bidi_lstm_infer']}, K4 launches "
-        f"{served2['bidi_lstm_infer_xz']}, {e2e2_s:.3f} s end to end "
-        f"({N_LINES / e2e2_s:.1f} lines/s incl. host normalization); frame "
-        f"ids agree with plain on {share2:.6f} of {total2} valid frames (min "
-        f"{ID_AGREE_MIN})")
+    for dp, r in served2.items():
+        n, nb2 = r["launches"], len(r["buckets"])
+        if not n["bidi_lstm_infer"] == n["bidi_lstm_infer_xz"] == nb2:
+            raise AssertionError(f"bidi2 serving (device_preprocess={dp}): "
+                                 f"{nb2} buckets, launches {n}: each bucket "
+                                 "must launch K3 on layer 1 and K4 on layer 2")
+        log(serve_line("bidi2 main", r, dp))
+    served2 = served2[1]["launches"]
 
     # 15. bidi2 training at the config-4 bench profile (bench.py:538-600).
     batch2 = bench_batch(np.random.RandomState(0), dev, C2)
@@ -2136,7 +2583,16 @@ def main(argv=None) -> int:
     profile_steps(tocr2, batch2, card, "profile_train_step_bidi2.txt",
                   "profile bidi2")
 
-    # 16. Report. bound_ms from this run's shapes and valid frames (lengths
+    del tocr2, batch2
+
+    # 16. The u8 pixel table on the card.
+    check_u8(dev, np.random.RandomState(4))
+
+    # 17. clstmocrtrain at full bidi width on a synthetic corpus.
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = ocrtrain(dev, tmp)
+
+    # 18. Report. bound_ms from this run's shapes and valid frames (lengths
     # 900 at both bench shapes); library_ms a library call timed in turns
     # with the kernel above, or None where no one call computes the same
     # function.
@@ -2259,6 +2715,28 @@ def main(argv=None) -> int:
     extra["ctc_both (K6)"]["aligned_vs_float64"] = {
         str(t_): {k: v for k, v in a.items() if k != "k6b_launches"}
         for t_, a in aligns.items()}
+    # The serving rows also carry clstmocr both ways (lines/s, launches,
+    # the card's prepare per bucket); the training rows their launches in
+    # the clstmocrtrain run.
+    extra["bidi_lstm_fwd (K3)"]["clstmocr"] = {
+        f"device_preprocess={dp}": dict(
+            lines_per_s=N_LINES / r["e2e_s"],
+            lines_per_s_range=[N_LINES / r["e2e_range"][1],
+                               N_LINES / r["e2e_range"][0]],
+            cold_lines_per_s=N_LINES / r["cold_s"],
+            launches=r["launches"]["bidi_lstm_infer"],
+            **({"prepare_span_ms": r["prep_ms"],
+                "prepare_host_ms": r["prep_host_ms"],
+                "prepare_busy_ms": r["prep_busy_ms"],
+                "prepare_share": r["prep_share"]} if dp else {}))
+        for dp, r in served.items()}
+    for name, key in (("bidi_lstm_fwd_state (K1)", "bidi_lstm_fwd_state"),
+                      ("bidi_lstm_bwd_chain (K2)", "bidi_lstm_bwd_chain"),
+                      ("bidi_lstm_bwd_reduce (K2)", "bidi_lstm_bwd_reduce"),
+                      ("ctc_forward (K5)", "ctc_forward"),
+                      ("ctc_both (K6)", "ctc_both")):
+        extra.setdefault(name, {})["clstmocrtrain_launches"] = \
+            trained["launches"].get(key, 0)
     kernels = []
     for name, src, rep, n, err, rel, (km, pm), (bms, bby), lms in entries:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -10,8 +10,8 @@ Env params:
   dewarp=center     normalizer kind; target_height is the model's input size
   device=cuda       torch device; if CUDA is asked for and absent, this
                     raises rather than running on the CPU
-  device_preprocess=0  host scipy normalization (the only path ported so
-                    far; 1 raises NotImplementedError)
+  device_preprocess=1  run the normalization/transposition on the device
+                    (ops/preprocess.py); 0 = host scipy path
 All given images are bucketed by width and run as batches, not one by one.
 """
 
@@ -25,17 +25,15 @@ from clstm_tpu_torch.data.dataset import T_BUCKETS, bucket_for
 from clstm_tpu_torch.io.png import read_png
 from clstm_tpu_torch.models.hl import CLSTMOCR
 from clstm_tpu_torch.ops.ctc import decode_frames
-from clstm_tpu_torch.utils.config import getienv, getsenv
+from clstm_tpu_torch.ops.preprocess import estimate_out_T
+from clstm_tpu_torch.utils.config import HostCopy, getienv, getsenv
 
 
-def predict_pages(ocr: CLSTMOCR, images, device_preprocess: int = 0) -> dict:
+def predict_pages(ocr: CLSTMOCR, images, device_preprocess: int = 1) -> dict:
     """The CLI's bucketed batched page-inference core: -> {image index:
     (frame classes, peak positions, frame vals, width scale)}."""
     if device_preprocess:
-        raise NotImplementedError(
-            "device_preprocess=1 (on-device line normalization, "
-            "clstm_tpu/ops/preprocess.py) is not ported yet; use "
-            "device_preprocess=0")
+        return _predict_pages_device(ocr, images)
     results: dict = {}
     prepared = []
     scales = []
@@ -61,6 +59,35 @@ def predict_pages(ocr: CLSTMOCR, images, device_preprocess: int = 0) -> dict:
             cls, pos = decode_frames(ids[r][:L], vals[r][:L],
                                      return_positions=True)
             results[i] = (cls, pos, vals[r], scales[i])
+    return results
+
+
+def _predict_pages_device(ocr: CLSTMOCR, images) -> dict:
+    """predict_pages with the normalization on the device: raw lines are
+    bucketed by their ESTIMATED normalized width, one upload, prepare and
+    predict per bucket. Two phases: every bucket is enqueued, its results
+    copied back into pinned buffers without waiting, before any is read, so
+    the buckets' uploads, compute and copies overlap; then each bucket is
+    waited for once and decoded."""
+    by_bucket: dict = {}
+    for i, img in enumerate(images):
+        tb = bucket_for(estimate_out_T([img], ocr.target_height, ocr.pad),
+                        T_BUCKETS)
+        by_bucket.setdefault(tb, []).append(i)
+    pending = []
+    for idxs in by_bucket.values():
+        out = ocr.predict_batch_images([images[i] for i in idxs], sync=False)
+        pending.append((idxs, [HostCopy(t) for t in out]))
+    results: dict = {}
+    for idxs, copies in pending:
+        ids, vals, lengths = (c.numpy() for c in copies)
+        for r, i in enumerate(idxs):
+            L = int(lengths[r])
+            cls, pos = decode_frames(ids[r][:L], vals[r][:L],
+                                     return_positions=True)
+            # width scale: normalized cols per source col
+            scale = max(L - 2 * ocr.pad, 1) / max(images[i].shape[1], 1)
+            results[i] = (cls, pos, vals[r], scale)
     return results
 
 
@@ -98,7 +125,7 @@ def main(argv=None) -> int:
     output = getsenv("output", "text")
     charseg = getienv("charseg", 0)
     dewarp = getsenv("dewarp", "center")
-    device_preprocess = getienv("device_preprocess", 0)
+    device_preprocess = getienv("device_preprocess", 1)
 
     ocr = CLSTMOCR(dewarp=dewarp, device=getsenv("device", "cuda"))
     ocr.load(load)

@@ -1,21 +1,27 @@
-"""Line preparation, width buckets and target-length buckets (port of part
-of clstm_tpu/data/dataset.py).
+"""OCR dataset pipeline: manifests, line preparation, width-bucketed batches
+(port of clstm_tpu/data/dataset.py).
 
-Line preparation matches the ocropy/reference recipe (clstmhl.h ≈L120):
-invert (ink high), measure+normalize, rescale to [0,1], transpose to
-time-major, pad blank frames on both sides. Lines are grouped into the same
-geometric width buckets as the JAX package, so both packages pad a page the
-same way.
+A manifest file lists PNG line images; transcripts live in sibling .gt.txt
+files (the reference's clstmocrtrain layout). Line preparation matches the
+ocropy/reference recipe (clstmhl.h ≈L120): invert (ink high),
+measure+normalize, rescale to [0,1], transpose to time-major, pad blank
+frames on both sides. Lines are grouped into the same geometric width
+buckets as the JAX package, so both packages pad a page and batch a corpus
+the same way; target state counts are bucketed alike.
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from clstm_tpu_torch.io.normalize import INormalizer
+from clstm_tpu_torch.io.normalize import INormalizer, make_normalizer
+from clstm_tpu_torch.io.png import read_png
+from clstm_tpu_torch.models.codec import Codec
+from clstm_tpu_torch.ops.ctc import mktargets_ids
+from clstm_tpu_torch.utils.text import read_text
 
 # Geometric width buckets (frames, after padding); lines wider than the
 # last bucket are truncated to it.
@@ -23,6 +29,42 @@ T_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096)
 # Target-state buckets (S = 2N+1 CTC states, padded up): S up to 512 covers
 # transcripts up to 255 characters.
 S_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512)
+# Finer width grid of the device-cache training path, used with groups
+# merged over S (DeviceDataset merge_sb): the JAX package's measured
+# default there (BASELINE.md:541-562).
+T_BUCKETS_FINE = (128, 160, 192, 224, 256, 320, 384, 448, 512, 640, 768,
+                  896, 1024, 1280, 1536, 2048, 3072, 4096)
+
+
+def count_truncations(samples, codec: Codec,
+                      t_buckets: Sequence[int] = T_BUCKETS,
+                      s_buckets: Sequence[int] = S_BUCKETS):
+    """-> (frames_truncated, targets_truncated): lines whose prepared width
+    exceeds the largest T bucket (input frames cut by _emit's clamp) or
+    whose blank-interleaved target exceeds the largest S bucket (the model
+    trains toward a truncated transcript). The CLI prints
+    truncation_report when either is nonzero."""
+    t_over = s_over = 0
+    for x, text in samples:
+        if x.shape[0] > t_buckets[-1]:
+            t_over += 1
+        if 2 * len(codec.encode(text)) + 1 > s_buckets[-1]:
+            s_over += 1
+    return t_over, s_over
+
+
+def truncation_report(t_over: int, s_over: int,
+                      t_buckets: Sequence[int] = T_BUCKETS,
+                      s_buckets: Sequence[int] = S_BUCKETS) -> str:
+    parts = []
+    if t_over:
+        parts.append(f"{t_over} line(s) wider than {t_buckets[-1]} frames "
+                     "(input truncated)")
+    if s_over:
+        parts.append(f"{s_over} transcript(s) longer than "
+                     f"{(s_buckets[-1] - 1) // 2} chars (TARGET truncated "
+                     "— trains toward the wrong string)")
+    return "; ".join(parts)
 
 
 def prepare_line(img: np.ndarray, normalizer: INormalizer,
@@ -44,3 +86,113 @@ def bucket_for(value: int, buckets: Sequence[int]) -> int:
     """Smallest bucket >= value (last bucket if value exceeds all)."""
     i = bisect.bisect_left(buckets, value)
     return buckets[min(i, len(buckets) - 1)]
+
+
+class OcrDataset:
+    """Manifest of PNG line images with .gt.txt transcripts."""
+
+    def __init__(self, manifest: str, target_height: int = 48,
+                 dewarp: str = "center", pad: int = 16):
+        with open(manifest) as f:
+            self.files = [ln.strip() for ln in f if ln.strip()]
+        self.target_height = target_height
+        self.dewarp = dewarp
+        self.pad = pad
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def gt_path(self, i: int) -> str:
+        base = self.files[i]
+        for ext in (".png", ".jpg", ".jpeg", ".pgm", ".pbm"):
+            if base.endswith(ext):
+                base = base[: -len(ext)]
+                break
+        return base + ".gt.txt"
+
+    def text(self, i: int) -> str:
+        return read_text(self.gt_path(i))
+
+    def texts(self) -> List[str]:
+        return [self.text(i) for i in range(len(self))]
+
+    def build_codec(self) -> Codec:
+        return Codec.build(self.texts())
+
+    def load(self, i: int) -> Tuple[np.ndarray, str]:
+        """-> (prepared input [T, H], transcript)."""
+        img = read_png(self.files[i])
+        norm = make_normalizer(self.dewarp, self.target_height)
+        return prepare_line(img, norm, self.pad), self.text(i)
+
+    def load_all(self) -> List[Tuple[np.ndarray, str]]:
+        """Load and prepare every line on the host (PIL decode, scipy
+        normalization). The JAX package's native threaded decoder
+        (native/clstm_io.cc) has no binding in the port yet."""
+        return [self.load(i) for i in range(len(self))]
+
+
+def make_batches(samples: Sequence[Tuple[np.ndarray, str]], codec: Codec,
+                 batch_size: int,
+                 t_buckets: Sequence[int] = T_BUCKETS,
+                 s_buckets: Sequence[int] = S_BUCKETS,
+                 rng: Optional[np.random.RandomState] = None,
+                 drop_remainder: bool = False) -> Iterator[dict]:
+    """Group prepared (x [T,H], text) samples into bucketed padded batches.
+
+    Yields {"x": [B,Tb,H], "lengths": [B], "targets": [B,Sb],
+    "target_lengths": [B], "texts": list[str]} with B <= batch_size and all
+    rows in a batch sharing the same (Tb, Sb) bucket.
+    """
+    groups: dict = {}
+    order = np.arange(len(samples))
+    if rng is not None:
+        rng.shuffle(order)
+    for idx in order:
+        x, text = samples[idx]
+        classes = codec.encode(text)
+        tb = bucket_for(x.shape[0], t_buckets)
+        sb = bucket_for(2 * len(classes) + 1, s_buckets)
+        groups.setdefault((tb, sb), []).append((x, text, classes))
+        if len(groups[(tb, sb)]) == batch_size:
+            yield _emit(groups.pop((tb, sb)), tb, sb)
+    if not drop_remainder:
+        for (tb, sb), items in groups.items():
+            yield _emit(items, tb, sb)
+
+
+def _emit(items: list, tb: int, sb: int) -> dict:
+    B = len(items)
+    H = items[0][0].shape[1]
+    x = np.zeros((B, tb, H), np.float32)
+    lengths = np.zeros(B, np.int32)
+    targets = np.zeros((B, sb), np.int32)
+    tlens = np.zeros(B, np.int32)
+    texts = []
+    for b, (xi, text, classes) in enumerate(items):
+        T = min(xi.shape[0], tb)
+        x[b, :T] = xi[:T]
+        lengths[b] = T
+        ids = mktargets_ids(classes)
+        S = min(len(ids), sb)
+        targets[b, :S] = ids[:S]
+        tlens[b] = S
+        texts.append(text)
+    return {"x": x, "lengths": lengths, "targets": targets,
+            "target_lengths": tlens, "texts": texts}
+
+
+def pad_batch_rows(batch: dict, batch_size: int) -> dict:
+    """Right-pad a short batch to ``batch_size`` rows (zero lengths mask the
+    dummy rows out of loss and decode)."""
+    B = len(batch["lengths"])
+    if B == batch_size:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if k == "texts":
+            out[k] = list(v) + [""] * (batch_size - B)
+        else:
+            pad = [(0, batch_size - B)] + [(0, 0)] * (v.ndim - 1)
+            out[k] = np.pad(v, pad)
+    return out

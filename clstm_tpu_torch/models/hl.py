@@ -4,9 +4,12 @@ Reference: clstmhl.h (≈L1-350, unverified). ``CLSTMOCR`` owns the line
 normalizer and the image->sequence transpose; ``train_utf8``,
 ``predict_utf8`` and ``predict`` are the reference's single-line methods and
 ``train_batch`` / ``predict_batch`` the batched entry points they route
-through. ``save``/``load`` write and read the .clstm file and, beside it,
-the ``.state.npz`` TrainState sidecar (io/checkpoint.py). CLSTMText, the
-device-cache training entry points and the mesh are not ported yet.
+through. ``train_batch_refs`` / ``train_batch_block`` train on batches
+gathered from a device-resident corpus (data/device_cache.py), and
+``predict_batch_images`` runs the line normalization on the device too
+(ops/preprocess.py). ``save``/``load`` write and read the .clstm file and,
+beside it, the ``.state.npz`` TrainState sidecar (io/checkpoint.py).
+CLSTMText and the mesh are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,7 +31,10 @@ from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.prefab import make_net_init
 from clstm_tpu_torch.models.spec import Layer, NetSpec, apply_net
 from clstm_tpu_torch.ops.ctc import decode_frames, greedy_frames, mktargets_ids
-from clstm_tpu_torch.train import TrainState, make_train_step, unpack_report
+from clstm_tpu_torch.ops.preprocess import estimate_out_T, prepare_images
+from clstm_tpu_torch.train import (
+    TrainState, make_cached_train_step, make_multi_train_step,
+    make_train_step, unpack_report)
 from clstm_tpu_torch.utils.config import torch_device
 
 _clamp_warned = False
@@ -45,6 +51,18 @@ def _warn_inference_clamp(T: int, tb: int) -> None:
             f"inference input of {T} frames exceeds the largest bucket "
             f"({tb}); output is truncated to the first {tb} frames",
             stacklevel=3)
+
+
+def _canon_dewarp(kind: str) -> str:
+    """CLI dewarp spellings -> ops/preprocess kind (mirrors make_normalizer)."""
+    k = (kind or "center").lower()
+    if k in ("center", "dewarp"):
+        return "center"
+    if k in ("mean",):
+        return "mean"
+    if k in ("none", "no"):
+        return "none"
+    raise ValueError(f"unknown normalizer: {kind!r}")
 
 
 @dataclasses.dataclass
@@ -80,7 +98,14 @@ class CLSTMOCR:
         self.momentum = 0.9
         self.normalization = "none"
         self.gradient_clip = 0.0   # >0 enables global-norm clipping
+        self.augment = 0.0         # >0 enables on-device augmentation
+        self._reset_steps()
+
+    def _reset_steps(self) -> None:
+        """Forget the built steps (a new net, or new step options)."""
         self._step = None
+        self._cached_step = None
+        self._multi_steps = {}
 
     @property
     def net(self) -> Optional[Layer]:
@@ -103,7 +128,7 @@ class CLSTMOCR:
         self.spec, net = make_net_init(
             kind, args, torch.Generator().manual_seed(seed), self.device)
         self.state = TrainState.create(net)
-        self._step = None
+        self._reset_steps()
 
     # -- checkpointing (reference save/load; .clstm proto format) --
     def save(self, fname: str, sidecar: bool = True) -> None:
@@ -129,24 +154,66 @@ class CLSTMOCR:
             self.codec = codec
         if icodec is not None:
             self.icodec = icodec
-        self._step = None
+        self._reset_steps()
 
     # -- training --
     _BATCH_KEYS = ("x", "lengths", "targets", "target_lengths", "y")
+
+    def _step_options(self) -> dict:
+        return {"loss_kind": "ctc", "normalization": self.normalization,
+                "gradient_clip": self.gradient_clip, "augment": self.augment}
 
     def train_batch(self, batch: dict) -> dict:
         """One CTC training step on a prepared batch dict of numpy arrays
         (or tensors) {x, lengths, targets, target_lengths}. Returns metrics
         {loss, frame_ids, frame_vals, report_ids, report_vals, report}."""
         if self._step is None:
-            self._step = make_train_step(
-                self.spec, self.lr, self.momentum, loss_kind="ctc",
-                normalization=self.normalization,
-                gradient_clip=self.gradient_clip)
+            self._step = make_train_step(self.spec, self.lr, self.momentum,
+                                         **self._step_options())
         tb = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
               if k in self._BATCH_KEYS}
         self.state, metrics = self._step(self.state, tb, self.lr,
                                          self.momentum)
+        return metrics
+
+    def train_batch_refs(self, ref: dict) -> dict:
+        """One training step on a DeviceDataset.epoch_refs batch: the rows
+        are gathered from the resident corpus on the device. Metrics as
+        train_batch."""
+        if self._cached_step is None:
+            self._cached_step = make_cached_train_step(
+                self.spec, self.lr, self.momentum, **self._step_options())
+        self.state, metrics, new_j = self._cached_step(
+            self.state, ref["group"], ref["idx_all"], ref["j"], self.lr,
+            self.momentum)
+        ref["set_j"](new_j)
+        return metrics
+
+    def train_batch_block(self, block: dict, k_max: int = 0,
+                          nvalid: Optional[int] = None) -> dict:
+        """The ``block['k']`` consecutive batches of a
+        DeviceDataset.epoch_blocks block in one call
+        (train.make_multi_train_step), reports returned together.
+
+        ``k_max`` (the CLI's steps_per_dispatch) sizes the reports; shorter
+        (remainder) blocks run as many steps as they hold. ``nvalid``
+        (optional) runs only the first min(nvalid, k) batches — the CLI's
+        ntrain budget clamp — and marks the block's plan exhausted, since
+        its counter no longer matches the host's plan position.
+        Returns metrics {loss, report, report_all [max(k_max, k), 1+2T]}."""
+        k = max(k_max, block["k"])
+        step = self._multi_steps.get(k)
+        if step is None:
+            step = make_multi_train_step(self.spec, k, self.lr, self.momentum,
+                                         **self._step_options())
+            self._multi_steps[k] = step
+        nv = block["k"] if nvalid is None else max(1, min(nvalid, block["k"]))
+        self.state, metrics, new_j = step(
+            self.state, block["group"], block["idx_all"], block["j"],
+            nvalid=nv, lr_arg=self.lr, momentum_arg=self.momentum)
+        block["set_j"](new_j)
+        if nv < block["k"] and "exhaust" in block:
+            block["exhaust"]()
         return metrics
 
     def _one_line_batch(self, x: np.ndarray, classes: Sequence[int]) -> dict:
@@ -181,15 +248,42 @@ class CLSTMOCR:
         return x
 
     # -- inference --
-    def predict_batch(self, x: np.ndarray, lengths: np.ndarray):
-        """Right-padded [B, T, H] lines and their lengths -> per-frame
-        (ids [B, T], vals [B, T]) numpy arrays: the no-grad forward on the
-        model's device, then the per-frame argmax."""
-        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
-        lt = torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(self.device)
-        probs = apply_net(self.net, xt, lt, inference=True)
+    def predict_batch(self, x, lengths):
+        """Right-padded [B, T, H] lines and their lengths (numpy, or
+        tensors on the model's device) -> per-frame (ids [B, T], vals
+        [B, T]) numpy arrays: the no-grad forward on the model's device,
+        then the per-frame argmax."""
+        xt = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        lt = torch.as_tensor(lengths, dtype=torch.int32).to(self.device)
+        probs = apply_net(self.net, xt.contiguous(), lt, inference=True)
         ids, vals = greedy_frames(probs)
         return ids.cpu().numpy(), vals.cpu().numpy()
+
+    def predict_batch_images(self, images: Sequence[np.ndarray],
+                             sync: bool = True):
+        """Batched inference from RAW line images with the normalization and
+        transposition on the device (ops/preprocess.py prepare_images): the
+        raw lines are packed (uint8 where they are 8-bit), uploaded and
+        prepared in chunks of at most PREPARE_CHUNK lines, which bounds the
+        prepare's memory, and predicted on the device as one batch.
+
+        -> (ids [B, T], vals [B, T], lengths [B]) numpy arrays; with
+        ``sync=False``, tensors on the device, returned without waiting for
+        it: the upload goes through pinned memory and nothing here reads a
+        result back, so a caller can enqueue several batches before it
+        reads any (clstmocr.predict_pages).
+        """
+        est_T = estimate_out_T(images, self.target_height, self.pad)
+        tb = bucket_for(est_T, T_BUCKETS)
+        _warn_inference_clamp(est_T, tb)
+        x, lengths = prepare_images(
+            list(images), self.device, kind=_canon_dewarp(self.dewarp),
+            target_height=self.target_height, out_T=tb, pad=self.pad)
+        ids, vals = greedy_frames(apply_net(self.net, x, lengths,
+                                            inference=True))
+        if not sync:
+            return ids, vals, lengths
+        return ids.cpu().numpy(), vals.cpu().numpy(), lengths.cpu().numpy()
 
     def _predict_one(self, x: np.ndarray):
         tb = bucket_for(x.shape[0], T_BUCKETS)

@@ -115,7 +115,7 @@ def ctc_both_plain(lmatch: torch.Tensor, lr: torch.Tensor,
     L = lengths.to(dev).clamp(0, T)[:, None]
     TL = target_lengths.to(dev)[:, None]
     col = torch.arange(S, device=dev)[None, :]
-    neg = torch.tensor(NEG, dtype=dt, device=dev)
+    neg = torch.full((), NEG, dtype=dt, device=dev)
     u = torch.where(col < TL, (skip * (TL - 1 - col)).to(dt), neg)
     bcol = col == TL - 1
     m = torch.full((B, S), NEG, dtype=dt, device=dev)
@@ -217,7 +217,7 @@ def ctc_align_targets_batched(
     idx = target_ids.long()
     gathered = torch.gather(out, 2, idx[:, None, :].expand(B, T, S))
     lmatch = torch.where(svalid[:, None, :], torch.log(gathered),
-                         torch.tensor(NEG, dtype=dt, device=dev))
+                         torch.full((), NEG, dtype=dt, device=dev))
 
     if fused:
         # Imported here: ops/ctc_kernel.py imports this module's plain
@@ -234,7 +234,7 @@ def ctc_align_targets_batched(
         lr = _forward_scan(lmatch, tvalid, skip)
         rl = _backward_dp(lmatch, tvalid, lengths, target_lengths, skip,
                           use_kernel)
-        neg = torch.tensor(NEG, dtype=dt, device=dev)
+        neg = torch.full((), NEG, dtype=dt, device=dev)
         both = torch.where(tvalid[:, :, None], lr + rl, neg)
         both = torch.where(svalid[:, None, :], both, neg)
         m = both.amax(dim=(1, 2), keepdim=True)

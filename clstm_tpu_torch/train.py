@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from clstm_tpu_torch.models.spec import Layer, NetSpec, apply_net
 from clstm_tpu_torch.ops.ctc import ctc_align_targets_batched, greedy_frames
+from clstm_tpu_torch.ops.preprocess import augment_generator, augment_lines
 from clstm_tpu_torch.ops.seq import length_mask
 
 
@@ -161,20 +162,26 @@ def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
     (state, metrics): lr and momentum are read at each call (reference
     setLearningRate). metrics carries the scalar loss, the per-frame argmax
     ids/probs [B, T], row 0's ids/probs, and ``report``, those three packed
-    into one f32 vector. gradient_clip > 0 enables global-norm clipping.
+    into one f32 vector. gradient_clip > 0 enables global-norm clipping;
+    augment > 0 distorts each batch on the device first (augment_lines).
     ``spec`` names the topology the step is built for; the state's net must
-    have it. compute_dtype (bf16) and augment > 0 are not ported and raise.
+    have it. compute_dtype (bf16) is not ported and raises. The step is also
+    the body of make_cached_train_step and make_multi_train_step.
     """
     _check_compute_dtype(compute_dtype)
-    if augment > 0:
-        raise NotImplementedError(
-            "augment > 0 (on-device augmentation) is not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
     loss_fn = _LOSSES[loss_kind]
 
     def step(state: TrainState, batch: dict, lr_arg=None, momentum_arg=None):
         if state.net.spec != spec:
             raise ValueError("the state's net was not built from this spec")
+        if augment > 0:
+            # On-device train-time augmentation (ops/preprocess.py), drawn
+            # from a generator seeded by (augment_seed, step); augment=0
+            # (default) is exact reference semantics.
+            gen = augment_generator(augment_seed, state.step,
+                                    batch["x"].device)
+            batch = dict(batch, x=augment_lines(gen, batch["x"],
+                                                batch["lengths"], augment))
         net = state.net
         net.zero_grad(set_to_none=True)
         loss, (probs, _) = loss_fn(net, batch, normalization=normalization)
@@ -197,6 +204,82 @@ def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
         return state, metrics
 
     return step
+
+
+def gather_batch(group: dict, idx: torch.Tensor) -> dict:
+    """Batch rows ``idx`` of a DeviceDataset group, gathered on its device."""
+    return {"x": group["x"].index_select(0, idx),
+            "lengths": group["lengths"].index_select(0, idx),
+            "targets": group["targets"].index_select(0, idx),
+            "target_lengths": group["tlens"].index_select(0, idx)}
+
+
+def make_cached_train_step(spec: NetSpec, lr: float = 1e-4,
+                           momentum: float = 0.9, *, loss_kind: str = "ctc",
+                           normalization: str = "none", compute_dtype=None,
+                           gradient_clip: float = 0.0, augment: float = 0.0,
+                           augment_seed: int = 0):
+    """Gather+train step over a device-resident cache group.
+
+    step(state, group, idx_all, j, lr_arg=None, momentum_arg=None) ->
+    (state, metrics, j + 1): ``group`` is a DeviceDataset group dict (the
+    resident x/targets/lengths/tlens tensors, sentinel row included),
+    ``idx_all`` the epoch's [nb, B] index plan on the same device and ``j``
+    the batch to take from it. The batch is gathered on the device, so a
+    batch costs no host-to-device copy."""
+    step = make_train_step(spec, lr, momentum, loss_kind=loss_kind,
+                           normalization=normalization,
+                           compute_dtype=compute_dtype,
+                           gradient_clip=gradient_clip, augment=augment,
+                           augment_seed=augment_seed)
+
+    def wrapped(state: TrainState, group: dict, idx_all: torch.Tensor,
+                j: int, lr_arg=None, momentum_arg=None):
+        state, metrics = step(state, gather_batch(group, idx_all[j]), lr_arg,
+                              momentum_arg)
+        return state, metrics, j + 1
+
+    return wrapped
+
+
+def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
+                          momentum: float = 0.9, *, loss_kind: str = "ctc",
+                          normalization: str = "none", compute_dtype=None,
+                          gradient_clip: float = 0.0, augment: float = 0.0,
+                          augment_seed: int = 0):
+    """K gather+train steps per call, over consecutive batches of a
+    device-resident epoch plan: a plain loop of the make_cached_train_step
+    body (the JAX package scans it inside one dispatch; a CUDA graph would
+    be the counterpart, taken only once a measurement shows the loop bound
+    by launches).
+
+    step(state, group, idx_all, j, nvalid=None, lr_arg=None,
+    momentum_arg=None) -> (state, metrics, j + nvalid). Only the first
+    min(nvalid, k) batches run (nvalid defaults to k); the rest leave state
+    and counter untouched. metrics = {"loss": the last valid step's loss,
+    "report": its packed report, "report_all": [k, 1+2T], every step's
+    packed (loss, row-0 ids, row-0 vals), zero rows from nvalid on}, so a
+    caller reads a block's reports in one copy."""
+    step = make_train_step(spec, lr, momentum, loss_kind=loss_kind,
+                           normalization=normalization,
+                           compute_dtype=compute_dtype,
+                           gradient_clip=gradient_clip, augment=augment,
+                           augment_seed=augment_seed)
+
+    def wrapped(state: TrainState, group: dict, idx_all: torch.Tensor,
+                j: int, nvalid=None, lr_arg=None, momentum_arg=None):
+        n = k if nvalid is None else max(1, min(int(nvalid), k))
+        x = group["x"]
+        reports = x.new_zeros((k, 1 + 2 * x.shape[1]))
+        for s in range(n):
+            state, metrics = step(state, gather_batch(group, idx_all[j + s]),
+                                  lr_arg, momentum_arg)
+            reports[s] = metrics["report"]
+        last = reports[n - 1]
+        return state, {"loss": last[0], "report": last,
+                       "report_all": reports}, j + n
+
+    return wrapped
 
 
 def make_predict_step(spec: NetSpec, *, compute_dtype=None, mesh=None):

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 
@@ -21,6 +22,11 @@ def getsenv(name: str, default: str = "") -> str:
 def getienv(name: str, default: int = 0) -> int:
     v = os.environ.get(name)
     return int(v) if v not in (None, "") else default
+
+
+def getdenv(name: str, default: float = 0.0) -> float:
+    v = os.environ.get(name)
+    return float(v) if v not in (None, "") else default
 
 
 def torch_device(name) -> torch.device:
@@ -41,3 +47,36 @@ def torch_device(name) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """A numpy array (or CPU tensor) -> a tensor on ``device``, without
+    waiting for the card: on CUDA the bytes go through a pinned host buffer
+    with a non-blocking copy, since a copy from pageable memory waits for
+    every kernel queued on the stream before it returns."""
+    t = torch.as_tensor(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class HostCopy:
+    """A device tensor copied back to the host without waiting: on CUDA the
+    copy goes into a pinned buffer on the current stream and an event marks
+    its end; ``numpy()`` waits for that event alone, so the copy overlaps
+    whatever the card and the host do in between."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type != "cuda":
+            self._host = t.detach()
+            return
+        self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self._host.copy_(t.detach(), non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(t.device))
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()

@@ -135,9 +135,12 @@ def test_torch_clstmocr_main_writes_sidecars(models, images, tmp_path,
 def test_torch_clstmocr_refuses_unported_and_missing_device(models,
                                                             monkeypatch):
     _, tocr, path = models
-    with pytest.raises(NotImplementedError):
-        tcli.predict_pages(tocr, [np.ones((20, 30), np.float32)],
-                           device_preprocess=1)
+    tocr.dewarp = "spline"          # no such normalizer, on either path
+    for dp in (0, 1):
+        with pytest.raises(ValueError, match="normalizer"):
+            tcli.predict_pages(tocr, [np.ones((20, 30), np.float32)],
+                               device_preprocess=dp)
+    tocr.dewarp = "center"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("load", path)
     monkeypatch.delenv("device", raising=False)       # default: cuda
@@ -199,4 +202,4 @@ def test_torch_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 32

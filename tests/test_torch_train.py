@@ -284,10 +284,10 @@ def test_torch_clip_and_unpack_report():
 
 def test_torch_unported_options_raise():
     spec = tprefab.make_net("bidi", ARGS)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ttrain.make_train_step(spec, augment=0.5)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ttrain.make_train_step(spec, compute_dtype=torch.bfloat16)
+    for make in (ttrain.make_train_step, ttrain.make_cached_train_step,
+                 lambda s, **kw: ttrain.make_multi_train_step(s, 2, **kw)):
+        with pytest.raises(NotImplementedError, match="bf16"):
+            make(spec, compute_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="item 7"):
         ttrain.make_predict_step(spec, mesh=object())
     with pytest.raises(ValueError, match="normalization"):
