@@ -2,13 +2,20 @@
 """Smoke run of the PyTorch/CUDA port (clstm_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--k2-against SRC] [--fwd-against SRC]
-                          [--ctc-against SRC]
+                          [--ctc-against SRC] [--toy-seeds N]
 
 Drives the port's serving path — the path `clstmocr` runs — and its training
 path — CLSTMOCR.train_batch, a CTC training step — at the full width of the
 flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
 `bidi2` model of BASELINE config 4 (48 inputs, nhidden 200 in both layers,
-400 classes), whose second layer takes the hoisted-projection kernel K4:
+400 classes), whose second layer takes the hoisted-projection kernel K4.
+The LSTM kernels run in two precisions: strict f32 and the bf16 mode
+(``xz_bf16``, the JAX package's production mode, the card's default when
+no precision is asked for). The direct kernel checks of phases 3-8 and
+12-13 hold the f32 kernels; the main paths (5, 9, 14, 15, 17) run the
+card's default, and 5, 9, 14 and 15 the other mode as well, each run with
+the launch counts reset just before and read just after; phases 18-20
+hold and time the bf16 kernels and run the learning check:
 
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from clstm_tpu_torch/csrc with nvcc;
@@ -34,8 +41,9 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
      warm passes) and the device prepare's ms a bucket inside those passes
      (its span on the card, the host's time in it, and the card's busy
      time in one such call alone); predict_batch_images(sync=False) must
-     return behind a long
-     device sleep, that is without waiting for the card;
+     return behind a long device sleep, that is without waiting for the
+     card: on 8 lines in f32; in bf16 after one call on 8 lines, on a
+     number of lines no call has run before;
   6. K1 (LSTM forward with state) against its plain version at the bench
      profile (lengths all 900 and mixed 0..1024) and the odd shapes of 3:
      y, gates and cell; every stream exactly 0 on padded frames;
@@ -60,7 +68,9 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
      versions; K1, K2, K5, K6 must be launched; then train_utf8, save and
      load with the .state.npz sidecar, and predict from the reloaded model;
  10. learning check: the toy CTC transduction of tests/test_learning.py on
-     the card (bidi, nhidden 16, 4 classes, B=8, T=24, 120 steps);
+     the card (bidi, nhidden 16, 4 classes, B=8, T=24, 120 steps), in both
+     precisions from the same init (20 compares them); with --toy-seeds N
+     also from the inits of seeds 1-N, logged only;
  11. timing: ms per train_batch step (kernels and plain), each kernel
      against its plain version and, in turns, K1 against cuDNN's forward
      with grad enabled and K2's reduction against the plain version's
@@ -101,7 +111,28 @@ flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
      k=4 block must equal 4 single steps bitwise, and the next must be
      enqueued behind a long device sleep without waiting for it; lines/s
      end to end and the card's idle share in the loop (torch.profiler,
-     kernel activity).
+     kernel activity);
+ 18. the bf16 kernels (K3, K1, K4 in both modes, K2's chain and reduction,
+     with dx from f32 and from bf16 x, and without) against their plain bf16
+     versions and the float64 evaluation of the same rounded recipe, at the
+     bench profile (lengths 900 and mixed), bidi2's two layer shapes and
+     BF16_ODD: each within BF16_FACTOR times the plain version's distance
+     from float64, max|Δ| (floor BF16_ULP, F64_FLOOR for dW) and, on
+     streams of MEAN_MIN_VALUES valid values or more, mean|Δ| (floor
+     F64_FLOOR), padded frames exactly 0, two calls bitwise equal; planted
+     controls: K3's float64 recipe with h left unrounded, and with the bias
+     kept f32, put in the kernel's place at the bench shape, must fail that
+     rule; the bf16 plans (fwd_plan with 2-byte elements) with the kernel's
+     own count of their shared memory;
+ 19. each bf16 kernel timed in turns with its f32 mode at the bench shapes,
+     and with its library call (cuDNN's nn.LSTM in bf16, the plain version's
+     einsums on bf16 operands); train_batch in both modes in turns (11, 15);
+ 20. the learning check, both modes from the same init on the same
+     batches: the toy task of 10 (bf16 decodes at most 2 fewer of 64 lines)
+     and bidi at full width on a glyph corpus made in code (LEARN_*): f32
+     trains until its test CER is below half its start (N steps), bf16 the
+     same N steps; pass when bf16's CER is at most f32's + LEARN_SLACK. The
+     script fails if bf16 is the card's default and the check did not pass.
 
 With --k2-against SRC, every timed K2 shape also times the K2 built from
 SRC in turns with the current one (against, current, current, against);
@@ -113,10 +144,11 @@ the bidi and bidi2 train_batch steps with that build's K5 and K6 in turns
 with the current ones.
 
 Any failure raises, so the script exits non-zero. The last line is
-{"ok": true, "device": {...}}; the line before it lists the kernels, each
-with bound_ms (the least time the card could take: the larger of its
-matrix flop at 3xTF32's 165 TFLOP/s and its bytes at 3.35 TB/s, bound_by
-naming which) and library_ms (a library call computing the same function,
+{"ok": true, "device": {...}}; the line before it lists the kernels, the
+bf16 mode's as rows of their own, each with bound_ms (the least time the
+card could take: the larger of its matrix flop at 3xTF32's 165 TFLOP/s, or
+989 TFLOP/s for the bf16 mode's bf16 operands, and its bytes at 3.35 TB/s,
+bound_by naming which) and library_ms (a library call computing the same function,
 timed in turns with the kernel, or null; K5, K6 and K6b also carry
 per_frame_us, their time over the longest row's frames, and K6
 ctc_loss_ms, F.ctc_loss forward and backward at the same B, T and S: a
@@ -128,7 +160,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import ctypes
+import functools
 import io
 import json
 import os
@@ -150,7 +184,7 @@ from clstm_tpu_torch.io.proto import save_net
 from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.hl import CLSTMOCR
 from clstm_tpu_torch.models.prefab import make_net_init
-from clstm_tpu_torch.models.spec import apply_net
+from clstm_tpu_torch.models.spec import ApplyCtx, apply_net
 from clstm_tpu_torch.ops import _build
 from clstm_tpu_torch.ops import bidi_lstm_kernel as bk
 from clstm_tpu_torch.ops import ctc as ctc_ops
@@ -166,7 +200,8 @@ from clstm_tpu_torch.ops import preprocess
 from clstm_tpu_torch.ops.lstm import bidi_lstm_apply
 from clstm_tpu_torch.ops.seq import length_mask
 from clstm_tpu_torch.train import (
-    TrainState, gather_batch, make_train_step, sgd_update)
+    TrainState, gather_batch, make_predict_step, make_train_step, sgd_update)
+from clstm_tpu_torch.utils.metrics import levenshtein
 from clstm_tpu_torch.utils.config import to_device, torch_device
 
 B, T, D, H, C = 256, 1024, 48, 100, 96   # bench profile (bench.py:611-651)
@@ -298,6 +333,37 @@ XZ_RTOL = 1e-5
 # once, each output written once) at the HBM rate.
 HBM_BPS = 3.35e12
 F32_MMA_FLOPS = 495e12 / 3
+# The bf16 mode (xz_bf16=True, the JAX package's production mode; its
+# rounding points in ops/lstm.py). Each bf16 kernel is held to the float64
+# evaluation of the same rounded recipe (the plain versions with float64
+# weights: every rounding point in place, the arithmetic in float64): its
+# max|Δ| over max|float64| within BF16_FACTOR times the plain version's
+# (the same recipe in f32), or, where both are a rounding flip or two,
+# BF16_ULP (one bf16 ulp below 1; F64_FLOOR for the weight gradients, f32
+# sums of exact products). A flip of one bf16 rounding, which any other
+# order of an f32 sum can cause, moves a stream by an ulp and carries down
+# the chain, so no fixed limit would tell a kernel's fault from the
+# recipe's own noise. Its bounds take bf16 operands at the 989 TFLOP/s of
+# the bf16 tensor cores.
+BF16_FACTOR = 2.0
+BF16_ULP = 2.0 ** -8
+BF16_MMA_FLOPS = 989e12
+# Beside the max, the mean: mean|Δ| over a stream's valid values, over
+# max|float64|, within BF16_FACTOR times the plain version's (floor
+# F64_FLOOR), where the stream holds at least MEAN_MIN_VALUES valid values
+# (in fewer, one flip sets the mean). Both max distances are set by a flip
+# of one bf16 rounding, so a kernel that left out a rounding point of the
+# recipe (h fed to Wh unrounded, the bias kept f32) could keep its max
+# within the rule; it moves far more values than the plain version's
+# flips, and the mean shows it. The planted controls (``planted_controls``)
+# check that the rule fails such a recipe at the bench shape.
+MEAN_MIN_VALUES = 1 << 16
+# The bf16 kernels at shapes across their plans (B, T, D, H): B of 1, 3
+# and 17, T of 1 and 5, odd D (the wrapper pads x to an even width), D+1 >
+# 128 (hoisted), H not a multiple of the cluster size, H = 700 on the L2
+# plan and H = 2048 (the chain's one-row plan).
+BF16_ODD = ((1, 5, 5, 7), (3, 1, 48, 100), (17, 5, 49, 201), (3, 5, 130, 7),
+            (17, 1, 401, 200), (3, 5, 5, 700), (2, 5, 3, 2048))
 
 
 def log(msg: str) -> None:
@@ -519,33 +585,40 @@ def f64_note(f64: dict) -> str:
         f"{n} kernel {k:.3e} plain {p:.3e}" for n, (k, p) in f64.items())
 
 
-def bound(flop: float, nbytes: float):
-    """(bound_ms, bound_by) for ``flop`` matrix flop and ``nbytes`` moved."""
-    f_ms, b_ms = flop / F32_MMA_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+def bound(flop: float, nbytes: float, peak: float = F32_MMA_FLOPS):
+    """(bound_ms, bound_by) for ``flop`` matrix flop at ``peak`` and
+    ``nbytes`` moved."""
+    f_ms, b_ms = flop / peak * 1e3, nbytes / HBM_BPS * 1e3
     return (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
 
 
-def lstm_bound(kind: str, B, T, D, H, V, dx=False):
+def lstm_bound(kind: str, B, T, D, H, V, dx=False, esize=4):
     """bound() of a bidi LSTM kernel at [B, T] with V valid frames: K3/K1
     (kind "fwd"/"fwd_state": z = [x|1]·W_in + h·Wh), K4 ("xz"/"xz_state":
     h·Wh on xz), K2's chain ("chain": Dh = dz·Whᵀ) or reduction
-    ("reduce": dW, and dx when asked). f32 = 4 bytes."""
-    G, BT = 4 * H, B * T
-    state = 4 * BT * (2 * G + 2 * H)            # gates and cell written
+    ("reduce": dW, and dx when asked). ``esize`` bytes for the streams and
+    weights of the mode (4 f32, 2 bf16, whose products then run at the bf16
+    tensor cores' peak); the gates and dW are f32 in both."""
+    G, BT, e = 4 * H, B * T, esize
+    peak = F32_MMA_FLOPS if e == 4 else BF16_MMA_FLOPS
+    state = BT * 2 * (4 * G + e * H)            # gates and cell written
     if kind in ("fwd", "fwd_state"):
         flop = 2 * V * 2 * (D + 1 + H) * G
-        nbytes = 4 * (BT * D + 2 * (D + 1 + H) * G + BT * 2 * H + B)
+        nbytes = e * (BT * D + 2 * (D + 1 + H) * G + BT * 2 * H) + 4 * B
     elif kind in ("xz", "xz_state"):
         flop = 2 * V * 2 * H * G
-        nbytes = 4 * (BT * 2 * G + 2 * H * G + BT * 2 * H + B)
+        nbytes = e * (BT * 2 * G + 2 * H * G + BT * 2 * H) + 4 * B
     elif kind == "chain":
         return bound(2 * V * 2 * G * H,
-                     state + 4 * (BT * 2 * H + 2 * H * G + BT * 2 * G + B))
+                     state + e * (BT * 2 * H + 2 * H * G + BT * 2 * G)
+                     + 4 * B, peak)
     else:
         flop = 2 * V * 2 * (D + 1 + H) * G + (V * 2 * 2 * G * D if dx else 0)
-        nbytes = 4 * (BT * D + BT * 2 * H + BT * 2 * G + 2 * (D + 1 + H) * G
-                      + (2 * D * G + BT * D if dx else 0))
-    return bound(flop, nbytes + (state if kind.endswith("state") else 0))
+        nbytes = (e * (BT * D + BT * 2 * H + BT * 2 * G
+                       + (2 * D * G + BT * D if dx else 0))
+                  + 4 * 2 * (D + 1 + H) * G)
+    return bound(flop, nbytes + (state if kind.endswith("state") else 0),
+                 peak)
 
 
 def in_turns(fa, fb, reps: int):
@@ -1243,33 +1316,87 @@ def bench_batch(rng, dev, nclasses=C):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def plain_forward(net, x, lengths):
+class PlainBidiBF16(torch.autograd.Function):
+    """A bidi layer in the bf16 mode composed from the plain versions, as
+    _BidiLSTMTrain composes the kernels: forward bidi_lstm_fwd_state_plain
+    (or the hoisted product and bidi_lstm_fwd_state_xz_plain), backward the
+    plain chain and reduction. With float64 weights it is the float64
+    evaluation of the same rounded recipe."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, wxf, whf, bf, wxr, whr, br):
+        pf = {"Wx": wxf, "Wh": whf, "b": bf}
+        pr = {"Wx": wxr, "Wh": whr, "b": br}
+        if bk.hoists_projection(x.shape[-1], whf.shape[0]):
+            y, gates, cell = lstm_ops.bidi_lstm_fwd_state_xz_plain(
+                pf, pr, lstm_ops.hoisted_projection(pf, pr, x, xz_bf16=True),
+                lengths, xz_bf16=True)
+        else:
+            y, gates, cell = lstm_ops.bidi_lstm_fwd_state_plain(
+                pf, pr, x, lengths, xz_bf16=True)
+        ctx.save_for_backward(x, lengths, y, gates, cell, wxf, whf, wxr, whr)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, lengths, y, gates, cell, wxf, whf, wxr, whr = ctx.saved_tensors
+        D = x.shape[-1]
+        dz = lstm_ops.bidi_lstm_bwd_chain_plain(
+            gates, cell, gy, torch.stack([whf, whr]), lengths, xz_bf16=True)
+        dW, dx = lstm_ops.bidi_lstm_bwd_reduce_plain(
+            x, y, dz, torch.stack([wxf, wxr]), ctx.needs_input_grad[0],
+            xz_bf16=True)
+        grads = [(dW[g, :D], dW[g, D + 1:], dW[g, D]) for g in (0, 1)]
+        return (dx, None, *grads[0], *grads[1])
+
+
+def plain_forward(net, x, lengths, bf16: bool = False):
     """The net's bidi layers composed from plain versions -> (the softmax
     layer, its input): each bidi pair by bidi_lstm_apply, which is K3's
-    plain version and, through its hoisted product, K4's."""
+    plain version and, through its hoisted product, K4's (f32); with
+    ``bf16`` by PlainBidiBF16, in the arithmetic of the net's weights (f32,
+    or float64 for the float64 reference)."""
     *layers, soft = net.sub
     for par in layers:
-        x = bidi_lstm_apply(par.sub[0].weights(), par.sub[1].sub[0].weights(),
-                            x, lengths)
+        pf, pr = par.sub[0].weights(), par.sub[1].sub[0].weights()
+        if bf16:
+            x = PlainBidiBF16.apply(x, lengths, pf["Wx"], pf["Wh"], pf["b"],
+                                    pr["Wx"], pr["Wh"], pr["b"])
+        else:
+            x = bidi_lstm_apply(pf, pr, x, lengths)
     return soft, x
 
 
-def plain_train_step(net, velocity, batch, lr, momentum) -> float:
+def plain_logits(soft, y, bf16: bool = False):
+    """The softmax layer's logits from the plain path: f32, or with
+    ``bf16`` the product of bf16-rounded operands in the weights' type plus
+    the bias (the JAX package's _affine; autograd through the casts gives
+    its gradients)."""
+    if not bf16:
+        return soft.affine(y)
+    dt = soft.W.dtype
+    return (y.to(torch.bfloat16).to(dt) @ soft.W.to(torch.bfloat16).to(dt)
+            + soft.b)
+
+
+def plain_train_step(net, velocity, batch, lr, momentum,
+                     bf16: bool = False) -> float:
     """The training step of make_train_step(loss_kind="ctc",
     normalization="none") composed from the plain versions: autograd
-    through the plain LSTM loops (K1, K4 and K2's reference), the alignment
+    through the plain LSTM loops (K1, K4 and K2's reference; in the bf16
+    mode the plain forward and backward of PlainBidiBF16), the alignment
     by the scan recipe with the flip recipe (K5, K6's), the same loss and
-    SGD update."""
+    SGD update, in the arithmetic of the net's weights."""
     x, lengths = batch["x"], batch["lengths"]
     net.zero_grad(set_to_none=True)
-    soft, y = plain_forward(net, x, lengths)
-    logits = soft.affine(y)
+    soft, y = plain_forward(net, x, lengths, bf16)
+    logits = plain_logits(soft, y, bf16)
     with torch.no_grad():
         aligned = ctc_ops.ctc_align_targets_batched(
             torch.softmax(logits, dim=-1), batch["targets"],
             lengths=lengths, target_lengths=batch["target_lengths"],
             fused=False, use_kernel=False)
-    mask = length_mask(lengths, x.shape[1])
+    mask = length_mask(lengths, x.shape[1], logits.dtype)
     loss = torch.sum(-torch.sum(aligned * F.log_softmax(logits, dim=-1), -1)
                      * mask)
     loss.backward()
@@ -1350,7 +1477,7 @@ def counts() -> dict:
 
 
 def serve(model: str, images, dev, nclasses: int, tmp: str,
-          device_preprocess: int) -> dict:
+          device_preprocess: int, xz_bf16=None) -> dict:
     """clstmocr's path on the card: load ``model``, run predict_pages and
     write_outputs over ``images`` once cold, then again with the launch
     counts reset just before and read just after, then E2E_PASSES times
@@ -1358,15 +1485,22 @@ def serve(model: str, images, dev, nclasses: int, tmp: str,
     the card's prepare output) and its frame ids, and holds the ids against
     the plain path on the same batches; with the normalization on the card,
     also holds each line's length against the same prepare on the CPU and
-    times the card's prepare per bucket inside the timed passes. Returns
+    times the card's prepare per bucket inside the timed passes. The model
+    runs at the precision ``xz_bf16`` (None: the card's default); in the
+    bf16 mode the ids are held to the float64 evaluation of the same
+    rounded recipe (the kernels' share of frames that differ from it within
+    BF16_FACTOR times the plain f32 recipe's, or 1 - ID_AGREE_MIN where
+    that is larger). Returns
     {launches, buckets (T per bucket), e2e_s (median of the timed passes),
     e2e_range (their min and max), cold_s, share (of valid frames whose ids
     agree), frames, and with device_preprocess prep_ms, prep_host_ms,
     prep_busy_ms (per prepare call), prep_share, len_mismatch, nosync_ms
-    (host ms of predict_batch_images(sync=False) behind a device sleep) and
-    sleep_ms}."""
+    (host ms of predict_batch_images(sync=False) behind a device sleep),
+    nosync_lines (the lines it took) and sleep_ms}."""
     ocr = CLSTMOCR(device=dev)
     ocr.load(model)
+    ocr.xz_bf16 = xz_bf16
+    bf16 = ApplyCtx(xz_bf16=xz_bf16).bf16(torch.empty(0, device=dev))
     ocr.target_height = ocr.spec.iget("ninput", ocr.target_height)
     names = [os.path.join(tmp, f"line{i:03d}.png") for i in range(len(images))]
 
@@ -1454,6 +1588,8 @@ def serve(model: str, images, dev, nclasses: int, tmp: str,
            "e2e_range": (walls[0], walls[-1]), "cold_s": cold_s,
            "buckets": [int(b[0].shape[1]) for b in batches]}
     agree = total = 0
+    off64 = [0, 0]    # frames whose ids differ from float64: kernels, plain
+    net64 = copy.deepcopy(ocr.net).double() if bf16 else None
     for xb, lb, ids in batches:
         xt = torch.as_tensor(xb).to(dev)
         lt = torch.as_tensor(lb).to(dev)
@@ -1462,16 +1598,33 @@ def serve(model: str, images, dev, nclasses: int, tmp: str,
         if not (ids.min() >= 0 and ids.max() < nclasses):
             raise AssertionError("main path produced invalid frames")
         with torch.no_grad():
-            soft, y = plain_forward(ocr.net, xt, lt)
-            pids, _ = greedy_frames(soft(y, lt))
+            soft, y = plain_forward(ocr.net, xt, lt, bf16)
+            pids, _ = greedy_frames(plain_logits(soft, y, bf16))
+            if bf16:
+                soft64, y64 = plain_forward(net64, xt, lt, True)
+                ids64 = greedy_frames(plain_logits(soft64, y64, True))[0]
+                ids64 = ids64.cpu().numpy()
         pids = pids.cpu().numpy()
         for r, L in enumerate(lb):
             agree += int((pids[r, :L] == ids[r, :L]).sum())
             total += int(L)
+            if bf16:
+                off64[0] += int((ids[r, :L] != ids64[r, :L]).sum())
+                off64[1] += int((pids[r, :L] != ids64[r, :L]).sum())
     if not all(np.isfinite(results[i][2]).all() for i in results):
         raise AssertionError("main path produced invalid frames")
     out["share"], out["frames"] = agree / total, total
-    if out["share"] < ID_AGREE_MIN:
+    out["bf16"] = bf16
+    if bf16:
+        out["off64"] = [n / total for n in off64]
+        out["off64_tol"] = max(BF16_FACTOR * out["off64"][1],
+                               1 - ID_AGREE_MIN)
+        if out["off64"][0] > out["off64_tol"]:
+            raise AssertionError(
+                f"frame ids differ from the float64 recipe on "
+                f"{out['off64'][0]:.6f} of frames, the plain f32 recipe's on "
+                f"{out['off64'][1]:.6f}: above {out['off64_tol']:.6f}")
+    elif out["share"] < ID_AGREE_MIN:
         raise AssertionError(f"frame-id agreement {out['share']:.6f} < "
                              f"{ID_AGREE_MIN}")
     if device_preprocess:
@@ -1508,15 +1661,29 @@ def serve(model: str, images, dev, nclasses: int, tmp: str,
                 out["prep_busy_ms"].append(sum(
                     device_us(e) for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3)
-            torch.cuda.synchronize()
+            # In the bf16 mode: one call at 8 lines first, so that the
+            # mode's own first launches in this process (its kernel
+            # instances, the bf16 casts) are behind it, then the measured
+            # call at a batch size that neither it nor a served bucket ran:
+            # a wait at every new shape fails the check (cuBLAS's bf16
+            # products wait so, scripts/torch_blas_wait_probe.py: the mode
+            # takes f32 products of its rounded operands). In f32 the call
+            # at 8 lines is the measured one, as it was.
+            n = 8
+            if bf16:
+                ocr.predict_batch_images(images[:n], sync=False)
+                torch.cuda.synchronize()
+                ran = {n} | {p[2][0].shape[0] for p in preps}
+                n = min(set(range(n + 1, len(images) + 1)) - ran)
             sleep = torch.cuda.Event(enable_timing=True)
             woke = torch.cuda.Event(enable_timing=True)
             sleep.record()
             torch.cuda._sleep(NOSYNC_CYCLES)
             woke.record()
             t0 = time.perf_counter()
-            ocr.predict_batch_images(images[:8], sync=False)
+            ocr.predict_batch_images(images[:n], sync=False)
             out["nosync_ms"] = (time.perf_counter() - t0) * 1e3
+            out["nosync_lines"] = n
             torch.cuda.synchronize()
             out["sleep_ms"] = sleep.elapsed_time(woke)
         if not out["nosync_ms"] < 0.5 * out["sleep_ms"]:
@@ -1531,7 +1698,8 @@ def serve(model: str, images, dev, nclasses: int, tmp: str,
 def serve_line(tag: str, r: dict, dp: int) -> str:
     """One log line for a serve() run."""
     lo, hi = r["e2e_range"]
-    line = (f"[{tag}] device_preprocess={dp}: {N_LINES} lines in "
+    line = (f"[{tag}] {'bf16' if r['bf16'] else 'f32'} "
+            f"device_preprocess={dp}: {N_LINES} lines in "
             f"{len(r['buckets'])} width buckets ({', '.join(map(str, r['buckets']))}"
             f" frames), launches { {k: v for k, v in r['launches'].items() if v} }"
             f", {E2E_PASSES} warm passes: median {r['e2e_s']:.4f} s end to end "
@@ -1539,7 +1707,11 @@ def serve_line(tag: str, r: dict, dp: int) -> str:
             f"{N_LINES / hi:.1f}-{N_LINES / lo:.1f} lines/s); cold, the "
             f"model's first run, {r['cold_s']:.3f} s, "
             f"{N_LINES / r['cold_s']:.1f} lines/s; frame ids agree with plain on {r['share']:.6f} of "
-            f"{r['frames']} valid frames (min {ID_AGREE_MIN})")
+            f"{r['frames']} valid frames"
+            + (f"; differ from the float64 recipe on {r['off64'][0]:.6f} "
+               f"(plain f32 {r['off64'][1]:.6f}, limit "
+               f"{r['off64_tol']:.6f})" if r["bf16"] else
+               f" (min {ID_AGREE_MIN})"))
     if dp:
         def ms(v):
             return ", ".join(f"{m:.3f}" for m in v)
@@ -1552,19 +1724,35 @@ def serve_line(tag: str, r: dict, dp: int) -> str:
                  f"; lengths vs the CPU's prepare: "
                  f"{r['len_mismatch']} of {N_LINES} differ by 1 (max "
                  f"{max(1, N_LINES // LEN_MISMATCH_LINES)}); "
-                 f"predict_batch_images(sync=False) returned in "
-                 f"{r['nosync_ms']:.2f} ms behind a {r['sleep_ms']:.1f} ms "
-                 "device sleep")
+                 f"predict_batch_images(sync=False) on {r['nosync_lines']} "
+                 f"lines" + (" (after one call on 8)" if r["bf16"] else "")
+                 + f" returned in {r['nosync_ms']:.2f} ms behind a "
+                 f"{r['sleep_ms']:.1f} ms device sleep")
     return line
+
+
+def f64_state(state: TrainState) -> TrainState:
+    """A float64 copy of a TrainState: the float64 reference trajectory."""
+    return TrainState(net=copy.deepcopy(state.net).double(),
+                      velocity={k: v.double()
+                                for k, v in state.velocity.items()},
+                      step=state.step)
 
 
 def train_against_plain(tocr, plain, batch, lr, momentum, tag) -> dict:
     """5 train_batch steps of ``tocr`` with the launch counts reset just
     before and read just after, and the same 5 steps composed from the plain
-    versions on ``plain`` (a TrainState holding the same start). Logs both
-    under ``tag`` and raises unless they agree within the limits above;
-    returns the launch counts of the 5 kernel steps."""
+    versions on ``plain`` (a TrainState holding the same start), in the
+    precision ``tocr`` trains in. Logs both under ``tag`` and raises unless
+    they agree: in f32 within the limits above; in the bf16 mode, where
+    roundings to bf16 flip between any two orders of f32 sums, each of the
+    four measures is held to the float64 evaluation of the same steps
+    (``f64_state``): the kernels' distance from it within BF16_FACTOR times
+    the plain f32 steps', or within the f32 limit where that is larger.
+    Returns the launch counts of the 5 kernel steps."""
+    bf16 = ApplyCtx(xz_bf16=tocr.xz_bf16).bf16(batch["x"])
     p0 = [p.detach().clone() for p in tocr.net.parameters()]
+    ref = f64_state(plain) if bf16 else None
 
     def params(net):
         return [p.detach().clone() for p in net.parameters()]
@@ -1577,37 +1765,63 @@ def train_against_plain(tocr, plain, batch, lr, momentum, tag) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = counts()
-    p_losses = [plain_train_step(plain.net, plain.velocity, batch, lr,
-                                 momentum)]
-    p_p1 = params(plain.net)
-    p_losses += [plain_train_step(plain.net, plain.velocity, batch, lr,
-                                  momentum) for _ in range(4)]
 
-    def param_gap(a, b):
-        """(max |a - b|, max |a - start|) over all parameters."""
-        return (max(float((u - v).abs().max()) for u, v in zip(a, b)),
-                max(float((u - w).abs().max()) for u, w in zip(a, p0)))
+    def run(state):
+        losses = [plain_train_step(state.net, state.velocity, batch, lr,
+                                   momentum, bf16)]
+        first = params(state.net)
+        losses += [plain_train_step(state.net, state.velocity, batch, lr,
+                                    momentum, bf16) for _ in range(4)]
+        return losses, first, params(state.net)
+    p_losses, p_p1, p_p5 = run(plain)
+    k_p5 = params(tocr.net)
 
-    dp1, moved1 = param_gap(k_p1, p_p1)
-    dp, moved = param_gap(params(tocr.net), params(plain.net))
-    rels = [abs(k - p) / abs(p) for k, p in zip(k_losses, p_losses)]
-    log(f"[{tag}] 5 train_batch steps in {train_s:.3f} s; launches "
+    def param_gap(a, b, start=p0):
+        """(max |a - b|, max |b - start|) over all parameters."""
+        return (max(float((u.double() - v.double()).abs().max())
+                    for u, v in zip(a, b)),
+                max(float((v.double() - w.double()).abs().max())
+                    for v, w in zip(b, start)))
+
+    def measures(losses, p1, p5, want_losses, want_p1, want_p5):
+        rels = [abs(k - p) / abs(p) for k, p in zip(losses, want_losses)]
+        dp1, moved1 = param_gap(p1, want_p1)
+        dp, moved = param_gap(p5, want_p5)
+        return {"step1_loss": rels[0], "step1_params": dp1 / moved1,
+                "loss": max(rels), "params": dp / moved}, rels, moved1
+    limits = {"step1_loss": STEP1_LOSS_RTOL, "step1_params": STEP1_PARAM_RTOL,
+              "loss": LOSS_RTOL, "params": PARAM_RTOL}
+    if not bf16:
+        got, rels, moved1 = measures(k_losses, k_p1, k_p5, p_losses, p_p1,
+                                     p_p5)
+        plain_off = None
+    else:
+        r_losses, r_p1, r_p5 = run(ref)
+        got, rels, moved1 = measures(k_losses, k_p1, k_p5, r_losses, r_p1,
+                                     r_p5)
+        plain_off = measures(p_losses, p_p1, p_p5, r_losses, r_p1, r_p5)[0]
+        limits = {k: max(BF16_FACTOR * plain_off[k], v)
+                  for k, v in limits.items()}
+    log(f"[{tag}] {'bf16' if bf16 else 'f32'}: 5 train_batch steps in "
+        f"{train_s:.3f} s; launches "
         f"{ {k: v for k, v in launches.items() if v} }; loss kernels "
         f"{[round(v, 3) for v in k_losses]} plain "
         f"{[round(v, 3) for v in p_losses]}, rel per step "
-        f"{', '.join(f'{r:.2e}' for r in rels)}")
-    log(f"[{tag}] step 1: loss rel {rels[0]:.3e} (tol {STEP1_LOSS_RTOL:.0e}),"
-        f" params max|d| {dp1:.3e}, moved {moved1:.3e} (tol "
-        f"{STEP1_PARAM_RTOL:.0e} of moved); 5 steps: loss rel {max(rels):.3e}"
-        f" (tol {LOSS_RTOL:.0e}), params max|d| {dp:.3e}, moved {moved:.3e} "
-        f"(tol {PARAM_RTOL:.0e} of moved)")
+        f"{', '.join(f'{r:.2e}' for r in rels)}"
+        + (" (against the float64 steps)" if bf16 else ""))
+    log(f"[{tag}] " + ("against the float64 evaluation of the same bf16 "
+                       "steps, kernels / plain f32 (limit): "
+                       if bf16 else "kernels against plain (limit): ")
+        + ", ".join(f"{k} {v:.3e}"
+                    + (f" / {plain_off[k]:.3e}" if plain_off else "")
+                    + f" ({limits[k]:.3e})" for k, v in got.items())
+        + " (params: max|d| over how far the reference moved them)")
     if not all(np.isfinite(k_losses)):
         raise AssertionError("training loss is not finite")
-    if not (rels[0] <= STEP1_LOSS_RTOL and max(rels) <= LOSS_RTOL):
-        raise AssertionError("training loss disagrees with the plain path")
-    if not (moved1 > 0 and dp1 <= STEP1_PARAM_RTOL * moved1
-            and dp <= PARAM_RTOL * moved):
-        raise AssertionError("parameters disagree with the plain path")
+    if not (moved1 > 0 and all(got[k] <= limits[k] for k in got)):
+        raise AssertionError(f"the kernel steps disagree with the "
+                             f"{'float64' if bf16 else 'plain'} steps: "
+                             f"{got}, limits {limits}")
     return launches
 
 
@@ -1892,6 +2106,669 @@ def ocrtrain(dev, tmp: str) -> dict:
     return out
 
 
+def d64(p: dict) -> dict:
+    return {k: v.detach().double() for k, v in p.items()}
+
+
+def mean_rel(k: torch.Tensor, r: torch.Tensor, valid=None) -> float:
+    """mean|k - r| over the values ``valid`` selects (a bool mask of k's
+    leading dims; None: all), over max|r|."""
+    d = (k - r).abs()
+    d = d if valid is None else d[valid]
+    return float(d.mean() / r.abs().max().clamp_min(1e-30))
+
+
+def bf16_rel(name: str, k, p, r, floor: float, valid=None):
+    """(kernel max, plain max, kernel mean, plain mean) distance of one
+    stream from the float64 recipe ``r``: max|Δ| over max|float64|, and
+    mean_rel over the valid values (``valid``, a bool mask of the leading
+    dims, or None: all). Raises unless the kernel's max is within
+    BF16_FACTOR times the plain version's or ``floor``, and, where the
+    stream holds MEAN_MIN_VALUES valid values, its mean within BF16_FACTOR
+    times the plain version's or F64_FLOOR."""
+    r = r.double()
+    k, p = k.double(), p.double()
+    dk, dp = rel_err(k, r), rel_err(p, r)
+    mk, mp = mean_rel(k, r, valid), mean_rel(p, r, valid)
+    if not dk <= max(BF16_FACTOR * dp, floor):
+        raise AssertionError(f"{name} is {dk:.3e} from the float64 recipe, "
+                             f"the plain bf16 version {dp:.3e}: more than "
+                             f"{BF16_FACTOR}x (floor {floor:.1e})")
+    n = r.numel() if valid is None else int(valid.sum()) * (
+        r[0, 0].numel() if valid.dim() == 2 else 1)
+    if n >= MEAN_MIN_VALUES and not mk <= max(BF16_FACTOR * mp, F64_FLOOR):
+        raise AssertionError(f"{name}: mean distance {mk:.3e} from the "
+                             f"float64 recipe, the plain bf16 version "
+                             f"{mp:.3e}: more than {BF16_FACTOR}x (floor "
+                             f"{F64_FLOOR:.0e})")
+    return dk, dp, mk, mp
+
+
+def dist_max(a: tuple, b: tuple) -> tuple:
+    """Two distance tuples of bf16_rel, each entry the larger."""
+    return tuple(map(max, a, b))
+
+
+def check_streams(name, got, again, lengths, floors, plain, ref,
+                  framed=None):
+    """A bf16 kernel's output streams: finite, bitwise equal to a second
+    call, each within bf16_rel of the float64 recipe, and those that are
+    [B, T, ...] (``framed``, by default all) exactly 0 on padded frames.
+    Returns ({stream: (kernel, plain)}, max|kernel - plain|)."""
+    torch.cuda.synchronize()
+    dist, err = {}, 0.0
+    framed = framed or (True,) * len(got)
+    for i, (k, a, p, r, fl, fr) in enumerate(zip(got, again, plain, ref,
+                                                 floors, framed)):
+        tag = f"{name} stream {i}"
+        if not torch.equal(k, a):
+            raise AssertionError(f"{tag}: two calls differ")
+        require_finite(tag, k)
+        valid = None
+        if fr:
+            pad = padded(lengths, k.shape[0], k.shape[1], k.device)
+            if not bool((k[pad] == 0).all()):
+                raise AssertionError(f"{tag} is not exactly 0 on padded "
+                                     "frames")
+            valid = ~pad
+        dist[i] = bf16_rel(tag, k, p, r, fl, valid)
+        err = max(err, float((k.double() - p.double()).abs().max()))
+    return dist, err
+
+
+def compare_bf16_fwd(pf, pr, x, lengths):
+    """K3, K1 and K4 in both modes (on the bf16 hoisted product of x), bf16,
+    against their plain bf16 versions and the float64 recipe on the same
+    inputs -> ({kernel: {stream: (kernel, plain) distance}}, max |kernel -
+    plain| over every stream)."""
+    L = (torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                    device=x.device) if lengths is None else lengths)
+    q64f, q64r = d64(pf), d64(pr)
+    out, err = {}, 0.0
+    with torch.no_grad():
+        plain = lstm_ops.bidi_lstm_fwd_state_plain(pf, pr, x, lengths,
+                                                   xz_bf16=True)
+        ref = lstm_ops.bidi_lstm_fwd_state_plain(q64f, q64r, x, lengths,
+                                                 xz_bf16=True)
+
+        def k3():
+            return (bidi_lstm_infer(pf, pr, x, lengths, hoist=False,
+                                    xz_bf16=True),)
+
+        def k1():
+            return bidi_lstm_fwd_state(pf, pr, x, lengths, xz_bf16=True)
+        for name, fn, n in (("K3", k3, 1), ("K1", k1, 3)):
+            out[name], e = check_streams(
+                f"{name} bf16", fn(), fn(), L, (BF16_ULP,) * n, plain[:n],
+                ref[:n])
+            err = max(err, e)
+        del plain, ref
+        xz = lstm_ops.hoisted_projection(pf, pr, x, xz_bf16=True)
+        plain = lstm_ops.bidi_lstm_fwd_state_xz_plain(pf, pr, xz, lengths,
+                                                      xz_bf16=True)
+        ref = lstm_ops.bidi_lstm_fwd_state_xz_plain(q64f, q64r, xz, lengths,
+                                                    xz_bf16=True)
+
+        def k4():
+            return (bidi_lstm_infer_xz(pf, pr, xz, lengths, xz_bf16=True),)
+
+        def k4s():
+            return bidi_lstm_fwd_state_xz(pf, pr, xz, lengths, xz_bf16=True)
+        for name, fn, n in (("K4", k4, 1), ("K4 state", k4s, 3)):
+            out[name], e = check_streams(
+                f"{name} bf16", fn(), fn(), L, (BF16_ULP,) * n, plain[:n],
+                ref[:n])
+            err = max(err, e)
+    return out, err
+
+
+@contextlib.contextmanager
+def h_unrounded(B_: int, H_: int):
+    """Within it the plain recipe leaves h unrounded before its recurrent
+    product (ops/lstm.py::_op on the [2, B_, H_] h of ``_chain_plain``,
+    the only operand of that shape where the input width is not H_); every
+    other rounding point stays. Yields the count of h operands left
+    unrounded."""
+    op, hits = lstm_ops._op, [0]
+
+    def patched(t, ct, bf16):
+        if tuple(t.shape) == (2, B_, H_):
+            hits[0] += 1
+            return t.to(ct)
+        return op(t, ct, bf16)
+    lstm_ops._op = patched
+    try:
+        yield hits
+    finally:
+        lstm_ops._op = op
+
+
+def planted_controls(pf, pr, x, lengths) -> dict:
+    """K3's y from the float64 recipe with one rounding point left out, put
+    in the kernel's place in bf16_rel against the float64 recipe and the
+    plain bf16 version: "h unrounded" (h fed to Wh in float64), "bias f32"
+    (the bias not rounded as a row of W_in). Each must fail the rule.
+    Returns {fault: (max, plain max, mean, plain mean)}."""
+    B_, T_, D_ = x.shape
+    H_ = pf["Wh"].shape[0]
+    if D_ == H_:
+        raise ValueError("h_unrounded needs D != H")
+    q64f, q64r = d64(pf), d64(pr)
+    L = (torch.full((B_,), T_, dtype=torch.int32, device=x.device)
+         if lengths is None else lengths)
+    valid = ~padded(L, B_, T_, x.device)
+    w = torch.cat([q64f["Wx"], q64r["Wx"]], 1).bfloat16().double()
+    b = torch.cat([q64f["b"], q64r["b"]])
+    x16 = x.reshape(B_ * T_, D_).bfloat16().double()
+    out = {}
+    with torch.no_grad():
+        plain = bidi_lstm_apply(pf, pr, x, lengths, xz_bf16=True)
+        ref = bidi_lstm_apply(q64f, q64r, x, lengths, xz_bf16=True)
+
+        def xz(bias):
+            return torch.addmm(bias, x16, w).reshape(B_, T_, 2, 4 * H_)
+        # The same recipe through the xz path, every point in place, is the
+        # reference itself: the controls below differ from it only where
+        # they leave a point out.
+        same = lstm_ops.bidi_lstm_apply_xz(
+            q64f, q64r, xz(b.bfloat16().double()), lengths, xz_bf16=True)
+        if not torch.equal(same, ref):
+            raise AssertionError("the planted controls' recipe differs from "
+                                 "the float64 recipe with no fault planted")
+        with h_unrounded(B_, H_) as hits:
+            y_h = lstm_ops.bidi_lstm_apply_xz(
+                q64f, q64r, xz(b.bfloat16().double()), lengths, xz_bf16=True)
+        if hits[0] != T_:
+            raise AssertionError(f"h left unrounded at {hits[0]} of {T_} "
+                                 "steps")
+        y_b = lstm_ops.bidi_lstm_apply_xz(q64f, q64r, xz(b), lengths,
+                                          xz_bf16=True)
+        for fault, y in (("h unrounded", y_h), ("bias f32", y_b)):
+            r, pd, rd = y.double(), plain.double(), ref.double()
+            out[fault] = (rel_err(r, rd), rel_err(pd, rd),
+                          mean_rel(r, rd, valid), mean_rel(pd, rd, valid))
+            try:
+                bf16_rel(f"planted {fault}", y, plain, ref, BF16_ULP, valid)
+            except AssertionError:
+                continue
+            raise AssertionError(f"the bf16 rule passed K3's recipe with "
+                                 f"{fault}: {out[fault]}")
+    return out
+
+
+def compare_bf16_k2(pf, pr, x, lengths, state, gy):
+    """K2's chain and reduction, bf16, on the plain bf16 forward's state
+    and a bf16 cotangent: against their plain bf16 versions and the float64
+    recipe (the chain on the same inputs, the reduction on the plain
+    chain's dz, with dx from x as it is and as bf16, and without dx) ->
+    ({part: (kernel, plain) distance}, max |kernel - plain| of the chain,
+    of the reduction)."""
+    y, gates, cell = state
+    L = (torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                    device=x.device) if lengths is None else lengths)
+    Wh2, Wx2 = stack2(pf, pr, "Wh"), stack2(pf, pr, "Wx")
+    out = {}
+    with torch.no_grad():
+        dz_p = lstm_ops.bidi_lstm_bwd_chain_plain(gates, cell, gy, Wh2,
+                                                  lengths, xz_bf16=True)
+        dz_r = lstm_ops.bidi_lstm_bwd_chain_plain(
+            gates, cell, gy, Wh2.double(), lengths, xz_bf16=True)
+
+        def chain():
+            return (bidi_lstm_bwd_chain(gates, cell, gy, Wh2, lengths,
+                                        xz_bf16=True),)
+        d, chain_err = check_streams("K2 chain bf16", chain(), chain(), L,
+                                     (BF16_ULP,), (dz_p,), (dz_r,))
+        out["dz"] = d[0]
+        del dz_r
+        red_err = 0.0
+        for xin, need_dx in ((x, True), (x.bfloat16(), True), (x, False)):
+            def red():
+                return tuple(t for t in bidi_lstm_bwd_reduce(
+                    xin, y, dz_p, Wx2, need_dx, xz_bf16=True)
+                    if t is not None)
+            p = [t for t in lstm_ops.bidi_lstm_bwd_reduce_plain(
+                xin, y, dz_p, Wx2, need_dx, xz_bf16=True) if t is not None]
+            r = [t for t in lstm_ops.bidi_lstm_bwd_reduce_plain(
+                xin.double(), y, dz_p, Wx2.double(), need_dx,
+                xz_bf16=True) if t is not None]
+            if need_dx and xin.dtype == torch.bfloat16:
+                # dx in x's type: the float64 recipe's sum of the two
+                # halves rounded to bf16 as well.
+                r[1] = r[1].bfloat16().double()
+            got = red()
+            if need_dx and got[1].dtype != xin.dtype:
+                raise AssertionError("K2 reduction bf16: dx is not in x's "
+                                     "type")
+            d, e = check_streams(
+                f"K2 reduction bf16 (x {xin.dtype}, dx {need_dx})", got,
+                red(), L, (F64_FLOOR, BF16_ULP)[:len(got)], p, r,
+                (False, True)[:len(got)])
+            red_err = max(red_err, e)
+            for i, v in d.items():
+                key = ("dW", "dx")[i]
+                out[key] = dist_max(out.get(key, v), v)
+    return out, chain_err, red_err
+
+
+def bf16_kernels(dev, card: str) -> dict:
+    """The bf16 kernels against their plain bf16 versions and the float64
+    recipe (phase 18), at the bench profile (bidi, B=256, T=1024, D=48,
+    H=100), bidi2's two layer shapes (D=48 and D=400, H=200), each with
+    lengths all 900 and mixed, and BF16_ODD with mixed and no lengths; then
+    each timed in turns with its f32 mode (phase 19), with the library call
+    (cuDNN's nn.LSTM in bf16, the plain version's einsums on bf16 operands)
+    in turns as well. Returns the distances, errors and times."""
+    rng = np.random.RandomState(11)
+    res = {"dist": {}, "fwd_err": 0.0, "chain_err": 0.0, "red_err": 0.0,
+           "ms": {}, "plans": {}}
+
+    def merge(dist):
+        for key, v in dist.items():
+            res["dist"][key] = dist_max(res["dist"].get(key, v), v)
+
+    def check(label, pf, pr, x, lengths):
+        d, e = compare_bf16_fwd(pf, pr, x, lengths)
+        res["fwd_err"] = max(res["fwd_err"], e)
+        for k, v in d.items():
+            merge({f"{k} {i}": dv for i, dv in v.items()})
+        with torch.no_grad():
+            state = lstm_ops.bidi_lstm_fwd_state_plain(pf, pr, x, lengths,
+                                                       xz_bf16=True)
+        gy = uniform(rng, (x.shape[0], x.shape[1], state[0].shape[-1]), -1.0,
+                     1.0, dev).bfloat16()
+        d2, ce, re_ = compare_bf16_k2(pf, pr, x, lengths, state, gy)
+        res["chain_err"] = max(res["chain_err"], ce)
+        res["red_err"] = max(res["red_err"], re_)
+        merge({f"K2 {k}": v for k, v in d2.items()})
+        def pair(v):
+            return (f"{v[0]:.2e}/{v[1]:.2e} mean {v[2]:.2e}/{v[3]:.2e}")
+        log(f"[bf16] {label}: float64 distance kernel/plain, max and mean "
+            "(the larger over the streams) " + ", ".join(
+                f"{k} " + pair(functools.reduce(dist_max, v.values()))
+                for k, v in d.items()) + "; K2 " + ", ".join(
+            f"{k} {pair(v)}" for k, v in d2.items())
+            + f" (limit {BF16_FACTOR:g}x plain, floor {BF16_ULP:.2e}, dW "
+            f"{F64_FLOOR:.0e}; mean floor {F64_FLOOR:.0e}, held from "
+            f"{MEAN_MIN_VALUES} values); max|kernel - plain| forward "
+            f"{e:.3e}, chain {ce:.3e}, reduction {re_:.3e}; padded frames "
+            "exactly 0; two calls bitwise equal")
+
+    L900 = torch.full((B,), TRUE_T, dtype=torch.int32, device=dev)
+    mixed = rng.randint(0, T + 1, B).astype(np.int32)
+    mixed[0], mixed[1] = 0, T
+    lens = {"all900": L900, "mixed": torch.from_numpy(mixed).to(dev)}
+    V900 = B * TRUE_T
+    # bidi, then bidi2's layer 1 and layer 2.
+    layers = {"bidi": (D, H, 0.3), "bidi2 layer 1": (D, H2, 0.1),
+              "bidi2 layer 2": (D2, H2, 0.1)}
+    weights = {}
+    for name, (d, h, sc) in layers.items():
+        pf, pr = lstm_params(rng, d, h, dev, sc), lstm_params(rng, d, h, dev,
+                                                               sc)
+        x = (uniform(rng, (B, T, d), 0.0, 1.0, dev) if d == D else
+             uniform(rng, (B, T, d), -1.0, 1.0, dev))
+        weights[name] = (pf, pr, x)
+        for k, lv in lens.items():
+            check(f"{name} B={B} T={T} D={d} H={h} lengths={k}", pf, pr, x,
+                  lv)
+        if name == "bidi":
+            res["planted"] = planted_controls(pf, pr, x, L900)
+            log(f"[bf16] planted controls, K3 at B={B} T={T} D={d} H={h} "
+                f"lengths={TRUE_T}: the float64 recipe with a rounding "
+                "point left out, in the kernel's place, max/plain max, mean/"
+                "plain mean: " + ", ".join(
+                    f"{f} {v[0]:.2e}/{v[1]:.2e}, {v[2]:.2e}/{v[3]:.2e}"
+                    for f, v in res["planted"].items())
+                + f"; each fails the rule ({BF16_FACTOR:g}x plain)")
+        hoist = bk.hoists_projection(d, h)
+        for st in (False, True):
+            p = bk.device_plan(dev, B, 0 if hoist else d, h, hoist, st, 2)
+            smem = bk._kernel("clstm_bidi_lstm_fwd_bf16_smem")(
+                0 if hoist else d, h, int(hoist), p.C, p.rows, p.units,
+                p.resident)
+            if smem != p.smem:
+                raise AssertionError(f"bf16 plan {p}: the kernel counts "
+                                     f"{smem} bytes of shared memory")
+            res["plans"][f"{name} {'state' if st else 'inference'}"] = \
+                p._asdict()
+            log(f"[plan] bf16 {name} {'K1/K4 state' if st else 'K3/K4'} "
+                f"B={B}: " + ", ".join(f"{k} {v}" for k, v in
+                                       p._asdict().items())
+                + ("; one wave" if 2 * p.groups <= p.clusters else
+                   "; more than one wave"))
+    for (b, t, d, h) in BF16_ODD:
+        sc = min(0.3, 3.0 / h ** 0.5)
+        pf, pr = lstm_params(rng, d, h, dev, sc), lstm_params(rng, d, h, dev,
+                                                               sc)
+        x = uniform(rng, (b, t, d), -1.0, 1.0, dev)
+        ml = rng.randint(0, t + 1, b).astype(np.int32)
+        ml[-1] = t
+        for lname, lv in (("mixed", torch.from_numpy(ml).to(dev)),
+                          ("none", None)):
+            check(f"B={b} T={t} D={d} H={h} lengths={lname}", pf, pr, x, lv)
+
+    # Timing: each bf16 kernel in turns with its f32 mode at the bench
+    # shapes, lengths 900, and with its library call.
+    ms = res["ms"]
+    with torch.no_grad():
+        pf, pr, x = weights["bidi"]
+        lstm = cudnn_lstm(pf, pr, dev)
+        lstm16 = copy.deepcopy(lstm).to(torch.bfloat16)
+        px16 = packed(x.bfloat16(), L900)
+        check_cudnn(lstm, packed(x, L900),
+                    bidi_lstm_infer(pf, pr, x, L900), "K3")
+        f32_t, bf_t = in_turns(lambda: bidi_lstm_infer(pf, pr, x, L900),
+                               lambda: bidi_lstm_infer(pf, pr, x, L900,
+                                                       xz_bf16=True), 10)
+        bf_t2, lib = in_turns(lambda: bidi_lstm_infer(pf, pr, x, L900,
+                                                      xz_bf16=True),
+                              lambda: lstm16(px16), 10)
+        ms["K3"] = {"ms": mean(bf_t + bf_t2), "f32_ms": mean(f32_t),
+                    "turns": [f32_t, bf_t], "library_ms": mean(lib),
+                    "plain_ms": time_ms(lambda: bidi_lstm_apply(
+                        pf, pr, x, L900, xz_bf16=True), 2),
+                    "bound": lstm_bound("fwd", B, T, D, H, V900, esize=2)}
+        cu_fwd16 = cudnn_step(lstm16, px16, False)[0]
+        f32_t, bf_t = in_turns(
+            lambda: bidi_lstm_fwd_state(pf, pr, x, L900),
+            lambda: bidi_lstm_fwd_state(pf, pr, x, L900, xz_bf16=True), 10)
+        bf_t2, lib = in_turns(
+            lambda: bidi_lstm_fwd_state(pf, pr, x, L900, xz_bf16=True),
+            cu_fwd16, 10)
+        ms["K1"] = {"ms": mean(bf_t + bf_t2), "f32_ms": mean(f32_t),
+                    "turns": [f32_t, bf_t], "library_ms": mean(lib),
+                    "plain_ms": time_ms(
+                        lambda: lstm_ops.bidi_lstm_fwd_state_plain(
+                            pf, pr, x, L900, xz_bf16=True), 2),
+                    "bound": lstm_bound("fwd_state", B, T, D, H, V900,
+                                        esize=2)}
+        y16, g16, c16 = bidi_lstm_fwd_state(pf, pr, x, L900, xz_bf16=True)
+        y32, g32, c32 = bidi_lstm_fwd_state(pf, pr, x, L900)
+        gy = uniform(rng, (B, T, 2 * H), -1.0, 1.0, dev)
+        Wh2, Wx2 = stack2(pf, pr, "Wh"), stack2(pf, pr, "Wx")
+        gy16 = gy.bfloat16()
+        dz16 = bidi_lstm_bwd_chain(g16, c16, gy16, Wh2, L900, xz_bf16=True)
+        dz32 = bidi_lstm_bwd_chain(g32, c32, gy, Wh2, L900)
+        f32_t, bf_t = in_turns(
+            lambda: bidi_lstm_bwd_chain(g32, c32, gy, Wh2, L900),
+            lambda: bidi_lstm_bwd_chain(g16, c16, gy16, Wh2, L900,
+                                        xz_bf16=True), 10)
+        ms["K2 chain"] = {"ms": mean(bf_t), "f32_ms": mean(f32_t),
+                          "turns": [f32_t, bf_t], "library_ms": None,
+                          "plain_ms": time_ms(
+                              lambda: lstm_ops.bidi_lstm_bwd_chain_plain(
+                                  g16, c16, gy16, Wh2, L900, xz_bf16=True),
+                              2),
+                          "bound": lstm_bound("chain", B, T, D, H, V900,
+                                              esize=2)}
+        f32_t, bf_t = in_turns(
+            lambda: bidi_lstm_bwd_reduce(x, y32, dz32, Wx2, False),
+            lambda: bidi_lstm_bwd_reduce(x, y16, dz16, Wx2, False,
+                                         xz_bf16=True), 10)
+        bf_t2, lib = in_turns(
+            lambda: bidi_lstm_bwd_reduce(x, y16, dz16, Wx2, False,
+                                         xz_bf16=True),
+            einsum_reduce(x.bfloat16(), y16, dz16, Wx2.bfloat16(), False), 10)
+        ms["K2 reduction"] = {
+            "ms": mean(bf_t + bf_t2), "f32_ms": mean(f32_t),
+            "turns": [f32_t, bf_t], "library_ms": mean(lib),
+            "plain_ms": time_ms(lambda: lstm_ops.bidi_lstm_bwd_reduce_plain(
+                x, y16, dz16, Wx2, False, xz_bf16=True), 2),
+            "bound": lstm_bound("reduce", B, T, D, H, V900, esize=2)}
+        del lstm, lstm16, px16, y16, g16, c16, y32, g32, c32, dz16, dz32
+        # bidi2's layer 2: K4 both modes, the chain at H=200, the reduction
+        # with dx.
+        pf, pr, x = weights["bidi2 layer 2"]
+        xz16 = lstm_ops.hoisted_projection(pf, pr, x, xz_bf16=True)
+        xz32 = lstm_ops.hoisted_projection(pf, pr, x)
+        lstm = cudnn_lstm(pf, pr, dev)
+        lstm16 = copy.deepcopy(lstm).to(torch.bfloat16)
+        px16 = packed(x.bfloat16(), L900)
+        for name, fn, kind in (("K4", bidi_lstm_infer_xz, "xz"),
+                               ("K4 state", bidi_lstm_fwd_state_xz,
+                                "xz_state")):
+            f32_t, bf_t = in_turns(
+                lambda: fn(pf, pr, xz32, L900),
+                lambda: fn(pf, pr, xz16, L900, xz_bf16=True), 5)
+            if name == "K4":
+                whole = (lambda: bidi_lstm_infer(pf, pr, x, L900,
+                                                 xz_bf16=True),
+                         lambda: lstm16(px16))
+                plain = lstm_ops.bidi_lstm_apply_xz
+            else:
+                whole = (lambda: bidi_lstm_fwd_state_xz(
+                    pf, pr, lstm_ops.hoisted_projection(pf, pr, x,
+                                                        xz_bf16=True),
+                    L900, xz_bf16=True),
+                    cudnn_step(lstm16, px16, False)[0])
+                plain = lstm_ops.bidi_lstm_fwd_state_xz_plain
+            tot, lib = in_turns(*whole, 5)
+            ms[name] = {"ms": mean(bf_t), "f32_ms": mean(f32_t),
+                        "turns": [f32_t, bf_t], "library_ms": mean(lib),
+                        "hoisted_total_ms": mean(tot),
+                        "plain_ms": time_ms(lambda: plain(
+                            pf, pr, xz16, L900, xz_bf16=True), 1),
+                        "bound": lstm_bound(kind, B, T, D2, H2, V900,
+                                            esize=2)}
+        ms["hoisted product"] = {
+            "ms": time_ms(lambda: lstm_ops.hoisted_projection(
+                pf, pr, x, xz_bf16=True), 10),
+            "f32_ms": time_ms(lambda: lstm_ops.hoisted_projection(pf, pr, x),
+                              10)}
+        y16, g16, c16 = bidi_lstm_fwd_state_xz(pf, pr, xz16, L900,
+                                               xz_bf16=True)
+        y32, g32, c32 = bidi_lstm_fwd_state_xz(pf, pr, xz32, L900)
+        del xz16, xz32, lstm, lstm16, px16
+        gy = uniform(rng, (B, T, 2 * H2), -1.0, 1.0, dev)
+        gy16 = gy.bfloat16()
+        Wh2, Wx2 = stack2(pf, pr, "Wh"), stack2(pf, pr, "Wx")
+        dz16 = bidi_lstm_bwd_chain(g16, c16, gy16, Wh2, L900, xz_bf16=True)
+        dz32 = bidi_lstm_bwd_chain(g32, c32, gy, Wh2, L900)
+        f32_t, bf_t = in_turns(
+            lambda: bidi_lstm_bwd_chain(g32, c32, gy, Wh2, L900),
+            lambda: bidi_lstm_bwd_chain(g16, c16, gy16, Wh2, L900,
+                                        xz_bf16=True), 5)
+        ms["K2 chain H=200"] = {
+            "ms": mean(bf_t), "f32_ms": mean(f32_t), "turns": [f32_t, bf_t],
+            "plain_ms": time_ms(lambda: lstm_ops.bidi_lstm_bwd_chain_plain(
+                g16, c16, gy16, Wh2, L900, xz_bf16=True), 1),
+            "bound": lstm_bound("chain", B, T, D2, H2, V900, esize=2)}
+        x16 = x.bfloat16()
+        f32_t, bf_t = in_turns(
+            lambda: bidi_lstm_bwd_reduce(x, y32, dz32, Wx2, True),
+            lambda: bidi_lstm_bwd_reduce(x16, y16, dz16, Wx2, True,
+                                         xz_bf16=True), 5)
+        bf_t2, lib = in_turns(
+            lambda: bidi_lstm_bwd_reduce(x16, y16, dz16, Wx2, True,
+                                         xz_bf16=True),
+            einsum_reduce(x16, y16, dz16, Wx2.bfloat16(), True), 5)
+        ms["K2 reduction with dx"] = {
+            "ms": mean(bf_t + bf_t2), "f32_ms": mean(f32_t),
+            "turns": [f32_t, bf_t], "library_ms": mean(lib),
+            "plain_ms": time_ms(lambda: lstm_ops.bidi_lstm_bwd_reduce_plain(
+                x16, y16, dz16, Wx2, True, xz_bf16=True), 1),
+            "bound": lstm_bound("reduce", B, T, D2, H2, V900, dx=True,
+                                esize=2)}
+        del y16, g16, c16, y32, g32, c32, dz16, dz32, x16
+    for name, m in ms.items():
+        log(f"[timing] {card} | bf16 {name} at the bench shape (lengths "
+            f"{TRUE_T}): {m['ms']:.3f} ms, f32 mode {m['f32_ms']:.3f} ms"
+            + (f" (in turns f32, bf16, bf16, f32: "
+               f"{m['turns'][0][0]:.3f}, {m['turns'][1][0]:.3f}, "
+               f"{m['turns'][1][1]:.3f}, {m['turns'][0][1]:.3f})"
+               if "turns" in m else "")
+            + (f"; plain bf16 {m['plain_ms']:.3f} ms" if "plain_ms" in m
+               else "")
+            + (f"; library {m['library_ms']:.3f} ms" if m.get("library_ms")
+               else "")
+            + (f"; bound {m['bound'][0]:.3f} ms ({m['bound'][1]})"
+               if "bound" in m else ""))
+    return res
+
+
+def toy_learning(dev, xz_bf16: bool, seed: int = 0):
+    """Phase 10's toy CTC task (tests/test_learning.py's transduction; bidi,
+    nhidden 16, 4 classes, B=8, T=24, 120 steps) at the precision
+    ``xz_bf16`` from ``seed``'s init and the same batches -> (losses, lines
+    decoded correctly of 64 fresh ones)."""
+    lspec, lnet = make_net_init(
+        "bidi", {"ninput": 4, "nhidden": 16, "noutput": 4, "initial": 0.1},
+        torch.Generator().manual_seed(seed), dev)
+    lstate = TrainState.create(lnet)
+    lstep = make_train_step(lspec, lr=0.1, momentum=0.9, loss_kind="ctc",
+                            normalization="batch", xz_bf16=xz_bf16)
+    lrng = np.random.RandomState(1)
+    losses = []
+    for _ in range(120):
+        lstate, m = lstep(lstate, toy_ctc_batch(lrng, dev)[0])
+        losses.append(float(m["loss"]))
+    predict = make_predict_step(lspec, xz_bf16=xz_bf16)
+    correct = 0
+    for _ in range(8):
+        tb, syms = toy_ctc_batch(lrng, dev)
+        ids, vals = predict(lnet, tb["x"], tb["lengths"])
+        ids, vals = ids.cpu().numpy(), vals.cpu().numpy()
+        correct += sum(decode_frames(ids[r], vals[r]) == list(syms[r])
+                       for r in range(len(syms)))
+    return losses, correct
+
+
+# The learning check's OCR corpus, made in code (no fonts needed): LEARN_C
+# classes (the blank and LEARN_C - 1 glyphs), each glyph a fixed random
+# bitmap 48 rows high and 6-12 columns wide from the seed; a line is a
+# random text of 5-15 glyphs with gaps of 1-3 columns and pixel noise. bidi
+# at full width (48 inputs, nhidden 100) trains at B=32 with the CLI's
+# defaults (lr 1e-4, momentum 0.9, loss summed over lines); the CER is
+# taken on LEARN_TEST held-out lines every LEARN_EVERY steps.
+LEARN_C, LEARN_B, LEARN_TEST, LEARN_EVERY = 40, 32, 128, 25
+# The f32 run finds N, the first evaluation where its CER is below half
+# its start, or gives up after LEARN_MAX_S seconds (the check is then
+# void); the bf16 run takes the same steps from the same init on the same
+# batches. Pass: bf16's CER at N at most f32's plus LEARN_SLACK. Both runs
+# go on LEARN_AFTER steps past N, recorded only: how far apart in steps
+# the two curves lie.
+LEARN_MAX_S, LEARN_SLACK, LEARN_AFTER = 120.0, 0.02, 100
+
+
+def glyph_lines(rng, glyphs, n):
+    """``n`` lines of random texts over ``glyphs`` -> (x [n, T, 48] f32,
+    lengths, texts as class-id lists): the time axis is the image width,
+    ink 1 on 0, as the line prepare gives."""
+    texts, cols = [], []
+    for _ in range(n):
+        ids = rng.randint(1, len(glyphs) + 1, rng.randint(5, 16))
+        parts = [np.zeros((48, 4), np.float32)]
+        for c in ids:
+            parts += [glyphs[c - 1], np.zeros((48, rng.randint(1, 4)),
+                                              np.float32)]
+        parts.append(np.zeros((48, 4), np.float32))
+        img = np.concatenate(parts, 1)
+        img = np.clip(img + rng.normal(0, 0.1, img.shape), 0, 1)
+        texts.append(list(ids))
+        cols.append(img.T.astype(np.float32))
+    T_ = max(c.shape[0] for c in cols)
+    x = np.zeros((n, T_, 48), np.float32)
+    for i, c in enumerate(cols):
+        x[i, :c.shape[0]] = c
+    return x, np.array([c.shape[0] for c in cols], np.int32), texts
+
+
+def glyph_batch(step: int, glyphs, dev) -> dict:
+    """Training batch ``step`` (the same in both runs): LEARN_B lines from a
+    RandomState seeded by the step."""
+    x, lengths, texts = glyph_lines(np.random.RandomState(1000 + step),
+                                    glyphs, LEARN_B)
+    S_ = 2 * max(len(t) for t in texts) + 1
+    tids = np.stack([mktargets_ids(t, S_) for t in texts]).astype(np.int32)
+    tlens = np.array([2 * len(t) + 1 for t in texts], np.int32)
+    b = {"x": x, "lengths": lengths, "targets": tids, "target_lengths": tlens}
+    return {k: to_device(v, dev) for k, v in b.items()}
+
+
+def ocr_learning(dev) -> dict:
+    """The learning check on the glyph corpus, f32 then bf16 (phase 20).
+    Returns the CER curves, N and the verdict: "pass", "fail" or "void"."""
+    grng = np.random.RandomState(20)
+    glyphs = []
+    for _ in range(LEARN_C - 1):
+        w = grng.randint(6, 13)
+        g = (grng.rand(48, w) < 0.35).astype(np.float32)
+        g[:8], g[40:] = 0.0, 0.0
+        glyphs.append(g)
+    tx, tl, ttexts = glyph_lines(np.random.RandomState(21), glyphs,
+                                 LEARN_TEST)
+    tx, tl = to_device(tx, dev), to_device(tl, dev)
+    args = {"ninput": 48, "nhidden": H, "noutput": LEARN_C}
+
+    def test_cer(net, predict):
+        ids, vals = predict(net, tx, tl)
+        ids, vals = ids.cpu().numpy(), vals.cpu().numpy()
+        errs = sum(levenshtein(t, decode_frames(ids[i, :tl_[i]],
+                                                vals[i, :tl_[i]]))
+                   for i, t in enumerate(ttexts))
+        return errs / sum(len(t) for t in ttexts)
+    tl_ = tl.cpu().numpy()
+
+    def run(xz_bf16, steps=None):
+        """Train at ``xz_bf16``: to ``steps`` steps, or (None) to the first
+        evaluation whose CER is below half the start; then LEARN_AFTER
+        steps more, recorded. -> (curve, the steps of the verdict or None
+        when the CER did not halve in LEARN_MAX_S, seconds)."""
+        spec, net = make_net_init("bidi", args,
+                                  torch.Generator().manual_seed(0), dev)
+        state = TrainState.create(net)
+        step = make_train_step(spec, 1e-4, 0.9, loss_kind="ctc",
+                               normalization="none", xz_bf16=xz_bf16)
+        predict = make_predict_step(spec, xz_bf16=xz_bf16)
+        curve = [(0, test_cer(net, predict))]
+        t0 = time.perf_counter()
+        i, n = 0, steps
+        while n is None or i < n + LEARN_AFTER:
+            state, _ = step(state, glyph_batch(i, glyphs, dev))
+            i += 1
+            if i % LEARN_EVERY == 0:
+                curve.append((i, test_cer(net, predict)))
+                if n is None and curve[-1][1] < 0.5 * curve[0][1]:
+                    n = i
+                if n is None and time.perf_counter() - t0 > LEARN_MAX_S:
+                    break
+        return curve, n, time.perf_counter() - t0
+    f32_curve, n, f32_s = run(False)
+    out = {"f32": f32_curve, "f32_s": f32_s, "steps": n}
+    if n is None:
+        out["verdict"] = "void"
+        return out
+    out["bf16"], _, out["bf16_s"] = run(True, n)
+    at_n = {m: dict(out[m])[n] for m in ("f32", "bf16")}
+    out["cer_at_n"] = at_n
+    out["verdict"] = ("pass" if at_n["bf16"] <= at_n["f32"] + LEARN_SLACK
+                      else "fail")
+    return out
+
+
+def mode_turns(tocr, batch, reps: int, label: str, card: str) -> dict:
+    """train_batch in strict f32 and in the bf16 mode, timed in turns (f32,
+    bf16, bf16, f32) on the host clock (each call ends synchronised); the
+    model's precision is restored. Logs and returns {"f32": [..],
+    "bf16": [..]} ms per step."""
+    saved = tocr.xz_bf16
+
+    def at(mode):
+        def run():
+            tocr.xz_bf16 = mode
+            tocr.train_batch(batch)
+        return run
+    try:
+        a1, b1, b2, a2 = (host_ms(f, reps) for f in (at(False), at(True),
+                                                     at(True), at(False)))
+    finally:
+        tocr.xz_bf16 = saved
+    log(f"[timing] {card} | {label} train_batch in turns (f32, bf16, bf16, "
+        f"f32): {a1:.3f}, {b1:.3f}, {b2:.3f}, {a2:.3f} ms/step")
+    return {"f32": [a1, a2], "bf16": [b1, b2]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k2-against", metavar="SRC",
@@ -1908,6 +2785,10 @@ def main(argv=None) -> int:
                     help="also build this CTC DP source (ctc_dp.cu of this or "
                     "the earlier C interface) and time its K5, K6 and K6b in "
                     "turns with the current ones at the bench shape")
+    ap.add_argument("--toy-seeds", metavar="N", type=int, default=0,
+                    help="also run phase 10's toy task from the inits of "
+                    "seeds 1-N in both precisions and log how many lines "
+                    "each decodes (a record, not a check)")
     args = ap.parse_args(argv)
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1916,6 +2797,11 @@ def main(argv=None) -> int:
     dev = torch_device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    # The precision the port takes on the card when none is asked for
+    # (models/spec.py::ApplyCtx).
+    default_bf16 = ApplyCtx().bf16(torch.empty(0, device=dev))
+    log(f"[device] default precision on the card: "
+        f"{'bf16 (xz_bf16)' if default_bf16 else 'strict f32'}")
     log(f"[device] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | devices {torch.cuda.device_count()}")
 
@@ -2027,11 +2913,15 @@ def main(argv=None) -> int:
     # k/255 pixels, as PNG decoding gives: the card's prepare takes the
     # uint8 upload.
     images = [quantized(synth_line(rng)) for _ in range(N_LINES)]
+    # The card's default precision (bf16) both ways, then the other mode
+    # (strict f32) with the normalization on the card.
     with tempfile.TemporaryDirectory() as tmp:
         model = os.path.join(tmp, "bidi.clstm")
         save_net(model, net, codec)
         served = {dp: serve(model, images, dev, C, tmp, dp) for dp in (0, 1)}
-    for dp, r in served.items():
+        served_other = serve(model, images, dev, C, tmp, 1,
+                             xz_bf16=not default_bf16)
+    for dp, r in [*served.items(), (1, served_other)]:
         n = r["launches"]
         if n["bidi_lstm_infer"] != len(r["buckets"]) or n[
                 "bidi_lstm_infer_xz"]:
@@ -2039,7 +2929,9 @@ def main(argv=None) -> int:
                                  f"launched {n} for {len(r['buckets'])} "
                                  "buckets: K3 once a bucket")
         log(serve_line("main", r, dp))
-    launches = served[1]["launches"]["bidi_lstm_infer"]
+    # K3's launches on the main path, per mode.
+    k3_launches = {r["bf16"]: r["launches"]["bidi_lstm_infer"]
+                   for r in (served[1], served_other)}
 
     # 6. K1 against plain: bench profile (both length sets), odd shapes.
     k1_err, k1_state = 0.0, {}
@@ -2113,22 +3005,34 @@ def main(argv=None) -> int:
 
     # 9. Training path at full width: 5 train_batch steps, kernels and plain.
     batch = bench_batch(np.random.RandomState(0), dev)
+    # The card's default precision, then the other mode, from one start.
     tocr = CLSTMOCR(device="cuda")
     tocr.createBidi(codec, nhidden=H)
     tocr.setLearningRate(1e-4, 0.9)
-    plain = TrainState.create(make_net_init(
-        "bidi", {"ninput": D, "nhidden": H, "noutput": C}, device=dev)[1])
-    with torch.no_grad():
-        for p, q in zip(plain.net.parameters(), tocr.net.parameters()):
-            p.copy_(q)
-    train_launches = train_against_plain(tocr, plain, batch, 1e-4, 0.9,
-                                         f"train B={B} T={T} S={S81}")
-    if min(train_launches[f.__name__] for f in (
-            bidi_lstm_fwd_state, bidi_lstm_bwd_chain, bidi_lstm_bwd_reduce,
-            ctc_forward, ctc_both)) < 1:
-        raise AssertionError(f"training path skipped a kernel: "
-                             f"{train_launches}")
-    del plain
+    train_by_mode = {}
+    for mode in (None, not default_bf16):
+        plain = TrainState.create(make_net_init(
+            "bidi", {"ninput": D, "nhidden": H, "noutput": C},
+            device=dev)[1])
+        if mode is None:
+            kocr = tocr
+        else:
+            kocr = CLSTMOCR(device="cuda")
+            kocr.createBidi(codec, nhidden=H)
+            kocr.setLearningRate(1e-4, 0.9)
+            kocr.xz_bf16 = mode
+        with torch.no_grad():
+            for p, q in zip(plain.net.parameters(), kocr.net.parameters()):
+                p.copy_(q)
+        got = train_against_plain(kocr, plain, batch, 1e-4, 0.9,
+                                  f"train B={B} T={T} S={S81}")
+        if min(got[f.__name__] for f in (
+                bidi_lstm_fwd_state, bidi_lstm_bwd_chain,
+                bidi_lstm_bwd_reduce, ctc_forward, ctc_both)) < 1:
+            raise AssertionError(f"training path skipped a kernel: {got}")
+        train_by_mode[default_bf16 if mode is None else mode] = got
+        del plain, kocr
+    train_launches = train_by_mode[default_bf16]
     urng = np.random.RandomState(3)
     chars = [chr(c) for c in range(65, 91)]
     for _ in range(3):
@@ -2157,37 +3061,36 @@ def main(argv=None) -> int:
         f"{back.state.step}, params and velocity restored exactly, same "
         f"prediction {back.predict_utf8(img)!r}")
 
-    # 10. Learning check: the toy CTC transduction on the card. How well it
-    # learns in 120 steps depends on the init (seeds 0-3 decode 62, 16, 26
-    # and 64 of 64 lines on CPU): seed 0 is one that learns.
-    lspec, lnet = make_net_init(
-        "bidi", {"ninput": 4, "nhidden": 16, "noutput": 4, "initial": 0.1},
-        torch.Generator().manual_seed(0), dev)
-    lstate = TrainState.create(lnet)
-    lstep = make_train_step(lspec, lr=0.1, momentum=0.9, loss_kind="ctc",
-                            normalization="batch")
-    lrng = np.random.RandomState(1)
-    llosses = []
-    for _ in range(120):
-        lstate, m = lstep(lstate, toy_ctc_batch(lrng, dev)[0])
-        llosses.append(float(m["loss"]))
-    correct = lines = 0
-    for _ in range(8):
-        tb, syms = toy_ctc_batch(lrng, dev)
-        with torch.no_grad():
-            ids, vals = greedy_frames(lnet(tb["x"], tb["lengths"]))
-        ids, vals = ids.cpu().numpy(), vals.cpu().numpy()
-        correct += sum(decode_frames(ids[r], vals[r]) == list(syms[r])
-                       for r in range(len(syms)))
-        lines += len(syms)
-    log(f"[learn] toy CTC, 120 steps: loss {llosses[0]:.3f} -> "
-        f"{llosses[-1]:.3f}, {correct}/{lines} fresh lines decoded correctly")
-    if not (llosses[-1] < 0.5 * llosses[0] and correct >= lines // 2):
+    # 10. Learning check: the toy CTC transduction on the card, in both
+    # modes from the same init and batches. How well it learns in 120 steps
+    # depends on the init (seeds 0-3 decode 62, 16, 26 and 64 of 64 lines
+    # on CPU): seed 0 is one that learns.
+    toy = {m: toy_learning(dev, m) for m in (False, True)}
+    for m, (llosses, correct) in toy.items():
+        log(f"[learn] toy CTC, {'bf16' if m else 'f32'}, 120 steps: loss "
+            f"{llosses[0]:.3f} -> {llosses[-1]:.3f}, {correct}/64 fresh "
+            f"lines decoded correctly")
+    llosses, correct = toy[default_bf16]
+    if not (llosses[-1] < 0.5 * llosses[0] and correct >= 32):
         raise AssertionError("the toy CTC task did not learn on the card")
+    toy_pass = toy[True][1] >= toy[False][1] - 2
+    log(f"[learn] toy CTC: bf16 decodes {toy[True][1]}, f32 {toy[False][1]}"
+        f" of 64 (bf16 may decode at most 2 fewer): "
+        f"{'pass' if toy_pass else 'FAIL'}")
+    # With --toy-seeds N: how far the outcome of this 120-step run moves
+    # with the init alone, seeds 1-N in both modes (a record, not a limit).
+    toy_seeds = {sd: [toy_learning(dev, m, sd)[1] for m in (False, True)]
+                 for sd in range(1, args.toy_seeds + 1)}
+    if toy_seeds:
+        log(f"[learn] toy CTC at seeds 1-{args.toy_seeds}, lines decoded "
+            "f32 / bf16: " + ", ".join(f"{sd}: {a} / {b}"
+                                       for sd, (a, b) in toy_seeds.items()))
 
     # 11. Timing at the bench shape.
     Lb, TLb = batch["lengths"], batch["target_lengths"]
     k_step = host_ms(lambda: tocr.train_batch(batch), 5)
+    step_modes = mode_turns(tocr, batch, 3, f"bidi B={B} T={T} S={S81}",
+                            card)
     # lr 0: the plain step's update leaves the trained net as it is.
     vel0 = TrainState.create(tocr.net).velocity
     p_step = host_ms(lambda: plain_train_step(tocr.net, vel0, batch, 0.0,
@@ -2488,36 +3391,51 @@ def main(argv=None) -> int:
         maker.save(model2, sidecar=False)
         served2 = {dp: serve(model2, images, dev, C2, tmp, dp)
                    for dp in (0, 1)}
+        served2_other = serve(model2, images, dev, C2, tmp, 1,
+                              xz_bf16=not default_bf16)
     del maker
-    for dp, r in served2.items():
+    for dp, r in [*served2.items(), (1, served2_other)]:
         n, nb2 = r["launches"], len(r["buckets"])
         if not n["bidi_lstm_infer"] == n["bidi_lstm_infer_xz"] == nb2:
             raise AssertionError(f"bidi2 serving (device_preprocess={dp}): "
                                  f"{nb2} buckets, launches {n}: each bucket "
                                  "must launch K3 on layer 1 and K4 on layer 2")
         log(serve_line("bidi2 main", r, dp))
-    served2 = served2[1]["launches"]
+    # K4's (and K3's) launches on the bidi2 serving path, per mode.
+    served2_by = {r["bf16"]: r for r in (served2[1], served2_other)}
 
     # 15. bidi2 training at the config-4 bench profile (bench.py:538-600).
     batch2 = bench_batch(np.random.RandomState(0), dev, C2)
     tocr2 = CLSTMOCR(device="cuda")
     tocr2.createBidi(codec2, nhidden=H2, kind="bidi2")
     tocr2.setLearningRate(1e-4, 0.9)
-    plain2 = TrainState.create(make_net_init(
-        "bidi2", {"ninput": D, "nhidden": H2, "noutput": C2}, device=dev)[1])
-    with torch.no_grad():
-        for p, q in zip(plain2.net.parameters(), tocr2.net.parameters()):
-            p.copy_(q)
-    train2 = train_against_plain(tocr2, plain2, batch2, 1e-4, 0.9,
-                                 f"train bidi2 B={B} T={T} S={S81} C={C2}")
     want2 = {"bidi_lstm_fwd_state": 5, "bidi_lstm_fwd_state_xz": 5,
              "bidi_lstm_bwd_chain": 10, "bidi_lstm_bwd_reduce": 10,
              "ctc_forward": 5, "ctc_both": 5}
-    if {k: v for k, v in train2.items() if v} != want2:
-        raise AssertionError(f"bidi2 training launches {train2}, want "
-                             f"{want2}: K1 and K4 once a step, K2 on both "
-                             f"layers, K5 and K6")
-    del plain2
+    train2_by = {}
+    for mode in (None, not default_bf16):
+        plain2 = TrainState.create(make_net_init(
+            "bidi2", {"ninput": D, "nhidden": H2, "noutput": C2},
+            device=dev)[1])
+        if mode is None:
+            kocr = tocr2
+        else:
+            kocr = CLSTMOCR(device="cuda")
+            kocr.createBidi(codec2, nhidden=H2, kind="bidi2")
+            kocr.setLearningRate(1e-4, 0.9)
+            kocr.xz_bf16 = mode
+        with torch.no_grad():
+            for p, q in zip(plain2.net.parameters(), kocr.net.parameters()):
+                p.copy_(q)
+        got = train_against_plain(kocr, plain2, batch2, 1e-4, 0.9,
+                                  f"train bidi2 B={B} T={T} S={S81} C={C2}")
+        if {k: v for k, v in got.items() if v} != want2:
+            raise AssertionError(f"bidi2 training launches {got}, want "
+                                 f"{want2}: K1 and K4 once a step, K2 on "
+                                 f"both layers, K5 and K6")
+        train2_by[default_bf16 if mode is None else mode] = got
+        del plain2, kocr
+    train2 = train2_by[False]
     k_step2 = host_ms(lambda: tocr2.train_batch(batch2), 5)
     vel2 = TrainState.create(tocr2.net).velocity
     p_step2 = host_ms(lambda: plain_train_step(tocr2.net, vel2, batch2, 0.0,
@@ -2527,6 +3445,8 @@ def main(argv=None) -> int:
         f"plain {p_step2:.3f} ms/step ({B / p_step2 * 1e3:.1f} lines/s)")
     log(f"[timing] {card} | bidi2 train_batch: the host enqueues a step in "
         f"{enqueue_ms(lambda: tocr2.train_batch(batch2), 3):.3f} ms")
+    step2_modes = mode_turns(tocr2, batch2, 2,
+                             f"bidi2 B={B} T={T} S={S81} C={C2}", card)
     if ctc_against:
         steps_vs["bidi2"] = step_turns(tocr2, batch2, ctc_against, 3,
                                        f"bidi2 B={B} T={T} S={S81} C={C2}",
@@ -2592,6 +3512,34 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trained = ocrtrain(dev, tmp)
 
+    # 18-19. The bf16 kernels against their plain versions and float64, and
+    # timed in turns with their f32 modes.
+    b16 = bf16_kernels(dev, card)
+
+    # 20. The learning check of the bf16 mode against f32 on the glyph
+    # corpus: it decides the card's default precision.
+    learn = ocr_learning(dev)
+    for m in ("f32", "bf16"):
+        if m in learn:
+            log(f"[learn] glyph corpus, {m}: test CER by step " + ", ".join(
+                f"{i}: {c:.4f}" for i, c in learn[m]) + f" ({learn[m + '_s']:.1f} s)")
+    verdict = learn["verdict"]
+    if verdict == "void":
+        log(f"[learn] the f32 CER did not halve within {LEARN_MAX_S:.0f} s: "
+            "the check is void")
+    else:
+        log(f"[learn] glyph corpus after N={learn['steps']} steps: CER f32 "
+            f"{learn['cer_at_n']['f32']:.4f}, bf16 "
+            f"{learn['cer_at_n']['bf16']:.4f} (bf16 at most f32 + "
+            f"{LEARN_SLACK:g}): {verdict}")
+    learned = verdict == "pass" and toy_pass
+    log(f"[learn] the bf16 mode {'passes' if learned else 'does not pass'} "
+        f"the learning check; the card's default is "
+        f"{'bf16' if default_bf16 else 'f32'}")
+    if default_bf16 and not learned:
+        raise AssertionError("bf16 is the card's default but did not pass "
+                             "the learning check")
+
     # 18. Report. bound_ms from this run's shapes and valid frames (lengths
     # 900 at both bench shapes); library_ms a library call timed in turns
     # with the kernel above, or None where no one call computes the same
@@ -2599,20 +3547,21 @@ def main(argv=None) -> int:
     S81_bytes = 4 * B * T * S81
     entries = [
         ("bidi_lstm_fwd (K3)", "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu",
-         "clstm_tpu/ops/pallas_lstm.py:197", launches, max(errs.values()),
+         "clstm_tpu/ops/pallas_lstm.py:197", k3_launches[False],
+         max(errs.values()),
          None, (k_ms, p_ms), lstm_bound("fwd", B, T, D, H, V900), k3_lib_ms),
         ("bidi_lstm_fwd_state (K1)", "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu",
          "clstm_tpu/ops/pallas_lstm.py:197",
-         train_launches["bidi_lstm_fwd_state"], k1_err, None, ms["K1"],
+         train_by_mode[False]["bidi_lstm_fwd_state"], k1_err, None, ms["K1"],
          lstm_bound("fwd_state", B, T, D, H, V900), lib["K1"]),
         ("bidi_lstm_bwd_chain (K2)", "clstm_tpu_torch/csrc/bidi_lstm_bwd.cu",
          "clstm_tpu/ops/pallas_lstm.py:299",
-         train_launches["bidi_lstm_bwd_chain"], k2["chain_abs"],
+         train_by_mode[False]["bidi_lstm_bwd_chain"], k2["chain_abs"],
          k2["chain_rel"], ms["K2 chain"],
          lstm_bound("chain", B, T, D, H, V900), None),
         ("bidi_lstm_bwd_reduce (K2)", "clstm_tpu_torch/csrc/bidi_lstm_bwd.cu",
          "clstm_tpu/ops/pallas_lstm.py:299",
-         train_launches["bidi_lstm_bwd_reduce"], k2["red_abs"],
+         train_by_mode[False]["bidi_lstm_bwd_reduce"], k2["red_abs"],
          k2["red_rel"], ms["K2 reduction"],
          lstm_bound("reduce", B, T, D, H, V900), lib["K2 reduction"]),
         ("ctc_forward (K5)", "clstm_tpu_torch/csrc/ctc_dp.cu",
@@ -2623,7 +3572,8 @@ def main(argv=None) -> int:
          k56[3], k56[2], ms["K6"],
          bound(0, 3 * S81_bytes + 4 * B * S81 + 8 * B), None),
         ("bidi_lstm_fwd_xz (K4)", "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu",
-         "clstm_tpu/ops/pallas_lstm.py:197", served2["bidi_lstm_infer_xz"],
+         "clstm_tpu/ops/pallas_lstm.py:197",
+         served2_by[False]["launches"]["bidi_lstm_infer_xz"],
          k4_err, None, (k4_ms, k4_plain),
          lstm_bound("xz", B, T, D2, H2, V900), mean(k4_lib)),
         ("bidi_lstm_fwd_xz_state (K4)",
@@ -2635,6 +3585,41 @@ def main(argv=None) -> int:
          "clstm_tpu/ops/pallas_ctc.py:88", k6b_launches, k56[5], k56[4],
          ms["K6b"], bound(0, 2 * S81_bytes + 8 * B), None),
     ]
+    # The bf16 mode's rows: launches from the main paths run in that mode
+    # (K3 on clstmocr, K4 on bidi2's; K1, K4 state and K2 in the training
+    # steps), max_abs_err the largest |kernel - plain bf16| of phase 18,
+    # the times of phase 19 (bench shapes, lengths 900).
+    bm = b16["ms"]
+    fwd_src = "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu"
+    bwd_src = "clstm_tpu_torch/csrc/bidi_lstm_bwd.cu"
+    for name, src, rep, n, err, key in (
+            ("bidi_lstm_fwd bf16 (K3)", fwd_src,
+             "clstm_tpu/ops/pallas_lstm.py:197", k3_launches[True],
+             b16["fwd_err"], "K3"),
+            ("bidi_lstm_fwd_state bf16 (K1)", fwd_src,
+             "clstm_tpu/ops/pallas_lstm.py:197",
+             train_by_mode[True]["bidi_lstm_fwd_state"], b16["fwd_err"],
+             "K1"),
+            ("bidi_lstm_fwd_xz bf16 (K4)", fwd_src,
+             "clstm_tpu/ops/pallas_lstm.py:197",
+             served2_by[True]["launches"]["bidi_lstm_infer_xz"],
+             b16["fwd_err"], "K4"),
+            ("bidi_lstm_fwd_xz_state bf16 (K4)", fwd_src,
+             "clstm_tpu/ops/pallas_lstm.py:197",
+             train2_by[True]["bidi_lstm_fwd_state_xz"], b16["fwd_err"],
+             "K4 state"),
+            ("bidi_lstm_bwd_chain bf16 (K2)", bwd_src,
+             "clstm_tpu/ops/pallas_lstm.py:299",
+             train_by_mode[True]["bidi_lstm_bwd_chain"], b16["chain_err"],
+             "K2 chain"),
+            ("bidi_lstm_bwd_reduce bf16 (K2)", bwd_src,
+             "clstm_tpu/ops/pallas_lstm.py:299",
+             train_by_mode[True]["bidi_lstm_bwd_reduce"], b16["red_err"],
+             "K2 reduction")):
+        m = bm[key]
+        entries.append((name, src, rep, n, err, None,
+                        (m["ms"], m["plain_ms"]), m["bound"],
+                        m.get("library_ms")))
     # K4's rows also carry the product it runs on, the kernel with the
     # projection inside (K3, K1) at the same shape, and the hoisted total
     # that cuDNN's whole layer (library_ms) is set against; K1's and K2's
@@ -2718,8 +3703,8 @@ def main(argv=None) -> int:
     # The serving rows also carry clstmocr both ways (lines/s, launches,
     # the card's prepare per bucket); the training rows their launches in
     # the clstmocrtrain run.
-    extra["bidi_lstm_fwd (K3)"]["clstmocr"] = {
-        f"device_preprocess={dp}": dict(
+    def clstmocr_runs(bf16: bool, runs) -> dict:
+        return {f"{'bidi2 ' if two else ''}device_preprocess={dp}": dict(
             lines_per_s=N_LINES / r["e2e_s"],
             lines_per_s_range=[N_LINES / r["e2e_range"][1],
                                N_LINES / r["e2e_range"][0]],
@@ -2729,7 +3714,13 @@ def main(argv=None) -> int:
                 "prepare_host_ms": r["prep_host_ms"],
                 "prepare_busy_ms": r["prep_busy_ms"],
                 "prepare_share": r["prep_share"]} if dp else {}))
-        for dp, r in served.items()}
+            for two, dp, r in runs if r["bf16"] == bf16}
+    serve_runs = [(False, dp, r) for dp, r in served.items()]
+    serve_runs += [(False, 1, served_other)]
+    serve_runs += [(True, dp, r) for dp, r in served2.items()]
+    serve_runs += [(True, 1, served2_other)]
+    extra["bidi_lstm_fwd (K3)"]["clstmocr"] = clstmocr_runs(False,
+                                                            serve_runs)
     for name, key in (("bidi_lstm_fwd_state (K1)", "bidi_lstm_fwd_state"),
                       ("bidi_lstm_bwd_chain (K2)", "bidi_lstm_bwd_chain"),
                       ("bidi_lstm_bwd_reduce (K2)", "bidi_lstm_bwd_reduce"),
@@ -2737,6 +3728,55 @@ def main(argv=None) -> int:
                       ("ctc_both (K6)", "ctc_both")):
         extra.setdefault(name, {})["clstmocrtrain_launches"] = \
             trained["launches"].get(key, 0)
+    for name, key, more in (
+            ("bidi_lstm_fwd bf16 (K3)", "K3",
+             {"plan": b16["plans"]["bidi inference"],
+              "bidi2_layer1_plan": b16["plans"]["bidi2 layer 1 inference"],
+              "clstmocr": clstmocr_runs(True, serve_runs)}),
+            ("bidi_lstm_fwd_state bf16 (K1)", "K1",
+             {"plan": b16["plans"]["bidi state"],
+              "bidi2_layer1_plan": b16["plans"]["bidi2 layer 1 state"]}),
+            ("bidi_lstm_fwd_xz bf16 (K4)", "K4",
+             {"plan": b16["plans"]["bidi2 layer 2 inference"],
+              "hoisted_product_ms": bm["hoisted product"]["ms"],
+              "hoisted_product_f32_ms": bm["hoisted product"]["f32_ms"]}),
+            ("bidi_lstm_fwd_xz_state bf16 (K4)", "K4 state",
+             {"plan": b16["plans"]["bidi2 layer 2 state"]}),
+            ("bidi_lstm_bwd_chain bf16 (K2)", "K2 chain",
+             {"bidi2_layer2": dict(zip(
+                 ("ms", "f32_ms", "plain_ms", "bound_ms", "bound_by"),
+                 (bm["K2 chain H=200"]["ms"],
+                  bm["K2 chain H=200"]["f32_ms"],
+                  bm["K2 chain H=200"]["plain_ms"],
+                  *bm["K2 chain H=200"]["bound"])))}),
+            ("bidi_lstm_bwd_reduce bf16 (K2)", "K2 reduction",
+             {"bidi2_layer2_dx": dict(zip(
+                 ("ms", "f32_ms", "plain_ms", "library_ms", "bound_ms",
+                  "bound_by"),
+                 (bm["K2 reduction with dx"]["ms"],
+                  bm["K2 reduction with dx"]["f32_ms"],
+                  bm["K2 reduction with dx"]["plain_ms"],
+                  bm["K2 reduction with dx"]["library_ms"],
+                  *bm["K2 reduction with dx"]["bound"])))})):
+        extra[name] = dict(more, f32_mode_ms=bm[key]["f32_ms"],
+                           in_turns_f32_bf16=bm[key]["turns"],
+                           **({"hoisted_total_ms":
+                               bm[key]["hoisted_total_ms"]}
+                              if "hoisted_total_ms" in bm[key] else {}))
+    extra["bidi_lstm_fwd_state bf16 (K1)"]["f64_rel"] = {
+        k: v for k, v in b16["dist"].items()
+        if k.startswith(("K1", "K3", "K4"))}
+    extra["bidi_lstm_bwd_chain bf16 (K2)"]["f64_rel"] = b16["dist"].get(
+        "K2 dz")
+    extra["bidi_lstm_bwd_reduce bf16 (K2)"]["f64_rel"] = {
+        k: b16["dist"][k] for k in ("K2 dW", "K2 dx") if k in b16["dist"]}
+    extra["bidi_lstm_fwd_state bf16 (K1)"]["train_step_ms"] = {
+        "bidi": step_modes, "bidi2": step2_modes}
+    extra["bidi_lstm_fwd_state bf16 (K1)"]["learning"] = {
+        "toy_decoded_of_64": {("bf16" if m else "f32"): v[1]
+                              for m, v in toy.items()},
+        "toy_seeds_f32_bf16": toy_seeds,
+        "glyph_corpus": learn, "default_bf16": default_bf16}
     kernels = []
     for name, src, rep, n, err, rel, (km, pm), (bms, bby), lms in entries:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,4 +1,5 @@
-// Bidirectional LSTM backward (K2), f32, for sm_90a.
+// Bidirectional LSTM backward (K2) for sm_90a, f32 and bf16 (the *_bf16
+// entry points).
 //
 // Replaces the TPU kernel clstm_tpu/ops/pallas_lstm.py::_bwd_kernel
 // (reached through bidi_lstm_pallas's custom VJP, _vjp_bwd; with proj_in
@@ -82,11 +83,80 @@
 //   quarter of an m16 MMA. dz is summed in another order than the plain
 //   loop's (by column range, not by gate block): within ~1e-7 of it, and
 //   bitwise the same from call to call.
+//
+// The bf16 mode (the JAX package's xz_bf16=True, pallas_lstm.py L385-463):
+//   - chain (clstm_bidi_lstm_bwd_chain_bf16): cell, gy, WhT and dz are bf16,
+//     the gates f32 (as K1 stores them in both modes); the math and the Dh
+//     and Dc carries stay f32; dz is rounded to bf16 where it is stored and
+//     where it enters Dh = dz·Whᵀ (the shared dz buffer holds the rounded
+//     values in f32). WhT takes half the bytes, so it stays in shared memory
+//     to H ~ 140 and is half the L2 reads past that.
+//   - reduction (clstm_bidi_lstm_bwd_reduce_bf16): x, h_prev (y) and dz are
+//     bf16 and every product is one bf16 mma.sync m16n8k16 pass with f32
+//     accumulation, in place of 3xTF32's three: dW on the tiles and frame
+//     ranges of the f32 kernel (the same fixed-order sum of partials), the
+//     A and B fragments gathered from the frame-major slices element by
+//     element; dx per direction as a product of dz's rows and wx's rows
+//     (both K-contiguous, so each fragment register is one 32-bit load),
+//     each direction's sum rounded to bf16 and the two added in f32
+//     (pallas_lstm.py L913-917), written in x's type.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// bf16 values
+// ---------------------------------------------------------------------------
+
+// The f32 values of a bf16 pair packed in 32 bits: the first element in the
+// low half.
+__device__ __forceinline__ float lo_f(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 4 consecutive bf16 (8 bytes) as f32.
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(lo_f(u.x), hi_f(u.x), lo_f(u.y), hi_f(u.y));
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <class E>
+__device__ __forceinline__ E from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v as an operand of a product of the mode: rounded to bf16 in the bf16
+// mode.
+template <class E>
+__device__ __forceinline__ float operand(float v) {
+  return to_f(from_f<E>(v));
+}
+
+// The raw bits of a bf16.
+__device__ __forceinline__ uint32_t bits(bf16 v) {
+  return (uint32_t)__bfloat16_as_ushort(v);
+}
 
 // ---------------------------------------------------------------------------
 // cp.async and the 3xTF32 tensor-core product
@@ -112,6 +182,14 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0));
+}
+
+// 8 bytes global -> shared; zero-filled when !valid.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -560,6 +638,273 @@ __global__ void __launch_bounds__(128 * DXW_WG, 1)
 }
 
 // ---------------------------------------------------------------------------
+// Reduction in the bf16 mode: one bf16 tensor-core pass
+// ---------------------------------------------------------------------------
+
+// c += a·b, one m16n8k16 bf16 tile, f32 accumulate. Fragments (g = lane / 4,
+// t = lane % 4; each register two bf16, the lower column first): a =
+// A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; b = B[2t..][g],
+// B[2t+8..][g]; c as for m16n8k8.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return bits(lo) | (bits(hi) << 16);
+}
+
+// dW in bf16: the f32 kernel's output tile (64 rows of [x | h_prev | 1] x
+// 128 gate columns, 2x4 warps of 32x32), frame ranges and partial buffers,
+// on slices of BK = 32 frames staged frame-major in bf16: As[frame][row],
+// Bs[frame][column]; rows of 72 and 136 elements put a fragment's 32 loads
+// in distinct banks. A fragment's pairs run along the frame axis, which is
+// the slow axis of both slices, so each is gathered from two 16-bit loads.
+// VEC: D and H multiples of 4, x and y 8-byte aligned: A is staged in
+// 8-byte copies, else element by element.
+constexpr int DWB_STAGE = BK * (DW_LDA + DW_LDB);  // bf16 per ring slot
+constexpr size_t DWB_SMEM = (size_t)STAGES * DWB_STAGE * sizeof(bf16);
+
+template <bool VEC>
+__global__ void __launch_bounds__(RED_THREADS, 2)
+    bwd_dw_partial_bf16_kernel(const bf16* __restrict__ x,
+                               const bf16* __restrict__ y,
+                               const bf16* __restrict__ dz,
+                               float* __restrict__ part, int B, int T, int D,
+                               int H, int nsplit, int chunk) {
+  extern __shared__ __align__(16) bf16 smb[];
+  const int G = 4 * H, M = D + 1 + H;
+  const int ntile_j = (G + DW_BN - 1) / DW_BN;
+  const int i0 = (blockIdx.x / ntile_j) * DW_BM;  // row of [x | h_prev | 1]
+  const int j0 = (blockIdx.x % ntile_j) * DW_BN;
+  const int dir = blockIdx.y / nsplit;
+  const int sp = blockIdx.y - dir * nsplit;
+  const int N = B * T;
+  const int n_begin = sp * chunk;
+  const int n_end = min(N, n_begin + chunk);
+  const int KT = n_end > n_begin ? (n_end - n_begin + BK - 1) / BK : 0;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = (warp >> 2) * 16 * DW_MI, wn = (warp & 3) * 32;
+  const bf16 zero = from_f<bf16>(0.0f), one = from_f<bf16>(1.0f);
+
+  // Element i of [x | h_prev | 1] at frame n, as a pointer (nullptr: 0 or,
+  // for i == D + H, the bias column's 1).
+  auto src_of = [&](int n, int i) -> const bf16* {
+    if (n >= n_end) return nullptr;
+    if (i < D) return x + (size_t)n * D + i;
+    if (i < D + H) {
+      const int k = i - D, t = n % T;
+      if (dir == 0 && t > 0) return y + (size_t)(n - 1) * 2 * H + k;
+      if (dir == 1 && t + 1 < T) return y + (size_t)(n + 1) * 2 * H + H + k;
+    }
+    return nullptr;
+  };
+  auto load = [&](int stage, int kt) {
+    bf16* As = smb + stage * DWB_STAGE;
+    bf16* Bs = As + BK * DW_LDA;
+    const int n0 = n_begin + kt * BK;
+    if (VEC) {
+      for (int c = tid; c < BK * DW_BM / 4; c += RED_THREADS) {
+        const int kk = c / (DW_BM / 4), i = i0 + (c % (DW_BM / 4)) * 4;
+        const int n = n0 + kk;
+        bf16* dst = As + kk * DW_LDA + (i - i0);
+        if (i == D + H && n < n_end) {
+          dst[0] = one;
+          dst[1] = dst[2] = dst[3] = zero;
+          continue;
+        }
+        const bf16* src = src_of(n, i);
+        cp_async8(dst, src ? src : x, src != nullptr);
+      }
+    } else {
+      for (int e = tid; e < BK * DW_BM; e += RED_THREADS) {
+        const int kk = e / DW_BM, i = i0 + e % DW_BM;
+        const int n = n0 + kk;
+        const bf16* src = src_of(n, i);
+        As[kk * DW_LDA + (i - i0)] =
+            src ? *src : (i == D + H && n < n_end ? one : zero);
+      }
+    }
+    for (int c = tid; c < BK * DW_BN / 4; c += RED_THREADS) {
+      const int kk = c / (DW_BN / 4), j = j0 + (c % (DW_BN / 4)) * 4;
+      const int n = n0 + kk;
+      const bool ok = n < n_end && j < G;
+      cp_async8(Bs + kk * DW_LDB + (j - j0),
+                ok ? dz + ((size_t)n * 2 + dir) * G + j : dz, ok);
+    }
+  };
+
+  float acc[DW_MI][4][4] = {};
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  auto compute = [&](int stage) {
+    const bf16* As = smb + stage * DWB_STAGE;
+    const bf16* Bs = As + BK * DW_LDA;
+    float tmp[DW_MI][4][4] = {};
+#pragma unroll
+    for (int k0 = 0; k0 < BK; k0 += 16) {
+      // A[m][k] = As[k][wm + m]; B[k][n] = Bs[k][wn + n].
+      auto a_at = [&](int m, int k) { return As[k * DW_LDA + wm + m]; };
+      auto b_at = [&](int k, int n) { return Bs[k * DW_LDB + wn + n]; };
+      uint32_t a[DW_MI][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < DW_MI; ++mi)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = 16 * mi + g + 8 * (q & 1);
+          const int k = k0 + 2 * t4 + 8 * (q >> 1);
+          a[mi][q] = pack2(a_at(m, k), a_at(m, k + 1));
+        }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int k = k0 + 2 * t4 + 8 * q, n = 8 * ni + g;
+          b[ni][q] = pack2(b_at(k, n), b_at(k + 1, n));
+        }
+#pragma unroll
+      for (int mi = 0; mi < DW_MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_bf16(tmp[mi][ni], a[mi], b[ni]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < DW_MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += tmp[mi][ni][q];
+  };
+  pipeline<STAGES>(KT, load, compute);
+
+  // Staged row i -> dW row: x rows stay, h_prev rows move down one, the
+  // ones column is the bias row D.
+  float* out = part + ((size_t)sp * 2 + dir) * M * G;
+#pragma unroll
+  for (int mi = 0; mi < DW_MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + wm + 16 * mi + g + 8 * h;
+      if (i >= M) continue;
+      const int row = i < D ? i : (i < D + H ? i + 1 : D);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int j = j0 + wn + 8 * ni + 2 * t4 + q;
+          if (j < G) out[(size_t)row * G + j] = acc[mi][ni][2 * h + q];
+        }
+    }
+}
+
+// dx in bf16: dx[n][d] = bf16(Σ_q dz[n][0][q]·wx[0][d][q]) +
+// bf16(Σ_q dz[n][1][q]·wx[1][d][q]), in OUT (x's type). A block takes 128
+// frames x 64 columns d, 8 warps of 32x32 (2x4 warps along frames and d),
+// each direction's q in slices of 32 through a cp.async ring; both operands
+// lie q-contiguous, so a fragment register is one 32-bit load. Rows of 40
+// elements keep a fragment's loads in distinct banks.
+constexpr int DXB_BM = 128, DXB_BN = 64, DXB_BK = 32, DXB_LD = DXB_BK + 8;
+constexpr int DXB_STAGE = (DXB_BM + DXB_BN) * DXB_LD;  // bf16 per slot
+constexpr size_t DXB_SMEM = (size_t)STAGES * DXB_STAGE * sizeof(bf16);
+
+template <class OUT>
+__global__ void __launch_bounds__(RED_THREADS)
+    bwd_dx_bf16_kernel(const bf16* __restrict__ dz,
+                       const bf16* __restrict__ wx, OUT* __restrict__ dx,
+                       int N, int D, int H) {
+  extern __shared__ __align__(16) bf16 smb[];
+  const int G = 4 * H;
+  const int ntd = (D + DXB_BN - 1) / DXB_BN;
+  const int d0 = (blockIdx.x % ntd) * DXB_BN;
+  const int n0 = (blockIdx.x / ntd) * DXB_BM;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int KT = (G + DXB_BK - 1) / DXB_BK;
+  float res[2][4][4] = {};  // the rounded sum of the directions done
+  for (int dir = 0; dir < 2; ++dir) {
+    auto load = [&](int stage, int kt) {
+      bf16* As = smb + stage * DXB_STAGE;
+      bf16* Bs = As + DXB_BM * DXB_LD;
+      const int q0 = kt * DXB_BK;
+      for (int c = tid; c < DXB_BM * DXB_BK / 4; c += RED_THREADS) {
+        const int m = c / (DXB_BK / 4), q = q0 + (c % (DXB_BK / 4)) * 4;
+        const bool ok = n0 + m < N && q < G;
+        cp_async8(As + m * DXB_LD + (q - q0),
+                  ok ? dz + ((size_t)(n0 + m) * 2 + dir) * G + q : dz, ok);
+      }
+      for (int c = tid; c < DXB_BN * DXB_BK / 4; c += RED_THREADS) {
+        const int dd = c / (DXB_BK / 4), q = q0 + (c % (DXB_BK / 4)) * 4;
+        const bool ok = d0 + dd < D && q < G;
+        cp_async8(Bs + dd * DXB_LD + (q - q0),
+                  ok ? wx + ((size_t)dir * D + d0 + dd) * G + q : wx, ok);
+      }
+    };
+    float acc[2][4][4] = {};
+    auto compute = [&](int stage) {
+      const bf16* As = smb + stage * DXB_STAGE;
+      const bf16* Bs = As + DXB_BM * DXB_LD;
+      float tmp[2][4][4] = {};
+#pragma unroll
+      for (int k0 = 0; k0 < DXB_BK; k0 += 16) {
+        uint32_t a[2][4], b[4][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int m = wm + 16 * mi + g + 8 * (q & 1);
+            const int k = k0 + 2 * t4 + 8 * (q >> 1);
+            a[mi][q] = *reinterpret_cast<const uint32_t*>(As + m * DXB_LD + k);
+          }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int n = wn + 8 * ni + g, k = k0 + 2 * t4 + 8 * q;
+            b[ni][q] = *reinterpret_cast<const uint32_t*>(Bs + n * DXB_LD + k);
+          }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) mma_bf16(tmp[mi][ni], a[mi], b[ni]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mi][ni][q] += tmp[mi][ni][q];
+    };
+    pipeline<STAGES>(KT, load, compute);
+    __syncthreads();  // the ring is free for the next direction
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          res[mi][ni][q] += operand<bf16>(acc[mi][ni][q]);
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + wm + 16 * mi + g + 8 * h;
+      if (n >= N) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int d = d0 + wn + 8 * ni + 2 * t4 + q;
+          if (d < D)
+            dx[(size_t)n * D + d] = from_f<OUT>(res[mi][ni][2 * h + q]);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Chain
 // ---------------------------------------------------------------------------
 
@@ -577,12 +922,16 @@ struct ChainPlan {
 constexpr int SMEM_MAX = 232448 - 64;
 constexpr int CHAIN_THREADS = 512;
 
-// Floats of one step's slot per row: gates 4H, cell, c_prev, gy (Hp each).
-__host__ __device__ inline int slot_row(int G, int hp) { return G + 3 * hp; }
+// Bytes of one step's slot per row: the gates (4H f32), then cell, c_prev
+// and gy (Hp elements of es bytes each), rounded up to 16.
+__host__ __device__ inline int slot_bytes(int G, int hp, int es) {
+  return (4 * G + 3 * hp * es + 15) / 16 * 16;
+}
 
 // Phase B runs Hp/4 unit groups times `parts` column ranges on at most
-// CHAIN_THREADS threads (so H <= 2048).
-ChainPlan chain_plan(int H, bool wsmem, int rows) {
+// CHAIN_THREADS threads (so H <= 2048). es: bytes of WhT's elements and of
+// the bf16-able streams (4 f32, 2 bf16).
+ChainPlan chain_plan(int H, bool wsmem, int rows, int es) {
   ChainPlan p;
   const int G = 4 * H;
   p.rows = rows;
@@ -595,47 +944,48 @@ ChainPlan chain_plan(int H, bool wsmem, int rows) {
   p.parts = (G + p.jp - 1) / p.jp;
   const int threads = (kg * p.parts + 31) / 32 * 32;
   p.threads = threads < 64 ? 64 : threads;
-  const size_t floats = (wsmem ? (size_t)G * p.hp : 0) +
-                        2 * (size_t)rows * slot_row(G, p.hp) +  // slots
-                        (size_t)rows * G +                      // zs
-                        (size_t)p.parts * rows * p.hp +         // part
-                        (size_t)rows * H;                       // dcs
-  p.smem = floats * sizeof(float);
+  p.smem = (wsmem ? (size_t)G * p.hp * es : 0) +                // WhT
+           2 * (size_t)rows * slot_bytes(G, p.hp, es) +          // slots
+           4 * ((size_t)rows * G +                               // zs
+                (size_t)p.parts * rows * p.hp +                  // part
+                (size_t)rows * H);                               // dcs
   return p;
 }
 
 // Rows per block and where WhT lives, the first plan that fits: 4 rows
 // (128 blocks at B=256, one per SM) with WhT in shared memory, then in L2;
 // 1 row for larger H (> ~650). rows = 0: nothing fits.
-ChainPlan choose_chain(int H) {
+ChainPlan choose_chain(int H, int es) {
   const int plans[3][2] = {{4, 1}, {4, 0}, {1, 0}};
   for (const auto& pl : plans) {
-    const ChainPlan p = chain_plan(H, pl[1] != 0, pl[0]);
+    const ChainPlan p = chain_plan(H, pl[1] != 0, pl[0], es);
     if (p.smem <= SMEM_MAX && p.threads <= CHAIN_THREADS) return p;
   }
   ChainPlan none = {};
   return none;
 }
 
-template <int ROWS, bool VEC, bool WSMEM>
+// E: the element type of cell, gy, WhT and dz (the gates are f32).
+template <int ROWS, bool VEC, bool WSMEM, class E>
 __global__ void __launch_bounds__(CHAIN_THREADS)
     bwd_chain_kernel(const int32_t* __restrict__ lengths,
                      const float* __restrict__ gates,
-                     const float* __restrict__ cell,
-                     const float* __restrict__ gy,
-                     const float* __restrict__ whT, float* __restrict__ dz,
-                     int B, int T, int H, int parts, int jp) {
-  extern __shared__ __align__(16) float smem[];
+                     const E* __restrict__ cell, const E* __restrict__ gy,
+                     const E* __restrict__ whT, E* __restrict__ dz, int B,
+                     int T, int H, int parts, int jp) {
+  extern __shared__ __align__(16) unsigned char smc[];
   __shared__ int lens[ROWS];
+  constexpr int ES = (int)sizeof(E);
   const int G = 4 * H, hp = (H + 3) / 4 * 4, kg = hp / 4;
-  const int SL = slot_row(G, hp);
+  const int SB = slot_bytes(G, hp, ES);
   const int dir = blockIdx.y;
   const int b0 = blockIdx.x * ROWS;
   const int tid = threadIdx.x, nt = blockDim.x;
   whT += (size_t)dir * G * hp;
-  float* whs = smem;                                  // [G, hp] (WSMEM)
-  float* slots = whs + (WSMEM ? G * hp : 0);          // [2][ROWS, SL]
-  float* zs = slots + 2 * ROWS * SL;                  // [ROWS, G]
+  E* whs = reinterpret_cast<E*>(smc);                       // [G, hp]
+  unsigned char* slots =
+      smc + (WSMEM ? (size_t)G * hp * ES : 0);               // [2][ROWS]
+  float* zs = reinterpret_cast<float*>(slots + 2 * ROWS * SB);  // [ROWS, G]
   float* part = zs + ROWS * G;                        // [parts][ROWS, hp]
   float* dcs = part + parts * ROWS * hp;              // [ROWS, H]
 
@@ -646,8 +996,9 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
     lens[tid] = min(max(L, 0), T);
   }
   if (WSMEM) {
-    for (int c = tid; c < G * hp / 4; c += nt)
-      cp_async16(whs + 4 * c, whT + 4 * c, true);
+    for (int c = tid; c < G * hp * ES / 16; c += nt)
+      cp_async16(reinterpret_cast<unsigned char*>(whs) + 16 * c,
+                 reinterpret_cast<const unsigned char*>(whT) + 16 * c, true);
     cp_async_commit();
   }
   for (int i = tid; i < ROWS * G; i += nt) zs[i] = 0.0f;
@@ -659,38 +1010,48 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
   // Padded frames: dz exactly 0.
   for (int r = 0; r < ROWS && b0 + r < B; ++r) {
     const int L = lens[r];
-    float* row = dz + ((size_t)(b0 + r) * T * 2 + dir) * G;
+    E* row = dz + ((size_t)(b0 + r) * T * 2 + dir) * G;
     for (int i = tid; i < (T - L) * G; i += nt) {
       const int t = L + i / G;
-      row[(size_t)t * 2 * G + (i - (t - L) * G)] = 0.0f;
+      row[(size_t)t * 2 * G + (i - (t - L) * G)] = from_f<E>(0.0f);
     }
   }
 
   // Copy chain step s's inputs of every active row into slot s % 2: the
-  // gates, cell, c_prev (cell one frame back in chain order, 0 at s = 0)
-  // and gy of its frame.
+  // gates, then cell, c_prev (cell one frame back in chain order, 0 at
+  // s = 0) and gy of its frame.
   auto prefetch = [&](int s) {
-    float* slot = slots + (s & 1) * ROWS * SL;
+    unsigned char* slot = slots + (s & 1) * ROWS * SB;
     for (int r = 0; r < ROWS; ++r) {
       const int L = lens[r];
       if (s >= L) continue;
       const int b = b0 + r, t = dir == 0 ? s : L - 1 - s;
       const size_t f = ((size_t)b * T + t) * 2 + dir;
       const size_t fp = s > 0 ? f + (dir == 0 ? -2 : 2) : f;
-      float* d = slot + r * SL;
+      float* dg = reinterpret_cast<float*>(slot + r * SB);
+      E* de = reinterpret_cast<E*>(dg + G);
       for (int c = tid; c < G / 4; c += nt)
-        cp_async16(d + 4 * c, gates + f * G + 4 * c, true);
-      const float* srcs[3] = {cell + f * H, cell + fp * H,
-                              gy + ((size_t)b * T + t) * 2 * H + dir * H};
+        cp_async16(dg + 4 * c, gates + f * G + 4 * c, true);
+      const E* srcs[3] = {cell + f * H, cell + fp * H,
+                          gy + ((size_t)b * T + t) * 2 * H + dir * H};
       if (VEC) {
+        // 4 elements a copy: 16 bytes (f32) or 8 (bf16).
         for (int c = tid; c < 3 * (H / 4); c += nt) {
           const int seg = c / (H / 4), k = 4 * (c - seg * (H / 4));
-          cp_async16(d + G + seg * hp + k, srcs[seg] + k, seg != 1 || s > 0);
+          const bool ok = seg != 1 || s > 0;
+          if constexpr (ES == 4)
+            cp_async16(de + seg * hp + k, srcs[seg] + k, ok);
+          else
+            cp_async8(de + seg * hp + k, srcs[seg] + k, ok);
         }
       } else {
         for (int c = tid; c < 3 * H; c += nt) {
           const int seg = c / H, k = c - seg * H;
-          cp_async4(d + G + seg * hp + k, srcs[seg] + k, seg != 1 || s > 0);
+          const bool ok = seg != 1 || s > 0;
+          if constexpr (ES == 4)
+            cp_async4(de + seg * hp + k, srcs[seg] + k, ok);
+          else  // no 2-byte cp.async: an ordinary load and store
+            de[seg * hp + k] = ok ? srcs[seg][k] : from_f<E>(0.0f);
         }
       }
     }
@@ -706,37 +1067,39 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
   for (int s = lmax - 1; s >= 0; --s) {
     if (s > 0) prefetch(s - 1);
     // Phase A: dh, dc, dz and the Dc carry for every active (row, unit).
-    const float* slot = slots + (s & 1) * ROWS * SL;
+    const unsigned char* slot = slots + (s & 1) * ROWS * SB;
     for (int i = tid; i < ROWS * H; i += nt) {
       const int r = i / H;
       const int k = i - r * H;
       const int L = lens[r];
       if (s < L) {
-        const float* in = slot + r * SL;
+        const float* in = reinterpret_cast<const float*>(slot + r * SB);
+        const E* ine = reinterpret_cast<const E*>(in + G);
         const float gi = in[k], gf = in[H + k], go = in[2 * H + k],
                     ci = in[3 * H + k];
-        const float c = in[G + k], cp = in[G + hp + k];
+        const float c = to_f(ine[k]), cp = to_f(ine[hp + k]);
         float Dh = 0.0f;
         if (s < L - 1)
           for (int q = 0; q < parts; ++q) Dh += part[(q * ROWS + r) * hp + k];
-        const float dh = in[G + 2 * hp + k] + Dh;
+        const float dh = to_f(ine[2 * hp + k]) + Dh;
         const float tc = tanhf(c);
         const float dc = dcs[i] + dh * go * (1.0f - tc * tc);
-        const float d0 = dc * ci * gi * (1.0f - gi);
-        const float d1 = dc * cp * gf * (1.0f - gf);
-        const float d2 = dh * tc * go * (1.0f - go);
-        const float d3 = dc * gi * (1.0f - ci * ci);
+        // dz as stored and as Dh's operand (rounded to bf16 in that mode).
+        const float d0 = operand<E>(dc * ci * gi * (1.0f - gi));
+        const float d1 = operand<E>(dc * cp * gf * (1.0f - gf));
+        const float d2 = operand<E>(dh * tc * go * (1.0f - go));
+        const float d3 = operand<E>(dc * gi * (1.0f - ci * ci));
         float* z = zs + r * G;
         z[k] = d0;
         z[H + k] = d1;
         z[2 * H + k] = d2;
         z[3 * H + k] = d3;
         const int t = dir == 0 ? s : L - 1 - s;
-        float* out = dz + (((size_t)(b0 + r) * T + t) * 2 + dir) * G;
-        out[k] = d0;
-        out[H + k] = d1;
-        out[2 * H + k] = d2;
-        out[3 * H + k] = d3;
+        E* out = dz + (((size_t)(b0 + r) * T + t) * 2 + dir) * G;
+        out[k] = from_f<E>(d0);
+        out[H + k] = from_f<E>(d1);
+        out[2 * H + k] = from_f<E>(d2);
+        out[3 * H + k] = from_f<E>(d3);
         dcs[i] = dc * gf;
       }
     }
@@ -747,7 +1110,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
         acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
-      const float* w = (WSMEM ? whs : whT) + 4 * pk;
+      const E* w = (WSMEM ? whs : whT) + 4 * pk;
 #pragma unroll 2
       for (int j = jb; j < je; j += 4) {
         float4 z[ROWS];
@@ -756,8 +1119,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
           z[r] = *reinterpret_cast<const float4*>(zs + r * G + j);
         float4 wv[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          wv[q] = *reinterpret_cast<const float4*>(w + (size_t)(j + q) * hp);
+        for (int q = 0; q < 4; ++q) wv[q] = ld4(w + (size_t)(j + q) * hp);
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const float zq[4] = {z[r].x, z[r].y, z[r].z, z[r].w};
@@ -780,12 +1142,12 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
   }
 }
 
-template <int ROWS, bool VEC, bool WSMEM>
+template <int ROWS, bool VEC, bool WSMEM, class E>
 cudaError_t launch_chain(const ChainPlan& p, const int32_t* lengths,
-                         const float* gates, const float* cell,
-                         const float* gy, const float* whT, float* dz, int B,
-                         int T, int H, cudaStream_t st) {
-  auto kern = bwd_chain_kernel<ROWS, VEC, WSMEM>;
+                         const float* gates, const E* cell, const E* gy,
+                         const E* whT, E* dz, int B, int T, int H,
+                         cudaStream_t st) {
+  auto kern = bwd_chain_kernel<ROWS, VEC, WSMEM, E>;
   if (p.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
@@ -795,6 +1157,33 @@ cudaError_t launch_chain(const ChainPlan& p, const int32_t* lengths,
   kern<<<grid, p.threads, p.smem, st>>>(lengths, gates, cell, gy, whT, dz, B,
                                         T, H, p.parts, p.jp);
   return cudaGetLastError();
+}
+
+// The chain of either precision: the plan for H, then the kernel instance
+// of its rows, of where WhT lives and of whether the streams go by 4
+// elements (H a multiple of 4, cell and gy aligned for it).
+template <class E>
+int chain(const int32_t* lengths, const float* gates, const E* cell,
+          const E* gy, const E* whT, E* dz, int B, int T, int H,
+          void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const ChainPlan p = choose_chain(H, (int)sizeof(E));
+  if (p.rows == 0) return (int)cudaErrorInvalidValue;
+  if (!aligned16(gates) || !aligned16(whT))
+    return (int)cudaErrorMisalignedAddress;
+  const uintptr_t al = 4 * sizeof(E) - 1;
+  const bool vec = H % 4 == 0 && ((uintptr_t)cell & al) == 0 &&
+                   ((uintptr_t)gy & al) == 0;
+#define CLSTM_CHAIN(R, W)                                                   \
+  (vec ? launch_chain<R, true, W, E>(p, lengths, gates, cell, gy, whT, dz, \
+                                     B, T, H, st)                          \
+       : launch_chain<R, false, W, E>(p, lengths, gates, cell, gy, whT,    \
+                                      dz, B, T, H, st))
+  const cudaError_t e = p.wsmem       ? CLSTM_CHAIN(4, true)
+                        : p.rows == 4 ? CLSTM_CHAIN(4, false)
+                                      : CLSTM_CHAIN(1, false);
+#undef CLSTM_CHAIN
+  return (int)e;
 }
 
 // Frame ranges of the dW sum: enough blocks for ~8 per SM on 132 SMs, at
@@ -866,22 +1255,16 @@ extern "C" int clstm_bidi_lstm_bwd_chain(const int32_t* lengths,
                                          const float* cell, const float* gy,
                                          const float* whT, float* dz, int B,
                                          int T, int H, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const ChainPlan p = choose_chain(H);
-  if (p.rows == 0) return (int)cudaErrorInvalidValue;
-  if (!aligned16(gates) || !aligned16(whT))
-    return (int)cudaErrorMisalignedAddress;
-  const bool vec = H % 4 == 0 && aligned16(cell) && aligned16(gy);
-#define CLSTM_CHAIN(R, W)                                                \
-  (vec ? launch_chain<R, true, W>(p, lengths, gates, cell, gy, whT, dz, \
-                                  B, T, H, st)                          \
-       : launch_chain<R, false, W>(p, lengths, gates, cell, gy, whT,    \
-                                   dz, B, T, H, st))
-  const cudaError_t e = p.wsmem       ? CLSTM_CHAIN(4, true)
-                        : p.rows == 4 ? CLSTM_CHAIN(4, false)
-                                      : CLSTM_CHAIN(1, false);
-#undef CLSTM_CHAIN
-  return (int)e;
+  return chain<float>(lengths, gates, cell, gy, whT, dz, B, T, H, stream);
+}
+
+// The bf16 mode: cell, gy, whT and dz bf16, the gates f32.
+extern "C" int clstm_bidi_lstm_bwd_chain_bf16(const int32_t* lengths,
+                                              const float* gates,
+                                              const bf16* cell, const bf16* gy,
+                                              const bf16* whT, bf16* dz, int B,
+                                              int T, int H, void* stream) {
+  return chain<bf16>(lengths, gates, cell, gy, whT, dz, B, T, H, stream);
 }
 
 // Floats of scratch the reduction takes: the dW partials, nsplit · 2 ·
@@ -920,4 +1303,56 @@ extern "C" int clstm_bidi_lstm_bwd_reduce(const float* x, const float* y,
   float* whi = scratch + (size_t)nsplit * total;
   return (int)launch_dx(dz, wx, whi, whi + (size_t)2 * D * G, dx, N, D, H,
                         st);
+}
+
+// The bf16 mode: x [B,T,D], y [B,T,2H], dz [B,T,2,4H] and wx [2,D,4H]
+// bf16, dw f32, dx (unless NULL) bf16 where dx_bf16 is set, else f32;
+// scratch as for clstm_bidi_lstm_bwd_reduce. dz and wx 8-byte aligned.
+extern "C" int clstm_bidi_lstm_bwd_reduce_bf16(const bf16* x, const bf16* y,
+                                               const bf16* dz, const bf16* wx,
+                                               float* scratch, float* dw,
+                                               void* dx, int B, int T, int D,
+                                               int H, int dx_bf16,
+                                               void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int G = 4 * H, M = D + 1 + H;
+  const int N = B * T;
+  const int nsplit = dw_nsplit(B, T, D, H);
+  const int chunk = (N + nsplit - 1) / nsplit;
+  if (((uintptr_t)dz & 7) || ((uintptr_t)wx & 7) || !aligned16(scratch))
+    return (int)cudaErrorMisalignedAddress;
+  const bool vec = D % 4 == 0 && H % 4 == 0 && ((uintptr_t)x & 7) == 0 &&
+                   ((uintptr_t)y & 7) == 0;
+  auto kern = vec ? bwd_dw_partial_bf16_kernel<true>
+                  : bwd_dw_partial_bf16_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DWB_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(dw_tiles(D, H), 2 * nsplit), RED_THREADS, DWB_SMEM, st>>>(
+      x, y, dz, scratch, B, T, D, H, nsplit, chunk);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int total = 2 * M * G;
+  bwd_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(scratch, dw, nsplit,
+                                                         total);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || dx == nullptr) return (int)e;
+  const unsigned blocks = (unsigned)((D + DXB_BN - 1) / DXB_BN) *
+                          (unsigned)((N + DXB_BM - 1) / DXB_BM);
+  if (dx_bf16) {
+    e = cudaFuncSetAttribute(bwd_dx_bf16_kernel<bf16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DXB_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    bwd_dx_bf16_kernel<bf16><<<blocks, RED_THREADS, DXB_SMEM, st>>>(
+        dz, wx, static_cast<bf16*>(dx), N, D, H);
+  } else {
+    e = cudaFuncSetAttribute(bwd_dx_bf16_kernel<float>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DXB_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    bwd_dx_bf16_kernel<float><<<blocks, RED_THREADS, DXB_SMEM, st>>>(
+        dz, wx, static_cast<float*>(dx), N, D, H);
+  }
+  return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
-// Bidirectional LSTM forward, f32, for sm_90a, in four modes of one kernel
-// (template flags EMIT and HOIST; WRES follows the plan, below):
+// Bidirectional LSTM forward for sm_90a, in four modes of one kernel
+// (template flags EMIT and HOIST; WRES follows the plan, below), each in two
+// precisions (template element type E: float, or __nv_bfloat16 for the bf16
+// mode, the *_bf16 entry points):
 //
 //   K3 (EMIT=false, HOIST=false, clstm_bidi_lstm_fwd): replaces the TPU
 //   kernel clstm_tpu/ops/pallas_lstm.py::_fwd_kernel with emit_state=False,
@@ -88,6 +90,23 @@
 //     cudaOccupancyMaxActiveClusters). Where no C holds the slice (H of
 //     several hundred with a wide input, H = 700, 2048), the same kernel
 //     reads it from L2 (WRES 0): R rows still share each weight load.
+//
+// The bf16 mode (E = __nv_bfloat16) is the JAX package's production mode,
+// bidi_lstm_pallas(..., xz_bf16=True): x (or xz, the rounded hoisted
+// product), the weights [Wx; b] and Wh, y and cell are bf16; every product
+// accumulates in f32 (each bf16 value is converted to f32 at its FMA, so
+// each product is exact), the projection inside the kernel is not rounded,
+// and the gate math and the h and c carries stay f32. h is rounded to bf16
+// where it enters the recurrent product (the h buffer holds the rounded
+// values, in f32) and where it is stored as y. The gates are stored in f32
+// in both modes: the JAX package recomputes them in f32 in its backward,
+// and bf16 gates moved the gradients ~1e-2 of their max away from it
+// (tests/test_torch_bf16.py). The weights take half the shared memory, so a
+// plan may keep more resident at a smaller C. x is staged into the ring in
+// pairs of columns ([D/2][R][2] bf16, D even: the wrapper pads an odd D),
+// so that 4-byte cp.async copies stage it and one 16-byte load gives a
+// tile's 4 rows at 2 columns.
+//
 //   Tried and not kept (slower in turns on the card): handing h on by
 //   st.async with an mbarrier per slot instead of the cluster barrier;
 //   loading the operands of the next k pair by hand ahead of the FMAs;
@@ -95,10 +114,13 @@
 //   ordered row group first (lanes share weight loads, but the stores and
 //   xz loads scatter); tiles of 8 rows.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int RT = 4;             // rows of a register tile
 constexpr int RH = RT / 2;        // rows of each half of a tile
@@ -130,6 +152,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0));
+}
+
+// 8 bytes global -> shared.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -176,6 +205,43 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// The f32 values of a bf16 pair packed in 32 bits: the first element in the
+// low half.
+__device__ __forceinline__ float lo_f(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// 4 consecutive bf16 (8 bytes) as f32.
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(lo_f(u.x), hi_f(u.x), lo_f(u.y), hi_f(u.y));
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+// f32 -> the element type (bf16: rounded to nearest even).
+template <class E>
+__device__ __forceinline__ E from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v as an operand of a product of the mode: rounded to bf16 in the bf16
+// mode.
+template <class E>
+__device__ __forceinline__ float operand(float v) {
+  return to_f(from_f<E>(v));
+}
+
 // acc[i][g] += a[i] · w[g] for the 4 rows i and 4 gates g.
 __device__ __forceinline__ void fma16(float (&acc)[RT][4], float4 a,
                                       float4 w) {
@@ -192,16 +258,40 @@ __device__ __forceinline__ void fma16(float (&acc)[RT][4], float4 a,
 // acc += Σ_{j<n} a_j ⊗ w_j for j ascending, a_j = the float4 at a + j·as
 // (4 rows), w_j at w + j·ws (4 gates). Unrolled deeper for [Wx; b] read
 // from L2, so that more of its loads are in flight.
-template <bool W_L2>
+template <bool W_L2, class EW>
 __device__ __forceinline__ void dot_rows(float (&acc)[RT][4],
                                          const float* a, size_t as,
-                                         const float* w, size_t ws, int n) {
+                                         const EW* w, size_t ws, int n) {
   if constexpr (W_L2) {
 #pragma unroll 8
     for (int j = 0; j < n; ++j) fma16(acc, ld4(a + j * as), ld4(w + j * ws));
   } else {
 #pragma unroll 4
     for (int j = 0; j < n; ++j) fma16(acc, ld4(a + j * as), ld4(w + j * ws));
+  }
+}
+
+// The bf16 x ring's version of dot_rows over the x part: a points at column
+// pair j0 of the ring [D/2][R][2] at the tile's first row, as = 2R; pair j
+// holds the tile's 4 rows at columns 2j and 2j+1 in 16 bytes. Columns
+// ascending, as dot_rows.
+template <bool W_L2>
+__device__ __forceinline__ void dot_rows_x2(float (&acc)[RT][4],
+                                            const bf16* a, size_t as,
+                                            const bf16* w, size_t ws, int n) {
+  auto step = [&](int j) {
+    const uint4 v = *reinterpret_cast<const uint4*>(a + j * as);
+    fma16(acc, make_float4(lo_f(v.x), lo_f(v.y), lo_f(v.z), lo_f(v.w)),
+          ld4(w + 2 * j * ws));
+    fma16(acc, make_float4(hi_f(v.x), hi_f(v.y), hi_f(v.z), hi_f(v.w)),
+          ld4(w + (2 * j + 1) * ws));
+  };
+  if constexpr (W_L2) {
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) step(j);
+  } else {
+#pragma unroll 2
+    for (int j = 0; j < n; ++j) step(j);
   }
 }
 
@@ -215,13 +305,22 @@ __device__ __forceinline__ void sum_halves(float (&acc)[RT][4]) {
       acc[i][g] += __shfl_xor_sync(0xffffffffu, acc[i][g], 16);
 }
 
-// Floats of dynamic shared memory: the resident weights [H (+ D+1 where
-// wres is 1)][U][4], h [2][H][R], the x ring [3][D][R] (without HOIST) and
-// the R lengths. ops/bidi_lstm_kernel.py::fwd_smem computes the same.
-size_t smem_floats(int D, int H, int R, int U, bool hoist, int wres) {
-  return (wres == 0 ? 0
-                    : (size_t)(H + (hoist || wres == 2 ? 0 : D + 1)) * 4 * U) +
-         2 * (size_t)H * R + (hoist ? 0 : 3 * (size_t)R * D) + R;
+// Bytes of the resident weights [H (+ D+1 where wres is 1)][U][4] of es
+// bytes each (4 f32, 2 bf16), rounded up to 16.
+__host__ __device__ inline size_t weight_bytes(int D, int H, int U,
+                                               bool hoist, int wres, int es) {
+  const size_t n =
+      wres == 0 ? 0
+                : (size_t)(H + (hoist || wres == 2 ? 0 : D + 1)) * 4 * U;
+  return (n * es + 15) / 16 * 16;
+}
+
+// Bytes of dynamic shared memory: the resident weights, h [2][H][R] (f32),
+// the x ring [3][D][R] of es bytes (without HOIST) and the R lengths.
+// ops/bidi_lstm_kernel.py::fwd_smem computes the same.
+size_t smem_bytes(int D, int H, int R, int U, bool hoist, int wres, int es) {
+  return weight_bytes(D, H, U, hoist, wres, es) + 4 * 2 * (size_t)H * R +
+         (hoist ? 0 : (size_t)es * 3 * R * D) + 4 * (size_t)R;
 }
 
 // Two threads per tile (a unit's 4 gates for 4 rows), in the two halves of
@@ -231,17 +330,18 @@ int fwd_threads(int R, int U) {
   return (tiles + 15) / 16 * 32;
 }
 
-// x is xz [B,T,2,4H] when HOIST (wx unused), else x [B,T,D].
-template <bool EMIT, bool HOIST, int WRES>
+// x is xz [B,T,2,4H] when HOIST (wx unused), else x [B,T,D]; E the element
+// type of x, the weights, y and cell (the gates are f32 in both modes).
+template <bool EMIT, bool HOIST, int WRES, class E>
 __global__ void __launch_bounds__(FWD_THREADS)
-    bidi_lstm_fwd_kernel(const float* __restrict__ x,
+    bidi_lstm_fwd_kernel(const E* __restrict__ x,
                          const int32_t* __restrict__ lengths,
-                         const float* __restrict__ wx,
-                         const float* __restrict__ wh,
-                         float* __restrict__ y, float* __restrict__ gates,
-                         float* __restrict__ cell, int B, int T, int D, int H,
+                         const E* __restrict__ wx, const E* __restrict__ wh,
+                         E* __restrict__ y, float* __restrict__ gates,
+                         E* __restrict__ cell, int B, int T, int D, int H,
                          int R, int U) {
-  extern __shared__ __align__(16) float smem[];
+  constexpr bool BF = sizeof(E) == 2;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int C = (int)cluster_size();
   const int crank = (int)cluster_rank();
   const int dir = blockIdx.y;
@@ -251,28 +351,31 @@ __global__ void __launch_bounds__(FWD_THREADS)
   const int G = 4 * H;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int KX = HOIST ? 0 : D + 1;
-  float* whs = smem;                                         // [H][U][4]
   // Resident: WRES 1 the whole slice, 2 Wh's only ([Wx; b] from L2).
   constexpr bool WHS = WRES != 0, WXS = WRES == 1 && !HOIST;
-  float* wxs = whs + (WHS ? (size_t)H * 4 * U : 0);          // [D+1][U][4]
-  float* hbuf = wxs + (WXS ? (size_t)KX * 4 * U : 0);        // [2][H][R]
-  float* xs = hbuf + 2 * (size_t)H * R;                      // [3][D][R]
+  E* whs = reinterpret_cast<E*>(smem);                       // [H][U][4]
+  E* wxs = whs + (WHS ? (size_t)H * 4 * U : 0);              // [D+1][U][4]
+  float* hbuf = reinterpret_cast<float*>(
+      smem + weight_bytes(D, H, U, HOIST, WRES, (int)sizeof(E)));  // [2][H][R]
+  // The x ring, [3][D][R] (f32) or [3][D/2][R][2] (bf16).
+  E* xs = reinterpret_cast<E*>(hbuf + 2 * (size_t)H * R);
   int* lens = reinterpret_cast<int*>(xs + (HOIST ? 0 : 3 * (size_t)R * D));
   wh += (size_t)dir * H * G;
   if (!HOIST) wx += (size_t)dir * KX * G;
 
   // The thread's tile: unit k0 + ul, rows rb .. rb+3 of the group. Two
   // threads share it, the two halves of a warp (lanes l and l ^ 16): half
-  // hf sums k in [j0, j1) and d in [d0, d1), the halves' sums meet by one
-  // shuffle, and each half then takes two of the rows, r0 and r0 + 1, for
-  // the gate math, the state and the stores.
+  // hf sums k in [j0, j1) and d in [d0, d1) (bf16: column pairs [d0, d1)),
+  // the halves' sums meet by one shuffle, and each half then takes two of
+  // the rows, r0 and r0 + 1, for the gate math, the state and the stores.
   const int lane = tid & 31, hf = lane >> 4;
   const int tile = (tid >> 5) * 16 + (lane & 15);
   const int ul = tile % U, rb = (tile / U) * RT;
   const bool comp = tile < U * (R / RT) && ul < nu;
   const int k = k0 + ul;
   const int hh = (H + 1) / 2, j0 = hf ? hh : 0, j1 = hf ? H : hh;
-  const int dh = (D + 1) / 2, d0 = hf ? dh : 0, d1 = hf ? D : dh;
+  const int DN = BF ? D / 2 : D;  // columns (bf16: pairs) of x
+  const int dh = (DN + 1) / 2, d0 = hf ? dh : 0, d1 = hf ? DN : dh;
   const int r0 = rb + RH * hf;
 
   for (int r = tid; r < R; r += nt) {
@@ -288,30 +391,39 @@ __global__ void __launch_bounds__(FWD_THREADS)
 #pragma unroll
   for (int i = 0; i < RH; ++i) L[i] = comp ? lens[r0 + i] : 0;
 
-  // The CTA's weight slice: row j of it is 4·nu contiguous floats.
+  // The CTA's weight slice: row j of it is 4·nu contiguous elements, a
+  // unit's 4 gates in 16 (f32) or 8 (bf16) bytes.
+  auto copy_unit = [&](E* dst, const E* src) {
+    if constexpr (BF)
+      cp_async8(dst, src);
+    else
+      cp_async16(dst, src);
+  };
   if (WHS) {
     for (int i = tid; i < H * nu; i += nt) {
       const int j = i / nu, u = i - j * nu;
-      cp_async16(whs + ((size_t)j * U + u) * 4,
-                 wh + ((size_t)j * H + k0 + u) * 4);
+      copy_unit(whs + ((size_t)j * U + u) * 4,
+                wh + ((size_t)j * H + k0 + u) * 4);
     }
     if (WXS)
       for (int i = tid; i < KX * nu; i += nt) {
         const int j = i / nu, u = i - j * nu;
-        cp_async16(wxs + ((size_t)j * U + u) * 4,
-                   wx + ((size_t)j * H + k0 + u) * 4);
+        copy_unit(wxs + ((size_t)j * U + u) * 4,
+                  wx + ((size_t)j * H + k0 + u) * 4);
       }
   }
-  // x of chain step s for the R rows into ring slot s % 3, as [D][R].
+  // x of chain step s for the R rows into ring slot s % 3, as [D][R]
+  // (f32, 4 bytes a copy) or [D/2][R][2] (bf16, a column pair a copy).
   auto stage_x = [&](int s) {
-    float* dst = xs + (size_t)(s % 3) * D * R;
-    for (int i = tid; i < R * D; i += nt) {
-      const int r = i / D, d = i - r * D;
+    E* dst = xs + (size_t)(s % 3) * D * R;
+    for (int i = tid; i < R * DN; i += nt) {
+      const int r = i / DN, d = i - r * DN;
       const int Lr = lens[r];
       const bool valid = s < Lr;
       const int t = dir == 0 ? s : Lr - 1 - s;
-      cp_async4(dst + (size_t)d * R + r,
-                valid ? x + ((size_t)(b0 + r) * T + t) * D + d : x, valid);
+      const E* src = x + ((size_t)(b0 + r) * T + t) * D + (BF ? 2 * d : d);
+      cp_async4(dst + (BF ? ((size_t)d * R + r) * 2 : (size_t)d * R + r),
+                valid ? src : x, valid);
     }
   };
   if (!HOIST) {
@@ -328,10 +440,10 @@ __global__ void __launch_bounds__(FWD_THREADS)
     for (int i = tid; i < (T - Lr) * nu; i += nt) {
       const int t = Lr + i / nu;
       const int kk = k0 + i % nu;
-      y[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + kk] = 0.0f;
+      y[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + kk] = from_f<E>(0.0f);
       if (EMIT) {
         const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
-        cell[f * H + kk] = 0.0f;
+        cell[f * H + kk] = from_f<E>(0.0f);
         for (int g = 0; g < 4; ++g) gates[f * G + g * H + kk] = 0.0f;
       }
     }
@@ -344,9 +456,8 @@ __global__ void __launch_bounds__(FWD_THREADS)
 
   const size_t whstride = WHS ? 4 * (size_t)U : 4 * (size_t)H;
   const size_t wxstride = WXS ? 4 * (size_t)U : 4 * (size_t)H;
-  const float* whk = WHS ? whs + 4 * ul : wh + 4 * (size_t)k;
-  const float* wxk =
-      HOIST ? nullptr : (WXS ? wxs + 4 * ul : wx + 4 * (size_t)k);
+  const E* whk = WHS ? whs + 4 * ul : wh + 4 * (size_t)k;
+  const E* wxk = HOIST ? nullptr : (WXS ? wxs + 4 * ul : wx + 4 * (size_t)k);
 
   float acc[RT][4], c[RH], h[RH], gt[RH][4];
   [[maybe_unused]] float nxt[RH][4];
@@ -357,9 +468,8 @@ __global__ void __launch_bounds__(FWD_THREADS)
   for (int i = 0; i < RH; ++i) c[i] = h[i] = 0.0f;
 
   // acc = the half's share of [x_s | 1]·[Wx; b] for the tile (K1, K3):
-  // the bias in half 0, d in [d0, d1).
+  // the bias in half 0, columns (bf16: column pairs) in [d0, d1).
   auto x_part = [&](int s) {
-    const float* xr = xs + (size_t)(s % 3) * D * R + rb;
     const float4 bv = hf ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
                          : ld4(wxk + (size_t)D * wxstride);
 #pragma unroll
@@ -369,8 +479,16 @@ __global__ void __launch_bounds__(FWD_THREADS)
       acc[i][2] = bv.z;
       acc[i][3] = bv.w;
     }
-    dot_rows<!WXS>(acc, xr + (size_t)d0 * R, R,
-                   wxk + (size_t)d0 * wxstride, wxstride, d1 - d0);
+    if constexpr (BF) {
+      const E* xr = xs + (size_t)(s % 3) * D * R + 2 * rb;
+      dot_rows_x2<!WXS>(acc, xr + (size_t)d0 * 2 * R, 2 * (size_t)R,
+                        wxk + 2 * (size_t)d0 * wxstride, wxstride, d1 - d0);
+    } else {
+      const float* xr = reinterpret_cast<const float*>(xs) +
+                        (size_t)(s % 3) * D * R + rb;
+      dot_rows<!WXS>(acc, xr + (size_t)d0 * R, R,
+                     wxk + (size_t)d0 * wxstride, wxstride, d1 - d0);
+    }
   };
   // xz of chain step s for the thread's unit and rows (K4).
   auto load_xz = [&](int s) {
@@ -379,10 +497,11 @@ __global__ void __launch_bounds__(FWD_THREADS)
       nxt[i][0] = nxt[i][1] = nxt[i][2] = nxt[i][3] = 0.0f;
       if (s < L[i]) {
         const int t = dir == 0 ? s : L[i] - 1 - s;
-        const float* src =
+        const E* src =
             x + (((size_t)(b0 + r0 + i) * T + t) * 2 + dir) * G + k;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) nxt[i][g] = __ldg(src + (size_t)g * H);
+        for (int g = 0; g < 4; ++g)
+          nxt[i][g] = to_f(__ldg(src + (size_t)g * H));
       }
     }
   };
@@ -431,10 +550,11 @@ __global__ void __launch_bounds__(FWD_THREADS)
         h[i] = on ? hn : h[i];
       }
       if (s + 1 < lmax) {
-        const float* dst = hbuf + (size_t)((s + 1) & 1) * H * R +
-                           (size_t)k * R + r0;
-        for (int q = 0; q < C; ++q)
-          st_cluster2(dst, (uint32_t)q, make_float2(h[0], h[1]));
+        // h as the next product's operand (rounded to bf16 in that mode).
+        float* dst = hbuf + (size_t)((s + 1) & 1) * H * R +
+                     (size_t)k * R + r0;
+        const float2 hv = make_float2(operand<E>(h[0]), operand<E>(h[1]));
+        for (int q = 0; q < C; ++q) st_cluster2(dst, (uint32_t)q, hv);
       }
     }
     if (s + 1 < lmax) {
@@ -450,12 +570,12 @@ __global__ void __launch_bounds__(FWD_THREADS)
         if (s < L[i]) {
           const int b = b0 + r0 + i;
           const int t = dir == 0 ? s : L[i] - 1 - s;
-          y[((size_t)b * T + t) * 2 * H + dir * H + k] = h[i];
+          y[((size_t)b * T + t) * 2 * H + dir * H + k] = from_f<E>(h[i]);
           if (EMIT) {
             const size_t f = ((size_t)b * T + t) * 2 + dir;
 #pragma unroll
             for (int g = 0; g < 4; ++g) gates[f * G + g * H + k] = gt[i][g];
-            cell[f * H + k] = c[i];
+            cell[f * H + k] = from_f<E>(c[i]);
           }
         }
       }
@@ -483,19 +603,20 @@ struct Plan {
 // owning at least one unit and all of them together every unit, R a
 // positive multiple of 4, wres 0 (weights from L2),
 // 1 (resident) or 2 (Wh resident, [Wx; b] from L2), the threads and shared
-// memory within a CTA's.
+// memory within a CTA's; es the element size (2: bf16, D even).
 bool make_plan(Plan& p, int D, int H, bool hoist, int C, int R, int U,
-               int wres) {
+               int wres, int es) {
   if (!(C == 1 || C == 2 || C == 4 || C == 8) || R < RT || R % RT != 0 ||
       U < 1 || (long long)C * U < H ||
-      (long long)(C - 1) * U >= H || wres < 0 || wres > 2)
+      (long long)(C - 1) * U >= H || wres < 0 || wres > 2 ||
+      (es == 2 && !hoist && D % 2 != 0))
     return false;
   p.C = C;
   p.R = R;
   p.U = U;
   p.wres = wres;
   p.threads = fwd_threads(R, U);
-  p.smem = smem_floats(D, H, R, U, hoist, wres) * sizeof(float);
+  p.smem = smem_bytes(D, H, R, U, hoist, wres, es);
   return p.threads <= FWD_THREADS && p.smem <= (size_t)SMEM_MAX;
 }
 
@@ -518,32 +639,32 @@ struct Config {
   }
 };
 
-using Kernel = void (*)(const float*, const int32_t*, const float*,
-                        const float*, float*, float*, float*, int, int, int,
-                        int, int, int);
+template <class E>
+using Kernel = void (*)(const E*, const int32_t*, const E*, const E*, E*,
+                        float*, E*, int, int, int, int, int, int);
 
 // The kernel instance of the plan, with its shared-memory limit set.
-template <bool EMIT, bool HOIST>
-cudaError_t kernel_of(const Plan& p, Kernel* kern) {
-  static const Kernel table[3] = {bidi_lstm_fwd_kernel<EMIT, HOIST, 0>,
-                                  bidi_lstm_fwd_kernel<EMIT, HOIST, 1>,
-                                  bidi_lstm_fwd_kernel<EMIT, HOIST, 2>};
+template <bool EMIT, bool HOIST, class E>
+cudaError_t kernel_of(const Plan& p, Kernel<E>* kern) {
+  static const Kernel<E> table[3] = {bidi_lstm_fwd_kernel<EMIT, HOIST, 0, E>,
+                                     bidi_lstm_fwd_kernel<EMIT, HOIST, 1, E>,
+                                     bidi_lstm_fwd_kernel<EMIT, HOIST, 2, E>};
   *kern = table[p.wres];
   return cudaFuncSetAttribute(*kern,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)p.smem);
 }
 
-template <bool EMIT, bool HOIST>
-int launch(const float* x, const int32_t* lengths, const float* wx,
-           const float* wh, float* y, float* gates, float* cell, int B, int T,
-           int D, int H, int C, int R, int U, int wres, void* stream) {
+template <bool EMIT, bool HOIST, class E>
+int launch(const E* x, const int32_t* lengths, const E* wx, const E* wh, E* y,
+           float* gates, E* cell, int B, int T, int D, int H, int C, int R,
+           int U, int wres, void* stream) {
   Plan p;
   if (B < 1 || T < 1 || H < 1 || (!HOIST && D < 1) ||
-      !make_plan(p, D, H, HOIST, C, R, U, wres))
+      !make_plan(p, D, H, HOIST, C, R, U, wres, (int)sizeof(E)))
     return (int)cudaErrorInvalidValue;
-  Kernel kern;
-  cudaError_t e = kernel_of<EMIT, HOIST>(p, &kern);
+  Kernel<E> kern;
+  cudaError_t e = kernel_of<EMIT, HOIST, E>(p, &kern);
   if (e != cudaSuccess) return (int)e;
   Config c(p, (unsigned)(p.C * ((B + p.R - 1) / p.R)), (cudaStream_t)stream);
   e = cudaLaunchKernelEx(&c.cfg, kern, x, lengths, wx, wh, y, gates, cell, B,
@@ -552,15 +673,36 @@ int launch(const float* x, const int32_t* lengths, const float* wx,
   return (int)cudaGetLastError();
 }
 
-template <bool EMIT, bool HOIST>
+template <bool EMIT, bool HOIST, class E>
 int active_clusters(const Plan& p) {
-  Kernel kern;
-  cudaError_t e = kernel_of<EMIT, HOIST>(p, &kern);
+  Kernel<E> kern;
+  cudaError_t e = kernel_of<EMIT, HOIST, E>(p, &kern);
   if (e != cudaSuccess) return -(int)e;
   Config c(p, (unsigned)p.C, nullptr);
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, kern, &c.cfg);
   return e == cudaSuccess ? n : -(int)e;
+}
+
+template <class E>
+long long plan_smem(int D, int H, int hoist, int C, int R, int U, int wres) {
+  Plan p;
+  return make_plan(p, D, H, hoist != 0, C, R, U, wres, (int)sizeof(E))
+             ? (long long)p.smem
+             : 0;
+}
+
+template <class E>
+int plan_clusters(int D, int H, int hoist, int emit, int C, int R, int U,
+                  int wres) {
+  Plan p;
+  if (!make_plan(p, D, H, hoist != 0, C, R, U, wres, (int)sizeof(E)))
+    return -(int)cudaErrorInvalidValue;
+  if (hoist)
+    return emit ? active_clusters<true, true, E>(p)
+                : active_clusters<false, true, E>(p);
+  return emit ? active_clusters<true, false, E>(p)
+              : active_clusters<false, false, E>(p);
 }
 
 }  // namespace
@@ -572,13 +714,15 @@ int active_clusters(const Plan& p) {
 // 2 only Wh, 0 none) comes from ops/bidi_lstm_kernel.py::fwd_plan; a
 // plan the kernel cannot take returns cudaErrorInvalidValue. wx [2,D+1,H,4]
 // holds Wx's rows then b, wh [2,H,H,4] Wh, both interleaved by unit (see
-// the note above), the forward direction's first. B, T, D, H >= 1.
+// the note above), the forward direction's first. B, T, D, H >= 1. The
+// gates are f32 in both precisions; the *_bf16 entries take every other
+// stream and the weights as bf16, with D even.
 extern "C" int clstm_bidi_lstm_fwd(const float* x, const int32_t* lengths,
                                    const float* wx, const float* wh, float* y,
                                    int B, int T, int D, int H, int C, int R,
                                    int U, int wres, void* stream) {
-  return launch<false, false>(x, lengths, wx, wh, y, nullptr, nullptr, B, T,
-                              D, H, C, R, U, wres, stream);
+  return launch<false, false, float>(x, lengths, wx, wh, y, nullptr, nullptr,
+                                     B, T, D, H, C, R, U, wres, stream);
 }
 
 // K1: as clstm_bidi_lstm_fwd, and also writes gates [B,T,2,4H] and
@@ -590,8 +734,8 @@ extern "C" int clstm_bidi_lstm_fwd_state(const float* x,
                                          int B, int T, int D, int H, int C,
                                          int R, int U, int wres,
                                          void* stream) {
-  return launch<true, false>(x, lengths, wx, wh, y, gates, cell, B, T, D, H,
-                             C, R, U, wres, stream);
+  return launch<true, false, float>(x, lengths, wx, wh, y, gates, cell, B, T,
+                                    D, H, C, R, U, wres, stream);
 }
 
 // K4, inference: y [B,T,2H] from the hoisted projection xz [B,T,2,4H] and
@@ -600,8 +744,9 @@ extern "C" int clstm_bidi_lstm_fwd_xz(const float* xz, const int32_t* lengths,
                                       const float* wh, float* y, int B, int T,
                                       int H, int C, int R, int U, int wres,
                                       void* stream) {
-  return launch<false, true>(xz, lengths, nullptr, wh, y, nullptr, nullptr, B,
-                             T, 0, H, C, R, U, wres, stream);
+  return launch<false, true, float>(xz, lengths, nullptr, wh, y, nullptr,
+                                    nullptr, B, T, 0, H, C, R, U, wres,
+                                    stream);
 }
 
 // K4, state mode: as clstm_bidi_lstm_fwd_xz, and also writes gates
@@ -612,30 +757,70 @@ extern "C" int clstm_bidi_lstm_fwd_xz_state(const float* xz,
                                             float* gates, float* cell, int B,
                                             int T, int H, int C, int R, int U,
                                             int wres, void* stream) {
-  return launch<true, true>(xz, lengths, nullptr, wh, y, gates, cell, B, T, 0,
-                            H, C, R, U, wres, stream);
+  return launch<true, true, float>(xz, lengths, nullptr, wh, y, gates, cell,
+                                   B, T, 0, H, C, R, U, wres, stream);
+}
+
+// The bf16 mode of the four (K3, K1, K4 and its state mode).
+extern "C" int clstm_bidi_lstm_fwd_bf16(const bf16* x, const int32_t* lengths,
+                                        const bf16* wx, const bf16* wh,
+                                        bf16* y, int B, int T, int D, int H,
+                                        int C, int R, int U, int wres,
+                                        void* stream) {
+  return launch<false, false, bf16>(x, lengths, wx, wh, y, nullptr, nullptr,
+                                    B, T, D, H, C, R, U, wres, stream);
+}
+
+extern "C" int clstm_bidi_lstm_fwd_state_bf16(
+    const bf16* x, const int32_t* lengths, const bf16* wx, const bf16* wh,
+    bf16* y, float* gates, bf16* cell, int B, int T, int D, int H, int C,
+    int R, int U, int wres, void* stream) {
+  return launch<true, false, bf16>(x, lengths, wx, wh, y, gates, cell, B, T, D,
+                                   H, C, R, U, wres, stream);
+}
+
+extern "C" int clstm_bidi_lstm_fwd_xz_bf16(const bf16* xz,
+                                           const int32_t* lengths,
+                                           const bf16* wh, bf16* y, int B,
+                                           int T, int H, int C, int R, int U,
+                                           int wres, void* stream) {
+  return launch<false, true, bf16>(xz, lengths, nullptr, wh, y, nullptr,
+                                   nullptr, B, T, 0, H, C, R, U, wres,
+                                   stream);
+}
+
+extern "C" int clstm_bidi_lstm_fwd_xz_state_bf16(
+    const bf16* xz, const int32_t* lengths, const bf16* wh, bf16* y,
+    float* gates, bf16* cell, int B, int T, int H, int C, int R, int U,
+    int wres, void* stream) {
+  return launch<true, true, bf16>(xz, lengths, nullptr, wh, y, gates, cell,
+                                  B, T, 0, H, C, R, U, wres, stream);
 }
 
 // Bytes of dynamic shared memory a CTA of the plan takes (0: the plan is
-// not one the kernel takes).
+// not one the kernel takes), f32 and bf16 instances.
 extern "C" long long clstm_bidi_lstm_fwd_smem(int D, int H, int hoist, int C,
                                               int R, int U, int wres) {
-  Plan p;
-  return make_plan(p, D, H, hoist != 0, C, R, U, wres) ? (long long)p.smem
-                                                         : 0;
+  return plan_smem<float>(D, H, hoist, C, R, U, wres);
+}
+
+extern "C" long long clstm_bidi_lstm_fwd_bf16_smem(int D, int H, int hoist,
+                                                   int C, int R, int U,
+                                                   int wres) {
+  return plan_smem<bf16>(D, H, hoist, C, R, U, wres);
 }
 
 // Clusters of the plan that can be resident on the current device at once
-// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error; f32 and bf16
+// instances.
 extern "C" int clstm_bidi_lstm_fwd_clusters(int D, int H, int hoist, int emit,
                                             int C, int R, int U,
                                             int wres) {
-  Plan p;
-  if (!make_plan(p, D, H, hoist != 0, C, R, U, wres))
-    return -(int)cudaErrorInvalidValue;
-  if (hoist)
-    return emit ? active_clusters<true, true>(p)
-                : active_clusters<false, true>(p);
-  return emit ? active_clusters<true, false>(p)
-              : active_clusters<false, false>(p);
+  return plan_clusters<float>(D, H, hoist, emit, C, R, U, wres);
+}
+
+extern "C" int clstm_bidi_lstm_fwd_bf16_clusters(int D, int H, int hoist,
+                                                 int emit, int C, int R, int U,
+                                                 int wres) {
+  return plan_clusters<bf16>(D, H, hoist, emit, C, R, U, wres);
 }

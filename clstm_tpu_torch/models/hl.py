@@ -99,6 +99,21 @@ class CLSTMOCR:
         self.normalization = "none"
         self.gradient_clip = 0.0   # >0 enables global-norm clipping
         self.augment = 0.0         # >0 enables on-device augmentation
+        self._xz_bf16: Optional[bool] = None
+        self._reset_steps()
+
+    @property
+    def xz_bf16(self) -> Optional[bool]:
+        """Precision of the bidi and affine layers (models/spec.py::
+        ApplyCtx): None the card's default (models/spec.py::
+        CARD_DEFAULT_BF16) and f32 on the CPU, True the bf16 mode, False
+        strict f32. Setting it applies to prediction and training alike:
+        the built steps are dropped and rebuilt in the new mode."""
+        return self._xz_bf16
+
+    @xz_bf16.setter
+    def xz_bf16(self, value: Optional[bool]) -> None:
+        self._xz_bf16 = value
         self._reset_steps()
 
     def _reset_steps(self) -> None:
@@ -161,7 +176,8 @@ class CLSTMOCR:
 
     def _step_options(self) -> dict:
         return {"loss_kind": "ctc", "normalization": self.normalization,
-                "gradient_clip": self.gradient_clip, "augment": self.augment}
+                "gradient_clip": self.gradient_clip, "augment": self.augment,
+                "xz_bf16": self.xz_bf16}
 
     def train_batch(self, batch: dict) -> dict:
         """One CTC training step on a prepared batch dict of numpy arrays
@@ -255,7 +271,8 @@ class CLSTMOCR:
         then the per-frame argmax."""
         xt = torch.as_tensor(x, dtype=torch.float32).to(self.device)
         lt = torch.as_tensor(lengths, dtype=torch.int32).to(self.device)
-        probs = apply_net(self.net, xt.contiguous(), lt, inference=True)
+        probs = apply_net(self.net, xt.contiguous(), lt, inference=True,
+                          xz_bf16=self.xz_bf16)
         ids, vals = greedy_frames(probs)
         return ids.cpu().numpy(), vals.cpu().numpy()
 
@@ -280,7 +297,8 @@ class CLSTMOCR:
             list(images), self.device, kind=_canon_dewarp(self.dewarp),
             target_height=self.target_height, out_T=tb, pad=self.pad)
         ids, vals = greedy_frames(apply_net(self.net, x, lengths,
-                                            inference=True))
+                                            inference=True,
+                                            xz_bf16=self.xz_bf16))
         if not sync:
             return ids, vals, lengths
         return ids.cpu().numpy(), vals.cpu().numpy(), lengths.cpu().numpy()

@@ -105,11 +105,33 @@ def layer(kind: str, ninput: int, noutput: int, args: Optional[Mapping] = None,
 # Build / init / apply
 # ---------------------------------------------------------------------------
 
+# The precision a CUDA tensor takes when none is asked for. The JAX package
+# runs its Pallas kernels in bf16 on its accelerator (and lax.scan in f32
+# on the CPU), but the port takes the bf16 mode as its card default only
+# once chip_smoke.py's learning check passes on the card: it has not (on
+# its glyph corpus the bf16 mode trails f32 where the CER falls fastest;
+# PERF.md §6, ROADMAP Queue 3), so the default is strict f32 on every
+# device.
+CARD_DEFAULT_BF16 = False
+
+
 @dataclasses.dataclass(frozen=True)
 class ApplyCtx:
     """Flags threaded through the forward pass."""
 
     logits: bool = False   # make the final SoftmaxLayer emit logits
+    # The bidi layers' precision: True the JAX package's production mode
+    # (pallas_lstm.py ``xz_bf16=True``: bf16 operands and streams, f32
+    # accumulation, bf16 y) with the affine layers on bf16 operands (its
+    # ``_affine`` on the TPU); False strict f32; None CARD_DEFAULT_BF16 on
+    # a CUDA tensor and f32 on a CPU tensor.
+    xz_bf16: Optional[bool] = None
+
+    def bf16(self, x: torch.Tensor) -> bool:
+        """Whether the layer on ``x`` runs in the bf16 mode."""
+        if self.xz_bf16 is None:
+            return CARD_DEFAULT_BF16 and x.is_cuda
+        return bool(self.xz_bf16)
 
 
 def build_net(spec: NetSpec) -> "Layer":
@@ -130,7 +152,8 @@ def init_net(spec: NetSpec, generator: torch.Generator,
 
 def apply_net(net: "Layer", x: torch.Tensor,
               lengths: Optional[torch.Tensor] = None, *,
-              logits: bool = False, inference: bool = False) -> torch.Tensor:
+              logits: bool = False, inference: bool = False,
+              xz_bf16: Optional[bool] = None) -> torch.Tensor:
     """Forward pass: [B, T, D] right-padded batch -> [B, T, O].
 
     ``logits=True`` makes the outermost SoftmaxLayer return pre-softmax
@@ -141,9 +164,11 @@ def apply_net(net: "Layer", x: torch.Tensor,
     kernels (K1 forward, K2 backward). A bidi pair whose input is wider
     than its lane-padded hidden size (``hoists_projection``: the second
     layer of ``bidi2``) takes the hoisted projection and K4 in place of K3
-    and K1.
+    and K1. ``xz_bf16`` picks the precision (``ApplyCtx``): None, the
+    default, is CARD_DEFAULT_BF16 on a CUDA tensor and strict f32 on a CPU
+    tensor.
     """
-    ctx = ApplyCtx(logits=logits)
+    ctx = ApplyCtx(logits=logits, xz_bf16=xz_bf16)
     if inference:
         with torch.no_grad():
             return net(x, lengths, ctx)
@@ -184,6 +209,44 @@ _NONLIN = {"LinearLayer": "LIN", "SigmoidLayer": "SIG", "TanhLayer": "TANH",
            "ReluLayer": "RELU"}
 
 
+class _AffineBF16(torch.autograd.Function):
+    """x·W + b with bf16 operands, f32 accumulation and an f32 result plus
+    the f32 bias: the JAX package's ``_affine`` on its accelerator
+    (clstm_tpu/models/spec.py:230-243). Its gradients are those of JAX's
+    casts around the product: dW and dx are the f32 products of the f32
+    cotangent with the other operand, rounded to bf16 (the operands' type),
+    dx then in x's type; db is the f32 sum. Each product is the f32 product
+    of the bf16 operands, which is exact, so it is bf16 operands with f32
+    accumulation; cuBLAS's bf16 kernels would wait for the card at the
+    first use of each of them, which new batch shapes bring
+    (ops/lstm.py::hoisted_projection)."""
+
+    @staticmethod
+    def forward(ctx, x, W, b):
+        x16 = x.to(torch.bfloat16)
+        W16 = W.to(torch.bfloat16)
+        ctx.save_for_backward(x16, W16)
+        ctx.x_dtype = x.dtype
+        lead = x.shape[:-1]
+        z = x16.reshape(-1, x.shape[-1]).float() @ W16.float() + b
+        return z.reshape(*lead, W.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x16, W16 = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        x2 = x16.reshape(-1, x16.shape[-1])
+        dx = dW = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ W16.float().t()).to(torch.bfloat16).to(
+                ctx.x_dtype).reshape(x16.shape)
+        if ctx.needs_input_grad[1]:
+            dW = (x2.float().t() @ g2).to(torch.bfloat16).float()
+        if ctx.needs_input_grad[2]:
+            db = g2.sum(0)
+        return dx, dW, db
+
+
 class Affine(Layer):
     """Full layer: nonlin(x·W + b) (reference forward_full1)."""
 
@@ -193,20 +256,24 @@ class Affine(Layer):
         self.W = nn.Parameter(torch.zeros(ni, no))
         self.b = nn.Parameter(torch.zeros(no))
 
-    def affine(self, x: torch.Tensor) -> torch.Tensor:
+    def affine(self, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+        """x·W + b, f32; with ``bf16`` on bf16 operands (``_AffineBF16``)."""
+        if bf16:
+            return _AffineBF16.apply(x, self.W, self.b)
         return torch.matmul(x.float(), self.W) + self.b
 
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
         nl = _NONLIN[resolve_kind(self.spec.kind)]
-        return nonlin_apply(nl, self.affine(x)).to(x.dtype)
+        return nonlin_apply(nl, self.affine(x, ctx.bf16(x))).to(x.dtype)
 
 
 class Softmax(Affine):
     """DTYPE CONTRACT: SoftmaxLayer always returns f32 posteriors/logits,
-    regardless of input dtype; other layer kinds preserve x.dtype."""
+    regardless of input dtype (bf16 from a bidi layer in the bf16 mode);
+    other layer kinds preserve x.dtype."""
 
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
-        z = self.affine(x)
+        z = self.affine(x, ctx.bf16(x))
         if ctx.logits:
             return z
         return torch.softmax(z, dim=-1)
@@ -253,12 +320,13 @@ class Parallel(Layer):
         if _is_bidi_pair(self.spec):
             pf = self.sub[0].weights()
             pr = self.sub[1].sub[0].weights()
+            mode = {"xz_bf16": True} if ctx.bf16(x) else {}
             if torch.is_grad_enabled() and (
                     x.requires_grad or any(
                         w.requires_grad
                         for w in (*pf.values(), *pr.values()))):
-                return bidi_lstm_train(pf, pr, x, lengths)
-            return bidi_lstm_infer(pf, pr, x, lengths)
+                return bidi_lstm_train(pf, pr, x, lengths, **mode)
+            return bidi_lstm_infer(pf, pr, x, lengths, **mode)
         sub_ctx = dataclasses.replace(ctx, logits=False)
         return torch.cat([s(x, lengths, sub_ctx) for s in self.sub], dim=-1)
 

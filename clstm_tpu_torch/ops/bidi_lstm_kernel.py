@@ -25,6 +25,14 @@
 Their plain versions are in ops/lstm.py (bidi_lstm_apply and the ``_plain``
 functions). On CPU tensors each wrapper runs its plain version; on CUDA
 tensors it launches its kernel or raises, and never falls back.
+
+Each wrapper takes ``xz_bf16``, the JAX package's production mode
+(pallas_lstm.py, ``xz_bf16=True``): the streams (x or xz, y, gates, cell,
+gy, dz, dx) are bf16 and so are the weights the kernels read, every
+product accumulates in f32, the gate math, carries and backward chain stay
+f32, and the weight gradients come out f32 (the rounding points:
+ops/lstm.py). A bf16 call launches the kernels' bf16 instances; it never
+runs in f32 in their place.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import ctypes
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from clstm_tpu_torch.ops.lstm import (
     bidi_lstm_apply, bidi_lstm_apply_xz, bidi_lstm_bwd_chain_plain,
@@ -52,9 +61,20 @@ _SIGNATURES = {
     "clstm_bidi_lstm_bwd_chain": [_P] * 6 + [_I] * 3 + [_P],
     "clstm_bidi_lstm_bwd_scratch": [_I] * 4,
     "clstm_bidi_lstm_bwd_reduce": [_P] * 7 + [_I] * 4 + [_P],
+    # The bf16 mode's instances: the same arguments, bf16 streams and
+    # weights; the reduction also takes whether dx is bf16.
+    "clstm_bidi_lstm_fwd_bf16": [_P] * 5 + [_I] * 8 + [_P],
+    "clstm_bidi_lstm_fwd_state_bf16": [_P] * 7 + [_I] * 8 + [_P],
+    "clstm_bidi_lstm_fwd_xz_bf16": [_P] * 4 + [_I] * 7 + [_P],
+    "clstm_bidi_lstm_fwd_xz_state_bf16": [_P] * 6 + [_I] * 7 + [_P],
+    "clstm_bidi_lstm_fwd_bf16_smem": [_I] * 7,
+    "clstm_bidi_lstm_fwd_bf16_clusters": [_I] * 8,
+    "clstm_bidi_lstm_bwd_chain_bf16": [_P] * 6 + [_I] * 3 + [_P],
+    "clstm_bidi_lstm_bwd_reduce_bf16": [_P] * 7 + [_I] * 5 + [_P],
 }
 # Entry points that return a 64-bit count instead of a CUDA error.
-_LONG = {"clstm_bidi_lstm_bwd_scratch", "clstm_bidi_lstm_fwd_smem"}
+_LONG = {"clstm_bidi_lstm_bwd_scratch", "clstm_bidi_lstm_fwd_smem",
+         "clstm_bidi_lstm_fwd_bf16_smem"}
 _fns: dict = {}
 
 
@@ -90,12 +110,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_tensor(name: str, t: torch.Tensor, shape, device) -> None:
-    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32
+def _check_tensor(name: str, t: torch.Tensor, shape, device,
+                  dtype=torch.float32) -> None:
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
             or t.device != device or not t.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous float32 {tuple(shape)} "
-                         f"tensor on {device}, got {t.dtype} "
+        raise ValueError(f"{name} must be a contiguous {dtype} "
+                         f"{tuple(shape)} tensor on {device}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
+
+
+def _stream_dtype(bf16: bool) -> torch.dtype:
+    return torch.bfloat16 if bf16 else torch.float32
 
 
 def _check_lengths(lengths: Optional[torch.Tensor], B: int, device) -> None:
@@ -113,11 +138,15 @@ def _check_device(device) -> None:
 
 
 def _check(params_f: dict, params_r: dict, x: torch.Tensor,
-           lengths: Optional[torch.Tensor]) -> None:
-    """Raise on anything the forward kernels do not take."""
-    if x.dim() != 3 or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous [B, T, D] float32 tensor, "
-                         f"got {x.dtype} {tuple(x.shape)}")
+           lengths: Optional[torch.Tensor], bf16: bool = False) -> None:
+    """Raise on anything the forward kernels do not take: x float32, or in
+    the bf16 mode float32 or bfloat16 (the output of a bf16 layer); the
+    weights float32 in both modes."""
+    ok = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    if x.dim() != 3 or x.dtype not in ok or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous [B, T, D] tensor of "
+                         f"{' or '.join(map(str, ok))}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
     _check_device(x.device)
     B, T, D = x.shape
     H = params_f["Wh"].shape[0]
@@ -134,11 +163,13 @@ def _check(params_f: dict, params_r: dict, x: torch.Tensor,
 
 
 def _check_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
-              lengths: Optional[torch.Tensor]) -> None:
-    """Raise on anything K4 does not take."""
-    if (xz.dim() != 4 or xz.shape[2] != 2 or xz.dtype != torch.float32
+              lengths: Optional[torch.Tensor], bf16: bool = False) -> None:
+    """Raise on anything K4 does not take: xz float32, bfloat16 (the
+    rounded product) in the bf16 mode."""
+    dt = _stream_dtype(bf16)
+    if (xz.dim() != 4 or xz.shape[2] != 2 or xz.dtype != dt
             or not xz.is_contiguous()):
-        raise ValueError(f"xz must be a contiguous [B, T, 2, 4H] float32 "
+        raise ValueError(f"xz must be a contiguous [B, T, 2, 4H] {dt} "
                          f"tensor, got {xz.dtype} {tuple(xz.shape)}")
     _check_device(xz.device)
     H = params_f["Wh"].shape[0]
@@ -153,6 +184,11 @@ def _check_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
                              f"{xz.device}, got {w.dtype} {tuple(w.shape)} "
                              f"on {w.device}")
     _check_lengths(lengths, xz.shape[0], xz.device)
+
+
+def _mode(bf16: bool) -> dict:
+    """The plain versions' keyword for the bf16 mode (none for f32)."""
+    return {"xz_bf16": True} if bf16 else {}
 
 
 def _stack(params_f: dict, params_r: dict, name: str) -> torch.Tensor:
@@ -212,14 +248,16 @@ class FwdPlan(NamedTuple):
 
 
 def fwd_smem(D: int, H: int, rows: int, units: int, hoist: bool,
-             resident: int) -> int:
+             resident: int, esize: int = 4) -> int:
     """Bytes of shared memory a CTA takes: the resident weights [H (+ D+1
-    where ``resident`` is 1), units, 4], h [2, H, rows], the x ring [3, D,
-    rows] (without the hoisted projection) and the row lengths
-    (csrc/bidi_lstm_fwd.cu::smem_floats)."""
+    where ``resident`` is 1), units, 4] of ``esize`` bytes (4 f32, 2 bf16)
+    rounded up to 16 bytes, h [2, H, rows] (f32 in both modes), the x ring
+    [3, D, rows] of ``esize`` bytes (without the hoisted projection) and
+    the row lengths (csrc/bidi_lstm_fwd.cu::smem_bytes)."""
     w = ((H + (0 if hoist or resident == 2 else D + 1)) * 4 * units
          if resident else 0)
-    return 4 * (w + 2 * H * rows + (0 if hoist else 3 * rows * D) + rows)
+    return (-(-esize * w // 16) * 16 + 4 * 2 * H * rows
+            + (0 if hoist else esize * 3 * rows * D) + 4 * rows)
 
 
 def fwd_threads(rows: int, units: int) -> int:
@@ -229,7 +267,7 @@ def fwd_threads(rows: int, units: int) -> int:
 
 
 def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
-             clusters=None) -> FwdPlan:
+             clusters=None, esize: int = 4) -> FwdPlan:
     """The forward kernel's plan for a layer of input width D (unused with
     ``hoist``: K4) and H units at batch B; ``state``: K1 or K4's state
     mode (the kernel instance whose occupancy ``clusters`` gives).
@@ -244,9 +282,11 @@ def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
     smallest.
     ``clusters(C, resident, rows, units)`` gives how many clusters of a
     plan the card holds at once: on a card the kernel's occupancy query
-    (``device_plan``), by default H100_CLUSTERS. Raises ValueError for a
-    shape no plan takes (H above ~4096, or an input too wide for the x
-    ring)."""
+    (``device_plan``), by default H100_CLUSTERS. ``esize`` is the bytes of
+    a weight and stream element: 4, or 2 in the bf16 mode, where half the
+    bytes may keep more resident at a smaller C (D is then even: the
+    wrapper pads an odd input). Raises ValueError for a shape no plan
+    takes (H above ~4096, or an input too wide for the x ring)."""
     if min(B, H) < 1 or (not hoist and D < 1):
         raise ValueError(f"no forward plan for B={B} D={D} H={H}")
     if clusters is None:
@@ -260,11 +300,12 @@ def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
 
     def fits(resident, rows, units) -> bool:
         return (fwd_threads(rows, units) <= FWD_THREADS and
-                fwd_smem(D, H, rows, units, hoist, resident) <= SMEM_MAX)
+                fwd_smem(D, H, rows, units, hoist, resident, esize)
+                <= SMEM_MAX)
 
     def made(C, resident, rows, units) -> FwdPlan:
         return FwdPlan(C, rows, units, resident, fwd_threads(rows, units),
-                       fwd_smem(D, H, rows, units, hoist, resident),
+                       fwd_smem(D, H, rows, units, hoist, resident, esize),
                        -(-B // rows), int(clusters(C, resident, rows, units)))
 
     # Wh's slice alone resident, [Wx; b] read from L2 at every step, only
@@ -322,32 +363,50 @@ def interleave_gates(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(*lead, 4, G // 4).transpose(-1, -2).contiguous()
 
 
-def fwd_weights(params_f: dict, params_r: dict, with_x: bool):
+def fwd_weights(params_f: dict, params_r: dict, with_x: bool,
+                bf16: bool = False):
     """The forward kernel's weights, both directions: (wx [2, D+1, H, 4],
-    the rows of Wx then b, or None; wh [2, H, H, 4])."""
-    wh = interleave_gates(_stack(params_f, params_r, "Wh"))
+    the rows of Wx then b, or None; wh [2, H, H, 4]). With ``bf16`` both
+    are rounded to bfloat16, and an odd D gets a zero row before b (the
+    kernel's x stream is then padded to an even D, ``_x_bf16``)."""
+    dt = _stream_dtype(bf16)
+    wh = interleave_gates(_stack(params_f, params_r, "Wh")).to(dt)
     if not with_x:
         return None, wh
-    wx = torch.cat([_stack(params_f, params_r, "Wx"),
-                    _stack(params_f, params_r, "b")[:, None]], 1)
-    return interleave_gates(wx), wh
+    rows = [_stack(params_f, params_r, "Wx")]
+    if bf16 and rows[0].shape[1] % 2:
+        rows.append(rows[0].new_zeros((2, 1, rows[0].shape[2])))
+    rows.append(_stack(params_f, params_r, "b")[:, None])
+    return interleave_gates(torch.cat(rows, 1)).to(dt).contiguous(), wh
+
+
+def _x_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 forward kernel's x stream: x rounded to bfloat16, an odd D
+    padded with a zero column (the kernel stages x in pairs of columns)."""
+    x = x.to(torch.bfloat16)
+    return (F.pad(x, (0, 1)) if x.shape[-1] % 2 else x).contiguous()
 
 
 _active: dict = {}
 _plans: dict = {}
 
 
-def card_clusters(lookup, D: int, H: int, hoist: bool, state: bool):
+def card_clusters(lookup, D: int, H: int, hoist: bool, state: bool,
+                  esize: int = 4):
     """``clusters`` for fwd_plan on the current card: the kernel's
-    occupancy query (``clstm_bidi_lstm_fwd_clusters`` of the library that
-    ``lookup`` looks entry points up in), cached."""
+    occupancy query (``clstm_bidi_lstm_fwd_clusters``, or its bf16
+    instance's with ``esize`` 2, of the library that ``lookup`` looks entry
+    points up in), cached."""
+    name = ("clstm_bidi_lstm_fwd_bf16_clusters" if esize == 2
+            else "clstm_bidi_lstm_fwd_clusters")
+
     def query(C, resident, rows, units):
         key = (lookup, torch.cuda.current_device(), D, H, hoist, state,
-               C, resident, rows, units)
+               C, resident, rows, units, esize)
         n = _active.get(key)
         if n is None:
-            n = lookup("clstm_bidi_lstm_fwd_clusters")(
-                D, H, int(hoist), int(state), C, rows, units, resident)
+            n = lookup(name)(D, H, int(hoist), int(state), C, rows, units,
+                             resident)
             if n < 1:
                 raise RuntimeError(f"the card holds no cluster of {C} CTAs "
                                    f"of {rows} rows and {units} units (the "
@@ -358,15 +417,16 @@ def card_clusters(lookup, D: int, H: int, hoist: bool, state: bool):
 
 
 def device_plan(device, B: int, D: int, H: int, hoist: bool,
-                state: bool) -> FwdPlan:
+                state: bool, esize: int = 4) -> FwdPlan:
     """fwd_plan on ``device``'s card (its cluster occupancy), cached per
     device and shape."""
-    key = (device, B, D, H, hoist, state)
+    key = (device, B, D, H, hoist, state, esize)
     p = _plans.get(key)
     if p is None:
         with torch.cuda.device(device):
             p = fwd_plan(B, D, H, hoist, state,
-                         card_clusters(_kernel, D, H, hoist, state))
+                         card_clusters(_kernel, D, H, hoist, state, esize),
+                         esize)
         _plans[key] = p
     return p
 
@@ -375,12 +435,46 @@ def _plan_args(p: FwdPlan) -> tuple:
     return p.C, p.rows, p.units, p.resident
 
 
+def _fwd_launch(kind: str, counter, params_f: dict, params_r: dict,
+                inp: torch.Tensor, lengths: Optional[torch.Tensor],
+                bf16: bool):
+    """Launch the forward kernel in mode ``kind`` ("fwd" K3, "fwd_state"
+    K1, "fwd_xz" K4, "fwd_xz_state" K4's state mode) on x or xz (already
+    checked) -> y, or (y, gates, cell) in the state modes. An empty batch
+    launches nothing; a launch adds one to ``counter.launches``."""
+    hoist, state = "xz" in kind, kind.endswith("state")
+    dev = inp.device
+    B, T = inp.shape[:2]
+    H = params_f["Wh"].shape[0]
+    dt = _stream_dtype(bf16)
+    if not hoist and bf16:
+        inp = _x_bf16(inp)
+    D = 0 if hoist else inp.shape[-1]
+    outs = [torch.empty((B, T, 2 * H), dtype=dt, device=dev)]
+    if state:
+        outs += [torch.empty((B, T, 2, 4 * H), dtype=torch.float32,
+                             device=dev),
+                 torch.empty((B, T, 2, H), dtype=dt, device=dev)]
+    if B and T:
+        wx, wh = fwd_weights(params_f, params_r, not hoist, bf16)
+        plan = device_plan(dev, B, D, H, hoist, state, 2 if bf16 else 4)
+        shape = (B, T, H) if hoist else (B, T, D, H)
+        _launch(f"clstm_bidi_lstm_{kind}" + ("_bf16" if bf16 else ""), dev,
+                inp.data_ptr(), _ptr(lengths),
+                *([] if hoist else [wx.data_ptr()]), wh.data_ptr(),
+                *(o.data_ptr() for o in outs), *shape, *_plan_args(plan))
+        counter.launches += 1
+    return tuple(outs) if state else outs[0]
+
+
 def bidi_lstm_infer(params_f: dict, params_r: dict, x: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
-                    hoist: Optional[bool] = None) -> torch.Tensor:
+                    hoist: Optional[bool] = None,
+                    xz_bf16: bool = False) -> torch.Tensor:
     """Inference forward of a bidi layer. x [B, T, D] f32, lengths [B]
     int32 or None (all T) -> y [B, T, 2H] f32: forward half then reverse
-    half, exactly 0.0 where t >= len.
+    half, exactly 0.0 where t >= len. With ``xz_bf16`` x may also be bf16
+    and y is bf16.
 
     ``params_*`` hold the fused weights {"Wx" [D,4H], "Wh" [H,4H],
     "b" [4H]}. With ``hoist`` None the layer takes K4 on
@@ -389,108 +483,76 @@ def bidi_lstm_infer(params_f: dict, params_r: dict, x: torch.Tensor,
     counts K3's launches, ``bidi_lstm_infer_xz.launches`` K4's. No gradient
     flows through a CUDA launch: training runs ``bidi_lstm_train``.
     """
-    _check(params_f, params_r, x, lengths)
+    _check(params_f, params_r, x, lengths, xz_bf16)
     if hoist is None:
         hoist = hoists_projection(x.shape[-1], params_f["Wh"].shape[0])
     if hoist:
-        return bidi_lstm_infer_xz(params_f, params_r,
-                                  hoisted_projection(params_f, params_r, x),
-                                  lengths)
+        return bidi_lstm_infer_xz(
+            params_f, params_r,
+            hoisted_projection(params_f, params_r, x, **_mode(xz_bf16)),
+            lengths, xz_bf16)
     if x.device.type == "cpu":
-        return bidi_lstm_apply(params_f, params_r, x, lengths)
-    B, T, D = x.shape
-    H = params_f["Wh"].shape[0]
-    y = torch.empty((B, T, 2 * H), dtype=torch.float32, device=x.device)
-    if B == 0 or T == 0:
-        return y
-    wx, wh = fwd_weights(params_f, params_r, True)
-    plan = device_plan(x.device, B, D, H, False, False)
-    _launch("clstm_bidi_lstm_fwd", x.device, x.data_ptr(), _ptr(lengths),
-            wx.data_ptr(), wh.data_ptr(), y.data_ptr(), B, T, D, H,
-            *_plan_args(plan))
-    bidi_lstm_infer.launches += 1
-    return y
+        return bidi_lstm_apply(params_f, params_r, x, lengths,
+                               **_mode(xz_bf16))
+    return _fwd_launch("fwd", bidi_lstm_infer, params_f, params_r, x,
+                       lengths, xz_bf16)
 
 
 def bidi_lstm_fwd_state(params_f: dict, params_r: dict, x: torch.Tensor,
-                        lengths: Optional[torch.Tensor] = None):
+                        lengths: Optional[torch.Tensor] = None,
+                        xz_bf16: bool = False):
     """K1. As ``bidi_lstm_infer``, and also returns what K2 reads:
-    (y [B, T, 2H], gates [B, T, 2, 4H], cell [B, T, 2, H]), f32, original
-    time order per direction, exactly 0 on padded frames (see
-    ops/lstm.py::bidi_lstm_fwd_state_plain)."""
-    _check(params_f, params_r, x, lengths)
+    (y [B, T, 2H], gates [B, T, 2, 4H], cell [B, T, 2, H]), f32 (y and
+    cell bf16 with ``xz_bf16``), original time order per direction,
+    exactly 0 on padded frames (see ops/lstm.py::bidi_lstm_fwd_state_plain).
+    """
+    _check(params_f, params_r, x, lengths, xz_bf16)
     if x.device.type == "cpu":
-        return bidi_lstm_fwd_state_plain(params_f, params_r, x, lengths)
-    B, T, D = x.shape
-    H = params_f["Wh"].shape[0]
-    y = torch.empty((B, T, 2 * H), dtype=torch.float32, device=x.device)
-    gates = torch.empty((B, T, 2, 4 * H), dtype=torch.float32,
-                        device=x.device)
-    cell = torch.empty((B, T, 2, H), dtype=torch.float32, device=x.device)
-    if B == 0 or T == 0:
-        return y, gates, cell
-    wx, wh = fwd_weights(params_f, params_r, True)
-    plan = device_plan(x.device, B, D, H, False, True)
-    _launch("clstm_bidi_lstm_fwd_state", x.device, x.data_ptr(),
-            _ptr(lengths), wx.data_ptr(), wh.data_ptr(), y.data_ptr(),
-            gates.data_ptr(), cell.data_ptr(), B, T, D, H, *_plan_args(plan))
-    bidi_lstm_fwd_state.launches += 1
-    return y, gates, cell
+        return bidi_lstm_fwd_state_plain(params_f, params_r, x, lengths,
+                                         **_mode(xz_bf16))
+    return _fwd_launch("fwd_state", bidi_lstm_fwd_state, params_f, params_r,
+                       x, lengths, xz_bf16)
 
 
 def bidi_lstm_infer_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
-                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       lengths: Optional[torch.Tensor] = None,
+                       xz_bf16: bool = False) -> torch.Tensor:
     """K4, inference. xz [B, T, 2, 4H] f32 (ops/lstm.py::hoisted_projection,
-    original time order) -> y [B, T, 2H] f32, as ``bidi_lstm_infer``. Only
-    ``Wh`` of the params is read (see ops/lstm.py::bidi_lstm_apply_xz)."""
-    _check_xz(params_f, params_r, xz, lengths)
+    original time order; bf16, the rounded product, with ``xz_bf16``) ->
+    y [B, T, 2H] of the same type, as ``bidi_lstm_infer``. Only ``Wh`` of
+    the params is read (see ops/lstm.py::bidi_lstm_apply_xz)."""
+    _check_xz(params_f, params_r, xz, lengths, xz_bf16)
     if xz.device.type == "cpu":
-        return bidi_lstm_apply_xz(params_f, params_r, xz, lengths)
-    B, T, _, G = xz.shape
-    H = G // 4
-    y = torch.empty((B, T, 2 * H), dtype=torch.float32, device=xz.device)
-    if B == 0 or T == 0:
-        return y
-    wh = fwd_weights(params_f, params_r, False)[1]
-    plan = device_plan(xz.device, B, 0, H, True, False)
-    _launch("clstm_bidi_lstm_fwd_xz", xz.device, xz.data_ptr(),
-            _ptr(lengths), wh.data_ptr(), y.data_ptr(), B, T, H,
-            *_plan_args(plan))
-    bidi_lstm_infer_xz.launches += 1
-    return y
+        return bidi_lstm_apply_xz(params_f, params_r, xz, lengths,
+                                  **_mode(xz_bf16))
+    return _fwd_launch("fwd_xz", bidi_lstm_infer_xz, params_f, params_r, xz,
+                       lengths, xz_bf16)
 
 
 def bidi_lstm_fwd_state_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
-                           lengths: Optional[torch.Tensor] = None):
+                           lengths: Optional[torch.Tensor] = None,
+                           xz_bf16: bool = False):
     """K4, state mode: as ``bidi_lstm_infer_xz``, and also returns gates
-    [B, T, 2, 4H] and cell [B, T, 2, H] with K1's layout and zeros, which
-    K2 reads unchanged (see ops/lstm.py::bidi_lstm_fwd_state_xz_plain)."""
-    _check_xz(params_f, params_r, xz, lengths)
+    [B, T, 2, 4H] and cell [B, T, 2, H] with K1's layout, type and zeros,
+    which K2 reads unchanged (see ops/lstm.py::bidi_lstm_fwd_state_xz_plain).
+    """
+    _check_xz(params_f, params_r, xz, lengths, xz_bf16)
     if xz.device.type == "cpu":
-        return bidi_lstm_fwd_state_xz_plain(params_f, params_r, xz, lengths)
-    B, T, _, G = xz.shape
-    H = G // 4
-    dev = xz.device
-    y = torch.empty((B, T, 2 * H), dtype=torch.float32, device=dev)
-    gates = torch.empty((B, T, 2, G), dtype=torch.float32, device=dev)
-    cell = torch.empty((B, T, 2, H), dtype=torch.float32, device=dev)
-    if B == 0 or T == 0:
-        return y, gates, cell
-    wh = fwd_weights(params_f, params_r, False)[1]
-    plan = device_plan(dev, B, 0, H, True, True)
-    _launch("clstm_bidi_lstm_fwd_xz_state", dev, xz.data_ptr(), _ptr(lengths),
-            wh.data_ptr(), y.data_ptr(), gates.data_ptr(), cell.data_ptr(),
-            B, T, H, *_plan_args(plan))
-    bidi_lstm_fwd_state_xz.launches += 1
-    return y, gates, cell
+        return bidi_lstm_fwd_state_xz_plain(params_f, params_r, xz, lengths,
+                                            **_mode(xz_bf16))
+    return _fwd_launch("fwd_xz_state", bidi_lstm_fwd_state_xz, params_f,
+                       params_r, xz, lengths, xz_bf16)
 
 
 def bidi_lstm_bwd_chain(gates: torch.Tensor, cell: torch.Tensor,
                         gy: torch.Tensor, Wh2: torch.Tensor,
-                        lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        lengths: Optional[torch.Tensor] = None,
+                        xz_bf16: bool = False) -> torch.Tensor:
     """K2's chain. gates [B, T, 2, 4H], cell [B, T, 2, H] (K1's), gy
-    [B, T, 2H] the cotangent of y, Wh2 [2, H, 4H] -> dz [B, T, 2, 4H],
+    [B, T, 2H] the cotangent of y, Wh2 [2, H, 4H] f32 -> dz [B, T, 2, 4H],
     exactly 0 on padded frames (see ops/lstm.py::bidi_lstm_bwd_chain_plain).
+    The streams are f32; with ``xz_bf16`` cell, gy and dz are bf16 and the
+    gates stay f32 (Wh2 stays f32 and is rounded here).
     """
     if gates.dim() != 4:
         raise ValueError(f"gates must be [B, T, 2, 4H], got "
@@ -498,48 +560,58 @@ def bidi_lstm_bwd_chain(gates: torch.Tensor, cell: torch.Tensor,
     B, T, _, G = gates.shape
     H = G // 4
     dev = gates.device
+    dt = _stream_dtype(xz_bf16)
     _check_device(dev)
     _check_tensor("gates", gates, (B, T, 2, 4 * H), dev)
-    _check_tensor("cell", cell, (B, T, 2, H), dev)
-    _check_tensor("gy", gy, (B, T, 2 * H), dev)
+    _check_tensor("cell", cell, (B, T, 2, H), dev, dt)
+    _check_tensor("gy", gy, (B, T, 2 * H), dev, dt)
     _check_tensor("Wh2", Wh2, (2, H, 4 * H), dev)
     _check_lengths(lengths, B, dev)
     if dev.type == "cpu":
-        return bidi_lstm_bwd_chain_plain(gates, cell, gy, Wh2, lengths)
-    dz = torch.empty_like(gates)
+        return bidi_lstm_bwd_chain_plain(gates, cell, gy, Wh2, lengths,
+                                         **_mode(xz_bf16))
+    dz = torch.empty((B, T, 2, G), dtype=dt, device=dev)
     if B == 0 or T == 0:
         return dz
     # WhT [2, 4H, Hp]: Wh transposed, each row zero-padded to Hp units.
     hp = _kernel("clstm_bidi_lstm_bwd_hp")(H)
-    whT = torch.zeros((2, 4 * H, hp), dtype=torch.float32, device=dev)
+    whT = torch.zeros((2, 4 * H, hp), dtype=dt, device=dev)
     whT[:, :, :H] = Wh2.detach().transpose(1, 2)
     gates = _aligned(gates)
-    _launch("clstm_bidi_lstm_bwd_chain", dev, _ptr(lengths), gates.data_ptr(),
-            cell.data_ptr(), gy.data_ptr(), whT.data_ptr(), dz.data_ptr(),
-            B, T, H)
+    _launch("clstm_bidi_lstm_bwd_chain" + ("_bf16" if xz_bf16 else ""), dev,
+            _ptr(lengths), gates.data_ptr(), cell.data_ptr(), gy.data_ptr(),
+            whT.data_ptr(), dz.data_ptr(), B, T, H)
     bidi_lstm_bwd_chain.launches += 1
     return dz
 
 
 def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
-                         Wx2: torch.Tensor, need_dx: bool = True):
+                         Wx2: torch.Tensor, need_dx: bool = True,
+                         xz_bf16: bool = False):
     """K2's contractions. x [B, T, D], y [B, T, 2H] (K1's), dz
-    [B, T, 2, 4H], Wx2 [2, D, 4H] -> (dW [2, D+1+H, 4H], dx [B, T, D] or
-    None): per direction the rows of dW are dWx, the bias row, dWh (see
-    ops/lstm.py::bidi_lstm_bwd_reduce_plain). The sum over frames is
-    deterministic: a fixed split and a fixed-order second pass."""
+    [B, T, 2, 4H], Wx2 [2, D, 4H] f32 -> (dW [2, D+1+H, 4H] f32, dx
+    [B, T, D] or None): per direction the rows of dW are dWx, the bias row,
+    dWh (see ops/lstm.py::bidi_lstm_bwd_reduce_plain). The sum over frames
+    is deterministic: a fixed split and a fixed-order second pass. With
+    ``xz_bf16`` y and dz are bf16, x f32 or bf16 (rounded here), the
+    products take one bf16 tensor-core pass, and dx comes out in x's type.
+    """
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
     B, T, D = x.shape
     H = y.shape[-1] // 2
     dev = x.device
+    dt = _stream_dtype(xz_bf16)
     _check_device(dev)
-    _check_tensor("x", x, (B, T, D), dev)
-    _check_tensor("y", y, (B, T, 2 * H), dev)
-    _check_tensor("dz", dz, (B, T, 2, 4 * H), dev)
+    _check_tensor("x", x, (B, T, D), dev,
+                  x.dtype if xz_bf16 and x.dtype == torch.bfloat16 else
+                  torch.float32)
+    _check_tensor("y", y, (B, T, 2 * H), dev, dt)
+    _check_tensor("dz", dz, (B, T, 2, 4 * H), dev, dt)
     _check_tensor("Wx2", Wx2, (2, D, 4 * H), dev)
     if dev.type == "cpu":
-        return bidi_lstm_bwd_reduce_plain(x, y, dz, Wx2, need_dx)
+        return bidi_lstm_bwd_reduce_plain(x, y, dz, Wx2, need_dx,
+                                          **_mode(xz_bf16))
     M, G = D + 1 + H, 4 * H
     dW = torch.empty((2, M, G), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
@@ -547,10 +619,20 @@ def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
         return dW.zero_(), None if dx is None else dx.zero_()
     scratch = torch.empty(_kernel("clstm_bidi_lstm_bwd_scratch")(B, T, D, H),
                           dtype=torch.float32, device=dev)
-    dz, wx = _aligned(dz), _aligned(Wx2.detach())
-    _launch("clstm_bidi_lstm_bwd_reduce", dev, x.data_ptr(), y.data_ptr(),
-            dz.data_ptr(), wx.data_ptr(), scratch.data_ptr(), dW.data_ptr(),
-            _ptr(dx), B, T, D, H)
+    if xz_bf16:
+        # Held in names until the launch: a temporary's memory could go to
+        # the next allocation before the kernel reads it.
+        x16 = x.to(torch.bfloat16).contiguous()
+        wx16 = Wx2.detach().to(torch.bfloat16).contiguous()
+        _launch("clstm_bidi_lstm_bwd_reduce_bf16", dev, x16.data_ptr(),
+                y.data_ptr(), dz.data_ptr(), wx16.data_ptr(),
+                scratch.data_ptr(), dW.data_ptr(), _ptr(dx), B, T, D, H,
+                int(x.dtype == torch.bfloat16))
+    else:
+        dz, wx = _aligned(dz), _aligned(Wx2.detach())
+        _launch("clstm_bidi_lstm_bwd_reduce", dev, x.data_ptr(), y.data_ptr(),
+                dz.data_ptr(), wx.data_ptr(), scratch.data_ptr(),
+                dW.data_ptr(), _ptr(dx), B, T, D, H)
     bidi_lstm_bwd_reduce.launches += 1
     return dW, dx
 
@@ -566,18 +648,22 @@ class _BidiLSTMTrain(torch.autograd.Function):
     stores K1's gates and cell, so K2 never reads z, and the gradients of
     Wx, b and x come from K2's own reduction, as they come from the TPU
     kernel's body under its custom VJP, not from autograd through the
-    product."""
+    product. With ``bf16`` the forward and backward run in the bf16 mode:
+    y is bf16, the weight gradients come out f32 and x's in x's type."""
 
     @staticmethod
-    def forward(ctx, x, lengths, wxf, whf, bf, wxr, whr, br):
+    def forward(ctx, x, lengths, bf16, wxf, whf, bf, wxr, whr, br):
         pf = {"Wx": wxf, "Wh": whf, "b": bf}
         pr = {"Wx": wxr, "Wh": whr, "b": br}
+        mode = _mode(bf16)
         if hoists_projection(x.shape[-1], whf.shape[0]):
-            xz = hoisted_projection(pf, pr, x)
-            y, gates, cell = bidi_lstm_fwd_state_xz(pf, pr, xz, lengths)
+            xz = hoisted_projection(pf, pr, x, **mode)
+            y, gates, cell = bidi_lstm_fwd_state_xz(pf, pr, xz, lengths,
+                                                    **mode)
             del xz
         else:
-            y, gates, cell = bidi_lstm_fwd_state(pf, pr, x, lengths)
+            y, gates, cell = bidi_lstm_fwd_state(pf, pr, x, lengths, **mode)
+        ctx.bf16 = bf16
         ctx.save_for_backward(x, lengths, y, gates, cell, wxf, whf, wxr, whr)
         return y
 
@@ -585,31 +671,35 @@ class _BidiLSTMTrain(torch.autograd.Function):
     def backward(ctx, gy):
         x, lengths, y, gates, cell, wxf, whf, wxr, whr = ctx.saved_tensors
         D = x.shape[-1]
+        mode = _mode(ctx.bf16)
         # need_dx of the TPU kernel: x is training data unless it requires
         # a gradient, and then dx is not computed at all.
         need_dx = ctx.needs_input_grad[0]
-        dz = bidi_lstm_bwd_chain(gates, cell, gy.contiguous(),
-                                 torch.stack([whf, whr]), lengths)
+        dz = bidi_lstm_bwd_chain(gates, cell, gy.to(y.dtype).contiguous(),
+                                 torch.stack([whf, whr]), lengths, **mode)
         dW, dx = bidi_lstm_bwd_reduce(x, y, dz, torch.stack([wxf, wxr]),
-                                      need_dx)
+                                      need_dx, **mode)
         grads = [(dW[g, :D], dW[g, D + 1:], dW[g, D]) for g in (0, 1)]
-        return (dx, None, *grads[0], *grads[1])
+        return (dx, None, None, *grads[0], *grads[1])
 
 
 def bidi_lstm_train(params_f: dict, params_r: dict, x: torch.Tensor,
-                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    lengths: Optional[torch.Tensor] = None,
+                    xz_bf16: bool = False) -> torch.Tensor:
     """Differentiable bidirectional LSTM, same value as ``bidi_lstm_infer``:
     K1 (or, where ``hoists_projection`` holds, the hoisted projection and
     K4) in the forward, K2 in the backward on a card, their plain versions
     on CPU tensors. Gradients flow to the six weight tensors and, when it
-    requires one, to x."""
-    _check(params_f, params_r, x, lengths)
+    requires one, to x. ``xz_bf16``: the bf16 mode (y bf16, gradients of
+    the weights f32, of x in x's type)."""
+    _check(params_f, params_r, x, lengths, xz_bf16)
     return _BidiLSTMTrain.apply(
-        x, lengths, params_f["Wx"], params_f["Wh"], params_f["b"],
-        params_r["Wx"], params_r["Wh"], params_r["b"])
+        x, lengths, bool(xz_bf16), params_f["Wx"], params_f["Wh"],
+        params_f["b"], params_r["Wx"], params_r["Wh"], params_r["b"])
 
 
-# Kernel launches since the last reset (CPU calls do not count).
+# Kernel launches since the last reset (CPU calls do not count), in either
+# mode.
 bidi_lstm_infer.launches = 0
 bidi_lstm_fwd_state.launches = 0
 bidi_lstm_infer_xz.launches = 0

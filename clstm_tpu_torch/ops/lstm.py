@@ -24,6 +24,20 @@ instead:
   bidi_lstm_bwd_chain_plain   K2's backward chain (dz per frame);
   bidi_lstm_bwd_reduce_plain  K2's contractions (dWx with the bias row,
                               dWh, dx).
+
+Each bidi function takes ``xz_bf16``, the JAX package's production mode
+(clstm_tpu/ops/pallas_lstm.py, ``bidi_lstm_pallas(..., xz_bf16=True)``),
+with its rounding points: bf16 operands before every product ([x | 1],
+W_in with its bias row, Wh, h before each recurrent product; in the
+backward dz, x and h_prev), every product and the gate math, carries and
+backward chain in f32, and bf16 on the way out (the hoisted projection, y,
+the stored cell, dz, each direction's half of dx; the stored gates stay f32,
+as the JAX package recomputes them in f32). The in-kernel
+projection is not rounded. A bf16 product is taken as the f32 product of
+bf16-rounded operands, which is exact, so it is bf16 operands with f32
+accumulation. The arithmetic runs in float64 instead of f32 when the
+weights are float64 (the distance reference of chip_smoke.py), with every
+rounding point in place; outputs rounded to bf16 are then kept in float64.
 """
 
 from __future__ import annotations
@@ -34,6 +48,26 @@ import torch
 import torch.nn.functional as F
 
 from clstm_tpu_torch.ops.seq import flip_within_length
+
+
+def _ctype(w: torch.Tensor) -> torch.dtype:
+    """The arithmetic type: float64 for float64 weights, else f32."""
+    return torch.float64 if w.dtype == torch.float64 else torch.float32
+
+
+def _op(t: torch.Tensor, ct: torch.dtype, bf16: bool) -> torch.Tensor:
+    """``t`` as an operand of a product in type ``ct``: rounded to bf16
+    first in the bf16 mode."""
+    return (t.to(torch.bfloat16) if bf16 else t).to(ct)
+
+
+def _out(t: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """A stream on its way out: bf16 in the bf16 mode (float64 arithmetic
+    keeps the rounded values in float64)."""
+    if not bf16:
+        return t
+    r = t.to(torch.bfloat16)
+    return r.to(t.dtype) if t.dtype == torch.float64 else r
 
 
 def _valid(lengths: Optional[torch.Tensor], B: int, T: int,
@@ -76,44 +110,67 @@ def lstm_apply(params: dict, x: torch.Tensor,
     return torch.stack(outs, dim=1).to(x.dtype)
 
 
-def hoisted_projection(params_f: dict, params_r: dict,
-                       x: torch.Tensor) -> torch.Tensor:
-    """The input projection of both directions as one f32 product, taken
-    out of the recurrence: xz [B, T, 2, 4H] = x·[Wx_f | Wx_r] + [b_f | b_r],
+def _projection(params_f: dict, params_r: dict, x: torch.Tensor,
+                bf16: bool) -> torch.Tensor:
+    """x·[Wx_f | Wx_r] + [b_f | b_r] -> [B, T, 2, 4H], in the arithmetic
+    type of the weights (bf16 operands in the bf16 mode, the result not
+    rounded)."""
+    B, T, D = x.shape
+    G = params_f["Wh"].shape[1]
+    w = torch.cat([params_f["Wx"], params_r["Wx"]], dim=1)       # [D, 8H]
+    b = torch.cat([params_f["b"], params_r["b"]])                 # [8H]
+    ct = _ctype(w)
+    return torch.addmm(_op(b, ct, bf16), _op(x.reshape(B * T, D), ct, bf16),
+                       _op(w, ct, bf16)).reshape(B, T, 2, G)
+
+
+def hoisted_projection(params_f: dict, params_r: dict, x: torch.Tensor,
+                       xz_bf16: bool = False) -> torch.Tensor:
+    """The input projection of both directions as one product, taken out
+    of the recurrence: xz [B, T, 2, 4H] = x·[Wx_f | Wx_r] + [b_f | b_r],
     in ORIGINAL time order for both directions.
 
     Counterpart of clstm_tpu/ops/pallas_lstm.py::_proj_stream, which XLA
     computes outside the Pallas kernel; here it is ``torch.addmm`` on
     [B·T, D] x [D, 2·4H]. Strict f32: TF32 is off
-    (utils/config.py::torch_device).
+    (utils/config.py::torch_device). With ``xz_bf16`` the operands (the
+    bias too, a row of W_in in the JAX package) are rounded to bf16, the
+    product accumulates in f32 and the result is rounded to bf16. The
+    product is taken as the f32 product of the rounded operands on every
+    device: cuBLAS's bf16 kernels wait for the card at the first use of
+    each kernel in a process, which a new batch shape brings
+    (scripts/torch_blas_wait_probe.py).
     """
-    B, T, D = x.shape
-    G = params_f["Wh"].shape[1]
-    w = torch.cat([params_f["Wx"], params_r["Wx"]], dim=1)       # [D, 8H]
-    b = torch.cat([params_f["b"], params_r["b"]])                 # [8H]
-    return torch.addmm(b, x.reshape(B * T, D).float(), w).reshape(B, T, 2, G)
+    return _out(_projection(params_f, params_r, x, xz_bf16), xz_bf16)
 
 
 def _chain_plain(params_f: dict, params_r: dict, xz: torch.Tensor,
-                 lengths: Optional[torch.Tensor], with_state: bool):
+                 lengths: Optional[torch.Tensor], with_state: bool,
+                 bf16: bool = False):
     """The recurrence of both directions in one loop over T on a hoisted
     projection xz [B, T, 2, 4H] in original time order; the reverse chain
     reads frame len-1-s at step s. Returns y [B, T, 2H] and, with
     ``with_state``, gates [B, T, 2, 4H] and cell [B, T, 2, H] (else None),
     in original time order and exactly 0 on padded frames. Lengths are
-    clamped to [0, T]; padded steps carry (h, c) through unchanged."""
+    clamped to [0, T]; padded steps carry (h, c) through unchanged. With
+    ``bf16``: Wh and h rounded before each product, y and cell rounded to
+    bf16; the gates stay in the arithmetic type (JAX recomputes them in f32
+    in its backward; rounded, they moved the gradients ~1e-2 of their max
+    from the JAX package's, tests/test_torch_bf16.py)."""
     B, T, _, G = xz.shape
     H = G // 4
     if lengths is not None:
         lengths = lengths.to(xz.device).clamp(0, T)
-    xz = _to_dirs(xz, lengths)                                   # [2,B,T,4H]
     Wh2 = torch.stack([params_f["Wh"], params_r["Wh"]])          # [2,H,4H]
+    ct = _ctype(Wh2)
+    Wh2 = _op(Wh2, ct, bf16)
+    xz = _to_dirs(xz.to(ct), lengths)                            # [2,B,T,4H]
     valid = _valid(lengths, B, T, xz.device)
     h = xz.new_zeros((2, B, H))
     c = torch.zeros_like(h)
     hs, gs, cs = [], [], []
     for t in range(T):
-        z = xz[:, :, t] + torch.bmm(h, Wh2)
+        z = xz[:, :, t] + torch.bmm(_op(h, ct, bf16), Wh2)
         g = torch.cat([torch.sigmoid(z[..., :3 * H]),
                        torch.tanh(z[..., 3 * H:])], dim=-1)
         c_new = g[..., H:2 * H] * c + g[..., :H] * g[..., 3 * H:]
@@ -125,35 +182,40 @@ def _chain_plain(params_f: dict, params_r: dict, xz: torch.Tensor,
         if with_state:
             gs.append(torch.where(v, g, torch.zeros_like(g)))
             cs.append(torch.where(v, c_new, torch.zeros_like(c_new)))
-    y = _from_dirs(torch.stack(hs, dim=2), lengths).reshape(B, T, 2 * H)
+    y = _out(_from_dirs(torch.stack(hs, dim=2), lengths).reshape(B, T, 2 * H),
+             bf16)
     if not with_state:
         return y, None, None
     return (y, _from_dirs(torch.stack(gs, dim=2), lengths),
-            _from_dirs(torch.stack(cs, dim=2), lengths))
+            _out(_from_dirs(torch.stack(cs, dim=2), lengths), bf16))
 
 
 def bidi_lstm_apply_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
-                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       lengths: Optional[torch.Tensor] = None,
+                       xz_bf16: bool = False) -> torch.Tensor:
     """K4's plain version, inference: the bidirectional recurrence on a
     hoisted projection xz [B, T, 2, 4H] (``hoisted_projection``; original
     time order) -> y [B, T, 2H], forward features then backward features,
     exactly 0 on padded frames. The reverse direction reads frame len-1-s
-    at chain step s. Only ``Wh`` of the params is read."""
-    return _chain_plain(params_f, params_r, xz, lengths, False)[0]
+    at chain step s. Only ``Wh`` of the params is read. ``xz_bf16``: xz is
+    the rounded bf16 product and y comes out in bf16."""
+    return _chain_plain(params_f, params_r, xz, lengths, False, xz_bf16)[0]
 
 
 def bidi_lstm_fwd_state_xz_plain(params_f: dict, params_r: dict,
                                  xz: torch.Tensor,
-                                 lengths: Optional[torch.Tensor] = None):
+                                 lengths: Optional[torch.Tensor] = None,
+                                 xz_bf16: bool = False):
     """K4's plain version, state mode: ``bidi_lstm_apply_xz`` plus the
     state the backward pass reads, with the layout and zeros of
     ``bidi_lstm_fwd_state_plain`` (y [B, T, 2H], gates [B, T, 2, 4H], cell
-    [B, T, 2, H])."""
-    return _chain_plain(params_f, params_r, xz, lengths, True)
+    [B, T, 2, H]; y and cell bf16 with ``xz_bf16``)."""
+    return _chain_plain(params_f, params_r, xz, lengths, True, xz_bf16)
 
 
 def bidi_lstm_apply(params_f: dict, params_r: dict, x: torch.Tensor,
-                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    lengths: Optional[torch.Tensor] = None,
+                    xz_bf16: bool = False) -> torch.Tensor:
     """Bidirectional LSTM, K3's plain version: the hoisted projection, then
     both directions stacked on a leading group axis in one loop over T.
 
@@ -162,8 +224,13 @@ def bidi_lstm_apply(params_f: dict, params_r: dict, x: torch.Tensor,
     — the reference's Parallel(NPLSTM, Reversed(NPLSTM)) — with the flip
     taken within each row's length. Returns [B, T, 2H]: forward features
     then backward features. ``lengths`` are clamped to [0, T], as the
-    kernel does.
+    kernel does. With ``xz_bf16`` the projection takes bf16 operands and
+    is not rounded (it stays in the kernel, as on the TPU), and y is bf16.
     """
+    if xz_bf16:
+        return _chain_plain(params_f, params_r,
+                            _projection(params_f, params_r, x, True),
+                            lengths, False, True)[0]
     xz = hoisted_projection(params_f, params_r, x)
     return bidi_lstm_apply_xz(params_f, params_r, xz, lengths).to(x.dtype)
 
@@ -180,7 +247,8 @@ def _from_dirs(a: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor
 
 
 def bidi_lstm_fwd_state_plain(params_f: dict, params_r: dict, x: torch.Tensor,
-                        lengths: Optional[torch.Tensor] = None):
+                              lengths: Optional[torch.Tensor] = None,
+                              xz_bf16: bool = False):
     """K1's plain version: ``bidi_lstm_apply`` plus the state the backward
     pass reads, all f32 in ORIGINAL time order per direction:
 
@@ -191,15 +259,19 @@ def bidi_lstm_fwd_state_plain(params_f: dict, params_r: dict, x: torch.Tensor,
     Every stream is exactly 0 on padded frames (t >= len). The pre-step
     state is not stored: h_prev and c_prev of a frame are y and cell of the
     frame before it in chain order (t-1 forward, t+1 reverse), 0 at a
-    chain's first step.
+    chain's first step. With ``xz_bf16`` y and cell are bf16, as the JAX
+    package stores its pre-step state (``seq_dtype``); the gates, which it
+    recomputes in f32, stay f32.
     """
-    return bidi_lstm_fwd_state_xz_plain(
-        params_f, params_r, hoisted_projection(params_f, params_r, x), lengths)
+    return _chain_plain(params_f, params_r,
+                        _projection(params_f, params_r, x, xz_bf16),
+                        lengths, True, xz_bf16)
 
 
 def bidi_lstm_bwd_chain_plain(gates: torch.Tensor, cell: torch.Tensor,
-                        gy: torch.Tensor, Wh2: torch.Tensor,
-                        lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              gy: torch.Tensor, Wh2: torch.Tensor,
+                              lengths: Optional[torch.Tensor] = None,
+                              xz_bf16: bool = False) -> torch.Tensor:
     """K2's backward chain, plain: an explicit loop backward in time, not
     autograd (pallas_lstm.py::_bwd_kernel, L391-430).
 
@@ -211,40 +283,45 @@ def bidi_lstm_bwd_chain_plain(gates: torch.Tensor, cell: torch.Tensor,
             dc·gi(1-ci²)]
       Dh = dz·Whᵀ;  Dc = dc·gf
     Returns dz [B, T, 2, 4H] in original time order, exactly 0 on padded
-    frames, so padded frames add nothing to any gradient.
+    frames, so padded frames add nothing to any gradient. With ``xz_bf16``
+    cell and gy come in bf16 (the gates in f32), the chain stays f32
+    (pallas_lstm.py L385-388), dz and Wh are rounded to bf16 for
+    Dh = dz·Whᵀ and dz is stored in bf16.
     """
     B, T, _, G = gates.shape
     H = G // 4
     if lengths is not None:
         lengths = lengths.to(gates.device).clamp(0, T)
-    g_c = _to_dirs(gates, lengths)                              # [2,B,T,4H]
-    c_c = _to_dirs(cell, lengths)                               # [2,B,T,H]
-    gy_c = _to_dirs(gy.reshape(B, T, 2, H), lengths)            # [2,B,T,H]
+    ct = _ctype(Wh2)
+    g_c = _to_dirs(gates.to(ct), lengths)                       # [2,B,T,4H]
+    c_c = _to_dirs(cell.to(ct), lengths)                        # [2,B,T,H]
+    gy_c = _to_dirs(_op(gy, ct, xz_bf16).reshape(B, T, 2, H), lengths)
     valid = _valid(lengths, B, T, gates.device)
-    WhT = Wh2.transpose(1, 2)
-    Dh = gates.new_zeros((2, B, H))
+    WhT = _op(Wh2.transpose(1, 2), ct, xz_bf16)
+    Dh = g_c.new_zeros((2, B, H))
     Dc = torch.zeros_like(Dh)
     dzs = [None] * T
     for s in range(T - 1, -1, -1):
-        m = valid[s].to(gates.dtype)
+        m = valid[s].to(ct)
         gi, gf, go, ci = g_c[:, :, s].split(H, dim=-1)
         c = c_c[:, :, s]
         cp = c_c[:, :, s - 1] if s > 0 else torch.zeros_like(c)
         tc = torch.tanh(c)
         dh = (gy_c[:, :, s] + Dh) * m
         dc = Dc * m + dh * go * (1.0 - tc * tc)
-        dz = torch.cat([dc * ci * gi * (1.0 - gi),
-                        dc * cp * gf * (1.0 - gf),
-                        dh * tc * go * (1.0 - go),
-                        dc * gi * (1.0 - ci * ci)], dim=-1)
+        dz = _op(torch.cat([dc * ci * gi * (1.0 - gi),
+                            dc * cp * gf * (1.0 - gf),
+                            dh * tc * go * (1.0 - go),
+                            dc * gi * (1.0 - ci * ci)], dim=-1), ct, xz_bf16)
         Dh = torch.bmm(dz, WhT)
         Dc = dc * gf
         dzs[s] = dz
-    return _from_dirs(torch.stack(dzs, dim=2), lengths)
+    return _out(_from_dirs(torch.stack(dzs, dim=2), lengths), xz_bf16)
 
 
-def bidi_lstm_bwd_reduce_plain(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
-                         Wx2: torch.Tensor, need_dx: bool = True):
+def bidi_lstm_bwd_reduce_plain(x: torch.Tensor, y: torch.Tensor,
+                               dz: torch.Tensor, Wx2: torch.Tensor,
+                               need_dx: bool = True, xz_bf16: bool = False):
     """K2's contractions, plain (pallas_lstm.py::_bwd_kernel, L440-463).
 
     x [B, T, D]; y [B, T, 2H] (K1's output, the source of h_prev); dz
@@ -252,15 +329,24 @@ def bidi_lstm_bwd_reduce_plain(x: torch.Tensor, y: torch.Tensor, dz: torch.Tenso
       dW [D+1+H, 4H] = Σ_frames [x | 1 | h_prev]ᵀ · dz
     (rows: dWx, then the bias row db, then dWh), and, with ``need_dx``,
       dx [B, T, D] = Σ_dir dz · Wxᵀ.
-    Returns (dW [2, D+1+H, 4H], dx or None).
+    Returns (dW [2, D+1+H, 4H], dx or None). With ``xz_bf16`` every operand
+    is bf16 (x rounded), dW stays f32, and each direction's half of dx is
+    rounded to bf16 before the two are added (pallas_lstm.py L913-917); dx
+    comes out in x's type.
     """
     B, T, D = x.shape
     H = y.shape[-1] // 2
+    ct = _ctype(Wx2)
+    y, dz = _op(y, ct, xz_bf16), _op(dz, ct, xz_bf16)
     h_prev = torch.stack([F.pad(y[:, :-1, :H], (0, 0, 1, 0)),
                           F.pad(y[:, 1:, H:], (0, 0, 0, 1))])   # [2,B,T,H]
-    xcat = torch.cat([x.float(), x.new_ones((B, T, 1), dtype=torch.float32)],
-                     dim=-1)
+    xcat = torch.cat([_op(x, ct, xz_bf16), y.new_ones((B, T, 1))], dim=-1)
     a = torch.cat([xcat.expand(2, B, T, D + 1), h_prev], dim=-1)
     dW = torch.einsum("gbti,btgj->gij", a, dz)
-    dx = torch.einsum("btgj,gdj->btd", dz, Wx2) if need_dx else None
-    return dW, dx
+    if not need_dx:
+        return dW, None
+    if not xz_bf16:
+        return dW, torch.einsum("btgj,gdj->btd", dz, Wx2.to(ct))
+    half = torch.einsum("btgj,gdj->gbtd", dz, _op(Wx2, ct, True))
+    dx = _op(half[0], ct, True) + _op(half[1], ct, True)
+    return dW, dx.to(x.dtype)

@@ -82,21 +82,25 @@ def _reduce_lines(per_line: torch.Tensor, lengths: torch.Tensor, B: int,
 def _check_compute_dtype(compute_dtype) -> None:
     if compute_dtype is not None:
         raise NotImplementedError(
-            "compute_dtype (bf16 matmul operands) is not ported; the port "
-            "trains in strict f32 (ROADMAP.md Queue 1 item 2, left open)")
+            "compute_dtype (bf16 matmuls through lax.scan) is not ported; "
+            "the port's bf16 mode is xz_bf16, the JAX package's Pallas "
+            "production mode (ROADMAP.md Queue 1)")
 
 
 def ctc_alignment_loss(net: Layer, batch: dict, *, normalization: str = "none",
-                       compute_dtype=None):
+                       compute_dtype=None, xz_bf16: Optional[bool] = None):
     """The reference training objective as a scalar surrogate loss.
 
     batch: {"x": [B,T,D], "lengths": [B] int32, "targets": [B,S]
     blank-interleaved class ids, "target_lengths": [B] int32}, tensors on
-    the net's device. Returns (loss, (probs, aligned)).
+    the net's device. Returns (loss, (probs, aligned)). ``xz_bf16``: the
+    forward's precision (models/spec.py::ApplyCtx; None: the card's
+    default, CARD_DEFAULT_BF16, and f32 on the CPU); the logits and the
+    alignment are f32 either way.
     """
     _check_compute_dtype(compute_dtype)
     x, lengths = batch["x"], batch["lengths"]
-    logits = apply_net(net, x, lengths, logits=True).float()
+    logits = apply_net(net, x, lengths, logits=True, xz_bf16=xz_bf16).float()
     probs = torch.softmax(logits, dim=-1)
     with torch.no_grad():
         aligned = ctc_align_targets_batched(
@@ -110,7 +114,7 @@ def ctc_alignment_loss(net: Layer, batch: dict, *, normalization: str = "none",
 
 
 def frame_target_loss(net: Layer, batch: dict, *, normalization: str = "none",
-                      compute_dtype=None):
+                      compute_dtype=None, xz_bf16: Optional[bool] = None):
     """Direct per-frame supervision (the reference test-lstm.cc setup).
 
     batch: {"x": [B,T,D], "lengths": [B], "y": [B,T,C] one-hot frame
@@ -118,7 +122,7 @@ def frame_target_loss(net: Layer, batch: dict, *, normalization: str = "none",
     """
     _check_compute_dtype(compute_dtype)
     x, lengths = batch["x"], batch["lengths"]
-    logits = apply_net(net, x, lengths, logits=True).float()
+    logits = apply_net(net, x, lengths, logits=True, xz_bf16=xz_bf16).float()
     probs = torch.softmax(logits, dim=-1)
     mask = length_mask(lengths, x.shape[1])
     ll = F.log_softmax(logits, dim=-1)
@@ -155,7 +159,8 @@ def unpack_report(report, L: Optional[int] = None):
 def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
                     loss_kind: str = "ctc", normalization: str = "none",
                     compute_dtype=None, gradient_clip: float = 0.0,
-                    augment: float = 0.0, augment_seed: int = 0):
+                    augment: float = 0.0, augment_seed: int = 0,
+                    xz_bf16: Optional[bool] = None):
     """Build the training step.
 
     Returns step(state, batch, lr_arg=None, momentum_arg=None) ->
@@ -165,8 +170,12 @@ def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
     into one f32 vector. gradient_clip > 0 enables global-norm clipping;
     augment > 0 distorts each batch on the device first (augment_lines).
     ``spec`` names the topology the step is built for; the state's net must
-    have it. compute_dtype (bf16) is not ported and raises. The step is also
-    the body of make_cached_train_step and make_multi_train_step.
+    have it. compute_dtype (bf16 matmuls through lax.scan in the JAX
+    package) is not ported and raises; ``xz_bf16`` is the precision of the
+    bidi and affine layers (models/spec.py::ApplyCtx; None: the card's
+    default, f32 on the CPU; parameters, velocity and update stay f32). The
+    step is also the body of make_cached_train_step and
+    make_multi_train_step.
     """
     _check_compute_dtype(compute_dtype)
     loss_fn = _LOSSES[loss_kind]
@@ -184,7 +193,8 @@ def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
                                                 batch["lengths"], augment))
         net = state.net
         net.zero_grad(set_to_none=True)
-        loss, (probs, _) = loss_fn(net, batch, normalization=normalization)
+        loss, (probs, _) = loss_fn(net, batch, normalization=normalization,
+                                   xz_bf16=xz_bf16)
         loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in net.named_parameters()}
@@ -218,7 +228,8 @@ def make_cached_train_step(spec: NetSpec, lr: float = 1e-4,
                            momentum: float = 0.9, *, loss_kind: str = "ctc",
                            normalization: str = "none", compute_dtype=None,
                            gradient_clip: float = 0.0, augment: float = 0.0,
-                           augment_seed: int = 0):
+                           augment_seed: int = 0,
+                           xz_bf16: Optional[bool] = None):
     """Gather+train step over a device-resident cache group.
 
     step(state, group, idx_all, j, lr_arg=None, momentum_arg=None) ->
@@ -231,7 +242,7 @@ def make_cached_train_step(spec: NetSpec, lr: float = 1e-4,
                            normalization=normalization,
                            compute_dtype=compute_dtype,
                            gradient_clip=gradient_clip, augment=augment,
-                           augment_seed=augment_seed)
+                           augment_seed=augment_seed, xz_bf16=xz_bf16)
 
     def wrapped(state: TrainState, group: dict, idx_all: torch.Tensor,
                 j: int, lr_arg=None, momentum_arg=None):
@@ -246,7 +257,8 @@ def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
                           momentum: float = 0.9, *, loss_kind: str = "ctc",
                           normalization: str = "none", compute_dtype=None,
                           gradient_clip: float = 0.0, augment: float = 0.0,
-                          augment_seed: int = 0):
+                          augment_seed: int = 0,
+                          xz_bf16: Optional[bool] = None):
     """K gather+train steps per call, over consecutive batches of a
     device-resident epoch plan: a plain loop of the make_cached_train_step
     body (the JAX package scans it inside one dispatch; a CUDA graph would
@@ -264,7 +276,7 @@ def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
                            normalization=normalization,
                            compute_dtype=compute_dtype,
                            gradient_clip=gradient_clip, augment=augment,
-                           augment_seed=augment_seed)
+                           augment_seed=augment_seed, xz_bf16=xz_bf16)
 
     def wrapped(state: TrainState, group: dict, idx_all: torch.Tensor,
                 j: int, nvalid=None, lr_arg=None, momentum_arg=None):
@@ -282,9 +294,11 @@ def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
     return wrapped
 
 
-def make_predict_step(spec: NetSpec, *, compute_dtype=None, mesh=None):
+def make_predict_step(spec: NetSpec, *, compute_dtype=None, mesh=None,
+                      xz_bf16: Optional[bool] = None):
     """Inference: predict(net, x, lengths) -> per-frame (ids, vals), the
-    no-grad forward then the per-frame argmax. ``mesh`` (data-parallel
+    no-grad forward then the per-frame argmax, at the precision ``xz_bf16``
+    (None: the card's default, f32 on the CPU). ``mesh`` (data-parallel
     inference) is not ported and raises."""
     _check_compute_dtype(compute_dtype)
     if mesh is not None:
@@ -292,18 +306,20 @@ def make_predict_step(spec: NetSpec, *, compute_dtype=None, mesh=None):
             "mesh inference is not ported yet (ROADMAP.md Queue 1 item 7)")
 
     def predict(net: Layer, x: torch.Tensor, lengths: Optional[torch.Tensor]):
-        probs = apply_net(net, x, lengths, inference=True)
+        probs = apply_net(net, x, lengths, inference=True, xz_bf16=xz_bf16)
         return greedy_frames(probs.float())
 
     return predict
 
 
-def make_forward(spec: NetSpec, *, compute_dtype=None):
-    """Plain forward (posteriors), for tests and external use."""
+def make_forward(spec: NetSpec, *, compute_dtype=None,
+                 xz_bf16: Optional[bool] = None):
+    """Plain forward (posteriors), for tests and external use, at the
+    precision ``xz_bf16`` (None: the card's default, f32 on the CPU)."""
     _check_compute_dtype(compute_dtype)
 
     def forward(net: Layer, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None):
-        return apply_net(net, x, lengths)
+        return apply_net(net, x, lengths, xz_bf16=xz_bf16)
 
     return forward
