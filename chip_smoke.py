@@ -8,14 +8,16 @@ Drives the port's serving path — the path `clstmocr` runs — and its training
 path — CLSTMOCR.train_batch, a CTC training step — at the full width of the
 flagship `bidi` model (48 inputs, nhidden 100, 96 classes) and of the deep
 `bidi2` model of BASELINE config 4 (48 inputs, nhidden 200 in both layers,
-400 classes), whose second layer takes the hoisted-projection kernel K4.
+400 classes), whose second layer takes the hoisted-projection kernel K4;
+and the string-transduction path of BASELINE config 5 (`clstmfiltertrain`
+and `clstmfilter` on a g2p corpus: 19 inputs, nhidden 100, 21 classes).
 The LSTM kernels run in two precisions: strict f32 and the bf16 mode
 (``xz_bf16``, the JAX package's production mode, the card's default when
 no precision is asked for). The direct kernel checks of phases 3-8 and
-12-13 hold the f32 kernels; the main paths (5, 9, 14, 15, 17) run the
-card's default, and 5, 9, 14 and 15 the other mode as well, each run with
-the launch counts reset just before and read just after; phases 18-20
-hold and time the bf16 kernels and run the learning check:
+12-13 hold the f32 kernels; the main paths (5, 9, 14, 15, 17, 21) run the
+card's default, and 5, 9, 14, 15 and 21's steps the other mode as well,
+each run with the launch counts reset just before and read just after;
+phases 18-20 hold and time the bf16 kernels and run the learning check:
 
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from clstm_tpu_torch/csrc with nvcc;
@@ -128,11 +130,37 @@ hold and time the bf16 kernels and run the learning check:
      and with its library call (cuDNN's nn.LSTM in bf16, the plain version's
      einsums on bf16 operands); train_batch in both modes in turns (11, 15);
  20. the learning check, both modes from the same init on the same
-     batches: the toy task of 10 (bf16 decodes at most 2 fewer of 64 lines)
-     and bidi at full width on a glyph corpus made in code (LEARN_*): f32
-     trains until its test CER is below half its start (N steps), bf16 the
-     same N steps; pass when bf16's CER is at most f32's + LEARN_SLACK. The
-     script fails if bf16 is the card's default and the check did not pass.
+     batches, at each init of LEARN_SEEDS: bidi at full width on a glyph
+     corpus made in code (LEARN_*); f32 trains until its test CER is below
+     half its start (N steps) and on to 2N, bf16 2N steps; bf16 passes at
+     an init when its own CER halves by step N + LEARN_STEP_SLACK and its
+     CER at 2N is at most f32's + LEARN_SLACK, and passes when it passes at
+     every init (the earlier single point, the CERs at N, is logged; the
+     toy task of 10 is a record). The script fails if bf16 is the card's
+     default and the check did not pass;
+ 21. the filter path at full width (G2P_*, FILTER_*): the run-cmu g2p
+     corpus of bench.py:269-345 built in code (4,096 training pairs, 512
+     held-out words) on a TextDeviceDataset; K3, K1, K2, K5 and K6 against
+     their plain versions on a gathered batch of each T bucket (16 and 32;
+     one-hot x of 19 columns, B=256) and timed at T=32 with their library
+     calls; an input alphabet of BIG_ALPHABET symbols (B=256, T=32), where
+     the layer hoists: K3 with the projection inside and K4 each against
+     plain and against each other, and apply_net takes K4; 5
+     train_batch_block steps from one .clstm against 5 plain steps at each
+     T bucket, in both precisions (the limits of 9); clstmfiltertrain
+     through its main (B=256, automatic K): K3, K1, K2, K5 and K6 must be
+     launched and its TESTERR fall below half its first value; pairs/s
+     (median and range of FILTER_PASSES warm passes of its train_blocks
+     loop), the card's idle share in the first (torch.profiler, kernel
+     activity) and the host's enqueue ms of a block; clstmfilter on the
+     saved model: the batched output equals the batch_size=1 output line
+     for line, K3 once a batch and once a line, its frame ids against the
+     plain path;
+ 22. whether the native host I/O library (io/native.py: g++, png.h,
+     libpng) builds on the machine, and so which PNG reader and line loader
+     the OCR phases took; where it builds, read_png bit for bit against PIL
+     on all 256 grey levels and prepare_line against the Python normalizer
+     within tests/test_native.py's envelope.
 
 With --k2-against SRC, every timed K2 shape also times the K2 built from
 SRC in turns with the current one (against, current, current, against);
@@ -153,7 +181,10 @@ timed in turns with the kernel, or null; K5, K6 and K6b also carry
 per_frame_us, their time over the longest row's frames, and K6
 ctc_loss_ms, F.ctc_loss forward and backward at the same B, T and S: a
 yardstick of scale only, since it computes the CTC loss and not clstm's
-lattice); the line before that the card's name and power limit.
+lattice; the rows of the filter path's kernels carry "filter": their
+launches per training step and in the clstmfiltertrain and clstmfilter
+runs, and their time, plain time, bound and library call at the path's
+shape); the line before that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -175,14 +206,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from clstm_tpu_torch.cli import clstmocrtrain
+from clstm_tpu_torch.cli import clstmfilter, clstmfiltertrain, clstmocrtrain
 from clstm_tpu_torch.cli.clstmocr import predict_pages, write_outputs
 from clstm_tpu_torch.data.dataset import T_BUCKETS_FINE
-from clstm_tpu_torch.data.device_cache import DeviceDataset
-from clstm_tpu_torch.io.png import write_png
+from clstm_tpu_torch.data.device_cache import DeviceDataset, TextDeviceDataset
+from clstm_tpu_torch.data.dataset import prepare_line
+from clstm_tpu_torch.io import native
+from clstm_tpu_torch.io.normalize import make_normalizer
+from clstm_tpu_torch.io.png import read_png, write_png
 from clstm_tpu_torch.io.proto import save_net
 from clstm_tpu_torch.models.codec import Codec
-from clstm_tpu_torch.models.hl import CLSTMOCR
+from clstm_tpu_torch.models.hl import CLSTMOCR, CLSTMText
 from clstm_tpu_torch.models.prefab import make_net_init
 from clstm_tpu_torch.models.spec import ApplyCtx, apply_net
 from clstm_tpu_torch.ops import _build
@@ -1476,6 +1510,55 @@ def counts() -> dict:
     return {f.__name__: f.launches for f in COUNTED}
 
 
+def ids_against_plain(net, batches, bf16: bool, nclasses: int,
+                      dev) -> dict:
+    """The frame ids a path served, held against the plain path on the same
+    batches ((x, lengths, ids) each): in f32 equal on ID_AGREE_MIN of valid
+    frames; in the bf16 mode the kernels' share of frames whose ids differ
+    from the float64 evaluation of the same rounded recipe within
+    BF16_FACTOR times the plain recipe's, or 1 - ID_AGREE_MIN where that is
+    larger. Raises otherwise. -> {share (of valid frames equal to plain),
+    frames, bf16, and in the bf16 mode off64, off64_tol}."""
+    agree = total = 0
+    off64 = [0, 0]    # frames whose ids differ from float64: kernels, plain
+    net64 = copy.deepcopy(net).double() if bf16 else None
+    for xb, lb, ids in batches:
+        xt = torch.as_tensor(xb).to(dev)
+        lt = torch.as_tensor(lb).to(dev)
+        lb = lt.cpu().numpy()
+        ids = torch.as_tensor(ids).cpu().numpy()
+        if not (ids.min() >= 0 and ids.max() < nclasses):
+            raise AssertionError("main path produced invalid frames")
+        with torch.no_grad():
+            soft, y = plain_forward(net, xt, lt, bf16)
+            pids, _ = greedy_frames(plain_logits(soft, y, bf16))
+            if bf16:
+                soft64, y64 = plain_forward(net64, xt, lt, True)
+                ids64 = greedy_frames(plain_logits(soft64, y64, True))[0]
+                ids64 = ids64.cpu().numpy()
+        pids = pids.cpu().numpy()
+        for r, L in enumerate(lb):
+            agree += int((pids[r, :L] == ids[r, :L]).sum())
+            total += int(L)
+            if bf16:
+                off64[0] += int((ids[r, :L] != ids64[r, :L]).sum())
+                off64[1] += int((pids[r, :L] != ids64[r, :L]).sum())
+    out = {"share": agree / total, "frames": total, "bf16": bf16}
+    if bf16:
+        out["off64"] = [n / total for n in off64]
+        out["off64_tol"] = max(BF16_FACTOR * out["off64"][1],
+                               1 - ID_AGREE_MIN)
+        if out["off64"][0] > out["off64_tol"]:
+            raise AssertionError(
+                f"frame ids differ from the float64 recipe on "
+                f"{out['off64'][0]:.6f} of frames, the plain f32 recipe's on "
+                f"{out['off64'][1]:.6f}: above {out['off64_tol']:.6f}")
+    elif out["share"] < ID_AGREE_MIN:
+        raise AssertionError(f"frame-id agreement {out['share']:.6f} < "
+                             f"{ID_AGREE_MIN}")
+    return out
+
+
 def serve(model: str, images, dev, nclasses: int, tmp: str,
           device_preprocess: int, xz_bf16=None) -> dict:
     """clstmocr's path on the card: load ``model``, run predict_pages and
@@ -1587,46 +1670,9 @@ def serve(model: str, images, dev, nclasses: int, tmp: str,
     out = {"launches": launches, "e2e_s": float(np.median(walls)),
            "e2e_range": (walls[0], walls[-1]), "cold_s": cold_s,
            "buckets": [int(b[0].shape[1]) for b in batches]}
-    agree = total = 0
-    off64 = [0, 0]    # frames whose ids differ from float64: kernels, plain
-    net64 = copy.deepcopy(ocr.net).double() if bf16 else None
-    for xb, lb, ids in batches:
-        xt = torch.as_tensor(xb).to(dev)
-        lt = torch.as_tensor(lb).to(dev)
-        lb = lt.cpu().numpy()
-        ids = torch.as_tensor(ids).cpu().numpy()
-        if not (ids.min() >= 0 and ids.max() < nclasses):
-            raise AssertionError("main path produced invalid frames")
-        with torch.no_grad():
-            soft, y = plain_forward(ocr.net, xt, lt, bf16)
-            pids, _ = greedy_frames(plain_logits(soft, y, bf16))
-            if bf16:
-                soft64, y64 = plain_forward(net64, xt, lt, True)
-                ids64 = greedy_frames(plain_logits(soft64, y64, True))[0]
-                ids64 = ids64.cpu().numpy()
-        pids = pids.cpu().numpy()
-        for r, L in enumerate(lb):
-            agree += int((pids[r, :L] == ids[r, :L]).sum())
-            total += int(L)
-            if bf16:
-                off64[0] += int((ids[r, :L] != ids64[r, :L]).sum())
-                off64[1] += int((pids[r, :L] != ids64[r, :L]).sum())
     if not all(np.isfinite(results[i][2]).all() for i in results):
         raise AssertionError("main path produced invalid frames")
-    out["share"], out["frames"] = agree / total, total
-    out["bf16"] = bf16
-    if bf16:
-        out["off64"] = [n / total for n in off64]
-        out["off64_tol"] = max(BF16_FACTOR * out["off64"][1],
-                               1 - ID_AGREE_MIN)
-        if out["off64"][0] > out["off64_tol"]:
-            raise AssertionError(
-                f"frame ids differ from the float64 recipe on "
-                f"{out['off64'][0]:.6f} of frames, the plain f32 recipe's on "
-                f"{out['off64'][1]:.6f}: above {out['off64_tol']:.6f}")
-    elif out["share"] < ID_AGREE_MIN:
-        raise AssertionError(f"frame-id agreement {out['share']:.6f} < "
-                             f"{ID_AGREE_MIN}")
+    out.update(ids_against_plain(ocr.net, batches, bf16, nclasses, dev))
     if device_preprocess:
         mismatch = 0
         for inputs, kw, (_, lengths) in preps:
@@ -1739,11 +1785,14 @@ def f64_state(state: TrainState) -> TrainState:
                       step=state.step)
 
 
-def train_against_plain(tocr, plain, batch, lr, momentum, tag) -> dict:
-    """5 train_batch steps of ``tocr`` with the launch counts reset just
-    before and read just after, and the same 5 steps composed from the plain
-    versions on ``plain`` (a TrainState holding the same start), in the
-    precision ``tocr`` trains in. Logs both under ``tag`` and raises unless
+def train_against_plain(tocr, plain, batch, lr, momentum, tag,
+                        kernel_step=None, batches=None) -> dict:
+    """5 train_batch steps of ``tocr`` on ``batch`` (or, given
+    ``kernel_step``, its calls kernel_step(0..4), the steps of the path,
+    on ``batches``, the 5 batches they train on) with the launch counts
+    reset just before and read just after, and the same 5 steps composed
+    from the plain versions on ``plain`` (a TrainState holding the same
+    start), in the precision ``tocr`` trains in. Logs both under ``tag`` and raises unless
     they agree: in f32 within the limits above; in the bf16 mode, where
     roundings to bf16 flip between any two orders of f32 sums, each of the
     four measures is held to the float64 evaluation of the same steps
@@ -1751,6 +1800,10 @@ def train_against_plain(tocr, plain, batch, lr, momentum, tag) -> dict:
     the plain f32 steps', or within the f32 limit where that is larger.
     Returns the launch counts of the 5 kernel steps."""
     bf16 = ApplyCtx(xz_bf16=tocr.xz_bf16).bf16(batch["x"])
+    batches = batches or [batch] * 5
+    if kernel_step is None:
+        def kernel_step(i):
+            return tocr.train_batch(batches[i])
     p0 = [p.detach().clone() for p in tocr.net.parameters()]
     ref = f64_state(plain) if bf16 else None
 
@@ -1759,19 +1812,19 @@ def train_against_plain(tocr, plain, batch, lr, momentum, tag) -> dict:
 
     reset_counts()
     t0 = time.perf_counter()
-    k_losses = [float(tocr.train_batch(batch)["loss"])]
+    k_losses = [float(kernel_step(0)["loss"])]
     k_p1 = params(tocr.net)
-    k_losses += [float(tocr.train_batch(batch)["loss"]) for _ in range(4)]
+    k_losses += [float(kernel_step(i)["loss"]) for i in range(1, 5)]
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = counts()
 
     def run(state):
-        losses = [plain_train_step(state.net, state.velocity, batch, lr,
+        losses = [plain_train_step(state.net, state.velocity, batches[0], lr,
                                    momentum, bf16)]
         first = params(state.net)
-        losses += [plain_train_step(state.net, state.velocity, batch, lr,
-                                    momentum, bf16) for _ in range(4)]
+        losses += [plain_train_step(state.net, state.velocity, batches[i], lr,
+                                    momentum, bf16) for i in range(1, 5)]
         return losses, first, params(state.net)
     p_losses, p_p1, p_p5 = run(plain)
     k_p5 = params(tocr.net)
@@ -1802,7 +1855,7 @@ def train_against_plain(tocr, plain, batch, lr, momentum, tag) -> dict:
         plain_off = measures(p_losses, p_p1, p_p5, r_losses, r_p1, r_p5)[0]
         limits = {k: max(BF16_FACTOR * plain_off[k], v)
                   for k, v in limits.items()}
-    log(f"[{tag}] {'bf16' if bf16 else 'f32'}: 5 train_batch steps in "
+    log(f"[{tag}] {'bf16' if bf16 else 'f32'}: 5 steps in "
         f"{train_s:.3f} s; launches "
         f"{ {k: v for k, v in launches.items() if v} }; loss kernels "
         f"{[round(v, 3) for v in k_losses]} plain "
@@ -2642,13 +2695,16 @@ def toy_learning(dev, xz_bf16: bool, seed: int = 0):
 # defaults (lr 1e-4, momentum 0.9, loss summed over lines); the CER is
 # taken on LEARN_TEST held-out lines every LEARN_EVERY steps.
 LEARN_C, LEARN_B, LEARN_TEST, LEARN_EVERY = 40, 32, 128, 25
-# The f32 run finds N, the first evaluation where its CER is below half
-# its start, or gives up after LEARN_MAX_S seconds (the check is then
-# void); the bf16 run takes the same steps from the same init on the same
-# batches. Pass: bf16's CER at N at most f32's plus LEARN_SLACK. Both runs
-# go on LEARN_AFTER steps past N, recorded only: how far apart in steps
-# the two curves lie.
-LEARN_MAX_S, LEARN_SLACK, LEARN_AFTER = 120.0, 0.02, 100
+# The rule, from each of the inits LEARN_SEEDS, both modes on the same
+# batches: f32 trains until its CER is below half its start (N steps; the
+# check is void if that takes more than LEARN_MAX_S seconds), then to 2N;
+# bf16 trains 2N steps. bf16 passes at an init if its own halving step is
+# at most N + LEARN_STEP_SLACK and its CER at 2N at most f32's there plus
+# LEARN_SLACK; the mode passes if it passes at every init. The earlier
+# single point (bf16's CER at N against f32's + LEARN_SLACK, the steepest
+# part of both curves) is logged beside it.
+LEARN_SEEDS, LEARN_STEP_SLACK = (0, 1, 2), 50
+LEARN_MAX_S, LEARN_SLACK = 120.0, 0.02
 
 
 def glyph_lines(rng, glyphs, n):
@@ -2687,8 +2743,11 @@ def glyph_batch(step: int, glyphs, dev) -> dict:
 
 
 def ocr_learning(dev) -> dict:
-    """The learning check on the glyph corpus, f32 then bf16 (phase 20).
-    Returns the CER curves, N and the verdict: "pass", "fail" or "void"."""
+    """The learning check on the glyph corpus (phase 20): at each init of
+    LEARN_SEEDS, f32 then bf16 (the rule above). Returns {"seeds": {seed:
+    {"f32", "bf16": curves, "steps": N, "halved": {mode: halving step},
+    "cer_at_n", "cer_at_2n", "verdict"}}, "verdict"}: "pass", "fail" or
+    "void"."""
     grng = np.random.RandomState(20)
     glyphs = []
     for _ in range(LEARN_C - 1):
@@ -2710,39 +2769,55 @@ def ocr_learning(dev) -> dict:
         return errs / sum(len(t) for t in ttexts)
     tl_ = tl.cpu().numpy()
 
-    def run(xz_bf16, steps=None):
-        """Train at ``xz_bf16``: to ``steps`` steps, or (None) to the first
-        evaluation whose CER is below half the start; then LEARN_AFTER
-        steps more, recorded. -> (curve, the steps of the verdict or None
-        when the CER did not halve in LEARN_MAX_S, seconds)."""
+    def run(xz_bf16, seed, steps=None):
+        """Train at ``xz_bf16`` from ``seed``'s init: ``steps`` steps, or
+        (None) to the first evaluation whose CER is below half the start
+        and then as far again. -> (curve, the first evaluation below half
+        the start or None, the steps run, seconds)."""
         spec, net = make_net_init("bidi", args,
-                                  torch.Generator().manual_seed(0), dev)
+                                  torch.Generator().manual_seed(seed), dev)
         state = TrainState.create(net)
         step = make_train_step(spec, 1e-4, 0.9, loss_kind="ctc",
                                normalization="none", xz_bf16=xz_bf16)
         predict = make_predict_step(spec, xz_bf16=xz_bf16)
         curve = [(0, test_cer(net, predict))]
         t0 = time.perf_counter()
-        i, n = 0, steps
-        while n is None or i < n + LEARN_AFTER:
+        i, halved, n = 0, None, steps
+        while n is None or i < n:
             state, _ = step(state, glyph_batch(i, glyphs, dev))
             i += 1
             if i % LEARN_EVERY == 0:
                 curve.append((i, test_cer(net, predict)))
-                if n is None and curve[-1][1] < 0.5 * curve[0][1]:
-                    n = i
+                if halved is None and curve[-1][1] < 0.5 * curve[0][1]:
+                    halved = i
+                    if n is None:
+                        n = 2 * i
                 if n is None and time.perf_counter() - t0 > LEARN_MAX_S:
                     break
-        return curve, n, time.perf_counter() - t0
-    f32_curve, n, f32_s = run(False)
-    out = {"f32": f32_curve, "f32_s": f32_s, "steps": n}
-    if n is None:
-        out["verdict"] = "void"
-        return out
-    out["bf16"], _, out["bf16_s"] = run(True, n)
-    at_n = {m: dict(out[m])[n] for m in ("f32", "bf16")}
-    out["cer_at_n"] = at_n
-    out["verdict"] = ("pass" if at_n["bf16"] <= at_n["f32"] + LEARN_SLACK
+        return curve, halved, i, time.perf_counter() - t0
+
+    out = {"seeds": {}}
+    for seed in LEARN_SEEDS:
+        f32_curve, n, _, f32_s = run(False, seed)
+        r = out["seeds"][seed] = {"f32": f32_curve, "f32_s": f32_s,
+                                  "steps": n}
+        if n is None:
+            r["verdict"] = "void"
+            continue
+        r["bf16"], nb, _, r["bf16_s"] = run(True, seed, 2 * n)
+        r["halved"] = {"f32": n, "bf16": nb}
+        r["cer_at_n"] = {m: dict(r[m])[n] for m in ("f32", "bf16")}
+        r["cer_at_2n"] = {m: dict(r[m])[2 * n] for m in ("f32", "bf16")}
+        r["single_point"] = ("pass" if r["cer_at_n"]["bf16"]
+                             <= r["cer_at_n"]["f32"] + LEARN_SLACK
+                             else "fail")
+        r["verdict"] = ("pass" if nb is not None
+                        and nb <= n + LEARN_STEP_SLACK
+                        and r["cer_at_2n"]["bf16"]
+                        <= r["cer_at_2n"]["f32"] + LEARN_SLACK else "fail")
+    verdicts = [r["verdict"] for r in out["seeds"].values()]
+    out["verdict"] = ("void" if "void" in verdicts else
+                      "pass" if all(v == "pass" for v in verdicts)
                       else "fail")
     return out
 
@@ -2769,6 +2844,609 @@ def mode_turns(tocr, batch, reps: int, label: str, card: str) -> dict:
     return {"f32": [a1, a2], "bf16": [b1, b2]}
 
 
+# Phase 21, the filter path (BASELINE config 5's string-transduction half):
+# clstmfiltertrain and clstmfilter at full width on the run-cmu g2p task of
+# bench.py:269-345, built in code: FILTER_PAIRS distinct words of 3-9
+# letters over G2P_LETTERS, mapped by G2P_RULES (digraphs to one symbol,
+# other letters upper-cased), and FILTER_TEST more held out; bidi, nhidden
+# 100 (the CLI's default), input_repeat 3, B=256, automatic K (64 at these
+# cadences). Inputs run 9-27 frames (T buckets 16 and 32), outputs S
+# buckets 16 and 32; the input alphabet is 19 wide with the blank.
+G2P_RULES = {"th": "T", "ch": "C", "sh": "S", "ee": "i", "oo": "u",
+             "ng": "N"}
+G2P_LETTERS = "abcdefghilmnoprstu"
+FILTER_PAIRS, FILTER_TEST, FILTER_B, FILTER_REPEAT = 4096, 512, 256, 3
+# The CLI's settings for the run that must learn: its TESTERR must fall
+# below half its first value (ntrain and lrate picked from a first run of
+# scripts/torch_filter_learning_probe.py, PERF.md §4).
+FILTER_ENV = {"batch_size": str(FILTER_B),
+              "input_repeat": str(FILTER_REPEAT), "nhidden": str(H),
+              "net": "bidi", "steps_per_dispatch": "0", "ntrain": "131072",
+              "lrate": "1e-4", "test_every": "16384", "save_every": "16384",
+              "report_every": "16384", "randseed": "0", "mesh": "1"}
+# Warm passes of the CLI's train_blocks loop for pairs/s, each
+# FILTER_PASS_BLOCKS full blocks; the first is traced for the idle share.
+FILTER_PASSES, FILTER_PASS_BLOCKS = 5, 4
+# The large-alphabet shape: an input alphabet of BIG_ALPHABET symbols makes
+# D + 1 > 128 at H=100, so the layer hoists its projection and runs K4.
+BIG_ALPHABET = 160
+
+
+def g2p(word: str) -> str:
+    out, i = [], 0
+    while i < len(word):
+        if word[i:i + 2] in G2P_RULES:
+            out.append(G2P_RULES[word[i:i + 2]])
+            i += 2
+        else:
+            out.append(word[i].upper())
+            i += 1
+    return "".join(out)
+
+
+def g2p_corpus(n_train: int = FILTER_PAIRS, n_test: int = FILTER_TEST,
+               seed: int = 0):
+    """bench.py's g2p corpus: distinct words from RandomState(seed) ->
+    (n_train training pairs, the next n_test words' pairs)."""
+    rng = np.random.RandomState(seed)
+    seen, pairs = set(), []
+    while len(pairs) < n_train + n_test:
+        w = "".join(G2P_LETTERS[rng.randint(len(G2P_LETTERS))]
+                    for _ in range(rng.randint(3, 10)))
+        if w not in seen:
+            seen.add(w)
+            pairs.append((w, g2p(w)))
+    return pairs[:n_train], pairs[n_train:]
+
+
+def write_tsv(path: str, pairs) -> str:
+    with open(path, "w", encoding="utf-8") as f:
+        f.writelines(f"{a}\t{b}\n" for a, b in pairs)
+    return path
+
+
+def filter_blocks(dcache, k: int) -> dict:
+    """{T bucket: block}: the first full k-batch block (FILTER_B rows a
+    batch) of a group at each T bucket the corpus fills."""
+    out = {}
+    for blk in dcache.epoch_blocks(FILTER_B, k, rng=np.random.RandomState(5),
+                                   epochs=k):
+        if blk["k"] == k and blk["group"]["tb"] not in out:
+            out[blk["group"]["tb"]] = blk
+    return out
+
+
+def block_batch(blk, s: int) -> dict:
+    """Batch ``s`` of a text block, gathered and expanded to one-hot frames
+    as the step does."""
+    g = blk["group"]
+    return gather_batch(g, blk["idx_all"][blk["j"] + s], g["onehot"])
+
+
+def path_lattice(rng, batch, ncls: int):
+    """lmatch [B, T, S] of a batch's own targets under random posteriors
+    over ``ncls`` classes, NEG past each row's target length."""
+    tg, tl = batch["targets"].long(), batch["target_lengths"]
+    B_, T_ = batch["x"].shape[:2]
+    S_ = tg.shape[1]
+    logits = torch.from_numpy(
+        rng.randn(B_, T_, ncls).astype(np.float32)).to(tg.device)
+    lm = F.log_softmax(logits, -1).gather(
+        2, tg[:, None, :].expand(B_, T_, S_))
+    valid = torch.arange(S_, device=tg.device)[None, None, :] < tl[:, None,
+                                                                   None]
+    return torch.where(valid, lm, torch.full_like(lm, ctc_ops.NEG)
+                       ).contiguous()
+
+
+def filter_kernels(dev, card: str, dcache, ncls: int) -> dict:
+    """K3, K1, K2, K5 and K6 at the filter path's shapes, against their
+    plain versions with the limits of phases 3-8: one gathered batch of
+    each T bucket (one-hot x [256, T, 19], the path's lengths, targets and
+    target lengths), weights ±0.3 from a seed. Timed at the T=32 batch:
+    kernel, plain and library call, bound from the batch's valid frames.
+    Then the large-alphabet shape (BIG_ALPHABET, B=256, T=32): K3 with the
+    projection inside and K4 on the hoisted product, each against plain
+    and against each other, and through apply_net the layer takes K4.
+    Returns {"err": {kernel: max|Δ|}, "rel": .., "timing": {kernel: (ms,
+    plain_ms, (bound_ms, bound_by), library_ms)}, "shapes"}."""
+    rng = np.random.RandomState(9)
+    D_ = dcache.groups[0]["onehot"]
+    pf, pr = lstm_params(rng, D_, H, dev), lstm_params(rng, D_, H, dev)
+    blocks = filter_blocks(dcache, 5)
+    if sorted(blocks) != [16, 32]:
+        raise AssertionError(f"the g2p corpus filled T buckets "
+                             f"{sorted(blocks)}, not 16 and 32")
+    err = dict.fromkeys(("K3", "K1", "K2 chain", "K2 reduction", "K5", "K6",
+                         "K4"), 0.0)
+    rel = dict.fromkeys(("K2 chain", "K2 reduction", "K5", "K6"), 0.0)
+    timing, shapes, bf16 = {}, {}, {}
+    for tb, blk in sorted(blocks.items()):
+        b = block_batch(blk, 0)
+        x, L = b["x"], b["lengths"]
+        S_ = b["targets"].shape[1]
+        err["K3"] = max(err["K3"], compare(pf, pr, x, L))
+        e1, st = compare_k1(pf, pr, x, L)
+        err["K1"] = max(err["K1"], e1)
+        gy = uniform(rng, (FILTER_B, tb, 2 * H), -1.0, 1.0, dev)
+        c_rel, c_abs, red, r_abs, f64 = compare_k2(pf, pr, x, L, st, gy)
+        err["K2 chain"] = max(err["K2 chain"], c_abs)
+        err["K2 reduction"] = max(err["K2 reduction"], r_abs)
+        rel["K2 chain"] = max(rel["K2 chain"], c_rel)
+        rel["K2 reduction"] = max(rel["K2 reduction"], *red.values())
+        lm = path_lattice(rng, b, ncls)
+        r5, a5, r6, a6, _, _ = compare_ctc(lm, L, b["target_lengths"])
+        err["K5"], err["K6"] = max(err["K5"], a5), max(err["K6"], a6)
+        rel["K5"], rel["K6"] = max(rel["K5"], r5), max(rel["K6"], r6)
+        V_ = int(L.sum())
+        shapes[tb] = {"B": FILTER_B, "T": tb, "D": D_, "H": H, "S": S_,
+                      "valid_frames": V_}
+        log(f"[filter kernels] B={FILTER_B} T={tb} D={D_} H={H} S={S_} "
+            f"({V_} valid frames): K3 max|dy| {err['K3']:.3e}, K1 {e1:.3e} "
+            f"(tol {TOL:.0e}); K2 chain rel {c_rel:.3e}, reduction rel "
+            f"{max(red.values()):.3e} (tol {K2_RTOL:.0e}){f64_note(f64)}; "
+            f"K5 rel {r5:.3e}, K6 {r6:.3e} (tol {DP_RTOL:.0e}); padded "
+            "frames as contracted, two calls bitwise equal")
+        if tb != 32:
+            continue
+        # Timing at the T=32 batch, the path's longer bucket.
+        y, gates, cell = st
+        Wh2, Wx2 = stack2(pf, pr, "Wh"), stack2(pf, pr, "Wx")
+        with torch.no_grad():
+            dz = bidi_lstm_bwd_chain(gates, cell, gy, Wh2, L)
+            lr_ = ctc_forward(lm, L)
+            lstm = cudnn_lstm(pf, pr, dev)
+            px = packed(x, L)
+            check_cudnn(lstm, px, bidi_lstm_infer(pf, pr, x, L), "K3")
+            k3, lib3 = in_turns(lambda: bidi_lstm_infer(pf, pr, x, L),
+                                lambda: lstm(px), 20)
+            timing["K3"] = (mean(k3), time_ms(
+                lambda: bidi_lstm_apply(pf, pr, x, L), 3),
+                lstm_bound("fwd", FILTER_B, tb, D_, H, V_), mean(lib3))
+            k1, lib1 = in_turns(lambda: bidi_lstm_fwd_state(pf, pr, x, L),
+                                cudnn_step(lstm, px, False)[0], 20)
+            timing["K1"] = (mean(k1), time_ms(
+                lambda: lstm_ops.bidi_lstm_fwd_state_plain(pf, pr, x, L), 3),
+                lstm_bound("fwd_state", FILTER_B, tb, D_, H, V_), mean(lib1))
+            timing["K2 chain"] = (
+                time_ms(lambda: bidi_lstm_bwd_chain(gates, cell, gy, Wh2, L),
+                        20),
+                time_ms(lambda: lstm_ops.bidi_lstm_bwd_chain_plain(
+                    gates, cell, gy, Wh2, L), 3),
+                lstm_bound("chain", FILTER_B, tb, D_, H, V_), None)
+            kr, libr = in_turns(
+                lambda: bidi_lstm_bwd_reduce(x, y, dz, Wx2, False),
+                einsum_reduce(x, y, dz, Wx2, False), 20)
+            timing["K2 reduction"] = (mean(kr), time_ms(
+                lambda: lstm_ops.bidi_lstm_bwd_reduce_plain(x, y, dz, Wx2,
+                                                            False), 3),
+                lstm_bound("reduce", FILTER_B, tb, D_, H, V_), mean(libr))
+            tl_ = b["target_lengths"]
+            lat = 4 * FILTER_B * tb * S_
+            timing["K5"] = (time_ms(lambda: ctc_forward(lm, L), 20),
+                            time_ms(lambda: ctc_ops.ctc_forward_plain(lm, L),
+                                    3),
+                            bound(0, 2 * lat + 4 * FILTER_B), None)
+            timing["K6"] = (time_ms(lambda: ctc_both(lm, lr_, L, tl_), 20),
+                            time_ms(lambda: ctc_ops.ctc_both_plain(
+                                lm, lr_, L, tl_), 3),
+                            bound(0, 3 * lat + 4 * FILTER_B * S_
+                                  + 8 * FILTER_B), None)
+            # The bf16 mode (the card's default) of K3, K1 and K2 at the
+            # same shape, in turns with f32.
+            y16, g16, c16 = bidi_lstm_fwd_state(pf, pr, x, L, xz_bf16=True)
+            gy16 = gy.bfloat16()
+            dz16 = bidi_lstm_bwd_chain(g16, c16, gy16, Wh2, L, xz_bf16=True)
+            for name, kind, fa, fb in (
+                    ("K3", "fwd", lambda: bidi_lstm_infer(pf, pr, x, L),
+                     lambda: bidi_lstm_infer(pf, pr, x, L, xz_bf16=True)),
+                    ("K1", "fwd_state",
+                     lambda: bidi_lstm_fwd_state(pf, pr, x, L),
+                     lambda: bidi_lstm_fwd_state(pf, pr, x, L,
+                                                 xz_bf16=True)),
+                    ("K2 chain", "chain",
+                     lambda: bidi_lstm_bwd_chain(gates, cell, gy, Wh2, L),
+                     lambda: bidi_lstm_bwd_chain(g16, c16, gy16, Wh2, L,
+                                                 xz_bf16=True)),
+                    ("K2 reduction", "reduce",
+                     lambda: bidi_lstm_bwd_reduce(x, y, dz, Wx2, False),
+                     lambda: bidi_lstm_bwd_reduce(x, y16, dz16, Wx2, False,
+                                                  xz_bf16=True))):
+                f32_t, bf_t = in_turns(fa, fb, 20)
+                bf16[name] = {"ms": mean(bf_t), "f32_ms": mean(f32_t),
+                              "in_turns_f32_bf16": [f32_t, bf_t],
+                              "bound": lstm_bound(kind, FILTER_B, tb, D_, H,
+                                                  V_, esize=2)}
+            del y16, g16, c16, gy16, dz16
+        del lstm, px, dz, st
+    # The large-alphabet shape: K3 (projection inside) against K4's route.
+    if not bk.hoists_projection(BIG_ALPHABET, H):
+        raise AssertionError(f"D={BIG_ALPHABET} at H={H} does not hoist")
+    words = [rng.randint(1, BIG_ALPHABET, rng.randint(3, 10))
+             for _ in range(FILTER_B)]
+    xb = np.zeros((FILTER_B, 32, BIG_ALPHABET), np.float32)
+    for r, w in enumerate(words):
+        for t, c in enumerate(w):
+            xb[r, FILTER_REPEAT * t:FILTER_REPEAT * (t + 1), c] = 1.0
+    xg = to_device(xb, dev)
+    Lg = to_device(np.array([FILTER_REPEAT * len(w) for w in words],
+                            np.int32), dev)
+    gf, gr = (lstm_params(rng, BIG_ALPHABET, H, dev) for _ in range(2))
+    e3 = compare(gf, gr, xg, Lg)
+    e4, xz_rel, _ = compare_k4(gf, gr, xg, Lg)
+    with torch.no_grad():
+        xz = lstm_ops.hoisted_projection(gf, gr, xg)
+        y3 = bidi_lstm_infer(gf, gr, xg, Lg)
+        y4 = bidi_lstm_infer_xz(gf, gr, xz, Lg)
+    e34 = float((y3 - y4).abs().max())
+    if not e34 <= TOL:
+        raise AssertionError(f"K3 against K4's route at D={BIG_ALPHABET}: "
+                             f"max|dy| {e34:.3e} > {TOL:.0e}")
+    err["K4"] = e4
+    Vg = int(Lg.sum())
+    with torch.no_grad():
+        k4, k3b = in_turns(
+            lambda: bidi_lstm_infer_xz(gf, gr, lstm_ops.hoisted_projection(
+                gf, gr, xg), Lg),
+            lambda: bidi_lstm_infer(gf, gr, xg, Lg), 20)
+        timing["K4"] = (time_ms(lambda: bidi_lstm_infer_xz(gf, gr, xz, Lg),
+                                20),
+                        time_ms(lambda: bidi_lstm_apply(gf, gr, xg, Lg), 3),
+                        lstm_bound("xz", FILTER_B, 32, BIG_ALPHABET, H, Vg),
+                        None)
+    # Through the layer tree: a net on BIG_ALPHABET inputs takes K4.
+    spec_g, net_g = make_net_init("bidi", {"ninput": BIG_ALPHABET,
+                                           "nhidden": H, "noutput": ncls},
+                                  torch.Generator().manual_seed(3), dev)
+    reset_counts()
+    with torch.no_grad():
+        apply_net(net_g, xg, Lg, inference=True)
+    routed = {k: v for k, v in counts().items() if v}
+    if routed != {"bidi_lstm_infer_xz": 1}:
+        raise AssertionError(f"a net on {BIG_ALPHABET} inputs launched "
+                             f"{routed}, not K4 alone")
+    shapes["large alphabet"] = {"B": FILTER_B, "T": 32, "D": BIG_ALPHABET,
+                                "H": H, "valid_frames": Vg}
+    log(f"[filter kernels] large alphabet B={FILTER_B} T=32 D={BIG_ALPHABET}"
+        f" H={H} ({Vg} valid frames): K3 with the projection inside "
+        f"max|dy| {e3:.3e}, K4 both modes {e4:.3e}, K3 against K4's route "
+        f"{e34:.3e} (tol {TOL:.0e}), hoisted product {xz_rel:.3e} from "
+        f"float64; apply_net took K4 ({routed}); in turns: product + K4 "
+        f"{k4[0]:.4f}, {k4[1]:.4f}, K3 {k3b[0]:.4f}, {k3b[1]:.4f} ms")
+    for name, (km, pm, (bms, bby), lms) in timing.items():
+        log(f"[filter timing] {card} | {name}: {km:.4f} ms, plain "
+            f"{pm:.3f} ms, bound {bms:.4f} ms ({bby})"
+            + (f", library {lms:.4f} ms" if lms is not None else "")
+            + (f"; bf16 in turns (f32, bf16, bf16, f32) "
+               f"{bf16[name]['in_turns_f32_bf16'][0][0]:.4f}, "
+               f"{bf16[name]['in_turns_f32_bf16'][1][0]:.4f}, "
+               f"{bf16[name]['in_turns_f32_bf16'][1][1]:.4f}, "
+               f"{bf16[name]['in_turns_f32_bf16'][0][1]:.4f} ms, bf16 bound "
+               f"{bf16[name]['bound'][0]:.4f} ms"
+               if name in bf16 else ""))
+    return {"err": err, "rel": rel, "timing": timing, "shapes": shapes,
+            "bf16": bf16, "big_k3_k4_ms": {"K4 route": k4, "K3": k3b}}
+
+
+def filter_steps(dev, dcache, start: str, lr: float,
+                 default_bf16: bool) -> dict:
+    """5 train_batch_block steps (k=1 blocks, the CLI's step over the
+    resident corpus) of a model loaded from ``start`` against the same 5
+    steps composed from the plain versions, on the 5 batches of a block at
+    each T bucket, in the card's default precision and the other, within
+    phase 9's limits (train_against_plain). -> {(T, bf16): launches}."""
+    out = {}
+    for tb, blk in sorted(filter_blocks(dcache, 5).items()):
+        g = blk["group"]
+        batches = [block_batch(blk, s) for s in range(5)]
+        for mode in (None, not default_bf16):
+            kocr = CLSTMText(device=dev)
+            kocr.load(start)
+            kocr.setLearningRate(lr, 0.9)
+            kocr.xz_bf16 = mode
+            plain = CLSTMText(device=dev)
+            plain.load(start)
+
+            def step(s, kocr=kocr):
+                return kocr.train_batch_block({
+                    "group": g, "idx_all": blk["idx_all"],
+                    "j": blk["j"] + s, "set_j": lambda j: None, "k": 1})
+            got = train_against_plain(
+                kocr, plain.state, batches[0], lr, 0.9,
+                f"filter steps B={FILTER_B} T={tb} S={g['sb']} "
+                f"D={g['onehot']}", kernel_step=step, batches=batches)
+            want = {"bidi_lstm_fwd_state": 5, "bidi_lstm_bwd_chain": 5,
+                    "bidi_lstm_bwd_reduce": 5, "ctc_forward": 5,
+                    "ctc_both": 5}
+            if {k: v for k, v in got.items() if v} != want:
+                raise AssertionError(f"filter steps launched {got}, want "
+                                     f"{want}")
+            if set(kocr._multi_steps) != {(1, g["onehot"])}:
+                raise AssertionError(f"filter steps built "
+                                     f"{set(kocr._multi_steps)}")
+            out[(tb, default_bf16 if mode is None else mode)] = got
+            del kocr, plain
+    return out
+
+
+def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs) -> dict:
+    """clstmfiltertrain through its main on the g2p corpus (FILTER_ENV),
+    launch counts reset just before and read just after; its TESTERR must
+    fall below half its first value. Then FILTER_PASSES warm passes of its
+    train_blocks loop on the trained model (FILTER_PASS_BLOCKS full blocks
+    each; the first traced, kernel activity, for the card's idle share) for
+    pairs/s, and the host's enqueue ms of one block on an idle card.
+    Then a pass and a block's enqueue in each precision, in turns (f32,
+    bf16, bf16, f32). Returns {launches, testerr, pairs_per_s (median),
+    pairs_per_s_range, busy_share, block_enqueue_ms, block_k, model (the
+    saved best .clstm), run_s, cache_mb, groups, in_turns}."""
+    save_name = os.path.join(tmp, "filter")
+    env = dict(FILTER_ENV, device=dev.type, save_name=save_name,
+               log_jsonl=save_name + ".jsonl")
+    args = [write_tsv(os.path.join(tmp, "train.tsv"), train_pairs),
+            write_tsv(os.path.join(tmp, "test.tsv"), test_pairs)]
+    seen = {}
+    loop = clstmfiltertrain.train_blocks
+
+    def spy(model, dcache, test_pairs, **kw):
+        seen.update(kw, model=model, dcache=dcache)
+        return loop(model, dcache, test_pairs, **kw)
+
+    printed = io.StringIO()
+    saved_env = {k: os.environ.get(k) for k in env}
+    clstmfiltertrain.train_blocks = spy
+    os.environ.update(env)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            clstmfiltertrain.main(args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        clstmfiltertrain.train_blocks = loop
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    text = printed.getvalue()
+    for ln in text.splitlines():
+        log(f"[filtertrain] | {ln}")
+    testerr = [float(ln.split()[2]) for ln in text.splitlines()
+               if ln.startswith("TESTERR ")]
+    if len(testerr) < 2 or not all(np.isfinite(testerr)):
+        raise AssertionError(f"clstmfiltertrain printed {testerr}")
+    if not testerr[-1] < 0.5 * testerr[0]:
+        raise AssertionError(f"clstmfiltertrain's TESTERR {testerr} did not "
+                             "fall below half its first value")
+    want = ("bidi_lstm_infer", "bidi_lstm_fwd_state", "bidi_lstm_bwd_chain",
+            "bidi_lstm_bwd_reduce", "ctc_forward", "ctc_both")
+    if min(launches[k] for k in want) < 1:
+        raise AssertionError(f"clstmfiltertrain skipped a kernel: {launches}")
+    mb = [float(ln.split()[3]) for ln in text.splitlines()
+          if ln.startswith("# device cache:")]
+    if not mb:
+        raise AssertionError("clstmfiltertrain did not build the device "
+                             "cache")
+    model, dcache, block_k = seen["model"], seen["dcache"], seen["block_k"]
+
+    def one_pass(seed: int, profile: bool = False):
+        """One warm pass of the CLI's loop, FILTER_PASS_BLOCKS full blocks,
+        no reports, tests or saves due -> (pairs/s, the card's busy share
+        or None)."""
+        kw = dict(seen, ntrain=FILTER_PASS_BLOCKS * block_k * FILTER_B,
+                  report_every=1 << 30, save_every=1 << 30,
+                  test_every=1 << 30, rng=np.random.RandomState(seed),
+                  save_name=os.path.join(tmp, "pass"),
+                  log=clstmfiltertrain._Log(""))
+        kw.pop("model"), kw.pop("dcache")
+        ctx = (torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) if profile
+            else contextlib.nullcontext())
+        with ctx as prof, contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            n = loop(model, dcache, None, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if not profile:
+            return n / dt, None
+        dev_s = sum(device_us(e) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        return n / dt, (dev_s / dt if dev_s else None)
+
+    blocks = (b for b in dcache.epoch_blocks(
+        FILTER_B, block_k, rng=np.random.RandomState(7), epochs=128)
+        if b["k"] == block_k)
+
+    def block_enqueue_ms() -> float:
+        return enqueue_ms(lambda: model.train_batch_block(next(blocks),
+                                                          k_max=block_k), 2)
+
+    rate0, busy = one_pass(100, profile=True)
+    rates = [rate0] + [one_pass(100 + p)[0] for p in range(1, FILTER_PASSES)]
+    enq = block_enqueue_ms()
+    # Both precisions in turns (f32, bf16, bf16, f32), a pass and a block's
+    # enqueue each: the loop is the host's, and the modes launch different
+    # work.
+    turns = {False: [], True: []}
+    for i, mode in enumerate((False, True, True, False)):
+        model.xz_bf16 = mode
+        turns[mode].append({"pairs_per_s": one_pass(200 + i)[0],
+                            "block_enqueue_ms": block_enqueue_ms()})
+    model.xz_bf16 = None
+    rates.sort()
+    out = {"launches": {k: v for k, v in launches.items() if v},
+           "testerr": testerr, "pairs_per_s": float(np.median(rates)),
+           "pairs_per_s_range": [rates[0], rates[-1]], "busy_share": busy,
+           "block_enqueue_ms": enq, "block_k": block_k, "run_s": run_s,
+           "model": save_name + ".clstm", "cache_mb": mb[0],
+           "groups": [(g["tb"], g["sb"], g["n"]) for g in dcache.groups],
+           "in_turns": {("bf16" if m else "f32"): v
+                        for m, v in turns.items()}}
+    log(f"[filtertrain] {len(train_pairs)} training and {len(test_pairs)} "
+        f"test pairs, bidi {dcache.groups[0]['onehot']}/{H}/"
+        f"{model.codec.size()}, input_repeat {FILTER_REPEAT}, B={FILTER_B}, "
+        f"K={block_k}, groups (T, S, n) {out['groups']}: the CLI ran in "
+        f"{run_s:.3f} s; TESTERR {testerr}; launches {out['launches']}; "
+        f"{FILTER_PASSES} warm passes of {FILTER_PASS_BLOCKS} blocks: "
+        f"{out['pairs_per_s']:.1f} pairs/s (median; range "
+        f"{rates[0]:.1f}-{rates[-1]:.1f}), card "
+        + (f"busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}% of the "
+           "first pass" if busy else "busy time not measured")
+        + f"; the host enqueues a block of {block_k} steps in {enq:.3f} ms "
+        f"({enq / block_k:.3f} ms a step); in turns (f32, bf16, bf16, f32) "
+        "pairs/s " + ", ".join(
+            f"{turns[m][i]['pairs_per_s']:.1f}"
+            for m, i in ((False, 0), (True, 0), (True, 1), (False, 1)))
+        + ", block enqueue ms " + ", ".join(
+            f"{turns[m][i]['block_enqueue_ms']:.3f}"
+            for m, i in ((False, 0), (True, 0), (True, 1), (False, 1))))
+    return out
+
+
+def filter_serve(dev, model_path: str, words) -> dict:
+    """clstmfilter through its main on ``words``, batched (FILTER_B a batch)
+    with the launch counts reset just before and read just after, then one
+    line at a time (batch_size=1): the outputs must be equal line for line;
+    each batch launches K3 once, each single line once. The frame ids of
+    the batched run are held against the plain path on the same batches
+    (ids_against_plain), K3's padded frames there must be exactly 0 and,
+    in f32, K3 is held against its plain version (compare). Returns {launches, launches_single, batches
+    (T per batch), ids (the comparison), s, s_single, lines_per_s,
+    lines_per_s_single}."""
+    recorded = []
+    predict_batch = CLSTMText.predict_batch
+
+    def recording(self, xb, lb):
+        ids, vals = predict_batch(self, xb, lb)
+        recorded.append((self, xb, lb, ids))
+        return ids, vals
+
+    def run(batch_size: str):
+        env = {"load": model_path, "batch_size": batch_size,
+               "device": dev.type}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        stdin, out = sys.stdin, io.StringIO()
+        sys.stdin = io.StringIO("".join(w + "\n" for w in words))
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                clstmfilter.main([])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            return out.getvalue().splitlines(), counts(), dt
+        finally:
+            sys.stdin = stdin
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    run(str(FILTER_B))                      # cold: loads, first launches
+    CLSTMText.predict_batch = recording
+    try:
+        lines, launches, dt = run(str(FILTER_B))
+    finally:
+        del CLSTMText.predict_batch
+    single, launches1, dt1 = run("1")
+    if len(lines) != len(words) or lines != single:
+        bad = sum(a != b for a, b in zip(lines, single))
+        raise AssertionError(f"clstmfilter: batched and single outputs "
+                             f"differ on {bad} of {len(words)} lines")
+    if launches["bidi_lstm_infer"] != len(recorded):
+        raise AssertionError(f"clstmfilter launched K3 "
+                             f"{launches['bidi_lstm_infer']} times for "
+                             f"{len(recorded)} batches")
+    if launches1["bidi_lstm_infer"] != len(words):
+        raise AssertionError(f"clstmfilter batch_size=1 launched K3 "
+                             f"{launches1['bidi_lstm_infer']} times for "
+                             f"{len(words)} lines")
+    model = recorded[0][0]
+    bf16 = ApplyCtx(xz_bf16=model.xz_bf16).bf16(torch.empty(0, device=dev))
+    ids = ids_against_plain(model.net, [r[1:] for r in recorded], bf16,
+                            model.codec.size(), dev)
+    par = model.net.sub[0]
+    pf, pr = par.sub[0].weights(), par.sub[1].sub[0].weights()
+    k3 = 0.0
+    for _, xb, lb, _ in recorded:
+        xt, lt = to_device(xb, dev), to_device(lb, dev)
+        if not bf16:
+            k3 = max(k3, compare(pf, pr, xt, lt))
+            continue
+        with torch.no_grad():
+            y = bidi_lstm_infer(pf, pr, xt, lt, xz_bf16=True)
+        if not bool((y[padded(lt, *xt.shape[:2], dev)] == 0).all()):
+            raise AssertionError("K3 (bf16) output is not exactly 0 on "
+                                 "padded frames")
+    out = {"launches": {k: v for k, v in launches.items() if v},
+           "launches_single": {k: v for k, v in launches1.items() if v},
+           "batches": [int(r[1].shape[1]) for r in recorded], "ids": ids,
+           "k3_err": k3, "s": dt, "s_single": dt1,
+           "lines_per_s": len(words) / dt,
+           "lines_per_s_single": len(words) / dt1}
+    log(f"[clstmfilter] {len(words)} held-out words, the saved model "
+        f"({'bf16' if bf16 else 'f32'}): batched ({FILTER_B} a batch, T "
+        f"{out['batches']}) {dt:.3f} s ({out['lines_per_s']:.1f} lines/s), "
+        f"K3 launched {launches['bidi_lstm_infer']} times; one line at a "
+        f"time {dt1:.3f} s ({out['lines_per_s_single']:.1f} lines/s), "
+        f"{launches1['bidi_lstm_infer']} launches; outputs equal line for "
+        f"line; frame ids equal to the plain path on {ids['share']:.6f} of "
+        f"{ids['frames']} valid frames"
+        + (f", K3 max|dy| {k3:.3e} against plain" if not bf16 else "")
+        + "; K3's padded frames exactly 0")
+    return out
+
+
+def native_check(dev, tmp: str) -> dict:
+    """Phase 22: whether the native host I/O library (io/native.py, g++
+    with libpng) builds here, and so which PNG reader and line loader the
+    OCR phases took (read_images: native or PIL; OcrDataset.load_all:
+    PrefetchLoader or the Python prepare). Where it builds, read_png is
+    held bit for bit against PIL on all 256 grey levels and prepare_line
+    against the Python normalizer within tests/test_native.py's envelope
+    (mean |Δ| < 1e-3, under 1% of values off by more than 5e-3)."""
+    built = native.available()
+    out = {"built": built, "reason": native.missing_reason(),
+           "reader": "native" if built else "PIL",
+           "loader": "PrefetchLoader" if built else "Python prepare_line"}
+    if not built:
+        log(f"[native] the native I/O library does not build here "
+            f"({out['reason'].splitlines()[0]}): the OCR phases read PNGs "
+            "with PIL and load_all prepares on the host in Python")
+        return out
+    from PIL import Image
+    grey = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    f = os.path.join(tmp, "levels.png")
+    Image.fromarray(grey, mode="L").save(f)
+    got, want = native.read_png(f), read_png(f)
+    if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError("native read_png differs from PIL's")
+    worst = 0.0
+    for dewarp in ("none", "mean", "center"):
+        img = quantized(synth_line(np.random.RandomState(11)))
+        py = prepare_line(img, make_normalizer(dewarp, D), 16)
+        nat = native.prepare_line(img, D, pad=16, dewarp=dewarp)
+        if nat.shape != py.shape:
+            raise AssertionError(f"native prepare_line ({dewarp}) shape "
+                                 f"{nat.shape}, Python {py.shape}")
+        d = np.abs(nat - py)
+        if not (d.mean() < 1e-3 and (d > 5e-3).mean() < 0.01):
+            raise AssertionError(f"native prepare_line ({dewarp}) off the "
+                                 f"Python one: mean {d.mean():.3e}")
+        worst = max(worst, float(d.mean()))
+    out["prepare_mean_diff"] = worst
+    log(f"[native] the native I/O library built: the OCR phases read PNGs "
+        f"natively and load_all takes the PrefetchLoader; read_png equals "
+        f"PIL's on all 256 grey levels, prepare_line within the envelope "
+        f"(worst mean |d| {worst:.3e})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k2-against", metavar="SRC",
@@ -2790,6 +3468,7 @@ def main(argv=None) -> int:
                     "seeds 1-N in both precisions and log how many lines "
                     "each decodes (a record, not a check)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     # 1. Device.
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -3073,10 +3752,10 @@ def main(argv=None) -> int:
     llosses, correct = toy[default_bf16]
     if not (llosses[-1] < 0.5 * llosses[0] and correct >= 32):
         raise AssertionError("the toy CTC task did not learn on the card")
-    toy_pass = toy[True][1] >= toy[False][1] - 2
+    # A record, not the rule: its outcome swings with any perturbation of
+    # the run (ROADMAP Queue 3); phase 20's glyph corpus decides.
     log(f"[learn] toy CTC: bf16 decodes {toy[True][1]}, f32 {toy[False][1]}"
-        f" of 64 (bf16 may decode at most 2 fewer): "
-        f"{'pass' if toy_pass else 'FAIL'}")
+        f" of 64")
     # With --toy-seeds N: how far the outcome of this 120-step run moves
     # with the init alone, seeds 1-N in both modes (a record, not a limit).
     toy_seeds = {sd: [toy_learning(dev, m, sd)[1] for m in (False, True)]
@@ -3519,26 +4198,58 @@ def main(argv=None) -> int:
     # 20. The learning check of the bf16 mode against f32 on the glyph
     # corpus: it decides the card's default precision.
     learn = ocr_learning(dev)
-    for m in ("f32", "bf16"):
-        if m in learn:
-            log(f"[learn] glyph corpus, {m}: test CER by step " + ", ".join(
-                f"{i}: {c:.4f}" for i, c in learn[m]) + f" ({learn[m + '_s']:.1f} s)")
+    for seed, r in learn["seeds"].items():
+        for m in ("f32", "bf16"):
+            if m in r:
+                log(f"[learn] glyph corpus, init {seed}, {m}: test CER by "
+                    "step " + ", ".join(f"{i}: {c:.4f}" for i, c in r[m])
+                    + f" ({r[m + '_s']:.1f} s)")
+        if r["verdict"] == "void":
+            log(f"[learn] init {seed}: the f32 CER did not halve within "
+                f"{LEARN_MAX_S:.0f} s: the check is void")
+            continue
+        n = r["steps"]
+        log(f"[learn] init {seed}: CER halved at step {r['halved']['f32']} "
+            f"(f32), {r['halved']['bf16']} (bf16; at most N + "
+            f"{LEARN_STEP_SLACK}); CER at 2N={2 * n} f32 "
+            f"{r['cer_at_2n']['f32']:.4f}, bf16 {r['cer_at_2n']['bf16']:.4f} "
+            f"(bf16 at most f32 + {LEARN_SLACK:g}): {r['verdict']}; the "
+            f"earlier single point, CER at N={n}: f32 "
+            f"{r['cer_at_n']['f32']:.4f}, bf16 {r['cer_at_n']['bf16']:.4f}: "
+            f"{r['single_point']}")
     verdict = learn["verdict"]
-    if verdict == "void":
-        log(f"[learn] the f32 CER did not halve within {LEARN_MAX_S:.0f} s: "
-            "the check is void")
-    else:
-        log(f"[learn] glyph corpus after N={learn['steps']} steps: CER f32 "
-            f"{learn['cer_at_n']['f32']:.4f}, bf16 "
-            f"{learn['cer_at_n']['bf16']:.4f} (bf16 at most f32 + "
-            f"{LEARN_SLACK:g}): {verdict}")
-    learned = verdict == "pass" and toy_pass
+    learned = verdict == "pass"
     log(f"[learn] the bf16 mode {'passes' if learned else 'does not pass'} "
-        f"the learning check; the card's default is "
+        f"the learning check at inits {list(LEARN_SEEDS)} ({verdict}); the "
+        f"toy task is a record ({toy[True][1]} / {toy[False][1]} lines, "
+        f"bf16 / f32); the card's default is "
         f"{'bf16' if default_bf16 else 'f32'}")
     if default_bf16 and not learned:
         raise AssertionError("bf16 is the card's default but did not pass "
                              "the learning check")
+
+    # 21. The filter path at full width: the g2p corpus, its kernels
+    # against plain at the path's shapes (and K4 at a large alphabet), 5
+    # steps against plain in both modes, clstmfiltertrain and clstmfilter.
+    # 22. Whether the native I/O library built.
+    train_pairs, test_pairs = g2p_corpus()
+    icodec = Codec.build(a for a, _ in train_pairs)
+    fcodec = Codec.build(b for _, b in train_pairs)
+    fcache = TextDeviceDataset(train_pairs, icodec, fcodec,
+                               input_repeat=FILTER_REPEAT, device=dev)
+    fk = filter_kernels(dev, card, fcache, fcodec.size())
+    with tempfile.TemporaryDirectory() as tmp:
+        start = os.path.join(tmp, "start.clstm")
+        maker = CLSTMText(input_repeat=FILTER_REPEAT, device=dev)
+        maker.createBidi(icodec, fcodec, H, seed=0)
+        maker.save(start)
+        fsteps = filter_steps(dev, fcache, start, float(FILTER_ENV["lrate"]),
+                              default_bf16)
+        ftrain = filtertrain(dev, card, tmp, train_pairs, test_pairs)
+        fserve = filter_serve(dev, ftrain["model"],
+                              [a for a, _ in test_pairs])
+        nat = native_check(dev, tmp)
+    del fcache, maker
 
     # 18. Report. bound_ms from this run's shapes and valid frames (lengths
     # 900 at both bench shapes); library_ms a library call timed in turns
@@ -3777,6 +4488,53 @@ def main(argv=None) -> int:
                               for m, v in toy.items()},
         "toy_seeds_f32_bf16": toy_seeds,
         "glyph_corpus": learn, "default_bf16": default_bf16}
+    # The filter path (phase 21): each kernel's launches per training step
+    # and in the clstmfiltertrain run, its time, plain time, bound and
+    # library call at the path's T=32 shape (B=256, D=19, H=100; K4 at the
+    # large alphabet), its largest |kernel - plain| there.
+    fsteps_f32 = fsteps[(32, False)]
+    for name, key, count in (
+            ("bidi_lstm_fwd (K3)", "K3", "bidi_lstm_infer"),
+            ("bidi_lstm_fwd_state (K1)", "K1", "bidi_lstm_fwd_state"),
+            ("bidi_lstm_bwd_chain (K2)", "K2 chain", "bidi_lstm_bwd_chain"),
+            ("bidi_lstm_bwd_reduce (K2)", "K2 reduction",
+             "bidi_lstm_bwd_reduce"),
+            ("ctc_forward (K5)", "K5", "ctc_forward"),
+            ("ctc_both (K6)", "K6", "ctc_both"),
+            ("bidi_lstm_fwd_xz (K4)", "K4", "bidi_lstm_infer_xz")):
+        km, pm, (bms, bby), lms = fk["timing"][key]
+        extra.setdefault(name, {})["filter"] = {
+            "shape": fk["shapes"]["large alphabet" if key == "K4" else 32],
+            "launches_per_step": fsteps_f32.get(count, 0) // 5,
+            "clstmfiltertrain_launches": ftrain["launches"].get(count, 0),
+            "clstmfilter_launches": fserve["launches"].get(count, 0),
+            "ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": bby,
+            "library_ms": lms, "max_abs_err": fk["err"][key]}
+    fsteps_bf16 = fsteps[(32, True)]
+    for name, key, count in (
+            ("bidi_lstm_fwd bf16 (K3)", "K3", "bidi_lstm_infer"),
+            ("bidi_lstm_fwd_state bf16 (K1)", "K1", "bidi_lstm_fwd_state"),
+            ("bidi_lstm_bwd_chain bf16 (K2)", "K2 chain",
+             "bidi_lstm_bwd_chain"),
+            ("bidi_lstm_bwd_reduce bf16 (K2)", "K2 reduction",
+             "bidi_lstm_bwd_reduce")):
+        m = fk["bf16"][key]
+        extra[name]["filter"] = {
+            "shape": fk["shapes"][32],
+            "launches_per_step": fsteps_bf16.get(count, 0) // 5,
+            "ms": m["ms"], "f32_ms": m["f32_ms"],
+            "in_turns_f32_bf16": m["in_turns_f32_bf16"],
+            "bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
+    extra["bidi_lstm_fwd (K3)"]["filter"]["clstmfilter"] = {
+        k: fserve[k] for k in ("batches", "lines_per_s",
+                               "lines_per_s_single", "launches_single")}
+    extra["bidi_lstm_fwd_xz (K4)"]["filter"]["in_turns_k4_route_k3"] = \
+        fk["big_k3_k4_ms"]
+    extra["bidi_lstm_fwd_state (K1)"]["filter"]["clstmfiltertrain"] = {
+        k: ftrain[k] for k in ("testerr", "pairs_per_s", "pairs_per_s_range",
+                               "busy_share", "block_enqueue_ms", "block_k",
+                               "cache_mb", "groups", "in_turns")}
+    extra["bidi_lstm_fwd_state (K1)"]["native_io"] = nat
     kernels = []
     for name, src, rep, n, err, rel, (km, pm), (bms, bby), lms in entries:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3786,6 +4544,7 @@ def main(argv=None) -> int:
             e["max_rel_err"] = rel
         e.update(extra.get(name, {}))
         kernels.append(e)
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

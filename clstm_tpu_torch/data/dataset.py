@@ -125,11 +125,19 @@ class OcrDataset:
         norm = make_normalizer(self.dewarp, self.target_height)
         return prepare_line(img, norm, self.pad), self.text(i)
 
-    def load_all(self) -> List[Tuple[np.ndarray, str]]:
-        """Load and prepare every line on the host (PIL decode, scipy
-        normalization). The JAX package's native threaded decoder
-        (native/clstm_io.cc) has no binding in the port yet."""
-        return [self.load(i) for i in range(len(self))]
+    def load_all(self, nthreads: int = 0) -> List[Tuple[np.ndarray, str]]:
+        """Load and prepare every line: through the native threaded decode
+        and prepare (io/native.py PrefetchLoader, ``nthreads`` threads, 0 =
+        one a core) where the native library builds, else on the host
+        line by line (PIL decode, scipy normalization)."""
+        from clstm_tpu_torch.io import native
+        texts = self.texts()
+        if native.available():
+            with native.PrefetchLoader(self.files, self.target_height,
+                                       pad=self.pad, dewarp=self.dewarp,
+                                       nthreads=nthreads) as loader:
+                return [(loader.get(i), texts[i]) for i in range(len(self))]
+        return [(self.load(i)[0], texts[i]) for i in range(len(self))]
 
 
 def make_batches(samples: Sequence[Tuple[np.ndarray, str]], codec: Codec,
@@ -180,6 +188,35 @@ def _emit(items: list, tb: int, sb: int) -> dict:
         texts.append(text)
     return {"x": x, "lengths": lengths, "targets": targets,
             "target_lengths": tlens, "texts": texts}
+
+
+# Input-length buckets of the string-transduction path (frames after
+# input_repeat): text inputs are short, so they start at 16.
+TEXT_T_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512)
+
+
+def encode_onehot(ids: Sequence[int], ni: int, k: int = 1) -> np.ndarray:
+    """Input ids -> one-hot frames [max(len*k, 1), ni], each id repeated
+    ``k`` times (an empty input is one zero frame)."""
+    x = np.zeros((max(len(ids) * k, 1), ni), np.float32)
+    for t, c in enumerate(ids):
+        x[t * k:(t + 1) * k, c] = 1.0
+    return x
+
+
+def make_text_batches(pairs, icodec: Codec, codec: Codec, batch_size: int,
+                      t_buckets: Sequence[int] = TEXT_T_BUCKETS,
+                      s_buckets: Sequence[int] = S_BUCKETS,
+                      rng: Optional[np.random.RandomState] = None,
+                      input_repeat: int = 1) -> Iterator[dict]:
+    """Bucketed batches for string transduction (clstmfiltertrain): inputs
+    one-hot through ``icodec`` (each frame repeated ``input_repeat``
+    times), CTC targets through ``codec``. Same contract as make_batches."""
+    ni = icodec.size()
+    k = max(1, int(input_repeat))
+    samples = [(encode_onehot(icodec.encode(a), ni, k), b) for a, b in pairs]
+    yield from make_batches(samples, codec, batch_size,
+                            t_buckets=t_buckets, s_buckets=s_buckets, rng=rng)
 
 
 def pad_batch_rows(batch: dict, batch_size: int) -> dict:

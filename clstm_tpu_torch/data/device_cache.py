@@ -24,7 +24,9 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from clstm_tpu_torch.data.dataset import S_BUCKETS, T_BUCKETS, bucket_for
+from clstm_tpu_torch.data.dataset import (
+    S_BUCKETS, T_BUCKETS, TEXT_T_BUCKETS, bucket_for)
+from clstm_tpu_torch.io import native
 from clstm_tpu_torch.io.png import read_png
 from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.hl import _canon_dewarp
@@ -45,10 +47,12 @@ def _fixed_buckets(t_buckets):
 
 
 def read_images(files: Sequence[str], nthreads: int = 0) -> list:
-    """Decode line images (PIL) in a thread pool -> float32 [h, w] arrays."""
+    """Decode line images in a thread pool -> float32 [h, w] arrays: with
+    the native reader (io/native.py, libpng) where it builds, else PIL."""
+    reader = native.read_png if native.available() else read_png
     nthreads = nthreads or min(16, max(4, (len(files) + 63) // 64))
     with ThreadPoolExecutor(nthreads) as pool:
-        return list(pool.map(read_png, files))
+        return list(pool.map(reader, files))
 
 
 class DeviceDataset:
@@ -325,3 +329,52 @@ class DeviceDataset:
                           for c, n in zip(chunks, nreal_per)],
                 "host_lengths": [g["host_lengths"][c] for c in chunks],
             }
+
+
+class TextDeviceDataset(DeviceDataset):
+    """Device-resident string-transduction corpus (clstmfiltertrain).
+
+    Each (T bucket, S bucket) group holds its inputs as int32 character ids
+    [N+1, Tb] (4 bytes a frame, not 4·ni for a one-hot frame); the train
+    steps expand the gathered ids to one-hot [B, T, ni] on the device
+    (``input_onehot`` of train.make_cached_train_step and
+    make_multi_train_step, which the group's ``onehot`` key selects in
+    models/hl.py). Padding frames and the sentinel row hold id -1, which
+    expands to an all-zero frame: the host path's zero padding
+    (make_text_batches). Epoch plans, blocks and counters are
+    DeviceDataset's.
+
+    ``input_repeat`` repeats each input id k times along T (CLSTMText).
+    Buckets and truncation as make_text_batches: inputs clamp at
+    t_buckets[-1], blank-interleaved targets at s_buckets[-1], both
+    counted (t_truncated, s_truncated). Batches carry int ids in ``x``:
+    they feed the training steps, not predict_batch.
+    """
+
+    def __init__(self, pairs: Sequence[Tuple[str, str]], icodec: Codec,
+                 codec: Codec, *, input_repeat: int = 1,
+                 t_buckets: Sequence[int] = TEXT_T_BUCKETS,
+                 s_buckets: Sequence[int] = S_BUCKETS, device):
+        self.device = torch_device(device)
+        k = max(1, int(input_repeat))
+        ni = icodec.size()
+        ids_of = [icodec.encode(a) for a, _ in pairs]
+        groups = self._group(
+            [(ids, b, max(len(ids) * k, 1))   # empty input: one zero frame
+             for ids, (_, b) in zip(ids_of, pairs)], codec, t_buckets,
+            s_buckets, merge_sb=False)
+        self.groups = []
+        self.nbytes = 0
+        for (tb, sb), items in sorted(groups.items()):
+            N = len(items)
+            x = np.full((N + 1, tb), -1, np.int32)       # -1: zero frame
+            lengths = np.zeros(N + 1, np.int32)
+            for i, (ids, _, _) in enumerate(items):
+                lengths[i] = min(max(len(ids) * k, 1), tb)
+                for t, c in enumerate(ids):
+                    x[i, t * k:min((t + 1) * k, tb)] = c
+            self.nbytes += x.nbytes
+            self._add_group(tb, sb, items, to_device(x, self.device),
+                            to_device(lengths, self.device), lengths)
+            self.groups[-1]["onehot"] = ni
+

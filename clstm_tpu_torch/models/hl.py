@@ -1,15 +1,17 @@
-"""High-level OCR API: CLSTMOCR (port of clstm_tpu/models/hl.py).
+"""High-level task API: CLSTMOCR and CLSTMText (port of
+clstm_tpu/models/hl.py).
 
 Reference: clstmhl.h (≈L1-350, unverified). ``CLSTMOCR`` owns the line
-normalizer and the image->sequence transpose; ``train_utf8``,
-``predict_utf8`` and ``predict`` are the reference's single-line methods and
-``train_batch`` / ``predict_batch`` the batched entry points they route
-through. ``train_batch_refs`` / ``train_batch_block`` train on batches
-gathered from a device-resident corpus (data/device_cache.py), and
-``predict_batch_images`` runs the line normalization on the device too
-(ops/preprocess.py). ``save``/``load`` write and read the .clstm file and,
-beside it, the ``.state.npz`` TrainState sidecar (io/checkpoint.py).
-CLSTMText and the mesh are not ported yet.
+normalizer and the image->sequence transpose; ``CLSTMText`` does
+string->string transduction with a separate input codec and one-hot input
+frames. Both share ``_TrainableBase``: ``train_batch`` / ``predict_batch``
+(the batched entry points the reference's single-sample methods route
+through), ``train_batch_refs`` / ``train_batch_block`` on batches gathered
+from a device-resident corpus (data/device_cache.py), and ``save``/``load``
+of the .clstm file with, beside it, the ``.state.npz`` TrainState sidecar
+(io/checkpoint.py). ``CLSTMOCR.predict_batch_images`` runs the line
+normalization on the device too (ops/preprocess.py). The mesh is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 from clstm_tpu_torch.data.dataset import (
-    S_BUCKETS, T_BUCKETS, bucket_for, prepare_line)
+    S_BUCKETS, T_BUCKETS, TEXT_T_BUCKETS, bucket_for, encode_onehot,
+    prepare_line)
 from clstm_tpu_torch.io.checkpoint import load_state, save_state
 from clstm_tpu_torch.io.normalize import make_normalizer
 from clstm_tpu_torch.io.proto import load_net, save_net
@@ -75,21 +78,13 @@ class CharPrediction:
     p: float    # probability at the peak frame
 
 
-class CLSTMOCR:
-    """Line-image OCR (reference CLSTMOCR, clstmhl.h ≈L60-250).
+class _TrainableBase:
+    """Shared train/predict machinery over (spec, state, codecs). The net,
+    its training state and every batch live on ``device``; asking for CUDA
+    where there is none raises."""
 
-    Inputs are float [h, w] grayscale images in [0, 1] (ink black on white);
-    the time axis is the image width. The net, its training state and every
-    batch live on ``device``; asking for CUDA where there is none raises.
-    """
-
-    def __init__(self, target_height: int = 48, dewarp: str = "center",
-                 pad: int = 16, *, device):
+    def __init__(self, *, device):
         self.device = torch_device(device)
-        self.target_height = target_height
-        self.dewarp = dewarp
-        self.pad = pad
-        self._scale = 1.0
         self.spec: Optional[NetSpec] = None
         self.state: Optional[TrainState] = None
         self.codec: Optional[Codec] = None
@@ -117,9 +112,12 @@ class CLSTMOCR:
         self._reset_steps()
 
     def _reset_steps(self) -> None:
-        """Forget the built steps (a new net, or new step options)."""
+        """Forget the built steps (a new net, or new step options). The
+        gather steps are keyed by the group's one-hot width (0: the group
+        holds frames), the K-step ones by (k, width): an image group and a
+        text group each take their own."""
         self._step = None
-        self._cached_step = None
+        self._cached_steps = {}
         self._multi_steps = {}
 
     @property
@@ -127,23 +125,15 @@ class CLSTMOCR:
         """The module tree (the parameters of ``state``)."""
         return None if self.state is None else self.state.net
 
+    def _set_net(self, spec: NetSpec, net: Layer) -> None:
+        self.spec = spec
+        self.state = TrainState.create(net)
+        self._reset_steps()
+
     # -- reference API --
     def setLearningRate(self, lr: float, momentum: float = 0.9) -> None:
         self.lr = float(lr)
         self.momentum = float(momentum)
-
-    def createBidi(self, codec: Codec, nhidden: int, kind: str = "bidi",
-                   seed: int = 0, **extra) -> None:
-        """Build the standard bidi LSTM net: ninput=target_height,
-        noutput=codec.size() (reference createBidi -> make_net("bidi")),
-        weights drawn from a torch.Generator seeded with ``seed``."""
-        self.codec = codec
-        args = {"ninput": self.target_height, "nhidden": nhidden,
-                "noutput": codec.size(), **extra}
-        self.spec, net = make_net_init(
-            kind, args, torch.Generator().manual_seed(seed), self.device)
-        self.state = TrainState.create(net)
-        self._reset_steps()
 
     # -- checkpointing (reference save/load; .clstm proto format) --
     def save(self, fname: str, sidecar: bool = True) -> None:
@@ -157,8 +147,8 @@ class CLSTMOCR:
     def load(self, fname: str) -> None:
         """Load a .clstm file onto this model's device; if a matching
         ``.state.npz`` sidecar exists, also restore velocity and step."""
-        self.spec, net, codec, icodec = load_net(fname, self.device)
-        self.state = TrainState.create(net)
+        spec, net, codec, icodec = load_net(fname, self.device)
+        self._set_net(spec, net)
         sidecar = fname + ".state.npz"
         if os.path.exists(sidecar):
             try:
@@ -169,7 +159,6 @@ class CLSTMOCR:
             self.codec = codec
         if icodec is not None:
             self.icodec = icodec
-        self._reset_steps()
 
     # -- training --
     _BATCH_KEYS = ("x", "lengths", "targets", "target_lengths", "y")
@@ -194,12 +183,16 @@ class CLSTMOCR:
 
     def train_batch_refs(self, ref: dict) -> dict:
         """One training step on a DeviceDataset.epoch_refs batch: the rows
-        are gathered from the resident corpus on the device. Metrics as
-        train_batch."""
-        if self._cached_step is None:
-            self._cached_step = make_cached_train_step(
-                self.spec, self.lr, self.momentum, **self._step_options())
-        self.state, metrics, new_j = self._cached_step(
+        are gathered from the resident corpus on the device (and expanded
+        to one-hot frames for a text group). Metrics as train_batch."""
+        onehot = ref["group"].get("onehot", 0)
+        step = self._cached_steps.get(onehot)
+        if step is None:
+            step = make_cached_train_step(
+                self.spec, self.lr, self.momentum, input_onehot=onehot,
+                **self._step_options())
+            self._cached_steps[onehot] = step
+        self.state, metrics, new_j = step(
             self.state, ref["group"], ref["idx_all"], ref["j"], self.lr,
             self.momentum)
         ref["set_j"](new_j)
@@ -218,11 +211,13 @@ class CLSTMOCR:
         its counter no longer matches the host's plan position.
         Returns metrics {loss, report, report_all [max(k_max, k), 1+2T]}."""
         k = max(k_max, block["k"])
-        step = self._multi_steps.get(k)
+        onehot = block["group"].get("onehot", 0)
+        step = self._multi_steps.get((k, onehot))
         if step is None:
             step = make_multi_train_step(self.spec, k, self.lr, self.momentum,
+                                         input_onehot=onehot,
                                          **self._step_options())
-            self._multi_steps[k] = step
+            self._multi_steps[(k, onehot)] = step
         nv = block["k"] if nvalid is None else max(1, min(nvalid, block["k"]))
         self.state, metrics, new_j = step(
             self.state, block["group"], block["idx_all"], block["j"],
@@ -232,9 +227,13 @@ class CLSTMOCR:
             block["exhaust"]()
         return metrics
 
-    def _one_line_batch(self, x: np.ndarray, classes: Sequence[int]) -> dict:
-        tb = bucket_for(x.shape[0], T_BUCKETS)
-        x = x[:tb]  # over-bucket lines clamp at the largest bucket
+    @staticmethod
+    def _single_batch(x: np.ndarray, classes: Sequence[int],
+                      t_buckets: Sequence[int]) -> dict:
+        """One sample [T, D] and its classes -> a B=1 batch at its T bucket
+        (over-bucket inputs clamp at the largest) and S bucket."""
+        tb = bucket_for(x.shape[0], t_buckets)
+        x = x[:tb]
         ids = mktargets_ids(classes)
         sb = bucket_for(len(ids), S_BUCKETS)
         xb = np.zeros((1, tb, x.shape[1]), np.float32)
@@ -246,10 +245,61 @@ class CLSTMOCR:
                 "targets": tg,
                 "target_lengths": np.array([min(len(ids), sb)], np.int32)}
 
+    # -- inference --
+    def predict_batch(self, x, lengths):
+        """Right-padded [B, T, D] inputs and their lengths (numpy, or
+        tensors on the model's device) -> per-frame (ids [B, T], vals
+        [B, T]) numpy arrays: the no-grad forward on the model's device,
+        then the per-frame argmax."""
+        xt = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        lt = torch.as_tensor(lengths, dtype=torch.int32).to(self.device)
+        probs = apply_net(self.net, xt.contiguous(), lt, inference=True,
+                          xz_bf16=self.xz_bf16)
+        ids, vals = greedy_frames(probs)
+        return ids.cpu().numpy(), vals.cpu().numpy()
+
+    def _predict_one(self, x: np.ndarray, t_buckets: Sequence[int]):
+        """One sample [T, D] -> its frames' (ids, vals), run as a B=1 batch
+        at its T bucket (over-bucket inputs clamp, with a warning)."""
+        tb = bucket_for(x.shape[0], t_buckets)
+        _warn_inference_clamp(x.shape[0], tb)
+        x = x[:tb]
+        xb = np.zeros((1, tb, x.shape[1]), np.float32)
+        xb[0, : x.shape[0]] = x
+        ids, vals = self.predict_batch(xb, np.array([x.shape[0]], np.int32))
+        return ids[0][: x.shape[0]], vals[0][: x.shape[0]]
+
+
+class CLSTMOCR(_TrainableBase):
+    """Line-image OCR (reference CLSTMOCR, clstmhl.h ≈L60-250).
+
+    Inputs are float [h, w] grayscale images in [0, 1] (ink black on white);
+    the time axis is the image width.
+    """
+
+    def __init__(self, target_height: int = 48, dewarp: str = "center",
+                 pad: int = 16, *, device):
+        super().__init__(device=device)
+        self.target_height = target_height
+        self.dewarp = dewarp
+        self.pad = pad
+        self._scale = 1.0
+
+    def createBidi(self, codec: Codec, nhidden: int, kind: str = "bidi",
+                   seed: int = 0, **extra) -> None:
+        """Build the standard bidi LSTM net: ninput=target_height,
+        noutput=codec.size() (reference createBidi -> make_net("bidi")),
+        weights drawn from a torch.Generator seeded with ``seed``."""
+        self.codec = codec
+        args = {"ninput": self.target_height, "nhidden": nhidden,
+                "noutput": codec.size(), **extra}
+        self._set_net(*make_net_init(
+            kind, args, torch.Generator().manual_seed(seed), self.device))
+
     def train_utf8(self, image: np.ndarray, gt: str) -> str:
         """Train on one line; returns the (pre-update) prediction string."""
         x = self.prepare(image)
-        batch = self._one_line_batch(x, self.codec.encode(gt))
+        batch = self._single_batch(x, self.codec.encode(gt), T_BUCKETS)
         metrics = self.train_batch(batch)
         _, ids, vals = unpack_report(metrics["report"], x.shape[0])
         return self.codec.decode(decode_frames(ids, vals))
@@ -264,18 +314,6 @@ class CLSTMOCR:
         return x
 
     # -- inference --
-    def predict_batch(self, x, lengths):
-        """Right-padded [B, T, H] lines and their lengths (numpy, or
-        tensors on the model's device) -> per-frame (ids [B, T], vals
-        [B, T]) numpy arrays: the no-grad forward on the model's device,
-        then the per-frame argmax."""
-        xt = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        lt = torch.as_tensor(lengths, dtype=torch.int32).to(self.device)
-        probs = apply_net(self.net, xt.contiguous(), lt, inference=True,
-                          xz_bf16=self.xz_bf16)
-        ids, vals = greedy_frames(probs)
-        return ids.cpu().numpy(), vals.cpu().numpy()
-
     def predict_batch_images(self, images: Sequence[np.ndarray],
                              sync: bool = True):
         """Batched inference from RAW line images with the normalization and
@@ -303,18 +341,9 @@ class CLSTMOCR:
             return ids, vals, lengths
         return ids.cpu().numpy(), vals.cpu().numpy(), lengths.cpu().numpy()
 
-    def _predict_one(self, x: np.ndarray):
-        tb = bucket_for(x.shape[0], T_BUCKETS)
-        _warn_inference_clamp(x.shape[0], tb)
-        x = x[:tb]  # clamp over-bucket lines
-        xb = np.zeros((1, tb, x.shape[1]), np.float32)
-        xb[0, : x.shape[0]] = x
-        ids, vals = self.predict_batch(xb, np.array([x.shape[0]], np.int32))
-        return ids[0][: x.shape[0]], vals[0][: x.shape[0]]
-
     def predict_utf8(self, image: np.ndarray) -> str:
         x = self.prepare(image)
-        ids, vals = self._predict_one(x)
+        ids, vals = self._predict_one(x, T_BUCKETS)
         return self.codec.decode(decode_frames(ids, vals))
 
     def predict(self, image: np.ndarray) -> List[CharPrediction]:
@@ -324,7 +353,7 @@ class CLSTMOCR:
         un-padded, then divided by the normalizer's width scale."""
         x = self.prepare(image)
         w = image.shape[1]
-        ids, vals = self._predict_one(x)
+        ids, vals = self._predict_one(x, T_BUCKETS)
         cls, pos = decode_frames(ids, vals, return_positions=True)
         out = []
         for i, (c, t) in enumerate(zip(cls, pos)):
@@ -333,3 +362,72 @@ class CLSTMOCR:
                 i=i, x=int(np.clip(round(col), 0, max(w - 1, 0))),
                 c=chr(self.codec.codec[c]), p=float(vals[t])))
         return out
+
+
+# Single text samples (CLSTMText.train / predict): TEXT_T_BUCKETS up to its
+# 512 frames, then T_BUCKETS, whose last bucket (4,096) clamps as the JAX
+# package's does. A 10-character input runs 16 frames, not 128 (padded
+# frames are masked, so the outputs are the same).
+TEXT_ONE_BUCKETS = TEXT_T_BUCKETS + tuple(
+    t for t in T_BUCKETS if t > TEXT_T_BUCKETS[-1])
+
+
+class CLSTMText(_TrainableBase):
+    """String->string transduction (reference CLSTMText, clstmhl.h ≈L250).
+
+    Input strings are one-hot encoded with a separate input codec
+    (``icodec``); outputs decode through ``codec``.
+
+    ``input_repeat`` repeats each input frame k times (1, the default, is
+    the reference's behaviour). Where outputs are nearly as long as the
+    inputs (grapheme->phoneme), CTC has no alignment slack at k=1 and
+    training stalls; k>=2 gives it slack. It is kept in the net's attrs,
+    so a .clstm file restores it.
+    """
+
+    def __init__(self, input_repeat: int = 1, *, device):
+        super().__init__(device=device)
+        self.input_repeat = max(1, int(input_repeat))
+
+    def createBidi(self, icodec: Codec, codec: Codec, nhidden: int,
+                   kind: str = "bidi", seed: int = 0, **extra) -> None:
+        """The prefab net ``kind`` with ninput=icodec.size() and
+        noutput=codec.size(), weights drawn from a torch.Generator seeded
+        with ``seed``."""
+        self.icodec = icodec
+        self.codec = codec
+        args = {"ninput": icodec.size(), "nhidden": nhidden,
+                "noutput": codec.size(), **extra}
+        spec, net = make_net_init(kind, args,
+                                  torch.Generator().manual_seed(seed),
+                                  self.device)
+        if self.input_repeat != 1:
+            # In the root's attrs, so the .clstm file restores the input
+            # encoding (a k=3 model decodes garbage at k=1).
+            spec = net.spec = spec.with_attr(input_repeat=self.input_repeat)
+        self._set_net(spec, net)
+
+    def load(self, fname: str) -> None:
+        super().load(fname)
+        self.input_repeat = int(self.spec.get("input_repeat", "1"))
+
+    def encode_input(self, s: str) -> np.ndarray:
+        """One-hot [T, icodec.size()] frames of the input string, each
+        character repeated ``input_repeat`` times."""
+        return encode_onehot(self.icodec.encode(s), self.icodec.size(),
+                             self.input_repeat)
+
+    def _one_batch(self, x: np.ndarray, classes: Sequence[int]) -> dict:
+        return self._single_batch(x, classes, TEXT_ONE_BUCKETS)
+
+    def train(self, inp: str, out: str) -> str:
+        """Train on one pair; returns the (pre-update) prediction."""
+        x = self.encode_input(inp)
+        metrics = self.train_batch(self._one_batch(x, self.codec.encode(out)))
+        _, ids, vals = unpack_report(metrics["report"], x.shape[0])
+        return self.codec.decode(decode_frames(ids, vals))
+
+    def predict(self, inp: str) -> str:
+        ids, vals = self._predict_one(self.encode_input(inp),
+                                      TEXT_ONE_BUCKETS)
+        return self.codec.decode(decode_frames(ids, vals))

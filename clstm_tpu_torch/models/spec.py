@@ -66,6 +66,12 @@ class NetSpec:
             return default
         return float(v)
 
+    def with_attr(self, **kw) -> "NetSpec":
+        """This node with the attrs ``kw`` set (as strings)."""
+        d = dict(self.attr)
+        d.update({k: str(v) for k, v in kw.items()})
+        return NetSpec.make(self.kind, d, self.sub)
+
 
 REGISTRY: dict = {}   # kind -> Layer subclass, constructed as module(spec)
 _ALIASES: dict = {}
@@ -105,14 +111,14 @@ def layer(kind: str, ninput: int, noutput: int, args: Optional[Mapping] = None,
 # Build / init / apply
 # ---------------------------------------------------------------------------
 
-# The precision a CUDA tensor takes when none is asked for. The JAX package
-# runs its Pallas kernels in bf16 on its accelerator (and lax.scan in f32
-# on the CPU), but the port takes the bf16 mode as its card default only
-# once chip_smoke.py's learning check passes on the card: it has not (on
-# its glyph corpus the bf16 mode trails f32 where the CER falls fastest;
-# PERF.md §6, ROADMAP Queue 3), so the default is strict f32 on every
-# device.
-CARD_DEFAULT_BF16 = False
+# The precision a CUDA tensor takes when none is asked for: the bf16 mode,
+# as the JAX package runs its Pallas kernels in bf16 on its accelerator
+# (and lax.scan in f32 on the CPU; a CPU tensor here is f32 too). The port
+# took it as the card's default once chip_smoke.py's learning check (phase
+# 20: bidi on a glyph corpus from three inits, bf16's CER halving within
+# 50 steps of f32's and no worse than f32's + 0.02 at twice that step)
+# passed on the card (PERF.md §6).
+CARD_DEFAULT_BF16 = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -216,9 +216,24 @@ def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
     return step
 
 
-def gather_batch(group: dict, idx: torch.Tensor) -> dict:
-    """Batch rows ``idx`` of a DeviceDataset group, gathered on its device."""
-    return {"x": group["x"].index_select(0, idx),
+def onehot_frames(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Int ids [...] -> f32 one-hot [..., n], by comparison with arange(n)
+    on the ids' device: an id outside [0, n) (the -1 of a padded frame or
+    the sentinel row) gives an all-zero frame, as jax.nn.one_hot does
+    (torch.nn.functional.one_hot raises on it)."""
+    return (ids.unsqueeze(-1) == torch.arange(
+        n, device=ids.device, dtype=ids.dtype)).float()
+
+
+def gather_batch(group: dict, idx: torch.Tensor,
+                 input_onehot: int = 0) -> dict:
+    """Batch rows ``idx`` of a DeviceDataset group, gathered on its device.
+    ``input_onehot`` > 0: the group holds int input ids (TextDeviceDataset)
+    and the gathered rows are expanded to one-hot frames of that width."""
+    x = group["x"].index_select(0, idx)
+    if input_onehot:
+        x = onehot_frames(x, input_onehot)
+    return {"x": x,
             "lengths": group["lengths"].index_select(0, idx),
             "targets": group["targets"].index_select(0, idx),
             "target_lengths": group["tlens"].index_select(0, idx)}
@@ -228,7 +243,7 @@ def make_cached_train_step(spec: NetSpec, lr: float = 1e-4,
                            momentum: float = 0.9, *, loss_kind: str = "ctc",
                            normalization: str = "none", compute_dtype=None,
                            gradient_clip: float = 0.0, augment: float = 0.0,
-                           augment_seed: int = 0,
+                           augment_seed: int = 0, input_onehot: int = 0,
                            xz_bf16: Optional[bool] = None):
     """Gather+train step over a device-resident cache group.
 
@@ -237,7 +252,9 @@ def make_cached_train_step(spec: NetSpec, lr: float = 1e-4,
     resident x/targets/lengths/tlens tensors, sentinel row included),
     ``idx_all`` the epoch's [nb, B] index plan on the same device and ``j``
     the batch to take from it. The batch is gathered on the device, so a
-    batch costs no host-to-device copy."""
+    batch costs no host-to-device copy. ``input_onehot`` > 0: the group
+    holds int input ids (data/device_cache.py TextDeviceDataset), expanded
+    after the gather to one-hot frames of that width (gather_batch)."""
     step = make_train_step(spec, lr, momentum, loss_kind=loss_kind,
                            normalization=normalization,
                            compute_dtype=compute_dtype,
@@ -246,8 +263,9 @@ def make_cached_train_step(spec: NetSpec, lr: float = 1e-4,
 
     def wrapped(state: TrainState, group: dict, idx_all: torch.Tensor,
                 j: int, lr_arg=None, momentum_arg=None):
-        state, metrics = step(state, gather_batch(group, idx_all[j]), lr_arg,
-                              momentum_arg)
+        state, metrics = step(
+            state, gather_batch(group, idx_all[j], input_onehot), lr_arg,
+            momentum_arg)
         return state, metrics, j + 1
 
     return wrapped
@@ -257,7 +275,7 @@ def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
                           momentum: float = 0.9, *, loss_kind: str = "ctc",
                           normalization: str = "none", compute_dtype=None,
                           gradient_clip: float = 0.0, augment: float = 0.0,
-                          augment_seed: int = 0,
+                          augment_seed: int = 0, input_onehot: int = 0,
                           xz_bf16: Optional[bool] = None):
     """K gather+train steps per call, over consecutive batches of a
     device-resident epoch plan: a plain loop of the make_cached_train_step
@@ -271,7 +289,8 @@ def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
     and counter untouched. metrics = {"loss": the last valid step's loss,
     "report": its packed report, "report_all": [k, 1+2T], every step's
     packed (loss, row-0 ids, row-0 vals), zero rows from nvalid on}, so a
-    caller reads a block's reports in one copy."""
+    caller reads a block's reports in one copy. ``input_onehot`` as in
+    make_cached_train_step."""
     step = make_train_step(spec, lr, momentum, loss_kind=loss_kind,
                            normalization=normalization,
                            compute_dtype=compute_dtype,
@@ -281,11 +300,12 @@ def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
     def wrapped(state: TrainState, group: dict, idx_all: torch.Tensor,
                 j: int, nvalid=None, lr_arg=None, momentum_arg=None):
         n = k if nvalid is None else max(1, min(int(nvalid), k))
-        x = group["x"]
-        reports = x.new_zeros((k, 1 + 2 * x.shape[1]))
+        x = group["x"]    # frames, or int ids of a text group
+        reports = torch.zeros((k, 1 + 2 * x.shape[1]), device=x.device)
         for s in range(n):
-            state, metrics = step(state, gather_batch(group, idx_all[j + s]),
-                                  lr_arg, momentum_arg)
+            state, metrics = step(
+                state, gather_batch(group, idx_all[j + s], input_onehot),
+                lr_arg, momentum_arg)
             reports[s] = metrics["report"]
         last = reports[n - 1]
         return state, {"loss": last[0], "report": last,

@@ -197,9 +197,13 @@ def test_torch_port_imports_no_jax():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'clstm_tpu' or k.startswith('clstm_tpu.')]\n"
         "assert not bad, bad\n"
+        "new = ('clstm_tpu_torch.io.native', "
+        "'clstm_tpu_torch.cli.clstmfilter', "
+        "'clstm_tpu_torch.cli.clstmfiltertrain')\n"
+        "assert all(m in sys.modules for m in new), new\n"
         "print(len([k for k in sys.modules "
         "if k.startswith('clstm_tpu_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 32
+    assert int(out.stdout.strip()) >= 35
