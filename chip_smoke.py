@@ -143,9 +143,11 @@ phases 18-20 hold and time the bf16 kernels and run the learning check:
      held-out words) on a TextDeviceDataset; K3, K1, K2, K5 and K6 against
      their plain versions on a gathered batch of each T bucket (16 and 32;
      one-hot x of 19 columns, B=256) and timed at T=32 with their library
-     calls; an input alphabet of BIG_ALPHABET symbols (B=256, T=32), where
-     the layer hoists: K3 with the projection inside and K4 each against
-     plain and against each other, and apply_net takes K4; 5
+     calls (the bf16 reduction with the einsums on bf16 operands); an input
+     alphabet of BIG_ALPHABET symbols (B=256, T=32), where the layer
+     hoists: K3 with the projection inside and K4 each against plain and
+     against each other, K4 in both modes in turns, product + K4 in turns
+     with cuDNN's nn.LSTM in each mode, and apply_net takes K4; 5
      train_batch_block steps from one .clstm against 5 plain steps at each
      T bucket, in both precisions (the limits of 9); clstmfiltertrain
      through its main (B=256, automatic K): K3, K1, K2, K5 and K6 must be
@@ -160,7 +162,25 @@ phases 18-20 hold and time the bf16 kernels and run the learning check:
      libpng) builds on the machine, and so which PNG reader and line loader
      the OCR phases took; where it builds, read_png bit for bit against PIL
      on all 256 grey levels and prepare_line against the Python normalizer
-     within tests/test_native.py's envelope.
+     within tests/test_native.py's envelope;
+ 23. data parallelism (clstm_tpu_torch/parallel/): (a) a 1-rank NCCL group
+     on the card: 3 make_parallel_train_step steps on the bench batch
+     (bidi, the default precision) bitwise equal to make_train_step's, the
+     all_reduce's ms a step from torch.profiler, and a K=4 parallel block
+     returned behind a device sleep without waiting for the card; (b) two
+     gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card),
+     started with spawn: 5 parallel steps of bidi and 3 of bidi2 (128 rows
+     a rank, lr DP_LR) in both precisions against the same steps on one
+     rank on the full batch (losses rtol 2e-4, parameters rtol 3e-4 and
+     atol 2e-5, the JAX package's DP tolerances, plus DP_BF16_SLACK of the
+     largest move in the bf16 mode, whose affine weight gradient each rank
+     rounds to bf16 before the sum), K1, K2, K5, K6 (and K4 for bidi2)
+     launched on each rank, the step's and one gloo all_reduce's ms; (c)
+     clstmocrtrain (phase 17's corpus, B=32, K=64, 512 trials) and
+     clstmfiltertrain (phase 21's corpus, B=256, K=64, 4 blocks) with
+     mesh=2 device=cuda:0 against mesh=1 from one .clstm, weights within
+     (b)'s limits, lines/s and pairs/s labelled as a check, not a scaling
+     figure.
 
 With --k2-against SRC, every timed K2 shape also times the K2 built from
 SRC in turns with the current one (against, current, current, against);
@@ -197,6 +217,7 @@ import functools
 import io
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -204,17 +225,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from clstm_tpu_torch.cli import clstmfilter, clstmfiltertrain, clstmocrtrain
 from clstm_tpu_torch.cli.clstmocr import predict_pages, write_outputs
-from clstm_tpu_torch.data.dataset import T_BUCKETS_FINE
+from clstm_tpu_torch.data.dataset import OcrDataset, T_BUCKETS_FINE
 from clstm_tpu_torch.data.device_cache import DeviceDataset, TextDeviceDataset
 from clstm_tpu_torch.data.dataset import prepare_line
 from clstm_tpu_torch.io import native
 from clstm_tpu_torch.io.normalize import make_normalizer
 from clstm_tpu_torch.io.png import read_png, write_png
-from clstm_tpu_torch.io.proto import save_net
+from clstm_tpu_torch.io.proto import load_net, save_net
 from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.hl import CLSTMOCR, CLSTMText
 from clstm_tpu_torch.models.prefab import make_net_init
@@ -233,8 +255,12 @@ from clstm_tpu_torch.ops.ctc_kernel import ctc_backward, ctc_both, ctc_forward
 from clstm_tpu_torch.ops import preprocess
 from clstm_tpu_torch.ops.lstm import bidi_lstm_apply
 from clstm_tpu_torch.ops.seq import length_mask
+from clstm_tpu_torch.parallel import (
+    launch, make_mesh, make_parallel_multi_train_step,
+    make_parallel_train_step)
 from clstm_tpu_torch.train import (
-    TrainState, gather_batch, make_predict_step, make_train_step, sgd_update)
+    _LOSSES, TrainState, gather_batch, loss_and_grads, make_predict_step,
+    make_train_step, sgd_update)
 from clstm_tpu_torch.utils.metrics import levenshtein
 from clstm_tpu_torch.utils.config import to_device, torch_device
 
@@ -3057,6 +3083,16 @@ def filter_kernels(dev, card: str, dcache, ncls: int) -> dict:
                               "in_turns_f32_bf16": [f32_t, bf_t],
                               "bound": lstm_bound(kind, FILTER_B, tb, D_, H,
                                                   V_, esize=2)}
+            # The bf16 reduction's library call: the plain version's
+            # einsums on bf16 operands, in turns.
+            kr16, lib16 = in_turns(
+                lambda: bidi_lstm_bwd_reduce(x, y16, dz16, Wx2, False,
+                                             xz_bf16=True),
+                einsum_reduce(x.bfloat16(), y16, dz16, Wx2.bfloat16(),
+                              False), 20)
+            bf16["K2 reduction"].update(
+                library_ms=mean(lib16), in_turns_kernel_library=[kr16,
+                                                                 lib16])
             del y16, g16, c16, gy16, dz16
         del lstm, px, dz, st
     # The large-alphabet shape: K3 (projection inside) against K4's route.
@@ -3089,11 +3125,37 @@ def filter_kernels(dev, card: str, dcache, ncls: int) -> dict:
             lambda: bidi_lstm_infer_xz(gf, gr, lstm_ops.hoisted_projection(
                 gf, gr, xg), Lg),
             lambda: bidi_lstm_infer(gf, gr, xg, Lg), 20)
-        timing["K4"] = (time_ms(lambda: bidi_lstm_infer_xz(gf, gr, xz, Lg),
-                                20),
+        # K4 in both modes in turns, and the whole layer (product + K4)
+        # in turns with cuDNN's nn.LSTM, which computes the projection
+        # inside, in each mode.
+        xz16 = lstm_ops.hoisted_projection(gf, gr, xg, xz_bf16=True)
+        k4_32, k4_16 = in_turns(
+            lambda: bidi_lstm_infer_xz(gf, gr, xz, Lg),
+            lambda: bidi_lstm_infer_xz(gf, gr, xz16, Lg, xz_bf16=True), 20)
+        lstm = cudnn_lstm(gf, gr, dev)
+        pxg = packed(xg, Lg)
+        check_cudnn(lstm, pxg, y3, "K4's route")
+        tot4, lib4 = in_turns(
+            lambda: bidi_lstm_infer_xz(gf, gr, lstm_ops.hoisted_projection(
+                gf, gr, xg), Lg), lambda: lstm(pxg), 20)
+        lstm16 = copy.deepcopy(lstm).to(torch.bfloat16)
+        px16 = packed(xg.bfloat16(), Lg)
+        tot16, lib16 = in_turns(
+            lambda: bidi_lstm_infer_xz(gf, gr, lstm_ops.hoisted_projection(
+                gf, gr, xg, xz_bf16=True), Lg, xz_bf16=True),
+            lambda: lstm16(px16), 20)
+        timing["K4"] = (mean(k4_32),
                         time_ms(lambda: bidi_lstm_apply(gf, gr, xg, Lg), 3),
                         lstm_bound("xz", FILTER_B, 32, BIG_ALPHABET, H, Vg),
-                        None)
+                        mean(lib4))
+        bf16["K4"] = {"ms": mean(k4_16), "f32_ms": mean(k4_32),
+                      "in_turns_f32_bf16": [k4_32, k4_16],
+                      "bound": lstm_bound("xz", FILTER_B, 32, BIG_ALPHABET,
+                                          H, Vg, esize=2),
+                      "library_ms": mean(lib16),
+                      "hoisted_total_ms": mean(tot16),
+                      "in_turns_total_library": [tot16, lib16]}
+        del lstm, lstm16, pxg, px16, xz16
     # Through the layer tree: a net on BIG_ALPHABET inputs takes K4.
     spec_g, net_g = make_net_init("bidi", {"ninput": BIG_ALPHABET,
                                            "nhidden": H, "noutput": ncls},
@@ -3125,7 +3187,8 @@ def filter_kernels(dev, card: str, dcache, ncls: int) -> dict:
                f"{bf16[name]['bound'][0]:.4f} ms"
                if name in bf16 else ""))
     return {"err": err, "rel": rel, "timing": timing, "shapes": shapes,
-            "bf16": bf16, "big_k3_k4_ms": {"K4 route": k4, "K3": k3b}}
+            "bf16": bf16, "big_k3_k4_ms": {"K4 route": k4, "K3": k3b},
+            "big_k4_total_ms": {"f32": [tot4, lib4], "bf16": [tot16, lib16]}}
 
 
 def filter_steps(dev, dcache, start: str, lr: float,
@@ -3444,6 +3507,389 @@ def native_check(dev, tmp: str) -> dict:
         f"natively and load_all takes the PrefetchLoader; read_png equals "
         f"PIL's on all 256 grey levels, prepare_line within the envelope "
         f"(worst mean |d| {worst:.3e})")
+    return out
+
+
+# Phase 23, data parallelism (clstm_tpu_torch/parallel/): one NCCL rank on
+# the card, then two gloo ranks sharing it (NCCL refuses two ranks on one
+# device; gloo stages CUDA tensors through the host), started with spawn as
+# the CLIs start them. Two ranks sharing one card give a check of the
+# semantics, not a scaling figure. Tolerances: the JAX package's own for DP
+# (tests/test_parallel.py:75-79 losses, tests/test_cli.py:282 parameters).
+DP_LOSS_RTOL = 2e-4
+DP_PARAM_RTOL, DP_PARAM_ATOL = 3e-4, 2e-5
+# (net, nhidden, classes, parallel steps) at the bench batch (B=256, T=1024,
+# 900 frames, S=81): 128 rows a rank.
+DP_NETS = (("bidi", H, C, 5), ("bidi2", H2, C2, 3))
+# The learning rate of (b). At bench.py's 1e-4 the bench batch's loss
+# climbs 1.05e6 -> 2.9e7 in 4 steps, and that divergence magnifies a
+# difference in the last bits of a sum ~1e3x a step: phase 9's kernel and
+# plain f32 steps, the same math, drift 3.3e-4 apart by step 5. The
+# tolerances above are for sums in another order, so (b) takes a step that
+# does not diverge; its weights still move ~1e4x the parameter tolerance
+# (logged), which a mean in place of the sum would halve.
+DP_LR = 1e-6
+# In the bf16 mode the affine layers' weight gradient is rounded to bf16
+# (models/spec.py::_AffineBF16, the JAX package's casts), on each rank
+# before the sum, where one rank rounds the full sum once: the two differ by
+# up to a bf16 ulp of the gradient, 2^-8 of it. So the bf16 runs hold the
+# parameters within the tolerances above plus DP_BF16_SLACK of the largest
+# move of a parameter from its start; f32 runs take the tolerances alone.
+DP_BF16_SLACK = 2.0 ** -8
+DP_COUNTED = ("bidi_lstm_fwd_state", "bidi_lstm_bwd_chain",
+              "bidi_lstm_bwd_reduce", "ctc_forward", "ctc_both")
+# The CLIs on two ranks sharing cuda:0 against mesh=1 from one .clstm:
+# clstmocrtrain on phase 17's corpus (B=32, K=64, 512 trials) and
+# clstmfiltertrain on phase 21's g2p corpus (B=256, K=64, 4 blocks).
+DP_OCR_ENV = {"device": "cuda:0", "device_preprocess": "1",
+              "batch_size": "32", "steps_per_dispatch": "64",
+              "ntrain": "512", "test_every": "512", "save_every": "512",
+              "report_every": "256", "target_height": str(D),
+              "randseed": "0"}
+DP_FILTER_ENV = dict(FILTER_ENV, device="cuda:0", steps_per_dispatch="64",
+                     ntrain=str(4 * 64 * FILTER_B), test_every="65536",
+                     save_every="65536", report_every="16384")
+DP_LABEL = "two ranks sharing one card: a check, not a scaling figure"
+
+
+def dp_net(kind: str, h: int, ncls: int, dev):
+    """The seeded net of a phase 23 run (the same on every rank)."""
+    return make_net_init(kind, {"ninput": D, "nhidden": h, "noutput": ncls},
+                         torch.Generator().manual_seed(0), dev)
+
+
+def dp_params(net) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+
+
+def dp_check(tag: str, got: torch.Tensor, ref: torch.Tensor,
+             start: torch.Tensor, bf16: bool) -> dict:
+    """Parameters ``got`` against ``ref`` (both moved from ``start``) within
+    DP_PARAM_RTOL and DP_PARAM_ATOL, plus DP_BF16_SLACK of the largest move
+    in the bf16 mode; raises otherwise. -> the distances."""
+    diff = (got - ref).abs()
+    move = float((ref - start).abs().max())
+    lim = DP_PARAM_ATOL + DP_PARAM_RTOL * ref.abs()
+    slack = DP_BF16_SLACK * move if bf16 else 0.0
+    over = float((diff - lim).max())
+    if not over <= slack:
+        raise AssertionError(
+            f"{tag}: params off by up to {float(diff.max()):.3e}, "
+            f"{over:.3e} over rtol {DP_PARAM_RTOL:g} atol {DP_PARAM_ATOL:g}"
+            + (f" (bf16 slack {slack:.3e})" if bf16 else ""))
+    return {"max_param_diff": float(diff.max()), "max_param_move": move,
+            "over_f32_limit": over, "bf16_slack": slack}
+
+
+def dp_note(d: dict) -> str:
+    return (f"params max|d| {d['max_param_diff']:.3e} (largest move "
+            f"{d['max_param_move']:.3e}; {d['over_f32_limit']:.3e} over rtol "
+            f"{DP_PARAM_RTOL:g} atol {DP_PARAM_ATOL:g}"
+            + (f", within the bf16 slack {d['bf16_slack']:.3e}"
+               if d["bf16_slack"] else "") + ")")
+
+
+def dp_worker(out: str, default_bf16: bool, mesh=None) -> int:
+    """Phase 23 (b) on one of two gloo ranks sharing cuda:0: for each net of
+    DP_NETS in both precisions, make_parallel_train_step's steps on the
+    bench batch from the seeded init, the launch counts reset just before
+    and read just after; the host ms of a step (median after the first)
+    and of one all_reduce of a buffer of the step's size alone (median of
+    5). Each rank writes its results to ``out``.RANK."""
+    dev = mesh.device
+    res = {}
+    for kind, h, ncls, nsteps in DP_NETS:
+        batch = bench_batch(np.random.RandomState(0), dev, ncls)
+        for bf16 in (default_bf16, not default_bf16):
+            spec, net = dp_net(kind, h, ncls, dev)
+            state = TrainState.create(net)
+            step = make_parallel_train_step(spec, mesh, DP_LR, 0.9,
+                                            xz_bf16=bf16)
+            torch.cuda.synchronize()
+            mesh.barrier()
+            reset_counts()
+            losses, step_ms = [], []
+            for _ in range(nsteps):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            launches = counts()
+            n = 1 + sum(p.numel() for p in net.parameters()) + 2 * B * T
+            buf = torch.zeros(n, device=dev)
+            ar = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                mesh.barrier()
+                t0 = time.perf_counter()
+                mesh.all_reduce(buf)
+                torch.cuda.synchronize()
+                ar.append((time.perf_counter() - t0) * 1e3)
+            res[(kind, bf16)] = {
+                "losses": losses, "params": dp_params(net).cpu(),
+                "launches": launches,
+                "step_ms": float(np.median(step_ms[1:])),
+                "all_reduce_ms": float(np.median(ar)), "buffer_floats": n}
+            del state, step, net
+    with open(f"{out}.{mesh.rank}", "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def dp_nccl(dev, tmp: str) -> dict:
+    """Phase 23 (a): a 1-rank NCCL group on the card. make_parallel_train_step
+    on the bench batch, 3 steps bitwise equal to make_train_step's from the
+    same init (losses, reports, frame ids, parameters, velocity); the
+    all_reduce's device time a step from torch.profiler; a K=4 parallel
+    block enqueued behind a device sleep must return without waiting."""
+    mesh = make_mesh(1, "cuda:0", rank=0,
+                     init_method="file://" + os.path.join(tmp, "store"))
+    if mesh.backend != "nccl":
+        raise AssertionError(f"one rank on a card took {mesh.backend}")
+    try:
+        batch = bench_batch(np.random.RandomState(0), dev, C)
+        spec, net_a = dp_net("bidi", H, C, dev)
+        a, b = TrainState.create(net_a), TrainState.create(dp_net(
+            "bidi", H, C, dev)[1])
+        one = make_train_step(spec, 1e-4, 0.9)
+        par = make_parallel_train_step(spec, mesh, 1e-4, 0.9)
+        for s in range(3):
+            a, ma = one(a, batch)
+            b, mb = par(b, batch)
+            for k in ("loss", "report", "frame_ids", "frame_vals"):
+                if not torch.equal(ma[k], mb[k]):
+                    raise AssertionError(f"1-rank NCCL step {s}: {k} differs "
+                                         "from make_train_step's")
+        for (n, p), q in zip(a.net.named_parameters(), b.net.parameters()):
+            if not (torch.equal(p, q) and torch.equal(a.velocity[n],
+                                                      b.velocity[n])):
+                raise AssertionError(f"1-rank NCCL steps: {n} differs")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                par(b, batch)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if "nccl" in e.key.lower()]
+        ar_dev = sum(device_us(e) for e in rows
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        ar_host = sum(e.cpu_time_total for e in rows
+                      if e.device_type == torch.autograd.DeviceType.CPU)
+        step_ms = host_ms(lambda: par(b, batch), 3)
+        group = {"x": batch["x"], "targets": batch["targets"],
+                 "lengths": batch["lengths"],
+                 "tlens": batch["target_lengths"]}
+        idx_all = torch.arange(B, device=dev).repeat(8, 1)
+        multi = make_parallel_multi_train_step(spec, mesh, 4, 1e-4, 0.9)
+        multi(b, group, idx_all, 0)
+        torch.cuda.synchronize()
+        sleep = torch.cuda.Event(enable_timing=True)
+        woke = torch.cuda.Event(enable_timing=True)
+        sleep.record()
+        torch.cuda._sleep(NOSYNC_CYCLES)
+        woke.record()
+        t0 = time.perf_counter()
+        multi(b, group, idx_all, 4)
+        nosync_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        sleep_ms = sleep.elapsed_time(woke)
+        if not nosync_ms < 0.5 * sleep_ms:
+            raise AssertionError(f"a K=4 parallel block took {nosync_ms:.1f} "
+                                 f"ms behind a {sleep_ms:.1f} ms device "
+                                 "sleep: a step waited for the card")
+    finally:
+        dist.destroy_process_group()
+    nparams = sum(p.numel() for p in a.net.parameters())
+    out = {"step_ms": step_ms, "all_reduce_device_ms": ar_dev / 3e3,
+           "all_reduce_host_ms": ar_host / 3e3,
+           "nccl_rows": sorted({kernel_name(e.key) for e in rows}),
+           "buffer_floats": 1 + nparams + 2 * B * T,
+           "block_enqueue_ms": nosync_ms, "sleep_ms": sleep_ms}
+    log(f"[dp] (a) 1-rank NCCL on {dev}: 3 make_parallel_train_step steps "
+        f"(bidi B={B} T={T} S={2 * NCHARS + 1}, the card's default "
+        "precision) bitwise "
+        f"equal to make_train_step's; step {step_ms:.3f} ms; the all_reduce "
+        f"of {out['buffer_floats']} floats (loss, {nparams} gradient "
+        f"values, the frames of 2·B·T) {out['all_reduce_device_ms']:.4f} ms "
+        f"a step on the card, {out['all_reduce_host_ms']:.4f} ms on the "
+        f"host (torch.profiler rows {out['nccl_rows']}); a K=4 parallel "
+        f"block returned in {nosync_ms:.2f} ms behind a {sleep_ms:.1f} ms "
+        "device sleep")
+    return out
+
+
+def dp_gloo(dev, tmp: str, default_bf16: bool) -> dict:
+    """Phase 23 (b): dp_worker on two gloo ranks sharing cuda:0, held against
+    the same steps on one rank on the full batch."""
+    out = os.path.join(tmp, "dp")
+    if launch(dp_worker, 2, (out, default_bf16), "cuda:0") != 0:
+        raise AssertionError("the DP ranks returned non-zero")
+    ranks = []
+    for r in (0, 1):
+        with open(f"{out}.{r}", "rb") as f:
+            ranks.append(pickle.load(f))
+    res = {}
+    for kind, h, ncls, nsteps in DP_NETS:
+        batch = bench_batch(np.random.RandomState(0), dev, ncls)
+        for bf16 in (default_bf16, not default_bf16):
+            spec, net = dp_net(kind, h, ncls, dev)
+            start = dp_params(net).cpu()
+            state = TrainState.create(net)
+            step = make_train_step(spec, DP_LR, 0.9, xz_bf16=bf16)
+            losses = []
+            for _ in range(nsteps):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            r0, r1 = (rk[(kind, bf16)] for rk in ranks)
+            tag = f"{kind} {'bf16' if bf16 else 'f32'}"
+            if not torch.equal(r0["params"], r1["params"]):
+                raise AssertionError(f"DP {tag}: the ranks' params differ")
+            if not np.allclose(r0["losses"], losses, rtol=DP_LOSS_RTOL,
+                               atol=0):
+                raise AssertionError(f"DP {tag}: losses {r0['losses']} "
+                                     f"against one rank's {losses}")
+            dist_ = dp_check(f"DP {tag}", r0["params"], dp_params(net).cpu(),
+                             start, bf16)
+            want = DP_COUNTED + (("bidi_lstm_fwd_state_xz",)
+                                 if kind == "bidi2" else ())
+            for r, rk in enumerate((r0, r1)):
+                if min(rk["launches"][k] for k in want) < nsteps:
+                    raise AssertionError(f"DP {tag}: rank {r} skipped a "
+                                         f"kernel: {rk['launches']}")
+            res[(kind, bf16)] = dict(
+                dist_, steps=nsteps, lr=DP_LR, losses=r0["losses"],
+                one_rank_losses=losses, **{
+                "launches_per_step": [
+                    {k: v / nsteps for k, v in rk["launches"].items() if v}
+                    for rk in (r0, r1)],
+                "step_ms": [r0["step_ms"], r1["step_ms"]],
+                "all_reduce_ms": [r0["all_reduce_ms"], r1["all_reduce_ms"]],
+                "buffer_floats": r0["buffer_floats"]})
+            log(f"[dp] (b) 2 gloo ranks sharing cuda:0, {tag} (B={B}, "
+                f"{B // 2} rows a rank), {nsteps} steps: losses "
+                f"{r0['losses']} "
+                f"against one rank's {losses} (rtol {DP_LOSS_RTOL:g}, lr "
+                f"{DP_LR:g}), {dp_note(dist_)}, the ranks' params "
+                "equal; launches a step on each rank "
+                f"{res[(kind, bf16)]['launches_per_step']}; step "
+                f"{r0['step_ms']:.2f} / {r1['step_ms']:.2f} ms (ranks 0/1), "
+                f"one gloo all_reduce of {r0['buffer_floats']} floats "
+                f"{r0['all_reduce_ms']:.3f} / {r1['all_reduce_ms']:.3f} ms "
+                "(gloo stages CUDA tensors through the host, so it waits "
+                f"for the card; {DP_LABEL})")
+            del state, step, net
+    return res
+
+
+def dp_halves(dev) -> dict:
+    """Why the bf16 runs need DP_BF16_SLACK: at the seeded init, the
+    gradient of the bench batch against the sum of its two halves'
+    gradients, in both modes, as max|Δ| / max|g| of the worst parameter."""
+    batch = bench_batch(np.random.RandomState(0), dev, C)
+    halves = [{k: v[r] for k, v in batch.items()}
+              for r in (slice(0, B // 2), slice(B // 2, B))]
+    out = {}
+    for bf16 in (True, False):
+        net = dp_net("bidi", H, C, dev)[1]
+        full = loss_and_grads(net, batch, _LOSSES["ctc"], "none", bf16)[1]
+        parts = [loss_and_grads(net, h, _LOSSES["ctc"], "none", bf16)[1]
+                 for h in halves]
+        rel = {n: float((full[n] - parts[0][n] - parts[1][n]).abs().max()
+                        / full[n].abs().max()) for n in full}
+        worst = max(rel, key=rel.get)
+        out["bf16" if bf16 else "f32"] = {"worst": worst,
+                                          "rel": rel[worst]}
+    log(f"[dp] (b) why the bf16 slack: at the init, the bench batch's "
+        f"gradient against its two halves' summed, worst parameter: bf16 "
+        f"{out['bf16']['worst']} {out['bf16']['rel']:.3e}, f32 "
+        f"{out['f32']['worst']} {out['f32']['rel']:.3e} (max|d| / max|g|; "
+        "the bf16 mode rounds the affine layers' dW to bf16 on each part)")
+    return out
+
+
+def dp_cli(mod, name: str, args, env: dict, tmp: str, dev) -> dict:
+    """One CLI run through its main with ``env`` -> its JSONL records, the
+    saved model's parameters, the wall seconds and what it printed here
+    (the ranks' rank 0 prints in its own process)."""
+    save = os.path.join(tmp, name)
+    env = dict(env, save_name=save, log_jsonl=save + ".jsonl")
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    printed = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = mod.main(args)
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rc != 0:
+        raise AssertionError(f"{name}: main returned {rc}")
+    with open(save + ".jsonl") as f:
+        recs = [json.loads(ln) for ln in f]
+    net = load_net(save + "-last.clstm", dev)[1]
+    return {"recs": recs, "params": dp_params(net).cpu(), "wall_s": wall,
+            "printed": printed.getvalue()}
+
+
+def dp_clis(dev, tmp: str, ocr_dir: str, train_pairs, test_pairs,
+            default_bf16: bool) -> dict:
+    """Phase 23 (c): clstmocrtrain and clstmfiltertrain with mesh=2 on
+    cuda:0 (two gloo ranks started by main) against mesh=1, from one
+    .clstm each, in the card's default precision (the CLIs have no other):
+    the same trials, final weights within (b)'s limits (dp_check)."""
+    manifests = [os.path.join(ocr_dir, d, "manifest.txt")
+                 for d in ("train", "test")]
+    ocr = CLSTMOCR(target_height=D, device=dev)
+    ocr.createBidi(OcrDataset(manifests[0], target_height=D).build_codec(),
+                   H, seed=0)
+    ocr_start = os.path.join(tmp, "ocr_start.clstm")
+    ocr.save(ocr_start)
+    icodec = Codec.build(a for a, _ in train_pairs)
+    fcodec = Codec.build(b for _, b in train_pairs)
+    flt = CLSTMText(input_repeat=FILTER_REPEAT, device=dev)
+    flt.createBidi(icodec, fcodec, H, seed=0)
+    flt_start = os.path.join(tmp, "filter_start.clstm")
+    flt.save(flt_start)
+    tsv = [write_tsv(os.path.join(tmp, f"{n}.tsv"), p)
+           for n, p in (("train", train_pairs), ("test", test_pairs))]
+    out = {}
+    for cli, mod, args, env, start, rate, model in (
+            ("clstmocrtrain", clstmocrtrain, manifests, DP_OCR_ENV,
+             ocr_start, "lines_per_sec", ocr),
+            ("clstmfiltertrain", clstmfiltertrain, tsv, DP_FILTER_ENV,
+             flt_start, "pairs_per_sec", flt)):
+        runs = {m: dp_cli(mod, f"{cli}-mesh{m}", args,
+                          dict(env, load=start, mesh=str(m)), tmp, dev)
+                for m in (1, 2)}
+        one, two = runs[1], runs[2]
+        if [r["trial"] for r in two["recs"]] != [r["trial"] for r in
+                                                 one["recs"]]:
+            raise AssertionError(f"{cli} mesh=2: other trials than mesh=1")
+        if "data-parallel" in one["printed"]:
+            raise AssertionError(f"{cli} mesh=1 ran data-parallel")
+        dist_ = dp_check(f"{cli} mesh=2", two["params"], one["params"],
+                         dp_params(model.net).cpu(), default_bf16)
+        rates = {m: [r[rate] for r in runs[m]["recs"] if rate in r][-1]
+                 for m in (1, 2)}
+        trials = one["recs"][-1]["trial"]
+        out[cli] = {"trials": trials, **dist_,
+                    "rate_mesh1": rates[1], "rate_mesh2": rates[2],
+                    "wall_s_mesh1": one["wall_s"],
+                    "wall_s_mesh2": two["wall_s"],
+                    "test": [[r.get("test_cer") for r in runs[m]["recs"]
+                              if "test_cer" in r] for m in (1, 2)]}
+        log(f"[dp] (c) {cli} from one .clstm, {trials} trials on cuda:0: "
+            f"mesh=2 against mesh=1, {dp_note(dist_)}; test CER "
+            f"{out[cli]['test']}; {rate.replace('_per_sec', '/s')} mesh=1 "
+            f"{rates[1]:.1f}, mesh=2 {rates[2]:.1f} ({DP_LABEL}); wall "
+            f"{one['wall_s']:.1f} s and {two['wall_s']:.1f} s with the "
+            "corpus build (and the ranks' start for mesh=2)")
     return out
 
 
@@ -4187,9 +4633,13 @@ def main(argv=None) -> int:
     # 16. The u8 pixel table on the card.
     check_u8(dev, np.random.RandomState(4))
 
-    # 17. clstmocrtrain at full bidi width on a synthetic corpus.
-    with tempfile.TemporaryDirectory() as tmp:
-        trained = ocrtrain(dev, tmp)
+    # 17. clstmocrtrain at full bidi width on a synthetic corpus (kept for
+    # phase 23).
+    ocr_dir = tempfile.TemporaryDirectory()
+    trained = ocrtrain(dev, ocr_dir.name)
+    if not trained["pil"]:
+        raise AssertionError("phase 23 trains clstmocrtrain on phase 17's "
+                             "PNG corpus, which needs pillow")
 
     # 18-19. The bf16 kernels against their plain versions and float64, and
     # timed in turns with their f32 modes.
@@ -4250,6 +4700,19 @@ def main(argv=None) -> int:
                               [a for a, _ in test_pairs])
         nat = native_check(dev, tmp)
     del fcache, maker
+
+    # 23. Data parallelism: (a) one NCCL rank, (b) two gloo ranks sharing
+    # the card against one rank, (c) both trainer CLIs with mesh=2.
+    t23 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = {"nccl": dp_nccl(dev, tmp),
+              "gloo": dp_gloo(dev, tmp, default_bf16),
+              "halves": dp_halves(dev),
+              "clis": dp_clis(dev, tmp, ocr_dir.name, train_pairs,
+                              test_pairs, default_bf16)}
+    ocr_dir.cleanup()
+    dp["seconds"] = time.perf_counter() - t23
+    log(f"[dp] phase 23 passed in {dp['seconds']:.1f} s")
 
     # 18. Report. bound_ms from this run's shapes and valid frames (lengths
     # 900 at both bench shapes); library_ms a library call timed in turns
@@ -4517,24 +4980,52 @@ def main(argv=None) -> int:
             ("bidi_lstm_bwd_chain bf16 (K2)", "K2 chain",
              "bidi_lstm_bwd_chain"),
             ("bidi_lstm_bwd_reduce bf16 (K2)", "K2 reduction",
-             "bidi_lstm_bwd_reduce")):
+             "bidi_lstm_bwd_reduce"),
+            ("bidi_lstm_fwd_xz bf16 (K4)", "K4", "bidi_lstm_infer_xz")):
         m = fk["bf16"][key]
         extra[name]["filter"] = {
-            "shape": fk["shapes"][32],
+            "shape": fk["shapes"]["large alphabet" if key == "K4" else 32],
             "launches_per_step": fsteps_bf16.get(count, 0) // 5,
             "ms": m["ms"], "f32_ms": m["f32_ms"],
             "in_turns_f32_bf16": m["in_turns_f32_bf16"],
-            "bound_ms": m["bound"][0], "bound_by": m["bound"][1]}
+            "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
+            "library_ms": m.get("library_ms"),
+            **({"hoisted_total_ms": m["hoisted_total_ms"]}
+               if "hoisted_total_ms" in m else {})}
     extra["bidi_lstm_fwd (K3)"]["filter"]["clstmfilter"] = {
         k: fserve[k] for k in ("batches", "lines_per_s",
                                "lines_per_s_single", "launches_single")}
     extra["bidi_lstm_fwd_xz (K4)"]["filter"]["in_turns_k4_route_k3"] = \
         fk["big_k3_k4_ms"]
+    extra["bidi_lstm_fwd_xz (K4)"]["filter"]["in_turns_total_cudnn"] = \
+        fk["big_k4_total_ms"]
     extra["bidi_lstm_fwd_state (K1)"]["filter"]["clstmfiltertrain"] = {
         k: ftrain[k] for k in ("testerr", "pairs_per_s", "pairs_per_s_range",
                                "busy_share", "block_enqueue_ms", "block_k",
                                "cache_mb", "groups", "in_turns")}
     extra["bidi_lstm_fwd_state (K1)"]["native_io"] = nat
+    # The data-parallel path (phase 23 b): each kernel's launches a step on
+    # each of the two ranks, by net and precision, beside the step's ms and
+    # the gloo all_reduce's; K1's row also carries (a) and (c).
+    dp_rows = {"bidi_lstm_fwd_state": "bidi_lstm_fwd_state{} (K1)",
+               "bidi_lstm_fwd_state_xz": "bidi_lstm_fwd_xz_state{} (K4)",
+               "bidi_lstm_bwd_chain": "bidi_lstm_bwd_chain{} (K2)",
+               "bidi_lstm_bwd_reduce": "bidi_lstm_bwd_reduce{} (K2)",
+               "ctc_forward": "ctc_forward (K5)", "ctc_both": "ctc_both (K6)"}
+    for (net_kind, bf16), r in dp["gloo"].items():
+        tag = f"{net_kind} {'bf16' if bf16 else 'f32'}"
+        for key, row in dp_rows.items():
+            extra.setdefault(row.format(" bf16" if bf16 else ""), {}
+                             ).setdefault("dp", {})[tag] = {
+                "launches_per_step_per_rank": [
+                    lp.get(key, 0) for lp in r["launches_per_step"]],
+                "step_ms": r["step_ms"],
+                "gloo_all_reduce_ms": r["all_reduce_ms"],
+                "buffer_floats": r["buffer_floats"]}
+    extra["bidi_lstm_fwd_state (K1)"]["dp_nccl_one_rank"] = dp["nccl"]
+    extra["bidi_lstm_fwd_state (K1)"]["dp_halves_grad_rel"] = dp["halves"]
+    extra["bidi_lstm_fwd_state (K1)"]["dp_clis"] = dict(
+        dp["clis"], label=DP_LABEL, phase_seconds=dp["seconds"])
     kernels = []
     for name, src, rep, n, err, rel, (km, pm), (bms, bby), lms in entries:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -6,8 +6,9 @@ never imports JAX or ``clstm_tpu`` (only the tests import both).
 
 What is ported so far is OCR serving (``clstmocr``, with the line
 normalization on the host or on the device), OCR training
-(``clstmocrtrain``, on a corpus held on the device) and string
-transduction (``clstmfiltertrain``, ``clstmfilter``):
+(``clstmocrtrain``, on a corpus held on the device), string transduction
+(``clstmfiltertrain``, ``clstmfilter``) and data-parallel training over
+torch.distributed (the trainers' ``mesh=N``):
 
   - io/         the .clstm model format (written by hand, no protobuf
                 package), the .state.npz TrainState sidecar, line
@@ -30,6 +31,9 @@ transduction (``clstmfiltertrain``, ``clstmfilter``):
                 manifests and batches, text batches, the synthetic line
                 renderer, the device-resident corpus caches (line frames,
                 or text as int ids expanded to one-hot in the step)
+  - parallel/   data parallelism: the rank's group, device and backend,
+                the spawn launch, replication, and the training steps
+                that sum the loss and gradients over the ranks
   - utils/      env config and the device, host/device copies, CER, text
   - cli/        clstmocr, clstmocrtrain, clstmfilter, clstmfiltertrain
   - convert.py  JAX params pytree and TrainState (as numpy) <-> the port

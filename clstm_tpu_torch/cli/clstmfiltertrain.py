@@ -29,8 +29,12 @@ itself). Env params, with the JAX package's names and defaults:
                      (K <= 64, clamped to the save and test cadences)
   device=cuda        torch device; if CUDA is asked for and absent, this
                      raises rather than running on the CPU
-Not ported, and raising: mesh>1 (ROADMAP.md Queue 1 item 7). compile_cache
-is read and ignored: nothing is compiled ahead.
+  mesh=0             data-parallel ranks on the batched path (batch_size >
+                     1), as clstmocrtrain's mesh: 0 = every visible card,
+                     N clamped to the card count, 1 = off, N ranks sharing
+                     a named device (cuda:0, cpu); batch_size is rounded up
+                     to divide by N; rank 0 prints, tests, logs and saves
+compile_cache is read and ignored: nothing is compiled ahead.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from clstm_tpu_torch.data.device_cache import TextDeviceDataset
 from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.hl import TEXT_ONE_BUCKETS, CLSTMText
 from clstm_tpu_torch.ops.ctc import decode_frames
+from clstm_tpu_torch.parallel.mesh import run_ranks
 from clstm_tpu_torch.train import unpack_report
 from clstm_tpu_torch.utils.config import HostCopy, getdenv, getienv, getsenv
 from clstm_tpu_torch.utils.metrics import levenshtein
@@ -262,10 +267,13 @@ def main(argv=None) -> int:
         print(__doc__)
         return 1
     getsenv("compile_cache", "")  # read and ignored (no ahead compile)
-    if getienv("mesh", 0) > 1:
-        raise NotImplementedError(
-            "mesh > 1 (data-parallel training) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7); use mesh=1")
+    # The mesh applies only on the batched path, where rows can be split.
+    mesh_n = getienv("mesh", 0) if getienv("batch_size", 1) > 1 else 1
+    return run_ranks(_run, (argv,), mesh_n, getsenv("device", "cuda"))
+
+
+def _run(argv, mesh=None) -> int:
+    """main's work on one rank (``mesh`` None: no data parallelism)."""
     save_name = getsenv("save_name", "filter")
     load = getsenv("load", "")
     ntrain = getienv("ntrain", 1000000)
@@ -281,7 +289,8 @@ def main(argv=None) -> int:
           + (f", {len(test_pairs)} test pairs" if test_pairs else ""))
 
     model = CLSTMText(input_repeat=getienv("input_repeat", 1),
-                      device=getsenv("device", "cuda"))
+                      device=getsenv("device", "cuda") if mesh is None
+                      else mesh.device)
     if load:
         model.load(load)
         print(f"# loaded {load}")
@@ -305,8 +314,16 @@ def main(argv=None) -> int:
         print("# WARNING: "
               + truncation_report(t_over, s_over, tb, S_BUCKETS), flush=True)
 
+    if mesh is not None:
+        if batch_size % mesh.size:
+            batch_size = -(-batch_size // mesh.size) * mesh.size
+            print(f"# batch_size -> {batch_size} (mesh {mesh.size})")
+        model.set_mesh(mesh)
+        print(f"# data-parallel over {mesh.size} devices", flush=True)
+
     rng = np.random.RandomState(randseed)
-    log = _Log(getsenv("log_jsonl", ""))
+    log = _Log(getsenv("log_jsonl", "") if mesh is None or mesh.main
+               else "")
     cadence = dict(ntrain=ntrain, report_every=report_every,
                    save_every=save_every, test_every=test_every,
                    save_name=save_name, rng=rng, log=log)
@@ -321,7 +338,7 @@ def main(argv=None) -> int:
             # "auto" always caches.
             dcache = TextDeviceDataset(train_pairs, model.icodec,
                                        model.codec, input_repeat=k,
-                                       device=model.device)
+                                       device=model.device, mesh=mesh)
             print(f"# device cache: {dcache.nbytes / 1e6:.1f} MB resident",
                   flush=True)
             steps = getienv("steps_per_dispatch", 0)

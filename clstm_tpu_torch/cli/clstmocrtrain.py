@@ -39,9 +39,17 @@ params, with the JAX package's names and defaults:
   cache=auto         device|host|auto: device keeps the prepared corpus on
                      the card and gathers batches there; auto = device when
                      the padded corpus fits cache_limit_mb (default 4096)
+  mesh=0             data-parallel ranks (parallel/): 0 = every visible
+                     card, N is clamped to the card count, 1 = off. With
+                     device=cuda rank r takes cuda:r; with a named device
+                     (cuda:0, cpu) N ranks share it (0 means 1). The ranks
+                     are started here (spawn), or by a launcher such as
+                     torchrun (then mesh is 0 or WORLD_SIZE). batch_size is
+                     rounded up to divide by N; rank 0 prints, tests, logs
+                     and saves
 Not ported, and raising: t_buckets=auto (ROADMAP.md Queue 1 item 5),
-mesh>1 (item 7), display_every>0 (item 9). compile_cache is read and
-ignored: nothing is compiled ahead.
+display_every>0 (item 9). compile_cache is read and ignored: nothing is
+compiled ahead.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from clstm_tpu_torch.data.device_cache import DeviceDataset
 from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.hl import CLSTMOCR
 from clstm_tpu_torch.ops.ctc import decode_frames
+from clstm_tpu_torch.parallel.mesh import run_ranks
 from clstm_tpu_torch.train import unpack_report
 from clstm_tpu_torch.utils.config import HostCopy, getdenv, getienv, getsenv
 from clstm_tpu_torch.utils.metrics import levenshtein
@@ -236,10 +245,6 @@ def main(argv=None) -> int:
         print(__doc__)
         return 1
     getsenv("compile_cache", "")  # read and ignored (no ahead compile)
-    if getienv("mesh", 0) > 1:
-        raise NotImplementedError(
-            "mesh > 1 (data-parallel training) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7); use mesh=1")
     if getienv("display_every", 0) > 0:
         raise NotImplementedError(
             "display_every > 0 (utils/display.py) is not ported yet "
@@ -249,6 +254,13 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "t_buckets=auto (corpus-adaptive bucket cuts) is not ported "
             "(ROADMAP.md Queue 1 item 5 leaves it out); use fine or default")
+    return run_ranks(_run, (argv,), getienv("mesh", 0),
+                     getsenv("device", "cuda"))
+
+
+def _run(argv, mesh=None) -> int:
+    """main's work on one rank (``mesh`` None: no data parallelism)."""
+    tb_mode = getsenv("t_buckets", "fine")
     save_name = getsenv("save_name", "model")
     load = getsenv("load", "")
     nhidden = getienv("nhidden", 100)
@@ -266,7 +278,8 @@ def main(argv=None) -> int:
           + (f", {len(test_ds)} test lines" if test_ds else ""))
 
     ocr = CLSTMOCR(target_height=target_height, dewarp=dewarp,
-                   device=getsenv("device", "cuda"))
+                   device=getsenv("device", "cuda") if mesh is None
+                   else mesh.device)
     if load:
         ocr.load(load)
         codec = ocr.codec
@@ -280,6 +293,14 @@ def main(argv=None) -> int:
     ocr.augment = getdenv("augment", 0.0)
     ocr.normalization = getsenv("normalization", "none")
     print(f"# codec size {codec.size()}, net {net_kind}, nhidden {nhidden}")
+    if mesh is not None:
+        if batch_size % mesh.size:
+            new_bs = -(-batch_size // mesh.size) * mesh.size
+            print(f"# batch_size {batch_size} -> {new_bs} "
+                  f"(must divide by mesh size {mesh.size})")
+            batch_size = new_bs
+        ocr.set_mesh(mesh)
+        print(f"# data-parallel over {mesh.size} devices", flush=True)
 
     cache_kw = (dict(t_buckets=T_BUCKETS_FINE, merge_sb=True)
                 if tb_mode == "fine" else {})
@@ -288,7 +309,7 @@ def main(argv=None) -> int:
     if getienv("device_preprocess", 0):
         t_prep = time.time()
         dcache, test_cache = (DeviceDataset.from_files(
-            ds.files, ds.texts(), codec, device=ocr.device,
+            ds.files, ds.texts(), codec, device=ocr.device, mesh=mesh,
             target_height=target_height, dewarp=dewarp, pad=ds.pad,
             **cache_kw) if ds else None for ds in (train_ds, test_ds))
         print(f"# device-preprocessed corpus in {time.time() - t_prep:.1f}s",
@@ -303,7 +324,8 @@ def main(argv=None) -> int:
                 cache_mode == "auto"
                 and est_mb <= getienv("cache_limit_mb", 4096)):
             dcache, test_cache = (
-                DeviceDataset(s, codec, device=ocr.device, **cache_kw)
+                DeviceDataset(s, codec, device=ocr.device, mesh=mesh,
+                              **cache_kw)
                 if s else None for s in (samples, test_samples))
     if dcache is not None:
         print(f"# device cache: {dcache.nbytes / 1e6:.0f} MB resident",
@@ -319,7 +341,9 @@ def main(argv=None) -> int:
           save_every=getienv("save_every", 1000),
           test_every=getienv("test_every", 10000),
           steps_per_dispatch=getienv("steps_per_dispatch", 0),
-          randseed=randseed, log_jsonl=getsenv("log_jsonl", ""),
+          randseed=randseed,
+          log_jsonl=getsenv("log_jsonl", "") if ocr.mesh is None
+          or ocr.mesh.main else "",
           dcache=dcache, test_cache=test_cache, samples=samples,
           test_samples=test_samples)
     return 0

@@ -14,6 +14,13 @@ same seed gives the same batches in both packages.
 Each group carries one extra all-zero sentinel row (length 0, empty
 targets); remainder batches pad with the sentinel index, and zero-length
 rows are masked out of loss, gradients and decode everywhere.
+
+With ``mesh`` (data parallelism, parallel/mesh.py) every rank holds the
+whole corpus on its own device, as the JAX package replicates it, and draws
+the same plans from a RandomState seeded alike; the parallel steps gather
+each rank's own rows. A checksum of each epoch's plan and of the
+RandomState is compared across the ranks (plan_guard), which raises if one
+rank drew what the others did not.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from clstm_tpu_torch.models.hl import _canon_dewarp
 from clstm_tpu_torch.ops.ctc import mktargets_ids
 from clstm_tpu_torch.ops.preprocess import (
     PREPARE_CHUNK, estimate_out_T, prepare_images)
+from clstm_tpu_torch.parallel.mesh import plan_checksum, plan_guard
 from clstm_tpu_torch.train import gather_batch
 from clstm_tpu_torch.utils.config import to_device, torch_device
 
@@ -63,14 +71,15 @@ class DeviceDataset:
     make_batches exactly (same buckets, same truncation rules).
     ``merge_sb=True`` groups by T bucket only and pads every line in a
     group to the group's largest S bucket: fewer, larger groups, fewer
-    partial batches.
+    partial batches. ``mesh``: the data-parallel group this rank's copy
+    serves (its device must be ``device``), or None.
     """
 
     def __init__(self, samples: Sequence[Tuple[np.ndarray, str]],
                  codec: Codec, t_buckets: Sequence[int] = T_BUCKETS,
                  s_buckets: Sequence[int] = S_BUCKETS, *, device,
-                 merge_sb: bool = False):
-        self.device = torch_device(device)
+                 merge_sb: bool = False, mesh=None):
+        self._place(device, mesh)
         t_buckets = _fixed_buckets(t_buckets)
         groups = self._group(
             [(x, text, x.shape[0]) for x, text in samples], codec,
@@ -89,6 +98,13 @@ class DeviceDataset:
             self.nbytes += x.nbytes
             self._add_group(tb, sb, items, to_device(x, self.device),
                             to_device(lengths, self.device), lengths)
+
+    def _place(self, device, mesh) -> None:
+        self.device = torch_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh on {mesh.device}, corpus on "
+                             f"{self.device}")
 
     def _group(self, items, codec: Codec, t_buckets, s_buckets,
                merge_sb: bool) -> dict:
@@ -144,7 +160,7 @@ class DeviceDataset:
                     t_buckets: Sequence[int] = T_BUCKETS,
                     s_buckets: Sequence[int] = S_BUCKETS,
                     chunk_size: int = PREPARE_CHUNK,
-                    merge_sb: bool = False) -> "DeviceDataset":
+                    merge_sb: bool = False, mesh=None) -> "DeviceDataset":
         """Build the cache directly from raw line images (float32 [h, w] in
         [0, 1], ink black on white), with the whole normalization and
         transposition running on the device (ops/preprocess.py
@@ -157,7 +173,7 @@ class DeviceDataset:
         """
         kind = _canon_dewarp(dewarp)
         self = cls.__new__(cls)
-        self.device = torch_device(device)
+        self._place(device, mesh)
         t_buckets = _fixed_buckets(t_buckets)
         groups = self._group(
             [(raw, text, estimate_out_T([raw], target_height, pad))
@@ -246,7 +262,18 @@ class DeviceDataset:
         seq = [p for p in plans for _ in range(len(p[1]))]
         if rng is not None:
             rng.shuffle(seq)
+        self._guard(plans, [(p, 1) for p in seq], rng)
         return seq
+
+    def _guard(self, plans, seq, rng) -> None:
+        """Under a mesh, raise on every rank unless every rank drew this
+        epoch's plans and order (plan_guard)."""
+        if self.mesh is None:
+            return
+        at = {id(p): i for i, p in enumerate(plans)}
+        order = np.array([(at[id(p)], kk) for p, kk in seq], np.int64)
+        plan_guard(plan_checksum([p[1] for p in plans] + [order], rng),
+                   self.mesh)
 
     def epoch_refs(self, batch_size: int,
                    rng: Optional[np.random.RandomState] = None,
@@ -304,6 +331,7 @@ class DeviceDataset:
                 seq.append((p, rem))
         if rng is not None:
             rng.shuffle(seq)
+        self._guard(plans, seq, rng)
         for p, kk in seq:
             if p[4] >= len(p[1]):
                 # Exhausted by a clamped (nvalid < k) block: the device
@@ -354,8 +382,8 @@ class TextDeviceDataset(DeviceDataset):
     def __init__(self, pairs: Sequence[Tuple[str, str]], icodec: Codec,
                  codec: Codec, *, input_repeat: int = 1,
                  t_buckets: Sequence[int] = TEXT_T_BUCKETS,
-                 s_buckets: Sequence[int] = S_BUCKETS, device):
-        self.device = torch_device(device)
+                 s_buckets: Sequence[int] = S_BUCKETS, device, mesh=None):
+        self._place(device, mesh)
         k = max(1, int(input_repeat))
         ni = icodec.size()
         ids_of = [icodec.encode(a) for a, _ in pairs]

@@ -10,8 +10,12 @@ through), ``train_batch_refs`` / ``train_batch_block`` on batches gathered
 from a device-resident corpus (data/device_cache.py), and ``save``/``load``
 of the .clstm file with, beside it, the ``.state.npz`` TrainState sidecar
 (io/checkpoint.py). ``CLSTMOCR.predict_batch_images`` runs the line
-normalization on the device too (ops/preprocess.py). The mesh is not
-ported yet.
+normalization on the device too (ops/preprocess.py).
+
+``set_mesh`` makes the model data-parallel over torch.distributed ranks
+(parallel/): every rank runs the same calls with the same arguments, the
+training steps sum the gradients over the ranks, prediction splits the rows
+over them, and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -32,12 +36,15 @@ from clstm_tpu_torch.io.normalize import make_normalizer
 from clstm_tpu_torch.io.proto import load_net, save_net
 from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.prefab import make_net_init
-from clstm_tpu_torch.models.spec import Layer, NetSpec, apply_net
-from clstm_tpu_torch.ops.ctc import decode_frames, greedy_frames, mktargets_ids
+from clstm_tpu_torch.models.spec import Layer, NetSpec
+from clstm_tpu_torch.ops.ctc import decode_frames, mktargets_ids
 from clstm_tpu_torch.ops.preprocess import estimate_out_T, prepare_images
+from clstm_tpu_torch.parallel.dp import (
+    make_parallel_multi_train_step, make_parallel_train_step)
+from clstm_tpu_torch.parallel.mesh import replicate
 from clstm_tpu_torch.train import (
     TrainState, make_cached_train_step, make_multi_train_step,
-    make_train_step, unpack_report)
+    make_predict_step, make_train_step, unpack_report)
 from clstm_tpu_torch.utils.config import torch_device
 
 _clamp_warned = False
@@ -81,7 +88,8 @@ class CharPrediction:
 class _TrainableBase:
     """Shared train/predict machinery over (spec, state, codecs). The net,
     its training state and every batch live on ``device``; asking for CUDA
-    where there is none raises."""
+    where there is none raises. ``mesh`` (set_mesh): the data-parallel
+    group this model trains and predicts over, or None."""
 
     def __init__(self, *, device):
         self.device = torch_device(device)
@@ -95,6 +103,7 @@ class _TrainableBase:
         self.gradient_clip = 0.0   # >0 enables global-norm clipping
         self.augment = 0.0         # >0 enables on-device augmentation
         self._xz_bf16: Optional[bool] = None
+        self.mesh = None
         self._reset_steps()
 
     @property
@@ -115,10 +124,13 @@ class _TrainableBase:
         """Forget the built steps (a new net, or new step options). The
         gather steps are keyed by the group's one-hot width (0: the group
         holds frames), the K-step ones by (k, width): an image group and a
-        text group each take their own."""
+        text group each take their own. Under a mesh the state is made
+        rank 0's again before the next step or prediction (_replicated)."""
         self._step = None
+        self._predict = None
         self._cached_steps = {}
         self._multi_steps = {}
+        self._replicated = False
 
     @property
     def net(self) -> Optional[Layer]:
@@ -135,14 +147,41 @@ class _TrainableBase:
         self.lr = float(lr)
         self.momentum = float(momentum)
 
+    def set_mesh(self, mesh) -> None:
+        """Train and predict data-parallel over ``mesh`` (parallel/mesh.py:
+        this process's rank of a torch.distributed group, on this model's
+        device): the training steps become the parallel steps (the
+        gradients summed over the ranks: the single-rank update on the
+        full batch), prediction splits the rows over the ranks, the state
+        is made rank 0's (replicate) before the next step, and save writes
+        on rank 0 only. Every rank must make the same calls; batch rows
+        must divide by the mesh size (prediction pads them). None reverts
+        to one rank."""
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh on {mesh.device}, model on {self.device}")
+        self.mesh = mesh
+        self._reset_steps()
+
+    def _sync(self) -> None:
+        """Under a mesh, make the state rank 0's once after a new net, a
+        load or set_mesh (a broadcast every rank joins)."""
+        if self.mesh is not None and not self._replicated:
+            replicate(self.state, self.mesh)
+            self._replicated = True
+
     # -- checkpointing (reference save/load; .clstm proto format) --
     def save(self, fname: str, sidecar: bool = True) -> None:
         """Write the .clstm file (weights and codecs); with sidecar=True
         also ``fname + '.state.npz'``, the full TrainState (velocity and
-        step), so a resumed run continues the same trajectory."""
-        save_net(fname, self.net, codec=self.codec, icodec=self.icodec)
-        if sidecar:
-            save_state(fname + ".state.npz", self.state)
+        step), so a resumed run continues the same trajectory. Under a mesh
+        rank 0 writes and every rank waits for it (a barrier), so a load on
+        any rank reads the finished files."""
+        if self.mesh is None or self.mesh.main:
+            save_net(fname, self.net, codec=self.codec, icodec=self.icodec)
+            if sidecar:
+                save_state(fname + ".state.npz", self.state)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load(self, fname: str) -> None:
         """Load a .clstm file onto this model's device; if a matching
@@ -171,10 +210,18 @@ class _TrainableBase:
     def train_batch(self, batch: dict) -> dict:
         """One CTC training step on a prepared batch dict of numpy arrays
         (or tensors) {x, lengths, targets, target_lengths}. Returns metrics
-        {loss, frame_ids, frame_vals, report_ids, report_vals, report}."""
+        {loss, frame_ids, frame_vals, report_ids, report_vals, report}.
+        Under a mesh every rank passes the same batch and trains on its
+        rows (parallel/dp.py::make_parallel_train_step)."""
+        self._sync()
         if self._step is None:
-            self._step = make_train_step(self.spec, self.lr, self.momentum,
-                                         **self._step_options())
+            self._step = (
+                make_train_step(self.spec, self.lr, self.momentum,
+                                **self._step_options())
+                if self.mesh is None else
+                make_parallel_train_step(self.spec, self.mesh, self.lr,
+                                         self.momentum,
+                                         **self._step_options()))
         tb = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
               if k in self._BATCH_KEYS}
         self.state, metrics = self._step(self.state, tb, self.lr,
@@ -184,7 +231,11 @@ class _TrainableBase:
     def train_batch_refs(self, ref: dict) -> dict:
         """One training step on a DeviceDataset.epoch_refs batch: the rows
         are gathered from the resident corpus on the device (and expanded
-        to one-hot frames for a text group). Metrics as train_batch."""
+        to one-hot frames for a text group). Metrics as train_batch; under
+        a mesh the step runs as a block of one (train_batch_block), whose
+        metrics are {loss, report, report_all}."""
+        if self.mesh is not None:
+            return self.train_batch_block(dict(ref, k=1))
         onehot = ref["group"].get("onehot", 0)
         step = self._cached_steps.get(onehot)
         if step is None:
@@ -209,14 +260,21 @@ class _TrainableBase:
         (optional) runs only the first min(nvalid, k) batches — the CLI's
         ntrain budget clamp — and marks the block's plan exhausted, since
         its counter no longer matches the host's plan position.
+        Under a mesh each rank gathers its own rows of every batch
+        (parallel/dp.py::make_parallel_multi_train_step).
         Returns metrics {loss, report, report_all [max(k_max, k), 1+2T]}."""
+        self._sync()
         k = max(k_max, block["k"])
         onehot = block["group"].get("onehot", 0)
         step = self._multi_steps.get((k, onehot))
         if step is None:
-            step = make_multi_train_step(self.spec, k, self.lr, self.momentum,
-                                         input_onehot=onehot,
-                                         **self._step_options())
+            step = (make_multi_train_step(self.spec, k, self.lr,
+                                          self.momentum, input_onehot=onehot,
+                                          **self._step_options())
+                    if self.mesh is None else
+                    make_parallel_multi_train_step(
+                        self.spec, self.mesh, k, self.lr, self.momentum,
+                        input_onehot=onehot, **self._step_options()))
             self._multi_steps[(k, onehot)] = step
         nv = block["k"] if nvalid is None else max(1, min(nvalid, block["k"]))
         self.state, metrics, new_j = step(
@@ -246,16 +304,33 @@ class _TrainableBase:
                 "target_lengths": np.array([min(len(ids), sb)], np.int32)}
 
     # -- inference --
+    def _predict_rows(self, x: torch.Tensor, lengths: torch.Tensor):
+        """(ids, vals) tensors of a batch on the device
+        (train.make_predict_step). Under a mesh the rows are padded with
+        zero-length rows (masked everywhere) to a multiple of the mesh
+        size, split over the ranks and put back together on every rank,
+        and the padding is cut off."""
+        self._sync()
+        if self._predict is None:
+            self._predict = make_predict_step(self.spec, mesh=self.mesh,
+                                              xz_bf16=self.xz_bf16)
+        B = x.shape[0]
+        pad = 0 if self.mesh is None else (-B) % self.mesh.size
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+            lengths = torch.cat([lengths, lengths.new_zeros(pad)])
+        ids, vals = self._predict(self.net, x, lengths)
+        return ids[:B], vals[:B]
+
     def predict_batch(self, x, lengths):
         """Right-padded [B, T, D] inputs and their lengths (numpy, or
         tensors on the model's device) -> per-frame (ids [B, T], vals
         [B, T]) numpy arrays: the no-grad forward on the model's device,
-        then the per-frame argmax."""
+        then the per-frame argmax (under a mesh, every rank passes the same
+        batch and gets all of it back)."""
         xt = torch.as_tensor(x, dtype=torch.float32).to(self.device)
         lt = torch.as_tensor(lengths, dtype=torch.int32).to(self.device)
-        probs = apply_net(self.net, xt.contiguous(), lt, inference=True,
-                          xz_bf16=self.xz_bf16)
-        ids, vals = greedy_frames(probs)
+        ids, vals = self._predict_rows(xt.contiguous(), lt)
         return ids.cpu().numpy(), vals.cpu().numpy()
 
     def _predict_one(self, x: np.ndarray, t_buckets: Sequence[int]):
@@ -334,9 +409,7 @@ class CLSTMOCR(_TrainableBase):
         x, lengths = prepare_images(
             list(images), self.device, kind=_canon_dewarp(self.dewarp),
             target_height=self.target_height, out_T=tb, pad=self.pad)
-        ids, vals = greedy_frames(apply_net(self.net, x, lengths,
-                                            inference=True,
-                                            xz_bf16=self.xz_bf16))
+        ids, vals = self._predict_rows(x, lengths)
         if not sync:
             return ids, vals, lengths
         return ids.cpu().numpy(), vals.cpu().numpy(), lengths.cpu().numpy()

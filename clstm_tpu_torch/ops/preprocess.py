@@ -387,12 +387,15 @@ def estimate_out_T(images, target_height: int, pad: int = 16) -> int:
 # Train-time augmentation
 # ---------------------------------------------------------------------------
 
-def augment_generator(seed: int, step: int, device) -> torch.Generator:
+def augment_generator(seed: int, step: int, device,
+                      *fold: int) -> torch.Generator:
     """The generator of a training step's augmentation draws, seeded from
     (seed, step) — the counterpart of the JAX package's
     fold_in(PRNGKey(seed), step): each step draws afresh, and a rerun
-    draws the same."""
-    s = np.random.SeedSequence([int(seed), int(step)]).generate_state(
+    draws the same. ``fold`` adds more numbers to the seed (a data-parallel
+    rank folds in its rank, as the JAX package folds in the axis index)."""
+    s = np.random.SeedSequence([int(seed), int(step),
+                                *map(int, fold)]).generate_state(
         1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(s) >> 1)
 

@@ -181,32 +181,14 @@ def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
     loss_fn = _LOSSES[loss_kind]
 
     def step(state: TrainState, batch: dict, lr_arg=None, momentum_arg=None):
-        if state.net.spec != spec:
-            raise ValueError("the state's net was not built from this spec")
-        if augment > 0:
-            # On-device train-time augmentation (ops/preprocess.py), drawn
-            # from a generator seeded by (augment_seed, step); augment=0
-            # (default) is exact reference semantics.
-            gen = augment_generator(augment_seed, state.step,
-                                    batch["x"].device)
-            batch = dict(batch, x=augment_lines(gen, batch["x"],
-                                                batch["lengths"], augment))
-        net = state.net
-        net.zero_grad(set_to_none=True)
-        loss, (probs, _) = loss_fn(net, batch, normalization=normalization,
-                                   xz_bf16=xz_bf16)
-        loss.backward()
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in net.named_parameters()}
-        net.zero_grad(set_to_none=True)
-        if gradient_clip > 0:
-            grads = clip_by_global_norm(grads, gradient_clip)
-        sgd_update(net, state.velocity, grads,
-                   lr if lr_arg is None else float(lr_arg),
-                   momentum if momentum_arg is None else float(momentum_arg))
-        state.step += 1
+        check_spec(state, spec)
+        batch = augmented(batch, augment, augment_seed, state.step)
+        loss, grads, probs = loss_and_grads(state.net, batch, loss_fn,
+                                            normalization, xz_bf16)
+        apply_update(state, grads, gradient_clip,
+                     lr if lr_arg is None else lr_arg,
+                     momentum if momentum_arg is None else momentum_arg)
         ids, vals = greedy_frames(probs)
-        loss = loss.detach()
         packed = torch.cat([loss.reshape(1), ids[0].float(), vals[0].float()])
         metrics = {"loss": loss, "frame_ids": ids, "frame_vals": vals,
                    "report_ids": ids[0], "report_vals": vals[0],
@@ -214,6 +196,47 @@ def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
         return state, metrics
 
     return step
+
+
+def check_spec(state: TrainState, spec: NetSpec) -> None:
+    if state.net.spec != spec:
+        raise ValueError("the state's net was not built from this spec")
+
+
+def augmented(batch: dict, augment: float, augment_seed: int, step: int,
+              *fold: int) -> dict:
+    """The batch with x distorted on the device (augment_lines) when
+    augment > 0, drawn from a generator seeded by (augment_seed, step,
+    *fold); augment=0 (the default) is exact reference semantics."""
+    if augment <= 0:
+        return batch
+    gen = augment_generator(augment_seed, step, batch["x"].device, *fold)
+    return dict(batch, x=augment_lines(gen, batch["x"], batch["lengths"],
+                                       augment))
+
+
+def loss_and_grads(net: Layer, batch: dict, loss_fn, normalization: str,
+                   xz_bf16: Optional[bool]):
+    """The loss on ``batch`` and its gradient, one tensor per parameter
+    (zeros for a parameter the loss does not reach). -> (loss detached,
+    grads by parameter name, probs)."""
+    net.zero_grad(set_to_none=True)
+    loss, (probs, _) = loss_fn(net, batch, normalization=normalization,
+                               xz_bf16=xz_bf16)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in net.named_parameters()}
+    net.zero_grad(set_to_none=True)
+    return loss.detach(), grads, probs
+
+
+def apply_update(state: TrainState, grads: dict, gradient_clip: float,
+                 lr, momentum) -> None:
+    """Clip (gradient_clip > 0), the SGD update in place, step + 1."""
+    if gradient_clip > 0:
+        grads = clip_by_global_norm(grads, gradient_clip)
+    sgd_update(state.net, state.velocity, grads, float(lr), float(momentum))
+    state.step += 1
 
 
 def onehot_frames(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -318,16 +341,25 @@ def make_predict_step(spec: NetSpec, *, compute_dtype=None, mesh=None,
                       xz_bf16: Optional[bool] = None):
     """Inference: predict(net, x, lengths) -> per-frame (ids, vals), the
     no-grad forward then the per-frame argmax, at the precision ``xz_bf16``
-    (None: the card's default, f32 on the CPU). ``mesh`` (data-parallel
-    inference) is not ported and raises."""
+    (None: the card's default, f32 on the CPU).
+
+    With ``mesh`` (parallel/mesh.py), every rank passes the same global
+    batch, runs the forward on its own rows and gets the full [B, T] ids and
+    values back (gather_rows: one all_reduce of zero-filled buffers, each
+    rank writing its rows). Batch rows must divide by the mesh size."""
     _check_compute_dtype(compute_dtype)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh inference is not ported yet (ROADMAP.md Queue 1 item 7)")
+    # parallel/ imports this module: import its helper here.
+    from clstm_tpu_torch.parallel.mesh import gather_rows
 
     def predict(net: Layer, x: torch.Tensor, lengths: Optional[torch.Tensor]):
-        probs = apply_net(net, x, lengths, inference=True, xz_bf16=xz_bf16)
-        return greedy_frames(probs.float())
+        rows = slice(None) if mesh is None else mesh.rows(x.shape[0])
+        probs = apply_net(net, x[rows].contiguous(),
+                          None if lengths is None else lengths[rows],
+                          inference=True, xz_bf16=xz_bf16)
+        frames = greedy_frames(probs.float())
+        if mesh is None:
+            return frames
+        return tuple(gather_rows(frames, mesh, x.shape[0]))
 
     return predict
 

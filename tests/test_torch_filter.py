@@ -368,11 +368,37 @@ def test_torch_clstmfiltertrain_matches_jax(corpus, path, monkeypatch,
                                    rtol=STEP_RTOL, atol=STEP_ATOL)
 
 
-def test_torch_clstmfiltertrain_mesh_refused(corpus, monkeypatch):
-    tmp, train, _, _ = corpus
-    monkeypatch.setenv("mesh", "2")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcli.main([train])
+@pytest.mark.parametrize("path", ["host", "device"])
+def test_torch_clstmfiltertrain_mesh_matches_one_rank(corpus, path,
+                                                      monkeypatch, capfd):
+    """mesh=2: main starts two gloo ranks on the CPU (device=cpu, shared),
+    rounds batch_size 7 up to 8, and trains host-built batches (cache=host,
+    train_batch) or K=2 blocks over the device cache, each rank on its rows
+    with the gradients summed; against mesh=1 at batch_size 8 from the same
+    .clstm: the same trials, losses and TESTERR within the JAX package's DP
+    tolerance (tests/test_cli.py), the same saved weights within rtol 3e-4,
+    atol 2e-5."""
+    tmp, train, test, start = corpus
+    env = dict(load=start, **({"cache": "host"} if path == "host" else
+                              {"steps_per_dispatch": "2"}))
+    one, out1 = _run(tcli, f"m1-{path}", tmp, [train, test], monkeypatch,
+                     capfd, batch_size="8", **env)
+    two, out2 = _run(tcli, f"m2-{path}", tmp, [train, test], monkeypatch,
+                     capfd, batch_size="7", mesh="2", OMP_NUM_THREADS="1",
+                     **env)
+    assert "# batch_size -> 8 (mesh 2)" in out2
+    assert "# data-parallel over 2 devices" in out2
+    assert "data-parallel" not in out1
+    assert [r["trial"] for r in two] == [r["trial"] for r in one]
+    for a, b in zip(two, one):
+        assert a.keys() == b.keys()
+        key = "loss" if "loss" in a else "test_cer"
+        np.testing.assert_allclose(a[key], b[key], rtol=3e-4, atol=2e-5)
+    _, p1, _, _ = jload_net(str(tmp / f"m1-{path}-last.clstm"))
+    _, p2, _, _ = jload_net(str(tmp / f"m2-{path}-last.clstm"))
+    for a, b in zip(jax.tree.leaves(p2), jax.tree.leaves(p1)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=3e-4,
+                                   atol=2e-5)
 
 
 @pytest.mark.parametrize("batch_size", ["1", "64", "5"])

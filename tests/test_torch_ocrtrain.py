@@ -157,8 +157,7 @@ def test_torch_clstmocrtrain_device_preprocess(corpus, monkeypatch, capsys):
         assert got[i][:2] == want[i][:2]
 
 
-@pytest.mark.parametrize("env,item", [({"mesh": "2"}, "item 7"),
-                                      ({"display_every": "5"}, "item 9"),
+@pytest.mark.parametrize("env,item", [({"display_every": "5"}, "item 9"),
                                       ({"t_buckets": "auto"}, "item 5")])
 def test_torch_clstmocrtrain_refuses_unported(corpus, monkeypatch, env,
                                               item):
@@ -167,6 +166,58 @@ def test_torch_clstmocrtrain_refuses_unported(corpus, monkeypatch, env,
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match=item):
         tcli.main([train])
+
+
+@pytest.mark.parametrize("k", ["1", "3"])
+def test_torch_clstmocrtrain_mesh_matches_one_rank(corpus, k, monkeypatch,
+                                                   capfd):
+    """mesh=2: main starts two gloo ranks on the CPU (device=cpu, shared),
+    rounds batch_size 3 up to 4, and trains blocks of k batches over the
+    device cache, each rank gathering its rows; rank 0 prints, tests, logs
+    and saves. Against mesh=1 at batch_size 4 from the same .clstm: the same
+    trials, losses and test CER within the JAX package's DP tolerance
+    (tests/test_cli.py), the same saved weights within rtol 3e-4, atol
+    2e-5."""
+    tmp, train, test, start = corpus
+    one = _run(tcli, f"m1-{k}", tmp, [train, test], monkeypatch, capfd,
+               load=start, steps_per_dispatch=k)
+    two = _run(tcli, f"m2-{k}", tmp, [train, test], monkeypatch, capfd,
+               load=start, steps_per_dispatch=k, mesh="2", batch_size="3",
+               OMP_NUM_THREADS="1")
+    (recs1, tests1), (recs2, tests2) = one, two
+    assert [r["trial"] for r in recs2] == [r["trial"] for r in recs1]
+    assert len(tests2) == len(tests1) == 2
+    for a, b in zip(recs2, recs1):
+        key = "loss" if "loss" in a else "test_cer"
+        np.testing.assert_allclose(a[key], b[key], rtol=3e-4, atol=2e-5)
+    _, p1, _, _ = jload_net(str(tmp / f"m1-{k}-last.clstm"))
+    _, p2, _, _ = jload_net(str(tmp / f"m2-{k}-last.clstm"))
+    for a, b in zip(jax.tree.leaves(p2), jax.tree.leaves(p1)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=3e-4,
+                                   atol=2e-5)
+
+
+def test_torch_clstmocrtrain_mesh_with_augment_trains(corpus, monkeypatch,
+                                                      capfd):
+    """mesh=2 with augment=0.5: each rank draws its own augmentation stream
+    (the step and the rank folded into the seed), so the run trains (finite
+    losses, a test CER) but ends elsewhere than one rank with augment=0.5
+    and than augment=0."""
+    tmp, train, test, start = corpus
+    runs = {}
+    for name, env in (("aug0", {}), ("aug1", {"augment": "0.5"}),
+                      ("aug2", {"augment": "0.5", "mesh": "2",
+                                "OMP_NUM_THREADS": "1"})):
+        recs, tests = _run(tcli, name, tmp, [train, test], monkeypatch,
+                           capfd, load=start, **env)
+        losses = [r["loss"] for r in recs if "loss" in r]
+        assert losses and np.isfinite(losses).all() and len(tests) == 2
+        _, runs[name], _, _ = jload_net(str(tmp / f"{name}-last.clstm"))
+    for other in ("aug0", "aug1"):
+        assert any(not np.allclose(np.asarray(a), np.asarray(b), rtol=1e-3,
+                                   atol=1e-4)
+                   for a, b in zip(jax.tree.leaves(runs["aug2"]),
+                                   jax.tree.leaves(runs[other])))
 
 
 def test_torch_clstmocrtrain_usage(capsys):
