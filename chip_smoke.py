@@ -17,7 +17,9 @@ no precision is asked for). The direct kernel checks of phases 3-8 and
 12-13 hold the f32 kernels; the main paths (5, 9, 14, 15, 17, 21) run the
 card's default, and 5, 9, 14, 15 and 21's steps the other mode as well,
 each run with the launch counts reset just before and read just after;
-phases 18-20 hold and time the bf16 kernels and run the learning check:
+phases 18-20 hold and time the bf16 kernels and run the learning check;
+phase 24 drives the routes that run no LSTM kernel (the JAX package's
+compute_dtype and fuse_bidi=False), the trace and display_every:
 
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from clstm_tpu_torch/csrc with nvcc;
@@ -180,7 +182,30 @@ phases 18-20 hold and time the bf16 kernels and run the learning check:
      clstmfiltertrain (phase 21's corpus, B=256, K=64, 4 blocks) with
      mesh=2 device=cuda:0 against mesh=1 from one .clstm, weights within
      (b)'s limits, lines/s and pairs/s labelled as a check, not a scaling
-     figure.
+     figure;
+ 24. the routes the JAX package sends to lax.scan on every backend, which
+     the port runs in its plain loops on every device (no LSTM kernel), at
+     full bidi width on the bench batch of 9, lr CD_LR: (a)
+     make_train_step(compute_dtype=torch.bfloat16), CD_STEPS steps with no
+     LSTM kernel launched and K5, K6 once a step; its step-1 loss and
+     gradients against the same code on the CPU within CD_RATIO of the
+     card's compute_dtype-vs-strict-f32 distance, which the planted recipe
+     with dWh summed in f32 must fail; its warm steps in turns with the
+     default kernel step; (b) fuse_bidi=False in strict f32 (train.py's
+     losses with apply_net(fuse_bidi=False)): step 1 against the fused f32
+     kernel step within 9's step-1 limits, no LSTM kernel, timed in turns
+     with it; (c) make_forward(compute_dtype=torch.bfloat16) over the
+     bench profile, timed; (d) utils/profiling.trace around one default
+     step in a fresh process: the Chrome trace (chiprun_out/trace/) must
+     name K1's, K2's, K5's and K6's kernels (the same trace in this
+     process, late in the run, is logged: such a session lost its first
+     kernel records), and Throughput over warm steps agree with their
+     CUDA-event times within THROUGHPUT_RTOL; (e) clstmocrtrain on 17's
+     corpus with display_every=DISPLAY_EVERY and with 0 (DISPLAY_ENV): the
+     same TESTERR lines, the PNG written where matplotlib is (and not
+     where it is not), and, with a device sleep queued right after a
+     block, the next block starting in under half the sleep, the display
+     drawn between.
 
 With --k2-against SRC, every timed K2 shape also times the K2 built from
 SRC in turns with the current one (against, current, current, against);
@@ -254,14 +279,16 @@ from clstm_tpu_torch.ops import ctc_kernel as ck
 from clstm_tpu_torch.ops.ctc_kernel import ctc_backward, ctc_both, ctc_forward
 from clstm_tpu_torch.ops import preprocess
 from clstm_tpu_torch.ops.lstm import bidi_lstm_apply
-from clstm_tpu_torch.ops.seq import length_mask
+from clstm_tpu_torch.ops.seq import flip_within_length, length_mask
 from clstm_tpu_torch.parallel import (
     launch, make_mesh, make_parallel_multi_train_step,
     make_parallel_train_step)
+from clstm_tpu_torch import train as train_mod
 from clstm_tpu_torch.train import (
-    _LOSSES, TrainState, gather_batch, loss_and_grads, make_predict_step,
-    make_train_step, sgd_update)
+    _LOSSES, TrainState, gather_batch, loss_and_grads, make_forward,
+    make_predict_step, make_train_step, sgd_update)
 from clstm_tpu_torch.utils.metrics import levenshtein
+from clstm_tpu_torch.utils.profiling import Throughput, trace
 from clstm_tpu_torch.utils.config import to_device, torch_device
 
 B, T, D, H, C = 256, 1024, 48, 100, 96   # bench profile (bench.py:611-651)
@@ -3893,6 +3920,487 @@ def dp_clis(dev, tmp: str, ocr_dir: str, train_pairs, test_pairs,
     return out
 
 
+# Phase 24: the routes that run no LSTM kernel, at full bidi width on the
+# bench batch (B=256, T=1024, 900 frames, S=81): the JAX package's
+# compute_dtype (its scan recipe with bf16 operands; ops/lstm.py) and
+# fuse_bidi=False (the literal Parallel(NPLSTM, Reversed(NPLSTM)) tree),
+# which the JAX package sends to lax.scan on every backend and the port to
+# its plain loops on every device; then utils/profiling.trace around a
+# default step and clstmocrtrain with display_every. lr CD_LR: the bench
+# batch diverges at bench.py's 1e-4 (ROADMAP.md Queue 3).
+CD_LR = 1e-6
+CD_STEPS = 3
+# The card's compute_dtype step-1 loss and gradients against the same code
+# on the CPU, on the same batch: the largest relative Frobenius distance
+# over the loss and every gradient within CD_RATIO of the card's own
+# distance between its compute_dtype and strict f32 gradients (the CPU
+# tests' rule against the JAX package, tests/test_torch_compute_dtype.py);
+# the planted recipe with dWh summed in f32 over the steps must fail it.
+CD_RATIO = 0.1
+# Warm steps of each route timed in turns with the default kernel step.
+CD_TURNS = 4
+LSTM_COUNTED = ("bidi_lstm_infer", "bidi_lstm_fwd_state",
+                "bidi_lstm_infer_xz", "bidi_lstm_fwd_state_xz",
+                "bidi_lstm_bwd_chain", "bidi_lstm_bwd_reduce")
+# The symbols utils/profiling.trace must name in a default bidi step's
+# trace: K1, K2's chain and reduction (bf16 or f32), K5, K6.
+TRACE_SYMBOLS = ("bidi_lstm_fwd_kernel", "bwd_chain_kernel",
+                 "bwd_dw_partial", "ctc_forward_kernel", "ctc_both_kernel")
+THROUGHPUT_RTOL = 0.1
+# clstmocrtrain with display_every on phase 17's corpus: blocks of up to 8
+# batches (256 trials), so nearly every block crosses a display boundary;
+# the device sleep queued right after block DISPLAY_SLEEP_BLOCK (no test or
+# save in its iteration) is DISPLAY_SLEEP_CYCLES (~2 s) long, so the
+# host's render (matplotlib, ~0.1 s) fits in half of it.
+DISPLAY_EVERY = 256
+DISPLAY_ENV = dict(OCR_ENV, steps_per_dispatch="8")
+DISPLAY_SLEEP_BLOCK = 4
+DISPLAY_SLEEP_CYCLES = 4 * NOSYNC_CYCLES
+
+
+def grad_group(loss, grads: dict) -> dict:
+    """A step's loss and gradients as float64 CPU tensors, for distances."""
+    g = {n: v.detach().double().cpu() for n, v in grads.items()}
+    g["loss"] = loss.detach().double().cpu().reshape(1)
+    return g
+
+
+def group_dist(a: dict, b: dict) -> float:
+    """Largest relative Frobenius distance of a from b over a group."""
+    return max(float((a[k] - b[k]).norm() / max(float(b[k].norm()), 1e-30))
+               for k in b)
+
+
+def f32_dwh_scan(params_f, params_r, x, lengths, cd):
+    """The planted control of phase 24: ops/lstm.py::_bidi_scan with Wh read
+    as one f32 copy over all steps, so autograd sums dWh in f32 and rounds
+    it once (the scan recipe sums it in cd over the steps)."""
+    B_, T_, _ = x.shape
+    H_ = params_f["Wh"].shape[0]
+    x2 = lstm_ops._cast(torch.stack([x, flip_within_length(x, lengths)]), cd)
+    Wx2 = lstm_ops._cast(torch.stack([params_f["Wx"], params_r["Wx"]]), cd)
+    b2 = torch.stack([params_f["b"], params_r["b"]]).float()
+    xzs = (torch.einsum("gbtd,gdo->gbto", x2, Wx2)
+           + b2[:, None, None, :]).unbind(2)
+    Wh_once = torch.stack([params_f["Wh"], params_r["Wh"]]).to(cd).float()
+    valid = lstm_ops._valid(lengths, B_, T_, x.device)
+    h = x.new_zeros((2, B_, H_))
+    c = torch.zeros_like(h)
+    outs = []
+    for t in range(T_):
+        h_new, c_new = lstm_ops._cell(
+            xzs[t] + torch.bmm(lstm_ops._cast(h, cd), Wh_once), c, H_)
+        v = valid[t]
+        c = torch.where(v, c_new, c)
+        h = torch.where(v, h_new, h)
+        outs.append(torch.where(v, h_new, torch.zeros_like(h_new)))
+    hs = torch.stack(outs, dim=2)
+    return torch.cat([hs[0], flip_within_length(hs[1], lengths)],
+                     dim=-1).to(x.dtype)
+
+
+@contextlib.contextmanager
+def unfused_losses():
+    """train.py's losses with apply_net(fuse_bidi=False): make_train_step
+    then runs the bidi pair as the literal layer tree (the JAX package's
+    fuse_bidi is an apply_net flag; its steps take none)."""
+    saved = train_mod.apply_net
+    train_mod.apply_net = functools.partial(saved, fuse_bidi=False)
+    try:
+        yield
+    finally:
+        train_mod.apply_net = saved
+
+
+def counted_steps(step, state, batch, n: int) -> tuple:
+    """``n`` steps with the launch counts reset just before and read just
+    after -> (losses, counts)."""
+    reset_counts()
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(n)]
+    torch.cuda.synchronize()
+    return losses, counts()
+
+
+def route_turns(routes: dict, card: str) -> dict:
+    """The steps of two routes {name: fn} timed in turns (a, b, b, a, ...),
+    CD_TURNS of each, on the host clock, each step synchronised -> {name:
+    median, range and each ms}."""
+    (na, fa), (nb, fb) = routes.items()
+    ts = {na: [], nb: []}
+    for i in range(CD_TURNS):
+        for n, f in ((na, fa), (nb, fb))[::1 if i % 2 == 0 else -1]:
+            ts[n].append(host_ms(f, 1))
+    out = {n: {"median_ms": float(np.median(v)), "range_ms": [min(v), max(v)],
+               "ms": v} for n, v in ts.items()}
+    log(f"[cd] {card} | in turns: " + "; ".join(
+        f"{n} median {r['median_ms']:.3f} ms (range {r['range_ms'][0]:.3f}-"
+        f"{r['range_ms'][1]:.3f})" for n, r in out.items()))
+    return out
+
+
+def no_lstm_kernel(tag: str, got: dict, nsteps: int) -> None:
+    """The route launched no LSTM kernel, and K5 and K6 once a step."""
+    lstm = {k: got[k] for k in LSTM_COUNTED if got[k]}
+    if lstm or not got["ctc_forward"] == got["ctc_both"] == nsteps:
+        raise AssertionError(f"{tag}: launches {got}: no LSTM kernel, K5 and "
+                             f"K6 once a step")
+
+
+def compute_dtype_steps(dev, card, spec, net0, batch) -> dict:
+    """Phase 24 (a)-(c)."""
+    loss_fn = _LOSSES["ctc"]
+    on = copy.deepcopy
+
+    def card_state():
+        return TrainState.create(on(net0).to(dev))
+
+    # (a) compute_dtype=bf16: CD_STEPS steps through make_train_step.
+    cd_step = make_train_step(spec, CD_LR, 0.9, compute_dtype=torch.bfloat16)
+    state = card_state()
+    cd_losses, cd_counts = counted_steps(cd_step, state, batch, CD_STEPS)
+    if not all(np.isfinite(cd_losses)):
+        raise AssertionError(f"compute_dtype losses {cd_losses}")
+    no_lstm_kernel("compute_dtype steps", cd_counts, CD_STEPS)
+    # Step 1's loss and gradients: the card, the CPU (the same code), the
+    # card in strict f32 (the kernels), the planted control on the card.
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+
+    def grads(net, b, **mode):
+        loss, g, _ = loss_and_grads(net, b, loss_fn, "none", **mode)
+        return grad_group(loss, g)
+    t0 = time.perf_counter()
+    g_card = grads(on(net0).to(dev), batch, xz_bf16=None,
+                   compute_dtype=torch.bfloat16)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_cpu = grads(on(net0), cpu_batch, xz_bf16=None,
+                  compute_dtype=torch.bfloat16)
+    t_cpu = time.perf_counter() - t0
+    g_f32 = grads(on(net0).to(dev), batch, xz_bf16=False)
+    saved = lstm_ops._bidi_scan
+    lstm_ops._bidi_scan = f32_dwh_scan
+    try:
+        g_ctrl = grads(on(net0).to(dev), batch, xz_bf16=None,
+                       compute_dtype=torch.bfloat16)
+    finally:
+        lstm_ops._bidi_scan = saved
+    gap = group_dist(g_card, g_f32)
+    d_cpu = group_dist(g_card, g_cpu)
+    d_ctrl = group_dist(g_ctrl, g_cpu)
+    per = {k: float((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm())
+           for k in g_cpu}
+    log(f"[cd] (a) compute_dtype=bf16, {CD_STEPS} make_train_step steps on "
+        f"the bench batch (B={B} T={T} S={2 * NCHARS + 1}, lr {CD_LR:g}): "
+        f"losses {[round(v, 3) for v in cd_losses]}; launches "
+        f"{ {k: v for k, v in cd_counts.items() if v} } (no LSTM kernel); "
+        f"step 1 against the same code on the CPU: largest relative "
+        f"Frobenius distance over the loss and gradients {d_cpu:.3e}, the "
+        f"card's compute_dtype-vs-strict-f32 distance {gap:.3e} (limit "
+        f"{CD_RATIO:g}x: {CD_RATIO * gap:.3e}); the planted control (dWh "
+        f"summed in f32) {d_ctrl:.3e} (must exceed the limit); per tensor "
+        + ", ".join(f"{k} {v:.2e}" for k, v in per.items())
+        + f"; step-1 gradients {t_card:.2f} s on the card, {t_cpu:.2f} s on "
+        "the CPU")
+    if not (gap > 0 and d_cpu <= CD_RATIO * gap):
+        raise AssertionError(f"compute_dtype on the card is {d_cpu:.3e} from "
+                             f"the CPU, over {CD_RATIO:g} x {gap:.3e}")
+    if not d_ctrl > CD_RATIO * gap:
+        raise AssertionError(f"the planted control ({d_ctrl:.3e}) passes the "
+                             f"compute_dtype check ({CD_RATIO * gap:.3e})")
+    del g_card, g_cpu, g_f32, g_ctrl
+    kern_step = make_train_step(spec, CD_LR, 0.9)
+    kstate = card_state()
+    cd_t = route_turns({
+        "compute_dtype=bf16 step": lambda: cd_step(state, batch),
+        "default kernel step": lambda: kern_step(kstate, batch)}, card)
+
+    # (b) fuse_bidi=False, strict f32, against the fused kernel step.
+    f32_step = make_train_step(spec, CD_LR, 0.9, xz_bf16=False)
+    ustate, fstate = card_state(), card_state()
+    p0 = [p.detach().clone() for p in ustate.net.parameters()]
+    with unfused_losses():
+        u_losses, u_counts = counted_steps(f32_step, ustate, batch, 1)
+    f_loss = float(f32_step(fstate, batch)[1]["loss"])
+    gap_p = max(float((u.detach() - f.detach()).abs().max())
+                for u, f in zip(ustate.net.parameters(),
+                                fstate.net.parameters()))
+    moved = max(float((f.detach() - s).abs().max())
+                for f, s in zip(fstate.net.parameters(), p0))
+    loss_rel = abs(u_losses[0] - f_loss) / abs(f_loss)
+    with unfused_losses():
+        u_more, u_counts3 = counted_steps(f32_step, ustate, batch,
+                                          CD_STEPS - 1)
+    no_lstm_kernel("fuse_bidi=False steps", u_counts, 1)
+    no_lstm_kernel("fuse_bidi=False steps", u_counts3, CD_STEPS - 1)
+    log(f"[cd] (b) fuse_bidi=False, strict f32: step 1 against the fused "
+        f"kernel step (K1, K2, K5, K6): loss rel {loss_rel:.3e} (limit "
+        f"{STEP1_LOSS_RTOL:.0e}), update max|d| {gap_p:.3e} over its move "
+        f"{moved:.3e}: {gap_p / moved:.3e} (limit {STEP1_PARAM_RTOL:.0e}); "
+        f"{CD_STEPS} steps launched "
+        f"{ {k: u_counts[k] + u_counts3[k] for k in u_counts if u_counts[k] + u_counts3[k]} }"
+        f" (no LSTM kernel); losses "
+        f"{[round(v, 3) for v in u_losses + u_more]}")
+    if not (loss_rel <= STEP1_LOSS_RTOL and moved > 0
+            and gap_p / moved <= STEP1_PARAM_RTOL):
+        raise AssertionError("fuse_bidi=False disagrees with the fused "
+                             f"kernel step: loss {loss_rel:.3e}, update "
+                             f"{gap_p / moved:.3e}")
+
+    def unfused_one():
+        with unfused_losses():
+            f32_step(ustate, batch)
+    u_t = route_turns({"fuse_bidi=False f32 step": unfused_one,
+                       "fused f32 kernel step": lambda: f32_step(fstate,
+                                                                 batch)},
+                      card)
+    del ustate, fstate
+
+    # (c) make_forward(compute_dtype=bf16) over the bench profile.
+    fwd = make_forward(spec, compute_dtype=torch.bfloat16)
+    fnet = on(net0).to(dev)
+    x, L = batch["x"], batch["lengths"]
+    with torch.no_grad():
+        reset_counts()
+        probs = fwd(fnet, x, L)
+        torch.cuda.synchronize()
+        f_counts = counts()
+        fwd_ms = host_ms(lambda: fwd(fnet, x, L), 3)
+        kern_fwd_ms = host_ms(lambda: apply_net(fnet, x, L), 3)
+    mask = length_mask(L, T).bool()
+    sums = probs.sum(-1)[mask]
+    if (any(f_counts[k] for k in LSTM_COUNTED) or tuple(probs.shape) != (
+            B, T, C) or not bool(torch.isfinite(probs).all())
+            or float((sums - 1).abs().max()) > 1e-4):
+        raise AssertionError(f"make_forward(compute_dtype): launches "
+                             f"{f_counts}, shape {tuple(probs.shape)}")
+    log(f"[cd] {card} | (c) make_forward(compute_dtype=bf16) B={B} T={T} "
+        f"len={TRUE_T}: {fwd_ms:.3f} ms/batch ({B / fwd_ms * 1e3:.1f} "
+        f"lines/s; no LSTM kernel launched, posteriors finite and "
+        f"normalised), the default no-grad forward (K3) {kern_fwd_ms:.3f} "
+        "ms/batch")
+    return {"cd_launches": cd_counts, "cd_losses": cd_losses,
+            "cd_cpu_dist": d_cpu, "cd_gap": gap, "cd_control_dist": d_ctrl,
+            "cd_grad_ms_card": t_card * 1e3, "cd_grad_s_cpu": t_cpu,
+            "cd_turns": cd_t, "unfused_launches": {
+                k: u_counts[k] + u_counts3[k] for k in u_counts},
+            "unfused_step1_loss_rel": loss_rel,
+            "unfused_step1_param_rel": gap_p / moved, "unfused_turns": u_t,
+            "forward_ms": fwd_ms, "forward_default_ms": kern_fwd_ms,
+            "forward_launches": f_counts}
+
+
+def trace_worker(out: str) -> None:
+    """Phase 24 (d) in a fresh process: one default bidi step (the bench
+    batch, the init of seed 0) under utils/profiling.trace, after a warm
+    step; writes the trace's path to ``out``."""
+    dev = torch_device("cuda")
+    spec, net = make_net_init("bidi", {"ninput": D, "nhidden": H,
+                                       "noutput": C},
+                              torch.Generator().manual_seed(0), dev)
+    batch = bench_batch(np.random.RandomState(0), dev)
+    step = make_train_step(spec, CD_LR, 0.9)
+    state = TrainState.create(net)
+    step(state, batch)
+    torch.cuda.synchronize()
+    with trace(os.path.join("chiprun_out", "trace"), device=dev) as prof:
+        step(state, batch)
+    with open(out, "w") as f:
+        f.write(prof.trace_path)
+
+
+def trace_kernels(path: str) -> tuple:
+    """A Chrome trace -> (which TRACE_SYMBOLS its kernel records name,
+    kernel records, kernel launches, MB)."""
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    named = {s: any(s in n for n in names) for s in TRACE_SYMBOLS}
+    return (named, sum(e.get("cat") == "kernel" for e in events),
+            sum(e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "") for e in events),
+            os.path.getsize(path) / 1e6)
+
+
+def traced_step(dev, card, spec, net0, batch) -> dict:
+    """Phase 24 (d): utils/profiling.trace around one default bidi step (the
+    card's default precision) in a fresh process, whose trace must name the
+    kernels; the same in this process, late in the run, logged (a late
+    session lost its first kernel records, utils/profiling.py); Throughput
+    over warm steps against their CUDA-event times."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "trace_path")
+        proc = torch.multiprocessing.get_context("spawn").Process(
+            target=trace_worker, args=(out,))
+        proc.start()
+        proc.join()
+        if proc.exitcode != 0:
+            raise AssertionError(f"the trace process exited {proc.exitcode}")
+        with open(out) as f:
+            path = f.read()
+    named, kernels, launches, mb = trace_kernels(path)
+    if not all(named.values()):
+        raise AssertionError(f"the trace names no kernel for "
+                             f"{[s for s, v in named.items() if not v]} "
+                             f"({kernels} kernel records, {launches} "
+                             "kernel launches)")
+    step = make_train_step(spec, CD_LR, 0.9)
+    state = TrainState.create(copy.deepcopy(net0).to(dev))
+    step(state, batch)
+    torch.cuda.synchronize()
+    with trace(os.path.join("chiprun_out", "trace"), device=dev) as prof:
+        step(state, batch)
+    late, late_kernels, late_launches, _ = trace_kernels(prof.trace_path)
+    meter = Throughput()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(8)]
+    for a, b in ev:
+        a.record()
+        step(state, batch)
+        b.record()
+        b.synchronize()
+        meter.add(B)
+    ms = [a.elapsed_time(b) for a, b in ev[1:]]
+    event_rate = B / (sum(ms) / len(ms)) * 1e3
+    rate = meter.rate()
+    log(f"[trace] {card} | utils/profiling.trace around one default bidi "
+        f"step in a fresh process: {path} ({mb:.2f} MB, {kernels} kernel "
+        f"records, {launches} kernel launches) names "
+        + ", ".join(TRACE_SYMBOLS) + f"; the same in this process, late in "
+        f"the run: {late_kernels} kernel records of {late_launches} "
+        f"launches, names "
+        + (", ".join(k for k, v in late.items() if v) or "none")
+        + f"; Throughput over 8 warm steps {rate:.1f} lines/s, their "
+        f"CUDA-event times {event_rate:.1f} lines/s (mean "
+        f"{sum(ms) / len(ms):.3f} ms a step; limit {THROUGHPUT_RTOL:.0%} "
+        "apart)")
+    if not abs(rate - event_rate) <= THROUGHPUT_RTOL * event_rate:
+        raise AssertionError(f"Throughput {rate:.1f} against {event_rate:.1f}"
+                             " lines/s")
+    return {"trace_mb": mb, "kernel_records": kernels,
+            "kernel_launches": launches,
+            "late_session_kernel_records": late_kernels,
+            "late_session_kernel_launches": late_launches,
+            "throughput_lines_per_s": rate,
+            "event_lines_per_s": event_rate, "step_ms": ms}
+
+
+def display_runs(dev, tmp: str, ocr_dir: str) -> dict:
+    """Phase 24 (e): clstmocrtrain on phase 17's corpus with display_every
+    DISPLAY_EVERY and with 0, the same settings (DISPLAY_ENV): the PNG
+    written where matplotlib is, the same TESTERR lines; in the display run
+    a device sleep queued right after block DISPLAY_SLEEP_BLOCK (or, if
+    that block's iteration drew no display, the next or the one after), and
+    the next block must start (the deferred report read and the display
+    drawn in between) in under half the sleep. Each block call's host ms
+    is logged beside it."""
+    from clstm_tpu_torch.utils import display as display_mod
+    manifests = [os.path.join(ocr_dir, d, "manifest.txt")
+                 for d in ("train", "test")]
+    real = CLSTMOCR.train_batch_block
+    render = display_mod.Display.render
+    seen = {"calls": 0, "renders": 0}
+
+    def rendered(self, *a, **kw):
+        seen["renders"] += 1
+        return render(self, *a, **kw)
+
+    def watched(self, *a, **kw):
+        n = seen["calls"]
+        seen["calls"] += 1
+        if "t0" in seen and "next_ms" not in seen:
+            if seen["renders"] > seen["renders0"]:
+                seen["next_ms"] = (time.perf_counter() - seen["t0"]) * 1e3
+            elif n < DISPLAY_SLEEP_BLOCK + 3:
+                seen.pop("t0")   # no display drawn in that block: again
+        t = time.perf_counter()
+        out = real(self, *a, **kw)
+        seen.setdefault("block_ms", []).append(
+            (time.perf_counter() - t) * 1e3)
+        seen.setdefault("block_tb", []).append(int(a[0]["group"]["tb"]))
+        if n >= DISPLAY_SLEEP_BLOCK and "t0" not in seen:
+            # The sleep goes in after the block: the window holds what the
+            # loop does between two blocks (the block itself: phase 17).
+            seen["sleep"] = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+            seen["sleep"][0].record()
+            torch.cuda._sleep(DISPLAY_SLEEP_CYCLES)
+            seen["sleep"][1].record()
+            seen["renders0"] = seen["renders"]
+            seen["t0"] = time.perf_counter()
+        return out
+    runs = {}
+    for every in (0, DISPLAY_EVERY):
+        if every:
+            CLSTMOCR.train_batch_block = watched
+            display_mod.Display.render = rendered
+        try:
+            runs[every] = dp_cli(clstmocrtrain, f"display{every}", manifests,
+                                 dict(DISPLAY_ENV, display_every=str(every)),
+                                 tmp, dev)
+        finally:
+            CLSTMOCR.train_batch_block = real
+            display_mod.Display.render = render
+    tests = {k: [ln for ln in r["printed"].splitlines()
+                 if ln.startswith("TESTERR ")] for k, r in runs.items()}
+    png = os.path.join(tmp, f"display{DISPLAY_EVERY}-display.png")
+    sleep_ms = seen["sleep"][0].elapsed_time(seen["sleep"][1])
+    slow = int(np.argmax(seen["block_ms"]))
+    loss_gap = max(abs(a["loss"] - b["loss"]) for a, b in zip(
+        runs[0]["recs"], runs[DISPLAY_EVERY]["recs"]) if "loss" in a)
+    log(f"[display] clstmocrtrain on phase 17's corpus, B="
+        f"{DISPLAY_ENV['batch_size']}, K={DISPLAY_ENV['steps_per_dispatch']}"
+        f", ntrain {DISPLAY_ENV['ntrain']}: display_every={DISPLAY_EVERY} "
+        f"printed {tests[DISPLAY_EVERY]}, display_every=0 {tests[0]}; "
+        f"matplotlib {'is' if display_mod.HAVE_MPL else 'is not'} installed, "
+        f"{os.path.basename(png)} "
+        f"{'written' if os.path.exists(png) else 'not written'}; with a "
+        f"{sleep_ms:.1f} ms device sleep queued after a block, the next "
+        f"started {seen.get('next_ms', float('nan')):.1f} ms later (a render "
+        f"of {seen['renders']} and the deferred report read between); a "
+        f"block call's host ms: median "
+        f"{float(np.median(seen['block_ms'])):.1f}, largest "
+        f"{max(seen['block_ms']):.1f} (call {slow} of "
+        f"{len(seen['block_ms'])}, T bucket {seen['block_tb'][slow]}, "
+        f"{'the first' if seen['block_tb'].index(seen['block_tb'][slow]) == slow else 'not the first'}"
+        f" call at that bucket); "
+        f"largest |loss difference| between the runs {loss_gap:.3e}")
+    if tests[DISPLAY_EVERY] != tests[0] or not tests[0]:
+        raise AssertionError("display_every changed the TESTERR lines")
+    if os.path.exists(png) != display_mod.HAVE_MPL:
+        raise AssertionError("the display PNG was not written where "
+                             "matplotlib is, or was written where it is not")
+    if "next_ms" not in seen:
+        raise AssertionError("no block of the display run drew the display")
+    if not seen["next_ms"] < 0.5 * sleep_ms:
+        raise AssertionError(f"the loop waited for the card: the next block "
+                             f"started {seen['next_ms']:.1f} ms after a "
+                             f"{sleep_ms:.1f} ms sleep")
+    return {"testerr": tests[0], "matplotlib": display_mod.HAVE_MPL,
+            "png_written": os.path.exists(png),
+            "next_block_ms_behind_sleep": seen["next_ms"],
+            "renders": seen["renders"], "block_host_ms": seen["block_ms"],
+            "block_t_bucket": seen["block_tb"],
+            "sleep_ms": sleep_ms, "loss_gap": loss_gap,
+            "wall_s": {k: r["wall_s"] for k, r in runs.items()}}
+
+
+def phase24(dev, card, ocr_dir: str) -> dict:
+    """Phase 24 (module docstring)."""
+    t24 = time.perf_counter()
+    spec, net0 = make_net_init("bidi", {"ninput": D, "nhidden": H,
+                                        "noutput": C},
+                               torch.Generator().manual_seed(0))
+    batch = bench_batch(np.random.RandomState(0), dev)
+    out = compute_dtype_steps(dev, card, spec, net0, batch)
+    out["trace"] = traced_step(dev, card, spec, net0, batch)
+    del batch
+    with tempfile.TemporaryDirectory() as tmp:
+        out["display"] = display_runs(dev, tmp, ocr_dir)
+    out["seconds"] = time.perf_counter() - t24
+    log(f"[cd] phase 24 passed in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k2-against", metavar="SRC",
@@ -4710,9 +5218,13 @@ def main(argv=None) -> int:
               "halves": dp_halves(dev),
               "clis": dp_clis(dev, tmp, ocr_dir.name, train_pairs,
                               test_pairs, default_bf16)}
-    ocr_dir.cleanup()
     dp["seconds"] = time.perf_counter() - t23
     log(f"[dp] phase 23 passed in {dp['seconds']:.1f} s")
+
+    # 24. The routes with no LSTM kernel (compute_dtype, fuse_bidi=False),
+    # the trace and the meter, clstmocrtrain with display_every.
+    p24 = phase24(dev, card, ocr_dir.name)
+    ocr_dir.cleanup()
 
     # 18. Report. bound_ms from this run's shapes and valid frames (lengths
     # 900 at both bench shapes); library_ms a library call timed in turns
@@ -5026,6 +5538,27 @@ def main(argv=None) -> int:
     extra["bidi_lstm_fwd_state (K1)"]["dp_halves_grad_rel"] = dp["halves"]
     extra["bidi_lstm_fwd_state (K1)"]["dp_clis"] = dict(
         dp["clis"], label=DP_LABEL, phase_seconds=dp["seconds"])
+    # Phase 24: each kernel's launches a step on the routes that run none
+    # of the LSTM kernels (K5 and K6 still once a step), in both modes'
+    # rows; K1's row also carries the phase's checks and times.
+    for name, key in (("bidi_lstm_fwd{} (K3)", "bidi_lstm_infer"),
+                      ("bidi_lstm_fwd_state{} (K1)", "bidi_lstm_fwd_state"),
+                      ("bidi_lstm_fwd_xz{} (K4)", "bidi_lstm_infer_xz"),
+                      ("bidi_lstm_fwd_xz_state{} (K4)",
+                       "bidi_lstm_fwd_state_xz"),
+                      ("bidi_lstm_bwd_chain{} (K2)", "bidi_lstm_bwd_chain"),
+                      ("bidi_lstm_bwd_reduce{} (K2)", "bidi_lstm_bwd_reduce"),
+                      ("ctc_forward (K5)", "ctc_forward"),
+                      ("ctc_both (K6)", "ctc_both"),
+                      ("ctc_backward (K6b)", "ctc_backward")):
+        for mode in {"", " bf16"} if "{}" in name else {""}:
+            extra.setdefault(name.format(mode), {})[
+                "launches_per_step_no_kernel_routes"] = {
+                "compute_dtype": p24["cd_launches"][key] / CD_STEPS,
+                "fuse_bidi_false": p24["unfused_launches"][key] / CD_STEPS}
+    extra["bidi_lstm_fwd_state (K1)"]["phase24"] = {
+        k: v for k, v in p24.items()
+        if k not in ("cd_launches", "unfused_launches")}
     kernels = []
     for name, src, rep, n, err, rel, (km, pm), (bms, bby), lms in entries:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -30,11 +30,14 @@ torch.distributed (the trainers' ``mesh=N``):
   - data/       line preparation, width and target-length buckets,
                 manifests and batches, text batches, the synthetic line
                 renderer, the device-resident corpus caches (line frames,
-                or text as int ids expanded to one-hot in the step)
+                or text as int ids expanded to one-hot in the step), the
+                delayed-sequence task (synth.py)
   - parallel/   data parallelism: the rank's group, device and backend,
                 the spawn launch, replication, and the training steps
                 that sum the loss and gradients over the ranks
-  - utils/      env config and the device, host/device copies, CER, text
+  - utils/      env config and the device, host/device copies, CER, text,
+                the torch.profiler trace and throughput meters
+                (profiling.py), the training dashboard (display.py)
   - cli/        clstmocr, clstmocrtrain, clstmfilter, clstmfiltertrain
   - convert.py  JAX params pytree and TrainState (as numpy) <-> the port
 
@@ -44,6 +47,37 @@ tensors it launches the kernel or raises.
 
 __version__ = "0.1.0"
 
-from clstm_tpu_torch.models.hl import CLSTMOCR, CLSTMText  # noqa: E402
+from clstm_tpu_torch.models.spec import (  # noqa: E402
+    NetSpec, apply_net, init_net, network_info)
+from clstm_tpu_torch.models.prefab import make_net, make_net_init  # noqa: E402
+from clstm_tpu_torch.models.codec import Codec  # noqa: E402
+from clstm_tpu_torch.models.hl import (  # noqa: E402
+    CLSTMOCR, CLSTMText, CharPrediction)
+from clstm_tpu_torch.ops.ctc import (  # noqa: E402
+    ctc_align_targets, mktargets, trivial_decode)
+from clstm_tpu_torch.io.proto import load_net, save_net  # noqa: E402
+from clstm_tpu_torch.train import (  # noqa: E402
+    TrainState, make_train_step, sgd_update)
 
-__all__ = ["CLSTMOCR", "CLSTMText"]
+# The JAX package's __all__, name for name.
+__all__ = [
+    "NetSpec",
+    "init_net",
+    "apply_net",
+    "network_info",
+    "make_net",
+    "make_net_init",
+    "Codec",
+    "CLSTMOCR",
+    "CLSTMText",
+    "CharPrediction",
+    "ctc_align_targets",
+    "mktargets",
+    "trivial_decode",
+    "load_net",
+    "save_net",
+    "TrainState",
+    "make_train_step",
+    "sgd_update",
+    "__version__",
+]

@@ -19,6 +19,9 @@ params, with the JAX package's names and defaults:
   batch_size=32      lines per batch
   net=bidi           prefab kind (bidi/bidi2/lstm1/...)
   log_jsonl=         path for structured JSONL metrics
+  display_every=0    >0 writes the dashboard save_name-display.png (losses
+                     and test CER, utils/display.py; matplotlib, else
+                     nothing) every N trials, from the deferred reports
   gradient_clip=0    >0 enables global-norm clipping
   normalization=none lr normalization (none/len/batch)
   initial=0          weight init scale (0 = the prefab's default)
@@ -47,9 +50,8 @@ params, with the JAX package's names and defaults:
                      torchrun (then mesh is 0 or WORLD_SIZE). batch_size is
                      rounded up to divide by N; rank 0 prints, tests, logs
                      and saves
-Not ported, and raising: t_buckets=auto (ROADMAP.md Queue 1 item 5),
-display_every>0 (item 9). compile_cache is read and ignored: nothing is
-compiled ahead.
+Not ported, and raising: t_buckets=auto (ROADMAP.md Queue 1 item 5).
+compile_cache is read and ignored: nothing is compiled ahead.
 """
 
 from __future__ import annotations
@@ -107,13 +109,16 @@ def train(ocr: CLSTMOCR, codec: Codec, *, save_name: str, ntrain: int,
           batch_size: int, report_every: int = 100, save_every: int = 1000,
           test_every: int = 10000, steps_per_dispatch: int = 0,
           randseed: int = 0, log_jsonl: str = "", dcache=None,
-          test_cache=None, samples=None, test_samples=None) -> int:
+          test_cache=None, samples=None, test_samples=None,
+          display_every: int = 0) -> int:
     """The training loop of clstmocrtrain, after the corpus is loaded:
     trains ``ocr`` until ``ntrain`` trials, on the device cache ``dcache``
     (K-batch blocks, train_batch_block) or, without one, on host-built
     batches of ``samples`` (train_batch); reports, tests on ``test_cache``
-    or ``test_samples`` and saves at their cadences. Returns the trials
-    run."""
+    or ``test_samples`` and saves at their cadences; with ``display_every``
+    > 0, rank 0 renders ``save_name``-display.png each time the trials pass
+    a multiple of it, from the losses of the deferred reports and the test
+    CERs (never a read of the card). Returns the trials run."""
     use_cache = dcache is not None
     has_test = bool(test_samples) or bool(test_cache)
     block_k = (steps_per_dispatch if steps_per_dispatch > 0 else
@@ -127,6 +132,12 @@ def train(ocr: CLSTMOCR, codec: Codec, *, save_name: str, ntrain: int,
     next_report = 0
     next_save = save_every
     next_test = test_every
+    display = None
+    if display_every > 0 and (ocr.mesh is None or ocr.mesh.main):
+        # Imported here: it selects matplotlib's Agg back end.
+        from clstm_tpu_torch.utils.display import Display
+        display = Display(save_name + "-display.png")
+    next_display = max(display_every, 1)
     t0 = time.time()
     # Deferred report: its copy to pinned memory starts when the block is
     # enqueued and is read one block later, so the card does not drain
@@ -158,6 +169,8 @@ def train(ocr: CLSTMOCR, codec: Codec, *, save_name: str, ntrain: int,
                     "trial": tr, "loss": loss,
                     "lines_per_sec": rate}) + "\n")
                 jsonl.flush()
+            if display is not None:
+                display.add_loss(tr, loss)
 
     try:
         while trials < ntrain:
@@ -217,6 +230,8 @@ def train(ocr: CLSTMOCR, codec: Codec, *, save_name: str, ntrain: int,
                         jsonl.write(json.dumps({"trial": trials,
                                                 "test_cer": err}) + "\n")
                         jsonl.flush()
+                    if display is not None:
+                        display.add_test_err(trials, err)
                     if err < best_err:
                         best_err = err
                         ocr.save(save_name + ".clstm")
@@ -226,6 +241,12 @@ def train(ocr: CLSTMOCR, codec: Codec, *, save_name: str, ntrain: int,
                     while next_save <= trials:
                         next_save += max(save_every, 1)
                     ocr.save(save_name + "-last.clstm")
+                if display is not None and trials >= next_display:
+                    # Boundary-crossing gate: a block advances the trials
+                    # by up to K batches, past any window of one batch.
+                    while next_display <= trials:
+                        next_display += max(display_every, 1)
+                    display.render()
                 if trials >= ntrain:
                     break
         flush_pending()
@@ -245,10 +266,6 @@ def main(argv=None) -> int:
         print(__doc__)
         return 1
     getsenv("compile_cache", "")  # read and ignored (no ahead compile)
-    if getienv("display_every", 0) > 0:
-        raise NotImplementedError(
-            "display_every > 0 (utils/display.py) is not ported yet "
-            "(ROADMAP.md Queue 1 item 9)")
     tb_mode = getsenv("t_buckets", "fine")
     if tb_mode == "auto":
         raise NotImplementedError(
@@ -345,7 +362,8 @@ def _run(argv, mesh=None) -> int:
           log_jsonl=getsenv("log_jsonl", "") if ocr.mesh is None
           or ocr.mesh.main else "",
           dcache=dcache, test_cache=test_cache, samples=samples,
-          test_samples=test_samples)
+          test_samples=test_samples,
+          display_every=getienv("display_every", 0))
     return 0
 
 

@@ -1,1 +1,1 @@
-"""Line preparation and width buckets."""
+"""Datasets, width buckets and synthetic task generators."""

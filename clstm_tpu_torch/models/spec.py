@@ -6,6 +6,13 @@ Assoc, sub networks} -> frozen ``NetSpec`` tree plus the module tree built
 from it; the global layer registry + ``make_layer(kind)`` -> ``REGISTRY`` /
 ``make_layer`` keyed by the same kind strings, so .clstm files reconstruct.
 
+``LayerDef`` has no counterpart: the JAX package's registry entry holds a
+kind's init, apply and noutput functions because its weights are a pytree
+apart from the code; here a kind is an ``nn.Module`` class holding its own
+weights, with ``reset_parameters`` for the init, ``forward`` for the apply
+and ``noutput`` for the output dim (``noutput_of``), so ``REGISTRY`` maps
+each kind to its class.
+
 The spec stays plain Python data, so the proto round trip is structural
 identity. Each module keeps its spec and its own weights under the JAX
 package's names (NPLSTM: Wx [D,4H], Wh [H,4H], b [4H]; affine: W [ni,no],
@@ -23,7 +30,7 @@ from torch import nn
 
 from clstm_tpu_torch.ops.bidi_lstm_kernel import (
     bidi_lstm_infer, bidi_lstm_train)
-from clstm_tpu_torch.ops.lstm import lstm_apply
+from clstm_tpu_torch.ops.lstm import bidi_lstm_apply, lstm_apply
 from clstm_tpu_torch.ops.nonlin import nonlin_apply
 from clstm_tpu_torch.ops.seq import flip_within_length
 
@@ -130,11 +137,31 @@ class ApplyCtx:
     # (pallas_lstm.py ``xz_bf16=True``: bf16 operands and streams, f32
     # accumulation, bf16 y) with the affine layers on bf16 operands (its
     # ``_affine`` on the TPU); False strict f32; None CARD_DEFAULT_BF16 on
-    # a CUDA tensor and f32 on a CPU tensor.
+    # a CUDA tensor and f32 on a CPU tensor, unless compute_dtype is set.
     xz_bf16: Optional[bool] = None
+    # The JAX package's ``compute_dtype``, torch.bfloat16 (its one use,
+    # bench.py's bench_bf16): the scan recipe of ops/lstm.py on every
+    # layer, plain on every device, as the JAX package runs it with
+    # lax.scan on every backend; the affine layers on bf16 operands. Never
+    # combined with xz_bf16=True.
+    compute_dtype: Optional[torch.dtype] = None
+    # One fused execution of the bidi idiom (the kernels); False runs
+    # Parallel(NPLSTM, Reversed(NPLSTM)) as the literal layer tree.
+    fuse_bidi: bool = True
+
+    def __post_init__(self):
+        if self.compute_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"compute_dtype {self.compute_dtype}: the port "
+                             "takes torch.bfloat16 (or None)")
+        if self.compute_dtype is not None and self.xz_bf16:
+            raise ValueError("compute_dtype and xz_bf16=True are two "
+                             "precision modes; the JAX package never "
+                             "combines them")
 
     def bf16(self, x: torch.Tensor) -> bool:
-        """Whether the layer on ``x`` runs in the bf16 mode."""
+        """Whether the layer on ``x`` runs in the bf16 mode (``xz_bf16``)."""
+        if self.compute_dtype is not None:
+            return False
         if self.xz_bf16 is None:
             return CARD_DEFAULT_BF16 and x.is_cuda
         return bool(self.xz_bf16)
@@ -159,7 +186,8 @@ def init_net(spec: NetSpec, generator: torch.Generator,
 def apply_net(net: "Layer", x: torch.Tensor,
               lengths: Optional[torch.Tensor] = None, *,
               logits: bool = False, inference: bool = False,
-              xz_bf16: Optional[bool] = None) -> torch.Tensor:
+              xz_bf16: Optional[bool] = None, compute_dtype=None,
+              fuse_bidi: bool = True) -> torch.Tensor:
     """Forward pass: [B, T, D] right-padded batch -> [B, T, O].
 
     ``logits=True`` makes the outermost SoftmaxLayer return pre-softmax
@@ -172,13 +200,50 @@ def apply_net(net: "Layer", x: torch.Tensor,
     layer of ``bidi2``) takes the hoisted projection and K4 in place of K3
     and K1. ``xz_bf16`` picks the precision (``ApplyCtx``): None, the
     default, is CARD_DEFAULT_BF16 on a CUDA tensor and strict f32 on a CPU
-    tensor.
+    tensor. ``compute_dtype`` (e.g. torch.bfloat16) is the JAX package's
+    scan recipe, run by the plain loops on every device (no kernel; it
+    raises with ``xz_bf16=True``); ``fuse_bidi=False`` runs a bidi pair as
+    the literal layer tree, two plain ``lstm_apply`` loops (no kernel).
     """
-    ctx = ApplyCtx(logits=logits, xz_bf16=xz_bf16)
+    ctx = ApplyCtx(logits=logits, xz_bf16=xz_bf16,
+                   compute_dtype=compute_dtype, fuse_bidi=fuse_bidi)
     if inference:
         with torch.no_grad():
             return net(x, lengths, ctx)
     return net(x, lengths, ctx)
+
+
+def noutput_of(spec: NetSpec) -> int:
+    """Output feature dimension of a spec tree."""
+    return REGISTRY[resolve_kind(spec.kind)].noutput(spec)
+
+
+def walk_weights(spec: NetSpec, net: "Layer", path: str = ""):
+    """Yield (path, name, tensor) over all trainable weights of ``net``
+    (the module tree built from ``spec``), preorder — the analogue of the
+    reference's weight walker (INetwork::myweights), with the JAX
+    package's paths and order."""
+    for name, arr in net.weights().items():
+        yield path or ".", name, arr
+    for i, (s, m) in enumerate(zip(spec.sub, net.sub)):
+        yield from walk_weights(s, m, f"{path}/{s.kind}[{i}]")
+
+
+def network_info(spec: NetSpec, net: Optional["Layer"] = None,
+                 indent: int = 0) -> str:
+    """Debug dump of the network tree (reference ``network_info``), with
+    each node's weight shapes when ``net`` is given: the JAX package's
+    text for the same spec and weights."""
+    pad = "  " * indent
+    attrs = " ".join(f"{k}={v}" for k, v in spec.attr)
+    lines = [f"{pad}{spec.kind} {attrs}".rstrip()]
+    if net is not None:
+        for name, arr in net.weights().items():
+            lines.append(f"{pad}  [{name} {tuple(arr.shape)}]")
+    for i, s in enumerate(spec.sub):
+        lines.append(network_info(s, net.sub[i] if net is not None else None,
+                                  indent + 1))
+    return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +271,12 @@ class Layer(nn.Module):
         with torch.no_grad():
             for p in self.weights().values():
                 p.uniform_(-s, s, generator=generator)
+
+    @staticmethod
+    def noutput(spec: NetSpec) -> int:
+        """The kind's output feature dim: the ``noutput`` attr unless the
+        kind says otherwise."""
+        return spec.iget("noutput")
 
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
         raise NotImplementedError
@@ -268,9 +339,15 @@ class Affine(Layer):
             return _AffineBF16.apply(x, self.W, self.b)
         return torch.matmul(x.float(), self.W) + self.b
 
+    def affine_ctx(self, x: torch.Tensor, ctx: ApplyCtx) -> torch.Tensor:
+        """The affine at ``ctx``'s precision: bf16 operands in the bf16 mode
+        and under ``compute_dtype`` (the JAX package's ``_affine`` casts its
+        operands to ``compute_dtype`` on every backend), else f32."""
+        return self.affine(x, ctx.bf16(x) or ctx.compute_dtype is not None)
+
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
         nl = _NONLIN[resolve_kind(self.spec.kind)]
-        return nonlin_apply(nl, self.affine(x, ctx.bf16(x))).to(x.dtype)
+        return nonlin_apply(nl, self.affine_ctx(x, ctx)).to(x.dtype)
 
 
 class Softmax(Affine):
@@ -279,13 +356,17 @@ class Softmax(Affine):
     other layer kinds preserve x.dtype."""
 
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
-        z = self.affine(x, ctx.bf16(x))
+        z = self.affine_ctx(x, ctx)
         if ctx.logits:
             return z
         return torch.softmax(z, dim=-1)
 
 
 class NPLSTM(Layer):
+    @staticmethod
+    def noutput(spec: NetSpec) -> int:
+        return spec.iget("nhidden")
+
     def __init__(self, spec: NetSpec):
         super().__init__(spec)
         ni, nh = spec.iget("ninput"), spec.iget("nhidden")
@@ -294,10 +375,15 @@ class NPLSTM(Layer):
         self.b = nn.Parameter(torch.zeros(4 * nh))
 
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
-        return lstm_apply(self.weights(), x, lengths)
+        return lstm_apply(self.weights(), x, lengths,
+                          compute_dtype=ctx.compute_dtype)
 
 
 class Stacked(Layer):
+    @staticmethod
+    def noutput(spec: NetSpec) -> int:
+        return noutput_of(spec.sub[-1])
+
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
         n = len(self.sub)
         for i, s in enumerate(self.sub):
@@ -322,10 +408,19 @@ def _is_bidi_pair(spec: NetSpec) -> bool:
 
 
 class Parallel(Layer):
+    @staticmethod
+    def noutput(spec: NetSpec) -> int:
+        return sum(noutput_of(s) for s in spec.sub)
+
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
-        if _is_bidi_pair(self.spec):
+        if ctx.fuse_bidi and _is_bidi_pair(self.spec):
             pf = self.sub[0].weights()
             pr = self.sub[1].sub[0].weights()
+            if ctx.compute_dtype is not None:
+                # The JAX package's route under compute_dtype on every
+                # backend: the one-scan recipe, no kernel.
+                return bidi_lstm_apply(pf, pr, x, lengths,
+                                       compute_dtype=ctx.compute_dtype)
             mode = {"xz_bf16": True} if ctx.bf16(x) else {}
             if torch.is_grad_enabled() and (
                     x.requires_grad or any(
@@ -338,6 +433,10 @@ class Parallel(Layer):
 
 
 class Reversed(Layer):
+    @staticmethod
+    def noutput(spec: NetSpec) -> int:
+        return noutput_of(spec.sub[0])
+
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
         sub_ctx = dataclasses.replace(ctx, logits=False)
         y = self.sub[0](flip_within_length(x, lengths), lengths, sub_ctx)
@@ -345,6 +444,10 @@ class Reversed(Layer):
 
 
 class Botched(Layer):
+    @staticmethod
+    def noutput(spec: NetSpec) -> int:
+        return noutput_of(spec.sub[0]) if spec.sub else 0
+
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
         # Reference ``Botched`` guards partially-implemented nets by aborting
         # in forward/backward.

@@ -25,6 +25,22 @@ instead:
   bidi_lstm_bwd_reduce_plain  K2's contractions (dWx with the bias row,
                               dWh, dx).
 
+``lstm_apply`` and ``bidi_lstm_apply`` also take ``compute_dtype`` (e.g.
+torch.bfloat16), the JAX package's scan recipe (clstm_tpu/ops/lstm.py
+``compute_dtype``), which no kernel runs: the JAX package routes it to
+``lax.scan`` on every backend, and the port to these loops on every device.
+Its rounding points are the scan's, and its gradient is the one ``jax.grad``
+takes through the scan: the hoisted x·Wx and each step's h·Wh take operands
+rounded to ``compute_dtype`` with f32 accumulation, the f32 bias is added
+after; the gates, c, h and y stay f32, and y comes back in x's type. Wh is
+rounded once, outside the loop, and read as f32 at each step, so autograd
+sums its gradient in ``compute_dtype`` over the steps (the scan's transpose
+carries the cotangent of a ``compute_dtype`` constant in that type); the
+f32 cotangent of each rounded h is rounded to ``compute_dtype`` on its way
+back into the f32 chain (the transpose of the cast); dWx and dx are f32
+products rounded once; db stays f32. A third mode beside strict f32 and
+``xz_bf16``, and never combined with the latter.
+
 Each bidi function takes ``xz_bf16``, the JAX package's production mode
 (clstm_tpu/ops/pallas_lstm.py, ``bidi_lstm_pallas(..., xz_bf16=True)``),
 with its rounding points: bf16 operands before every product ([x | 1],
@@ -48,6 +64,33 @@ import torch
 import torch.nn.functional as F
 
 from clstm_tpu_torch.ops.seq import flip_within_length
+
+
+GATE_ORDER = ("GI", "GF", "GO", "CI")
+
+
+def lstm_init(generator: torch.Generator, ninput: int, nhidden: int, *,
+              scale: float = 0.01, dtype=torch.float32) -> dict:
+    """Fused LSTM parameters {"Wx": [D, 4H], "Wh": [H, 4H], "b": [4H]},
+    each uniform in [-scale, scale] (reference init over the whole
+    (nhidden, 1+ninput+nhidden) matrix, attr ``initial`` / rinit "unif"),
+    drawn from ``generator`` (a CPU generator) in that order, as
+    models/spec.py's NPLSTM layer draws its weights. The draws are torch's,
+    not jax.random's: weights cross between the packages by conversion
+    (convert.py), not by seed."""
+    def draw(*shape):
+        return torch.empty(shape, dtype=dtype).uniform_(-scale, scale,
+                                                        generator=generator)
+    return {"Wx": draw(ninput, 4 * nhidden), "Wh": draw(nhidden, 4 * nhidden),
+            "b": draw(4 * nhidden)}
+
+
+def _cast(t: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``t`` as an operand of a product under ``compute_dtype``: rounded to
+    it and taken as f32, so the product is the f32-accumulated product of
+    the rounded operands (exact for bf16 operands). Its gradient is the f32
+    cotangent rounded to ``compute_dtype`` and taken back to t's type."""
+    return t.to(compute_dtype).float()
 
 
 def _ctype(w: torch.Tensor) -> torch.dtype:
@@ -90,19 +133,30 @@ def _cell(z: torch.Tensor, c: torch.Tensor, H: int):
 
 
 def lstm_apply(params: dict, x: torch.Tensor,
-               lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+               lengths: Optional[torch.Tensor] = None, *,
+               compute_dtype=None) -> torch.Tensor:
     """Run the LSTM over a right-padded batch: x [B, T, D] -> h [B, T, H]
-    (padded steps exactly zero)."""
+    (padded steps exactly zero), in x's type. ``compute_dtype``: the scan
+    recipe's rounding points (module docstring); None is strict f32."""
     Wx, Wh, b = params["Wx"], params["Wh"], params["b"]
     B, T, _ = x.shape
     H = Wh.shape[0]
-    xz = torch.matmul(x.float(), Wx) + b       # hoisted input projection
+    cd = compute_dtype
+    if cd is None:
+        xz = torch.matmul(x.float(), Wx) + b   # hoisted input projection
+    else:
+        xz = torch.matmul(_cast(x, cd), _cast(Wx, cd)) + b.float()
+        Wh = Wh.to(cd)       # rounded once: its gradient sums in cd
     valid = _valid(lengths, B, T, x.device)
+    # One view a step: autograd then stacks the steps' cotangents once,
+    # where indexing xz[:, t] adds each into a zero tensor of xz's size.
+    xzs = xz.unbind(1)
     h = x.new_zeros((B, H), dtype=torch.float32)
     c = torch.zeros_like(h)
     outs = []
     for t in range(T):
-        h_new, c_new = _cell(xz[:, t] + h @ Wh, c, H)
+        hw = h @ Wh if cd is None else _cast(h, cd) @ Wh.float()
+        h_new, c_new = _cell(xzs[t] + hw, c, H)
         v = valid[t]
         c = torch.where(v, c_new, c)
         h = torch.where(v, h_new, h)
@@ -215,7 +269,8 @@ def bidi_lstm_fwd_state_xz_plain(params_f: dict, params_r: dict,
 
 def bidi_lstm_apply(params_f: dict, params_r: dict, x: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
-                    xz_bf16: bool = False) -> torch.Tensor:
+                    xz_bf16: bool = False, *,
+                    compute_dtype=None) -> torch.Tensor:
     """Bidirectional LSTM, K3's plain version: the hoisted projection, then
     both directions stacked on a leading group axis in one loop over T.
 
@@ -226,13 +281,53 @@ def bidi_lstm_apply(params_f: dict, params_r: dict, x: torch.Tensor,
     then backward features. ``lengths`` are clamped to [0, T], as the
     kernel does. With ``xz_bf16`` the projection takes bf16 operands and
     is not rounded (it stays in the kernel, as on the TPU), and y is bf16.
+    With ``compute_dtype`` it is the JAX package's ``bidi_lstm_apply``
+    with that argument, the scan recipe (``_bidi_scan``), which no kernel
+    runs; it is never combined with ``xz_bf16``.
     """
+    if compute_dtype is not None:
+        if xz_bf16:
+            raise ValueError("compute_dtype and xz_bf16 are two precision "
+                             "modes; the JAX package never combines them")
+        return _bidi_scan(params_f, params_r, x, lengths, compute_dtype)
     if xz_bf16:
         return _chain_plain(params_f, params_r,
                             _projection(params_f, params_r, x, True),
                             lengths, False, True)[0]
     xz = hoisted_projection(params_f, params_r, x)
     return bidi_lstm_apply_xz(params_f, params_r, xz, lengths).to(x.dtype)
+
+
+def _bidi_scan(params_f: dict, params_r: dict, x: torch.Tensor,
+               lengths: Optional[torch.Tensor], cd) -> torch.Tensor:
+    """clstm_tpu/ops/lstm.py::bidi_lstm_apply under ``compute_dtype`` cd,
+    step for step: both directions' projections as one batched product of
+    the stacked [x, flip(x)] and [Wx_f, Wx_r] rounded to cd, plus the f32
+    bias; [Wh_f, Wh_r] rounded to cd once; per step the batched h·Wh of
+    the rounded h, f32 gates and carries; y in x's type. Autograd through
+    these casts is the scan's gradient (module docstring)."""
+    B, T, _ = x.shape
+    H = params_f["Wh"].shape[0]
+    x2 = _cast(torch.stack([x, flip_within_length(x, lengths)]), cd)
+    Wx2 = _cast(torch.stack([params_f["Wx"], params_r["Wx"]]), cd)
+    b2 = torch.stack([params_f["b"], params_r["b"]]).float()
+    xz = torch.einsum("gbtd,gdo->gbto", x2, Wx2) + b2[:, None, None, :]
+    Wh2 = torch.stack([params_f["Wh"], params_r["Wh"]]).to(cd)
+    valid = _valid(lengths, B, T, x.device)                      # [T,B,1]
+    xzs = xz.unbind(2)             # one view a step, as in lstm_apply
+    h = x.new_zeros((2, B, H), dtype=torch.float32)
+    c = torch.zeros_like(h)
+    outs = []
+    for t in range(T):
+        z = xzs[t] + torch.bmm(_cast(h, cd), Wh2.float())
+        h_new, c_new = _cell(z, c, H)
+        v = valid[t]
+        c = torch.where(v, c_new, c)
+        h = torch.where(v, h_new, h)
+        outs.append(torch.where(v, h_new, torch.zeros_like(h_new)))
+    hs = torch.stack(outs, dim=2)                                # [2,B,T,H]
+    return torch.cat([hs[0], flip_within_length(hs[1], lengths)],
+                     dim=-1).to(x.dtype)
 
 
 def _to_dirs(a: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:

@@ -24,12 +24,12 @@ from typing import Optional
 
 import torch
 
-from clstm_tpu_torch.models.spec import NetSpec
+from clstm_tpu_torch.models.spec import ApplyCtx, NetSpec
 from clstm_tpu_torch.ops.ctc import greedy_frames
 from clstm_tpu_torch.parallel.mesh import Mesh, pack, shard_rows, unpack
 from clstm_tpu_torch.train import (
-    _LOSSES, TrainState, _check_compute_dtype, apply_update, augmented,
-    check_spec, gather_batch, loss_and_grads)
+    _LOSSES, TrainState, apply_update, augmented, check_spec, gather_batch,
+    loss_and_grads)
 from clstm_tpu_torch.utils.config import to_device
 
 
@@ -58,8 +58,10 @@ def _make_device_step_fn(spec: NetSpec, mesh: Mesh, loss_kind: str,
 
     ``frames``: the buffer also carries the per-frame (ids, vals) of every
     row ([B, T] each, zero but for this rank's rows), so the metrics cover
-    the global batch; else only global row 0's, the report."""
-    _check_compute_dtype(compute_dtype)
+    the global batch; else only global row 0's, the report.
+    ``compute_dtype``: the scan recipe (train.make_train_step); each rank
+    takes its own gradients in it, summed in f32 over the ranks."""
+    ApplyCtx(xz_bf16=xz_bf16, compute_dtype=compute_dtype)   # modes checked
     loss_fn = _LOSSES[loss_kind]
 
     def device_step(state: TrainState, batch: dict, lr_t, momentum_t):
@@ -69,7 +71,8 @@ def _make_device_step_fn(spec: NetSpec, mesh: Mesh, loss_kind: str,
         batch = augmented(batch, augment, augment_seed, state.step,
                           mesh.rank)
         loss, grads, probs = loss_and_grads(state.net, batch, loss_fn,
-                                            normalization, xz_bf16)
+                                            normalization, xz_bf16,
+                                            compute_dtype)
         ids, vals = greedy_frames(probs)
         b, T = ids.shape
         if frames:

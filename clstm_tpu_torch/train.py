@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from clstm_tpu_torch.models.spec import Layer, NetSpec, apply_net
+from clstm_tpu_torch.models.spec import ApplyCtx, Layer, NetSpec, apply_net
 from clstm_tpu_torch.ops.ctc import ctc_align_targets_batched, greedy_frames
 from clstm_tpu_torch.ops.preprocess import augment_generator, augment_lines
 from clstm_tpu_torch.ops.seq import length_mask
@@ -79,14 +79,6 @@ def _reduce_lines(per_line: torch.Tensor, lengths: torch.Tensor, B: int,
     raise ValueError(f"unknown normalization: {normalization!r}")
 
 
-def _check_compute_dtype(compute_dtype) -> None:
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype (bf16 matmuls through lax.scan) is not ported; "
-            "the port's bf16 mode is xz_bf16, the JAX package's Pallas "
-            "production mode (ROADMAP.md Queue 1)")
-
-
 def ctc_alignment_loss(net: Layer, batch: dict, *, normalization: str = "none",
                        compute_dtype=None, xz_bf16: Optional[bool] = None):
     """The reference training objective as a scalar surrogate loss.
@@ -95,12 +87,15 @@ def ctc_alignment_loss(net: Layer, batch: dict, *, normalization: str = "none",
     blank-interleaved class ids, "target_lengths": [B] int32}, tensors on
     the net's device. Returns (loss, (probs, aligned)). ``xz_bf16``: the
     forward's precision (models/spec.py::ApplyCtx; None: the card's
-    default, CARD_DEFAULT_BF16, and f32 on the CPU); the logits and the
-    alignment are f32 either way.
+    default, CARD_DEFAULT_BF16, and f32 on the CPU); ``compute_dtype``
+    (e.g. torch.bfloat16): the JAX package's scan recipe in its place, no
+    LSTM kernel. The logits and the alignment are f32 either way: as in
+    the JAX package, compute_dtype reaches only the net, and the alignment
+    stays exact f32 (ROADMAP.md Queue 3, "CTC matmul precision").
     """
-    _check_compute_dtype(compute_dtype)
     x, lengths = batch["x"], batch["lengths"]
-    logits = apply_net(net, x, lengths, logits=True, xz_bf16=xz_bf16).float()
+    logits = apply_net(net, x, lengths, logits=True, xz_bf16=xz_bf16,
+                       compute_dtype=compute_dtype).float()
     probs = torch.softmax(logits, dim=-1)
     with torch.no_grad():
         aligned = ctc_align_targets_batched(
@@ -118,11 +113,11 @@ def frame_target_loss(net: Layer, batch: dict, *, normalization: str = "none",
     """Direct per-frame supervision (the reference test-lstm.cc setup).
 
     batch: {"x": [B,T,D], "lengths": [B], "y": [B,T,C] one-hot frame
-    targets}.
+    targets}. ``compute_dtype`` and ``xz_bf16`` as in ctc_alignment_loss.
     """
-    _check_compute_dtype(compute_dtype)
     x, lengths = batch["x"], batch["lengths"]
-    logits = apply_net(net, x, lengths, logits=True, xz_bf16=xz_bf16).float()
+    logits = apply_net(net, x, lengths, logits=True, xz_bf16=xz_bf16,
+                       compute_dtype=compute_dtype).float()
     probs = torch.softmax(logits, dim=-1)
     mask = length_mask(lengths, x.shape[1])
     ll = F.log_softmax(logits, dim=-1)
@@ -170,21 +165,22 @@ def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
     into one f32 vector. gradient_clip > 0 enables global-norm clipping;
     augment > 0 distorts each batch on the device first (augment_lines).
     ``spec`` names the topology the step is built for; the state's net must
-    have it. compute_dtype (bf16 matmuls through lax.scan in the JAX
-    package) is not ported and raises; ``xz_bf16`` is the precision of the
-    bidi and affine layers (models/spec.py::ApplyCtx; None: the card's
-    default, f32 on the CPU; parameters, velocity and update stay f32). The
-    step is also the body of make_cached_train_step and
-    make_multi_train_step.
+    have it. ``xz_bf16`` is the precision of the bidi and affine layers
+    (models/spec.py::ApplyCtx; None: the card's default, f32 on the CPU);
+    ``compute_dtype`` (e.g. torch.bfloat16) the JAX package's scan recipe
+    in its place, which runs no LSTM kernel (the CTC kernels run as ever);
+    parameters, velocity and update stay f32. The step is also the body of
+    make_cached_train_step and make_multi_train_step.
     """
-    _check_compute_dtype(compute_dtype)
+    ApplyCtx(xz_bf16=xz_bf16, compute_dtype=compute_dtype)   # modes checked
     loss_fn = _LOSSES[loss_kind]
 
     def step(state: TrainState, batch: dict, lr_arg=None, momentum_arg=None):
         check_spec(state, spec)
         batch = augmented(batch, augment, augment_seed, state.step)
         loss, grads, probs = loss_and_grads(state.net, batch, loss_fn,
-                                            normalization, xz_bf16)
+                                            normalization, xz_bf16,
+                                            compute_dtype)
         apply_update(state, grads, gradient_clip,
                      lr if lr_arg is None else lr_arg,
                      momentum if momentum_arg is None else momentum_arg)
@@ -216,13 +212,13 @@ def augmented(batch: dict, augment: float, augment_seed: int, step: int,
 
 
 def loss_and_grads(net: Layer, batch: dict, loss_fn, normalization: str,
-                   xz_bf16: Optional[bool]):
+                   xz_bf16: Optional[bool], compute_dtype=None):
     """The loss on ``batch`` and its gradient, one tensor per parameter
     (zeros for a parameter the loss does not reach). -> (loss detached,
     grads by parameter name, probs)."""
     net.zero_grad(set_to_none=True)
     loss, (probs, _) = loss_fn(net, batch, normalization=normalization,
-                               xz_bf16=xz_bf16)
+                               xz_bf16=xz_bf16, compute_dtype=compute_dtype)
     loss.backward()
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
              for n, p in net.named_parameters()}
@@ -341,13 +337,14 @@ def make_predict_step(spec: NetSpec, *, compute_dtype=None, mesh=None,
                       xz_bf16: Optional[bool] = None):
     """Inference: predict(net, x, lengths) -> per-frame (ids, vals), the
     no-grad forward then the per-frame argmax, at the precision ``xz_bf16``
-    (None: the card's default, f32 on the CPU).
+    (None: the card's default, f32 on the CPU) or ``compute_dtype`` (the
+    scan recipe, no LSTM kernel).
 
     With ``mesh`` (parallel/mesh.py), every rank passes the same global
     batch, runs the forward on its own rows and gets the full [B, T] ids and
     values back (gather_rows: one all_reduce of zero-filled buffers, each
     rank writing its rows). Batch rows must divide by the mesh size."""
-    _check_compute_dtype(compute_dtype)
+    ApplyCtx(xz_bf16=xz_bf16, compute_dtype=compute_dtype)   # modes checked
     # parallel/ imports this module: import its helper here.
     from clstm_tpu_torch.parallel.mesh import gather_rows
 
@@ -355,7 +352,8 @@ def make_predict_step(spec: NetSpec, *, compute_dtype=None, mesh=None,
         rows = slice(None) if mesh is None else mesh.rows(x.shape[0])
         probs = apply_net(net, x[rows].contiguous(),
                           None if lengths is None else lengths[rows],
-                          inference=True, xz_bf16=xz_bf16)
+                          inference=True, xz_bf16=xz_bf16,
+                          compute_dtype=compute_dtype)
         frames = greedy_frames(probs.float())
         if mesh is None:
             return frames
@@ -367,11 +365,13 @@ def make_predict_step(spec: NetSpec, *, compute_dtype=None, mesh=None,
 def make_forward(spec: NetSpec, *, compute_dtype=None,
                  xz_bf16: Optional[bool] = None):
     """Plain forward (posteriors), for tests and external use, at the
-    precision ``xz_bf16`` (None: the card's default, f32 on the CPU)."""
-    _check_compute_dtype(compute_dtype)
+    precision ``xz_bf16`` (None: the card's default, f32 on the CPU) or
+    ``compute_dtype`` (the scan recipe, no LSTM kernel)."""
+    ApplyCtx(xz_bf16=xz_bf16, compute_dtype=compute_dtype)   # modes checked
 
     def forward(net: Layer, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None):
-        return apply_net(net, x, lengths, xz_bf16=xz_bf16)
+        return apply_net(net, x, lengths, xz_bf16=xz_bf16,
+                         compute_dtype=compute_dtype)
 
     return forward

@@ -1,6 +1,6 @@
 """Environment-variable configuration and the device the port runs on.
 
-Reference: getienv/getsenv in utils.h (≈L1-250, unverified) — the
+Reference: getienv/getdenv/getsenv in utils.h (≈L1-250, unverified) — the
 *entire* config system of the reference CLIs is env vars with inline
 defaults (SURVEY.md §5), e.g. ``lrate=1e-4 nhidden=200 clstmocrtrain ...``.
 Preserved verbatim for CLI compatibility (copy of clstm_tpu/utils/config.py
@@ -27,6 +27,13 @@ def getienv(name: str, default: int = 0) -> int:
 def getdenv(name: str, default: float = 0.0) -> float:
     v = os.environ.get(name)
     return float(v) if v not in (None, "") else default
+
+
+def getbenv(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v in (None, ""):
+        return default
+    return v.lower() not in ("0", "false", "no")
 
 
 def torch_device(name) -> torch.device:

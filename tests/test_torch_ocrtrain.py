@@ -2,8 +2,8 @@
 package's, on CPU: both CLIs start from the same JAX-saved .clstm, train on
 the same synthetic corpus with the same seed, and must report the same
 losses and test errors and save the same weights; the device_preprocess=1
-path, the refusals of what is not ported, and the small helpers the CLI
-uses (levenshtein, read_text, the line renderer).
+path, display_every, the refusal of what is not ported, and the small
+helpers the CLI uses (levenshtein, read_text, the line renderer).
 
 Losses and weights after the run are held to tests/test_torch_train.py's
 STEP_RTOL/STEP_ATOL: the same steps on the same batches, f32 sums in
@@ -157,8 +157,7 @@ def test_torch_clstmocrtrain_device_preprocess(corpus, monkeypatch, capsys):
         assert got[i][:2] == want[i][:2]
 
 
-@pytest.mark.parametrize("env,item", [({"display_every": "5"}, "item 9"),
-                                      ({"t_buckets": "auto"}, "item 5")])
+@pytest.mark.parametrize("env,item", [({"t_buckets": "auto"}, "item 5")])
 def test_torch_clstmocrtrain_refuses_unported(corpus, monkeypatch, env,
                                               item):
     _, train, _, _ = corpus
@@ -218,6 +217,38 @@ def test_torch_clstmocrtrain_mesh_with_augment_trains(corpus, monkeypatch,
                                    atol=1e-4)
                    for a, b in zip(jax.tree.leaves(runs["aug2"]),
                                    jax.tree.leaves(runs[other])))
+
+
+def test_torch_clstmocrtrain_display_every(corpus, monkeypatch, capsys):
+    """display_every=8: the dashboard PNG is written, the Display holds the
+    losses of the deferred reports (the JSONL's) and the test CERs, and the
+    run prints the same TESTERR lines and logs the same losses as
+    display_every=0 (drawing reads nothing from the device)."""
+    from clstm_tpu_torch.utils import display
+    tmp, train, test, start = corpus
+    seen = []
+
+    class Spy(display.Display):
+        def __init__(self, path):
+            super().__init__(path)
+            seen.append(self)
+
+    monkeypatch.setattr(display, "Display", Spy)
+    runs = {n: _run(tcli, f"disp{n}", tmp, [train, test], monkeypatch,
+                    capsys, load=start, steps_per_dispatch="4",
+                    display_every=n) for n in ("0", "8")}
+    recs, tests = runs["8"]
+
+    def logged(rs):
+        return [(r["trial"], r.get("loss"), r.get("test_cer")) for r in rs]
+    assert logged(recs) == logged(runs["0"][0])
+    assert tests == runs["0"][1] and len(tests) == 2
+    assert len(seen) == 1
+    assert seen[0].losses == [r["loss"] for r in recs if "loss" in r]
+    assert seen[0].test_errs == [r["test_cer"] for r in recs
+                                 if "test_cer" in r]
+    assert os.path.exists(str(tmp / "disp8-display.png")) == display.HAVE_MPL
+    assert not os.path.exists(str(tmp / "disp0-display.png"))
 
 
 def test_torch_clstmocrtrain_usage(capsys):

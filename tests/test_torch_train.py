@@ -20,7 +20,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from clstm_tpu import train as jtrain  # noqa: E402
-from clstm_tpu.data.synth import delayed_sequence_batch  # noqa: E402
+from clstm_tpu_torch.data.synth import delayed_sequence_batch  # noqa: E402
 from clstm_tpu.io.checkpoint import load_state as jload_state  # noqa: E402
 from clstm_tpu.io.checkpoint import save_state as jsave_state  # noqa: E402
 from clstm_tpu.models import prefab as jprefab  # noqa: E402
@@ -283,11 +283,16 @@ def test_torch_clip_and_unpack_report():
 
 
 def test_torch_unported_options_raise():
+    """compute_dtype is ported (tests/test_torch_compute_dtype.py); what a
+    step builder refuses is compute_dtype with xz_bf16=True, two precision
+    modes the JAX package never combines."""
     spec = tprefab.make_net("bidi", ARGS)
     for make in (ttrain.make_train_step, ttrain.make_cached_train_step,
-                 lambda s, **kw: ttrain.make_multi_train_step(s, 2, **kw)):
-        with pytest.raises(NotImplementedError, match="bf16"):
-            make(spec, compute_dtype=torch.bfloat16)
+                 lambda s, **kw: ttrain.make_multi_train_step(s, 2, **kw),
+                 ttrain.make_predict_step, ttrain.make_forward):
+        make(spec, compute_dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="compute_dtype"):
+            make(spec, compute_dtype=torch.bfloat16, xz_bf16=True)
     with pytest.raises(ValueError, match="normalization"):
         _, _, tstate = _start()
         b = {k: torch.from_numpy(v) for k, v in _ctc_batch().items()}
