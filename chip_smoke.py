@@ -238,6 +238,7 @@ import argparse
 import contextlib
 import copy
 import ctypes
+import faulthandler
 import functools
 import io
 import json
@@ -247,6 +248,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -288,7 +290,7 @@ from clstm_tpu_torch.train import (
     _LOSSES, TrainState, gather_batch, loss_and_grads, make_forward,
     make_predict_step, make_train_step, sgd_update)
 from clstm_tpu_torch.utils.metrics import levenshtein
-from clstm_tpu_torch.utils.profiling import Throughput, trace
+from clstm_tpu_torch.utils.profiling import Throughput, kernel_counts, trace
 from clstm_tpu_torch.utils.config import to_device, torch_device
 
 B, T, D, H, C = 256, 1024, 48, 100, 96   # bench profile (bench.py:611-651)
@@ -3948,14 +3950,19 @@ TRACE_SYMBOLS = ("bidi_lstm_fwd_kernel", "bwd_chain_kernel",
                  "bwd_dw_partial", "ctc_forward_kernel", "ctc_both_kernel")
 THROUGHPUT_RTOL = 0.1
 # clstmocrtrain with display_every on phase 17's corpus: blocks of up to 8
-# batches (256 trials), so nearly every block crosses a display boundary;
-# the device sleep queued right after block DISPLAY_SLEEP_BLOCK (no test or
-# save in its iteration) is DISPLAY_SLEEP_CYCLES (~2 s) long, so the
-# host's render (matplotlib, ~0.1 s) fits in half of it.
+# batches (256 trials), so nearly every block crosses a display boundary.
+# A device sleep of DISPLAY_SLEEP_CYCLES (~2 s), on an idle card, goes in
+# before every block call that is the first at its T bucket, and before block
+# DISPLAY_SLEEP_BLOCK or the first after it whose iteration draws the
+# display and neither tests nor saves, so the host's render (matplotlib,
+# ~0.1 s) fits in half of it.
 DISPLAY_EVERY = 256
 DISPLAY_ENV = dict(OCR_ENV, steps_per_dispatch="8")
 DISPLAY_SLEEP_BLOCK = 4
 DISPLAY_SLEEP_CYCLES = 4 * NOSYNC_CYCLES
+# A quarter of that sleep: a slept block call still running then has the
+# host's stacks dumped.
+DISPLAY_DUMP_S = 0.5
 
 
 def grad_group(loss, grads: dict) -> dict:
@@ -3971,32 +3978,54 @@ def group_dist(a: dict, b: dict) -> float:
                for k in b)
 
 
-def f32_dwh_scan(params_f, params_r, x, lengths, cd):
-    """The planted control of phase 24: ops/lstm.py::_bidi_scan with Wh read
-    as one f32 copy over all steps, so autograd sums dWh in f32 and rounds
-    it once (the scan recipe sums it in cd over the steps)."""
-    B_, T_, _ = x.shape
-    H_ = params_f["Wh"].shape[0]
-    x2 = lstm_ops._cast(torch.stack([x, flip_within_length(x, lengths)]), cd)
-    Wx2 = lstm_ops._cast(torch.stack([params_f["Wx"], params_r["Wx"]]), cd)
-    b2 = torch.stack([params_f["b"], params_r["b"]]).float()
-    xzs = (torch.einsum("gbtd,gdo->gbto", x2, Wx2)
-           + b2[:, None, None, :]).unbind(2)
-    Wh_once = torch.stack([params_f["Wh"], params_r["Wh"]]).to(cd).float()
-    valid = lstm_ops._valid(lengths, B_, T_, x.device)
-    h = x.new_zeros((2, B_, H_))
-    c = torch.zeros_like(h)
-    outs = []
-    for t in range(T_):
-        h_new, c_new = lstm_ops._cell(
-            xzs[t] + torch.bmm(lstm_ops._cast(h, cd), Wh_once), c, H_)
-        v = valid[t]
-        c = torch.where(v, c_new, c)
-        h = torch.where(v, h_new, h)
-        outs.append(torch.where(v, h_new, torch.zeros_like(h_new)))
-    hs = torch.stack(outs, dim=2)
-    return torch.cat([hs[0], flip_within_length(hs[1], lengths)],
-                     dim=-1).to(x.dtype)
+class _RoundedForwardOnly(torch.autograd.Function):
+    """h rounded to bf16 on the way in, its cotangent passed back as it
+    came (f32): the scan's cast rounds it."""
+
+    @staticmethod
+    def forward(ctx, t, cd):
+        return t.to(cd).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def planted_scan(f32_dwh: bool, unrounded_dh: bool):
+    """ops/lstm.py::_bidi_scan with one rounding point of the backward
+    moved: Wh read as one f32 copy over all steps (its gradient then sums in
+    f32 and is rounded once), or the cotangent of the rounded h not
+    rounded. The planted controls of phase 24 and of
+    tests/test_torch_compute_dtype.py."""
+    def scan(params_f, params_r, x, lengths, cd):
+        B_, T_, _ = x.shape
+        H_ = params_f["Wh"].shape[0]
+        x2 = lstm_ops._cast(torch.stack([x, flip_within_length(x, lengths)]),
+                            cd)
+        Wx2 = lstm_ops._cast(torch.stack([params_f["Wx"], params_r["Wx"]]),
+                             cd)
+        b2 = torch.stack([params_f["b"], params_r["b"]]).float()
+        xzs = (torch.einsum("gbtd,gdo->gbto", x2, Wx2)
+               + b2[:, None, None, :]).unbind(2)
+        Wh2 = torch.stack([params_f["Wh"], params_r["Wh"]]).to(cd)
+        Wh_once = Wh2.float()
+        valid = lstm_ops._valid(lengths, B_, T_, x.device)
+        h = x.new_zeros((2, B_, H_))
+        c = torch.zeros_like(h)
+        outs = []
+        for t in range(T_):
+            hc = (_RoundedForwardOnly.apply(h, cd) if unrounded_dh
+                  else lstm_ops._cast(h, cd))
+            z = xzs[t] + torch.bmm(hc, Wh_once if f32_dwh else Wh2.float())
+            h_new, c_new = lstm_ops._cell(z, c, H_)
+            v = valid[t]
+            c = torch.where(v, c_new, c)
+            h = torch.where(v, h_new, h)
+            outs.append(torch.where(v, h_new, torch.zeros_like(h_new)))
+        hs = torch.stack(outs, dim=2)
+        return torch.cat([hs[0], flip_within_length(hs[1], lengths)],
+                         dim=-1).to(x.dtype)
+    return scan
 
 
 @contextlib.contextmanager
@@ -4078,7 +4107,8 @@ def compute_dtype_steps(dev, card, spec, net0, batch) -> dict:
     t_cpu = time.perf_counter() - t0
     g_f32 = grads(on(net0).to(dev), batch, xz_bf16=False)
     saved = lstm_ops._bidi_scan
-    lstm_ops._bidi_scan = f32_dwh_scan
+    lstm_ops._bidi_scan = planted_scan(f32_dwh=True,
+                                           unrounded_dh=False)
     try:
         g_ctrl = grads(on(net0).to(dev), batch, xz_bf16=None,
                        compute_dtype=torch.bfloat16)
@@ -4202,31 +4232,27 @@ def trace_worker(out: str) -> None:
     state = TrainState.create(net)
     step(state, batch)
     torch.cuda.synchronize()
-    with trace(os.path.join("chiprun_out", "trace"), device=dev) as prof:
+    with trace(os.path.join("chiprun_out", "trace")) as prof:
         step(state, batch)
     with open(out, "w") as f:
         f.write(prof.trace_path)
 
 
-def trace_kernels(path: str) -> tuple:
-    """A Chrome trace -> (which TRACE_SYMBOLS its kernel records name,
-    kernel records, kernel launches, MB)."""
+def trace_kernels(path: str) -> dict:
+    """A Chrome trace -> which TRACE_SYMBOLS its kernel records name."""
     with open(path, encoding="utf-8") as f:
-        events = json.load(f)["traceEvents"]
-    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
-    named = {s: any(s in n for n in names) for s in TRACE_SYMBOLS}
-    return (named, sum(e.get("cat") == "kernel" for e in events),
-            sum(e.get("cat") == "cuda_runtime"
-                and "LaunchKernel" in e.get("name", "") for e in events),
-            os.path.getsize(path) / 1e6)
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    return {s: any(s in n for n in names) for s in TRACE_SYMBOLS}
 
 
 def traced_step(dev, card, spec, net0, batch) -> dict:
     """Phase 24 (d): utils/profiling.trace around one default bidi step (the
     card's default precision) in a fresh process, whose trace must name the
-    kernels; the same in this process, late in the run, logged (a late
-    session lost its first kernel records, utils/profiling.py); Throughput
-    over warm steps against their CUDA-event times."""
+    kernels and hold as many kernel records as launches; the same in this
+    process, late in the run, where trace must either hold every record or
+    warn that it lost some (utils/profiling.py); Throughput over warm steps
+    against their CUDA-event times."""
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "trace_path")
         proc = torch.multiprocessing.get_context("spawn").Process(
@@ -4237,19 +4263,27 @@ def traced_step(dev, card, spec, net0, batch) -> dict:
             raise AssertionError(f"the trace process exited {proc.exitcode}")
         with open(out) as f:
             path = f.read()
-    named, kernels, launches, mb = trace_kernels(path)
-    if not all(named.values()):
+    named = trace_kernels(path)
+    kernels, launches = kernel_counts(path)
+    mb = os.path.getsize(path) / 1e6
+    if not all(named.values()) or kernels < launches:
         raise AssertionError(f"the trace names no kernel for "
-                             f"{[s for s, v in named.items() if not v]} "
-                             f"({kernels} kernel records, {launches} "
-                             "kernel launches)")
+                             f"{[s for s, v in named.items() if not v]}, or "
+                             f"holds {kernels} kernel records of {launches} "
+                             "kernel launches")
     step = make_train_step(spec, CD_LR, 0.9)
     state = TrainState.create(copy.deepcopy(net0).to(dev))
     step(state, batch)
     torch.cuda.synchronize()
-    with trace(os.path.join("chiprun_out", "trace"), device=dev) as prof:
-        step(state, batch)
-    late, late_kernels, late_launches, _ = trace_kernels(prof.trace_path)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with trace(os.path.join("chiprun_out", "trace")) as prof:
+            step(state, batch)
+    late = trace_kernels(prof.trace_path)
+    late_kernels, late_launches = prof.kernel_records, prof.kernel_launches
+    lost_warned = any(issubclass(w.category, RuntimeWarning) and
+                      f"{late_kernels} kernel records of {late_launches}"
+                      in str(w.message) for w in caught)
     meter = Throughput()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(8)]
@@ -4267,12 +4301,17 @@ def traced_step(dev, card, spec, net0, batch) -> dict:
         f"records, {launches} kernel launches) names "
         + ", ".join(TRACE_SYMBOLS) + f"; the same in this process, late in "
         f"the run: {late_kernels} kernel records of {late_launches} "
-        f"launches, names "
+        f"launches ({'trace warned of the loss' if lost_warned else 'no warning'}"
+        "), names "
         + (", ".join(k for k, v in late.items() if v) or "none")
         + f"; Throughput over 8 warm steps {rate:.1f} lines/s, their "
         f"CUDA-event times {event_rate:.1f} lines/s (mean "
         f"{sum(ms) / len(ms):.3f} ms a step; limit {THROUGHPUT_RTOL:.0%} "
         "apart)")
+    if late_launches < 1 or lost_warned != (late_kernels < late_launches):
+        raise AssertionError(f"trace kept {late_kernels} kernel records of "
+                             f"{late_launches} launches and "
+                             f"{'warned' if lost_warned else 'did not warn'}")
     if not abs(rate - event_rate) <= THROUGHPUT_RTOL * event_rate:
         raise AssertionError(f"Throughput {rate:.1f} against {event_rate:.1f}"
                              " lines/s")
@@ -4287,64 +4326,109 @@ def traced_step(dev, card, spec, net0, batch) -> dict:
 def display_runs(dev, tmp: str, ocr_dir: str) -> dict:
     """Phase 24 (e): clstmocrtrain on phase 17's corpus with display_every
     DISPLAY_EVERY and with 0, the same settings (DISPLAY_ENV): the PNG
-    written where matplotlib is, the same TESTERR lines; in the display run
-    a device sleep queued right after block DISPLAY_SLEEP_BLOCK (or, if
-    that block's iteration drew no display, the next or the one after), and
-    the next block must start (the deferred report read and the display
-    drawn in between) in under half the sleep. Each block call's host ms
-    is logged beside it."""
+    written where matplotlib is, the same TESTERR lines. In the display run
+    the card is let go idle and a device sleep of DISPLAY_SLEEP_CYCLES
+    queued just before every block call that is the first at its T bucket,
+    and before block
+    DISPLAY_SLEEP_BLOCK (or, if the block before it was slept or its
+    iteration drew no display or read the card for a test or a save, the
+    next block that qualifies). Each slept call must
+    return in under half its sleep, and after the display block the loop
+    must reach the next block call (the deferred report read and the
+    display drawn in between) in under half its sleep. A slept call still
+    running at a quarter of its sleep has the host's stacks dumped
+    (faulthandler), so a failure names where the host waited."""
     from clstm_tpu_torch.utils import display as display_mod
     manifests = [os.path.join(ocr_dir, d, "manifest.txt")
                  for d in ("train", "test")]
     real = CLSTMOCR.train_batch_block
-    render = display_mod.Display.render
-    seen = {"calls": 0, "renders": 0}
+    seen = {"renders": 0, "reads": 0, "tb": [], "ms": [], "slept": {},
+            "window": None, "display": None}
+    dump = tempfile.TemporaryFile("w+")
 
-    def rendered(self, *a, **kw):
-        seen["renders"] += 1
-        return render(self, *a, **kw)
+    def counted(fn, key):
+        def wrapped(*a, **kw):
+            seen[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+    # The display is drawn by Display.render; a test (evaluate) or a save
+    # reads the card, so a window that holds one is no display window.
+    patched = ((display_mod.Display, "render", "renders"),
+               (clstmocrtrain, "evaluate", "reads"),
+               (CLSTMOCR, "save", "reads"))
+    saved = [getattr(o, a) for o, a, _ in patched]
 
     def watched(self, *a, **kw):
-        n = seen["calls"]
-        seen["calls"] += 1
-        if "t0" in seen and "next_ms" not in seen:
-            if seen["renders"] > seen["renders0"]:
-                seen["next_ms"] = (time.perf_counter() - seen["t0"]) * 1e3
-            elif n < DISPLAY_SLEEP_BLOCK + 3:
-                seen.pop("t0")   # no display drawn in that block: again
-        t = time.perf_counter()
-        out = real(self, *a, **kw)
-        seen.setdefault("block_ms", []).append(
-            (time.perf_counter() - t) * 1e3)
-        seen.setdefault("block_tb", []).append(int(a[0]["group"]["tb"]))
-        if n >= DISPLAY_SLEEP_BLOCK and "t0" not in seen:
-            # The sleep goes in after the block: the window holds what the
-            # loop does between two blocks (the block itself: phase 17).
-            seen["sleep"] = (torch.cuda.Event(enable_timing=True),
-                             torch.cuda.Event(enable_timing=True))
-            seen["sleep"][0].record()
+        n, tb = len(seen["ms"]), int(a[0]["group"]["tb"])
+        w, seen["window"] = seen["window"], None
+        if w is not None:
+            w["through_ms"] = (time.perf_counter() - w["t0"]) * 1e3
+            if (seen["renders"] > w["renders0"]
+                    and seen["reads"] == w["reads0"]):
+                seen["display"] = w
+        display = (seen["display"] is None and n >= DISPLAY_SLEEP_BLOCK
+                   and n - 1 not in seen["slept"])
+        slept = display or tb not in seen["tb"]
+        if slept:
+            # The card idle first: a call queued behind earlier blocks
+            # blocks on the full launch queue instead, which is no wait
+            # for a result (scripts/torch_bucket_wait_probe.py).
+            torch.cuda.synchronize()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
             torch.cuda._sleep(DISPLAY_SLEEP_CYCLES)
-            seen["sleep"][1].record()
-            seen["renders0"] = seen["renders"]
-            seen["t0"] = time.perf_counter()
+            ev[1].record()
+            dump.seek(0)
+            dump.truncate()
+            faulthandler.dump_traceback_later(DISPLAY_DUMP_S, file=dump)
+        t = time.perf_counter()
+        try:
+            out = real(self, *a, **kw)
+        finally:
+            if slept:
+                faulthandler.cancel_dump_traceback_later()
+        ms = (time.perf_counter() - t) * 1e3
+        seen["ms"].append(ms)
+        seen["tb"].append(tb)
+        if slept:
+            dump.seek(0)
+            seen["slept"][n] = {"tb": tb, "first_at_bucket": tb not in
+                                seen["tb"][:-1], "events": ev, "ms": ms,
+                                "stacks": dump.read()}
+            if display:
+                seen["window"] = {"n": n, "t0": t, "renders0":
+                                  seen["renders"], "reads0": seen["reads"]}
         return out
     runs = {}
     for every in (0, DISPLAY_EVERY):
         if every:
             CLSTMOCR.train_batch_block = watched
-            display_mod.Display.render = rendered
+            for (o, a, key), fn in zip(patched, saved):
+                setattr(o, a, counted(fn, key))
         try:
             runs[every] = dp_cli(clstmocrtrain, f"display{every}", manifests,
                                  dict(DISPLAY_ENV, display_every=str(every)),
                                  tmp, dev)
         finally:
             CLSTMOCR.train_batch_block = real
-            display_mod.Display.render = render
+            for (o, a, _), fn in zip(patched, saved):
+                setattr(o, a, fn)
+    dump.close()
+    torch.cuda.synchronize()
     tests = {k: [ln for ln in r["printed"].splitlines()
                  if ln.startswith("TESTERR ")] for k, r in runs.items()}
     png = os.path.join(tmp, f"display{DISPLAY_EVERY}-display.png")
-    sleep_ms = seen["sleep"][0].elapsed_time(seen["sleep"][1])
-    slow = int(np.argmax(seen["block_ms"]))
+    slept = seen["slept"]
+    for r in slept.values():
+        a, b = r.pop("events")
+        r["sleep_ms"] = a.elapsed_time(b)
+    w = seen["display"]
+    if w is not None:
+        w = {"block": w["n"], "through_ms": w["through_ms"],
+             "sleep_ms": slept[w["n"]]["sleep_ms"]}
+    waited = {n: r for n, r in slept.items()
+              if not r["ms"] < 0.5 * r["sleep_ms"]}
     loss_gap = max(abs(a["loss"] - b["loss"]) for a, b in zip(
         runs[0]["recs"], runs[DISPLAY_EVERY]["recs"]) if "loss" in a)
     log(f"[display] clstmocrtrain on phase 17's corpus, B="
@@ -4353,34 +4437,47 @@ def display_runs(dev, tmp: str, ocr_dir: str) -> dict:
         f"printed {tests[DISPLAY_EVERY]}, display_every=0 {tests[0]}; "
         f"matplotlib {'is' if display_mod.HAVE_MPL else 'is not'} installed, "
         f"{os.path.basename(png)} "
-        f"{'written' if os.path.exists(png) else 'not written'}; with a "
-        f"{sleep_ms:.1f} ms device sleep queued after a block, the next "
-        f"started {seen.get('next_ms', float('nan')):.1f} ms later (a render "
-        f"of {seen['renders']} and the deferred report read between); a "
-        f"block call's host ms: median "
-        f"{float(np.median(seen['block_ms'])):.1f}, largest "
-        f"{max(seen['block_ms']):.1f} (call {slow} of "
-        f"{len(seen['block_ms'])}, T bucket {seen['block_tb'][slow]}, "
-        f"{'the first' if seen['block_tb'].index(seen['block_tb'][slow]) == slow else 'not the first'}"
-        f" call at that bucket); "
-        f"largest |loss difference| between the runs {loss_gap:.3e}")
+        f"{'written' if os.path.exists(png) else 'not written'}; "
+        f"{seen['renders']} renders; block calls behind a device sleep "
+        "(call: T bucket, host ms / sleep ms): " + ", ".join(
+            f"{n}: {r['tb']}{' (first)' if r['first_at_bucket'] else ''}, "
+            f"{r['ms']:.1f} / {r['sleep_ms']:.1f}"
+            for n, r in slept.items())
+        + (f"; after display block {w['block']} the next block call came "
+           f"{w['through_ms']:.1f} ms after its {w['sleep_ms']:.1f} ms sleep "
+           "(the deferred report read and the display drawn between)"
+           if w else "")
+        + f"; every block call's host ms: median "
+        f"{float(np.median(seen['ms'])):.1f}, largest {max(seen['ms']):.1f} "
+        f"(call {int(np.argmax(seen['ms']))} of {len(seen['ms'])}); largest "
+        f"|loss difference| between the runs {loss_gap:.3e}")
+    for n, r in waited.items():
+        log(f"[display] block call {n} (T bucket {r['tb']}) waited for the "
+            f"card: {r['ms']:.1f} ms behind a {r['sleep_ms']:.1f} ms sleep; "
+            "the host's stacks at a quarter of the sleep:\n"
+            + (r["stacks"] or "(none dumped)"))
     if tests[DISPLAY_EVERY] != tests[0] or not tests[0]:
         raise AssertionError("display_every changed the TESTERR lines")
     if os.path.exists(png) != display_mod.HAVE_MPL:
         raise AssertionError("the display PNG was not written where "
                              "matplotlib is, or was written where it is not")
-    if "next_ms" not in seen:
-        raise AssertionError("no block of the display run drew the display")
-    if not seen["next_ms"] < 0.5 * sleep_ms:
-        raise AssertionError(f"the loop waited for the card: the next block "
-                             f"started {seen['next_ms']:.1f} ms after a "
-                             f"{sleep_ms:.1f} ms sleep")
+    if waited:
+        raise AssertionError(f"block calls {sorted(waited)} waited for the "
+                             "card behind a device sleep")
+    if w is None:
+        raise AssertionError("no slept block of the display run drew the "
+                             "display")
+    if not w["through_ms"] < 0.5 * w["sleep_ms"]:
+        raise AssertionError(f"the loop waited for the card: the block after "
+                             f"the display came {w['through_ms']:.1f} ms "
+                             f"after a {w['sleep_ms']:.1f} ms sleep")
     return {"testerr": tests[0], "matplotlib": display_mod.HAVE_MPL,
-            "png_written": os.path.exists(png),
-            "next_block_ms_behind_sleep": seen["next_ms"],
-            "renders": seen["renders"], "block_host_ms": seen["block_ms"],
-            "block_t_bucket": seen["block_tb"],
-            "sleep_ms": sleep_ms, "loss_gap": loss_gap,
+            "png_written": os.path.exists(png), "renders": seen["renders"],
+            "display_window": w, "slept_calls": {
+                n: {k: v for k, v in r.items() if k != "stacks"}
+                for n, r in slept.items()},
+            "block_host_ms": seen["ms"], "block_t_bucket": seen["tb"],
+            "loss_gap": loss_gap,
             "wall_s": {k: r["wall_s"] for k, r in runs.items()}}
 
 

@@ -10,30 +10,29 @@ lines/sec counters the train CLIs report.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import socket
 import time
+import warnings
 
 import torch
 
 
 @contextlib.contextmanager
-def trace(logdir: str, device=None):
+def trace(logdir: str):
     """Capture a torch.profiler trace around a code block; on exit it is
     written to ``logdir`` as ``<host>_<pid>.<ns>.pt.trace.json``. Yields
-    the profiler (its ``key_averages()`` and ``trace_path``, set on exit).
+    the profiler; on exit it also holds ``trace_path`` and the trace's
+    ``kernel_records`` and ``kernel_launches`` (kernel_counts).
 
-    CPU activity always; CUDA activity (the kernels on the card) when
-    ``device`` is a CUDA device, or when ``device`` is None and CUDA is
-    available. A CPU-only build asked for CUDA activity logs an error per
-    operation, so a CPU run must not ask for it.
-
-    Measured on the H100 (chip_smoke.py phase 24): a process's first
-    session records every kernel; a session late in a long process that
-    had profiled before lost the records of the block's first 31-38
-    kernels (their launches were all recorded) in 3 of 3 runs."""
-    cuda = (torch.device(device).type == "cuda" if device is not None
-            else torch.cuda.is_available())
+    CPU activity always; CUDA activity (the kernels on the card) when CUDA
+    is available. Where the trace holds fewer kernel records than kernel
+    launches, a RuntimeWarning says so: on the H100 a session late in a
+    long process that had profiled before lost the records of its first
+    kernels (their launches were recorded; PERF.md section 7), so a short
+    trace is never returned silently."""
+    cuda = torch.cuda.is_available()
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -47,6 +46,23 @@ def trace(logdir: str, device=None):
         logdir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}"
         ".pt.trace.json")
     prof.export_chrome_trace(prof.trace_path)
+    prof.kernel_records, prof.kernel_launches = kernel_counts(
+        prof.trace_path)
+    if prof.kernel_records < prof.kernel_launches:
+        warnings.warn(f"{prof.trace_path} holds {prof.kernel_records} kernel "
+                      f"records of {prof.kernel_launches} kernel launches: "
+                      "the profiler lost the rest", RuntimeWarning,
+                      stacklevel=3)
+
+
+def kernel_counts(path: str) -> tuple:
+    """A Chrome trace written by ``trace`` -> (its kernel records, its
+    kernel launches: the CUDA runtime and driver calls that launch one)."""
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    return (sum(e.get("cat") == "kernel" for e in events),
+            sum(e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "") for e in events))
 
 
 class Throughput:

@@ -35,7 +35,6 @@ from clstm_tpu_torch.models import prefab as tprefab  # noqa: E402
 from clstm_tpu_torch.models import spec as tspec  # noqa: E402
 from clstm_tpu_torch.ops import lstm as tlstm  # noqa: E402
 from clstm_tpu_torch.ops.ctc import mktargets_ids  # noqa: E402
-from clstm_tpu_torch.ops.seq import flip_within_length  # noqa: E402
 from clstm_tpu_torch.parallel import (  # noqa: E402
     launch, make_parallel_train_step)
 from clstm_tpu_torch.train import TrainState, make_train_step  # noqa: E402
@@ -148,60 +147,14 @@ def test_torch_compute_dtype_apply_net_and_grads_match_jax(name):
         assert d <= RATIO * gap, (name, group, d, gap, d / gap)
 
 
-class _RoundedForwardOnly(torch.autograd.Function):
-    """h rounded to bf16 on the way in, its cotangent passed back as it
-    came (f32): the scan's cast rounds it."""
-
-    @staticmethod
-    def forward(ctx, t, cd):
-        return t.to(cd).float()
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def _planted_scan(f32_dwh: bool, unrounded_dh: bool):
-    """ops/lstm.py::_bidi_scan with one rounding point of the backward
-    moved: Wh read as one f32 copy over all steps (its gradient then sums in
-    f32 and is rounded once), or the cotangent of the rounded h not
-    rounded."""
-    def scan(params_f, params_r, x, lengths, cd):
-        B, T, _ = x.shape
-        H = params_f["Wh"].shape[0]
-        x2 = tlstm._cast(torch.stack([x, flip_within_length(x, lengths)]), cd)
-        Wx2 = tlstm._cast(torch.stack([params_f["Wx"], params_r["Wx"]]), cd)
-        b2 = torch.stack([params_f["b"], params_r["b"]]).float()
-        xzs = (torch.einsum("gbtd,gdo->gbto", x2, Wx2)
-               + b2[:, None, None, :]).unbind(2)
-        Wh2 = torch.stack([params_f["Wh"], params_r["Wh"]]).to(cd)
-        Wh_once = Wh2.float()
-        valid = tlstm._valid(lengths, B, T, x.device)
-        h = x.new_zeros((2, B, H))
-        c = torch.zeros_like(h)
-        outs = []
-        for t in range(T):
-            hc = (_RoundedForwardOnly.apply(h, cd) if unrounded_dh
-                  else tlstm._cast(h, cd))
-            z = xzs[t] + torch.bmm(hc, Wh_once if f32_dwh else Wh2.float())
-            h_new, c_new = tlstm._cell(z, c, H)
-            v = valid[t]
-            c = torch.where(v, c_new, c)
-            h = torch.where(v, h_new, h)
-            outs.append(torch.where(v, h_new, torch.zeros_like(h_new)))
-        hs = torch.stack(outs, dim=2)
-        return torch.cat([hs[0], flip_within_length(hs[1], lengths)],
-                         dim=-1).to(x.dtype)
-    return scan
-
-
 @pytest.mark.parametrize("control", ["dwh_accumulated_in_f32",
                                      "dh_not_rounded"])
 def test_torch_compute_dtype_planted_controls_fail(monkeypatch, control):
     """Each planted recipe, put in the port's place for the bidi pair, must
     fail the gradient check above (while the forward, which they leave as
     it is, passes)."""
-    monkeypatch.setattr(tlstm, "_bidi_scan", _planted_scan(
+    from chip_smoke import planted_scan
+    monkeypatch.setattr(tlstm, "_bidi_scan", planted_scan(
         control == "dwh_accumulated_in_f32", control == "dh_not_rounded"))
     got = _compare("bidi")
     d, gap = got["forward"]

@@ -108,6 +108,25 @@ def test_torch_trace_writes_chrome_trace(tmp_path):
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+    assert (prof.kernel_records, prof.kernel_launches) == (0, 0)
+
+
+def test_torch_trace_warns_of_lost_kernel_records(tmp_path, monkeypatch):
+    """A trace whose kernel records fall short of its kernel launches comes
+    back with a RuntimeWarning naming both counts; a whole one with none.
+    The CPU launches no kernel, so the counts are planted."""
+    import warnings
+    from clstm_tpu_torch.utils import profiling
+    for counts, warned in (((77, 112), True), ((112, 112), False)):
+        monkeypatch.setattr(profiling, "kernel_counts", lambda p, c=counts: c)
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            with trace(str(tmp_path / "tr")) as prof:
+                torch.mm(torch.rand(4, 4), torch.rand(4, 4))
+        lost = [w for w in got if issubclass(w.category, RuntimeWarning)
+                and "77 kernel records of 112" in str(w.message)]
+        assert (prof.kernel_records, prof.kernel_launches) == counts
+        assert bool(lost) == warned, [str(w.message) for w in got]
 
 
 @pytest.mark.parametrize("seed,delay", [(0, 1), (1, 2), (2, 0), (3, 5)])
