@@ -205,7 +205,27 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      same TESTERR lines, the PNG written where matplotlib is (and not
      where it is not), and, with a device sleep queued right after a
      block, the next block starting in under half the sleep, the display
-     drawn between.
+     drawn between;
+ 25. t_buckets=auto and compile_cache (AUTO_*): (a) the card's dispatch
+     round trip (measure_dispatch_penalty_rows) and the two cost constants
+     of auto_t_cuts on the bench batch, the default bidi step's padded
+     frame-rows/s and the CTC alignment's ms per lattice cell over the
+     step's ms per frame-row, beside the card's name and power limit; (b)
+     auto_t_cuts on 17's training corpus with the CLI's hints, and
+     DeviceDataset(t_buckets="auto") from host-prepared samples and from
+     from_files holding exactly their groups; one train_batch step at a cut
+     off T_BUCKETS_FINE against the plain step within 9's step-1 limits,
+     K1, K2, K5 and K6 launched once each; (c) clstmocrtrain on 17's
+     corpus (B=32, K=64, a quarter of its 64-epoch plan) with t_buckets
+     fine, auto, auto, fine: lines/s, groups, the card's idle share and
+     TESTERR, K3, K1, K2, K5 and K6 launched in each run, and 17's no-wait
+     check at an auto bucket; (d) two gloo ranks sharing cuda:0, their
+     measured penalties forced apart, building one auto cache: both hold
+     rank 0's groups and the plan guard passes; (e) compile_cache in fresh
+     processes with nvcc hidden: phase 2's directory loads the library and
+     runs K3 (seconds to the first kernel, beside 2's cold build), a new
+     empty directory and "off" fail with "nvcc not found", and "off" leaves
+     no directory behind.
 
 With --k2-against SRC, every timed K2 shape also times the K2 built from
 SRC in turns with the current one (against, current, current, against);
@@ -244,6 +264,7 @@ import io
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -257,7 +278,10 @@ import torch.nn.functional as F
 
 from clstm_tpu_torch.cli import clstmfilter, clstmfiltertrain, clstmocrtrain
 from clstm_tpu_torch.cli.clstmocr import predict_pages, write_outputs
-from clstm_tpu_torch.data.dataset import OcrDataset, T_BUCKETS_FINE
+from clstm_tpu_torch.data import dataset as data_mod
+from clstm_tpu_torch.data import device_cache
+from clstm_tpu_torch.data.dataset import (
+    OcrDataset, T_BUCKETS_FINE, auto_t_cuts, bucket_for)
 from clstm_tpu_torch.data.device_cache import DeviceDataset, TextDeviceDataset
 from clstm_tpu_torch.data.dataset import prepare_line
 from clstm_tpu_torch.io import native
@@ -1841,11 +1865,12 @@ def f64_state(state: TrainState) -> TrainState:
 
 
 def train_against_plain(tocr, plain, batch, lr, momentum, tag,
-                        kernel_step=None, batches=None) -> dict:
-    """5 train_batch steps of ``tocr`` on ``batch`` (or, given
+                        kernel_step=None, batches=None,
+                        steps: int = 5) -> dict:
+    """``steps`` (5) train_batch steps of ``tocr`` on ``batch`` (or, given
     ``kernel_step``, its calls kernel_step(0..4), the steps of the path,
     on ``batches``, the 5 batches they train on) with the launch counts
-    reset just before and read just after, and the same 5 steps composed
+    reset just before and read just after, and the same steps composed
     from the plain versions on ``plain`` (a TrainState holding the same
     start), in the precision ``tocr`` trains in. Logs both under ``tag`` and raises unless
     they agree: in f32 within the limits above; in the bf16 mode, where
@@ -1853,9 +1878,9 @@ def train_against_plain(tocr, plain, batch, lr, momentum, tag,
     four measures is held to the float64 evaluation of the same steps
     (``f64_state``): the kernels' distance from it within BF16_FACTOR times
     the plain f32 steps', or within the f32 limit where that is larger.
-    Returns the launch counts of the 5 kernel steps."""
+    Returns the launch counts of the kernel steps."""
     bf16 = ApplyCtx(xz_bf16=tocr.xz_bf16).bf16(batch["x"])
-    batches = batches or [batch] * 5
+    batches = batches or [batch] * steps
     if kernel_step is None:
         def kernel_step(i):
             return tocr.train_batch(batches[i])
@@ -1869,7 +1894,7 @@ def train_against_plain(tocr, plain, batch, lr, momentum, tag,
     t0 = time.perf_counter()
     k_losses = [float(kernel_step(0)["loss"])]
     k_p1 = params(tocr.net)
-    k_losses += [float(kernel_step(i)["loss"]) for i in range(1, 5)]
+    k_losses += [float(kernel_step(i)["loss"]) for i in range(1, steps)]
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = counts()
@@ -1879,7 +1904,7 @@ def train_against_plain(tocr, plain, batch, lr, momentum, tag,
                                    momentum, bf16)]
         first = params(state.net)
         losses += [plain_train_step(state.net, state.velocity, batches[i], lr,
-                                    momentum, bf16) for i in range(1, 5)]
+                                    momentum, bf16) for i in range(1, steps)]
         return losses, first, params(state.net)
     p_losses, p_p1, p_p5 = run(plain)
     k_p5 = params(tocr.net)
@@ -1910,7 +1935,7 @@ def train_against_plain(tocr, plain, batch, lr, momentum, tag,
         plain_off = measures(p_losses, p_p1, p_p5, r_losses, r_p1, r_p5)[0]
         limits = {k: max(BF16_FACTOR * plain_off[k], v)
                   for k, v in limits.items()}
-    log(f"[{tag}] {'bf16' if bf16 else 'f32'}: 5 steps in "
+    log(f"[{tag}] {'bf16' if bf16 else 'f32'}: {steps} steps in "
         f"{train_s:.3f} s; launches "
         f"{ {k: v for k, v in launches.items() if v} }; loss kernels "
         f"{[round(v, 3) for v in k_losses]} plain "
@@ -4498,6 +4523,433 @@ def phase24(dev, card, ocr_dir: str) -> dict:
     return out
 
 
+# Phase 25: t_buckets=auto (data/dataset.py auto_t_cuts over the corpus's
+# lengths, data/device_cache.py measure_dispatch_penalty_rows for the cost
+# of a block call) through clstmocrtrain at full bidi width on phase 17's
+# corpus, and compile_cache (utils/config.py enable_compile_cache: the
+# directory of the kernels' library). AUTO_HINTS are the CLI's cost-model
+# hints (cli/clstmocrtrain.py).
+AUTO_HINTS = {"batch_size": 32, "epochs": 64, "k": 64}
+# (a) warm reps of the bench step and of the CTC alignment.
+AUTO_REPS = 5
+# (c) clstmocrtrain in turns (AUTO_TURNS): B=32, K=64, ntrain a quarter of
+# the 64-epoch plan the CLI builds (its K-blocks drawn in shuffled order
+# over the groups, so the quarter samples every group by its size), one
+# test at the end. 512 trials at K=64 would be a single clamped block of
+# one group: one bucket's first use, nothing of the cuts.
+AUTO_ENV = dict(OCR_ENV, steps_per_dispatch="64", ntrain=str(16 * OCR_TRAIN),
+                test_every=str(16 * OCR_TRAIN),
+                save_every=str(16 * OCR_TRAIN), report_every="4096")
+AUTO_TURNS = ("fine", "auto", "auto", "fine")
+# (c) the kernels the CLI's path must launch: K3 in its test (evaluate),
+# K1, K2, K5 and K6 in its steps.
+AUTO_COUNTED = ("bidi_lstm_infer", "bidi_lstm_fwd_state",
+                "bidi_lstm_bwd_chain", "bidi_lstm_bwd_reduce", "ctc_forward",
+                "ctc_both")
+# (d) the dispatch penalties forced on the two ranks; alone they give
+# other cuts, and both ranks must build rank 0's.
+AUTO_DP_PENALTIES = (0.0, 1e9)
+# (e) a fresh process that loads the kernels' library from compile_cache
+# and launches K3 once.
+CACHE_CHILD = """
+import time
+t0 = time.perf_counter()
+import os
+import numpy as np
+import torch
+from clstm_tpu_torch.ops import _build
+from clstm_tpu_torch.ops.bidi_lstm_kernel import bidi_lstm_infer
+from clstm_tpu_torch.utils.config import enable_compile_cache
+enable_compile_cache(os.environ["compile_cache"])
+print("BUILD_DIR", _build.BUILD_DIR, flush=True)
+dev = torch.device("cuda")
+rng = np.random.RandomState(0)
+p = {k: torch.from_numpy(rng.uniform(-0.1, 0.1, s).astype(np.float32)).to(
+    dev) for k, s in (("Wx", (48, 400)), ("Wh", (100, 400)), ("b", (400,)))}
+x = torch.from_numpy(rng.rand(2, 16, 48).astype(np.float32)).to(dev)
+y = bidi_lstm_infer(p, p, x, torch.full((2,), 16, dtype=torch.int32,
+                                        device=dev))
+torch.cuda.synchronize()
+print("FIRST_KERNEL", time.perf_counter() - t0, bidi_lstm_infer.launches,
+      float(y.abs().sum()), flush=True)
+"""
+
+
+def auto_constants(dev, card: str) -> dict:
+    """Phase 25 (a): the card's round trip of measure_dispatch_penalty_rows,
+    and the two cost constants of auto_t_cuts on the bench batch in the
+    default precision: the padded frame-rows a second of the bidi train
+    step (B*T over its ms) and the CTC alignment's ms per lattice cell
+    relative to a frame-row (its ms over the step's ms times S)."""
+    rows = device_cache.measure_dispatch_penalty_rows(dev)
+    rate = float(os.environ.get("bucket_dp_rows_per_sec",
+                                device_cache.AUTO_ROWS_PER_SEC))
+    batch = bench_batch(np.random.RandomState(0), dev)
+    ocr = CLSTMOCR(device=dev)
+    ocr.createBidi(Codec([0] + list(range(33, 33 + C - 1))), H, seed=0)
+    ocr.setLearningRate(CD_LR, 0.9)
+    step_ms = host_ms(lambda: ocr.train_batch(batch), AUTO_REPS)
+    probs = torch.softmax(uniform(np.random.RandomState(1), (B, T, C), -3.0,
+                                  3.0, dev), dim=-1)
+    ctc_ms = time_ms(lambda: ctc_ops.ctc_align_targets_batched(
+        probs, batch["targets"], lengths=batch["lengths"],
+        target_lengths=batch["target_lengths"]), AUTO_REPS)
+    S = batch["targets"].shape[1]
+    out = {"dispatch_rows": rows, "dispatch_us": rows / rate * 1e6,
+           "rows_per_sec_used": rate, "step_ms": step_ms, "ctc_ms": ctc_ms,
+           "rows_per_sec": B * T / (step_ms / 1e3),
+           "s_weight": ctc_ms / (step_ms * S), "S": S}
+    log(f"[auto] (a) {card} | measure_dispatch_penalty_rows on the card: "
+        f"round trip {out['dispatch_us']:.1f} us, {rows:.1f} frame-rows at "
+        f"{rate:.4g} rows/s; the default bidi train step on the bench "
+        f"batch (B={B}, T={T}, S={S}, lr {CD_LR:g}) {step_ms:.3f} ms: "
+        f"{out['rows_per_sec']:.4g} padded frame-rows/s (the port's "
+        f"AUTO_ROWS_PER_SEC {device_cache.AUTO_ROWS_PER_SEC:.4g}); the CTC "
+        f"alignment (K5 + K6 and the lattice around them) {ctc_ms:.3f} ms: "
+        f"s_weight {out['s_weight']:.4g} a lattice cell (the port's "
+        f"AUTO_S_WEIGHT {data_mod.AUTO_S_WEIGHT:.4g})")
+    return out
+
+
+def groups_of(widths, cuts) -> list:
+    """The T buckets a cache built on ``cuts`` holds for these widths."""
+    return sorted({bucket_for(w, cuts) for w in widths})
+
+
+def auto_groups(dev, tmp: str, ocr_dir: str, penalty: float) -> dict:
+    """Phase 25 (b): auto_t_cuts over phase 17's training corpus with the
+    CLI's hints and ``penalty``, printed; DeviceDataset(t_buckets="auto")
+    from host-prepared samples and from_files (the normalization on the
+    card) must hold exactly the groups of those cuts; one train_batch step
+    on a batch of the largest group off T_BUCKETS_FINE against the plain
+    step within phase 9's step-1 limits, launching K1, K2, K5 and K6 once
+    each."""
+    ds = OcrDataset(os.path.join(ocr_dir, "train", "manifest.txt"),
+                    target_height=D)
+    texts = ds.texts()
+    codec = ds.build_codec()
+    hints = dict(AUTO_HINTS, dispatch_penalty_rows=penalty)
+    s_len = [2 * len(codec.encode(t)) + 1 for t in texts]
+    est = [preprocess.estimate_out_T([im], D, ds.pad)
+           for im in device_cache.read_images(ds.files)]
+    samples = ds.load_all()
+    widths = {"samples": [x.shape[0] for x, _ in samples],
+              "from_files": est}
+    cuts = {k: auto_t_cuts(w, s_lengths=s_len, **hints)
+            for k, w in widths.items()}
+    caches = {
+        "samples": DeviceDataset(samples, codec, device=dev,
+                                 t_buckets="auto", merge_sb=True,
+                                 auto_hints=hints),
+        "from_files": DeviceDataset.from_files(
+            ds.files, texts, codec, device=dev, target_height=D, pad=ds.pad,
+            t_buckets="auto", merge_sb=True, auto_hints=hints)}
+    for k, dc in caches.items():
+        got = [g["tb"] for g in dc.groups]
+        if got != groups_of(widths[k], cuts[k]) or len(dc) != len(texts):
+            raise AssertionError(f"auto cache ({k}) holds groups {got}, "
+                                 f"its cuts give {cuts[k]}")
+        log(f"[auto] (b) {k}: auto_t_cuts {list(cuts[k])} ({len(cuts[k])} "
+            f"cuts, penalty {penalty:.1f} rows); the cache built on the card "
+            f"holds exactly their {len(got)} groups, "
+            f"{sum(t not in T_BUCKETS_FINE for t in got)} off "
+            "T_BUCKETS_FINE: " + ", ".join(
+                f"{g['tb']}x{g['sb']}: {g['n']}" for g in dc.groups))
+    del caches["samples"], samples
+    off = [g for g in caches["from_files"].groups
+           if g["tb"] not in T_BUCKETS_FINE]
+    if not off:
+        raise AssertionError(f"no auto cut off T_BUCKETS_FINE: "
+                             f"{cuts['from_files']}")
+    g = max(off, key=lambda g: g["n"])
+    idx = to_device(np.arange(AUTO_HINTS["batch_size"]) % g["n"], dev)
+    batch = gather_batch(g, idx)
+    start = os.path.join(tmp, "auto_start.clstm")
+    maker = CLSTMOCR(target_height=D, device=dev)
+    maker.createBidi(codec, H, seed=0)
+    maker.save(start)
+    models = []
+    for _ in range(2):
+        m = CLSTMOCR(target_height=D, device=dev)
+        m.load(start)
+        m.setLearningRate(1e-4, 0.9)
+        models.append(m)
+    launches = train_against_plain(
+        models[0], models[1].state, batch, 1e-4, 0.9,
+        f"auto B={AUTO_HINTS['batch_size']} T={g['tb']} S={g['sb']}",
+        steps=1)
+    once = {k: launches[k] for k in AUTO_COUNTED[1:]}
+    if set(once.values()) != {1}:
+        raise AssertionError(f"one step at T={g['tb']} launched {launches}")
+    return {"cuts": {k: list(v) for k, v in cuts.items()},
+            "step_shape": [AUTO_HINTS["batch_size"], g["tb"], g["sb"]],
+            "step_launches": once, "est": est, "s_len": s_len}
+
+
+def auto_turns(dev, tmp: str, ocr_dir: str) -> dict:
+    """Phase 25 (c): clstmocrtrain on phase 17's corpus (AUTO_ENV) with
+    t_buckets in the order AUTO_TURNS, each run with the launch counts
+    reset just before and read just after, its loop timed under kernel
+    tracing: lines/s, groups, the card's idle share, TESTERR. Then phase
+    17's no-wait check at an auto bucket off T_BUCKETS_FINE: a k=4 block
+    there, and the next block of its group behind a device sleep."""
+    manifests = [os.path.join(ocr_dir, d, "manifest.txt")
+                 for d in ("train", "test")]
+    loop = clstmocrtrain.train
+    block = CLSTMOCR.train_batch_block
+    seen = {}
+
+    def counted_block(self, blk, k_max=None, nvalid=None):
+        """The block call, counting the padded frame-rows it trains (B x
+        its T bucket a batch) and the valid frames among them."""
+        nb = nvalid or blk["k"]
+        seen["rows"] += nb * len(blk["host_lengths"][0]) * blk["group"]["tb"]
+        seen["frames"] += sum(int(h.sum()) for h in blk["host_lengths"][:nb])
+        return block(self, blk, k_max=k_max, nvalid=nvalid)
+
+    def timed_loop(ocr, codec, **kw):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trials = loop(ocr, codec, **kw)
+            torch.cuda.synchronize()
+            seen["loop_s"] = time.perf_counter() - t0
+        seen["busy_s"] = sum(
+            device_us(e) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        seen.update(trials=trials, ocr=ocr, dcache=kw["dcache"])
+        return trials
+
+    runs = []
+    clstmocrtrain.train = timed_loop
+    CLSTMOCR.train_batch_block = counted_block
+    try:
+        for i, mode in enumerate(AUTO_TURNS):
+            seen.update(rows=0, frames=0)
+            reset_counts()
+            r = dp_cli(clstmocrtrain, f"auto{i}-{mode}", manifests,
+                       dict(AUTO_ENV, t_buckets=mode), tmp, dev)
+            launches = counts()
+            if min(launches[k] for k in AUTO_COUNTED) < 1:
+                raise AssertionError(f"clstmocrtrain t_buckets={mode} "
+                                     f"skipped a kernel: {launches}")
+            testerr = [float(ln.split()[2]) for ln in r["printed"].splitlines()
+                       if ln.startswith("TESTERR ")]
+            if not testerr or not all(np.isfinite(testerr)):
+                raise AssertionError(f"t_buckets={mode}: no valid TESTERR "
+                                     f"line: {testerr}")
+            dc = seen.pop("dcache")
+            busy = seen["busy_s"] / seen["loop_s"]
+            bsz = int(AUTO_ENV["batch_size"])
+            # The padded frame-rows of the whole 64-epoch plan the CLI
+            # builds over these groups: what the DP's model counts.
+            plan_rows = sum(-(-g["n"] * 64 // bsz) * bsz * g["tb"]
+                            for g in dc.groups)
+            runs.append({
+                "mode": mode, "groups": [g["tb"] for g in dc.groups],
+                "trials": seen["trials"], "loop_s": seen["loop_s"],
+                "lines_per_s": seen["trials"] / seen["loop_s"],
+                "idle_share": 1.0 - busy, "busy_s": seen["busy_s"],
+                "padded_rows": seen["rows"], "valid_frames": seen["frames"],
+                "busy_ns_per_row": seen["busy_s"] / seen["rows"] * 1e9,
+                "plan_padded_rows": plan_rows, "testerr": testerr,
+                "wall_s": r["wall_s"],
+                "launches": {k: launches[k] for k in AUTO_COUNTED}})
+            log(f"[auto] (c) turn {i}: t_buckets={mode}, "
+                f"{len(dc.groups)} groups {runs[-1]['groups']}; "
+                f"{seen['trials']} trials in {seen['loop_s']:.3f} s of loop: "
+                f"{runs[-1]['lines_per_s']:.1f} lines/s, the card idle "
+                f"{100 * (1 - busy):.1f}% (busy {seen['busy_s']:.3f} s); "
+                f"{seen['rows']} padded frame-rows trained, "
+                f"{100 * seen['frames'] / seen['rows']:.1f}% of them valid, "
+                f"{runs[-1]['busy_ns_per_row']:.1f} ns of card a row; the "
+                f"whole 64-epoch plan holds {plan_rows} padded rows; "
+                f"TESTERR {testerr}; wall {r['wall_s']:.1f} s with the corpus "
+                f"build; launches {runs[-1]['launches']}")
+            if mode == "auto":
+                auto_dc, auto_ocr = dc, seen["ocr"]
+            del dc
+            seen.pop("ocr")
+    finally:
+        clstmocrtrain.train = loop
+        CLSTMOCR.train_batch_block = block
+    tb = next(g["tb"] for g in sorted(auto_dc.groups, key=lambda g: -g["n"])
+              if g["tb"] not in T_BUCKETS_FINE and g["n"] * 64 >= 8 * 32)
+    blocks = (bl for bl in auto_dc.epoch_blocks(
+        AUTO_HINTS["batch_size"], 4, rng=np.random.RandomState(1), epochs=64)
+        if bl["k"] == 4 and bl["group"]["tb"] == tb)
+    auto_ocr.train_batch_block(next(blocks))
+    torch.cuda.synchronize()
+    sleep = torch.cuda.Event(enable_timing=True)
+    woke = torch.cuda.Event(enable_timing=True)
+    sleep.record()
+    torch.cuda._sleep(NOSYNC_CYCLES)
+    woke.record()
+    t0 = time.perf_counter()
+    auto_ocr.train_batch_block(next(blocks))
+    nosync_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = sleep.elapsed_time(woke)
+    log(f"[auto] (c) at the auto bucket T={tb}: a k=4 block returned in "
+        f"{nosync_ms:.2f} ms behind a {sleep_ms:.1f} ms device sleep")
+    if not nosync_ms < 0.5 * sleep_ms:
+        raise AssertionError(f"a k=4 block at the auto bucket T={tb} took "
+                             f"{nosync_ms:.1f} ms behind a {sleep_ms:.1f} "
+                             "ms device sleep: a step waited for the card")
+    return {"runs": runs, "nosync": {"tb": tb, "block_ms": nosync_ms,
+                                     "sleep_ms": sleep_ms}}
+
+
+def auto_dp_worker(out: str, manifest: str, mesh=None) -> int:
+    """Phase 25 (d) on one of two gloo ranks sharing cuda:0: each rank's
+    dispatch measurement forced to AUTO_DP_PENALTIES[rank], the training
+    cache built by from_files with t_buckets="auto" and the CLI's hints,
+    then a 64-epoch plan of K=64 blocks (plan_guard); every rank's T
+    buckets gathered by one all_reduce, which rank 0 writes to ``out``."""
+    device_cache.measure_dispatch_penalty_rows = (
+        lambda device=None, reps=5: AUTO_DP_PENALTIES[mesh.rank])
+    ds = OcrDataset(manifest, target_height=D)
+    dc = DeviceDataset.from_files(
+        ds.files, ds.texts(), ds.build_codec(), device=mesh.device, mesh=mesh,
+        target_height=D, pad=ds.pad, t_buckets="auto", merge_sb=True,
+        auto_hints=AUTO_HINTS)
+    nblocks = len(list(dc.epoch_blocks(AUTO_HINTS["batch_size"], 64,
+                                       rng=np.random.RandomState(0),
+                                       epochs=64)))
+    tbs = torch.zeros((mesh.size, 32), dtype=torch.int64, device=mesh.device)
+    tbs[mesh.rank, :len(dc.groups)] = torch.tensor(
+        [g["tb"] for g in dc.groups], device=mesh.device)
+    mesh.all_reduce(tbs)
+    if mesh.main:
+        with open(out, "wb") as f:
+            pickle.dump({"tbs": tbs.cpu().numpy(), "blocks": nblocks}, f)
+    return 0
+
+
+def auto_dp(dev, tmp: str, ocr_dir: str, est, s_len) -> dict:
+    """Phase 25 (d): auto_dp_worker on two gloo ranks sharing cuda:0. Both
+    ranks must hold the groups of rank 0's penalty, which differ from rank
+    1's own, and the plan guard must pass."""
+    out = os.path.join(tmp, "auto_dp.pkl")
+    rc = launch(auto_dp_worker, 2, (out, os.path.join(
+        ocr_dir, "train", "manifest.txt")), "cuda:0")
+    if rc != 0:
+        raise AssertionError(f"the auto ranks returned {rc}")
+    with open(out, "rb") as f:
+        res = pickle.load(f)
+    want = {p: groups_of(est, auto_t_cuts(est, s_lengths=s_len,
+                                          dispatch_penalty_rows=p,
+                                          **AUTO_HINTS))
+            for p in AUTO_DP_PENALTIES}
+    got = [[int(v) for v in row if v] for row in res["tbs"]]
+    log(f"[auto] (d) mesh=2 (gloo, cuda:0), measured penalties forced to "
+        f"{list(AUTO_DP_PENALTIES)}: rank groups {got}; alone rank 0's "
+        f"penalty gives {want[AUTO_DP_PENALTIES[0]]}, rank 1's "
+        f"{want[AUTO_DP_PENALTIES[1]]}; plan guard passed over "
+        f"{res['blocks']} blocks")
+    if want[AUTO_DP_PENALTIES[0]] == want[AUTO_DP_PENALTIES[1]]:
+        raise AssertionError("the forced penalties give the same cuts: the "
+                             "check would not tell the ranks apart")
+    if got != [want[AUTO_DP_PENALTIES[0]]] * 2:
+        raise AssertionError(f"the ranks built other groups: {got}")
+    return {"rank_groups": got, "blocks": res["blocks"]}
+
+
+def cache_child(compile_cache: str, tmpdir: str) -> subprocess.Popen:
+    """CACHE_CHILD in a fresh process with ``compile_cache``, nvcc hidden: a
+    PATH without it and CUDA_HOME an empty directory."""
+    path = os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    cuda_home = os.path.join(tmpdir, "empty_cuda_home")
+    os.makedirs(cuda_home, exist_ok=True)
+    child_tmp = os.path.join(tmpdir, "tmp")
+    os.makedirs(child_tmp, exist_ok=True)
+    env = dict(os.environ, PATH=path, CUDA_HOME=cuda_home,
+               compile_cache=compile_cache, TMPDIR=child_tmp)
+    return subprocess.Popen(
+        [sys.executable, "-c", CACHE_CHILD], env=env, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def cache_runs(tmp: str, build_s: float, warm_dir: str) -> dict:
+    """Phase 25 (e): compile_cache in fresh processes with nvcc hidden.
+    ``warm_dir``, the directory phase 2 built into, must load the library
+    and run one K3 call
+    (a warm cache compiles nothing); a new empty directory under
+    chiprun_out/ and "off" must fail with "nvcc not found" (the directory
+    is honoured), and "off" must leave no directory behind."""
+    t0 = time.perf_counter()
+    warm = cache_child(warm_dir, os.path.join(tmp, "warm"))
+    wout, werr = warm.communicate(timeout=300)
+    warm_wall = time.perf_counter() - t0
+    first = [ln.split() for ln in wout.splitlines()
+             if ln.startswith("FIRST_KERNEL")]
+    if warm.returncode != 0 or not first or first[0][2] != "1":
+        raise AssertionError(f"the warm compile_cache run failed "
+                             f"({warm.returncode}):\n{wout}\n{werr[-4000:]}")
+    empty = os.path.join("chiprun_out", "compile_cache_empty")
+    shutil.rmtree(empty, ignore_errors=True)
+    os.makedirs(empty)
+    cold = {name: (cache_child(cc, os.path.join(tmp, name)),
+                   os.path.join(tmp, name, "tmp"))
+            for name, cc in (("empty", os.path.abspath(empty)),
+                             ("off", "off"))}
+    fails = {}
+    for name, (proc, child_tmp) in cold.items():
+        out, err = proc.communicate(timeout=300)
+        left = sorted(os.listdir(child_tmp))
+        if proc.returncode == 0 or "nvcc not found" not in err:
+            raise AssertionError(f"compile_cache={name} with nvcc hidden "
+                                 f"did not fail on nvcc ({proc.returncode})"
+                                 f":\n{out}\n{err[-4000:]}")
+        if any(n.startswith("clstm_kernels_") for n in left):
+            raise AssertionError(f"compile_cache={name} left {left} behind")
+        fails[name] = {"rc": proc.returncode, "tmp_left": left}
+    if os.listdir(empty):
+        raise AssertionError(f"the empty compile_cache holds "
+                             f"{os.listdir(empty)}")
+    out = {"cold_build_s": build_s, "warm_first_kernel_s": float(first[0][1]),
+           "warm_wall_s": warm_wall, "failed": fails}
+    log(f"[auto] (e) compile_cache with nvcc hidden (PATH without it, "
+        f"CUDA_HOME empty): phase 2's directory {warm_dir} loaded the library "
+        f"and ran K3 once {out['warm_first_kernel_s']:.2f} s after the "
+        f"process started ({warm_wall:.2f} s wall; phase 2's cold build "
+        f"{build_s:.2f} s); an empty directory and off failed with "
+        f"'nvcc not found' (rc {fails['empty']['rc']}, "
+        f"{fails['off']['rc']}), off left nothing in its TMPDIR "
+        f"({fails['off']['tmp_left']})")
+    return out
+
+
+def phase25(dev, card: str, ocr_dir: str, build_s: float,
+            lib_dir: str) -> dict:
+    """Phase 25 (module docstring)."""
+    t25 = time.perf_counter()
+    marks = [t25]
+    out = {"constants": auto_constants(dev, card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        marks.append(time.perf_counter())
+        grp = auto_groups(dev, tmp, ocr_dir,
+                          out["constants"]["dispatch_rows"])
+        out["groups"] = {k: grp[k] for k in ("cuts", "step_shape",
+                                             "step_launches")}
+        marks.append(time.perf_counter())
+        out["cli"] = auto_turns(dev, tmp, ocr_dir)
+        marks.append(time.perf_counter())
+        out["dp"] = auto_dp(dev, tmp, ocr_dir, grp["est"], grp["s_len"])
+        marks.append(time.perf_counter())
+        out["compile_cache"] = cache_runs(tmp, build_s, lib_dir)
+        marks.append(time.perf_counter())
+    out["seconds"] = marks[-1] - t25
+    out["part_seconds"] = dict(zip("abcde", np.diff(marks).tolist()))
+    log(f"[auto] {card} | phase 25 passed in {out['seconds']:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in out["part_seconds"].items())
+        + ")")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k2-against", metavar="SRC",
@@ -4539,7 +4991,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     so = _build.build()
     _build.load_library()
-    log(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s")
+    build_s = time.perf_counter() - t0
+    log(f"[build] {so.name} in {build_s:.2f} s")
     k2_against = (load_k2_against(args.k2_against) if args.k2_against
                   else None)
     fwd_against = (load_fwd_against(args.fwd_against) if args.fwd_against
@@ -5321,6 +5774,11 @@ def main(argv=None) -> int:
     # 24. The routes with no LSTM kernel (compute_dtype, fuse_bidi=False),
     # the trace and the meter, clstmocrtrain with display_every.
     p24 = phase24(dev, card, ocr_dir.name)
+
+    # 25. t_buckets=auto: the cost constants on the card, the cuts on
+    # phase 17's corpus and the kernels at one, clstmocrtrain auto and fine
+    # in turns, the ranks' agreement under mesh=2; compile_cache.
+    p25 = phase25(dev, card, ocr_dir.name, build_s, str(so.parent))
     ocr_dir.cleanup()
 
     # 18. Report. bound_ms from this run's shapes and valid frames (lengths
@@ -5656,6 +6114,25 @@ def main(argv=None) -> int:
     extra["bidi_lstm_fwd_state (K1)"]["phase24"] = {
         k: v for k, v in p24.items()
         if k not in ("cd_launches", "unfused_launches")}
+    # Phase 25: each kernel's launches in the clstmocrtrain runs with
+    # t_buckets=auto and fine, and in the one step at an auto cut; K1's row
+    # also carries the phase's cuts, constants, rates and compile_cache.
+    for name, key in (("bidi_lstm_fwd (K3)", "bidi_lstm_infer"),
+                      ("bidi_lstm_fwd_state (K1)", "bidi_lstm_fwd_state"),
+                      ("bidi_lstm_bwd_chain (K2)", "bidi_lstm_bwd_chain"),
+                      ("bidi_lstm_bwd_reduce (K2)", "bidi_lstm_bwd_reduce"),
+                      ("ctc_forward (K5)", "ctc_forward"),
+                      ("ctc_both (K6)", "ctc_both")):
+        extra.setdefault(name, {})["t_buckets"] = {
+            "cli_launches": [[r["mode"], r["launches"][key]]
+                             for r in p25["cli"]["runs"]],
+            "auto_step_launches": p25["groups"]["step_launches"].get(key),
+            "auto_step_shape": p25["groups"]["step_shape"]}
+    extra["bidi_lstm_fwd_state (K1)"]["phase25"] = {
+        k: p25[k] for k in ("constants", "compile_cache", "dp", "seconds",
+                             "part_seconds")}
+    extra["bidi_lstm_fwd_state (K1)"]["phase25"].update(
+        cuts=p25["groups"]["cuts"], cli=p25["cli"])
     kernels = []
     for name, src, rep, n, err, rel, (km, pm), (bms, bby), lms in entries:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,

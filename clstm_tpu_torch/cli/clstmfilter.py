@@ -10,7 +10,9 @@ Env params:
                      line-at-a-time streaming (CLSTMText.predict)
   device=cuda        torch device; if CUDA is asked for and absent, this
                      raises rather than running on the CPU
-compile_cache is read and ignored: nothing is compiled ahead.
+compile_cache= directory of the CUDA kernels' library (utils/config.py
+enable_compile_cache): empty = the package's _build/, off = a temporary
+one per process.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 from clstm_tpu_torch.data.dataset import TEXT_T_BUCKETS, bucket_for
 from clstm_tpu_torch.models.hl import CLSTMText
 from clstm_tpu_torch.ops.ctc import decode_frames
-from clstm_tpu_torch.utils.config import getienv, getsenv
+from clstm_tpu_torch.utils.config import (
+    enable_compile_cache, getienv, getsenv)
 
 
 def _predict_batched(model: CLSTMText, lines, batch_size: int) -> list:
@@ -53,7 +56,7 @@ def _predict_batched(model: CLSTMText, lines, batch_size: int) -> list:
 
 
 def main(argv=None) -> int:
-    getsenv("compile_cache", "")  # read and ignored (no ahead compile)
+    enable_compile_cache(getsenv("compile_cache", ""))
     load = getsenv("load", "")
     if not load:
         print(__doc__)

@@ -34,7 +34,9 @@ itself). Env params, with the JAX package's names and defaults:
                      N clamped to the card count, 1 = off, N ranks sharing
                      a named device (cuda:0, cpu); batch_size is rounded up
                      to divide by N; rank 0 prints, tests, logs and saves
-compile_cache is read and ignored: nothing is compiled ahead.
+compile_cache= directory of the CUDA kernels' library (utils/config.py
+enable_compile_cache): empty = the package's _build/, off = a temporary
+one per process.
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ from clstm_tpu_torch.models.hl import TEXT_ONE_BUCKETS, CLSTMText
 from clstm_tpu_torch.ops.ctc import decode_frames
 from clstm_tpu_torch.parallel.mesh import run_ranks
 from clstm_tpu_torch.train import unpack_report
-from clstm_tpu_torch.utils.config import HostCopy, getdenv, getienv, getsenv
+from clstm_tpu_torch.utils.config import (
+    HostCopy, enable_compile_cache, getdenv, getienv, getsenv)
 from clstm_tpu_torch.utils.metrics import levenshtein
 
 
@@ -266,7 +269,7 @@ def main(argv=None) -> int:
     if not argv:
         print(__doc__)
         return 1
-    getsenv("compile_cache", "")  # read and ignored (no ahead compile)
+    enable_compile_cache(getsenv("compile_cache", ""))
     # The mesh applies only on the batched path, where rows can be split.
     mesh_n = getienv("mesh", 0) if getienv("batch_size", 1) > 1 else 1
     return run_ranks(_run, (argv,), mesh_n, getsenv("device", "cuda"))

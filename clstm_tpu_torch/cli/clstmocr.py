@@ -12,6 +12,9 @@ Env params:
                     raises rather than running on the CPU
   device_preprocess=1  run the normalization/transposition on the device
                     (ops/preprocess.py); 0 = host scipy path
+  compile_cache=    directory of the CUDA kernels' library (utils/config.py
+                    enable_compile_cache): empty = the package's _build/,
+                    off = a temporary one per process
 All given images are bucketed by width and run as batches, not one by one.
 """
 
@@ -26,7 +29,8 @@ from clstm_tpu_torch.io.png import read_png
 from clstm_tpu_torch.models.hl import CLSTMOCR
 from clstm_tpu_torch.ops.ctc import decode_frames
 from clstm_tpu_torch.ops.preprocess import estimate_out_T
-from clstm_tpu_torch.utils.config import HostCopy, getienv, getsenv
+from clstm_tpu_torch.utils.config import (
+    HostCopy, enable_compile_cache, getienv, getsenv)
 
 
 def predict_pages(ocr: CLSTMOCR, images, device_preprocess: int = 1) -> dict:
@@ -118,6 +122,7 @@ def write_outputs(ocr: CLSTMOCR, argv, images, results: dict,
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    enable_compile_cache(getsenv("compile_cache", ""))
     load = getsenv("load", "")
     if not load or not argv:
         print(__doc__)

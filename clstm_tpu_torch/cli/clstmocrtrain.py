@@ -38,7 +38,12 @@ params, with the JAX package's names and defaults:
                      ~one period). K>1 shuffles the epoch at block
                      granularity: another order than K=1 for the same seed
   t_buckets=fine     cache-path grouping: fine = the finer width grid with
-                     groups merged over S; default = (T, S) bucket groups
+                     groups merged over S; default = (T, S) bucket groups;
+                     auto = corpus-adaptive cuts solved for this corpus
+                     (data/dataset.py auto_t_cuts), groups merged over S,
+                     the block-call overhead measured on the card
+                     (bucket_dp_rows_per_sec overrides the frame-rows/s
+                     of its cost model)
   cache=auto         device|host|auto: device keeps the prepared corpus on
                      the card and gathers batches there; auto = device when
                      the padded corpus fits cache_limit_mb (default 4096)
@@ -50,8 +55,9 @@ params, with the JAX package's names and defaults:
                      torchrun (then mesh is 0 or WORLD_SIZE). batch_size is
                      rounded up to divide by N; rank 0 prints, tests, logs
                      and saves
-Not ported, and raising: t_buckets=auto (ROADMAP.md Queue 1 item 5).
-compile_cache is read and ignored: nothing is compiled ahead.
+  compile_cache=     directory of the CUDA kernels' library
+                     (utils/config.py enable_compile_cache): empty = the
+                     package's _build/, off = a temporary one per process
 """
 
 from __future__ import annotations
@@ -71,7 +77,8 @@ from clstm_tpu_torch.models.hl import CLSTMOCR
 from clstm_tpu_torch.ops.ctc import decode_frames
 from clstm_tpu_torch.parallel.mesh import run_ranks
 from clstm_tpu_torch.train import unpack_report
-from clstm_tpu_torch.utils.config import HostCopy, getdenv, getienv, getsenv
+from clstm_tpu_torch.utils.config import (
+    HostCopy, enable_compile_cache, getdenv, getienv, getsenv)
 from clstm_tpu_torch.utils.metrics import levenshtein
 
 
@@ -265,12 +272,7 @@ def main(argv=None) -> int:
     if not argv:
         print(__doc__)
         return 1
-    getsenv("compile_cache", "")  # read and ignored (no ahead compile)
-    tb_mode = getsenv("t_buckets", "fine")
-    if tb_mode == "auto":
-        raise NotImplementedError(
-            "t_buckets=auto (corpus-adaptive bucket cuts) is not ported "
-            "(ROADMAP.md Queue 1 item 5 leaves it out); use fine or default")
+    enable_compile_cache(getsenv("compile_cache", ""))
     return run_ranks(_run, (argv,), getienv("mesh", 0),
                      getsenv("device", "cuda"))
 
@@ -319,16 +321,27 @@ def _run(argv, mesh=None) -> int:
         ocr.set_mesh(mesh)
         print(f"# data-parallel over {mesh.size} devices", flush=True)
 
-    cache_kw = (dict(t_buckets=T_BUCKETS_FINE, merge_sb=True)
-                if tb_mode == "fine" else {})
+    if tb_mode == "auto":
+        # Corpus-adaptive cuts (data/dataset.py auto_t_cuts); the cost
+        # model's hints mirror the loop's parameters (the automatic K is
+        # at most 64).
+        cache_kw = dict(t_buckets="auto", merge_sb=True,
+                        auto_hints=dict(batch_size=batch_size, epochs=64,
+                                        k=64))
+    elif tb_mode == "fine":
+        cache_kw = dict(t_buckets=T_BUCKETS_FINE, merge_sb=True)
+    else:
+        cache_kw = {}
     print("# preparing lines...", flush=True)
     samples = test_samples = dcache = test_cache = None
     if getienv("device_preprocess", 0):
+        # The test cache takes the default buckets, as the JAX package's.
         t_prep = time.time()
         dcache, test_cache = (DeviceDataset.from_files(
             ds.files, ds.texts(), codec, device=ocr.device, mesh=mesh,
             target_height=target_height, dewarp=dewarp, pad=ds.pad,
-            **cache_kw) if ds else None for ds in (train_ds, test_ds))
+            **kw) if ds else None
+            for ds, kw in ((train_ds, cache_kw), (test_ds, {})))
         print(f"# device-preprocessed corpus in {time.time() - t_prep:.1f}s",
               flush=True)
     else:

@@ -88,6 +88,101 @@ def bucket_for(value: int, buckets: Sequence[int]) -> int:
     return buckets[min(i, len(buckets) - 1)]
 
 
+# The cost of one CTC lattice cell relative to one padded frame-row of the
+# default bidi training step, for auto_t_cuts' lattice term: the CTC
+# alignment's ms over (the step's ms x S) on the bench batch (B=256,
+# T=1024, S=81), measured by chip_smoke.py phase 25 on an NVIDIA H100 80GB
+# HBM3 at a 700.00 W power limit (1.559 ms of a 12.903 ms step). Read when
+# auto_t_cuts is called.
+AUTO_S_WEIGHT = 1.491e-3
+
+
+def auto_t_cuts(lengths: Sequence[int], batch_size: int = 32,
+                epochs: int = 64, k: int = 64,
+                dispatch_penalty_rows: float = 0.0,
+                quantum: int = 16, t_max: int = T_BUCKETS[-1],
+                max_groups: int = 24,
+                s_lengths: Optional[Sequence[int]] = None,
+                s_weight: Optional[float] = None) -> tuple:
+    """Corpus-adaptive T buckets: an exact DP over this corpus's length
+    histogram instead of a fixed grid (``t_buckets=auto`` of
+    clstmocrtrain).
+
+    Cost model: a batch costs ~B*T executed frame-rows, so a group of n
+    lines padded to bucket upper U over an E-epoch resident plan costs
+    ``ceil(n*E/B) * B * U`` frame-rows, plus ``ceil(batches/k) *
+    dispatch_penalty_rows`` for its K-batch block calls. The DP picks cut
+    points over the (quantum-rounded) unique lengths minimizing the total,
+    trading masked frames against partial-batch tails and block calls for
+    the corpus's own mix.
+
+    ``dispatch_penalty_rows`` is the overhead of one block call in
+    frame-rows (seconds times frame-rows per second;
+    device_cache.measure_dispatch_penalty_rows measures it when a
+    DeviceDataset is built with ``t_buckets="auto"``). If the optimum
+    exceeds ``max_groups`` groups (each a set of shapes the kernels and
+    the caches meet), the penalty is doubled until it fits.
+
+    ``s_lengths`` (per-line blank-interleaved target sizes 2*chars+1,
+    aligned with ``lengths``) adds the CTC lattice term: with merged S
+    buckets a group's S bucket is the largest of its lines', so a wide T
+    group widens every member's [T, S] lattice. ``s_weight`` is the cost
+    of one lattice cell relative to a frame-row (None: AUTO_S_WEIGHT);
+    a group then costs ``batches * B * U * (1 + s_weight * S_group)``.
+
+    The same arguments give the same cuts as the JAX package's
+    auto_t_cuts; only the default ``s_weight`` is this card's."""
+    if s_weight is None:
+        s_weight = AUTO_S_WEIGHT
+    lens = [min(int(v), t_max) for v in lengths if v > 0]
+    if not lens:
+        return (t_max,)
+    svals = None
+    if s_lengths is not None:
+        svals = [int(s) for v, s in zip(lengths, s_lengths) if v > 0]
+    rounded = sorted({min(t_max, -(-v // quantum) * quantum) for v in lens})
+    C = len(rounded)
+    counts = [0] * C
+    smax = [0] * C
+    for idx, v in enumerate(lens):
+        pos = bisect.bisect_left(rounded,
+                                 min(t_max, -(-v // quantum) * quantum))
+        counts[pos] += 1
+        if svals is not None:
+            smax[pos] = max(smax[pos], bucket_for(svals[idx], S_BUCKETS))
+    pref = [0]
+    for c in counts:
+        pref.append(pref[-1] + c)
+    penalty = max(float(dispatch_penalty_rows), 0.0)
+    while True:
+        best = [float("inf")] * (C + 1)
+        best[0] = 0.0
+        arg = [-1] * (C + 1)
+        for j in range(1, C + 1):
+            U = rounded[j - 1]
+            s_run = 0
+            for i in range(j - 1, -1, -1):
+                s_run = max(s_run, smax[i])   # max S over range [i, j)
+                n = pref[j] - pref[i]
+                if n == 0:
+                    continue
+                batches = -(-n * epochs // batch_size)
+                row = U * (1.0 + s_weight * s_run) if svals is not None else U
+                c = (best[i] + batches * batch_size * row
+                     + -(-batches // max(k, 1)) * penalty)
+                if c < best[j]:
+                    best[j] = c
+                    arg[j] = i
+        cuts = []
+        j = C
+        while j > 0:
+            cuts.append(rounded[j - 1])
+            j = arg[j]
+        if len(cuts) <= max_groups:
+            return tuple(sorted(cuts))
+        penalty = max(penalty * 2.0, float(batch_size * quantum))
+
+
 class OcrDataset:
     """Manifest of PNG line images with .gt.txt transcripts."""
 

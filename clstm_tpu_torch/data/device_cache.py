@@ -21,10 +21,17 @@ the same plans from a RandomState seeded alike; the parallel steps gather
 each rank's own rows. A checksum of each epoch's plan and of the
 RandomState is compared across the ranks (plan_guard), which raises if one
 rank drew what the others did not.
+
+``t_buckets="auto"`` groups by corpus-adaptive cuts (data/dataset.py
+auto_t_cuts) instead of a fixed grid, with the cost of a block call
+measured on the device (measure_dispatch_penalty_rows); under a mesh rank
+0's measurement is broadcast, so every rank builds the same groups.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Sequence, Tuple
 
@@ -32,7 +39,7 @@ import numpy as np
 import torch
 
 from clstm_tpu_torch.data.dataset import (
-    S_BUCKETS, T_BUCKETS, TEXT_T_BUCKETS, bucket_for)
+    S_BUCKETS, T_BUCKETS, TEXT_T_BUCKETS, auto_t_cuts, bucket_for)
 from clstm_tpu_torch.io import native
 from clstm_tpu_torch.io.png import read_png
 from clstm_tpu_torch.models.codec import Codec
@@ -45,13 +52,68 @@ from clstm_tpu_torch.train import gather_batch
 from clstm_tpu_torch.utils.config import to_device, torch_device
 
 
-def _fixed_buckets(t_buckets):
-    if isinstance(t_buckets, str):
-        raise NotImplementedError(
-            f"t_buckets={t_buckets!r}: corpus-adaptive bucket cuts are not "
-            "ported (ROADMAP.md Queue 1 item 5 leaves t_buckets=auto out); "
-            "pass a tuple of bucket sizes such as T_BUCKETS_FINE")
-    return t_buckets
+# Padded frame-rows a second of the default bidi training step (B=256,
+# T=1024 on the bench batch), which converts a block call's round trip into
+# frame-rows for auto_t_cuts: measured by chip_smoke.py phase 25 on an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit (256 x 1,024 rows in
+# 12.903 ms). The environment variable ``bucket_dp_rows_per_sec`` overrides
+# it (a bigger net's frame-row costs more). Read when
+# measure_dispatch_penalty_rows is called.
+AUTO_ROWS_PER_SEC = 2.032e7
+
+
+def measure_dispatch_penalty_rows(device=None, reps: int = 5) -> float:
+    """The overhead of one call to the device in auto_t_cuts' unit,
+    frame-rows: the median round trip of a tiny op (``v + 1.0`` on an
+    [8, 128] f32 tensor, then a synchronize of the device) over ``reps``
+    after one warm-up, times AUTO_ROWS_PER_SEC (or
+    ``$bucket_dp_rows_per_sec``). ``device`` None means the card.
+
+    Unlike the JAX package, which takes 0.0 when its measurement fails, a
+    failure here raises: the cuts are not solved for a device that was not
+    measured."""
+    rows_per_s = float(os.environ.get("bucket_dp_rows_per_sec",
+                                      AUTO_ROWS_PER_SEC))
+    dev = torch_device("cuda" if device is None else device)
+    v = torch.zeros((8, 128), dtype=torch.float32, device=dev)
+
+    def once() -> float:
+        t0 = time.perf_counter()
+        v.add(1.0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    once()
+    ts = sorted(once() for _ in range(reps))
+    return ts[len(ts) // 2] * rows_per_s
+
+
+def _resolve_t_buckets(t_buckets, lengths, auto_hints, device=None,
+                       s_lengths=None, mesh=None):
+    """``t_buckets="auto"`` -> corpus-adaptive DP cuts (auto_t_cuts) from
+    the given per-line frame lengths (+ blank-interleaved target sizes for
+    the CTC lattice term); anything else passes through.
+
+    Under a mesh every rank must build the same groups (plan_guard), so
+    rank 0's penalty (its hint or its measurement) is broadcast before any
+    rank solves the DP: a rank's own measurement would give it other cuts.
+    """
+    if not (isinstance(t_buckets, str) and t_buckets == "auto"):
+        return t_buckets
+    hints = dict(auto_hints or {})
+    if mesh is not None:
+        penalty = (hints.get("dispatch_penalty_rows") if mesh.main
+                   else None)
+        if mesh.main and penalty is None:
+            penalty = measure_dispatch_penalty_rows(device)
+        t = torch.tensor([penalty or 0.0], dtype=torch.float64,
+                         device=mesh.device)
+        mesh.broadcast(t)
+        hints["dispatch_penalty_rows"] = float(t[0])
+    elif "dispatch_penalty_rows" not in hints:
+        hints["dispatch_penalty_rows"] = measure_dispatch_penalty_rows(device)
+    return auto_t_cuts(lengths, s_lengths=s_lengths, **hints)
 
 
 def read_images(files: Sequence[str], nthreads: int = 0) -> list:
@@ -73,14 +135,24 @@ class DeviceDataset:
     group to the group's largest S bucket: fewer, larger groups, fewer
     partial batches. ``mesh``: the data-parallel group this rank's copy
     serves (its device must be ``device``), or None.
+
+    ``t_buckets="auto"`` solves for corpus-adaptive cuts instead of a fixed
+    grid (data/dataset.py auto_t_cuts); ``auto_hints`` passes the plan
+    parameters of its cost model (batch_size, epochs, k: the CLI forwards
+    its own) and optionally dispatch_penalty_rows, otherwise measured on
+    ``device`` (measure_dispatch_penalty_rows; under a mesh, on rank 0).
     """
 
     def __init__(self, samples: Sequence[Tuple[np.ndarray, str]],
                  codec: Codec, t_buckets: Sequence[int] = T_BUCKETS,
                  s_buckets: Sequence[int] = S_BUCKETS, *, device,
-                 merge_sb: bool = False, mesh=None):
+                 merge_sb: bool = False, mesh=None,
+                 auto_hints: Optional[dict] = None):
         self._place(device, mesh)
-        t_buckets = _fixed_buckets(t_buckets)
+        t_buckets = _resolve_t_buckets(
+            t_buckets, [x.shape[0] for x, _ in samples], auto_hints,
+            self.device, [2 * len(codec.encode(t)) + 1 for _, t in samples],
+            self.mesh)
         groups = self._group(
             [(x, text, x.shape[0]) for x, text in samples], codec,
             t_buckets, s_buckets, merge_sb)
@@ -160,7 +232,8 @@ class DeviceDataset:
                     t_buckets: Sequence[int] = T_BUCKETS,
                     s_buckets: Sequence[int] = S_BUCKETS,
                     chunk_size: int = PREPARE_CHUNK,
-                    merge_sb: bool = False, mesh=None) -> "DeviceDataset":
+                    merge_sb: bool = False, mesh=None,
+                    auto_hints: Optional[dict] = None) -> "DeviceDataset":
         """Build the cache directly from raw line images (float32 [h, w] in
         [0, 1], ink black on white), with the whole normalization and
         transposition running on the device (ops/preprocess.py
@@ -170,15 +243,17 @@ class DeviceDataset:
         bound), since the exact normalized width is known only on the
         device; a line near a bucket edge may land one bucket higher than
         the host-prepared path puts it, with the same contents and length.
+        ``t_buckets="auto"`` solves the cuts over those estimates.
         """
         kind = _canon_dewarp(dewarp)
         self = cls.__new__(cls)
         self._place(device, mesh)
-        t_buckets = _fixed_buckets(t_buckets)
-        groups = self._group(
-            [(raw, text, estimate_out_T([raw], target_height, pad))
-             for raw, text in zip(images, texts)], codec, t_buckets,
-            s_buckets, merge_sb)
+        est_Ts = [estimate_out_T([raw], target_height, pad) for raw in images]
+        t_buckets = _resolve_t_buckets(
+            t_buckets, est_Ts, auto_hints, self.device,
+            [2 * len(codec.encode(t)) + 1 for t in texts], self.mesh)
+        groups = self._group(list(zip(images, texts, est_Ts)), codec,
+                             t_buckets, s_buckets, merge_sb)
         self.groups = []
         self.nbytes = 0
         for (tb, sb), items in sorted(groups.items()):

@@ -1,11 +1,12 @@
-"""Serialization and host-side I/O: .clstm model files, line
-normalization, PNG I/O (port of clstm_tpu/io).
+"""Serialization and host-side I/O: .clstm model files and their message
+tree, line normalization, PNG I/O (port of clstm_tpu/io).
 
-Exports the JAX package's names but ``proto_of_net`` and ``net_of_proto``:
-they take and give protobuf messages, and the port reads and writes the
-.clstm format by hand, without the protobuf package (io/proto.py).
+``proto_of_net`` and ``net_of_proto`` give and take the message classes of
+io/clstm_pb2.py, written by hand without the protobuf package; any object
+with the same fields (a protobuf message of the JAX package) is read too.
 """
 
-from clstm_tpu_torch.io.proto import save_net, load_net
+from clstm_tpu_torch.io.proto import (load_net, net_of_proto, proto_of_net,
+                                      save_net)
 
-__all__ = ["save_net", "load_net"]
+__all__ = ["save_net", "load_net", "proto_of_net", "net_of_proto"]

@@ -3,10 +3,12 @@ library with a plain C interface, compiled by ``nvcc`` for sm_90a and loaded
 with ctypes. Each source is compiled by its own ``nvcc``, all started
 together, and the objects are then linked.
 
-The library is built at first use into ``clstm_tpu_torch/_build/`` (listed
-in .gitignore), under a name that carries the hash of the sources and the
-flags, so a change to any source rebuilds it. Only sources in the package
-are compiled. Nothing is built when this module is imported.
+The library is built at first use into ``BUILD_DIR``, by default
+``clstm_tpu_torch/_build/`` (listed in .gitignore; utils/config.py
+enable_compile_cache points it elsewhere), under a name that carries the hash
+of the sources and the flags, so a change to any source rebuilds it. Only
+sources in the package are compiled. Nothing is built when this module is
+imported.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 

@@ -32,6 +32,7 @@ import hashlib
 import os
 import sys
 import tempfile
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -250,7 +251,9 @@ def quiet_unless_main(mesh: Optional[Mesh]):
 
 
 def _rank_main(rank: int, n: int, fn, args: tuple, device: str,
-               tmp: str) -> None:
+               tmp: str, build_dir: str) -> None:
+    from clstm_tpu_torch.ops import _build
+    _build.BUILD_DIR = Path(build_dir)   # the library launch() built
     if torch.device(device).type == "cpu" and "OMP_NUM_THREADS" not in \
             os.environ:
         # The ranks share the host's cores.
@@ -273,7 +276,9 @@ def launch(fn, n: int, args: tuple, device) -> int:
     torch.multiprocessing's ``spawn``, on ``device`` as make_mesh resolves
     it. ``fn`` must be importable by name (the ranks start from a fresh
     interpreter). The CUDA kernels and the native I/O library are built
-    first, so the ranks load them instead of racing to compile them. On
+    first, so the ranks load them instead of racing to compile them; the
+    ranks take this process's kernel build directory (enable_compile_cache).
+    On
     the CPU each rank takes cpu_count // n intra-op threads, unless
     OMP_NUM_THREADS sets them. A failure on any rank stops the others and
     raises here. -> rank 0's return value (0 for None)."""
@@ -284,7 +289,8 @@ def launch(fn, n: int, args: tuple, device) -> int:
     native.build()
     with tempfile.TemporaryDirectory() as tmp:
         torch.multiprocessing.start_processes(
-            _rank_main, args=(n, fn, args, str(device), tmp), nprocs=n,
+            _rank_main, args=(n, fn, args, str(device), tmp,
+                              str(_build.BUILD_DIR)), nprocs=n,
             join=True, start_method="spawn")
         with open(os.path.join(tmp, "rc")) as f:
             return int(f.read())

@@ -3,8 +3,8 @@
 Reference: getienv/getdenv/getsenv in utils.h (≈L1-250, unverified) — the
 *entire* config system of the reference CLIs is env vars with inline
 defaults (SURVEY.md §5), e.g. ``lrate=1e-4 nhidden=200 clstmocrtrain ...``.
-Preserved verbatim for CLI compatibility (copy of clstm_tpu/utils/config.py
-without the XLA compile cache, which has no PyTorch counterpart).
+Preserved verbatim for CLI compatibility (copy of clstm_tpu/utils/config.py;
+its XLA compilation cache becomes the directory of the kernels' library).
 """
 
 from __future__ import annotations
@@ -34,6 +34,40 @@ def getbenv(name: str, default: bool = False) -> bool:
     if v in (None, ""):
         return default
     return v.lower() not in ("0", "false", "no")
+
+
+def enable_compile_cache(path: str = "") -> str:
+    """Choose the directory the CUDA kernels' library is built into and
+    loaded from (ops/_build.py BUILD_DIR): the port's counterpart of the
+    JAX package's persistent compilation cache. A library there for the
+    current sources and flags (its name carries their hash) is loaded
+    without running nvcc.
+
+    ``path``: "" uses $compile_cache, then the default, the package's
+    ``_build/``; "off"/"0" builds into a temporary directory of this
+    process, removed at exit; any other value is a directory, created here.
+    Returns the directory in use ("" when off). Nothing is compiled here,
+    and a call after the library is loaded changes only a later build:
+    call it before the first kernel launch. The CLIs call it at startup."""
+    import atexit
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from clstm_tpu_torch.ops import _build
+
+    path = path or getsenv("compile_cache", "")
+    if path in ("off", "0"):
+        tmp = tempfile.mkdtemp(prefix="clstm_kernels_")
+        atexit.register(shutil.rmtree, tmp, True)
+        _build.BUILD_DIR = Path(tmp)
+        return ""
+    if not path:
+        _build.BUILD_DIR = _build.DEFAULT_BUILD_DIR
+        return str(_build.BUILD_DIR)
+    os.makedirs(path, exist_ok=True)
+    _build.BUILD_DIR = Path(path)
+    return path
 
 
 def torch_device(name) -> torch.device:

@@ -23,6 +23,9 @@ from clstm_tpu_torch.data import dataset as tds  # noqa: E402
 from clstm_tpu_torch.data.device_cache import DeviceDataset  # noqa: E402
 from clstm_tpu_torch.models.codec import Codec  # noqa: E402
 from clstm_tpu_torch.models.hl import CLSTMOCR  # noqa: E402
+# auto_t_cuts' lattice weight in the JAX package: the port's default is
+# the card's calibration, so the comparisons set it alike.
+from test_torch_auto_cuts import JAX_S_WEIGHT  # noqa: E402
 
 MEAN_DX = 2e-4
 CPU = torch.device("cpu")
@@ -158,11 +161,27 @@ def test_torch_epoch_blocks_match_jax(epochs, clamp_at):
                                       else sum(b[2] for b in want))
 
 
-def test_torch_auto_buckets_refused():
-    samples = _samples(n=4)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        DeviceDataset(samples, _codecs(samples)[0], t_buckets="auto",
-                      device=CPU)
+def _cache_key(c):
+    return [(g["tb"], g["sb"], g["n"], g["texts"]) for g in c.groups]
+
+
+@pytest.mark.parametrize("penalty", [0.0, 5e3, 1e9])
+def test_torch_auto_buckets_match_jax(penalty, monkeypatch):
+    """t_buckets="auto": the groups the DP's cuts give (T and S buckets,
+    members in order, frames, targets, lengths) are the JAX package's for
+    the same hints, merged over S as the CLI asks."""
+    monkeypatch.setattr(tds, "AUTO_S_WEIGHT", JAX_S_WEIGHT)
+    hints = dict(batch_size=4, epochs=64, k=8, dispatch_penalty_rows=penalty)
+    t, j = _caches(_samples(n=37, seed=8, width=(30, 1500)),
+                   t_buckets="auto", merge_sb=True, auto_hints=hints)
+    assert _cache_key(t) == _cache_key(j) and len(t) == len(j) == 37
+    assert t.nbytes == j.nbytes
+    for gt, gj in zip(t.groups, j.groups):
+        for k in ("x", "targets", "lengths", "tlens", "host_lengths"):
+            np.testing.assert_array_equal(_np(gt[k]), _np(gj[k]))
+    if penalty == 0.0:
+        # Without a dispatch cost the DP cuts off the grids.
+        assert {g["tb"] for g in t.groups} - set(tds.T_BUCKETS_FINE)
 
 
 def test_torch_from_files_matches_jax(tmp_path):
@@ -278,3 +297,28 @@ def test_torch_epoch_refs_trajectory_matches_epoch():
     assert torch.equal(ra, rb)
     for a, b in zip(pa, pb):
         assert torch.equal(a, b)
+
+
+def test_torch_from_files_auto_matches_jax(tmp_path, monkeypatch):
+    """from_files with t_buckets="auto" solves the cuts over the host's
+    width estimates, as the JAX package's: the same groups, targets and
+    lengths; bucket_dp_rows_per_sec=0 makes both measured penalties 0."""
+    monkeypatch.setattr(tds, "AUTO_S_WEIGHT", JAX_S_WEIGHT)
+    monkeypatch.setenv("bucket_dp_rows_per_sec", "0")
+    gen = LineGenerator(seed=12)
+    texts = [gen.random_sentence() for _ in range(14)]
+    manifest = make_dataset_dir(str(tmp_path / "lines"), 14, gen=gen,
+                                texts=texts)
+    ds = tds.OcrDataset(manifest, target_height=32, dewarp="center")
+    tc, jc = Codec.build(texts), JCodec.build(texts)
+    kw = dict(target_height=32, dewarp="center", pad=ds.pad, chunk_size=5,
+              t_buckets="auto", merge_sb=True,
+              auto_hints=dict(batch_size=4, epochs=64, k=8))
+    t = DeviceDataset.from_files(ds.files, texts, tc, device=CPU, **kw)
+    j = JDeviceDataset.from_files(ds.files, texts, jc, **kw)
+    assert _cache_key(t) == _cache_key(j) and len(t) == 14
+    for gt, gj in zip(t.groups, j.groups):
+        for k in ("targets", "tlens"):
+            np.testing.assert_array_equal(_np(gt[k]), _np(gj[k]))
+        assert np.all(np.abs(gt["host_lengths"].astype(int)
+                             - gj["host_lengths"]) <= 1)

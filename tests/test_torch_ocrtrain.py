@@ -2,7 +2,7 @@
 package's, on CPU: both CLIs start from the same JAX-saved .clstm, train on
 the same synthetic corpus with the same seed, and must report the same
 losses and test errors and save the same weights; the device_preprocess=1
-path, display_every, the refusal of what is not ported, and the small
+path, display_every, t_buckets=auto, and the small
 helpers the CLI uses (levenshtein, read_text, the line renderer).
 
 Losses and weights after the run are held to tests/test_torch_train.py's
@@ -19,10 +19,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+from test_torch_auto_cuts import JAX_S_WEIGHT  # noqa: E402
 from test_torch_train import STEP_ATOL, STEP_RTOL  # noqa: E402
 
 from clstm_tpu.cli import clstmocrtrain as jcli  # noqa: E402
 from clstm_tpu.cli.clstmocr import predict_pages as jpredict_pages  # noqa: E402,E501
+from clstm_tpu.data import dataset as jds  # noqa: E402
 from clstm_tpu.data.lines import LineGenerator as JLineGenerator  # noqa: E402
 from clstm_tpu.data.lines import make_dataset_dir as jmake_dataset_dir  # noqa: E402,E501
 from clstm_tpu.io.proto import load_net as jload_net  # noqa: E402
@@ -32,9 +34,11 @@ from clstm_tpu.utils import metrics as jmetrics  # noqa: E402
 from clstm_tpu.utils import text as jtext  # noqa: E402
 from clstm_tpu_torch.cli import clstmocrtrain as tcli  # noqa: E402
 from clstm_tpu_torch.cli.clstmocr import predict_pages as tpredict_pages  # noqa: E402,E501
+from clstm_tpu_torch.data import dataset as tds  # noqa: E402
 from clstm_tpu_torch.data.lines import LineGenerator, make_dataset_dir  # noqa: E402,E501
 from clstm_tpu_torch.io.png import read_png  # noqa: E402
 from clstm_tpu_torch.models.hl import CLSTMOCR  # noqa: E402
+from clstm_tpu_torch.ops.preprocess import estimate_out_T  # noqa: E402
 from clstm_tpu_torch.utils import metrics as tmetrics  # noqa: E402
 from clstm_tpu_torch.utils import text as ttext  # noqa: E402
 
@@ -157,14 +161,92 @@ def test_torch_clstmocrtrain_device_preprocess(corpus, monkeypatch, capsys):
         assert got[i][:2] == want[i][:2]
 
 
-@pytest.mark.parametrize("env,item", [({"t_buckets": "auto"}, "item 5")])
-def test_torch_clstmocrtrain_refuses_unported(corpus, monkeypatch, env,
-                                              item):
-    _, train, _, _ = corpus
-    for k, v in dict(ENV, **env).items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main([train])
+AUTO_HINTS = dict(batch_size=4, epochs=64, k=64, dispatch_penalty_rows=0.0,
+                  s_weight=JAX_S_WEIGHT)
+
+
+def _spy_caches(monkeypatch) -> dict:
+    seen = {}
+    loop = tcli.train
+
+    def spy(ocr, codec, **kw):
+        seen.update(kw, codec=codec)
+        return loop(ocr, codec, **kw)
+
+    monkeypatch.setattr(tcli, "train", spy)
+    return seen
+
+
+def test_torch_clstmocrtrain_auto_buckets_matches_jax(corpus, monkeypatch,
+                                                      capsys):
+    """t_buckets=auto through both CLIs from one .clstm on the host-prepared
+    cache path, where the training and the test cache each solve their own
+    cuts: the same trials, losses, test errors and saved weights, within
+    test_torch_clstmocrtrain_matches_jax's limits. bucket_dp_rows_per_sec=0
+    and the JAX package's s_weight in both, so the test compares the DP and
+    its wiring, not two devices' calibrations."""
+    tmp, train, test, start = corpus
+    monkeypatch.setattr(tds, "AUTO_S_WEIGHT", JAX_S_WEIGHT)
+    seen = _spy_caches(monkeypatch)
+    env = dict(load=start, steps_per_dispatch="4", t_buckets="auto",
+               bucket_dp_rows_per_sec="0")
+    runs = {name: _run(mod, f"auto-{name}", tmp, [train, test], monkeypatch,
+                       capsys, **env)
+            for name, mod in (("jax", jcli), ("torch", tcli))}
+    (jrecs, jtest), (trecs, ttest) = runs["jax"], runs["torch"]
+    assert [r["trial"] for r in trecs] == [r["trial"] for r in jrecs]
+    for a, b in zip(trecs, jrecs):
+        if "loss" in a:
+            np.testing.assert_allclose(a["loss"], b["loss"], rtol=STEP_RTOL,
+                                       atol=STEP_ATOL)
+        else:
+            assert a["test_cer"] == b["test_cer"]
+    assert ttest == jtest and len(ttest) == 2
+    _, jp, _, _ = jload_net(str(tmp / "auto-jax-last.clstm"))
+    _, tp, _, _ = jload_net(str(tmp / "auto-torch-last.clstm"))
+    for a, b in zip(jax.tree.leaves(tp), jax.tree.leaves(jp)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=STEP_RTOL, atol=STEP_ATOL)
+    for cache, manifest in ((seen["dcache"], train),
+                            (seen["test_cache"], test)):
+        samples = tds.OcrDataset(manifest, target_height=24).load_all()
+        cuts = jds.auto_t_cuts(
+            [x.shape[0] for x, _ in samples], s_lengths=[
+                2 * len(seen["codec"].encode(t)) + 1 for _, t in samples],
+            **AUTO_HINTS)
+        assert [g["tb"] for g in cache.groups] == sorted(
+            {tds.bucket_for(x.shape[0], cuts) for x, _ in samples})
+
+
+def test_torch_clstmocrtrain_auto_device_preprocess(corpus, monkeypatch,
+                                                    capsys):
+    """t_buckets=auto with device_preprocess=1: the training cache solves
+    its cuts over the host's width estimates (from_files), and the test
+    cache takes the default (T, S) buckets, as the JAX package's CLI."""
+    tmp, train, test, start = corpus
+    monkeypatch.setattr(tds, "AUTO_S_WEIGHT", JAX_S_WEIGHT)
+    seen = _spy_caches(monkeypatch)
+    recs, tests = _run(tcli, "auto-dev", tmp, [train, test], monkeypatch,
+                       capsys, load=start, steps_per_dispatch="4",
+                       t_buckets="auto", device_preprocess="1",
+                       bucket_dp_rows_per_sec="0")
+    assert len(tests) == 2 and np.isfinite(
+        [r["loss"] for r in recs if "loss" in r]).all()
+    est = {}
+    for manifest in (train, test):
+        ds = tds.OcrDataset(manifest, target_height=24)
+        est[manifest] = ([estimate_out_T([read_png(f)], 24, ds.pad)
+                          for f in ds.files], ds.texts())
+    widths, texts = est[train]
+    cuts = jds.auto_t_cuts(widths, s_lengths=[
+        2 * len(seen["codec"].encode(t)) + 1 for t in texts], **AUTO_HINTS)
+    assert [g["tb"] for g in seen["dcache"].groups] == sorted(
+        {tds.bucket_for(w, cuts) for w in widths})
+    widths, texts = est[test]
+    assert sorted({(g["tb"], g["sb"]) for g in seen["test_cache"].groups}) \
+        == sorted({(tds.bucket_for(w, tds.T_BUCKETS), tds.bucket_for(
+            2 * len(seen["codec"].encode(t)) + 1, tds.S_BUCKETS))
+                   for w, t in zip(widths, texts)})
 
 
 @pytest.mark.parametrize("k", ["1", "3"])

@@ -205,6 +205,38 @@ def _guard(mesh) -> str:
     return "no error"
 
 
+AUTO_PENALTIES = (0.0, 1e9)     # each rank's own "measured" penalty
+AUTO_HINTS = dict(batch_size=4, epochs=1, k=1)
+
+
+def _auto_corpus():
+    return _samples(6, n=40)
+
+
+def _auto_cuts(mesh) -> np.ndarray:
+    """t_buckets="auto" under the mesh, each rank measuring another dispatch
+    penalty (AUTO_PENALTIES[rank]): every rank's groups' T buckets (one row
+    a rank, gathered by one all_reduce) after an epoch of blocks, whose
+    plan_guard raises if the ranks' groups differ."""
+    from clstm_tpu_torch.data import device_cache
+    measure = device_cache.measure_dispatch_penalty_rows
+    device_cache.measure_dispatch_penalty_rows = (
+        lambda device=None, reps=5: AUTO_PENALTIES[mesh.rank])
+    try:
+        samples = _auto_corpus()
+        dc = DeviceDataset(samples, Codec.build([t for _, t in samples]),
+                           device="cpu", mesh=mesh, t_buckets="auto",
+                           merge_sb=True, auto_hints=AUTO_HINTS)
+    finally:
+        device_cache.measure_dispatch_penalty_rows = measure
+    list(dc.epoch_blocks(4, 2, rng=np.random.RandomState(0)))
+    tbs = torch.zeros((mesh.size, 32), dtype=torch.int64)
+    tbs[mesh.rank, :len(dc.groups)] = torch.tensor([g["tb"]
+                                                    for g in dc.groups])
+    mesh.all_reduce(tbs)
+    return tbs.numpy()
+
+
 def _worker(job: str, out: str, mesh=None) -> int:
     """The ranks' program: every case of ``job`` on this rank; rank 0 writes
     the results. No JAX may be imported on the way."""
@@ -224,6 +256,7 @@ def _worker(job: str, out: str, mesh=None) -> int:
         res["predict"] = _predict(mesh)
         res["resume"] = _resume(mesh, os.path.dirname(out))
         res["guard"] = _guard(mesh)
+        res["auto_cuts"] = _auto_cuts(mesh)
     res["jax_imported"] = "jax" in sys.modules
     if mesh.main:
         with open(out, "wb") as f:
@@ -434,6 +467,27 @@ def test_torch_dp_plan_guard_raises_on_extra_draw(ranks2):
     """One extra draw from one rank's RandomState: the epoch plan's
     checksums differ and both ranks raise."""
     assert "epoch plan differs across ranks" in ranks2["guard"]
+
+
+def test_torch_dp_auto_cuts_agree_across_ranks(ranks2):
+    """t_buckets="auto" on 2 ranks whose measured penalties differ (0 and
+    1e9, which alone give other cuts): both ranks build rank 0's groups,
+    the cuts of the JAX package's auto_t_cuts at rank 0's penalty, and the
+    plan guard passes."""
+    from clstm_tpu.data.dataset import auto_t_cuts
+    from clstm_tpu_torch.data import dataset as tds
+    samples = _auto_corpus()
+    codec = Codec.build([t for _, t in samples])
+    lengths = [x.shape[0] for x, _ in samples]
+    s_lengths = [2 * len(codec.encode(t)) + 1 for _, t in samples]
+    cuts = {p: auto_t_cuts(lengths, s_lengths=s_lengths,
+                           dispatch_penalty_rows=p,
+                           s_weight=tds.AUTO_S_WEIGHT, **AUTO_HINTS)
+            for p in AUTO_PENALTIES}
+    assert cuts[0.0] != cuts[1e9]
+    want = sorted({tds.bucket_for(v, cuts[0.0]) for v in lengths})
+    for row in ranks2["auto_cuts"]:
+        assert [int(v) for v in row if v] == want
 
 
 def test_torch_mesh_rules(monkeypatch):

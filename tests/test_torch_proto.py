@@ -16,6 +16,7 @@ from clstm_tpu.io import proto as jproto  # noqa: E402
 from clstm_tpu.models.codec import Codec as JCodec  # noqa: E402
 from clstm_tpu.models.spec import apply_net as japply  # noqa: E402
 from clstm_tpu_torch.convert import params_to_numpy  # noqa: E402
+from clstm_tpu_torch.io import clstm_pb2 as tpb2  # noqa: E402
 from clstm_tpu_torch.io import proto as tproto  # noqa: E402
 from clstm_tpu_torch.models.codec import Codec  # noqa: E402
 from clstm_tpu_torch.models.prefab import make_net_init  # noqa: E402
@@ -105,16 +106,19 @@ def test_torch_golden_bidi_forward_matches_jax():
 def test_torch_reader_accepts_packed_and_unpacked_numbers():
     """dim/codec written packed and value written unpacked parse the same
     as the canonical encoding, in both packages."""
-    L, V = tproto._len_field, tproto._varint
+    L, V = tpb2._len_field, tpb2._varint
     w = np.arange(6, dtype=np.float32).reshape(2, 3) - 2.5
-    floats = b"".join(tproto._tag(3, 5) + np.float32(v).tobytes()
+    floats = b"".join(tpb2._tag(3, 5) + np.float32(v).tobytes()
                       for v in w.reshape(-1))
     array = (L(1, b"W1") + L(2, V(2) + V(3)) + floats)
     attrs = b"".join(L(3, L(1, k.encode()) + L(2, v.encode()))
                      for k, v in (("ninput", "2"), ("noutput", "2")))
     data = (L(1, b"SoftmaxLayer") + attrs + L(4, array)
             + L(6, V(0) + V(65) + V(66)))
-    spec, tree, codec, icodec = tproto._parse_net(data)
+    tnode = tpb2.NetworkProto()
+    tnode.ParseFromString(data)
+    codec, icodec = tnode.codec, tnode.icodec
+    tree = params_to_numpy(tproto.net_of_proto(tnode))
     assert codec == [0, 65, 66] and icodec == []
     np.testing.assert_array_equal(tree["weights"]["b"], w[:, 0])
     np.testing.assert_array_equal(tree["weights"]["W"], w[:, 1:].T)
@@ -152,4 +156,66 @@ def test_torch_affine_weight_spellings(names, tmp_path):
 def test_torch_reader_rejects_truncated_data():
     data = read(os.path.join(GOLDEN, "bidi_tiny.clstm"))
     with pytest.raises(ValueError):
-        tproto._parse_net(data[:-7])
+        tpb2.NetworkProto().ParseFromString(data[:-7])
+
+
+# (kind, args, codec texts, icodec texts): the OCR nets bidi and bidi2
+# (BASELINE config 4's second layer) and the filter net of config 5 (a bidi
+# net on one-hot input characters, with an input codec).
+PROTO_NETS = {
+    "bidi": ("bidi", {"ninput": 6, "nhidden": 5, "noutput": 4},
+             ["abc"], ["xy"]),
+    "bidi2": ("bidi2", {"ninput": 4, "nhidden": 3, "noutput": 5,
+                        "nhidden2": 4}, ["abcd"], ["pq"]),
+    "filter": ("bidi", {"ninput": 7, "nhidden": 4, "noutput": 6},
+               ["tsha"], ["thesa "]),
+}
+
+
+def _both_nets(name):
+    from clstm_tpu.models.prefab import make_net_init as jmake_net_init
+    from clstm_tpu_torch.convert import params_from_numpy
+    from clstm_tpu_torch.models.prefab import make_net
+
+    kind, args, ctexts, itexts = PROTO_NETS[name]
+    spec, params = jmake_net_init(kind, args, jax.random.PRNGKey(5))
+    net = params_from_numpy(make_net(kind, args),
+                            jax.tree.map(np.asarray, params))
+    return ((spec, params, JCodec.build(ctexts), JCodec.build(itexts)),
+            (net, Codec.build(ctexts), Codec.build(itexts)))
+
+
+@pytest.mark.parametrize("name", sorted(PROTO_NETS))
+def test_torch_proto_of_net_bytes_match_jax(name):
+    """The port's message tree serializes to the JAX package's protobuf
+    bytes, codec and icodec included, and JAX's ParseFromString reads it
+    back to the same message."""
+    (spec, params, jc, ji), (net, tc, ti) = _both_nets(name)
+    want = jproto.proto_of_net(spec, params, codec=jc,
+                               icodec=ji).SerializeToString()
+    got = tproto.proto_of_net(net, tc, ti).SerializeToString()
+    assert got == want
+    back = clstm_pb2.NetworkProto()
+    back.ParseFromString(got)
+    assert back.SerializeToString() == want
+    assert list(back.codec) == tc.codec and list(back.icodec) == ti.codec
+
+
+@pytest.mark.parametrize("name", sorted(PROTO_NETS))
+def test_torch_net_of_proto_reads_jax_messages(name):
+    """net_of_proto on the JAX package's protobuf message gives JAX's spec
+    and weights exactly; the port's own parse of the same bytes too."""
+    (spec, params, jc, ji), _ = _both_nets(name)
+    msg = jproto.proto_of_net(spec, params, codec=jc, icodec=ji)
+    jspec, jparams = jproto.net_of_proto(msg)
+    want = jax.tree.leaves(jax.tree.map(np.asarray, jparams))
+    mine = tpb2.NetworkProto()
+    mine.ParseFromString(msg.SerializeToString())
+    for node in (msg, mine):
+        net = tproto.net_of_proto(node)
+        assert spec_tuple(net.spec) == spec_tuple(jspec)
+        got = jax.tree.leaves(params_to_numpy(net))
+        assert len(got) == len(want)
+        for u, v in zip(got, want):
+            np.testing.assert_array_equal(u, v)
+    assert mine.codec == jc.codec and mine.icodec == ji.codec

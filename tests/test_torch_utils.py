@@ -34,14 +34,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Public names of the JAX package with no counterpart in the port, and why.
 EXCEPTIONS = {
-    # t_buckets=auto, left out (ROADMAP.md Queue 1).
-    "clstm_tpu/data/dataset.py": {"auto_t_cuts"},
-    "clstm_tpu/data/device_cache.py": {"measure_dispatch_penalty_rows"},
-    # Protobuf messages: the port writes .clstm by hand, without protobuf.
-    "clstm_tpu/io/proto.py": {"proto_of_net", "net_of_proto"},
-    "clstm_tpu/io/clstm_pb2.py": None,
-    # XLA's compilation cache: the port compiles nothing ahead.
-    "clstm_tpu/utils/config.py": {"enable_compile_cache"},
+    # The messages are written by hand (io/clstm_pb2.py): protobuf's file
+    # descriptor, which protoc generates, has no counterpart without the
+    # protobuf package.
+    "clstm_tpu/io/clstm_pb2.py": {"DESCRIPTOR"},
     # The Pallas kernels: ported as csrc/*.cu behind ops/*_kernel.py.
     "clstm_tpu/ops/pallas_lstm.py": None,
     "clstm_tpu/ops/pallas_ctc.py": None,
