@@ -131,6 +131,8 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
  19. each bf16 kernel timed in turns with its f32 mode at the bench shapes,
      and with its library call (cuDNN's nn.LSTM in bf16, the plain version's
      einsums on bf16 operands); train_batch in both modes in turns (11, 15);
+     K2's bf16 reduction at its four shapes (K2_BF16_SHAPES) in turns with
+     the einsums, with its plan, its bound and the host's enqueue time;
  20. the learning check, both modes from the same init on the same
      batches, at each init of LEARN_SEEDS: bidi at full width on a glyph
      corpus made in code (LEARN_*); f32 trains until its test CER is below
@@ -228,7 +230,10 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      no directory behind.
 
 With --k2-against SRC, every timed K2 shape also times the K2 built from
-SRC in turns with the current one (against, current, current, against);
+SRC in turns with the current one (against, current, current, against),
+and where SRC has a bf16 reduction (PR 12's interface or the current
+one), so do K2's bf16 reduction at its four shapes and the bidi, bidi2
+and clstmfiltertrain bf16 steps with that build's reduction;
 with --fwd-against SRC, the same for the forward kernel at K3 and K1
 (bidi), K1 (bidi2 layer 1), K4 in both modes (bidi2 layer 2), and K3 with
 the projection inside at D=400 and D=255 (H=200, the L2 plan); with
@@ -291,7 +296,7 @@ from clstm_tpu_torch.io.proto import load_net, save_net
 from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.hl import CLSTMOCR, CLSTMText
 from clstm_tpu_torch.models.prefab import make_net_init
-from clstm_tpu_torch.models.spec import ApplyCtx, apply_net
+from clstm_tpu_torch.models.spec import CARD_DEFAULT_BF16, ApplyCtx, apply_net
 from clstm_tpu_torch.ops import _build
 from clstm_tpu_torch.ops import bidi_lstm_kernel as bk
 from clstm_tpu_torch.ops import ctc as ctc_ops
@@ -819,12 +824,16 @@ def einsum_reduce(x, y, dz, Wx2, need_dx: bool):
 
 def load_k2_against(src: str):
     """``--k2-against SRC``: K2 built from another source with the same nvcc
-    flags, to time in turns with the current K2 -> (chain, reduce) with the
-    wrappers' signatures. SRC may have the current C interface (WhT padded
-    to clstm_bidi_lstm_bwd_hp, a scratch size from
-    clstm_bidi_lstm_bwd_scratch) or the earlier one (WhT unpadded
-    [2, 4H, H], dW partials sized by clstm_bidi_lstm_bwd_nsplit(B, T)). No
-    launch is counted."""
+    flags, to time in turns with the current K2 -> (chain, reduce,
+    reduce_bf16) with the wrappers' signatures (reduce_bf16: the bf16
+    mode's reduction). SRC may have the current C interface (WhT padded to
+    clstm_bidi_lstm_bwd_hp, f32 scratch from clstm_bidi_lstm_bwd_scratch,
+    the bf16 reduction taking reduce_plan's plan and sizing its scratch by
+    clstm_bidi_lstm_bwd_bf16_scratch), PR 12's (the same f32 entries, the
+    bf16 reduction on bf16 x and wx with clstm_bidi_lstm_bwd_scratch's f32
+    scratch and dx_bf16) or the earlier one (WhT unpadded [2, 4H, H], dW
+    partials sized by clstm_bidi_lstm_bwd_nsplit(B, T), no bf16 entries:
+    reduce_bf16 is None). No launch is counted."""
     with tempfile.TemporaryDirectory() as tmp:
         so = os.path.join(tmp, "k2_against.so")
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
@@ -832,6 +841,8 @@ def load_k2_against(src: str):
         lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
     current = hasattr(lib, "clstm_bidi_lstm_bwd_scratch")
+    plan16 = hasattr(lib, "clstm_bidi_lstm_bwd_bf16_scratch")
+    has16 = hasattr(lib, "clstm_bidi_lstm_bwd_reduce_bf16")
     lib.clstm_bidi_lstm_bwd_chain.argtypes = [P] * 6 + [I] * 3 + [P]
     lib.clstm_bidi_lstm_bwd_reduce.argtypes = [P] * 7 + [I] * 4 + [P]
     if current:
@@ -840,6 +851,12 @@ def load_k2_against(src: str):
         lib.clstm_bidi_lstm_bwd_scratch.restype = ctypes.c_longlong
     else:
         lib.clstm_bidi_lstm_bwd_nsplit.argtypes = [I] * 2
+    if plan16:
+        lib.clstm_bidi_lstm_bwd_reduce_bf16.argtypes = (
+            [P, I] + [P] * 6 + [I] * 8 + [P])
+    elif has16:
+        lib.clstm_bidi_lstm_bwd_reduce_bf16.argtypes = (
+            [P] * 7 + [I] * 5 + [P])
 
     def check(err):
         if err != 0:
@@ -873,7 +890,38 @@ def load_k2_against(src: str):
             dx.data_ptr(), B, T, D, H,
             torch.cuda.current_stream().cuda_stream))
         return dW, dx
-    return chain, reduce
+
+    def reduce_bf16(x, y, dz, Wx2, need_dx):
+        B, T, D = x.shape
+        H = y.shape[-1] // 2
+        M, G = D + 1 + H, 4 * H
+        dev = x.device
+        dW = torch.empty((2, M, G), dtype=torch.float32, device=dev)
+        dx = torch.empty_like(x) if need_dx else None
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan16:
+            plan = bk.device_reduce_plan(dev, B, T, D, H)
+            scratch = torch.empty(plan.scratch, dtype=torch.uint8,
+                                  device=dev)
+            wx = Wx2.contiguous()
+            check(lib.clstm_bidi_lstm_bwd_reduce_bf16(
+                x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
+                dz.data_ptr(), wx.data_ptr(), scratch.data_ptr(),
+                dW.data_ptr(), 0 if dx is None else dx.data_ptr(), B, T, D,
+                H, plan.nw, plan.tt, plan.spr, plan.nwd, stream))
+            return dW, dx
+        # PR 12's interface: x and wx in bf16, f32 scratch.
+        scratch = torch.empty(lib.clstm_bidi_lstm_bwd_scratch(B, T, D, H),
+                              dtype=torch.float32, device=dev)
+        x16 = x.to(torch.bfloat16).contiguous()
+        wx16 = Wx2.to(torch.bfloat16).contiguous()
+        check(lib.clstm_bidi_lstm_bwd_reduce_bf16(
+            x16.data_ptr(), y.data_ptr(), dz.data_ptr(), wx16.data_ptr(),
+            scratch.data_ptr(), dW.data_ptr(),
+            0 if dx is None else dx.data_ptr(), B, T, D, H,
+            int(x.dtype == torch.bfloat16), stream))
+        return dW, dx
+    return chain, reduce, reduce_bf16 if has16 else None
 
 
 def load_fwd_against(src: str) -> dict:
@@ -2740,6 +2788,148 @@ def bf16_kernels(dev, card: str) -> dict:
     return res
 
 
+# K2's bf16 reduction at the four shapes the port runs it at (B, T, D, H,
+# with dx): the filter path's (phase 21: FILTER_B = B, D=19, H=100, the
+# T=32 bucket), bidi's, and
+# bidi2's two layers (the second, D=400, with dx: its x is the first
+# layer's output and needs a gradient).
+K2_BF16_SHAPES = (((B, 32, 19, H), False), ((B, T, D, H), False),
+                  ((B, T, D, H2), False), ((B, T, D2, H2), True))
+
+
+def k2_bf16_turns(dev, card: str, k2_against=None,
+                  profile: bool = False) -> dict:
+    """K2's bf16 reduction at K2_BF16_SHAPES (lengths TRUE_T at T=1024,
+    seeded lengths of 11-32 frames at the filter's shape; seeded streams,
+    y and dz 0 on padded frames): the wrapper in turns with the plain
+    version's einsums on bf16 operands (the library yardstick) and, with
+    --k2-against, with that build's bf16 reduction (outputs within 2e-2 of
+    max|old|: dx is rounded to bf16, so the two may differ by a flip); the
+    host's enqueue ms of a call and of the einsums on an idle card (where
+    it exceeds the card's time, the timed loop measures the host); the
+    plain version's time, the bound at this run's valid frames, the plan
+    (whose scratch must be what the C side counts), and with ``profile``
+    the device time of each kernel it launches and of the einsums'
+    (torch.profiler; a fresh process's, as scripts/torch_k2_bf16_probe.py
+    runs it: late in a long process the profiler loses records). Returns
+    {label: row}."""
+    out = {}
+    for (b, t, d, h), need_dx in K2_BF16_SHAPES:
+        rng = np.random.RandomState(7)
+        if t == T:
+            L = torch.full((b,), TRUE_T, dtype=torch.int32, device=dev)
+        else:
+            L = torch.from_numpy(rng.randint(11, t + 1, b).astype(
+                np.int32)).to(dev)
+        pad = padded(L, b, t, dev)
+        x = uniform(rng, (b, t, d), -1.0, 1.0, dev)
+        if d == 2 * h:
+            x = x.bfloat16()   # the first layer's output
+        y = uniform(rng, (b, t, 2 * h), -1.0, 1.0, dev)
+        dz = uniform(rng, (b, t, 2, 4 * h), -0.1, 0.1, dev)
+        y[pad], dz[pad] = 0.0, 0.0
+        y, dz = y.bfloat16(), dz.bfloat16()
+        wx = uniform(rng, (2, d, 4 * h), -0.1, 0.1, dev)
+        plan = bk.device_reduce_plan(dev, b, t, d, h)
+        n = bk._kernel("clstm_bidi_lstm_bwd_bf16_scratch")(b, t, d, h,
+                                                           plan.tt, plan.spr)
+        if n != plan.scratch:
+            raise AssertionError(f"K2 bf16 plan {plan}: the C side counts "
+                                 f"{n} bytes of scratch")
+        reps = 20 if t < T else 5
+
+        def new():
+            return bidi_lstm_bwd_reduce(x, y, dz, wx, need_dx, xz_bf16=True)
+        lib_fn = einsum_reduce(x.bfloat16(), y, dz, wx.bfloat16(), need_dx)
+        k_t, lib = in_turns(new, lib_fn, reps)
+        label = f"B={b} T={t} D={d} H={h}" + (" dx" if need_dx else "")
+        row = {"plan": plan._asdict(), "ms": k_t, "library_ms": lib,
+               "bound": lstm_bound("reduce", b, t, d, h, int(L.sum()),
+                                   dx=need_dx, esize=2),
+               "plain_ms": time_ms(
+                   lambda: lstm_ops.bidi_lstm_bwd_reduce_plain(
+                       x, y, dz, wx, need_dx, xz_bf16=True), 2)}
+        if k2_against and k2_against[2]:
+            row["k2_against"] = against_turns(
+                f"K2 reduction bf16 {label}",
+                lambda: k2_against[2](x, y, dz, wx, need_dx), new, reps,
+                card, tol=2e-2)
+        row["enqueue_ms"] = enqueue_ms(new, reps)
+        row["library_enqueue_ms"] = enqueue_ms(lib_fn, reps)
+        per = ""
+        if profile:
+            for key, fn in (("kernels_ms", new), ("library_kernels_ms",
+                                                   lib_fn)):
+                fn()
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                row[key] = {kernel_name(e.key): device_us(e) / reps / 1e3
+                            for e in prof.key_averages() if device_us(e) > 0}
+            per = ("; device ms per kernel " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row["kernels_ms"].items())
+                + f" (sum {sum(row['kernels_ms'].values()):.4f}); the "
+                f"einsums' {sum(row['library_kernels_ms'].values()):.4f}")
+        log(f"[timing] {card} | K2 reduction bf16 {label}: in turns kernel "
+            f"{k_t[0]:.4f}, einsum {lib[0]:.4f}, {lib[1]:.4f}, kernel "
+            f"{k_t[1]:.4f} ms; enqueue kernel {row['enqueue_ms']:.4f}, "
+            f"einsum {row['library_enqueue_ms']:.4f} ms; plain "
+            f"{row['plain_ms']:.3f} ms; bound {row['bound'][0]:.4f} ms "
+            f"({row['bound'][1]}){per}; plan nw {plan.nw} tt {plan.tt} spr "
+            f"{plan.spr} ranges {plan.ranges} blocks {plan.blocks} nwd "
+            f"{plan.nwd}")
+        out[label] = row
+        del x, y, dz, wx
+    return out
+
+
+@contextlib.contextmanager
+def k2_against_reduce(k2_against):
+    """Inside the block, the training step's K2 reduction in the bf16 mode
+    is the --k2-against build's (bidi_lstm_bwd_reduce swapped in the
+    wrapper's module, which the backward looks it up in)."""
+    saved = bk.bidi_lstm_bwd_reduce
+
+    def reduce(x, y, dz, Wx2, need_dx=True, xz_bf16=False):
+        if not xz_bf16:
+            return saved(x, y, dz, Wx2, need_dx)
+        return k2_against[2](x, y, dz, Wx2.detach(), need_dx)
+    bk.bidi_lstm_bwd_reduce = reduce
+    try:
+        yield
+    finally:
+        bk.bidi_lstm_bwd_reduce = saved
+
+
+def k2_step_turns(tocr, batch, k2_against, reps: int, label: str,
+                  card: str) -> dict:
+    """train_batch in the bf16 mode with K2's bf16 reduction taken from the
+    --k2-against build and with the current one, timed in turns (against,
+    current, current, against) on the host clock; the model's precision is
+    restored. Logs and returns {"against_ms": [..], "ms": [..]}."""
+    saved_mode = tocr.xz_bf16
+
+    def against():
+        with k2_against_reduce(k2_against):
+            tocr.train_batch(batch)
+
+    def current():
+        tocr.train_batch(batch)
+    tocr.xz_bf16 = True
+    try:
+        o1, n1, n2, o2 = (host_ms(f, reps) for f in (against, current,
+                                                     current, against))
+    finally:
+        tocr.xz_bf16 = saved_mode
+    log(f"[against] {card} | {label} bf16 train_batch in turns (against's "
+        f"K2 reduction, current, current, against's): {o1:.3f}, {n1:.3f}, "
+        f"{n2:.3f}, {o2:.3f} ms/step")
+    return {"against_ms": [o1, o2], "ms": [n1, n2]}
+
+
 def toy_learning(dev, xz_bf16: bool, seed: int = 0):
     """Phase 10's toy CTC task (tests/test_learning.py's transduction; bidi,
     nhidden 16, 4 classes, B=8, T=24, 120 steps) at the precision
@@ -3286,7 +3476,8 @@ def filter_steps(dev, dcache, start: str, lr: float,
     return out
 
 
-def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs) -> dict:
+def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs,
+                k2_against=None) -> dict:
     """clstmfiltertrain through its main on the g2p corpus (FILTER_ENV),
     launch counts reset just before and read just after; its TESTERR must
     fall below half its first value. Then FILTER_PASSES warm passes of its
@@ -3294,9 +3485,12 @@ def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs) -> dict:
     each; the first traced, kernel activity, for the card's idle share) for
     pairs/s, and the host's enqueue ms of one block on an idle card.
     Then a pass and a block's enqueue in each precision, in turns (f32,
-    bf16, bf16, f32). Returns {launches, testerr, pairs_per_s (median),
+    bf16, bf16, f32), and with --k2-against a bf16 pass with that build's
+    K2 reduction and with the current one, in turns (against, current,
+    current, against). Returns {launches, testerr, pairs_per_s (median),
     pairs_per_s_range, busy_share, block_enqueue_ms, block_k, model (the
-    saved best .clstm), run_s, cache_mb, groups, in_turns}."""
+    saved best .clstm), run_s, cache_mb, groups, in_turns, and
+    k2_against_pairs_per_s with --k2-against}."""
     save_name = os.path.join(tmp, "filter")
     env = dict(FILTER_ENV, device=dev.type, save_name=save_name,
                log_jsonl=save_name + ".jsonl")
@@ -3392,6 +3586,19 @@ def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs) -> dict:
         model.xz_bf16 = mode
         turns[mode].append({"pairs_per_s": one_pass(200 + i)[0],
                             "block_enqueue_ms": block_enqueue_ms()})
+    k2_vs = None
+    if k2_against and k2_against[2]:
+        model.xz_bf16 = True
+        k2_vs = {"against": [], "current": []}
+        for i, which in enumerate(("against", "current", "current",
+                                   "against")):
+            with (k2_against_reduce(k2_against) if which == "against"
+                  else contextlib.nullcontext()):
+                k2_vs[which].append(one_pass(300 + i)[0])
+        log(f"[against] {card} | clstmfiltertrain bf16 pass in turns "
+            f"(against's K2 reduction, current, current, against's): "
+            f"{k2_vs['against'][0]:.1f}, {k2_vs['current'][0]:.1f}, "
+            f"{k2_vs['current'][1]:.1f}, {k2_vs['against'][1]:.1f} pairs/s")
     model.xz_bf16 = None
     rates.sort()
     out = {"launches": {k: v for k, v in launches.items() if v},
@@ -3402,6 +3609,8 @@ def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs) -> dict:
            "groups": [(g["tb"], g["sb"], g["n"]) for g in dcache.groups],
            "in_turns": {("bf16" if m else "f32"): v
                         for m, v in turns.items()}}
+    if k2_vs:
+        out["k2_against_pairs_per_s"] = k2_vs
     log(f"[filtertrain] {len(train_pairs)} training and {len(test_pairs)} "
         f"test pairs, bidi {dcache.groups[0]['onehot']}/{H}/"
         f"{model.codec.size()}, input_repeat {FILTER_REPEAT}, B={FILTER_B}, "
@@ -3971,7 +4180,10 @@ LSTM_COUNTED = ("bidi_lstm_infer", "bidi_lstm_fwd_state",
                 "bidi_lstm_bwd_chain", "bidi_lstm_bwd_reduce")
 # The symbols utils/profiling.trace must name in a default bidi step's
 # trace: K1, K2's chain and reduction (bf16 or f32), K5, K6.
+# The kernels a traced default step must name: K1, K2's chain and its dW
+# kernel (of the card's default precision), K5, K6.
 TRACE_SYMBOLS = ("bidi_lstm_fwd_kernel", "bwd_chain_kernel",
+                 "bwd_dw_bf16_kernel" if CARD_DEFAULT_BF16 else
                  "bwd_dw_partial", "ctc_forward_kernel", "ctc_both_kernel")
 THROUGHPUT_RTOL = 0.1
 # clstmocrtrain with display_every on phase 17's corpus: blocks of up to 8
@@ -5284,10 +5496,13 @@ def main(argv=None) -> int:
     log(f"[timing] {card} | train_batch B={B} T={T} S={S81}: the host "
         f"enqueues a step in "
         f"{enqueue_ms(lambda: tocr.train_batch(batch), 3):.3f} ms")
-    steps_vs = {}
+    steps_vs, k2_steps = {}, {}
     if ctc_against:
         steps_vs["bidi"] = step_turns(tocr, batch, ctc_against, 5,
                                       f"bidi B={B} T={T} S={S81}", card)
+    if k2_against and k2_against[2]:
+        k2_steps["bidi"] = k2_step_turns(tocr, batch, k2_against, 3,
+                                         f"bidi B={B} T={T} S={S81}", card)
     par = tocr.net.sub[0]
     tpf, tpr = par.sub[0].weights(), par.sub[1].sub[0].weights()
     bx = batch["x"]
@@ -5634,6 +5849,10 @@ def main(argv=None) -> int:
         steps_vs["bidi2"] = step_turns(tocr2, batch2, ctc_against, 3,
                                        f"bidi2 B={B} T={T} S={S81} C={C2}",
                                        card)
+    if k2_against and k2_against[2]:
+        k2_steps["bidi2"] = k2_step_turns(
+            tocr2, batch2, k2_against, 2, f"bidi2 B={B} T={T} S={S81} C={C2}",
+            card)
     layer1 = tocr2.net.sub[0]
     with torch.no_grad():
         k1_l1 = time_ms(lambda: bidi_lstm_fwd_state(
@@ -5702,6 +5921,9 @@ def main(argv=None) -> int:
     # 18-19. The bf16 kernels against their plain versions and float64, and
     # timed in turns with their f32 modes.
     b16 = bf16_kernels(dev, card)
+    # K2's bf16 reduction at its four shapes, in turns with the einsums
+    # and, with --k2-against, with that build's.
+    k2_16 = k2_bf16_turns(dev, card, k2_against)
 
     # 20. The learning check of the bf16 mode against f32 on the glyph
     # corpus: it decides the card's default precision.
@@ -5753,7 +5975,8 @@ def main(argv=None) -> int:
         maker.save(start)
         fsteps = filter_steps(dev, fcache, start, float(FILTER_ENV["lrate"]),
                               default_bf16)
-        ftrain = filtertrain(dev, card, tmp, train_pairs, test_pairs)
+        ftrain = filtertrain(dev, card, tmp, train_pairs, test_pairs,
+                             k2_against)
         fserve = filter_serve(dev, ftrain["model"],
                               [a for a, _ in test_pairs])
         nat = native_check(dev, tmp)
@@ -6011,6 +6234,11 @@ def main(argv=None) -> int:
         "K2 dz")
     extra["bidi_lstm_bwd_reduce bf16 (K2)"]["f64_rel"] = {
         k: b16["dist"][k] for k in ("K2 dW", "K2 dx") if k in b16["dist"]}
+    extra["bidi_lstm_bwd_reduce bf16 (K2)"]["shapes"] = k2_16
+    if k2_steps or "k2_against_pairs_per_s" in ftrain:
+        extra["bidi_lstm_bwd_reduce bf16 (K2)"]["k2_against_steps"] = dict(
+            k2_steps, clstmfiltertrain_pairs_per_s=ftrain.get(
+                "k2_against_pairs_per_s"))
     extra["bidi_lstm_fwd_state bf16 (K1)"]["train_step_ms"] = {
         "bidi": step_modes, "bidi2": step2_modes}
     extra["bidi_lstm_fwd_state bf16 (K1)"]["learning"] = {

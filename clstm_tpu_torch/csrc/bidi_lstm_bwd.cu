@@ -92,15 +92,41 @@
 //     values in f32). WhT takes half the bytes, so it stays in shared memory
 //     to H ~ 140 and is half the L2 reads past that.
 //   - reduction (clstm_bidi_lstm_bwd_reduce_bf16): x, h_prev (y) and dz are
-//     bf16 and every product is one bf16 mma.sync m16n8k16 pass with f32
-//     accumulation, in place of 3xTF32's three: dW on the tiles and frame
-//     ranges of the f32 kernel (the same fixed-order sum of partials), the
-//     A and B fragments gathered from the frame-major slices element by
-//     element; dx per direction as a product of dz's rows and wx's rows
-//     (both K-contiguous, so each fragment register is one 32-bit load),
-//     each direction's sum rounded to bf16 and the two added in f32
-//     (pallas_lstm.py L913-917), written in x's type.
+//     bf16, every product one bf16 pass with f32 accumulation, on wgmma
+//     (m64nNk16, N = 64, 128 or 200 by plan) fed by TMA through an mbarrier
+//     ring; thread 0 of the block issues the copies, two warpgroups
+//     consume. What bounds it: operations at the bf16 tensor cores' peak at
+//     bidi2's second layer (4.4e11 flop of dW and 3e11 of dx over its
+//     valid frames, 0.75 ms), bytes at the filter's shape; what the design
+//     does about it:
+//       - one launch stages, per call, x as [x | 1 | 0..] in bf16 (the
+//         bias column is data) and y, both to whole 64-column tiles (a box
+//         that a row's end cuts is slower), dz at odd H (a TMA box starts
+//         on a 16-byte boundary, and the reverse direction's gates start
+//         at 4H), and wx for dx in bf16, its rows zero-padded to a multiple
+//         of 64;
+//       - dW: both operands lie frame-major, so the frames (the product's
+//         K) are their slow axis; bf16 wgmma reads shared memory MN-major
+//         (the transpose bits), so the slices are taken as they lie, in the
+//         128-byte swizzle that TMA writes. A slice is 64 frames, a
+//         [B, T, columns] box of tt frames along T by 64/tt rows along B:
+//         h_prev is the y box one frame earlier (later in reverse) in each
+//         row, and TMA's zero fill gives its zeros at the row ends and
+//         zeros past T and B. A block takes two 64-row tiles of
+//         [x | 1 | 0..] or h_prev (one per warpgroup), N gate columns, one
+//         direction and one frame range; the ranges (slices per range) come
+//         from reduce_plan, sized to fill whole waves of the card, each
+//         written to its own partial buffer, summed in a fixed order by a
+//         second pass: deterministic, no float atomics. Each slice
+//         accumulates from zero in the tensor cores and is added to the f32
+//         sum with an ordinary add;
+//       - dx per direction as a product of dz's rows and the staged wx's
+//         rows, both K-major (q contiguous), 128 frames x N columns d per
+//         block; each direction's sum rounded to bf16 and the two added in
+//         f32 (pallas_lstm.py L913-917), written in x's type.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -638,270 +664,553 @@ __global__ void __launch_bounds__(128 * DXW_WG, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Reduction in the bf16 mode: one bf16 tensor-core pass
+// Reduction in the bf16 mode: TMA, mbarriers and bf16 wgmma (sm_90a)
 // ---------------------------------------------------------------------------
 
-// c += a·b, one m16n8k16 bf16 tile, f32 accumulate. Fragments (g = lane / 4,
-// t = lane % 4; each register two bf16, the lower column first): a =
-// A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; b = B[2t..][g],
-// B[2t+8..][g]; c as for m16n8k8.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
+// The raw bits of two bf16 in 32 bits, lo in the low half.
 __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
   return bits(lo) | (bits(hi) << 16);
 }
 
-// dW in bf16: the f32 kernel's output tile (64 rows of [x | h_prev | 1] x
-// 128 gate columns, 2x4 warps of 32x32), frame ranges and partial buffers,
-// on slices of BK = 32 frames staged frame-major in bf16: As[frame][row],
-// Bs[frame][column]; rows of 72 and 136 elements put a fragment's 32 loads
-// in distinct banks. A fragment's pairs run along the frame axis, which is
-// the slow axis of both slices, so each is gathered from two 16-bit loads.
-// VEC: D and H multiples of 4, x and y 8-byte aligned: A is staged in
-// 8-byte copies, else element by element.
-constexpr int DWB_STAGE = BK * (DW_LDA + DW_LDB);  // bf16 per ring slot
-constexpr size_t DWB_SMEM = (size_t)STAGES * DWB_STAGE * sizeof(bf16);
+// Staging: one launch copies up to STAGE_JOBS arrays, each dst [rows, Cp]
+// bf16 = src [rows, C] (f32 or bf16) rounded to bf16, the columns past C
+// zero except column `one` (when 0 <= one < Cp), which is 1. A thread
+// writes 8 columns (16 bytes; Cp is a multiple of 8); job k takes the
+// threads [first, first + rows·Cp/8).
+struct StageJob {
+  const void* src;
+  bf16* dst;
+  long long rows, first;
+  int C, Cp, one, src_f32;
+};
+constexpr int STAGE_JOBS = 4;
+struct StageJobs {
+  StageJob job[STAGE_JOBS];
+  int n;
+  long long total;
+};
 
-template <bool VEC>
-__global__ void __launch_bounds__(RED_THREADS, 2)
-    bwd_dw_partial_bf16_kernel(const bf16* __restrict__ x,
-                               const bf16* __restrict__ y,
-                               const bf16* __restrict__ dz,
-                               float* __restrict__ part, int B, int T, int D,
-                               int H, int nsplit, int chunk) {
-  extern __shared__ __align__(16) bf16 smb[];
-  const int G = 4 * H, M = D + 1 + H;
-  const int ntile_j = (G + DW_BN - 1) / DW_BN;
-  const int i0 = (blockIdx.x / ntile_j) * DW_BM;  // row of [x | h_prev | 1]
-  const int j0 = (blockIdx.x % ntile_j) * DW_BN;
-  const int dir = blockIdx.y / nsplit;
-  const int sp = blockIdx.y - dir * nsplit;
-  const int N = B * T;
-  const int n_begin = sp * chunk;
-  const int n_end = min(N, n_begin + chunk);
-  const int KT = n_end > n_begin ? (n_end - n_begin + BK - 1) / BK : 0;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = (warp >> 2) * 16 * DW_MI, wn = (warp & 3) * 32;
-  const bf16 zero = from_f<bf16>(0.0f), one = from_f<bf16>(1.0f);
-
-  // Element i of [x | h_prev | 1] at frame n, as a pointer (nullptr: 0 or,
-  // for i == D + H, the bias column's 1).
-  auto src_of = [&](int n, int i) -> const bf16* {
-    if (n >= n_end) return nullptr;
-    if (i < D) return x + (size_t)n * D + i;
-    if (i < D + H) {
-      const int k = i - D, t = n % T;
-      if (dir == 0 && t > 0) return y + (size_t)(n - 1) * 2 * H + k;
-      if (dir == 1 && t + 1 < T) return y + (size_t)(n + 1) * 2 * H + H + k;
-    }
-    return nullptr;
-  };
-  auto load = [&](int stage, int kt) {
-    bf16* As = smb + stage * DWB_STAGE;
-    bf16* Bs = As + BK * DW_LDA;
-    const int n0 = n_begin + kt * BK;
-    if (VEC) {
-      for (int c = tid; c < BK * DW_BM / 4; c += RED_THREADS) {
-        const int kk = c / (DW_BM / 4), i = i0 + (c % (DW_BM / 4)) * 4;
-        const int n = n0 + kk;
-        bf16* dst = As + kk * DW_LDA + (i - i0);
-        if (i == D + H && n < n_end) {
-          dst[0] = one;
-          dst[1] = dst[2] = dst[3] = zero;
-          continue;
-        }
-        const bf16* src = src_of(n, i);
-        cp_async8(dst, src ? src : x, src != nullptr);
-      }
-    } else {
-      for (int e = tid; e < BK * DW_BM; e += RED_THREADS) {
-        const int kk = e / DW_BM, i = i0 + e % DW_BM;
-        const int n = n0 + kk;
-        const bf16* src = src_of(n, i);
-        As[kk * DW_LDA + (i - i0)] =
-            src ? *src : (i == D + H && n < n_end ? one : zero);
-      }
-    }
-    for (int c = tid; c < BK * DW_BN / 4; c += RED_THREADS) {
-      const int kk = c / (DW_BN / 4), j = j0 + (c % (DW_BN / 4)) * 4;
-      const int n = n0 + kk;
-      const bool ok = n < n_end && j < G;
-      cp_async8(Bs + kk * DW_LDB + (j - j0),
-                ok ? dz + ((size_t)n * 2 + dir) * G + j : dz, ok);
-    }
-  };
-
-  float acc[DW_MI][4][4] = {};
-  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  auto compute = [&](int stage) {
-    const bf16* As = smb + stage * DWB_STAGE;
-    const bf16* Bs = As + BK * DW_LDA;
-    float tmp[DW_MI][4][4] = {};
+__global__ void bwd_stage_kernel(const StageJobs js) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= js.total) return;
+  int k = 0;
+  while (k + 1 < js.n && c >= js.job[k + 1].first) ++k;
+  const StageJob& jb = js.job[k];
+  const int per = jb.Cp / 8;
+  const long long r = (c - jb.first) / per;
+  const int i0 = (int)(c - jb.first - r * per) * 8;
+  uint32_t w[4];
 #pragma unroll
-    for (int k0 = 0; k0 < BK; k0 += 16) {
-      // A[m][k] = As[k][wm + m]; B[k][n] = Bs[k][wn + n].
-      auto a_at = [&](int m, int k) { return As[k * DW_LDA + wm + m]; };
-      auto b_at = [&](int k, int n) { return Bs[k * DW_LDB + wn + n]; };
-      uint32_t a[DW_MI][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < DW_MI; ++mi)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int m = 16 * mi + g + 8 * (q & 1);
-          const int k = k0 + 2 * t4 + 8 * (q >> 1);
-          a[mi][q] = pack2(a_at(m, k), a_at(m, k + 1));
-        }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int k = k0 + 2 * t4 + 8 * q, n = 8 * ni + g;
-          b[ni][q] = pack2(b_at(k, n), b_at(k + 1, n));
-        }
-#pragma unroll
-      for (int mi = 0; mi < DW_MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(tmp[mi][ni], a[mi], b[ni]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < DW_MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += tmp[mi][ni][q];
-  };
-  pipeline<STAGES>(KT, load, compute);
-
-  // Staged row i -> dW row: x rows stay, h_prev rows move down one, the
-  // ones column is the bias row D.
-  float* out = part + ((size_t)sp * 2 + dir) * M * G;
-#pragma unroll
-  for (int mi = 0; mi < DW_MI; ++mi)
+  for (int q = 0; q < 4; ++q) {
+    bf16 v[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int i = i0 + wm + 16 * mi + g + 8 * h;
-      if (i >= M) continue;
-      const int row = i < D ? i : (i < D + H ? i + 1 : D);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int j = j0 + wn + 8 * ni + 2 * t4 + q;
-          if (j < G) out[(size_t)row * G + j] = acc[mi][ni][2 * h + q];
-        }
+      const int i = i0 + 2 * q + h;
+      float f = i == jb.one ? 1.0f : 0.0f;
+      if (i < jb.C)
+        f = jb.src_f32 ? static_cast<const float*>(jb.src)[r * jb.C + i]
+                       : to_f(static_cast<const bf16*>(jb.src)[r * jb.C + i]);
+      v[h] = from_f<bf16>(f);
     }
+    w[q] = pack2(v[0], v[1]);
+  }
+  *reinterpret_cast<uint4*>(jb.dst + r * jb.Cp + i0) =
+      make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// dx in bf16: dx[n][d] = bf16(Σ_q dz[n][0][q]·wx[0][d][q]) +
-// bf16(Σ_q dz[n][1][q]·wx[1][d][q]), in OUT (x's type). A block takes 128
-// frames x 64 columns d, 8 warps of 32x32 (2x4 warps along frames and d),
-// each direction's q in slices of 32 through a cp.async ring; both operands
-// lie q-contiguous, so a fragment register is one 32-bit load. Rows of 40
-// elements keep a fragment's loads in distinct banks.
-constexpr int DXB_BM = 128, DXB_BN = 64, DXB_BK = 32, DXB_LD = DXB_BK + 8;
-constexpr int DXB_STAGE = (DXB_BM + DXB_BN) * DXB_LD;  // bf16 per slot
-constexpr size_t DXB_SMEM = (size_t)STAGES * DXB_STAGE * sizeof(bf16);
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(b)),
+               "r"(count));
+}
 
-template <class OUT>
-__global__ void __launch_bounds__(RED_THREADS)
-    bwd_dx_bf16_kernel(const bf16* __restrict__ dz,
-                       const bf16* __restrict__ wx, OUT* __restrict__ dx,
-                       int N, int D, int H) {
-  extern __shared__ __align__(16) bf16 smb[];
-  const int G = 4 * H;
-  const int ntd = (D + DXB_BN - 1) / DXB_BN;
-  const int d0 = (blockIdx.x % ntd) * DXB_BN;
-  const int n0 = (blockIdx.x / ntd) * DXB_BM;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int KT = (G + DXB_BK - 1) / DXB_BK;
-  float res[2][4][4] = {};  // the rounded sum of the directions done
-  for (int dir = 0; dir < 2; ++dir) {
-    auto load = [&](int stage, int kt) {
-      bf16* As = smb + stage * DXB_STAGE;
-      bf16* Bs = As + DXB_BM * DXB_LD;
-      const int q0 = kt * DXB_BK;
-      for (int c = tid; c < DXB_BM * DXB_BK / 4; c += RED_THREADS) {
-        const int m = c / (DXB_BK / 4), q = q0 + (c % (DXB_BK / 4)) * 4;
-        const bool ok = n0 + m < N && q < G;
-        cp_async8(As + m * DXB_LD + (q - q0),
-                  ok ? dz + ((size_t)(n0 + m) * 2 + dir) * G + q : dz, ok);
-      }
-      for (int c = tid; c < DXB_BN * DXB_BK / 4; c += RED_THREADS) {
-        const int dd = c / (DXB_BK / 4), q = q0 + (c % (DXB_BK / 4)) * 4;
-        const bool ok = d0 + dd < D && q < G;
-        cp_async8(Bs + dd * DXB_LD + (q - q0),
-                  ok ? wx + ((size_t)dir * D + d0 + dd) * G + q : wx, ok);
-      }
-    };
-    float acc[2][4][4] = {};
-    auto compute = [&](int stage) {
-      const bf16* As = smb + stage * DXB_STAGE;
-      const bf16* Bs = As + DXB_BM * DXB_LD;
-      float tmp[2][4][4] = {};
-#pragma unroll
-      for (int k0 = 0; k0 < DXB_BK; k0 += 16) {
-        uint32_t a[2][4], b[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int m = wm + 16 * mi + g + 8 * (q & 1);
-            const int k = k0 + 2 * t4 + 8 * (q >> 1);
-            a[mi][q] = *reinterpret_cast<const uint32_t*>(As + m * DXB_LD + k);
-          }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const int n = wn + 8 * ni + g, k = k0 + 2 * t4 + 8 * q;
-            b[ni][q] = *reinterpret_cast<const uint32_t*>(Bs + n * DXB_LD + k);
-          }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_bf16(tmp[mi][ni], a[mi], b[ni]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mi][ni][q] += tmp[mi][ni][q];
-    };
-    pipeline<STAGES>(KT, load, compute);
-    __syncthreads();  // the ring is free for the next direction
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          res[mi][ni][q] += operand<bf16>(acc[mi][ni][q]);
+// One arrival that also expects `bytes` of TMA transactions.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(b)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(b))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of barrier b has completed. The
+// loop is one asm block, so the compiler sees no divergent branch before
+// the .aligned wgmma instructions that follow. A wait of more than 2^34
+// cycles (seconds) traps: a fault in the ring then ends the launch with
+// an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, %2;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_addr(b)),
+      "r"(parity), "l"(1ull << 34)
+      : "memory");
+}
+
+// A TMA copy of one box of `map` at the given coordinates (innermost
+// first) into shared memory, completing on barrier `bar`. Elements outside
+// the tensor arrive as zeros.
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1,
+                                       int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a tile in the 128-byte swizzled layout (the
+// one TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 bytes, the
+// 16-byte chunks of row r XORed with r % 8, 1024-byte atoms of 8 rows.
+// LBO (bits 16-29) and SBO (bits 32-45) in 16-byte units; layout type 1
+// (bits 62-63) is the 128-byte swizzle.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (+)= A·B, one m64nNk16 bf16 wgmma with f32 accumulators, A and B by
+// descriptor from shared memory; TA, TB: 1 where the operand lies MN-major
+// (M or N contiguous), 0 where K-major. scale_d = 0 overwrites d.
+// Accumulator layout (warp w of the warpgroup, lane l): d[4c + 2h + e] is
+// row 16w + l/4 + 8h, column 8c + 2(l%4) + e.
+template <int N, int TA, int TB>
+struct Wgmma;
+
+template <int TA, int TB>
+struct Wgmma<64, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
+};
+
+template <int TA, int TB>
+struct Wgmma<128, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<200, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[100], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %102, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n200k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99"
+        "}, %100, %101, p, 1, 1, %103, %104;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void pin_all(float (&d)[N]) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + wm + 16 * mi + g + 8 * h;
-      if (n >= N) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int d = d0 + wn + 8 * ni + 2 * t4 + q;
-          if (d < D)
-            dx[(size_t)n * D + d] = from_f<OUT>(res[mi][ni][2 * h + q]);
-        }
+  for (int i = 0; i < N; ++i) pin(d[i]);
+}
+
+// The bf16 reduction's tiles. A slice is SLICE frames: a box of tt frames
+// along T by 64/tt rows along B (tt a power of two), so that the h_prev
+// shift stays inside each row and TMA's zero fill gives h_prev = 0 at
+// t = 0 (forward) and t = T-1 (reverse), and frames past T or B arrive as
+// zeros. An operand tile of a slice is one ATOM: 64 frames x 64 columns
+// of bf16, frame-major (128-byte rows), swizzled.
+constexpr int SLICE = 64;
+constexpr int ATOM = SLICE * 128;
+constexpr int R16_THREADS = 256;             // two consumer warpgroups
+constexpr int R16_RING = 200 * 1024;         // bytes of a block's ring
+constexpr int R16_STAGES_MAX = 8;
+
+// dW: a block takes a pair of 64-row tiles of [x | 1 | 0.. ; h_prev] (one
+// per warpgroup; x-part tiles from the staged [x | 1 | 0..], h-part tiles
+// from y shifted by one frame) and NW gate columns, for one direction and
+// one frame range. A stage is the pair's two A atoms and the NB atoms of
+// dz's columns [j0, j0 + 64 NB).
+template <int NW>
+struct Dw16 {
+  static constexpr int NB = (NW + 63) / 64;
+  static constexpr int STAGE = (2 + NB) * ATOM;
+  static constexpr int STAGES = R16_RING / STAGE < R16_STAGES_MAX
+                                    ? R16_RING / STAGE
+                                    : R16_STAGES_MAX;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
+};
+
+struct Dw16Args {
+  float* out;      // partials [ranges][2][M][G]; dw itself when ranges == 1
+  int D, H, M, G;  // M = D + 1 + H rows, G = 4H columns of dW
+  int y1;          // y's column of the reverse direction's first unit
+  int z1;          // dz's column of the reverse direction's first gate
+  int tt, bb;      // a slice: tt frames along T x bb rows along B
+  int ntb;         // slices along T
+  int S, spr;      // slices in all, slices per frame range
+  int nx, nm;      // x-part tiles (of D + 1 rows), all row tiles
+  int ntn;         // gate-column tiles
+};
+
+// Block (pair * ntn + column tile, 2 * range + dir). Thread 0 is also the
+// producer: it issues the TMA copies of slice k + STAGES - 1 into the slot
+// of slice k - 1 once both warpgroups have released it (the empty
+// barrier's 8 warp arrivals). Both operands lie frame-major, MN-major for
+// the wgmma: A's M (rows of dW) and B's N (gate columns) are contiguous,
+// the frames (K) are the slow axis: the transpose bits take them as they
+// lie. Each slice (4 k16 steps) accumulates from zero in the tensor cores
+// and is added to the f32 sum with an ordinary add (the tensor cores do
+// not round to nearest when they accumulate). The NW columns of a tile
+// never exceed 200, so the sum and the slice's partial fit in registers.
+template <int NW>
+__global__ void __launch_bounds__(R16_THREADS, 1)
+    bwd_dw_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap ymap,
+                       const __grid_constant__ CUtensorMap zmap,
+                       const Dw16Args a) {
+  using C = Dw16<NW>;
+  extern __shared__ unsigned char smraw[];
+  __shared__ __align__(8) uint64_t full[C::STAGES], empty[C::STAGES];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      ((uintptr_t)smraw + 1023) & ~(uintptr_t)1023);
+  const int pair = blockIdx.x / a.ntn, nt = blockIdx.x - pair * a.ntn;
+  const int dir = blockIdx.y & 1, range = blockIdx.y >> 1;
+  const int s0 = range * a.spr;
+  const int ns = min(a.S, s0 + a.spr) - s0;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = 2 * pair;
+  const int ntile = min(2, a.nm - m0);
+  const int j0 = nt * NW;
+  const uint32_t bytes = (uint32_t)(ntile + C::NB) * ATOM;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], R16_THREADS / 32);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue = [&](int k, int slot) {
+    const int g = s0 + k;
+    const int b0 = (g / a.ntb) * a.bb, t0 = (g % a.ntb) * a.tt;
+    unsigned char* st = ring + slot * C::STAGE;
+    mbar_expect_tx(&full[slot], bytes);
+    for (int w = 0; w < ntile; ++w) {
+      const int m = m0 + w;
+      if (m < a.nx)
+        tma_3d(st + w * ATOM, &xmap, &full[slot], 64 * m, t0, b0);
+      else
+        tma_3d(st + w * ATOM, &ymap, &full[slot],
+               (dir ? a.y1 : 0) + 64 * (m - a.nx), dir ? t0 + 1 : t0 - 1,
+               b0);
+    }
+    for (int c = 0; c < C::NB; ++c)
+      tma_3d(st + (2 + c) * ATOM, &zmap, &full[slot],
+             dir * a.z1 + j0 + 64 * c, t0, b0);
+  };
+  if (tid == 0)
+    for (int k = 0; k < ns && k < C::STAGES; ++k) issue(k, k);
+
+  float acc[NW / 2], tmp[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = tmp[i] = 0.0f;
+  const bool active = wg < ntile;
+  for (int k = 0; k < ns; ++k) {
+    const int slot = k % C::STAGES;
+    mbar_wait(&full[slot], (k / C::STAGES) & 1);
+    __syncwarp();
+    if (active) {
+      unsigned char* st = ring + slot * C::STAGE;
+      const uint32_t sa = smem_addr(st + wg * ATOM);
+      const uint32_t sb = smem_addr(st + 2 * ATOM);
+      pin_all(tmp);
+      wgmma_fence();
+      // k16 step kk: frames 16kk.., two 8-row groups (2048 bytes) on;
+      // LBO steps between 64-column atoms, SBO between 8-frame groups.
+#pragma unroll
+      for (int kk = 0; kk < SLICE / 16; ++kk)
+        Wgmma<NW, 1, 1>::run(tmp, sw128_desc(sa + 2048 * kk, ATOM, 1024),
+                             sw128_desc(sb + 2048 * kk, ATOM, 1024), kk);
+      wgmma_commit();
+      wgmma_wait0();
+      pin_all(tmp);
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) acc[i] += tmp[i];
+    }
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(&empty[slot]);
+    // Warp 0 refills as a whole (its lanes wait together; lane 0 issues),
+    // so no lane of a warpgroup diverges around the wgmma.
+    if (tid < 32 && k >= 1 && k - 1 + C::STAGES < ns) {
+      const int ps = (k - 1) % C::STAGES;
+      mbar_wait(&empty[ps], ((k - 1) / C::STAGES) & 1);
+      if (tid == 0) issue(k - 1 + C::STAGES, ps);
+      __syncwarp();
+    }
+  }
+  if (!active) return;
+
+  // Tile rows -> dW rows: the x-part's rows 0..D are dWx and the bias row
+  // (the staged ones column is column D), h-part row k is dW row D+1+k.
+  const int m = m0 + wg, w = (tid >> 5) & 3, l = tid & 31;
+  float* out = a.out + ((size_t)range * 2 + dir) * a.M * a.G;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = 16 * w + (l >> 2) + 8 * h;
+    int row;
+    if (m < a.nx) {
+      row = 64 * m + rl;
+      if (row > a.D) continue;
+    } else {
+      const int k = 64 * (m - a.nx) + rl;
+      if (k >= a.H) continue;
+      row = a.D + 1 + k;
+    }
+    float* o = out + (size_t)row * a.G;
+#pragma unroll
+    for (int c = 0; c < NW / 8; ++c) {
+      const int j = j0 + 8 * c + 2 * (l & 3);  // G is even: j + 1 < G too
+      if (j < a.G)
+        *reinterpret_cast<float2*>(o + j) =
+            make_float2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+    }
+  }
+}
+
+// dx: a block takes 128 frames (64 per warpgroup) and NW columns d, and
+// runs over q (the 4H dz columns) of the forward direction, then of the
+// reverse: a stage is each warpgroup's dz atom (64 frames x 64 q) and the
+// NW rows d of the staged wx (64 q each). Both operands lie K-major (q
+// contiguous), the wgmma's default. After the forward direction its sum is
+// rounded to bf16 and kept packed; the reverse direction's sum is rounded
+// too, the two added in f32 and written in x's type (pallas_lstm.py
+// L455-461, L913-917). No float atomics: each dx value is one thread's.
+template <int NW>
+struct Dx16 {
+  static constexpr int WB = (NW * 128 + 1023) / 1024 * 1024;
+  static constexpr int STAGE = 2 * ATOM + WB;
+  static constexpr int STAGES = R16_RING / STAGE < R16_STAGES_MAX
+                                    ? R16_RING / STAGE
+                                    : R16_STAGES_MAX;
+  static constexpr int SMEM = STAGES * STAGE + 1024;
+};
+
+struct Dx16Args {
+  void* dx;       // [N, D], bf16 where out_bf16, else f32
+  int N, D;
+  int z1;         // dz's column of the reverse direction's first gate
+  int KQ;         // q slices (of 64) per direction: Gp / 64
+  int ntd;        // column tiles
+  int out_bf16;
+};
+
+template <int NW>
+__global__ void __launch_bounds__(R16_THREADS, 1)
+    bwd_dx_bf16_kernel(const __grid_constant__ CUtensorMap zmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const Dx16Args a) {
+  using C = Dx16<NW>;
+  extern __shared__ unsigned char smraw[];
+  __shared__ __align__(8) uint64_t full[C::STAGES], empty[C::STAGES];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      ((uintptr_t)smraw + 1023) & ~(uintptr_t)1023);
+  const int ft = blockIdx.x / a.ntd, dt = blockIdx.x - ft * a.ntd;
+  const int n0 = ft * 128, d0 = dt * NW;
+  const int ns = 2 * a.KQ;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const uint32_t bytes = 2 * ATOM + NW * 128;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], R16_THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue = [&](int k, int slot) {
+    const int dir = k / a.KQ, q0 = (k - dir * a.KQ) * 64;
+    unsigned char* st = ring + slot * C::STAGE;
+    mbar_expect_tx(&full[slot], bytes);
+    tma_2d(st, &zmap, &full[slot], dir * a.z1 + q0, n0);
+    tma_2d(st + ATOM, &zmap, &full[slot], dir * a.z1 + q0, n0 + 64);
+    tma_2d(st + 2 * ATOM, &wmap, &full[slot], q0, dir * a.D + d0);
+  };
+  if (tid == 0)
+    for (int k = 0; k < ns && k < C::STAGES; ++k) issue(k, k);
+
+  float acc[NW / 2];
+  uint32_t fwd[NW / 4];  // the forward direction's sum, bf16 pairs
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
+  for (int k = 0; k < ns; ++k) {
+    const int slot = k % C::STAGES;
+    mbar_wait(&full[slot], (k / C::STAGES) & 1);
+    __syncwarp();
+    if (k == a.KQ) {
+#pragma unroll
+      for (int i = 0; i < NW / 4; ++i)
+        fwd[i] = pack2(from_f<bf16>(acc[2 * i]), from_f<bf16>(acc[2 * i + 1]));
+    }
+    unsigned char* st = ring + slot * C::STAGE;
+    const uint32_t sa = smem_addr(st + wg * ATOM);
+    const uint32_t sb = smem_addr(st + 2 * ATOM);
+    const int first = k % a.KQ == 0;
+    pin_all(acc);
+    wgmma_fence();
+    // k16 step kk: 32 bytes on inside the 128-byte swizzled rows; SBO
+    // steps between 8-row groups.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<NW, 0, 0>::run(acc, sw128_desc(sa + 32 * kk, 16, 1024),
+                           sw128_desc(sb + 32 * kk, 16, 1024),
+                           !(first && kk == 0));
+    wgmma_commit();
+    wgmma_wait0();
+    pin_all(acc);
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(&empty[slot]);
+    // Warp 0 refills as a whole (its lanes wait together; lane 0 issues),
+    // so no lane of a warpgroup diverges around the wgmma.
+    if (tid < 32 && k >= 1 && k - 1 + C::STAGES < ns) {
+      const int ps = (k - 1) % C::STAGES;
+      mbar_wait(&empty[ps], ((k - 1) / C::STAGES) & 1);
+      if (tid == 0) issue(k - 1 + C::STAGES, ps);
+      __syncwarp();
+    }
+  }
+
+  const int w = (tid >> 5) & 3, l = tid & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + 64 * wg + 16 * w + (l >> 2) + 8 * h;
+    if (n >= a.N) continue;
+#pragma unroll
+    for (int c = 0; c < NW / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * c + 2 * h + e;
+        const int d = d0 + 8 * c + 2 * (l & 3) + e;
+        if (d >= a.D) continue;
+        const uint32_t f = fwd[i >> 1];
+        const float v = (e ? hi_f(f) : lo_f(f)) + operand<bf16>(acc[i]);
+        const size_t o = (size_t)n * a.D + d;
+        if (a.out_bf16)
+          static_cast<bf16*>(a.dx)[o] = from_f<bf16>(v);
+        else
+          static_cast<float*>(a.dx)[o] = v;
+      }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1237,6 +1546,131 @@ int dw_nsplit(int B, int T, int D, int H) {
   return n < 1 ? 1 : n;
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 reduction's host side: tensor maps, scratch, launches
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up from the driver through the runtime
+// (the library links no libcuda); nullptr if the driver has none.
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A bf16 map of `rank` dims (dims[0] innermost; strides[i] the bytes
+// between steps of dim i + 1) whose boxes land 128-byte swizzled.
+bool bf16_map(CUtensorMap* m, const void* base, int rank,
+              const uint64_t* dims, const uint64_t* strides,
+              const uint32_t* box) {
+  const auto enc = encode_tiled();
+  const uint32_t ones[3] = {1, 1, 1};
+  return enc &&
+         enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+             const_cast<void*>(base), dims, strides, box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline long long round_up(long long v, long long m) {
+  return (v + m - 1) / m * m;
+}
+
+// The bf16 reduction's shape and plan, and where its staged copies and
+// partials lie in the scratch (byte offsets, each 256-aligned). x and y
+// are staged to whole 64-column tiles, so that every x and h_prev box lies
+// inside its rows: boxes that a row's end cuts were measured 14-28% slower
+// in dW (PERF.md §6, PR 13). A TMA box starts on a 16-byte boundary of its
+// row: the reverse direction's dz columns (at 4H) do where H is even; at
+// odd H dz is staged too, each direction's columns padded to a multiple
+// of 8.
+struct Red16 {
+  int G, M, N;
+  int Dp;        // staged x: [x | 1 | 0..] in Dp = roundup(D + 1, 64) columns
+  int Hp;        // y staged per direction in Hp = roundup(H, 64) columns
+  int Gq;        // dz staged per direction in Gq = roundup(4H, 8) columns
+  bool zstage;   // H odd
+  int Gp;        // staged wx rows: 4H rounded up to 64
+  int bb, ntb, S, ranges;
+  int nx, nm, pairs;
+  long long off_y, off_z, off_w, off_part, bytes;
+};
+
+Red16 red16(int B, int T, int D, int H, int tt, int spr) {
+  Red16 r;
+  r.G = 4 * H, r.M = D + 1 + H;
+  r.N = B * T;
+  r.Dp = (int)round_up(D + 1, 64);
+  r.Hp = (int)round_up(H, 64);
+  r.Gq = (int)round_up(4 * H, 8);
+  r.zstage = H % 2 != 0;
+  r.Gp = (int)round_up(4 * H, 64);
+  r.bb = SLICE / tt;
+  r.ntb = (T + tt - 1) / tt;
+  r.S = r.ntb * ((B + r.bb - 1) / r.bb);
+  r.ranges = (r.S + spr - 1) / spr;
+  r.nx = r.Dp / 64;
+  r.nm = r.nx + r.Hp / 64;
+  r.pairs = (r.nm + 1) / 2;
+  long long o = round_up(2LL * r.N * r.Dp, 256);
+  r.off_y = o;
+  o += round_up(2LL * r.N * 2 * r.Hp, 256);
+  r.off_z = o;
+  o += r.zstage ? round_up(2LL * r.N * 2 * r.Gq, 256) : 0;
+  r.off_w = o;
+  o += round_up(2LL * 2 * D * r.Gp, 256);
+  r.off_part = o;
+  o += r.ranges > 1 ? 4LL * r.ranges * 2 * r.M * r.G : 0;
+  r.bytes = o;
+  return r;
+}
+
+// Add a staging job (dst [rows, Cp] from src [rows, C]) to js.
+void add_job(StageJobs& js, const void* src, bool src_f32, bf16* dst,
+             long long rows, int C, int Cp, int one) {
+  StageJob& j = js.job[js.n++];
+  j.src = src, j.dst = dst, j.rows = rows, j.first = js.total;
+  j.C = C, j.Cp = Cp, j.one = one, j.src_f32 = src_f32;
+  js.total += rows * (Cp / 8);
+}
+
+template <int NW>
+cudaError_t launch_dw16(const Red16& r, const CUtensorMap& xm,
+                        const CUtensorMap& ym, const CUtensorMap& zm,
+                        const Dw16Args& a, cudaStream_t st) {
+  auto kern = bwd_dw_bf16_kernel<NW>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dw16<NW>::SMEM);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(r.pairs * a.ntn, 2 * r.ranges), R16_THREADS, Dw16<NW>::SMEM,
+         st>>>(xm, ym, zm, a);
+  return cudaGetLastError();
+}
+
+template <int NW>
+cudaError_t launch_dx16(const Red16& r, const CUtensorMap& zm,
+                        const CUtensorMap& wm, const Dx16Args& a,
+                        cudaStream_t st) {
+  auto kern = bwd_dx_bf16_kernel<NW>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dx16<NW>::SMEM);
+  if (e != cudaSuccess) return e;
+  kern<<<(unsigned)((r.N + 127) / 128) * a.ntd, R16_THREADS, Dx16<NW>::SMEM,
+         st>>>(zm, wm, a);
+  return cudaGetLastError();
+}
+
+bool valid_nw(int nw) { return nw == 64 || nw == 128 || nw == 200; }
+
 }  // namespace
 
 // Each entry launches on `stream` and returns a cudaError_t (0 on success).
@@ -1305,54 +1739,104 @@ extern "C" int clstm_bidi_lstm_bwd_reduce(const float* x, const float* y,
                         st);
 }
 
-// The bf16 mode: x [B,T,D], y [B,T,2H], dz [B,T,2,4H] and wx [2,D,4H]
-// bf16, dw f32, dx (unless NULL) bf16 where dx_bf16 is set, else f32;
-// scratch as for clstm_bidi_lstm_bwd_reduce. dz and wx 8-byte aligned.
-extern "C" int clstm_bidi_lstm_bwd_reduce_bf16(const bf16* x, const bf16* y,
-                                               const bf16* dz, const bf16* wx,
-                                               float* scratch, float* dw,
-                                               void* dx, int B, int T, int D,
-                                               int H, int dx_bf16,
-                                               void* stream) {
+// Bytes of scratch the bf16 reduction takes at plan (tt, spr)
+// (ops/bidi_lstm_kernel.py::reduce_plan): x staged as [x | 1 | 0..] in
+// bf16 [B·T, roundup(D+1, 64)], y staged per direction [B·T, 2,
+// roundup(H, 64)], dz staged per direction [B·T, 2, roundup(4H, 8)] where
+// H is odd, wx staged [2, D, roundup(4H, 64)] and,
+// with more than one frame range, the dW partials [ranges, 2, D+1+H, 4H]
+// f32; each 256-byte aligned.
+extern "C" long long clstm_bidi_lstm_bwd_bf16_scratch(int B, int T, int D,
+                                                       int H, int tt,
+                                                       int spr) {
+  return red16(B, T, D, H, tt, spr).bytes;
+}
+
+// The bf16 mode: x [B,T,D] (bf16 where x_bf16, else f32), y [B,T,2H] and
+// dz [B,T,2,4H] bf16 (dz 16-byte aligned), wx [2,D,4H] f32 (rounded to
+// bf16 here); dw [2, D+1+H, 4H] f32 and dx (unless NULL) [B,T,D] in x's type.
+// The plan (reduce_plan): nw gate columns per dW tile and nwd columns d
+// per dx tile (64, 128 or 200), slices of tt frames along T (a power of
+// two up to 64), spr slices per frame range. scratch: the bytes of
+// clstm_bidi_lstm_bwd_bf16_scratch at that plan, 256-byte aligned.
+extern "C" int clstm_bidi_lstm_bwd_reduce_bf16(
+    const void* x, int x_bf16, const bf16* y, const bf16* dz, const float* wx,
+    void* scratch, float* dw, void* dx, int B, int T, int D, int H, int nw,
+    int tt, int spr, int nwd, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int G = 4 * H, M = D + 1 + H;
-  const int N = B * T;
-  const int nsplit = dw_nsplit(B, T, D, H);
-  const int chunk = (N + nsplit - 1) / nsplit;
-  if (((uintptr_t)dz & 7) || ((uintptr_t)wx & 7) || !aligned16(scratch))
+  if (!valid_nw(nw) || !valid_nw(nwd) || tt < 1 || tt > SLICE ||
+      (tt & (tt - 1)) || spr < 1)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(dz) || ((uintptr_t)scratch & 255))
     return (int)cudaErrorMisalignedAddress;
-  const bool vec = D % 4 == 0 && H % 4 == 0 && ((uintptr_t)x & 7) == 0 &&
-                   ((uintptr_t)y & 7) == 0;
-  auto kern = vec ? bwd_dw_partial_bf16_kernel<true>
-                  : bwd_dw_partial_bf16_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DWB_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(dw_tiles(D, H), 2 * nsplit), RED_THREADS, DWB_SMEM, st>>>(
-      x, y, dz, scratch, B, T, D, H, nsplit, chunk);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int total = 2 * M * G;
-  bwd_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(scratch, dw, nsplit,
-                                                         total);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || dx == nullptr) return (int)e;
-  const unsigned blocks = (unsigned)((D + DXB_BN - 1) / DXB_BN) *
-                          (unsigned)((N + DXB_BM - 1) / DXB_BM);
-  if (dx_bf16) {
-    e = cudaFuncSetAttribute(bwd_dx_bf16_kernel<bf16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DXB_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    bwd_dx_bf16_kernel<bf16><<<blocks, RED_THREADS, DXB_SMEM, st>>>(
-        dz, wx, static_cast<bf16*>(dx), N, D, H);
-  } else {
-    e = cudaFuncSetAttribute(bwd_dx_bf16_kernel<float>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DXB_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    bwd_dx_bf16_kernel<float><<<blocks, RED_THREADS, DXB_SMEM, st>>>(
-        dz, wx, static_cast<float*>(dx), N, D, H);
+  if (!encode_tiled()) return (int)cudaErrorNotSupported;
+  const Red16 r = red16(B, T, D, H, tt, spr);
+  const int G = r.G, M = r.M;
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  bf16* xp = reinterpret_cast<bf16*>(sc);
+  bf16* yp = reinterpret_cast<bf16*>(sc + r.off_y);
+  bf16* wp = reinterpret_cast<bf16*>(sc + r.off_w);
+  // One launch stages x, y, dz at odd H, and wx where dx is asked for.
+  StageJobs js = {};
+  add_job(js, x, !x_bf16, xp, r.N, D, r.Dp, D);
+  add_job(js, y, false, yp, 2LL * r.N, H, r.Hp, -1);
+  const bf16* zz = dz;
+  int z1 = G;
+  if (r.zstage) {
+    bf16* zp = reinterpret_cast<bf16*>(sc + r.off_z);
+    add_job(js, dz, false, zp, 2LL * r.N, G, r.Gq, -1);
+    zz = zp, z1 = r.Gq;
   }
-  return (int)cudaGetLastError();
+  if (dx != nullptr) add_job(js, wx, true, wp, 2LL * D, G, r.Gp, -1);
+  bwd_stage_kernel<<<(unsigned)((js.total + 255) / 256), 256, 0, st>>>(js);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int yw = 2 * r.Hp, y1 = r.Hp;
+
+  // dW: [B, T, columns] maps, boxes of 64 columns x tt frames x bb rows.
+  CUtensorMap xm, ym, zm;
+  const uint32_t box3[3] = {64, (uint32_t)tt, (uint32_t)r.bb};
+  const uint64_t xd[3] = {(uint64_t)r.Dp, (uint64_t)T, (uint64_t)B};
+  const uint64_t xs[2] = {2ull * r.Dp, 2ull * r.Dp * T};
+  const uint64_t yd[3] = {(uint64_t)yw, (uint64_t)T, (uint64_t)B};
+  const uint64_t yst[2] = {2ull * yw, 2ull * yw * T};
+  const uint64_t zd[3] = {2ull * z1, (uint64_t)T, (uint64_t)B};
+  const uint64_t zs[2] = {4ull * z1, 4ull * z1 * T};
+  if (!bf16_map(&xm, xp, 3, xd, xs, box3) ||
+      !bf16_map(&ym, yp, 3, yd, yst, box3) ||
+      !bf16_map(&zm, zz, 3, zd, zs, box3))
+    return (int)cudaErrorInvalidValue;
+  const Dw16Args a = {
+      r.ranges > 1 ? reinterpret_cast<float*>(sc + r.off_part) : dw,
+      D, H, M, G, y1, z1, tt, r.bb, r.ntb, r.S, spr, r.nx, r.nm,
+      (G + nw - 1) / nw};
+  e = nw == 64    ? launch_dw16<64>(r, xm, ym, zm, a, st)
+      : nw == 128 ? launch_dw16<128>(r, xm, ym, zm, a, st)
+                  : launch_dw16<200>(r, xm, ym, zm, a, st);
+  if (e != cudaSuccess) return (int)e;
+  if (r.ranges > 1) {
+    const int total = 2 * M * G;
+    bwd_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+        reinterpret_cast<const float*>(sc + r.off_part), dw, r.ranges, total);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (dx == nullptr) return 0;
+
+  // dx: dz as [B·T, 2·z1] (a direction's q past 4H read the other
+  // direction's or the staged padding, against the staged wx's zero
+  // columns), wx staged [2D, Gp].
+  CUtensorMap zm2, wm;
+  const uint32_t zbox[2] = {64, 64}, wbox[2] = {64, (uint32_t)nwd};
+  const uint64_t zd2[2] = {2ull * z1, (uint64_t)r.N}, zs2[1] = {4ull * z1};
+  const uint64_t wd[2] = {(uint64_t)r.Gp, 2ull * D}, ws[1] = {2ull * r.Gp};
+  if (!bf16_map(&zm2, zz, 2, zd2, zs2, zbox) ||
+      !bf16_map(&wm, wp, 2, wd, ws, wbox))
+    return (int)cudaErrorInvalidValue;
+  const Dx16Args b = {dx, r.N, D, z1, r.Gp / 64, (D + nwd - 1) / nwd,
+                      x_bf16};
+  e = nwd == 64    ? launch_dx16<64>(r, zm2, wm, b, st)
+      : nwd == 128 ? launch_dx16<128>(r, zm2, wm, b, st)
+                   : launch_dx16<200>(r, zm2, wm, b, st);
+  return (int)e;
 }

@@ -17,7 +17,10 @@
                         _bwd_kernel (L391-430);
   bidi_lstm_bwd_reduce  K2's contractions dW, dWh and dx (the TPU kernel's
                         own body, L440-463), written by hand as well, on
-                        the tensor cores in 3xTF32 (f32-accurate);
+                        the tensor cores in 3xTF32 (f32-accurate), and in
+                        the bf16 mode on bf16 wgmma fed by TMA;
+  reduce_plan           how the bf16 reduction splits its tiles and frames
+                        (device_reduce_plan: on this card);
   bidi_lstm_train       a torch.autograd.Function: K1 (or the hoisted
                         projection and K4) forward, K2 backward (the custom
                         VJP of bidi_lstm_pallas).
@@ -38,6 +41,7 @@ runs in f32 in their place.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -70,11 +74,14 @@ _SIGNATURES = {
     "clstm_bidi_lstm_fwd_bf16_smem": [_I] * 7,
     "clstm_bidi_lstm_fwd_bf16_clusters": [_I] * 8,
     "clstm_bidi_lstm_bwd_chain_bf16": [_P] * 6 + [_I] * 3 + [_P],
-    "clstm_bidi_lstm_bwd_reduce_bf16": [_P] * 7 + [_I] * 5 + [_P],
+    # The bf16 reduction: x, whether x is bf16 (and dx then bf16), y, dz,
+    # wx (f32), scratch, dw, dx; B, T, D, H and the plan (nw, tt, spr, nwd).
+    "clstm_bidi_lstm_bwd_reduce_bf16": [_P, _I] + [_P] * 6 + [_I] * 8 + [_P],
+    "clstm_bidi_lstm_bwd_bf16_scratch": [_I] * 6,
 }
 # Entry points that return a 64-bit count instead of a CUDA error.
 _LONG = {"clstm_bidi_lstm_bwd_scratch", "clstm_bidi_lstm_fwd_smem",
-         "clstm_bidi_lstm_fwd_bf16_smem"}
+         "clstm_bidi_lstm_fwd_bf16_smem", "clstm_bidi_lstm_bwd_bf16_scratch"}
 _fns: dict = {}
 
 
@@ -387,6 +394,146 @@ def _x_bf16(x: torch.Tensor) -> torch.Tensor:
     return (F.pad(x, (0, 1)) if x.shape[-1] % 2 else x).contiguous()
 
 
+# K2's bf16 reduction (csrc/bidi_lstm_bwd.cu: bwd_dw_bf16_kernel,
+# bwd_dx_bf16_kernel): the widths of its wgmma tiles (gate columns of dW,
+# columns d of dx), the frames of a slice (one stage of its ring), the
+# slices of fill a block pays before its first product (the cost model's),
+# the SMs of an H100 SXM (reduce_plan's default where no card is asked),
+# and the most bytes of dW partials a plan may take.
+RED_WIDTHS = (64, 128, 200)
+RED_SLICE = 64
+RED_FILL = 4
+H100_SMS = 132
+RED_PARTIALS_MAX = 1 << 28
+
+
+class ReducePlan(NamedTuple):
+    """How the bf16 reduction splits a call. dW: tiles of ``nw`` gate
+    columns, a block per pair of 64-row tiles of [x | 1 | 0..] and h_prev
+    (one per warpgroup), column tile, direction and frame range. A slice is
+    ``tt`` frames along T by 64/tt rows along B; a range is ``spr``
+    consecutive slices (rows of T-slices, then rows of B), ``ranges`` of
+    them, each summed into its own partial buffer (none with one range),
+    ``blocks`` dW blocks in all. dx: tiles of 128 frames by ``nwd`` columns
+    d. ``scratch``: bytes of the staged copies and the partials
+    (reduce_scratch)."""
+    nw: int
+    tt: int
+    spr: int
+    ranges: int
+    blocks: int
+    nwd: int
+    scratch: int
+
+
+def tile_width(n: int) -> int:
+    """The tile width of RED_WIDTHS for n columns: the fewest columns
+    computed, then the widest tile."""
+    return min(RED_WIDTHS, key=lambda w: (-(-n // w) * w, -w))
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def reduce_slices(B: int, T: int, tt: int) -> int:
+    """Slices of a [B, T] batch: ceil(T / tt) along T times ceil(B / bb)
+    along B, bb = RED_SLICE / tt."""
+    return -(-T // tt) * -(-B // (RED_SLICE // tt))
+
+
+def reduce_scratch(B: int, T: int, D: int, H: int, tt: int, spr: int) -> int:
+    """Bytes of the bf16 reduction's scratch at a plan (the layout of
+    csrc::red16; clstm_bidi_lstm_bwd_bf16_scratch counts the same): x
+    staged as [x | 1 | 0..] in bf16 [B·T, roundup(D+1, 64)] and y per
+    direction in bf16 [B·T, 2, roundup(H, 64)] (whole tiles: a TMA box
+    that a row's end cuts is slower); dz per direction [B·T, 2,
+    roundup(4H, 8)] where H is odd (a TMA box starts on a 16-byte boundary,
+    and the reverse direction's gates start at 4H); wx in bf16 [2, D,
+    roundup(4H, 64)]; and with more than one frame range the f32 dW
+    partials [ranges, 2, D+1+H, 4H]; each 256-byte aligned."""
+    N, G, M = B * T, 4 * H, D + 1 + H
+    ranges = -(-reduce_slices(B, T, tt) // spr)
+    return (_up(2 * N * _up(D + 1, 64), 256)
+            + _up(2 * N * 2 * _up(H, 64), 256)
+            + (_up(2 * N * 2 * _up(G, 8), 256) if H % 2 else 0)
+            + _up(2 * 2 * D * _up(G, 64), 256)
+            + (4 * ranges * 2 * M * G if ranges > 1 else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_plan(B: int, T: int, D: int, H: int,
+                sms: int = H100_SMS) -> ReducePlan:
+    """The bf16 reduction's plan for x [B, T, D] and H units on a card of
+    ``sms`` SMs (a dW block takes one SM: its ring is ~200 KB).
+
+    ``tt``: T rounded up to a power of two, at most RED_SLICE, so that a
+    slice stays within its rows and wastes least of T. ``nw``, ``nwd``:
+    tile_width of 4H and of D. The frame ranges: of the splits into
+    ``spr`` slices a range, the one of least modelled time, in slices of
+    one block: whole waves of blocks (ceil(blocks / sms)) times spr +
+    RED_FILL, plus the partials' bytes (written and read back by the sum)
+    spread over the card at a block's rate of staging; ties to fewer
+    ranges, and no more than RED_PARTIALS_MAX bytes of partials. So the
+    blocks fill whole waves where the slices allow: at the filter's shape
+    (B=256, T=32, D=19, H=100) 16 ranges of 512 frames, 128 blocks."""
+    if min(B, T, D, H) < 1:
+        raise ValueError(f"no reduction plan for B={B} T={T} D={D} H={H}")
+    G, M = 4 * H, D + 1 + H
+    nw, nwd = tile_width(G), tile_width(D)
+    tt = min(RED_SLICE, 1 << (T - 1).bit_length())
+    S = reduce_slices(B, T, tt)
+    row_tiles = -(-(D + 1) // 64) + -(-H // 64)
+    tiles = 2 * -(-row_tiles // 2) * -(-G // nw)
+    slice_bytes = (2 + -(-nw // 64)) * RED_SLICE * 128
+    part = 4 * 2 * M * G
+    best = None
+    for R in range(1, min(S, 8 * sms) + 1):
+        spr = -(-S // R)
+        ranges = -(-S // spr)
+        if ranges != R:
+            continue  # the split of a smaller R
+        if ranges > 1 and ranges * part > RED_PARTIALS_MAX:
+            break
+        cost = (-(-tiles * ranges // sms) * (spr + RED_FILL)
+                + (2 * ranges * part / (sms * slice_bytes)
+                   if ranges > 1 else 0.0))
+        if best is None or cost < best[0]:
+            best = (cost, spr, ranges)
+    _, spr, ranges = best
+    return ReducePlan(nw, tt, spr, ranges, tiles * ranges, nwd,
+                      reduce_scratch(B, T, D, H, tt, spr))
+
+
+_sms: dict = {}
+
+
+def device_reduce_plan(device, B: int, T: int, D: int,
+                       H: int) -> ReducePlan:
+    """reduce_plan on ``device``'s card (its SM count, asked once; an
+    H100's elsewhere)."""
+    sms = H100_SMS
+    if device.type == "cuda":
+        sms = _sms.get(device)
+        if sms is None:
+            sms = _sms[device] = torch.cuda.get_device_properties(
+                device).multi_processor_count
+    return reduce_plan(B, T, D, H, sms)
+
+
+def staged_x(x: torch.Tensor) -> torch.Tensor:
+    """x [B, T, D] as the bf16 reduction stages it (csrc::
+    bwd_stage_kernel): [x | 1 | 0..] in bf16 [B, T, roundup(D+1, 64)], x
+    rounded to bf16, column D the bias's ones. The kernel's dW rows 0..D
+    are this copy's columns, so the bias row needs no case of its own."""
+    B, T, D = x.shape
+    xp = torch.zeros((B, T, _up(D + 1, 64)), dtype=torch.bfloat16,
+                     device=x.device)
+    xp[..., :D] = x
+    xp[..., D] = 1.0
+    return xp
+
+
 _active: dict = {}
 _plans: dict = {}
 
@@ -593,8 +740,9 @@ def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
     [B, T, D] or None): per direction the rows of dW are dWx, the bias row,
     dWh (see ops/lstm.py::bidi_lstm_bwd_reduce_plain). The sum over frames
     is deterministic: a fixed split and a fixed-order second pass. With
-    ``xz_bf16`` y and dz are bf16, x f32 or bf16 (rounded here), the
-    products take one bf16 tensor-core pass, and dx comes out in x's type.
+    ``xz_bf16`` y and dz are bf16, x f32 or bf16 (rounded to bf16 by the
+    kernel's staging), the products take one bf16 tensor-core pass split
+    by ``device_reduce_plan``, and dx comes out in x's type.
     """
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
@@ -617,18 +765,18 @@ def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
     dx = torch.empty_like(x) if need_dx else None
     if B == 0 or T == 0:
         return dW.zero_(), None if dx is None else dx.zero_()
-    scratch = torch.empty(_kernel("clstm_bidi_lstm_bwd_scratch")(B, T, D, H),
-                          dtype=torch.float32, device=dev)
     if xz_bf16:
-        # Held in names until the launch: a temporary's memory could go to
-        # the next allocation before the kernel reads it.
-        x16 = x.to(torch.bfloat16).contiguous()
-        wx16 = Wx2.detach().to(torch.bfloat16).contiguous()
-        _launch("clstm_bidi_lstm_bwd_reduce_bf16", dev, x16.data_ptr(),
-                y.data_ptr(), dz.data_ptr(), wx16.data_ptr(),
-                scratch.data_ptr(), dW.data_ptr(), _ptr(dx), B, T, D, H,
-                int(x.dtype == torch.bfloat16))
+        plan = device_reduce_plan(dev, B, T, D, H)
+        scratch = torch.empty(plan.scratch, dtype=torch.uint8, device=dev)
+        dz, wx = _aligned(dz), Wx2.detach().contiguous()
+        _launch("clstm_bidi_lstm_bwd_reduce_bf16", dev, x.data_ptr(),
+                int(x.dtype == torch.bfloat16), y.data_ptr(), dz.data_ptr(),
+                wx.data_ptr(), scratch.data_ptr(), dW.data_ptr(), _ptr(dx),
+                B, T, D, H, plan.nw, plan.tt, plan.spr, plan.nwd)
     else:
+        scratch = torch.empty(
+            _kernel("clstm_bidi_lstm_bwd_scratch")(B, T, D, H),
+            dtype=torch.float32, device=dev)
         dz, wx = _aligned(dz), _aligned(Wx2.detach())
         _launch("clstm_bidi_lstm_bwd_reduce", dev, x.data_ptr(), y.data_ptr(),
                 dz.data_ptr(), wx.data_ptr(), scratch.data_ptr(),
