@@ -127,12 +127,19 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      controls: K3's float64 recipe with h left unrounded, and with the bias
      kept f32, put in the kernel's place at the bench shape, must fail that
      rule; the bf16 plans (fwd_plan with 2-byte elements) with the kernel's
-     own count of their shared memory;
+     own count of their shared memory; K2's bf16 chain across its plan's
+     edges (CHAIN16_EDGES: H of 1 to 2048, B of 1 to 1024, T of 1 to 70,
+     mixed, all-zero and no lengths, the plan and, beside the L2 branch
+     where it is the faster, the cluster plan), each plan logged with the
+     kernel's own count of its shared memory;
  19. each bf16 kernel timed in turns with its f32 mode at the bench shapes,
      and with its library call (cuDNN's nn.LSTM in bf16, the plain version's
      einsums on bf16 operands); train_batch in both modes in turns (11, 15);
      K2's bf16 reduction at its four shapes (K2_BF16_SHAPES) in turns with
      the einsums, with its plan, its bound and the host's enqueue time;
+     K2's bf16 chain at its three shapes (CHAIN16_SHAPES) in turns with the
+     branch its plan did not take (the L2 branch, the earlier bf16 chain,
+     or the cluster plan);
  20. the learning check, both modes from the same init on the same
      batches, at each init of LEARN_SEEDS: bidi at full width on a glyph
      corpus made in code (LEARN_*); f32 trains until its test CER is below
@@ -233,7 +240,9 @@ With --k2-against SRC, every timed K2 shape also times the K2 built from
 SRC in turns with the current one (against, current, current, against),
 and where SRC has a bf16 reduction (PR 12's interface or the current
 one), so do K2's bf16 reduction at its four shapes and the bidi, bidi2
-and clstmfiltertrain bf16 steps with that build's reduction;
+and clstmfiltertrain bf16 steps with that build's reduction (and its bf16
+chain); where SRC has a bf16 chain (clstm_bidi_lstm_bwd_chain_bf16), so
+does K2's bf16 chain at its three shapes;
 with --fwd-against SRC, the same for the forward kernel at K3 and K1
 (bidi), K1 (bidi2 layer 1), K4 in both modes (bidi2 layer 2), and K3 with
 the projection inside at D=400 and D=255 (H=200, the L2 plan); with
@@ -825,8 +834,11 @@ def einsum_reduce(x, y, dz, Wx2, need_dx: bool):
 def load_k2_against(src: str):
     """``--k2-against SRC``: K2 built from another source with the same nvcc
     flags, to time in turns with the current K2 -> (chain, reduce,
-    reduce_bf16) with the wrappers' signatures (reduce_bf16: the bf16
-    mode's reduction). SRC may have the current C interface (WhT padded to
+    reduce_bf16, chain_bf16) with the wrappers' signatures (reduce_bf16,
+    chain_bf16: the bf16 mode's reduction and chain; chain_bf16 is SRC's
+    clstm_bidi_lstm_bwd_chain_bf16, the interface of every source with a
+    bf16 mode: WhT in bf16 padded to clstm_bidi_lstm_bwd_hp, the L2
+    branch of the current source; None where SRC has none). SRC may have the current C interface (WhT padded to
     clstm_bidi_lstm_bwd_hp, f32 scratch from clstm_bidi_lstm_bwd_scratch,
     the bf16 reduction taking reduce_plan's plan and sizing its scratch by
     clstm_bidi_lstm_bwd_bf16_scratch), PR 12's (the same f32 entries, the
@@ -841,6 +853,7 @@ def load_k2_against(src: str):
         lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
     current = hasattr(lib, "clstm_bidi_lstm_bwd_scratch")
+    has_chain16 = hasattr(lib, "clstm_bidi_lstm_bwd_chain_bf16")
     plan16 = hasattr(lib, "clstm_bidi_lstm_bwd_bf16_scratch")
     has16 = hasattr(lib, "clstm_bidi_lstm_bwd_reduce_bf16")
     lib.clstm_bidi_lstm_bwd_chain.argtypes = [P] * 6 + [I] * 3 + [P]
@@ -857,6 +870,8 @@ def load_k2_against(src: str):
     elif has16:
         lib.clstm_bidi_lstm_bwd_reduce_bf16.argtypes = (
             [P] * 7 + [I] * 5 + [P])
+    if has_chain16:
+        lib.clstm_bidi_lstm_bwd_chain_bf16.argtypes = [P] * 6 + [I] * 3 + [P]
 
     def check(err):
         if err != 0:
@@ -921,7 +936,23 @@ def load_k2_against(src: str):
             0 if dx is None else dx.data_ptr(), B, T, D, H,
             int(x.dtype == torch.bfloat16), stream))
         return dW, dx
-    return chain, reduce, reduce_bf16 if has16 else None
+
+    def chain_bf16(gates, cell, gy, Wh2, lengths):
+        B, T, _, G = gates.shape
+        H = G // 4
+        dz = torch.empty((B, T, 2, G), dtype=torch.bfloat16,
+                         device=gates.device)
+        hp = lib.clstm_bidi_lstm_bwd_hp(H)
+        whT = torch.zeros((2, G, hp), dtype=torch.bfloat16,
+                          device=gates.device)
+        whT[:, :, :H] = Wh2.transpose(1, 2)
+        check(lib.clstm_bidi_lstm_bwd_chain_bf16(
+            0 if lengths is None else lengths.data_ptr(), gates.data_ptr(),
+            cell.data_ptr(), gy.data_ptr(), whT.data_ptr(), dz.data_ptr(), B,
+            T, H, torch.cuda.current_stream().cuda_stream))
+        return dz
+    return (chain, reduce, reduce_bf16 if has16 else None,
+            chain_bf16 if has_chain16 else None)
 
 
 def load_fwd_against(src: str) -> dict:
@@ -2886,28 +2917,199 @@ def k2_bf16_turns(dev, card: str, k2_against=None,
     return out
 
 
+# K2's bf16 chain (ops/bidi_lstm_kernel.py::chain_plan) across its plan's
+# edges (B, T, H): H of 1, 7 and 201 (not a multiple of the cluster size
+# or of an 8-column n tile), 100 and 200 (the bench widths), 209 (two m16
+# tiles a cluster at B=384), 700 and 2048 (no cluster holds a slice of Wh:
+# the L2 branch); B of 1, 3, 17 (below and across 16 rows a cluster), 256,
+# 384, 512 and 1024 (the plans of larger batches: C=2, C=1, 32 rows); T of
+# 1 and a few frames. Each with mixed lengths (a row of length 0 and one of
+# T), all lengths 0 and none, at the plan, and where that is the L2 branch
+# although a cluster plan fits (chain_prefers_l2: 16-64 frames at H=100,
+# 16 or more at H=64) also at that cluster plan.
+CHAIN16_EDGES = ((1, 5, 1), (3, 1, 7), (17, 9, 100), (256, 1, 200),
+                 (256, 4, 100), (33, 20, 100), (5, 70, 64), (3, 7, 201),
+                 (17, 5, 201), (384, 2, 209),
+                 (512, 2, 100), (512, 2, 200), (1024, 1, 100),
+                 (1024, 2, 200), (4, 6, 700), (1, 1, 2048), (3, 4, 2048))
+# The bf16 chain at the shapes the port runs it at (B, T, H, lengths): the
+# filter path's (seeded lengths 11-32), bidi's, and bidi2's (both layers
+# run the chain at H=200: it does not see D).
+CHAIN16_SHAPES = (("filter", B, 32, H), ("bidi", B, T, H),
+                  ("bidi2 layers 1 and 2", B, T, H2))
+
+
+def chain_inputs(rng, b, t, h, lengths, dev):
+    """Seeded inputs of K2's chain in the bf16 mode: gates [b,t,2,4h] f32
+    (gi, gf, go in (0.02, 0.98), ci in (-0.96, 0.96)), cell [b,t,2,h] and
+    gy [b,t,2h] bf16, each 0 on padded frames as K1 leaves them, and Wh2
+    [2,h,4h] f32 uniform ±min(0.3, 3/sqrt(h))."""
+    g = rng.uniform(0.02, 0.98, (b, t, 2, 4 * h)).astype(np.float32)
+    g[..., 3 * h:] = 2 * g[..., 3 * h:] - 1
+    c = rng.uniform(-1, 1, (b, t, 2, h)).astype(np.float32)
+    gy = rng.uniform(-1, 1, (b, t, 2 * h)).astype(np.float32)
+    sc = min(0.3, 3.0 / h ** 0.5)
+    wh = rng.uniform(-sc, sc, (2, h, 4 * h)).astype(np.float32)
+    g, c, gy, wh = (torch.from_numpy(v).to(dev) for v in (g, c, gy, wh))
+    if lengths is not None:
+        pad = padded(lengths, b, t, dev)
+        g[pad], c[pad], gy[pad] = 0.0, 0.0, 0.0
+    return g, c.bfloat16(), gy.bfloat16(), wh
+
+
+def chain_plan_line(plan) -> str:
+    """A chain plan as chip_smoke logs it."""
+    if not plan.C:
+        return "L2 branch (the L2 kernel)"
+    return (", ".join(f"{k} {v}" for k, v in plan._asdict().items())
+            + ("; one wave" if 2 * plan.groups <= plan.clusters else
+               "; more than one wave"))
+
+
+def chain_other(dev, b: int, t: int, h: int):
+    """The branch the bf16 chain's plan at (b, t, h) did not take, where
+    there is one: the L2 branch beside a cluster plan, and the cluster plan
+    (chain_cluster_plan) beside the L2 branch where chain_prefers_l2. None
+    where no cluster holds a slice of Wh."""
+    if bk.device_chain_plan(dev, b, t, h).C:
+        return bk.CHAIN_L2
+    p = bk.chain_cluster_plan(b, h, bk.chain_clusters(dev, h))
+    return p if p.C else None
+
+
+def chain16_edges(dev) -> dict:
+    """K2's bf16 chain at CHAIN16_EDGES (phase 18), with mixed, all-zero
+    and no lengths, through the wrapper (the plan) and, where the plan is
+    the L2 branch although a cluster plan fits (chain_prefers_l2), at that
+    cluster plan: within BF16_FACTOR of the plain bf16 version's distance
+    from float64 (max and, on enough values, mean), exactly 0 on padded
+    frames, two calls bitwise equal; the plan's shared memory as the C side
+    counts it. Returns {label: distances} and logs each plan."""
+    rng = np.random.RandomState(21)
+    out = {}
+    for (b, t, h) in CHAIN16_EDGES:
+        ml = rng.randint(0, t + 1, b).astype(np.int32)
+        ml[0], ml[-1] = 0, t
+        plan = bk.device_chain_plan(dev, b, t, h)
+        plans = [("plan", plan)]
+        other = chain_other(dev, b, t, h)
+        if not plan.C and other is not None:
+            plans.append(("cluster plan", other))
+        for _, p in plans:
+            if p.C:
+                n = bk._kernel("clstm_bidi_lstm_bwd_chain16_smem")(
+                    h, p.C, p.rows, p.units, p.ksplit)
+                if n != p.smem:
+                    raise AssertionError(f"chain plan {p}: the C side "
+                                         f"counts {n} bytes")
+        for lname, L in (("mixed", torch.from_numpy(ml).to(dev)),
+                         ("all 0", torch.zeros(b, dtype=torch.int32,
+                                               device=dev)),
+                         ("none", None)):
+            g, c, gy, wh = chain_inputs(rng, b, t, h, L, dev)
+            Lr = (torch.full((b,), t, dtype=torch.int32, device=dev)
+                  if L is None else L)
+            with torch.no_grad():
+                ref = lstm_ops.bidi_lstm_bwd_chain_plain(g, c, gy, wh, L,
+                                                         xz_bf16=True)
+                r = lstm_ops.bidi_lstm_bwd_chain_plain(g, c, gy, wh.double(),
+                                                       L, xz_bf16=True)
+            for which, p in plans:
+                label = f"B={b} T={t} H={h} lengths={lname} {which}"
+
+                def run():
+                    if which == "plan":
+                        return (bidi_lstm_bwd_chain(g, c, gy, wh, L,
+                                                    xz_bf16=True),)
+                    return (bk._chain(p, g, c, gy, wh, L, True),)
+                d, e = check_streams(f"K2 chain bf16 {label}", run(), run(),
+                                     Lr, (BF16_ULP,), (ref,), (r,))
+                out[label] = d[0]
+                log(f"[chain16] {label}: {chain_plan_line(p)}; float64 "
+                    f"distance kernel/plain {d[0][0]:.2e}/{d[0][1]:.2e}, "
+                    f"max|kernel - plain| {e:.2e}; padded frames exactly 0, "
+                    "two calls bitwise equal")
+    return out
+
+
+def chain16_turns(dev, card: str, k2_against=None, reps=None) -> dict:
+    """K2's bf16 chain at CHAIN16_SHAPES: the plan's kernel in turns with
+    the branch it did not take (chain_other: the L2 branch of this build,
+    WhT read from L2 or shared memory at every step, beside a cluster
+    plan; the cluster plan beside the L2 branch) and, with --k2-against, with that build's bf16 chain (outputs
+    within 2e-2 of max|old|: a flip of a bf16 rounding carries down the
+    chain). Returns {label: row} with the plan, the times and the bound at
+    this run's valid frames."""
+    out = {}
+    for label, b, t, h in CHAIN16_SHAPES:
+        rng = np.random.RandomState(8)
+        L = (torch.full((b,), TRUE_T, dtype=torch.int32, device=dev)
+             if t == T else torch.from_numpy(
+                 rng.randint(11, t + 1, b).astype(np.int32)).to(dev))
+        g, c, gy, wh = chain_inputs(rng, b, t, h, L, dev)
+        plan = bk.device_chain_plan(dev, b, t, h)
+        other = chain_other(dev, b, t, h)
+        n = reps or (20 if t < T else 5)
+
+        def cur():
+            return bidi_lstm_bwd_chain(g, c, gy, wh, L, xz_bf16=True)
+
+        def alt():
+            return bk._chain(other, g, c, gy, wh, L, True)
+        e = rel_err(alt().float(), cur().float())
+        if not e <= 2e-2:
+            raise AssertionError(f"K2 chain bf16 {label}: the other branch "
+                                 f"is {e:.3e} of max|dz| off")
+        k_t, a_t = in_turns(cur, alt, n)
+        row = {"plan": plan._asdict(), "ms": k_t,
+               "other_branch": {"plan": other._asdict(), "ms": a_t},
+               "bound": lstm_bound("chain", b, t, 0, h, int(L.sum()),
+                                   esize=2),
+               "enqueue_ms": enqueue_ms(cur, n)}
+        if k2_against and k2_against[3]:
+            row["k2_against"] = against_turns(
+                f"K2 chain bf16 {label}",
+                lambda: k2_against[3](g, c, gy, wh, L), cur, n, card,
+                tol=2e-2)
+        log(f"[timing] {card} | K2 chain bf16 {label} B={b} T={t} H={h}: "
+            f"plan {chain_plan_line(plan)}; in turns plan {k_t[0]:.4f}, "
+            f"{chain_plan_line(other)} {a_t[0]:.4f}, {a_t[1]:.4f}, plan "
+            f"{k_t[1]:.4f} ms; enqueue {row['enqueue_ms']:.4f} ms; bound "
+            f"{row['bound'][0]:.4f} ms ({row['bound'][1]})")
+        out[label] = row
+        del g, c, gy, wh
+    return out
+
+
 @contextlib.contextmanager
 def k2_against_reduce(k2_against):
-    """Inside the block, the training step's K2 reduction in the bf16 mode
-    is the --k2-against build's (bidi_lstm_bwd_reduce swapped in the
-    wrapper's module, which the backward looks it up in)."""
-    saved = bk.bidi_lstm_bwd_reduce
+    """Inside the block, the training step's K2 in the bf16 mode is the
+    --k2-against build's: its reduction, and its chain where it has a bf16
+    one (bidi_lstm_bwd_reduce and bidi_lstm_bwd_chain swapped in the
+    wrapper's module, which the backward looks them up in)."""
+    saved, saved_chain = bk.bidi_lstm_bwd_reduce, bk.bidi_lstm_bwd_chain
 
     def reduce(x, y, dz, Wx2, need_dx=True, xz_bf16=False):
         if not xz_bf16:
             return saved(x, y, dz, Wx2, need_dx)
         return k2_against[2](x, y, dz, Wx2.detach(), need_dx)
-    bk.bidi_lstm_bwd_reduce = reduce
+
+    def chain(gates, cell, gy, Wh2, lengths=None, xz_bf16=False):
+        if not xz_bf16 or k2_against[3] is None:
+            return saved_chain(gates, cell, gy, Wh2, lengths, xz_bf16)
+        return k2_against[3](gates, cell, gy, Wh2.detach(), lengths)
+    bk.bidi_lstm_bwd_reduce, bk.bidi_lstm_bwd_chain = reduce, chain
     try:
         yield
     finally:
-        bk.bidi_lstm_bwd_reduce = saved
+        bk.bidi_lstm_bwd_reduce, bk.bidi_lstm_bwd_chain = saved, saved_chain
 
 
 def k2_step_turns(tocr, batch, k2_against, reps: int, label: str,
                   card: str) -> dict:
-    """train_batch in the bf16 mode with K2's bf16 reduction taken from the
-    --k2-against build and with the current one, timed in turns (against,
+    """train_batch in the bf16 mode with K2's bf16 reduction and chain
+    taken from the --k2-against build and with the current ones, timed in
+    turns (against,
     current, current, against) on the host clock; the model's precision is
     restored. Logs and returns {"against_ms": [..], "ms": [..]}."""
     saved_mode = tocr.xz_bf16
@@ -2925,7 +3127,8 @@ def k2_step_turns(tocr, batch, k2_against, reps: int, label: str,
     finally:
         tocr.xz_bf16 = saved_mode
     log(f"[against] {card} | {label} bf16 train_batch in turns (against's "
-        f"K2 reduction, current, current, against's): {o1:.3f}, {n1:.3f}, "
+        f"K2 bf16 reduction and chain, current, current, against's): "
+        f"{o1:.3f}, {n1:.3f}, "
         f"{n2:.3f}, {o2:.3f} ms/step")
     return {"against_ms": [o1, o2], "ms": [n1, n2]}
 
@@ -3596,8 +3799,8 @@ def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs,
                   else contextlib.nullcontext()):
                 k2_vs[which].append(one_pass(300 + i)[0])
         log(f"[against] {card} | clstmfiltertrain bf16 pass in turns "
-            f"(against's K2 reduction, current, current, against's): "
-            f"{k2_vs['against'][0]:.1f}, {k2_vs['current'][0]:.1f}, "
+            f"(against's K2 bf16 reduction and chain, current, current, "
+            f"against's): {k2_vs['against'][0]:.1f}, {k2_vs['current'][0]:.1f}, "
             f"{k2_vs['current'][1]:.1f}, {k2_vs['against'][1]:.1f} pairs/s")
     model.xz_bf16 = None
     rates.sort()
@@ -4181,8 +4384,11 @@ LSTM_COUNTED = ("bidi_lstm_infer", "bidi_lstm_fwd_state",
 # The symbols utils/profiling.trace must name in a default bidi step's
 # trace: K1, K2's chain and reduction (bf16 or f32), K5, K6.
 # The kernels a traced default step must name: K1, K2's chain and its dW
-# kernel (of the card's default precision), K5, K6.
-TRACE_SYMBOLS = ("bidi_lstm_fwd_kernel", "bwd_chain_kernel",
+# kernel (of the card's default precision: the bf16 chain runs on clusters
+# at bidi's width), K5, K6.
+TRACE_SYMBOLS = ("bidi_lstm_fwd_kernel",
+                 "bwd_chain16_kernel" if CARD_DEFAULT_BF16 else
+                 "bwd_chain_kernel",
                  "bwd_dw_bf16_kernel" if CARD_DEFAULT_BF16 else
                  "bwd_dw_partial", "ctc_forward_kernel", "ctc_both_kernel")
 THROUGHPUT_RTOL = 0.1
@@ -5924,6 +6130,13 @@ def main(argv=None) -> int:
     # K2's bf16 reduction at its four shapes, in turns with the einsums
     # and, with --k2-against, with that build's.
     k2_16 = k2_bf16_turns(dev, card, k2_against)
+    # K2's bf16 chain across its plan's edges, then at its three shapes in
+    # turns with the branch its plan did not take and, with --k2-against,
+    # that build's chain.
+    t18 = time.perf_counter()
+    chain_edges = chain16_edges(dev)
+    chain_16 = chain16_turns(dev, card, k2_against)
+    log(f"[chain16] edges and turns in {time.perf_counter() - t18:.1f} s")
 
     # 20. The learning check of the bf16 mode against f32 on the glyph
     # corpus: it decides the card's default precision.
@@ -6235,6 +6448,12 @@ def main(argv=None) -> int:
     extra["bidi_lstm_bwd_reduce bf16 (K2)"]["f64_rel"] = {
         k: b16["dist"][k] for k in ("K2 dW", "K2 dx") if k in b16["dist"]}
     extra["bidi_lstm_bwd_reduce bf16 (K2)"]["shapes"] = k2_16
+    # The bf16 chain's plan (chain_plan) at the bench shape, its times at
+    # its three shapes in turns with the branch its plan did not take (and
+    # --k2-against's chain), and how many edge cases it passed.
+    extra["bidi_lstm_bwd_chain bf16 (K2)"].update(
+        plan=chain_16["bidi"]["plan"], shapes=chain_16,
+        edge_cases_passed=len(chain_edges))
     if k2_steps or "k2_against_pairs_per_s" in ftrain:
         extra["bidi_lstm_bwd_reduce bf16 (K2)"]["k2_against_steps"] = dict(
             k2_steps, clstmfiltertrain_pairs_per_s=ftrain.get(

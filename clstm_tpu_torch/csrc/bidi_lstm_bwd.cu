@@ -85,12 +85,68 @@
 //   bitwise the same from call to call.
 //
 // The bf16 mode (the JAX package's xz_bf16=True, pallas_lstm.py L385-463):
-//   - chain (clstm_bidi_lstm_bwd_chain_bf16): cell, gy, WhT and dz are bf16,
-//     the gates f32 (as K1 stores them in both modes); the math and the Dh
-//     and Dc carries stay f32; dz is rounded to bf16 where it is stored and
-//     where it enters Dh = dz·Whᵀ (the shared dz buffer holds the rounded
-//     values in f32). WhT takes half the bytes, so it stays in shared memory
-//     to H ~ 140 and is half the L2 reads past that.
+//   - chain: cell, gy, Wh and dz are bf16, the gates f32 (as K1 stores them
+//     in both modes); the math and the Dh and Dc carries stay f32; dz is
+//     rounded to bf16 where it is stored and where it enters Dh = dz·Whᵀ,
+//     a bf16·bf16 product summed in f32 (pallas_lstm.py L414, L425).
+//     What bounds it: the latency of a serial step, not bytes or flops
+//     (bound 0.44-0.88 ms at the bench shapes, the chain 3-10 ms). The
+//     chain above, instantiated for bf16, read WhT from L2 at every
+//     step at H=200 (320 KB a block a step) and ran Dh on the FMA pipes.
+//     Here (clstm_bidi_lstm_bwd_chain16, bwd_chain16_kernel) Wh is resident
+//     across a thread-block cluster and Dh runs on the bf16 tensor cores:
+//       - one direction's chain for a group of R = 16 (or 32) rows runs on
+//         a cluster of C CTAs; CTA c owns U units (a multiple of 4 where H
+//         is) with their four gate columns, so its gate math, Dc carry and
+//         dz stores stay local, and loads its slice of Wh into shared memory
+//         once, before the chain;
+//       - phase A: a thread takes a quad of 4 units of one row (16- and
+//         8-byte accesses of every stream), its inputs loaded a step ahead
+//         into registers (and into L2 two steps ahead by prefetch);
+//       - Dh = dz·Whᵀ on mma.sync m16n8k16 (bf16, f32 accumulators,
+//         ldmatrix fragments; operands zero-padded to k16 and n8; rows of
+//         both operands K + 8 elements apart, so an ldmatrix reads 8
+//         distinct bank groups); a warp takes a group of n tiles (sharing
+//         each A fragment) over one of ks k ranges; even and odd k tiles
+//         accumulate apart from zero and are added in f32;
+//       - the hand-off, one split cluster barrier a step (buffers by step
+//         parity), a reduce-scatter of partial Dh: each CTA multiplies its
+//         own dz columns by its rows of Whᵀ into a local stage, then sends
+//         each peer the slice of its units, its k ranges summed in order,
+//         in 16-byte chunks through mapa + st.shared::cluster; phase A
+//         sums the C partials of its units in CTA order;
+//       - the next step's loads start after the hand-off, just before
+//         the arrive, so that they run while the peers reach the barrier;
+//       - the plan (C, R, U, ks) comes from
+//         ops/bidi_lstm_kernel.py::chain_plan: one wave of clusters from
+//         cudaOccupancyMaxActiveClusters, then the least rows x units a
+//         CTA; at B=256 that is C=3 (39 clusters of 3 fit an H100, 30 of
+//         4) with 16 rows. Where no cluster holds a slice (H of several
+//         hundred, 700, 2048), and where the chain above keeps WhT in
+//         shared memory and was the faster on the card (H <= 100 at 16-64
+//         frames, as the filter's buckets; H <= 80 at 16 frames or more),
+//         the plan's L2 branch runs the chain above, instantiated for bf16
+//         (clstm_bidi_lstm_bwd_chain_bf16).
+//     On the card (PERF.md §6), in turns with that L2 kernel: 4.1
+//     against 10.3 ms at H=200, 2.84 against 3.09 at H=100. A step is then
+//     ~7,600 cycles at H=200, each phase a latency chain of its own, run
+//     one after another: the product ~2,450, the staged hand-off ~1,600,
+//     phase A ~1,300, the barrier's arrive and wait ~1,300
+//     (scripts/torch_k2_chain_probe.py --phases).
+//     Tried and not kept (slower in turns, or on those phase clocks):
+//     writing each partial Dh straight from the accumulators into the
+//     peer's shared memory (scattered 4- and 8-byte stores; staging the
+//     tile and sending 16-byte chunks of whole rows was faster); one k
+//     tile's fragments loaded right before its MMA (asm volatile keeps the
+//     order, so each MMA waited for its load); a warp per n tile,
+//     re-reading A for each (~480 KB of shared-memory reads a step at
+//     H=200); one unit per thread with 4- and 2-byte accesses (~70 memory
+//     instructions a thread a step); the next step's loads started before
+//     the product; the all-gather hand-off (4-10% slower at every bench
+//     shape; an all-gather of dz, each CTA sending its dz block to every
+//     peer and multiplying all of dz by its columns of Whᵀ); C=2 (one wave,
+//     but 52 and 100 units a CTA), C=4 with 16 rows (two waves) or 32
+//     rows, C=1 and C=8.
 //   - reduction (clstm_bidi_lstm_bwd_reduce_bf16): x, h_prev (y) and dz are
 //     bf16, every product one bf16 pass with f32 accumulation, on wgmma
 //     (m64nNk16, N = 64, 128 or 200 by plan) fed by TMA through an mbarrier
@@ -1495,6 +1551,548 @@ int chain(const int32_t* lengths, const float* gates, const E* cell,
   return (int)e;
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 chain on a thread-block cluster (chain16)
+// ---------------------------------------------------------------------------
+
+// Rows of an m16 tile, threads of a CTA, and units of a row a thread takes
+// in phase A (a quad: one per thread, so rows x ceil(units / CH_Q) <=
+// CH_THREADS).
+constexpr int CH_M = 16;
+constexpr int CH_THREADS = 512;
+constexpr int CH_Q = 4;
+// Dynamic shared memory a CTA may use, less the static row lengths.
+constexpr int CH_SMEM_MAX = 232448 - 4 * 2 * CH_M;
+
+__host__ __device__ inline int up_to(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Where a CTA's operands live in its shared memory
+// (ops/bidi_lstm_kernel.py::chain_smem counts the same): B = its WhT rows
+// [N = H up to 8][K = 4U up to 16] (its dz columns g·U + u against every
+// unit), A = its dz [R][K], stage = its product's partials of ks k ranges
+// [ks][R][N] f32, part = the partial Dh its peers send it
+// [2 parities][C][R][U] f32.
+// Rows of A and B are K + 8 elements apart: an odd multiple of 16 bytes,
+// so the 8 rows an ldmatrix reads fall in 8 different bank groups.
+struct Geo16 {
+  int K, N, ld;
+  long long off_a, off_stage, off_part, bytes;
+};
+
+__host__ __device__ inline Geo16 geo16(int H, int C, int U, int R, int ks) {
+  Geo16 g;
+  g.K = up_to(4 * U, 16);
+  g.N = up_to(H, 8);
+  g.ld = g.K + 8;
+  const long long a = (long long)R * g.ld * 2;
+  const long long stage = (long long)ks * R * g.N * 4;
+  const long long part = 2LL * C * R * U * 4;
+  g.off_a = (long long)g.N * g.ld * 2;  // a multiple of 16
+  g.off_stage = g.off_a + a;
+  g.off_part = g.off_stage + stage;
+  g.bytes = g.off_part + part;
+  return g;
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `local` in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* local,
+                                              uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(local)), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+__device__ __forceinline__ void st_peer16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a·b, m16n8k16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// n tiles a warp multiplies by each A fragment it loads: A (dz) is read
+// from shared memory once per group of them, not once per n tile (the
+// product is bound by shared-memory reads: every weight is used for only
+// R rows a step). 4 with one m tile, 2 with two (registers).
+__host__ __device__ constexpr int ch_ng(int mt) { return 4 / mt; }
+
+// acc[j][m] = Σ over the k tiles [kt0, kt1) of A[m-th 16 rows][k tile] ·
+// B[n tile nt0 + j][k tile]ᵀ for j < nn (<= NG), A [MT·16][ld] and B
+// [N][ld] bf16 in shared memory, k contiguous. The fragments of two k tiles
+// are loaded first and then multiplied (asm volatile keeps the order as
+// written, so a load placed after an MMA would wait for it); even and odd
+// k tiles go to two accumulators, added in that order at the end.
+// acc[j][m][0..1]: row lane/4, columns 2(lane%4) and +1 of the tile;
+// [2..3]: row lane/4 + 8.
+template <int MT, int NG>
+__device__ __forceinline__ void dh_tiles(const bf16* A, const bf16* Bm,
+                                         int ld, int nt0, int nn, int kt0,
+                                         int kt1, float (&acc)[NG][MT][4]) {
+  const int lane = threadIdx.x & 31;
+  float c[2][NG][MT][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        c[p][j][m][0] = c[p][j][m][1] = c[p][j][m][2] = c[p][j][m][3] = 0.0f;
+  const uint32_t a0 = smem_addr(A + (lane & 15) * ld + (lane >> 4) * 8);
+  const uint32_t b0 =
+      smem_addr(Bm + (nt0 * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8);
+  const uint32_t nstep = 2 * 8 * ld, mstep = 2 * CH_M * ld;
+  int kt = kt0;
+  for (; kt + 2 <= kt1; kt += 2) {
+    uint32_t a[2][MT][4], b[2][NG][2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        ldsm_x4(a0 + m * mstep + 32 * (kt + p), a[p][m]);
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+        if (j < nn) ldsm_x2(b0 + j * nstep + 32 * (kt + p), b[p][j]);
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+        if (j < nn)
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_bf16(c[p][j][m], a[p][m], b[p][j]);
+  }
+  if (kt < kt1) {
+    uint32_t a[MT][4], b[NG][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) ldsm_x4(a0 + m * mstep + 32 * kt, a[m]);
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      if (j < nn) ldsm_x2(b0 + j * nstep + 32 * kt, b[j]);
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      if (j < nn)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma_bf16(c[0][j][m], a[m], b[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < NG; ++j)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][m][i] = c[0][j][m][i] + c[1][j][m][i];
+}
+
+// One direction's chain for a group of R = 16·MT rows on a cluster of C
+// CTAs (grid: C · row groups along x, 2 directions along y). CTA c owns
+// units [c·U, c·U + nu) with their four gate columns. VEC: H and U are
+// multiples of 4, so every quad of units is whole and aligned for vector
+// accesses (the instance without the scalar paths is ~30% shorter, and the
+// step's code stays in the instruction caches). wh: Wh [2][H][4H] in bf16
+// (the B operand is Wh itself: Dh = dz·Whᵀ).
+template <int MT, bool VEC>
+__global__ void __launch_bounds__(CH_THREADS, 1)
+    bwd_chain16_kernel(const int32_t* __restrict__ lengths,
+                       const float* __restrict__ gates,
+                       const bf16* __restrict__ cell,
+                       const bf16* __restrict__ gy,
+                       const bf16* __restrict__ wh, bf16* __restrict__ dz,
+                       int B, int T, int H, int U, int ks) {
+  constexpr int R = CH_M * MT;
+  extern __shared__ __align__(128) unsigned char smc[];
+  __shared__ int lens[2 * CH_M];
+  const int C = (int)cluster_size();
+  const int crank = (int)cluster_rank();
+  const int dir = blockIdx.y;
+  const int b0 = (blockIdx.x / C) * R;
+  const int k0 = crank * U;
+  const int nu = max(0, min(U, H - k0));
+  const int G = 4 * H;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, nwarp = nt >> 5, lane = tid & 31;
+  const Geo16 geo = geo16(H, C, U, R, ks);
+  const int ld = geo.ld, K = geo.K, N = geo.N;
+  bf16* Bs = reinterpret_cast<bf16*>(smc);
+  bf16* As = reinterpret_cast<bf16*>(smc + geo.off_a);
+  float* stage = reinterpret_cast<float*>(smc + geo.off_stage);
+  float* part = reinterpret_cast<float*>(smc + geo.off_part);
+  wh += (size_t)dir * H * G;
+
+  if (tid < R) {
+    const int b = b0 + tid;
+    int L = 0;
+    if (b < B) L = lengths ? lengths[b] : T;
+    lens[tid] = min(max(L, 0), T);
+  }
+  // The B slice, zero where no unit or dz column is: loaded once.
+  for (int i = tid; i < N * K; i += nt) {
+    const int n = i / K, j = i - n * K;
+    const int g = j / U, u = j - g * U;
+    bf16 v = from_f<bf16>(0.0f);
+    if (n < H && g < 4 && u < nu) v = wh[(size_t)n * G + g * H + k0 + u];
+    Bs[(size_t)n * ld + j] = v;
+  }
+  for (int i = tid; i < R * ld; i += nt) As[i] = from_f<bf16>(0.0f);
+  for (int i = tid; i < 2 * C * R * U; i += nt) part[i] = 0.0f;
+  __syncthreads();
+  int lmax = 0;
+  for (int r = 0; r < R; ++r) lmax = max(lmax, lens[r]);
+
+  // Padded frames of this CTA's units: dz exactly 0.
+  for (int r = 0; r < R && b0 + r < B; ++r) {
+    const int L = lens[r];
+    for (int i = tid; i < (T - L) * 4 * nu; i += nt) {
+      const int t = L + i / (4 * nu), q = i % (4 * nu);
+      const int g = q / nu, u = q - g * nu;
+      dz[(((size_t)(b0 + r) * T + t) * 2 + dir) * G + g * H + k0 + u] =
+          from_f<bf16>(0.0f);
+    }
+  }
+  // Every CTA of the cluster has initialised its buffers before any peer
+  // writes into them.
+  cluster_arrive();
+  cluster_wait();
+
+  // Phase A's item: thread tid takes the quad of units [u0, u0 + 4) of row
+  // ir (those below nu), with the step's inputs in registers (loaded a step
+  // ahead) and the Dc carry. With VEC every quad is whole and 16-byte (f32)
+  // or 8-byte (bf16) aligned in every stream, and is read and written by
+  // one vector access each.
+  const int nq = (nu + CH_Q - 1) / CH_Q;
+  const bool has = tid < R * nq;
+  constexpr bool vec = VEC;
+  const int ir = has ? tid / nq : 0;
+  const int u0 = has ? CH_Q * (tid - ir * nq) : 0;
+  const int iL = has ? lens[ir] : 0;
+  float in[7][CH_Q], Dc[CH_Q];
+#pragma unroll
+  for (int e = 0; e < CH_Q; ++e) Dc[e] = 0.0f;
+  // The frame of chain step s of the row (valid where s < its length):
+  // gi, gf, go, ci, c, c_prev and gy are read there.
+  auto frame = [&](int s) {
+    const int t = dir == 0 ? s : iL - 1 - s;
+    return ((size_t)(b0 + ir) * T + t) * 2 + dir;
+  };
+  auto ld_bf4 = [&](float* v, const bf16* p) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    v[0] = lo_f(w.x), v[1] = hi_f(w.x), v[2] = lo_f(w.y), v[3] = hi_f(w.y);
+  };
+  auto load = [&](int s) {
+#pragma unroll
+    for (int q = 0; q < 7; ++q)
+#pragma unroll
+      for (int e = 0; e < CH_Q; ++e) in[q][e] = 0.0f;
+    if (s >= iL) return;
+    const size_t f = frame(s), fp = dir == 0 ? f - 2 : f + 2;
+    const int k = k0 + u0;
+    const size_t fy = (f >> 1) * 2 * H + dir * H + k;
+    if (vec) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            gates + f * G + g * H + k));
+        in[g][0] = v.x, in[g][1] = v.y, in[g][2] = v.z, in[g][3] = v.w;
+      }
+      ld_bf4(in[4], cell + f * H + k);
+      if (s > 0) ld_bf4(in[5], cell + fp * H + k);
+      ld_bf4(in[6], gy + fy);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CH_Q; ++e) {
+        if (u0 + e >= nu) break;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          in[g][e] = __ldg(gates + f * G + g * H + k + e);
+        in[4][e] = to_f(cell[f * H + k + e]);
+        if (s > 0) in[5][e] = to_f(cell[fp * H + k + e]);
+        in[6][e] = to_f(gy[fy + e]);
+      }
+    }
+  };
+  // The same reads of step s into L2, two steps ahead of their loads.
+  auto prefetch = [&](int s) {
+    if (s >= iL) return;
+    const size_t f = frame(s);
+    const int k = k0 + u0;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) prefetch_l2(gates + f * G + g * H + k);
+    prefetch_l2(cell + f * H + k);
+    prefetch_l2(gy + (f >> 1) * 2 * H + dir * H + k);
+  };
+  // The product's n tiles, their groups of NG (a warp's share), k tiles.
+  constexpr int NG = ch_ng(MT);
+  const int NT = N / 8, NG_T = (NT + NG - 1) / NG, KT = K / 16;
+
+  if (lmax > 0) load(lmax - 1);
+  if (lmax > 1) prefetch(lmax - 2);
+  for (int s = lmax - 1; s >= 0; --s) {
+    const int slot = s & 1;
+    if (s >= 2) prefetch(s - 2);
+    // Phase A: dh, dc, dz and the Dc carry of the quad where its row is
+    // active; Dh is the sum, in a fixed order, of the partials of step
+    // s + 1.
+    if (s < iL) {
+      float Dh[CH_Q] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (s < iL - 1) {
+        const float* p = part + ((size_t)((slot ^ 1) * C) * R + ir) * U + u0;
+        for (int c = 0; c < C; ++c, p += (size_t)R * U) {
+          if (vec) {
+            const float4 v = *reinterpret_cast<const float4*>(p);
+            Dh[0] += v.x, Dh[1] += v.y, Dh[2] += v.z, Dh[3] += v.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < CH_Q; ++e)
+              if (u0 + e < nu) Dh[e] += p[e];
+          }
+        }
+      }
+      // dz as stored and as Dh's operand: rounded to bf16.
+      bf16 d[4][CH_Q];
+#pragma unroll
+      for (int e = 0; e < CH_Q; ++e) {
+        const float gi = in[0][e], gf = in[1][e], go = in[2][e],
+                    ci = in[3][e], c = in[4][e], cp = in[5][e];
+        const float dh = in[6][e] + Dh[e];
+        const float tc = tanhf(c);
+        const float dc = Dc[e] + dh * go * (1.0f - tc * tc);
+        d[0][e] = from_f<bf16>(dc * ci * gi * (1.0f - gi));
+        d[1][e] = from_f<bf16>(dc * cp * gf * (1.0f - gf));
+        d[2][e] = from_f<bf16>(dh * tc * go * (1.0f - go));
+        d[3][e] = from_f<bf16>(dc * gi * (1.0f - ci * ci));
+        Dc[e] = dc * gf;
+      }
+      bf16* a = As + (size_t)ir * ld + u0;
+      bf16* out = dz + frame(s) * G + k0 + u0;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        if (vec) {
+          const uint2 w = make_uint2(pack2(d[g][0], d[g][1]),
+                                     pack2(d[g][2], d[g][3]));
+          *reinterpret_cast<uint2*>(a + g * U) = w;
+          *reinterpret_cast<uint2*>(out + (size_t)g * H) = w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < CH_Q; ++e)
+            if (u0 + e < nu) {
+              a[g * U + e] = d[g][e];
+              out[(size_t)g * H + e] = d[g][e];
+            }
+        }
+      }
+    }
+    if (s == 0) break;
+    __syncthreads();
+    // Partial Dh of this CTA's dz columns for every unit, each warp a group
+    // of NG n tiles over one of ks k ranges, into the stage.
+    for (int w = warp; w < NG_T * ks; w += nwarp) {
+      const int ng = w % NG_T, q = w / NG_T;
+      float acc[NG][MT][4];
+      dh_tiles<MT, NG>(As, Bs, ld, ng * NG, min(NG, NT - ng * NG),
+                       q * KT / ks, (q + 1) * KT / ks, acc);
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+        if (ng * NG + j < NT)
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const int r = m * CH_M + (lane >> 2) + 8 * h2;
+              const int n = (ng * NG + j) * 8 + 2 * (lane & 3);
+              *reinterpret_cast<float2*>(stage + ((size_t)q * R + r) * N +
+                                         n) =
+                  make_float2(acc[j][m][2 * h2], acc[j][m][2 * h2 + 1]);
+            }
+    }
+    __syncthreads();
+    // Each CTA q's slice [R, U_q] of the partial, its k ranges summed in
+    // order, into q's part[slot][crank]: 4 units a store (16 bytes, by
+    // distributed shared memory to a peer) where U is a multiple of 4,
+    // else 1.
+    const int w4 = vec ? CH_Q : 1;
+    const int per_row = U / w4, per = R * per_row;
+    for (int i = tid; i < C * per; i += nt) {
+      const int q = i / per, rem = i - q * per;
+      const int r = rem / per_row, u = (rem - r * per_row) * w4;
+      if (q * U + u >= H) continue;
+      const float* src = stage + (size_t)r * N + q * U + u;
+      float* dst = part + ((size_t)(slot * C + crank) * R + r) * U + u;
+      if (vec) {
+        float4 v = *reinterpret_cast<const float4*>(src);
+        for (int k = 1; k < ks; ++k) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(src + (size_t)k * R * N);
+          v.x += x.x, v.y += x.y, v.z += x.z, v.w += x.w;
+        }
+        if (q == crank)
+          *reinterpret_cast<float4*>(dst) = v;
+        else
+          st_peer16(peer_addr(dst, (uint32_t)q),
+                    make_uint4(__float_as_uint(v.x), __float_as_uint(v.y),
+                               __float_as_uint(v.z), __float_as_uint(v.w)));
+      } else {
+        float v = src[0];
+        for (int k = 1; k < ks; ++k) v += src[(size_t)k * R * N];
+        if (q == crank)
+          *dst = v;
+        else
+          st_peer(peer_addr(dst, (uint32_t)q), v);
+      }
+    }
+    // The next step's inputs (in L2 since the prefetch two steps ago),
+    // read while the peers reach the barrier.
+    load(s - 1);
+    cluster_arrive();
+    cluster_wait();
+  }
+  // No CTA leaves while a peer may still address its shared memory.
+  cluster_arrive();
+  cluster_wait();
+}
+
+// A chain16 plan (ops/bidi_lstm_kernel.py::chain_plan), checked: C in
+// {1, 2, 3, 4, 8} with every CTA owning at least one unit and all of them
+// together every unit, R 16 or 32 rows, a quad of units a thread, ks k
+// ranges from 1 to the k tiles, shared memory within a CTA's. Returns its
+// bytes of shared memory, 0 if it is not one.
+long long plan16(int H, int C, int R, int U, int ks) {
+  if (!(C >= 1 && C <= 4) && C != 8) return 0;
+  if (!(R == 16 || R == 32) ||
+      H < 1 || U < 1 || (long long)C * U < H || (long long)(C - 1) * U >= H ||
+      R * ((U + CH_Q - 1) / CH_Q) > CH_THREADS || ks < 1)
+    return 0;
+  const Geo16 g = geo16(H, C, U, R, ks);
+  if (ks > g.K / 16 || g.bytes > CH_SMEM_MAX)
+    return 0;
+  return g.bytes;
+}
+
+using Chain16 = void (*)(const int32_t*, const float*, const bf16*,
+                         const bf16*, const bf16*, bf16*, int, int, int, int,
+                         int);
+
+// The kernel instance of a plan, with its shared-memory limit set.
+cudaError_t chain16_of(int H, int R, int U, long long smem, Chain16* kern) {
+  static const Chain16 table[2][2] = {
+      {bwd_chain16_kernel<1, false>, bwd_chain16_kernel<1, true>},
+      {bwd_chain16_kernel<2, false>, bwd_chain16_kernel<2, true>}};
+  const bool vec = H % CH_Q == 0 && U % CH_Q == 0;
+  *kern = table[R / CH_M - 1][vec];
+  return cudaFuncSetAttribute(*kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// A launch of a plan: grid (C · row groups, 2 directions), clusters of C
+// CTAs along x.
+struct Config16 {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  Config16(int C, unsigned gridx, long long smem, cudaStream_t st) : cfg() {
+    cfg.gridDim = dim3(gridx, 2, 1);
+    cfg.blockDim = dim3(CH_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The bf16 chain on clusters at a plan: the plan's kernel instance, then
+// the launch.
+int chain16(const int32_t* lengths, const float* gates, const bf16* cell,
+            const bf16* gy, const bf16* wh, bf16* dz, int B, int T, int H,
+            int C, int R, int U, int ks, void* stream) {
+  const long long smem = plan16(H, C, R, U, ks);
+  if (B < 1 || T < 1 || smem == 0) return (int)cudaErrorInvalidValue;
+  // The quads' vector accesses (H and U multiples of 4).
+  if (!aligned16(gates) || ((uintptr_t)cell & 7) || ((uintptr_t)gy & 7) ||
+      ((uintptr_t)dz & 7))
+    return (int)cudaErrorMisalignedAddress;
+  Chain16 kern;
+  cudaError_t e = chain16_of(H, R, U, smem, &kern);
+  if (e != cudaSuccess) return (int)e;
+  Config16 c(C, (unsigned)(C * ((B + R - 1) / R)), smem,
+             (cudaStream_t)stream);
+  e = cudaLaunchKernelEx(&c.cfg, kern, lengths, gates, cell, gy, wh, dz, B,
+                         T, H, U, ks);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Clusters of a plan the current device holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+int clusters16(int H, int C, int R, int U, int ks) {
+  const long long smem = plan16(H, C, R, U, ks);
+  if (smem == 0) return -(int)cudaErrorInvalidValue;
+  Chain16 kern;
+  cudaError_t e = chain16_of(H, R, U, smem, &kern);
+  if (e != cudaSuccess) return -(int)e;
+  Config16 c(C, (unsigned)C, smem, nullptr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kern, &c.cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 // Frame ranges of the dW sum: enough blocks for ~8 per SM on 132 SMs, at
 // least 2,048 frames per range, at most 64 ranges.
 constexpr int FILL_BLOCKS = 8 * 132;
@@ -1699,6 +2297,36 @@ extern "C" int clstm_bidi_lstm_bwd_chain_bf16(const int32_t* lengths,
                                               const bf16* whT, bf16* dz, int B,
                                               int T, int H, void* stream) {
   return chain<bf16>(lengths, gates, cell, gy, whT, dz, B, T, H, stream);
+}
+
+// The bf16 chain on a thread-block cluster at the plan of
+// ops/bidi_lstm_kernel.py::chain_plan: C CTAs a cluster, R rows a cluster
+// (16 or 32), U units a CTA and the product's ks k ranges. wh is
+// Wh [2, H, 4H] in bf16, cell, gy and dz bf16 (8-byte aligned), the gates
+// f32 (16-byte aligned; cudaErrorMisalignedAddress otherwise). A plan the
+// kernel cannot take returns cudaErrorInvalidValue.
+extern "C" int clstm_bidi_lstm_bwd_chain16(const int32_t* lengths,
+                                           const float* gates,
+                                           const bf16* cell, const bf16* gy,
+                                           const bf16* wh, bf16* dz, int B,
+                                           int T, int H, int C, int R, int U,
+                                           int ks, void* stream) {
+  return chain16(lengths, gates, cell, gy, wh, dz, B, T, H, C, R, U, ks,
+                 stream);
+}
+
+// Bytes of dynamic shared memory a CTA of a chain16 plan takes (0: not a
+// plan the kernel takes).
+extern "C" long long clstm_bidi_lstm_bwd_chain16_smem(int H, int C, int R,
+                                                      int U, int ks) {
+  return plan16(H, C, R, U, ks);
+}
+
+// Clusters of a chain16 plan the current device holds at once, or minus a
+// CUDA error.
+extern "C" int clstm_bidi_lstm_bwd_chain16_clusters(int H, int C, int R,
+                                                    int U, int ks) {
+  return clusters16(H, C, R, U, ks);
 }
 
 // Floats of scratch the reduction takes: the dW partials, nsplit · 2 ·

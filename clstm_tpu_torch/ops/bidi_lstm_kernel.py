@@ -14,7 +14,10 @@
   fwd_plan              how those four split a layer over thread-block
                         clusters (device_plan: on this card);
   bidi_lstm_bwd_chain   K2's backward chain, replaces pallas_lstm.py::
-                        _bwd_kernel (L391-430);
+                        _bwd_kernel (L391-430); in the bf16 mode on
+                        thread-block clusters, Dh on bf16 tensor cores;
+  chain_plan            how the chain splits a call (device_chain_plan:
+                        on this card);
   bidi_lstm_bwd_reduce  K2's contractions dW, dWh and dx (the TPU kernel's
                         own body, L440-463), written by hand as well, on
                         the tensor cores in 3xTF32 (f32-accurate), and in
@@ -40,6 +43,7 @@ runs in f32 in their place.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple, Optional
@@ -78,10 +82,16 @@ _SIGNATURES = {
     # wx (f32), scratch, dw, dx; B, T, D, H and the plan (nw, tt, spr, nwd).
     "clstm_bidi_lstm_bwd_reduce_bf16": [_P, _I] + [_P] * 6 + [_I] * 8 + [_P],
     "clstm_bidi_lstm_bwd_bf16_scratch": [_I] * 6,
+    # The bf16 chain on clusters: lengths, gates, cell, gy, Wh (bf16), dz;
+    # B, T, H and the plan (C, rows, units, ksplit).
+    "clstm_bidi_lstm_bwd_chain16": [_P] * 6 + [_I] * 7 + [_P],
+    "clstm_bidi_lstm_bwd_chain16_smem": [_I] * 5,
+    "clstm_bidi_lstm_bwd_chain16_clusters": [_I] * 5,
 }
 # Entry points that return a 64-bit count instead of a CUDA error.
 _LONG = {"clstm_bidi_lstm_bwd_scratch", "clstm_bidi_lstm_fwd_smem",
-         "clstm_bidi_lstm_fwd_bf16_smem", "clstm_bidi_lstm_bwd_bf16_scratch"}
+         "clstm_bidi_lstm_fwd_bf16_smem", "clstm_bidi_lstm_bwd_bf16_scratch",
+         "clstm_bidi_lstm_bwd_chain16_smem"}
 _fns: dict = {}
 
 
@@ -231,7 +241,7 @@ FWD_L2_ROWS = 16
 # Clusters of C CTAs, one CTA per SM, that an H100 SXM holds at once
 # (cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3: the GPCs,
 # not the 132 SMs, set them). fwd_plan's default where no card is asked.
-H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 8: 15}
 
 
 class FwdPlan(NamedTuple):
@@ -534,6 +544,187 @@ def staged_x(x: torch.Tensor) -> torch.Tensor:
     return xp
 
 
+# K2's bf16 chain on thread-block clusters (csrc/bidi_lstm_bwd.cu:
+# bwd_chain16_kernel): rows of an m16 tile (a cluster takes one or two),
+# threads of a CTA, the units of a row a thread takes (a quad), and the
+# shared memory a CTA may use beside its row lengths.
+CHAIN_M = 16
+CHAIN_ROWS = (16, 32)
+CHAIN_THREADS = 512
+CHAIN_QUAD = 4
+CHAIN_SMEM_MAX = SMEM_MAX - 4 * 2 * CHAIN_M
+# Cluster sizes of the chain: with 16 rows a cluster, B=256 takes 32
+# clusters, which an H100 holds of 3 CTAs but not of 4 (H100_CLUSTERS).
+CHAIN_CLUSTER_SIZES = (1, 2, 3, 4, 8)
+# Where the L2 branch (which keeps WhT in a block's shared memory up to
+# H=143) beats a cluster plan on the card, at B=256 with a bucket's ragged
+# lengths (PERF.md §6; scripts/torch_k2_chain_probe.py --t-sweep): chains
+# of CHAIN_L2_MIN_T frames or more at H <= CHAIN_L2_LONG_H, and of up to
+# CHAIN_L2_MAX_T frames at H <= CHAIN_L2_SHORT_H (the filter's T=32,
+# H=100). Below CHAIN_L2_MIN_T frames a cluster plan wins at every width.
+CHAIN_L2_MIN_T = 16
+CHAIN_L2_MAX_T = 64
+CHAIN_L2_LONG_H = 80
+CHAIN_L2_SHORT_H = 100
+
+
+class ChainPlan(NamedTuple):
+    """How K2's chain runs a call. ``C`` 0: the L2 branch, the chain kernel
+    of the f32 mode instantiated for bf16 (csrc::bwd_chain_kernel, WhT read
+    from L2 at every step where it does not fit a block's shared memory),
+    taken where no cluster holds a slice of Wh (H of several hundred, 700,
+    2048), where it is the faster (chain_prefers_l2), and by the f32 mode
+    always. Otherwise each direction's chain for a group of
+    ``rows`` rows (16 or 32: one or two m16 tiles) runs on a cluster of C
+    CTAs; CTA c owns units [c·units, min(H, (c+1)·units)) with their four
+    gate columns and keeps its slice of Wh in shared memory for the whole
+    chain; Dh = dz·Whᵀ runs on bf16 mma.sync, each CTA multiplying its own
+    dz columns by its rows of Whᵀ, the k tiles split in ``ksplit`` ranges,
+    and sending each peer its units' slice of that partial
+    (reduce-scatter). ``smem``: bytes of shared memory a CTA takes;
+    ``groups`` row groups per direction; ``clusters``: how many clusters of
+    the plan the card holds at once (one wave when 2·groups <=
+    clusters)."""
+    C: int
+    rows: int
+    units: int
+    ksplit: int
+    smem: int
+    groups: int
+    clusters: int
+
+
+CHAIN_L2 = ChainPlan(0, 0, 0, 0, 0, 0, 0)
+
+
+def chain_geometry(H: int, C: int, rows: int, units: int,
+                   ksplit: int = 1) -> dict:
+    """The shared-memory layout of a chain16 CTA (csrc::geo16): K and N of
+    its product and the bytes of its operands. B = its rows of Whᵀ
+    [N = H up to 8][K + 8] bf16 (K = 4U up to 16, k contiguous), A its dz
+    [rows][K + 8], the stage its product's partials of ksplit k ranges
+    [ksplit][rows][N] f32, the partials its peers send it
+    [2][C][rows][U] f32."""
+    K, N = _up(4 * units, 16), _up(H, 8)
+    b, a = N * (K + 8) * 2, rows * (K + 8) * 2
+    stage, part = ksplit * rows * N * 4, 2 * C * rows * units * 4
+    return {"K": K, "N": N, "b": b, "a": a, "stage": stage, "part": part,
+            "bytes": b + a + stage + part}
+
+
+def chain_smem(H: int, C: int, rows: int, units: int, ksplit: int = 1) -> int:
+    """Bytes of dynamic shared memory a chain16 CTA takes, 0 where the
+    kernel takes no such plan (clstm_bidi_lstm_bwd_chain16_smem counts the
+    same): C in CHAIN_CLUSTER_SIZES with every CTA owning a unit, rows in
+    CHAIN_ROWS, a quad of units a thread (rows·ceil(units / CHAIN_QUAD)
+    within CHAIN_THREADS), ksplit from 1 to the k tiles, within
+    CHAIN_SMEM_MAX."""
+    if (C not in CHAIN_CLUSTER_SIZES or rows not in CHAIN_ROWS
+            or min(H, units) < 1
+            or C * units < H or (C - 1) * units >= H
+            or rows * -(-units // CHAIN_QUAD) > CHAIN_THREADS
+            or ksplit < 1):
+        return 0
+    g = chain_geometry(H, C, rows, units, ksplit)
+    if ksplit > g["K"] // 16 or g["bytes"] > CHAIN_SMEM_MAX:
+        return 0
+    return g["bytes"]
+
+
+def chain_ng(rows: int) -> int:
+    """n tiles a warp of the chain's product takes together, sharing each
+    A fragment it loads (csrc::ch_ng): 4 at 16 rows, 2 at 32."""
+    return 4 // (rows // CHAIN_M)
+
+
+def chain_ksplit(H: int, C: int, rows: int, units: int) -> int:
+    """The k ranges the product is split in: as many as leave no warp of
+    the CTA without a (group of chain_ng n tiles, k range) of it, at most
+    the k tiles, fewer where their partials do not fit."""
+    g = chain_geometry(H, C, rows, units)
+    groups = -(-(g["N"] // 8) // chain_ng(rows))
+    ks = max(1, min(g["K"] // 16, (CHAIN_THREADS // 32) // groups))
+    while ks > 1 and not chain_smem(H, C, rows, units, ks):
+        ks -= 1
+    return ks
+
+
+def chain_units(H: int, C: int) -> int:
+    """Units a CTA owns at cluster size C: ceil(H / C), rounded up to a
+    multiple of CHAIN_QUAD where H is one (then every quad of units is
+    whole and aligned for vector accesses; the last CTA owns the rest). 0
+    where that leaves a CTA without a unit."""
+    units = -(-H // C)
+    if H % CHAIN_QUAD == 0:
+        units = _up(units, CHAIN_QUAD)
+    return units if (C - 1) * units < H else 0
+
+
+def chain_prefers_l2(T: int, H: int) -> bool:
+    """Whether the bf16 chain of T frames and H units takes the L2 branch
+    although a cluster plan fits: where the L2 branch was the faster on
+    the card (CHAIN_L2_*)."""
+    return T >= CHAIN_L2_MIN_T and (
+        H <= CHAIN_L2_LONG_H
+        or (H <= CHAIN_L2_SHORT_H and T <= CHAIN_L2_MAX_T))
+
+
+def chain_cluster_plan(B: int, H: int, clusters=None,
+                       C: Optional[int] = None,
+                       rows: Optional[int] = None) -> ChainPlan:
+    """The bf16 chain's cluster plan for a batch of B rows and H units.
+
+    Of the cluster plans that fit (C in CHAIN_CLUSTER_SIZES, rows in
+    CHAIN_ROWS, chain_units, chain_smem), the one of fewest waves (2·groups
+    over the clusters the card holds at once), then of least work a CTA
+    and step (rows·units: its phase A items and its share of the product),
+    then the smaller C (fewer CTAs to hand Dh between), then fewer rows: at
+    B=256, H=100 and 200, C=3 with 16 rows (32 clusters of 3 in one wave
+    on an H100, which holds 39 of 3 and 30 of 4; in turns on the card it
+    beat every other plan, PERF.md §6). CHAIN_L2 where none fits.
+    ``clusters(C, rows, units, ksplit)`` gives how many clusters of a plan
+    the card holds at once: on a card the kernel's occupancy query
+    (``chain_clusters``), by default H100_CLUSTERS. ``C`` and ``rows``
+    force a choice, for measurements (scripts/torch_k2_chain_probe.py
+    times the plans in turns)."""
+    if min(B, H) < 1:
+        raise ValueError(f"no chain plan for B={B} H={H}")
+    if clusters is None:
+        def clusters(C, rows, units, ksplit):
+            return H100_CLUSTERS[C]
+    best, key = None, None
+    for c in CHAIN_CLUSTER_SIZES if C is None else (C,):
+        units = chain_units(H, c)
+        if not units:
+            continue
+        for r in CHAIN_ROWS if rows is None else (rows,):
+            ks = chain_ksplit(H, c, r, units)
+            smem = chain_smem(H, c, r, units, ks)
+            if not smem:
+                continue
+            groups = -(-B // r)
+            n = int(clusters(c, r, units, ks))
+            waves = -(-2 * groups // n)
+            k = (waves, r * units, c, r)
+            if key is None or k < key:
+                best = ChainPlan(c, r, units, ks, smem, groups, n)
+                key = k
+    return best or CHAIN_L2
+
+
+def chain_plan(B: int, T: int, H: int, es: int = 2,
+               clusters=None) -> ChainPlan:
+    """K2's chain plan for a batch of B rows of T frames and H units;
+    ``es`` the bytes of its streams (4: the f32 mode, which keeps the L2
+    kernel's own plan, csrc::choose_chain; 2: bf16, the cluster plan of
+    chain_cluster_plan unless chain_prefers_l2)."""
+    if min(B, T, H) < 1:
+        raise ValueError(f"no chain plan for B={B} T={T} H={H}")
+    if es != 2 or chain_prefers_l2(T, H):
+        return CHAIN_L2
+    return chain_cluster_plan(B, H, clusters)
+
+
 _active: dict = {}
 _plans: dict = {}
 
@@ -574,6 +765,39 @@ def device_plan(device, B: int, D: int, H: int, hoist: bool,
             p = fwd_plan(B, D, H, hoist, state,
                          card_clusters(_kernel, D, H, hoist, state, esize),
                          esize)
+        _plans[key] = p
+    return p
+
+
+def chain_clusters(device, H: int):
+    """``clusters`` for chain_plan on ``device``'s card at H units: the
+    chain16 kernel's occupancy query
+    (``clstm_bidi_lstm_bwd_chain16_clusters``), cached."""
+    def query(C, rows, units, ksplit):
+        k = ("chain16", device, H, C, rows, units, ksplit)
+        n = _active.get(k)
+        if n is None:
+            with (torch.cuda.device(device) if device.type == "cuda"
+                  else contextlib.nullcontext()):
+                n = _kernel("clstm_bidi_lstm_bwd_chain16_clusters")(
+                    H, C, rows, units, ksplit)
+            if n < 1:
+                raise RuntimeError(
+                    f"the card holds no cluster of {C} CTAs of the chain's "
+                    f"plan ({rows} rows, {units} units; the occupancy query "
+                    f"returned {n})")
+            _active[k] = n
+        return n
+    return query
+
+
+def device_chain_plan(device, B: int, T: int, H: int) -> ChainPlan:
+    """chain_plan of the bf16 chain on ``device``'s card, cached per
+    device and shape."""
+    key = ("chain", device, B, T, H)
+    p = _plans.get(key)
+    if p is None:
+        p = chain_plan(B, T, H, 2, chain_clusters(device, H))
         _plans[key] = p
     return p
 
@@ -699,7 +923,9 @@ def bidi_lstm_bwd_chain(gates: torch.Tensor, cell: torch.Tensor,
     [B, T, 2H] the cotangent of y, Wh2 [2, H, 4H] f32 -> dz [B, T, 2, 4H],
     exactly 0 on padded frames (see ops/lstm.py::bidi_lstm_bwd_chain_plain).
     The streams are f32; with ``xz_bf16`` cell, gy and dz are bf16 and the
-    gates stay f32 (Wh2 stays f32 and is rounded here).
+    gates stay f32 (Wh2 stays f32 and is rounded here). The kernel and its
+    plan come from ``device_chain_plan``: in the bf16 mode the chain on
+    thread-block clusters where a cluster holds Wh, else the L2 kernel.
     """
     if gates.dim() != 4:
         raise ValueError(f"gates must be [B, T, 2, 4H], got "
@@ -717,18 +943,41 @@ def bidi_lstm_bwd_chain(gates: torch.Tensor, cell: torch.Tensor,
     if dev.type == "cpu":
         return bidi_lstm_bwd_chain_plain(gates, cell, gy, Wh2, lengths,
                                          **_mode(xz_bf16))
-    dz = torch.empty((B, T, 2, G), dtype=dt, device=dev)
     if B == 0 or T == 0:
+        return torch.empty((B, T, 2, G), dtype=dt, device=dev)
+    plan = device_chain_plan(dev, B, T, H) if xz_bf16 else CHAIN_L2
+    dz = _chain(plan, gates, cell, gy, Wh2, lengths, xz_bf16)
+    bidi_lstm_bwd_chain.launches += 1
+    return dz
+
+
+def _chain(plan: ChainPlan, gates, cell, gy, Wh2, lengths,
+           xz_bf16: bool) -> torch.Tensor:
+    """One launch of K2's chain at ``plan`` on checked CUDA inputs (see
+    bidi_lstm_bwd_chain), uncounted: the wrapper counts its own launches,
+    and measurements launch a forced plan here."""
+    B, T, _, G = gates.shape
+    H = G // 4
+    dev = gates.device
+    dz = torch.empty((B, T, 2, G), dtype=_stream_dtype(xz_bf16), device=dev)
+    if plan.C:
+        # The bf16 chain on clusters: Wh itself is its product's B operand.
+        wh = Wh2.detach().to(torch.bfloat16).contiguous()
+        gates, cell, gy = _aligned(gates), _aligned(cell), _aligned(gy)
+        _launch("clstm_bidi_lstm_bwd_chain16", dev, _ptr(lengths),
+                gates.data_ptr(), cell.data_ptr(), gy.data_ptr(),
+                wh.data_ptr(), dz.data_ptr(), B, T, H, plan.C, plan.rows,
+                plan.units, plan.ksplit)
         return dz
-    # WhT [2, 4H, Hp]: Wh transposed, each row zero-padded to Hp units.
+    # The L2 branch. WhT [2, 4H, Hp]: Wh transposed, each row zero-padded
+    # to Hp units.
     hp = _kernel("clstm_bidi_lstm_bwd_hp")(H)
-    whT = torch.zeros((2, 4 * H, hp), dtype=dt, device=dev)
+    whT = torch.zeros((2, 4 * H, hp), dtype=dz.dtype, device=dev)
     whT[:, :, :H] = Wh2.detach().transpose(1, 2)
     gates = _aligned(gates)
     _launch("clstm_bidi_lstm_bwd_chain" + ("_bf16" if xz_bf16 else ""), dev,
             _ptr(lengths), gates.data_ptr(), cell.data_ptr(), gy.data_ptr(),
             whT.data_ptr(), dz.data_ptr(), B, T, H)
-    bidi_lstm_bwd_chain.launches += 1
     return dz
 
 
