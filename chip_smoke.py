@@ -131,7 +131,13 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      edges (CHAIN16_EDGES: H of 1 to 2048, B of 1 to 1024, T of 1 to 70,
      mixed, all-zero and no lengths, the plan and, beside the L2 branch
      where it is the faster, the cluster plan), each plan logged with the
-     kernel's own count of its shared memory;
+     kernel's own count of its shared memory; K1 and K4's state mode on
+     the bf16 tensor-core kernel (fwd16_plan) across its plan's edges
+     (FWD16_EDGES: H of 1 to 2048, B of 1 to 1024, T of 1 to 70, mixed,
+     all-zero and no lengths, the plan and, beside the FMA kernel where
+     fwd16_prefers_old, the fwd16 plan), each plan logged with the kernel's
+     own count of its shared memory, and the planted controls at bidi2's two
+     layer shapes (lengths 900 and mixed), where that kernel runs;
  19. each bf16 kernel timed in turns with its f32 mode at the bench shapes,
      and with its library call (cuDNN's nn.LSTM in bf16, the plain version's
      einsums on bf16 operands); train_batch in both modes in turns (11, 15);
@@ -139,7 +145,14 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      the einsums, with its plan, its bound and the host's enqueue time;
      K2's bf16 chain at its three shapes (CHAIN16_SHAPES) in turns with the
      branch its plan did not take (the L2 branch, the earlier bf16 chain,
-     or the cluster plan);
+     or the cluster plan); the fwd16 kernel at FWD16_SHAPES (bidi's K1,
+     bidi2's K1 and K4 state, the filter's K1 at T=16 and 32) in turns with
+     the FMA kernel's bf16 instance forced at its own plan and with cuDNN's
+     bf16 nn.LSTM forward with grad, with its bound (and in the log a serial
+     floor derived from an earlier run's cluster barrier); the bidi
+     and bidi2 bf16 train_batch steps in turns with K1 and K4 state on PR
+     5's kernel (phases 11 and 15), whose profiles must name the fwd16
+     kernel, and whose 5 bf16 steps (phases 9 and 15) must each launch it;
  20. the learning check, both modes from the same init on the same
      batches, at each init of LEARN_SEEDS: bidi at full width on a glyph
      corpus made in code (LEARN_*); f32 trains until its test CER is below
@@ -245,7 +258,9 @@ chain); where SRC has a bf16 chain (clstm_bidi_lstm_bwd_chain_bf16), so
 does K2's bf16 chain at its three shapes;
 with --fwd-against SRC, the same for the forward kernel at K3 and K1
 (bidi), K1 (bidi2 layer 1), K4 in both modes (bidi2 layer 2), and K3 with
-the projection inside at D=400 and D=255 (H=200, the L2 plan); with
+the projection inside at D=400 and D=255 (H=200, the L2 plan), and where
+SRC has the bf16 mode, its bf16 K1 and K4 state (its fwd16 kernel, or PR
+5's kernel in sources before it) at phase 19's FWD16_SHAPES; with
 --ctc-against SRC, the same for K5, K6 and K6b at the bench shape, and
 the bidi and bidi2 train_batch steps with that build's K5 and K6 in turns
 with the current ones.
@@ -960,10 +975,15 @@ def load_fwd_against(src: str) -> dict:
     with the same nvcc flags, to time in turns with the current one ->
     {"K3", "K1", "K4", "K4 state": a callable with the signature of
     bidi_lstm_infer, bidi_lstm_fwd_state, bidi_lstm_infer_xz,
-    bidi_lstm_fwd_state_xz}. SRC may have the current C interface (weights
-    interleaved by unit, a plan from fwd_plan with that library's own
-    occupancy query) or the earlier one (wx [2,D,4H], wh [2,H,4H] and
-    b [2,4H] as they are, no plan). No launch is counted."""
+    bidi_lstm_fwd_state_xz; and where SRC has the bf16 mode, "K3 bf16",
+    "K1 bf16", "K4 bf16", "K4 state bf16": the same in the bf16 mode}. SRC
+    may have the current C interface (weights interleaved by unit, a plan
+    from fwd_plan with that library's own occupancy query) or the earlier
+    one (wx [2,D,4H], wh [2,H,4H] and b [2,4H] as they are, no plan). Its
+    bf16 K1 and K4 state are its fwd16 kernel where it has one (at
+    fwd16_plan with its own occupancy query), else its bf16 instances of
+    the FMA kernel (sources from before the fwd16 kernel). No launch is
+    counted."""
     with tempfile.TemporaryDirectory() as tmp:
         so = os.path.join(tmp, "fwd_against.so")
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
@@ -1044,8 +1064,48 @@ def load_fwd_against(src: str) -> dict:
                  *[o.data_ptr() for o in out], *ints)
             return tuple(out) if state else y
         return run
-    return {"K3": run_x(False), "K1": run_x(True), "K4": run_xz(False),
-            "K4 state": run_xz(True)}
+    out = {"K3": run_x(False), "K1": run_x(True), "K4": run_xz(False),
+           "K4 state": run_xz(True)}
+    if not (current and hasattr(lib, "clstm_bidi_lstm_fwd_state_bf16")):
+        return out
+    has16 = hasattr(lib, "clstm_bidi_lstm_fwd16_state")
+    for name, ptrs in (("clstm_bidi_lstm_fwd_bf16", 5),
+                       ("clstm_bidi_lstm_fwd_state_bf16", 7),
+                       ("clstm_bidi_lstm_fwd_xz_bf16", 4),
+                       ("clstm_bidi_lstm_fwd_xz_state_bf16", 6)):
+        getattr(lib, name).argtypes = [P] * ptrs + [I] * (
+            7 if "_xz" in name else 8) + [P]
+    lib.clstm_bidi_lstm_fwd_bf16_clusters.argtypes = [I] * 8
+    if has16:
+        lib.clstm_bidi_lstm_fwd16_state.argtypes = [P] * 7 + [I] * 7 + [P]
+        lib.clstm_bidi_lstm_fwd16_xz_state.argtypes = [P] * 6 + [I] * 6 + [P]
+        lib.clstm_bidi_lstm_fwd16_clusters.argtypes = [I] * 6
+
+    def launch(name, device, *args):
+        call(name, *args)
+
+    def run16(kind):
+        hoist, state = "xz" in kind, kind.endswith("state")
+
+        def run(pf, pr, inp, lengths):
+            B_, T_ = inp.shape[:2]
+            H_ = pf["Wh"].shape[0]
+            D_ = 0 if hoist else inp.shape[-1] + inp.shape[-1] % 2
+            plan = bk.FWD16_NONE
+            if state and has16:
+                def q(C_, rows, units):
+                    return lib.clstm_bidi_lstm_fwd16_clusters(
+                        D_, H_, int(hoist), C_, rows, units)
+                plan = bk.fwd16_plan(B_, T_, D_, H_, hoist, q)
+            if not plan.C:
+                plan = bk.fwd_plan(B_, D_, H_, hoist, state, bk.card_clusters(
+                    lookup, D_, H_, hoist, state, 2), 2)
+            return bk._fwd(kind, plan, pf, pr, inp, lengths, True, launch)
+        return run
+    out.update({"K3 bf16": run16("fwd"), "K1 bf16": run16("fwd_state"),
+                "K4 bf16": run16("fwd_xz"),
+                "K4 state bf16": run16("fwd_xz_state")})
+    return out
 
 
 def load_ctc_against(src: str) -> dict:
@@ -1211,19 +1271,10 @@ def fwd_with_plan(state: bool, pf, pr, x, lengths, plan):
     """K3 (or K1 with ``state``) launched with the given plan (C, rows,
     units, resident) in place of the one fwd_plan picks, to time the plan's
     choice; not counted."""
-    B, T, D = x.shape
-    H = pf["Wh"].shape[0]
-    out = [torch.empty((B, T, 2 * H), device=x.device)]
-    if state:
-        out += [torch.empty((B, T, 2, 4 * H), device=x.device),
-                torch.empty((B, T, 2, H), device=x.device)]
-    wx, wh = bk.fwd_weights(pf, pr, True)
-    bk._launch("clstm_bidi_lstm_fwd_state" if state else
-               "clstm_bidi_lstm_fwd", x.device, x.data_ptr(),
-               0 if lengths is None else lengths.data_ptr(), wx.data_ptr(),
-               wh.data_ptr(), *(o.data_ptr() for o in out), B, T, D, H,
-               *plan)
-    return out
+    p = bk.FwdPlan(*plan, threads=0, smem=0, groups=0, clusters=0)
+    out = bk._fwd("fwd_state" if state else "fwd", p, pf, pr, x, lengths,
+                  False)
+    return list(out) if state else [out]
 
 
 def plan_turns(label: str, state: bool, pf, pr, x, lengths, alt,
@@ -1659,9 +1710,22 @@ COUNTED = (bidi_lstm_infer, bidi_lstm_fwd_state, bidi_lstm_infer_xz,
            ctc_forward, ctc_both, ctc_backward)
 
 
+# The wrappers whose bf16 launches may take the tensor-core kernel
+# (fwd16_plan): launches16 counts those.
+COUNTED16 = (bidi_lstm_fwd_state, bidi_lstm_fwd_state_xz)
+
+
 def reset_counts() -> None:
     for f in COUNTED:
         f.launches = 0
+    for f in COUNTED16:
+        f.launches16 = 0
+
+
+def counts16() -> dict:
+    """Of each COUNTED16 wrapper's launches since the reset, those of the
+    fwd16 kernel."""
+    return {f.__name__: f.launches16 for f in COUNTED16}
 
 
 def counts() -> dict:
@@ -2041,7 +2105,8 @@ def profile_steps(tocr, batch, card, fname, tag):
     """torch.profiler over 2 train_batch steps, after a warm-up step under
     the profiler (the second profiler run in one process lost its first
     kernel without it): the table goes to chiprun_out/``fname``; logs wall,
-    device busy share and the top device rows per step."""
+    device busy share and the top device rows per step. Returns {kernel:
+    device ms per step}."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     traced = []
@@ -2082,6 +2147,7 @@ def profile_steps(tocr, batch, card, fname, tag):
         "per step: " + "; ".join(f"{kernel_name(e.key)} "
                                  f"{device_us(e) / 2e3:.3f} ms"
                                  for e in top))
+    return {kernel_name(e.key): device_us(e) / 2e3 for e in kernels_rows}
 
 
 def check_u8(dev, rng) -> int:
@@ -3079,6 +3145,308 @@ def chain16_turns(dev, card: str, k2_against=None, reps=None) -> dict:
         out[label] = row
         del g, c, gy, wh
     return out
+
+
+# K1 and K4's state mode on the bf16 tensor-core kernel
+# (ops/bidi_lstm_kernel.py::fwd16_plan) across its plan's edges (B, T, D,
+# H; D 0: K4's state mode on the bf16 hoisted product): H of 1, 7 and 201
+# (not a multiple of 8 or of the cluster size), 24 and 64, 100 and 200 (the
+# bench widths), 209 (C=4 and two m16 tiles at B=384), 450 and 700 (K4 and
+# K1: no plan fits, the FMA kernel), 2048; B of 1, 3, 17, 33 (below and
+# across 16 rows a cluster), 256, 384, 512 and 1024 (the plans of larger
+# batches: C=2, C=1, 32 rows); T of 1 to 70; odd D (padded) and D+1 past
+# 128. Each with mixed lengths (a row of length 0 and one of T), all
+# lengths 0 and none, through the wrapper (its plan) and, where the plan is
+# the FMA kernel although a fwd16 plan fits (fwd16_prefers_old), also at
+# that plan.
+FWD16_EDGES = ((1, 5, 6, 1), (3, 1, 6, 7), (17, 9, 48, 100),
+               (33, 20, 5, 201), (256, 1, 0, 200), (256, 4, 48, 100),
+               (40, 12, 130, 64), (5, 70, 20, 64), (3, 7, 0, 201),
+               (17, 5, 48, 24), (384, 2, 48, 209), (512, 2, 48, 100),
+               (512, 2, 0, 200), (1024, 1, 48, 100), (1024, 2, 0, 200),
+               (17, 5, 0, 450), (4, 6, 6, 700), (1, 1, 4, 2048),
+               (3, 4, 0, 2048))
+# K1 and K4's state mode at the shapes the port's bf16 training runs them
+# at (label, B, T, D, H; D 0: K4's state mode on bidi2's layer 2, D=400):
+# bidi's, bidi2's two layers, and the filter path's two T buckets (D=19,
+# lengths as its buckets hold them).
+FWD16_SHAPES = (("bidi K1", B, T, D, H), ("bidi2 layer 1 K1", B, T, D, H2),
+                ("bidi2 layer 2 K4 state", B, T, 0, H2),
+                ("filter T=16 K1", B, 16, 19, H),
+                ("filter T=32 K1", B, 32, 19, H))
+# The cluster barrier's round trip at C=3, measured by
+# scripts/torch_k2_chain_probe.py in an earlier run (NVIDIA H100 80GB HBM3,
+# 700.00 W), not by this script: a chain of T steps on clusters cannot take
+# less than T of them. The serial floor derived from it is logged beside
+# bound_ms and kept out of the kernels line, which holds only this run's
+# measurements and bounds.
+BARRIER_US = 0.731
+
+
+def fwd16_plan_line(plan) -> str:
+    """A fwd16 plan as chip_smoke logs it."""
+    if not plan.C:
+        return "the FMA kernel (fwd_plan)"
+    return (", ".join(f"{k} {v}" for k, v in plan._asdict().items())
+            + ("; one wave" if 2 * plan.groups <= plan.clusters else
+               "; more than one wave"))
+
+
+def fwd16_smem_checked(dev, d: int, h: int, plan) -> None:
+    """Raise unless the kernel's own count of a fwd16 plan's shared memory
+    (clstm_bidi_lstm_fwd16_smem) is the plan's."""
+    if not plan.C:
+        return
+    hoist = d == 0
+    n = bk._kernel("clstm_bidi_lstm_fwd16_smem")(
+        0 if hoist else d + d % 2, h, int(hoist), plan.C, plan.rows,
+        plan.units)
+    if n != plan.smem:
+        raise AssertionError(f"fwd16 plan {plan}: the kernel counts {n} "
+                             f"bytes of shared memory")
+
+
+def fwd16_inputs(rng, b, t, d, h, dev):
+    """Seeded weights (uniform ±min(0.3, 3/sqrt(h))) and the kernel's input
+    at (b, t, d, h): x [b, t, d] uniform ±1 for K1, or for d 0 (K4's state
+    mode) the bf16 hoisted product of such an x of 8 columns ->
+    (pf, pr, inp, hoist)."""
+    sc = min(0.3, 3.0 / h ** 0.5)
+    dx = d or 8
+    pf, pr = lstm_params(rng, dx, h, dev, sc), lstm_params(rng, dx, h, dev,
+                                                           sc)
+    x = uniform(rng, (b, t, dx), -1.0, 1.0, dev)
+    if d:
+        return pf, pr, x, False
+    return pf, pr, lstm_ops.hoisted_projection(pf, pr, x, xz_bf16=True), True
+
+
+def fwd16_check(label, pf, pr, inp, hoist, L, plan=None):
+    """K1 (K4's state mode with ``hoist``) in the bf16 mode, through the
+    wrapper or, given ``plan``, launched at it (bk._fwd), against the plain
+    bf16 version and the float64 recipe: check_streams' rule, padded frames
+    exactly 0, two calls bitwise equal -> (distances, max|kernel - plain|)."""
+    kind = "fwd_xz_state" if hoist else "fwd_state"
+    plain_fn = (lstm_ops.bidi_lstm_fwd_state_xz_plain if hoist
+                else lstm_ops.bidi_lstm_fwd_state_plain)
+    wrapper = bidi_lstm_fwd_state_xz if hoist else bidi_lstm_fwd_state
+    b, t = inp.shape[:2]
+    Lr = (torch.full((b,), t, dtype=torch.int32, device=inp.device)
+          if L is None else L)
+    with torch.no_grad():
+        plain = plain_fn(pf, pr, inp, L, xz_bf16=True)
+        ref = plain_fn(d64(pf), d64(pr), inp, L, xz_bf16=True)
+
+        def run():
+            if plan is None:
+                return wrapper(pf, pr, inp, L, xz_bf16=True)
+            return bk._fwd(kind, plan, pf, pr, inp, L, True)
+        return check_streams(label, run(), run(), Lr, (BF16_ULP,) * 3,
+                             plain, ref)
+
+
+def fwd16_edges(dev) -> dict:
+    """K1 and K4's state mode in the bf16 mode at FWD16_EDGES (phase 18),
+    with mixed, all-zero and no lengths, through the wrapper and, where its
+    plan is the FMA kernel although a fwd16 plan fits, at that plan: the
+    bf16 rule, padded frames exactly 0, two calls bitwise equal; each plan
+    logged with the kernel's own count of its shared memory. Returns
+    {"dist": {label: distances}, "err": max|kernel - plain|}."""
+    rng = np.random.RandomState(23)
+    out, err = {}, 0.0
+    for (b, t, d, h) in FWD16_EDGES:
+        pf, pr, inp, hoist = fwd16_inputs(rng, b, t, d, h, dev)
+        dk = 0 if hoist else d + d % 2
+        plan = bk.device_fwd16_plan(dev, b, t, dk, h, hoist)
+        plans = [("plan", plan)]
+        if not plan.C:
+            other = bk.fwd16_cluster_plan(b, dk, h, hoist,
+                                          bk.fwd16_clusters(dev, dk, h,
+                                                            hoist))
+            if other.C:
+                plans.append(("fwd16 plan", other))
+        for _, p in plans:
+            fwd16_smem_checked(dev, d, h, p)
+        ml = rng.randint(0, t + 1, b).astype(np.int32)
+        ml[0], ml[-1] = 0, t
+        for lname, L in (("mixed", torch.from_numpy(ml).to(dev)),
+                         ("all 0", torch.zeros(b, dtype=torch.int32,
+                                               device=dev)),
+                         ("none", None)):
+            for which, p in plans:
+                label = (f"{'K4 state' if hoist else 'K1'} B={b} T={t} "
+                         f"D={d or '-'} H={h} lengths={lname} {which}")
+                dist, e = fwd16_check(f"bf16 {label}", pf, pr, inp, hoist,
+                                      L, None if which == "plan" else p)
+                out[label] = functools.reduce(dist_max, dist.values())
+                err = max(err, e)
+                log(f"[fwd16] {label}: {fwd16_plan_line(p)}; float64 "
+                    f"distance kernel/plain (the larger over y, gates, "
+                    f"cell) {out[label][0]:.2e}/{out[label][1]:.2e}, mean "
+                    f"{out[label][2]:.2e}/{out[label][3]:.2e}; max|kernel - "
+                    f"plain| {e:.2e}; padded frames exactly 0, two calls "
+                    "bitwise equal")
+    return {"dist": out, "err": err}
+
+
+def fwd16_bench_planted(dev) -> dict:
+    """The planted controls (planted_controls: the float64 recipe with h
+    left unrounded, or the bias kept f32, in the kernel's place) at bidi2's
+    two layer shapes, where the fwd16 kernel runs K1 and K4's state mode
+    (bidi's is phase 18's own): each must fail the bf16 rule, lengths 900
+    and mixed. Returns {shape: {fault: distances}}."""
+    rng = np.random.RandomState(29)
+    out = {}
+    for name, d in (("bidi2 layer 1", D), ("bidi2 layer 2", D2)):
+        pf, pr = lstm_params(rng, d, H2, dev, 0.1), lstm_params(rng, d, H2,
+                                                                dev, 0.1)
+        x = uniform(rng, (B, T, d), -1.0, 1.0, dev)
+        mixed = rng.randint(0, T + 1, B).astype(np.int32)
+        mixed[0], mixed[1] = 0, T
+        for lname, L in (("900", torch.full((B,), TRUE_T, dtype=torch.int32,
+                                             device=dev)),
+                         ("mixed", torch.from_numpy(mixed).to(dev))):
+            key = f"{name} lengths={lname}"
+            out[key] = planted_controls(pf, pr, x, L)
+            log(f"[fwd16] planted controls at {key} (B={B} T={T} D={d} "
+                f"H={H2}), max/plain max, mean/plain mean: " + ", ".join(
+                    f"{f} {v[0]:.2e}/{v[1]:.2e}, {v[2]:.2e}/{v[3]:.2e}"
+                    for f, v in out[key].items())
+                + f"; each fails the rule ({BF16_FACTOR:g}x plain)")
+        del x
+    return out
+
+
+def fwd16_lengths(rng, b: int, t: int, dev) -> torch.Tensor:
+    """Lengths of FWD16_SHAPES: TRUE_T at T=1024, else as a filter bucket
+    holds them (uniform in [ceil(t/3), t], the first row t)."""
+    if t == T:
+        return torch.full((b,), TRUE_T, dtype=torch.int32, device=dev)
+    ln = rng.randint(-(-t // 3), t + 1, b).astype(np.int32)
+    ln[0] = t
+    return torch.from_numpy(ln).to(dev)
+
+
+def fwd16_turns(dev, card: str, fwd_against=None, reps=None) -> dict:
+    """K1 and K4's state mode in the bf16 mode at FWD16_SHAPES (phase 19):
+    the fwd16 kernel (its plan, or its cluster plan where the plan is the FMA
+    kernel) in turns with the FMA kernel's bf16 instance forced at its own plan
+    (fwd_plan), both through bk._fwd, outputs within 2e-2 of max|old| (a
+    flip of a bf16 rounding carries down the chain); the library call,
+    cuDNN's bf16 nn.LSTM forward with grad enabled, in turns with the
+    fwd16 kernel; with --fwd-against, that build's bf16 kernel in turns
+    with the current one; the plain version's time, the bound at this
+    run's valid frames, and in the log the serial floor derived from an
+    earlier run's barrier round trip (steps x BARRIER_US); each fwd16 plan
+    logged with the kernel's own count of its shared memory.
+    Returns {label: row}."""
+    out = {}
+    for label, b, t, d, h in FWD16_SHAPES:
+        rng = np.random.RandomState(9)
+        hoist = d == 0
+        dx = D2 if hoist else d
+        sc = 0.3 if h == H else 0.1
+        pf, pr = lstm_params(rng, dx, h, dev, sc), lstm_params(rng, dx, h,
+                                                               dev, sc)
+        x = uniform(rng, (b, t, dx), -1.0 if hoist else 0.0, 1.0, dev)
+        L = fwd16_lengths(rng, b, t, dev)
+        inp = (lstm_ops.hoisted_projection(pf, pr, x, xz_bf16=True)
+               if hoist else x)
+        kind = "fwd_xz_state" if hoist else "fwd_state"
+        dk = 0 if hoist else d + d % 2
+        plan = bk.device_fwd16_plan(dev, b, t, dk, h, hoist)
+        new_plan = plan if plan.C else bk.fwd16_cluster_plan(
+            b, dk, h, hoist, bk.fwd16_clusters(dev, dk, h, hoist))
+        fwd16_smem_checked(dev, d, h, new_plan)
+        old_plan = bk.device_plan(dev, b, dk, h, hoist, True, 2)
+        n = reps or (20 if t < T else 5)
+
+        def new():
+            return bk._fwd(kind, new_plan, pf, pr, inp, L, True)
+
+        def old():
+            return bk._fwd(kind, old_plan, pf, pr, inp, L, True)
+        with torch.no_grad():
+            e = max(rel_err(u.float(), v.float())
+                    for u, v in zip(new(), old()))
+            if not e <= 2e-2:
+                raise AssertionError(f"fwd16 {label}: the FMA kernel is "
+                                     f"{e:.3e} of max off")
+            k_t, o_t = in_turns(new, old, n)
+            lstm16 = copy.deepcopy(cudnn_lstm(pf, pr, dev)).to(
+                torch.bfloat16)
+            px16 = packed(x.bfloat16(), L)
+            k_t2, lib = in_turns(new, cudnn_step(lstm16, px16, False)[0], n)
+            plain_fn = (lstm_ops.bidi_lstm_fwd_state_xz_plain if hoist
+                        else lstm_ops.bidi_lstm_fwd_state_plain)
+            plain_ms = time_ms(lambda: plain_fn(pf, pr, inp, L, xz_bf16=True),
+                               1 if t == T else 2)
+            del lstm16, px16
+        V = int(L.sum())
+        row = {"plan": plan._asdict(), "fwd16_plan": new_plan._asdict(),
+               "ms": k_t, "fma_ms": o_t, "fma_plan": old_plan._asdict(),
+               "library_ms": lib, "ms_beside_library": k_t2,
+               "plain_ms": plain_ms,
+               "bound": lstm_bound("xz_state" if hoist else "fwd_state", b,
+                                   t, dx, h, V, esize=2),
+               "enqueue_ms": enqueue_ms(new, n)}
+        if fwd_against and fwd_against.get("K4 state bf16" if hoist
+                                           else "K1 bf16"):
+            fa = fwd_against["K4 state bf16" if hoist else "K1 bf16"]
+            row["fwd_against"] = against_turns(
+                f"fwd16 {label}", lambda: fa(pf, pr, inp, L), new, n, card,
+                tol=2e-2)
+        log(f"[timing] {card} | bf16 {label} B={b} T={t} D={dx} H={h}: plan "
+            f"{fwd16_plan_line(plan)}; in turns fwd16 {k_t[0]:.4f}, FMA "
+            f"kernel (C={old_plan.C} rows={old_plan.rows}) {o_t[0]:.4f}, "
+            f"{o_t[1]:.4f}, fwd16 {k_t[1]:.4f} ms; cuDNN bf16 nn.LSTM fwd "
+            f"(grad) {lib[0]:.4f}, {lib[1]:.4f} in turns with fwd16 "
+            f"{k_t2[0]:.4f}, {k_t2[1]:.4f}; plain {plain_ms:.3f} ms; bound "
+            f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), serial floor "
+            f"{int(L.max()) * BARRIER_US / 1e3:.4f} ms (derived: "
+            f"{int(L.max())} steps x {BARRIER_US} us, the barrier round trip "
+            f"of scripts/torch_k2_chain_probe.py's earlier run); enqueue "
+            f"{row['enqueue_ms']:.4f} ms")
+        out[label] = row
+        del pf, pr, x, inp
+    return out
+
+
+@contextlib.contextmanager
+def fwd16_off():
+    """Inside the block the bf16 mode's K1 and K4's state mode take the FMA
+    kernel (device_fwd16_plan gives no plan), as they did before the
+    tensor-core kernel."""
+    saved = bk.device_fwd16_plan
+    bk.device_fwd16_plan = lambda *args: bk.FWD16_NONE
+    try:
+        yield
+    finally:
+        bk.device_fwd16_plan = saved
+
+
+def fwd16_step_turns(tocr, batch, reps: int, label: str, card: str) -> dict:
+    """train_batch in the bf16 mode with K1 and K4's state mode on the FMA
+    kernel (fwd16_off) and on the fwd16 kernel, timed in turns (FMA,
+    fwd16, fwd16, FMA) on the host clock; the model's precision is
+    restored. Logs and returns {"fma_ms": [..], "ms": [..]}."""
+    saved_mode = tocr.xz_bf16
+
+    def old():
+        with fwd16_off():
+            tocr.train_batch(batch)
+
+    def new():
+        tocr.train_batch(batch)
+    tocr.xz_bf16 = True
+    try:
+        o1, n1, n2, o2 = (host_ms(f, reps) for f in (old, new, new, old))
+    finally:
+        tocr.xz_bf16 = saved_mode
+    log(f"[timing] {card} | {label} bf16 train_batch in turns (K1/K4 state "
+        f"on the FMA kernel, fwd16, fwd16, FMA): {o1:.3f}, {n1:.3f}, "
+        f"{n2:.3f}, {o2:.3f} ms/step")
+    return {"fma_ms": [o1, o2], "ms": [n1, n2]}
 
 
 @contextlib.contextmanager
@@ -4377,16 +4745,17 @@ CD_STEPS = 3
 # the planted recipe with dWh summed in f32 over the steps must fail it.
 CD_RATIO = 0.1
 # Warm steps of each route timed in turns with the default kernel step.
-CD_TURNS = 4
+CD_TURNS = 2
 LSTM_COUNTED = ("bidi_lstm_infer", "bidi_lstm_fwd_state",
                 "bidi_lstm_infer_xz", "bidi_lstm_fwd_state_xz",
                 "bidi_lstm_bwd_chain", "bidi_lstm_bwd_reduce")
 # The symbols utils/profiling.trace must name in a default bidi step's
 # trace: K1, K2's chain and reduction (bf16 or f32), K5, K6.
 # The kernels a traced default step must name: K1, K2's chain and its dW
-# kernel (of the card's default precision: the bf16 chain runs on clusters
-# at bidi's width), K5, K6.
-TRACE_SYMBOLS = ("bidi_lstm_fwd_kernel",
+# kernel (of the card's default precision: the bf16 K1 runs on the tensor
+# cores and the bf16 chain on clusters at bidi's width and T), K5, K6.
+TRACE_SYMBOLS = ("fwd16_kernel" if CARD_DEFAULT_BF16 else
+                 "bidi_lstm_fwd_kernel",
                  "bwd_chain16_kernel" if CARD_DEFAULT_BF16 else
                  "bwd_chain_kernel",
                  "bwd_dw_bf16_kernel" if CARD_DEFAULT_BF16 else
@@ -5379,7 +5748,9 @@ def main(argv=None) -> int:
                     "(bidi_lstm_fwd.cu of this or the earlier C interface) "
                     "and time it in turns with the current one at the five "
                     "timed forward shapes (K3 and K1 at bidi, K1 at bidi2's "
-                    "first layer, K4 in both modes at its second)")
+                    "first layer, K4 in both modes at its second) and, where "
+                    "it has the bf16 mode, its bf16 K1 and K4 state at "
+                    "FWD16_SHAPES")
     ap.add_argument("--ctc-against", metavar="SRC",
                     help="also build this CTC DP source (ctc_dp.cu of this or "
                     "the earlier C interface) and time its K5, K6 and K6b in "
@@ -5390,6 +5761,15 @@ def main(argv=None) -> int:
                     "each decodes (a record, not a check)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def phase_mark(phases: str) -> None:
+        """Log the seconds phases took since the last mark (where a run's
+        time goes)."""
+        now = time.perf_counter()
+        log(f"[time] phases {phases}: {now - t_mark[0]:.1f} s (run "
+            f"{now - t_start:.1f} s)")
+        t_mark[0] = now
     # 1. Device.
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -5436,6 +5816,7 @@ def main(argv=None) -> int:
                                                  p["groups"] <= p["clusters"]
                                                  else "; more than one wave"))
 
+    phase_mark("1-2")
     # 3. Kernel against plain at the bench profile, then odd shapes.
     rng = np.random.RandomState(0)
     pf, pr = lstm_params(rng, D, H, dev), lstm_params(rng, D, H, dev)
@@ -5506,6 +5887,7 @@ def main(argv=None) -> int:
         f"lines/s); in turns K3 {k3_t[0]:.3f}, cuDNN nn.LSTM {k3_lib[0]:.3f},"
         f" {k3_lib[1]:.3f}, K3 {k3_t[1]:.3f} ms")
 
+    phase_mark("3-4")
     # 5. Main path: .clstm save/load, clstmocr's predict_pages and outputs.
     gen = torch.Generator().manual_seed(0)
     spec, net = make_net_init("bidi", {"ninput": D, "nhidden": H,
@@ -5604,13 +5986,14 @@ def main(argv=None) -> int:
         aligns[lt] = align_check(rng, 64, lt, torch.from_numpy(ll).to(dev),
                                  dev, alarm=False)
 
+    phase_mark("5-8")
     # 9. Training path at full width: 5 train_batch steps, kernels and plain.
     batch = bench_batch(np.random.RandomState(0), dev)
     # The card's default precision, then the other mode, from one start.
     tocr = CLSTMOCR(device="cuda")
     tocr.createBidi(codec, nhidden=H)
     tocr.setLearningRate(1e-4, 0.9)
-    train_by_mode = {}
+    train_by_mode, fwd16_by_mode = {}, {}
     for mode in (None, not default_bf16):
         plain = TrainState.create(make_net_init(
             "bidi", {"ninput": D, "nhidden": H, "noutput": C},
@@ -5627,6 +6010,12 @@ def main(argv=None) -> int:
                 p.copy_(q)
         got = train_against_plain(kocr, plain, batch, 1e-4, 0.9,
                                   f"train B={B} T={T} S={S81}")
+        bf16_run = default_bf16 if mode is None else mode
+        fwd16_by_mode[bf16_run] = got16 = counts16()
+        # The bf16 steps run K1 on the fwd16 kernel, once a step.
+        if bf16_run and got16["bidi_lstm_fwd_state"] != 5:
+            raise AssertionError(f"bf16 training launched K1 on the fwd16 "
+                                 f"kernel {got16} times in 5 steps ({got})")
         if min(got[f.__name__] for f in (
                 bidi_lstm_fwd_state, bidi_lstm_bwd_chain,
                 bidi_lstm_bwd_reduce, ctc_forward, ctc_both)) < 1:
@@ -5692,6 +6081,9 @@ def main(argv=None) -> int:
     k_step = host_ms(lambda: tocr.train_batch(batch), 5)
     step_modes = mode_turns(tocr, batch, 3, f"bidi B={B} T={T} S={S81}",
                             card)
+    step_fwd16 = {"bidi": fwd16_step_turns(tocr, batch, 3,
+                                           f"bidi B={B} T={T} S={S81}",
+                                           card)}
     # lr 0: the plain step's update leaves the trained net as it is.
     vel0 = TrainState.create(tocr.net).velocity
     p_step = host_ms(lambda: plain_train_step(tocr.net, vel0, batch, 0.0,
@@ -5819,9 +6211,14 @@ def main(argv=None) -> int:
         f"{cu_bwd_ms:.3f} ms against K2 chain + reduction "
         f"{ms['K2 chain'][0] + ms['K2 reduction'][0]:.3f} ms")
     del ys, gs, cs, dz, lm, lr
-    profile_steps(tocr, batch, card, "profile_train_step.txt", "profile")
+    prof1 = profile_steps(tocr, batch, card, "profile_train_step.txt",
+                          "profile")
+    if default_bf16 and not any("fwd16_kernel" in k for k in prof1):
+        raise AssertionError(f"the bf16 step's profile names no fwd16 "
+                             f"kernel: {sorted(prof1)}")
     del tocr, back, batch
 
+    phase_mark("9-11")
     # 12. K4 against plain at bidi2's second layer (weights ±0.1, so that
     # z = x·Wx + b + h·Wh over 600 terms stays off the gates' saturation),
     # then odd shapes; K2 there on K4's plain state, with and without dx.
@@ -6016,7 +6413,7 @@ def main(argv=None) -> int:
     want2 = {"bidi_lstm_fwd_state": 5, "bidi_lstm_fwd_state_xz": 5,
              "bidi_lstm_bwd_chain": 10, "bidi_lstm_bwd_reduce": 10,
              "ctc_forward": 5, "ctc_both": 5}
-    train2_by = {}
+    train2_by, fwd16_by_mode2 = {}, {}
     for mode in (None, not default_bf16):
         plain2 = TrainState.create(make_net_init(
             "bidi2", {"ninput": D, "nhidden": H2, "noutput": C2},
@@ -6033,6 +6430,14 @@ def main(argv=None) -> int:
                 p.copy_(q)
         got = train_against_plain(kocr, plain2, batch2, 1e-4, 0.9,
                                   f"train bidi2 B={B} T={T} S={S81} C={C2}")
+        bf16_run = default_bf16 if mode is None else mode
+        fwd16_by_mode2[bf16_run] = got16 = counts16()
+        # The bf16 steps run K1 (layer 1) and K4's state mode (layer 2) on
+        # the fwd16 kernel, each once a step.
+        if bf16_run and got16 != {"bidi_lstm_fwd_state": 5,
+                                  "bidi_lstm_fwd_state_xz": 5}:
+            raise AssertionError(f"bidi2 bf16 training launched the fwd16 "
+                                 f"kernel {got16} times in 5 steps")
         if {k: v for k, v in got.items() if v} != want2:
             raise AssertionError(f"bidi2 training launches {got}, want "
                                  f"{want2}: K1 and K4 once a step, K2 on "
@@ -6051,6 +6456,8 @@ def main(argv=None) -> int:
         f"{enqueue_ms(lambda: tocr2.train_batch(batch2), 3):.3f} ms")
     step2_modes = mode_turns(tocr2, batch2, 2,
                              f"bidi2 B={B} T={T} S={S81} C={C2}", card)
+    step_fwd16["bidi2"] = fwd16_step_turns(
+        tocr2, batch2, 2, f"bidi2 B={B} T={T} S={S81} C={C2}", card)
     if ctc_against:
         steps_vs["bidi2"] = step_turns(tocr2, batch2, ctc_against, 3,
                                        f"bidi2 B={B} T={T} S={S81} C={C2}",
@@ -6108,11 +6515,16 @@ def main(argv=None) -> int:
     log(f"[timing] {card} | bidi2 batched forward (K3, hoisted product, K4, "
         f"softmax) B={B} T={T} len={TRUE_T}: {fwd2_ms:.3f} ms/batch "
         f"({B / fwd2_ms * 1e3:.1f} lines/s)")
-    profile_steps(tocr2, batch2, card, "profile_train_step_bidi2.txt",
-                  "profile bidi2")
+    prof2 = profile_steps(tocr2, batch2, card,
+                          "profile_train_step_bidi2.txt", "profile bidi2")
+    if default_bf16 and sum("fwd16_kernel" in k for k in prof2) < 2:
+        raise AssertionError(f"the bidi2 bf16 step's profile names fewer "
+                             f"than two fwd16 kernels (K1, K4 state): "
+                             f"{sorted(prof2)}")
 
     del tocr2, batch2
 
+    phase_mark("12-15")
     # 16. The u8 pixel table on the card.
     check_u8(dev, np.random.RandomState(4))
 
@@ -6124,6 +6536,7 @@ def main(argv=None) -> int:
         raise AssertionError("phase 23 trains clstmocrtrain on phase 17's "
                              "PNG corpus, which needs pillow")
 
+    phase_mark("16-17")
     # 18-19. The bf16 kernels against their plain versions and float64, and
     # timed in turns with their f32 modes.
     b16 = bf16_kernels(dev, card)
@@ -6137,7 +6550,17 @@ def main(argv=None) -> int:
     chain_edges = chain16_edges(dev)
     chain_16 = chain16_turns(dev, card, k2_against)
     log(f"[chain16] edges and turns in {time.perf_counter() - t18:.1f} s")
+    # K1 and K4's state mode on the fwd16 kernel across its plan's edges,
+    # the planted controls at bidi2's layers, then at their five shapes in
+    # turns with the FMA kernel and cuDNN.
+    t18 = time.perf_counter()
+    f16_edges = fwd16_edges(dev)
+    f16_planted = fwd16_bench_planted(dev)
+    f16_turns = fwd16_turns(dev, card, fwd_against)
+    log(f"[fwd16] edges, planted controls and turns in "
+        f"{time.perf_counter() - t18:.1f} s")
 
+    phase_mark("18-19")
     # 20. The learning check of the bf16 mode against f32 on the glyph
     # corpus: it decides the card's default precision.
     learn = ocr_learning(dev)
@@ -6171,6 +6594,7 @@ def main(argv=None) -> int:
         raise AssertionError("bf16 is the card's default but did not pass "
                              "the learning check")
 
+    phase_mark("20")
     # 21. The filter path at full width: the g2p corpus, its kernels
     # against plain at the path's shapes (and K4 at a large alphabet), 5
     # steps against plain in both modes, clstmfiltertrain and clstmfilter.
@@ -6195,6 +6619,7 @@ def main(argv=None) -> int:
         nat = native_check(dev, tmp)
     del fcache, maker
 
+    phase_mark("21-22")
     # 23. Data parallelism: (a) one NCCL rank, (b) two gloo ranks sharing
     # the card against one rank, (c) both trainer CLIs with mesh=2.
     t23 = time.perf_counter()
@@ -6207,16 +6632,19 @@ def main(argv=None) -> int:
     dp["seconds"] = time.perf_counter() - t23
     log(f"[dp] phase 23 passed in {dp['seconds']:.1f} s")
 
+    phase_mark("23")
     # 24. The routes with no LSTM kernel (compute_dtype, fuse_bidi=False),
     # the trace and the meter, clstmocrtrain with display_every.
     p24 = phase24(dev, card, ocr_dir.name)
 
+    phase_mark("24")
     # 25. t_buckets=auto: the cost constants on the card, the cuts on
     # phase 17's corpus and the kernels at one, clstmocrtrain auto and fine
     # in turns, the ranks' agreement under mesh=2; compile_cache.
     p25 = phase25(dev, card, ocr_dir.name, build_s, str(so.parent))
     ocr_dir.cleanup()
 
+    phase_mark("25")
     # 18. Report. bound_ms from this run's shapes and valid frames (lengths
     # 900 at both bench shapes); library_ms a library call timed in turns
     # with the kernel above, or None where no one call computes the same
@@ -6267,6 +6695,8 @@ def main(argv=None) -> int:
     # steps), max_abs_err the largest |kernel - plain bf16| of phase 18,
     # the times of phase 19 (bench shapes, lengths 900).
     bm = b16["ms"]
+    fma = {"K1": f16_turns["bidi K1"],
+           "K4 state": f16_turns["bidi2 layer 2 K4 state"]}
     fwd_src = "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu"
     bwd_src = "clstm_tpu_torch/csrc/bidi_lstm_bwd.cu"
     for name, src, rep, n, err, key in (
@@ -6275,7 +6705,8 @@ def main(argv=None) -> int:
              b16["fwd_err"], "K3"),
             ("bidi_lstm_fwd_state bf16 (K1)", fwd_src,
              "clstm_tpu/ops/pallas_lstm.py:197",
-             train_by_mode[True]["bidi_lstm_fwd_state"], b16["fwd_err"],
+             train_by_mode[True]["bidi_lstm_fwd_state"]
+             - fwd16_by_mode[True]["bidi_lstm_fwd_state"], b16["fwd_err"],
              "K1"),
             ("bidi_lstm_fwd_xz bf16 (K4)", fwd_src,
              "clstm_tpu/ops/pallas_lstm.py:197",
@@ -6283,8 +6714,9 @@ def main(argv=None) -> int:
              b16["fwd_err"], "K4"),
             ("bidi_lstm_fwd_xz_state bf16 (K4)", fwd_src,
              "clstm_tpu/ops/pallas_lstm.py:197",
-             train2_by[True]["bidi_lstm_fwd_state_xz"], b16["fwd_err"],
-             "K4 state"),
+             train2_by[True]["bidi_lstm_fwd_state_xz"]
+             - fwd16_by_mode2[True]["bidi_lstm_fwd_state_xz"],
+             b16["fwd_err"], "K4 state"),
             ("bidi_lstm_bwd_chain bf16 (K2)", bwd_src,
              "clstm_tpu/ops/pallas_lstm.py:299",
              train_by_mode[True]["bidi_lstm_bwd_chain"], b16["chain_err"],
@@ -6294,9 +6726,27 @@ def main(argv=None) -> int:
              train_by_mode[True]["bidi_lstm_bwd_reduce"], b16["red_err"],
              "K2 reduction")):
         m = bm[key]
+        if key in fma:
+            # The FMA kernel, which the bf16 K1 and K4 state now take only
+            # outside fwd16_plan: its time in turns with the fwd16 kernel.
+            m = dict(m, ms=mean(fma[key]["fma_ms"]))
         entries.append((name, src, rep, n, err, None,
                         (m["ms"], m["plain_ms"]), m["bound"],
                         m.get("library_ms")))
+    # The fwd16 kernel (K1 and K4's state mode in the bf16 mode on the
+    # tensor cores): launches of the bf16 training steps (phases 9, 15), the
+    # times of phase 19 at bidi's K1 and bidi2's K4 state, its largest
+    # |kernel - plain bf16| of phase 18 (the bench shapes and its edges).
+    for name, label, n in (
+            ("bidi_lstm_fwd16_state bf16 (K1)", "bidi K1",
+             fwd16_by_mode[True]["bidi_lstm_fwd_state"]),
+            ("bidi_lstm_fwd16_xz_state bf16 (K4)", "bidi2 layer 2 K4 state",
+             fwd16_by_mode2[True]["bidi_lstm_fwd_state_xz"])):
+        r = f16_turns[label]
+        entries.append((name, fwd_src, "clstm_tpu/ops/pallas_lstm.py:197", n,
+                        max(b16["fwd_err"], f16_edges["err"]), None,
+                        (mean(r["ms"]), r["plain_ms"]), r["bound"],
+                        mean(r["library_ms"])))
     # K4's rows also carry the product it runs on, the kernel with the
     # projection inside (K3, K1) at the same shape, and the hoisted total
     # that cuDNN's whole layer (library_ms) is set against; K1's and K2's
@@ -6443,6 +6893,29 @@ def main(argv=None) -> int:
     extra["bidi_lstm_fwd_state bf16 (K1)"]["f64_rel"] = {
         k: v for k, v in b16["dist"].items()
         if k.startswith(("K1", "K3", "K4"))}
+    # The FMA kernel's bf16 K1 and K4 state rows: the bf16 times of phase 19's
+    # f32/bf16 turns were the fwd16 kernel's (the wrapper's plan), so they
+    # move to its rows; these carry their turns with it.
+    for name, key, new in (
+            ("bidi_lstm_fwd_state bf16 (K1)", "K1",
+             "bidi_lstm_fwd16_state bf16 (K1)"),
+            ("bidi_lstm_fwd_xz_state bf16 (K4)", "K4 state",
+             "bidi_lstm_fwd16_xz_state bf16 (K4)")):
+        extra[new] = {k: extra[name].pop(k) for k in (
+            "f32_mode_ms", "in_turns_f32_bf16", "hoisted_total_ms")
+            if k in extra[name]}
+        extra[name]["in_turns_with_fwd16"] = {
+            k: {"fma_ms": v["fma_ms"], "fwd16_ms": v["ms"],
+                "fma_plan": v["fma_plan"]} for k, v in f16_turns.items()
+            if ("K4" in k) == (key == "K4 state")}
+    extra["bidi_lstm_fwd16_state bf16 (K1)"].update(
+        plan=f16_turns["bidi K1"]["plan"], shapes={
+            k: v for k, v in f16_turns.items() if "K4" not in k},
+        edge_cases_passed=len(f16_edges["dist"]), planted=f16_planted,
+        train_step_ms=step_fwd16)
+    extra["bidi_lstm_fwd16_xz_state bf16 (K4)"].update(
+        plan=f16_turns["bidi2 layer 2 K4 state"]["plan"],
+        shapes={k: v for k, v in f16_turns.items() if "K4" in k})
     extra["bidi_lstm_bwd_chain bf16 (K2)"]["f64_rel"] = b16["dist"].get(
         "K2 dz")
     extra["bidi_lstm_bwd_reduce bf16 (K2)"]["f64_rel"] = {

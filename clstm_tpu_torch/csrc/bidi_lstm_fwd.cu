@@ -113,6 +113,15 @@
 //   sigmoid and tanh through e^-|v| with every divisor in (1, 2]; tiles
 //   ordered row group first (lanes share weight loads, but the stores and
 //   xz loads scatter); tiles of 8 rows.
+//
+// In the bf16 mode, K1 and K4's state mode (the training forward) run on a
+// second kernel where ops/bidi_lstm_kernel.py::fwd16_plan gives it a plan
+// (fwd16_kernel, below; the C entries clstm_bidi_lstm_fwd16_*): z on the
+// bf16 tensor cores (mma.sync), the gate math on the accumulator
+// fragments, h all-gathered across the cluster in 16-byte chunks. The
+// kernel above keeps the f32 mode, the bf16 inference instances (K3, K4)
+// and the shapes fwd16_plan leaves to it (no plan fits: H = 700, 2048; or
+// short chains, where it was the faster on the card).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,6 +168,22 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (src is not read).
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 8 bytes global -> shared; zero-filled when !valid (src is not read).
+__device__ __forceinline__ void cp_async8z(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -705,6 +730,707 @@ int plan_clusters(int D, int H, int hoist, int emit, int C, int R, int U,
               : active_clusters<false, false, E>(p);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 recurrence on the tensor cores (fwd16): K1 and K4's state mode
+// ---------------------------------------------------------------------------
+
+// Rows of an m16 tile, threads of a CTA (20 warps), the multiple of units
+// a CTA owns (its h goes to its peers in 16-byte chunks of 8 units).
+constexpr int F16_M = 16;
+constexpr int F16_THREADS = 640;
+constexpr int F16_WARPS = F16_THREADS / 32;
+constexpr int F16_UNITS = 8;
+// Dynamic shared memory a CTA may use, less the static row lengths.
+constexpr int F16_SMEM_MAX = SMEM_MAX - 4 * 2 * F16_M;
+
+// n tiles a warp takes at most: 2 with one m tile, 1 with two. 20 warps
+// of 2 n tiles hold the 36 of H=200 at C=3 (4 warps of 3 and 12 of 2 at
+// 512 threads, which left the 4 the critical path and spilled registers:
+// 20 warps were faster in turns, PERF.md §6).
+__host__ __device__ constexpr int f16_ng(int mt) { return mt == 1 ? 2 : 1; }
+
+__host__ __device__ inline int up_to(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Where a CTA's operands live in its shared memory
+// (ops/bidi_lstm_kernel.py::fwd16_geometry counts the same): Bw its
+// columns of Wh and of [Wx; b] [N = 4U][KH + KX + 8] (row 4·u + g: gate g
+// of its unit u; k contiguous, Wh's KH = H up to 16 first, then [Wx; b]'s
+// KX = D+1 up to 16, none with HOIST), Ah the h operand [2 parities][R][KH
+// + 8], Ax the x ring [3 slots][R][KX + 8] (not with HOIST) or the xz ring
+// [3 slots][R][4][U] (HOIST), all bf16; the output stage of each parity:
+// gs the gates [2][R][4U + 2] f32 (gate g of unit u at g·U + u; rows 4U +
+// 2 words apart, so that the 16 rows a warp writes at once fall in 16 bank
+// pairs), hs h (as y and as the next operand) and cs c [2][R][U] bf16.
+// Rows of the operands are K + 8 elements apart: an odd multiple of 16
+// bytes, so the 8 rows an ldmatrix reads fall in 8 bank groups.
+struct Geo16 {
+  int N, KH, KX, ldb, ldh, ldx;
+  long long off_ah, off_ax, off_gs, off_hs, off_cs, bytes;
+};
+
+__host__ __device__ inline Geo16 geo16(int D, int H, int U, int R,
+                                       bool hoist) {
+  Geo16 g;
+  g.N = 4 * U;
+  g.KH = up_to(H, 16);
+  g.KX = hoist ? 0 : up_to(D + 1, 16);
+  g.ldb = g.KH + g.KX + 8;
+  g.ldh = g.KH + 8;
+  g.ldx = g.KX + 8;
+  g.off_ah = (long long)g.N * g.ldb * 2;
+  g.off_ax = g.off_ah + 2LL * R * g.ldh * 2;
+  g.off_gs = g.off_ax + (hoist ? 3LL * R * 4 * U * 2 : 3LL * R * g.ldx * 2);
+  g.off_hs = g.off_gs + 2LL * R * (4 * U + 2) * 4;
+  g.off_cs = g.off_hs + 2LL * R * U * 2;
+  g.bytes = g.off_cs + 2LL * R * U * 2;
+  return g;
+}
+
+// A fwd16 plan, checked: C in {1, 2, 3, 4, 8} with every CTA owning at
+// least one unit and all of them together every unit, R 16 or 32 rows, U a
+// multiple of F16_UNITS whose n tiles (U/2) the warps take at most
+// f16_ng a warp, D even (the kernel's x width; 0 with hoist), shared memory
+// within a CTA's. Returns its bytes of shared memory, 0 if it is not one.
+long long plan16(int D, int H, bool hoist, int C, int R, int U) {
+  if (!((C >= 1 && C <= 4) || C == 8) || !(R == 16 || R == 32) || H < 1 ||
+      U < F16_UNITS || U % F16_UNITS != 0 || (long long)C * U < H ||
+      (long long)(C - 1) * U >= H ||
+      U / 2 > F16_WARPS * f16_ng(R / F16_M) ||
+      (!hoist && (D < 2 || D % 2 != 0)))
+    return 0;
+  const Geo16 g = geo16(D, H, U, R, hoist);
+  return g.bytes <= F16_SMEM_MAX ? g.bytes : 0;
+}
+
+// The address of `local` in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* local,
+                                              uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(local)), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void st_peer16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// c = a·b, m16n8k16, bf16 operands, f32 result (a fresh accumulator).
+__device__ __forceinline__ void mma_bf16_0(float (&c)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+}
+
+// acc[i][m] += A[m-th 16 rows][k tile kt] · B[n tile jt[i]][k tile kt]ᵀ
+// for the k tiles kt < KT in order, for i < ni: A [MT·16][lda] and B
+// [N][ldb] bf16 in shared memory, k contiguous. Each tile's product starts
+// from a zero accumulator and is added to acc by an f32 add (rounded to
+// nearest): the tensor cores add a tile's exact products to their
+// accumulator by truncation, so summing every k tile there would move z
+// toward zero by up to an ulp a tile; and the MMAs are independent. The
+// fragments of a pair of k tiles are loaded before their MMAs (asm
+// volatile keeps the order as written, so a load placed after an MMA would
+// wait for it); one ldmatrix.x4 gives an n tile's B fragments of both
+// tiles of the pair, and each A fragment serves the warp's ni n tiles. acc[i][m][0..1]: row lane/4 of the m tile,
+// columns 2(lane%4) and +1 of the n tile; [2..3]: row lane/4 + 8.
+template <int MT, int NG>
+__device__ __forceinline__ void f16_product(const bf16* A, int lda,
+                                            const bf16* Bm, int ldb,
+                                            const int (&jt)[NG], int ni,
+                                            int KT,
+                                            float (&acc)[NG][MT][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t a0 = smem_addr(A + (lane & 15) * lda + (lane >> 4) * 8);
+  uint32_t b0[NG];
+#pragma unroll
+  for (int i = 0; i < NG; ++i)
+    b0[i] = smem_addr(Bm + (jt[i] * 8 + (lane & 7)) * ldb + (lane >> 3) * 8);
+  const uint32_t mstep = 2 * F16_M * lda;
+  auto add = [&](int i, int m, const float (&d)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][m][e] += d[e];
+  };
+  int kt = 0;
+  for (; kt + 2 <= KT; kt += 2) {
+    uint32_t a[2][MT][4], b[NG][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        ldsm_x4(a0 + m * mstep + 32 * (kt + p), a[p][m]);
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+      if (i < ni) ldsm_x4(b0[i] + 32 * kt, b[i]);
+    float d[2][NG][MT][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int i = 0; i < NG; ++i)
+        if (i < ni)
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            mma_bf16_0(d[p][i][m], a[p][m], b[i][2 * p], b[i][2 * p + 1]);
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int i = 0; i < NG; ++i)
+        if (i < ni)
+#pragma unroll
+          for (int m = 0; m < MT; ++m) add(i, m, d[p][i][m]);
+  }
+  if (kt < KT) {
+    uint32_t a[MT][4], b[NG][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) ldsm_x4(a0 + m * mstep + 32 * kt, a[m]);
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+      if (i < ni) ldsm_x2(b0[i] + 32 * kt, b[i]);
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+      if (i < ni)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          float d[4];
+          mma_bf16_0(d, a[m], b[i][0], b[i][1]);
+          add(i, m, d);
+        }
+  }
+}
+
+// Cycle counts of a step's spans, summed by thread 0 of each CTA, in a
+// build with CLSTM_FWD16_PHASES (scripts/torch_fwd16_probe.py --phases):
+// the cluster barrier's wait, the x (K1) or xz (K4) staging, the product,
+// the gate math with its writes to the output stage, the block barrier,
+// the hand-off's copy, the arrive, the next step's input and the stores
+// from the stage. No code otherwise.
+#ifdef CLSTM_FWD16_PHASES
+constexpr int F16_SPANS = 9;
+__device__ unsigned long long g_f16_phase[2 * 2048 * F16_SPANS];
+#define F16_MARK(i)                              \
+  if (tid == 0) {                                \
+    const unsigned long long tn_ = clock64();    \
+    pd_[i] += tn_ - tq_;                         \
+    tq_ = tn_;                                   \
+  }
+#else
+#define F16_MARK(i)
+#endif
+
+// A thread's share of a [rows][cols] loop that every step repeats: column
+// c0 (then c0 + dc, ...) at rows r0, r0 + dr, ..., so that a step's loop
+// needs no division where cols <= the threads (the thread's column is
+// decoded once, before the chain).
+struct Cols {
+  int c0, dc, r0, dr;
+};
+
+__device__ __forceinline__ Cols cols_of(int cols, int rows, int tid,
+                                        int nt) {
+  Cols k;
+  if (cols <= nt) {
+    k.dr = min(rows, nt / cols);
+    k.c0 = tid % cols;
+    k.r0 = tid / cols;
+    k.dc = cols;
+    if (k.r0 >= k.dr) k.c0 = cols;  // no share
+  } else {
+    k.c0 = tid;
+    k.dc = nt;
+    k.r0 = 0;
+    k.dr = 1;
+  }
+  return k;
+}
+
+// One direction's chain for a group of R = 16·MT rows on a cluster of C
+// CTAs (grid: C · row groups along x, 2 directions along y), each step's z
+// on bf16 mma.sync (PERF.md §6):
+//   - CTA c owns units [c·U, c·U + nu) with their four gate columns and
+//     keeps its columns of Wh (and of [Wx; b], K1) in shared memory, as the
+//     B operand [4U][K], for the whole chain.
+//   - Warp w takes the n tiles w, w + 16, ... of its columns (a tile: two
+//     units' four gates, interleaved by unit). K1's [x_s | 1]·[Wx; b] runs
+//     on the tensor cores too (exact products, f32 sums: the JAX package's
+//     unrounded in-kernel projection), into the accumulators the h·Wh
+//     product then adds to; K4 adds xz_s, staged into shared memory by
+//     cp.async two steps ahead, to the product's sum at the gates.
+//   - The gate math from the accumulator fragments: lanes q and q ^ 1 of a
+//     quad hold gates 0-1 and 2-3 of one unit for rows lane/4 and lane/4 +
+//     8; one exchange gives the even lane all four gates of the first row,
+//     the odd lane those of the second. c, h and the "a row whose chain
+//     ended keeps its state" rule stay in registers, in f32.
+//   - The step's gates, h (rounded to bf16, as y and as the next product's
+//     operand) and c go to an output stage in shared memory, one per
+//     parity. h is all-gathered from it into every peer's h operand of the
+//     next parity in 16-byte chunks (st.shared::cluster.v4), with one split
+//     cluster barrier a step; between its arrive and its wait the CTA
+//     does the next step's input work, then writes the stage out to y,
+//     gates and cell, whole runs of units per row and gate (stored straight
+//     from the fragments, a warp's stores scatter over 16 rows, 8 bytes
+//     each, and took much of the step).
+template <bool HOIST, int MT>
+__global__ void __launch_bounds__(F16_THREADS, 1)
+    fwd16_kernel(const bf16* __restrict__ x,
+                 const int32_t* __restrict__ lengths,
+                 const bf16* __restrict__ wx, const bf16* __restrict__ wh,
+                 bf16* __restrict__ y, float* __restrict__ gates,
+                 bf16* __restrict__ cell, int B, int T, int D, int H, int U) {
+  constexpr int R = F16_M * MT;
+  constexpr int NG = f16_ng(MT);
+  extern __shared__ __align__(128) unsigned char smf[];
+  __shared__ int lens[2 * F16_M];
+  const int C = (int)cluster_size();
+  const int crank = (int)cluster_rank();
+  const int dir = blockIdx.y;
+  const int b0 = (blockIdx.x / C) * R;
+  const int k0 = crank * U;
+  const int nu = max(0, min(U, H - k0));
+  const int G = 4 * H;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const Geo16 geo = geo16(D, H, U, R, HOIST);
+  const int ldb = geo.ldb, ldh = geo.ldh, ldx = geo.ldx;
+  bf16* Bw = reinterpret_cast<bf16*>(smf);
+  bf16* Ah = reinterpret_cast<bf16*>(smf + geo.off_ah);
+  bf16* Ax = reinterpret_cast<bf16*>(smf + geo.off_ax);  // or the xz ring
+  float* gs = reinterpret_cast<float*>(smf + geo.off_gs);
+  bf16* hs = reinterpret_cast<bf16*>(smf + geo.off_hs);
+  bf16* cs = reinterpret_cast<bf16*>(smf + geo.off_cs);
+  const int DX = D + 1;  // rows of [Wx; b]
+  wh += (size_t)dir * G * H;
+  if (!HOIST) wx += (size_t)dir * G * DX;
+#ifdef CLSTM_FWD16_PHASES
+  unsigned long long pd_[F16_SPANS] = {}, tq_ = 0;
+#endif
+
+  if (tid < R) {
+    const int b = b0 + tid;
+    int L = 0;
+    if (b < B) L = lengths ? lengths[b] : T;
+    lens[tid] = min(max(L, 0), T);
+  }
+  // The B operand, zero past the CTA's units and past each part's K:
+  // loaded once.
+  const int N4 = 4 * nu;
+  if (H % 8 == 0) {
+    const int KC = geo.KH / 8;
+    for (int i = tid; i < geo.N * KC; i += nt) {
+      const int n = i / KC, kc = i - n * KC;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (n < N4 && 8 * kc < H)
+        v = __ldg(reinterpret_cast<const uint4*>(
+            wh + (size_t)(4 * k0 + n) * H + 8 * kc));
+      *reinterpret_cast<uint4*>(Bw + (size_t)n * ldb + 8 * kc) = v;
+    }
+  } else {
+    for (int i = tid; i < geo.N * geo.KH; i += nt) {
+      const int n = i / geo.KH, k = i - n * geo.KH;
+      bf16 v = from_f<bf16>(0.0f);
+      if (n < N4 && k < H) v = wh[(size_t)(4 * k0 + n) * H + k];
+      Bw[(size_t)n * ldb + k] = v;
+    }
+  }
+  if (!HOIST) {
+    for (int i = tid; i < geo.N * geo.KX; i += nt) {
+      const int n = i / geo.KX, k = i - n * geo.KX;
+      bf16 v = from_f<bf16>(0.0f);
+      if (n < N4 && k < DX) v = wx[(size_t)(4 * k0 + n) * DX + k];
+      Bw[(size_t)n * ldb + geo.KH + k] = v;
+    }
+    // The x ring's bias column (1) and the columns past it (0); columns
+    // below D are staged at every step.
+    for (int i = tid; i < 3 * R * ldx; i += nt)
+      Ax[i] = from_f<bf16>(i % ldx == D ? 1.0f : 0.0f);
+  }
+  // h_0 = 0, and the columns past H in both parities; the h stage past nu.
+  for (int i = tid; i < 2 * R * ldh; i += nt) Ah[i] = from_f<bf16>(0.0f);
+  for (int i = tid; i < 2 * R * U; i += nt) hs[i] = from_f<bf16>(0.0f);
+  __syncthreads();
+  int lmax = 0;
+  for (int r = 0; r < R; ++r) lmax = max(lmax, lens[r]);
+
+  // x of chain step s for the R rows into ring slot s % 3, columns [0, D),
+  // a column pair a copy; zero-filled for rows whose chain has ended.
+  const Cols kx = cols_of(D / 2, R, tid, nt);
+  auto stage_x = [&](int s) {
+    bf16* dst = Ax + (size_t)(s % 3) * R * ldx;
+    for (int d = kx.c0; d < D / 2; d += kx.dc)
+      for (int r = kx.r0; r < R; r += kx.dr) {
+        const int Lr = lens[r];
+        const bool valid = s < Lr;
+        const int t = dir == 0 ? s : Lr - 1 - s;
+        const bf16* src = x + ((size_t)(b0 + r) * T + t) * D + 2 * d;
+        cp_async4(dst + (size_t)r * ldx + 2 * d, valid ? src : x, valid);
+      }
+  };
+  // xz of chain step s for the R rows into ring slot s % 3 ([R][4][U]: the
+  // CTA's units of each gate), 8 units (16 bytes) a copy where H is a
+  // multiple of 8, else 4, zero-filled for rows whose chain has ended (K4
+  // where H is a multiple of 4; elsewhere each lane loads its items' xz
+  // itself, load_xz).
+  const bool xz_ring = HOIST && H % 4 == 0;
+  const int xw = H % 8 == 0 ? 8 : 4, xnw = nu / xw;
+  const Cols kz = cols_of(4 * xnw, R, tid, nt);
+  const int zg0 = kz.c0 / max(xnw, 1), zu0 = (kz.c0 - zg0 * xnw) * xw;
+  auto stage_xz = [&](int s) {
+    bf16* dst = Ax + (size_t)(s % 3) * R * 4 * U;
+    for (int cc = kz.c0, g = zg0, u = zu0; cc < 4 * xnw;
+         cc += kz.dc, g = cc / xnw, u = (cc - g * xnw) * xw)
+      for (int r = kz.r0; r < R; r += kz.dr) {
+        const int Lr = lens[r];
+        const bool valid = s < Lr;
+        const int t = dir == 0 ? s : Lr - 1 - s;
+        const bf16* src = x + (((size_t)(b0 + r) * T + t) * 2 + dir) * G +
+                          g * H + k0 + u;
+        bf16* d = dst + ((size_t)r * 4 + g) * U + u;
+        if (xw == 8)
+          cp_async16z(d, valid ? src : x, valid);
+        else
+          cp_async8z(d, valid ? src : x, valid);
+      }
+  };
+  auto stage_in = [&](int s) {
+    if constexpr (HOIST) {
+      if (xz_ring) stage_xz(s);
+    } else {
+      stage_x(s);
+    }
+  };
+  if (lmax > 0) stage_in(0);
+  if (lmax > 1) stage_in(1);
+  cp_async_commit();
+
+  // Frames t >= len are padding in both halves: exact zeros (this CTA's
+  // units).
+  for (int r = 0; r < R && b0 + r < B; ++r) {
+    const int Lr = lens[r];
+    for (int i = tid; i < (T - Lr) * nu; i += nt) {
+      const int t = Lr + i / nu;
+      const int kk = k0 + i % nu;
+      const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
+      y[(f >> 1) * 2 * H + dir * H + kk] = from_f<bf16>(0.0f);
+      cell[f * H + kk] = from_f<bf16>(0.0f);
+      for (int g = 0; g < 4; ++g) gates[f * G + g * H + kk] = 0.0f;
+    }
+  }
+  cp_async_wait_all();
+  // Every CTA of the cluster has initialised its buffers before any h
+  // crosses to it.
+  cluster_arrive();
+  cluster_wait();
+
+  // The warp's n tiles jt[i] (the first ni of them hold units: tile j holds
+  // units 2j and 2j + 1), and the lane's item of each tile and m tile:
+  // unit 2j + (lane / 2) % 2, row lane/4 (even lane) or lane/4 + 8 (odd).
+  const int NTc = (nu + 1) / 2;
+  int jt[NG];
+  int ni = 0;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    jt[i] = warp + F16_WARPS * i;
+    if (jt[i] < NTc) ni = i + 1;
+  }
+  const bool odd = lane & 1;
+  const int ru = (lane >> 2) + 8 * (lane & 1);  // the item's row in an m tile
+  const int uq = (lane >> 1) & 1;               // its unit in an n tile
+  int L[NG][MT];
+  float c[NG][MT], h[NG][MT];
+  [[maybe_unused]] float xzv[NG][MT][4];
+  float acc[NG][MT][4];
+#pragma unroll
+  for (int i = 0; i < NG; ++i)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int ul = 2 * jt[i] + uq;
+      L[i][m] = i < ni && ul < nu ? lens[m * F16_M + ru] : 0;
+      c[i][m] = h[i][m] = 0.0f;
+    }
+  auto zero_acc = [&]() {
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][m][e] = 0.0f;
+  };
+  // acc = [x_s | 1]·[Wx; b] for the warp's n tiles (K1).
+  auto x_part = [&](int s) {
+    zero_acc();
+    if (ni > 0)
+      f16_product<MT, NG>(Ax + (size_t)(s % 3) * R * ldx, ldx, Bw + geo.KH,
+                          ldb, jt, ni, geo.KX / 16, acc);
+  };
+  // xz of chain step s for the lane's items (K4).
+  auto load_xz = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        xzv[i][m][0] = xzv[i][m][1] = xzv[i][m][2] = xzv[i][m][3] = 0.0f;
+        if (s < L[i][m]) {
+          const int t = dir == 0 ? s : L[i][m] - 1 - s;
+          const bf16* src =
+              x + (((size_t)(b0 + m * F16_M + ru) * T + t) * 2 + dir) * G +
+              k0 + 2 * jt[i] + uq;
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            xzv[i][m][g] = to_f(__ldg(src + (size_t)g * H));
+        }
+      }
+  };
+  // The output stage of parity p to y, gates and cell, for the rows whose
+  // chain is at step s: runs of 4 units a store where H is a multiple of 4
+  // (16 bytes of gates, 8 of y and cell), else one.
+  const int GS = 4 * U + 2;  // the gates stage's row stride
+  const int sw = H % 4 == 0 ? 4 : 1, snw = nu / sw;
+  const Cols ks = cols_of(6 * snw, R, tid, nt);
+  const int sg0 = ks.c0 / max(snw, 1), su0 = (ks.c0 - sg0 * snw) * sw;
+  auto store_stage = [&](int s, int p) {
+    const float* g_p = gs + (size_t)p * R * GS;
+    const bf16* h_p = hs + (size_t)p * R * U;
+    const bf16* c_p = cs + (size_t)p * R * U;
+    for (int cc = ks.c0, seg = sg0, u = su0; cc < 6 * snw;
+         cc += ks.dc, seg = cc / snw, u = (cc - seg * snw) * sw)
+      for (int r = ks.r0; r < R; r += ks.dr) {
+        const int Lr = lens[r];
+        if (s >= Lr) continue;
+        const int t = dir == 0 ? s : Lr - 1 - s;
+        const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
+        const int k = k0 + u;
+        if (seg < 4) {
+          const float* src = g_p + (size_t)r * GS + seg * U + u;
+          float* dst = gates + f * G + seg * H + k;
+          if (sw == 4) {
+            const float2 a = *reinterpret_cast<const float2*>(src);
+            const float2 b = *reinterpret_cast<const float2*>(src + 2);
+            *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+          } else {
+            *dst = *src;
+          }
+        } else {
+          const bf16* src = (seg == 4 ? h_p : c_p) + (size_t)r * U + u;
+          bf16* dst = seg == 4 ? y + (f >> 1) * 2 * H + dir * H + k
+                               : cell + f * H + k;
+          if (sw == 4)
+            *reinterpret_cast<uint2*>(dst) =
+                *reinterpret_cast<const uint2*>(src);
+          else
+            *dst = *src;
+        }
+      }
+  };
+
+  // The hand-off's columns: (peer q, chunk of 8 units).
+  const int hpr = U / F16_UNITS;
+  const Cols kh = cols_of(C * hpr, R, tid, nt);
+  const int hq0 = kh.c0 / hpr, hch0 = kh.c0 - hq0 * hpr;
+  if (lmax > 0) {
+    if constexpr (HOIST) {
+      if (!xz_ring) load_xz(0);
+    } else {
+      x_part(0);
+    }
+  }
+#ifdef CLSTM_FWD16_PHASES
+  tq_ = clock64();
+#endif
+  for (int s = 0; s < lmax; ++s) {
+    const int p = s & 1;
+    if (s > 0) cluster_wait();  // h_s and x_{s+1} are in place
+    F16_MARK(0)
+    if (s + 2 < lmax) stage_in(s + 2);
+    cp_async_commit();
+    F16_MARK(1)
+    if constexpr (HOIST) zero_acc();
+    if (ni > 0)
+      f16_product<MT, NG>(Ah + (size_t)p * R * ldh, ldh, Bw, ldb, jt, ni,
+                          geo.KH / 16, acc);
+    F16_MARK(2)
+    // The gate math of the lane's items into the stage of parity p; a row
+    // whose chain has ended keeps its state.
+    float* g_p = gs + (size_t)p * R * GS;
+    bf16* h_p = hs + (size_t)p * R * U;
+    bf16* c_p = cs + (size_t)p * R * U;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      if (i >= ni) continue;  // warp-uniform: every lane takes part
+      const int ul = 2 * jt[i] + uq;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = acc[i][m][e];
+        const float s0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[2], 1);
+        const float s1 = __shfl_xor_sync(0xffffffffu, odd ? v[1] : v[3], 1);
+        float z[4] = {odd ? s0 : v[0], odd ? s1 : v[1], odd ? v[2] : s0,
+                      odd ? v[3] : s1};
+        if constexpr (HOIST) {
+          if (!xz_ring) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g) z[g] += xzv[i][m][g];
+          } else if (ul < nu) {
+            const bf16* xr = Ax + ((size_t)(s % 3) * R * 4 +
+                                   (m * F16_M + ru) * 4) * U + ul;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) z[g] += to_f(xr[(size_t)g * U]);
+          }
+        }
+        float gt[4];
+        gt[0] = sigmoid_f32(z[0]);
+        gt[1] = sigmoid_f32(z[1]);
+        gt[2] = sigmoid_f32(z[2]);
+        gt[3] = tanhf(z[3]);
+        const float cn = gt[1] * c[i][m] + gt[0] * gt[3];
+        const float hn = tanhf(cn) * gt[2];
+        const bool on = s < L[i][m];
+        c[i][m] = on ? cn : c[i][m];
+        h[i][m] = on ? hn : h[i][m];
+        if (ul < nu) {
+          const int r = m * F16_M + ru;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) g_p[(size_t)r * GS + g * U + ul] = gt[g];
+          h_p[r * U + ul] = from_f<bf16>(h[i][m]);
+          c_p[r * U + ul] = from_f<bf16>(c[i][m]);
+        }
+      }
+    }
+    F16_MARK(3)
+    __syncthreads();
+    F16_MARK(4)
+    if (s + 1 < lmax) {
+      // h_{s+1} as the next product's operand: every 16-byte chunk (8
+      // units of a row) of the stage into the h operand of the next parity
+      // of every CTA of the cluster.
+      bf16* dst0 = Ah + (size_t)(p ^ 1) * R * ldh + k0;
+      for (int cc = kh.c0, q = hq0, ch = hch0; cc < C * hpr;
+           cc += kh.dc, q = cc / hpr, ch = cc - q * hpr) {
+        if (k0 + F16_UNITS * ch >= H) continue;
+        const uint32_t rank = (uint32_t)q;
+        for (int r = kh.r0; r < R; r += kh.dr) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              h_p + r * U + F16_UNITS * ch);
+          bf16* dst = dst0 + (size_t)r * ldh + F16_UNITS * ch;
+          if (q == crank)
+            *reinterpret_cast<uint4*>(dst) = v;
+          else
+            st_peer16(peer_addr(dst, rank), v);
+        }
+      }
+      F16_MARK(5)
+      cp_async_wait_all();
+      cluster_arrive();
+      F16_MARK(6)
+    }
+    // While the other CTAs reach the barrier: the next step's input work,
+    // then the outputs (stored after the arrive, whose release would
+    // otherwise wait for them; K1 ran faster in turns with its x part
+    // first).
+    if (s + 1 < lmax) {
+      if constexpr (HOIST) {
+        if (!xz_ring) load_xz(s + 1);
+      } else {
+        x_part(s + 1);
+      }
+    }
+    F16_MARK(7)
+    store_stage(s, p);
+    F16_MARK(8)
+  }
+#ifdef CLSTM_FWD16_PHASES
+  if (tid == 0)
+    for (int i = 0; i < F16_SPANS; ++i)
+      g_f16_phase[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * F16_SPANS +
+                  i] = pd_[i];
+#endif
+  // No CTA leaves while another may still address its shared memory.
+  cluster_arrive();
+  cluster_wait();
+}
+
+using Fwd16 = void (*)(const bf16*, const int32_t*, const bf16*, const bf16*,
+                       bf16*, float*, bf16*, int, int, int, int, int);
+
+// The kernel instance of a plan, with its shared-memory limit set.
+cudaError_t fwd16_of(bool hoist, int R, long long smem, Fwd16* kern) {
+  static const Fwd16 table[2][2] = {
+      {fwd16_kernel<false, 1>, fwd16_kernel<false, 2>},
+      {fwd16_kernel<true, 1>, fwd16_kernel<true, 2>}};
+  *kern = table[hoist][R / F16_M - 1];
+  return cudaFuncSetAttribute(*kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// The launch configuration of a fwd16 plan (Config: clusters of C CTAs).
+Plan plan_of16(int C, int R, int U, long long smem) {
+  Plan p;
+  p.C = C;
+  p.R = R;
+  p.U = U;
+  p.wres = 1;
+  p.threads = F16_THREADS;
+  p.smem = (size_t)smem;
+  return p;
+}
+
+template <bool HOIST>
+int launch16(const bf16* x, const int32_t* lengths, const bf16* wx,
+             const bf16* wh, bf16* y, float* gates, bf16* cell, int B, int T,
+             int D, int H, int C, int R, int U, void* stream) {
+  const long long smem = plan16(D, H, HOIST, C, R, U);
+  if (B < 1 || T < 1 || smem == 0) return (int)cudaErrorInvalidValue;
+  // Wh's rows are read 16 bytes at a time where H is a multiple of 8.
+  if (((uintptr_t)wh & 15) != 0) return (int)cudaErrorMisalignedAddress;
+  Fwd16 kern;
+  cudaError_t e = fwd16_of(HOIST, R, smem, &kern);
+  if (e != cudaSuccess) return (int)e;
+  const Plan p = plan_of16(C, R, U, smem);
+  Config c(p, (unsigned)(C * ((B + R - 1) / R)), (cudaStream_t)stream);
+  e = cudaLaunchKernelEx(&c.cfg, kern, x, lengths, wx, wh, y, gates, cell, B,
+                         T, D, H, U);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+int clusters16(int D, int H, bool hoist, int C, int R, int U) {
+  const long long smem = plan16(D, H, hoist, C, R, U);
+  if (smem == 0) return -(int)cudaErrorInvalidValue;
+  Fwd16 kern;
+  cudaError_t e = fwd16_of(hoist, R, smem, &kern);
+  if (e != cudaSuccess) return -(int)e;
+  Config c(plan_of16(C, R, U, smem), (unsigned)C, nullptr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kern, &c.cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 }  // namespace
 
 // Each launching entry runs on `stream` and returns cudaGetLastError() (0
@@ -824,3 +1550,50 @@ extern "C" int clstm_bidi_lstm_fwd_bf16_clusters(int D, int H, int hoist,
                                                  int wres) {
   return plan_clusters<bf16>(D, H, hoist, emit, C, R, U, wres);
 }
+
+// Bytes of dynamic shared memory a CTA of a fwd16 plan takes (0: the plan
+// is not one the kernel takes); D is the kernel's (even) x width, 0 with
+// hoist (ops/bidi_lstm_kernel.py::fwd16_smem counts the same).
+extern "C" long long clstm_bidi_lstm_fwd16_smem(int D, int H, int hoist,
+                                                int C, int R, int U) {
+  return plan16(D, H, hoist != 0, C, R, U);
+}
+
+// Clusters of a fwd16 plan the current device holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+extern "C" int clstm_bidi_lstm_fwd16_clusters(int D, int H, int hoist, int C,
+                                              int R, int U) {
+  return clusters16(D, H, hoist != 0, C, R, U);
+}
+
+// K1 in the bf16 mode on the tensor cores: x [B,T,D] bf16 (D even), wx
+// [2,4H,D+1] (row 4u+g: the column of gate g of unit u, over the rows of
+// Wx then b) and wh [2,4H,H] bf16, k contiguous (fwd16_weights); y, cell
+// bf16 and gates f32 as clstm_bidi_lstm_fwd_state_bf16. The plan (C CTAs
+// per cluster, R rows per cluster, U units per CTA) from fwd16_plan.
+extern "C" int clstm_bidi_lstm_fwd16_state(
+    const bf16* x, const int32_t* lengths, const bf16* wx, const bf16* wh,
+    bf16* y, float* gates, bf16* cell, int B, int T, int D, int H, int C,
+    int R, int U, void* stream) {
+  return launch16<false>(x, lengths, wx, wh, y, gates, cell, B, T, D, H, C,
+                         R, U, stream);
+}
+
+// K4's state mode in the bf16 mode on the tensor cores: xz [B,T,2,4H] bf16
+// and wh as above.
+extern "C" int clstm_bidi_lstm_fwd16_xz_state(
+    const bf16* xz, const int32_t* lengths, const bf16* wh, bf16* y,
+    float* gates, bf16* cell, int B, int T, int H, int C, int R, int U,
+    void* stream) {
+  return launch16<true>(xz, lengths, nullptr, wh, y, gates, cell, B, T, 0, H,
+                        C, R, U, stream);
+}
+
+#ifdef CLSTM_FWD16_PHASES
+// The cycle counts of the instrumented build (scripts/torch_fwd16_probe.py
+// --phases): F16_SPANS spans per CTA, [2][gridDim.x] CTAs.
+extern "C" int clstm_fwd16_phases(unsigned long long* out, int n) {
+  return (int)cudaMemcpyFromSymbol(
+      out, g_f16_phase, sizeof(unsigned long long) * (size_t)n);
+}
+#endif

@@ -13,6 +13,9 @@
                         (ops/lstm.py::hoisted_projection);
   fwd_plan              how those four split a layer over thread-block
                         clusters (device_plan: on this card);
+  fwd16_plan            how K1 and K4's state mode run in the bf16 mode on
+                        the tensor cores (device_fwd16_plan: on this card;
+                        the FMA kernel at fwd_plan where it gives none);
   bidi_lstm_bwd_chain   K2's backward chain, replaces pallas_lstm.py::
                         _bwd_kernel (L391-430); in the bf16 mode on
                         thread-block clusters, Dh on bf16 tensor cores;
@@ -87,11 +90,18 @@ _SIGNATURES = {
     "clstm_bidi_lstm_bwd_chain16": [_P] * 6 + [_I] * 7 + [_P],
     "clstm_bidi_lstm_bwd_chain16_smem": [_I] * 5,
     "clstm_bidi_lstm_bwd_chain16_clusters": [_I] * 5,
+    # K1 and K4's state mode in the bf16 mode on the tensor cores: x (or
+    # xz), lengths, [wx,] wh, y, gates, cell; B, T, [D,] H and the plan (C,
+    # rows, units).
+    "clstm_bidi_lstm_fwd16_state": [_P] * 7 + [_I] * 7 + [_P],
+    "clstm_bidi_lstm_fwd16_xz_state": [_P] * 6 + [_I] * 6 + [_P],
+    "clstm_bidi_lstm_fwd16_smem": [_I] * 6,
+    "clstm_bidi_lstm_fwd16_clusters": [_I] * 6,
 }
 # Entry points that return a 64-bit count instead of a CUDA error.
 _LONG = {"clstm_bidi_lstm_bwd_scratch", "clstm_bidi_lstm_fwd_smem",
          "clstm_bidi_lstm_fwd_bf16_smem", "clstm_bidi_lstm_bwd_bf16_scratch",
-         "clstm_bidi_lstm_bwd_chain16_smem"}
+         "clstm_bidi_lstm_bwd_chain16_smem", "clstm_bidi_lstm_fwd16_smem"}
 _fns: dict = {}
 
 
@@ -371,6 +381,185 @@ def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
         return best
     raise ValueError(f"no forward plan for B={B} D={D} H={H}: the h buffer "
                      f"or the x ring exceeds a CTA's shared memory")
+
+
+# K1 and K4's state mode in the bf16 mode on the tensor cores
+# (csrc/bidi_lstm_fwd.cu: fwd16_kernel): rows of an m16 tile (a cluster
+# takes one or two), threads of a CTA, the multiple of units a CTA owns (its
+# h goes to its peers in 16-byte chunks of 8 units), the cluster sizes, and
+# the shared memory a CTA may use beside its row lengths.
+FWD16_M = 16
+FWD16_ROWS = (16, 32)
+FWD16_THREADS = 640
+FWD16_WARPS = FWD16_THREADS // 32
+FWD16_UNITS = 8
+FWD16_CLUSTER_SIZES = (1, 2, 3, 4, 8)
+FWD16_SMEM_MAX = SMEM_MAX - 4 * 2 * FWD16_M
+# Where the FMA kernel (bidi_lstm_fwd_kernel at fwd_plan: h·Wh on the FMA
+# pipes) beats the tensor-core kernel although a plan of it fits, read from
+# the card at B=256 with full and ragged lengths
+# (scripts/torch_fwd16_probe.py --t-sweep; PERF.md §6): chains of at most
+# FWD16_OLD_LONG_T frames at H <= FWD16_OLD_LONG_H (the filter's T=16 and
+# 32 buckets at H=100), and of at most FWD16_OLD_SHORT_T at H <=
+# FWD16_OLD_SHORT_H. The tensor-core kernel's step is a fixed latency
+# chain; the FMA kernel's costs less at these sizes, where the host's
+# enqueue of a call is as long as the card's work.
+FWD16_OLD_LONG_T = 32
+FWD16_OLD_LONG_H = 100
+FWD16_OLD_SHORT_T = 16
+FWD16_OLD_SHORT_H = 200
+
+
+class Fwd16Plan(NamedTuple):
+    """How the bf16 tensor-core kernel runs K1 or K4's state mode: each
+    direction's chain for a group of ``rows`` rows (16 or 32: one or two
+    m16 tiles) runs on a cluster of ``C`` CTAs; CTA c owns units [c·units,
+    min(H, (c+1)·units)) with their four gate columns and keeps its columns
+    of Wh (and of [Wx; b] for K1) in shared memory for the whole chain; z
+    runs on bf16 mma.sync, the gate math on the accumulator fragments, and
+    h goes to every CTA in 16-byte chunks (an all-gather) with one cluster
+    barrier a step. ``smem``: bytes of shared memory a CTA takes;
+    ``groups`` row groups per direction; ``clusters``: how many clusters of
+    the plan the card holds at once (one wave when 2·groups <= clusters).
+    C 0 (FWD16_NONE): the FMA kernel runs the call (fwd_plan)."""
+    C: int
+    rows: int
+    units: int
+    smem: int
+    groups: int
+    clusters: int
+
+
+FWD16_NONE = Fwd16Plan(0, 0, 0, 0, 0, 0)
+
+
+def fwd16_geometry(D: int, H: int, rows: int, units: int,
+                   hoist: bool) -> dict:
+    """The shared-memory layout of a fwd16 CTA (csrc::geo16), in bytes: bw
+    its columns of Wh and of [Wx; b] [N = 4·units][KH + KX + 8] bf16 (KH =
+    H up to 16, KX = D+1 up to 16 or 0 with ``hoist``, k contiguous), ah
+    the h operand [2][rows][KH + 8], ax the x ring [3][rows][KX + 8] or
+    with ``hoist`` the xz ring [3][rows][4][units], and the output stage of
+    each parity: gs the gates [2][rows][4·units + 2] f32 (rows 4·units + 2
+    words apart, for its banks), hs h and cs c [2][rows][units] bf16. D is
+    the kernel's x width (even)."""
+    N, KH = 4 * units, _up(H, 16)
+    KX = 0 if hoist else _up(D + 1, 16)
+    g = {"N": N, "KH": KH, "KX": KX, "bw": N * (KH + KX + 8) * 2,
+         "ah": 2 * rows * (KH + 8) * 2,
+         "ax": 3 * rows * (4 * units if hoist else KX + 8) * 2,
+         "gs": 2 * rows * (4 * units + 2) * 4, "hs": 2 * rows * units * 2,
+         "cs": 2 * rows * units * 2}
+    g["bytes"] = sum(g[k] for k in ("bw", "ah", "ax", "gs", "hs", "cs"))
+    return g
+
+
+def fwd16_ng(rows: int) -> int:
+    """n tiles a warp takes at most (csrc::f16_ng): 2 at 16 rows, 1 at
+    32."""
+    return 2 if rows == FWD16_M else 1
+
+
+def fwd16_smem(D: int, H: int, rows: int, units: int, hoist: bool,
+               C: int) -> int:
+    """Bytes of dynamic shared memory a fwd16 CTA takes, 0 where the kernel
+    takes no such plan (clstm_bidi_lstm_fwd16_smem counts the same): C in
+    FWD16_CLUSTER_SIZES with every CTA owning a unit, rows in FWD16_ROWS,
+    units a multiple of FWD16_UNITS whose n tiles (units/2) the warps take
+    at most fwd16_ng each, D even (0 with ``hoist``), within
+    FWD16_SMEM_MAX."""
+    if (C not in FWD16_CLUSTER_SIZES or rows not in FWD16_ROWS or H < 1
+            or units < FWD16_UNITS or units % FWD16_UNITS
+            or C * units < H or (C - 1) * units >= H
+            or units // 2 > FWD16_WARPS * fwd16_ng(rows)
+            or (not hoist and (D < 2 or D % 2))):
+        return 0
+    g = fwd16_geometry(D, H, rows, units, hoist)
+    return g["bytes"] if g["bytes"] <= FWD16_SMEM_MAX else 0
+
+
+def fwd16_units(H: int, C: int) -> int:
+    """Units a CTA owns at cluster size C: ceil(H / C) rounded up to a
+    multiple of FWD16_UNITS (the last CTA owns the rest); 0 where that
+    leaves a CTA without a unit."""
+    units = _up(-(-H // C), FWD16_UNITS)
+    return units if (C - 1) * units < H else 0
+
+
+def fwd16_prefers_old(T: int, H: int) -> bool:
+    """Whether a chain of T frames and H units takes the FMA kernel although
+    a fwd16 plan fits: where that kernel was the faster on the card
+    (FWD16_OLD_*)."""
+    return ((T <= FWD16_OLD_LONG_T and H <= FWD16_OLD_LONG_H)
+            or (T <= FWD16_OLD_SHORT_T and H <= FWD16_OLD_SHORT_H))
+
+
+def fwd16_cluster_plan(B: int, D: int, H: int, hoist: bool, clusters=None,
+                       C: Optional[int] = None,
+                       rows: Optional[int] = None) -> Fwd16Plan:
+    """The fwd16 plan for a batch of B rows, x width D (the kernel's, even;
+    unused with ``hoist``: K4) and H units.
+
+    Of the plans that fit (C in FWD16_CLUSTER_SIZES, rows in FWD16_ROWS,
+    fwd16_units, fwd16_smem), the one of fewest waves (2·groups over the
+    clusters the card holds at once), then of least work a CTA and step
+    (rows·units: its share of the product and of the gate math), then the
+    smaller C (fewer CTAs to hand h to), then fewer rows: at B=256, H=100
+    and 200, C=3 with 16 rows (32 clusters of 3 in one wave on an H100,
+    which holds 39 of 3 and 30 of 4). FWD16_NONE where none fits.
+    ``clusters(C, rows, units)`` gives how many clusters of a plan the
+    card holds at once: on a card the kernel's occupancy query
+    (``fwd16_clusters``), by default H100_CLUSTERS. ``C`` and ``rows``
+    force a choice, for measurements (scripts/torch_fwd16_probe.py times
+    the plans in turns)."""
+    if min(B, H) < 1:
+        raise ValueError(f"no fwd16 plan for B={B} H={H}")
+    if clusters is None:
+        def clusters(C, rows, units):
+            return H100_CLUSTERS[C]
+    d = 0 if hoist else D
+    best, key = None, None
+    for c in FWD16_CLUSTER_SIZES if C is None else (C,):
+        units = fwd16_units(H, c)
+        if not units:
+            continue
+        for r in FWD16_ROWS if rows is None else (rows,):
+            smem = fwd16_smem(d, H, r, units, hoist, c)
+            if not smem:
+                continue
+            groups = -(-B // r)
+            n = int(clusters(c, r, units))
+            k = (-(-2 * groups // n), r * units, c, r)
+            if key is None or k < key:
+                best, key = Fwd16Plan(c, r, units, smem, groups, n), k
+    return best or FWD16_NONE
+
+
+def fwd16_plan(B: int, T: int, D: int, H: int, hoist: bool,
+               clusters=None) -> Fwd16Plan:
+    """The bf16 K1 (K4's state mode with ``hoist``) plan for B rows of T
+    frames, x width D (the kernel's, even) and H units: the cluster plan of
+    fwd16_cluster_plan, or FWD16_NONE (the FMA kernel, fwd_plan) where none
+    fits (H of several hundred with the x part, 700, 2048) or
+    fwd16_prefers_old."""
+    if min(B, T, H) < 1:
+        raise ValueError(f"no fwd16 plan for B={B} T={T} H={H}")
+    if fwd16_prefers_old(T, H):
+        return FWD16_NONE
+    return fwd16_cluster_plan(B, D, H, hoist, clusters)
+
+
+def fwd16_weights(params_f: dict, params_r: dict, with_x: bool):
+    """The fwd16 kernel's weights, both directions, bf16 and k contiguous:
+    (wx [2, 4H, D'+1], row 4·u + g the column of gate g of unit u over the
+    rows of Wx then b (an odd D gets a zero row before b, D' = D rounded up
+    to even, as fwd_weights), or None; wh [2, 4H, H], the same rows of
+    Wh)."""
+    wx, wh = fwd_weights(params_f, params_r, with_x, True)
+
+    def cols(w):       # [2, K, H, 4] -> [2, 4H, K]
+        return w.flatten(2).transpose(1, 2).contiguous()
+    return (cols(wx) if with_x else None), cols(wh)
 
 
 def interleave_gates(w: torch.Tensor) -> torch.Tensor:
@@ -802,17 +991,57 @@ def device_chain_plan(device, B: int, T: int, H: int) -> ChainPlan:
     return p
 
 
+def fwd16_clusters(device, D: int, H: int, hoist: bool):
+    """``clusters`` for fwd16_cluster_plan on ``device``'s card: the fwd16
+    kernel's occupancy query (``clstm_bidi_lstm_fwd16_clusters``),
+    cached."""
+    def query(C, rows, units):
+        k = ("fwd16", device, D, H, hoist, C, rows, units)
+        n = _active.get(k)
+        if n is None:
+            with (torch.cuda.device(device) if device.type == "cuda"
+                  else contextlib.nullcontext()):
+                n = _kernel("clstm_bidi_lstm_fwd16_clusters")(
+                    0 if hoist else D, H, int(hoist), C, rows, units)
+            if n < 1:
+                raise RuntimeError(
+                    f"the card holds no cluster of {C} CTAs of the fwd16 "
+                    f"plan ({rows} rows, {units} units; the occupancy query "
+                    f"returned {n})")
+            _active[k] = n
+        return n
+    return query
+
+
+def device_fwd16_plan(device, B: int, T: int, D: int, H: int,
+                      hoist: bool) -> Fwd16Plan:
+    """fwd16_plan on ``device``'s card, cached per device and shape."""
+    key = ("fwd16", device, B, T, D, H, hoist)
+    p = _plans.get(key)
+    if p is None:
+        p = fwd16_plan(B, T, D, H, hoist, fwd16_clusters(device, D, H,
+                                                         hoist))
+        _plans[key] = p
+    return p
+
+
 def _plan_args(p: FwdPlan) -> tuple:
     return p.C, p.rows, p.units, p.resident
 
 
-def _fwd_launch(kind: str, counter, params_f: dict, params_r: dict,
-                inp: torch.Tensor, lengths: Optional[torch.Tensor],
-                bf16: bool):
-    """Launch the forward kernel in mode ``kind`` ("fwd" K3, "fwd_state"
-    K1, "fwd_xz" K4, "fwd_xz_state" K4's state mode) on x or xz (already
-    checked) -> y, or (y, gates, cell) in the state modes. An empty batch
-    launches nothing; a launch adds one to ``counter.launches``."""
+def _fwd(kind: str, plan, params_f: dict, params_r: dict,
+         inp: torch.Tensor, lengths: Optional[torch.Tensor], bf16: bool,
+         launch=None):
+    """One launch of the forward kernel in mode ``kind`` ("fwd" K3,
+    "fwd_state" K1, "fwd_xz" K4, "fwd_xz_state" K4's state mode) at
+    ``plan`` on checked CUDA inputs, uncounted (the wrappers count their
+    own launches; measurements launch a forced plan here) -> y, or (y,
+    gates, cell) in the state modes. A FwdPlan launches the FMA kernel
+    (either precision), a Fwd16Plan the bf16 tensor-core kernel (K1 and
+    K4's state mode). An empty batch (B or T 0) launches nothing and
+    returns empty outputs. ``launch(name, device, *args)`` calls the C
+    entry point (by default ``_launch``; a measurement of another build
+    passes its own)."""
     hoist, state = "xz" in kind, kind.endswith("state")
     dev = inp.device
     B, T = inp.shape[:2]
@@ -826,16 +1055,54 @@ def _fwd_launch(kind: str, counter, params_f: dict, params_r: dict,
         outs += [torch.empty((B, T, 2, 4 * H), dtype=torch.float32,
                              device=dev),
                  torch.empty((B, T, 2, H), dtype=dt, device=dev)]
-    if B and T:
+    if not (B and T):
+        return tuple(outs) if state else outs[0]
+    shape = (B, T, H) if hoist else (B, T, D, H)
+    if isinstance(plan, Fwd16Plan):
+        if not (bf16 and state and plan.C):
+            raise ValueError(f"the fwd16 kernel runs K1 and K4's state mode "
+                             f"in the bf16 mode, not {kind} at {plan}")
+        # Its x and xz stages copy 4- and 8-byte pieces.
+        inp = _aligned(inp)
+        wx, wh = fwd16_weights(params_f, params_r, not hoist)
+        name = "clstm_bidi_lstm_fwd16_" + ("xz_state" if hoist else "state")
+        args = (plan.C, plan.rows, plan.units)
+    else:
         wx, wh = fwd_weights(params_f, params_r, not hoist, bf16)
-        plan = device_plan(dev, B, D, H, hoist, state, 2 if bf16 else 4)
-        shape = (B, T, H) if hoist else (B, T, D, H)
-        _launch(f"clstm_bidi_lstm_{kind}" + ("_bf16" if bf16 else ""), dev,
-                inp.data_ptr(), _ptr(lengths),
-                *([] if hoist else [wx.data_ptr()]), wh.data_ptr(),
-                *(o.data_ptr() for o in outs), *shape, *_plan_args(plan))
-        counter.launches += 1
+        name = f"clstm_bidi_lstm_{kind}" + ("_bf16" if bf16 else "")
+        args = _plan_args(plan)
+    (launch or _launch)(name, dev, inp.data_ptr(), _ptr(lengths),
+                        *([] if hoist else [wx.data_ptr()]), wh.data_ptr(),
+                        *(o.data_ptr() for o in outs), *shape, *args)
     return tuple(outs) if state else outs[0]
+
+
+def _fwd_launch(kind: str, counter, params_f: dict, params_r: dict,
+                inp: torch.Tensor, lengths: Optional[torch.Tensor],
+                bf16: bool):
+    """Launch the forward kernel in mode ``kind`` (see _fwd) on x or xz
+    (already checked) at the card's plan -> y, or (y, gates, cell) in the
+    state modes: in the bf16 mode K1 and K4's state mode on the tensor-core
+    kernel where device_fwd16_plan gives a plan, else the FMA kernel at
+    device_plan's. An empty batch launches nothing; a launch adds one to
+    ``counter.launches``, and one of the tensor-core kernel also to
+    ``counter.launches16``."""
+    hoist, state = "xz" in kind, kind.endswith("state")
+    B, T = inp.shape[:2]
+    if not (B and T):
+        return _fwd(kind, None, params_f, params_r, inp, lengths, bf16)
+    dev = inp.device
+    H = params_f["Wh"].shape[0]
+    D = 0 if hoist else inp.shape[-1] + (inp.shape[-1] % 2 if bf16 else 0)
+    plan = (device_fwd16_plan(dev, B, T, D, H, hoist) if bf16 and state
+            else FWD16_NONE)
+    if not plan.C:
+        plan = device_plan(dev, B, D, H, hoist, state, 2 if bf16 else 4)
+    out = _fwd(kind, plan, params_f, params_r, inp, lengths, bf16)
+    if isinstance(plan, Fwd16Plan):
+        counter.launches16 += 1
+    counter.launches += 1
+    return out
 
 
 def bidi_lstm_infer(params_f: dict, params_r: dict, x: torch.Tensor,
@@ -876,6 +1143,9 @@ def bidi_lstm_fwd_state(params_f: dict, params_r: dict, x: torch.Tensor,
     (y [B, T, 2H], gates [B, T, 2, 4H], cell [B, T, 2, H]), f32 (y and
     cell bf16 with ``xz_bf16``), original time order per direction,
     exactly 0 on padded frames (see ops/lstm.py::bidi_lstm_fwd_state_plain).
+    With ``xz_bf16`` the launch takes the tensor-core kernel where
+    ``device_fwd16_plan`` gives a plan (``launches16`` counts those), else
+    the FMA kernel; one launch a call either way.
     """
     _check(params_f, params_r, x, lengths, xz_bf16)
     if x.device.type == "cpu":
@@ -906,6 +1176,7 @@ def bidi_lstm_fwd_state_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
     """K4, state mode: as ``bidi_lstm_infer_xz``, and also returns gates
     [B, T, 2, 4H] and cell [B, T, 2, H] with K1's layout, type and zeros,
     which K2 reads unchanged (see ops/lstm.py::bidi_lstm_fwd_state_xz_plain).
+    In the bf16 mode it takes the tensor-core kernel as K1 does.
     """
     _check_xz(params_f, params_r, xz, lengths, xz_bf16)
     if xz.device.type == "cpu":
@@ -1103,3 +1374,7 @@ bidi_lstm_infer_xz.launches = 0
 bidi_lstm_fwd_state_xz.launches = 0
 bidi_lstm_bwd_chain.launches = 0
 bidi_lstm_bwd_reduce.launches = 0
+# Of the bf16 mode's K1 and K4 state launches, those of the tensor-core
+# kernel (fwd16_plan).
+bidi_lstm_fwd_state.launches16 = 0
+bidi_lstm_fwd_state_xz.launches16 = 0
