@@ -38,7 +38,9 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      CLSTMOCR.load, and 64 synthetic line images go through
      cli.clstmocr.predict_pages and write_outputs, with the normalization on
      the host (device_preprocess=0) and then on the card (1, the default):
-     each width bucket must launch K3 once, the per-frame ids must agree
+     each width bucket must launch K3 once (in the bf16 mode on the fwd16
+     kernel in every bucket, launches16 == launches, and in f32 never),
+     the per-frame ids must agree
      with the plain path run on the same prepared batches, and the card's
      per-line lengths must match the same prepare run on the CPU (all but
      one line in 64, by +-1); lines/s both ways (median and range of 7
@@ -90,8 +92,8 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      cuDNN's nn.LSTM at D=400 in turns with product + K4;
  14. bidi2 serving: a seeded config-4 net (createBidi(kind="bidi2")) saved
      as .clstm and run through predict_pages both ways; every width bucket
-     must launch K3 (layer 1) and K4 (layer 2), frame ids and lengths as
-     in 5;
+     must launch K3 (layer 1) and K4 (layer 2), on the fwd16 kernel as in
+     5, frame ids and lengths as in 5;
  15. bidi2 training: 5 train_batch steps at the config-4 bench profile
      (bench.py:538-600: B=256, T=1024, 900 frames, S=81, 400 classes)
      against the plain steps, each step launching K1, K4, K2 on both layers,
@@ -131,13 +133,14 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      edges (CHAIN16_EDGES: H of 1 to 2048, B of 1 to 1024, T of 1 to 70,
      mixed, all-zero and no lengths, the plan and, beside the L2 branch
      where it is the faster, the cluster plan), each plan logged with the
-     kernel's own count of its shared memory; K1 and K4's state mode on
-     the bf16 tensor-core kernel (fwd16_plan) across its plan's edges
-     (FWD16_EDGES: H of 1 to 2048, B of 1 to 1024, T of 1 to 70, mixed,
-     all-zero and no lengths, the plan and, beside the FMA kernel where
-     fwd16_prefers_old, the fwd16 plan), each plan logged with the kernel's
-     own count of its shared memory, and the planted controls at bidi2's two
-     layer shapes (lengths 900 and mixed), where that kernel runs;
+     kernel's own count of its shared memory; K1 and K4's state mode, and
+     K3 and K4 inference, on the bf16 tensor-core kernel (fwd16_plan)
+     across its plan's edges (FWD16_EDGES: H of 1 to 2048, B of 1 to 1024,
+     T of 1 to 70, mixed, all-zero and no lengths, the plan and, beside the
+     FMA kernel where fwd16_prefers_old, the fwd16 plan), each plan logged
+     with the kernel's own count of its shared memory (the mode's
+     instance), and the planted controls at bidi2's two layer shapes
+     (lengths 900 and mixed), where that kernel runs both modes;
  19. each bf16 kernel timed in turns with its f32 mode at the bench shapes,
      and with its library call (cuDNN's nn.LSTM in bf16, the plain version's
      einsums on bf16 operands); train_batch in both modes in turns (11, 15);
@@ -149,10 +152,15 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      bidi2's K1 and K4 state, the filter's K1 at T=16 and 32) in turns with
      the FMA kernel's bf16 instance forced at its own plan and with cuDNN's
      bf16 nn.LSTM forward with grad, with its bound (and in the log a serial
-     floor derived from an earlier run's cluster barrier); the bidi
+     floor derived from an earlier run's cluster barrier), and its
+     inference instances at FWD16_INFER_SHAPES (K3 and K4 at the same
+     shapes) the same way, with cuDNN's forward without grad; the bidi
      and bidi2 bf16 train_batch steps in turns with K1 and K4 state on PR
      5's kernel (phases 11 and 15), whose profiles must name the fwd16
      kernel, and whose 5 bf16 steps (phases 9 and 15) must each launch it;
+     bench.py's infer profile (make_predict_step, bf16, B=256, T=1024,
+     lengths 900) of bidi and bidi2 with K3 and K4 on the FMA kernel and on
+     the fwd16 kernel in turns, in lines/s (phases 11 and 15);
  20. the learning check, both modes from the same init on the same
      batches, at each init of LEARN_SEEDS: bidi at full width on a glyph
      corpus made in code (LEARN_*); f32 trains until its test CER is below
@@ -180,8 +188,12 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      loop), the card's idle share in the first (torch.profiler, kernel
      activity) and the host's enqueue ms of a block; clstmfilter on the
      saved model: the batched output equals the batch_size=1 output line
-     for line, K3 once a batch and once a line, its frame ids against the
-     plain path;
+     for line, K3 once a batch and once a line (on the fwd16 kernel where
+     the call is past fwd16_prefers_old's window), its frame ids against
+     the plain path; clstmfilter's batched run and a clstmfiltertrain pass
+     in turns with that window kept and shut (fwd16_window_off; the shut
+     turns must take the fwd16 kernel in every call), in strings/s and
+     pairs/s;
  22. whether the native host I/O library (io/native.py: g++, png.h,
      libpng) builds on the machine, and so which PNG reader and line loader
      the OCR phases took; where it builds, read_png bit for bit against PIL
@@ -239,7 +251,7 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      off T_BUCKETS_FINE against the plain step within 9's step-1 limits,
      K1, K2, K5 and K6 launched once each; (c) clstmocrtrain on 17's
      corpus (B=32, K=64, a quarter of its 64-epoch plan) with t_buckets
-     fine, auto, auto, fine: lines/s, groups, the card's idle share and
+     fine, then auto: lines/s, groups, the card's idle share and
      TESTERR, K3, K1, K2, K5 and K6 launched in each run, and 17's no-wait
      check at an auto bucket; (d) two gloo ranks sharing cuda:0, their
      measured penalties forced apart, building one auto cache: both hold
@@ -740,26 +752,30 @@ def lstm_bound(kind: str, B, T, D, H, V, dx=False, esize=4):
     h·Wh on xz), K2's chain ("chain": Dh = dz·Whᵀ) or reduction
     ("reduce": dW, and dx when asked). ``esize`` bytes for the streams and
     weights of the mode (4 f32, 2 bf16, whose products then run at the bf16
-    tensor cores' peak); the gates and dW are f32 in both."""
+    tensor cores' peak); the gates and dW are f32 in both. The streams read
+    count at the V valid frames (a padded frame's output is 0 and reads
+    nothing), those written at all B·T (the padded zeros are written)."""
     G, BT, e = 4 * H, B * T, esize
     peak = F32_MMA_FLOPS if e == 4 else BF16_MMA_FLOPS
-    state = BT * 2 * (4 * G + e * H)            # gates and cell written
+
+    def state(n):                               # gates and cell, n frames
+        return n * 2 * (4 * G + e * H)
     if kind in ("fwd", "fwd_state"):
         flop = 2 * V * 2 * (D + 1 + H) * G
-        nbytes = e * (BT * D + 2 * (D + 1 + H) * G + BT * 2 * H) + 4 * B
+        nbytes = e * (V * D + 2 * (D + 1 + H) * G + BT * 2 * H) + 4 * B
     elif kind in ("xz", "xz_state"):
         flop = 2 * V * 2 * H * G
-        nbytes = e * (BT * 2 * G + 2 * H * G + BT * 2 * H) + 4 * B
+        nbytes = e * (V * 2 * G + 2 * H * G + BT * 2 * H) + 4 * B
     elif kind == "chain":
         return bound(2 * V * 2 * G * H,
-                     state + e * (BT * 2 * H + 2 * H * G + BT * 2 * G)
+                     state(V) + e * (V * 2 * H + 2 * H * G + BT * 2 * G)
                      + 4 * B, peak)
     else:
         flop = 2 * V * 2 * (D + 1 + H) * G + (V * 2 * 2 * G * D if dx else 0)
-        nbytes = (e * (BT * D + BT * 2 * H + BT * 2 * G
+        nbytes = (e * (V * D + V * 2 * H + V * 2 * G
                        + (2 * D * G + BT * D if dx else 0))
                   + 4 * 2 * (D + 1 + H) * G)
-    return bound(flop, nbytes + (state if kind.endswith("state") else 0),
+    return bound(flop, nbytes + (state(BT) if kind.endswith("state") else 0),
                  peak)
 
 
@@ -980,10 +996,11 @@ def load_fwd_against(src: str) -> dict:
     may have the current C interface (weights interleaved by unit, a plan
     from fwd_plan with that library's own occupancy query) or the earlier
     one (wx [2,D,4H], wh [2,H,4H] and b [2,4H] as they are, no plan). Its
-    bf16 K1 and K4 state are its fwd16 kernel where it has one (at
-    fwd16_plan with its own occupancy query), else its bf16 instances of
-    the FMA kernel (sources from before the fwd16 kernel). No launch is
-    counted."""
+    bf16 K3, K1 and K4 (both modes) are its fwd16 kernel where it has one
+    (at fwd16_plan with its own occupancy query), else its bf16 instances
+    of the FMA kernel (sources from before the fwd16 kernel). A fwd16
+    kernel without the inference instances (its queries take no mode) is
+    refused. No launch is counted."""
     with tempfile.TemporaryDirectory() as tmp:
         so = os.path.join(tmp, "fwd_against.so")
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
@@ -1068,7 +1085,10 @@ def load_fwd_against(src: str) -> dict:
            "K4 state": run_xz(True)}
     if not (current and hasattr(lib, "clstm_bidi_lstm_fwd_state_bf16")):
         return out
-    has16 = hasattr(lib, "clstm_bidi_lstm_fwd16_state")
+    has16 = hasattr(lib, "clstm_bidi_lstm_fwd16")
+    if hasattr(lib, "clstm_bidi_lstm_fwd16_state") and not has16:
+        raise ValueError(f"{src}: a fwd16 kernel without the inference "
+                         "instances (an earlier C interface)")
     for name, ptrs in (("clstm_bidi_lstm_fwd_bf16", 5),
                        ("clstm_bidi_lstm_fwd_state_bf16", 7),
                        ("clstm_bidi_lstm_fwd_xz_bf16", 4),
@@ -1079,7 +1099,9 @@ def load_fwd_against(src: str) -> dict:
     if has16:
         lib.clstm_bidi_lstm_fwd16_state.argtypes = [P] * 7 + [I] * 7 + [P]
         lib.clstm_bidi_lstm_fwd16_xz_state.argtypes = [P] * 6 + [I] * 6 + [P]
-        lib.clstm_bidi_lstm_fwd16_clusters.argtypes = [I] * 6
+        lib.clstm_bidi_lstm_fwd16.argtypes = [P] * 5 + [I] * 7 + [P]
+        lib.clstm_bidi_lstm_fwd16_xz.argtypes = [P] * 4 + [I] * 6 + [P]
+        lib.clstm_bidi_lstm_fwd16_clusters.argtypes = [I] * 7
 
     def launch(name, device, *args):
         call(name, *args)
@@ -1092,11 +1114,11 @@ def load_fwd_against(src: str) -> dict:
             H_ = pf["Wh"].shape[0]
             D_ = 0 if hoist else inp.shape[-1] + inp.shape[-1] % 2
             plan = bk.FWD16_NONE
-            if state and has16:
+            if has16:
                 def q(C_, rows, units):
                     return lib.clstm_bidi_lstm_fwd16_clusters(
-                        D_, H_, int(hoist), C_, rows, units)
-                plan = bk.fwd16_plan(B_, T_, D_, H_, hoist, q)
+                        D_, H_, int(hoist), int(state), C_, rows, units)
+                plan = bk.fwd16_plan(B_, T_, D_, H_, hoist, q, state=state)
             if not plan.C:
                 plan = bk.fwd_plan(B_, D_, H_, hoist, state, bk.card_clusters(
                     lookup, D_, H_, hoist, state, 2), 2)
@@ -1712,7 +1734,8 @@ COUNTED = (bidi_lstm_infer, bidi_lstm_fwd_state, bidi_lstm_infer_xz,
 
 # The wrappers whose bf16 launches may take the tensor-core kernel
 # (fwd16_plan): launches16 counts those.
-COUNTED16 = (bidi_lstm_fwd_state, bidi_lstm_fwd_state_xz)
+COUNTED16 = (bidi_lstm_infer, bidi_lstm_fwd_state, bidi_lstm_infer_xz,
+             bidi_lstm_fwd_state_xz)
 
 
 def reset_counts() -> None:
@@ -1730,6 +1753,34 @@ def counts16() -> dict:
 
 def counts() -> dict:
     return {f.__name__: f.launches for f in COUNTED}
+
+
+def fwd16_due(ts, d: int, h: int) -> int:
+    """How many bf16 inference calls of a layer of input width d and h
+    units, at the chain lengths ``ts``, take the fwd16 kernel: those past
+    fwd16_prefers_old's window where a fwd16 plan fits (whether one fits
+    depends on neither the batch nor the card's cluster count). For the
+    filter's short buckets, which the window may keep on the FMA kernel."""
+    hoist = bk.hoists_projection(d, h)
+    dk = 0 if hoist else d + d % 2
+    return sum(bool(bk.fwd16_plan(1, t, dk, h, hoist, state=False).C)
+               for t in ts)
+
+
+def serving_fwd16(tag: str, r: dict, names) -> None:
+    """Raise unless every launch of each wrapper in ``names`` in a clstmocr
+    serve() run (buckets of 128 frames and more at H = 100 or 200, past
+    any window) was one of the fwd16 kernel in the bf16 mode
+    (launches16 == launches), and none in f32. The expected count comes
+    from the launches, not from the plan that routes them."""
+    for name in names:
+        got, n = r["launches16"][name], r["launches"][name]
+        want = n if r["bf16"] else 0
+        if not n or got != want:
+            raise AssertionError(
+                f"{tag}: {name} launched {n} times in {len(r['buckets'])} "
+                f"buckets (T {r['buckets']}), {got} of them on the fwd16 "
+                f"kernel; want {want}")
 
 
 def ids_against_plain(net, batches, bf16: bool, nclasses: int,
@@ -1796,7 +1847,8 @@ def serve(model: str, images, dev, nclasses: int, tmp: str,
     rounded recipe (the kernels' share of frames that differ from it within
     BF16_FACTOR times the plain f32 recipe's, or 1 - ID_AGREE_MIN where
     that is larger). Returns
-    {launches, buckets (T per bucket), e2e_s (median of the timed passes),
+    {launches, launches16 (of the bf16 launches, the fwd16 kernel's),
+    buckets (T per bucket), e2e_s (median of the timed passes),
     e2e_range (their min and max), cold_s, share (of valid frames whose ids
     agree), frames, and with device_preprocess prep_ms, prep_host_ms,
     prep_busy_ms (per prepare call), prep_share, len_mismatch, nosync_ms
@@ -1853,7 +1905,7 @@ def serve(model: str, images, dev, nclasses: int, tmp: str,
     try:
         reset_counts()
         results = run()[0]
-        launches = counts()
+        launches, launches16 = counts(), counts16()
     finally:
         preprocess.prepare_batch_device = prepare
         vars(ocr).pop("predict_batch_images", None)
@@ -1889,7 +1941,8 @@ def serve(model: str, images, dev, nclasses: int, tmp: str,
                        "prep_ms": [a.elapsed_time(b) for (a, b), _ in spans],
                        "prep_host_ms": [1e3 * h for _, h in spans]})
     walls = sorted(p["wall_s"] for p in passes)
-    out = {"launches": launches, "e2e_s": float(np.median(walls)),
+    out = {"launches": launches, "launches16": launches16,
+           "e2e_s": float(np.median(walls)),
            "e2e_range": (walls[0], walls[-1]), "cold_s": cold_s,
            "buckets": [int(b[0].shape[1]) for b in batches]}
     if not all(np.isfinite(results[i][2]).all() for i in results):
@@ -1970,6 +2023,7 @@ def serve_line(tag: str, r: dict, dp: int) -> str:
             f"device_preprocess={dp}: {N_LINES} lines in "
             f"{len(r['buckets'])} width buckets ({', '.join(map(str, r['buckets']))}"
             f" frames), launches { {k: v for k, v in r['launches'].items() if v} }"
+            f" (fwd16 kernel { {k: v for k, v in r['launches16'].items() if v} })"
             f", {E2E_PASSES} warm passes: median {r['e2e_s']:.4f} s end to end "
             f"({N_LINES / r['e2e_s']:.1f} lines/s; range {lo:.4f}-{hi:.4f} s, "
             f"{N_LINES / hi:.1f}-{N_LINES / lo:.1f} lines/s); cold, the "
@@ -3147,9 +3201,9 @@ def chain16_turns(dev, card: str, k2_against=None, reps=None) -> dict:
     return out
 
 
-# K1 and K4's state mode on the bf16 tensor-core kernel
+# K3, K1 and K4 in both modes on the bf16 tensor-core kernel
 # (ops/bidi_lstm_kernel.py::fwd16_plan) across its plan's edges (B, T, D,
-# H; D 0: K4's state mode on the bf16 hoisted product): H of 1, 7 and 201
+# H; D 0: K4 on the bf16 hoisted product): H of 1, 7 and 201
 # (not a multiple of 8 or of the cluster size), 24 and 64, 100 and 200 (the
 # bench widths), 209 (C=4 and two m16 tiles at B=384), 450 and 700 (K4 and
 # K1: no plan fits, the FMA kernel), 2048; B of 1, 3, 17, 33 (below and
@@ -3174,6 +3228,15 @@ FWD16_SHAPES = (("bidi K1", B, T, D, H), ("bidi2 layer 1 K1", B, T, D, H2),
                 ("bidi2 layer 2 K4 state", B, T, 0, H2),
                 ("filter T=16 K1", B, 16, 19, H),
                 ("filter T=32 K1", B, 32, 19, H))
+# K3 and K4 inference at the shapes the port serves (bench.py's infer
+# profile: bidi, bidi2's two layers; clstmfilter's two T buckets).
+FWD16_INFER_SHAPES = (("bidi K3", B, T, D, H),
+                      ("bidi2 layer 1 K3", B, T, D, H2),
+                      ("bidi2 layer 2 K4", B, T, 0, H2),
+                      ("filter T=16 K3", B, 16, 19, H),
+                      ("filter T=32 K3", B, 32, 19, H))
+# Calls a turn of fwd16_turns at the short chains (5 at T=1024).
+FWD16_TURN_REPS = 20
 # The cluster barrier's round trip at C=3, measured by
 # scripts/torch_k2_chain_probe.py in an earlier run (NVIDIA H100 80GB HBM3,
 # 700.00 W), not by this script: a chain of T steps on clusters cannot take
@@ -3192,15 +3255,16 @@ def fwd16_plan_line(plan) -> str:
                "; more than one wave"))
 
 
-def fwd16_smem_checked(dev, d: int, h: int, plan) -> None:
+def fwd16_smem_checked(dev, d: int, h: int, plan, state: bool = True
+                       ) -> None:
     """Raise unless the kernel's own count of a fwd16 plan's shared memory
-    (clstm_bidi_lstm_fwd16_smem) is the plan's."""
+    (clstm_bidi_lstm_fwd16_smem, the mode's instance) is the plan's."""
     if not plan.C:
         return
     hoist = d == 0
     n = bk._kernel("clstm_bidi_lstm_fwd16_smem")(
-        0 if hoist else d + d % 2, h, int(hoist), plan.C, plan.rows,
-        plan.units)
+        0 if hoist else d + d % 2, h, int(hoist), int(state), plan.C,
+        plan.rows, plan.units)
     if n != plan.smem:
         raise AssertionError(f"fwd16 plan {plan}: the kernel counts {n} "
                              f"bytes of shared memory")
@@ -3221,15 +3285,27 @@ def fwd16_inputs(rng, b, t, d, h, dev):
     return pf, pr, lstm_ops.hoisted_projection(pf, pr, x, xz_bf16=True), True
 
 
-def fwd16_check(label, pf, pr, inp, hoist, L, plan=None):
-    """K1 (K4's state mode with ``hoist``) in the bf16 mode, through the
-    wrapper or, given ``plan``, launched at it (bk._fwd), against the plain
-    bf16 version and the float64 recipe: check_streams' rule, padded frames
-    exactly 0, two calls bitwise equal -> (distances, max|kernel - plain|)."""
-    kind = "fwd_xz_state" if hoist else "fwd_state"
-    plain_fn = (lstm_ops.bidi_lstm_fwd_state_xz_plain if hoist
-                else lstm_ops.bidi_lstm_fwd_state_plain)
-    wrapper = bidi_lstm_fwd_state_xz if hoist else bidi_lstm_fwd_state
+def fwd16_check(label, pf, pr, inp, hoist, L, plan=None, state=True):
+    """K1 (K4's state mode with ``hoist``; without ``state`` K3, or K4
+    inference) in the bf16 mode, through the wrapper or, given ``plan``,
+    launched at it (bk._fwd), against the plain bf16 version and the
+    float64 recipe: check_streams' rule, padded frames exactly 0, two calls
+    bitwise equal -> (distances, max|kernel - plain|)."""
+    kind = ("fwd_xz" if hoist else "fwd") + ("_state" if state else "")
+    if state:
+        plain_fn = (lstm_ops.bidi_lstm_fwd_state_xz_plain if hoist
+                    else lstm_ops.bidi_lstm_fwd_state_plain)
+        wrapper = bidi_lstm_fwd_state_xz if hoist else bidi_lstm_fwd_state
+    else:
+        def plain_fn(*a, **kw):
+            fn = (lstm_ops.bidi_lstm_apply_xz if hoist
+                  else lstm_ops.bidi_lstm_apply)
+            return (fn(*a, **kw),)
+
+        def wrapper(*a, **kw):
+            if hoist:
+                return (bidi_lstm_infer_xz(*a, **kw),)
+            return (bidi_lstm_infer(*a, hoist=False, **kw),)
     b, t = inp.shape[:2]
     Lr = (torch.full((b,), t, dtype=torch.int32, device=inp.device)
           if L is None else L)
@@ -3240,53 +3316,61 @@ def fwd16_check(label, pf, pr, inp, hoist, L, plan=None):
         def run():
             if plan is None:
                 return wrapper(pf, pr, inp, L, xz_bf16=True)
-            return bk._fwd(kind, plan, pf, pr, inp, L, True)
-        return check_streams(label, run(), run(), Lr, (BF16_ULP,) * 3,
-                             plain, ref)
+            out = bk._fwd(kind, plan, pf, pr, inp, L, True)
+            return out if state else (out,)
+        return check_streams(label, run(), run(), Lr,
+                             (BF16_ULP,) * len(plain), plain, ref)
 
 
 def fwd16_edges(dev) -> dict:
-    """K1 and K4's state mode in the bf16 mode at FWD16_EDGES (phase 18),
-    with mixed, all-zero and no lengths, through the wrapper and, where its
-    plan is the FMA kernel although a fwd16 plan fits, at that plan: the
-    bf16 rule, padded frames exactly 0, two calls bitwise equal; each plan
-    logged with the kernel's own count of its shared memory. Returns
-    {"dist": {label: distances}, "err": max|kernel - plain|}."""
+    """K1 and K4's state mode, then K3 and K4 inference, in the bf16 mode
+    at FWD16_EDGES (phase 18), with mixed, all-zero and no lengths, through
+    the wrapper and, where its plan is the FMA kernel although a fwd16 plan
+    fits, at that plan: the bf16 rule, padded frames exactly 0, two calls
+    bitwise equal; each plan logged with the kernel's own count of its
+    shared memory. Returns {"dist": {label: distances}, "err": max|kernel -
+    plain| of the state modes, "infer_err": of the inference modes}."""
     rng = np.random.RandomState(23)
-    out, err = {}, 0.0
+    out, err = {}, {True: 0.0, False: 0.0}
     for (b, t, d, h) in FWD16_EDGES:
         pf, pr, inp, hoist = fwd16_inputs(rng, b, t, d, h, dev)
         dk = 0 if hoist else d + d % 2
-        plan = bk.device_fwd16_plan(dev, b, t, dk, h, hoist)
-        plans = [("plan", plan)]
-        if not plan.C:
-            other = bk.fwd16_cluster_plan(b, dk, h, hoist,
-                                          bk.fwd16_clusters(dev, dk, h,
-                                                            hoist))
-            if other.C:
-                plans.append(("fwd16 plan", other))
-        for _, p in plans:
-            fwd16_smem_checked(dev, d, h, p)
         ml = rng.randint(0, t + 1, b).astype(np.int32)
         ml[0], ml[-1] = 0, t
-        for lname, L in (("mixed", torch.from_numpy(ml).to(dev)),
-                         ("all 0", torch.zeros(b, dtype=torch.int32,
-                                               device=dev)),
-                         ("none", None)):
-            for which, p in plans:
-                label = (f"{'K4 state' if hoist else 'K1'} B={b} T={t} "
-                         f"D={d or '-'} H={h} lengths={lname} {which}")
-                dist, e = fwd16_check(f"bf16 {label}", pf, pr, inp, hoist,
-                                      L, None if which == "plan" else p)
-                out[label] = functools.reduce(dist_max, dist.values())
-                err = max(err, e)
-                log(f"[fwd16] {label}: {fwd16_plan_line(p)}; float64 "
-                    f"distance kernel/plain (the larger over y, gates, "
-                    f"cell) {out[label][0]:.2e}/{out[label][1]:.2e}, mean "
-                    f"{out[label][2]:.2e}/{out[label][3]:.2e}; max|kernel - "
-                    f"plain| {e:.2e}; padded frames exactly 0, two calls "
-                    "bitwise equal")
-    return {"dist": out, "err": err}
+        for state in (True, False):
+            plan = bk.device_fwd16_plan(dev, b, t, dk, h, hoist, state=state)
+            plans = [("plan", plan)]
+            if not plan.C:
+                other = bk.fwd16_cluster_plan(
+                    b, dk, h, hoist,
+                    bk.fwd16_clusters(dev, dk, h, hoist, state=state),
+                    state=state)
+                if other.C:
+                    plans.append(("fwd16 plan", other))
+            for _, p in plans:
+                fwd16_smem_checked(dev, d, h, p, state)
+            mode = (("K4 state" if hoist else "K1") if state
+                    else ("K4" if hoist else "K3"))
+            for lname, L in (("mixed", torch.from_numpy(ml).to(dev)),
+                             ("all 0", torch.zeros(b, dtype=torch.int32,
+                                                   device=dev)),
+                             ("none", None)):
+                for which, p in plans:
+                    label = (f"{mode} B={b} T={t} D={d or '-'} H={h} "
+                             f"lengths={lname} {which}")
+                    dist, e = fwd16_check(f"bf16 {label}", pf, pr, inp,
+                                          hoist, L, None if which == "plan"
+                                          else p, state)
+                    out[label] = functools.reduce(dist_max, dist.values())
+                    err[state] = max(err[state], e)
+                    log(f"[fwd16] {label}: {fwd16_plan_line(p)}; float64 "
+                        f"distance kernel/plain (the larger over "
+                        f"{'y, gates, cell' if state else 'y'}) "
+                        f"{out[label][0]:.2e}/{out[label][1]:.2e}, mean "
+                        f"{out[label][2]:.2e}/{out[label][3]:.2e}; "
+                        f"max|kernel - plain| {e:.2e}; padded frames "
+                        "exactly 0, two calls bitwise equal")
+    return {"dist": out, "err": err[True], "infer_err": err[False]}
 
 
 def fwd16_bench_planted(dev) -> dict:
@@ -3327,13 +3411,16 @@ def fwd16_lengths(rng, b: int, t: int, dev) -> torch.Tensor:
     return torch.from_numpy(ln).to(dev)
 
 
-def fwd16_turns(dev, card: str, fwd_against=None, reps=None) -> dict:
-    """K1 and K4's state mode in the bf16 mode at FWD16_SHAPES (phase 19):
-    the fwd16 kernel (its plan, or its cluster plan where the plan is the FMA
+def fwd16_turns(dev, card: str, fwd_against=None, reps=None,
+                state: bool = True) -> dict:
+    """K1 and K4's state mode in the bf16 mode at FWD16_SHAPES (phase 19),
+    or without ``state`` K3 and K4 inference at FWD16_INFER_SHAPES: the
+    fwd16 kernel (its plan, or its cluster plan where the plan is the FMA
     kernel) in turns with the FMA kernel's bf16 instance forced at its own plan
     (fwd_plan), both through bk._fwd, outputs within 2e-2 of max|old| (a
     flip of a bf16 rounding carries down the chain); the library call,
-    cuDNN's bf16 nn.LSTM forward with grad enabled, in turns with the
+    cuDNN's bf16 nn.LSTM forward (with grad enabled for the state modes,
+    without for inference), in turns with the
     fwd16 kernel; with --fwd-against, that build's bf16 kernel in turns
     with the current one; the plain version's time, the bound at this
     run's valid frames, and in the log the serial floor derived from an
@@ -3341,7 +3428,7 @@ def fwd16_turns(dev, card: str, fwd_against=None, reps=None) -> dict:
     logged with the kernel's own count of its shared memory.
     Returns {label: row}."""
     out = {}
-    for label, b, t, d, h in FWD16_SHAPES:
+    for label, b, t, d, h in FWD16_SHAPES if state else FWD16_INFER_SHAPES:
         rng = np.random.RandomState(9)
         hoist = d == 0
         dx = D2 if hoist else d
@@ -3352,20 +3439,23 @@ def fwd16_turns(dev, card: str, fwd_against=None, reps=None) -> dict:
         L = fwd16_lengths(rng, b, t, dev)
         inp = (lstm_ops.hoisted_projection(pf, pr, x, xz_bf16=True)
                if hoist else x)
-        kind = "fwd_xz_state" if hoist else "fwd_state"
+        kind = ("fwd_xz" if hoist else "fwd") + ("_state" if state else "")
         dk = 0 if hoist else d + d % 2
-        plan = bk.device_fwd16_plan(dev, b, t, dk, h, hoist)
+        plan = bk.device_fwd16_plan(dev, b, t, dk, h, hoist, state=state)
         new_plan = plan if plan.C else bk.fwd16_cluster_plan(
-            b, dk, h, hoist, bk.fwd16_clusters(dev, dk, h, hoist))
-        fwd16_smem_checked(dev, d, h, new_plan)
-        old_plan = bk.device_plan(dev, b, dk, h, hoist, True, 2)
-        n = reps or (20 if t < T else 5)
+            b, dk, h, hoist,
+            bk.fwd16_clusters(dev, dk, h, hoist, state=state), state=state)
+        fwd16_smem_checked(dev, d, h, new_plan, state)
+        old_plan = bk.device_plan(dev, b, dk, h, hoist, state, 2)
+        n = reps or (FWD16_TURN_REPS if t < T else 5)
 
         def new():
-            return bk._fwd(kind, new_plan, pf, pr, inp, L, True)
+            out_ = bk._fwd(kind, new_plan, pf, pr, inp, L, True)
+            return out_ if state else (out_,)
 
         def old():
-            return bk._fwd(kind, old_plan, pf, pr, inp, L, True)
+            out_ = bk._fwd(kind, old_plan, pf, pr, inp, L, True)
+            return out_ if state else (out_,)
         with torch.no_grad():
             e = max(rel_err(u.float(), v.float())
                     for u, v in zip(new(), old()))
@@ -3376,9 +3466,14 @@ def fwd16_turns(dev, card: str, fwd_against=None, reps=None) -> dict:
             lstm16 = copy.deepcopy(cudnn_lstm(pf, pr, dev)).to(
                 torch.bfloat16)
             px16 = packed(x.bfloat16(), L)
-            k_t2, lib = in_turns(new, cudnn_step(lstm16, px16, False)[0], n)
-            plain_fn = (lstm_ops.bidi_lstm_fwd_state_xz_plain if hoist
-                        else lstm_ops.bidi_lstm_fwd_state_plain)
+            k_t2, lib = in_turns(new, cudnn_step(lstm16, px16, False)[0]
+                                 if state else lambda: lstm16(px16), n)
+            if state:
+                plain_fn = (lstm_ops.bidi_lstm_fwd_state_xz_plain if hoist
+                            else lstm_ops.bidi_lstm_fwd_state_plain)
+            else:
+                plain_fn = (lstm_ops.bidi_lstm_apply_xz if hoist
+                            else lstm_ops.bidi_lstm_apply)
             plain_ms = time_ms(lambda: plain_fn(pf, pr, inp, L, xz_bf16=True),
                                1 if t == T else 2)
             del lstm16, px16
@@ -3387,20 +3482,26 @@ def fwd16_turns(dev, card: str, fwd_against=None, reps=None) -> dict:
                "ms": k_t, "fma_ms": o_t, "fma_plan": old_plan._asdict(),
                "library_ms": lib, "ms_beside_library": k_t2,
                "plain_ms": plain_ms,
-               "bound": lstm_bound("xz_state" if hoist else "fwd_state", b,
-                                   t, dx, h, V, esize=2),
+               "bound": lstm_bound(("xz" if hoist else "fwd")
+                                   + ("_state" if state else ""), b, t, dx,
+                                   h, V, esize=2),
                "enqueue_ms": enqueue_ms(new, n)}
-        if fwd_against and fwd_against.get("K4 state bf16" if hoist
-                                           else "K1 bf16"):
-            fa = fwd_against["K4 state bf16" if hoist else "K1 bf16"]
+        fa_key = (("K4" if hoist else "K1" if state else "K3")
+                  + (" state" if hoist and state else "") + " bf16")
+        if fwd_against and fwd_against.get(fa_key):
+            fa = fwd_against[fa_key]
+
+            def against():
+                out_ = fa(pf, pr, inp, L)
+                return out_ if state else (out_,)
             row["fwd_against"] = against_turns(
-                f"fwd16 {label}", lambda: fa(pf, pr, inp, L), new, n, card,
-                tol=2e-2)
+                f"fwd16 {label}", against, new, n, card, tol=2e-2)
         log(f"[timing] {card} | bf16 {label} B={b} T={t} D={dx} H={h}: plan "
             f"{fwd16_plan_line(plan)}; in turns fwd16 {k_t[0]:.4f}, FMA "
             f"kernel (C={old_plan.C} rows={old_plan.rows}) {o_t[0]:.4f}, "
             f"{o_t[1]:.4f}, fwd16 {k_t[1]:.4f} ms; cuDNN bf16 nn.LSTM fwd "
-            f"(grad) {lib[0]:.4f}, {lib[1]:.4f} in turns with fwd16 "
+            f"({'grad' if state else 'no grad'}) {lib[0]:.4f}, {lib[1]:.4f} "
+            f"in turns with fwd16 "
             f"{k_t2[0]:.4f}, {k_t2[1]:.4f}; plain {plain_ms:.3f} ms; bound "
             f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), serial floor "
             f"{int(L.max()) * BARRIER_US / 1e3:.4f} ms (derived: "
@@ -3414,15 +3515,78 @@ def fwd16_turns(dev, card: str, fwd_against=None, reps=None) -> dict:
 
 @contextlib.contextmanager
 def fwd16_off():
-    """Inside the block the bf16 mode's K1 and K4's state mode take the FMA
-    kernel (device_fwd16_plan gives no plan), as they did before the
+    """Inside the block the bf16 mode's K3, K1 and K4 (both modes) take the
+    FMA kernel (device_fwd16_plan gives no plan), as they did before the
     tensor-core kernel."""
     saved = bk.device_fwd16_plan
-    bk.device_fwd16_plan = lambda *args: bk.FWD16_NONE
+    bk.device_fwd16_plan = lambda *args, **kw: bk.FWD16_NONE
     try:
         yield
     finally:
         bk.device_fwd16_plan = saved
+
+
+@contextlib.contextmanager
+def fwd16_window_off():
+    """Inside the block fwd16_prefers_old's window is shut: every bf16 call
+    that a fwd16 plan fits takes the tensor-core kernel, the filter's T=16
+    and 32 buckets too. The cached fwd16 plans are dropped on the way in
+    and out."""
+    def drop():
+        for k in [k for k in bk._plans if k[0] == "fwd16"]:
+            del bk._plans[k]
+    saved = bk.fwd16_prefers_old
+    bk.fwd16_prefers_old = lambda T, H: False
+    drop()
+    try:
+        yield
+    finally:
+        bk.fwd16_prefers_old = saved
+        drop()
+
+
+def predict_turns(spec, net, dev, reps: int, label: str, card: str) -> dict:
+    """bench.py's infer profile (bench.py:611-651) on the port:
+    make_predict_step (the no-grad forward and the per-frame argmax) in the
+    bf16 mode at B=256, T=1024, x uniform in [0, 1) from RandomState(0),
+    lengths 900, with K3 and K4 on the FMA kernel (fwd16_off) and on the
+    fwd16 kernel, timed in turns (FMA, fwd16, fwd16, FMA; CUDA events). One
+    call of each counted first: the fwd16 run must launch every bidi layer
+    on the fwd16 kernel, the FMA run none. Logs and returns {"fma_ms":
+    [..], "ms": [..], "lines_per_s", "fma_lines_per_s", "launches16"}."""
+    predict = make_predict_step(spec, xz_bf16=True)
+    x = torch.from_numpy(np.random.RandomState(0).rand(B, T, D).astype(
+        np.float32)).to(dev)
+    L = torch.full((B,), TRUE_T, dtype=torch.int32, device=dev)
+
+    def old():
+        with fwd16_off():
+            return predict(net, x, L)
+
+    def new():
+        return predict(net, x, L)
+    with torch.no_grad():
+        got = {}
+        for key, fn in (("fma", old), ("fwd16", new)):
+            reset_counts()
+            fn()
+            torch.cuda.synchronize()
+            got[key] = (sum(counts().values()), sum(counts16().values()))
+        if got["fma"][1] or not got["fwd16"][0] == got["fwd16"][1] >= 1:
+            raise AssertionError(f"{label} predict: launches (all, fwd16) "
+                                 f"{got}: the fwd16 run must take the fwd16 "
+                                 f"kernel at every layer, the FMA run never")
+        o, n = in_turns(old, new, reps)
+    out = {"fma_ms": o, "ms": n, "lines_per_s": B / mean(n) * 1e3,
+           "fma_lines_per_s": B / mean(o) * 1e3,
+           "launches16": got["fwd16"][1]}
+    log(f"[timing] {card} | {label} bench.py infer profile (make_predict_step,"
+        f" bf16, B={B} T={T} len={TRUE_T}), in turns (K3/K4 on the FMA "
+        f"kernel, fwd16, fwd16, FMA): {o[0]:.3f}, {n[0]:.3f}, {n[1]:.3f}, "
+        f"{o[1]:.3f} ms/batch; {out['fma_lines_per_s']:.1f} -> "
+        f"{out['lines_per_s']:.1f} lines/s; {got['fwd16'][1]} fwd16 "
+        "launches a batch")
+    return out
 
 
 def fwd16_step_turns(tocr, batch, reps: int, label: str, card: str) -> dict:
@@ -3708,6 +3872,9 @@ FILTER_ENV = {"batch_size": str(FILTER_B),
 # Warm passes of the CLI's train_blocks loop for pairs/s, each
 # FILTER_PASS_BLOCKS full blocks; the first is traced for the idle share.
 FILTER_PASSES, FILTER_PASS_BLOCKS = 5, 4
+# clstmfilter's batched runs a turn of fwd16_prefers_old's window kept or
+# shut (filter_serve; the median of their seconds).
+FILTER_WINDOW_RUNS = 5
 # The large-alphabet shape: an input alphabet of BIG_ALPHABET symbols makes
 # D + 1 > 128 at H=100, so the layer hoists its projection and runs K4.
 BIG_ALPHABET = 160
@@ -4058,7 +4225,10 @@ def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs,
     Then a pass and a block's enqueue in each precision, in turns (f32,
     bf16, bf16, f32), and with --k2-against a bf16 pass with that build's
     K2 reduction and with the current one, in turns (against, current,
-    current, against). Returns {launches, testerr, pairs_per_s (median),
+    current, against), and a bf16 pass each with fwd16_prefers_old's window
+    kept and shut, in turns (kept, shut, shut, kept; the shut passes must
+    launch K1 on the fwd16 kernel only). Returns {launches,
+    window_pairs_per_s, testerr, pairs_per_s (median),
     pairs_per_s_range, busy_share, block_enqueue_ms, block_k, model (the
     saved best .clstm), run_s, cache_mb, groups, in_turns, and
     k2_against_pairs_per_s with --k2-against}."""
@@ -4170,9 +4340,25 @@ def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs,
             f"(against's K2 bf16 reduction and chain, current, current, "
             f"against's): {k2_vs['against'][0]:.1f}, {k2_vs['current'][0]:.1f}, "
             f"{k2_vs['current'][1]:.1f}, {k2_vs['against'][1]:.1f} pairs/s")
+    # fwd16_prefers_old's window kept and shut in turns (kept, shut, shut,
+    # kept), a bf16 pass each: the filter's buckets (T=16, 32 at H=100)
+    # take K1 on the FMA kernel or, shut, on the fwd16 kernel.
+    model.xz_bf16 = True
+    window = {"kept": [], "shut": []}
+    for i, which in enumerate(("kept", "shut", "shut", "kept")):
+        with (fwd16_window_off() if which == "shut"
+              else contextlib.nullcontext()):
+            reset_counts()
+            window[which].append(one_pass(400 + i)[0])
+            n, n16 = counts()["bidi_lstm_fwd_state"], counts16()[
+                "bidi_lstm_fwd_state"]
+        if which == "shut" and not n16 == n > 0:
+            raise AssertionError(f"clstmfiltertrain with the window shut: "
+                                 f"K1 on the fwd16 kernel {n16} of {n} times")
     model.xz_bf16 = None
     rates.sort()
     out = {"launches": {k: v for k, v in launches.items() if v},
+           "window_pairs_per_s": window,
            "testerr": testerr, "pairs_per_s": float(np.median(rates)),
            "pairs_per_s_range": [rates[0], rates[-1]], "busy_share": busy,
            "block_enqueue_ms": enq, "block_k": block_k, "run_s": run_s,
@@ -4199,7 +4385,11 @@ def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs,
             for m, i in ((False, 0), (True, 0), (True, 1), (False, 1)))
         + ", block enqueue ms " + ", ".join(
             f"{turns[m][i]['block_enqueue_ms']:.3f}"
-            for m, i in ((False, 0), (True, 0), (True, 1), (False, 1))))
+            for m, i in ((False, 0), (True, 0), (True, 1), (False, 1)))
+        + "; bf16 with fwd16_prefers_old's window kept, shut, shut, kept "
+        f"(K1 on the FMA kernel, fwd16, fwd16, FMA): {window['kept'][0]:.1f}"
+        f", {window['shut'][0]:.1f}, {window['shut'][1]:.1f}, "
+        f"{window['kept'][1]:.1f} pairs/s")
     return out
 
 
@@ -4210,9 +4400,15 @@ def filter_serve(dev, model_path: str, words) -> dict:
     each batch launches K3 once, each single line once. The frame ids of
     the batched run are held against the plain path on the same batches
     (ids_against_plain), K3's padded frames there must be exactly 0 and,
-    in f32, K3 is held against its plain version (compare). Returns {launches, launches_single, batches
-    (T per batch), ids (the comparison), s, s_single, lines_per_s,
-    lines_per_s_single}."""
+    in f32, K3 is held against its plain version (compare). In the bf16
+    mode each call past fwd16_prefers_old's window (batched and single)
+    must launch K3 on the fwd16 kernel (fwd16_due), none other. Returns
+    {launches, launches16, launches_single, launches16_single, batches (T
+    per batch), ids (the comparison), s, s_single, lines_per_s,
+    lines_per_s_single, window_lines_per_s: the batched run in turns with
+    fwd16_prefers_old's window kept and shut (kept, shut, shut, kept;
+    FILTER_WINDOW_RUNS runs a turn; shut, every K3 call on the fwd16
+    kernel)}."""
     recorded = []
     predict_batch = CLSTMText.predict_batch
 
@@ -4235,7 +4431,7 @@ def filter_serve(dev, model_path: str, words) -> dict:
                 clstmfilter.main([])
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            return out.getvalue().splitlines(), counts(), dt
+            return out.getvalue().splitlines(), counts(), counts16(), dt
         finally:
             sys.stdin = stdin
             for k, v in saved.items():
@@ -4247,10 +4443,12 @@ def filter_serve(dev, model_path: str, words) -> dict:
     run(str(FILTER_B))                      # cold: loads, first launches
     CLSTMText.predict_batch = recording
     try:
-        lines, launches, dt = run(str(FILTER_B))
+        lines, launches, launches16, dt = run(str(FILTER_B))
+        batched, recorded[:] = recorded[:], []
+        single, launches1, launches16_1, dt1 = run("1")
     finally:
         del CLSTMText.predict_batch
-    single, launches1, dt1 = run("1")
+    single_ts, recorded = [int(r[1].shape[1]) for r in recorded], batched
     if len(lines) != len(words) or lines != single:
         bad = sum(a != b for a, b in zip(lines, single))
         raise AssertionError(f"clstmfilter: batched and single outputs "
@@ -4265,6 +4463,15 @@ def filter_serve(dev, model_path: str, words) -> dict:
                              f"{len(words)} lines")
     model = recorded[0][0]
     bf16 = ApplyCtx(xz_bf16=model.xz_bf16).bf16(torch.empty(0, device=dev))
+    d_in = model.net.sub[0].sub[0].weights()["Wx"].shape[0]
+    h_net = model.net.sub[0].sub[0].weights()["Wh"].shape[0]
+    for tag, ts, got in (
+            ("batched", [int(r[1].shape[1]) for r in recorded], launches16),
+            ("batch_size=1", single_ts, launches16_1)):
+        want = fwd16_due(ts, d_in, h_net) if bf16 else 0
+        if got["bidi_lstm_infer"] != want or sum(got.values()) != want:
+            raise AssertionError(f"clstmfilter {tag}: the fwd16 kernel ran "
+                                 f"{got} for {want} calls past the window")
     ids = ids_against_plain(model.net, [r[1:] for r in recorded], bf16,
                             model.codec.size(), dev)
     par = model.net.sub[0]
@@ -4280,8 +4487,26 @@ def filter_serve(dev, model_path: str, words) -> dict:
         if not bool((y[padded(lt, *xt.shape[:2], dev)] == 0).all()):
             raise AssertionError("K3 (bf16) output is not exactly 0 on "
                                  "padded frames")
+    # Batched, fwd16_prefers_old's window kept and shut in turns (kept,
+    # shut, shut, kept), FILTER_WINDOW_RUNS runs of main a turn.
+    window = {"kept": [], "shut": []}
+    for which in ("kept", "shut", "shut", "kept"):
+        with (fwd16_window_off() if which == "shut"
+              else contextlib.nullcontext()):
+            runs = [run(str(FILTER_B)) for _ in range(FILTER_WINDOW_RUNS)]
+        if bf16 and which == "shut" and any(
+                r[2]["bidi_lstm_infer"] != r[1]["bidi_lstm_infer"]
+                for r in runs):
+            raise AssertionError("clstmfilter with the window shut: K3 off "
+                                 "the fwd16 kernel")
+        window[which].append(
+            len(words) / float(np.median([r[3] for r in runs])))
     out = {"launches": {k: v for k, v in launches.items() if v},
+           "launches16": {k: v for k, v in launches16.items() if v},
+           "window_lines_per_s": window,
            "launches_single": {k: v for k, v in launches1.items() if v},
+           "launches16_single": {k: v for k, v in launches16_1.items()
+                                 if v},
            "batches": [int(r[1].shape[1]) for r in recorded], "ids": ids,
            "k3_err": k3, "s": dt, "s_single": dt1,
            "lines_per_s": len(words) / dt,
@@ -4289,13 +4514,18 @@ def filter_serve(dev, model_path: str, words) -> dict:
     log(f"[clstmfilter] {len(words)} held-out words, the saved model "
         f"({'bf16' if bf16 else 'f32'}): batched ({FILTER_B} a batch, T "
         f"{out['batches']}) {dt:.3f} s ({out['lines_per_s']:.1f} lines/s), "
-        f"K3 launched {launches['bidi_lstm_infer']} times; one line at a "
-        f"time {dt1:.3f} s ({out['lines_per_s_single']:.1f} lines/s), "
-        f"{launches1['bidi_lstm_infer']} launches; outputs equal line for "
+        f"K3 launched {launches['bidi_lstm_infer']} times "
+        f"({launches16['bidi_lstm_infer']} on the fwd16 kernel); one line at "
+        f"a time {dt1:.3f} s ({out['lines_per_s_single']:.1f} lines/s), "
+        f"{launches1['bidi_lstm_infer']} launches "
+        f"({launches16_1['bidi_lstm_infer']} fwd16); outputs equal line for "
         f"line; frame ids equal to the plain path on {ids['share']:.6f} of "
         f"{ids['frames']} valid frames"
         + (f", K3 max|dy| {k3:.3e} against plain" if not bf16 else "")
-        + "; K3's padded frames exactly 0")
+        + "; K3's padded frames exactly 0; batched with fwd16_prefers_old's "
+        f"window kept, shut, shut, kept ({FILTER_WINDOW_RUNS} runs a turn, "
+        f"median): {window['kept'][0]:.1f}, {window['shut'][0]:.1f}, "
+        f"{window['shut'][1]:.1f}, {window['kept'][1]:.1f} lines/s")
     return out
 
 
@@ -5327,7 +5557,9 @@ AUTO_REPS = 5
 AUTO_ENV = dict(OCR_ENV, steps_per_dispatch="64", ntrain=str(16 * OCR_TRAIN),
                 test_every=str(16 * OCR_TRAIN),
                 save_every=str(16 * OCR_TRAIN), report_every="4096")
-AUTO_TURNS = ("fine", "auto", "auto", "fine")
+# One turn of each: a turn takes ~21 s, most of it the CLI's corpus build,
+# and the two modes' rates are a record here, not a check.
+AUTO_TURNS = ("fine", "auto")
 # (c) the kernels the CLI's path must launch: K3 in its test (evaluate),
 # K1, K2, K5 and K6 in its steps.
 AUTO_COUNTED = ("bidi_lstm_infer", "bidi_lstm_fwd_state",
@@ -5911,10 +6143,16 @@ def main(argv=None) -> int:
             raise AssertionError(f"main path (device_preprocess={dp}) "
                                  f"launched {n} for {len(r['buckets'])} "
                                  "buckets: K3 once a bucket")
+        # bf16: K3 on the fwd16 kernel in every bucket.
+        serving_fwd16(f"main path (device_preprocess={dp})", r,
+                      ("bidi_lstm_infer",))
         log(serve_line("main", r, dp))
-    # K3's launches on the main path, per mode.
+    # K3's launches on the main path, per mode, and of the bf16 mode's,
+    # those of the fwd16 kernel.
     k3_launches = {r["bf16"]: r["launches"]["bidi_lstm_infer"]
                    for r in (served[1], served_other)}
+    k3_launches16 = [r["launches16"]["bidi_lstm_infer"]
+                     for r in (served[1], served_other) if r["bf16"]][0]
 
     # 6. K1 against plain: bench profile (both length sets), odd shapes.
     k1_err, k1_state = 0.0, {}
@@ -6084,10 +6322,14 @@ def main(argv=None) -> int:
     step_fwd16 = {"bidi": fwd16_step_turns(tocr, batch, 3,
                                            f"bidi B={B} T={T} S={S81}",
                                            card)}
+    # Serving's forward at bench.py's infer profile, K3 on the fwd16 kernel
+    # in turns with the FMA kernel.
+    predict_fwd16 = {"bidi": predict_turns(tocr.spec, tocr.net, dev, 5,
+                                           "bidi", card)}
     # lr 0: the plain step's update leaves the trained net as it is.
     vel0 = TrainState.create(tocr.net).velocity
     p_step = host_ms(lambda: plain_train_step(tocr.net, vel0, batch, 0.0,
-                                              0.0), 2)
+                                              0.0), 1)
     log(f"[timing] {card} | train_batch B={B} T={T} S={S81}: kernels "
         f"{k_step:.3f} ms/step ({B / k_step * 1e3:.1f} lines/s), plain "
         f"{p_step:.3f} ms/step ({B / p_step * 1e3:.1f} lines/s)")
@@ -6134,7 +6376,7 @@ def main(argv=None) -> int:
                     lambda: ctc_ops.ctc_backward_plain(lm, Lb, TLb)),
         }
         for name, (kf, pfn) in pairs.items():
-            ms[name] = (time_ms(kf, 10), time_ms(pfn, 2))
+            ms[name] = (time_ms(kf, 10), time_ms(pfn, 1))
         if ctc_against:
             for name, a_ in (("K5", (lm, Lb)), ("K6", (lm, lr, Lb, TLb)),
                              ("K6b", (lm, Lb, TLb))):
@@ -6401,6 +6643,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"bidi2 serving (device_preprocess={dp}): "
                                  f"{nb2} buckets, launches {n}: each bucket "
                                  "must launch K3 on layer 1 and K4 on layer 2")
+        serving_fwd16(f"bidi2 serving (device_preprocess={dp})", r,
+                      ("bidi_lstm_infer", "bidi_lstm_infer_xz"))
         log(serve_line("bidi2 main", r, dp))
     # K4's (and K3's) launches on the bidi2 serving path, per mode.
     served2_by = {r["bf16"]: r for r in (served2[1], served2_other)}
@@ -6434,8 +6678,8 @@ def main(argv=None) -> int:
         fwd16_by_mode2[bf16_run] = got16 = counts16()
         # The bf16 steps run K1 (layer 1) and K4's state mode (layer 2) on
         # the fwd16 kernel, each once a step.
-        if bf16_run and got16 != {"bidi_lstm_fwd_state": 5,
-                                  "bidi_lstm_fwd_state_xz": 5}:
+        if bf16_run and {k: v for k, v in got16.items() if v} != {
+                "bidi_lstm_fwd_state": 5, "bidi_lstm_fwd_state_xz": 5}:
             raise AssertionError(f"bidi2 bf16 training launched the fwd16 "
                                  f"kernel {got16} times in 5 steps")
         if {k: v for k, v in got.items() if v} != want2:
@@ -6458,6 +6702,8 @@ def main(argv=None) -> int:
                              f"bidi2 B={B} T={T} S={S81} C={C2}", card)
     step_fwd16["bidi2"] = fwd16_step_turns(
         tocr2, batch2, 2, f"bidi2 B={B} T={T} S={S81} C={C2}", card)
+    predict_fwd16["bidi2"] = predict_turns(tocr2.spec, tocr2.net, dev, 3,
+                                           "bidi2", card)
     if ctc_against:
         steps_vs["bidi2"] = step_turns(tocr2, batch2, ctc_against, 3,
                                        f"bidi2 B={B} T={T} S={S81} C={C2}",
@@ -6550,13 +6796,15 @@ def main(argv=None) -> int:
     chain_edges = chain16_edges(dev)
     chain_16 = chain16_turns(dev, card, k2_against)
     log(f"[chain16] edges and turns in {time.perf_counter() - t18:.1f} s")
-    # K1 and K4's state mode on the fwd16 kernel across its plan's edges,
-    # the planted controls at bidi2's layers, then at their five shapes in
-    # turns with the FMA kernel and cuDNN.
+    # K3, K1 and K4 (both modes) on the fwd16 kernel across its plan's
+    # edges, the planted controls at bidi2's layers, then K1 and K4 state
+    # at their five shapes and K3 and K4 inference at theirs, each in turns
+    # with the FMA kernel and cuDNN.
     t18 = time.perf_counter()
     f16_edges = fwd16_edges(dev)
     f16_planted = fwd16_bench_planted(dev)
     f16_turns = fwd16_turns(dev, card, fwd_against)
+    f16_infer = fwd16_turns(dev, card, fwd_against, state=False)
     log(f"[fwd16] edges, planted controls and turns in "
         f"{time.perf_counter() - t18:.1f} s")
 
@@ -6696,13 +6944,14 @@ def main(argv=None) -> int:
     # the times of phase 19 (bench shapes, lengths 900).
     bm = b16["ms"]
     fma = {"K1": f16_turns["bidi K1"],
-           "K4 state": f16_turns["bidi2 layer 2 K4 state"]}
+           "K4 state": f16_turns["bidi2 layer 2 K4 state"],
+           "K3": f16_infer["bidi K3"], "K4": f16_infer["bidi2 layer 2 K4"]}
     fwd_src = "clstm_tpu_torch/csrc/bidi_lstm_fwd.cu"
     bwd_src = "clstm_tpu_torch/csrc/bidi_lstm_bwd.cu"
     for name, src, rep, n, err, key in (
             ("bidi_lstm_fwd bf16 (K3)", fwd_src,
-             "clstm_tpu/ops/pallas_lstm.py:197", k3_launches[True],
-             b16["fwd_err"], "K3"),
+             "clstm_tpu/ops/pallas_lstm.py:197",
+             k3_launches[True] - k3_launches16, b16["fwd_err"], "K3"),
             ("bidi_lstm_fwd_state bf16 (K1)", fwd_src,
              "clstm_tpu/ops/pallas_lstm.py:197",
              train_by_mode[True]["bidi_lstm_fwd_state"]
@@ -6710,7 +6959,8 @@ def main(argv=None) -> int:
              "K1"),
             ("bidi_lstm_fwd_xz bf16 (K4)", fwd_src,
              "clstm_tpu/ops/pallas_lstm.py:197",
-             served2_by[True]["launches"]["bidi_lstm_infer_xz"],
+             served2_by[True]["launches"]["bidi_lstm_infer_xz"]
+             - served2_by[True]["launches16"]["bidi_lstm_infer_xz"],
              b16["fwd_err"], "K4"),
             ("bidi_lstm_fwd_xz_state bf16 (K4)", fwd_src,
              "clstm_tpu/ops/pallas_lstm.py:197",
@@ -6727,7 +6977,7 @@ def main(argv=None) -> int:
              "K2 reduction")):
         m = bm[key]
         if key in fma:
-            # The FMA kernel, which the bf16 K1 and K4 state now take only
+            # The FMA kernel, which the bf16 K3, K1 and K4 now take only
             # outside fwd16_plan: its time in turns with the fwd16 kernel.
             m = dict(m, ms=mean(fma[key]["fma_ms"]))
         entries.append((name, src, rep, n, err, None,
@@ -6736,15 +6986,23 @@ def main(argv=None) -> int:
     # The fwd16 kernel (K1 and K4's state mode in the bf16 mode on the
     # tensor cores): launches of the bf16 training steps (phases 9, 15), the
     # times of phase 19 at bidi's K1 and bidi2's K4 state, its largest
-    # |kernel - plain bf16| of phase 18 (the bench shapes and its edges).
-    for name, label, n in (
+    # |kernel - plain bf16| of phase 18 (the bench shapes and its edges);
+    # its inference instances (K3, K4): launches of the bf16 clstmocr runs
+    # (phases 5, 14), the times of phase 19 at bidi's K3 and bidi2's K4.
+    for name, label, n, r, e16 in (
             ("bidi_lstm_fwd16_state bf16 (K1)", "bidi K1",
-             fwd16_by_mode[True]["bidi_lstm_fwd_state"]),
+             fwd16_by_mode[True]["bidi_lstm_fwd_state"],
+             f16_turns["bidi K1"], f16_edges["err"]),
             ("bidi_lstm_fwd16_xz_state bf16 (K4)", "bidi2 layer 2 K4 state",
-             fwd16_by_mode2[True]["bidi_lstm_fwd_state_xz"])):
-        r = f16_turns[label]
+             fwd16_by_mode2[True]["bidi_lstm_fwd_state_xz"],
+             f16_turns["bidi2 layer 2 K4 state"], f16_edges["err"]),
+            ("bidi_lstm_fwd16 bf16 (K3)", "bidi K3", k3_launches16,
+             f16_infer["bidi K3"], f16_edges["infer_err"]),
+            ("bidi_lstm_fwd16_xz bf16 (K4)", "bidi2 layer 2 K4",
+             served2_by[True]["launches16"]["bidi_lstm_infer_xz"],
+             f16_infer["bidi2 layer 2 K4"], f16_edges["infer_err"])):
         entries.append((name, fwd_src, "clstm_tpu/ops/pallas_lstm.py:197", n,
-                        max(b16["fwd_err"], f16_edges["err"]), None,
+                        max(b16["fwd_err"], e16), None,
                         (mean(r["ms"]), r["plain_ms"]), r["bound"],
                         mean(r["library_ms"])))
     # K4's rows also carry the product it runs on, the kernel with the
@@ -6837,6 +7095,7 @@ def main(argv=None) -> int:
                                N_LINES / r["e2e_range"][0]],
             cold_lines_per_s=N_LINES / r["cold_s"],
             launches=r["launches"]["bidi_lstm_infer"],
+            launches16=r["launches16"],
             **({"prepare_span_ms": r["prep_ms"],
                 "prepare_host_ms": r["prep_host_ms"],
                 "prepare_busy_ms": r["prep_busy_ms"],
@@ -6893,29 +7152,44 @@ def main(argv=None) -> int:
     extra["bidi_lstm_fwd_state bf16 (K1)"]["f64_rel"] = {
         k: v for k, v in b16["dist"].items()
         if k.startswith(("K1", "K3", "K4"))}
-    # The FMA kernel's bf16 K1 and K4 state rows: the bf16 times of phase 19's
-    # f32/bf16 turns were the fwd16 kernel's (the wrapper's plan), so they
-    # move to its rows; these carry their turns with it.
-    for name, key, new in (
-            ("bidi_lstm_fwd_state bf16 (K1)", "K1",
+    # The FMA kernel's bf16 rows: the bf16 times of phase 19's f32/bf16
+    # turns were the fwd16 kernel's (the wrapper's plan), so they move to
+    # its rows (and the bf16 clstmocr runs to its K3 row); these carry their
+    # turns with it.
+    for name, turns_, hoisted, new in (
+            ("bidi_lstm_fwd_state bf16 (K1)", f16_turns, False,
              "bidi_lstm_fwd16_state bf16 (K1)"),
-            ("bidi_lstm_fwd_xz_state bf16 (K4)", "K4 state",
-             "bidi_lstm_fwd16_xz_state bf16 (K4)")):
+            ("bidi_lstm_fwd_xz_state bf16 (K4)", f16_turns, True,
+             "bidi_lstm_fwd16_xz_state bf16 (K4)"),
+            ("bidi_lstm_fwd bf16 (K3)", f16_infer, False,
+             "bidi_lstm_fwd16 bf16 (K3)"),
+            ("bidi_lstm_fwd_xz bf16 (K4)", f16_infer, True,
+             "bidi_lstm_fwd16_xz bf16 (K4)")):
         extra[new] = {k: extra[name].pop(k) for k in (
-            "f32_mode_ms", "in_turns_f32_bf16", "hoisted_total_ms")
-            if k in extra[name]}
+            "f32_mode_ms", "in_turns_f32_bf16", "hoisted_total_ms",
+            "clstmocr") if k in extra[name]}
         extra[name]["in_turns_with_fwd16"] = {
             k: {"fma_ms": v["fma_ms"], "fwd16_ms": v["ms"],
-                "fma_plan": v["fma_plan"]} for k, v in f16_turns.items()
-            if ("K4" in k) == (key == "K4 state")}
+                "fma_plan": v["fma_plan"]} for k, v in turns_.items()
+            if ("K4" in k) == hoisted}
+    infer_edges = sum(k.startswith(("K3 ", "K4 B")) for k in f16_edges["dist"])
     extra["bidi_lstm_fwd16_state bf16 (K1)"].update(
         plan=f16_turns["bidi K1"]["plan"], shapes={
             k: v for k, v in f16_turns.items() if "K4" not in k},
-        edge_cases_passed=len(f16_edges["dist"]), planted=f16_planted,
-        train_step_ms=step_fwd16)
+        edge_cases_passed=len(f16_edges["dist"]) - infer_edges,
+        planted=f16_planted, train_step_ms=step_fwd16)
     extra["bidi_lstm_fwd16_xz_state bf16 (K4)"].update(
         plan=f16_turns["bidi2 layer 2 K4 state"]["plan"],
         shapes={k: v for k, v in f16_turns.items() if "K4" in k})
+    extra["bidi_lstm_fwd16 bf16 (K3)"].update(
+        plan=f16_infer["bidi K3"]["plan"], shapes={
+            k: v for k, v in f16_infer.items() if "K4" not in k},
+        edge_cases_passed=infer_edges, planted=f16_planted,
+        predict_ms=predict_fwd16)
+    extra["bidi_lstm_fwd16_xz bf16 (K4)"].update(
+        plan=f16_infer["bidi2 layer 2 K4"]["plan"],
+        shapes={k: v for k, v in f16_infer.items() if "K4" in k},
+        bidi2_launches16=served2_by[True]["launches16"])
     extra["bidi_lstm_bwd_chain bf16 (K2)"]["f64_rel"] = b16["dist"].get(
         "K2 dz")
     extra["bidi_lstm_bwd_reduce bf16 (K2)"]["f64_rel"] = {

@@ -114,12 +114,13 @@
 //   ordered row group first (lanes share weight loads, but the stores and
 //   xz loads scatter); tiles of 8 rows.
 //
-// In the bf16 mode, K1 and K4's state mode (the training forward) run on a
-// second kernel where ops/bidi_lstm_kernel.py::fwd16_plan gives it a plan
+// In the bf16 mode, all four (K3, K1, K4 in both modes) run on a second
+// kernel where ops/bidi_lstm_kernel.py::fwd16_plan gives it a plan
 // (fwd16_kernel, below; the C entries clstm_bidi_lstm_fwd16_*): z on the
 // bf16 tensor cores (mma.sync), the gate math on the accumulator
-// fragments, h all-gathered across the cluster in 16-byte chunks. The
-// kernel above keeps the f32 mode, the bf16 inference instances (K3, K4)
+// fragments, h all-gathered across the cluster in 16-byte chunks; its
+// EMIT=false instances (K3, K4 inference: the serving path) keep no gates
+// or cell stage and store y alone. The kernel above keeps the f32 mode
 // and the shapes fwd16_plan leaves to it (no plan fits: H = 700, 2048; or
 // short chains, where it was the faster on the card).
 
@@ -731,7 +732,7 @@ int plan_clusters(int D, int H, int hoist, int emit, int C, int R, int U,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 recurrence on the tensor cores (fwd16): K1 and K4's state mode
+// The bf16 recurrence on the tensor cores (fwd16): K3, K1 and K4 (both modes)
 // ---------------------------------------------------------------------------
 
 // Rows of an m16 tile, threads of a CTA (20 warps), the multiple of units
@@ -762,7 +763,8 @@ __host__ __device__ inline int up_to(int v, int m) {
 // [3 slots][R][4][U] (HOIST), all bf16; the output stage of each parity:
 // gs the gates [2][R][4U + 2] f32 (gate g of unit u at g·U + u; rows 4U +
 // 2 words apart, so that the 16 rows a warp writes at once fall in 16 bank
-// pairs), hs h (as y and as the next operand) and cs c [2][R][U] bf16.
+// pairs; with emit only), hs h (as y and as the next operand) and cs c
+// [2][R][U] bf16 (with emit only).
 // Rows of the operands are K + 8 elements apart: an odd multiple of 16
 // bytes, so the 8 rows an ldmatrix reads fall in 8 bank groups.
 struct Geo16 {
@@ -771,7 +773,7 @@ struct Geo16 {
 };
 
 __host__ __device__ inline Geo16 geo16(int D, int H, int U, int R,
-                                       bool hoist) {
+                                       bool hoist, bool emit) {
   Geo16 g;
   g.N = 4 * U;
   g.KH = up_to(H, 16);
@@ -782,9 +784,9 @@ __host__ __device__ inline Geo16 geo16(int D, int H, int U, int R,
   g.off_ah = (long long)g.N * g.ldb * 2;
   g.off_ax = g.off_ah + 2LL * R * g.ldh * 2;
   g.off_gs = g.off_ax + (hoist ? 3LL * R * 4 * U * 2 : 3LL * R * g.ldx * 2);
-  g.off_hs = g.off_gs + 2LL * R * (4 * U + 2) * 4;
+  g.off_hs = g.off_gs + (emit ? 2LL * R * (4 * U + 2) * 4 : 0);
   g.off_cs = g.off_hs + 2LL * R * U * 2;
-  g.bytes = g.off_cs + 2LL * R * U * 2;
+  g.bytes = g.off_cs + (emit ? 2LL * R * U * 2 : 0);
   return g;
 }
 
@@ -793,14 +795,14 @@ __host__ __device__ inline Geo16 geo16(int D, int H, int U, int R,
 // multiple of F16_UNITS whose n tiles (U/2) the warps take at most
 // f16_ng a warp, D even (the kernel's x width; 0 with hoist), shared memory
 // within a CTA's. Returns its bytes of shared memory, 0 if it is not one.
-long long plan16(int D, int H, bool hoist, int C, int R, int U) {
+long long plan16(int D, int H, bool hoist, bool emit, int C, int R, int U) {
   if (!((C >= 1 && C <= 4) || C == 8) || !(R == 16 || R == 32) || H < 1 ||
       U < F16_UNITS || U % F16_UNITS != 0 || (long long)C * U < H ||
       (long long)(C - 1) * U >= H ||
       U / 2 > F16_WARPS * f16_ng(R / F16_M) ||
       (!hoist && (D < 2 || D % 2 != 0)))
     return 0;
-  const Geo16 g = geo16(D, H, U, R, hoist);
+  const Geo16 g = geo16(D, H, U, R, hoist, emit);
   return g.bytes <= F16_SMEM_MAX ? g.bytes : 0;
 }
 
@@ -995,7 +997,12 @@ __device__ __forceinline__ Cols cols_of(int cols, int rows, int tid,
 //     gates and cell, whole runs of units per row and gate (stored straight
 //     from the fragments, a warp's stores scatter over 16 rows, 8 bytes
 //     each, and took much of the step).
-template <bool HOIST, int MT>
+//   - EMIT=false (K3, K4 inference: the JAX package's emit_state=False,
+//     serving): the same chain and the same sums, roundings and gate math;
+//     no gates or cell are written (gates and cell may be NULL), so the
+//     CTA keeps no gates or cell stage (geo16 counts only the h stage),
+//     and the stores from the stage are y's alone.
+template <bool HOIST, bool EMIT, int MT>
 __global__ void __launch_bounds__(F16_THREADS, 1)
     fwd16_kernel(const bf16* __restrict__ x,
                  const int32_t* __restrict__ lengths,
@@ -1015,7 +1022,7 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
   const int G = 4 * H;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const Geo16 geo = geo16(D, H, U, R, HOIST);
+  const Geo16 geo = geo16(D, H, U, R, HOIST, EMIT);
   const int ldb = geo.ldb, ldh = geo.ldh, ldx = geo.ldx;
   bf16* Bw = reinterpret_cast<bf16*>(smf);
   bf16* Ah = reinterpret_cast<bf16*>(smf + geo.off_ah);
@@ -1136,8 +1143,10 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
       const int kk = k0 + i % nu;
       const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
       y[(f >> 1) * 2 * H + dir * H + kk] = from_f<bf16>(0.0f);
-      cell[f * H + kk] = from_f<bf16>(0.0f);
-      for (int g = 0; g < 4; ++g) gates[f * G + g * H + kk] = 0.0f;
+      if constexpr (EMIT) {
+        cell[f * H + kk] = from_f<bf16>(0.0f);
+        for (int g = 0; g < 4; ++g) gates[f * G + g * H + kk] = 0.0f;
+      }
     }
   }
   cp_async_wait_all();
@@ -1205,25 +1214,28 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
         }
       }
   };
-  // The output stage of parity p to y, gates and cell, for the rows whose
-  // chain is at step s: runs of 4 units a store where H is a multiple of 4
-  // (16 bytes of gates, 8 of y and cell), else one.
+  // The output stage of parity p to y, gates and cell (y alone without
+  // EMIT), for the rows whose chain is at step s: runs of 4 units a store
+  // where H is a multiple of 4 (16 bytes of gates, 8 of y and cell), else
+  // one. Segments 0-3 are the gates, 4 y, 5 the cell.
+  constexpr int NSEG = EMIT ? 6 : 1;
   const int GS = 4 * U + 2;  // the gates stage's row stride
   const int sw = H % 4 == 0 ? 4 : 1, snw = nu / sw;
-  const Cols ks = cols_of(6 * snw, R, tid, nt);
+  const Cols ks = cols_of(NSEG * snw, R, tid, nt);
   const int sg0 = ks.c0 / max(snw, 1), su0 = (ks.c0 - sg0 * snw) * sw;
   auto store_stage = [&](int s, int p) {
     const float* g_p = gs + (size_t)p * R * GS;
     const bf16* h_p = hs + (size_t)p * R * U;
     const bf16* c_p = cs + (size_t)p * R * U;
-    for (int cc = ks.c0, seg = sg0, u = su0; cc < 6 * snw;
-         cc += ks.dc, seg = cc / snw, u = (cc - seg * snw) * sw)
+    for (int cc = ks.c0, sg = sg0, u = su0; cc < NSEG * snw;
+         cc += ks.dc, sg = cc / snw, u = (cc - sg * snw) * sw)
       for (int r = ks.r0; r < R; r += ks.dr) {
         const int Lr = lens[r];
         if (s >= Lr) continue;
         const int t = dir == 0 ? s : Lr - 1 - s;
         const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
         const int k = k0 + u;
+        const int seg = EMIT ? sg : 4;
         if (seg < 4) {
           const float* src = g_p + (size_t)r * GS + seg * U + u;
           float* dst = gates + f * G + seg * H + k;
@@ -1314,10 +1326,13 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
         h[i][m] = on ? hn : h[i][m];
         if (ul < nu) {
           const int r = m * F16_M + ru;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) g_p[(size_t)r * GS + g * U + ul] = gt[g];
           h_p[r * U + ul] = from_f<bf16>(h[i][m]);
-          c_p[r * U + ul] = from_f<bf16>(c[i][m]);
+          if constexpr (EMIT) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              g_p[(size_t)r * GS + g * U + ul] = gt[g];
+            c_p[r * U + ul] = from_f<bf16>(c[i][m]);
+          }
         }
       }
     }
@@ -1378,11 +1393,14 @@ using Fwd16 = void (*)(const bf16*, const int32_t*, const bf16*, const bf16*,
                        bf16*, float*, bf16*, int, int, int, int, int);
 
 // The kernel instance of a plan, with its shared-memory limit set.
-cudaError_t fwd16_of(bool hoist, int R, long long smem, Fwd16* kern) {
-  static const Fwd16 table[2][2] = {
-      {fwd16_kernel<false, 1>, fwd16_kernel<false, 2>},
-      {fwd16_kernel<true, 1>, fwd16_kernel<true, 2>}};
-  *kern = table[hoist][R / F16_M - 1];
+cudaError_t fwd16_of(bool hoist, bool emit, int R, long long smem,
+                     Fwd16* kern) {
+  static const Fwd16 table[2][2][2] = {
+      {{fwd16_kernel<false, false, 1>, fwd16_kernel<false, false, 2>},
+       {fwd16_kernel<false, true, 1>, fwd16_kernel<false, true, 2>}},
+      {{fwd16_kernel<true, false, 1>, fwd16_kernel<true, false, 2>},
+       {fwd16_kernel<true, true, 1>, fwd16_kernel<true, true, 2>}}};
+  *kern = table[hoist][emit][R / F16_M - 1];
   return cudaFuncSetAttribute(*kern,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
@@ -1400,16 +1418,16 @@ Plan plan_of16(int C, int R, int U, long long smem) {
   return p;
 }
 
-template <bool HOIST>
+template <bool HOIST, bool EMIT>
 int launch16(const bf16* x, const int32_t* lengths, const bf16* wx,
              const bf16* wh, bf16* y, float* gates, bf16* cell, int B, int T,
              int D, int H, int C, int R, int U, void* stream) {
-  const long long smem = plan16(D, H, HOIST, C, R, U);
+  const long long smem = plan16(D, H, HOIST, EMIT, C, R, U);
   if (B < 1 || T < 1 || smem == 0) return (int)cudaErrorInvalidValue;
   // Wh's rows are read 16 bytes at a time where H is a multiple of 8.
   if (((uintptr_t)wh & 15) != 0) return (int)cudaErrorMisalignedAddress;
   Fwd16 kern;
-  cudaError_t e = fwd16_of(HOIST, R, smem, &kern);
+  cudaError_t e = fwd16_of(HOIST, EMIT, R, smem, &kern);
   if (e != cudaSuccess) return (int)e;
   const Plan p = plan_of16(C, R, U, smem);
   Config c(p, (unsigned)(C * ((B + R - 1) / R)), (cudaStream_t)stream);
@@ -1419,11 +1437,11 @@ int launch16(const bf16* x, const int32_t* lengths, const bf16* wx,
   return (int)cudaGetLastError();
 }
 
-int clusters16(int D, int H, bool hoist, int C, int R, int U) {
-  const long long smem = plan16(D, H, hoist, C, R, U);
+int clusters16(int D, int H, bool hoist, bool emit, int C, int R, int U) {
+  const long long smem = plan16(D, H, hoist, emit, C, R, U);
   if (smem == 0) return -(int)cudaErrorInvalidValue;
   Fwd16 kern;
-  cudaError_t e = fwd16_of(hoist, R, smem, &kern);
+  cudaError_t e = fwd16_of(hoist, emit, R, smem, &kern);
   if (e != cudaSuccess) return -(int)e;
   Config c(plan_of16(C, R, U, smem), (unsigned)C, nullptr);
   int n = 0;
@@ -1553,17 +1571,21 @@ extern "C" int clstm_bidi_lstm_fwd_bf16_clusters(int D, int H, int hoist,
 
 // Bytes of dynamic shared memory a CTA of a fwd16 plan takes (0: the plan
 // is not one the kernel takes); D is the kernel's (even) x width, 0 with
-// hoist (ops/bidi_lstm_kernel.py::fwd16_smem counts the same).
+// hoist; emit 1 for K1 and K4's state mode, 0 for K3 and K4 inference
+// (ops/bidi_lstm_kernel.py::fwd16_smem counts the same).
 extern "C" long long clstm_bidi_lstm_fwd16_smem(int D, int H, int hoist,
-                                                int C, int R, int U) {
-  return plan16(D, H, hoist != 0, C, R, U);
+                                                int emit, int C, int R,
+                                                int U) {
+  return plan16(D, H, hoist != 0, emit != 0, C, R, U);
 }
 
 // Clusters of a fwd16 plan the current device holds at once
-// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
-extern "C" int clstm_bidi_lstm_fwd16_clusters(int D, int H, int hoist, int C,
-                                              int R, int U) {
-  return clusters16(D, H, hoist != 0, C, R, U);
+// (cudaOccupancyMaxActiveClusters) for the instance of that mode, or minus
+// a CUDA error.
+extern "C" int clstm_bidi_lstm_fwd16_clusters(int D, int H, int hoist,
+                                              int emit, int C, int R,
+                                              int U) {
+  return clusters16(D, H, hoist != 0, emit != 0, C, R, U);
 }
 
 // K1 in the bf16 mode on the tensor cores: x [B,T,D] bf16 (D even), wx
@@ -1575,8 +1597,8 @@ extern "C" int clstm_bidi_lstm_fwd16_state(
     const bf16* x, const int32_t* lengths, const bf16* wx, const bf16* wh,
     bf16* y, float* gates, bf16* cell, int B, int T, int D, int H, int C,
     int R, int U, void* stream) {
-  return launch16<false>(x, lengths, wx, wh, y, gates, cell, B, T, D, H, C,
-                         R, U, stream);
+  return launch16<false, true>(x, lengths, wx, wh, y, gates, cell, B, T, D,
+                               H, C, R, U, stream);
 }
 
 // K4's state mode in the bf16 mode on the tensor cores: xz [B,T,2,4H] bf16
@@ -1585,8 +1607,29 @@ extern "C" int clstm_bidi_lstm_fwd16_xz_state(
     const bf16* xz, const int32_t* lengths, const bf16* wh, bf16* y,
     float* gates, bf16* cell, int B, int T, int H, int C, int R, int U,
     void* stream) {
-  return launch16<true>(xz, lengths, nullptr, wh, y, gates, cell, B, T, 0, H,
-                        C, R, U, stream);
+  return launch16<true, true>(xz, lengths, nullptr, wh, y, gates, cell, B, T,
+                              0, H, C, R, U, stream);
+}
+
+// K3 in the bf16 mode on the tensor cores (serving): as
+// clstm_bidi_lstm_fwd16_state, y [B,T,2H] bf16 alone.
+extern "C" int clstm_bidi_lstm_fwd16(const bf16* x, const int32_t* lengths,
+                                     const bf16* wx, const bf16* wh, bf16* y,
+                                     int B, int T, int D, int H, int C, int R,
+                                     int U, void* stream) {
+  return launch16<false, false>(x, lengths, wx, wh, y, nullptr, nullptr, B,
+                                T, D, H, C, R, U, stream);
+}
+
+// K4 inference in the bf16 mode on the tensor cores: as
+// clstm_bidi_lstm_fwd16_xz_state, y alone.
+extern "C" int clstm_bidi_lstm_fwd16_xz(const bf16* xz,
+                                        const int32_t* lengths,
+                                        const bf16* wh, bf16* y, int B, int T,
+                                        int H, int C, int R, int U,
+                                        void* stream) {
+  return launch16<true, false>(xz, lengths, nullptr, wh, y, nullptr, nullptr,
+                               B, T, 0, H, C, R, U, stream);
 }
 
 #ifdef CLSTM_FWD16_PHASES

@@ -13,9 +13,9 @@
                         (ops/lstm.py::hoisted_projection);
   fwd_plan              how those four split a layer over thread-block
                         clusters (device_plan: on this card);
-  fwd16_plan            how K1 and K4's state mode run in the bf16 mode on
-                        the tensor cores (device_fwd16_plan: on this card;
-                        the FMA kernel at fwd_plan where it gives none);
+  fwd16_plan            how the four run in the bf16 mode on the tensor
+                        cores (device_fwd16_plan: on this card; the FMA
+                        kernel at fwd_plan where it gives none);
   bidi_lstm_bwd_chain   K2's backward chain, replaces pallas_lstm.py::
                         _bwd_kernel (L391-430); in the bf16 mode on
                         thread-block clusters, Dh on bf16 tensor cores;
@@ -92,11 +92,14 @@ _SIGNATURES = {
     "clstm_bidi_lstm_bwd_chain16_clusters": [_I] * 5,
     # K1 and K4's state mode in the bf16 mode on the tensor cores: x (or
     # xz), lengths, [wx,] wh, y, gates, cell; B, T, [D,] H and the plan (C,
-    # rows, units).
+    # rows, units); K3 and K4 inference the same without gates and cell.
+    # The plan's queries take (D, H, hoist, emit, C, rows, units).
     "clstm_bidi_lstm_fwd16_state": [_P] * 7 + [_I] * 7 + [_P],
     "clstm_bidi_lstm_fwd16_xz_state": [_P] * 6 + [_I] * 6 + [_P],
-    "clstm_bidi_lstm_fwd16_smem": [_I] * 6,
-    "clstm_bidi_lstm_fwd16_clusters": [_I] * 6,
+    "clstm_bidi_lstm_fwd16": [_P] * 5 + [_I] * 7 + [_P],
+    "clstm_bidi_lstm_fwd16_xz": [_P] * 4 + [_I] * 6 + [_P],
+    "clstm_bidi_lstm_fwd16_smem": [_I] * 7,
+    "clstm_bidi_lstm_fwd16_clusters": [_I] * 7,
 }
 # Entry points that return a 64-bit count instead of a CUDA error.
 _LONG = {"clstm_bidi_lstm_bwd_scratch", "clstm_bidi_lstm_fwd_smem",
@@ -383,7 +386,7 @@ def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
                      f"or the x ring exceeds a CTA's shared memory")
 
 
-# K1 and K4's state mode in the bf16 mode on the tensor cores
+# The bf16 mode's K3, K1 and K4 (both modes) on the tensor cores
 # (csrc/bidi_lstm_fwd.cu: fwd16_kernel): rows of an m16 tile (a cluster
 # takes one or two), threads of a CTA, the multiple of units a CTA owns (its
 # h goes to its peers in 16-byte chunks of 8 units), the cluster sizes, and
@@ -397,13 +400,15 @@ FWD16_CLUSTER_SIZES = (1, 2, 3, 4, 8)
 FWD16_SMEM_MAX = SMEM_MAX - 4 * 2 * FWD16_M
 # Where the FMA kernel (bidi_lstm_fwd_kernel at fwd_plan: h·Wh on the FMA
 # pipes) beats the tensor-core kernel although a plan of it fits, read from
-# the card at B=256 with full and ragged lengths
-# (scripts/torch_fwd16_probe.py --t-sweep; PERF.md §6): chains of at most
-# FWD16_OLD_LONG_T frames at H <= FWD16_OLD_LONG_H (the filter's T=16 and
-# 32 buckets at H=100), and of at most FWD16_OLD_SHORT_T at H <=
-# FWD16_OLD_SHORT_H. The tensor-core kernel's step is a fixed latency
-# chain; the FMA kernel's costs less at these sizes, where the host's
-# enqueue of a call is as long as the card's work.
+# the card with full and ragged lengths (scripts/torch_fwd16_probe.py
+# --t-sweep; PERF.md §6): K1 and K4's state mode at B=256, K3 and K4
+# inference at B=256 and 64 (a clstmocr bucket), which put their
+# crossovers at the same chain lengths. Chains of at most FWD16_OLD_LONG_T
+# frames at H <= FWD16_OLD_LONG_H (the filter's T=16 and 32 buckets at
+# H=100), and of at most FWD16_OLD_SHORT_T at H <= FWD16_OLD_SHORT_H. The
+# tensor-core kernel's step is a fixed latency chain; the FMA kernel's
+# costs less at these sizes, where the host's enqueue of a call is as long
+# as the card's work.
 FWD16_OLD_LONG_T = 32
 FWD16_OLD_LONG_H = 100
 FWD16_OLD_SHORT_T = 16
@@ -411,7 +416,7 @@ FWD16_OLD_SHORT_H = 200
 
 
 class Fwd16Plan(NamedTuple):
-    """How the bf16 tensor-core kernel runs K1 or K4's state mode: each
+    """How the bf16 tensor-core kernel runs K3, K1 or K4 (either mode): each
     direction's chain for a group of ``rows`` rows (16 or 32: one or two
     m16 tiles) runs on a cluster of ``C`` CTAs; CTA c owns units [c·units,
     min(H, (c+1)·units)) with their four gate columns and keeps its columns
@@ -433,8 +438,8 @@ class Fwd16Plan(NamedTuple):
 FWD16_NONE = Fwd16Plan(0, 0, 0, 0, 0, 0)
 
 
-def fwd16_geometry(D: int, H: int, rows: int, units: int,
-                   hoist: bool) -> dict:
+def fwd16_geometry(D: int, H: int, rows: int, units: int, hoist: bool, *,
+                   state: bool) -> dict:
     """The shared-memory layout of a fwd16 CTA (csrc::geo16), in bytes: bw
     its columns of Wh and of [Wx; b] [N = 4·units][KH + KX + 8] bf16 (KH =
     H up to 16, KX = D+1 up to 16 or 0 with ``hoist``, k contiguous), ah
@@ -442,14 +447,16 @@ def fwd16_geometry(D: int, H: int, rows: int, units: int,
     with ``hoist`` the xz ring [3][rows][4][units], and the output stage of
     each parity: gs the gates [2][rows][4·units + 2] f32 (rows 4·units + 2
     words apart, for its banks), hs h and cs c [2][rows][units] bf16. D is
-    the kernel's x width (even)."""
+    the kernel's x width (even). Without ``state`` (K3, K4 inference) gs
+    and cs are 0: the stage holds h alone."""
     N, KH = 4 * units, _up(H, 16)
     KX = 0 if hoist else _up(D + 1, 16)
     g = {"N": N, "KH": KH, "KX": KX, "bw": N * (KH + KX + 8) * 2,
          "ah": 2 * rows * (KH + 8) * 2,
          "ax": 3 * rows * (4 * units if hoist else KX + 8) * 2,
-         "gs": 2 * rows * (4 * units + 2) * 4, "hs": 2 * rows * units * 2,
-         "cs": 2 * rows * units * 2}
+         "gs": 2 * rows * (4 * units + 2) * 4 if state else 0,
+         "hs": 2 * rows * units * 2,
+         "cs": 2 * rows * units * 2 if state else 0}
     g["bytes"] = sum(g[k] for k in ("bw", "ah", "ax", "gs", "hs", "cs"))
     return g
 
@@ -461,20 +468,20 @@ def fwd16_ng(rows: int) -> int:
 
 
 def fwd16_smem(D: int, H: int, rows: int, units: int, hoist: bool,
-               C: int) -> int:
+               C: int, *, state: bool) -> int:
     """Bytes of dynamic shared memory a fwd16 CTA takes, 0 where the kernel
     takes no such plan (clstm_bidi_lstm_fwd16_smem counts the same): C in
     FWD16_CLUSTER_SIZES with every CTA owning a unit, rows in FWD16_ROWS,
     units a multiple of FWD16_UNITS whose n tiles (units/2) the warps take
     at most fwd16_ng each, D even (0 with ``hoist``), within
-    FWD16_SMEM_MAX."""
+    FWD16_SMEM_MAX; ``state`` as fwd16_geometry."""
     if (C not in FWD16_CLUSTER_SIZES or rows not in FWD16_ROWS or H < 1
             or units < FWD16_UNITS or units % FWD16_UNITS
             or C * units < H or (C - 1) * units >= H
             or units // 2 > FWD16_WARPS * fwd16_ng(rows)
             or (not hoist and (D < 2 or D % 2))):
         return 0
-    g = fwd16_geometry(D, H, rows, units, hoist)
+    g = fwd16_geometry(D, H, rows, units, hoist, state=state)
     return g["bytes"] if g["bytes"] <= FWD16_SMEM_MAX else 0
 
 
@@ -488,17 +495,18 @@ def fwd16_units(H: int, C: int) -> int:
 
 def fwd16_prefers_old(T: int, H: int) -> bool:
     """Whether a chain of T frames and H units takes the FMA kernel although
-    a fwd16 plan fits: where that kernel was the faster on the card
-    (FWD16_OLD_*)."""
+    a fwd16 plan fits, in either mode: where that kernel was the faster on
+    the card (FWD16_OLD_*)."""
     return ((T <= FWD16_OLD_LONG_T and H <= FWD16_OLD_LONG_H)
             or (T <= FWD16_OLD_SHORT_T and H <= FWD16_OLD_SHORT_H))
 
 
 def fwd16_cluster_plan(B: int, D: int, H: int, hoist: bool, clusters=None,
-                       C: Optional[int] = None,
+                       *, state: bool, C: Optional[int] = None,
                        rows: Optional[int] = None) -> Fwd16Plan:
     """The fwd16 plan for a batch of B rows, x width D (the kernel's, even;
-    unused with ``hoist``: K4) and H units.
+    unused with ``hoist``: K4) and H units; ``state``: K1 or K4's state
+    mode, else K3 or K4 inference (whose CTA keeps no gates or cell stage).
 
     Of the plans that fit (C in FWD16_CLUSTER_SIZES, rows in FWD16_ROWS,
     fwd16_units, fwd16_smem), the one of fewest waves (2·groups over the
@@ -508,10 +516,10 @@ def fwd16_cluster_plan(B: int, D: int, H: int, hoist: bool, clusters=None,
     and 200, C=3 with 16 rows (32 clusters of 3 in one wave on an H100,
     which holds 39 of 3 and 30 of 4). FWD16_NONE where none fits.
     ``clusters(C, rows, units)`` gives how many clusters of a plan the
-    card holds at once: on a card the kernel's occupancy query
-    (``fwd16_clusters``), by default H100_CLUSTERS. ``C`` and ``rows``
-    force a choice, for measurements (scripts/torch_fwd16_probe.py times
-    the plans in turns)."""
+    card holds at once: on a card the occupancy query of the mode's
+    instance (``fwd16_clusters``), by default H100_CLUSTERS. ``C`` and
+    ``rows`` force a choice, for measurements (scripts/torch_fwd16_probe.py
+    times the plans in turns)."""
     if min(B, H) < 1:
         raise ValueError(f"no fwd16 plan for B={B} H={H}")
     if clusters is None:
@@ -524,7 +532,7 @@ def fwd16_cluster_plan(B: int, D: int, H: int, hoist: bool, clusters=None,
         if not units:
             continue
         for r in FWD16_ROWS if rows is None else (rows,):
-            smem = fwd16_smem(d, H, r, units, hoist, c)
+            smem = fwd16_smem(d, H, r, units, hoist, c, state=state)
             if not smem:
                 continue
             groups = -(-B // r)
@@ -536,9 +544,10 @@ def fwd16_cluster_plan(B: int, D: int, H: int, hoist: bool, clusters=None,
 
 
 def fwd16_plan(B: int, T: int, D: int, H: int, hoist: bool,
-               clusters=None) -> Fwd16Plan:
-    """The bf16 K1 (K4's state mode with ``hoist``) plan for B rows of T
-    frames, x width D (the kernel's, even) and H units: the cluster plan of
+               clusters=None, *, state: bool) -> Fwd16Plan:
+    """The bf16 K1 (K4's state mode with ``hoist``; without ``state`` K3,
+    or K4 inference with ``hoist``) plan for B rows of T frames, x width D
+    (the kernel's, even) and H units: the cluster plan of
     fwd16_cluster_plan, or FWD16_NONE (the FMA kernel, fwd_plan) where none
     fits (H of several hundred with the x part, 700, 2048) or
     fwd16_prefers_old."""
@@ -546,7 +555,7 @@ def fwd16_plan(B: int, T: int, D: int, H: int, hoist: bool,
         raise ValueError(f"no fwd16 plan for B={B} T={T} H={H}")
     if fwd16_prefers_old(T, H):
         return FWD16_NONE
-    return fwd16_cluster_plan(B, D, H, hoist, clusters)
+    return fwd16_cluster_plan(B, D, H, hoist, clusters, state=state)
 
 
 def fwd16_weights(params_f: dict, params_r: dict, with_x: bool):
@@ -991,18 +1000,19 @@ def device_chain_plan(device, B: int, T: int, H: int) -> ChainPlan:
     return p
 
 
-def fwd16_clusters(device, D: int, H: int, hoist: bool):
-    """``clusters`` for fwd16_cluster_plan on ``device``'s card: the fwd16
-    kernel's occupancy query (``clstm_bidi_lstm_fwd16_clusters``),
-    cached."""
+def fwd16_clusters(device, D: int, H: int, hoist: bool, *, state: bool):
+    """``clusters`` for fwd16_cluster_plan on ``device``'s card: the
+    occupancy query of the fwd16 kernel's instance of the mode
+    (``clstm_bidi_lstm_fwd16_clusters``), cached."""
     def query(C, rows, units):
-        k = ("fwd16", device, D, H, hoist, C, rows, units)
+        k = ("fwd16", device, D, H, hoist, state, C, rows, units)
         n = _active.get(k)
         if n is None:
             with (torch.cuda.device(device) if device.type == "cuda"
                   else contextlib.nullcontext()):
                 n = _kernel("clstm_bidi_lstm_fwd16_clusters")(
-                    0 if hoist else D, H, int(hoist), C, rows, units)
+                    0 if hoist else D, H, int(hoist), int(state), C, rows,
+                    units)
             if n < 1:
                 raise RuntimeError(
                     f"the card holds no cluster of {C} CTAs of the fwd16 "
@@ -1014,13 +1024,15 @@ def fwd16_clusters(device, D: int, H: int, hoist: bool):
 
 
 def device_fwd16_plan(device, B: int, T: int, D: int, H: int,
-                      hoist: bool) -> Fwd16Plan:
-    """fwd16_plan on ``device``'s card, cached per device and shape."""
-    key = ("fwd16", device, B, T, D, H, hoist)
+                      hoist: bool, *, state: bool) -> Fwd16Plan:
+    """fwd16_plan on ``device``'s card, cached per device, shape and
+    mode."""
+    key = ("fwd16", device, B, T, D, H, hoist, state)
     p = _plans.get(key)
     if p is None:
-        p = fwd16_plan(B, T, D, H, hoist, fwd16_clusters(device, D, H,
-                                                         hoist))
+        p = fwd16_plan(B, T, D, H, hoist,
+                       fwd16_clusters(device, D, H, hoist, state=state),
+                       state=state)
         _plans[key] = p
     return p
 
@@ -1037,8 +1049,8 @@ def _fwd(kind: str, plan, params_f: dict, params_r: dict,
     ``plan`` on checked CUDA inputs, uncounted (the wrappers count their
     own launches; measurements launch a forced plan here) -> y, or (y,
     gates, cell) in the state modes. A FwdPlan launches the FMA kernel
-    (either precision), a Fwd16Plan the bf16 tensor-core kernel (K1 and
-    K4's state mode). An empty batch (B or T 0) launches nothing and
+    (either precision), a Fwd16Plan the bf16 tensor-core kernel (any mode,
+    bf16 only). An empty batch (B or T 0) launches nothing and
     returns empty outputs. ``launch(name, device, *args)`` calls the C
     entry point (by default ``_launch``; a measurement of another build
     passes its own)."""
@@ -1059,13 +1071,14 @@ def _fwd(kind: str, plan, params_f: dict, params_r: dict,
         return tuple(outs) if state else outs[0]
     shape = (B, T, H) if hoist else (B, T, D, H)
     if isinstance(plan, Fwd16Plan):
-        if not (bf16 and state and plan.C):
-            raise ValueError(f"the fwd16 kernel runs K1 and K4's state mode "
-                             f"in the bf16 mode, not {kind} at {plan}")
+        if not (bf16 and plan.C):
+            raise ValueError(f"the fwd16 kernel runs the bf16 mode, not "
+                             f"{kind} in f32 or at {plan}")
         # Its x and xz stages copy 4- and 8-byte pieces.
         inp = _aligned(inp)
         wx, wh = fwd16_weights(params_f, params_r, not hoist)
-        name = "clstm_bidi_lstm_fwd16_" + ("xz_state" if hoist else "state")
+        name = ("clstm_bidi_lstm_fwd16" + ("_xz" if hoist else "")
+                + ("_state" if state else ""))
         args = (plan.C, plan.rows, plan.units)
     else:
         wx, wh = fwd_weights(params_f, params_r, not hoist, bf16)
@@ -1082,9 +1095,9 @@ def _fwd_launch(kind: str, counter, params_f: dict, params_r: dict,
                 bf16: bool):
     """Launch the forward kernel in mode ``kind`` (see _fwd) on x or xz
     (already checked) at the card's plan -> y, or (y, gates, cell) in the
-    state modes: in the bf16 mode K1 and K4's state mode on the tensor-core
-    kernel where device_fwd16_plan gives a plan, else the FMA kernel at
-    device_plan's. An empty batch launches nothing; a launch adds one to
+    state modes: in the bf16 mode on the tensor-core kernel where
+    device_fwd16_plan gives a plan, else the FMA kernel at device_plan's.
+    An empty batch launches nothing; a launch adds one to
     ``counter.launches``, and one of the tensor-core kernel also to
     ``counter.launches16``."""
     hoist, state = "xz" in kind, kind.endswith("state")
@@ -1094,7 +1107,7 @@ def _fwd_launch(kind: str, counter, params_f: dict, params_r: dict,
     dev = inp.device
     H = params_f["Wh"].shape[0]
     D = 0 if hoist else inp.shape[-1] + (inp.shape[-1] % 2 if bf16 else 0)
-    plan = (device_fwd16_plan(dev, B, T, D, H, hoist) if bf16 and state
+    plan = (device_fwd16_plan(dev, B, T, D, H, hoist, state=state) if bf16
             else FWD16_NONE)
     if not plan.C:
         plan = device_plan(dev, B, D, H, hoist, state, 2 if bf16 else 4)
@@ -1118,8 +1131,11 @@ def bidi_lstm_infer(params_f: dict, params_r: dict, x: torch.Tensor,
     "b" [4H]}. With ``hoist`` None the layer takes K4 on
     ``hoisted_projection`` where ``hoists_projection(D, H)`` holds and K3
     elsewhere; True or False picks one (for measurements). ``launches``
-    counts K3's launches, ``bidi_lstm_infer_xz.launches`` K4's. No gradient
-    flows through a CUDA launch: training runs ``bidi_lstm_train``.
+    counts K3's launches, ``bidi_lstm_infer_xz.launches`` K4's. With
+    ``xz_bf16`` the launch takes the tensor-core kernel where
+    ``device_fwd16_plan`` gives a plan (``launches16`` counts those), else
+    the FMA kernel. No gradient flows through a CUDA launch: training runs
+    ``bidi_lstm_train``.
     """
     _check(params_f, params_r, x, lengths, xz_bf16)
     if hoist is None:
@@ -1161,7 +1177,8 @@ def bidi_lstm_infer_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
     """K4, inference. xz [B, T, 2, 4H] f32 (ops/lstm.py::hoisted_projection,
     original time order; bf16, the rounded product, with ``xz_bf16``) ->
     y [B, T, 2H] of the same type, as ``bidi_lstm_infer``. Only ``Wh`` of
-    the params is read (see ops/lstm.py::bidi_lstm_apply_xz)."""
+    the params is read (see ops/lstm.py::bidi_lstm_apply_xz). In the bf16
+    mode it takes the tensor-core kernel as K3 does."""
     _check_xz(params_f, params_r, xz, lengths, xz_bf16)
     if xz.device.type == "cpu":
         return bidi_lstm_apply_xz(params_f, params_r, xz, lengths,
@@ -1374,7 +1391,9 @@ bidi_lstm_infer_xz.launches = 0
 bidi_lstm_fwd_state_xz.launches = 0
 bidi_lstm_bwd_chain.launches = 0
 bidi_lstm_bwd_reduce.launches = 0
-# Of the bf16 mode's K1 and K4 state launches, those of the tensor-core
-# kernel (fwd16_plan).
+# Of the bf16 mode's forward launches, those of the tensor-core kernel
+# (fwd16_plan).
+bidi_lstm_infer.launches16 = 0
 bidi_lstm_fwd_state.launches16 = 0
+bidi_lstm_infer_xz.launches16 = 0
 bidi_lstm_fwd_state_xz.launches16 = 0

@@ -115,10 +115,12 @@ def _tiles_sum(A, Bm, acc):
         acc += (A[:, sl].double() @ Bm[:, sl].double().T).float()
 
 
-def emulate_fwd16(pf, pr, inp, lengths, plan):
+def emulate_fwd16(pf, pr, inp, lengths, plan, state=True):
     """K1 (x [B, T, D] f32) or K4's state mode (xz [B, T, 2, 4H] bf16) as
     fwd16_kernel computes it at ``plan`` -> (y, gates, cell) as the plain
-    versions return them, in f32 (y and cell bf16 values)."""
+    versions return them, in f32 (y and cell bf16 values); without
+    ``state``, K3 or K4 inference (the EMIT=false instances: the same
+    chain, no gates or cell written) -> (y,)."""
     hoist = inp.dim() == 4
     B, T = inp.shape[:2]
     H = pf["Wh"].shape[0]
@@ -130,7 +132,7 @@ def emulate_fwd16(pf, pr, inp, lengths, plan):
     else:
         x = bk._x_bf16(inp).float()
         D, wx = x.shape[-1], wx.float()
-    g = bk.fwd16_geometry(D, H, R, U, hoist)
+    g = bk.fwd16_geometry(D, H, R, U, hoist, state=state)
     KH, KX, N = g["KH"], g["KX"], g["N"]
     L = (torch.full((B,), T) if lengths is None
          else lengths.long().clamp(0, T))
@@ -161,7 +163,7 @@ def emulate_fwd16(pf, pr, inp, lengths, plan):
             lens[:n] = L[b0:b0 + n]
             lmax = int(lens.max())
             ah = torch.zeros(R, KH)
-            state = [(torch.zeros(len(it[0])), torch.zeros(len(it[0])))
+            carry = [(torch.zeros(len(it[0])), torch.zeros(len(it[0])))
                      for _, _, it in ctas]
             for s in range(lmax):
                 on_r = s < lens
@@ -174,7 +176,7 @@ def emulate_fwd16(pf, pr, inp, lengths, plan):
                     ax[on_r, :D] = x[b_r[on_r], t_r[on_r]]
                 nxt = torch.zeros(R, KH)
                 for (k0, nu, (rw, ul, zr, zc)), (bh, bx), st in zip(
-                        ctas, ops, state):
+                        ctas, ops, carry):
                     Z = torch.zeros(R, N)
                     if not hoist:
                         _tiles_sum(ax, bx, Z)
@@ -205,11 +207,13 @@ def emulate_fwd16(pf, pr, inp, lengths, plan):
                     w = on & (b0 + rw < B)
                     bw, tw, kw = b[w], t[w], k[w]
                     y[bw, tw, d * H + kw] = bf(st[1][w])
+                    if not state:
+                        continue
                     cell[bw, tw, d, kw] = bf(st[0][w])
                     for gg in range(4):
                         gates[bw, tw, d, gg * H + kw] = gt[w, gg]
                 ah = nxt
-    return y, gates, cell
+    return (y, gates, cell) if state else (y,)
 
 
 def _owned(p, H):
@@ -218,7 +222,7 @@ def _owned(p, H):
 
 @pytest.mark.parametrize("B,D,H,hoist", SHAPES)
 def test_torch_fwd16_plan_covers_and_fits(B, D, H, hoist):
-    p = bk.fwd16_plan(B, 900, D, H, hoist)
+    p = bk.fwd16_plan(B, 900, D, H, hoist, state=True)
     if (B, D, H, hoist) in NO_PLAN:
         assert p == bk.FWD16_NONE, "the FMA kernel where no plan fits"
         # ... and that kernel has a plan there.
@@ -226,7 +230,8 @@ def test_torch_fwd16_plan_covers_and_fits(B, D, H, hoist):
         return
     assert p.C in bk.FWD16_CLUSTER_SIZES and p.rows in bk.FWD16_ROWS
     assert p.units % bk.FWD16_UNITS == 0
-    assert p.smem == bk.fwd16_smem(D, H, p.rows, p.units, hoist, p.C)
+    assert p.smem == bk.fwd16_smem(D, H, p.rows, p.units, hoist, p.C,
+                                  state=True)
     assert 0 < p.smem <= bk.FWD16_SMEM_MAX
     assert p.units // 2 <= bk.FWD16_WARPS * bk.fwd16_ng(p.rows)
     # Rows: every row of the batch in exactly one group of a cluster.
@@ -249,8 +254,8 @@ def test_torch_fwd16_plan_covers_and_fits(B, D, H, hoist):
 @pytest.mark.parametrize("B,D,H,hoist", sorted(PINNED_PLAN))
 def test_torch_fwd16_plan_pinned_waves(B, D, H, hoist):
     # At a long chain: the plan is the cluster plan.
-    p = bk.fwd16_plan(B, 900, D, H, hoist)
-    assert p == bk.fwd16_cluster_plan(B, D, H, hoist)
+    p = bk.fwd16_plan(B, 900, D, H, hoist, state=True)
+    assert p == bk.fwd16_cluster_plan(B, D, H, hoist, state=True)
     assert p.clusters == bk.H100_CLUSTERS[p.C]
     waves = -(-2 * p.groups // p.clusters)
     assert (p.C, p.rows, p.units, waves) == PINNED_PLAN[(B, D, H, hoist)]
@@ -266,7 +271,7 @@ def test_torch_fwd16_smem_layout():
     groups)."""
     for D, H, R, U, hoist in ((48, 100, 16, 40, False), (0, 200, 16, 72, True),
                               (20, 7, 32, 8, False), (130, 64, 16, 8, False)):
-        g = bk.fwd16_geometry(D, H, R, U, hoist)
+        g = bk.fwd16_geometry(D, H, R, U, hoist, state=True)
         KH, KX = -(-H // 16) * 16, 0 if hoist else -(-(D + 1) // 16) * 16
         assert g["bytes"] == 2 * (4 * U * (KH + KX + 8) + 2 * R * (KH + 8)
                                   + 3 * R * (4 * U if hoist else KX + 8)
@@ -276,10 +281,12 @@ def test_torch_fwd16_smem_layout():
         for ld in (KH + KX + 8, KH + 8) + (() if hoist else (KX + 8,)):
             assert (2 * ld) % 32 == 16
         C = -(-H // U)
-        assert bk.fwd16_smem(D, H, R, U, hoist, C) in (0, g["bytes"])
+        assert bk.fwd16_smem(D, H, R, U, hoist, C, state=True) in (
+            0, g["bytes"])
     # The widest bench CTA, bidi2's K1 at layer 1, fits.
-    assert bk.fwd16_smem(48, 200, 16, 72, False, 3) == bk.fwd16_geometry(
-        48, 200, 16, 72, False)["bytes"] <= bk.FWD16_SMEM_MAX
+    assert bk.fwd16_smem(48, 200, 16, 72, False, 3, state=True) == \
+        bk.fwd16_geometry(48, 200, 16, 72, False, state=True)["bytes"] \
+        <= bk.FWD16_SMEM_MAX
 
 
 # (T, H) -> whether the plan is the FMA kernel: the window where it beat
@@ -296,22 +303,25 @@ def test_torch_fwd16_plan_window(T, H):
     the plan is FWD16_NONE; elsewhere the cluster plan, for K1 and K4's
     state mode."""
     for D, hoist in ((48, False), (0, True)):
-        p = bk.fwd16_plan(256, T, D, H, hoist)
+        p = bk.fwd16_plan(256, T, D, H, hoist, state=True)
         if WINDOW[(T, H)]:
             assert p == bk.FWD16_NONE
         else:
-            assert p.C and p == bk.fwd16_cluster_plan(256, D, H, hoist)
+            assert p.C and p == bk.fwd16_cluster_plan(256, D, H, hoist,
+                                                      state=True)
     assert bk.fwd16_prefers_old(T, H) == WINDOW[(T, H)]
 
 
 def test_torch_fwd16_plan_follows_the_card():
     """A card that holds fewer clusters moves the plan (more rows, another
     C), never to a failure; a forced C or rows is taken where it fits."""
-    p = bk.fwd16_cluster_plan(256, 48, 200, False, lambda C, r, u: 8)
+    p = bk.fwd16_cluster_plan(256, 48, 200, False, lambda C, r, u: 8,
+                              state=True)
     assert p.C and p.clusters == 8 and p.groups * p.rows >= 256
-    q = bk.fwd16_cluster_plan(256, 48, 100, False, C=3, rows=32)
+    q = bk.fwd16_cluster_plan(256, 48, 100, False, C=3, rows=32, state=True)
     assert (q.C, q.rows) == (3, 32)
-    assert bk.fwd16_cluster_plan(256, 48, 200, False, C=1) == bk.FWD16_NONE
+    assert bk.fwd16_cluster_plan(256, 48, 200, False, C=1,
+                                 state=True) == bk.FWD16_NONE
 
 
 # (T, hoist) -> the C entry a bf16 call of B=3, D=6 (K1) and H=5 launches:
@@ -339,8 +349,8 @@ def test_torch_fwd16_launch_route_and_counts(T, hoist, monkeypatch):
         bk, "device_plan", lambda device, B, D, H, hoist, state, esize:
         bk.fwd_plan(B, D, H, hoist, state, esize=esize))
     monkeypatch.setattr(
-        bk, "device_fwd16_plan", lambda device, B, T, D, H, hoist:
-        bk.fwd16_plan(B, T, D, H, hoist))
+        bk, "device_fwd16_plan", lambda device, B, T, D, H, hoist, *, state:
+        bk.fwd16_plan(B, T, D, H, hoist, state=state))
     D, H = 6, 5
     wrapper = bk.bidi_lstm_fwd_state_xz if hoist else bk.bidi_lstm_fwd_state
     monkeypatch.setattr(wrapper, "launches", 0)
@@ -360,7 +370,7 @@ def test_torch_fwd16_launch_route_and_counts(T, hoist, monkeypatch):
         assert y.shape == (B, T_, 2 * H) and gates.shape == (B, T_, 2, 4 * H)
         assert cell.shape == (B, T_, 2, H)
     assert not launched and wrapper.launches == wrapper.launches16 == 0
-    plan = bk.fwd16_plan(3, T, 0 if hoist else D, H, hoist)
+    plan = bk.fwd16_plan(3, T, 0 if hoist else D, H, hoist, state=True)
     y, gates, cell = call(3, T, True)
     assert (y.dtype, gates.dtype, cell.dtype) == (
         torch.bfloat16, torch.float32, torch.bfloat16)
@@ -437,7 +447,7 @@ def test_torch_fwd16_emulation_matches_plain(B, T, D, H, hoist, C, rows):
         inp = x
         want = tlstm.bidi_lstm_fwd_state_plain(pf, pr, x, L, xz_bf16=True)
     d = 0 if hoist else x.shape[-1] + x.shape[-1] % 2
-    plan = bk.fwd16_cluster_plan(B, d, H, hoist, C=C, rows=rows)
+    plan = bk.fwd16_cluster_plan(B, d, H, hoist, C=C, rows=rows, state=True)
     assert plan.C and plan.C == (C or plan.C)
     assert plan.rows == (rows or plan.rows)
     with torch.no_grad():
@@ -478,7 +488,7 @@ def test_torch_fwd16_emulation_matches_pallas_interpret(B, T, D, H):
     inp = (tlstm.hoisted_projection(pf, pr, x, xz_bf16=True) if hoist
            else x)
     d = 0 if hoist else D + D % 2
-    plan = bk.fwd16_cluster_plan(B, d, H, hoist)
+    plan = bk.fwd16_cluster_plan(B, d, H, hoist, state=True)
     with torch.no_grad():
         y = emulate_fwd16(pf, pr, inp, L, plan)[0]
     diff = np.abs(y.numpy() - want)
