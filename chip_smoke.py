@@ -355,7 +355,8 @@ from clstm_tpu_torch.train import (
     _LOSSES, TrainState, gather_batch, loss_and_grads, make_forward,
     make_predict_step, make_train_step, sgd_update)
 from clstm_tpu_torch.utils.metrics import levenshtein
-from clstm_tpu_torch.utils.profiling import Throughput, kernel_counts, trace
+from clstm_tpu_torch.utils.profiling import (
+    SPANS, Throughput, kernel_counts, trace)
 from clstm_tpu_torch.utils.config import to_device, torch_device
 
 B, T, D, H, C = 256, 1024, 48, 100, 96   # bench profile (bench.py:611-651)
@@ -1720,6 +1721,15 @@ def device_us(event) -> float:
     return getattr(event, DEVICE_KEY)
 
 
+def kernel_rows(rows) -> list:
+    """The kernels' rows of a profiler table: its CUDA rows less the step
+    annotations and the port's spans (utils/profiling.py SPANS), which come
+    back as CUDA rows spanning the kernels under them."""
+    return [e for e in rows
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep") and e.key not in SPANS]
+
+
 def kernel_name(key: str) -> str:
     """A profiler row's kernel name without its namespace and arguments,
     keeping template arguments (K1 and K4 are instances of one kernel)."""
@@ -2181,11 +2191,8 @@ def profile_steps(tocr, batch, card, fname, tag):
             prof.step()
     avg = traced[0]
     # Kernel rows only: an autograd Function's row also carries, as its own
-    # device time, the kernels it launched through ctypes, and the step
-    # annotations come back as CUDA rows spanning the whole step.
-    kernels_rows = [e for e in avg
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.key.startswith("ProfilerStep")]
+    # device time, the kernels it launched through ctypes.
+    kernels_rows = kernel_rows(avg)
     dev_ms = sum(device_us(e) for e in kernels_rows) / 1e3
     os.makedirs("chiprun_out", exist_ok=True)
     B_, T_ = batch["x"].shape[:2]
@@ -2282,8 +2289,7 @@ def ocrtrain(dev, tmp: str) -> dict:
             torch.cuda.synchronize()
             seen["loop_s"] = time.perf_counter() - t0
         seen["busy_s"] = sum(
-            device_us(e) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+            device_us(e) for e in kernel_rows(prof.key_averages())) / 1e6
         return seen["trials"]
 
     printed = io.StringIO()
@@ -4304,8 +4310,8 @@ def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs,
             dt = time.perf_counter() - t0
         if not profile:
             return n / dt, None
-        dev_s = sum(device_us(e) for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        dev_s = sum(device_us(e)
+                    for e in kernel_rows(prof.key_averages())) / 1e6
         return n / dt, (dev_s / dt if dev_s else None)
 
     blocks = (b for b in dcache.epoch_blocks(
@@ -5734,8 +5740,7 @@ def auto_turns(dev, tmp: str, ocr_dir: str) -> dict:
             torch.cuda.synchronize()
             seen["loop_s"] = time.perf_counter() - t0
         seen["busy_s"] = sum(
-            device_us(e) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+            device_us(e) for e in kernel_rows(prof.key_averages())) / 1e6
         seen.update(trials=trials, ocr=ocr, dcache=kw["dcache"])
         return trials
 

@@ -43,12 +43,12 @@ from __future__ import annotations
 
 import json
 import sys
-import time
 
 import numpy as np
 
 from clstm_tpu_torch.cli.clstmfilter import _predict_batched
-from clstm_tpu_torch.cli.clstmocrtrain import auto_steps_per_dispatch
+from clstm_tpu_torch.cli.clstmocrtrain import (
+    auto_steps_per_dispatch, report_meter)
 from clstm_tpu_torch.data.dataset import (
     S_BUCKETS, TEXT_T_BUCKETS, make_text_batches, pad_batch_rows,
     truncation_report)
@@ -120,9 +120,9 @@ def _test(model, test_pairs, trials, batch_size, best_err, save_name, log):
     return best_err
 
 
-def _report(model, trials, loss, ids, vals, text, t0, log) -> None:
+def _report(model, trials, loss, ids, vals, text, meter, log) -> None:
     pred = model.codec.decode(decode_frames(ids, vals))
-    rate = trials / (time.time() - t0)
+    rate = meter.rate()
     print(f"{trials} {loss:.4f} ({rate:.1f} pairs/s)")
     print(f"   TRU: {text!r}")
     print(f"   OUT: {pred!r}", flush=True)
@@ -137,7 +137,7 @@ def train_batched(model: CLSTMText, train_pairs, test_pairs, *, ntrain,
     trials = 0
     best_err = float("inf")
     next_report, next_save, next_test = report_every, save_every, test_every
-    t0 = time.time()
+    meter = report_meter()
     while trials < ntrain:
         for batch in make_text_batches(train_pairs, model.icodec, model.codec,
                                        batch_size, rng=rng,
@@ -148,8 +148,9 @@ def train_batched(model: CLSTMText, train_pairs, test_pairs, *, ntrain,
                 next_report += report_every
                 loss, ids, vals = unpack_report(m["report"],
                                                 batch["lengths"][0])
-                _report(model, trials, loss, ids, vals, batch["texts"][0], t0,
-                        log)
+                meter.add(trials - meter.total)
+                _report(model, trials, loss, ids, vals, batch["texts"][0],
+                        meter, log)
             if test_pairs and trials >= next_test:
                 next_test += test_every
                 best_err = _test(model, test_pairs, trials, batch_size,
@@ -174,22 +175,23 @@ def train_blocks(model: CLSTMText, dcache: TextDeviceDataset, test_pairs, *,
     best_err = float("inf")
     next_report = 0
     next_save, next_test = save_every, test_every
-    t0 = time.time()
-    # Deferred report: (copy of report_all, crossings, texts, lengths),
-    # read after the next block is enqueued so the card does not drain
-    # while the host waits for it.
+    meter = report_meter()
+    # Deferred report: (copy of report_all, crossings, texts, lengths, the
+    # trials through the block), read after the next block is enqueued so
+    # the card does not drain while the host waits for it.
     pending = None
 
     def flush_pending():
         nonlocal pending
         if pending is None:
             return
-        copy, crossings, btexts, bhls = pending
+        copy, crossings, btexts, bhls, upto = pending
         pending = None
         rep = copy.numpy()
+        meter.add(upto - meter.total)
         for tr, s in crossings:
             loss, ids, vals = unpack_report(rep[s], int(bhls[s][0]))
-            _report(model, tr, loss, ids, vals, btexts[s][0], t0, log)
+            _report(model, tr, loss, ids, vals, btexts[s][0], meter, log)
 
     while trials < ntrain:
         # epochs=block_k: multi-epoch plans keep every block at a full k
@@ -219,7 +221,8 @@ def train_blocks(model: CLSTMText, dcache: TextDeviceDataset, test_pairs, *,
                         next_report += max(report_every, 1)
                     crossings.append((trials, s))
             if crossings:
-                pending = (HostCopy(m["report_all"]), crossings, btexts, bhls)
+                pending = (HostCopy(m["report_all"]), crossings, btexts, bhls,
+                           trials)
             if test_pairs and trials >= next_test:
                 flush_pending()
                 while next_test <= trials:
@@ -244,14 +247,14 @@ def train_pairs_one(model: CLSTMText, train_pairs, test_pairs, *, ntrain,
     CLSTMText.train. -> the trials run."""
     trials = 0
     best_err = float("inf")
-    t0 = time.time()
+    meter = report_meter()
     while trials < ntrain:
         a, b = train_pairs[rng.randint(len(train_pairs))]
         pred = model.train(a, b)
         trials += 1
         if trials % report_every == 0:
-            rate = trials / (time.time() - t0)
-            print(f"{trials} ({rate:.1f} pairs/s)")
+            meter.add(trials - meter.total)
+            print(f"{trials} ({meter.rate():.1f} pairs/s)")
             print(f"   INP: {a!r}")
             print(f"   TRU: {b!r}")
             print(f"   OUT: {pred!r}", flush=True)

@@ -80,6 +80,16 @@ from clstm_tpu_torch.train import unpack_report
 from clstm_tpu_torch.utils.config import (
     HostCopy, enable_compile_cache, getdenv, getienv, getsenv)
 from clstm_tpu_torch.utils.metrics import levenshtein
+from clstm_tpu_torch.utils.profiling import Throughput
+
+
+def report_meter() -> Throughput:
+    """The rate the train CLIs print at a report read: ``add`` the trials
+    since the last read, and ``rate()`` is those trials over the time since
+    it (at the first read, since the meter was made at the loop's start)."""
+    meter = Throughput(window=2)
+    meter.add(0)
+    return meter
 
 
 def evaluate(ocr: CLSTMOCR, data, codec: Codec, batch_size: int) -> float:
@@ -146,6 +156,7 @@ def train(ocr: CLSTMOCR, codec: Codec, *, save_name: str, ntrain: int,
         display = Display(save_name + "-display.png")
     next_display = max(display_every, 1)
     t0 = time.time()
+    meter = report_meter()
     # Deferred report: its copy to pinned memory starts when the block is
     # enqueued and is read one block later, so the card does not drain
     # while the host waits for a report.
@@ -155,14 +166,15 @@ def train(ocr: CLSTMOCR, codec: Codec, *, save_name: str, ntrain: int,
         nonlocal pending, warned_drops
         if pending is None:
             return
-        copy, crossings, btexts, bhls = pending
+        copy, crossings, btexts, bhls, upto = pending
         pending = None
         rep = copy.numpy()
+        meter.add(upto - meter.total)
+        rate = meter.rate()
         for tr, s in crossings:
             L = int(bhls[s][0])
             loss, ids, vals = unpack_report(rep[s], L)
             pred = codec.decode(decode_frames(ids, vals))
-            rate = trials / (time.time() - t0)
             print(f"{tr} {loss:.4f} ({rate:.1f} lines/s)")
             print(f"   TRU: {btexts[s][0]!r}")
             print(f"   OUT: {pred!r}", flush=True)
@@ -225,7 +237,8 @@ def train(ocr: CLSTMOCR, codec: Codec, *, save_name: str, ntrain: int,
                             next_report += max(report_every, 1)
                         crossings.append((trials, s))
                 if crossings:
-                    pending = (HostCopy(report), crossings, btexts, bhls)
+                    pending = (HostCopy(report), crossings, btexts, bhls,
+                               trials)
                 if has_test and trials >= next_test:
                     flush_pending()
                     while next_test <= trials:

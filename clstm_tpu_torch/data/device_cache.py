@@ -50,6 +50,7 @@ from clstm_tpu_torch.ops.preprocess import (
 from clstm_tpu_torch.parallel.mesh import plan_checksum, plan_guard
 from clstm_tpu_torch.train import gather_batch
 from clstm_tpu_torch.utils.config import to_device, torch_device
+from clstm_tpu_torch.utils.profiling import span
 
 
 # Padded frame-rows a second of the default bidi training step (B=256,
@@ -306,29 +307,31 @@ class DeviceDataset:
         the device, j (the next batch the device steps take), used (the
         next batch the host hands out)]; consumers advance ``used`` and
         write the steps' returned counter back into slot 3."""
-        plans = []
-        for g in self.groups:
-            orders = []
-            for _ in range(epochs):
-                order = np.arange(g["n"])
-                if rng is not None:
-                    rng.shuffle(order)
-                orders.append(order)
-            order = np.concatenate(orders)
-            chunks = []
-            for lo in range(0, len(order), batch_size):
-                chunk = order[lo:lo + batch_size]
-                if len(chunk) < batch_size:
-                    if drop_remainder:
-                        continue
-                    pad = np.full(batch_size - len(chunk), g["n"], np.int64)
-                    chunk = np.concatenate([chunk, pad])
-                chunks.append(chunk)
-            if chunks:
-                idx_all = np.stack(chunks).astype(np.int64)
-                plans.append([g, idx_all, to_device(idx_all, self.device),
-                              0, 0])
-        return plans
+        with span("clstm.plan"):
+            plans = []
+            for g in self.groups:
+                orders = []
+                for _ in range(epochs):
+                    order = np.arange(g["n"])
+                    if rng is not None:
+                        rng.shuffle(order)
+                    orders.append(order)
+                order = np.concatenate(orders)
+                chunks = []
+                for lo in range(0, len(order), batch_size):
+                    chunk = order[lo:lo + batch_size]
+                    if len(chunk) < batch_size:
+                        if drop_remainder:
+                            continue
+                        pad = np.full(batch_size - len(chunk), g["n"],
+                                      np.int64)
+                        chunk = np.concatenate([chunk, pad])
+                    chunks.append(chunk)
+                if chunks:
+                    idx_all = np.stack(chunks).astype(np.int64)
+                    plans.append([g, idx_all, to_device(idx_all, self.device),
+                                  0, 0])
+            return plans
 
     def _epoch_seq(self, batch_size: int, rng, drop_remainder: bool):
         """Batch-granularity plan sequence (one entry per batch); each

@@ -46,6 +46,7 @@ from clstm_tpu_torch.train import (
     TrainState, make_cached_train_step, make_multi_train_step,
     make_predict_step, make_train_step, unpack_report)
 from clstm_tpu_torch.utils.config import torch_device
+from clstm_tpu_torch.utils.profiling import span
 
 _clamp_warned = False
 
@@ -277,9 +278,10 @@ class _TrainableBase:
                         input_onehot=onehot, **self._step_options()))
             self._multi_steps[(k, onehot)] = step
         nv = block["k"] if nvalid is None else max(1, min(nvalid, block["k"]))
-        self.state, metrics, new_j = step(
-            self.state, block["group"], block["idx_all"], block["j"],
-            nvalid=nv, lr_arg=self.lr, momentum_arg=self.momentum)
+        with span("clstm.block"):
+            self.state, metrics, new_j = step(
+                self.state, block["group"], block["idx_all"], block["j"],
+                nvalid=nv, lr_arg=self.lr, momentum_arg=self.momentum)
         block["set_j"](new_j)
         if nv < block["k"] and "exhaust" in block:
             block["exhaust"]()

@@ -33,6 +33,7 @@ from clstm_tpu_torch.ops.bidi_lstm_kernel import (
 from clstm_tpu_torch.ops.lstm import bidi_lstm_apply, lstm_apply
 from clstm_tpu_torch.ops.nonlin import nonlin_apply
 from clstm_tpu_torch.ops.seq import flip_within_length
+from clstm_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,28 +301,30 @@ class _AffineBF16(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, W, b):
-        x16 = x.to(torch.bfloat16)
-        W16 = W.to(torch.bfloat16)
-        ctx.save_for_backward(x16, W16)
-        ctx.x_dtype = x.dtype
-        lead = x.shape[:-1]
-        z = x16.reshape(-1, x.shape[-1]).float() @ W16.float() + b
-        return z.reshape(*lead, W.shape[1])
+        with span("clstm.affine.fwd"):
+            x16 = x.to(torch.bfloat16)
+            W16 = W.to(torch.bfloat16)
+            ctx.save_for_backward(x16, W16)
+            ctx.x_dtype = x.dtype
+            lead = x.shape[:-1]
+            z = x16.reshape(-1, x.shape[-1]).float() @ W16.float() + b
+            return z.reshape(*lead, W.shape[1])
 
     @staticmethod
     def backward(ctx, g):
-        x16, W16 = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1]).float()
-        x2 = x16.reshape(-1, x16.shape[-1])
-        dx = dW = db = None
-        if ctx.needs_input_grad[0]:
-            dx = (g2 @ W16.float().t()).to(torch.bfloat16).to(
-                ctx.x_dtype).reshape(x16.shape)
-        if ctx.needs_input_grad[1]:
-            dW = (x2.float().t() @ g2).to(torch.bfloat16).float()
-        if ctx.needs_input_grad[2]:
-            db = g2.sum(0)
-        return dx, dW, db
+        with span("clstm.affine.bwd"):
+            x16, W16 = ctx.saved_tensors
+            g2 = g.reshape(-1, g.shape[-1]).float()
+            x2 = x16.reshape(-1, x16.shape[-1])
+            dx = dW = db = None
+            if ctx.needs_input_grad[0]:
+                dx = (g2 @ W16.float().t()).to(torch.bfloat16).to(
+                    ctx.x_dtype).reshape(x16.shape)
+            if ctx.needs_input_grad[1]:
+                dW = (x2.float().t() @ g2).to(torch.bfloat16).float()
+            if ctx.needs_input_grad[2]:
+                db = g2.sum(0)
+            return dx, dW, db
 
 
 class Affine(Layer):
@@ -337,7 +340,8 @@ class Affine(Layer):
         """x·W + b, f32; with ``bf16`` on bf16 operands (``_AffineBF16``)."""
         if bf16:
             return _AffineBF16.apply(x, self.W, self.b)
-        return torch.matmul(x.float(), self.W) + self.b
+        with span("clstm.affine.fwd"):
+            return torch.matmul(x.float(), self.W) + self.b
 
     def affine_ctx(self, x: torch.Tensor, ctx: ApplyCtx) -> torch.Tensor:
         """The affine at ``ctx``'s precision: bf16 operands in the bf16 mode

@@ -58,6 +58,7 @@ from clstm_tpu_torch.ops.lstm import (
     bidi_lstm_apply, bidi_lstm_apply_xz, bidi_lstm_bwd_chain_plain,
     bidi_lstm_bwd_reduce_plain, bidi_lstm_fwd_state_plain,
     bidi_lstm_fwd_state_xz_plain, hoisted_projection)
+from clstm_tpu_torch.utils.profiling import span
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers, ints, stream); all return int.
@@ -1341,13 +1342,15 @@ class _BidiLSTMTrain(torch.autograd.Function):
         pf = {"Wx": wxf, "Wh": whf, "b": bf}
         pr = {"Wx": wxr, "Wh": whr, "b": br}
         mode = _mode(bf16)
-        if hoists_projection(x.shape[-1], whf.shape[0]):
-            xz = hoisted_projection(pf, pr, x, **mode)
-            y, gates, cell = bidi_lstm_fwd_state_xz(pf, pr, xz, lengths,
-                                                    **mode)
-            del xz
-        else:
-            y, gates, cell = bidi_lstm_fwd_state(pf, pr, x, lengths, **mode)
+        with span("clstm.lstm.fwd"):
+            if hoists_projection(x.shape[-1], whf.shape[0]):
+                xz = hoisted_projection(pf, pr, x, **mode)
+                y, gates, cell = bidi_lstm_fwd_state_xz(pf, pr, xz, lengths,
+                                                        **mode)
+                del xz
+            else:
+                y, gates, cell = bidi_lstm_fwd_state(pf, pr, x, lengths,
+                                                     **mode)
         ctx.bf16 = bf16
         ctx.save_for_backward(x, lengths, y, gates, cell, wxf, whf, wxr, whr)
         return y
@@ -1360,10 +1363,12 @@ class _BidiLSTMTrain(torch.autograd.Function):
         # need_dx of the TPU kernel: x is training data unless it requires
         # a gradient, and then dx is not computed at all.
         need_dx = ctx.needs_input_grad[0]
-        dz = bidi_lstm_bwd_chain(gates, cell, gy.to(y.dtype).contiguous(),
-                                 torch.stack([whf, whr]), lengths, **mode)
-        dW, dx = bidi_lstm_bwd_reduce(x, y, dz, torch.stack([wxf, wxr]),
-                                      need_dx, **mode)
+        with span("clstm.lstm.bwd"):
+            dz = bidi_lstm_bwd_chain(gates, cell,
+                                     gy.to(y.dtype).contiguous(),
+                                     torch.stack([whf, whr]), lengths, **mode)
+            dW, dx = bidi_lstm_bwd_reduce(x, y, dz, torch.stack([wxf, wxr]),
+                                          need_dx, **mode)
         grads = [(dW[g, :D], dW[g, D + 1:], dW[g, D]) for g in (0, 1)]
         return (dx, None, None, *grads[0], *grads[1])
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from clstm_tpu_torch.ops.seq import flip_within_length
+from clstm_tpu_torch.utils.profiling import span
 
 NEG = -1e30  # log-space "impossible" (finite to keep arithmetic NaN-free)
 LO = 1e-5    # probability floor, as in the reference (lo = 1e-5)
@@ -200,52 +201,56 @@ def ctc_align_targets_batched(
     ``use_kernel`` (``_backward_dp``: K6b for f32 CUDA tensors unless
     False).
     """
-    B, T, C = probs.shape
-    S = target_ids.shape[1]
-    dev = probs.device
-    dt = torch.float64 if probs.dtype == torch.float64 else torch.float32
-    probs = probs.to(dt)
-    if lengths is None:
-        lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
-    if target_lengths is None:
-        target_lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
-    tvalid = torch.arange(T, device=dev)[None, :] < lengths[:, None]
-    svalid = torch.arange(S, device=dev)[None, :] < target_lengths[:, None]
+    with span("clstm.ctc"):
+        B, T, C = probs.shape
+        S = target_ids.shape[1]
+        dev = probs.device
+        dt = torch.float64 if probs.dtype == torch.float64 else torch.float32
+        probs = probs.to(dt)
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+        if target_lengths is None:
+            target_lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        tvalid = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+        svalid = torch.arange(S, device=dev)[None, :] < target_lengths[:, None]
 
-    out = torch.clamp(probs, min=lo)
-    out = out / out.sum(dim=2, keepdim=True)
-    idx = target_ids.long()
-    gathered = torch.gather(out, 2, idx[:, None, :].expand(B, T, S))
-    lmatch = torch.where(svalid[:, None, :], torch.log(gathered),
-                         torch.full((), NEG, dtype=dt, device=dev))
+        out = torch.clamp(probs, min=lo)
+        out = out / out.sum(dim=2, keepdim=True)
+        idx = target_ids.long()
+        gathered = torch.gather(out, 2, idx[:, None, :].expand(B, T, S))
+        lmatch = torch.where(svalid[:, None, :], torch.log(gathered),
+                             torch.full((), NEG, dtype=dt, device=dev))
 
-    if fused:
-        # Imported here: ops/ctc_kernel.py imports this module's plain
-        # versions.
-        from clstm_tpu_torch.ops.ctc_kernel import ctc_both, ctc_forward
-        lmatch = lmatch.contiguous()
-        lr = ctc_forward(lmatch, lengths, skip)
-        both, lse = ctc_both(lmatch, lr, lengths, target_lengths, skip)
-        # All-NEG (t, s) cells (invalid states, padded frames) carry exactly
-        # zero path mass.
-        epath = torch.where(both > 0.5 * NEG, torch.exp(both - lse[:, None, :]),
-                            torch.zeros((), dtype=dt, device=dev))
-    else:
-        lr = _forward_scan(lmatch, tvalid, skip)
-        rl = _backward_dp(lmatch, tvalid, lengths, target_lengths, skip,
-                          use_kernel)
-        neg = torch.full((), NEG, dtype=dt, device=dev)
-        both = torch.where(tvalid[:, :, None], lr + rl, neg)
-        both = torch.where(svalid[:, None, :], both, neg)
-        m = both.amax(dim=(1, 2), keepdim=True)
-        epath = torch.exp(both - m)
-        col = epath.sum(dim=1, keepdim=True)
-        epath = epath / torch.where(col == 0.0, torch.full_like(col, 1e-9), col)
+        if fused:
+            # Imported here: ops/ctc_kernel.py imports this module's plain
+            # versions.
+            from clstm_tpu_torch.ops.ctc_kernel import ctc_both, ctc_forward
+            lmatch = lmatch.contiguous()
+            lr = ctc_forward(lmatch, lengths, skip)
+            both, lse = ctc_both(lmatch, lr, lengths, target_lengths, skip)
+            # All-NEG (t, s) cells (invalid states, padded frames) carry
+            # exactly zero path mass.
+            epath = torch.where(both > 0.5 * NEG,
+                                torch.exp(both - lse[:, None, :]),
+                                torch.zeros((), dtype=dt, device=dev))
+        else:
+            lr = _forward_scan(lmatch, tvalid, skip)
+            rl = _backward_dp(lmatch, tvalid, lengths, target_lengths, skip,
+                              use_kernel)
+            neg = torch.full((), NEG, dtype=dt, device=dev)
+            both = torch.where(tvalid[:, :, None], lr + rl, neg)
+            both = torch.where(svalid[:, None, :], both, neg)
+            m = both.amax(dim=(1, 2), keepdim=True)
+            epath = torch.exp(both - m)
+            col = epath.sum(dim=1, keepdim=True)
+            epath = epath / torch.where(col == 0.0,
+                                        torch.full_like(col, 1e-9), col)
 
-    onehot = torch.nn.functional.one_hot(idx, C).to(dt) * svalid[:, :, None]
-    aligned = torch.bmm(epath, onehot)
-    aligned = torch.clamp(aligned, min=lo)
-    return aligned / aligned.sum(dim=2, keepdim=True)
+        onehot = (torch.nn.functional.one_hot(idx, C).to(dt)
+                  * svalid[:, :, None])
+        aligned = torch.bmm(epath, onehot)
+        aligned = torch.clamp(aligned, min=lo)
+        return aligned / aligned.sum(dim=2, keepdim=True)
 
 
 def ctc_align_targets(probs: torch.Tensor, targets: torch.Tensor, *,
@@ -281,22 +286,23 @@ def trivial_decode(probs, length: Optional[int] = None,
 
 def decode_frames(ids, vals, return_positions: bool = False):
     """Host-side run-collapse over per-frame (argmax id, prob) arrays."""
-    ids = np.asarray(ids)
-    vals = np.asarray(vals)
-    out, pos = [], []
-    mv, mc, mt = 0.0, -1, -1
-    for t in range(len(ids)):
-        c = int(ids[t])
-        if c == 0:
-            if mc > 0:
-                out.append(mc)
-                pos.append(mt)
-            mv, mc, mt = 0.0, -1, -1
-        elif vals[t] > mv:
-            mv, mc, mt = float(vals[t]), c, t
-    if mc > 0:
-        out.append(mc)
-        pos.append(mt)
+    with span("clstm.decode"):
+        ids = np.asarray(ids)
+        vals = np.asarray(vals)
+        out, pos = [], []
+        mv, mc, mt = 0.0, -1, -1
+        for t in range(len(ids)):
+            c = int(ids[t])
+            if c == 0:
+                if mc > 0:
+                    out.append(mc)
+                    pos.append(mt)
+                mv, mc, mt = 0.0, -1, -1
+            elif vals[t] > mv:
+                mv, mc, mt = float(vals[t]), c, t
+        if mc > 0:
+            out.append(mc)
+            pos.append(mt)
     if return_positions:
         return out, pos
     return out

@@ -64,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from clstm_tpu_torch.ops.seq import flip_within_length
+from clstm_tpu_torch.utils.profiling import span
 
 
 GATE_ORDER = ("GI", "GF", "GO", "CI")
@@ -195,7 +196,8 @@ def hoisted_projection(params_f: dict, params_r: dict, x: torch.Tensor,
     each kernel in a process, which a new batch shape brings
     (scripts/torch_blas_wait_probe.py).
     """
-    return _out(_projection(params_f, params_r, x, xz_bf16), xz_bf16)
+    with span("clstm.hoist"):
+        return _out(_projection(params_f, params_r, x, xz_bf16), xz_bf16)
 
 
 def _chain_plain(params_f: dict, params_r: dict, xz: torch.Tensor,

@@ -37,6 +37,7 @@ from clstm_tpu_torch.models.spec import ApplyCtx, Layer, NetSpec, apply_net
 from clstm_tpu_torch.ops.ctc import ctc_align_targets_batched, greedy_frames
 from clstm_tpu_torch.ops.preprocess import augment_generator, augment_lines
 from clstm_tpu_torch.ops.seq import length_mask
+from clstm_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -96,15 +97,17 @@ def ctc_alignment_loss(net: Layer, batch: dict, *, normalization: str = "none",
     x, lengths = batch["x"], batch["lengths"]
     logits = apply_net(net, x, lengths, logits=True, xz_bf16=xz_bf16,
                        compute_dtype=compute_dtype).float()
-    probs = torch.softmax(logits, dim=-1)
+    with span("clstm.loss"):
+        probs = torch.softmax(logits, dim=-1)
     with torch.no_grad():
         aligned = ctc_align_targets_batched(
             probs.detach(), batch["targets"], lengths=lengths,
             target_lengths=batch["target_lengths"])
-    mask = length_mask(lengths, x.shape[1])
-    ll = F.log_softmax(logits, dim=-1)
-    per_line = torch.sum(-torch.sum(aligned * ll, dim=-1) * mask, dim=-1)
-    loss = _reduce_lines(per_line, lengths, x.shape[0], normalization)
+    with span("clstm.loss"):
+        mask = length_mask(lengths, x.shape[1])
+        ll = F.log_softmax(logits, dim=-1)
+        per_line = torch.sum(-torch.sum(aligned * ll, dim=-1) * mask, dim=-1)
+        loss = _reduce_lines(per_line, lengths, x.shape[0], normalization)
     return loss, (probs.detach(), aligned)
 
 
@@ -118,11 +121,13 @@ def frame_target_loss(net: Layer, batch: dict, *, normalization: str = "none",
     x, lengths = batch["x"], batch["lengths"]
     logits = apply_net(net, x, lengths, logits=True, xz_bf16=xz_bf16,
                        compute_dtype=compute_dtype).float()
-    probs = torch.softmax(logits, dim=-1)
-    mask = length_mask(lengths, x.shape[1])
-    ll = F.log_softmax(logits, dim=-1)
-    per_line = torch.sum(-torch.sum(batch["y"] * ll, dim=-1) * mask, dim=-1)
-    loss = _reduce_lines(per_line, lengths, x.shape[0], normalization)
+    with span("clstm.loss"):
+        probs = torch.softmax(logits, dim=-1)
+        mask = length_mask(lengths, x.shape[1])
+        ll = F.log_softmax(logits, dim=-1)
+        per_line = torch.sum(-torch.sum(batch["y"] * ll, dim=-1) * mask,
+                             dim=-1)
+        loss = _reduce_lines(per_line, lengths, x.shape[0], normalization)
     return loss, (probs.detach(), batch["y"])
 
 
@@ -170,12 +175,31 @@ def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
     ``compute_dtype`` (e.g. torch.bfloat16) the JAX package's scan recipe
     in its place, which runs no LSTM kernel (the CTC kernels run as ever);
     parameters, velocity and update stay f32. The step is also the body of
-    make_cached_train_step and make_multi_train_step.
+    make_cached_train_step and make_multi_train_step. Each call is one
+    ``clstm.step`` span (utils/profiling.py).
     """
+    body = _step_body(spec, lr, momentum, loss_kind=loss_kind,
+                      normalization=normalization,
+                      compute_dtype=compute_dtype,
+                      gradient_clip=gradient_clip, augment=augment,
+                      augment_seed=augment_seed, xz_bf16=xz_bf16)
+
+    def step(state: TrainState, batch: dict, lr_arg=None, momentum_arg=None):
+        with span("clstm.step"):
+            return body(state, batch, lr_arg, momentum_arg)
+
+    return step
+
+
+def _step_body(spec: NetSpec, lr: float, momentum: float, *, loss_kind: str,
+               normalization: str, compute_dtype, gradient_clip: float,
+               augment: float, augment_seed: int, xz_bf16: Optional[bool]):
+    """make_train_step's step without its span, which the cached and multi
+    steps open around the gather and this body."""
     ApplyCtx(xz_bf16=xz_bf16, compute_dtype=compute_dtype)   # modes checked
     loss_fn = _LOSSES[loss_kind]
 
-    def step(state: TrainState, batch: dict, lr_arg=None, momentum_arg=None):
+    def body(state: TrainState, batch: dict, lr_arg=None, momentum_arg=None):
         check_spec(state, spec)
         batch = augmented(batch, augment, augment_seed, state.step)
         loss, grads, probs = loss_and_grads(state.net, batch, loss_fn,
@@ -184,14 +208,16 @@ def make_train_step(spec: NetSpec, lr: float = 1e-4, momentum: float = 0.9, *,
         apply_update(state, grads, gradient_clip,
                      lr if lr_arg is None else lr_arg,
                      momentum if momentum_arg is None else momentum_arg)
-        ids, vals = greedy_frames(probs)
-        packed = torch.cat([loss.reshape(1), ids[0].float(), vals[0].float()])
+        with span("clstm.report"):
+            ids, vals = greedy_frames(probs)
+            packed = torch.cat([loss.reshape(1), ids[0].float(),
+                                vals[0].float()])
         metrics = {"loss": loss, "frame_ids": ids, "frame_vals": vals,
                    "report_ids": ids[0], "report_vals": vals[0],
                    "report": packed}
         return state, metrics
 
-    return step
+    return body
 
 
 def check_spec(state: TrainState, spec: NetSpec) -> None:
@@ -219,7 +245,8 @@ def loss_and_grads(net: Layer, batch: dict, loss_fn, normalization: str,
     net.zero_grad(set_to_none=True)
     loss, (probs, _) = loss_fn(net, batch, normalization=normalization,
                                xz_bf16=xz_bf16, compute_dtype=compute_dtype)
-    loss.backward()
+    with span("clstm.backward"):
+        loss.backward()
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
              for n, p in net.named_parameters()}
     net.zero_grad(set_to_none=True)
@@ -229,9 +256,11 @@ def loss_and_grads(net: Layer, batch: dict, loss_fn, normalization: str,
 def apply_update(state: TrainState, grads: dict, gradient_clip: float,
                  lr, momentum) -> None:
     """Clip (gradient_clip > 0), the SGD update in place, step + 1."""
-    if gradient_clip > 0:
-        grads = clip_by_global_norm(grads, gradient_clip)
-    sgd_update(state.net, state.velocity, grads, float(lr), float(momentum))
+    with span("clstm.update"):
+        if gradient_clip > 0:
+            grads = clip_by_global_norm(grads, gradient_clip)
+        sgd_update(state.net, state.velocity, grads, float(lr),
+                   float(momentum))
     state.step += 1
 
 
@@ -249,13 +278,14 @@ def gather_batch(group: dict, idx: torch.Tensor,
     """Batch rows ``idx`` of a DeviceDataset group, gathered on its device.
     ``input_onehot`` > 0: the group holds int input ids (TextDeviceDataset)
     and the gathered rows are expanded to one-hot frames of that width."""
-    x = group["x"].index_select(0, idx)
-    if input_onehot:
-        x = onehot_frames(x, input_onehot)
-    return {"x": x,
-            "lengths": group["lengths"].index_select(0, idx),
-            "targets": group["targets"].index_select(0, idx),
-            "target_lengths": group["tlens"].index_select(0, idx)}
+    with span("clstm.gather"):
+        x = group["x"].index_select(0, idx)
+        if input_onehot:
+            x = onehot_frames(x, input_onehot)
+        return {"x": x,
+                "lengths": group["lengths"].index_select(0, idx),
+                "targets": group["targets"].index_select(0, idx),
+                "target_lengths": group["tlens"].index_select(0, idx)}
 
 
 def make_cached_train_step(spec: NetSpec, lr: float = 1e-4,
@@ -274,17 +304,18 @@ def make_cached_train_step(spec: NetSpec, lr: float = 1e-4,
     batch costs no host-to-device copy. ``input_onehot`` > 0: the group
     holds int input ids (data/device_cache.py TextDeviceDataset), expanded
     after the gather to one-hot frames of that width (gather_batch)."""
-    step = make_train_step(spec, lr, momentum, loss_kind=loss_kind,
-                           normalization=normalization,
-                           compute_dtype=compute_dtype,
-                           gradient_clip=gradient_clip, augment=augment,
-                           augment_seed=augment_seed, xz_bf16=xz_bf16)
+    body = _step_body(spec, lr, momentum, loss_kind=loss_kind,
+                      normalization=normalization,
+                      compute_dtype=compute_dtype,
+                      gradient_clip=gradient_clip, augment=augment,
+                      augment_seed=augment_seed, xz_bf16=xz_bf16)
 
     def wrapped(state: TrainState, group: dict, idx_all: torch.Tensor,
                 j: int, lr_arg=None, momentum_arg=None):
-        state, metrics = step(
-            state, gather_batch(group, idx_all[j], input_onehot), lr_arg,
-            momentum_arg)
+        with span("clstm.step"):
+            state, metrics = body(
+                state, gather_batch(group, idx_all[j], input_onehot), lr_arg,
+                momentum_arg)
         return state, metrics, j + 1
 
     return wrapped
@@ -310,11 +341,11 @@ def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
     packed (loss, row-0 ids, row-0 vals), zero rows from nvalid on}, so a
     caller reads a block's reports in one copy. ``input_onehot`` as in
     make_cached_train_step."""
-    step = make_train_step(spec, lr, momentum, loss_kind=loss_kind,
-                           normalization=normalization,
-                           compute_dtype=compute_dtype,
-                           gradient_clip=gradient_clip, augment=augment,
-                           augment_seed=augment_seed, xz_bf16=xz_bf16)
+    body = _step_body(spec, lr, momentum, loss_kind=loss_kind,
+                      normalization=normalization,
+                      compute_dtype=compute_dtype,
+                      gradient_clip=gradient_clip, augment=augment,
+                      augment_seed=augment_seed, xz_bf16=xz_bf16)
 
     def wrapped(state: TrainState, group: dict, idx_all: torch.Tensor,
                 j: int, nvalid=None, lr_arg=None, momentum_arg=None):
@@ -322,10 +353,12 @@ def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
         x = group["x"]    # frames, or int ids of a text group
         reports = torch.zeros((k, 1 + 2 * x.shape[1]), device=x.device)
         for s in range(n):
-            state, metrics = step(
-                state, gather_batch(group, idx_all[j + s], input_onehot),
-                lr_arg, momentum_arg)
-            reports[s] = metrics["report"]
+            with span("clstm.step"):
+                state, metrics = body(
+                    state, gather_batch(group, idx_all[j + s], input_onehot),
+                    lr_arg, momentum_arg)
+                with span("clstm.report"):
+                    reports[s] = metrics["report"]
         last = reports[n - 1]
         return state, {"loss": last[0], "report": last,
                        "report_all": reports}, j + n

@@ -14,6 +14,8 @@ import os
 import numpy as np
 import torch
 
+from clstm_tpu_torch.utils.profiling import span
+
 
 def getsenv(name: str, default: str = "") -> str:
     return os.environ.get(name, default)
@@ -112,12 +114,14 @@ class HostCopy:
         if t.device.type != "cuda":
             self._host = t.detach()
             return
-        self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        self._host.copy_(t.detach(), non_blocking=True)
-        self._event = torch.cuda.Event()
-        self._event.record(torch.cuda.current_stream(t.device))
+        with span("clstm.report"):
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t.detach(), non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            with span("clstm.report.wait"):
+                self._event.synchronize()
         return self._host.numpy()
