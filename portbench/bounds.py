@@ -1,5 +1,7 @@
-"""The yardstick's arithmetic: peaks, the least time a kernel's work can take
-on the card (its roofline bound), and the matrix flop of a step.
+"""The yardstick's arithmetic: peaks, and the least time a kernel's work can
+take on the card (its roofline bound). The pricing of one layer graph (its
+layers, the matrix flop of a frame, the bounds of its layers' work a step)
+lives in its family's file (registry.family), built from these.
 
 Frozen copies, so that the benchmark's prices do not move when the program
 does: ``bound`` and ``lstm_bound`` are those of the repository's
@@ -102,7 +104,7 @@ def ctc_bound(kind: str, B, T, S, pk=None):
 
 
 def hoists(D: int, H: int) -> bool:
-    """Whether a bidi layer's input projection is hoisted out of the
+    """Whether an LSTM layer's input projection is hoisted out of the
     recurrence (one product over all frames, then h·Wh alone): where its
     input, with its bias row, is wider than its hidden size rounded up to
     the lane width of 128. The benchmark's own statement of the layer plan
@@ -112,41 +114,10 @@ def hoists(D: int, H: int) -> bool:
 
 
 def layers(cfg: dict) -> list:
-    """The bidi layers of a configuration as (D, H) pairs, input first."""
-    D, out = cfg["ninput"], []
-    for H in cfg["nhidden_layers"]:
-        out.append((D, H))
-        D = 2 * H
-    return out
-
-
-def flop_per_frame(cfg: dict, train: bool) -> int:
-    """Matrix flop a valid frame costs: per bidi layer 2·4H(D+1+H) for each
-    direction's z, plus the softmax's C(2H+1), times 2 for a multiply-add;
-    a training step is three times its forward (forward, and the two
-    products of the backward)."""
-    per = sum(2 * 4 * H * (D + 1 + H) for D, H in layers(cfg))
-    per += cfg["noutput"] * (2 * cfg["nhidden_layers"][-1] + 1)
-    return (3 if train else 1) * 2 * per
-
-
-def lstm_step_bound_ms(cfg: dict, B: int, T: int, V: int,
-                       train: bool) -> float:
-    """The bound of one step's LSTM work, summed over the layers: in
-    training the forward with state (K1, or K4 on a hoisted projection),
-    the chain and the contractions (dx from the second layer on, whose
-    input is a layer's output); in serving the forward alone."""
-    e = 2 if cfg["precision"] == "bf16" else 4
-    total = 0.0
-    for i, (D, H) in enumerate(layers(cfg)):
-        fwd = "xz" if hoists(D, H) else "fwd"
-        if not train:
-            total += lstm_bound(fwd, B, T, D, H, V, esize=e)[0]
-            continue
-        total += lstm_bound(fwd + "_state", B, T, D, H, V, esize=e)[0]
-        total += lstm_bound("chain", B, T, D, H, V, esize=e)[0]
-        total += lstm_bound("reduce", B, T, D, H, V, dx=i > 0, esize=e)[0]
-    return total
+    """The LSTM layers of a configuration as (D, H) pairs, input first, as
+    its family prices them (scripts/torch_span_account.py reads them)."""
+    from portbench import registry
+    return registry.family(cfg).layers(cfg)
 
 
 def ctc_step_bound_ms(B: int, T: int, S: int) -> float:
@@ -154,12 +125,24 @@ def ctc_step_bound_ms(B: int, T: int, S: int) -> float:
     return ctc_bound("forward", B, T, S)[0] + ctc_bound("both", B, T, S)[0]
 
 
-# The bound functions a kernel entry (portbench/kernels/*.json) can name:
-# each prices one step's work of its layer from a step record (a dict with
-# B, T, S, V and train) and the configuration.
+# The bound functions of work that is the same in every layer graph: each
+# prices one step's work from a step record (a dict with B, T, S, V and
+# train) and the configuration. A family's file adds those of its own
+# layers, and its own "ctc" where its alignment runs over other frames
+# than the T of the input.
 STEP_BOUNDS = {
-    "lstm": lambda cfg, st: lstm_step_bound_ms(cfg, st["B"], st["T"],
-                                               st["V"], st["train"]),
     "ctc": lambda cfg, st: (ctc_step_bound_ms(st["B"], st["T"], st["S"])
                             if st["train"] else 0.0),
 }
+
+
+def step_bound(fam, name: str):
+    """The bound function ``name`` (a kernel entry's ``bound``, or a
+    reader's): the family's STEP_BOUNDS first, then the shared ones."""
+    own = getattr(fam, "STEP_BOUNDS", {})
+    if name in own:
+        return own[name]
+    if name in STEP_BOUNDS:
+        return STEP_BOUNDS[name]
+    raise KeyError(f"no bound function {name!r} in the family or "
+                   "bounds.STEP_BOUNDS")

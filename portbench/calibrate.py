@@ -33,12 +33,12 @@ def train_readings(run, drv) -> dict:
     st = drv.setup(run)
     batches = drv.check_batches(run, st)
     lr, mom = run.mix["lrate"], run.mix["momentum"]
-    ref = ref_train.steps(st["weights"], batches, lr, mom)
+    ref = ref_train.steps(run.fam, st["weights"], batches, lr, mom)
     out = {"program": ref_train.numbers(st["check"], ref)}
     for name, kw in (("control", {"rounding": "fp8"}),
                      ("half", {"fault": "half"})):
-        out[name] = ref_train.numbers(
-            ref_train.steps(st["weights"], batches, lr, mom, **kw), ref)
+        out[name] = ref_train.numbers(ref_train.steps(
+            run.fam, st["weights"], batches, lr, mom, **kw), ref)
     return out
 
 

@@ -7,11 +7,13 @@ cache: ``CLSTMOCR.train_batch_block`` over ``DeviceDataset.epoch_blocks``
 unpacked and decoded on the host; no test, save or display.
 
 Set-up builds the one model object from the seed (the benchmark's weights
-and corpus), drives it through its first ``check_steps`` steps (the mix's
-number, or the configuration's where it sets fewer) in one call of the
-window's own (a block of that many batches of one epoch plan),
-keeping what the check compares, warms one block of every group shape, and
-hands the same object to the window.
+and corpus; the net, its weights, its parameter names and the frames it
+aligns over are the configuration's family's: ``run.fam``), drives it
+through its first ``check_steps`` steps (the mix's number, or the
+configuration's where it sets fewer) in one call of the window's own (a
+block of that many batches of one epoch plan), keeping what the check
+compares, warms one block of every group shape, and hands the same object
+to the window.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import numpy as np
 import torch
 
 from portbench import corpus, program
-from portbench.reference import net as ref_net
 from portbench.reference import train as ref_train
 
 
@@ -64,16 +65,17 @@ def setup(run) -> dict:
     nglyphs = cfg["noutput"] - 1
     chars = corpus.charset(nglyphs)
     parts, t = {}, time.perf_counter()
-    x, widths, ids = corpus.train_lines(run.seed, mix, nglyphs, dev)
+    x, widths, ids = corpus.train_lines(run.seed, mix, nglyphs, dev,
+                                        height=cfg["ninput"])
     xh = x.cpu().numpy()
     del x
     texts = ["".join(chars[c - 1] for c in t) for t in ids]
     if len(set(texts)) != len(texts):
         raise RuntimeError("two corpus lines share a text")
     samples = [(xh[i, :widths[i]], texts[i]) for i in range(len(texts))]
-    weights = ref_net.make_weights(cfg, corpus.generator(run.seed, 3, dev),
+    weights = run.fam.make_weights(cfg, corpus.generator(run.seed, 3, dev),
                                    mix["init_scale"], dev)
-    ocr = program.model(cfg, weights, dev)
+    ocr = program.model(cfg, run.fam, weights, dev)
     ocr.setLearningRate(mix["lrate"], mix["momentum"])
     ocr.normalization = mix["normalization"]
     dcache = DeviceDataset(samples, ocr.codec, device=dev,
@@ -90,7 +92,7 @@ def setup(run) -> dict:
     # The first steps: one call of check_steps batches, as the window calls
     # a block. The first gradient comes from a one-step call on the same
     # block's first batch before it, whose update is then undone.
-    names = program.program_leaf_names(cfg)
+    names = run.fam.program_names(cfg)
     params = dict(ocr.net.named_parameters())
     p0 = {p: w.detach().clone() for p, w in params.items()}
     block = check_block(dcache, B, check_steps(run), run.seed)
@@ -260,8 +262,8 @@ def traced(run, st: dict) -> dict:
 
 def check_batches(run, st: dict) -> list:
     """The first steps' batches as the reference takes them: the same rows
-    of the benchmark's corpus, found by their texts. Frees the program's
-    state."""
+    of the benchmark's corpus, found by their texts, with the frames the
+    family aligns over. Frees the program's state."""
     widths, xh = st["widths"], st["xh"]
     for k in ("ocr", "dcache"):
         st.pop(k, None)
@@ -273,10 +275,11 @@ def check_batches(run, st: dict) -> list:
         x = np.zeros((len(rows), T, xh.shape[2]), np.float32)
         for i, r in enumerate(rows):
             x[i, :widths[r]] = xh[r, :widths[r]]
+        L = torch.as_tensor([int(widths[r]) for r in rows],
+                            device=run.device)
         batches.append({
-            "x": torch.as_tensor(x, device=run.device),
-            "lengths": torch.as_tensor([int(widths[r]) for r in rows],
-                                       device=run.device),
+            "x": torch.as_tensor(x, device=run.device), "lengths": L,
+            "olengths": run.fam.out_lengths(run.cfg, L),
             "texts": [st["ids"][r] for r in rows], "rows": st["B"]})
     return batches
 
@@ -285,6 +288,6 @@ def judge(run, st: dict) -> dict:
     """The program's first steps against the reference's, on the same
     rows, from the same weights; the program's state is freed first."""
     batches = check_batches(run, st)
-    ref = ref_train.steps(st["weights"], batches, run.mix["lrate"],
+    ref = ref_train.steps(run.fam, st["weights"], batches, run.mix["lrate"],
                           run.mix["momentum"])
     return ref_train.numbers(st["check"], ref)

@@ -70,8 +70,8 @@ def set_caches() -> str:
 
 
 class Run:
-    """What a driver is handed: the cell, its configuration, its mix, the
-    arguments and the device."""
+    """What a driver is handed: the cell, its configuration, its family
+    (registry.family), its mix, the arguments and the device."""
 
     def __init__(self, man: dict, workload: str, args, device: str,
                  base: str = registry.HERE, root: str = registry.ROOT,
@@ -79,6 +79,7 @@ class Run:
         self.cell = registry.cell(man, workload)
         self.cfg = registry.config(man, self.cell["config"], root)
         self.mix = registry.traffic(self.cell["traffic"], base)
+        self.fam = registry.family(self.cfg, root)
         for key, val in (overrides or {}).items():
             getattr(self, key).update(val)
         self.args = args
@@ -160,8 +161,13 @@ def run_cell(run: Run, trace: bool, t_start: float,
     result["notes"] = dict(win.get("notes", {}),
                            import_s=state.get("import_s"))
     if trace:
+        tr = ctx["trace"]
         result["notes"]["launches"] = ctx.get("launches")
         result["notes"]["traced_steps"] = len(ctx["steps"])
+        result["notes"]["trace"] = {
+            "records": tr["records"], "launches": tr["launches"],
+            "kernel_us": sum(d for _, _, d in tr["kernels"]),
+            "unattributed_us": tr["unattributed_us"]}
     t = time.time()
     numbers = drv.judge(run, state)
     result["notes"]["check_s"] = time.time() - t

@@ -6,6 +6,10 @@ posteriors, the loss -Σ aligned·log_softmax(logits) over the valid frames
 (whose logit gradient is probs - aligned, the delta clstm injects), summed
 over the lines and divided by the batch's rows (normalization "batch"), and
 heavy-ball SGD: v = g + momentum·v; p -= lr·v.
+
+The net is a family's (a configuration's "reference" file, e.g. bidi.py),
+passed in as ``fam``: its ``logits`` over its weights (a list of dicts of
+tensors, one a layer) and its ``leaves``, the weights by name.
 """
 
 from __future__ import annotations
@@ -15,24 +19,12 @@ import statistics
 import numpy as np
 import torch
 
-from portbench.reference import ctc, net
+from portbench.reference import ctc
+from portbench.reference.precision import set_strict_f32
 
 # A leaf whose reference gradient is under this share of the median leaf's
 # moves under the update by round-off alone: left out of the change.
 STILL_LEAF = 1e-3
-
-
-def leaves(weights: list) -> dict:
-    """The weights as the net's leaves, by name: per bidi layer i and
-    direction d (fwd, rev) "L{i}.{d}.{Wx,Wh,b}", then "out.W", "out.b"."""
-    out = {}
-    for i, w in enumerate(weights[:-1]):
-        for k, d in enumerate(("fwd", "rev")):
-            for n in ("Wx", "Wh", "b"):
-                out[f"L{i}.{d}.{n}"] = w[n][k]
-    out["out.W"] = weights[-1]["W"]
-    out["out.b"] = weights[-1]["b"]
-    return out
 
 
 def targets_of(texts: list, device):
@@ -47,54 +39,59 @@ def targets_of(texts: list, device):
                                                                device=device)
 
 
-def loss(weights: list, x, lengths, targets, tlens, rows: int,
-         rounding: str = "f32") -> torch.Tensor:
+def loss(fam, weights: list, x, lengths, olengths, targets, tlens,
+         rows: int, rounding: str = "f32") -> torch.Tensor:
     """The step's loss on a batch of ``rows`` rows (rows past x's are
-    padding, of length 0)."""
-    lg = net.logits(weights, x, lengths, rounding)
+    padding, of length 0): x's frames of ``lengths``, the net's outputs
+    aligned over their ``olengths`` frames."""
+    lg = fam.logits(weights, x, lengths, rounding)
     with torch.no_grad():
-        aligned = ctc.align(torch.softmax(lg.detach(), -1), targets, lengths,
-                            tlens)
-    T = x.shape[1]
+        aligned = ctc.align(torch.softmax(lg.detach(), -1), targets,
+                            olengths, tlens)
+    T = lg.shape[1]
     mask = (torch.arange(T, device=x.device)[None, :]
-            < lengths[:, None]).float()
+            < olengths[:, None]).float()
     per_line = -(aligned * torch.log_softmax(lg, -1)).sum(-1)
     return (per_line * mask).sum() / rows
 
 
-def steps(weights: list, batches: list, lr: float, momentum: float,
+def steps(fam, weights: list, batches: list, lr: float, momentum: float,
           rounding: str = "f32", fault: str = "") -> dict:
-    """Train a copy of ``weights`` on ``batches`` (each {"x", "lengths",
-    "texts", "rows"}) -> {"losses": [...], "grad1": {leaf: g of step 1},
+    """Train a copy of ``weights`` of the family ``fam`` on ``batches``
+    (each {"x", "lengths", "olengths", "texts", "rows"}) -> {"losses":
+    [...], "grad1": {leaf: g of step 1},
     "change": {leaf: p_end - p_0}}. ``fault`` plants one of the faults a
     program can have, for the controls: "frozen" (the state is returned
     unchanged), "half" (half of each batch left out, the mean taken over
     the rest)."""
-    net.set_strict_f32()
+    set_strict_f32()
     ws = [{k: v.detach().clone().requires_grad_(True) for k, v in w.items()}
           for w in weights]
     params = [p for w in ws for p in w.values()]
     vel = [torch.zeros_like(p) for p in params]
-    p0 = leaves([{k: v.detach().clone() for k, v in w.items()} for w in ws])
+    p0 = fam.leaves([{k: v.detach().clone() for k, v in w.items()}
+                     for w in ws])
     losses, grad1 = [], None
     for k, b in enumerate(batches):
-        x, L, texts, rows = b["x"], b["lengths"], b["texts"], b["rows"]
+        x, L, LO = b["x"], b["lengths"], b["olengths"]
+        texts, rows = b["texts"], b["rows"]
         if fault == "half":
             n = len(texts) // 2
-            x, L, texts, rows = x[:n], L[:n], texts[:n], max(rows // 2, 1)
+            x, L, LO, texts = x[:n], L[:n], LO[:n], texts[:n]
+            rows = max(rows // 2, 1)
         tg, tl = targets_of(texts, x.device)
-        lo = loss(ws, x, L, tg, tl, rows, rounding)
+        lo = loss(fam, ws, x, L, LO, tg, tl, rows, rounding)
         grads = torch.autograd.grad(lo, params)
         losses.append(float(lo.detach()))
         if k == 0:
-            grad1 = leaves(_unflatten(ws, [g.detach() for g in grads]))
+            grad1 = fam.leaves(_unflatten(ws, [g.detach() for g in grads]))
         if fault == "frozen":
             continue
         with torch.no_grad():
             for p, v, g in zip(params, vel, grads):
                 v.mul_(momentum).add_(g)
                 p.sub_(lr * v)
-    p_end = leaves(ws)
+    p_end = fam.leaves(ws)
     change = {n: (p_end[n].detach() - p0[n]) for n in p0}
     return {"losses": losses, "grad1": grad1, "change": change}
 

@@ -2,7 +2,11 @@
 harness names a configuration, a traffic mix, a metric or a kernel.
 
   BENCHMARK.json                 the cells, their metrics and bounds
-  portbench/configs/<config>.json    the sizes a configuration runs at
+  portbench/configs/<config>.json    the sizes a configuration runs at; its
+                                     "reference" names its family's file
+  portbench/reference/<family>.py    everything of one layer graph: its
+                                     plain reference, the program's build
+                                     and names, its pricing and tiny size
   portbench/traffic/<mix>.json       a mix's parameters and its driver
   portbench/drivers/<driver>.py      the general code that runs a kind of mix
   portbench/metrics/<metric>.py      one per-layer metric's reader
@@ -12,8 +16,9 @@ harness names a configuration, a traffic mix, a metric or a kernel.
   portbench/limits/<workload>.json   the limits that decide a cell's
                                      ``correct``
 
-A later change adds a cell, a mix, a metric or a kernel by adding files and
-entries; it edits none of these modules.
+A later change adds a cell, a configuration of another layer graph, a mix,
+a metric or a kernel by adding files and entries; it edits none of these
+modules.
 """
 
 from __future__ import annotations
@@ -57,6 +62,35 @@ def config(man: dict, name: str, root: str = ROOT) -> dict:
         if c["name"] == name:
             return load_json(os.path.join(root, c["file"]))
     raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
+
+
+def family(cfg: dict, root: str = ROOT):
+    """The family module of a configuration: the file its "reference" key
+    names, a path from the checkout's root. It defines
+
+      make_weights(cfg, gen, scale, device) -> weights, a list of dicts of
+          tensors (one a layer) drawn from the torch.Generator ``gen``
+      leaves(weights) -> {leaf name: tensor}
+      logits(weights, x, lengths, rounding="f32") -> the pre-softmax
+          outputs [B, To, C] of frames x [B, T, D], in plain PyTorch
+      out_lengths(cfg, lengths) -> the frames of each line the alignment
+          runs over (numpy or torch, as given)
+      build_args(cfg) -> the keyword arguments of the CLIs' createBidi
+          beside the codec and the prefab kind cfg["net"]
+      program_names(cfg) -> {leaf name: the program's parameter name}
+      tiny(cfg) -> {"cfg": {...}, "mix": {...}}, the overrides of a CPU
+          test's size
+      flop_per_frame(cfg, train) -> matrix flop a valid input frame costs
+      STEP_BOUNDS -> {name: fn(cfg, step record) -> bound ms}, the bound
+          functions of its own layers' work (bounds.step_bound)
+
+    and imports nothing of the program."""
+    path = os.path.join(root, cfg["reference"])
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no family file for {cfg.get('name')!r}: "
+                                f"{path}")
+    stem = os.path.splitext(os.path.basename(path))[0]
+    return _module(path, f"portbench_family_{stem}")
 
 
 def traffic(name: str, base: str = HERE) -> dict:

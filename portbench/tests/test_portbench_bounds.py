@@ -1,5 +1,6 @@
 """The benchmark's frozen arithmetic, pinned to values worked out by hand
-(bytes at 3.35 TB/s, flop at 989 TFLOP/s in bf16)."""
+(bytes at 3.35 TB/s, flop at 989 TFLOP/s in bf16): the shared bounds
+(bounds.py) and the pricing of the configurations' families."""
 
 import pytest
 
@@ -9,13 +10,19 @@ MAN = registry.manifest()
 HBM = 3.35e12
 
 
+def _fam(name):
+    cfg = registry.config(MAN, name)
+    return cfg, registry.family(cfg)
+
+
 @pytest.mark.parametrize("name, train, flop", [
     ("bidi", True, 830_976), ("bidi2", True, 9_122_400),
     ("bidi", False, 276_992), ("bidi2", False, 3_040_800)])
 def test_flop_per_valid_frame(name, train, flop):
     # 3 x 2 x [sum over layers of 2*4H(D+1+H) + C(2H+1)]; the forward alone
     # takes 2 x the bracket: bidi 2*400*149 + 96*201 = 138,496.
-    assert bounds.flop_per_frame(registry.config(MAN, name), train) == flop
+    cfg, fam = _fam(name)
+    assert fam.flop_per_frame(cfg, train) == flop
 
 
 # The bench shape (B=256, T=1024, every line 900 frames) in bf16: the
@@ -56,7 +63,7 @@ def test_ctc_bound(kind, nbytes):
 
 
 def test_step_bound_sums_the_layers_work():
-    cfg = registry.config(MAN, "bidi2")
+    cfg, fam = _fam("bidi2")
     e = 2
     want = (bounds.lstm_bound("fwd_state", B, T, 48, 200, V, esize=e)[0]
             + bounds.lstm_bound("chain", B, T, 48, 200, V, esize=e)[0]
@@ -65,18 +72,54 @@ def test_step_bound_sums_the_layers_work():
             + bounds.lstm_bound("chain", B, T, 400, 200, V, esize=e)[0]
             + bounds.lstm_bound("reduce", B, T, 400, 200, V, dx=True,
                                 esize=e)[0])
-    assert bounds.lstm_step_bound_ms(cfg, B, T, V, True) == pytest.approx(
+    assert fam.lstm_step_bound_ms(cfg, B, T, V, True) == pytest.approx(
         want)
     serve = (bounds.lstm_bound("fwd", B, T, 48, 200, V, esize=e)[0]
              + bounds.lstm_bound("xz", B, T, 400, 200, V, esize=e)[0])
-    assert bounds.lstm_step_bound_ms(cfg, B, T, V, False) == pytest.approx(
+    assert fam.lstm_step_bound_ms(cfg, B, T, V, False) == pytest.approx(
         serve)
+    st = {"B": B, "T": T, "V": V, "S": 81, "train": True}
+    assert bounds.step_bound(fam, "lstm")(cfg, st) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("name, nbytes", [
+    # The softmax at X=200, C=96: the forward reads x at V and [W;b] in
+    # bf16 and writes z f32 at B·T, 2*(230,400*200 + 201*96)
+    # + 4*262,144*96 = 192,861,888; dx 4*230,400*96 + 2*200*96
+    # + 2*262,144*200 = 193,369,600; dW 2*230,400*200 + 4*230,400*96
+    # + 4*201*96 = 180,710,784.
+    ("bidi", 566_942_272),
+    # X=400, C=400: 604,071,200 + 578,675,200 + 553,601,600, and layer 2's
+    # hoisted product (D=400, 8H=1,600): 2*(230,400*400 + 401*1,600
+    # + 262,144*1,600) = 1,024,464,000.
+    ("bidi2", 2_760_812_000)])
+def test_affine_bound_bytes(name, nbytes):
+    cfg, fam = _fam(name)
+    assert fam.affine_step_bound_ms(cfg, B, T, V) == pytest.approx(
+        nbytes / HBM * 1e3, rel=1e-12)
+    st = {"B": B, "T": T, "V": V, "S": 81, "train": True}
+    assert bounds.step_bound(fam, "affine")(cfg, st) == pytest.approx(
+        nbytes / HBM * 1e3, rel=1e-12)
+    assert bounds.step_bound(fam, "affine")(cfg, dict(st, train=False)) == 0
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in MAN["configs"]])
+def test_a_bound_resolves_in_the_family_first(name):
+    cfg, fam = _fam(name)
+    st = {"B": B, "T": T, "V": V, "S": 81, "train": True}
+    assert bounds.step_bound(fam, "ctc")(cfg, st) == pytest.approx(
+        bounds.ctc_step_bound_ms(B, T, 81))
+    assert bounds.step_bound(fam, "lstm") is fam.STEP_BOUNDS["lstm"]
+    with pytest.raises(KeyError):
+        bounds.step_bound(fam, "no such work")
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in MAN["configs"]])
 def test_the_priced_layer_plan_is_the_programs(name):
     from clstm_tpu_torch.ops.bidi_lstm_kernel import hoists_projection
-    for D, H in bounds.layers(registry.config(MAN, name)):
+    cfg, fam = _fam(name)
+    assert bounds.layers(cfg) == fam.layers(cfg)
+    for D, H in fam.layers(cfg):
         assert bounds.hoists(D, H) == hoists_projection(D, H)
 
 

@@ -42,9 +42,13 @@ def test_no_module_imports_jax_or_the_jax_package(path):
     assert not set(_imported(path)) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted(_sources("reference")),
+@pytest.mark.parametrize("path", sorted(_sources("reference"))
+                         + sorted(_sources(os.path.join("tests",
+                                                        "families"))),
                          ids=lambda p: os.path.relpath(p, registry.HERE))
 def test_the_reference_imports_nothing_of_the_program(path):
+    """The reference and every family's file (a configuration's
+    "reference"), those of the tests' families too."""
     allowed = {"__future__", "statistics", "typing", "numpy",
                "torch", "portbench"}
     assert set(_imported(path)) <= allowed

@@ -31,13 +31,13 @@ def test_the_reference_net_is_the_programs_forward():
     import torch
     from clstm_tpu_torch.models.spec import apply_net
     from portbench import corpus, program
-    from portbench.reference import net
     cfg = dict(registry.config(MAN, "bidi2"), nhidden_layers=[5, 7],
                noutput=9, precision="f32")
+    net = registry.family(cfg)
     w = net.make_weights(cfg, corpus.generator(3, 3, "cpu"),
                          {"Wx": 0.3, "Wh": 0.05, "b": 0.3, "softmax": 1.0},
                          "cpu")
-    ocr = program.model(cfg, w, "cpu")
+    ocr = program.model(cfg, net, w, "cpu")
     g = torch.Generator().manual_seed(1)
     x = torch.rand((4, 23, cfg["ninput"]), generator=g)
     L = torch.tensor([23, 1, 17, 9], dtype=torch.int32)
