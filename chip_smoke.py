@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (clstm_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--k2-against SRC] [--fwd-against SRC]
-                          [--ctc-against SRC] [--toy-seeds N]
+                          [--ctc-against SRC] [--toy-seeds N] [--lstm1]
 
 Drives the port's serving path — the path `clstmocr` runs — and its training
 path — CLSTMOCR.train_batch, a CTC training step — at the full width of the
@@ -274,6 +274,17 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      with cuBLAS's bf16 product, beside its bound; phases 9 and 15's bf16
      steps launch the forward once a step for the softmax and once for each
      hoisted layer and the backward once a step, their f32 steps neither.
+ 27. the LSTM kernels one direction alone (a lone NPLSTM or
+     Reversed(NPLSTM), bf16: every LSTM of the tess_eng cell) at that
+     cell's four layers (LSTM1_SHAPES: the column LSTM's 131,072 columns of
+     12 steps, Lfx96, Lrx96, Lfx512), both directions: K1, K3, K2's chain
+     and reduction against their plain versions and float64 (weights of 0.3
+     up to 100 units, the cell's own 0.01 at 512), K1 also step by step
+     from its own state (stepwise_check), each first call counted alone:
+     one launch of one direction (one_counts); the forward, chain and
+     reduction timed in turns with the bidi pair's at the same shape; K4's
+     one-direction modes on the hoisted product (D=400, H=200). Its rows
+     join the kernels line. --lstm1 runs the build and this phase alone.
 
 With --k2-against SRC, every timed K2 shape also times the K2 built from
 SRC in turns with the current one (against, current, current, against),
@@ -762,7 +773,7 @@ def bound(flop: float, nbytes: float, peak: float = F32_MMA_FLOPS):
     return (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
 
 
-def lstm_bound(kind: str, B, T, D, H, V, dx=False, esize=4):
+def lstm_bound(kind: str, B, T, D, H, V, dx=False, esize=4, ndir=2):
     """bound() of a bidi LSTM kernel at [B, T] with V valid frames: K3/K1
     (kind "fwd"/"fwd_state": z = [x|1]·W_in + h·Wh), K4 ("xz"/"xz_state":
     h·Wh on xz), K2's chain ("chain": Dh = dz·Whᵀ) or reduction
@@ -770,27 +781,28 @@ def lstm_bound(kind: str, B, T, D, H, V, dx=False, esize=4):
     weights of the mode (4 f32, 2 bf16, whose products then run at the bf16
     tensor cores' peak); the gates and dW are f32 in both. The streams read
     count at the V valid frames (a padded frame's output is 0 and reads
-    nothing), those written at all B·T (the padded zeros are written)."""
-    G, BT, e = 4 * H, B * T, esize
+    nothing), those written at all B·T (the padded zeros are written).
+    ``ndir``: the call's directions (1: one direction alone)."""
+    G, BT, e, n = 4 * H, B * T, esize, ndir
     peak = F32_MMA_FLOPS if e == 4 else BF16_MMA_FLOPS
 
-    def state(n):                               # gates and cell, n frames
-        return n * 2 * (4 * G + e * H)
+    def state(f):                               # gates and cell, f frames
+        return f * n * (4 * G + e * H)
     if kind in ("fwd", "fwd_state"):
-        flop = 2 * V * 2 * (D + 1 + H) * G
-        nbytes = e * (V * D + 2 * (D + 1 + H) * G + BT * 2 * H) + 4 * B
+        flop = 2 * V * n * (D + 1 + H) * G
+        nbytes = e * (V * D + n * (D + 1 + H) * G + BT * n * H) + 4 * B
     elif kind in ("xz", "xz_state"):
-        flop = 2 * V * 2 * H * G
-        nbytes = e * (V * 2 * G + 2 * H * G + BT * 2 * H) + 4 * B
+        flop = 2 * V * n * H * G
+        nbytes = e * (V * n * G + n * H * G + BT * n * H) + 4 * B
     elif kind == "chain":
-        return bound(2 * V * 2 * G * H,
-                     state(V) + e * (V * 2 * H + 2 * H * G + BT * 2 * G)
+        return bound(2 * V * n * G * H,
+                     state(V) + e * (V * n * H + n * H * G + BT * n * G)
                      + 4 * B, peak)
     else:
-        flop = 2 * V * 2 * (D + 1 + H) * G + (V * 2 * 2 * G * D if dx else 0)
-        nbytes = (e * (V * D + V * 2 * H + V * 2 * G
-                       + (2 * D * G + BT * D if dx else 0))
-                  + 4 * 2 * (D + 1 + H) * G)
+        flop = 2 * V * n * (D + 1 + H) * G + (V * 2 * n * G * D if dx else 0)
+        nbytes = (e * (V * D + V * n * H + V * n * G
+                       + (n * D * G + BT * D if dx else 0))
+                  + 4 * n * (D + 1 + H) * G)
     return bound(flop, nbytes + (state(BT) if kind.endswith("state") else 0),
                  peak)
 
@@ -881,7 +893,9 @@ def einsum_reduce(x, y, dz, Wx2, need_dx: bool):
 def load_k2_against(src: str):
     """``--k2-against SRC``: K2 built from another source with the same nvcc
     flags, to time in turns with the current K2 -> (chain, reduce,
-    reduce_bf16, chain_bf16) with the wrappers' signatures (reduce_bf16,
+    reduce_bf16, chain_bf16, chain16) with the wrappers' signatures
+    (chain16: SRC's bf16 chain on clusters at the current plan, where SRC
+    has one, else None; reduce_bf16,
     chain_bf16: the bf16 mode's reduction and chain; chain_bf16 is SRC's
     clstm_bidi_lstm_bwd_chain_bf16, the interface of every source with a
     bf16 mode: WhT in bf16 padded to clstm_bidi_lstm_bwd_hp, the L2
@@ -998,8 +1012,27 @@ def load_k2_against(src: str):
             cell.data_ptr(), gy.data_ptr(), whT.data_ptr(), dz.data_ptr(), B,
             T, H, torch.cuda.current_stream().cuda_stream))
         return dz
+    def chain16(gates, cell, gy, Wh2, lengths):
+        # The bf16 chain on clusters at the current plan (sources with it).
+        B, T, _, G = gates.shape
+        H = G // 4
+        plan = bk.device_chain_plan(gates.device, B, T, H)
+        if not plan.C:
+            return chain_bf16(gates, cell, gy, Wh2, lengths)
+        dz = torch.empty((B, T, 2, G), dtype=torch.bfloat16,
+                         device=gates.device)
+        wh = Wh2.detach().to(torch.bfloat16).contiguous()
+        check(lib.clstm_bidi_lstm_bwd_chain16(
+            0 if lengths is None else lengths.data_ptr(), gates.data_ptr(),
+            cell.data_ptr(), gy.data_ptr(), wh.data_ptr(), dz.data_ptr(), B,
+            T, H, plan.C, plan.rows, plan.units, plan.ksplit,
+            torch.cuda.current_stream().cuda_stream))
+        return dz
+    if hasattr(lib, "clstm_bidi_lstm_bwd_chain16"):
+        lib.clstm_bidi_lstm_bwd_chain16.argtypes = [P] * 6 + [I] * 7 + [P]
     return (chain, reduce, reduce_bf16 if has16 else None,
-            chain_bf16 if has_chain16 else None)
+            chain_bf16 if has_chain16 else None,
+            chain16 if hasattr(lib, "clstm_bidi_lstm_bwd_chain16") else None)
 
 
 def load_fwd_against(src: str) -> dict:
@@ -1767,6 +1800,8 @@ COUNTED16 = (bidi_lstm_infer, bidi_lstm_fwd_state, bidi_lstm_infer_xz,
 def reset_counts() -> None:
     for f in COUNTED:
         f.launches = 0
+        if hasattr(f, "launches1"):
+            f.launches1 = 0
     for f in COUNTED16:
         f.launches16 = 0
 
@@ -6254,6 +6289,403 @@ def affine_turns(dev, card: str) -> dict:
     return out
 
 
+# The one-direction mode (a lone NPLSTM or Reversed(NPLSTM): the layers of
+# Tesseract's eng recogniser, portbench/configs/tess_eng.json) at its four
+# shapes (B, T, D, H): the column LSTM (every pooled column of 256 lines,
+# 12 steps of 16 inputs), Lfx96, Lrx96 and Lfx512 at a 1,536-frame bucket
+# pooled by 3.
+LSTM1_SHAPES = ((131072, 12, 16, 64), (256, 512, 64, 96), (256, 512, 96, 96),
+                (256, 512, 96, 512))
+LSTM1_LAYERS = ("Lfys64", "Lfx96", "Lrx96", "Lfx512")
+
+
+def lstm1_lengths(rng, B: int, T: int, dev) -> torch.Tensor:
+    """Lengths of a one-direction batch: at T=12 a column batch (whole
+    lines of columns of T steps, then the padded columns of length 0, a
+    tenth of them), else ragged over [T/2, T]."""
+    if T == 12:
+        tp = 512
+        L = rng.randint(tp // 2, tp + 1, size=-(-B // tp))
+        col = np.arange(tp)[None, :] < L[:, None]
+        v = (col.reshape(-1)[:B] * T).astype(np.int32)
+    else:
+        v = rng.randint(T // 2, T + 1, size=B).astype(np.int32)
+        v[0] = T
+    return torch.from_numpy(v).to(dev)
+
+
+def lstm1_plan(B: int, T: int, D: int, H: int, ndir: int) -> str:
+    """The forward and chain plans of a call at ``ndir`` directions and the
+    CTAs of its forward launch."""
+    dev = torch.device("cuda")
+    d = D + D % 2
+    f16 = bk.device_fwd16_plan(dev, B, T, d, H, False, state=True, ndir=ndir)
+    if f16.C:
+        fwd, ctas = f"fwd16 C={f16.C} rows={f16.rows}", \
+            f16.C * f16.groups * ndir
+    else:
+        p = bk.device_plan(dev, B, d, H, False, True, 2, ndir)
+        fwd = f"FMA C={p.C} rows={p.rows} resident={p.resident}"
+        ctas = p.C * p.groups * ndir
+    ch = bk.device_chain_plan(dev, B, T, H, ndir)
+    chain = (f"chain16 C={ch.C} rows={ch.rows}" if ch.C else "chain L2")
+    return f"{fwd}, {ctas} CTAs; {chain}"
+
+
+def stepwise_check(tag: str, p: dict, inp: torch.Tensor, lengths,
+                   streams, reverse: bool, hoisted: bool = False) -> tuple:
+    """A one-direction K1's (or, with ``hoisted``, K4 state's on xz
+    [B, T, 1, 4H]) streams (y, gates, cell), bf16, one step at a time from
+    the kernel's own previous state (teacher forced, float64): each valid
+    frame's gates from its x (or xz) and the y of the frame before in the
+    chain (y is the rounded h the next product takes), its cell from those
+    gates and the cell before, its y from its cell and o. A chain that
+    drifts from the float64 recipe over many steps (chaos: a long chain of
+    wide, large weights) cannot hide a wrong step here. Limits, from the
+    rounding of one step: a gate within (n·2^-24)·Σ|terms| + 1e-6 (f32
+    sums of the n products of bf16 operands, in any order); cell and y
+    within 2^-7 of the magnitudes they are made of + 1e-6 (two bf16
+    roundings, the stored cell the kernel's f32 one rounded). Raises past a
+    limit; returns the largest error over its limit of (gates, cell, y)."""
+    y, gates, cell = streams
+    B, T, H = y.shape
+    G = 4 * H
+    whb = p["Wh"].bfloat16().double()
+    wxb = p["Wx"].bfloat16().double()
+    bb = p["b"].bfloat16().double()
+
+    def before(a):
+        """The chain's previous frame of each frame (0 at its start; a
+        padded frame's streams are exactly 0)."""
+        return (F.pad(a[:, 1:], (0, 0, 0, 1)) if reverse
+                else F.pad(a[:, :-1], (0, 0, 1, 0)))
+    worst = [0.0, 0.0, 0.0]
+    step = max(1, (1 << 27) // (T * G))
+    for b0 in range(0, B, step):
+        sl = slice(b0, min(B, b0 + step))
+        yb, cb = y[sl].double(), cell[sl, :, 0].double()
+        hp, cp = before(yb), before(cb)
+        if hoisted:
+            xz = inp[sl, :, 0].double()
+            z = xz + hp @ whb
+            S = xz.abs() + hp.abs() @ whb.abs()
+            n = H + 1
+        else:
+            xb = inp[sl].bfloat16().double()
+            z = xb @ wxb + bb + hp @ whb
+            S = xb.abs() @ wxb.abs() + bb.abs() + hp.abs() @ whb.abs()
+            n = xb.shape[-1] + H + 1
+        del hp
+        valid = ~padded(lengths[sl], yb.shape[0], T, y.device)
+        gk = gates[sl, :, 0].double()
+        g = torch.cat([torch.sigmoid(z[..., :3 * H]),
+                       torch.tanh(z[..., 3 * H:])], dim=-1)
+        eg = ((gk - g).abs() / (n * 2.0 ** -24 * S + 1e-6))[valid]
+        del z, S, g
+        i, f, o, gg = (gk[..., k * H:(k + 1) * H] for k in range(4))
+        cref = f * cp + i * gg
+        ec = ((cb - cref).abs()
+              / (2.0 ** -7 * (cref.abs() + cp.abs()) + 1e-6))[valid]
+        yref = torch.tanh(cb) * o
+        ey = ((yb - yref).abs()
+              / (2.0 ** -7 * (yref.abs() + cb.abs()) + 1e-6))[valid]
+        worst = [max(w, float(e.max())) if e.numel() else w
+                 for w, e in zip(worst, (eg, ec, ey))]
+        del gk, cref, yref, eg, ec, ey
+    for name, w in zip(("gates", "cell", "y"), worst):
+        if not w <= 1.0:
+            raise AssertionError(f"{tag}: teacher-forced {name} {w:.3g}x "
+                                 "its one-step limit")
+    return tuple(worst)
+
+
+def one_counts(fn, wrapper, want16=None):
+    """fn() after resetting every launch counter -> its result; raises
+    unless ``wrapper`` counted exactly one launch, of one direction (and,
+    where ``want16`` is given, that many of the tensor-core kernel) and no
+    other wrapper counted any."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {f.__name__: (f.launches, getattr(f, "launches1", 0))
+           for f in COUNTED if f.launches}
+    want = {wrapper.__name__: (1, 1)}
+    if got != want or (want16 is not None
+                       and wrapper.launches16 != want16):
+        raise AssertionError(f"{wrapper.__name__}: launches (all, one "
+                             f"direction) {got}, launches16 "
+                             f"{getattr(wrapper, 'launches16', None)}; "
+                             f"want {want}, {want16}")
+    return out
+
+
+def lstm1_checks(dev, card: str, fwd_vs=None, k2_vs=None) -> dict:
+    """The one-direction kernels at LSTM1_SHAPES, both directions, bf16:
+    K1 and K3 against their plain versions and the float64 recipe (every
+    stream finite, exactly 0 on padded frames, two calls bitwise equal),
+    K1 also step by step from its own state (stepwise_check); K2's chain
+    and reduction (with and without dx) on the plain state; each first
+    call counted alone (one launch of one direction, one_counts); then the
+    one-direction forward, chain and reduction timed in turns with the
+    bidi pair's at the same shape, each launch's CTAs from its plan. With
+    ``fwd_vs`` and ``k2_vs`` (another build's bidi kernels, --fwd-against
+    and --k2-against: the parent's source) the bidi pair's K1 and K2 at
+    bidi's and bidi2's shapes against that build, bitwise."""
+    out = {"shapes": {}}
+    rng = np.random.RandomState(22)
+    for B_, T_, D_, H_ in LSTM1_SHAPES:
+        key = f"B={B_} T={T_} D={D_} H={H_}"
+        # Weights of 0.3 as the other checks' up to 100 units; past that
+        # the cell's own init (tess_eng's 0.01): at H=512 weights of 0.13
+        # let the float64 recipe drift from every bf16 version over 512
+        # steps (max distance ~2, mean 0.13 on the card), which no limit
+        # from the bf16 rounding survives.
+        sc = 0.3 if H_ <= 100 else 0.01
+        p = lstm_params(rng, D_, H_, dev, sc)
+        p2 = lstm_params(rng, D_, H_, dev, sc)
+        x = uniform(rng, (B_, T_, D_), 0.0, 1.0, dev)
+        L = lstm1_lengths(rng, B_, T_, dev)
+        V = int(L.sum())
+        d = D_ + D_ % 2
+        f16 = bk.device_fwd16_plan(dev, B_, T_, d, H_, False, state=True,
+                                   ndir=1)
+        i16 = bk.device_fwd16_plan(dev, B_, T_, d, H_, False, state=False,
+                                   ndir=1)
+        row = {"plan_one": lstm1_plan(B_, T_, D_, H_, 1),
+               "plan_pair": lstm1_plan(B_, T_, D_, H_, 2), "valid": V,
+               "weights": sc, "launches": {}}
+        for rev in (False, True):
+            tag = f"lstm1 {key} {'reversed' if rev else 'forward'}"
+            with torch.no_grad():
+                plain = lstm_ops.lstm1_fwd_state_plain(p, x, L, rev,
+                                                       xz_bf16=True)
+                ref = lstm_ops.lstm1_fwd_state_plain(d64(p), x, L, rev,
+                                                     xz_bf16=True)
+
+                def k1():
+                    return bidi_lstm_fwd_state(p, None, x, L, xz_bf16=True,
+                                               reverse=rev)
+
+                def k3():
+                    return (bidi_lstm_infer(p, None, x, L, xz_bf16=True,
+                                            reverse=rev),)
+                first = one_counts(k1, bidi_lstm_fwd_state,
+                                   1 if f16.C else 0)
+                row["launches"]["fwd_state"] = bidi_lstm_fwd_state.launches1
+                d1, e1 = check_streams(f"{tag} K1", first, k1(), L,
+                                       (BF16_ULP,) * 3, plain, ref)
+                sw = stepwise_check(f"{tag} K1", p, x, L, first, rev)
+                del first
+                first = one_counts(k3, bidi_lstm_infer, 1 if i16.C else 0)
+                d3, e3 = check_streams(f"{tag} K3", first, k3(), L,
+                                       (BF16_ULP,), plain[:1], ref[:1])
+                del ref, first
+                y, gates, cell = plain
+                gy = (torch.rand(y.shape, device=dev) - 0.5).bfloat16()
+                gy[padded(L, B_, T_, dev)] = 0
+                Wh, Wx = p["Wh"][None], p["Wx"][None]
+                dz_p = lstm_ops.lstm1_bwd_chain_plain(gates, cell, gy, Wh, L,
+                                                      rev, xz_bf16=True)
+                dz_r = lstm_ops.lstm1_bwd_chain_plain(
+                    gates, cell, gy, Wh.double(), L, rev, xz_bf16=True)
+
+                def chain():
+                    return (bidi_lstm_bwd_chain(gates, cell, gy, Wh, L,
+                                                xz_bf16=True, reverse=rev),)
+                first = one_counts(chain, bidi_lstm_bwd_chain)
+                row["launches"]["chain"] = bidi_lstm_bwd_chain.launches1
+                dc, ec = check_streams(f"{tag} K2 chain", first, chain(),
+                                       L, (BF16_ULP,), (dz_p,), (dz_r,))
+                del dz_r, first
+                er = 0.0
+                for need_dx in (True, False):
+                    def red():
+                        return tuple(t for t in bidi_lstm_bwd_reduce(
+                            x, y, dz_p, Wx, need_dx, xz_bf16=True,
+                            reverse=rev) if t is not None)
+                    pr_ = [t for t in lstm_ops.lstm1_bwd_reduce_plain(
+                        x, y, dz_p, Wx, need_dx, rev, xz_bf16=True)
+                        if t is not None]
+                    rr = [t for t in lstm_ops.lstm1_bwd_reduce_plain(
+                        x.double(), y, dz_p, Wx.double(), need_dx, rev,
+                        xz_bf16=True) if t is not None]
+                    got = one_counts(red, bidi_lstm_bwd_reduce)
+                    row["launches"]["reduce"] = bidi_lstm_bwd_reduce.launches1
+                    _, e = check_streams(
+                        f"{tag} K2 reduction (dx {need_dx})", got, red(), L,
+                        (F64_FLOOR, BF16_ULP)[:len(got)], pr_, rr,
+                        (False, True)[:len(got)])
+                    er = max(er, e)
+                del plain, dz_p, gates, cell, y
+            row["reversed" if rev else "forward"] = {
+                "K1": d1, "K3": d3, "chain": dc[0], "stepwise": sw,
+                "max_abs_vs_plain": {"K1": e1, "K3": e3, "chain": ec,
+                                     "reduce": er}}
+            log(f"[lstm1] {tag}: K1 {d1[0][0]:.2e}/{d1[0][1]:.2e} (kernel/"
+                f"plain from float64, y), step by step (gates, cell, y) "
+                + "/".join(f"{v:.2f}" for v in sw) + " of the limit, chain "
+                f"{dc[0][0]:.2e}/{dc[0][1]:.2e}, max |kernel - plain| "
+                f"{max(e1, e3, ec, er):.2e}; one launch a call, one "
+                "direction")
+        # The one-direction forward, chain and reduction in turns with the
+        # pair's.
+        with torch.no_grad():
+            one_f, pair_f = in_turns(
+                lambda: bidi_lstm_fwd_state(p, None, x, L, xz_bf16=True),
+                lambda: bidi_lstm_fwd_state(p, p2, x, L, xz_bf16=True), 3)
+            y1, g1, c1 = bidi_lstm_fwd_state(p, None, x, L, xz_bf16=True)
+            y2, g2, c2 = bidi_lstm_fwd_state(p, p2, x, L, xz_bf16=True)
+            gy1 = torch.zeros_like(y1)
+            gy2 = torch.zeros_like(y2)
+            Wh1, Wh2 = p["Wh"][None], torch.stack([p["Wh"], p2["Wh"]])
+            Wx1, Wx2 = p["Wx"][None], torch.stack([p["Wx"], p2["Wx"]])
+            one_c, pair_c = in_turns(
+                lambda: bidi_lstm_bwd_chain(g1, c1, gy1, Wh1, L,
+                                            xz_bf16=True),
+                lambda: bidi_lstm_bwd_chain(g2, c2, gy2, Wh2, L,
+                                            xz_bf16=True), 3)
+            dz1 = bidi_lstm_bwd_chain(g1, c1, gy1, Wh1, L, xz_bf16=True)
+            dz2 = bidi_lstm_bwd_chain(g2, c2, gy2, Wh2, L, xz_bf16=True)
+            one_r, pair_r = in_turns(
+                lambda: bidi_lstm_bwd_reduce(x, y1, dz1, Wx1, True,
+                                             xz_bf16=True),
+                lambda: bidi_lstm_bwd_reduce(x, y2, dz2, Wx2, True,
+                                             xz_bf16=True), 3)
+            del y1, g1, c1, y2, g2, c2, gy1, gy2, dz1, dz2
+        # The one-direction calls at the pair's plans, in turns with their
+        # own (the plans' choice at one direction's groups).
+        with torch.no_grad():
+            f_pair = bk.device_fwd16_plan(dev, B_, T_, d, H_, False,
+                                          state=True)
+            c_one = bk.device_chain_plan(dev, B_, T_, H_, 1)
+            c_pair = bk.device_chain_plan(dev, B_, T_, H_)
+            y1, g1, c1 = bidi_lstm_fwd_state(p, None, x, L, xz_bf16=True)
+            gy1 = torch.zeros_like(y1)
+            if f16.C and f_pair.C and f16 != f_pair:
+                own, alt = in_turns(
+                    lambda: bk._fwd("fwd_state", f16, p, None, x, L, True,
+                                    dm=1),
+                    lambda: bk._fwd("fwd_state", f_pair, p, None, x, L, True,
+                                    dm=1), 3)
+                row["fwd_at_pair_plan_ms"] = {"own": own, "pair_plan": alt}
+            if c_one.C and c_pair.C and c_one != c_pair:
+                own, alt = in_turns(
+                    lambda: bk._chain(c_one, g1, c1, gy1, Wh1, L, True, 1),
+                    lambda: bk._chain(c_pair, g1, c1, gy1, Wh1, L, True, 1),
+                    3)
+                row["chain_at_pair_plan_ms"] = {"own": own,
+                                                "pair_plan": alt}
+            del y1, g1, c1, gy1
+        for k in ("fwd_at_pair_plan_ms", "chain_at_pair_plan_ms"):
+            if k in row:
+                log(f"[lstm1] {key}: {k[:-3]}: own plan "
+                    f"{mean(row[k]['own']):.3f} ms, the pair's plan "
+                    f"{mean(row[k]['pair_plan']):.3f} ms")
+        for k, one, pair in (("fwd_ms", one_f, pair_f),
+                             ("chain_ms", one_c, pair_c),
+                             ("reduce_ms", one_r, pair_r)):
+            row[k] = {"one": one, "pair": pair,
+                      "ratio": mean(one) / mean(pair)}
+        log(f"[lstm1] {key}: forward one {mean(one_f):.3f} ms, pair "
+            f"{mean(pair_f):.3f} ms ({row['fwd_ms']['ratio']:.2f}x); chain "
+            f"one {mean(one_c):.3f} ms, pair {mean(pair_c):.3f} ms "
+            f"({row['chain_ms']['ratio']:.2f}x); reduction (dx) one "
+            f"{mean(one_r):.3f} ms, pair {mean(pair_r):.3f} ms "
+            f"({row['reduce_ms']['ratio']:.2f}x); plans: one "
+            f"{row['plan_one']} | pair {row['plan_pair']} | {card}")
+        out["shapes"][key] = row
+        del p, p2, x
+        torch.cuda.empty_cache()
+    out["hoisted"] = lstm1_hoisted(dev, rng)
+    if fwd_vs is not None and k2_vs is not None:
+        out["bidi_vs_parent"] = bidi_against(dev, fwd_vs, k2_vs, rng)
+    return out
+
+
+def lstm1_hoisted(dev, rng) -> dict:
+    """A lone layer whose input is wider than its lane-padded hidden size
+    (``hoists_projection``: D=400, H=200, B=256, T=512) takes the hoisted
+    one-direction product and K4's one-direction mode, in both modes
+    (state and inference) and both directions: against the plain versions
+    and the float64 recipe, two calls bitwise, the state mode also step by
+    step from its own state (stepwise_check)."""
+    p = lstm_params(rng, 400, 200, dev, 0.2)
+    x = uniform(rng, (256, 512, 400), 0.0, 1.0, dev)
+    L = fwd16_lengths(rng, 256, 512, dev)
+    res = {}
+    with torch.no_grad():
+        xz = lstm_ops.hoisted_projection(p, None, x, xz_bf16=True)
+        for rev in (False, True):
+            plain = lstm_ops.lstm1_apply_xz(p, xz, L, rev, True, True)
+            ref = lstm_ops.lstm1_apply_xz(d64(p), xz, L, rev, True, True)
+
+            def k4s():
+                return bidi_lstm_fwd_state_xz(p, None, xz, L, xz_bf16=True,
+                                              reverse=rev)
+
+            def k4():
+                return (bidi_lstm_infer(p, None, x, L, xz_bf16=True,
+                                        reverse=rev),)
+            tag = f"lstm1 K4 D=400 H=200 {'reversed' if rev else 'forward'}"
+            first = k4s()
+            d, e = check_streams(f"{tag} state", first, k4s(), L,
+                                 (BF16_ULP,) * 3, plain, ref)
+            sw = stepwise_check(f"{tag} state", p, xz, L, first, rev,
+                                hoisted=True)
+            d1, e1 = check_streams(f"{tag} inference", k4(), k4(), L,
+                                   (BF16_ULP,), plain[:1], ref[:1])
+            res["reversed" if rev else "forward"] = {
+                "state": d, "inference": d1, "stepwise": sw,
+                "max_abs_vs_plain": max(e, e1)}
+            log(f"[lstm1] {tag}: y {d[0][0]:.2e}/{d[0][1]:.2e} (kernel/plain "
+                f"from float64), step by step " + "/".join(
+                    f"{v:.2f}" for v in sw) + " of the limit, max |kernel - "
+                f"plain| {max(e, e1):.2e}")
+    return res
+
+
+def bidi_against(dev, fwd_vs: dict, k2_vs, rng) -> dict:
+    """The bidi pair's bf16 K1 and K2 (chain, reduction with dx) at bidi's
+    layer (D=48, H=100) and bidi2's (48, 200; 400, 200 on the hoisted
+    product, K4's state mode), B=256, T=1024, against another build's
+    (the parent's source): bitwise equal."""
+    chain_vs, reduce_vs = k2_vs[4], k2_vs[2]
+    res = {}
+    for d, h in ((48, 100), (48, 200), (400, 200)):
+        pf, pr = lstm_params(rng, d, h, dev), lstm_params(rng, d, h, dev)
+        x = uniform(rng, (256, 1024, d), 0.0, 1.0, dev)
+        L = fwd16_lengths(rng, 256, 1024, dev)
+        with torch.no_grad():
+            if bk.hoists_projection(d, h):
+                inp = lstm_ops.hoisted_projection(pf, pr, x, xz_bf16=True)
+                got = bidi_lstm_fwd_state_xz(pf, pr, inp, L, xz_bf16=True)
+                want = fwd_vs["K4 state bf16"](pf, pr, inp, L)
+            else:
+                got = bidi_lstm_fwd_state(pf, pr, x, L, xz_bf16=True)
+                want = fwd_vs["K1 bf16"](pf, pr, x, L)
+            y, gates, cell = got
+            gy = (torch.rand(y.shape, device=dev) - 0.5).bfloat16()
+            gy[padded(L, 256, 1024, dev)] = 0
+            Wh2, Wx2 = stack2(pf, pr, "Wh"), stack2(pf, pr, "Wx")
+            dz = bidi_lstm_bwd_chain(gates, cell, gy, Wh2, L, xz_bf16=True)
+            dz_vs = chain_vs(gates, cell, gy, Wh2, L)
+            red = bidi_lstm_bwd_reduce(x, y, dz, Wx2, True, xz_bf16=True)
+            red_vs = reduce_vs(x, y, dz, Wx2, True)
+        same = {"fwd": all(torch.equal(a, b) for a, b in zip(got, want)),
+                "chain": torch.equal(dz, dz_vs),
+                "reduce": all(torch.equal(a, b) for a, b in zip(red,
+                                                                red_vs))}
+        res[f"D={d} H={h}"] = same
+        log(f"[lstm1] bidi pair D={d} H={h} against the other build: "
+            + ", ".join(f"{k} {'bitwise equal' if v else 'DIFFERENT'}"
+                        for k, v in same.items()))
+        if not all(same.values()):
+            raise AssertionError(f"the bidi pair at D={d} H={h} differs "
+                                 f"from the other build: {same}")
+        del pf, pr, x, got, want, dz, dz_vs, red, red_vs
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k2-against", metavar="SRC",
@@ -6276,6 +6708,11 @@ def main(argv=None) -> int:
                     help="also run phase 10's toy task from the inits of "
                     "seeds 1-N in both precisions and log how many lines "
                     "each decodes (a record, not a check)")
+    ap.add_argument("--lstm1", action="store_true",
+                    help="run only the build and phase 27, the "
+                    "one-direction checks (lstm1_checks; with --fwd-against "
+                    "and --k2-against, also the bidi pair against that "
+                    "build, bitwise), then stop")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     t_mark = [t_start]
@@ -6314,6 +6751,13 @@ def main(argv=None) -> int:
                    else None)
     ctc_against = (load_ctc_against(args.ctc_against) if args.ctc_against
                    else None)
+    if args.lstm1:
+        r = lstm1_checks(dev, card, fwd_against, k2_against)
+        log(f"[done] the one-direction checks passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"lstm1": r}))
+        return 0
     against, fwd_vs, ctc_vs = {}, {}, {}
     # The forward kernel's plan at each timed shape: cluster size C, rows
     # per cluster, units per CTA, which weights are resident in shared
@@ -7194,6 +7638,13 @@ def main(argv=None) -> int:
                     for (m, b), n in affine_steps.items()))
 
     phase_mark("26")
+    # 27. The one-direction kernels (a lone NPLSTM or Reversed(NPLSTM):
+    # every LSTM of tess_eng) at that cell's shapes: against their plain
+    # versions, float64 and step by step, each call's launches counted
+    # alone, and timed in turns with the bidi pair's.
+    l1 = lstm1_checks(dev, card)
+
+    phase_mark("27")
     # 18. Report. bound_ms from this run's shapes and valid frames (lengths
     # 900 at both bench shapes); library_ms a library call timed in turns
     # with the kernel above, or None where no one call computes the same
@@ -7647,6 +8098,39 @@ def main(argv=None) -> int:
                                       "turns": m["turns"]}}
     extra["affine_fwd bf16 (bidi softmax)"]["affine"].update(
         checks=aff["checks"], nowait=aff["nowait"])
+    # Phase 27: the one-direction kernels at tess_eng's layers, launches
+    # counted on one call, max_abs_err the largest |kernel - plain bf16|
+    # over both directions, ms the one-direction call's in turns with the
+    # pair's (plain_ms not timed).
+    for (b_, t_, d_, h_), lay in zip(LSTM1_SHAPES, LSTM1_LAYERS):
+        r = l1["shapes"][f"B={b_} T={t_} D={d_} H={h_}"]
+        for kind, wrapper, src, err_key, bkind in (
+                ("fwd_state", "bidi_lstm_fwd_state", fwd_src, "K1",
+                 "fwd_state"),
+                ("chain", "bidi_lstm_bwd_chain", bwd_src, "chain", "chain"),
+                ("reduce", "bidi_lstm_bwd_reduce", bwd_src, "reduce",
+                 "reduce")):
+            t = r[f"{kind if kind != 'fwd_state' else 'fwd'}_ms"]
+            name = (f"{wrapper} bf16 one direction ({lay}: B={b_} T={t_} "
+                    f"D={d_} H={h_})")
+            entries.append((
+                name, src, "none (clstm_tpu/ops/lstm.py::lstm_apply, "
+                "lax.scan)", r["launches"][kind],
+                max(r[dn]["max_abs_vs_plain"][err_key]
+                    for dn in ("forward", "reversed")), None,
+                (mean(t["one"]), None),
+                lstm_bound(bkind, b_, t_, d_, h_, r["valid"],
+                           dx=bkind == "reduce", esize=2, ndir=1), None))
+            extra[name] = {"one_direction": {
+                "pair_ms": mean(t["pair"]), "ratio": t["ratio"],
+                "plan_one": r["plan_one"], "plan_pair": r["plan_pair"],
+                "weights": r["weights"],
+                "stepwise": {dn: r[dn]["stepwise"]
+                             for dn in ("forward", "reversed")}}}
+    extra[f"bidi_lstm_fwd_state bf16 one direction ({LSTM1_LAYERS[0]}: "
+          f"B={LSTM1_SHAPES[0][0]} T={LSTM1_SHAPES[0][1]} "
+          f"D={LSTM1_SHAPES[0][2]} H={LSTM1_SHAPES[0][3]})"][
+        "one_direction"]["hoisted"] = l1["hoisted"]
     kernels = []
     for name, src, rep, n, err, rel, (km, pm), (bms, bby), lms in entries:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,

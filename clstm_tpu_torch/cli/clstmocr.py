@@ -27,6 +27,7 @@ import numpy as np
 from clstm_tpu_torch.data.dataset import T_BUCKETS, bucket_for
 from clstm_tpu_torch.io.png import read_png
 from clstm_tpu_torch.models.hl import CLSTMOCR
+from clstm_tpu_torch.models.spec import frame_stride
 from clstm_tpu_torch.ops.ctc import decode_frames
 from clstm_tpu_torch.ops.preprocess import estimate_out_T
 from clstm_tpu_torch.utils.config import (
@@ -59,7 +60,7 @@ def predict_pages(ocr: CLSTMOCR, images, device_preprocess: int = 1) -> dict:
             lengths[r] = T
         ids, vals = ocr.predict_batch(xb, lengths)
         for r, i in enumerate(idxs):
-            L = lengths[r]
+            L = ocr.out_lengths(int(lengths[r]))
             cls, pos = decode_frames(ids[r][:L], vals[r][:L],
                                      return_positions=True)
             results[i] = (cls, pos, vals[r], scales[i])
@@ -79,6 +80,7 @@ def _predict_pages_device(ocr: CLSTMOCR, images) -> dict:
                         T_BUCKETS)
         by_bucket.setdefault(tb, []).append(i)
     pending = []
+    stride = frame_stride(ocr.spec)   # lengths are output frames
     for idxs in by_bucket.values():
         out = ocr.predict_batch_images([images[i] for i in idxs], sync=False)
         pending.append((idxs, [HostCopy(t) for t in out]))
@@ -90,7 +92,8 @@ def _predict_pages_device(ocr: CLSTMOCR, images) -> dict:
             cls, pos = decode_frames(ids[r][:L], vals[r][:L],
                                      return_positions=True)
             # width scale: normalized cols per source col
-            scale = max(L - 2 * ocr.pad, 1) / max(images[i].shape[1], 1)
+            scale = (max(L * stride - 2 * ocr.pad, 1)
+                     / max(images[i].shape[1], 1))
             results[i] = (cls, pos, vals[r], scale)
     return results
 
@@ -114,9 +117,11 @@ def write_outputs(ocr: CLSTMOCR, argv, images, results: dict,
             print(f"{f}\t{text}")
         if charseg:
             w = images[i].shape[1]
+            stride = frame_stride(ocr.spec)   # input frames per output one
             for j, (c, t) in enumerate(zip(cls, pos)):
                 ch = chr(ocr.codec.codec[c])
-                col = int(np.clip(round((t - ocr.pad) / scale), 0, w - 1))
+                col = int(np.clip(round((t * stride - ocr.pad) / scale), 0,
+                                  w - 1))
                 print(f"# {j} {col} {ch!r} {vals[t]:.3f}")
 
 

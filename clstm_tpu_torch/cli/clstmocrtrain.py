@@ -17,7 +17,11 @@ params, with the JAX package's names and defaults:
   dewarp=center      normalizer kind (center/mean/none)
   randseed=0         weight init and epoch shuffles
   batch_size=32      lines per batch
-  net=bidi           prefab kind (bidi/bidi2/lstm1/...)
+  net=bidi           prefab kind (bidi/bidi2/lstm1/.../vgsl)
+  vgsl=              a VGSL spec string, the net of net=vgsl (implies it),
+                     e.g. Tesseract's eng recogniser with target_height=36:
+                     "[1,36,0,1 Ct3,3,16 Mp3,3 Lfys64 Lfx96 Lrx96 Lfx512
+                     O1c1]" (models/prefab.py vgsl_net)
   log_jsonl=         path for structured JSONL metrics
   display_every=0    >0 writes the dashboard save_name-display.png (losses
                      and test CER, utils/display.py; matplotlib, else
@@ -104,7 +108,8 @@ def evaluate(ocr: CLSTMOCR, data, codec: Codec, batch_size: int) -> float:
         batches = (pad_batch_rows(b, batch_size)
                    for b in make_batches(data, codec, batch_size))
     for batch in batches:
-        host_lengths = np.asarray(batch.get("host_lengths", batch["lengths"]))
+        host_lengths = ocr.out_lengths(
+            np.asarray(batch.get("host_lengths", batch["lengths"])))
         ids, vals = ocr.predict_batch(batch["x"], batch["lengths"])
         for b, text in enumerate(batch["texts"]):
             L = host_lengths[b]
@@ -172,7 +177,7 @@ def train(ocr: CLSTMOCR, codec: Codec, *, save_name: str, ntrain: int,
         meter.add(upto - meter.total)
         rate = meter.rate()
         for tr, s in crossings:
-            L = int(bhls[s][0])
+            L = int(ocr.out_lengths(int(bhls[s][0])))
             loss, ids, vals = unpack_report(rep[s], L)
             pred = codec.decode(decode_frames(ids, vals))
             print(f"{tr} {loss:.4f} ({rate:.1f} lines/s)")
@@ -301,6 +306,9 @@ def _run(argv, mesh=None) -> int:
     randseed = getienv("randseed", 0)
     batch_size = getienv("batch_size", 32)
     net_kind = getsenv("net", "bidi")
+    vgsl = getsenv("vgsl", "")
+    if vgsl:
+        net_kind = "vgsl"
     initial = getdenv("initial", 0.0)
 
     train_ds = OcrDataset(argv[0], target_height=target_height, dewarp=dewarp)
@@ -319,6 +327,8 @@ def _run(argv, mesh=None) -> int:
     else:
         codec = train_ds.build_codec()
         extra = {"initial": initial} if initial > 0 else {}
+        if net_kind == "vgsl":
+            extra["spec"] = vgsl
         ocr.createBidi(codec, nhidden, kind=net_kind, seed=randseed, **extra)
     ocr.setLearningRate(getdenv("lrate", 1e-4), getdenv("momentum", 0.9))
     ocr.gradient_clip = getdenv("gradient_clip", 0.0)
@@ -345,6 +355,7 @@ def _run(argv, mesh=None) -> int:
         cache_kw = dict(t_buckets=T_BUCKETS_FINE, merge_sb=True)
     else:
         cache_kw = {}
+    cache_kw["out_lengths"] = ocr.out_lengths
     print("# preparing lines...", flush=True)
     samples = test_samples = dcache = test_cache = None
     if getienv("device_preprocess", 0):
@@ -378,6 +389,10 @@ def _run(argv, mesh=None) -> int:
         t_over, s_over = count_truncations(samples, codec)
     if t_over or s_over:
         print(f"# WARNING: {truncation_report(t_over, s_over)}", flush=True)
+    if dcache is not None and dcache.frames_short:
+        print(f"# WARNING: {dcache.frames_short} line(s) with more "
+              "characters than the net's output frames (CTC cannot align "
+              "them)", flush=True)
 
     train(ocr, codec, save_name=save_name, ntrain=getienv("ntrain", 1000000),
           batch_size=batch_size, report_every=getienv("report_every", 100),

@@ -193,6 +193,12 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+// The directions of a call (the kernels' dm): both, the bidi pair's (0),
+// or one: the forward direction alone (1) or the reversed one alone (2),
+// whose streams then hold that direction only (gates [B,T,1,4H], y
+// [B,T,H], dz [B,T,1,4H], the weights and dW [1,...]).
+__host__ __device__ inline int dirs_of(int dm) { return dm ? 1 : 2; }
+
 // ---------------------------------------------------------------------------
 // bf16 values
 // ---------------------------------------------------------------------------
@@ -791,7 +797,7 @@ struct Dw16 {
 };
 
 struct Dw16Args {
-  float* out;      // partials [ranges][2][M][G]; dw itself when ranges == 1
+  float* out;      // partials [ranges][nd][M][G]; dw itself when ranges == 1
   int D, H, M, G;  // M = D + 1 + H rows, G = 4H columns of dW
   int y1;          // y's column of the reverse direction's first unit
   int z1;          // dz's column of the reverse direction's first gate
@@ -800,9 +806,10 @@ struct Dw16Args {
   int S, spr;      // slices in all, slices per frame range
   int nx, nm;      // x-part tiles (of D + 1 rows), all row tiles
   int ntn;         // gate-column tiles
+  int dm;          // the call's directions (dirs_of)
 };
 
-// Block (pair * ntn + column tile, 2 * range + dir). Thread 0 is also the
+// Block (pair * ntn + column tile, nd * range + the direction's place). Thread 0 is also the
 // producer: it issues the TMA copies of slice k + STAGES - 1 into the slot
 // of slice k - 1 once both warpgroups have released it (the empty
 // barrier's 8 warp arrivals). Both operands lie frame-major, MN-major for
@@ -824,7 +831,9 @@ __global__ void __launch_bounds__(R16_THREADS, 1)
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       ((uintptr_t)smraw + 1023) & ~(uintptr_t)1023);
   const int pair = blockIdx.x / a.ntn, nt = blockIdx.x - pair * a.ntn;
-  const int dir = blockIdx.y & 1, range = blockIdx.y >> 1;
+  const int nd = dirs_of(a.dm);
+  const int dsl = blockIdx.y % nd, range = blockIdx.y / nd;
+  const int dir = a.dm ? a.dm - 1 : dsl;
   const int s0 = range * a.spr;
   const int ns = min(a.S, s0 + a.spr) - s0;
   const int tid = threadIdx.x, wg = tid >> 7;
@@ -853,12 +862,12 @@ __global__ void __launch_bounds__(R16_THREADS, 1)
         tma_3d(st + w * ATOM, &xmap, &full[slot], 64 * m, t0, b0);
       else
         tma_3d(st + w * ATOM, &ymap, &full[slot],
-               (dir ? a.y1 : 0) + 64 * (m - a.nx), dir ? t0 + 1 : t0 - 1,
+               dsl * a.y1 + 64 * (m - a.nx), dir ? t0 + 1 : t0 - 1,
                b0);
     }
     for (int c = 0; c < C::NB; ++c)
       tma_3d(st + (2 + c) * ATOM, &zmap, &full[slot],
-             dir * a.z1 + j0 + 64 * c, t0, b0);
+             dsl * a.z1 + j0 + 64 * c, t0, b0);
   };
   if (tid == 0)
     for (int k = 0; k < ns && k < C::STAGES; ++k) issue(k, k);
@@ -905,7 +914,7 @@ __global__ void __launch_bounds__(R16_THREADS, 1)
   // Tile rows -> dW rows: the x-part's rows 0..D are dWx and the bias row
   // (the staged ones column is column D), h-part row k is dW row D+1+k.
   const int m = m0 + wg, w = (tid >> 5) & 3, l = tid & 31;
-  float* out = a.out + ((size_t)range * 2 + dir) * a.M * a.G;
+  float* out = a.out + ((size_t)range * nd + dsl) * a.M * a.G;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int rl = 16 * w + (l >> 2) + 8 * h;
@@ -950,6 +959,7 @@ struct Dx16 {
 struct Dx16Args {
   void* dx;       // [N, D], bf16 where out_bf16, else f32
   int N, D;
+  int nd;         // the call's directions (dirs_of)
   int z1;         // dz's column of the reverse direction's first gate
   int KQ;         // q slices (of 64) per direction: Gp / 64
   int ntd;        // column tiles
@@ -968,7 +978,7 @@ __global__ void __launch_bounds__(R16_THREADS, 1)
       ((uintptr_t)smraw + 1023) & ~(uintptr_t)1023);
   const int ft = blockIdx.x / a.ntd, dt = blockIdx.x - ft * a.ntd;
   const int n0 = ft * 128, d0 = dt * NW;
-  const int ns = 2 * a.KQ;
+  const int ns = a.nd * a.KQ;
   const int tid = threadIdx.x, wg = tid >> 7;
   const uint32_t bytes = 2 * ATOM + NW * 128;
 
@@ -1046,7 +1056,10 @@ __global__ void __launch_bounds__(R16_THREADS, 1)
         const int d = d0 + 8 * c + 2 * (l & 3) + e;
         if (d >= a.D) continue;
         const uint32_t f = fwd[i >> 1];
-        const float v = (e ? hi_f(f) : lo_f(f)) + operand<bf16>(acc[i]);
+        // One direction: its sum alone, rounded as each direction's is.
+        const float v = a.nd == 2
+                            ? (e ? hi_f(f) : lo_f(f)) + operand<bf16>(acc[i])
+                            : operand<bf16>(acc[i]);
         const size_t o = (size_t)n * a.D + d;
         if (a.out_bf16)
           static_cast<bf16*>(a.dx)[o] = from_f<bf16>(v);
@@ -1124,16 +1137,20 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
                      const float* __restrict__ gates,
                      const E* __restrict__ cell, const E* __restrict__ gy,
                      const E* __restrict__ whT, E* __restrict__ dz, int B,
-                     int T, int H, int parts, int jp) {
+                     int T, int H, int parts, int jp, int dm) {
   extern __shared__ __align__(16) unsigned char smc[];
   __shared__ int lens[ROWS];
   constexpr int ES = (int)sizeof(E);
   const int G = 4 * H, hp = (H + 3) / 4 * 4, kg = hp / 4;
   const int SB = slot_bytes(G, hp, ES);
-  const int dir = blockIdx.y;
+  // The call's directions (dirs_of): nd in the streams, this block's at
+  // place `dsl`, its chain forward (dir 0) or reversed.
+  const int nd = dirs_of(dm);
+  const int dsl = dm ? 0 : (int)blockIdx.y;
+  const int dir = dm ? dm - 1 : (int)blockIdx.y;
   const int b0 = blockIdx.x * ROWS;
   const int tid = threadIdx.x, nt = blockDim.x;
-  whT += (size_t)dir * G * hp;
+  whT += (size_t)dsl * G * hp;
   E* whs = reinterpret_cast<E*>(smc);                       // [G, hp]
   unsigned char* slots =
       smc + (WSMEM ? (size_t)G * hp * ES : 0);               // [2][ROWS]
@@ -1162,10 +1179,10 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
   // Padded frames: dz exactly 0.
   for (int r = 0; r < ROWS && b0 + r < B; ++r) {
     const int L = lens[r];
-    E* row = dz + ((size_t)(b0 + r) * T * 2 + dir) * G;
+    E* row = dz + ((size_t)(b0 + r) * T * nd + dsl) * G;
     for (int i = tid; i < (T - L) * G; i += nt) {
       const int t = L + i / G;
-      row[(size_t)t * 2 * G + (i - (t - L) * G)] = from_f<E>(0.0f);
+      row[(size_t)t * nd * G + (i - (t - L) * G)] = from_f<E>(0.0f);
     }
   }
 
@@ -1178,14 +1195,14 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
       const int L = lens[r];
       if (s >= L) continue;
       const int b = b0 + r, t = dir == 0 ? s : L - 1 - s;
-      const size_t f = ((size_t)b * T + t) * 2 + dir;
-      const size_t fp = s > 0 ? f + (dir == 0 ? -2 : 2) : f;
+      const size_t f = ((size_t)b * T + t) * nd + dsl;
+      const size_t fp = s > 0 ? (dir == 0 ? f - nd : f + nd) : f;
       float* dg = reinterpret_cast<float*>(slot + r * SB);
       E* de = reinterpret_cast<E*>(dg + G);
       for (int c = tid; c < G / 4; c += nt)
         cp_async16(dg + 4 * c, gates + f * G + 4 * c, true);
       const E* srcs[3] = {cell + f * H, cell + fp * H,
-                          gy + ((size_t)b * T + t) * 2 * H + dir * H};
+                          gy + f * H};
       if (VEC) {
         // 4 elements a copy: 16 bytes (f32) or 8 (bf16).
         for (int c = tid; c < 3 * (H / 4); c += nt) {
@@ -1247,7 +1264,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
         z[2 * H + k] = d2;
         z[3 * H + k] = d3;
         const int t = dir == 0 ? s : L - 1 - s;
-        E* out = dz + (((size_t)(b0 + r) * T + t) * 2 + dir) * G;
+        E* out = dz + (((size_t)(b0 + r) * T + t) * nd + dsl) * G;
         out[k] = from_f<E>(d0);
         out[H + k] = from_f<E>(d1);
         out[2 * H + k] = from_f<E>(d2);
@@ -1297,7 +1314,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
 template <int ROWS, bool VEC, bool WSMEM, class E>
 cudaError_t launch_chain(const ChainPlan& p, const int32_t* lengths,
                          const float* gates, const E* cell, const E* gy,
-                         const E* whT, E* dz, int B, int T, int H,
+                         const E* whT, E* dz, int B, int T, int H, int dm,
                          cudaStream_t st) {
   auto kern = bwd_chain_kernel<ROWS, VEC, WSMEM, E>;
   if (p.smem > 48 * 1024) {
@@ -1305,9 +1322,9 @@ cudaError_t launch_chain(const ChainPlan& p, const int32_t* lengths,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((B + ROWS - 1) / ROWS, 2);
+  const dim3 grid((B + ROWS - 1) / ROWS, dirs_of(dm));
   kern<<<grid, p.threads, p.smem, st>>>(lengths, gates, cell, gy, whT, dz, B,
-                                        T, H, p.parts, p.jp);
+                                        T, H, p.parts, p.jp, dm);
   return cudaGetLastError();
 }
 
@@ -1316,11 +1333,11 @@ cudaError_t launch_chain(const ChainPlan& p, const int32_t* lengths,
 // elements (H a multiple of 4, cell and gy aligned for it).
 template <class E>
 int chain(const int32_t* lengths, const float* gates, const E* cell,
-          const E* gy, const E* whT, E* dz, int B, int T, int H,
+          const E* gy, const E* whT, E* dz, int B, int T, int H, int dm,
           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const ChainPlan p = choose_chain(H, (int)sizeof(E));
-  if (p.rows == 0) return (int)cudaErrorInvalidValue;
+  if (p.rows == 0 || dm < 0 || dm > 2) return (int)cudaErrorInvalidValue;
   if (!aligned16(gates) || !aligned16(whT))
     return (int)cudaErrorMisalignedAddress;
   const uintptr_t al = 4 * sizeof(E) - 1;
@@ -1328,9 +1345,9 @@ int chain(const int32_t* lengths, const float* gates, const E* cell,
                    ((uintptr_t)gy & al) == 0;
 #define CLSTM_CHAIN(R, W)                                                   \
   (vec ? launch_chain<R, true, W, E>(p, lengths, gates, cell, gy, whT, dz, \
-                                     B, T, H, st)                          \
+                                     B, T, H, dm, st)                      \
        : launch_chain<R, false, W, E>(p, lengths, gates, cell, gy, whT,    \
-                                      dz, B, T, H, st))
+                                      dz, B, T, H, dm, st))
   const cudaError_t e = p.wsmem       ? CLSTM_CHAIN(4, true)
                         : p.rows == 4 ? CLSTM_CHAIN(4, false)
                                       : CLSTM_CHAIN(1, false);
@@ -1540,13 +1557,17 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
                        const bf16* __restrict__ cell,
                        const bf16* __restrict__ gy,
                        const bf16* __restrict__ wh, bf16* __restrict__ dz,
-                       int B, int T, int H, int U, int ks) {
+                       int B, int T, int H, int U, int ks, int dm) {
   constexpr int R = CH_M * MT;
   extern __shared__ __align__(128) unsigned char smc[];
   __shared__ int lens[2 * CH_M];
   const int C = (int)cluster_size();
   const int crank = (int)cluster_rank();
-  const int dir = blockIdx.y;
+  // The call's directions (dirs_of): nd in the streams, this CTA's at place
+  // `dsl`, its chain forward (dir 0) or reversed.
+  const int nd = dirs_of(dm);
+  const int dsl = dm ? 0 : (int)blockIdx.y;
+  const int dir = dm ? dm - 1 : (int)blockIdx.y;
   const int b0 = (blockIdx.x / C) * R;
   const int k0 = crank * U;
   const int nu = max(0, min(U, H - k0));
@@ -1559,7 +1580,7 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
   bf16* As = reinterpret_cast<bf16*>(smc + geo.off_a);
   float* stage = reinterpret_cast<float*>(smc + geo.off_stage);
   float* part = reinterpret_cast<float*>(smc + geo.off_part);
-  wh += (size_t)dir * H * G;
+  wh += (size_t)dsl * H * G;
 
   if (tid < R) {
     const int b = b0 + tid;
@@ -1587,7 +1608,7 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
     for (int i = tid; i < (T - L) * 4 * nu; i += nt) {
       const int t = L + i / (4 * nu), q = i % (4 * nu);
       const int g = q / nu, u = q - g * nu;
-      dz[(((size_t)(b0 + r) * T + t) * 2 + dir) * G + g * H + k0 + u] =
+      dz[(((size_t)(b0 + r) * T + t) * nd + dsl) * G + g * H + k0 + u] =
           from_f<bf16>(0.0f);
     }
   }
@@ -1614,7 +1635,7 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
   // gi, gf, go, ci, c, c_prev and gy are read there.
   auto frame = [&](int s) {
     const int t = dir == 0 ? s : iL - 1 - s;
-    return ((size_t)(b0 + ir) * T + t) * 2 + dir;
+    return ((size_t)(b0 + ir) * T + t) * nd + dsl;
   };
   auto ld_bf4 = [&](float* v, const bf16* p) {
     const uint2 w = *reinterpret_cast<const uint2*>(p);
@@ -1626,9 +1647,9 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
 #pragma unroll
       for (int e = 0; e < CH_Q; ++e) in[q][e] = 0.0f;
     if (s >= iL) return;
-    const size_t f = frame(s), fp = dir == 0 ? f - 2 : f + 2;
+    const size_t f = frame(s), fp = dir == 0 ? f - nd : f + nd;
     const int k = k0 + u0;
-    const size_t fy = (f >> 1) * 2 * H + dir * H + k;
+    const size_t fy = f * H + k;
     if (vec) {
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
@@ -1660,7 +1681,7 @@ __global__ void __launch_bounds__(CH_THREADS, 1)
 #pragma unroll
     for (int g = 0; g < 4; ++g) prefetch_l2(gates + f * G + g * H + k);
     prefetch_l2(cell + f * H + k);
-    prefetch_l2(gy + (f >> 1) * 2 * H + dir * H + k);
+    prefetch_l2(gy + f * H + k);
   };
   // The product's n tiles, their groups of NG (a warp's share), k tiles.
   constexpr int NG = ch_ng(MT);
@@ -1811,7 +1832,7 @@ long long plan16(int H, int C, int R, int U, int ks) {
 
 using Chain16 = void (*)(const int32_t*, const float*, const bf16*,
                          const bf16*, const bf16*, bf16*, int, int, int, int,
-                         int);
+                         int, int);
 
 // The kernel instance of a plan, with its shared-memory limit set.
 cudaError_t chain16_of(int H, int R, int U, long long smem, Chain16* kern) {
@@ -1825,13 +1846,15 @@ cudaError_t chain16_of(int H, int R, int U, long long smem, Chain16* kern) {
                               (int)smem);
 }
 
-// A launch of a plan: grid (C · row groups, 2 directions), clusters of C
-// CTAs along x.
+// A launch of a plan: grid (C · row groups, the call's directions),
+// clusters of C CTAs along x.
 struct Config16 {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  Config16(int C, unsigned gridx, long long smem, cudaStream_t st) : cfg() {
-    cfg.gridDim = dim3(gridx, 2, 1);
+  Config16(int C, unsigned gridx, long long smem, cudaStream_t st,
+           int dm = 0)
+      : cfg() {
+    cfg.gridDim = dim3(gridx, (unsigned)dirs_of(dm), 1);
     cfg.blockDim = dim3(CH_THREADS, 1, 1);
     cfg.dynamicSmemBytes = (size_t)smem;
     cfg.stream = st;
@@ -1848,9 +1871,10 @@ struct Config16 {
 // the launch.
 int chain16(const int32_t* lengths, const float* gates, const bf16* cell,
             const bf16* gy, const bf16* wh, bf16* dz, int B, int T, int H,
-            int C, int R, int U, int ks, void* stream) {
+            int C, int R, int U, int ks, int dm, void* stream) {
   const long long smem = plan16(H, C, R, U, ks);
-  if (B < 1 || T < 1 || smem == 0) return (int)cudaErrorInvalidValue;
+  if (B < 1 || T < 1 || smem == 0 || dm < 0 || dm > 2)
+    return (int)cudaErrorInvalidValue;
   // The quads' vector accesses (H and U multiples of 4).
   if (!aligned16(gates) || ((uintptr_t)cell & 7) || ((uintptr_t)gy & 7) ||
       ((uintptr_t)dz & 7))
@@ -1859,9 +1883,9 @@ int chain16(const int32_t* lengths, const float* gates, const bf16* cell,
   cudaError_t e = chain16_of(H, R, U, smem, &kern);
   if (e != cudaSuccess) return (int)e;
   Config16 c(C, (unsigned)(C * ((B + R - 1) / R)), smem,
-             (cudaStream_t)stream);
+             (cudaStream_t)stream, dm);
   e = cudaLaunchKernelEx(&c.cfg, kern, lengths, gates, cell, gy, wh, dz, B,
-                         T, H, U, ks);
+                         T, H, U, ks, dm);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1960,7 +1984,7 @@ struct Red16 {
   long long off_y, off_z, off_w, off_part, bytes;
 };
 
-Red16 red16(int B, int T, int D, int H, int tt, int spr) {
+Red16 red16(int B, int T, int D, int H, int tt, int spr, int nd = 2) {
   Red16 r;
   r.G = 4 * H, r.M = D + 1 + H;
   r.N = B * T;
@@ -1978,13 +2002,13 @@ Red16 red16(int B, int T, int D, int H, int tt, int spr) {
   r.pairs = (r.nm + 1) / 2;
   long long o = round_up(2LL * r.N * r.Dp, 256);
   r.off_y = o;
-  o += round_up(2LL * r.N * 2 * r.Hp, 256);
+  o += round_up(2LL * r.N * nd * r.Hp, 256);
   r.off_z = o;
-  o += r.zstage ? round_up(2LL * r.N * 2 * r.Gq, 256) : 0;
+  o += r.zstage ? round_up(2LL * r.N * nd * r.Gq, 256) : 0;
   r.off_w = o;
-  o += round_up(2LL * 2 * D * r.Gp, 256);
+  o += round_up(2LL * nd * D * r.Gp, 256);
   r.off_part = o;
-  o += r.ranges > 1 ? 4LL * r.ranges * 2 * r.M * r.G : 0;
+  o += r.ranges > 1 ? 4LL * r.ranges * nd * r.M * r.G : 0;
   r.bytes = o;
   return r;
 }
@@ -2006,8 +2030,8 @@ cudaError_t launch_dw16(const Red16& r, const CUtensorMap& xm,
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dw16<NW>::SMEM);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(r.pairs * a.ntn, 2 * r.ranges), R16_THREADS, Dw16<NW>::SMEM,
-         st>>>(xm, ym, zm, a);
+  kern<<<dim3(r.pairs * a.ntn, dirs_of(a.dm) * r.ranges), R16_THREADS,
+         Dw16<NW>::SMEM, st>>>(xm, ym, zm, a);
   return cudaGetLastError();
 }
 
@@ -2025,6 +2049,92 @@ cudaError_t launch_dx16(const Red16& r, const CUtensorMap& zm,
 }
 
 bool valid_nw(int nw) { return nw == 64 || nw == 128 || nw == 200; }
+
+// The bf16 reduction at the call's directions dm (dirs_of) and the plan
+// (nw, tt, spr, nwd): staging, dW (and the sum of its ranges), dx.
+int reduce_bf16(const void* x, int x_bf16, const bf16* y, const bf16* dz,
+                const float* wx, void* scratch, float* dw, void* dx, int B,
+                int T, int D, int H, int nw, int tt, int spr, int nwd, int dm,
+                cudaStream_t st) {
+  if (!valid_nw(nw) || !valid_nw(nwd) || tt < 1 || tt > SLICE ||
+      (tt & (tt - 1)) || spr < 1 || dm < 0 || dm > 2)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(dz) || ((uintptr_t)scratch & 255))
+    return (int)cudaErrorMisalignedAddress;
+  if (!encode_tiled()) return (int)cudaErrorNotSupported;
+  const int nd = dirs_of(dm);
+  const Red16 r = red16(B, T, D, H, tt, spr, nd);
+  const int G = r.G, M = r.M;
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  bf16* xp = reinterpret_cast<bf16*>(sc);
+  bf16* yp = reinterpret_cast<bf16*>(sc + r.off_y);
+  bf16* wp = reinterpret_cast<bf16*>(sc + r.off_w);
+  // One launch stages x, y, dz at odd H, and wx where dx is asked for.
+  StageJobs js = {};
+  add_job(js, x, !x_bf16, xp, r.N, D, r.Dp, D);
+  add_job(js, y, false, yp, (long long)nd * r.N, H, r.Hp, -1);
+  const bf16* zz = dz;
+  int z1 = G;
+  if (r.zstage) {
+    bf16* zp = reinterpret_cast<bf16*>(sc + r.off_z);
+    add_job(js, dz, false, zp, (long long)nd * r.N, G, r.Gq, -1);
+    zz = zp, z1 = r.Gq;
+  }
+  if (dx != nullptr) add_job(js, wx, true, wp, (long long)nd * D, G, r.Gp, -1);
+  bwd_stage_kernel<<<(unsigned)((js.total + 255) / 256), 256, 0, st>>>(js);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int yw = nd * r.Hp, y1 = r.Hp;
+
+  // dW: [B, T, columns] maps, boxes of 64 columns x tt frames x bb rows.
+  CUtensorMap xm, ym, zm;
+  const uint32_t box3[3] = {64, (uint32_t)tt, (uint32_t)r.bb};
+  const uint64_t xd[3] = {(uint64_t)r.Dp, (uint64_t)T, (uint64_t)B};
+  const uint64_t xs[2] = {2ull * r.Dp, 2ull * r.Dp * T};
+  const uint64_t yd[3] = {(uint64_t)yw, (uint64_t)T, (uint64_t)B};
+  const uint64_t yst[2] = {2ull * yw, 2ull * yw * T};
+  const uint64_t zd[3] = {(uint64_t)nd * z1, (uint64_t)T, (uint64_t)B};
+  const uint64_t zs[2] = {2ull * nd * z1, 2ull * nd * z1 * T};
+  if (!bf16_map(&xm, xp, 3, xd, xs, box3) ||
+      !bf16_map(&ym, yp, 3, yd, yst, box3) ||
+      !bf16_map(&zm, zz, 3, zd, zs, box3))
+    return (int)cudaErrorInvalidValue;
+  const Dw16Args a = {
+      r.ranges > 1 ? reinterpret_cast<float*>(sc + r.off_part) : dw,
+      D, H, M, G, y1, z1, tt, r.bb, r.ntb, r.S, spr, r.nx, r.nm,
+      (G + nw - 1) / nw, dm};
+  e = nw == 64    ? launch_dw16<64>(r, xm, ym, zm, a, st)
+      : nw == 128 ? launch_dw16<128>(r, xm, ym, zm, a, st)
+                  : launch_dw16<200>(r, xm, ym, zm, a, st);
+  if (e != cudaSuccess) return (int)e;
+  if (r.ranges > 1) {
+    const int total = nd * M * G;
+    bwd_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+        reinterpret_cast<const float*>(sc + r.off_part), dw, r.ranges, total);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (dx == nullptr) return 0;
+
+  // dx: dz as [B·T, nd·z1] (a direction's q past 4H read the other
+  // direction's or the staged padding, against the staged wx's zero
+  // columns), wx staged [nd·D, Gp].
+  CUtensorMap zm2, wm;
+  const uint32_t zbox[2] = {64, 64}, wbox[2] = {64, (uint32_t)nwd};
+  const uint64_t zd2[2] = {(uint64_t)nd * z1, (uint64_t)r.N},
+                 zs2[1] = {2ull * nd * z1};
+  const uint64_t wd[2] = {(uint64_t)r.Gp, (uint64_t)nd * D},
+                 ws[1] = {2ull * r.Gp};
+  if (!bf16_map(&zm2, zz, 2, zd2, zs2, zbox) ||
+      !bf16_map(&wm, wp, 2, wd, ws, wbox))
+    return (int)cudaErrorInvalidValue;
+  const Dx16Args b = {dx, r.N, D, nd, z1, r.Gp / 64, (D + nwd - 1) / nwd,
+                      x_bf16};
+  e = nwd == 64    ? launch_dx16<64>(r, zm2, wm, b, st)
+      : nwd == 128 ? launch_dx16<128>(r, zm2, wm, b, st)
+                   : launch_dx16<200>(r, zm2, wm, b, st);
+  return (int)e;
+}
 
 }  // namespace
 
@@ -2044,7 +2154,7 @@ extern "C" int clstm_bidi_lstm_bwd_chain(const int32_t* lengths,
                                          const float* cell, const float* gy,
                                          const float* whT, float* dz, int B,
                                          int T, int H, void* stream) {
-  return chain<float>(lengths, gates, cell, gy, whT, dz, B, T, H, stream);
+  return chain<float>(lengths, gates, cell, gy, whT, dz, B, T, H, 0, stream);
 }
 
 // The bf16 mode: cell, gy, whT and dz bf16, the gates f32.
@@ -2053,7 +2163,7 @@ extern "C" int clstm_bidi_lstm_bwd_chain_bf16(const int32_t* lengths,
                                               const bf16* cell, const bf16* gy,
                                               const bf16* whT, bf16* dz, int B,
                                               int T, int H, void* stream) {
-  return chain<bf16>(lengths, gates, cell, gy, whT, dz, B, T, H, stream);
+  return chain<bf16>(lengths, gates, cell, gy, whT, dz, B, T, H, 0, stream);
 }
 
 // The bf16 chain on a thread-block cluster at the plan of
@@ -2068,7 +2178,7 @@ extern "C" int clstm_bidi_lstm_bwd_chain16(const int32_t* lengths,
                                            const bf16* wh, bf16* dz, int B,
                                            int T, int H, int C, int R, int U,
                                            int ks, void* stream) {
-  return chain16(lengths, gates, cell, gy, wh, dz, B, T, H, C, R, U, ks,
+  return chain16(lengths, gates, cell, gy, wh, dz, B, T, H, C, R, U, ks, 0,
                  stream);
 }
 
@@ -2148,80 +2258,47 @@ extern "C" int clstm_bidi_lstm_bwd_reduce_bf16(
     const void* x, int x_bf16, const bf16* y, const bf16* dz, const float* wx,
     void* scratch, float* dw, void* dx, int B, int T, int D, int H, int nw,
     int tt, int spr, int nwd, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (!valid_nw(nw) || !valid_nw(nwd) || tt < 1 || tt > SLICE ||
-      (tt & (tt - 1)) || spr < 1)
-    return (int)cudaErrorInvalidValue;
-  if (!aligned16(dz) || ((uintptr_t)scratch & 255))
-    return (int)cudaErrorMisalignedAddress;
-  if (!encode_tiled()) return (int)cudaErrorNotSupported;
-  const Red16 r = red16(B, T, D, H, tt, spr);
-  const int G = r.G, M = r.M;
-  unsigned char* sc = static_cast<unsigned char*>(scratch);
-  bf16* xp = reinterpret_cast<bf16*>(sc);
-  bf16* yp = reinterpret_cast<bf16*>(sc + r.off_y);
-  bf16* wp = reinterpret_cast<bf16*>(sc + r.off_w);
-  // One launch stages x, y, dz at odd H, and wx where dx is asked for.
-  StageJobs js = {};
-  add_job(js, x, !x_bf16, xp, r.N, D, r.Dp, D);
-  add_job(js, y, false, yp, 2LL * r.N, H, r.Hp, -1);
-  const bf16* zz = dz;
-  int z1 = G;
-  if (r.zstage) {
-    bf16* zp = reinterpret_cast<bf16*>(sc + r.off_z);
-    add_job(js, dz, false, zp, 2LL * r.N, G, r.Gq, -1);
-    zz = zp, z1 = r.Gq;
-  }
-  if (dx != nullptr) add_job(js, wx, true, wp, 2LL * D, G, r.Gp, -1);
-  bwd_stage_kernel<<<(unsigned)((js.total + 255) / 256), 256, 0, st>>>(js);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int yw = 2 * r.Hp, y1 = r.Hp;
+  return reduce_bf16(x, x_bf16, y, dz, wx, scratch, dw, dx, B, T, D, H, nw, tt,
+                     spr, nwd, 0, (cudaStream_t)stream);
+}
 
-  // dW: [B, T, columns] maps, boxes of 64 columns x tt frames x bb rows.
-  CUtensorMap xm, ym, zm;
-  const uint32_t box3[3] = {64, (uint32_t)tt, (uint32_t)r.bb};
-  const uint64_t xd[3] = {(uint64_t)r.Dp, (uint64_t)T, (uint64_t)B};
-  const uint64_t xs[2] = {2ull * r.Dp, 2ull * r.Dp * T};
-  const uint64_t yd[3] = {(uint64_t)yw, (uint64_t)T, (uint64_t)B};
-  const uint64_t yst[2] = {2ull * yw, 2ull * yw * T};
-  const uint64_t zd[3] = {2ull * z1, (uint64_t)T, (uint64_t)B};
-  const uint64_t zs[2] = {4ull * z1, 4ull * z1 * T};
-  if (!bf16_map(&xm, xp, 3, xd, xs, box3) ||
-      !bf16_map(&ym, yp, 3, yd, yst, box3) ||
-      !bf16_map(&zm, zz, 3, zd, zs, box3))
-    return (int)cudaErrorInvalidValue;
-  const Dw16Args a = {
-      r.ranges > 1 ? reinterpret_cast<float*>(sc + r.off_part) : dw,
-      D, H, M, G, y1, z1, tt, r.bb, r.ntb, r.S, spr, r.nx, r.nm,
-      (G + nw - 1) / nw};
-  e = nw == 64    ? launch_dw16<64>(r, xm, ym, zm, a, st)
-      : nw == 128 ? launch_dw16<128>(r, xm, ym, zm, a, st)
-                  : launch_dw16<200>(r, xm, ym, zm, a, st);
-  if (e != cudaSuccess) return (int)e;
-  if (r.ranges > 1) {
-    const int total = 2 * M * G;
-    bwd_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(
-        reinterpret_cast<const float*>(sc + r.off_part), dw, r.ranges, total);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (dx == nullptr) return 0;
+// One direction of an LSTM (a lone NPLSTM, or Reversed(NPLSTM)), in the
+// bf16 mode: K2 with the call's directions dm 1 (forward) or 2 (reversed)
+// and its streams holding that direction alone: gates [B,T,1,4H], cell
+// [B,T,1,H], gy and y [B,T,H], dz [B,T,1,4H], Wh (whT) and wx [1,...], dw
+// [1,D+1+H,4H]; h_prev is y one frame back (forward) or on (reversed).
+// Otherwise as the bidi entries above; the grids take one direction's
+// blocks.
+extern "C" int clstm_lstm1_bwd_chain(const int32_t* lengths,
+                                     const float* gates, const bf16* cell,
+                                     const bf16* gy, const bf16* whT, bf16* dz,
+                                     int B, int T, int H, int dm,
+                                     void* stream) {
+  if (dm != 1 && dm != 2) return (int)cudaErrorInvalidValue;
+  return chain<bf16>(lengths, gates, cell, gy, whT, dz, B, T, H, dm, stream);
+}
 
-  // dx: dz as [B·T, 2·z1] (a direction's q past 4H read the other
-  // direction's or the staged padding, against the staged wx's zero
-  // columns), wx staged [2D, Gp].
-  CUtensorMap zm2, wm;
-  const uint32_t zbox[2] = {64, 64}, wbox[2] = {64, (uint32_t)nwd};
-  const uint64_t zd2[2] = {2ull * z1, (uint64_t)r.N}, zs2[1] = {4ull * z1};
-  const uint64_t wd[2] = {(uint64_t)r.Gp, 2ull * D}, ws[1] = {2ull * r.Gp};
-  if (!bf16_map(&zm2, zz, 2, zd2, zs2, zbox) ||
-      !bf16_map(&wm, wp, 2, wd, ws, wbox))
-    return (int)cudaErrorInvalidValue;
-  const Dx16Args b = {dx, r.N, D, z1, r.Gp / 64, (D + nwd - 1) / nwd,
-                      x_bf16};
-  e = nwd == 64    ? launch_dx16<64>(r, zm2, wm, b, st)
-      : nwd == 128 ? launch_dx16<128>(r, zm2, wm, b, st)
-                   : launch_dx16<200>(r, zm2, wm, b, st);
-  return (int)e;
+extern "C" int clstm_lstm1_bwd_chain16(const int32_t* lengths,
+                                       const float* gates, const bf16* cell,
+                                       const bf16* gy, const bf16* wh,
+                                       bf16* dz, int B, int T, int H, int C,
+                                       int R, int U, int ks, int dm,
+                                       void* stream) {
+  if (dm != 1 && dm != 2) return (int)cudaErrorInvalidValue;
+  return chain16(lengths, gates, cell, gy, wh, dz, B, T, H, C, R, U, ks, dm,
+                 stream);
+}
+
+extern "C" long long clstm_lstm1_bwd_bf16_scratch(int B, int T, int D, int H,
+                                                   int tt, int spr) {
+  return red16(B, T, D, H, tt, spr, 1).bytes;
+}
+
+extern "C" int clstm_lstm1_bwd_reduce_bf16(
+    const void* x, int x_bf16, const bf16* y, const bf16* dz, const float* wx,
+    void* scratch, float* dw, void* dx, int B, int T, int D, int H, int nw,
+    int tt, int spr, int nwd, int dm, void* stream) {
+  if (dm != 1 && dm != 2) return (int)cudaErrorInvalidValue;
+  return reduce_bf16(x, x_bf16, y, dz, wx, scratch, dw, dx, B, T, D, H, nw, tt,
+                     spr, nwd, dm, (cudaStream_t)stream);
 }

@@ -365,12 +365,16 @@ __global__ void __launch_bounds__(FWD_THREADS)
                          const E* __restrict__ wx, const E* __restrict__ wh,
                          E* __restrict__ y, float* __restrict__ gates,
                          E* __restrict__ cell, int B, int T, int D, int H,
-                         int R, int U) {
+                         int R, int U, int dm) {
   constexpr bool BF = sizeof(E) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = (int)cluster_size();
   const int crank = (int)cluster_rank();
-  const int dir = blockIdx.y;
+  // The directions of the call (dm, see Dirs): nd in the streams, this
+  // CTA's at place `dsl` of them, running forward (dir 0) or reversed.
+  const int nd = dm ? 1 : 2;
+  const int dsl = dm ? 0 : (int)blockIdx.y;
+  const int dir = dm ? dm - 1 : (int)blockIdx.y;
   const int b0 = (blockIdx.x / C) * R;
   const int k0 = crank * U;
   const int nu = max(0, min(U, H - k0));  // units this CTA owns
@@ -386,8 +390,8 @@ __global__ void __launch_bounds__(FWD_THREADS)
   // The x ring, [3][D][R] (f32) or [3][D/2][R][2] (bf16).
   E* xs = reinterpret_cast<E*>(hbuf + 2 * (size_t)H * R);
   int* lens = reinterpret_cast<int*>(xs + (HOIST ? 0 : 3 * (size_t)R * D));
-  wh += (size_t)dir * H * G;
-  if (!HOIST) wx += (size_t)dir * KX * G;
+  wh += (size_t)dsl * H * G;
+  if (!HOIST) wx += (size_t)dsl * KX * G;
 
   // The thread's tile: unit k0 + ul, rows rb .. rb+3 of the group. Two
   // threads share it, the two halves of a warp (lanes l and l ^ 16): half
@@ -466,9 +470,9 @@ __global__ void __launch_bounds__(FWD_THREADS)
     for (int i = tid; i < (T - Lr) * nu; i += nt) {
       const int t = Lr + i / nu;
       const int kk = k0 + i % nu;
-      y[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + kk] = from_f<E>(0.0f);
+      y[((size_t)(b0 + r) * T + t) * nd * H + dsl * H + kk] = from_f<E>(0.0f);
       if (EMIT) {
-        const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
+        const size_t f = ((size_t)(b0 + r) * T + t) * nd + dsl;
         cell[f * H + kk] = from_f<E>(0.0f);
         for (int g = 0; g < 4; ++g) gates[f * G + g * H + kk] = 0.0f;
       }
@@ -524,7 +528,7 @@ __global__ void __launch_bounds__(FWD_THREADS)
       if (s < L[i]) {
         const int t = dir == 0 ? s : L[i] - 1 - s;
         const E* src =
-            x + (((size_t)(b0 + r0 + i) * T + t) * 2 + dir) * G + k;
+            x + (((size_t)(b0 + r0 + i) * T + t) * nd + dsl) * G + k;
 #pragma unroll
         for (int g = 0; g < 4; ++g)
           nxt[i][g] = to_f(__ldg(src + (size_t)g * H));
@@ -596,9 +600,9 @@ __global__ void __launch_bounds__(FWD_THREADS)
         if (s < L[i]) {
           const int b = b0 + r0 + i;
           const int t = dir == 0 ? s : L[i] - 1 - s;
-          y[((size_t)b * T + t) * 2 * H + dir * H + k] = from_f<E>(h[i]);
+          y[((size_t)b * T + t) * nd * H + dsl * H + k] = from_f<E>(h[i]);
           if (EMIT) {
-            const size_t f = ((size_t)b * T + t) * 2 + dir;
+            const size_t f = ((size_t)b * T + t) * nd + dsl;
 #pragma unroll
             for (int g = 0; g < 4; ++g) gates[f * G + g * H + k] = gt[i][g];
             cell[f * H + k] = from_f<E>(c[i]);
@@ -646,13 +650,20 @@ bool make_plan(Plan& p, int D, int H, bool hoist, int C, int R, int U,
   return p.threads <= FWD_THREADS && p.smem <= (size_t)SMEM_MAX;
 }
 
-// A launch configuration of the plan: grid (C · row groups, 2 directions),
-// clusters of C CTAs along x.
+// The directions of a call (the kernels' dm): both, the bidi pair's (0),
+// or one: the forward direction alone (1) or the reversed one alone (2),
+// whose streams then hold that direction only (y [B,T,H], gates
+// [B,T,1,4H], weights [1,...]).
+__host__ __device__ inline int dirs_of(int dm) { return dm ? 1 : 2; }
+
+// A launch configuration of the plan: grid (C · row groups, the call's
+// directions), clusters of C CTAs along x.
 struct Config {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  Config(const Plan& p, unsigned gridx, cudaStream_t st) : cfg() {
-    cfg.gridDim = dim3(gridx, 2, 1);
+  Config(const Plan& p, unsigned gridx, cudaStream_t st, int dm = 0)
+      : cfg() {
+    cfg.gridDim = dim3(gridx, (unsigned)dirs_of(dm), 1);
     cfg.blockDim = dim3((unsigned)p.threads, 1, 1);
     cfg.dynamicSmemBytes = p.smem;
     cfg.stream = st;
@@ -667,7 +678,7 @@ struct Config {
 
 template <class E>
 using Kernel = void (*)(const E*, const int32_t*, const E*, const E*, E*,
-                        float*, E*, int, int, int, int, int, int);
+                        float*, E*, int, int, int, int, int, int, int);
 
 // The kernel instance of the plan, with its shared-memory limit set.
 template <bool EMIT, bool HOIST, class E>
@@ -684,17 +695,18 @@ cudaError_t kernel_of(const Plan& p, Kernel<E>* kern) {
 template <bool EMIT, bool HOIST, class E>
 int launch(const E* x, const int32_t* lengths, const E* wx, const E* wh, E* y,
            float* gates, E* cell, int B, int T, int D, int H, int C, int R,
-           int U, int wres, void* stream) {
+           int U, int wres, int dm, void* stream) {
   Plan p;
-  if (B < 1 || T < 1 || H < 1 || (!HOIST && D < 1) ||
+  if (B < 1 || T < 1 || H < 1 || (!HOIST && D < 1) || dm < 0 || dm > 2 ||
       !make_plan(p, D, H, HOIST, C, R, U, wres, (int)sizeof(E)))
     return (int)cudaErrorInvalidValue;
   Kernel<E> kern;
   cudaError_t e = kernel_of<EMIT, HOIST, E>(p, &kern);
   if (e != cudaSuccess) return (int)e;
-  Config c(p, (unsigned)(p.C * ((B + p.R - 1) / p.R)), (cudaStream_t)stream);
+  Config c(p, (unsigned)(p.C * ((B + p.R - 1) / p.R)), (cudaStream_t)stream,
+           dm);
   e = cudaLaunchKernelEx(&c.cfg, kern, x, lengths, wx, wh, y, gates, cell, B,
-                         T, D, H, p.R, p.U);
+                         T, D, H, p.R, p.U, dm);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1008,14 +1020,19 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
                  const int32_t* __restrict__ lengths,
                  const bf16* __restrict__ wx, const bf16* __restrict__ wh,
                  bf16* __restrict__ y, float* __restrict__ gates,
-                 bf16* __restrict__ cell, int B, int T, int D, int H, int U) {
+                 bf16* __restrict__ cell, int B, int T, int D, int H, int U,
+                 int dm) {
   constexpr int R = F16_M * MT;
   constexpr int NG = f16_ng(MT);
   extern __shared__ __align__(128) unsigned char smf[];
   __shared__ int lens[2 * F16_M];
   const int C = (int)cluster_size();
   const int crank = (int)cluster_rank();
-  const int dir = blockIdx.y;
+  // The call's directions (dirs_of): nd in the streams, this CTA's at place
+  // `dsl`, running forward (dir 0) or reversed.
+  const int nd = dirs_of(dm);
+  const int dsl = dm ? 0 : (int)blockIdx.y;
+  const int dir = dm ? dm - 1 : (int)blockIdx.y;
   const int b0 = (blockIdx.x / C) * R;
   const int k0 = crank * U;
   const int nu = max(0, min(U, H - k0));
@@ -1031,8 +1048,8 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
   bf16* hs = reinterpret_cast<bf16*>(smf + geo.off_hs);
   bf16* cs = reinterpret_cast<bf16*>(smf + geo.off_cs);
   const int DX = D + 1;  // rows of [Wx; b]
-  wh += (size_t)dir * G * H;
-  if (!HOIST) wx += (size_t)dir * G * DX;
+  wh += (size_t)dsl * G * H;
+  if (!HOIST) wx += (size_t)dsl * G * DX;
 #ifdef CLSTM_FWD16_PHASES
   unsigned long long pd_[F16_SPANS] = {}, tq_ = 0;
 #endif
@@ -1114,7 +1131,7 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
         const int Lr = lens[r];
         const bool valid = s < Lr;
         const int t = dir == 0 ? s : Lr - 1 - s;
-        const bf16* src = x + (((size_t)(b0 + r) * T + t) * 2 + dir) * G +
+        const bf16* src = x + (((size_t)(b0 + r) * T + t) * nd + dsl) * G +
                           g * H + k0 + u;
         bf16* d = dst + ((size_t)r * 4 + g) * U + u;
         if (xw == 8)
@@ -1141,8 +1158,8 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
     for (int i = tid; i < (T - Lr) * nu; i += nt) {
       const int t = Lr + i / nu;
       const int kk = k0 + i % nu;
-      const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
-      y[(f >> 1) * 2 * H + dir * H + kk] = from_f<bf16>(0.0f);
+      const size_t f = ((size_t)(b0 + r) * T + t) * nd + dsl;
+      y[f * H + kk] = from_f<bf16>(0.0f);
       if constexpr (EMIT) {
         cell[f * H + kk] = from_f<bf16>(0.0f);
         for (int g = 0; g < 4; ++g) gates[f * G + g * H + kk] = 0.0f;
@@ -1206,7 +1223,7 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
         if (s < L[i][m]) {
           const int t = dir == 0 ? s : L[i][m] - 1 - s;
           const bf16* src =
-              x + (((size_t)(b0 + m * F16_M + ru) * T + t) * 2 + dir) * G +
+              x + (((size_t)(b0 + m * F16_M + ru) * T + t) * nd + dsl) * G +
               k0 + 2 * jt[i] + uq;
 #pragma unroll
           for (int g = 0; g < 4; ++g)
@@ -1233,7 +1250,7 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
         const int Lr = lens[r];
         if (s >= Lr) continue;
         const int t = dir == 0 ? s : Lr - 1 - s;
-        const size_t f = ((size_t)(b0 + r) * T + t) * 2 + dir;
+        const size_t f = ((size_t)(b0 + r) * T + t) * nd + dsl;
         const int k = k0 + u;
         const int seg = EMIT ? sg : 4;
         if (seg < 4) {
@@ -1248,8 +1265,7 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
           }
         } else {
           const bf16* src = (seg == 4 ? h_p : c_p) + (size_t)r * U + u;
-          bf16* dst = seg == 4 ? y + (f >> 1) * 2 * H + dir * H + k
-                               : cell + f * H + k;
+          bf16* dst = (seg == 4 ? y : cell) + f * H + k;
           if (sw == 4)
             *reinterpret_cast<uint2*>(dst) =
                 *reinterpret_cast<const uint2*>(src);
@@ -1390,7 +1406,7 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
 }
 
 using Fwd16 = void (*)(const bf16*, const int32_t*, const bf16*, const bf16*,
-                       bf16*, float*, bf16*, int, int, int, int, int);
+                       bf16*, float*, bf16*, int, int, int, int, int, int);
 
 // The kernel instance of a plan, with its shared-memory limit set.
 cudaError_t fwd16_of(bool hoist, bool emit, int R, long long smem,
@@ -1421,18 +1437,19 @@ Plan plan_of16(int C, int R, int U, long long smem) {
 template <bool HOIST, bool EMIT>
 int launch16(const bf16* x, const int32_t* lengths, const bf16* wx,
              const bf16* wh, bf16* y, float* gates, bf16* cell, int B, int T,
-             int D, int H, int C, int R, int U, void* stream) {
+             int D, int H, int C, int R, int U, int dm, void* stream) {
   const long long smem = plan16(D, H, HOIST, EMIT, C, R, U);
-  if (B < 1 || T < 1 || smem == 0) return (int)cudaErrorInvalidValue;
+  if (B < 1 || T < 1 || smem == 0 || dm < 0 || dm > 2)
+    return (int)cudaErrorInvalidValue;
   // Wh's rows are read 16 bytes at a time where H is a multiple of 8.
   if (((uintptr_t)wh & 15) != 0) return (int)cudaErrorMisalignedAddress;
   Fwd16 kern;
   cudaError_t e = fwd16_of(HOIST, EMIT, R, smem, &kern);
   if (e != cudaSuccess) return (int)e;
   const Plan p = plan_of16(C, R, U, smem);
-  Config c(p, (unsigned)(C * ((B + R - 1) / R)), (cudaStream_t)stream);
+  Config c(p, (unsigned)(C * ((B + R - 1) / R)), (cudaStream_t)stream, dm);
   e = cudaLaunchKernelEx(&c.cfg, kern, x, lengths, wx, wh, y, gates, cell, B,
-                         T, D, H, U);
+                         T, D, H, U, dm);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1466,7 +1483,7 @@ extern "C" int clstm_bidi_lstm_fwd(const float* x, const int32_t* lengths,
                                    int B, int T, int D, int H, int C, int R,
                                    int U, int wres, void* stream) {
   return launch<false, false, float>(x, lengths, wx, wh, y, nullptr, nullptr,
-                                     B, T, D, H, C, R, U, wres, stream);
+                                     B, T, D, H, C, R, U, wres, 0, stream);
 }
 
 // K1: as clstm_bidi_lstm_fwd, and also writes gates [B,T,2,4H] and
@@ -1479,7 +1496,7 @@ extern "C" int clstm_bidi_lstm_fwd_state(const float* x,
                                          int R, int U, int wres,
                                          void* stream) {
   return launch<true, false, float>(x, lengths, wx, wh, y, gates, cell, B, T,
-                                    D, H, C, R, U, wres, stream);
+                                    D, H, C, R, U, wres, 0, stream);
 }
 
 // K4, inference: y [B,T,2H] from the hoisted projection xz [B,T,2,4H] and
@@ -1489,7 +1506,7 @@ extern "C" int clstm_bidi_lstm_fwd_xz(const float* xz, const int32_t* lengths,
                                       int H, int C, int R, int U, int wres,
                                       void* stream) {
   return launch<false, true, float>(xz, lengths, nullptr, wh, y, nullptr,
-                                    nullptr, B, T, 0, H, C, R, U, wres,
+                                    nullptr, B, T, 0, H, C, R, U, wres, 0,
                                     stream);
 }
 
@@ -1502,7 +1519,7 @@ extern "C" int clstm_bidi_lstm_fwd_xz_state(const float* xz,
                                             int T, int H, int C, int R, int U,
                                             int wres, void* stream) {
   return launch<true, true, float>(xz, lengths, nullptr, wh, y, gates, cell,
-                                   B, T, 0, H, C, R, U, wres, stream);
+                                   B, T, 0, H, C, R, U, wres, 0, stream);
 }
 
 // The bf16 mode of the four (K3, K1, K4 and its state mode).
@@ -1512,7 +1529,7 @@ extern "C" int clstm_bidi_lstm_fwd_bf16(const bf16* x, const int32_t* lengths,
                                         int C, int R, int U, int wres,
                                         void* stream) {
   return launch<false, false, bf16>(x, lengths, wx, wh, y, nullptr, nullptr,
-                                    B, T, D, H, C, R, U, wres, stream);
+                                    B, T, D, H, C, R, U, wres, 0, stream);
 }
 
 extern "C" int clstm_bidi_lstm_fwd_state_bf16(
@@ -1520,7 +1537,7 @@ extern "C" int clstm_bidi_lstm_fwd_state_bf16(
     bf16* y, float* gates, bf16* cell, int B, int T, int D, int H, int C,
     int R, int U, int wres, void* stream) {
   return launch<true, false, bf16>(x, lengths, wx, wh, y, gates, cell, B, T, D,
-                                   H, C, R, U, wres, stream);
+                                   H, C, R, U, wres, 0, stream);
 }
 
 extern "C" int clstm_bidi_lstm_fwd_xz_bf16(const bf16* xz,
@@ -1529,7 +1546,7 @@ extern "C" int clstm_bidi_lstm_fwd_xz_bf16(const bf16* xz,
                                            int T, int H, int C, int R, int U,
                                            int wres, void* stream) {
   return launch<false, true, bf16>(xz, lengths, nullptr, wh, y, nullptr,
-                                   nullptr, B, T, 0, H, C, R, U, wres,
+                                   nullptr, B, T, 0, H, C, R, U, wres, 0,
                                    stream);
 }
 
@@ -1538,7 +1555,7 @@ extern "C" int clstm_bidi_lstm_fwd_xz_state_bf16(
     float* gates, bf16* cell, int B, int T, int H, int C, int R, int U,
     int wres, void* stream) {
   return launch<true, true, bf16>(xz, lengths, nullptr, wh, y, gates, cell,
-                                  B, T, 0, H, C, R, U, wres, stream);
+                                  B, T, 0, H, C, R, U, wres, 0, stream);
 }
 
 // Bytes of dynamic shared memory a CTA of the plan takes (0: the plan is
@@ -1598,7 +1615,7 @@ extern "C" int clstm_bidi_lstm_fwd16_state(
     bf16* y, float* gates, bf16* cell, int B, int T, int D, int H, int C,
     int R, int U, void* stream) {
   return launch16<false, true>(x, lengths, wx, wh, y, gates, cell, B, T, D,
-                               H, C, R, U, stream);
+                               H, C, R, U, 0, stream);
 }
 
 // K4's state mode in the bf16 mode on the tensor cores: xz [B,T,2,4H] bf16
@@ -1608,7 +1625,7 @@ extern "C" int clstm_bidi_lstm_fwd16_xz_state(
     float* gates, bf16* cell, int B, int T, int H, int C, int R, int U,
     void* stream) {
   return launch16<true, true>(xz, lengths, nullptr, wh, y, gates, cell, B, T,
-                              0, H, C, R, U, stream);
+                              0, H, C, R, U, 0, stream);
 }
 
 // K3 in the bf16 mode on the tensor cores (serving): as
@@ -1618,7 +1635,7 @@ extern "C" int clstm_bidi_lstm_fwd16(const bf16* x, const int32_t* lengths,
                                      int B, int T, int D, int H, int C, int R,
                                      int U, void* stream) {
   return launch16<false, false>(x, lengths, wx, wh, y, nullptr, nullptr, B,
-                                T, D, H, C, R, U, stream);
+                                T, D, H, C, R, U, 0, stream);
 }
 
 // K4 inference in the bf16 mode on the tensor cores: as
@@ -1629,7 +1646,54 @@ extern "C" int clstm_bidi_lstm_fwd16_xz(const bf16* xz,
                                         int H, int C, int R, int U,
                                         void* stream) {
   return launch16<true, false>(xz, lengths, nullptr, wh, y, nullptr, nullptr,
-                               B, T, 0, H, C, R, U, stream);
+                               B, T, 0, H, C, R, U, 0, stream);
+}
+
+// One direction of an LSTM (a lone NPLSTM, or Reversed(NPLSTM)), in the
+// bf16 mode: the same kernels and plans, with the call's directions dm 1
+// (forward) or 2 (reversed) and its streams holding that direction alone:
+// x [B,T,D] (or xz [B,T,1,4H]), y [B,T,H], gates [B,T,1,4H], cell
+// [B,T,1,H], the weights of one direction ([1,...], laid out as above).
+// The grid takes one direction's row groups. clstm_lstm1_fwd launches the
+// FMA kernel (hoist and emit pick the instance; wres as above),
+// clstm_lstm1_fwd16 the tensor-core kernel.
+extern "C" int clstm_lstm1_fwd(const bf16* x, const int32_t* lengths,
+                               const bf16* wx, const bf16* wh, bf16* y,
+                               float* gates, bf16* cell, int B, int T, int D,
+                               int H, int C, int R, int U, int wres, int hoist,
+                               int emit, int dm, void* stream) {
+  if (dm != 1 && dm != 2) return (int)cudaErrorInvalidValue;
+  if (hoist)
+    return emit ? launch<true, true, bf16>(x, lengths, nullptr, wh, y, gates,
+                                           cell, B, T, 0, H, C, R, U, wres,
+                                           dm, stream)
+                : launch<false, true, bf16>(x, lengths, nullptr, wh, y,
+                                            nullptr, nullptr, B, T, 0, H, C,
+                                            R, U, wres, dm, stream);
+  return emit ? launch<true, false, bf16>(x, lengths, wx, wh, y, gates, cell,
+                                          B, T, D, H, C, R, U, wres, dm,
+                                          stream)
+              : launch<false, false, bf16>(x, lengths, wx, wh, y, nullptr,
+                                           nullptr, B, T, D, H, C, R, U, wres,
+                                           dm, stream);
+}
+
+extern "C" int clstm_lstm1_fwd16(const bf16* x, const int32_t* lengths,
+                                 const bf16* wx, const bf16* wh, bf16* y,
+                                 float* gates, bf16* cell, int B, int T, int D,
+                                 int H, int C, int R, int U, int hoist,
+                                 int emit, int dm, void* stream) {
+  if (dm != 1 && dm != 2) return (int)cudaErrorInvalidValue;
+  if (hoist)
+    return emit ? launch16<true, true>(x, lengths, nullptr, wh, y, gates, cell,
+                                       B, T, 0, H, C, R, U, dm, stream)
+                : launch16<true, false>(x, lengths, nullptr, wh, y, nullptr,
+                                        nullptr, B, T, 0, H, C, R, U, dm,
+                                        stream);
+  return emit ? launch16<false, true>(x, lengths, wx, wh, y, gates, cell, B, T,
+                                      D, H, C, R, U, dm, stream)
+              : launch16<false, false>(x, lengths, wx, wh, y, nullptr, nullptr,
+                                       B, T, D, H, C, R, U, dm, stream);
 }
 
 #ifdef CLSTM_FWD16_PHASES

@@ -142,14 +142,22 @@ class DeviceDataset:
     parameters of its cost model (batch_size, epochs, k: the CLI forwards
     its own) and optionally dispatch_penalty_rows, otherwise measured on
     ``device`` (measure_dispatch_penalty_rows; under a mesh, on rank 0).
+    ``out_lengths``: the net's output frames of an input width (the
+    model's ``out_lengths``; none: every frame is an output frame), against
+    which each text is checked: ``frames_short`` counts the lines whose
+    text needs more output frames than the line gives (one a character,
+    one more between repeats), which CTC cannot align.
     """
+
+    _out_lengths = None       # every frame an output frame
 
     def __init__(self, samples: Sequence[Tuple[np.ndarray, str]],
                  codec: Codec, t_buckets: Sequence[int] = T_BUCKETS,
                  s_buckets: Sequence[int] = S_BUCKETS, *, device,
                  merge_sb: bool = False, mesh=None,
-                 auto_hints: Optional[dict] = None):
+                 auto_hints: Optional[dict] = None, out_lengths=None):
         self._place(device, mesh)
+        self._out_lengths = out_lengths
         t_buckets = _resolve_t_buckets(
             t_buckets, [x.shape[0] for x, _ in samples], auto_hints,
             self.device, [2 * len(codec.encode(t)) + 1 for _, t in samples],
@@ -184,13 +192,17 @@ class DeviceDataset:
         """(payload, text, width) items -> {(tb, sb): [(payload, text,
         classes)]}, counting over-bucket lines (count_truncations)."""
         groups: dict = {}
-        self.t_truncated = self.s_truncated = 0
+        self.t_truncated = self.s_truncated = self.frames_short = 0
+        frames = self._out_lengths or (lambda w: w)
         for payload, text, width in items:
             classes = codec.encode(text)
             tb = bucket_for(width, t_buckets)
             sb = bucket_for(2 * len(classes) + 1, s_buckets)
             self.t_truncated += width > t_buckets[-1]
             self.s_truncated += 2 * len(classes) + 1 > s_buckets[-1]
+            need = len(classes) + sum(a == b for a, b in zip(classes,
+                                                            classes[1:]))
+            self.frames_short += int(frames(min(width, tb))) < need
             key = tb if merge_sb else (tb, sb)
             groups.setdefault(key, []).append((payload, text, classes, sb))
         if merge_sb:
@@ -234,7 +246,8 @@ class DeviceDataset:
                     s_buckets: Sequence[int] = S_BUCKETS,
                     chunk_size: int = PREPARE_CHUNK,
                     merge_sb: bool = False, mesh=None,
-                    auto_hints: Optional[dict] = None) -> "DeviceDataset":
+                    auto_hints: Optional[dict] = None,
+                    out_lengths=None) -> "DeviceDataset":
         """Build the cache directly from raw line images (float32 [h, w] in
         [0, 1], ink black on white), with the whole normalization and
         transposition running on the device (ops/preprocess.py
@@ -244,11 +257,13 @@ class DeviceDataset:
         bound), since the exact normalized width is known only on the
         device; a line near a bucket edge may land one bucket higher than
         the host-prepared path puts it, with the same contents and length.
-        ``t_buckets="auto"`` solves the cuts over those estimates.
+        ``t_buckets="auto"`` solves the cuts over those estimates;
+        ``out_lengths`` as the constructor's.
         """
         kind = _canon_dewarp(dewarp)
         self = cls.__new__(cls)
         self._place(device, mesh)
+        self._out_lengths = out_lengths
         est_Ts = [estimate_out_T([raw], target_height, pad) for raw in images]
         t_buckets = _resolve_t_buckets(
             t_buckets, est_Ts, auto_hints, self.device,
@@ -390,7 +405,13 @@ class DeviceDataset:
         than k=1 for the same seed. ``epochs`` > 1 builds each group's plan
         over that many epochs (see _epoch_plans).
 
-        Block dict: group/idx_all/j/set_j as epoch_refs, plus
+        Block dict: group/idx_all/j/set_j as epoch_refs, but ``j`` is the
+        block's own first batch in the plan (the host's count, where a
+        reference's is the device counter run steps write back): a block
+        handed out and not run, as a caller that picks one block of several
+        does, leaves the next block its own rows. The JAX package's block
+        takes the counter, and there the next block runs the rows skipped.
+        Plus
           exhaust     called by a caller that ran fewer than k batches:
                       the plan's later blocks are then skipped
           k           batches in this block
@@ -417,7 +438,8 @@ class DeviceDataset:
                 # would retrain or skip plan regions.
                 continue
             g = p[0]
-            chunks = p[1][p[4]:p[4] + kk]
+            start = p[4]
+            chunks = p[1][start:start + kk]
             p[4] += kk
             nreal_per = [int(np.sum(c < g["n"])) for c in chunks]
 
@@ -428,7 +450,7 @@ class DeviceDataset:
                 p[4] = len(p[1])
 
             yield {
-                "group": g, "idx_all": p[2], "j": p[3], "set_j": set_j,
+                "group": g, "idx_all": p[2], "j": start, "set_j": set_j,
                 "exhaust": exhaust,
                 "k": kk, "nreal": sum(nreal_per), "nreal_per": nreal_per,
                 "texts": [[g["texts"][i] for i in c[:n]]

@@ -36,7 +36,8 @@ from clstm_tpu_torch.io.normalize import make_normalizer
 from clstm_tpu_torch.io.proto import load_net, save_net
 from clstm_tpu_torch.models.codec import Codec
 from clstm_tpu_torch.models.prefab import make_net_init
-from clstm_tpu_torch.models.spec import Layer, NetSpec
+from clstm_tpu_torch.models.spec import (
+    Layer, NetSpec, frame_stride, out_lengths)
 from clstm_tpu_torch.ops.ctc import decode_frames, mktargets_ids
 from clstm_tpu_torch.ops.preprocess import estimate_out_T, prepare_images
 from clstm_tpu_torch.parallel.dp import (
@@ -137,6 +138,13 @@ class _TrainableBase:
     def net(self) -> Optional[Layer]:
         """The module tree (the parameters of ``state``)."""
         return None if self.state is None else self.state.net
+
+    def out_lengths(self, lengths):
+        """The net's output frames of lines of input ``lengths`` (an int,
+        numpy or a tensor): what the alignment, the report and the decode
+        run over. A net that keeps the frame count returns ``lengths``
+        itself."""
+        return out_lengths(self.spec, lengths)
 
     def _set_net(self, spec: NetSpec, net: Layer) -> None:
         self.spec = spec
@@ -344,7 +352,8 @@ class _TrainableBase:
         xb = np.zeros((1, tb, x.shape[1]), np.float32)
         xb[0, : x.shape[0]] = x
         ids, vals = self.predict_batch(xb, np.array([x.shape[0]], np.int32))
-        return ids[0][: x.shape[0]], vals[0][: x.shape[0]]
+        L = self.out_lengths(x.shape[0])
+        return ids[0][:L], vals[0][:L]
 
 
 class CLSTMOCR(_TrainableBase):
@@ -378,7 +387,8 @@ class CLSTMOCR(_TrainableBase):
         x = self.prepare(image)
         batch = self._single_batch(x, self.codec.encode(gt), T_BUCKETS)
         metrics = self.train_batch(batch)
-        _, ids, vals = unpack_report(metrics["report"], x.shape[0])
+        _, ids, vals = unpack_report(metrics["report"],
+                                     self.out_lengths(x.shape[0]))
         return self.codec.decode(decode_frames(ids, vals))
 
     # -- preprocessing --
@@ -399,7 +409,9 @@ class CLSTMOCR(_TrainableBase):
         prepared in chunks of at most PREPARE_CHUNK lines, which bounds the
         prepare's memory, and predicted on the device as one batch.
 
-        -> (ids [B, T], vals [B, T], lengths [B]) numpy arrays; with
+        -> (ids [B, T], vals [B, T], lengths [B]) numpy arrays, T and
+        lengths the net's output frames (``out_lengths``: the prepared
+        lines' own for a net that keeps the frame count); with
         ``sync=False``, tensors on the device, returned without waiting for
         it: the upload goes through pinned memory and nothing here reads a
         result back, so a caller can enqueue several batches before it
@@ -412,6 +424,7 @@ class CLSTMOCR(_TrainableBase):
             list(images), self.device, kind=_canon_dewarp(self.dewarp),
             target_height=self.target_height, out_T=tb, pad=self.pad)
         ids, vals = self._predict_rows(x, lengths)
+        lengths = self.out_lengths(lengths)
         if not sync:
             return ids, vals, lengths
         return ids.cpu().numpy(), vals.cpu().numpy(), lengths.cpu().numpy()
@@ -424,15 +437,17 @@ class CLSTMOCR(_TrainableBase):
     def predict(self, image: np.ndarray) -> List[CharPrediction]:
         """Aligned per-character predictions (reference aligned/charseg).
 
-        ``x`` is reported in ORIGINAL image columns: the peak frame index is
-        un-padded, then divided by the normalizer's width scale."""
+        ``x`` is reported in ORIGINAL image columns: the peak frame index
+        (in input frames: times the net's ``frame_stride``) is un-padded,
+        then divided by the normalizer's width scale."""
         x = self.prepare(image)
         w = image.shape[1]
         ids, vals = self._predict_one(x, T_BUCKETS)
         cls, pos = decode_frames(ids, vals, return_positions=True)
+        stride = frame_stride(self.spec)
         out = []
         for i, (c, t) in enumerate(zip(cls, pos)):
-            col = (int(t) - self.pad) / self._scale
+            col = (int(t) * stride - self.pad) / self._scale
             out.append(CharPrediction(
                 i=i, x=int(np.clip(round(col), 0, max(w - 1, 0))),
                 c=chr(self.codec.codec[c]), p=float(vals[t])))
@@ -499,7 +514,8 @@ class CLSTMText(_TrainableBase):
         """Train on one pair; returns the (pre-update) prediction."""
         x = self.encode_input(inp)
         metrics = self.train_batch(self._one_batch(x, self.codec.encode(out)))
-        _, ids, vals = unpack_report(metrics["report"], x.shape[0])
+        _, ids, vals = unpack_report(metrics["report"],
+                                     self.out_lengths(x.shape[0]))
         return self.codec.decode(decode_frames(ids, vals))
 
     def predict(self, inp: str) -> str:

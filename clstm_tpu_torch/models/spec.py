@@ -18,6 +18,17 @@ identity. Each module keeps its spec and its own weights under the JAX
 package's names (NPLSTM: Wx [D,4H], Wh [H,4H], b [4H]; affine: W [ni,no],
 b [no]); sub networks live in ``module.sub``. Batches are right-padded
 [B, T, D] float32 with int32 ``lengths[B]``.
+
+The image layers of VGSL nets (models/prefab.py ``vgsl``: Tesseract's
+line recogniser) carry a column of ``ny`` rows of ``nc`` channels as the
+frame's ny·nc features, row-major: ``Conv2D`` (a ky x kx convolution over
+rows and frames, zero outside the image, and a nonlinearity),
+``MaxPool2D`` (the maximum over non-overlapping ky x kx windows: fewer
+frames, so a net's output lengths are its kinds' ``out_lengths``
+composed) and ``NPLSTMYSum`` (an LSTM down each column, its last output
+kept). In the bf16 mode a lone NPLSTM and Reversed(NPLSTM) run on the
+bidi pair's kernels, one direction alone (ops/bidi_lstm_kernel.py,
+``params_r`` None).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import dataclasses
 from typing import Mapping, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from clstm_tpu_torch.ops.affine_kernel import (
@@ -221,6 +233,24 @@ def noutput_of(spec: NetSpec) -> int:
     return REGISTRY[resolve_kind(spec.kind)].noutput(spec)
 
 
+def out_lengths(spec: NetSpec, lengths):
+    """The output frames of each line of input ``lengths`` (an int, a numpy
+    array or a tensor, returned in its kind): the kinds' maps composed. A
+    net that keeps the frame count returns ``lengths`` itself."""
+    return REGISTRY[resolve_kind(spec.kind)].out_lengths(spec, lengths)
+
+
+def frame_stride(spec: NetSpec) -> int:
+    """Input frames per output frame: the product of the pools' x sizes (1
+    for a net that keeps the frame count)."""
+    kind = resolve_kind(spec.kind)
+    own = spec.iget("kx") if kind == "MaxPool2D" else 1
+    n = 1
+    for s in spec.sub:
+        n *= frame_stride(s)
+    return own * n
+
+
 def walk_weights(spec: NetSpec, net: "Layer", path: str = ""):
     """Yield (path, name, tensor) over all trainable weights of ``net``
     (the module tree built from ``spec``), preorder — the analogue of the
@@ -280,6 +310,12 @@ class Layer(nn.Module):
         """The kind's output feature dim: the ``noutput`` attr unless the
         kind says otherwise."""
         return spec.iget("noutput")
+
+    @staticmethod
+    def out_lengths(spec: NetSpec, lengths):
+        """The kind's output frames of input ``lengths``: the same, unless
+        the kind says otherwise."""
+        return lengths
 
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
         raise NotImplementedError
@@ -385,8 +421,34 @@ class NPLSTM(Layer):
         self.b = nn.Parameter(torch.zeros(4 * nh))
 
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        if one_direction(ctx, x):
+            return _lstm1(self.weights(), x, lengths, ctx, False)
         return lstm_apply(self.weights(), x, lengths,
                           compute_dtype=ctx.compute_dtype)
+
+
+def one_direction(ctx: ApplyCtx, x: torch.Tensor) -> bool:
+    """Whether a lone LSTM (NPLSTM, Reversed(NPLSTM), the column LSTM)
+    runs on the kernels, one direction alone (their plain versions on a
+    CPU tensor): in the bf16 mode, the one they were built and checked
+    for; not under ``compute_dtype`` or ``fuse_bidi=False``, the routes
+    that run no kernel. Elsewhere (strict f32, on either device) the plain
+    loop ``lstm_apply``."""
+    return ctx.fuse_bidi and ctx.bf16(x)
+
+
+def _lstm1(p: dict, x: torch.Tensor, lengths, ctx: ApplyCtx, reverse: bool,
+           spans: bool = True) -> torch.Tensor:
+    """One direction on the kernels, in the bf16 mode: trained (K1, K2)
+    where a gradient is asked for, else the inference forward."""
+    if lengths is not None:
+        lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+    x = x.contiguous()
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(w.requires_grad for w in p.values())):
+        return bidi_lstm_train(p, None, x, lengths, True, reverse, spans)
+    return bidi_lstm_infer(p, None, x, lengths, xz_bf16=True,
+                           reverse=reverse)
 
 
 class Stacked(Layer):
@@ -394,11 +456,19 @@ class Stacked(Layer):
     def noutput(spec: NetSpec) -> int:
         return noutput_of(spec.sub[-1])
 
+    @staticmethod
+    def out_lengths(spec: NetSpec, lengths):
+        for s in spec.sub:
+            lengths = out_lengths(s, lengths)
+        return lengths
+
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
         n = len(self.sub)
         for i, s in enumerate(self.sub):
             x = s(x, lengths, dataclasses.replace(
                 ctx, logits=ctx.logits and i == n - 1))
+            if lengths is not None:
+                lengths = out_lengths(s.spec, lengths)
         return x
 
 
@@ -421,6 +491,10 @@ class Parallel(Layer):
     @staticmethod
     def noutput(spec: NetSpec) -> int:
         return sum(noutput_of(s) for s in spec.sub)
+
+    @staticmethod
+    def out_lengths(spec: NetSpec, lengths):
+        return out_lengths(spec.sub[0], lengths) if spec.sub else lengths
 
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
         if ctx.fuse_bidi and _is_bidi_pair(self.spec):
@@ -447,7 +521,14 @@ class Reversed(Layer):
     def noutput(spec: NetSpec) -> int:
         return noutput_of(spec.sub[0])
 
+    @staticmethod
+    def out_lengths(spec: NetSpec, lengths):
+        return out_lengths(spec.sub[0], lengths)
+
     def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        if (len(self.sub) == 1 and resolve_kind(self.sub[0].spec.kind)
+                == "NPLSTM" and one_direction(ctx, x)):
+            return _lstm1(self.sub[0].weights(), x, lengths, ctx, True)
         sub_ctx = dataclasses.replace(ctx, logits=False)
         y = self.sub[0](flip_within_length(x, lengths), lengths, sub_ctx)
         return flip_within_length(y, lengths)
@@ -465,6 +546,200 @@ class Botched(Layer):
             "Botched layer: forward is intentionally unimplemented")
 
 
+# -- image layers (VGSL nets) -------------------------------------------------
+
+def _fwd_span(layer: str):
+    """The forward span of an image layer: "conv" or "ysum"."""
+    return (span("clstm.conv.fwd") if layer == "conv"
+            else span("clstm.ysum.fwd"))
+
+
+def _bwd_span(layer: str):
+    return (span("clstm.conv.bwd") if layer == "conv"
+            else span("clstm.ysum.bwd"))
+
+
+class _Spanned(torch.autograd.Function):
+    """``fn(x, *ws)`` inside the forward span of ``layer``, its backward
+    (autograd through fn's own graph) inside the backward span: a layer
+    whose work is a few library ops keeps its kernels under its own spans,
+    the backward's too (utils/profiling.py)."""
+
+    @staticmethod
+    def forward(ctx, layer, fn, x, *ws):
+        with _fwd_span(layer), torch.enable_grad():
+            xd = x.detach().requires_grad_(x.requires_grad)
+            wd = [w.detach().requires_grad_(True) for w in ws]
+            out = fn(xd, *wd)
+        ctx.layer, ctx.graph = layer, (out, xd, wd)
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        out, xd, wd = ctx.graph
+        del ctx.graph
+        ins = ([xd] if xd.requires_grad else []) + wd
+        with _bwd_span(ctx.layer):
+            grads = list(torch.autograd.grad(out, ins, g, allow_unused=True))
+        dx = grads.pop(0) if xd.requires_grad else None
+        return (None, None, dx, *grads)
+
+
+def _spanned(layer: str, fn, x: torch.Tensor, *ws) -> torch.Tensor:
+    """fn(x, *ws) under ``layer``'s spans (``_Spanned``) where a gradient
+    is asked for, else fn under its forward span."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(w.requires_grad for w in ws)):
+        return _Spanned.apply(layer, fn, x, *ws)
+    with _fwd_span(layer):
+        return fn(x, *ws)
+
+
+def _valid_frames(lengths, B: int, T: int, device) -> Optional[torch.Tensor]:
+    """[B, T] bool frame validity, None for all frames valid."""
+    if lengths is None:
+        return None
+    return (torch.arange(T, device=device)[None, :]
+            < lengths.to(device)[:, None])
+
+
+_TORCH_NONLIN = {"TANH": torch.tanh, "SIG": torch.sigmoid,
+                 "RELU": torch.relu, "LIN": lambda z: z}
+
+
+class Conv2D(Layer):
+    """A ky x kx convolution over a column of ``ny`` rows of ``nc``
+    channels and its frames (VGSL ``C``; Tesseract's Convolve, which stacks
+    each pixel's neighbourhood with zeros outside the image, then a fully
+    connected layer): ``nfilters`` outputs a pixel, then ``nonlin``
+    (TANH, SIG, RELU or LIN). W [ky·kx·nc, nfilters] (rows by (dy, dx, c)),
+    b [nfilters]; frames [B, T, ny·nc] -> [B, T, ny·nfilters], exactly 0 on
+    padded frames, which read as zeros. In the bf16 mode bf16 operands
+    (and bias) with f32 accumulation, the output rounded to bf16 (a
+    library convolution: torch's)."""
+
+    @staticmethod
+    def noutput(spec: NetSpec) -> int:
+        return spec.iget("ny") * spec.iget("nfilters")
+
+    def __init__(self, spec: NetSpec):
+        super().__init__(spec)
+        ky, kx = spec.iget("ky"), spec.iget("kx")
+        nc, nf = spec.iget("nc"), spec.iget("nfilters")
+        self.W = nn.Parameter(torch.zeros(ky * kx * nc, nf))
+        self.b = nn.Parameter(torch.zeros(nf))
+
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        sp = self.spec
+        ny, nc, nf = sp.iget("ny"), sp.iget("nc"), sp.iget("nfilters")
+        ky, kx = sp.iget("ky"), sp.iget("kx")
+        nl = _TORCH_NONLIN[sp.get("nonlin", "TANH").upper()]
+        bf16 = ctx.bf16(x) or ctx.compute_dtype is not None
+        B, T, _ = x.shape
+        valid = _valid_frames(lengths, B, T, x.device)
+
+        def fn(x, W, b):
+            if valid is not None:
+                x = torch.where(valid[..., None], x, torch.zeros_like(x))
+            img = x.reshape(B, T, ny, nc).permute(0, 3, 1, 2)  # [B,nc,T,ny]
+            w = W.reshape(ky, kx, nc, nf).permute(3, 2, 1, 0)  # [nf,nc,kx,ky]
+            if bf16:
+                img, w, b = (t.to(torch.bfloat16) for t in (img, w, b))
+            else:
+                img = img.float()
+            z = F.conv2d(img, w, b, padding=(kx // 2, ky // 2))
+            y = nl(z).permute(0, 2, 3, 1)                        # [B,T,ny,nf]
+            if valid is not None:
+                y = torch.where(valid[..., None, None], y,
+                                torch.zeros_like(y))
+            return y.reshape(B, T, ny * nf)
+
+        return _spanned("conv", fn, x, self.W, self.b)
+
+
+class MaxPool2D(Layer):
+    """The maximum over non-overlapping ky x kx windows of a column of
+    ``ny`` rows of ``nc`` channels and its frames (VGSL ``Mp``): [B, T,
+    ny·nc] -> [B, ceil(T/kx), ceil(ny/ky)·nc]. A partial window is pooled
+    over its part inside the image and the line (padded frames are left
+    out); an output frame past ceil(len/kx) is 0."""
+
+    @staticmethod
+    def noutput(spec: NetSpec) -> int:
+        return (-(-spec.iget("ny") // spec.iget("ky"))) * spec.iget("nc")
+
+    @staticmethod
+    def out_lengths(spec: NetSpec, lengths):
+        kx = spec.iget("kx")
+        return (lengths + (kx - 1)) // kx
+
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        sp = self.spec
+        ny, nc, ky, kx = (sp.iget("ny"), sp.iget("nc"), sp.iget("ky"),
+                          sp.iget("kx"))
+        B, T, _ = x.shape
+        valid = _valid_frames(lengths, B, T, x.device)
+        To = -(-T // kx)
+        ovalid = _valid_frames(None if lengths is None else
+                               self.out_lengths(sp, lengths), B, To,
+                               x.device)
+
+        def fn(x):
+            img = x.reshape(B, T, ny, nc)
+            if valid is not None:
+                img = img.masked_fill(~valid[..., None, None], float("-inf"))
+            p = F.max_pool2d(img.permute(0, 3, 1, 2), (kx, ky), (kx, ky),
+                             ceil_mode=True).permute(0, 2, 3, 1)
+            if ovalid is not None:
+                p = torch.where(ovalid[..., None, None], p,
+                                torch.zeros_like(p))
+            return p.reshape(B, To, -1)
+
+        return _spanned("conv", fn, x)
+
+
+class NPLSTMYSum(Layer):
+    """An LSTM down each column of ``ny`` rows of ``nc`` channels (VGSL
+    ``Lfys``: the rows as its steps, top to bottom), keeping its last
+    output: [B, T, ny·nc] -> [B, T, nhidden]. The weights and cell are
+    NPLSTM's (Wx [nc, 4H]); the B·T columns run as one batch of ny-step
+    sequences, a padded frame's column of length 0 (no recurrence, output
+    0). On the one-direction kernels as a lone NPLSTM runs, under its own
+    spans clstm.ysum.*."""
+
+    @staticmethod
+    def noutput(spec: NetSpec) -> int:
+        return spec.iget("nhidden")
+
+    def __init__(self, spec: NetSpec):
+        super().__init__(spec)
+        nc, nh = spec.iget("nc"), spec.iget("nhidden")
+        self.Wx = nn.Parameter(torch.zeros(nc, 4 * nh))
+        self.Wh = nn.Parameter(torch.zeros(nh, 4 * nh))
+        self.b = nn.Parameter(torch.zeros(4 * nh))
+
+    def forward(self, x, lengths=None, ctx: ApplyCtx = ApplyCtx()):
+        ny, nc = self.spec.iget("ny"), self.spec.iget("nc")
+        B, T, _ = x.shape
+        if lengths is None:
+            lens = torch.full((B * T,), ny, dtype=torch.int32,
+                              device=x.device)
+        else:
+            lens = (_valid_frames(lengths, B, T, x.device).reshape(-1)
+                    .to(torch.int32) * ny)
+        kernels = one_direction(ctx, x)
+        cd = ctx.compute_dtype
+
+        def fn(x, Wx, Wh, b):
+            p = {"Wx": Wx, "Wh": Wh, "b": b}
+            cols = x.reshape(B * T, ny, nc)
+            y = (_lstm1(p, cols, lens, ctx, False, spans=False) if kernels
+                 else lstm_apply(p, cols, lens, compute_dtype=cd))
+            return y[:, -1].reshape(B, T, -1)
+
+        return _spanned("ysum", fn, x, self.Wx, self.Wh, self.b)
+
+
 for _kind, _al in (("LinearLayer", "linear"), ("SigmoidLayer", "sigmoid"),
                    ("TanhLayer", "tanh"), ("ReluLayer", "relu")):
     register_layer(_kind, Affine, (_al,))
@@ -474,3 +749,6 @@ register_layer("Stacked", Stacked, ("stacked",))
 register_layer("Parallel", Parallel, ("parallel",))
 register_layer("Reversed", Reversed, ("reversed",))
 register_layer("Botched", Botched)
+register_layer("Conv2D", Conv2D, ("conv2d",))
+register_layer("MaxPool2D", MaxPool2D, ("maxpool2d",))
+register_layer("NPLSTMYSum", NPLSTMYSum, ("lstmysum",))

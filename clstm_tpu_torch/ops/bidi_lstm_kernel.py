@@ -31,9 +31,18 @@
                         projection and K4) forward, K2 backward (the custom
                         VJP of bidi_lstm_pallas).
 
-Their plain versions are in ops/lstm.py (bidi_lstm_apply and the ``_plain``
-functions). On CPU tensors each wrapper runs its plain version; on CUDA
-tensors it launches its kernel or raises, and never falls back.
+Each wrapper also runs one direction alone (a lone NPLSTM, or
+Reversed(NPLSTM) with ``reverse``): ``params_r`` None in the forwards, one
+direction's streams ([B, T, 1, ...], y [B, T, H]) in K2's; on a card in
+the bf16 mode only (the C entries ``clstm_lstm1_*``, which take the
+call's directions ``dm``). A launch then takes that direction's row
+groups, its plans count one direction's (``ndir`` 1), and ``launches1``
+counts it apart from the pair's.
+
+Their plain versions are in ops/lstm.py (bidi_lstm_apply, the ``_plain``
+functions and, for one direction, the ``lstm1_*`` ones). On CPU tensors
+each wrapper runs its plain version; on CUDA tensors it launches its
+kernel or raises, and never falls back.
 
 Each wrapper takes ``xz_bf16``, the JAX package's production mode
 (pallas_lstm.py, ``xz_bf16=True``): the streams (x or xz, y, gates, cell,
@@ -57,7 +66,8 @@ import torch.nn.functional as F
 from clstm_tpu_torch.ops.lstm import (
     bidi_lstm_apply, bidi_lstm_apply_xz, bidi_lstm_bwd_chain_plain,
     bidi_lstm_bwd_reduce_plain, bidi_lstm_fwd_state_plain,
-    bidi_lstm_fwd_state_xz_plain, hoisted_projection)
+    bidi_lstm_fwd_state_xz_plain, hoisted_projection, lstm1_apply_xz,
+    lstm1_bwd_chain_plain, lstm1_bwd_reduce_plain, lstm1_fwd_state_plain)
 from clstm_tpu_torch.utils.profiling import span
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -101,11 +111,26 @@ _SIGNATURES = {
     "clstm_bidi_lstm_fwd16_xz": [_P] * 4 + [_I] * 6 + [_P],
     "clstm_bidi_lstm_fwd16_smem": [_I] * 7,
     "clstm_bidi_lstm_fwd16_clusters": [_I] * 7,
+    # One direction alone (dm 1 forward, 2 reversed), the bf16 mode. The
+    # FMA forward: x, lengths, wx, wh, y, gates, cell; B, T, D, H, the plan
+    # (C, rows, units, resident), hoist, emit, dm. The tensor-core forward:
+    # the same pointers; B, T, D, H, the plan (C, rows, units), hoist,
+    # emit, dm.
+    "clstm_lstm1_fwd": [_P] * 7 + [_I] * 11 + [_P],
+    "clstm_lstm1_fwd16": [_P] * 7 + [_I] * 10 + [_P],
+    # K2: the L2 chain (lengths, gates, cell, gy, whT, dz; B, T, H, dm),
+    # the cluster chain (... wh, dz; B, T, H, C, rows, units, ksplit, dm),
+    # the reduction as the bidi entry's with dm last.
+    "clstm_lstm1_bwd_chain": [_P] * 6 + [_I] * 4 + [_P],
+    "clstm_lstm1_bwd_chain16": [_P] * 6 + [_I] * 8 + [_P],
+    "clstm_lstm1_bwd_bf16_scratch": [_I] * 6,
+    "clstm_lstm1_bwd_reduce_bf16": [_P, _I] + [_P] * 6 + [_I] * 9 + [_P],
 }
 # Entry points that return a 64-bit count instead of a CUDA error.
 _LONG = {"clstm_bidi_lstm_bwd_scratch", "clstm_bidi_lstm_fwd_smem",
          "clstm_bidi_lstm_fwd_bf16_smem", "clstm_bidi_lstm_bwd_bf16_scratch",
-         "clstm_bidi_lstm_bwd_chain16_smem", "clstm_bidi_lstm_fwd16_smem"}
+         "clstm_bidi_lstm_bwd_chain16_smem", "clstm_bidi_lstm_fwd16_smem",
+         "clstm_lstm1_bwd_bf16_scratch"}
 _fns: dict = {}
 
 
@@ -168,11 +193,31 @@ def _check_device(device) -> None:
         raise ValueError(f"unsupported device {device}")
 
 
-def _check(params_f: dict, params_r: dict, x: torch.Tensor,
+def _dirs(params_f: dict, params_r: Optional[dict]) -> list:
+    """The params of a call's directions: the pair's, or one alone."""
+    return [params_f] if params_r is None else [params_f, params_r]
+
+
+def _dm(ndir: int, reverse: bool) -> int:
+    """The C entries' directions of a call: 0 the bidi pair, 1 one forward
+    direction, 2 one reversed."""
+    return 0 if ndir == 2 else 2 if reverse else 1
+
+
+def _one_direction_bf16(bf16: bool) -> None:
+    """Raise unless a one-direction launch runs the bf16 mode, the one its
+    kernels were built and checked for (a lone layer in strict f32 runs
+    ops/lstm.py::lstm_apply)."""
+    if not bf16:
+        raise ValueError("one direction alone runs on the card in the bf16 "
+                         "mode only (xz_bf16=True)")
+
+
+def _check(params_f: dict, params_r: Optional[dict], x: torch.Tensor,
            lengths: Optional[torch.Tensor], bf16: bool = False) -> None:
     """Raise on anything the forward kernels do not take: x float32, or in
     the bf16 mode float32 or bfloat16 (the output of a bf16 layer); the
-    weights float32 in both modes."""
+    weights float32 in both modes (``params_r`` None: one direction)."""
     ok = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
     if x.dim() != 3 or x.dtype not in ok or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous [B, T, D] tensor of "
@@ -182,7 +227,7 @@ def _check(params_f: dict, params_r: dict, x: torch.Tensor,
     B, T, D = x.shape
     H = params_f["Wh"].shape[0]
     want = {"Wx": (D, 4 * H), "Wh": (H, 4 * H), "b": (4 * H,)}
-    for p in (params_f, params_r):
+    for p in _dirs(params_f, params_r):
         for name, shape in want.items():
             w = p[name]
             if (tuple(w.shape) != shape or w.dtype != torch.float32
@@ -193,21 +238,23 @@ def _check(params_f: dict, params_r: dict, x: torch.Tensor,
     _check_lengths(lengths, B, x.device)
 
 
-def _check_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
+def _check_xz(params_f: dict, params_r: Optional[dict], xz: torch.Tensor,
               lengths: Optional[torch.Tensor], bf16: bool = False) -> None:
     """Raise on anything K4 does not take: xz float32, bfloat16 (the
-    rounded product) in the bf16 mode."""
+    rounded product) in the bf16 mode, [B, T, n, 4H] for the call's n
+    directions."""
     dt = _stream_dtype(bf16)
-    if (xz.dim() != 4 or xz.shape[2] != 2 or xz.dtype != dt
+    n = len(_dirs(params_f, params_r))
+    if (xz.dim() != 4 or xz.shape[2] != n or xz.dtype != dt
             or not xz.is_contiguous()):
-        raise ValueError(f"xz must be a contiguous [B, T, 2, 4H] {dt} "
+        raise ValueError(f"xz must be a contiguous [B, T, {n}, 4H] {dt} "
                          f"tensor, got {xz.dtype} {tuple(xz.shape)}")
     _check_device(xz.device)
     H = params_f["Wh"].shape[0]
     if xz.shape[3] != 4 * H:
         raise ValueError(f"xz has {xz.shape[3]} gate columns, Wh has {H} "
                          f"units")
-    for p in (params_f, params_r):
+    for p in _dirs(params_f, params_r):
         w = p["Wh"]
         if (tuple(w.shape) != (H, 4 * H) or w.dtype != torch.float32
                 or w.device != xz.device):
@@ -222,8 +269,12 @@ def _mode(bf16: bool) -> dict:
     return {"xz_bf16": True} if bf16 else {}
 
 
-def _stack(params_f: dict, params_r: dict, name: str) -> torch.Tensor:
-    return torch.stack([params_f[name], params_r[name]]).detach().contiguous()
+def _stack(params_f: dict, params_r: Optional[dict],
+           name: str) -> torch.Tensor:
+    """The parameter ``name`` of the call's directions, stacked: [2, ...],
+    or [1, ...] where ``params_r`` is None (one direction alone)."""
+    return torch.stack([p[name] for p in _dirs(params_f, params_r)]
+                       ).detach().contiguous()
 
 
 def hoists_projection(D: int, H: int) -> bool:
@@ -298,7 +349,7 @@ def fwd_threads(rows: int, units: int) -> int:
 
 
 def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
-             clusters=None, esize: int = 4) -> FwdPlan:
+             clusters=None, esize: int = 4, ndir: int = 2) -> FwdPlan:
     """The forward kernel's plan for a layer of input width D (unused with
     ``hoist``: K4) and H units at batch B; ``state``: K1 or K4's state
     mode (the kernel instance whose occupancy ``clusters`` gives).
@@ -316,8 +367,10 @@ def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
     (``device_plan``), by default H100_CLUSTERS. ``esize`` is the bytes of
     a weight and stream element: 4, or 2 in the bf16 mode, where half the
     bytes may keep more resident at a smaller C (D is then even: the
-    wrapper pads an odd input). Raises ValueError for a shape no plan
-    takes (H above ~4096, or an input too wide for the x ring)."""
+    wrapper pads an odd input). ``ndir``: the directions of the call (2
+    the bidi pair's, 1 a lone layer's), whose clusters share the wave.
+    Raises ValueError for a shape no plan takes (H above ~4096, or an input
+    too wide for the x ring)."""
     if min(B, H) < 1 or (not hoist and D < 1):
         raise ValueError(f"no forward plan for B={B} D={D} H={H}")
     if clusters is None:
@@ -325,7 +378,7 @@ def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
             return H100_CLUSTERS[C]
 
     def rows_for(active: int) -> int:
-        groups = max(1, active // 2)
+        groups = max(1, active // ndir)
         rows = -(-(-(-B // groups)) // FWD_RT) * FWD_RT
         return min(rows, FWD_ROWS_MAX)
 
@@ -378,7 +431,7 @@ def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
         if rows < FWD_RT:
             continue
         p = made(C, 0, rows, units)
-        k = (2 * p.groups <= p.clusters, min(rows, FWD_L2_ROWS), -C)
+        k = (ndir * p.groups <= p.clusters, min(rows, FWD_L2_ROWS), -C)
         if key is None or k > key:
             best, key = p, k
     if best:
@@ -504,7 +557,8 @@ def fwd16_prefers_old(T: int, H: int) -> bool:
 
 def fwd16_cluster_plan(B: int, D: int, H: int, hoist: bool, clusters=None,
                        *, state: bool, C: Optional[int] = None,
-                       rows: Optional[int] = None) -> Fwd16Plan:
+                       rows: Optional[int] = None,
+                       ndir: int = 2) -> Fwd16Plan:
     """The fwd16 plan for a batch of B rows, x width D (the kernel's, even;
     unused with ``hoist``: K4) and H units; ``state``: K1 or K4's state
     mode, else K3 or K4 inference (whose CTA keeps no gates or cell stage).
@@ -520,7 +574,8 @@ def fwd16_cluster_plan(B: int, D: int, H: int, hoist: bool, clusters=None,
     card holds at once: on a card the occupancy query of the mode's
     instance (``fwd16_clusters``), by default H100_CLUSTERS. ``C`` and
     ``rows`` force a choice, for measurements (scripts/torch_fwd16_probe.py
-    times the plans in turns)."""
+    times the plans in turns). ``ndir``: the call's directions (the waves
+    count ndir·groups)."""
     if min(B, H) < 1:
         raise ValueError(f"no fwd16 plan for B={B} H={H}")
     if clusters is None:
@@ -538,14 +593,14 @@ def fwd16_cluster_plan(B: int, D: int, H: int, hoist: bool, clusters=None,
                 continue
             groups = -(-B // r)
             n = int(clusters(c, r, units))
-            k = (-(-2 * groups // n), r * units, c, r)
+            k = (-(-ndir * groups // n), r * units, c, r)
             if key is None or k < key:
                 best, key = Fwd16Plan(c, r, units, smem, groups, n), k
     return best or FWD16_NONE
 
 
 def fwd16_plan(B: int, T: int, D: int, H: int, hoist: bool,
-               clusters=None, *, state: bool) -> Fwd16Plan:
+               clusters=None, *, state: bool, ndir: int = 2) -> Fwd16Plan:
     """The bf16 K1 (K4's state mode with ``hoist``; without ``state`` K3,
     or K4 inference with ``hoist``) plan for B rows of T frames, x width D
     (the kernel's, even) and H units: the cluster plan of
@@ -556,7 +611,8 @@ def fwd16_plan(B: int, T: int, D: int, H: int, hoist: bool,
         raise ValueError(f"no fwd16 plan for B={B} T={T} H={H}")
     if fwd16_prefers_old(T, H):
         return FWD16_NONE
-    return fwd16_cluster_plan(B, D, H, hoist, clusters, state=state)
+    return fwd16_cluster_plan(B, D, H, hoist, clusters, state=state,
+                              ndir=ndir)
 
 
 def fwd16_weights(params_f: dict, params_r: dict, with_x: bool):
@@ -591,7 +647,8 @@ def fwd_weights(params_f: dict, params_r: dict, with_x: bool,
         return None, wh
     rows = [_stack(params_f, params_r, "Wx")]
     if bf16 and rows[0].shape[1] % 2:
-        rows.append(rows[0].new_zeros((2, 1, rows[0].shape[2])))
+        rows.append(rows[0].new_zeros((rows[0].shape[0], 1,
+                                       rows[0].shape[2])))
     rows.append(_stack(params_f, params_r, "b")[:, None])
     return interleave_gates(torch.cat(rows, 1)).to(dt).contiguous(), wh
 
@@ -651,7 +708,8 @@ def reduce_slices(B: int, T: int, tt: int) -> int:
     return -(-T // tt) * -(-B // (RED_SLICE // tt))
 
 
-def reduce_scratch(B: int, T: int, D: int, H: int, tt: int, spr: int) -> int:
+def reduce_scratch(B: int, T: int, D: int, H: int, tt: int, spr: int,
+                   ndir: int = 2) -> int:
     """Bytes of the bf16 reduction's scratch at a plan (the layout of
     csrc::red16; clstm_bidi_lstm_bwd_bf16_scratch counts the same): x
     staged as [x | 1 | 0..] in bf16 [B·T, roundup(D+1, 64)] and y per
@@ -660,19 +718,21 @@ def reduce_scratch(B: int, T: int, D: int, H: int, tt: int, spr: int) -> int:
     roundup(4H, 8)] where H is odd (a TMA box starts on a 16-byte boundary,
     and the reverse direction's gates start at 4H); wx in bf16 [2, D,
     roundup(4H, 64)]; and with more than one frame range the f32 dW
-    partials [ranges, 2, D+1+H, 4H]; each 256-byte aligned."""
+    partials [ranges, 2, D+1+H, 4H]; each 256-byte aligned. ``ndir``: the
+    call's directions (1: a lone layer's, whose per-direction parts are
+    one direction's)."""
     N, G, M = B * T, 4 * H, D + 1 + H
     ranges = -(-reduce_slices(B, T, tt) // spr)
     return (_up(2 * N * _up(D + 1, 64), 256)
-            + _up(2 * N * 2 * _up(H, 64), 256)
-            + (_up(2 * N * 2 * _up(G, 8), 256) if H % 2 else 0)
-            + _up(2 * 2 * D * _up(G, 64), 256)
-            + (4 * ranges * 2 * M * G if ranges > 1 else 0))
+            + _up(2 * N * ndir * _up(H, 64), 256)
+            + (_up(2 * N * ndir * _up(G, 8), 256) if H % 2 else 0)
+            + _up(2 * ndir * D * _up(G, 64), 256)
+            + (4 * ranges * ndir * M * G if ranges > 1 else 0))
 
 
 @functools.lru_cache(maxsize=None)
 def reduce_plan(B: int, T: int, D: int, H: int,
-                sms: int = H100_SMS) -> ReducePlan:
+                sms: int = H100_SMS, ndir: int = 2) -> ReducePlan:
     """The bf16 reduction's plan for x [B, T, D] and H units on a card of
     ``sms`` SMs (a dW block takes one SM: its ring is ~200 KB).
 
@@ -685,7 +745,8 @@ def reduce_plan(B: int, T: int, D: int, H: int,
     spread over the card at a block's rate of staging; ties to fewer
     ranges, and no more than RED_PARTIALS_MAX bytes of partials. So the
     blocks fill whole waves where the slices allow: at the filter's shape
-    (B=256, T=32, D=19, H=100) 16 ranges of 512 frames, 128 blocks."""
+    (B=256, T=32, D=19, H=100) 16 ranges of 512 frames, 128 blocks.
+    ``ndir``: the call's directions (the blocks and partials of ndir)."""
     if min(B, T, D, H) < 1:
         raise ValueError(f"no reduction plan for B={B} T={T} D={D} H={H}")
     G, M = 4 * H, D + 1 + H
@@ -693,9 +754,9 @@ def reduce_plan(B: int, T: int, D: int, H: int,
     tt = min(RED_SLICE, 1 << (T - 1).bit_length())
     S = reduce_slices(B, T, tt)
     row_tiles = -(-(D + 1) // 64) + -(-H // 64)
-    tiles = 2 * -(-row_tiles // 2) * -(-G // nw)
+    tiles = ndir * -(-row_tiles // 2) * -(-G // nw)
     slice_bytes = (2 + -(-nw // 64)) * RED_SLICE * 128
-    part = 4 * 2 * M * G
+    part = 4 * ndir * M * G
     best = None
     for R in range(1, min(S, 8 * sms) + 1):
         spr = -(-S // R)
@@ -711,23 +772,23 @@ def reduce_plan(B: int, T: int, D: int, H: int,
             best = (cost, spr, ranges)
     _, spr, ranges = best
     return ReducePlan(nw, tt, spr, ranges, tiles * ranges, nwd,
-                      reduce_scratch(B, T, D, H, tt, spr))
+                      reduce_scratch(B, T, D, H, tt, spr, ndir))
 
 
 _sms: dict = {}
 
 
 def device_reduce_plan(device, B: int, T: int, D: int,
-                       H: int) -> ReducePlan:
+                       H: int, ndir: int = 2) -> ReducePlan:
     """reduce_plan on ``device``'s card (its SM count, asked once; an
-    H100's elsewhere)."""
+    H100's elsewhere), at ``ndir`` directions."""
     sms = H100_SMS
     if device.type == "cuda":
         sms = _sms.get(device)
         if sms is None:
             sms = _sms[device] = torch.cuda.get_device_properties(
                 device).multi_processor_count
-    return reduce_plan(B, T, D, H, sms)
+    return reduce_plan(B, T, D, H, sms, ndir)
 
 
 def staged_x(x: torch.Tensor) -> torch.Tensor:
@@ -870,7 +931,8 @@ def chain_prefers_l2(T: int, H: int) -> bool:
 
 def chain_cluster_plan(B: int, H: int, clusters=None,
                        C: Optional[int] = None,
-                       rows: Optional[int] = None) -> ChainPlan:
+                       rows: Optional[int] = None,
+                       ndir: int = 2) -> ChainPlan:
     """The bf16 chain's cluster plan for a batch of B rows and H units.
 
     Of the cluster plans that fit (C in CHAIN_CLUSTER_SIZES, rows in
@@ -885,7 +947,8 @@ def chain_cluster_plan(B: int, H: int, clusters=None,
     the card holds at once: on a card the kernel's occupancy query
     (``chain_clusters``), by default H100_CLUSTERS. ``C`` and ``rows``
     force a choice, for measurements (scripts/torch_k2_chain_probe.py
-    times the plans in turns)."""
+    times the plans in turns). ``ndir``: the call's directions (the waves
+    count ndir·groups)."""
     if min(B, H) < 1:
         raise ValueError(f"no chain plan for B={B} H={H}")
     if clusters is None:
@@ -903,7 +966,7 @@ def chain_cluster_plan(B: int, H: int, clusters=None,
                 continue
             groups = -(-B // r)
             n = int(clusters(c, r, units, ks))
-            waves = -(-2 * groups // n)
+            waves = -(-ndir * groups // n)
             k = (waves, r * units, c, r)
             if key is None or k < key:
                 best = ChainPlan(c, r, units, ks, smem, groups, n)
@@ -912,16 +975,25 @@ def chain_cluster_plan(B: int, H: int, clusters=None,
 
 
 def chain_plan(B: int, T: int, H: int, es: int = 2,
-               clusters=None) -> ChainPlan:
+               clusters=None, ndir: int = 2) -> ChainPlan:
     """K2's chain plan for a batch of B rows of T frames and H units;
     ``es`` the bytes of its streams (4: the f32 mode, which keeps the L2
     kernel's own plan, csrc::choose_chain; 2: bf16, the cluster plan of
-    chain_cluster_plan unless chain_prefers_l2)."""
+    chain_cluster_plan unless chain_prefers_l2). ``ndir`` 1 (a lone
+    layer): the pair's plan where one direction's groups fit one wave at
+    it, else the plan of one direction's groups."""
     if min(B, T, H) < 1:
         raise ValueError(f"no chain plan for B={B} T={T} H={H}")
     if es != 2 or chain_prefers_l2(T, H):
         return CHAIN_L2
-    return chain_cluster_plan(B, H, clusters)
+    pair = chain_cluster_plan(B, H, clusters)
+    if ndir == 2 or (pair.C and pair.groups <= pair.clusters):
+        # One direction's groups fit one wave at the pair's plan: keep it.
+        # A step is a chain of latencies that grows with the cluster's
+        # hand-off (C); on the card the pair's C=3 beat the C=4 that fewer
+        # rows·units pick, at the eng net's H=96 (PERF.md §6).
+        return pair
+    return chain_cluster_plan(B, H, clusters, ndir=ndir)
 
 
 _active: dict = {}
@@ -954,16 +1026,17 @@ def card_clusters(lookup, D: int, H: int, hoist: bool, state: bool,
 
 
 def device_plan(device, B: int, D: int, H: int, hoist: bool,
-                state: bool, esize: int = 4) -> FwdPlan:
+                state: bool, esize: int = 4, ndir: int = 2) -> FwdPlan:
     """fwd_plan on ``device``'s card (its cluster occupancy), cached per
-    device and shape."""
-    key = (device, B, D, H, hoist, state, esize)
+    device, shape and directions."""
+    key = (device, B, D, H, hoist, state, esize) + ((ndir,) if ndir != 2
+                                                     else ())
     p = _plans.get(key)
     if p is None:
         with torch.cuda.device(device):
             p = fwd_plan(B, D, H, hoist, state,
                          card_clusters(_kernel, D, H, hoist, state, esize),
-                         esize)
+                         esize, ndir)
         _plans[key] = p
     return p
 
@@ -990,13 +1063,14 @@ def chain_clusters(device, H: int):
     return query
 
 
-def device_chain_plan(device, B: int, T: int, H: int) -> ChainPlan:
+def device_chain_plan(device, B: int, T: int, H: int,
+                      ndir: int = 2) -> ChainPlan:
     """chain_plan of the bf16 chain on ``device``'s card, cached per
-    device and shape."""
-    key = ("chain", device, B, T, H)
+    device, shape and directions."""
+    key = ("chain", device, B, T, H) + ((ndir,) if ndir != 2 else ())
     p = _plans.get(key)
     if p is None:
-        p = chain_plan(B, T, H, 2, chain_clusters(device, H))
+        p = chain_plan(B, T, H, 2, chain_clusters(device, H), ndir)
         _plans[key] = p
     return p
 
@@ -1025,15 +1099,17 @@ def fwd16_clusters(device, D: int, H: int, hoist: bool, *, state: bool):
 
 
 def device_fwd16_plan(device, B: int, T: int, D: int, H: int,
-                      hoist: bool, *, state: bool) -> Fwd16Plan:
-    """fwd16_plan on ``device``'s card, cached per device, shape and
-    mode."""
-    key = ("fwd16", device, B, T, D, H, hoist, state)
+                      hoist: bool, *, state: bool,
+                      ndir: int = 2) -> Fwd16Plan:
+    """fwd16_plan on ``device``'s card, cached per device, shape, mode and
+    directions."""
+    key = ("fwd16", device, B, T, D, H, hoist, state) + (
+        (ndir,) if ndir != 2 else ())
     p = _plans.get(key)
     if p is None:
         p = fwd16_plan(B, T, D, H, hoist,
                        fwd16_clusters(device, D, H, hoist, state=state),
-                       state=state)
+                       state=state, ndir=ndir)
         _plans[key] = p
     return p
 
@@ -1042,9 +1118,9 @@ def _plan_args(p: FwdPlan) -> tuple:
     return p.C, p.rows, p.units, p.resident
 
 
-def _fwd(kind: str, plan, params_f: dict, params_r: dict,
+def _fwd(kind: str, plan, params_f: dict, params_r: Optional[dict],
          inp: torch.Tensor, lengths: Optional[torch.Tensor], bf16: bool,
-         launch=None):
+         launch=None, dm: int = 0):
     """One launch of the forward kernel in mode ``kind`` ("fwd" K3,
     "fwd_state" K1, "fwd_xz" K4, "fwd_xz_state" K4's state mode) at
     ``plan`` on checked CUDA inputs, uncounted (the wrappers count their
@@ -1054,20 +1130,26 @@ def _fwd(kind: str, plan, params_f: dict, params_r: dict,
     bf16 only). An empty batch (B or T 0) launches nothing and
     returns empty outputs. ``launch(name, device, *args)`` calls the C
     entry point (by default ``_launch``; a measurement of another build
-    passes its own)."""
+    passes its own). ``dm``: the call's directions, 0 both (the bidi pair,
+    ``params_r`` the reversed one's), 1 the forward direction alone, 2 the
+    reversed one alone (``params_r`` None; the clstm_lstm1_* entries,
+    whose streams hold that direction: y [B, T, H], gates [B, T, 1, 4H])."""
     hoist, state = "xz" in kind, kind.endswith("state")
+    if dm:
+        _one_direction_bf16(bf16)
     dev = inp.device
     B, T = inp.shape[:2]
     H = params_f["Wh"].shape[0]
     dt = _stream_dtype(bf16)
+    nd = 1 if dm else 2
     if not hoist and bf16:
         inp = _x_bf16(inp)
     D = 0 if hoist else inp.shape[-1]
-    outs = [torch.empty((B, T, 2 * H), dtype=dt, device=dev)]
+    outs = [torch.empty((B, T, nd * H), dtype=dt, device=dev)]
     if state:
-        outs += [torch.empty((B, T, 2, 4 * H), dtype=torch.float32,
+        outs += [torch.empty((B, T, nd, 4 * H), dtype=torch.float32,
                              device=dev),
-                 torch.empty((B, T, 2, H), dtype=dt, device=dev)]
+                 torch.empty((B, T, nd, H), dtype=dt, device=dev)]
     if not (B and T):
         return tuple(outs) if state else outs[0]
     shape = (B, T, H) if hoist else (B, T, D, H)
@@ -1085,55 +1167,75 @@ def _fwd(kind: str, plan, params_f: dict, params_r: dict,
         wx, wh = fwd_weights(params_f, params_r, not hoist, bf16)
         name = f"clstm_bidi_lstm_{kind}" + ("_bf16" if bf16 else "")
         args = _plan_args(plan)
+    if dm:
+        # One direction: every pointer and the full shape, then the mode.
+        (launch or _launch)(
+            "clstm_lstm1_fwd16" if isinstance(plan, Fwd16Plan)
+            else "clstm_lstm1_fwd", dev, inp.data_ptr(), _ptr(lengths),
+            _ptr(wx), wh.data_ptr(), *(o.data_ptr() for o in outs),
+            *([0, 0] if not state else []), B, T, D, H, *args, int(hoist),
+            int(state), dm)
+        return tuple(outs) if state else outs[0]
     (launch or _launch)(name, dev, inp.data_ptr(), _ptr(lengths),
                         *([] if hoist else [wx.data_ptr()]), wh.data_ptr(),
                         *(o.data_ptr() for o in outs), *shape, *args)
     return tuple(outs) if state else outs[0]
 
 
-def _fwd_launch(kind: str, counter, params_f: dict, params_r: dict,
+def _fwd_launch(kind: str, counter, params_f: dict, params_r: Optional[dict],
                 inp: torch.Tensor, lengths: Optional[torch.Tensor],
-                bf16: bool):
+                bf16: bool, dm: int = 0):
     """Launch the forward kernel in mode ``kind`` (see _fwd) on x or xz
     (already checked) at the card's plan -> y, or (y, gates, cell) in the
     state modes: in the bf16 mode on the tensor-core kernel where
     device_fwd16_plan gives a plan, else the FMA kernel at device_plan's.
     An empty batch launches nothing; a launch adds one to
-    ``counter.launches``, and one of the tensor-core kernel also to
-    ``counter.launches16``."""
+    ``counter.launches``, one of the tensor-core kernel also to
+    ``counter.launches16``, and one of one direction (``dm`` as _fwd's:
+    the plans then count one direction's row groups) to
+    ``counter.launches1``."""
     hoist, state = "xz" in kind, kind.endswith("state")
     B, T = inp.shape[:2]
     if not (B and T):
-        return _fwd(kind, None, params_f, params_r, inp, lengths, bf16)
+        return _fwd(kind, None, params_f, params_r, inp, lengths, bf16,
+                    dm=dm)
     dev = inp.device
     H = params_f["Wh"].shape[0]
     D = 0 if hoist else inp.shape[-1] + (inp.shape[-1] % 2 if bf16 else 0)
-    plan = (device_fwd16_plan(dev, B, T, D, H, hoist, state=state) if bf16
-            else FWD16_NONE)
+    one = {"ndir": 1} if dm else {}    # the pair's calls as they were
+    plan = (device_fwd16_plan(dev, B, T, D, H, hoist, state=state, **one)
+            if bf16 else FWD16_NONE)
     if not plan.C:
-        plan = device_plan(dev, B, D, H, hoist, state, 2 if bf16 else 4)
-    out = _fwd(kind, plan, params_f, params_r, inp, lengths, bf16)
+        plan = device_plan(dev, B, D, H, hoist, state, 2 if bf16 else 4,
+                           **one)
+    out = _fwd(kind, plan, params_f, params_r, inp, lengths, bf16, dm=dm)
     if isinstance(plan, Fwd16Plan):
         counter.launches16 += 1
+    if dm:
+        counter.launches1 += 1
     counter.launches += 1
     return out
 
 
-def bidi_lstm_infer(params_f: dict, params_r: dict, x: torch.Tensor,
+def bidi_lstm_infer(params_f: dict, params_r: Optional[dict],
+                    x: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
                     hoist: Optional[bool] = None,
-                    xz_bf16: bool = False) -> torch.Tensor:
+                    xz_bf16: bool = False,
+                    reverse: bool = False) -> torch.Tensor:
     """Inference forward of a bidi layer. x [B, T, D] f32, lengths [B]
     int32 or None (all T) -> y [B, T, 2H] f32: forward half then reverse
     half, exactly 0.0 where t >= len. With ``xz_bf16`` x may also be bf16
     and y is bf16.
 
     ``params_*`` hold the fused weights {"Wx" [D,4H], "Wh" [H,4H],
-    "b" [4H]}. With ``hoist`` None the layer takes K4 on
-    ``hoisted_projection`` where ``hoists_projection(D, H)`` holds and K3
-    elsewhere; True or False picks one (for measurements). ``launches``
-    counts K3's launches, ``bidi_lstm_infer_xz.launches`` K4's. With
-    ``xz_bf16`` the launch takes the tensor-core kernel where
+    "b" [4H]}. With ``params_r`` None the call runs ``params_f``'s
+    direction alone -> y [B, T, H]; ``reverse``: its chain runs from frame
+    len-1 down (Reversed(NPLSTM)). With ``hoist`` None the layer takes K4
+    on ``hoisted_projection`` where ``hoists_projection(D, H)`` holds and
+    K3 elsewhere; True or False picks one (for measurements).
+    ``launches`` counts K3's launches, ``bidi_lstm_infer_xz.launches``
+    K4's. With ``xz_bf16`` the launch takes the tensor-core kernel where
     ``device_fwd16_plan`` gives a plan (``launches16`` counts those), else
     the FMA kernel. No gradient flows through a CUDA launch: training runs
     ``bidi_lstm_train``.
@@ -1145,138 +1247,191 @@ def bidi_lstm_infer(params_f: dict, params_r: dict, x: torch.Tensor,
         return bidi_lstm_infer_xz(
             params_f, params_r,
             hoisted_projection(params_f, params_r, x, **_mode(xz_bf16)),
-            lengths, xz_bf16)
+            lengths, xz_bf16, reverse)
     if x.device.type == "cpu":
+        if params_r is None:
+            return lstm1_fwd_state_plain(params_f, x, lengths, reverse,
+                                         **_mode(xz_bf16), with_state=False)
         return bidi_lstm_apply(params_f, params_r, x, lengths,
                                **_mode(xz_bf16))
     return _fwd_launch("fwd", bidi_lstm_infer, params_f, params_r, x,
-                       lengths, xz_bf16)
+                       lengths, xz_bf16, _dm(len(_dirs(params_f, params_r)),
+                                             reverse))
 
 
-def bidi_lstm_fwd_state(params_f: dict, params_r: dict, x: torch.Tensor,
+def bidi_lstm_fwd_state(params_f: dict, params_r: Optional[dict],
+                        x: torch.Tensor,
                         lengths: Optional[torch.Tensor] = None,
-                        xz_bf16: bool = False):
+                        xz_bf16: bool = False, reverse: bool = False):
     """K1. As ``bidi_lstm_infer``, and also returns what K2 reads:
     (y [B, T, 2H], gates [B, T, 2, 4H], cell [B, T, 2, H]), f32 (y and
     cell bf16 with ``xz_bf16``), original time order per direction,
-    exactly 0 on padded frames (see ops/lstm.py::bidi_lstm_fwd_state_plain).
+    exactly 0 on padded frames (see ops/lstm.py::bidi_lstm_fwd_state_plain;
+    one direction: [B, T, H], [B, T, 1, 4H], [B, T, 1, H]).
     With ``xz_bf16`` the launch takes the tensor-core kernel where
     ``device_fwd16_plan`` gives a plan (``launches16`` counts those), else
     the FMA kernel; one launch a call either way.
     """
     _check(params_f, params_r, x, lengths, xz_bf16)
     if x.device.type == "cpu":
+        if params_r is None:
+            return lstm1_fwd_state_plain(params_f, x, lengths, reverse,
+                                         **_mode(xz_bf16))
         return bidi_lstm_fwd_state_plain(params_f, params_r, x, lengths,
                                          **_mode(xz_bf16))
     return _fwd_launch("fwd_state", bidi_lstm_fwd_state, params_f, params_r,
-                       x, lengths, xz_bf16)
+                       x, lengths, xz_bf16,
+                       _dm(len(_dirs(params_f, params_r)), reverse))
 
 
-def bidi_lstm_infer_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
+def bidi_lstm_infer_xz(params_f: dict, params_r: Optional[dict],
+                       xz: torch.Tensor,
                        lengths: Optional[torch.Tensor] = None,
-                       xz_bf16: bool = False) -> torch.Tensor:
+                       xz_bf16: bool = False,
+                       reverse: bool = False) -> torch.Tensor:
     """K4, inference. xz [B, T, 2, 4H] f32 (ops/lstm.py::hoisted_projection,
-    original time order; bf16, the rounded product, with ``xz_bf16``) ->
-    y [B, T, 2H] of the same type, as ``bidi_lstm_infer``. Only ``Wh`` of
-    the params is read (see ops/lstm.py::bidi_lstm_apply_xz). In the bf16
-    mode it takes the tensor-core kernel as K3 does."""
+    original time order; bf16, the rounded product, with ``xz_bf16``;
+    [B, T, 1, 4H] for one direction) -> y [B, T, 2H] (or [B, T, H]) of the
+    same type, as ``bidi_lstm_infer``. Only ``Wh`` of the params is read
+    (see ops/lstm.py::bidi_lstm_apply_xz). In the bf16 mode it takes the
+    tensor-core kernel as K3 does."""
     _check_xz(params_f, params_r, xz, lengths, xz_bf16)
     if xz.device.type == "cpu":
+        if params_r is None:
+            return lstm1_apply_xz(params_f, xz, lengths, reverse,
+                                  **_mode(xz_bf16))
         return bidi_lstm_apply_xz(params_f, params_r, xz, lengths,
                                   **_mode(xz_bf16))
     return _fwd_launch("fwd_xz", bidi_lstm_infer_xz, params_f, params_r, xz,
-                       lengths, xz_bf16)
+                       lengths, xz_bf16, _dm(xz.shape[2], reverse))
 
 
-def bidi_lstm_fwd_state_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
+def bidi_lstm_fwd_state_xz(params_f: dict, params_r: Optional[dict],
+                           xz: torch.Tensor,
                            lengths: Optional[torch.Tensor] = None,
-                           xz_bf16: bool = False):
+                           xz_bf16: bool = False, reverse: bool = False):
     """K4, state mode: as ``bidi_lstm_infer_xz``, and also returns gates
-    [B, T, 2, 4H] and cell [B, T, 2, H] with K1's layout, type and zeros,
-    which K2 reads unchanged (see ops/lstm.py::bidi_lstm_fwd_state_xz_plain).
-    In the bf16 mode it takes the tensor-core kernel as K1 does.
+    [B, T, 2, 4H] and cell [B, T, 2, H] ([B, T, 1, ...] for one direction)
+    with K1's layout, type and zeros, which K2 reads unchanged (see
+    ops/lstm.py::bidi_lstm_fwd_state_xz_plain). In the bf16 mode it takes
+    the tensor-core kernel as K1 does.
     """
     _check_xz(params_f, params_r, xz, lengths, xz_bf16)
     if xz.device.type == "cpu":
+        if params_r is None:
+            return lstm1_apply_xz(params_f, xz, lengths, reverse,
+                                  **_mode(xz_bf16), with_state=True)
         return bidi_lstm_fwd_state_xz_plain(params_f, params_r, xz, lengths,
                                             **_mode(xz_bf16))
     return _fwd_launch("fwd_xz_state", bidi_lstm_fwd_state_xz, params_f,
-                       params_r, xz, lengths, xz_bf16)
+                       params_r, xz, lengths, xz_bf16,
+                       _dm(xz.shape[2], reverse))
+
+
+def _ndir(gates: torch.Tensor) -> int:
+    """The directions of K2's streams: gates [B, T, n, 4H], n 2 or 1."""
+    if gates.dim() != 4 or gates.shape[2] not in (1, 2):
+        raise ValueError(f"gates must be [B, T, 2, 4H] (or [B, T, 1, 4H], "
+                         f"one direction), got {tuple(gates.shape)}")
+    return gates.shape[2]
 
 
 def bidi_lstm_bwd_chain(gates: torch.Tensor, cell: torch.Tensor,
                         gy: torch.Tensor, Wh2: torch.Tensor,
                         lengths: Optional[torch.Tensor] = None,
-                        xz_bf16: bool = False) -> torch.Tensor:
+                        xz_bf16: bool = False,
+                        reverse: bool = False) -> torch.Tensor:
     """K2's chain. gates [B, T, 2, 4H], cell [B, T, 2, H] (K1's), gy
     [B, T, 2H] the cotangent of y, Wh2 [2, H, 4H] f32 -> dz [B, T, 2, 4H],
     exactly 0 on padded frames (see ops/lstm.py::bidi_lstm_bwd_chain_plain).
+    One direction's streams ([B, T, 1, ...], gy [B, T, H], Wh2 [1, H, 4H];
+    ``reverse`` as K1's) run that direction alone.
     The streams are f32; with ``xz_bf16`` cell, gy and dz are bf16 and the
     gates stay f32 (Wh2 stays f32 and is rounded here). The kernel and its
     plan come from ``device_chain_plan``: in the bf16 mode the chain on
     thread-block clusters where a cluster holds Wh, else the L2 kernel.
     """
-    if gates.dim() != 4:
-        raise ValueError(f"gates must be [B, T, 2, 4H], got "
-                         f"{tuple(gates.shape)}")
+    n = _ndir(gates)
     B, T, _, G = gates.shape
     H = G // 4
     dev = gates.device
     dt = _stream_dtype(xz_bf16)
     _check_device(dev)
-    _check_tensor("gates", gates, (B, T, 2, 4 * H), dev)
-    _check_tensor("cell", cell, (B, T, 2, H), dev, dt)
-    _check_tensor("gy", gy, (B, T, 2 * H), dev, dt)
-    _check_tensor("Wh2", Wh2, (2, H, 4 * H), dev)
+    _check_tensor("gates", gates, (B, T, n, 4 * H), dev)
+    _check_tensor("cell", cell, (B, T, n, H), dev, dt)
+    _check_tensor("gy", gy, (B, T, n * H), dev, dt)
+    _check_tensor("Wh2", Wh2, (n, H, 4 * H), dev)
     _check_lengths(lengths, B, dev)
     if dev.type == "cpu":
+        if n == 1:
+            return lstm1_bwd_chain_plain(gates, cell, gy, Wh2, lengths,
+                                         reverse, **_mode(xz_bf16))
         return bidi_lstm_bwd_chain_plain(gates, cell, gy, Wh2, lengths,
                                          **_mode(xz_bf16))
+    if n == 1:
+        _one_direction_bf16(xz_bf16)
     if B == 0 or T == 0:
-        return torch.empty((B, T, 2, G), dtype=dt, device=dev)
-    plan = device_chain_plan(dev, B, T, H) if xz_bf16 else CHAIN_L2
-    dz = _chain(plan, gates, cell, gy, Wh2, lengths, xz_bf16)
+        return torch.empty((B, T, n, G), dtype=dt, device=dev)
+    one = {"ndir": 1} if n == 1 else {}
+    plan = device_chain_plan(dev, B, T, H, **one) if xz_bf16 else CHAIN_L2
+    dz = _chain(plan, gates, cell, gy, Wh2, lengths, xz_bf16,
+                _dm(n, reverse))
+    if n == 1:
+        bidi_lstm_bwd_chain.launches1 += 1
     bidi_lstm_bwd_chain.launches += 1
     return dz
 
 
 def _chain(plan: ChainPlan, gates, cell, gy, Wh2, lengths,
-           xz_bf16: bool) -> torch.Tensor:
+           xz_bf16: bool, dm: int = 0) -> torch.Tensor:
     """One launch of K2's chain at ``plan`` on checked CUDA inputs (see
     bidi_lstm_bwd_chain), uncounted: the wrapper counts its own launches,
-    and measurements launch a forced plan here."""
-    B, T, _, G = gates.shape
+    and measurements launch a forced plan here. ``dm`` as _fwd's (one
+    direction: the clstm_lstm1_* entries)."""
+    B, T, n, G = gates.shape
     H = G // 4
     dev = gates.device
-    dz = torch.empty((B, T, 2, G), dtype=_stream_dtype(xz_bf16), device=dev)
+    if dm:
+        _one_direction_bf16(xz_bf16)
+    dz = torch.empty((B, T, n, G), dtype=_stream_dtype(xz_bf16), device=dev)
     if plan.C:
         # The bf16 chain on clusters: Wh itself is its product's B operand.
         wh = Wh2.detach().to(torch.bfloat16).contiguous()
         gates, cell, gy = _aligned(gates), _aligned(cell), _aligned(gy)
-        _launch("clstm_bidi_lstm_bwd_chain16", dev, _ptr(lengths),
-                gates.data_ptr(), cell.data_ptr(), gy.data_ptr(),
-                wh.data_ptr(), dz.data_ptr(), B, T, H, plan.C, plan.rows,
-                plan.units, plan.ksplit)
+        args = (_ptr(lengths), gates.data_ptr(), cell.data_ptr(),
+                gy.data_ptr(), wh.data_ptr(), dz.data_ptr(), B, T, H, plan.C,
+                plan.rows, plan.units, plan.ksplit)
+        if dm:
+            _launch("clstm_lstm1_bwd_chain16", dev, *args, dm)
+        else:
+            _launch("clstm_bidi_lstm_bwd_chain16", dev, *args)
         return dz
-    # The L2 branch. WhT [2, 4H, Hp]: Wh transposed, each row zero-padded
+    # The L2 branch. WhT [n, 4H, Hp]: Wh transposed, each row zero-padded
     # to Hp units.
     hp = _kernel("clstm_bidi_lstm_bwd_hp")(H)
-    whT = torch.zeros((2, 4 * H, hp), dtype=dz.dtype, device=dev)
+    whT = torch.zeros((n, 4 * H, hp), dtype=dz.dtype, device=dev)
     whT[:, :, :H] = Wh2.detach().transpose(1, 2)
     gates = _aligned(gates)
-    _launch("clstm_bidi_lstm_bwd_chain" + ("_bf16" if xz_bf16 else ""), dev,
-            _ptr(lengths), gates.data_ptr(), cell.data_ptr(), gy.data_ptr(),
+    args = (_ptr(lengths), gates.data_ptr(), cell.data_ptr(), gy.data_ptr(),
             whT.data_ptr(), dz.data_ptr(), B, T, H)
+    if dm:
+        _launch("clstm_lstm1_bwd_chain", dev, *args, dm)
+    else:
+        _launch("clstm_bidi_lstm_bwd_chain" + ("_bf16" if xz_bf16 else ""),
+                dev, *args)
     return dz
 
 
 def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
                          Wx2: torch.Tensor, need_dx: bool = True,
-                         xz_bf16: bool = False):
+                         xz_bf16: bool = False, reverse: bool = False):
     """K2's contractions. x [B, T, D], y [B, T, 2H] (K1's), dz
     [B, T, 2, 4H], Wx2 [2, D, 4H] f32 -> (dW [2, D+1+H, 4H] f32, dx
     [B, T, D] or None): per direction the rows of dW are dWx, the bias row,
-    dWh (see ops/lstm.py::bidi_lstm_bwd_reduce_plain). The sum over frames
+    dWh (see ops/lstm.py::bidi_lstm_bwd_reduce_plain). One direction's
+    streams (y [B, T, H], dz [B, T, 1, 4H], Wx2 [1, D, 4H] -> dW [1, ...])
+    run that direction alone, h_prev y one frame back, or on where
+    ``reverse``. The sum over frames
     is deterministic: a fixed split and a fixed-order second pass. With
     ``xz_bf16`` y and dz are bf16, x f32 or bf16 (rounded to bf16 by the
     kernel's staging), the products take one bf16 tensor-core pass split
@@ -1284,33 +1439,43 @@ def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
     """
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
+    n = _ndir(dz)
     B, T, D = x.shape
-    H = y.shape[-1] // 2
+    H = y.shape[-1] // n
     dev = x.device
     dt = _stream_dtype(xz_bf16)
     _check_device(dev)
     _check_tensor("x", x, (B, T, D), dev,
                   x.dtype if xz_bf16 and x.dtype == torch.bfloat16 else
                   torch.float32)
-    _check_tensor("y", y, (B, T, 2 * H), dev, dt)
-    _check_tensor("dz", dz, (B, T, 2, 4 * H), dev, dt)
-    _check_tensor("Wx2", Wx2, (2, D, 4 * H), dev)
+    _check_tensor("y", y, (B, T, n * H), dev, dt)
+    _check_tensor("dz", dz, (B, T, n, 4 * H), dev, dt)
+    _check_tensor("Wx2", Wx2, (n, D, 4 * H), dev)
     if dev.type == "cpu":
+        if n == 1:
+            return lstm1_bwd_reduce_plain(x, y, dz, Wx2, need_dx, reverse,
+                                          **_mode(xz_bf16))
         return bidi_lstm_bwd_reduce_plain(x, y, dz, Wx2, need_dx,
                                           **_mode(xz_bf16))
+    dm = _dm(n, reverse)
+    if dm:
+        _one_direction_bf16(xz_bf16)
     M, G = D + 1 + H, 4 * H
-    dW = torch.empty((2, M, G), dtype=torch.float32, device=dev)
+    dW = torch.empty((n, M, G), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
     if B == 0 or T == 0:
         return dW.zero_(), None if dx is None else dx.zero_()
     if xz_bf16:
-        plan = device_reduce_plan(dev, B, T, D, H)
+        plan = device_reduce_plan(dev, B, T, D, H,
+                                  **({"ndir": 1} if dm else {}))
         scratch = torch.empty(plan.scratch, dtype=torch.uint8, device=dev)
         dz, wx = _aligned(dz), Wx2.detach().contiguous()
-        _launch("clstm_bidi_lstm_bwd_reduce_bf16", dev, x.data_ptr(),
+        _launch("clstm_lstm1_bwd_reduce_bf16" if dm else
+                "clstm_bidi_lstm_bwd_reduce_bf16", dev, x.data_ptr(),
                 int(x.dtype == torch.bfloat16), y.data_ptr(), dz.data_ptr(),
                 wx.data_ptr(), scratch.data_ptr(), dW.data_ptr(), _ptr(dx),
-                B, T, D, H, plan.nw, plan.tt, plan.spr, plan.nwd)
+                B, T, D, H, plan.nw, plan.tt, plan.spr, plan.nwd,
+                *((dm,) if dm else ()))
     else:
         scratch = torch.empty(
             _kernel("clstm_bidi_lstm_bwd_scratch")(B, T, D, H),
@@ -1319,14 +1484,17 @@ def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
         _launch("clstm_bidi_lstm_bwd_reduce", dev, x.data_ptr(), y.data_ptr(),
                 dz.data_ptr(), wx.data_ptr(), scratch.data_ptr(),
                 dW.data_ptr(), _ptr(dx), B, T, D, H)
+    if dm:
+        bidi_lstm_bwd_reduce.launches1 += 1
     bidi_lstm_bwd_reduce.launches += 1
     return dW, dx
 
 
 class _BidiLSTMTrain(torch.autograd.Function):
-    """K1 forward, K2 backward (the custom VJP of bidi_lstm_pallas). The six
-    weight tensors come in separately, so autograd hands each gradient to
-    its own module parameter; they are stacked inside only.
+    """K1 forward, K2 backward (the custom VJP of bidi_lstm_pallas). The
+    weight tensors (Wx, Wh, b of each direction: six for the pair, three
+    for one direction) come in separately, so autograd hands each gradient
+    to its own module parameter; they are stacked inside only.
 
     Where ``hoists_projection(D, H)`` holds, the forward computes the
     hoisted projection here, inside the Function, and runs K4 on it; xz is
@@ -1335,57 +1503,71 @@ class _BidiLSTMTrain(torch.autograd.Function):
     Wx, b and x come from K2's own reduction, as they come from the TPU
     kernel's body under its custom VJP, not from autograd through the
     product. With ``bf16`` the forward and backward run in the bf16 mode:
-    y is bf16, the weight gradients come out f32 and x's in x's type."""
+    y is bf16, the weight gradients come out f32 and x's in x's type.
+    ``spans``: the forward and backward open clstm.lstm.fwd and
+    clstm.lstm.bwd (off where a layer that holds this one opens its own,
+    the column LSTM's)."""
 
     @staticmethod
-    def forward(ctx, x, lengths, bf16, wxf, whf, bf, wxr, whr, br):
-        pf = {"Wx": wxf, "Wh": whf, "b": bf}
-        pr = {"Wx": wxr, "Wh": whr, "b": br}
+    def forward(ctx, x, lengths, bf16, reverse, spans, *w):
+        ps = [{"Wx": w[i], "Wh": w[i + 1], "b": w[i + 2]}
+              for i in range(0, len(w), 3)]
+        pf, pr = ps[0], (ps[1] if len(ps) == 2 else None)
         mode = _mode(bf16)
-        with span("clstm.lstm.fwd"):
-            if hoists_projection(x.shape[-1], whf.shape[0]):
+        with span("clstm.lstm.fwd") if spans else contextlib.nullcontext():
+            if hoists_projection(x.shape[-1], pf["Wh"].shape[0]):
                 xz = hoisted_projection(pf, pr, x, **mode)
-                y, gates, cell = bidi_lstm_fwd_state_xz(pf, pr, xz, lengths,
-                                                        **mode)
+                y, gates, cell = bidi_lstm_fwd_state_xz(
+                    pf, pr, xz, lengths, **mode, reverse=reverse)
                 del xz
             else:
-                y, gates, cell = bidi_lstm_fwd_state(pf, pr, x, lengths,
-                                                     **mode)
-        ctx.bf16 = bf16
-        ctx.save_for_backward(x, lengths, y, gates, cell, wxf, whf, wxr, whr)
+                y, gates, cell = bidi_lstm_fwd_state(
+                    pf, pr, x, lengths, **mode, reverse=reverse)
+        ctx.bf16, ctx.reverse, ctx.spans = bf16, reverse, spans
+        ctx.save_for_backward(x, lengths, y, gates, cell,
+                              *(p[k] for p in ps for k in ("Wx", "Wh")))
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, lengths, y, gates, cell, wxf, whf, wxr, whr = ctx.saved_tensors
+        x, lengths, y, gates, cell, *w = ctx.saved_tensors
+        wx, wh = w[0::2], w[1::2]
         D = x.shape[-1]
         mode = _mode(ctx.bf16)
         # need_dx of the TPU kernel: x is training data unless it requires
         # a gradient, and then dx is not computed at all.
         need_dx = ctx.needs_input_grad[0]
-        with span("clstm.lstm.bwd"):
+        with (span("clstm.lstm.bwd") if ctx.spans
+              else contextlib.nullcontext()):
             dz = bidi_lstm_bwd_chain(gates, cell,
                                      gy.to(y.dtype).contiguous(),
-                                     torch.stack([whf, whr]), lengths, **mode)
-            dW, dx = bidi_lstm_bwd_reduce(x, y, dz, torch.stack([wxf, wxr]),
-                                          need_dx, **mode)
-        grads = [(dW[g, :D], dW[g, D + 1:], dW[g, D]) for g in (0, 1)]
-        return (dx, None, None, *grads[0], *grads[1])
+                                     torch.stack(wh), lengths, **mode,
+                                     reverse=ctx.reverse)
+            dW, dx = bidi_lstm_bwd_reduce(x, y, dz, torch.stack(wx),
+                                          need_dx, **mode,
+                                          reverse=ctx.reverse)
+        grads = [t for g in range(len(wx))
+                 for t in (dW[g, :D], dW[g, D + 1:], dW[g, D])]
+        return (dx, None, None, None, None, *grads)
 
 
-def bidi_lstm_train(params_f: dict, params_r: dict, x: torch.Tensor,
+def bidi_lstm_train(params_f: dict, params_r: Optional[dict],
+                    x: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
-                    xz_bf16: bool = False) -> torch.Tensor:
+                    xz_bf16: bool = False, reverse: bool = False,
+                    spans: bool = True) -> torch.Tensor:
     """Differentiable bidirectional LSTM, same value as ``bidi_lstm_infer``:
     K1 (or, where ``hoists_projection`` holds, the hoisted projection and
     K4) in the forward, K2 in the backward on a card, their plain versions
-    on CPU tensors. Gradients flow to the six weight tensors and, when it
-    requires one, to x. ``xz_bf16``: the bf16 mode (y bf16, gradients of
-    the weights f32, of x in x's type)."""
+    on CPU tensors. Gradients flow to the weight tensors and, when it
+    requires one, to x. ``params_r`` None and ``reverse``: one direction
+    alone, as ``bidi_lstm_infer``'s. ``xz_bf16``: the bf16 mode (y bf16,
+    gradients of the weights f32, of x in x's type). ``spans``: open the
+    clstm.lstm.* spans (False inside a layer that opens its own)."""
     _check(params_f, params_r, x, lengths, xz_bf16)
     return _BidiLSTMTrain.apply(
-        x, lengths, bool(xz_bf16), params_f["Wx"], params_f["Wh"],
-        params_f["b"], params_r["Wx"], params_r["Wh"], params_r["b"])
+        x, lengths, bool(xz_bf16), bool(reverse), bool(spans),
+        *(p[k] for p in _dirs(params_f, params_r) for k in ("Wx", "Wh", "b")))
 
 
 # Kernel launches since the last reset (CPU calls do not count), in either
@@ -1402,3 +1584,10 @@ bidi_lstm_infer.launches16 = 0
 bidi_lstm_fwd_state.launches16 = 0
 bidi_lstm_infer_xz.launches16 = 0
 bidi_lstm_fwd_state_xz.launches16 = 0
+# Of the launches, those of one direction alone.
+bidi_lstm_infer.launches1 = 0
+bidi_lstm_fwd_state.launches1 = 0
+bidi_lstm_infer_xz.launches1 = 0
+bidi_lstm_fwd_state_xz.launches1 = 0
+bidi_lstm_bwd_chain.launches1 = 0
+bidi_lstm_bwd_reduce.launches1 = 0

@@ -25,7 +25,12 @@ ops/bidi_lstm_kernel.py run instead:
                         K4, the same two on a hoisted projection;
   bidi_lstm_bwd_chain_plain   K2's backward chain (dz per frame);
   bidi_lstm_bwd_reduce_plain  K2's contractions (dWx with the bias row,
-                              dWh, dx).
+                              dWh, dx);
+  lstm1_*               the same for one direction alone (a lone NPLSTM,
+                        or Reversed(NPLSTM)): one direction's streams,
+                        [B, T, 1, ...] where the bidi pair's are
+                        [B, T, 2, ...], y [B, T, H], its chain forward or
+                        reversed within each row's length.
 
 ``lstm_apply`` and ``bidi_lstm_apply`` also take ``compute_dtype`` (e.g.
 torch.bfloat16), the JAX package's scan recipe (clstm_tpu/ops/lstm.py
@@ -168,25 +173,42 @@ def lstm_apply(params: dict, x: torch.Tensor,
     return torch.stack(outs, dim=1).to(x.dtype)
 
 
+# The directions of a call: the bidi pair's (forward, then reversed), or
+# one alone.
+BIDI = (0, 1)
+
+
+def dirs_of(reverse: bool) -> tuple:
+    """The direction of a lone layer: (1,) reversed, else (0,)."""
+    return (1,) if reverse else (0,)
+
+
 def _projection(params_f: dict, params_r: dict, x: torch.Tensor,
                 bf16: bool) -> torch.Tensor:
-    """x·[Wx_f | Wx_r] + [b_f | b_r] -> [B, T, 2, 4H], in the arithmetic
-    type of the weights (bf16 operands in the bf16 mode, the result not
-    rounded)."""
+    """x·[Wx_f | Wx_r] + [b_f | b_r] -> [B, T, 2, 4H] (``_project``)."""
+    return _project([params_f, params_r], x, bf16)
+
+
+def _project(ps: list, x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """x·[Wx_0 | Wx_1 ..] + [b_0 | b_1 ..] over the directions' params
+    ``ps`` -> [B, T, len(ps), 4H], in the arithmetic type of the weights
+    (bf16 operands in the bf16 mode, the result not rounded)."""
     B, T, D = x.shape
-    G = params_f["Wh"].shape[1]
-    w = torch.cat([params_f["Wx"], params_r["Wx"]], dim=1)       # [D, 8H]
-    b = torch.cat([params_f["b"], params_r["b"]])                 # [8H]
+    G = ps[0]["Wh"].shape[1]
+    w = torch.cat([p["Wx"] for p in ps], dim=1)                   # [D, n4H]
+    b = torch.cat([p["b"] for p in ps])                           # [n4H]
     ct = _ctype(w)
     return torch.addmm(_op(b, ct, bf16), _op(x.reshape(B * T, D), ct, bf16),
-                       _op(w, ct, bf16)).reshape(B, T, 2, G)
+                       _op(w, ct, bf16)).reshape(B, T, len(ps), G)
 
 
-def hoisted_projection(params_f: dict, params_r: dict, x: torch.Tensor,
+def hoisted_projection(params_f: dict, params_r: Optional[dict],
+                       x: torch.Tensor,
                        xz_bf16: bool = False) -> torch.Tensor:
     """The input projection of both directions as one product, taken out
     of the recurrence: xz [B, T, 2, 4H] = x·[Wx_f | Wx_r] + [b_f | b_r],
-    in ORIGINAL time order for both directions.
+    in ORIGINAL time order for both directions (``params_r`` None: one
+    direction's, [B, T, 1, 4H] = x·Wx_f + b_f).
 
     Counterpart of clstm_tpu/ops/pallas_lstm.py::_proj_stream, which XLA
     computes outside the Pallas kernel; here it is ``torch.addmm`` on
@@ -200,41 +222,49 @@ def hoisted_projection(params_f: dict, params_r: dict, x: torch.Tensor,
     the rounded operands on a CPU tensor. float64 weights (a distance
     reference) keep every rounding point in float64 arithmetic.
     """
+    return _hoisted([params_f] if params_r is None else [params_f, params_r],
+                    x, xz_bf16)
+
+
+def _hoisted(ps: list, x: torch.Tensor, xz_bf16: bool) -> torch.Tensor:
+    """hoisted_projection over the directions' params ``ps`` -> xz
+    [B, T, len(ps), 4H]."""
     with span("clstm.hoist"):
-        if not xz_bf16 or params_f["Wx"].dtype == torch.float64:
-            return _out(_projection(params_f, params_r, x, xz_bf16), xz_bf16)
+        if not xz_bf16 or ps[0]["Wx"].dtype == torch.float64:
+            return _out(_project(ps, x, xz_bf16), xz_bf16)
         B, T, D = x.shape
-        w = torch.cat([params_f["Wx"], params_r["Wx"]], dim=1)
-        b = torch.cat([params_f["b"], params_r["b"]])
+        w = torch.cat([p["Wx"] for p in ps], dim=1)
+        b = torch.cat([p["b"] for p in ps])
         xz = affine_fwd(x.reshape(B * T, D).to(torch.bfloat16),
                         w.to(torch.bfloat16), b.to(torch.bfloat16).float(),
                         torch.bfloat16)
-        return xz.reshape(B, T, 2, w.shape[1] // 2)
+        return xz.reshape(B, T, len(ps), w.shape[1] // len(ps))
 
 
-def _chain_plain(params_f: dict, params_r: dict, xz: torch.Tensor,
+def _chain_plain(ps: list, xz: torch.Tensor,
                  lengths: Optional[torch.Tensor], with_state: bool,
-                 bf16: bool = False):
-    """The recurrence of both directions in one loop over T on a hoisted
-    projection xz [B, T, 2, 4H] in original time order; the reverse chain
-    reads frame len-1-s at step s. Returns y [B, T, 2H] and, with
-    ``with_state``, gates [B, T, 2, 4H] and cell [B, T, 2, H] (else None),
+                 bf16: bool = False, dirs: tuple = BIDI):
+    """The recurrence of the directions ``dirs`` (params ``ps``, one each)
+    in one loop over T on a hoisted projection xz [B, T, n, 4H] in original
+    time order; a reversed chain reads frame len-1-s at step s. Returns y
+    [B, T, nH] and, with ``with_state``, gates [B, T, n, 4H] and cell
+    [B, T, n, H] (else None),
     in original time order and exactly 0 on padded frames. Lengths are
     clamped to [0, T]; padded steps carry (h, c) through unchanged. With
     ``bf16``: Wh and h rounded before each product, y and cell rounded to
     bf16; the gates stay in the arithmetic type (JAX recomputes them in f32
     in its backward; rounded, they moved the gradients ~1e-2 of their max
     from the JAX package's, tests/test_torch_bf16.py)."""
-    B, T, _, G = xz.shape
+    B, T, n, G = xz.shape
     H = G // 4
     if lengths is not None:
         lengths = lengths.to(xz.device).clamp(0, T)
-    Wh2 = torch.stack([params_f["Wh"], params_r["Wh"]])          # [2,H,4H]
+    Wh2 = torch.stack([p["Wh"] for p in ps])                     # [n,H,4H]
     ct = _ctype(Wh2)
     Wh2 = _op(Wh2, ct, bf16)
-    xz = _to_dirs(xz.to(ct), lengths)                            # [2,B,T,4H]
+    xz = _to_dirs(xz.to(ct), lengths, dirs)                      # [n,B,T,4H]
     valid = _valid(lengths, B, T, xz.device)
-    h = xz.new_zeros((2, B, H))
+    h = xz.new_zeros((n, B, H))
     c = torch.zeros_like(h)
     hs, gs, cs = [], [], []
     for t in range(T):
@@ -250,12 +280,12 @@ def _chain_plain(params_f: dict, params_r: dict, xz: torch.Tensor,
         if with_state:
             gs.append(torch.where(v, g, torch.zeros_like(g)))
             cs.append(torch.where(v, c_new, torch.zeros_like(c_new)))
-    y = _out(_from_dirs(torch.stack(hs, dim=2), lengths).reshape(B, T, 2 * H),
-             bf16)
+    y = _out(_from_dirs(torch.stack(hs, dim=2), lengths,
+                        dirs).reshape(B, T, n * H), bf16)
     if not with_state:
         return y, None, None
-    return (y, _from_dirs(torch.stack(gs, dim=2), lengths),
-            _out(_from_dirs(torch.stack(cs, dim=2), lengths), bf16))
+    return (y, _from_dirs(torch.stack(gs, dim=2), lengths, dirs),
+            _out(_from_dirs(torch.stack(cs, dim=2), lengths, dirs), bf16))
 
 
 def bidi_lstm_apply_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
@@ -267,7 +297,7 @@ def bidi_lstm_apply_xz(params_f: dict, params_r: dict, xz: torch.Tensor,
     exactly 0 on padded frames. The reverse direction reads frame len-1-s
     at chain step s. Only ``Wh`` of the params is read. ``xz_bf16``: xz is
     the rounded bf16 product and y comes out in bf16."""
-    return _chain_plain(params_f, params_r, xz, lengths, False, xz_bf16)[0]
+    return _chain_plain([params_f, params_r], xz, lengths, False, xz_bf16)[0]
 
 
 def bidi_lstm_fwd_state_xz_plain(params_f: dict, params_r: dict,
@@ -278,7 +308,7 @@ def bidi_lstm_fwd_state_xz_plain(params_f: dict, params_r: dict,
     state the backward pass reads, with the layout and zeros of
     ``bidi_lstm_fwd_state_plain`` (y [B, T, 2H], gates [B, T, 2, 4H], cell
     [B, T, 2, H]; y and cell bf16 with ``xz_bf16``)."""
-    return _chain_plain(params_f, params_r, xz, lengths, True, xz_bf16)
+    return _chain_plain([params_f, params_r], xz, lengths, True, xz_bf16)
 
 
 def bidi_lstm_apply(params_f: dict, params_r: dict, x: torch.Tensor,
@@ -305,9 +335,9 @@ def bidi_lstm_apply(params_f: dict, params_r: dict, x: torch.Tensor,
                              "modes; the JAX package never combines them")
         return _bidi_scan(params_f, params_r, x, lengths, compute_dtype)
     if xz_bf16:
-        return _chain_plain(params_f, params_r,
-                            _projection(params_f, params_r, x, True),
-                            lengths, False, True)[0]
+        ps = [params_f, params_r]
+        return _chain_plain(ps, _project(ps, x, True), lengths, False,
+                            True)[0]
     xz = hoisted_projection(params_f, params_r, x)
     return bidi_lstm_apply_xz(params_f, params_r, xz, lengths).to(x.dtype)
 
@@ -344,15 +374,19 @@ def _bidi_scan(params_f: dict, params_r: dict, x: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def _to_dirs(a: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
-    """[B, T, 2, ...] in original time order -> [2, B, T, ...] in chain
-    order (the reverse direction flipped within length)."""
-    return torch.stack([a[:, :, 0], flip_within_length(a[:, :, 1], lengths)])
+def _to_dirs(a: torch.Tensor, lengths: Optional[torch.Tensor],
+             dirs: tuple = BIDI) -> torch.Tensor:
+    """[B, T, n, ...] in original time order -> [n, B, T, ...] in chain
+    order (a reversed direction flipped within length)."""
+    return torch.stack([flip_within_length(a[:, :, i], lengths) if d
+                        else a[:, :, i] for i, d in enumerate(dirs)])
 
 
-def _from_dirs(a: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+def _from_dirs(a: torch.Tensor, lengths: Optional[torch.Tensor],
+               dirs: tuple = BIDI) -> torch.Tensor:
     """Inverse of ``_to_dirs``."""
-    return torch.stack([a[0], flip_within_length(a[1], lengths)], dim=2)
+    return torch.stack([flip_within_length(a[i], lengths) if d else a[i]
+                        for i, d in enumerate(dirs)], dim=2)
 
 
 def bidi_lstm_fwd_state_plain(params_f: dict, params_r: dict, x: torch.Tensor,
@@ -372,15 +406,16 @@ def bidi_lstm_fwd_state_plain(params_f: dict, params_r: dict, x: torch.Tensor,
     package stores its pre-step state (``seq_dtype``); the gates, which it
     recomputes in f32, stay f32.
     """
-    return _chain_plain(params_f, params_r,
-                        _projection(params_f, params_r, x, xz_bf16),
-                        lengths, True, xz_bf16)
+    ps = [params_f, params_r]
+    return _chain_plain(ps, _project(ps, x, xz_bf16), lengths, True,
+                        xz_bf16)
 
 
 def bidi_lstm_bwd_chain_plain(gates: torch.Tensor, cell: torch.Tensor,
                               gy: torch.Tensor, Wh2: torch.Tensor,
                               lengths: Optional[torch.Tensor] = None,
-                              xz_bf16: bool = False) -> torch.Tensor:
+                              xz_bf16: bool = False,
+                              dirs: tuple = BIDI) -> torch.Tensor:
     """K2's backward chain, plain: an explicit loop backward in time, not
     autograd (pallas_lstm.py::_bwd_kernel, L391-430).
 
@@ -395,19 +430,20 @@ def bidi_lstm_bwd_chain_plain(gates: torch.Tensor, cell: torch.Tensor,
     frames, so padded frames add nothing to any gradient. With ``xz_bf16``
     cell and gy come in bf16 (the gates in f32), the chain stays f32
     (pallas_lstm.py L385-388), dz and Wh are rounded to bf16 for
-    Dh = dz·Whᵀ and dz is stored in bf16.
+    Dh = dz·Whᵀ and dz is stored in bf16. ``dirs``: the directions of the
+    streams (one alone: lstm1_bwd_chain_plain).
     """
-    B, T, _, G = gates.shape
+    B, T, n, G = gates.shape
     H = G // 4
     if lengths is not None:
         lengths = lengths.to(gates.device).clamp(0, T)
     ct = _ctype(Wh2)
-    g_c = _to_dirs(gates.to(ct), lengths)                       # [2,B,T,4H]
-    c_c = _to_dirs(cell.to(ct), lengths)                        # [2,B,T,H]
-    gy_c = _to_dirs(_op(gy, ct, xz_bf16).reshape(B, T, 2, H), lengths)
+    g_c = _to_dirs(gates.to(ct), lengths, dirs)                 # [n,B,T,4H]
+    c_c = _to_dirs(cell.to(ct), lengths, dirs)                  # [n,B,T,H]
+    gy_c = _to_dirs(_op(gy, ct, xz_bf16).reshape(B, T, n, H), lengths, dirs)
     valid = _valid(lengths, B, T, gates.device)
     WhT = _op(Wh2.transpose(1, 2), ct, xz_bf16)
-    Dh = g_c.new_zeros((2, B, H))
+    Dh = g_c.new_zeros((n, B, H))
     Dc = torch.zeros_like(Dh)
     dzs = [None] * T
     for s in range(T - 1, -1, -1):
@@ -425,12 +461,13 @@ def bidi_lstm_bwd_chain_plain(gates: torch.Tensor, cell: torch.Tensor,
         Dh = torch.bmm(dz, WhT)
         Dc = dc * gf
         dzs[s] = dz
-    return _out(_from_dirs(torch.stack(dzs, dim=2), lengths), xz_bf16)
+    return _out(_from_dirs(torch.stack(dzs, dim=2), lengths, dirs), xz_bf16)
 
 
 def bidi_lstm_bwd_reduce_plain(x: torch.Tensor, y: torch.Tensor,
                                dz: torch.Tensor, Wx2: torch.Tensor,
-                               need_dx: bool = True, xz_bf16: bool = False):
+                               need_dx: bool = True, xz_bf16: bool = False,
+                               dirs: tuple = BIDI):
     """K2's contractions, plain (pallas_lstm.py::_bwd_kernel, L440-463).
 
     x [B, T, D]; y [B, T, 2H] (K1's output, the source of h_prev); dz
@@ -441,21 +478,81 @@ def bidi_lstm_bwd_reduce_plain(x: torch.Tensor, y: torch.Tensor,
     Returns (dW [2, D+1+H, 4H], dx or None). With ``xz_bf16`` every operand
     is bf16 (x rounded), dW stays f32, and each direction's half of dx is
     rounded to bf16 before the two are added (pallas_lstm.py L913-917); dx
-    comes out in x's type.
+    comes out in x's type. ``dirs``: the directions of the streams (one
+    alone, lstm1_bwd_reduce_plain: y [B, T, H], dz [B, T, 1, 4H], Wx2
+    [1, D, 4H], dW [1, D+1+H, 4H]; h_prev is y one frame back, or on where
+    it runs reversed; in the bf16 mode its dx is its rounded half).
     """
     B, T, D = x.shape
-    H = y.shape[-1] // 2
+    n = len(dirs)
+    H = y.shape[-1] // n
     ct = _ctype(Wx2)
     y, dz = _op(y, ct, xz_bf16), _op(dz, ct, xz_bf16)
-    h_prev = torch.stack([F.pad(y[:, :-1, :H], (0, 0, 1, 0)),
-                          F.pad(y[:, 1:, H:], (0, 0, 0, 1))])   # [2,B,T,H]
+    h_prev = torch.stack([
+        F.pad(y[:, 1:, i * H:(i + 1) * H], (0, 0, 0, 1)) if d else
+        F.pad(y[:, :-1, i * H:(i + 1) * H], (0, 0, 1, 0))
+        for i, d in enumerate(dirs)])                            # [n,B,T,H]
     xcat = torch.cat([_op(x, ct, xz_bf16), y.new_ones((B, T, 1))], dim=-1)
-    a = torch.cat([xcat.expand(2, B, T, D + 1), h_prev], dim=-1)
+    a = torch.cat([xcat.expand(n, B, T, D + 1), h_prev], dim=-1)
     dW = torch.einsum("gbti,btgj->gij", a, dz)
     if not need_dx:
         return dW, None
     if not xz_bf16:
         return dW, torch.einsum("btgj,gdj->btd", dz, Wx2.to(ct))
     half = torch.einsum("btgj,gdj->gbtd", dz, _op(Wx2, ct, True))
-    dx = _op(half[0], ct, True) + _op(half[1], ct, True)
+    dx = _op(half[0], ct, True)
+    for i in range(1, n):
+        dx = dx + _op(half[i], ct, True)
     return dW, dx.to(x.dtype)
+
+
+# -- one direction alone ----------------------------------------------------
+
+def lstm1_apply_xz(params: dict, xz: torch.Tensor,
+                   lengths: Optional[torch.Tensor] = None,
+                   reverse: bool = False, xz_bf16: bool = False,
+                   with_state: bool = False):
+    """One direction's recurrence on its hoisted projection xz [B, T, 1,
+    4H] (``hoisted_projection`` of one direction) -> y [B, T, H]; with ``with_state`` (y,
+    gates [B, T, 1, 4H], cell [B, T, 1, H]). ``reverse``: the chain runs
+    from frame len-1 down (Reversed(NPLSTM)), in original time order out."""
+    y, g, c = _chain_plain([params], xz, lengths, with_state, xz_bf16,
+                           dirs_of(reverse))
+    return (y, g, c) if with_state else y
+
+
+def lstm1_fwd_state_plain(params: dict, x: torch.Tensor,
+                          lengths: Optional[torch.Tensor] = None,
+                          reverse: bool = False, xz_bf16: bool = False,
+                          with_state: bool = True):
+    """One direction's forward, the plain version of the one-direction
+    kernels (K1, or K3 without ``with_state``): y [B, T, H] and, with
+    ``with_state``, gates [B, T, 1, 4H] and cell [B, T, 1, H], the
+    projection in the recurrence (bf16 operands, not rounded, in the bf16
+    mode), with the rounding points and zeros of
+    ``bidi_lstm_fwd_state_plain``."""
+    return lstm1_apply_xz(params, _project([params], x, xz_bf16),
+                          lengths, reverse, xz_bf16, with_state)
+
+
+def lstm1_bwd_chain_plain(gates: torch.Tensor, cell: torch.Tensor,
+                          gy: torch.Tensor, Wh: torch.Tensor,
+                          lengths: Optional[torch.Tensor] = None,
+                          reverse: bool = False,
+                          xz_bf16: bool = False) -> torch.Tensor:
+    """K2's chain of one direction: gates [B, T, 1, 4H], cell [B, T, 1, H],
+    gy [B, T, H], Wh [1, H, 4H] -> dz [B, T, 1, 4H]
+    (``bidi_lstm_bwd_chain_plain`` at one direction)."""
+    return bidi_lstm_bwd_chain_plain(gates, cell, gy, Wh, lengths, xz_bf16,
+                                     dirs_of(reverse))
+
+
+def lstm1_bwd_reduce_plain(x: torch.Tensor, y: torch.Tensor,
+                           dz: torch.Tensor, Wx: torch.Tensor,
+                           need_dx: bool = True, reverse: bool = False,
+                           xz_bf16: bool = False):
+    """K2's contractions of one direction: x [B, T, D], y [B, T, H], dz
+    [B, T, 1, 4H], Wx [1, D, 4H] -> (dW [1, D+1+H, 4H], dx or None)
+    (``bidi_lstm_bwd_reduce_plain`` at one direction)."""
+    return bidi_lstm_bwd_reduce_plain(x, y, dz, Wx, need_dx, xz_bf16,
+                                      dirs_of(reverse))

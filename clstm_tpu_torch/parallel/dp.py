@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from clstm_tpu_torch.models.spec import ApplyCtx, NetSpec
+from clstm_tpu_torch.models.spec import ApplyCtx, NetSpec, out_lengths
 from clstm_tpu_torch.ops.ctc import greedy_frames
 from clstm_tpu_torch.parallel.mesh import Mesh, pack, shard_rows, unpack
 from clstm_tpu_torch.train import (
@@ -173,7 +173,8 @@ def make_parallel_multi_train_step(spec: NetSpec, mesh: Mesh, k: int,
         lr_t = lr if lr_arg is None else lr_arg
         mom_t = momentum if momentum_arg is None else momentum_arg
         x = group["x"]    # frames, or int ids of a text group
-        reports = torch.zeros((k, 1 + 2 * x.shape[1]), device=x.device)
+        reports = torch.zeros((k, 1 + 2 * out_lengths(spec, x.shape[1])),
+                              device=x.device)
         for s in range(n):
             state, metrics = device_step(
                 state, gather_batch(group, idx_all[j + s][rows],

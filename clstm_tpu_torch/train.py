@@ -33,7 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from clstm_tpu_torch.models.spec import ApplyCtx, Layer, NetSpec, apply_net
+from clstm_tpu_torch.models.spec import (
+    ApplyCtx, Layer, NetSpec, apply_net, out_lengths)
 from clstm_tpu_torch.ops.ctc import ctc_align_targets_batched, greedy_frames
 from clstm_tpu_torch.ops.preprocess import augment_generator, augment_lines
 from clstm_tpu_torch.ops.seq import length_mask
@@ -92,22 +93,26 @@ def ctc_alignment_loss(net: Layer, batch: dict, *, normalization: str = "none",
     (e.g. torch.bfloat16): the JAX package's scan recipe in its place, no
     LSTM kernel. The logits and the alignment are f32 either way: as in
     the JAX package, compute_dtype reaches only the net, and the alignment
-    stays exact f32 (ROADMAP.md Queue 3, "CTC matmul precision").
+    stays exact f32 (ROADMAP.md Queue 3, "CTC matmul precision"). The
+    alignment, the frame mask and the normalization run over the net's
+    output frames (``out_lengths``: the input lengths themselves for a net
+    that keeps the frame count, fewer after a pool).
     """
     x, lengths = batch["x"], batch["lengths"]
     logits = apply_net(net, x, lengths, logits=True, xz_bf16=xz_bf16,
                        compute_dtype=compute_dtype).float()
+    olengths = out_lengths(net.spec, lengths)
     with span("clstm.loss"):
         probs = torch.softmax(logits, dim=-1)
     with torch.no_grad():
         aligned = ctc_align_targets_batched(
-            probs.detach(), batch["targets"], lengths=lengths,
+            probs.detach(), batch["targets"], lengths=olengths,
             target_lengths=batch["target_lengths"])
     with span("clstm.loss"):
-        mask = length_mask(lengths, x.shape[1])
+        mask = length_mask(olengths, logits.shape[1])
         ll = F.log_softmax(logits, dim=-1)
         per_line = torch.sum(-torch.sum(aligned * ll, dim=-1) * mask, dim=-1)
-        loss = _reduce_lines(per_line, lengths, x.shape[0], normalization)
+        loss = _reduce_lines(per_line, olengths, x.shape[0], normalization)
     return loss, (probs.detach(), aligned)
 
 
@@ -121,13 +126,14 @@ def frame_target_loss(net: Layer, batch: dict, *, normalization: str = "none",
     x, lengths = batch["x"], batch["lengths"]
     logits = apply_net(net, x, lengths, logits=True, xz_bf16=xz_bf16,
                        compute_dtype=compute_dtype).float()
+    olengths = out_lengths(net.spec, lengths)
     with span("clstm.loss"):
         probs = torch.softmax(logits, dim=-1)
-        mask = length_mask(lengths, x.shape[1])
+        mask = length_mask(olengths, logits.shape[1])
         ll = F.log_softmax(logits, dim=-1)
         per_line = torch.sum(-torch.sum(batch["y"] * ll, dim=-1) * mask,
                              dim=-1)
-        loss = _reduce_lines(per_line, lengths, x.shape[0], normalization)
+        loss = _reduce_lines(per_line, olengths, x.shape[0], normalization)
     return loss, (probs.detach(), batch["y"])
 
 
@@ -338,7 +344,8 @@ def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
     min(nvalid, k) batches run (nvalid defaults to k); the rest leave state
     and counter untouched. metrics = {"loss": the last valid step's loss,
     "report": its packed report, "report_all": [k, 1+2T], every step's
-    packed (loss, row-0 ids, row-0 vals), zero rows from nvalid on}, so a
+    packed (loss, row-0 ids, row-0 vals) over the net's output frames
+    (``out_lengths`` of the group's T), zero rows from nvalid on}, so a
     caller reads a block's reports in one copy. ``input_onehot`` as in
     make_cached_train_step."""
     body = _step_body(spec, lr, momentum, loss_kind=loss_kind,
@@ -351,7 +358,8 @@ def make_multi_train_step(spec: NetSpec, k: int, lr: float = 1e-4,
                 j: int, nvalid=None, lr_arg=None, momentum_arg=None):
         n = k if nvalid is None else max(1, min(int(nvalid), k))
         x = group["x"]    # frames, or int ids of a text group
-        reports = torch.zeros((k, 1 + 2 * x.shape[1]), device=x.device)
+        reports = torch.zeros((k, 1 + 2 * out_lengths(spec, x.shape[1])),
+                              device=x.device)
         for s in range(n):
             with span("clstm.step"):
                 state, metrics = body(

@@ -39,6 +39,10 @@ SPANS = {
     "clstm.affine.fwd": "affine",       # models/spec.py _AffineBF16, Affine
     "clstm.affine.bwd": "affine",
     "clstm.hoist": "affine",            # ops/lstm.py hoisted_projection
+    "clstm.conv.fwd": "conv",           # models/spec.py Conv2D, MaxPool2D
+    "clstm.conv.bwd": "conv",
+    "clstm.ysum.fwd": "column LSTM",    # models/spec.py NPLSTMYSum
+    "clstm.ysum.bwd": "column LSTM",
     "clstm.ctc": "alignment",           # ops/ctc.py ctc_align_targets_batched
     "clstm.loss": "step glue",          # train.py the softmax and loss tail
     "clstm.backward": "step glue",      # train.py loss.backward()

@@ -161,6 +161,29 @@ def test_torch_epoch_blocks_match_jax(epochs, clamp_at):
                                       else sum(b[2] for b in want))
 
 
+def test_torch_a_block_not_run_leaves_the_next_its_own_rows():
+    """Blocks handed out and never run (a caller that picks one block of
+    several, as the benchmark's check does) leave every later block of
+    their plan its own rows: idx_all[j + s] holds the rows of its texts.
+    Before, j was the device counter the run blocks write back, and a
+    skipped block left the next one the rows it skipped."""
+    samples = _samples(n=40, seed=6, width=(100, 120))   # one group
+    codec = Codec.build([t for _, t in samples])
+    cache = DeviceDataset(samples, codec, device=CPU,
+                          t_buckets=tds.T_BUCKETS_FINE, merge_sb=True)
+
+    def rows_texts(ref, s):
+        g = ref["group"]
+        return [g["texts"][i] for i in ref["idx_all"][ref["j"] + s].tolist()
+                if i < g["n"]]
+    n = 0
+    for block in cache.epoch_blocks(2, 3, rng=np.random.RandomState(9)):
+        assert [rows_texts(block, s) for s in range(block["k"])] == \
+            block["texts"]
+        n += 1
+    assert n > 3
+
+
 def _cache_key(c):
     return [(g["tb"], g["sb"], g["n"], g["texts"]) for g in c.groups]
 
