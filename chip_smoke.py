@@ -281,8 +281,11 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      and reduction against their plain versions and float64 (weights of 0.3
      up to 100 units, the cell's own 0.01 at 512), K1 also step by step
      from its own state (stepwise_check), each first call counted alone:
-     one launch of one direction (one_counts); the forward, chain and
-     reduction timed in turns with the bidi pair's at the same shape; K4's
+     one launch of one direction (one_counts; at Lfx512 the forward's on
+     the 16-CTA cluster, FWD16_WIDE_C); the forward, chain and reduction
+     timed in turns with the bidi pair's at the same shape, and the
+     forward on the tensor-core kernel in turns with the FMA kernel at its
+     own plan (Lfx512's L2 plan), one direction and the pair; K4's
      one-direction modes on the hoisted product (D=400, H=200). Its rows
      join the kernels line. --lstm1 runs the build and this phase alone.
 
@@ -6451,6 +6454,15 @@ def lstm1_checks(dev, card: str, fwd_vs=None, k2_vs=None) -> dict:
                                    ndir=1)
         i16 = bk.device_fwd16_plan(dev, B_, T_, d, H_, False, state=False,
                                    ndir=1)
+        # Lfx512's forward takes the 16-CTA cluster (FWD16_WIDE_C: no
+        # portable size holds its slice), in both modes: its first calls
+        # below must count a launch of the tensor-core kernel.
+        if H_ == 512 and not f16.C == i16.C == bk.FWD16_WIDE_C:
+            raise AssertionError(f"lstm1 {key}: the forward's plans {f16}, "
+                                 f"{i16}, not clusters of "
+                                 f"{bk.FWD16_WIDE_C}")
+        fwd16_smem_checked(dev, D_, H_, f16)
+        fwd16_smem_checked(dev, D_, H_, i16, False)
         row = {"plan_one": lstm1_plan(B_, T_, D_, H_, 1),
                "plan_pair": lstm1_plan(B_, T_, D_, H_, 2), "valid": V,
                "weights": sc, "launches": {}}
@@ -6576,6 +6588,28 @@ def lstm1_checks(dev, card: str, fwd_vs=None, k2_vs=None) -> dict:
                 row["chain_at_pair_plan_ms"] = {"own": own,
                                                 "pair_plan": alt}
             del y1, g1, c1, gy1
+        # The forward on the tensor-core kernel in turns with the FMA
+        # kernel at its own plan (at Lfx512 the L2 plan the 16-CTA cluster
+        # replaced), one direction and the pair.
+        if f16.C:
+            with torch.no_grad():
+                for k, q, pp, n in (("fwd16_vs_fma_ms", f16, None, 1),
+                                    ("pair_fwd16_vs_fma_ms", f_pair, p2, 2)):
+                    fma = bk.device_plan(dev, B_, d, H_, False, True, 2, n)
+                    dm = 1 if pp is None else 0
+                    a, b = in_turns(
+                        lambda: bk._fwd("fwd_state", q, p, pp, x, L, True,
+                                        dm=dm),
+                        lambda: bk._fwd("fwd_state", fma, p, pp, x, L, True,
+                                        dm=dm), 3)
+                    row[k] = {"fwd16": a, "fma": b,
+                              "plan_fwd16": f"C={q.C} rows={q.rows}",
+                              "plan_fma": f"C={fma.C} rows={fma.rows} "
+                              f"resident={fma.resident}"}
+                    log(f"[lstm1] {key}: {k[:-3]} ({n} direction(s)): "
+                        f"fwd16 {row[k]['plan_fwd16']} {a[0]:.3f}, FMA "
+                        f"{row[k]['plan_fma']} {b[0]:.3f}, {b[1]:.3f}, "
+                        f"fwd16 {a[1]:.3f} ms | {card}")
         for k in ("fwd_at_pair_plan_ms", "chain_at_pair_plan_ms"):
             if k in row:
                 log(f"[lstm1] {key}: {k[:-3]}: own plan "
@@ -8127,6 +8161,10 @@ def main(argv=None) -> int:
                 "weights": r["weights"],
                 "stepwise": {dn: r[dn]["stepwise"]
                              for dn in ("forward", "reversed")}}}
+            if kind == "fwd_state":
+                extra[name]["one_direction"].update(
+                    {k: r[k] for k in ("fwd16_vs_fma_ms",
+                                       "pair_fwd16_vs_fma_ms") if k in r})
     extra[f"bidi_lstm_fwd_state bf16 one direction ({LSTM1_LAYERS[0]}: "
           f"B={LSTM1_SHAPES[0][0]} T={LSTM1_SHAPES[0][1]} "
           f"D={LSTM1_SHAPES[0][2]} H={LSTM1_SHAPES[0][3]})"][

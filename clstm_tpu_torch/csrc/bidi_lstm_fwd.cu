@@ -755,6 +755,10 @@ constexpr int F16_WARPS = F16_THREADS / 32;
 constexpr int F16_UNITS = 8;
 // Dynamic shared memory a CTA may use, less the static row lengths.
 constexpr int F16_SMEM_MAX = SMEM_MAX - 4 * 2 * F16_M;
+// The non-portable cluster size an H100 allows: H = 512's Wh and [Wx; b]
+// resident at 32 units a CTA, where no portable size holds a slice (the
+// host tries it only then: ops/bidi_lstm_kernel.py::fwd16_cluster_plan).
+constexpr int F16_WIDE_C = 16;
 
 // n tiles a warp takes at most: 2 with one m tile, 1 with two. 20 warps
 // of 2 n tiles hold the 36 of H=200 at C=3 (4 warps of 3 and 12 of 2 at
@@ -802,13 +806,15 @@ __host__ __device__ inline Geo16 geo16(int D, int H, int U, int R,
   return g;
 }
 
-// A fwd16 plan, checked: C in {1, 2, 3, 4, 8} with every CTA owning at
-// least one unit and all of them together every unit, R 16 or 32 rows, U a
-// multiple of F16_UNITS whose n tiles (U/2) the warps take at most
-// f16_ng a warp, D even (the kernel's x width; 0 with hoist), shared memory
-// within a CTA's. Returns its bytes of shared memory, 0 if it is not one.
+// A fwd16 plan, checked: C in {1, 2, 3, 4, 8} (the portable sizes) or
+// F16_WIDE_C, with every CTA owning at least one unit and all of them
+// together every unit, R 16 or 32 rows, U a multiple of F16_UNITS whose n
+// tiles (U/2) the warps take at most f16_ng a warp, D even (the kernel's x
+// width; 0 with hoist), shared memory within a CTA's. Returns its bytes of
+// shared memory, 0 if it is not one.
 long long plan16(int D, int H, bool hoist, bool emit, int C, int R, int U) {
-  if (!((C >= 1 && C <= 4) || C == 8) || !(R == 16 || R == 32) || H < 1 ||
+  if (!((C >= 1 && C <= 4) || C == 8 || C == F16_WIDE_C) ||
+      !(R == 16 || R == 32) || H < 1 ||
       U < F16_UNITS || U % F16_UNITS != 0 || (long long)C * U < H ||
       (long long)(C - 1) * U >= H ||
       U / 2 > F16_WARPS * f16_ng(R / F16_M) ||
@@ -1408,7 +1414,9 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
 using Fwd16 = void (*)(const bf16*, const int32_t*, const bf16*, const bf16*,
                        bf16*, float*, bf16*, int, int, int, int, int, int);
 
-// The kernel instance of a plan, with its shared-memory limit set.
+// The kernel instance of a plan, with its shared-memory limit set and
+// clusters past the portable 8 CTAs allowed (F16_WIDE_C), before both the
+// occupancy query and the launch.
 cudaError_t fwd16_of(bool hoist, bool emit, int R, long long smem,
                      Fwd16* kern) {
   static const Fwd16 table[2][2][2] = {
@@ -1417,6 +1425,9 @@ cudaError_t fwd16_of(bool hoist, bool emit, int R, long long smem,
       {{fwd16_kernel<true, false, 1>, fwd16_kernel<true, false, 2>},
        {fwd16_kernel<true, true, 1>, fwd16_kernel<true, true, 2>}}};
   *kern = table[hoist][emit][R / F16_M - 1];
+  const cudaError_t e = cudaFuncSetAttribute(
+      *kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(*kern,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);

@@ -305,8 +305,9 @@ FWD_ROWS_MAX = 64
 FWD_L2_ROWS = 16
 # Clusters of C CTAs, one CTA per SM, that an H100 SXM holds at once
 # (cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3: the GPCs,
-# not the 132 SMs, set them). fwd_plan's default where no card is asked.
-H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 8: 15}
+# not the 132 SMs, set them; 16 is fwd16's non-portable size). fwd_plan's
+# default where no card is asked.
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 8: 15, 16: 7}
 
 
 class FwdPlan(NamedTuple):
@@ -443,14 +444,17 @@ def fwd_plan(B: int, D: int, H: int, hoist: bool, state: bool,
 # The bf16 mode's K3, K1 and K4 (both modes) on the tensor cores
 # (csrc/bidi_lstm_fwd.cu: fwd16_kernel): rows of an m16 tile (a cluster
 # takes one or two), threads of a CTA, the multiple of units a CTA owns (its
-# h goes to its peers in 16-byte chunks of 8 units), the cluster sizes, and
-# the shared memory a CTA may use beside its row lengths.
+# h goes to its peers in 16-byte chunks of 8 units), the cluster sizes (the
+# portable ones, and the non-portable size an H100 allows, tried only where
+# no portable size holds a plan: H = 512 with its x part), and the shared
+# memory a CTA may use beside its row lengths.
 FWD16_M = 16
 FWD16_ROWS = (16, 32)
 FWD16_THREADS = 640
 FWD16_WARPS = FWD16_THREADS // 32
 FWD16_UNITS = 8
 FWD16_CLUSTER_SIZES = (1, 2, 3, 4, 8)
+FWD16_WIDE_C = 16
 FWD16_SMEM_MAX = SMEM_MAX - 4 * 2 * FWD16_M
 # Where the FMA kernel (bidi_lstm_fwd_kernel at fwd_plan: h·Wh on the FMA
 # pipes) beats the tensor-core kernel although a plan of it fits, read from
@@ -525,11 +529,12 @@ def fwd16_smem(D: int, H: int, rows: int, units: int, hoist: bool,
                C: int, *, state: bool) -> int:
     """Bytes of dynamic shared memory a fwd16 CTA takes, 0 where the kernel
     takes no such plan (clstm_bidi_lstm_fwd16_smem counts the same): C in
-    FWD16_CLUSTER_SIZES with every CTA owning a unit, rows in FWD16_ROWS,
-    units a multiple of FWD16_UNITS whose n tiles (units/2) the warps take
-    at most fwd16_ng each, D even (0 with ``hoist``), within
+    FWD16_CLUSTER_SIZES or FWD16_WIDE_C with every CTA owning a unit, rows
+    in FWD16_ROWS, units a multiple of FWD16_UNITS whose n tiles (units/2)
+    the warps take at most fwd16_ng each, D even (0 with ``hoist``), within
     FWD16_SMEM_MAX; ``state`` as fwd16_geometry."""
-    if (C not in FWD16_CLUSTER_SIZES or rows not in FWD16_ROWS or H < 1
+    if (C not in FWD16_CLUSTER_SIZES + (FWD16_WIDE_C,)
+            or rows not in FWD16_ROWS or H < 1
             or units < FWD16_UNITS or units % FWD16_UNITS
             or C * units < H or (C - 1) * units >= H
             or units // 2 > FWD16_WARPS * fwd16_ng(rows)
@@ -569,10 +574,13 @@ def fwd16_cluster_plan(B: int, D: int, H: int, hoist: bool, clusters=None,
     (rows·units: its share of the product and of the gate math), then the
     smaller C (fewer CTAs to hand h to), then fewer rows: at B=256, H=100
     and 200, C=3 with 16 rows (32 clusters of 3 in one wave on an H100,
-    which holds 39 of 3 and 30 of 4). FWD16_NONE where none fits.
+    which holds 39 of 3 and 30 of 4). Where no portable size gives a
+    plan, the same choice over FWD16_WIDE_C (H = 512 with its x part: Wh
+    and [Wx; b] resident over 16 CTAs); FWD16_NONE where none fits.
     ``clusters(C, rows, units)`` gives how many clusters of a plan the
     card holds at once: on a card the occupancy query of the mode's
-    instance (``fwd16_clusters``), by default H100_CLUSTERS. ``C`` and
+    instance (``fwd16_clusters``), by default H100_CLUSTERS; a plan of
+    which it holds none is skipped. ``C`` and
     ``rows`` force a choice, for measurements (scripts/torch_fwd16_probe.py
     times the plans in turns). ``ndir``: the call's directions (the waves
     count ndir·groups)."""
@@ -583,19 +591,25 @@ def fwd16_cluster_plan(B: int, D: int, H: int, hoist: bool, clusters=None,
             return H100_CLUSTERS[C]
     d = 0 if hoist else D
     best, key = None, None
-    for c in FWD16_CLUSTER_SIZES if C is None else (C,):
-        units = fwd16_units(H, c)
-        if not units:
-            continue
-        for r in FWD16_ROWS if rows is None else (rows,):
-            smem = fwd16_smem(d, H, r, units, hoist, c, state=state)
-            if not smem:
+    for sizes in (((C,),) if C is not None
+                  else (FWD16_CLUSTER_SIZES, (FWD16_WIDE_C,))):
+        for c in sizes:
+            units = fwd16_units(H, c)
+            if not units:
                 continue
-            groups = -(-B // r)
-            n = int(clusters(c, r, units))
-            k = (-(-ndir * groups // n), r * units, c, r)
-            if key is None or k < key:
-                best, key = Fwd16Plan(c, r, units, smem, groups, n), k
+            for r in FWD16_ROWS if rows is None else (rows,):
+                smem = fwd16_smem(d, H, r, units, hoist, c, state=state)
+                if not smem:
+                    continue
+                groups = -(-B // r)
+                n = int(clusters(c, r, units))
+                if n < 1:
+                    continue
+                k = (-(-ndir * groups // n), r * units, c, r)
+                if key is None or k < key:
+                    best, key = Fwd16Plan(c, r, units, smem, groups, n), k
+        if best:
+            break
     return best or FWD16_NONE
 
 
@@ -605,8 +619,8 @@ def fwd16_plan(B: int, T: int, D: int, H: int, hoist: bool,
     or K4 inference with ``hoist``) plan for B rows of T frames, x width D
     (the kernel's, even) and H units: the cluster plan of
     fwd16_cluster_plan, or FWD16_NONE (the FMA kernel, fwd_plan) where none
-    fits (H of several hundred with the x part, 700, 2048) or
-    fwd16_prefers_old."""
+    fits (H = 700, 2048; H of several hundred with an x part that no
+    cluster of 16 holds beside Wh) or fwd16_prefers_old."""
     if min(B, T, H) < 1:
         raise ValueError(f"no fwd16 plan for B={B} T={T} H={H}")
     if fwd16_prefers_old(T, H):
@@ -1078,7 +1092,8 @@ def device_chain_plan(device, B: int, T: int, H: int,
 def fwd16_clusters(device, D: int, H: int, hoist: bool, *, state: bool):
     """``clusters`` for fwd16_cluster_plan on ``device``'s card: the
     occupancy query of the fwd16 kernel's instance of the mode
-    (``clstm_bidi_lstm_fwd16_clusters``), cached."""
+    (``clstm_bidi_lstm_fwd16_clusters``), cached; 0 where the card holds
+    no such cluster (the plan skips it)."""
     def query(C, rows, units):
         k = ("fwd16", device, D, H, hoist, state, C, rows, units)
         n = _active.get(k)
@@ -1088,11 +1103,10 @@ def fwd16_clusters(device, D: int, H: int, hoist: bool, *, state: bool):
                 n = _kernel("clstm_bidi_lstm_fwd16_clusters")(
                     0 if hoist else D, H, int(hoist), int(state), C, rows,
                     units)
-            if n < 1:
+            if n < 0:
                 raise RuntimeError(
-                    f"the card holds no cluster of {C} CTAs of the fwd16 "
-                    f"plan ({rows} rows, {units} units; the occupancy query "
-                    f"returned {n})")
+                    f"the occupancy query of the fwd16 plan (C={C}, {rows} "
+                    f"rows, {units} units) failed: CUDA error {-n}")
             _active[k] = n
         return n
     return query

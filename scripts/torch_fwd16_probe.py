@@ -20,9 +20,14 @@ default):
     with cuDNN's bf16 nn.LSTM, and with --fwd-against with that source's
     bf16 kernel of the mode;
   - every other fwd16 plan that fits (C of 1, 2, 3, 4, 8; 16 or 32 rows) in
-    turns with the plan at bidi and bidi2's two layers, with the clusters
-    the card holds of each;
+    turns with the plan at bidi and bidi2's two layers (and, in the state
+    mode, the bidi pair at H=512, whose plan is the 16-CTA cluster), with
+    the clusters the card holds of each;
   - the device time of each kernel (torch.profiler);
+  - in the state mode, Lfx512 (tess_eng's widest layer, one direction:
+    B=256, T=512, x width 96, H=512) on the 16-CTA cluster in turns with
+    the FMA kernel at its L2 plan, K1 and K3, both directions, beside the
+    bound, with the card's count of clusters of 16 (wide_turns);
   - the registers, shared memory and spills of the fwd16 kernels (nvcc
     -Xptxas -v; the whole report in chiprun_out/fwd16_ptxas.txt);
   - with --phases, where a step's time goes: the source built with
@@ -73,9 +78,11 @@ PHASES = ("cluster wait", "x/xz staging", "product", "gate math and stage",
           "block barrier", "hand-off copy", "cluster arrive", "next input",
           "stores")
 # The bench shapes per mode (state: True, inference: False; label, D, H; D
-# 0: K4 at bidi2's layer 2).
+# 0: K4 at bidi2's layer 2); the state mode also the pair at Lfx512's
+# widths (the 16-CTA cluster).
 BENCH = {True: (("bidi K1", cs.D, cs.H), ("bidi2 layer 1 K1", cs.D, cs.H2),
-                ("bidi2 layer 2 K4 state", 0, cs.H2)),
+                ("bidi2 layer 2 K4 state", 0, cs.H2),
+                ("H=512 pair K1", 96, 512)),
          False: (("bidi K3", cs.D, cs.H), ("bidi2 layer 1 K3", cs.D, cs.H2),
                  ("bidi2 layer 2 K4", 0, cs.H2))}
 
@@ -92,7 +99,7 @@ def bench_inputs(dev, d: int, h: int, t: int = cs.T, lengths=None,
     rng = np.random.RandomState(9)
     hoist = d == 0
     dx = cs.D2 if hoist else d
-    sc = 0.3 if h == cs.H else 0.1
+    sc = 0.3 if h == cs.H else 0.1 if h <= cs.H2 else 0.01
     pf, pr = cs.lstm_params(rng, dx, h, dev, sc), cs.lstm_params(rng, dx, h,
                                                                  dev, sc)
     x = cs.uniform(rng, (b, t, dx), -1.0, 1.0, dev)
@@ -238,6 +245,62 @@ def plan_alternatives(card: str, dev, reps: int, state: bool) -> dict:
     return out
 
 
+# Lfx512 at the 1,536-frame bucket pooled by 3 (chip_smoke.LSTM1_SHAPES).
+WIDE = (256, 512, 96, 512)
+
+
+def wide_turns(card: str, dev, reps: int) -> dict:
+    """Lfx512's one-direction forward, K1 and K3, both directions, on its
+    fwd16 plan (the 16-CTA cluster, FWD16_WIDE_C) in turns with the FMA
+    kernel at its own plan (the L2 plan: fwd16, FMA, FMA, fwd16), through
+    bk._fwd as the wrapper launches them; outputs within 2e-2 of max|FMA|,
+    the kernel's count of the plan's shared memory, the bound at one
+    direction; the cell's 0.01 weights, lengths as chip_smoke's phase 27."""
+    B, T, D, H = WIDE
+    rng = np.random.RandomState(23)
+    p = cs.lstm_params(rng, D, H, dev, 0.01)
+    x = cs.uniform(rng, (B, T, D), 0.0, 1.0, dev)
+    L = cs.lstm1_lengths(rng, B, T, dev)
+    V = int(L.sum())
+    out = {}
+    for state in (True, False):
+        kind = "fwd_state" if state else "fwd"
+        q = bk.device_fwd16_plan(dev, B, T, D, H, False, state=state,
+                                 ndir=1)
+        if q.C != bk.FWD16_WIDE_C:
+            raise AssertionError(f"Lfx512 {kind}: plan {q}")
+        cs.fwd16_smem_checked(dev, D, H, q, state)
+        fma = bk.device_plan(dev, B, D, H, False, state, 2, 1)
+        bound = cs.lstm_bound(kind, B, T, D, H, V, esize=2, ndir=1)
+        for dm in (1, 2):
+            def new(dm=dm):
+                return bk._fwd(kind, q, p, None, x, L, True, dm=dm)
+
+            def old(dm=dm):
+                return bk._fwd(kind, fma, p, None, x, L, True, dm=dm)
+            a, b = new(), old()
+            if not state:
+                a, b = (a,), (b,)
+            e = max(cs.rel_err(u.float(), v.float()) for u, v in zip(a, b))
+            if not e <= 2e-2:
+                raise AssertionError(f"Lfx512 {kind} dm={dm}: fwd16 is "
+                                     f"{e:.3e} of max off the FMA kernel")
+            del a, b
+            k_t, o_t = cs.in_turns(new, old, reps)
+            key = f"{kind} {'forward' if dm == 1 else 'reversed'}"
+            out[key] = {"plan": q._asdict(), "fma_plan": fma._asdict(),
+                        "ms": k_t, "fma_ms": o_t, "bound": bound,
+                        "rel_err": e}
+            log(f"[wide] {card} | Lfx512 B={B} T={T} D={D} H={H} {key}: "
+                f"fwd16 C={q.C} rows={q.rows} ({q.clusters} clusters of "
+                f"{q.C} at once, {-(-q.groups // q.clusters)} waves) "
+                f"{k_t[0]:.3f}, FMA C={fma.C} rows={fma.rows} resident="
+                f"{fma.resident} {o_t[0]:.3f}, {o_t[1]:.3f}, fwd16 "
+                f"{k_t[1]:.3f} ms; bound {bound[0]:.3f} ms ({bound[1]}); "
+                f"{e:.2e} of max apart")
+    return out
+
+
 def device_times(dev, reps: int, state: bool) -> dict:
     """torch.profiler's device ms per launch of the fwd16 kernel and of the
     FMA kernel at the three bench shapes of the mode."""
@@ -367,6 +430,8 @@ def main() -> int:
                 res[f"plans {tag}"] = plan_alternatives(card, dev, args.reps,
                                                         state)
                 res[f"device_ms {tag}"] = device_times(dev, args.reps, state)
+                if state:
+                    res["wide"] = wide_turns(card, dev, args.reps)
             if args.phases:
                 res["phases"] = phase_clocks(card, dev, modes)
     if args.t_sweep or args.only_sweep:

@@ -312,6 +312,59 @@ def test_torch_fwd16_plan_window(T, H):
     assert bk.fwd16_prefers_old(T, H) == WINDOW[(T, H)]
 
 
+# (B, D, H): the eng net's one-direction layers and the bidi nets' K1 and
+# K4 state shapes, where a portable cluster size holds a plan.
+PORTABLE_SHAPES = ([k[:3] for k in PINNED_PLAN]
+                   + [(256, 64, 96), (256, 96, 96), (256, 16, 64),
+                      (131072, 16, 64), (256, 48, 100), (256, 48, 200),
+                      (32, 48, 100), (256, 0, 200)])
+
+
+@pytest.mark.parametrize("B,D,H", sorted(set(PORTABLE_SHAPES)))
+def test_torch_fwd16_wide_cluster_only_where_no_portable_size_fits(B, D, H):
+    """FWD16_WIDE_C is never chosen where a portable size gives a plan: the
+    plan there is the one of the portable sizes alone, in both modes and
+    at one direction's groups and the pair's."""
+    hoist = D == 0
+    for state in (True, False):
+        for ndir in (1, 2):
+            p = bk.fwd16_cluster_plan(B, D, H, hoist, state=state, ndir=ndir)
+            assert p.C in bk.FWD16_CLUSTER_SIZES, (state, ndir, p)
+
+            def portable(C, r, u):
+                return bk.H100_CLUSTERS[C] if C != bk.FWD16_WIDE_C else 0
+            assert p == bk.fwd16_cluster_plan(B, D, H, hoist, portable,
+                                              state=state, ndir=ndir)
+
+
+def test_torch_fwd16_plan_takes_the_wide_cluster_at_h512():
+    """Lfx512 (B=256, x width 96, H=512): no portable size holds its slice,
+    so the plan is a cluster of 16 CTAs, 16 rows, 32 units, 227,328 bytes
+    of shared memory, one direction's 16 groups over the card's 7 clusters
+    of 16; the same for the pair, K3 and K4's state mode. A card that
+    holds no cluster of 16 falls back to the FMA kernel."""
+    p = bk.fwd16_plan(256, 512, 96, 512, False, state=True, ndir=1)
+    assert (p.C, p.rows, p.units, p.smem) == (16, 16, 32, 227_328)
+    assert (p.groups, p.clusters) == (16, bk.H100_CLUSTERS[16])
+    for C in bk.FWD16_CLUSTER_SIZES:
+        assert not bk.fwd16_cluster_plan(256, 96, 512, False, C=C,
+                                         state=True).C
+    assert bk.fwd16_plan(256, 512, 96, 512, False, state=True).C == 16
+    assert bk.fwd16_plan(256, 512, 96, 512, False, state=False,
+                         ndir=1).C == 16
+    assert bk.fwd16_plan(256, 512, 0, 512, True, state=True).C == 16
+    # 32 rows do not fit at 16.
+    assert not bk.fwd16_smem(96, 512, 32, 32, False, 16, state=True)
+
+    def none16(C, r, u):
+        return 0 if C == bk.FWD16_WIDE_C else bk.H100_CLUSTERS[C]
+    assert bk.fwd16_plan(256, 512, 96, 512, False, none16, state=True,
+                         ndir=1) == bk.FWD16_NONE
+    assert bk.fwd16_cluster_plan(256, 96, 512, False, none16, C=16,
+                                 state=True) == bk.FWD16_NONE
+    assert bk.fwd_plan(256, 96, 512, False, True, esize=2, ndir=1).C
+
+
 def test_torch_fwd16_plan_follows_the_card():
     """A card that holds fewer clusters moves the plan (more rows, another
     C), never to a failure; a forced C or rows is taken where it fits."""
@@ -427,13 +480,14 @@ def _inputs(B, T, D, H, seed):
 
 # (B, T, D, H, hoist, C, rows): at the plan (C None), and at forced plans
 # the emulation would not reach otherwise: 32 rows (two m16 tiles), C=2 and
-# C=4 with a short last CTA, C=8, an odd D (padded), H not a multiple of 8.
+# C=4 with a short last CTA, C=8, C=16 (FWD16_WIDE_C), an odd D (padded), H
+# not a multiple of 8.
 EMU_CASES = [(3, 6, 6, 7, False, None, None),
              (17, 5, 48, 24, False, None, None),
              (5, 7, 5, 40, False, 2, None), (17, 4, 6, 33, False, None, 32),
              (3, 5, 0, 7, True, None, None), (5, 6, 0, 40, True, 3, None),
              (4, 4, 0, 201, True, 4, None), (5, 4, 0, 40, True, None, 32),
-             (3, 4, 9, 64, False, 8, None)]
+             (3, 4, 9, 64, False, 8, None), (3, 4, 6, 128, False, 16, None)]
 
 
 @pytest.mark.parametrize("B,T,D,H,hoist,C,rows", EMU_CASES)

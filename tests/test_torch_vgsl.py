@@ -326,8 +326,9 @@ def test_one_direction_plans_count_one_directions_groups(B, T, D, H):
     """At the eng net's shapes (and bidi's), every plan of a lone layer
     counts one direction's row groups where the bidi pair's counts two:
     no more waves than the pair's, its rows as the pair's would be at
-    twice the clusters; H=512 has no cluster plan in either mode (the FMA
-    forward and K2's L2 chain)."""
+    twice the clusters; at H=512 the forward takes a cluster of 16 CTAs
+    (FWD16_WIDE_C: no portable size holds its slice) and K2's chain its L2
+    plan (CHAIN_L2), in either mode."""
     one = bk.fwd16_plan(B, T, D, H, False, state=True, ndir=1)
     two = bk.fwd16_plan(B, T, D, H, False, state=True)
     for p, n in ((one, 1), (two, 2)):
@@ -349,7 +350,8 @@ def test_one_direction_plans_count_one_directions_groups(B, T, D, H):
     assert r1.scratch < r2.scratch
     assert r1.blocks // r1.ranges * 2 == r2.blocks // r2.ranges
     if H == 512:
-        assert not one.C and not two.C and not c1.C and not c2.C
+        assert one.C == two.C == bk.FWD16_WIDE_C
+        assert c1 == c2 == bk.CHAIN_L2
         assert f1.resident == 0
     if (B, T) == (131072, 12):
         assert not one.C and f1.groups == f2.groups == -(-B // f1.rows)
