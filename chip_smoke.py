@@ -289,18 +289,16 @@ compute_dtype and fuse_bidi=False), the trace and display_every:
      one-direction modes on the hoisted product (D=400, H=200). Its rows
      join the kernels line. --lstm1 runs the build and this phase alone.
 
-With --k2-against SRC, every timed K2 shape also times the K2 built from
-SRC in turns with the current one (against, current, current, against),
-and where SRC has a bf16 reduction (PR 12's interface or the current
-one), so do K2's bf16 reduction at its four shapes and the bidi, bidi2
-and clstmfiltertrain bf16 steps with that build's reduction (and its bf16
-chain); where SRC has a bf16 chain (clstm_bidi_lstm_bwd_chain_bf16), so
-does K2's bf16 chain at its three shapes;
-with --fwd-against SRC, the same for the forward kernel at K3 and K1
-(bidi), K1 (bidi2 layer 1), K4 in both modes (bidi2 layer 2), and K3 with
-the projection inside at D=400 and D=255 (H=200, the L2 plan), and where
-SRC has the bf16 mode, its bf16 K1 and K4 state (its fwd16 kernel, or PR
-5's kernel in sources before it) at phase 19's FWD16_SHAPES; with
+With --k2-against SRC (a bidi_lstm_bwd.cu of this C interface), every
+timed K2 shape also times the K2 built from SRC in turns with the current
+one (against, current, current, against), at the current plans: the f32
+chain and reduction, K2's bf16 reduction at its four shapes and bf16
+chain at its three, and the bidi, bidi2 and clstmfiltertrain bf16 steps
+with that build's K2; with --fwd-against SRC (a bidi_lstm_fwd.cu of this
+C interface), the same for the forward kernel at K3 and K1 (bidi), K1
+(bidi2 layer 1), K4 in both modes (bidi2 layer 2), and K3 with the
+projection inside at D=400 and D=255 (H=200, the L2 plan), and in the
+bf16 mode K1 and K4 state, K3 and K4 inference at phase 19's shapes; with
 --ctc-against SRC, the same for K5, K6 and K6b at the bench shape, and
 the bidi and bidi2 train_batch steps with that build's K5 and K6 in turns
 with the current ones.
@@ -893,293 +891,43 @@ def einsum_reduce(x, y, dz, Wx2, need_dx: bool):
     return run
 
 
-def load_k2_against(src: str):
-    """``--k2-against SRC``: K2 built from another source with the same nvcc
-    flags, to time in turns with the current K2 -> (chain, reduce,
-    reduce_bf16, chain_bf16, chain16) with the wrappers' signatures
-    (chain16: SRC's bf16 chain on clusters at the current plan, where SRC
-    has one, else None; reduce_bf16,
-    chain_bf16: the bf16 mode's reduction and chain; chain_bf16 is SRC's
-    clstm_bidi_lstm_bwd_chain_bf16, the interface of every source with a
-    bf16 mode: WhT in bf16 padded to clstm_bidi_lstm_bwd_hp, the L2
-    branch of the current source; None where SRC has none). SRC may have the current C interface (WhT padded to
-    clstm_bidi_lstm_bwd_hp, f32 scratch from clstm_bidi_lstm_bwd_scratch,
-    the bf16 reduction taking reduce_plan's plan and sizing its scratch by
-    clstm_bidi_lstm_bwd_bf16_scratch), PR 12's (the same f32 entries, the
-    bf16 reduction on bf16 x and wx with clstm_bidi_lstm_bwd_scratch's f32
-    scratch and dx_bf16) or the earlier one (WhT unpadded [2, 4H, H], dW
-    partials sized by clstm_bidi_lstm_bwd_nsplit(B, T), no bf16 entries:
-    reduce_bf16 is None). No launch is counted."""
+def load_against(src: str):
+    """``--fwd-against`` / ``--k2-against SRC``: SRC (csrc/bidi_lstm_fwd.cu
+    or bidi_lstm_bwd.cu of this C interface, from another tree) built with
+    the package's nvcc flags -> a ``launch`` that calls its entry points
+    (bk.launcher), for fwd_via, chain_via and reduce_via to time in turns
+    with the current build at the current plans."""
     with tempfile.TemporaryDirectory() as tmp:
-        so = os.path.join(tmp, "k2_against.so")
+        so = os.path.join(tmp, "against.so")
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
                         so, src], check=True, capture_output=True, timeout=600)
-        lib = ctypes.CDLL(so)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    current = hasattr(lib, "clstm_bidi_lstm_bwd_scratch")
-    has_chain16 = hasattr(lib, "clstm_bidi_lstm_bwd_chain_bf16")
-    plan16 = hasattr(lib, "clstm_bidi_lstm_bwd_bf16_scratch")
-    has16 = hasattr(lib, "clstm_bidi_lstm_bwd_reduce_bf16")
-    lib.clstm_bidi_lstm_bwd_chain.argtypes = [P] * 6 + [I] * 3 + [P]
-    lib.clstm_bidi_lstm_bwd_reduce.argtypes = [P] * 7 + [I] * 4 + [P]
-    if current:
-        lib.clstm_bidi_lstm_bwd_hp.argtypes = [I]
-        lib.clstm_bidi_lstm_bwd_scratch.argtypes = [I] * 4
-        lib.clstm_bidi_lstm_bwd_scratch.restype = ctypes.c_longlong
-    else:
-        lib.clstm_bidi_lstm_bwd_nsplit.argtypes = [I] * 2
-    if plan16:
-        lib.clstm_bidi_lstm_bwd_reduce_bf16.argtypes = (
-            [P, I] + [P] * 6 + [I] * 8 + [P])
-    elif has16:
-        lib.clstm_bidi_lstm_bwd_reduce_bf16.argtypes = (
-            [P] * 7 + [I] * 5 + [P])
-    if has_chain16:
-        lib.clstm_bidi_lstm_bwd_chain_bf16.argtypes = [P] * 6 + [I] * 3 + [P]
-
-    def check(err):
-        if err != 0:
-            raise RuntimeError(f"K2 from {src}: CUDA error {err}")
-
-    def chain(gates, cell, gy, Wh2, lengths):
-        B, T, _, G = gates.shape
-        H = G // 4
-        dz = torch.empty_like(gates)
-        hp = lib.clstm_bidi_lstm_bwd_hp(H) if current else H
-        whT = torch.zeros((2, G, hp), dtype=torch.float32, device=gates.device)
-        whT[:, :, :H] = Wh2.transpose(1, 2)
-        check(lib.clstm_bidi_lstm_bwd_chain(
-            0 if lengths is None else lengths.data_ptr(), gates.data_ptr(),
-            cell.data_ptr(), gy.data_ptr(), whT.data_ptr(), dz.data_ptr(), B,
-            T, H, torch.cuda.current_stream().cuda_stream))
-        return dz
-
-    def reduce(x, y, dz, Wx2, need_dx):
-        B, T, D = x.shape
-        H = y.shape[-1] // 2
-        M, G = D + 1 + H, 4 * H
-        n = (lib.clstm_bidi_lstm_bwd_scratch(B, T, D, H) if current
-             else lib.clstm_bidi_lstm_bwd_nsplit(B, T) * 2 * M * G)
-        scratch = torch.empty(n, dtype=torch.float32, device=x.device)
-        dW = torch.empty((2, M, G), dtype=torch.float32, device=x.device)
-        dx = torch.empty_like(x) if need_dx else None
-        check(lib.clstm_bidi_lstm_bwd_reduce(
-            x.data_ptr(), y.data_ptr(), dz.data_ptr(), Wx2.data_ptr(),
-            scratch.data_ptr(), dW.data_ptr(), 0 if dx is None else
-            dx.data_ptr(), B, T, D, H,
-            torch.cuda.current_stream().cuda_stream))
-        return dW, dx
-
-    def reduce_bf16(x, y, dz, Wx2, need_dx):
-        B, T, D = x.shape
-        H = y.shape[-1] // 2
-        M, G = D + 1 + H, 4 * H
-        dev = x.device
-        dW = torch.empty((2, M, G), dtype=torch.float32, device=dev)
-        dx = torch.empty_like(x) if need_dx else None
-        stream = torch.cuda.current_stream().cuda_stream
-        if plan16:
-            plan = bk.device_reduce_plan(dev, B, T, D, H)
-            scratch = torch.empty(plan.scratch, dtype=torch.uint8,
-                                  device=dev)
-            wx = Wx2.contiguous()
-            check(lib.clstm_bidi_lstm_bwd_reduce_bf16(
-                x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
-                dz.data_ptr(), wx.data_ptr(), scratch.data_ptr(),
-                dW.data_ptr(), 0 if dx is None else dx.data_ptr(), B, T, D,
-                H, plan.nw, plan.tt, plan.spr, plan.nwd, stream))
-            return dW, dx
-        # PR 12's interface: x and wx in bf16, f32 scratch.
-        scratch = torch.empty(lib.clstm_bidi_lstm_bwd_scratch(B, T, D, H),
-                              dtype=torch.float32, device=dev)
-        x16 = x.to(torch.bfloat16).contiguous()
-        wx16 = Wx2.to(torch.bfloat16).contiguous()
-        check(lib.clstm_bidi_lstm_bwd_reduce_bf16(
-            x16.data_ptr(), y.data_ptr(), dz.data_ptr(), wx16.data_ptr(),
-            scratch.data_ptr(), dW.data_ptr(),
-            0 if dx is None else dx.data_ptr(), B, T, D, H,
-            int(x.dtype == torch.bfloat16), stream))
-        return dW, dx
-
-    def chain_bf16(gates, cell, gy, Wh2, lengths):
-        B, T, _, G = gates.shape
-        H = G // 4
-        dz = torch.empty((B, T, 2, G), dtype=torch.bfloat16,
-                         device=gates.device)
-        hp = lib.clstm_bidi_lstm_bwd_hp(H)
-        whT = torch.zeros((2, G, hp), dtype=torch.bfloat16,
-                          device=gates.device)
-        whT[:, :, :H] = Wh2.transpose(1, 2)
-        check(lib.clstm_bidi_lstm_bwd_chain_bf16(
-            0 if lengths is None else lengths.data_ptr(), gates.data_ptr(),
-            cell.data_ptr(), gy.data_ptr(), whT.data_ptr(), dz.data_ptr(), B,
-            T, H, torch.cuda.current_stream().cuda_stream))
-        return dz
-    def chain16(gates, cell, gy, Wh2, lengths):
-        # The bf16 chain on clusters at the current plan (sources with it).
-        B, T, _, G = gates.shape
-        H = G // 4
-        plan = bk.device_chain_plan(gates.device, B, T, H)
-        if not plan.C:
-            return chain_bf16(gates, cell, gy, Wh2, lengths)
-        dz = torch.empty((B, T, 2, G), dtype=torch.bfloat16,
-                         device=gates.device)
-        wh = Wh2.detach().to(torch.bfloat16).contiguous()
-        check(lib.clstm_bidi_lstm_bwd_chain16(
-            0 if lengths is None else lengths.data_ptr(), gates.data_ptr(),
-            cell.data_ptr(), gy.data_ptr(), wh.data_ptr(), dz.data_ptr(), B,
-            T, H, plan.C, plan.rows, plan.units, plan.ksplit,
-            torch.cuda.current_stream().cuda_stream))
-        return dz
-    if hasattr(lib, "clstm_bidi_lstm_bwd_chain16"):
-        lib.clstm_bidi_lstm_bwd_chain16.argtypes = [P] * 6 + [I] * 7 + [P]
-    return (chain, reduce, reduce_bf16 if has16 else None,
-            chain_bf16 if has_chain16 else None,
-            chain16 if hasattr(lib, "clstm_bidi_lstm_bwd_chain16") else None)
+        return bk.launcher(ctypes.CDLL(so))
 
 
-def load_fwd_against(src: str) -> dict:
-    """``--fwd-against SRC``: the forward kernel built from another source
-    with the same nvcc flags, to time in turns with the current one ->
-    {"K3", "K1", "K4", "K4 state": a callable with the signature of
-    bidi_lstm_infer, bidi_lstm_fwd_state, bidi_lstm_infer_xz,
-    bidi_lstm_fwd_state_xz; and where SRC has the bf16 mode, "K3 bf16",
-    "K1 bf16", "K4 bf16", "K4 state bf16": the same in the bf16 mode}. SRC
-    may have the current C interface (weights interleaved by unit, a plan
-    from fwd_plan with that library's own occupancy query) or the earlier
-    one (wx [2,D,4H], wh [2,H,4H] and b [2,4H] as they are, no plan). Its
-    bf16 K3, K1 and K4 (both modes) are its fwd16 kernel where it has one
-    (at fwd16_plan with its own occupancy query), else its bf16 instances
-    of the FMA kernel (sources from before the fwd16 kernel). A fwd16
-    kernel without the inference instances (its queries take no mode) is
-    refused. No launch is counted."""
-    with tempfile.TemporaryDirectory() as tmp:
-        so = os.path.join(tmp, "fwd_against.so")
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                        so, src], check=True, capture_output=True, timeout=600)
-        lib = ctypes.CDLL(so)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    current = hasattr(lib, "clstm_bidi_lstm_fwd_clusters")
-    n_ints = 8 if current else 4
-    sigs = {"clstm_bidi_lstm_fwd": [P] * (5 if current else 6),
-            "clstm_bidi_lstm_fwd_state": [P] * (7 if current else 8),
-            "clstm_bidi_lstm_fwd_xz": [P] * 4,
-            "clstm_bidi_lstm_fwd_xz_state": [P] * 6}
-    for name, ptrs in sigs.items():
-        ints = n_ints - (1 if name.startswith("clstm_bidi_lstm_fwd_xz") else 0)
-        getattr(lib, name).argtypes = ptrs + [I] * ints + [P]
-    if current:
-        lib.clstm_bidi_lstm_fwd_clusters.argtypes = [I] * 8
+def fwd_via(launch, kind: str, pf, pr, inp, lengths, bf16: bool = False):
+    """The forward in mode ``kind`` (bk._fwd's) at the card's plan, as the
+    wrappers take it, launched by ``launch`` (load_against's); uncounted."""
+    plan = bk._fwd_plan(kind, inp, pf["Wh"].shape[0], bf16)
+    return bk._fwd(kind, plan, pf, pr, inp, lengths, bf16, launch)
 
-    def lookup(name):
-        return getattr(lib, name)
 
-    def call(name, *args):
-        err = getattr(lib, name)(*args,
-                                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{name} from {src}: CUDA error {err}")
+def chain_via(launch, gates, cell, gy, Wh2, lengths, bf16: bool = False):
+    """K2's chain at the card's plan, as bidi_lstm_bwd_chain takes it,
+    launched by ``launch`` (load_against's); uncounted."""
+    B, T, _, G = gates.shape
+    plan = (bk.device_chain_plan(gates.device, B, T, G // 4) if bf16
+            else bk.CHAIN_L2)
+    return bk._chain(plan, gates, cell, gy, Wh2, lengths, bf16, launch=launch)
 
-    def plan_args(B, D, H, hoist, state):
-        p = bk.fwd_plan(B, D, H, hoist, state,
-                        bk.card_clusters(lookup, D, H, hoist, state))
-        return (p.C, p.rows, p.units, p.resident)
 
-    def weights(pf, pr, with_x):
-        if current:
-            return bk.fwd_weights(pf, pr, with_x)
-        return (stack2(pf, pr, "Wx").contiguous() if with_x else None,
-                stack2(pf, pr, "Wh").contiguous())
-
-    def run_x(state):
-        def run(pf, pr, x, lengths):
-            B, T, D = x.shape
-            H = pf["Wh"].shape[0]
-            y = torch.empty((B, T, 2 * H), device=x.device)
-            out = [y]
-            if state:
-                out += [torch.empty((B, T, 2, 4 * H), device=x.device),
-                        torch.empty((B, T, 2, H), device=x.device)]
-            wx, wh = weights(pf, pr, True)
-            ptrs = [wx.data_ptr(), wh.data_ptr()]
-            if not current:
-                b = stack2(pf, pr, "b").contiguous()
-                ptrs.append(b.data_ptr())
-            ints = [B, T, D, H] + (list(plan_args(B, D, H, False, state))
-                                   if current else [])
-            name = "clstm_bidi_lstm_fwd_state" if state else \
-                "clstm_bidi_lstm_fwd"
-            call(name, x.data_ptr(), 0 if lengths is None else
-                 lengths.data_ptr(), *ptrs, *[o.data_ptr() for o in out],
-                 *ints)
-            return tuple(out) if state else y
-        return run
-
-    def run_xz(state):
-        def run(pf, pr, xz, lengths):
-            B, T, _, G = xz.shape
-            H = G // 4
-            y = torch.empty((B, T, 2 * H), device=xz.device)
-            out = [y]
-            if state:
-                out += [torch.empty((B, T, 2, G), device=xz.device),
-                        torch.empty((B, T, 2, H), device=xz.device)]
-            _, wh = weights(pf, pr, False)
-            ints = [B, T, H] + (list(plan_args(B, 0, H, True, state))
-                                if current else [])
-            call("clstm_bidi_lstm_fwd_xz_state" if state else
-                 "clstm_bidi_lstm_fwd_xz", xz.data_ptr(),
-                 0 if lengths is None else lengths.data_ptr(), wh.data_ptr(),
-                 *[o.data_ptr() for o in out], *ints)
-            return tuple(out) if state else y
-        return run
-    out = {"K3": run_x(False), "K1": run_x(True), "K4": run_xz(False),
-           "K4 state": run_xz(True)}
-    if not (current and hasattr(lib, "clstm_bidi_lstm_fwd_state_bf16")):
-        return out
-    has16 = hasattr(lib, "clstm_bidi_lstm_fwd16")
-    if hasattr(lib, "clstm_bidi_lstm_fwd16_state") and not has16:
-        raise ValueError(f"{src}: a fwd16 kernel without the inference "
-                         "instances (an earlier C interface)")
-    for name, ptrs in (("clstm_bidi_lstm_fwd_bf16", 5),
-                       ("clstm_bidi_lstm_fwd_state_bf16", 7),
-                       ("clstm_bidi_lstm_fwd_xz_bf16", 4),
-                       ("clstm_bidi_lstm_fwd_xz_state_bf16", 6)):
-        getattr(lib, name).argtypes = [P] * ptrs + [I] * (
-            7 if "_xz" in name else 8) + [P]
-    lib.clstm_bidi_lstm_fwd_bf16_clusters.argtypes = [I] * 8
-    if has16:
-        lib.clstm_bidi_lstm_fwd16_state.argtypes = [P] * 7 + [I] * 7 + [P]
-        lib.clstm_bidi_lstm_fwd16_xz_state.argtypes = [P] * 6 + [I] * 6 + [P]
-        lib.clstm_bidi_lstm_fwd16.argtypes = [P] * 5 + [I] * 7 + [P]
-        lib.clstm_bidi_lstm_fwd16_xz.argtypes = [P] * 4 + [I] * 6 + [P]
-        lib.clstm_bidi_lstm_fwd16_clusters.argtypes = [I] * 7
-
-    def launch(name, device, *args):
-        call(name, *args)
-
-    def run16(kind):
-        hoist, state = "xz" in kind, kind.endswith("state")
-
-        def run(pf, pr, inp, lengths):
-            B_, T_ = inp.shape[:2]
-            H_ = pf["Wh"].shape[0]
-            D_ = 0 if hoist else inp.shape[-1] + inp.shape[-1] % 2
-            plan = bk.FWD16_NONE
-            if has16:
-                def q(C_, rows, units):
-                    return lib.clstm_bidi_lstm_fwd16_clusters(
-                        D_, H_, int(hoist), int(state), C_, rows, units)
-                plan = bk.fwd16_plan(B_, T_, D_, H_, hoist, q, state=state)
-            if not plan.C:
-                plan = bk.fwd_plan(B_, D_, H_, hoist, state, bk.card_clusters(
-                    lookup, D_, H_, hoist, state, 2), 2)
-            return bk._fwd(kind, plan, pf, pr, inp, lengths, True, launch)
-        return run
-    out.update({"K3 bf16": run16("fwd"), "K1 bf16": run16("fwd_state"),
-                "K4 bf16": run16("fwd_xz"),
-                "K4 state bf16": run16("fwd_xz_state")})
-    return out
+def reduce_via(launch, x, y, dz, Wx2, need_dx: bool, bf16: bool = False):
+    """K2's reduction at the card's plan, as bidi_lstm_bwd_reduce takes it,
+    launched by ``launch`` (load_against's); uncounted."""
+    B, T, D = x.shape
+    n, G = dz.shape[2:]
+    plan = (bk.device_reduce_plan(x.device, B, T, D, G // 4, n) if bf16
+            else None)
+    return bk._reduce(plan, x, y, dz, Wx2, need_dx, bf16, launch=launch)
 
 
 def load_ctc_against(src: str) -> dict:
@@ -1333,8 +1081,9 @@ def fwd_plan_of(dev, B, D, H, hoist, state) -> dict:
     device_plan) as a dict; raises unless the kernel's own count of its
     shared memory agrees with the plan's."""
     p = bk.device_plan(dev, B, 0 if hoist else D, H, hoist, state)
-    smem = bk._kernel("clstm_bidi_lstm_fwd_smem")(
-        0 if hoist else D, H, int(hoist), p.C, p.rows, p.units, p.resident)
+    smem = bk._kernel("clstm_lstm_fwd_smem")(
+        0 if hoist else D, H, int(hoist), p.C, p.rows, p.units, p.resident,
+        0)
     if smem != p.smem:
         raise AssertionError(f"plan {p}: the kernel counts {smem} bytes of "
                              f"shared memory")
@@ -2816,9 +2565,9 @@ def bf16_kernels(dev, card: str) -> dict:
         hoist = bk.hoists_projection(d, h)
         for st in (False, True):
             p = bk.device_plan(dev, B, 0 if hoist else d, h, hoist, st, 2)
-            smem = bk._kernel("clstm_bidi_lstm_fwd_bf16_smem")(
+            smem = bk._kernel("clstm_lstm_fwd_smem")(
                 0 if hoist else d, h, int(hoist), p.C, p.rows, p.units,
-                p.resident)
+                p.resident, 1)
             if smem != p.smem:
                 raise AssertionError(f"bf16 plan {p}: the kernel counts "
                                      f"{smem} bytes of shared memory")
@@ -3042,8 +2791,8 @@ def k2_bf16_turns(dev, card: str, k2_against=None,
         y, dz = y.bfloat16(), dz.bfloat16()
         wx = uniform(rng, (2, d, 4 * h), -0.1, 0.1, dev)
         plan = bk.device_reduce_plan(dev, b, t, d, h)
-        n = bk._kernel("clstm_bidi_lstm_bwd_bf16_scratch")(b, t, d, h,
-                                                           plan.tt, plan.spr)
+        n = bk._kernel("clstm_lstm_bwd_bf16_scratch")(b, t, d, h, plan.tt,
+                                                      plan.spr, 0)
         if n != plan.scratch:
             raise AssertionError(f"K2 bf16 plan {plan}: the C side counts "
                                  f"{n} bytes of scratch")
@@ -3060,10 +2809,11 @@ def k2_bf16_turns(dev, card: str, k2_against=None,
                "plain_ms": time_ms(
                    lambda: lstm_ops.bidi_lstm_bwd_reduce_plain(
                        x, y, dz, wx, need_dx, xz_bf16=True), 2)}
-        if k2_against and k2_against[2]:
+        if k2_against:
             row["k2_against"] = against_turns(
                 f"K2 reduction bf16 {label}",
-                lambda: k2_against[2](x, y, dz, wx, need_dx), new, reps,
+                lambda: reduce_via(k2_against, x, y, dz, wx, need_dx, True),
+                new, reps,
                 card, tol=2e-2)
         row["enqueue_ms"] = enqueue_ms(new, reps)
         row["library_enqueue_ms"] = enqueue_ms(lib_fn, reps)
@@ -3177,7 +2927,7 @@ def chain16_edges(dev) -> dict:
             plans.append(("cluster plan", other))
         for _, p in plans:
             if p.C:
-                n = bk._kernel("clstm_bidi_lstm_bwd_chain16_smem")(
+                n = bk._kernel("clstm_lstm_bwd_chain16_smem")(
                     h, p.C, p.rows, p.units, p.ksplit)
                 if n != p.smem:
                     raise AssertionError(f"chain plan {p}: the C side "
@@ -3246,10 +2996,11 @@ def chain16_turns(dev, card: str, k2_against=None, reps=None) -> dict:
                "bound": lstm_bound("chain", b, t, 0, h, int(L.sum()),
                                    esize=2),
                "enqueue_ms": enqueue_ms(cur, n)}
-        if k2_against and k2_against[3]:
+        if k2_against:
             row["k2_against"] = against_turns(
                 f"K2 chain bf16 {label}",
-                lambda: k2_against[3](g, c, gy, wh, L), cur, n, card,
+                lambda: chain_via(k2_against, g, c, gy, wh, L, True), cur, n,
+                card,
                 tol=2e-2)
         log(f"[timing] {card} | K2 chain bf16 {label} B={b} T={t} H={h}: "
             f"plan {chain_plan_line(plan)}; in turns plan {k_t[0]:.4f}, "
@@ -3318,11 +3069,11 @@ def fwd16_plan_line(plan) -> str:
 def fwd16_smem_checked(dev, d: int, h: int, plan, state: bool = True
                        ) -> None:
     """Raise unless the kernel's own count of a fwd16 plan's shared memory
-    (clstm_bidi_lstm_fwd16_smem, the mode's instance) is the plan's."""
+    (clstm_lstm_fwd16_smem, the mode's instance) is the plan's."""
     if not plan.C:
         return
     hoist = d == 0
-    n = bk._kernel("clstm_bidi_lstm_fwd16_smem")(
+    n = bk._kernel("clstm_lstm_fwd16_smem")(
         0 if hoist else d + d % 2, h, int(hoist), int(state), plan.C,
         plan.rows, plan.units)
     if n != plan.smem:
@@ -3546,13 +3297,9 @@ def fwd16_turns(dev, card: str, fwd_against=None, reps=None,
                                    + ("_state" if state else ""), b, t, dx,
                                    h, V, esize=2),
                "enqueue_ms": enqueue_ms(new, n)}
-        fa_key = (("K4" if hoist else "K1" if state else "K3")
-                  + (" state" if hoist and state else "") + " bf16")
-        if fwd_against and fwd_against.get(fa_key):
-            fa = fwd_against[fa_key]
-
+        if fwd_against:
             def against():
-                out_ = fa(pf, pr, inp, L)
+                out_ = fwd_via(fwd_against, kind, pf, pr, inp, L, True)
                 return out_ if state else (out_,)
             row["fwd_against"] = against_turns(
                 f"fwd16 {label}", against, new, n, card, tol=2e-2)
@@ -3675,26 +3422,24 @@ def fwd16_step_turns(tocr, batch, reps: int, label: str, card: str) -> dict:
 
 @contextlib.contextmanager
 def k2_against_reduce(k2_against):
-    """Inside the block, the training step's K2 in the bf16 mode is the
-    --k2-against build's: its reduction, and its chain where it has a bf16
-    one (bidi_lstm_bwd_reduce and bidi_lstm_bwd_chain swapped in the
-    wrapper's module, which the backward looks them up in)."""
-    saved, saved_chain = bk.bidi_lstm_bwd_reduce, bk.bidi_lstm_bwd_chain
+    """Inside the block, the training step's K2 (its chain and reduction)
+    launches the --k2-against build's entry points: bk._launch, which the
+    wrappers look up at each launch, sends K2's entries (``_bwd_``) to
+    ``k2_against`` (load_against's launch). K2's counters are restored on
+    leaving, so the other build's launches count nowhere."""
+    saved = bk._launch
+    wrappers = (bk.bidi_lstm_bwd_chain, bk.bidi_lstm_bwd_reduce)
+    counts = [(w.launches, w.launches1) for w in wrappers]
 
-    def reduce(x, y, dz, Wx2, need_dx=True, xz_bf16=False):
-        if not xz_bf16:
-            return saved(x, y, dz, Wx2, need_dx)
-        return k2_against[2](x, y, dz, Wx2.detach(), need_dx)
-
-    def chain(gates, cell, gy, Wh2, lengths=None, xz_bf16=False):
-        if not xz_bf16 or k2_against[3] is None:
-            return saved_chain(gates, cell, gy, Wh2, lengths, xz_bf16)
-        return k2_against[3](gates, cell, gy, Wh2.detach(), lengths)
-    bk.bidi_lstm_bwd_reduce, bk.bidi_lstm_bwd_chain = reduce, chain
+    def launch(name, device, *args):
+        (k2_against if "_bwd_" in name else saved)(name, device, *args)
+    bk._launch = launch
     try:
         yield
     finally:
-        bk.bidi_lstm_bwd_reduce, bk.bidi_lstm_bwd_chain = saved, saved_chain
+        bk._launch = saved
+        for w, (a, b) in zip(wrappers, counts):
+            w.launches, w.launches1 = a, b
 
 
 def k2_step_turns(tocr, batch, k2_against, reps: int, label: str,
@@ -4388,7 +4133,7 @@ def filtertrain(dev, card: str, tmp: str, train_pairs, test_pairs,
         turns[mode].append({"pairs_per_s": one_pass(200 + i)[0],
                             "block_enqueue_ms": block_enqueue_ms()})
     k2_vs = None
-    if k2_against and k2_against[2]:
+    if k2_against:
         model.xz_bf16 = True
         k2_vs = {"against": [], "current": []}
         for i, which in enumerate(("against", "current", "current",
@@ -6678,12 +6423,12 @@ def lstm1_hoisted(dev, rng) -> dict:
     return res
 
 
-def bidi_against(dev, fwd_vs: dict, k2_vs, rng) -> dict:
+def bidi_against(dev, fwd_vs, k2_vs, rng) -> dict:
     """The bidi pair's bf16 K1 and K2 (chain, reduction with dx) at bidi's
     layer (D=48, H=100) and bidi2's (48, 200; 400, 200 on the hoisted
     product, K4's state mode), B=256, T=1024, against another build's
-    (the parent's source): bitwise equal."""
-    chain_vs, reduce_vs = k2_vs[4], k2_vs[2]
+    (the parent's source; ``fwd_vs`` and ``k2_vs``: load_against's
+    launches) at the same plans: bitwise equal."""
     res = {}
     for d, h in ((48, 100), (48, 200), (400, 200)):
         pf, pr = lstm_params(rng, d, h, dev), lstm_params(rng, d, h, dev)
@@ -6693,18 +6438,18 @@ def bidi_against(dev, fwd_vs: dict, k2_vs, rng) -> dict:
             if bk.hoists_projection(d, h):
                 inp = lstm_ops.hoisted_projection(pf, pr, x, xz_bf16=True)
                 got = bidi_lstm_fwd_state_xz(pf, pr, inp, L, xz_bf16=True)
-                want = fwd_vs["K4 state bf16"](pf, pr, inp, L)
+                want = fwd_via(fwd_vs, "fwd_xz_state", pf, pr, inp, L, True)
             else:
                 got = bidi_lstm_fwd_state(pf, pr, x, L, xz_bf16=True)
-                want = fwd_vs["K1 bf16"](pf, pr, x, L)
+                want = fwd_via(fwd_vs, "fwd_state", pf, pr, x, L, True)
             y, gates, cell = got
             gy = (torch.rand(y.shape, device=dev) - 0.5).bfloat16()
             gy[padded(L, 256, 1024, dev)] = 0
             Wh2, Wx2 = stack2(pf, pr, "Wh"), stack2(pf, pr, "Wx")
             dz = bidi_lstm_bwd_chain(gates, cell, gy, Wh2, L, xz_bf16=True)
-            dz_vs = chain_vs(gates, cell, gy, Wh2, L)
+            dz_vs = chain_via(k2_vs, gates, cell, gy, Wh2, L, True)
             red = bidi_lstm_bwd_reduce(x, y, dz, Wx2, True, xz_bf16=True)
-            red_vs = reduce_vs(x, y, dz, Wx2, True)
+            red_vs = reduce_via(k2_vs, x, y, dz, Wx2, True, True)
         same = {"fwd": all(torch.equal(a, b) for a, b in zip(got, want)),
                 "chain": torch.equal(dz, dz_vs),
                 "reduce": all(torch.equal(a, b) for a, b in zip(red,
@@ -6724,15 +6469,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--k2-against", metavar="SRC",
                     help="also build this K2 source (bidi_lstm_bwd.cu of this "
-                    "or the earlier C interface) and time it in turns with "
-                    "the current K2 at every timed K2 shape")
+                    "C interface) and time it in turns with the current K2 "
+                    "at every timed K2 shape")
     ap.add_argument("--fwd-against", metavar="SRC",
                     help="also build this forward kernel source "
-                    "(bidi_lstm_fwd.cu of this or the earlier C interface) "
-                    "and time it in turns with the current one at the five "
-                    "timed forward shapes (K3 and K1 at bidi, K1 at bidi2's "
-                    "first layer, K4 in both modes at its second) and, where "
-                    "it has the bf16 mode, its bf16 K1 and K4 state at "
+                    "(bidi_lstm_fwd.cu of this C interface) and time it in "
+                    "turns with the current one at the five timed forward "
+                    "shapes (K3 and K1 at bidi, K1 at bidi2's first layer, "
+                    "K4 in both modes at its second) and in the bf16 mode at "
                     "FWD16_SHAPES")
     ap.add_argument("--ctc-against", metavar="SRC",
                     help="also build this CTC DP source (ctc_dp.cu of this or "
@@ -6779,9 +6523,8 @@ def main(argv=None) -> int:
     _build.load_library()
     build_s = time.perf_counter() - t0
     log(f"[build] {so.name} in {build_s:.2f} s")
-    k2_against = (load_k2_against(args.k2_against) if args.k2_against
-                  else None)
-    fwd_against = (load_fwd_against(args.fwd_against) if args.fwd_against
+    k2_against = load_against(args.k2_against) if args.k2_against else None
+    fwd_against = (load_against(args.fwd_against) if args.fwd_against
                    else None)
     ctc_against = (load_ctc_against(args.ctc_against) if args.ctc_against
                    else None)
@@ -6874,7 +6617,7 @@ def main(argv=None) -> int:
         if fwd_against:
             fwd_vs["K3 bidi"] = against_turns(
                 f"K3 B={B} T={T} D={D} H={H}",
-                lambda: fwd_against["K3"](pf, pr, x, L900),
+                lambda: fwd_via(fwd_against, "fwd", pf, pr, x, L900),
                 lambda: bidi_lstm_infer(pf, pr, x, L900), 10, card)
     log(f"[timing] {card} | bidi LSTM fwd B={B} T={T} D={D} H={H} "
         f"len={TRUE_T}: kernel {k_ms:.3f} ms/batch ({B / k_ms * 1e3:.0f} "
@@ -7106,7 +6849,7 @@ def main(argv=None) -> int:
     if ctc_against:
         steps_vs["bidi"] = step_turns(tocr, batch, ctc_against, 5,
                                       f"bidi B={B} T={T} S={S81}", card)
-    if k2_against and k2_against[2]:
+    if k2_against:
         k2_steps["bidi"] = k2_step_turns(tocr, batch, k2_against, 3,
                                          f"bidi B={B} T={T} S={S81}", card)
     par = tocr.net.sub[0]
@@ -7185,8 +6928,8 @@ def main(argv=None) -> int:
         if fwd_against:
             fwd_vs["K1 bidi"] = against_turns(
                 f"K1 B={B} T={T} D={D} H={H}",
-                lambda: fwd_against["K1"](tpf, tpr, bx, Lb), pairs["K1"][0],
-                10, card)
+                lambda: fwd_via(fwd_against, "fwd_state", tpf, tpr, bx, Lb),
+                pairs["K1"][0], 10, card)
         # The plan's choice at bidi: the whole slice resident at C=2 against
         # Wh's alone at C=1, [Wx; b] read from L2.
         plan_vs = {f"{k} bidi": plan_turns(
@@ -7195,11 +6938,11 @@ def main(argv=None) -> int:
         if k2_against:
             against["chain H=100"] = against_turns(
                 f"K2 chain B={B} T={T} H={H}",
-                lambda: k2_against[0](gs, cs, gy, Wh2, Lb),
+                lambda: chain_via(k2_against, gs, cs, gy, Wh2, Lb),
                 pairs["K2 chain"][0], 10, card)
             against["reduction bidi"] = against_turns(
                 f"K2 reduction B={B} T={T} D={D} H={H} (no dx)",
-                lambda: k2_against[1](bx, ys, dz, Wx2, False),
+                lambda: reduce_via(k2_against, bx, ys, dz, Wx2, False),
                 pairs["K2 reduction"][0], 10, card)
         del lstm, pbx, cu_fwd, cu_fwd_bwd
     for name, (km, pm) in ms.items():
@@ -7322,18 +7065,19 @@ def main(argv=None) -> int:
         if fwd_against:
             fwd_vs["K4 bidi2 layer 2"] = against_turns(
                 f"K4 B={B} T={T} H={H2}",
-                lambda: fwd_against["K4"](pf2, pr2, xz2, L900),
+                lambda: fwd_via(fwd_against, "fwd_xz", pf2, pr2, xz2, L900),
                 lambda: bidi_lstm_infer_xz(pf2, pr2, xz2, L900), 5, card)
             fwd_vs["K4 state bidi2 layer 2"] = against_turns(
                 f"K4 state B={B} T={T} H={H2}",
-                lambda: fwd_against["K4 state"](pf2, pr2, xz2, L900),
+                lambda: fwd_via(fwd_against, "fwd_xz_state", pf2, pr2, xz2,
+                                L900),
                 lambda: bidi_lstm_fwd_state_xz(pf2, pr2, xz2, L900), 5, card)
             # K3 with the projection inside, on the L2 plan: at this layer
             # (D=400, the routing comparison above) and at the widest input
             # that does not hoist at H=200 (D=255).
             fwd_vs["K3 in-kernel projection D=400"] = against_turns(
                 f"K3 B={B} T={T} D={D2} H={H2}",
-                lambda: fwd_against["K3"](pf2, pr2, x2, L900),
+                lambda: fwd_via(fwd_against, "fwd", pf2, pr2, x2, L900),
                 lambda: bidi_lstm_infer(pf2, pr2, x2, L900, hoist=False), 3,
                 card)
         rngw = np.random.RandomState(5)
@@ -7343,7 +7087,7 @@ def main(argv=None) -> int:
         if fwd_against:
             fwd_vs["K3 in-kernel projection D=255"] = against_turns(
                 f"K3 B={B} T={T} D=255 H={H2}",
-                lambda: fwd_against["K3"](pw, qw, xw, L900),
+                lambda: fwd_via(fwd_against, "fwd", pw, qw, xw, L900),
                 lambda: bidi_lstm_infer(pw, qw, xw, L900), 3, card)
         # The L2 plan's choice at the widest input that does not hoist:
         # C=4 with 20 rows against C=8 with 40.
@@ -7354,12 +7098,12 @@ def main(argv=None) -> int:
         if k2_against:
             against["chain H=200"] = against_turns(
                 f"K2 chain B={B} T={T} H={H2}",
-                lambda: k2_against[0](gs2, cs2, gy2, Wh22, L900),
+                lambda: chain_via(k2_against, gs2, cs2, gy2, Wh22, L900),
                 lambda: bidi_lstm_bwd_chain(gs2, cs2, gy2, Wh22, L900), 5,
                 card)
             against["reduction bidi2 layer 2"] = against_turns(
                 f"K2 reduction with dx B={B} T={T} D={D2} H={H2}",
-                lambda: k2_against[1](x2, ys2, dz2, Wx22, True),
+                lambda: reduce_via(k2_against, x2, ys2, dz2, Wx22, True),
                 lambda: bidi_lstm_bwd_reduce(x2, ys2, dz2, Wx22, True), 5,
                 card)
         del lstm2, px2, cu2_fwd, cu2_fwd_bwd
@@ -7477,7 +7221,7 @@ def main(argv=None) -> int:
         steps_vs["bidi2"] = step_turns(tocr2, batch2, ctc_against, 3,
                                        f"bidi2 B={B} T={T} S={S81} C={C2}",
                                        card)
-    if k2_against and k2_against[2]:
+    if k2_against:
         k2_steps["bidi2"] = k2_step_turns(
             tocr2, batch2, k2_against, 2, f"bidi2 B={B} T={T} S={S81} C={C2}",
             card)
@@ -7496,7 +7240,7 @@ def main(argv=None) -> int:
         if fwd_against:
             fwd_vs["K1 bidi2 layer 1"] = against_turns(
                 f"K1 B={B} T={T} D={D} H={H2}",
-                lambda: fwd_against["K1"](l1f, l1r, x1, L1),
+                lambda: fwd_via(fwd_against, "fwd_state", l1f, l1r, x1, L1),
                 lambda: bidi_lstm_fwd_state(l1f, l1r, x1, L1), 5, card)
         # The plan's choice at bidi2's first layer: Wh's slice alone
         # resident at C=4 against the whole slice at C=8 (40 rows).
@@ -7517,7 +7261,7 @@ def main(argv=None) -> int:
         if k2_against:
             against["reduction bidi2 layer 1"] = against_turns(
                 f"K2 reduction B={B} T={T} D={D} H={H2} (no dx)",
-                lambda: k2_against[1](x1, y1, dz1, Wx21, False),
+                lambda: reduce_via(k2_against, x1, y1, dz1, Wx21, False),
                 lambda: bidi_lstm_bwd_reduce(x1, y1, dz1, Wx21, False), 5,
                 card)
         del y1, dz1

@@ -85,8 +85,6 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int ATOM = 64 * 128;  // a 64 x 64 bf16 tile: 128-byte rows
 constexpr int THREADS = 256;    // two consumer warpgroups
 constexpr int STAGES_MAX = 8;
@@ -462,9 +460,7 @@ __global__ void affine_sum_kernel(const float* __restrict__ dwpart,
 // Host side: tensor maps and launches
 // ---------------------------------------------------------------------------
 
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-bool valid_nw(int nw) { return nw == 64 || nw == 128 || nw == 200; }
 
 // A [outer, inner] bf16 matrix with rows ld elements apart, in boxes of
 // box_inner x box_outer.

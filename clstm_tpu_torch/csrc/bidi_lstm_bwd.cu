@@ -10,7 +10,7 @@
 // clstm_tpu_torch/ops/lstm.py::bidi_lstm_bwd_chain_plain and
 // bidi_lstm_bwd_reduce_plain:
 //
-//   chain (clstm_bidi_lstm_bwd_chain): K1's gates [B,T,2,4H] and cell
+//   chain (clstm_lstm_bwd_chain): K1's gates [B,T,2,4H] and cell
 //     [B,T,2,H], the cotangent gy [B,T,2H] and WhT [2,4H,Hp] (Wh
 //     transposed, rows zero-padded to Hp = H rounded up to a multiple of 4)
 //     -> dz [B,T,2,4H]. Each row's valid chain steps are walked backward:
@@ -22,7 +22,7 @@
 //     frame len-1-s; c_prev is cell at the frame before in chain order, 0
 //     at the chain's first step. dz is written exactly 0 on frames t >= len,
 //     so padded frames add nothing to any gradient.
-//   reduction (clstm_bidi_lstm_bwd_reduce): per direction
+//   reduction (clstm_lstm_bwd_reduce): per direction
 //     dW [D+1+H, 4H] = Σ over all B·T frames of [x | 1 | h_prev]ᵀ·dz
 //     (rows: dWx, the bias row, dWh; h_prev is y at the frame before in
 //     chain order, 0 at t = 0 forward and t = T-1 reverse), and, when dx is
@@ -93,7 +93,7 @@
 //     (bound 0.44-0.88 ms at the bench shapes, the chain 3-10 ms). The
 //     chain above, instantiated for bf16, read WhT from L2 at every
 //     step at H=200 (320 KB a block a step) and ran Dh on the FMA pipes.
-//     Here (clstm_bidi_lstm_bwd_chain16, bwd_chain16_kernel) Wh is resident
+//     Here (clstm_lstm_bwd_chain16, bwd_chain16_kernel) Wh is resident
 //     across a thread-block cluster and Dh runs on the bf16 tensor cores:
 //       - one direction's chain for a group of R = 16 (or 32) rows runs on
 //         a cluster of C CTAs; CTA c owns U units (a multiple of 4 where H
@@ -126,7 +126,7 @@
 //         shared memory and was the faster on the card (H <= 100 at 16-64
 //         frames, as the filter's buckets; H <= 80 at 16 frames or more),
 //         the plan's L2 branch runs the chain above, instantiated for bf16
-//         (clstm_bidi_lstm_bwd_chain_bf16).
+//         (clstm_lstm_bwd_chain with bf 1).
 //     On the card (PERF.md §6), in turns with that L2 kernel: 4.1
 //     against 10.3 ms at H=200, 2.84 against 3.09 at H=100. A step is then
 //     ~7,600 cycles at H=200, each phase a latency chain of its own, run
@@ -147,7 +147,7 @@
 //     peer and multiplying all of dz by its columns of Whᵀ); C=2 (one wave,
 //     but 52 and 100 units a CTA), C=4 with 16 rows (two waves) or 32
 //     rows, C=1 and C=8.
-//   - reduction (clstm_bidi_lstm_bwd_reduce_bf16): x, h_prev (y) and dz are
+//   - reduction (clstm_lstm_bwd_reduce_bf16): x, h_prev (y) and dz are
 //     bf16, every product one bf16 pass with f32 accumulation, on wgmma
 //     (m64nNk16, N = 64, 128 or 200 by plan) fed by TMA through an mbarrier
 //     ring; thread 0 of the block issues the copies, two warpgroups
@@ -191,57 +191,9 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-// The directions of a call (the kernels' dm): both, the bidi pair's (0),
-// or one: the forward direction alone (1) or the reversed one alone (2),
-// whose streams then hold that direction only (gates [B,T,1,4H], y
-// [B,T,H], dz [B,T,1,4H], the weights and dW [1,...]).
-__host__ __device__ inline int dirs_of(int dm) { return dm ? 1 : 2; }
-
 // ---------------------------------------------------------------------------
 // bf16 values
 // ---------------------------------------------------------------------------
-
-// The f32 values of a bf16 pair packed in 32 bits: the first element in the
-// low half.
-__device__ __forceinline__ float lo_f(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
-__device__ __forceinline__ float hi_f(uint32_t u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// 4 consecutive bf16 (8 bytes) as f32.
-__device__ __forceinline__ float4 ld4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(lo_f(u.x), hi_f(u.x), lo_f(u.y), hi_f(u.y));
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <class E>
-__device__ __forceinline__ E from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// v as an operand of a product of the mode: rounded to bf16 in the bf16
-// mode.
-template <class E>
-__device__ __forceinline__ float operand(float v) {
-  return to_f(from_f<E>(v));
-}
 
 // The raw bits of a bf16.
 __device__ __forceinline__ uint32_t bits(bf16 v) {
@@ -249,43 +201,8 @@ __device__ __forceinline__ uint32_t bits(bf16 v) {
 }
 
 // ---------------------------------------------------------------------------
-// cp.async and the 3xTF32 tensor-core product
+// The 3xTF32 tensor-core product and the cp.async ring
 // ---------------------------------------------------------------------------
-
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
-// 16 bytes global -> shared; zero-filled when !valid (src is not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes global -> shared; zero-filled when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-// 8 bytes global -> shared; zero-filled when !valid.
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 8 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // v rounded to TF32 (10-bit mantissa, to nearest, ties away from zero: the
 // rounding of cvt.rna.tf32.f32), as f32 bits. Two integer operations on the
@@ -364,14 +281,14 @@ __device__ __forceinline__ void pipeline(int KT, FL load, FC compute) {
     cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait_noclobber<STAGES - 2>();
     __syncthreads();
     const int next = kt + STAGES - 1;
     if (next < KT) load(next % STAGES, next);
     cp_async_commit();
     compute(kt % STAGES);
   }
-  cp_async_wait<0>();
+  cp_async_wait_noclobber<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -450,7 +367,7 @@ __global__ void __launch_bounds__(RED_THREADS, 2)
             continue;
           }
         }
-        cp_async16(dst, src, ok);
+        cp_async16z(dst, src, ok);
       }
     } else {
       for (int e = tid; e < BK * DW_BM; e += RED_THREADS) {
@@ -477,15 +394,15 @@ __global__ void __launch_bounds__(RED_THREADS, 2)
             continue;
           }
         }
-        cp_async4(dst, src, ok);
+        cp_async4z(dst, src, ok);
       }
     }
     for (int c = tid; c < BK * DW_BN / 4; c += RED_THREADS) {
       const int kk = c / (DW_BN / 4), j = j0 + (c % (DW_BN / 4)) * 4;
       const int n = n0 + kk;
       const bool ok = n < n_end && j < G;
-      cp_async16(Bs + kk * DW_LDB + (j - j0),
-                 ok ? dz + ((size_t)n * 2 + dir) * G + j : dz, ok);
+      cp_async16z(Bs + kk * DW_LDB + (j - j0),
+                  ok ? dz + ((size_t)n * 2 + dir) * G + j : dz, ok);
     }
   };
 
@@ -562,36 +479,6 @@ constexpr int DXW_STAGE = DXW_A + 2 * DXW_B;
 constexpr size_t DXW_SMEM = (size_t)DXW_STAGES * DXW_STAGE * sizeof(float);
 constexpr int DXW_SBO = DXW_BK / 4 * 128;  // bytes between 8-row groups
 
-// wgmma matrix descriptor of a no-swizzle K-major tile at shared address
-// `addr`: start >> 4, LBO (bits 16-29) and SBO (bits 32-45) in 16 B units.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(DXW_SBO >> 4) << 32);
-}
-
-// d (+)= a·B for one m64n80k8 TF32 step: a in registers (this warp's 16
-// rows, m16n8k8 layout), B by descriptor; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n80k8(float (&d)[40],
-                                               const uint32_t (&a)[4],
-                                               uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(scale_d));
-}
-
 // wx [2, D, 4H] -> its TF32 hi and lo parts (wx = hi + lo), for dx's B.
 __global__ void bwd_split_kernel(const float* __restrict__ wx,
                                  float* __restrict__ hi,
@@ -628,8 +515,8 @@ __global__ void __launch_bounds__(128 * DXW_WG, 1)
       const int m = c / (DXW_BK / 4), q = q0 + (c % (DXW_BK / 4)) * 4;
       const int n = n0 + m;
       const bool ok = n < N && q < K;
-      cp_async16(As + m * DXW_LDA + (q - q0),
-                 ok ? dz + (size_t)n * K + q : dz, ok);
+      cp_async16z(As + m * DXW_LDA + (q - q0),
+                  ok ? dz + (size_t)n * K + q : dz, ok);
     }
     for (int c = tid; c < DXW_BN * DXW_BK / 4; c += nt) {
       const int dd = c / (DXW_BK / 4), qc = c % (DXW_BK / 4);
@@ -638,8 +525,8 @@ __global__ void __launch_bounds__(128 * DXW_WG, 1)
       const int dir = q < G ? 0 : 1;
       const size_t src = ((size_t)dir * D + d) * G + (q - dir * G);
       const int dst = (dd / 8) * (DXW_SBO / 4) + qc * 32 + (dd % 8) * 4;
-      cp_async16(Bh + dst, ok ? whi + src : whi, ok);
-      cp_async16(Bl + dst, ok ? wlo + src : wlo, ok);
+      cp_async16z(Bh + dst, ok ? whi + src : whi, ok);
+      cp_async16z(Bl + dst, ok ? wlo + src : wlo, ok);
     }
   };
 
@@ -651,7 +538,7 @@ __global__ void __launch_bounds__(128 * DXW_WG, 1)
     cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<DXW_STAGES - 2>();
+    cp_async_wait_noclobber<DXW_STAGES - 2>();
     // cp.async wrote through the generic proxy; wgmma reads through the
     // async proxy.
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -677,8 +564,8 @@ __global__ void __launch_bounds__(128 * DXW_WG, 1)
 #pragma unroll
     for (int ks = 0; ks < DXW_BK / 8; ++ks) {
       // A k8 step spans two core matrices along K: 256 bytes.
-      const uint64_t dh = wgmma_desc(bh + 256 * ks);
-      const uint64_t dl = wgmma_desc(bl + 256 * ks);
+      const uint64_t dh = nosw_desc(bh + 256 * ks, 128, DXW_SBO);
+      const uint64_t dl = nosw_desc(bl + 256 * ks, 128, DXW_SBO);
       wgmma_m64n80k8(tmp, al[ks], dh, ks > 0);
       wgmma_m64n80k8(tmp, ah[ks], dl, 1);
       wgmma_m64n80k8(tmp, ah[ks], dh, 1);
@@ -697,7 +584,7 @@ __global__ void __launch_bounds__(128 * DXW_WG, 1)
 #pragma unroll
     for (int i = 0; i < 40; ++i) acc[i] += tmp[i];
   }
-  cp_async_wait<0>();
+  cp_async_wait_noclobber<0>();
 
   // acc[4i + 2h + c] = (row row0 + g + 8h, column 8i + 2t4 + c).
 #pragma unroll
@@ -1166,8 +1053,8 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
   }
   if (WSMEM) {
     for (int c = tid; c < G * hp * ES / 16; c += nt)
-      cp_async16(reinterpret_cast<unsigned char*>(whs) + 16 * c,
-                 reinterpret_cast<const unsigned char*>(whT) + 16 * c, true);
+      cp_async16z(reinterpret_cast<unsigned char*>(whs) + 16 * c,
+                  reinterpret_cast<const unsigned char*>(whT) + 16 * c, true);
     cp_async_commit();
   }
   for (int i = tid; i < ROWS * G; i += nt) zs[i] = 0.0f;
@@ -1200,7 +1087,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
       float* dg = reinterpret_cast<float*>(slot + r * SB);
       E* de = reinterpret_cast<E*>(dg + G);
       for (int c = tid; c < G / 4; c += nt)
-        cp_async16(dg + 4 * c, gates + f * G + 4 * c, true);
+        cp_async16z(dg + 4 * c, gates + f * G + 4 * c, true);
       const E* srcs[3] = {cell + f * H, cell + fp * H,
                           gy + f * H};
       if (VEC) {
@@ -1209,16 +1096,16 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
           const int seg = c / (H / 4), k = 4 * (c - seg * (H / 4));
           const bool ok = seg != 1 || s > 0;
           if constexpr (ES == 4)
-            cp_async16(de + seg * hp + k, srcs[seg] + k, ok);
+            cp_async16z(de + seg * hp + k, srcs[seg] + k, ok);
           else
-            cp_async8(de + seg * hp + k, srcs[seg] + k, ok);
+            cp_async8z(de + seg * hp + k, srcs[seg] + k, ok);
         }
       } else {
         for (int c = tid; c < 3 * H; c += nt) {
           const int seg = c / H, k = c - seg * H;
           const bool ok = seg != 1 || s > 0;
           if constexpr (ES == 4)
-            cp_async4(de + seg * hp + k, srcs[seg] + k, ok);
+            cp_async4z(de + seg * hp + k, srcs[seg] + k, ok);
           else  // no 2-byte cp.async: an ordinary load and store
             de[seg * hp + k] = ok ? srcs[seg][k] : from_f<E>(0.0f);
         }
@@ -1228,7 +1115,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
   };
 
   if (lmax > 0) prefetch(lmax - 1);
-  cp_async_wait<0>();
+  cp_async_wait_noclobber<0>();
   __syncthreads();
 
   const int pk = tid % kg, pp = tid / kg;  // phase B: units 4pk.., range pp
@@ -1306,7 +1193,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS)
         *reinterpret_cast<float4*>(part + (pp * ROWS + r) * hp + 4 * pk) =
             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     }
-    cp_async_wait<0>();
+    cp_async_wait_noclobber<0>();
     __syncthreads();
   }
 }
@@ -1368,10 +1255,6 @@ constexpr int CH_Q = 4;
 // Dynamic shared memory a CTA may use, less the static row lengths.
 constexpr int CH_SMEM_MAX = 232448 - 4 * 2 * CH_M;
 
-__host__ __device__ inline int up_to(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
 // Where a CTA's operands live in its shared memory
 // (ops/bidi_lstm_kernel.py::chain_smem counts the same): B = its WhT rows
 // [N = H up to 8][K = 4U up to 16] (its dz columns g·U + u against every
@@ -1400,36 +1283,6 @@ __host__ __device__ inline Geo16 geo16(int H, int C, int U, int R, int ks) {
   return g;
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The address of `local` in the shared memory of the cluster's CTA `rank`.
-__device__ __forceinline__ uint32_t peer_addr(const void* local,
-                                              uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(smem_addr(local)), "r"(rank));
-  return remote;
-}
-
 __device__ __forceinline__ void st_peer(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
                : "memory");
@@ -1437,28 +1290,6 @@ __device__ __forceinline__ void st_peer(uint32_t addr, float v) {
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
-__device__ __forceinline__ void st_peer16(uint32_t addr, uint4 v) {
-  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   addr),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
 }
 
 // c += a·b, m16n8k16, bf16 operands, f32 accumulators.
@@ -1984,7 +1815,7 @@ struct Red16 {
   long long off_y, off_z, off_w, off_part, bytes;
 };
 
-Red16 red16(int B, int T, int D, int H, int tt, int spr, int nd = 2) {
+Red16 red16(int B, int T, int D, int H, int tt, int spr, int nd) {
   Red16 r;
   r.G = 4 * H, r.M = D + 1 + H;
   r.N = B * T;
@@ -2047,8 +1878,6 @@ cudaError_t launch_dx16(const Red16& r, const CUtensorMap& zm,
          st>>>(zm, wm, a);
   return cudaGetLastError();
 }
-
-bool valid_nw(int nw) { return nw == 64 || nw == 128 || nw == 200; }
 
 // The bf16 reduction at the call's directions dm (dirs_of) and the plan
 // (nw, tt, spr, nwd): staging, dW (and the sum of its ranges), dx.
@@ -2143,70 +1972,80 @@ int reduce_bf16(const void* x, int x_bf16, const bf16* y, const bf16* dz,
 // whT, dz and wx must be 16-byte aligned (cudaErrorMisalignedAddress
 // otherwise); the others take a slower staging path when they are not.
 // B, T, D >= 1, 1 <= H <= 2048 and B·T < 2^31.
+//
+// dm, the call's directions: 0 both (n = 2, the bidi pair; the forward
+// direction's streams and weights first), 1 the forward direction alone, 2
+// the reversed one alone (n = 1: a lone NPLSTM or Reversed(NPLSTM), whose
+// h_prev is y one frame back, or on where reversed; the grids take one
+// direction's blocks). Any other dm returns cudaErrorInvalidValue. One
+// direction runs in the bf16 mode only.
 
 // Hp, the padded row length of the WhT the chain takes.
-extern "C" int clstm_bidi_lstm_bwd_hp(int H) { return (H + 3) / 4 * 4; }
+extern "C" int clstm_lstm_bwd_hp(int H) { return (H + 3) / 4 * 4; }
 
-// dz [B,T,2,4H] from gates [B,T,2,4H], cell [B,T,2,H], gy [B,T,2H] and
-// whT [2,4H,Hp] (rows zero-padded from H to Hp = clstm_bidi_lstm_bwd_hp).
-extern "C" int clstm_bidi_lstm_bwd_chain(const int32_t* lengths,
-                                         const float* gates,
-                                         const float* cell, const float* gy,
-                                         const float* whT, float* dz, int B,
-                                         int T, int H, void* stream) {
-  return chain<float>(lengths, gates, cell, gy, whT, dz, B, T, H, 0, stream);
-}
-
-// The bf16 mode: cell, gy, whT and dz bf16, the gates f32.
-extern "C" int clstm_bidi_lstm_bwd_chain_bf16(const int32_t* lengths,
-                                              const float* gates,
-                                              const bf16* cell, const bf16* gy,
-                                              const bf16* whT, bf16* dz, int B,
-                                              int T, int H, void* stream) {
-  return chain<bf16>(lengths, gates, cell, gy, whT, dz, B, T, H, 0, stream);
+// The chain with WhT read from L2 or shared memory: dz [B,T,n,4H] from
+// gates [B,T,n,4H] (f32), cell [B,T,n,H], gy [B,T,nH] and whT [n,4H,Hp]
+// (rows zero-padded from H to Hp = clstm_lstm_bwd_hp). bf 0: cell,
+// gy, whT and dz f32; bf 1 (the bf16 mode): bf16 (bf 0 with dm 1 or 2
+// returns cudaErrorInvalidValue).
+extern "C" int clstm_lstm_bwd_chain(const int32_t* lengths,
+                                    const float* gates, const void* cell,
+                                    const void* gy, const void* whT, void* dz,
+                                    int B, int T, int H, int bf, int dm,
+                                    void* stream) {
+  if (dm != 0 && !bf) return (int)cudaErrorInvalidValue;
+  if (bf)
+    return chain<bf16>(lengths, gates, static_cast<const bf16*>(cell),
+                       static_cast<const bf16*>(gy),
+                       static_cast<const bf16*>(whT), static_cast<bf16*>(dz),
+                       B, T, H, dm, stream);
+  return chain<float>(lengths, gates, static_cast<const float*>(cell),
+                      static_cast<const float*>(gy),
+                      static_cast<const float*>(whT), static_cast<float*>(dz),
+                      B, T, H, dm, stream);
 }
 
 // The bf16 chain on a thread-block cluster at the plan of
 // ops/bidi_lstm_kernel.py::chain_plan: C CTAs a cluster, R rows a cluster
 // (16 or 32), U units a CTA and the product's ks k ranges. wh is
-// Wh [2, H, 4H] in bf16, cell, gy and dz bf16 (8-byte aligned), the gates
+// Wh [n, H, 4H] in bf16, cell, gy and dz bf16 (8-byte aligned), the gates
 // f32 (16-byte aligned; cudaErrorMisalignedAddress otherwise). A plan the
 // kernel cannot take returns cudaErrorInvalidValue.
-extern "C" int clstm_bidi_lstm_bwd_chain16(const int32_t* lengths,
-                                           const float* gates,
-                                           const bf16* cell, const bf16* gy,
-                                           const bf16* wh, bf16* dz, int B,
-                                           int T, int H, int C, int R, int U,
-                                           int ks, void* stream) {
-  return chain16(lengths, gates, cell, gy, wh, dz, B, T, H, C, R, U, ks, 0,
+extern "C" int clstm_lstm_bwd_chain16(const int32_t* lengths,
+                                      const float* gates, const bf16* cell,
+                                      const bf16* gy, const bf16* wh, bf16* dz,
+                                      int B, int T, int H, int C, int R, int U,
+                                      int ks, int dm, void* stream) {
+  return chain16(lengths, gates, cell, gy, wh, dz, B, T, H, C, R, U, ks, dm,
                  stream);
 }
 
 // Bytes of dynamic shared memory a CTA of a chain16 plan takes (0: not a
 // plan the kernel takes).
-extern "C" long long clstm_bidi_lstm_bwd_chain16_smem(int H, int C, int R,
+extern "C" long long clstm_lstm_bwd_chain16_smem(int H, int C, int R,
                                                       int U, int ks) {
   return plan16(H, C, R, U, ks);
 }
 
 // Clusters of a chain16 plan the current device holds at once, or minus a
 // CUDA error.
-extern "C" int clstm_bidi_lstm_bwd_chain16_clusters(int H, int C, int R,
+extern "C" int clstm_lstm_bwd_chain16_clusters(int H, int C, int R,
                                                     int U, int ks) {
   return clusters16(H, C, R, U, ks);
 }
 
 // Floats of scratch the reduction takes: the dW partials, nsplit · 2 ·
 // (D+1+H) · 4H, then the hi and lo parts of wx for dx, 2 · 2 · D · 4H.
-extern "C" long long clstm_bidi_lstm_bwd_scratch(int B, int T, int D, int H) {
+extern "C" long long clstm_lstm_bwd_scratch(int B, int T, int D, int H) {
   return (long long)dw_nsplit(B, T, D, H) * 2 * (D + 1 + H) * 4 * H +
          4LL * D * 4 * H;
 }
 
-// dw [2, D+1+H, 4H] (and dx [B,T,D] unless dx is NULL) from x [B,T,D],
-// y [B,T,2H], dz [B,T,2,4H], wx [2,D,4H]; scratch holds
-// clstm_bidi_lstm_bwd_scratch(B, T, D, H) floats (16-byte aligned).
-extern "C" int clstm_bidi_lstm_bwd_reduce(const float* x, const float* y,
+// The f32 reduction, the bidi pair's: dw [2, D+1+H, 4H] (and dx [B,T,D]
+// unless dx is NULL) from x [B,T,D], y [B,T,2H], dz [B,T,2,4H], wx
+// [2,D,4H]; scratch holds clstm_lstm_bwd_scratch(B, T, D, H) floats
+// (16-byte aligned).
+extern "C" int clstm_lstm_bwd_reduce(const float* x, const float* y,
                                           const float* dz, const float* wx,
                                           float* scratch, float* dw, float* dx,
                                           int B, int T, int D, int H,
@@ -2235,70 +2074,29 @@ extern "C" int clstm_bidi_lstm_bwd_reduce(const float* x, const float* y,
 }
 
 // Bytes of scratch the bf16 reduction takes at plan (tt, spr)
-// (ops/bidi_lstm_kernel.py::reduce_plan): x staged as [x | 1 | 0..] in
-// bf16 [B·T, roundup(D+1, 64)], y staged per direction [B·T, 2,
-// roundup(H, 64)], dz staged per direction [B·T, 2, roundup(4H, 8)] where
-// H is odd, wx staged [2, D, roundup(4H, 64)] and,
-// with more than one frame range, the dW partials [ranges, 2, D+1+H, 4H]
-// f32; each 256-byte aligned.
-extern "C" long long clstm_bidi_lstm_bwd_bf16_scratch(int B, int T, int D,
-                                                       int H, int tt,
-                                                       int spr) {
-  return red16(B, T, D, H, tt, spr).bytes;
+// (ops/bidi_lstm_kernel.py::reduce_plan) and the call's directions dm: x
+// staged as [x | 1 | 0..] in bf16 [B·T, roundup(D+1, 64)], y staged per
+// direction [B·T, n, roundup(H, 64)], dz staged per direction [B·T, n,
+// roundup(4H, 8)] where H is odd, wx staged [n, D, roundup(4H, 64)] and,
+// with more than one frame range, the dW partials [ranges, n, D+1+H, 4H]
+// f32; each 256-byte aligned. 0 for a dm outside 0-2.
+extern "C" long long clstm_lstm_bwd_bf16_scratch(int B, int T, int D, int H,
+                                                 int tt, int spr, int dm) {
+  if (dm < 0 || dm > 2) return 0;
+  return red16(B, T, D, H, tt, spr, dirs_of(dm)).bytes;
 }
 
-// The bf16 mode: x [B,T,D] (bf16 where x_bf16, else f32), y [B,T,2H] and
-// dz [B,T,2,4H] bf16 (dz 16-byte aligned), wx [2,D,4H] f32 (rounded to
-// bf16 here); dw [2, D+1+H, 4H] f32 and dx (unless NULL) [B,T,D] in x's type.
-// The plan (reduce_plan): nw gate columns per dW tile and nwd columns d
-// per dx tile (64, 128 or 200), slices of tt frames along T (a power of
+// The bf16 reduction: x [B,T,D] (bf16 where x_bf16, else f32), y [B,T,nH]
+// and dz [B,T,n,4H] bf16 (dz 16-byte aligned), wx [n,D,4H] f32 (rounded to
+// bf16 here); dw [n, D+1+H, 4H] f32 and dx (unless NULL) [B,T,D] in x's
+// type. The plan (reduce_plan): nw gate columns per dW tile and nwd columns
+// d per dx tile (64, 128 or 200), slices of tt frames along T (a power of
 // two up to 64), spr slices per frame range. scratch: the bytes of
-// clstm_bidi_lstm_bwd_bf16_scratch at that plan, 256-byte aligned.
-extern "C" int clstm_bidi_lstm_bwd_reduce_bf16(
-    const void* x, int x_bf16, const bf16* y, const bf16* dz, const float* wx,
-    void* scratch, float* dw, void* dx, int B, int T, int D, int H, int nw,
-    int tt, int spr, int nwd, void* stream) {
-  return reduce_bf16(x, x_bf16, y, dz, wx, scratch, dw, dx, B, T, D, H, nw, tt,
-                     spr, nwd, 0, (cudaStream_t)stream);
-}
-
-// One direction of an LSTM (a lone NPLSTM, or Reversed(NPLSTM)), in the
-// bf16 mode: K2 with the call's directions dm 1 (forward) or 2 (reversed)
-// and its streams holding that direction alone: gates [B,T,1,4H], cell
-// [B,T,1,H], gy and y [B,T,H], dz [B,T,1,4H], Wh (whT) and wx [1,...], dw
-// [1,D+1+H,4H]; h_prev is y one frame back (forward) or on (reversed).
-// Otherwise as the bidi entries above; the grids take one direction's
-// blocks.
-extern "C" int clstm_lstm1_bwd_chain(const int32_t* lengths,
-                                     const float* gates, const bf16* cell,
-                                     const bf16* gy, const bf16* whT, bf16* dz,
-                                     int B, int T, int H, int dm,
-                                     void* stream) {
-  if (dm != 1 && dm != 2) return (int)cudaErrorInvalidValue;
-  return chain<bf16>(lengths, gates, cell, gy, whT, dz, B, T, H, dm, stream);
-}
-
-extern "C" int clstm_lstm1_bwd_chain16(const int32_t* lengths,
-                                       const float* gates, const bf16* cell,
-                                       const bf16* gy, const bf16* wh,
-                                       bf16* dz, int B, int T, int H, int C,
-                                       int R, int U, int ks, int dm,
-                                       void* stream) {
-  if (dm != 1 && dm != 2) return (int)cudaErrorInvalidValue;
-  return chain16(lengths, gates, cell, gy, wh, dz, B, T, H, C, R, U, ks, dm,
-                 stream);
-}
-
-extern "C" long long clstm_lstm1_bwd_bf16_scratch(int B, int T, int D, int H,
-                                                   int tt, int spr) {
-  return red16(B, T, D, H, tt, spr, 1).bytes;
-}
-
-extern "C" int clstm_lstm1_bwd_reduce_bf16(
+// clstm_lstm_bwd_bf16_scratch at that plan and dm, 256-byte aligned.
+extern "C" int clstm_lstm_bwd_reduce_bf16(
     const void* x, int x_bf16, const bf16* y, const bf16* dz, const float* wx,
     void* scratch, float* dw, void* dx, int B, int T, int D, int H, int nw,
     int tt, int spr, int nwd, int dm, void* stream) {
-  if (dm != 1 && dm != 2) return (int)cudaErrorInvalidValue;
   return reduce_bf16(x, x_bf16, y, dz, wx, scratch, dw, dx, B, T, D, H, nw, tt,
                      spr, nwd, dm, (cudaStream_t)stream);
 }

@@ -1,21 +1,21 @@
 // Bidirectional LSTM forward for sm_90a, in four modes of one kernel
 // (template flags EMIT and HOIST; WRES follows the plan, below), each in two
 // precisions (template element type E: float, or __nv_bfloat16 for the bf16
-// mode, the *_bf16 entry points):
+// mode), all launched by the C entry clstm_lstm_fwd, whose hoist, emit and
+// bf arguments pick the instance:
 //
-//   K3 (EMIT=false, HOIST=false, clstm_bidi_lstm_fwd): replaces the TPU
-//   kernel clstm_tpu/ops/pallas_lstm.py::_fwd_kernel with emit_state=False,
+//   K3 (EMIT=false, HOIST=false): replaces the TPU kernel
+//   clstm_tpu/ops/pallas_lstm.py::_fwd_kernel with emit_state=False,
 //   proj_in=False (bidi_lstm_pallas(..., with_state=False), serving).
-//   K1 (EMIT=true, HOIST=false, clstm_bidi_lstm_fwd_state): replaces the same
-//   kernel with emit_state=True (the forward of bidi_lstm_pallas's custom
-//   VJP, training). It also writes what the backward kernel K2 reads.
-//   K4 (HOIST=true, clstm_bidi_lstm_fwd_xz and clstm_bidi_lstm_fwd_xz_state,
-//   EMIT as for K3 and K1): replaces _fwd_kernel with proj_in=True, which
-//   the JAX package takes when D+1 > ceil(H/128)·128 (pallas_lstm.py:836;
-//   the second layer of the bidi2 net). The input projection was hoisted
-//   out of the recurrence into one product (xz, computed before the
-//   launch, as _proj_stream is on the TPU); the kernel runs only the h·Wh
-//   chain on it.
+//   K1 (EMIT=true, HOIST=false): replaces the same kernel with
+//   emit_state=True (the forward of bidi_lstm_pallas's custom VJP,
+//   training). It also writes what the backward kernel K2 reads.
+//   K4 (HOIST=true, EMIT as for K3 and K1): replaces _fwd_kernel with
+//   proj_in=True, which the JAX package takes when D+1 > ceil(H/128)·128
+//   (pallas_lstm.py:836; the second layer of the bidi2 net). The input
+//   projection was hoisted out of the recurrence into one product (xz,
+//   computed before the launch, as _proj_stream is on the TPU); the kernel
+//   runs only the h·Wh chain on it.
 //
 // Same contract as clstm_tpu_torch/ops/lstm.py::bidi_lstm_apply (K3),
 // bidi_lstm_fwd_state_plain (K1), bidi_lstm_apply_xz and
@@ -86,7 +86,7 @@
 //     2, 4, 8} whose slice fits (WRES 1), or, where [Wx; b] is at most a
 //     quarter of Wh, whose Wh slice fits with [Wx; b] read from L2 (WRES
 //     2: bidi2's first layer); R so that the clusters fill the card in one
-//     wave (clstm_bidi_lstm_fwd_clusters asks
+//     wave (clstm_lstm_fwd_clusters asks
 //     cudaOccupancyMaxActiveClusters). Where no C holds the slice (H of
 //     several hundred with a wide input, H = 700, 2048), the same kernel
 //     reads it from L2 (WRES 0): R rows still share each weight load.
@@ -116,7 +116,7 @@
 //
 // In the bf16 mode, all four (K3, K1, K4 in both modes) run on a second
 // kernel where ops/bidi_lstm_kernel.py::fwd16_plan gives it a plan
-// (fwd16_kernel, below; the C entries clstm_bidi_lstm_fwd16_*): z on the
+// (fwd16_kernel, below; the C entry clstm_lstm_fwd16): z on the
 // bf16 tensor cores (mma.sync), the gate math on the accumulator
 // fragments, h all-gathered across the cluster in 16-byte chunks; its
 // EMIT=false instances (K3, K4 inference: the serving path) keep no gates
@@ -124,13 +124,15 @@
 // and the shapes fwd16_plan leaves to it (no plan fits: H = 700, 2048; or
 // short chains, where it was the faster on the card).
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int RT = 4;             // rows of a register tile
 constexpr int RH = RT / 2;        // rows of each half of a tile
@@ -145,76 +147,6 @@ __device__ __forceinline__ float sigmoid_f32(float v) {
   return 1.0f / (1.0f + expf(fminf(-v, 80.0f)));
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-// 4 bytes global -> shared; zero-filled when !valid (src is not read).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-// 8 bytes global -> shared.
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (src is not read).
-__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 8 bytes global -> shared; zero-filled when !valid (src is not read).
-__device__ __forceinline__ void cp_async8z(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 8 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // v into CTA `rank`'s copy of `local` (2 floats, 8-byte aligned).
 __device__ __forceinline__ void st_cluster2(const float* local, uint32_t rank,
                                             float2 v) {
@@ -225,47 +157,6 @@ __device__ __forceinline__ void st_cluster2(const float* local, uint32_t rank,
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(remote),
                "f"(v.x), "f"(v.y)
                : "memory");
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// The f32 values of a bf16 pair packed in 32 bits: the first element in the
-// low half.
-__device__ __forceinline__ float lo_f(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
-__device__ __forceinline__ float hi_f(uint32_t u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-// 4 consecutive bf16 (8 bytes) as f32.
-__device__ __forceinline__ float4 ld4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(lo_f(u.x), hi_f(u.x), lo_f(u.y), hi_f(u.y));
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-// f32 -> the element type (bf16: rounded to nearest even).
-template <class E>
-__device__ __forceinline__ E from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// v as an operand of a product of the mode: rounded to bf16 in the bf16
-// mode.
-template <class E>
-__device__ __forceinline__ float operand(float v) {
-  return to_f(from_f<E>(v));
 }
 
 // acc[i][g] += a[i] · w[g] for the 4 rows i and 4 gates g.
@@ -370,7 +261,7 @@ __global__ void __launch_bounds__(FWD_THREADS)
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = (int)cluster_size();
   const int crank = (int)cluster_rank();
-  // The directions of the call (dm, see Dirs): nd in the streams, this
+  // The directions of the call (dm, dirs_of): nd in the streams, this
   // CTA's at place `dsl` of them, running forward (dir 0) or reversed.
   const int nd = dm ? 1 : 2;
   const int dsl = dm ? 0 : (int)blockIdx.y;
@@ -452,8 +343,8 @@ __global__ void __launch_bounds__(FWD_THREADS)
       const bool valid = s < Lr;
       const int t = dir == 0 ? s : Lr - 1 - s;
       const E* src = x + ((size_t)(b0 + r) * T + t) * D + (BF ? 2 * d : d);
-      cp_async4(dst + (BF ? ((size_t)d * R + r) * 2 : (size_t)d * R + r),
-                valid ? src : x, valid);
+      cp_async4z(dst + (BF ? ((size_t)d * R + r) * 2 : (size_t)d * R + r),
+                 valid ? src : x, valid);
     }
   };
   if (!HOIST) {
@@ -478,7 +369,7 @@ __global__ void __launch_bounds__(FWD_THREADS)
       }
     }
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
   // Every CTA of the cluster has started and initialised its buffers
   // before any h crosses to it.
   cluster_arrive();
@@ -588,7 +479,7 @@ __global__ void __launch_bounds__(FWD_THREADS)
       }
     }
     if (s + 1 < lmax) {
-      cp_async_wait_all();
+      cp_async_wait<0>();
       cluster_arrive();
     }
     // While the other CTAs reach the barrier: the outputs (stored after
@@ -649,12 +540,6 @@ bool make_plan(Plan& p, int D, int H, bool hoist, int C, int R, int U,
   p.smem = smem_bytes(D, H, R, U, hoist, wres, es);
   return p.threads <= FWD_THREADS && p.smem <= (size_t)SMEM_MAX;
 }
-
-// The directions of a call (the kernels' dm): both, the bidi pair's (0),
-// or one: the forward direction alone (1) or the reversed one alone (2),
-// whose streams then hold that direction only (y [B,T,H], gates
-// [B,T,1,4H], weights [1,...]).
-__host__ __device__ inline int dirs_of(int dm) { return dm ? 1 : 2; }
 
 // A launch configuration of the plan: grid (C · row groups, the call's
 // directions), clusters of C CTAs along x.
@@ -766,10 +651,6 @@ constexpr int F16_WIDE_C = 16;
 // 20 warps were faster in turns, PERF.md §6).
 __host__ __device__ constexpr int f16_ng(int mt) { return mt == 1 ? 2 : 1; }
 
-__host__ __device__ inline int up_to(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
 // Where a CTA's operands live in its shared memory
 // (ops/bidi_lstm_kernel.py::fwd16_geometry counts the same): Bw its
 // columns of Wh and of [Wx; b] [N = 4U][KH + KX + 8] (row 4·u + g: gate g
@@ -822,38 +703,6 @@ long long plan16(int D, int H, bool hoist, bool emit, int C, int R, int U) {
     return 0;
   const Geo16 g = geo16(D, H, U, R, hoist, emit);
   return g.bytes <= F16_SMEM_MAX ? g.bytes : 0;
-}
-
-// The address of `local` in the shared memory of the cluster's CTA `rank`.
-__device__ __forceinline__ uint32_t peer_addr(const void* local,
-                                              uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(smem_addr(local)), "r"(rank));
-  return remote;
-}
-
-__device__ __forceinline__ void st_peer16(uint32_t addr, uint4 v) {
-  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   addr),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
 }
 
 // c = a·b, m16n8k16, bf16 operands, f32 result (a fresh accumulator).
@@ -1117,7 +966,7 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
         const bool valid = s < Lr;
         const int t = dir == 0 ? s : Lr - 1 - s;
         const bf16* src = x + ((size_t)(b0 + r) * T + t) * D + 2 * d;
-        cp_async4(dst + (size_t)r * ldx + 2 * d, valid ? src : x, valid);
+        cp_async4z(dst + (size_t)r * ldx + 2 * d, valid ? src : x, valid);
       }
   };
   // xz of chain step s for the R rows into ring slot s % 3 ([R][4][U]: the
@@ -1172,7 +1021,7 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
       }
     }
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
   // Every CTA of the cluster has initialised its buffers before any h
   // crosses to it.
   cluster_arrive();
@@ -1381,7 +1230,7 @@ __global__ void __launch_bounds__(F16_THREADS, 1)
         }
       }
       F16_MARK(5)
-      cp_async_wait_all();
+      cp_async_wait<0>();
       cluster_arrive();
       F16_MARK(6)
     }
@@ -1477,224 +1326,79 @@ int clusters16(int D, int H, bool hoist, bool emit, int C, int R, int U) {
   return e == cudaSuccess ? n : -(int)e;
 }
 
+// The FMA kernel's launch in the mode (hoist, emit) with element type E:
+// the pointers of what the mode has none of are passed as null, and D as
+// 0 with hoist.
+template <class E>
+int launch_mode(const void* x, const int32_t* lengths, const void* wx,
+                const void* wh, void* y, float* gates, void* cell, int B,
+                int T, int D, int H, int C, int R, int U, int wres, int hoist,
+                int emit, int dm, void* stream) {
+  const E* xe = static_cast<const E*>(x);
+  const E* wxe = static_cast<const E*>(wx);
+  const E* whe = static_cast<const E*>(wh);
+  E* ye = static_cast<E*>(y);
+  E* ce = static_cast<E*>(cell);
+  if (hoist)
+    return emit ? launch<true, true, E>(xe, lengths, nullptr, whe, ye, gates,
+                                        ce, B, T, 0, H, C, R, U, wres, dm,
+                                        stream)
+                : launch<false, true, E>(xe, lengths, nullptr, whe, ye,
+                                         nullptr, nullptr, B, T, 0, H, C, R,
+                                         U, wres, dm, stream);
+  return emit ? launch<true, false, E>(xe, lengths, wxe, whe, ye, gates, ce,
+                                       B, T, D, H, C, R, U, wres, dm, stream)
+              : launch<false, false, E>(xe, lengths, wxe, whe, ye, nullptr,
+                                        nullptr, B, T, D, H, C, R, U, wres,
+                                        dm, stream);
+}
+
 }  // namespace
 
 // Each launching entry runs on `stream` and returns cudaGetLastError() (0
 // on success). All pointers are device pointers, the weights 16-byte
-// aligned; `lengths` may be NULL. The plan (C CTAs per cluster, R rows per
-// cluster, U units per CTA, wres: 1 the weights resident in shared memory,
-// 2 only Wh, 0 none) comes from ops/bidi_lstm_kernel.py::fwd_plan; a
-// plan the kernel cannot take returns cudaErrorInvalidValue. wx [2,D+1,H,4]
-// holds Wx's rows then b, wh [2,H,H,4] Wh, both interleaved by unit (see
-// the note above), the forward direction's first. B, T, D, H >= 1. The
-// gates are f32 in both precisions; the *_bf16 entries take every other
-// stream and the weights as bf16, with D even.
-extern "C" int clstm_bidi_lstm_fwd(const float* x, const int32_t* lengths,
-                                   const float* wx, const float* wh, float* y,
-                                   int B, int T, int D, int H, int C, int R,
-                                   int U, int wres, void* stream) {
-  return launch<false, false, float>(x, lengths, wx, wh, y, nullptr, nullptr,
-                                     B, T, D, H, C, R, U, wres, 0, stream);
+// aligned; `lengths` may be NULL (all T). B, T, H >= 1.
+//
+// The mode: hoist 0 (K3, K1) reads x [B,T,D] and wx; hoist 1 (K4) reads
+// the hoisted projection xz [B,T,n,4H] in x's place (wx and D unused).
+// emit 1 (K1, K4's state mode) also writes gates [B,T,n,4H] (f32) and cell
+// [B,T,n,H]; emit 0 (K3, K4 inference) writes y [B,T,nH] alone (gates and
+// cell unused). dm, the call's directions: 0 both (n = 2, the bidi pair;
+// the forward direction's streams and weights first), 1 the forward
+// direction alone, 2 the reversed one alone (n = 1: a lone NPLSTM or
+// Reversed(NPLSTM); the grid takes that direction's row groups). Any other
+// dm, and a plan the kernel cannot take, return cudaErrorInvalidValue.
+//
+// clstm_lstm_fwd launches the FMA kernel at the plan of
+// ops/bidi_lstm_kernel.py::fwd_plan: C CTAs per cluster, R rows per
+// cluster, U units per CTA, wres 1 the weights resident in shared memory,
+// 2 only Wh, 0 none. wx [n,D+1,H,4] holds Wx's rows then b, wh [n,H,H,4]
+// Wh, both interleaved by unit (see the note above). bf 0: every stream and
+// weight f32; bf 1 (the bf16 mode): x, y, cell and the weights bf16, the
+// gates f32, D even. One direction runs in the bf16 mode only (bf 0 with
+// dm 1 or 2 returns cudaErrorInvalidValue).
+extern "C" int clstm_lstm_fwd(const void* x, const int32_t* lengths,
+                              const void* wx, const void* wh, void* y,
+                              float* gates, void* cell, int B, int T, int D,
+                              int H, int C, int R, int U, int wres, int hoist,
+                              int emit, int bf, int dm, void* stream) {
+  if (dm != 0 && !bf) return (int)cudaErrorInvalidValue;
+  return bf ? launch_mode<bf16>(x, lengths, wx, wh, y, gates, cell, B, T, D,
+                                H, C, R, U, wres, hoist, emit, dm, stream)
+            : launch_mode<float>(x, lengths, wx, wh, y, gates, cell, B, T, D,
+                                 H, C, R, U, wres, hoist, emit, dm, stream);
 }
 
-// K1: as clstm_bidi_lstm_fwd, and also writes gates [B,T,2,4H] and
-// cell [B,T,2,H].
-extern "C" int clstm_bidi_lstm_fwd_state(const float* x,
-                                         const int32_t* lengths,
-                                         const float* wx, const float* wh,
-                                         float* y, float* gates, float* cell,
-                                         int B, int T, int D, int H, int C,
-                                         int R, int U, int wres,
-                                         void* stream) {
-  return launch<true, false, float>(x, lengths, wx, wh, y, gates, cell, B, T,
-                                    D, H, C, R, U, wres, 0, stream);
-}
-
-// K4, inference: y [B,T,2H] from the hoisted projection xz [B,T,2,4H] and
-// wh [2,H,H,4].
-extern "C" int clstm_bidi_lstm_fwd_xz(const float* xz, const int32_t* lengths,
-                                      const float* wh, float* y, int B, int T,
-                                      int H, int C, int R, int U, int wres,
-                                      void* stream) {
-  return launch<false, true, float>(xz, lengths, nullptr, wh, y, nullptr,
-                                    nullptr, B, T, 0, H, C, R, U, wres, 0,
-                                    stream);
-}
-
-// K4, state mode: as clstm_bidi_lstm_fwd_xz, and also writes gates
-// [B,T,2,4H] and cell [B,T,2,H] as K1 does.
-extern "C" int clstm_bidi_lstm_fwd_xz_state(const float* xz,
-                                            const int32_t* lengths,
-                                            const float* wh, float* y,
-                                            float* gates, float* cell, int B,
-                                            int T, int H, int C, int R, int U,
-                                            int wres, void* stream) {
-  return launch<true, true, float>(xz, lengths, nullptr, wh, y, gates, cell,
-                                   B, T, 0, H, C, R, U, wres, 0, stream);
-}
-
-// The bf16 mode of the four (K3, K1, K4 and its state mode).
-extern "C" int clstm_bidi_lstm_fwd_bf16(const bf16* x, const int32_t* lengths,
-                                        const bf16* wx, const bf16* wh,
-                                        bf16* y, int B, int T, int D, int H,
-                                        int C, int R, int U, int wres,
-                                        void* stream) {
-  return launch<false, false, bf16>(x, lengths, wx, wh, y, nullptr, nullptr,
-                                    B, T, D, H, C, R, U, wres, 0, stream);
-}
-
-extern "C" int clstm_bidi_lstm_fwd_state_bf16(
-    const bf16* x, const int32_t* lengths, const bf16* wx, const bf16* wh,
-    bf16* y, float* gates, bf16* cell, int B, int T, int D, int H, int C,
-    int R, int U, int wres, void* stream) {
-  return launch<true, false, bf16>(x, lengths, wx, wh, y, gates, cell, B, T, D,
-                                   H, C, R, U, wres, 0, stream);
-}
-
-extern "C" int clstm_bidi_lstm_fwd_xz_bf16(const bf16* xz,
-                                           const int32_t* lengths,
-                                           const bf16* wh, bf16* y, int B,
-                                           int T, int H, int C, int R, int U,
-                                           int wres, void* stream) {
-  return launch<false, true, bf16>(xz, lengths, nullptr, wh, y, nullptr,
-                                   nullptr, B, T, 0, H, C, R, U, wres, 0,
-                                   stream);
-}
-
-extern "C" int clstm_bidi_lstm_fwd_xz_state_bf16(
-    const bf16* xz, const int32_t* lengths, const bf16* wh, bf16* y,
-    float* gates, bf16* cell, int B, int T, int H, int C, int R, int U,
-    int wres, void* stream) {
-  return launch<true, true, bf16>(xz, lengths, nullptr, wh, y, gates, cell,
-                                  B, T, 0, H, C, R, U, wres, 0, stream);
-}
-
-// Bytes of dynamic shared memory a CTA of the plan takes (0: the plan is
-// not one the kernel takes), f32 and bf16 instances.
-extern "C" long long clstm_bidi_lstm_fwd_smem(int D, int H, int hoist, int C,
-                                              int R, int U, int wres) {
-  return plan_smem<float>(D, H, hoist, C, R, U, wres);
-}
-
-extern "C" long long clstm_bidi_lstm_fwd_bf16_smem(int D, int H, int hoist,
-                                                   int C, int R, int U,
-                                                   int wres) {
-  return plan_smem<bf16>(D, H, hoist, C, R, U, wres);
-}
-
-// Clusters of the plan that can be resident on the current device at once
-// (cudaOccupancyMaxActiveClusters), or minus a CUDA error; f32 and bf16
-// instances.
-extern "C" int clstm_bidi_lstm_fwd_clusters(int D, int H, int hoist, int emit,
-                                            int C, int R, int U,
-                                            int wres) {
-  return plan_clusters<float>(D, H, hoist, emit, C, R, U, wres);
-}
-
-extern "C" int clstm_bidi_lstm_fwd_bf16_clusters(int D, int H, int hoist,
-                                                 int emit, int C, int R, int U,
-                                                 int wres) {
-  return plan_clusters<bf16>(D, H, hoist, emit, C, R, U, wres);
-}
-
-// Bytes of dynamic shared memory a CTA of a fwd16 plan takes (0: the plan
-// is not one the kernel takes); D is the kernel's (even) x width, 0 with
-// hoist; emit 1 for K1 and K4's state mode, 0 for K3 and K4 inference
-// (ops/bidi_lstm_kernel.py::fwd16_smem counts the same).
-extern "C" long long clstm_bidi_lstm_fwd16_smem(int D, int H, int hoist,
-                                                int emit, int C, int R,
-                                                int U) {
-  return plan16(D, H, hoist != 0, emit != 0, C, R, U);
-}
-
-// Clusters of a fwd16 plan the current device holds at once
-// (cudaOccupancyMaxActiveClusters) for the instance of that mode, or minus
-// a CUDA error.
-extern "C" int clstm_bidi_lstm_fwd16_clusters(int D, int H, int hoist,
-                                              int emit, int C, int R,
-                                              int U) {
-  return clusters16(D, H, hoist != 0, emit != 0, C, R, U);
-}
-
-// K1 in the bf16 mode on the tensor cores: x [B,T,D] bf16 (D even), wx
-// [2,4H,D+1] (row 4u+g: the column of gate g of unit u, over the rows of
-// Wx then b) and wh [2,4H,H] bf16, k contiguous (fwd16_weights); y, cell
-// bf16 and gates f32 as clstm_bidi_lstm_fwd_state_bf16. The plan (C CTAs
-// per cluster, R rows per cluster, U units per CTA) from fwd16_plan.
-extern "C" int clstm_bidi_lstm_fwd16_state(
-    const bf16* x, const int32_t* lengths, const bf16* wx, const bf16* wh,
-    bf16* y, float* gates, bf16* cell, int B, int T, int D, int H, int C,
-    int R, int U, void* stream) {
-  return launch16<false, true>(x, lengths, wx, wh, y, gates, cell, B, T, D,
-                               H, C, R, U, 0, stream);
-}
-
-// K4's state mode in the bf16 mode on the tensor cores: xz [B,T,2,4H] bf16
-// and wh as above.
-extern "C" int clstm_bidi_lstm_fwd16_xz_state(
-    const bf16* xz, const int32_t* lengths, const bf16* wh, bf16* y,
-    float* gates, bf16* cell, int B, int T, int H, int C, int R, int U,
-    void* stream) {
-  return launch16<true, true>(xz, lengths, nullptr, wh, y, gates, cell, B, T,
-                              0, H, C, R, U, 0, stream);
-}
-
-// K3 in the bf16 mode on the tensor cores (serving): as
-// clstm_bidi_lstm_fwd16_state, y [B,T,2H] bf16 alone.
-extern "C" int clstm_bidi_lstm_fwd16(const bf16* x, const int32_t* lengths,
-                                     const bf16* wx, const bf16* wh, bf16* y,
-                                     int B, int T, int D, int H, int C, int R,
-                                     int U, void* stream) {
-  return launch16<false, false>(x, lengths, wx, wh, y, nullptr, nullptr, B,
-                                T, D, H, C, R, U, 0, stream);
-}
-
-// K4 inference in the bf16 mode on the tensor cores: as
-// clstm_bidi_lstm_fwd16_xz_state, y alone.
-extern "C" int clstm_bidi_lstm_fwd16_xz(const bf16* xz,
-                                        const int32_t* lengths,
-                                        const bf16* wh, bf16* y, int B, int T,
-                                        int H, int C, int R, int U,
-                                        void* stream) {
-  return launch16<true, false>(xz, lengths, nullptr, wh, y, nullptr, nullptr,
-                               B, T, 0, H, C, R, U, 0, stream);
-}
-
-// One direction of an LSTM (a lone NPLSTM, or Reversed(NPLSTM)), in the
-// bf16 mode: the same kernels and plans, with the call's directions dm 1
-// (forward) or 2 (reversed) and its streams holding that direction alone:
-// x [B,T,D] (or xz [B,T,1,4H]), y [B,T,H], gates [B,T,1,4H], cell
-// [B,T,1,H], the weights of one direction ([1,...], laid out as above).
-// The grid takes one direction's row groups. clstm_lstm1_fwd launches the
-// FMA kernel (hoist and emit pick the instance; wres as above),
-// clstm_lstm1_fwd16 the tensor-core kernel.
-extern "C" int clstm_lstm1_fwd(const bf16* x, const int32_t* lengths,
-                               const bf16* wx, const bf16* wh, bf16* y,
-                               float* gates, bf16* cell, int B, int T, int D,
-                               int H, int C, int R, int U, int wres, int hoist,
-                               int emit, int dm, void* stream) {
-  if (dm != 1 && dm != 2) return (int)cudaErrorInvalidValue;
-  if (hoist)
-    return emit ? launch<true, true, bf16>(x, lengths, nullptr, wh, y, gates,
-                                           cell, B, T, 0, H, C, R, U, wres,
-                                           dm, stream)
-                : launch<false, true, bf16>(x, lengths, nullptr, wh, y,
-                                            nullptr, nullptr, B, T, 0, H, C,
-                                            R, U, wres, dm, stream);
-  return emit ? launch<true, false, bf16>(x, lengths, wx, wh, y, gates, cell,
-                                          B, T, D, H, C, R, U, wres, dm,
-                                          stream)
-              : launch<false, false, bf16>(x, lengths, wx, wh, y, nullptr,
-                                           nullptr, B, T, D, H, C, R, U, wres,
-                                           dm, stream);
-}
-
-extern "C" int clstm_lstm1_fwd16(const bf16* x, const int32_t* lengths,
-                                 const bf16* wx, const bf16* wh, bf16* y,
-                                 float* gates, bf16* cell, int B, int T, int D,
-                                 int H, int C, int R, int U, int hoist,
-                                 int emit, int dm, void* stream) {
-  if (dm != 1 && dm != 2) return (int)cudaErrorInvalidValue;
+// clstm_lstm_fwd16 launches the tensor-core kernel, the bf16 mode only, at
+// the plan of fwd16_plan (C CTAs per cluster, R rows per cluster, U units
+// per CTA): x [B,T,D] bf16 (D even), wx [n,4H,D+1] (row 4u+g: the column of
+// gate g of unit u, over the rows of Wx then b) and wh [n,4H,H] bf16, k
+// contiguous (fwd16_weights); y and cell bf16, the gates f32.
+extern "C" int clstm_lstm_fwd16(const bf16* x, const int32_t* lengths,
+                                const bf16* wx, const bf16* wh, bf16* y,
+                                float* gates, bf16* cell, int B, int T, int D,
+                                int H, int C, int R, int U, int hoist,
+                                int emit, int dm, void* stream) {
   if (hoist)
     return emit ? launch16<true, true>(x, lengths, nullptr, wh, y, gates, cell,
                                        B, T, 0, H, C, R, U, dm, stream)
@@ -1705,6 +1409,42 @@ extern "C" int clstm_lstm1_fwd16(const bf16* x, const int32_t* lengths,
                                       D, H, C, R, U, dm, stream)
               : launch16<false, false>(x, lengths, wx, wh, y, nullptr, nullptr,
                                        B, T, D, H, C, R, U, dm, stream);
+}
+
+// Bytes of dynamic shared memory a CTA of an FMA plan takes (0: the plan is
+// not one the kernel takes), bf as clstm_lstm_fwd's.
+extern "C" long long clstm_lstm_fwd_smem(int D, int H, int hoist, int C,
+                                         int R, int U, int wres, int bf) {
+  return bf ? plan_smem<bf16>(D, H, hoist, C, R, U, wres)
+            : plan_smem<float>(D, H, hoist, C, R, U, wres);
+}
+
+// Clusters of an FMA plan the current device holds at once
+// (cudaOccupancyMaxActiveClusters) for the instance of the mode, or minus a
+// CUDA error.
+extern "C" int clstm_lstm_fwd_clusters(int D, int H, int hoist, int emit,
+                                       int C, int R, int U, int wres,
+                                       int bf) {
+  return bf ? plan_clusters<bf16>(D, H, hoist, emit, C, R, U, wres)
+            : plan_clusters<float>(D, H, hoist, emit, C, R, U, wres);
+}
+
+// Bytes of dynamic shared memory a CTA of a fwd16 plan takes (0: the plan
+// is not one the kernel takes); D is the kernel's (even) x width, 0 with
+// hoist (ops/bidi_lstm_kernel.py::fwd16_smem counts the same).
+extern "C" long long clstm_lstm_fwd16_smem(int D, int H, int hoist,
+                                                int emit, int C, int R,
+                                                int U) {
+  return plan16(D, H, hoist != 0, emit != 0, C, R, U);
+}
+
+// Clusters of a fwd16 plan the current device holds at once
+// (cudaOccupancyMaxActiveClusters) for the instance of that mode, or minus
+// a CUDA error.
+extern "C" int clstm_lstm_fwd16_clusters(int D, int H, int hoist,
+                                              int emit, int C, int R,
+                                              int U) {
+  return clusters16(D, H, hoist != 0, emit != 0, C, R, U);
 }
 
 #ifdef CLSTM_FWD16_PHASES

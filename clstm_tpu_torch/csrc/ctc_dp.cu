@@ -76,6 +76,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float NEG = -1e30f;
@@ -98,22 +100,6 @@ __device__ __forceinline__ float logaddexp_f32(float a, float b) {
 __device__ __forceinline__ int clamp_len(const int32_t* lengths, int b,
                                          int hi) {
   return min(max((int)lengths[b], 0), hi);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Waits until at most N of this thread's groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // A lane's place: the block is row blockIdx.x on W warps; lane l of warp w
@@ -204,13 +190,13 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
   // t. Frames past the row's end are fetched (clamped to T-1), never read.
   for (int f = 0; f < P - 1; ++f) {
     fetch(smem + (f & (P - 1)) * pitch, src + (size_t)min(f, T - 1) * S, q);
-    cp_commit();
+    cp_async_commit();
   }
   for (int t = 0; t < L; ++t) {
     const int f = t + P - 1;
     fetch(smem + (f & (P - 1)) * pitch, src + (size_t)min(f, T - 1) * S, q);
-    cp_commit();
-    cp_wait<P - 1>();
+    cp_async_commit();
+    cp_async_wait<P - 1>();
     // Read before the step's barrier, which the compiler does not move
     // shared-memory loads across.
     float l[K];
@@ -219,7 +205,7 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
     store_frame<K>(dst, v, n);
     dst += S;
   }
-  cp_wait<0>();
+  cp_async_wait<0>();
   for (int t = L; t < T; ++t, dst += S) store_frame<K>(dst, v, n);
 }
 
@@ -304,15 +290,15 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
     const size_t f = (size_t)max(L - 1 - j, 0) * S;
     fetch(smem + (j & (P - 1)) * pitch, src + f, q);
     if constexpr (BOTH) fetch(ringr + (j & (P - 1)) * pitch, srcr + f, q);
-    cp_commit();
+    cp_async_commit();
   }
   for (int i = 0; i < L; ++i) {
     const int j = i + P - 1;
     const size_t f = (size_t)max(L - 1 - j, 0) * S;
     fetch(smem + (j & (P - 1)) * pitch, src + f, q);
     if constexpr (BOTH) fetch(ringr + (j & (P - 1)) * pitch, srcr + f, q);
-    cp_commit();
-    cp_wait<P - 1>();
+    cp_async_commit();
+    cp_async_wait<P - 1>();
     float l[K], r[K];
     read_slot<K>(l, smem + (i & (P - 1)) * pitch, q.s0);
     if constexpr (BOTH) read_slot<K>(r, ringr + (i & (P - 1)) * pitch, q.s0);
@@ -329,7 +315,7 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
     }
     dst -= S;
   }
-  cp_wait<0>();
+  cp_async_wait<0>();
   if constexpr (BOTH) {
     // Frames len..T-1 are the row's contiguous tail: NEG, coalesced.
     float* tail = out + row + (size_t)L * S;

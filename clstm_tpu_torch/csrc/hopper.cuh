@@ -1,7 +1,11 @@
-// Hopper building blocks shared by the port's TMA-fed wgmma kernels
-// (bidi_lstm_bwd.cu's bf16 reduction, affine_bf16.cu): shared-memory
-// addresses, mbarriers, TMA tile copies, wgmma descriptors and the bf16
-// m64nNk16 wgmma at N = 64, 128 and 200, and the host's tensor maps.
+// The device helpers of the port's kernels, in one place: bf16 values,
+// cp.async copies, thread-block clusters and their shared memory,
+// ldmatrix, mbarriers and TMA tile copies, wgmma descriptors, the TF32
+// m64n80k8 and the bf16 m64nNk16 wgmma at N = 64, 128 and 200, and the
+// host's tensor maps. Included by bidi_lstm_fwd.cu, bidi_lstm_bwd.cu,
+// affine_bf16.cu and ctc_dp.cu. Where two kernels need two versions of a
+// helper, both are here under names that say how they differ (cp_async16
+// and cp_async16z; cp_async_wait and cp_async_wait_noclobber).
 // Everything is in an anonymous namespace: each source that includes it
 // gets its own copy.
 
@@ -9,14 +13,202 @@
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// bf16 values
+// ---------------------------------------------------------------------------
+
+// The f32 values of a bf16 pair packed in 32 bits: the first element in the
+// low half.
+__device__ __forceinline__ float lo_f(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 4 consecutive bf16 (8 bytes) as f32.
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(lo_f(u.x), hi_f(u.x), lo_f(u.y), hi_f(u.y));
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+// f32 -> the element type (bf16: rounded to nearest even).
+template <class E>
+__device__ __forceinline__ E from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v as an operand of a product of the mode: rounded to bf16 in the bf16
+// mode.
+template <class E>
+__device__ __forceinline__ float operand(float v) {
+  return to_f(from_f<E>(v));
+}
+
+// ---------------------------------------------------------------------------
+// Shapes shared by the LSTM kernels
+// ---------------------------------------------------------------------------
+
+// The directions of a call (the LSTM kernels' dm): both, the bidi pair's
+// (0), or one: the forward direction alone (1) or the reversed one alone
+// (2), whose streams then hold that direction only (y [B,T,H], gates
+// [B,T,1,4H], dz [B,T,1,4H], the weights and dW [1,...]).
+__host__ __device__ inline int dirs_of(int dm) { return dm ? 1 : 2; }
+
+__host__ __device__ inline int up_to(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// ---------------------------------------------------------------------------
+// Shared memory and cp.async
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
+
+// 4, 8 or 16 bytes global -> shared.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+// The same copies zero-filled when !valid (src is not read).
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async8z(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most N of this thread's committed groups are in flight;
+// the compiler moves no memory access across it.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The same wait without the memory clobber: the compiler may move accesses
+// across it, so the copies' data is read only after a barrier that follows
+// it (the backward's staged products).
+template <int N>
+__device__ __forceinline__ void cp_async_wait_noclobber() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters and ldmatrix
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `local` in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* local,
+                                              uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(local)), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void st_peer16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers, TMA and wgmma
+// ---------------------------------------------------------------------------
 
 // Keeps the compiler from moving accesses of v across an asynchronous
 // wgmma that reads or writes it.
@@ -105,6 +297,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma matrix descriptor of a no-swizzle K-major tile at shared address
+// `addr`: start >> 4, LBO (bits 16-29) and SBO (bits 32-45) in 16 B units.
+__device__ __forceinline__ uint64_t nosw_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -228,6 +428,32 @@ struct Wgmma<200, TA, TB> {
   }
 };
 
+// d (+)= a·B for one m64n80k8 TF32 step: a in registers (this warp's 16
+// rows, m16n8k8 layout), B by descriptor; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n80k8(float (&d)[40],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// An N of the bf16 wgmma above.
+inline bool valid_nw(int nw) { return nw == 64 || nw == 128 || nw == 200; }
+
 template <int N>
 __device__ __forceinline__ void pin_all(float (&d)[N]) {
 #pragma unroll
@@ -236,7 +462,7 @@ __device__ __forceinline__ void pin_all(float (&d)[N]) {
 
 // cuTensorMapEncodeTiled, looked up from the driver through the runtime
 // (the library links no libcuda); nullptr if the driver has none.
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
   if (!fn) {
     void* p = nullptr;
@@ -251,9 +477,9 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
 
 // A bf16 map of `rank` dims (dims[0] innermost; strides[i] the bytes
 // between steps of dim i + 1) whose boxes land 128-byte swizzled.
-bool bf16_map(CUtensorMap* m, const void* base, int rank,
-              const uint64_t* dims, const uint64_t* strides,
-              const uint32_t* box) {
+inline bool bf16_map(CUtensorMap* m, const void* base, int rank,
+                     const uint64_t* dims, const uint64_t* strides,
+                     const uint32_t* box) {
   const auto enc = encode_tiled();
   const uint32_t ones[3] = {1, 1, 1};
   return enc &&

@@ -34,10 +34,13 @@
 Each wrapper also runs one direction alone (a lone NPLSTM, or
 Reversed(NPLSTM) with ``reverse``): ``params_r`` None in the forwards, one
 direction's streams ([B, T, 1, ...], y [B, T, H]) in K2's; on a card in
-the bf16 mode only (the C entries ``clstm_lstm1_*``, which take the
-call's directions ``dm``). A launch then takes that direction's row
-groups, its plans count one direction's (``ndir`` 1), and ``launches1``
-counts it apart from the pair's.
+the bf16 mode only. A launch then takes that direction's row groups, its
+plans count one direction's (``ndir`` 1), and ``launches1`` counts it
+apart from the pair's.
+
+Each kernel has one C entry point for every mode and direction count:
+the forward's mode (hoist, emit), the precision (bf) and the call's
+directions (dm, _dm) are its arguments (_SIGNATURES).
 
 Their plain versions are in ops/lstm.py (bidi_lstm_apply, the ``_plain``
 functions and, for one direction, the ``lstm1_*`` ones). On CPU tensors
@@ -72,66 +75,50 @@ from clstm_tpu_torch.utils.profiling import span
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers, ints, stream); all return int.
+# dm is the call's directions (_dm), hoist and emit the forward's mode (K4;
+# K1 and K4's state mode), bf the bf16 mode.
 _SIGNATURES = {
-    "clstm_bidi_lstm_fwd": [_P] * 5 + [_I] * 8 + [_P],
-    "clstm_bidi_lstm_fwd_state": [_P] * 7 + [_I] * 8 + [_P],
-    "clstm_bidi_lstm_fwd_xz": [_P] * 4 + [_I] * 7 + [_P],
-    "clstm_bidi_lstm_fwd_xz_state": [_P] * 6 + [_I] * 7 + [_P],
-    "clstm_bidi_lstm_fwd_smem": [_I] * 7,
-    "clstm_bidi_lstm_fwd_clusters": [_I] * 8,
-    "clstm_bidi_lstm_bwd_hp": [_I],
-    "clstm_bidi_lstm_bwd_chain": [_P] * 6 + [_I] * 3 + [_P],
-    "clstm_bidi_lstm_bwd_scratch": [_I] * 4,
-    "clstm_bidi_lstm_bwd_reduce": [_P] * 7 + [_I] * 4 + [_P],
-    # The bf16 mode's instances: the same arguments, bf16 streams and
-    # weights; the reduction also takes whether dx is bf16.
-    "clstm_bidi_lstm_fwd_bf16": [_P] * 5 + [_I] * 8 + [_P],
-    "clstm_bidi_lstm_fwd_state_bf16": [_P] * 7 + [_I] * 8 + [_P],
-    "clstm_bidi_lstm_fwd_xz_bf16": [_P] * 4 + [_I] * 7 + [_P],
-    "clstm_bidi_lstm_fwd_xz_state_bf16": [_P] * 6 + [_I] * 7 + [_P],
-    "clstm_bidi_lstm_fwd_bf16_smem": [_I] * 7,
-    "clstm_bidi_lstm_fwd_bf16_clusters": [_I] * 8,
-    "clstm_bidi_lstm_bwd_chain_bf16": [_P] * 6 + [_I] * 3 + [_P],
-    # The bf16 reduction: x, whether x is bf16 (and dx then bf16), y, dz,
-    # wx (f32), scratch, dw, dx; B, T, D, H and the plan (nw, tt, spr, nwd).
-    "clstm_bidi_lstm_bwd_reduce_bf16": [_P, _I] + [_P] * 6 + [_I] * 8 + [_P],
-    "clstm_bidi_lstm_bwd_bf16_scratch": [_I] * 6,
-    # The bf16 chain on clusters: lengths, gates, cell, gy, Wh (bf16), dz;
-    # B, T, H and the plan (C, rows, units, ksplit).
-    "clstm_bidi_lstm_bwd_chain16": [_P] * 6 + [_I] * 7 + [_P],
-    "clstm_bidi_lstm_bwd_chain16_smem": [_I] * 5,
-    "clstm_bidi_lstm_bwd_chain16_clusters": [_I] * 5,
-    # K1 and K4's state mode in the bf16 mode on the tensor cores: x (or
-    # xz), lengths, [wx,] wh, y, gates, cell; B, T, [D,] H and the plan (C,
-    # rows, units); K3 and K4 inference the same without gates and cell.
-    # The plan's queries take (D, H, hoist, emit, C, rows, units).
-    "clstm_bidi_lstm_fwd16_state": [_P] * 7 + [_I] * 7 + [_P],
-    "clstm_bidi_lstm_fwd16_xz_state": [_P] * 6 + [_I] * 6 + [_P],
-    "clstm_bidi_lstm_fwd16": [_P] * 5 + [_I] * 7 + [_P],
-    "clstm_bidi_lstm_fwd16_xz": [_P] * 4 + [_I] * 6 + [_P],
-    "clstm_bidi_lstm_fwd16_smem": [_I] * 7,
-    "clstm_bidi_lstm_fwd16_clusters": [_I] * 7,
-    # One direction alone (dm 1 forward, 2 reversed), the bf16 mode. The
-    # FMA forward: x, lengths, wx, wh, y, gates, cell; B, T, D, H, the plan
-    # (C, rows, units, resident), hoist, emit, dm. The tensor-core forward:
-    # the same pointers; B, T, D, H, the plan (C, rows, units), hoist,
-    # emit, dm.
-    "clstm_lstm1_fwd": [_P] * 7 + [_I] * 11 + [_P],
-    "clstm_lstm1_fwd16": [_P] * 7 + [_I] * 10 + [_P],
-    # K2: the L2 chain (lengths, gates, cell, gy, whT, dz; B, T, H, dm),
-    # the cluster chain (... wh, dz; B, T, H, C, rows, units, ksplit, dm),
-    # the reduction as the bidi entry's with dm last.
-    "clstm_lstm1_bwd_chain": [_P] * 6 + [_I] * 4 + [_P],
-    "clstm_lstm1_bwd_chain16": [_P] * 6 + [_I] * 8 + [_P],
-    "clstm_lstm1_bwd_bf16_scratch": [_I] * 6,
-    "clstm_lstm1_bwd_reduce_bf16": [_P, _I] + [_P] * 6 + [_I] * 9 + [_P],
+    # The forward (csrc/bidi_lstm_fwd.cu). The FMA kernel: x (or xz),
+    # lengths, wx, wh, y, gates, cell; B, T, D, H, the plan (C, rows,
+    # units, resident), hoist, emit, bf, dm. The tensor-core kernel, bf16
+    # only: the same pointers; B, T, D, H, the plan (C, rows, units),
+    # hoist, emit, dm. Their queries take D, H, hoist, [emit,] the plan and
+    # the FMA kernel's bf.
+    "clstm_lstm_fwd": [_P] * 7 + [_I] * 12 + [_P],
+    "clstm_lstm_fwd16": [_P] * 7 + [_I] * 10 + [_P],
+    "clstm_lstm_fwd_smem": [_I] * 8,
+    "clstm_lstm_fwd_clusters": [_I] * 9,
+    "clstm_lstm_fwd16_smem": [_I] * 7,
+    "clstm_lstm_fwd16_clusters": [_I] * 7,
+    # K2's chain (csrc/bidi_lstm_bwd.cu): lengths, gates, cell, gy, WhT (L2)
+    # or Wh (clusters), dz; B, T, H, then bf (L2) or the cluster plan (C,
+    # rows, units, ksplit), dm.
+    "clstm_lstm_bwd_hp": [_I],
+    "clstm_lstm_bwd_chain": [_P] * 6 + [_I] * 5 + [_P],
+    "clstm_lstm_bwd_chain16": [_P] * 6 + [_I] * 8 + [_P],
+    "clstm_lstm_bwd_chain16_smem": [_I] * 5,
+    "clstm_lstm_bwd_chain16_clusters": [_I] * 5,
+    # K2's reduction. f32, the pair's: x, y, dz, wx, scratch, dw, dx; B, T,
+    # D, H. bf16: x, whether x is bf16 (and dx then bf16), y, dz, wx (f32),
+    # scratch, dw, dx; B, T, D, H, the plan (nw, tt, spr, nwd), dm.
+    "clstm_lstm_bwd_scratch": [_I] * 4,
+    "clstm_lstm_bwd_reduce": [_P] * 7 + [_I] * 4 + [_P],
+    "clstm_lstm_bwd_bf16_scratch": [_I] * 7,
+    "clstm_lstm_bwd_reduce_bf16": [_P, _I] + [_P] * 6 + [_I] * 9 + [_P],
 }
 # Entry points that return a 64-bit count instead of a CUDA error.
-_LONG = {"clstm_bidi_lstm_bwd_scratch", "clstm_bidi_lstm_fwd_smem",
-         "clstm_bidi_lstm_fwd_bf16_smem", "clstm_bidi_lstm_bwd_bf16_scratch",
-         "clstm_bidi_lstm_bwd_chain16_smem", "clstm_bidi_lstm_fwd16_smem",
-         "clstm_lstm1_bwd_bf16_scratch"}
+_LONG = {"clstm_lstm_fwd_smem", "clstm_lstm_fwd16_smem",
+         "clstm_lstm_bwd_chain16_smem", "clstm_lstm_bwd_scratch",
+         "clstm_lstm_bwd_bf16_scratch"}
 _fns: dict = {}
+
+
+def _entry(lib: ctypes.CDLL, name: str):
+    """The C entry point ``name`` of ``lib``, typed from _SIGNATURES."""
+    fn = getattr(lib, name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_longlong if name in _LONG else ctypes.c_int
+    return fn
 
 
 def _kernel(name: str):
@@ -139,21 +126,37 @@ def _kernel(name: str):
     if fn is None:
         from clstm_tpu_torch.ops._build import load_library
 
-        fn = getattr(load_library(), name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_longlong if name in _LONG else ctypes.c_int
-        _fns[name] = fn
+        fn = _fns[name] = _entry(load_library(), name)
     return fn
+
+
+def _call(fn, name: str, device, args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def _launch(name: str, device, *args) -> None:
     """Call a C entry point on the current stream of ``device``; raise on
     the CUDA error it returns."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel(name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _call(_kernel(name), name, device, args)
+
+
+def launcher(lib: ctypes.CDLL):
+    """A ``launch`` for _fwd, _chain and bidi_lstm_bwd_reduce that calls the
+    entry points of ``lib``, another build of these sources with their C
+    interface (a measurement's or an instrumented build), as _launch calls
+    the package's."""
+    fns: dict = {}
+
+    def launch(name: str, device, *args) -> None:
+        fn = fns.get(name)
+        if fn is None:
+            fn = fns[name] = _entry(lib, name)
+        _call(fn, name, device, args)
+    return launch
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -528,7 +531,7 @@ def fwd16_ng(rows: int) -> int:
 def fwd16_smem(D: int, H: int, rows: int, units: int, hoist: bool,
                C: int, *, state: bool) -> int:
     """Bytes of dynamic shared memory a fwd16 CTA takes, 0 where the kernel
-    takes no such plan (clstm_bidi_lstm_fwd16_smem counts the same): C in
+    takes no such plan (clstm_lstm_fwd16_smem counts the same): C in
     FWD16_CLUSTER_SIZES or FWD16_WIDE_C with every CTA owning a unit, rows
     in FWD16_ROWS, units a multiple of FWD16_UNITS whose n tiles (units/2)
     the warps take at most fwd16_ng each, D even (0 with ``hoist``), within
@@ -725,7 +728,7 @@ def reduce_slices(B: int, T: int, tt: int) -> int:
 def reduce_scratch(B: int, T: int, D: int, H: int, tt: int, spr: int,
                    ndir: int = 2) -> int:
     """Bytes of the bf16 reduction's scratch at a plan (the layout of
-    csrc::red16; clstm_bidi_lstm_bwd_bf16_scratch counts the same): x
+    csrc::red16; clstm_lstm_bwd_bf16_scratch counts the same): x
     staged as [x | 1 | 0..] in bf16 [B·T, roundup(D+1, 64)] and y per
     direction in bf16 [B·T, 2, roundup(H, 64)] (whole tiles: a TMA box
     that a row's end cuts is slower); dz per direction [B·T, 2,
@@ -888,7 +891,7 @@ def chain_geometry(H: int, C: int, rows: int, units: int,
 
 def chain_smem(H: int, C: int, rows: int, units: int, ksplit: int = 1) -> int:
     """Bytes of dynamic shared memory a chain16 CTA takes, 0 where the
-    kernel takes no such plan (clstm_bidi_lstm_bwd_chain16_smem counts the
+    kernel takes no such plan (clstm_lstm_bwd_chain16_smem counts the
     same): C in CHAIN_CLUSTER_SIZES with every CTA owning a unit, rows in
     CHAIN_ROWS, a quad of units a thread (rows·ceil(units / CHAIN_QUAD)
     within CHAIN_THREADS), ksplit from 1 to the k tiles, within
@@ -1014,22 +1017,19 @@ _active: dict = {}
 _plans: dict = {}
 
 
-def card_clusters(lookup, D: int, H: int, hoist: bool, state: bool,
+def card_clusters(D: int, H: int, hoist: bool, state: bool,
                   esize: int = 4):
-    """``clusters`` for fwd_plan on the current card: the kernel's
-    occupancy query (``clstm_bidi_lstm_fwd_clusters``, or its bf16
-    instance's with ``esize`` 2, of the library that ``lookup`` looks entry
-    points up in), cached."""
-    name = ("clstm_bidi_lstm_fwd_bf16_clusters" if esize == 2
-            else "clstm_bidi_lstm_fwd_clusters")
-
+    """``clusters`` for fwd_plan on the current card: the occupancy query
+    of the kernel's instance of the mode (``clstm_lstm_fwd_clusters``; the
+    bf16 one with ``esize`` 2), cached."""
     def query(C, resident, rows, units):
-        key = (lookup, torch.cuda.current_device(), D, H, hoist, state,
-               C, resident, rows, units, esize)
+        key = (torch.cuda.current_device(), D, H, hoist, state, C, resident,
+               rows, units, esize)
         n = _active.get(key)
         if n is None:
-            n = lookup(name)(D, H, int(hoist), int(state), C, rows, units,
-                             resident)
+            n = _kernel("clstm_lstm_fwd_clusters")(
+                D, H, int(hoist), int(state), C, rows, units, resident,
+                int(esize == 2))
             if n < 1:
                 raise RuntimeError(f"the card holds no cluster of {C} CTAs "
                                    f"of {rows} rows and {units} units (the "
@@ -1043,14 +1043,13 @@ def device_plan(device, B: int, D: int, H: int, hoist: bool,
                 state: bool, esize: int = 4, ndir: int = 2) -> FwdPlan:
     """fwd_plan on ``device``'s card (its cluster occupancy), cached per
     device, shape and directions."""
-    key = (device, B, D, H, hoist, state, esize) + ((ndir,) if ndir != 2
-                                                     else ())
+    key = (device, B, D, H, hoist, state, esize, ndir)
     p = _plans.get(key)
     if p is None:
         with torch.cuda.device(device):
             p = fwd_plan(B, D, H, hoist, state,
-                         card_clusters(_kernel, D, H, hoist, state, esize),
-                         esize, ndir)
+                         card_clusters(D, H, hoist, state, esize), esize,
+                         ndir)
         _plans[key] = p
     return p
 
@@ -1058,14 +1057,14 @@ def device_plan(device, B: int, D: int, H: int, hoist: bool,
 def chain_clusters(device, H: int):
     """``clusters`` for chain_plan on ``device``'s card at H units: the
     chain16 kernel's occupancy query
-    (``clstm_bidi_lstm_bwd_chain16_clusters``), cached."""
+    (``clstm_lstm_bwd_chain16_clusters``), cached."""
     def query(C, rows, units, ksplit):
         k = ("chain16", device, H, C, rows, units, ksplit)
         n = _active.get(k)
         if n is None:
             with (torch.cuda.device(device) if device.type == "cuda"
                   else contextlib.nullcontext()):
-                n = _kernel("clstm_bidi_lstm_bwd_chain16_clusters")(
+                n = _kernel("clstm_lstm_bwd_chain16_clusters")(
                     H, C, rows, units, ksplit)
             if n < 1:
                 raise RuntimeError(
@@ -1081,7 +1080,7 @@ def device_chain_plan(device, B: int, T: int, H: int,
                       ndir: int = 2) -> ChainPlan:
     """chain_plan of the bf16 chain on ``device``'s card, cached per
     device, shape and directions."""
-    key = ("chain", device, B, T, H) + ((ndir,) if ndir != 2 else ())
+    key = ("chain", device, B, T, H, ndir)
     p = _plans.get(key)
     if p is None:
         p = chain_plan(B, T, H, 2, chain_clusters(device, H), ndir)
@@ -1092,7 +1091,7 @@ def device_chain_plan(device, B: int, T: int, H: int,
 def fwd16_clusters(device, D: int, H: int, hoist: bool, *, state: bool):
     """``clusters`` for fwd16_cluster_plan on ``device``'s card: the
     occupancy query of the fwd16 kernel's instance of the mode
-    (``clstm_bidi_lstm_fwd16_clusters``), cached; 0 where the card holds
+    (``clstm_lstm_fwd16_clusters``), cached; 0 where the card holds
     no such cluster (the plan skips it)."""
     def query(C, rows, units):
         k = ("fwd16", device, D, H, hoist, state, C, rows, units)
@@ -1100,7 +1099,7 @@ def fwd16_clusters(device, D: int, H: int, hoist: bool, *, state: bool):
         if n is None:
             with (torch.cuda.device(device) if device.type == "cuda"
                   else contextlib.nullcontext()):
-                n = _kernel("clstm_bidi_lstm_fwd16_clusters")(
+                n = _kernel("clstm_lstm_fwd16_clusters")(
                     0 if hoist else D, H, int(hoist), int(state), C, rows,
                     units)
             if n < 0:
@@ -1117,8 +1116,7 @@ def device_fwd16_plan(device, B: int, T: int, D: int, H: int,
                       ndir: int = 2) -> Fwd16Plan:
     """fwd16_plan on ``device``'s card, cached per device, shape, mode and
     directions."""
-    key = ("fwd16", device, B, T, D, H, hoist, state) + (
-        (ndir,) if ndir != 2 else ())
+    key = ("fwd16", device, B, T, D, H, hoist, state, ndir)
     p = _plans.get(key)
     if p is None:
         p = fwd16_plan(B, T, D, H, hoist,
@@ -1126,10 +1124,6 @@ def device_fwd16_plan(device, B: int, T: int, D: int, H: int,
                        state=state, ndir=ndir)
         _plans[key] = p
     return p
-
-
-def _plan_args(p: FwdPlan) -> tuple:
-    return p.C, p.rows, p.units, p.resident
 
 
 def _fwd(kind: str, plan, params_f: dict, params_r: Optional[dict],
@@ -1144,10 +1138,10 @@ def _fwd(kind: str, plan, params_f: dict, params_r: Optional[dict],
     bf16 only). An empty batch (B or T 0) launches nothing and
     returns empty outputs. ``launch(name, device, *args)`` calls the C
     entry point (by default ``_launch``; a measurement of another build
-    passes its own). ``dm``: the call's directions, 0 both (the bidi pair,
-    ``params_r`` the reversed one's), 1 the forward direction alone, 2 the
-    reversed one alone (``params_r`` None; the clstm_lstm1_* entries,
-    whose streams hold that direction: y [B, T, H], gates [B, T, 1, 4H])."""
+    passes its own, ``launcher``). ``dm``: the call's directions (_dm), 0
+    both (the bidi pair, ``params_r`` the reversed one's), 1 the forward
+    direction alone, 2 the reversed one alone (``params_r`` None; the
+    streams hold that direction: y [B, T, H], gates [B, T, 1, 4H])."""
     hoist, state = "xz" in kind, kind.endswith("state")
     if dm:
         _one_direction_bf16(bf16)
@@ -1166,7 +1160,6 @@ def _fwd(kind: str, plan, params_f: dict, params_r: Optional[dict],
                  torch.empty((B, T, nd, H), dtype=dt, device=dev)]
     if not (B and T):
         return tuple(outs) if state else outs[0]
-    shape = (B, T, H) if hoist else (B, T, D, H)
     if isinstance(plan, Fwd16Plan):
         if not (bf16 and plan.C):
             raise ValueError(f"the fwd16 kernel runs the bf16 mode, not "
@@ -1174,54 +1167,53 @@ def _fwd(kind: str, plan, params_f: dict, params_r: Optional[dict],
         # Its x and xz stages copy 4- and 8-byte pieces.
         inp = _aligned(inp)
         wx, wh = fwd16_weights(params_f, params_r, not hoist)
-        name = ("clstm_bidi_lstm_fwd16" + ("_xz" if hoist else "")
-                + ("_state" if state else ""))
-        args = (plan.C, plan.rows, plan.units)
+        name = "clstm_lstm_fwd16"
+        args = (plan.C, plan.rows, plan.units, int(hoist), int(state))
     else:
         wx, wh = fwd_weights(params_f, params_r, not hoist, bf16)
-        name = f"clstm_bidi_lstm_{kind}" + ("_bf16" if bf16 else "")
-        args = _plan_args(plan)
-    if dm:
-        # One direction: every pointer and the full shape, then the mode.
-        (launch or _launch)(
-            "clstm_lstm1_fwd16" if isinstance(plan, Fwd16Plan)
-            else "clstm_lstm1_fwd", dev, inp.data_ptr(), _ptr(lengths),
-            _ptr(wx), wh.data_ptr(), *(o.data_ptr() for o in outs),
-            *([0, 0] if not state else []), B, T, D, H, *args, int(hoist),
-            int(state), dm)
-        return tuple(outs) if state else outs[0]
-    (launch or _launch)(name, dev, inp.data_ptr(), _ptr(lengths),
-                        *([] if hoist else [wx.data_ptr()]), wh.data_ptr(),
-                        *(o.data_ptr() for o in outs), *shape, *args)
+        name = "clstm_lstm_fwd"
+        args = (plan.C, plan.rows, plan.units, plan.resident, int(hoist),
+                int(state), int(bf16))
+    (launch or _launch)(name, dev, inp.data_ptr(), _ptr(lengths), _ptr(wx),
+                        wh.data_ptr(), *(o.data_ptr() for o in outs),
+                        *([0, 0] if not state else []), B, T, D, H, *args,
+                        dm)
     return tuple(outs) if state else outs[0]
+
+
+def _fwd_plan(kind: str, inp: torch.Tensor, H: int, bf16: bool,
+              ndir: int = 2):
+    """The card's plan of a forward launch in mode ``kind`` (see _fwd) on x
+    or xz of ``ndir`` directions: in the bf16 mode the tensor-core kernel's
+    where device_fwd16_plan gives one, else the FMA kernel's
+    (device_plan)."""
+    hoist, state = "xz" in kind, kind.endswith("state")
+    dev = inp.device
+    B, T = inp.shape[:2]
+    D = 0 if hoist else inp.shape[-1] + (inp.shape[-1] % 2 if bf16 else 0)
+    plan = (device_fwd16_plan(dev, B, T, D, H, hoist, state=state,
+                              ndir=ndir) if bf16 else FWD16_NONE)
+    if plan.C:
+        return plan
+    return device_plan(dev, B, D, H, hoist, state, 2 if bf16 else 4, ndir)
 
 
 def _fwd_launch(kind: str, counter, params_f: dict, params_r: Optional[dict],
                 inp: torch.Tensor, lengths: Optional[torch.Tensor],
                 bf16: bool, dm: int = 0):
     """Launch the forward kernel in mode ``kind`` (see _fwd) on x or xz
-    (already checked) at the card's plan -> y, or (y, gates, cell) in the
-    state modes: in the bf16 mode on the tensor-core kernel where
-    device_fwd16_plan gives a plan, else the FMA kernel at device_plan's.
-    An empty batch launches nothing; a launch adds one to
-    ``counter.launches``, one of the tensor-core kernel also to
+    (already checked) at the card's plan (_fwd_plan) -> y, or (y, gates,
+    cell) in the state modes. An empty batch launches nothing; a launch
+    adds one to ``counter.launches``, one of the tensor-core kernel also to
     ``counter.launches16``, and one of one direction (``dm`` as _fwd's:
     the plans then count one direction's row groups) to
     ``counter.launches1``."""
-    hoist, state = "xz" in kind, kind.endswith("state")
     B, T = inp.shape[:2]
     if not (B and T):
         return _fwd(kind, None, params_f, params_r, inp, lengths, bf16,
                     dm=dm)
-    dev = inp.device
-    H = params_f["Wh"].shape[0]
-    D = 0 if hoist else inp.shape[-1] + (inp.shape[-1] % 2 if bf16 else 0)
-    one = {"ndir": 1} if dm else {}    # the pair's calls as they were
-    plan = (device_fwd16_plan(dev, B, T, D, H, hoist, state=state, **one)
-            if bf16 else FWD16_NONE)
-    if not plan.C:
-        plan = device_plan(dev, B, D, H, hoist, state, 2 if bf16 else 4,
-                           **one)
+    plan = _fwd_plan(kind, inp, params_f["Wh"].shape[0], bf16,
+                     1 if dm else 2)
     out = _fwd(kind, plan, params_f, params_r, inp, lengths, bf16, dm=dm)
     if isinstance(plan, Fwd16Plan):
         counter.launches16 += 1
@@ -1386,8 +1378,7 @@ def bidi_lstm_bwd_chain(gates: torch.Tensor, cell: torch.Tensor,
         _one_direction_bf16(xz_bf16)
     if B == 0 or T == 0:
         return torch.empty((B, T, n, G), dtype=dt, device=dev)
-    one = {"ndir": 1} if n == 1 else {}
-    plan = device_chain_plan(dev, B, T, H, **one) if xz_bf16 else CHAIN_L2
+    plan = device_chain_plan(dev, B, T, H, n) if xz_bf16 else CHAIN_L2
     dz = _chain(plan, gates, cell, gy, Wh2, lengths, xz_bf16,
                 _dm(n, reverse))
     if n == 1:
@@ -1397,11 +1388,11 @@ def bidi_lstm_bwd_chain(gates: torch.Tensor, cell: torch.Tensor,
 
 
 def _chain(plan: ChainPlan, gates, cell, gy, Wh2, lengths,
-           xz_bf16: bool, dm: int = 0) -> torch.Tensor:
+           xz_bf16: bool, dm: int = 0, launch=None) -> torch.Tensor:
     """One launch of K2's chain at ``plan`` on checked CUDA inputs (see
     bidi_lstm_bwd_chain), uncounted: the wrapper counts its own launches,
-    and measurements launch a forced plan here. ``dm`` as _fwd's (one
-    direction: the clstm_lstm1_* entries)."""
+    and measurements launch a forced plan here. ``dm`` and ``launch`` as
+    _fwd's."""
     B, T, n, G = gates.shape
     H = G // 4
     dev = gates.device
@@ -1410,29 +1401,21 @@ def _chain(plan: ChainPlan, gates, cell, gy, Wh2, lengths,
     dz = torch.empty((B, T, n, G), dtype=_stream_dtype(xz_bf16), device=dev)
     if plan.C:
         # The bf16 chain on clusters: Wh itself is its product's B operand.
-        wh = Wh2.detach().to(torch.bfloat16).contiguous()
-        gates, cell, gy = _aligned(gates), _aligned(cell), _aligned(gy)
-        args = (_ptr(lengths), gates.data_ptr(), cell.data_ptr(),
-                gy.data_ptr(), wh.data_ptr(), dz.data_ptr(), B, T, H, plan.C,
-                plan.rows, plan.units, plan.ksplit)
-        if dm:
-            _launch("clstm_lstm1_bwd_chain16", dev, *args, dm)
-        else:
-            _launch("clstm_bidi_lstm_bwd_chain16", dev, *args)
-        return dz
-    # The L2 branch. WhT [n, 4H, Hp]: Wh transposed, each row zero-padded
-    # to Hp units.
-    hp = _kernel("clstm_bidi_lstm_bwd_hp")(H)
-    whT = torch.zeros((n, 4 * H, hp), dtype=dz.dtype, device=dev)
-    whT[:, :, :H] = Wh2.detach().transpose(1, 2)
-    gates = _aligned(gates)
-    args = (_ptr(lengths), gates.data_ptr(), cell.data_ptr(), gy.data_ptr(),
-            whT.data_ptr(), dz.data_ptr(), B, T, H)
-    if dm:
-        _launch("clstm_lstm1_bwd_chain", dev, *args, dm)
+        w = Wh2.detach().to(torch.bfloat16).contiguous()
+        cell, gy = _aligned(cell), _aligned(gy)
+        name = "clstm_lstm_bwd_chain16"
+        args = (plan.C, plan.rows, plan.units, plan.ksplit)
     else:
-        _launch("clstm_bidi_lstm_bwd_chain" + ("_bf16" if xz_bf16 else ""),
-                dev, *args)
+        # The L2 branch. WhT [n, 4H, Hp]: Wh transposed, each row
+        # zero-padded to Hp units.
+        hp = _kernel("clstm_lstm_bwd_hp")(H)
+        w = torch.zeros((n, 4 * H, hp), dtype=dz.dtype, device=dev)
+        w[:, :, :H] = Wh2.detach().transpose(1, 2)
+        name, args = "clstm_lstm_bwd_chain", (int(xz_bf16),)
+    gates = _aligned(gates)
+    (launch or _launch)(name, dev, _ptr(lengths), gates.data_ptr(),
+                        cell.data_ptr(), gy.data_ptr(), w.data_ptr(),
+                        dz.data_ptr(), B, T, H, *args, dm)
     return dz
 
 
@@ -1474,33 +1457,49 @@ def bidi_lstm_bwd_reduce(x: torch.Tensor, y: torch.Tensor, dz: torch.Tensor,
     dm = _dm(n, reverse)
     if dm:
         _one_direction_bf16(xz_bf16)
-    M, G = D + 1 + H, 4 * H
-    dW = torch.empty((n, M, G), dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x) if need_dx else None
     if B == 0 or T == 0:
-        return dW.zero_(), None if dx is None else dx.zero_()
-    if xz_bf16:
-        plan = device_reduce_plan(dev, B, T, D, H,
-                                  **({"ndir": 1} if dm else {}))
-        scratch = torch.empty(plan.scratch, dtype=torch.uint8, device=dev)
-        dz, wx = _aligned(dz), Wx2.detach().contiguous()
-        _launch("clstm_lstm1_bwd_reduce_bf16" if dm else
-                "clstm_bidi_lstm_bwd_reduce_bf16", dev, x.data_ptr(),
-                int(x.dtype == torch.bfloat16), y.data_ptr(), dz.data_ptr(),
-                wx.data_ptr(), scratch.data_ptr(), dW.data_ptr(), _ptr(dx),
-                B, T, D, H, plan.nw, plan.tt, plan.spr, plan.nwd,
-                *((dm,) if dm else ()))
-    else:
-        scratch = torch.empty(
-            _kernel("clstm_bidi_lstm_bwd_scratch")(B, T, D, H),
-            dtype=torch.float32, device=dev)
-        dz, wx = _aligned(dz), _aligned(Wx2.detach())
-        _launch("clstm_bidi_lstm_bwd_reduce", dev, x.data_ptr(), y.data_ptr(),
-                dz.data_ptr(), wx.data_ptr(), scratch.data_ptr(),
-                dW.data_ptr(), _ptr(dx), B, T, D, H)
+        dW = torch.zeros((n, D + 1 + H, 4 * H), dtype=torch.float32,
+                         device=dev)
+        return dW, torch.zeros_like(x) if need_dx else None
+    plan = device_reduce_plan(dev, B, T, D, H, n) if xz_bf16 else None
+    dW, dx = _reduce(plan, x, y, dz, Wx2, need_dx, xz_bf16, dm)
     if dm:
         bidi_lstm_bwd_reduce.launches1 += 1
     bidi_lstm_bwd_reduce.launches += 1
+    return dW, dx
+
+
+def _reduce(plan: Optional[ReducePlan], x, y, dz, Wx2, need_dx: bool,
+            xz_bf16: bool, dm: int = 0, launch=None):
+    """One launch of K2's reduction on checked, non-empty CUDA inputs (see
+    bidi_lstm_bwd_reduce), uncounted: the wrapper counts its own launches,
+    and measurements launch a forced ``plan`` here (the bf16 mode's; the
+    f32 reduction takes none). ``dm`` and ``launch`` as _fwd's."""
+    n = dz.shape[2]
+    B, T, D = x.shape
+    H = dz.shape[3] // 4
+    dev = x.device
+    if dm:
+        _one_direction_bf16(xz_bf16)
+    dW = torch.empty((n, D + 1 + H, 4 * H), dtype=torch.float32,
+                     device=dev)
+    dx = torch.empty_like(x) if need_dx else None
+    launch = launch or _launch
+    if xz_bf16:
+        scratch = torch.empty(plan.scratch, dtype=torch.uint8, device=dev)
+        dz, wx = _aligned(dz), Wx2.detach().contiguous()
+        launch("clstm_lstm_bwd_reduce_bf16", dev, x.data_ptr(),
+               int(x.dtype == torch.bfloat16), y.data_ptr(), dz.data_ptr(),
+               wx.data_ptr(), scratch.data_ptr(), dW.data_ptr(), _ptr(dx),
+               B, T, D, H, plan.nw, plan.tt, plan.spr, plan.nwd, dm)
+    else:
+        scratch = torch.empty(
+            _kernel("clstm_lstm_bwd_scratch")(B, T, D, H),
+            dtype=torch.float32, device=dev)
+        dz, wx = _aligned(dz), _aligned(Wx2.detach())
+        launch("clstm_lstm_bwd_reduce", dev, x.data_ptr(), y.data_ptr(),
+               dz.data_ptr(), wx.data_ptr(), scratch.data_ptr(),
+               dW.data_ptr(), _ptr(dx), B, T, D, H)
     return dW, dx
 
 

@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """The bf16 mode's forward on the tensor cores (csrc/bidi_lstm_fwd.cu,
-fwd16_kernel): K1 and K4's state mode (clstm_bidi_lstm_fwd16_state and
-_xz_state, training) and K3 and K4 inference (clstm_bidi_lstm_fwd16 and
-_xz, serving) on the card, alone.
+fwd16_kernel, the C entry clstm_lstm_fwd16): K1 and K4's state mode
+(training) and K3 and K4 inference (serving) on the card, alone.
 
     python3 scripts/torch_fwd16_probe.py [--mode state|infer|both]
                                          [--fwd-against SRC] [--reps N]
@@ -112,9 +111,9 @@ def bench_inputs(dev, d: int, h: int, t: int = cs.T, lengths=None,
     return pf, pr, inp, hoist, L, kind, 0 if hoist else d + d % 2
 
 
-def fwd(kind: str, plan, pf, pr, inp, L):
+def fwd(kind: str, plan, pf, pr, inp, L, launch=None):
     """bk._fwd in the bf16 mode, its outputs as a tuple in either mode."""
-    out = bk._fwd(kind, plan, pf, pr, inp, L, True)
+    out = bk._fwd(kind, plan, pf, pr, inp, L, True, launch)
     return out if isinstance(out, tuple) else (out,)
 
 
@@ -129,12 +128,7 @@ def phase_clocks(card: str, dev, modes) -> dict:
                         str(_build.SRC_DIR / "bidi_lstm_fwd.cu")],
                        check=True, capture_output=True, timeout=900)
         lib = ctypes.CDLL(so)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.clstm_bidi_lstm_fwd16_state.argtypes = [P] * 7 + [I] * 7 + [P]
-    lib.clstm_bidi_lstm_fwd16_xz_state.argtypes = [P] * 6 + [I] * 6 + [P]
-    lib.clstm_bidi_lstm_fwd16.argtypes = [P] * 5 + [I] * 7 + [P]
-    lib.clstm_bidi_lstm_fwd16_xz.argtypes = [P] * 4 + [I] * 6 + [P]
-    lib.clstm_fwd16_phases.argtypes = [P, I]
+    lib.clstm_fwd16_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
     out = {}
     for state in modes:
         for label, d, h in BENCH[state]:
@@ -147,24 +141,7 @@ def phase_clocks_at(card: str, dev, lib, label: str, d: int, h: int,
     """phase_clocks at one bench shape and mode."""
     pf, pr, inp, hoist, L, kind, dk = bench_inputs(dev, d, h, state=state)
     p = bk.device_fwd16_plan(dev, cs.B, cs.T, dk, h, hoist, state=state)
-    if not hoist:
-        inp = bk._x_bf16(inp)
-    wx, wh = bk.fwd16_weights(pf, pr, not hoist)
-    y = torch.empty((cs.B, cs.T, 2 * h), dtype=torch.bfloat16, device=dev)
-    outs = [y]
-    if state:
-        outs += [torch.empty((cs.B, cs.T, 2, 4 * h), device=dev),
-                 torch.empty((cs.B, cs.T, 2, h), dtype=torch.bfloat16,
-                             device=dev)]
-    name = ("clstm_bidi_lstm_fwd16" + ("_xz" if hoist else "")
-            + ("_state" if state else ""))
-    ptrs = [inp.data_ptr(), L.data_ptr()] + ([] if hoist else [
-        wx.data_ptr()]) + [wh.data_ptr()] + [o.data_ptr() for o in outs]
-    ints = [cs.B, cs.T] + ([] if hoist else [dk]) + [h, p.C, p.rows, p.units]
-    err = getattr(lib, name)(*ptrs, *ints,
-                             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"instrumented fwd16: CUDA error {err}")
+    outs = fwd(kind, p, pf, pr, inp, L, bk.launcher(lib))
     torch.cuda.synchronize()
     ref = fwd(kind, p, pf, pr, inp, L)
     if not all(map(torch.equal, outs, ref)):
@@ -420,7 +397,7 @@ def main() -> int:
         res["ptxas"] = ptxas()
         for k, v in res["ptxas"].items():
             log(f"[ptxas] {k}: {v}")
-        fwd_against = (cs.load_fwd_against(args.fwd_against)
+        fwd_against = (cs.load_against(args.fwd_against)
                        if args.fwd_against else None)
         with torch.no_grad():
             for state in modes:

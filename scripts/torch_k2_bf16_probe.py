@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """K2's bf16 reduction (csrc/bidi_lstm_bwd.cu,
-clstm_bidi_lstm_bwd_reduce_bf16) on the card, alone.
+clstm_lstm_bwd_reduce_bf16) on the card, alone.
 
     python3 scripts/torch_k2_bf16_probe.py [--time] [--k2-against SRC]
                                            [--staging-turns] [--ptxas]
@@ -79,20 +79,13 @@ def streams(rng, shape, dev, lengths):
 
 
 def reduce_with(plan, x, y, dz, wx, need_dx):
-    """The bf16 reduction's C entry at a given plan (the wrapper's call)."""
+    """The bf16 reduction at a given plan (bk._reduce), its scratch sized
+    for the plan's slices."""
     B, T, D = x.shape
     H = y.shape[-1] // 2
-    dev = x.device
-    scratch = torch.empty(bk.reduce_scratch(B, T, D, H, plan.tt, plan.spr),
-                          dtype=torch.uint8, device=dev)
-    dW = torch.empty((2, D + 1 + H, 4 * H), dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x) if need_dx else None
-    bk._launch("clstm_bidi_lstm_bwd_reduce_bf16", dev, x.data_ptr(),
-               int(x.dtype == torch.bfloat16), y.data_ptr(), dz.data_ptr(),
-               wx.data_ptr(), scratch.data_ptr(), dW.data_ptr(),
-               bk._ptr(dx), B, T, D, H, plan.nw, plan.tt, plan.spr,
-               plan.nwd)
-    return dW, dx
+    plan = plan._replace(scratch=bk.reduce_scratch(B, T, D, H, plan.tt,
+                                                   plan.spr))
+    return bk._reduce(plan, x, y, dz, wx, need_dx, True)
 
 
 def variants(shape):
@@ -121,10 +114,10 @@ def check(shape, lengths, label: str) -> dict:
     x, y, dz, wx = streams(rng, shape, dev, lengths)
     L = (torch.full((B,), T, dtype=torch.int32, device=dev)
          if lengths is None else lengths)
-    lib = bk._kernel("clstm_bidi_lstm_bwd_bf16_scratch")
+    lib = bk._kernel("clstm_lstm_bwd_bf16_scratch")
     res = {}
     for name, plan in variants(shape).items():
-        n = lib(B, T, D, H, plan.tt, plan.spr)
+        n = lib(B, T, D, H, plan.tt, plan.spr, 0)
         if n != bk.reduce_scratch(B, T, D, H, plan.tt, plan.spr):
             raise AssertionError(f"{label} {name}: the C side counts {n} "
                                  "bytes of scratch, the plan another")
@@ -221,37 +214,23 @@ def staging_turns(card: str) -> dict:
                         "-I", str(_build.SRC_DIR), "-o",
                         so, cu], check=True, capture_output=True,
                        timeout=600)
-        lib = ctypes.CDLL(so)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.clstm_bidi_lstm_bwd_reduce_bf16.argtypes = ([P, I] + [P] * 6
-                                                    + [I] * 8 + [P])
-    lib.clstm_bidi_lstm_bwd_bf16_scratch.argtypes = [I] * 6
-    lib.clstm_bidi_lstm_bwd_bf16_scratch.restype = ctypes.c_longlong
+        launch = bk.launcher(ctypes.CDLL(so))
     for shape, need_dx in ((BIDI, False), (BIDI2_L1, False),
                            (BIDI2_L2, True)):
         B, T, D, H = shape
         x, y, dz, wx = streams(np.random.RandomState(9), shape, dev, None)
         if D == 2 * H:
             x = x.bfloat16()
-        p = bk.device_reduce_plan(dev, *shape)
-        scratch = torch.empty(lib.clstm_bidi_lstm_bwd_bf16_scratch(
-            B, T, D, H, p.tt, p.spr), dtype=torch.uint8, device=dev)
+        plan = bk.device_reduce_plan(dev, B, T, D, H, 2)
 
         def eight():
-            dW = torch.empty((2, D + 1 + H, 4 * H), device=dev)
-            dx = torch.empty_like(x) if need_dx else None
-            err = lib.clstm_bidi_lstm_bwd_reduce_bf16(
-                x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
-                dz.data_ptr(), wx.data_ptr(), scratch.data_ptr(),
-                dW.data_ptr(), bk._ptr(dx), B, T, D, H, p.nw, p.tt, p.spr,
-                p.nwd, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"the 8-column build: CUDA error {err}")
-            return dW, dx
+            # The current plan's scratch, which holds the 8-column
+            # build's smaller staged copies.
+            return bk._reduce(plan, x, y, dz, wx, need_dx, True,
+                              launch=launch)
 
         def cur():
-            return bk.bidi_lstm_bwd_reduce(x, y, dz, wx, need_dx,
-                                           xz_bf16=True)
+            return bk._reduce(plan, x, y, dz, wx, need_dx, True)
         a, b = eight(), cur()
         if not all(u is None or torch.equal(u, v) for u, v in zip(a, b)):
             raise AssertionError(f"{shape}: the staging variants differ")
@@ -313,7 +292,7 @@ def main() -> int:
     _build.load_library()
     if args.ptxas:
         ptxas()
-    k2_against = (cs.load_k2_against(args.k2_against) if args.k2_against
+    k2_against = (cs.load_against(args.k2_against) if args.k2_against
                   else None)
     rng = np.random.RandomState(3)
     dev = torch.device("cuda")

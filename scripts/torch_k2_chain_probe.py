@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K2's bf16 chain (csrc/bidi_lstm_bwd.cu, clstm_bidi_lstm_bwd_chain16 and
-its L2 branch clstm_bidi_lstm_bwd_chain_bf16) on the card, alone.
+"""K2's bf16 chain (csrc/bidi_lstm_bwd.cu, clstm_lstm_bwd_chain16 and its
+L2 branch, clstm_lstm_bwd_chain in the bf16 mode) on the card, alone.
 
     python3 scripts/torch_k2_chain_probe.py [--k2-against SRC] [--reps N]
                                             [--phases] [--t-sweep]
@@ -192,23 +192,14 @@ def phase_clocks(card: str, dev) -> dict:
                         "-I", str(_build.SRC_DIR), "-o",
                         so, cu], check=True, capture_output=True, timeout=900)
         lib = ctypes.CDLL(so)
-    fn = lib.clstm_bidi_lstm_bwd_chain16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+    launch = bk.launcher(lib)
     out = {}
     for label, b, t, h in cs.CHAIN16_SHAPES[1:]:
         rng = np.random.RandomState(8)
         L = torch.full((b,), cs.TRUE_T, dtype=torch.int32, device=dev)
         g, c, gy, wh = cs.chain_inputs(rng, b, t, h, L, dev)
-        wh16 = wh.to(torch.bfloat16).contiguous()
         p = bk.device_chain_plan(dev, b, t, h)
-        dz = torch.empty((b, t, 2, 4 * h), dtype=torch.bfloat16, device=dev)
-        err = fn(L.data_ptr(), g.data_ptr(), c.data_ptr(), gy.data_ptr(),
-                 wh16.data_ptr(), dz.data_ptr(), b, t, h, p.C, p.rows,
-                 p.units, p.ksplit,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"instrumented chain: CUDA error {err}")
+        dz = bk._chain(p, g, c, gy, wh, L, True, launch=launch)
         torch.cuda.synchronize()
         ref = bk.bidi_lstm_bwd_chain(g, c, gy, wh, L, xz_bf16=True)
         if not torch.equal(dz, ref):
@@ -440,7 +431,7 @@ def main() -> int:
         res["ptxas"] = ptxas()
         for k, v in res["ptxas"].items():
             log(f"[ptxas] {k}: {v}")
-        k2_against = (cs.load_k2_against(args.k2_against)
+        k2_against = (cs.load_against(args.k2_against)
                       if args.k2_against else None)
         res["turns"] = cs.chain16_turns(dev, card, k2_against, args.reps)
         res["plans"] = plan_alternatives(card, dev, args.reps)

@@ -588,11 +588,12 @@ def test_torch_launch_counted_only_where_launched(bf16, monkeypatch):
     launched = []
     monkeypatch.setattr(bk, "_check_device", lambda device: None)
     monkeypatch.setattr(bk, "_launch",
-                        lambda name, device, *args: launched.append(name))
+                        lambda name, device, *args: launched.append(
+                            (name, args)))
     monkeypatch.setattr(bk, "_kernel", lambda name: lambda *args: 16)
     monkeypatch.setattr(
-        bk, "device_plan", lambda device, B, D, H, hoist, state, esize:
-        bk.fwd_plan(B, D, H, hoist, state, esize=esize))
+        bk, "device_plan", lambda device, B, D, H, hoist, state, esize,
+        ndir: bk.fwd_plan(B, D, H, hoist, state, esize=esize, ndir=ndir))
     for name in _counted_calls(1, 1, bf16):
         monkeypatch.setattr(getattr(bk, name), "launches", 0)
     for B, T in ((0, 4), (3, 0)):
@@ -600,19 +601,26 @@ def test_torch_launch_counted_only_where_launched(bf16, monkeypatch):
             call()
             assert getattr(bk, name).launches == 0, (name, B, T)
     assert not launched
-    entry = {"bidi_lstm_infer": "fwd", "bidi_lstm_fwd_state": "fwd_state",
-             "bidi_lstm_infer_xz": "fwd_xz",
-             "bidi_lstm_fwd_state_xz": "fwd_xz_state",
-             "bidi_lstm_bwd_chain": "bwd_chain",
-             "bidi_lstm_bwd_reduce": "bwd_reduce"}
-    names = {k: "clstm_bidi_lstm_" + v + ("_bf16" if bf16 else "")
-             for k, v in entry.items()}
-    if bf16:
-        # The bf16 chain runs on thread-block clusters where chain_plan
-        # gives a cluster plan (every width below several hundred units).
-        names["bidi_lstm_bwd_chain"] = "clstm_bidi_lstm_bwd_chain16"
+    # Each wrapper's entry and its trailing mode arguments: the forward's
+    # (hoist, emit, bf, dm) on the FMA kernel (T=4 is inside
+    # fwd16_prefers_old's window), the L2 chain's (bf, dm), and in the bf16
+    # mode the chain on thread-block clusters (chain_plan gives a cluster
+    # plan at every width below several hundred units) and the bf16
+    # reduction with dm; the f32 reduction takes no mode.
+    bf = int(bf16)
+    entry = {"bidi_lstm_infer": ("clstm_lstm_fwd", (0, 0, bf, 0)),
+             "bidi_lstm_fwd_state": ("clstm_lstm_fwd", (0, 1, bf, 0)),
+             "bidi_lstm_infer_xz": ("clstm_lstm_fwd", (1, 0, bf, 0)),
+             "bidi_lstm_fwd_state_xz": ("clstm_lstm_fwd", (1, 1, bf, 0)),
+             "bidi_lstm_bwd_chain": (("clstm_lstm_bwd_chain16", (0,)) if bf16
+                                     else ("clstm_lstm_bwd_chain", (0, 0))),
+             "bidi_lstm_bwd_reduce": (("clstm_lstm_bwd_reduce_bf16", (0,))
+                                      if bf16 else
+                                      ("clstm_lstm_bwd_reduce", ()))}
     for name, call in _counted_calls(3, 4, bf16).items():
         call()
         assert getattr(bk, name).launches == 1, name
-        assert launched[-1] == names[name]
+        got, args = launched[-1]
+        want, mode = entry[name]
+        assert (got, args[len(args) - len(mode):]) == (want, mode), name
     assert len(launched) == 6

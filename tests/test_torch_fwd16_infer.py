@@ -1,7 +1,6 @@
 """K3 and K4 inference in the bf16 mode on the tensor cores
-(csrc/bidi_lstm_fwd.cu, fwd16_kernel with EMIT=false: the C entries
-clstm_bidi_lstm_fwd16 and clstm_bidi_lstm_fwd16_xz; the serving path) and
-their plan, on CPU.
+(csrc/bidi_lstm_fwd.cu, fwd16_kernel with EMIT=false: the C entry
+clstm_lstm_fwd16 with emit 0; the serving path) and their plan, on CPU.
 
 The kernel cannot run here, so what surrounds it is held instead, as
 tests/test_torch_fwd16_plan.py does for the state mode: the no-state
@@ -124,36 +123,38 @@ def test_torch_fwd16_infer_plan_window(T, H):
 
 
 # (T, hoist, H) -> the C entry a bf16 inference call of B=3, D=6 (K3)
-# launches: the fwd16 kernel past the window, the FMA kernel's bf16
-# instance inside it and where no fwd16 plan fits (H = 700).
-ROUTE_INFER = {(64, False, 5): "clstm_bidi_lstm_fwd16",
-               (64, True, 5): "clstm_bidi_lstm_fwd16_xz",
-               (4, False, 5): "clstm_bidi_lstm_fwd_bf16",
-               (4, True, 5): "clstm_bidi_lstm_fwd_xz_bf16",
-               (64, False, 700): "clstm_bidi_lstm_fwd_bf16",
-               (64, True, 700): "clstm_bidi_lstm_fwd_xz_bf16"}
+# launches and its trailing mode arguments (hoist, emit, [bf,] dm): the
+# fwd16 kernel past the window, the FMA kernel's bf16 instance inside it
+# and where no fwd16 plan fits (H = 700).
+ROUTE_INFER = {(64, False, 5): ("clstm_lstm_fwd16", (0, 0, 0)),
+               (64, True, 5): ("clstm_lstm_fwd16", (1, 0, 0)),
+               (4, False, 5): ("clstm_lstm_fwd", (0, 0, 1, 0)),
+               (4, True, 5): ("clstm_lstm_fwd", (1, 0, 1, 0)),
+               (64, False, 700): ("clstm_lstm_fwd", (0, 0, 1, 0)),
+               (64, True, 700): ("clstm_lstm_fwd", (1, 0, 1, 0))}
 
 
 @pytest.mark.parametrize("T,hoist,H", sorted(ROUTE_INFER))
 def test_torch_fwd16_infer_route_and_counts(T, hoist, H, monkeypatch):
     """bidi_lstm_infer (K3) and bidi_lstm_infer_xz (K4) in the bf16 mode
-    launch the entry of the plan's kernel once a call, add one to
-    ``launches`` and, on the fwd16 kernel, one to ``launches16``, with the
-    plan's (C, rows, units) after the shapes; the f32 mode never takes the
-    fwd16 kernel, and a Fwd16Plan forced on an f32 call raises; an empty
+    launch the entry of the plan's kernel once a call, in the mode (hoist,
+    emit 0, the bf16 flag, dm 0), add one to ``launches`` and, on the fwd16
+    kernel, one to ``launches16``, with the plan's (C, rows, units) after
+    the shapes; the f32 mode never takes the fwd16 kernel (the FMA entry
+    with bf 0), and a Fwd16Plan forced on an f32 call raises; an empty
     batch launches and counts nothing. The wrappers run on meta tensors
     with the C entry points replaced by a recorder."""
     launched = []
     monkeypatch.setattr(bk, "_check_device", lambda device: None)
     monkeypatch.setattr(bk, "_launch",
                         lambda name, device, *args: launched.append(
-                            (name, args[-3:])))
+                            (name, args)))
     monkeypatch.setattr(
-        bk, "device_plan", lambda device, B, D, H, hoist, state, esize:
-        bk.fwd_plan(B, D, H, hoist, state, esize=esize))
+        bk, "device_plan", lambda device, B, D, H, hoist, state, esize,
+        ndir: bk.fwd_plan(B, D, H, hoist, state, esize=esize, ndir=ndir))
     monkeypatch.setattr(
-        bk, "device_fwd16_plan", lambda device, B, T, D, H, hoist, *, state:
-        bk.fwd16_plan(B, T, D, H, hoist, state=state))
+        bk, "device_fwd16_plan", lambda device, B, T, D, H, hoist, *, state,
+        ndir: bk.fwd16_plan(B, T, D, H, hoist, state=state, ndir=ndir))
     D = 6
     wrapper = bk.bidi_lstm_infer_xz if hoist else bk.bidi_lstm_infer
     for w in (bk.bidi_lstm_infer, bk.bidi_lstm_infer_xz):
@@ -178,14 +179,16 @@ def test_torch_fwd16_infer_route_and_counts(T, hoist, H, monkeypatch):
     plan = bk.fwd16_plan(3, T, 0 if hoist else D, H, hoist, state=False)
     y = call(3, T, True)
     assert y.dtype == torch.bfloat16 and y.shape == (3, T, 2 * H)
-    assert [n for n, _ in launched] == [ROUTE_INFER[(T, hoist, H)]]
+    entry, mode = ROUTE_INFER[(T, hoist, H)]
+    assert [(n, a[len(a) - len(mode):]) for n, a in launched] == [
+        (entry, mode)]
     assert wrapper.launches == 1
     assert wrapper.launches16 == (1 if plan.C else 0)
     if plan.C:
-        assert launched[0][1] == (plan.C, plan.rows, plan.units)
+        assert launched[0][1][11:14] == (plan.C, plan.rows, plan.units)
     call(3, T, False)
-    assert launched[-1][0] == ("clstm_bidi_lstm_fwd_xz" if hoist
-                               else "clstm_bidi_lstm_fwd")
+    assert (launched[-1][0], launched[-1][1][-4:]) == (
+        "clstm_lstm_fwd", (int(hoist), 0, 0, 0))
     assert wrapper.launches == 2 and wrapper.launches16 == (1 if plan.C
                                                             else 0)
     if plan.C:

@@ -377,33 +377,35 @@ def test_torch_fwd16_plan_follows_the_card():
                                  state=True) == bk.FWD16_NONE
 
 
-# (T, hoist) -> the C entry a bf16 call of B=3, D=6 (K1) and H=5 launches:
-# the fwd16 kernel past the window, the FMA kernel's bf16 instance inside it.
-ROUTE = {(64, False): "clstm_bidi_lstm_fwd16_state",
-         (64, True): "clstm_bidi_lstm_fwd16_xz_state",
-         (4, False): "clstm_bidi_lstm_fwd_state_bf16",
-         (4, True): "clstm_bidi_lstm_fwd_xz_state_bf16"}
+# (T, hoist) -> the C entry a bf16 call of B=3, D=6 (K1) and H=5 launches
+# and its trailing mode arguments (hoist, emit, [bf,] dm): the fwd16 kernel
+# past the window, the FMA kernel's bf16 instance inside it.
+ROUTE = {(64, False): ("clstm_lstm_fwd16", (0, 1, 0)),
+         (64, True): ("clstm_lstm_fwd16", (1, 1, 0)),
+         (4, False): ("clstm_lstm_fwd", (0, 1, 1, 0)),
+         (4, True): ("clstm_lstm_fwd", (1, 1, 1, 0))}
 
 
 @pytest.mark.parametrize("T,hoist", sorted(ROUTE))
 def test_torch_fwd16_launch_route_and_counts(T, hoist, monkeypatch):
     """bidi_lstm_fwd_state (K1) and bidi_lstm_fwd_state_xz (K4's state
     mode) in the bf16 mode launch the entry of the plan's kernel once a
-    call, add one to ``launches`` and, on the fwd16 kernel, one to
-    ``launches16``; the same wrapper in the f32 mode never takes the fwd16
-    kernel; an empty batch launches and counts nothing. The wrappers run on
-    meta tensors with the C entry points replaced by a recorder."""
+    call, in the mode (hoist, emit 1, the bf16 flag, dm 0), add one to
+    ``launches`` and, on the fwd16 kernel, one to ``launches16``; the same
+    wrapper in the f32 mode never takes the fwd16 kernel (the FMA entry
+    with bf 0); an empty batch launches and counts nothing. The wrappers
+    run on meta tensors with the C entry points replaced by a recorder."""
     launched = []
     monkeypatch.setattr(bk, "_check_device", lambda device: None)
     monkeypatch.setattr(bk, "_launch",
                         lambda name, device, *args: launched.append(
-                            (name, args[-3:])))
+                            (name, args)))
     monkeypatch.setattr(
-        bk, "device_plan", lambda device, B, D, H, hoist, state, esize:
-        bk.fwd_plan(B, D, H, hoist, state, esize=esize))
+        bk, "device_plan", lambda device, B, D, H, hoist, state, esize,
+        ndir: bk.fwd_plan(B, D, H, hoist, state, esize=esize, ndir=ndir))
     monkeypatch.setattr(
-        bk, "device_fwd16_plan", lambda device, B, T, D, H, hoist, *, state:
-        bk.fwd16_plan(B, T, D, H, hoist, state=state))
+        bk, "device_fwd16_plan", lambda device, B, T, D, H, hoist, *, state,
+        ndir: bk.fwd16_plan(B, T, D, H, hoist, state=state, ndir=ndir))
     D, H = 6, 5
     wrapper = bk.bidi_lstm_fwd_state_xz if hoist else bk.bidi_lstm_fwd_state
     monkeypatch.setattr(wrapper, "launches", 0)
@@ -427,14 +429,16 @@ def test_torch_fwd16_launch_route_and_counts(T, hoist, monkeypatch):
     y, gates, cell = call(3, T, True)
     assert (y.dtype, gates.dtype, cell.dtype) == (
         torch.bfloat16, torch.float32, torch.bfloat16)
-    assert [n for n, _ in launched] == [ROUTE[(T, hoist)]]
+    entry, mode = ROUTE[(T, hoist)]
+    assert [(n, a[len(a) - len(mode):]) for n, a in launched] == [
+        (entry, mode)]
     assert wrapper.launches == 1
     assert wrapper.launches16 == (1 if plan.C else 0)
     if plan.C:
-        assert launched[0][1] == (plan.C, plan.rows, plan.units)
+        assert launched[0][1][11:14] == (plan.C, plan.rows, plan.units)
     call(3, T, False)
-    assert launched[-1][0] == ("clstm_bidi_lstm_fwd_xz_state" if hoist
-                               else "clstm_bidi_lstm_fwd_state")
+    assert (launched[-1][0], launched[-1][1][-4:]) == (
+        "clstm_lstm_fwd", (int(hoist), 1, 0, 0))
     assert wrapper.launches == 2 and wrapper.launches16 == (1 if plan.C
                                                             else 0)
 

@@ -6,6 +6,10 @@ and against the JAX scan; inputs come from numpy so both packages see the
 same numbers.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -17,6 +21,7 @@ from clstm_tpu.ops import lstm as jlstm  # noqa: E402
 from clstm_tpu.ops import nonlin as jnonlin  # noqa: E402
 from clstm_tpu.ops import seq as jseq  # noqa: E402
 from clstm_tpu.ops.pallas_lstm import bidi_lstm_pallas  # noqa: E402
+from clstm_tpu_torch.ops import bidi_lstm_kernel as bk  # noqa: E402
 from clstm_tpu_torch.ops import lstm as tlstm  # noqa: E402
 from clstm_tpu_torch.ops import nonlin as tnonlin  # noqa: E402
 from clstm_tpu_torch.ops import seq as tseq  # noqa: E402
@@ -164,3 +169,33 @@ def test_torch_bidi_wrapper_cpu_counts_no_launch():
     bidi_lstm_infer(_t(pf), _t(pr), torch.from_numpy(x),
                     torch.from_numpy(lengths))
     assert bidi_lstm_infer.launches == before
+
+
+def _c_entries() -> dict:
+    """The ``extern "C"`` entry points of csrc/*.cu: name -> (returns a
+    64-bit count, [whether each argument is a pointer])."""
+    src = "\n".join(p.read_text() for p in sorted(
+        (Path(__file__).resolve().parent.parent / "clstm_tpu_torch" /
+         "csrc").glob("*.cu")))
+    out = {}
+    for ret, name, args in re.findall(
+            r'extern "C" (int|long long) (\w+)\(([^)]*)\)', src):
+        out[name] = (ret == "long long",
+                     ["*" in a for a in args.split(",") if a.strip()])
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(bk._SIGNATURES))
+def test_torch_lstm_c_table_matches_sources(name):
+    """Each entry of the LSTM kernels' ctypes table (_SIGNATURES, _LONG) is
+    an extern "C" function of csrc/*.cu with the same arguments (a pointer
+    where the table has c_void_p, an int where it has c_int) and a 64-bit
+    return exactly where _LONG says; and every LSTM entry point of the
+    sources is in the table."""
+    entries = _c_entries()
+    lstm = {n for n in entries
+            if n.startswith(("clstm_lstm_", "clstm_bidi_lstm_"))}
+    assert lstm == set(bk._SIGNATURES)
+    long_ret, ptrs = entries[name]
+    assert long_ret == (name in bk._LONG)
+    assert ptrs == [t is ctypes.c_void_p for t in bk._SIGNATURES[name]]

@@ -237,11 +237,12 @@ def test_one_direction_plain_versions_match_the_plain_loop(reverse):
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_one_direction_launches_its_entries_and_counts(reverse, monkeypatch):
-    """A lone layer in the bf16 mode launches the one-direction C entries
-    (clstm_lstm1_*) with its directions last (1 forward, 2 reversed), one
-    direction's streams out, and adds one to each wrapper's ``launches``
-    and ``launches1``; the bidi pair takes its own entries with no
-    directions argument and leaves ``launches1`` alone; one direction in
+    """A lone layer in the bf16 mode launches each kernel's C entry in its
+    mode (the forward's hoist and emit, the bf16 flag) with its directions
+    last (1 forward, 2 reversed), one direction's streams out, and adds one
+    to each wrapper's ``launches`` and ``launches1``; the bidi pair takes
+    the same entry with directions 0 and leaves ``launches1`` alone; one
+    direction in
     strict f32 raises (a lone layer then runs lstm_apply: one_direction
     holds in the bf16 mode only). The wrappers run on meta tensors with the
     C entry points replaced by a recorder, the plans at an H100's."""
@@ -252,14 +253,14 @@ def test_one_direction_launches_its_entries_and_counts(reverse, monkeypatch):
     monkeypatch.setattr(bk, "_kernel", lambda name: lambda *args: 16)
     monkeypatch.setattr(
         bk, "device_plan", lambda device, B, D, H, hoist, state, esize,
-        ndir=2: bk.fwd_plan(B, D, H, hoist, state, esize=esize, ndir=ndir))
+        ndir: bk.fwd_plan(B, D, H, hoist, state, esize=esize, ndir=ndir))
     monkeypatch.setattr(
         bk, "device_fwd16_plan", lambda device, B, T, D, H, hoist, *, state,
-        ndir=2: bk.fwd16_plan(B, T, D, H, hoist, state=state, ndir=ndir))
+        ndir: bk.fwd16_plan(B, T, D, H, hoist, state=state, ndir=ndir))
     monkeypatch.setattr(bk, "device_chain_plan", lambda device, B, T, H,
-                        ndir=2: bk.chain_plan(B, T, H, ndir=ndir))
+                        ndir: bk.chain_plan(B, T, H, ndir=ndir))
     monkeypatch.setattr(bk, "device_reduce_plan", lambda device, B, T, D, H,
-                        ndir=2: bk.reduce_plan(B, T, D, H, ndir=ndir))
+                        ndir: bk.reduce_plan(B, T, D, H, ndir=ndir))
     wrappers = (bk.bidi_lstm_infer, bk.bidi_lstm_fwd_state,
                 bk.bidi_lstm_infer_xz, bk.bidi_lstm_fwd_state_xz,
                 bk.bidi_lstm_bwd_chain, bk.bidi_lstm_bwd_reduce)
@@ -293,13 +294,23 @@ def test_one_direction_launches_its_entries_and_counts(reverse, monkeypatch):
     dW, dx = bk.bidi_lstm_bwd_reduce(x, y, dz, m(1, D, 4 * H), True,
                                      xz_bf16=True, reverse=reverse)
     assert dW.shape == (1, D + 1 + H, 4 * H) and dx.shape == x.shape
+    # At B=3, T=5 the forward plans are the FMA kernel's
+    # (fwd16_prefers_old) and the chain's a cluster plan: each entry with its
+    # trailing mode arguments, (hoist, emit, bf, dm) for the forward.
+    want = [("clstm_lstm_fwd", (0, 1, 1, dm)),
+            ("clstm_lstm_fwd", (0, 0, 1, dm)),
+            ("clstm_lstm_fwd", (1, 0, 1, dm)),
+            ("clstm_lstm_fwd", (1, 1, 1, dm)),
+            ("clstm_lstm_bwd_chain16", (dm,)),
+            ("clstm_lstm_bwd_reduce_bf16", (dm,))]
     assert len(launched) == 6
-    for name, args in launched:
-        assert name.startswith("clstm_lstm1_") and args[-1] == dm, name
+    assert [(n, a[len(a) - len(m):])
+            for (n, a), (_, m) in zip(launched, want)] == want
     for w in wrappers:
         assert w.launches == w.launches1 == 1, w.__name__
     bk.bidi_lstm_fwd_state(p, p, x, xz_bf16=True)
-    assert launched[-1][0].startswith("clstm_bidi_lstm_fwd")
+    assert (launched[-1][0], launched[-1][1][-4:]) == ("clstm_lstm_fwd",
+                                                      (0, 1, 1, 0))
     assert bk.bidi_lstm_fwd_state.launches == 2
     assert bk.bidi_lstm_fwd_state.launches1 == 1
     with pytest.raises(ValueError):
